@@ -7,33 +7,53 @@ Run from the repository root, with no arguments:
 
 Phases (any failure exits non-zero and prints no ok line):
  1. device: the card's name and power limit (nvidia-smi);
- 2. build: both CUDA kernels, from pycmf_tpu_torch/csrc;
- 3. each kernel against its plain PyTorch version at the main-path shapes
-    (X 30000 x 11314, k = 20), X in bf16 and in f32, with CUDA-event times;
+ 2. build: the four CUDA kernel libraries (five kernels), from
+    pycmf_tpu_torch/csrc;
+ 3. each kernel against its plain PyTorch version on the same inputs, with
+    CUDA-event times and the card's lower bound for the same work:
+    K1, K2 at X 30000 x 11314 (bf16 and f32), k = 20; K3, K4 at the main
+    path's Z shape (Y^T 20 x 11314, bf16) and at the dense sigmoid-X shape
+    (30000 x 11314, bf16 and f32); K5 at 11314 and 30000 systems of 20 x 20,
+    beside torch.linalg.solve;
  4. MU fit of the 20NG-shaped surrogate, bf16 X, through the estimator:
     kernel launches, and the exact (float64) loss non-increasing along the
     fit, replayed as warm-started segments;
- 5. the same for a Newton fit (linear links) of the same data;
- 6. kernel path versus plain path on the card (20 iterations each solver),
-    and phase 4's final loss against the NumPy baseline (2% guard);
- 7. transform of 1000 new rows.
-Standard output ends with the fits' record, the card's name and power
-limit, the kernels' JSON record and, last, {"ok": true, "device": {...}}.
-Details go to standard error.
+ 5. the same for a Newton fit with linear links;
+ 6. path A, bench.py's Newton cell: linear X, sigmoid Y (K2, K3, K4, K5);
+ 7. path B, dense sigmoid X and Y on the binarised surrogate (K3, K4, K5),
+    its phi eval loss against an exact float64 loss taken on the card;
+    then Newton linear and paths A and B under torch.profiler (device time
+    by kernel, idle share, launches per iteration);
+ 8. kernel path against plain path on the card for each fit, and the final
+    losses of MU and path A against the NumPy baselines (2% guard);
+ 9. transform of 1000 new rows.
+Each fit is run with the launch counts set to 0 just before it and read
+just after. Standard output ends with the fits' record, the card's name and
+power limit, the kernels' JSON record and, last, {"ok": true, ...}.
+Details go to standard error. ``python3 -m pycmf_tpu_torch.chip_ab``
+times phase 3's K3, K4 and K5 in several checkouts.
 """
 from __future__ import annotations
 
 import json
 import math
+import multiprocessing
 import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ProcessPoolExecutor
+from contextlib import ExitStack
 from unittest import mock
 
 N, M, K = 30000, 11314, 20
 SEED = 0
 QUALITY_BAR = 0.02   # bench.py's equal-final-loss guard
+TRIALS = 8
+# H100 SXM data sheet rates
+HBM_BPS = 3.35e12
+F32_FLOPS = 67e12
+BF16_FLOPS = 989e12
 
 
 def log(msg: str) -> None:
@@ -51,8 +71,9 @@ class Checks:
         return ok
 
 
-def time_ms(fn, warmup: int = 2, reps: int = 10) -> float:
-    """Median CUDA-event time of fn() in ms, after warm-up."""
+def time_ms(fn, warmup: int = 2, reps: int = 10, flush=None) -> float:
+    """Median CUDA-event time of fn() in ms, after warm-up; flush() (not
+    timed) runs before each timed call."""
     import torch
 
     for _ in range(warmup):
@@ -60,6 +81,8 @@ def time_ms(fn, warmup: int = 2, reps: int = 10) -> float:
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
+        if flush is not None:
+            flush()
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -71,12 +94,28 @@ def time_ms(fn, warmup: int = 2, reps: int = 10) -> float:
     return times[len(times) // 2]
 
 
+def bound(nbytes: float, flops: float, peak: float) -> tuple:
+    """(least ms for the work on this card, what bounds it)."""
+    t_bytes, t_ops = nbytes / HBM_BPS, flops / peak
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
 def rel_fro(a, b) -> float:
     return float((a - b).double().norm() / b.double().norm())
 
 
-def kernel_phase(check, torch, mu_fused, newton_fused):
-    """Phase 3: each kernel against its plain version, bf16 and f32 X."""
+def selected_slot(phis):
+    """Per row: the first slot t >= 1 with phi[t] < phi[0], else 0."""
+    import torch
+
+    acc = phis[:, 1:] < phis[:, :1]
+    first = acc.to(torch.int8).argmax(dim=1) + 1
+    return torch.where(acc.any(dim=1), first, torch.zeros_like(first))
+
+
+def u_pass_phase(check, torch, mu_fused, newton_fused):
+    """Phase 3, K1 and K2: each against its plain version, bf16 and f32 X."""
     import numpy as np
 
     rng = np.random.RandomState(SEED)
@@ -93,7 +132,7 @@ def kernel_phase(check, torch, mu_fused, newton_fused):
     Vn = torch.from_numpy(rng.randn(M, K).astype(np.float32)).to(dev)
     Xn32 = Ut @ Vn.T + (X32 - 0.5)
     del Ut
-    l1, l2, eps, pert, trials = 1e-3, 2e-3, 1e-10, 0.2, 8
+    l1, l2, eps, pert = 1e-3, 2e-3, 1e-10, 0.2
     VtV = V.T @ V
     BtB = Vn.T @ Vn
     L = torch.linalg.cholesky(BtB + (l2 + pert) * torch.eye(K, device=dev))
@@ -103,6 +142,10 @@ def kernel_phase(check, torch, mu_fused, newton_fused):
                         ("float32", lambda a: a)):
         X, Xn = cast(X32), cast(Xn32)
         row_sq = (Xn.float() ** 2).sum(dim=1)
+        xb = X.element_size()
+        nbytes = N * M * xb + 4 * (3 * N * K + 2 * M * K + 2 * K * K)
+        flops = 4.0 * N * M * K
+        bms, bby = bound(nbytes, flops, BF16_FLOPS if xb == 2 else F32_FLOPS)
         log(f"phase 3: X {xname}")
         # K1
         out = mu_fused.fused_mu_u_pass(X, U, V, VtV, l1, l2, eps)
@@ -119,11 +162,12 @@ def kernel_phase(check, torch, mu_fused, newton_fused):
                                                        eps))
         pms = time_ms(lambda: mu_fused.fused_mu_u_pass_ref(X, U, V, VtV, l1,
                                                            l2, eps))
-        log(f"  K1[{xname}] kernel {ms:.4f} ms, plain {pms:.4f} ms")
-        rec[("fused_mu_u_pass", xname)] = dict(max_abs_err=err, ms=ms,
-                                               plain_ms=pms)
+        log(f"  K1[{xname}] kernel {ms:.4f} ms, plain {pms:.4f} ms, bound "
+            f"{bms:.4f} ms ({bby})")
+        rec[("fused_mu_u_pass", xname)] = dict(
+            max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms, bound_by=bby)
         # K2
-        kw = dict(trials=trials, non_negative=True)
+        kw = dict(trials=TRIALS, non_negative=True)
         args = (Xn, U, Vn, BtB, Hinv, row_sq, l1, l2)
         out = newton_fused.fused_newton_linear_u_pass(*args, **kw)
         torch.cuda.synchronize()
@@ -143,59 +187,182 @@ def kernel_phase(check, torch, mu_fused, newton_fused):
             *args, **kw))
         pms = time_ms(lambda: newton_fused.fused_newton_linear_u_pass_ref(
             *args, **kw))
-        log(f"  K2[{xname}] kernel {ms:.4f} ms, plain {pms:.4f} ms")
+        log(f"  K2[{xname}] kernel {ms:.4f} ms, plain {pms:.4f} ms, bound "
+            f"{bms:.4f} ms ({bby})")
         rec[("fused_newton_linear_u_pass", xname)] = dict(
-            max_abs_err=err, ms=ms, plain_ms=pms)
+            max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms, bound_by=bby)
         del X, Xn, row_sq, out, ref, args
     del X32, Xn32
     torch.cuda.empty_cache()
     return rec
 
 
-def fit_phase(check, make_est, X, Y, kernel, label):
-    """Fit through the estimator; check the kernel's launches and the
-    objective along the fit.
+def sigmoid_phase(check, torch, sigmoid_newton, batched_solve):
+    """Phase 3, K3, K4, K5: each against its plain version.
 
-    The eval-point losses the fit reports come from the factored identity
-    with XᵀU_new taken at bf16-rounded U_new (the reference's zero-extra-
-    pass loss), which is noisy at ~1e-4 relative on this data. Monotonicity
-    is therefore checked on the exact objective (float64, on the host) at
-    each eval point, along the same trajectory replayed as warm-started
-    segments of eval_every iterations; the replay must end on the fit's
-    own factors bit for bit."""
+    Inputs: 0/1 labels (exact in bf16) and N(0, 0.3²) factors, so logits
+    are O(1) as in a fit; penalties large enough to show in phi (about
+    3 of phi's ~1.5e3 per row), so a phi without them fails. Tolerances:
+    G and H by relative Frobenius norm, 1e-4 (f32 sums over q terms in two
+    orders); phi by its largest deviation, 2e-5 of the table's largest |phi|
+    (f32 sums of q = 11314 terms in two orders, about 3·sqrt(q)·2⁻²⁴), and
+    by the share of rows whose selected line-search slot agrees, >= 0.999
+    (a slot whose phi ties slot 0 within rounding may flip); d by relative
+    Frobenius norm, 1e-3 (the same f32 systems, cond(H) amplifies the
+    different rounding)."""
     import numpy as np
 
-    from baselines import numpy_cmf
-    from pycmf_tpu_torch.ops.kernels.policy import launch_counts
+    rng = np.random.RandomState(SEED + 1)
+    dev = torch.device("cuda")
+    l1, l2, pert = 0.5, 1.0, 0.2
+
+    def f32(a):
+        return torch.from_numpy(a.astype(np.float32)).to(dev)
+
+    rec = {}
+    H_b = G_b = None
+    for shape, n, q in (("A", K, M), ("B", N, M)):
+        lab = f32((rng.rand(n, q) < 0.3).astype(np.float32))
+        Mf = f32(0.3 * rng.randn(n, K))
+        Bf = f32(0.3 * rng.randn(q, K))
+        for xname in (("bfloat16",) if shape == "A"
+                      else ("bfloat16", "float32")):
+            X = lab.to(torch.bfloat16) if xname == "bfloat16" else lab
+            tag = f"{shape}[{xname}]"
+            xb = n * q * X.element_size()
+            # K3
+            G, H = sigmoid_newton.sigmoid_gh_pass(X, Mf, Bf, l1, l2)
+            torch.cuda.synchronize()
+            Gr, Hr = sigmoid_newton.sigmoid_gh_pass_ref(X, Mf, Bf, l1, l2)
+            torch.cuda.synchronize()
+            eg, eh = rel_fro(G, Gr), rel_fro(H, Hr)
+            check(eg <= 1e-4 and eh <= 1e-4, f"K3{tag} G rel Frobenius "
+                  f"{eg:.3g}, H {eh:.3g} <= 1e-4")
+            err3 = max(float((G - Gr).abs().max()), float((H - Hr).abs().max()))
+            Hs = Hr + (l2 + pert) * torch.eye(K, device=dev)
+            d = batched_solve.batched_spd_solve_ref(Hs, Gr)
+            if shape == "B" and xname == "bfloat16":
+                H_b, G_b = Hs, Gr
+            # K4
+            kw = dict(trials=TRIALS, non_negative=True)
+            phi = sigmoid_newton.sigmoid_phi_pass(X, Mf, d, Bf, l1, l2, **kw)
+            torch.cuda.synchronize()
+            phr = sigmoid_newton.sigmoid_phi_pass_ref(X, Mf, d, Bf, l1, l2,
+                                                      **kw)
+            torch.cuda.synchronize()
+            agree = float((selected_slot(phi) == selected_slot(phr))
+                          .float().mean())
+            err4 = float((phi - phr).abs().max())
+            rel4 = err4 / float(phr.abs().max())
+            check(rel4 <= 2e-5, f"K4{tag} max abs phi err {err4:.3g}, "
+                  f"{rel4:.3g} of the largest |phi| <= 2e-5")
+            check(agree >= 0.999, f"K4{tag} rows selecting the same slot "
+                  f"{agree:.6f} >= 0.999")
+            ops3 = float(n) * q * (4 * K + K * (K + 1))
+            b3 = bound(xb + 4 * (2 * n * K + q * K + n * K * K), ops3,
+                       F32_FLOPS)
+            ops4 = 2.0 * n * q * K * (TRIALS + 1)
+            b4 = bound(xb + 4 * (3 * n * K + q * K + n * (TRIALS + 1)), ops4,
+                       F32_FLOPS)
+            t3 = time_ms(lambda: sigmoid_newton.sigmoid_gh_pass(
+                X, Mf, Bf, l1, l2))
+            p3 = time_ms(lambda: sigmoid_newton.sigmoid_gh_pass_ref(
+                X, Mf, Bf, l1, l2), reps=5)
+            t4 = time_ms(lambda: sigmoid_newton.sigmoid_phi_pass(
+                X, Mf, d, Bf, l1, l2, **kw))
+            p4 = time_ms(lambda: sigmoid_newton.sigmoid_phi_pass_ref(
+                X, Mf, d, Bf, l1, l2, **kw), reps=5)
+            log(f"  K3{tag} kernel {t3:.4f} ms, plain {p3:.4f} ms, bound "
+                f"{b3[0]:.4f} ms ({b3[1]}); K4{tag} kernel {t4:.4f} ms, "
+                f"plain {p4:.4f} ms, bound {b4[0]:.4f} ms ({b4[1]})")
+            rec[("sigmoid_gh_pass", tag)] = dict(
+                max_abs_err=err3, ms=t3, plain_ms=p3, bound_ms=b3[0],
+                bound_by=b3[1])
+            rec[("sigmoid_phi_pass", tag)] = dict(
+                max_abs_err=err4, ms=t4, plain_ms=p4, bound_ms=b4[0],
+                bound_by=b4[1], slot_agreement=agree)
+            del G, H, Gr, Hr, phi, phr, d
+        del lab, X
+    # K5 on the real Gauss-Newton systems of the sigmoid-X shape
+    flush_buf = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    for p in (M, N):
+        H, G = H_b[:p].contiguous(), G_b[:p].contiguous()
+        d = batched_solve.batched_spd_solve(H, G)
+        torch.cuda.synchronize()
+        dr = batched_solve.batched_spd_solve_ref(H, G)
+        e = rel_fro(d, dr)
+        res = float((torch.linalg.matmul(H.double(), d.double()[..., None])[..., 0]
+                     - G.double()).norm() / G.double().norm())
+        check(e <= 1e-3, f"K5[p={p}] d rel Frobenius {e:.3g} <= 1e-3; "
+              f"kernel residual |Hd - G|/|G| {res:.3g}")
+        nbytes = 4.0 * p * (K * K + 2 * K)
+        b5 = bound(nbytes, p * (K ** 3 / 3.0 + 2 * K * K), F32_FLOPS)
+        flush = flush_buf.zero_
+        t5 = time_ms(lambda: batched_solve.batched_spd_solve(H, G),
+                     reps=20, flush=flush)
+        p5 = time_ms(lambda: batched_solve.batched_spd_solve_ref(H, G),
+                     reps=20, flush=flush)
+        lib = time_ms(lambda: torch.linalg.solve(H, G[..., None]), reps=20,
+                      flush=flush)
+        log(f"  K5[p={p}] kernel {t5:.4f} ms, plain {p5:.4f} ms, "
+            f"torch.linalg.solve {lib:.4f} ms, bound {b5[0]:.4f} ms "
+            f"({b5[1]}); L2 flushed before each call")
+        rec[("batched_spd_solve", p)] = dict(
+            max_abs_err=float((d - dr).abs().max()), ms=t5, plain_ms=p5,
+            library_ms=lib, bound_ms=b5[0], bound_by=b5[1])
+    del flush_buf, H_b, G_b
+    torch.cuda.empty_cache()
+    return rec
+
+
+def fit_phase(check, make_est, X, Y, kernels, label, exact_loss):
+    """Fit through the estimator with the launch counts set to 0 just
+    before and read just after; check each kernel of the path launched at
+    least its minimum; check the objective along the fit.
+
+    kernels: {name: launches required per iteration}. exact_loss(U, V, Z)
+    is the float64 objective. The reported eval-point losses come from the
+    solvers' zero-extra-pass identities, which round (bf16 XᵀU_new, f32
+    sums); monotonicity is checked on the exact objective at each eval
+    point, along the same trajectory replayed as warm-started segments of
+    eval_every iterations, and the replay must end on the fit's own
+    factors bit for bit."""
+    import numpy as np
+
+    from pycmf_tpu_torch.ops.kernels.policy import (launch_counts,
+                                                    reset_launch_counts)
     from pycmf_tpu_torch.utils.init import initialize_factors
 
+    # warm-up, not timed: the first launch of each library kernel loads it
+    make_est().set_params(max_iter=2, eval_every=1, tol=0.0).fit(X, Y)
     est = make_est()
-    before = launch_counts().get(kernel, 0)
+    reset_launch_counts()
     t0 = time.perf_counter()
     est.fit_transform(X, Y)
     wall = time.perf_counter() - t0
-    launches = launch_counts().get(kernel, 0) - before
+    counts = launch_counts()
     hist = est.loss_history_
     check(all(math.isfinite(v) for v in hist), f"{label}: finite losses")
-    check(launches >= est.n_iter_,
-          f"{label}: {kernel} launches {launches} >= n_iter {est.n_iter_}")
+    for kernel, per_iter in kernels.items():
+        got = counts.get(kernel, 0)
+        check(got >= per_iter * est.n_iter_,
+              f"{label}: {kernel} launches {got} >= {per_iter} x n_iter "
+              f"{est.n_iter_}")
     ms_iter = 1e3 * sum(est.step_times_) / est.n_iter_
-    x_bytes = X.shape[0] * X.shape[1] * 2   # bf16 storage
     log(f"  {label}: n_iter {est.n_iter_}, final loss "
-        f"{est.reconstruction_err_:.9g}, {ms_iter:.4f} ms/iter "
-        f"(solver loop), fit wall {wall:.3f} s incl. ingest, one X pass "
-        f"per iter {x_bytes / (ms_iter * 1e-3) / 1e9:.1f} GB/s, kernel's "
-        f"two X reads {2 * x_bytes / (ms_iter * 1e-3) / 1e9:.1f} GB/s")
+        f"{est.reconstruction_err_:.9g}, {ms_iter:.4f} ms/iter (solver "
+        f"loop), fit wall {wall:.3f} s incl. ingest; launches {counts}")
 
-    X64, Y64 = X.astype(np.float64), Y.astype(np.float64)
-    U, V, Z = initialize_factors(X, Y, K, random_state=SEED)
-    exact = [numpy_cmf.loss(X64, Y64, U, V, Z)]
+    U, V, Z = initialize_factors(
+        X, Y, K, random_state=SEED, U_non_negative=est.U_non_negative,
+        V_non_negative=est.V_non_negative, Z_non_negative=est.Z_non_negative)
+    exact = [exact_loss(U, V, Z)]
     step = est.eval_every
     for done in range(0, est.n_iter_, step):
         n = min(step, est.n_iter_ - done)
         seg = make_est().set_params(max_iter=n, eval_every=n, tol=0.0)
         U, V, Z = seg.fit_transform(X, Y, U=U, V=V, Z=Z)
-        exact.append(numpy_cmf.loss(X64, Y64, U, V, Z))
+        exact.append(exact_loss(U, V, Z))
     check(np.array_equal(U, est.U_) and np.array_equal(V, est.V_),
           f"{label}: warm-started replay ends on the fit's factors")
     rises = [(est.loss_iters_[i + 1], (b - a) / a)
@@ -208,8 +375,114 @@ def fit_phase(check, make_est, X, Y, kernel, label):
           f"(iter, rel): {rises}); reported vs exact max rel {dev:.3g}")
     return est, dict(n_iter=est.n_iter_, loss=est.reconstruction_err_,
                      exact_loss=exact[-1], ms_per_iter=ms_iter,
-                     launches=launches, wall_s=wall,
+                     launches=counts, wall_s=wall,
                      reported_vs_exact_max_rel=dev)
+
+
+def profile_phase(torch, make_est, X, Y, label):
+    """torch.profiler over the solver loop of one fit (the estimator's
+    _run: ingest and init excluded). Returns, per iteration, the wall
+    time under the profiler, the device time (kernels, copies and memsets
+    by their device timestamps), the device launches, the device's idle
+    share of the window, and the kernels by device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from pycmf_tpu_torch.models.cmf import CMF
+
+    seen = {}
+    run = CMF._run
+
+    def profiled_run(self, *args):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            out = run(self, *args)
+            torch.cuda.synchronize()
+            seen["wall_ms"] = 1e3 * (time.perf_counter() - t0)
+        seen["prof"] = prof
+        return out
+
+    with mock.patch.object(CMF, "_run", profiled_run):
+        est = make_est().fit(X, Y)
+    n = est.n_iter_
+    by_name = {}
+    for e in seen["prof"].events():
+        if e.device_type == DeviceType.CUDA:
+            c = by_name.setdefault(e.name, [0, 0.0])
+            c[0] += 1
+            c[1] += e.time_range.elapsed_us() / 1e3
+    busy = sum(c[1] for c in by_name.values())
+    launches = sum(c[0] for c in by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
+    out = dict(n_iter=n, wall_ms_per_iter=seen["wall_ms"] / n,
+               device_ms_per_iter=busy / n,
+               device_idle_share=1.0 - busy / seen["wall_ms"],
+               device_launches_per_iter=launches / n,
+               top_kernels=[dict(name=k[:90], launches_per_iter=c[0] / n,
+                                 ms_per_iter=c[1] / n) for k, c in top])
+    log(f"  {label} under torch.profiler, {n} iterations: "
+        f"{out['wall_ms_per_iter']:.4f} ms/iter wall, "
+        f"{out['device_ms_per_iter']:.4f} ms/iter on the device, idle share "
+        f"{out['device_idle_share']:.3f}, {out['device_launches_per_iter']:.1f}"
+        f" device launches/iter")
+    for t in out["top_kernels"]:
+        log(f"    {t['ms_per_iter']:9.4f} ms/iter {t['launches_per_iter']:6.1f}"
+            f" x/iter  {t['name']}")
+    return out
+
+
+def card_sigmoid_loss(torch, X, Y):
+    """Exact float64 objective of a sigmoid-X, sigmoid-Y fit, taken on the
+    card in row blocks (X, Y: host scipy/NumPy 0/1 matrices)."""
+    import numpy as np
+    import scipy.sparse as sp
+
+    dev = torch.device("cuda")
+    Xd = torch.from_numpy(X.toarray() if sp.issparse(X) else np.asarray(X))
+    Xd = Xd.to(device=dev, dtype=torch.float64)
+    Yd = torch.from_numpy(np.asarray(Y, dtype=np.float64)).to(dev)
+
+    def term(A, Mf, Bf):
+        s = 0.0
+        for i in range(0, A.shape[0], 2048):
+            r = A[i:i + 2048] - torch.sigmoid(Mf[i:i + 2048] @ Bf.T)
+            s += float((r * r).sum())
+        return 0.5 * s
+
+    def loss(U, V, Z):
+        u, v, z = (torch.from_numpy(np.asarray(a, dtype=np.float64)).to(dev)
+                   for a in (U, V, Z))
+        return term(Xd, u, v) + term(Yd, v, z)
+
+    return loss
+
+
+def _numpy_baseline(kind: str) -> tuple:
+    """bench.py's NumPy baseline run (in a worker process): MU in float32,
+    or Newton with a sigmoid Y link in float64. Returns (final loss,
+    n_iter, seconds)."""
+    import numpy as np
+
+    from baselines import numpy_cmf
+    from pycmf_tpu_torch.utils.datasets import synthetic_20ng
+    from pycmf_tpu_torch.utils.init import initialize_factors
+
+    X, Y = synthetic_20ng(random_state=SEED)
+    U0, V0, Z0 = initialize_factors(X, Y, K, random_state=SEED)
+    t0 = time.perf_counter()
+    if kind == "mu":
+        out = numpy_cmf.run_mu(
+            X.astype(np.float32), Y.astype(np.float32),
+            U0.astype(np.float32), V0.astype(np.float32),
+            Z0.astype(np.float32), max_iter=200, tol=1e-4, eval_every=10)
+    else:
+        out = numpy_cmf.run_newton(
+            X.astype(np.float64), Y.astype(np.float64), U0, V0, Z0,
+            max_iter=50, tol=1e-5, eval_every=5, y_link="sigmoid",
+            non_negative=(True, True, True))
+    return float(out[4][-1]), int(out[3]), time.perf_counter() - t0
 
 
 def main() -> int:
@@ -231,11 +504,9 @@ def main() -> int:
 
     from baselines import numpy_cmf
     from pycmf_tpu_torch import CMF
-    from pycmf_tpu_torch.ops.kernels import _build, mu_fused, newton_fused
-    from pycmf_tpu_torch.ops.kernels.policy import (launch_counts,
-                                                    reset_launch_counts)
+    from pycmf_tpu_torch.ops.kernels import (_build, batched_solve, mu_fused,
+                                             newton_fused, sigmoid_newton)
     from pycmf_tpu_torch.utils.datasets import synthetic_20ng
-    from pycmf_tpu_torch.utils.init import initialize_factors
 
     check = Checks()
     # 1. device
@@ -258,55 +529,108 @@ def main() -> int:
                 log(f"  {lib}: {line.strip()}")
 
     # 3. kernels against their plain versions
-    krec = kernel_phase(check, torch, mu_fused, newton_fused)
+    krec = u_pass_phase(check, torch, mu_fused, newton_fused)
+    krec.update(sigmoid_phase(check, torch, sigmoid_newton,
+                              batched_solve))
 
-    # 4./5. the main path: MU and Newton fits through the estimator
+    # 4.-7. the paths, through the estimator
     t0 = time.perf_counter()
     X, Y = synthetic_20ng(random_state=SEED)
     log(f"phase 4: data {X.shape} nnz={X.nnz} in "
         f"{time.perf_counter() - t0:.1f} s")
-    common = dict(n_components=K, data_dtype="bfloat16", random_state=SEED,
-                  device="cuda")
-    reset_launch_counts()   # counts from here to phase 5's end: main path
+    X64, Y64 = X.astype(np.float64), Y.astype(np.float64)
+    common = dict(n_components=K, data_dtype="bfloat16",
+                  random_state=SEED, device="cuda")
+    mu_kw = dict(solver="mu", max_iter=200, tol=1e-4, eval_every=10)
     mu_est, mu = fit_phase(
-        check, lambda: CMF(solver="mu", max_iter=200, tol=1e-4,
-                           eval_every=10, **common),
-        X, Y, "fused_mu_u_pass", "MU fit")
-    log("phase 5: Newton fit")
+        check, lambda: CMF(**mu_kw, **common), X, Y,
+        {"fused_mu_u_pass": 1}, "MU fit",
+        lambda U, V, Z: numpy_cmf.loss(X64, Y64, U, V, Z))
+    log("phase 5: Newton fit, linear links")
+    nl_kw = dict(solver="newton", max_iter=30, tol=1e-5, eval_every=5)
     _, nt = fit_phase(
-        check, lambda: CMF(solver="newton", max_iter=50, tol=1e-5,
-                           eval_every=5, **common),
-        X, Y, "fused_newton_linear_u_pass", "Newton fit")
-    main_counts = launch_counts()
-    check(main_counts.get("fused_mu_u_pass", 0) > 0
-          and main_counts.get("fused_newton_linear_u_pass", 0) > 0,
-          f"main path launched both kernels: {main_counts}")
+        check, lambda: CMF(**nl_kw, **common), X, Y,
+        {"fused_newton_linear_u_pass": 1}, "Newton linear fit",
+        lambda U, V, Z: numpy_cmf.loss(X64, Y64, U, V, Z))
+    log("phase 6: path A, bench's Newton cell (sigmoid Y)")
+    a_kw = dict(solver="newton", y_link="sigmoid", max_iter=50, tol=1e-5,
+                eval_every=5)
+    _, pa = fit_phase(
+        check, lambda: CMF(**a_kw, **common), X, Y,
+        {"fused_newton_linear_u_pass": 1, "sigmoid_gh_pass": 1,
+         "sigmoid_phi_pass": 1, "batched_spd_solve": 2},
+        "path A fit",
+        lambda U, V, Z: numpy_cmf.loss(X64, Y64, U, V, Z,
+                                       y_link="sigmoid"))
+    log("phase 7: path B, dense sigmoid X and Y")
+    Xb = (X > 0).astype(np.float32)
+    # signed factors: with non-negative ones every logit is >= 0, and on
+    # 0.26%-dense labels the fit collapses to U = V = Z = 0 (σ = ½)
+    b_kw = dict(solver="newton", x_link="sigmoid", y_link="sigmoid",
+                max_iter=10, tol=0.0, eval_every=5,
+                U_non_negative=False, V_non_negative=False,
+                Z_non_negative=False)
+    _, pb = fit_phase(
+        check, lambda: CMF(**b_kw, **common), Xb, Y,
+        {"sigmoid_gh_pass": 3, "sigmoid_phi_pass": 3,
+         "batched_spd_solve": 3},
+        "path B fit", card_sigmoid_loss(torch, Xb, Y))
+    check(pb["reported_vs_exact_max_rel"] <= 1e-4,
+          f"path B: phi eval loss vs exact f64 max rel "
+          f"{pb['reported_vs_exact_max_rel']:.3g} <= 1e-4 (f32 sums of "
+          f"3.4e8 squared residuals)")
+    log("phase 7b: where the time goes (torch.profiler)")
+    nt["profile"] = profile_phase(
+        torch, lambda: CMF(**dict(nl_kw, max_iter=10, tol=0.0), **common),
+        X, Y, "Newton linear")
+    pa["profile"] = profile_phase(
+        torch, lambda: CMF(**dict(a_kw, max_iter=10, tol=0.0), **common),
+        X, Y, "path A")
+    pb["profile"] = profile_phase(
+        torch, lambda: CMF(**dict(b_kw, max_iter=5), **common), Xb, Y,
+        "path B")
 
-    # 6. kernel path against plain path on the card; the 2% guard
-    log("phase 6: kernel path vs plain path, 20 iterations")
-    for solver, mod, fn in (("mu", mu_fused, "fused_mu_u_pass"),
-                            ("newton", newton_fused,
-                             "fused_newton_linear_u_pass")):
-        kw = dict(solver=solver, max_iter=20, tol=0.0, eval_every=5, **common)
-        lk = CMF(**kw).fit(X, Y).reconstruction_err_
-        with mock.patch.object(mod, fn, getattr(mod, fn + "_ref")):
-            lp = CMF(**kw).fit(X, Y).reconstruction_err_
-        gap = abs(lk - lp) / abs(lp)
-        check(gap <= 1e-3, f"{solver}: kernel {lk:.9g} vs plain {lp:.9g}, "
-              f"rel gap {gap:.3g} <= 1e-3")
-    U0, V0, Z0 = initialize_factors(X, Y, K, random_state=SEED)
-    t0 = time.perf_counter()
-    out = numpy_cmf.run_mu(
-        X.astype(np.float32), Y.astype(np.float32), U0.astype(np.float32),
-        V0.astype(np.float32), Z0.astype(np.float32), max_iter=200, tol=1e-4,
-        eval_every=10)
-    ref_loss = float(out[4][-1])
-    gap = abs(mu["loss"] - ref_loss) / ref_loss
-    check(gap <= QUALITY_BAR, f"MU final loss {mu['loss']:.9g} vs NumPy f32 "
-          f"baseline {ref_loss:.9g} ({out[3]} iters, "
-          f"{time.perf_counter() - t0:.1f} s): gap {gap:.4%} <= 2%")
+    # 8. kernel path against plain path on the card; the 2% guards. The
+    # NumPy baselines run on the host beside these untimed fits, after every
+    # timed phase: their BLAS threads take host cores that launch kernels.
+    with ProcessPoolExecutor(
+            2, mp_context=multiprocessing.get_context("spawn")) as pool:
+        base = {kind: pool.submit(_numpy_baseline, kind)
+                for kind in ("newton", "mu")}
+        log("phase 8: kernel path vs plain path")
+        plain = {"fused_mu_u_pass": mu_fused,
+                 "fused_newton_linear_u_pass": newton_fused,
+                 "sigmoid_gh_pass": sigmoid_newton,
+                 "sigmoid_phi_pass": sigmoid_newton,
+                 "batched_spd_solve": batched_solve}
+        for label, kw, data in (
+                ("MU", dict(mu_kw, max_iter=20, tol=0.0), (X, Y)),
+                ("Newton linear", dict(nl_kw, max_iter=20, tol=0.0), (X, Y)),
+                ("path A", dict(a_kw, max_iter=20, tol=0.0), (X, Y)),
+                ("path B", b_kw, (Xb, Y))):
+            lk = CMF(**kw, **common).fit(*data).reconstruction_err_
+            with ExitStack() as patches:
+                for fn, mod in plain.items():
+                    patches.enter_context(mock.patch.object(
+                        mod, fn, getattr(mod, fn + "_ref")))
+                lp = CMF(**kw, **common).fit(*data).reconstruction_err_
+            gap = abs(lk - lp) / abs(lp)
+            check(gap <= 1e-3, f"{label}: kernel {lk:.9g} vs plain {lp:.9g} "
+                  f"after {kw['max_iter']} iterations, rel gap {gap:.3g} "
+                  f"<= 1e-3")
+        t0 = time.perf_counter()
+        baseline = {kind: f.result() for kind, f in base.items()}
+        log(f"host baselines awaited {time.perf_counter() - t0:.1f} s")
+        for kind, fit in (("mu", mu), ("newton", pa)):
+            ref_loss, ref_iter, secs = baseline[kind]
+            gap = abs(fit["loss"] - ref_loss) / ref_loss
+            check(gap <= QUALITY_BAR,
+                  f"{kind} final loss {fit['loss']:.9g} vs NumPy baseline "
+                  f"{ref_loss:.9g} ({ref_iter} iters, {secs:.1f} s on the "
+                  f"host): gap {gap:.4%} <= 2%")
+            fit["numpy_loss"], fit["numpy_n_iter"] = ref_loss, ref_iter
 
-    # 7. transform
+    # 9. transform
     Ut = mu_est.transform(X[:1000])
     check(Ut.shape == (1000, K) and bool(np.all(np.isfinite(Ut))),
           f"transform(X[:1000]) -> {Ut.shape}, finite")
@@ -315,21 +639,43 @@ def main() -> int:
         log(f"chip_smoke: {len(check.failed)} check(s) failed: "
             + "; ".join(check.failed))
         return 1
+    src = "pycmf_tpu_torch/csrc/"
     kernels = []
-    for kname, src, replaces in (
-            ("fused_mu_u_pass", "pycmf_tpu_torch/csrc/mu_fused.cu",
-             "pycmf_tpu/ops/pallas/mu_fused.py:143"),
-            ("fused_newton_linear_u_pass",
-             "pycmf_tpu_torch/csrc/newton_fused.cu",
-             "pycmf_tpu/ops/pallas/newton_fused.py:179")):
-        bf, f32 = krec[(kname, "bfloat16")], krec[(kname, "float32")]
-        kernels.append({
-            "name": kname, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": main_counts.get(kname, 0),
-            "max_abs_err": bf["max_abs_err"], "ms": bf["ms"],
-            "plain_ms": bf["plain_ms"], "f32_max_abs_err": f32["max_abs_err"],
-            "f32_ms": f32["ms"], "f32_plain_ms": f32["plain_ms"]})
-    print(json.dumps({"mu_fit": mu, "newton_fit": nt}))
+    for kname, file, replaces, main, fit, extra in (
+            ("fused_mu_u_pass", "mu_fused.cu", "mu_fused.py:143",
+             ("fused_mu_u_pass", "bfloat16"), mu,
+             {"f32": ("fused_mu_u_pass", "float32")}),
+            ("fused_newton_linear_u_pass", "newton_fused.cu",
+             "newton_fused.py:179",
+             ("fused_newton_linear_u_pass", "bfloat16"), pa,
+             {"f32": ("fused_newton_linear_u_pass", "float32")}),
+            ("sigmoid_gh_pass", "sigmoid_newton.cu", "sigmoid_newton.py:94",
+             ("sigmoid_gh_pass", "A[bfloat16]"), pa,
+             {"b": ("sigmoid_gh_pass", "B[bfloat16]"),
+              "b_f32": ("sigmoid_gh_pass", "B[float32]")}),
+            ("sigmoid_phi_pass", "sigmoid_newton.cu",
+             "sigmoid_newton.py:176", ("sigmoid_phi_pass", "A[bfloat16]"), pa,
+             {"b": ("sigmoid_phi_pass", "B[bfloat16]"),
+              "b_f32": ("sigmoid_phi_pass", "B[float32]")}),
+            ("batched_spd_solve", "batched_solve.cu", "batched_solve.py:71",
+             ("batched_spd_solve", M), pa,
+             {"p30000": ("batched_spd_solve", N)})):
+        r = krec[main]
+        entry = {"name": kname, "route": "cuda", "source": src + file,
+                 "replaces": "pycmf_tpu/ops/pallas/" + replaces,
+                 "launches": fit["launches"].get(kname, 0),
+                 "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                 "bound_by": r["bound_by"],
+                 "library_ms": r.get("library_ms")}
+        for pre, key in extra.items():
+            for f in ("ms", "plain_ms", "bound_ms", "max_abs_err",
+                      "library_ms"):
+                if f in krec[key]:
+                    entry[f"{pre}_{f}"] = krec[key][f]
+        kernels.append(entry)
+    print(json.dumps({"mu_fit": mu, "newton_linear_fit": nt,
+                      "path_a_fit": pa, "path_b_fit": pb}))
     print(f"{name} | nvidia-smi: {smi}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

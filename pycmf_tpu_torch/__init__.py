@@ -2,11 +2,11 @@
 NVIDIA H100.
 
 ``CMF`` has the reference estimator's surface (``pycmf_tpu.CMF``) plus a
-``device`` argument. This slice runs linear links on dense (or densified)
-data with the MU and Newton solvers; the U pass of each runs through a
-hand-written CUDA kernel on the card (``csrc/``) and through the kernel's
-plain PyTorch version on the CPU. The package imports ``torch``, never
-``jax``.
+``device`` argument. It runs dense (or densified) data with the MU solver
+(linear links) and the Newton solver (linear or sigmoid links); the
+kernels of those paths are hand-written CUDA on the card (``csrc/``) and
+their plain PyTorch versions on the CPU. The package imports ``torch``,
+never ``jax``.
 """
 from .models.cmf import CMF
 

@@ -29,11 +29,7 @@
 // inputs with f32 accumulation, as in the reference.
 #pragma once
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-#include <type_traits>
+#include "common.cuh"
 
 namespace pycmf {
 
@@ -45,13 +41,6 @@ constexpr int kSmemBudget = 110 * 1024;        // V segment: 2 blocks per SM
 constexpr int kColsPerBlock = kThreads;        // columns phase: 1 column/thread
 constexpr int kRowUnroll = 8;                  // columns phase: rows per step
 constexpr int kMaxSegments = 64;
-constexpr int kMaxK = 32;
-constexpr unsigned kFull = 0xffffffffu;
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 // Round an f32 value to X's storage type and back (the reference casts
 // U_new to X's dtype before U_new^T X).
@@ -62,27 +51,6 @@ template <> __device__ __forceinline__ float round_to<float>(float x) {
 template <> __device__ __forceinline__ float round_to<__nv_bfloat16>(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
-
-// Butterfly sum: every lane ends with the same bits (each step adds the
-// same two operands on both partner lanes).
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
-  return v;
-}
-
-inline int pad_k(int k) { return (k + 3) / 4 * 4; }
-
-// Call f(std::integral_constant<int, KP>) with KP = pad_k(k), 4 <= KP <= 32.
-template <int KP = 4, typename F>
-void with_kp(int k, F&& f) {
-  if constexpr (KP < kMaxK) {
-    if (pad_k(k) != KP) return with_kp<KP + 4>(k, f);
-  }
-  f(std::integral_constant<int, KP>{});
-}
-
-inline int ceil_div(int a, int b) { return (a + b - 1) / b; }
 
 // Row stride of the shared V segment, in floats: a multiple of 4 with an
 // odd number of float4s, so eight lanes' float4 reads hit distinct banks.
@@ -337,17 +305,6 @@ __global__ void reduce_parts_kernel(const float* __restrict__ part, int n_parts,
   out[e] = s;
 }
 
-inline int sm_count() {
-  static int count = 0;
-  if (count == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev);
-    if (count < 1) count = 1;
-  }
-  return count;
-}
-
 // Kernel 1: X V partials into w.xv_part.
 template <typename XT, int KP>
 void launch_xv(const XT* X, const XT* Vx, int n, int m, int k,
@@ -385,8 +342,4 @@ void launch_numv_and_gram(const XT* X, int n, int m, int k, float* numV,
 
 extern "C" long long pycmf_workspace_floats(int n, int m, int k) {
   return pycmf::workspace_floats(n, m, k);
-}
-
-extern "C" const char* pycmf_error_string(int code) {
-  return cudaGetErrorString((cudaError_t)code);
 }

@@ -9,9 +9,9 @@ jointly factors
 with a shared V, NumPy in and NumPy out. Validation and initialization run
 on the host (the same NumPy draws as the reference for one
 ``random_state``); the solver loop runs on ``device``. The keyword surface
-is the reference's plus ``device``. This slice runs linear links on dense
-or densified data; the rest raises NotImplementedError naming the ROADMAP
-item that brings it.
+is the reference's plus ``device``. The port runs linear and sigmoid links
+on dense or densified data (Newton: full batch, Gauss-Newton Hessian); the
+rest raises NotImplementedError naming the ROADMAP item that brings it.
 """
 from __future__ import annotations
 
@@ -48,8 +48,9 @@ class CMF:
     sparse_mode, loop, data_dtype. Here:
 
     use_pallas : None (on) | bool. The fused-kernel branch: the U pass of
-        each solver runs as one call of a hand-written CUDA kernel on the
-        card (its plain PyTorch version on the CPU). False runs the unfused
+        each solver, every sigmoid-linked Newton update and every per-row
+        Newton solve run through hand-written CUDA kernels on the card
+        (their plain PyTorch versions on the CPU). False runs the unfused
         plain PyTorch path.
     loop : 'auto' | 'host' | 'device'. Every value runs the host loop,
         which syncs with the device once per eval point.

@@ -21,7 +21,7 @@ from typing import Dict
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-NAMES = ("mu_fused", "newton_fused")
+NAMES = ("mu_fused", "newton_fused", "sigmoid_newton", "batched_solve")
 DEFAULT_NVCC = Path("/usr/local/cuda/bin/nvcc")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -104,12 +104,20 @@ def load(name: str) -> ctypes.CDLL:
         if not path.exists():
             build_all()
         lib = ctypes.CDLL(str(path))
-        lib.pycmf_workspace_floats.argtypes = [ctypes.c_int] * 3
-        lib.pycmf_workspace_floats.restype = ctypes.c_longlong
         lib.pycmf_error_string.argtypes = [ctypes.c_int]
         lib.pycmf_error_string.restype = ctypes.c_char_p
         _loaded[name] = lib
     return lib
+
+
+def function(name: str, symbol: str, argtypes, restype=ctypes.c_int):
+    """C function ``symbol`` of the library for ``csrc/<name>.cu``, with its
+    argument and result types declared (pointers and streams as c_void_p,
+    so ctypes never cuts them to 32 bits)."""
+    fn = getattr(load(name), symbol)
+    fn.argtypes = list(argtypes)
+    fn.restype = restype
+    return fn
 
 
 def check(lib: ctypes.CDLL, rc: int, what: str) -> None:

@@ -31,28 +31,35 @@ def check_data_dtype(X: torch.Tensor) -> None:
 
 
 def check_card_operands(X: torch.Tensor, U, V, k_by_k) -> None:
-    """Raise on what the CUDA U-pass kernels do not take."""
+    """Raise on what the CUDA data-pass kernels (K1-K4) do not take."""
     if X.dim() != 2 or X.dtype not in (torch.float32, torch.bfloat16):
         raise NotImplementedError(
-            f"the CUDA U-pass kernels take 2-D float32 or bfloat16 X, got "
+            f"the CUDA data-pass kernels take 2-D float32 or bfloat16 X, got "
             f"{X.dtype} {tuple(X.shape)} (float64 on the card: ROADMAP B1/B2 "
             "follow-up; use use_pallas=False for the plain path)")
     n, m = X.shape
     k = U.shape[1]
     if not 1 <= k <= 32:
         raise NotImplementedError(
-            f"the CUDA U-pass kernels take 1 <= k <= 32, got k={k} "
+            f"the CUDA data-pass kernels take 1 <= k <= 32, got k={k} "
             "(ROADMAP B1/B2 follow-up; use use_pallas=False)")
     for t, rows in ((U, n), (V, m)):
         if t.dtype != torch.float32 or t.shape != (rows, k):
             raise NotImplementedError(
-                f"the CUDA U-pass kernels take float32 factors of shape "
+                f"the CUDA data-pass kernels take float32 factors of shape "
                 f"({rows}, {k}), got {t.dtype} {tuple(t.shape)}")
     for t in k_by_k:
         if t.dtype != torch.float32 or t.shape != (k, k):
             raise NotImplementedError(
-                f"the CUDA U-pass kernels take float32 ({k}, {k}) matrices, "
+                f"the CUDA data-pass kernels take float32 ({k}, {k}) matrices, "
                 f"got {t.dtype} {tuple(t.shape)}")
+
+
+def u_pass_workspace(name: str, n: int, m: int, k: int, device):
+    """Scratch of one U-pass call of library ``name`` (csrc/u_pass_common.cuh)."""
+    floats = _build.function(name, "pycmf_workspace_floats", [ctypes.c_int] * 3,
+                             ctypes.c_longlong)(n, m, k)
+    return torch.empty(floats, dtype=torch.float32, device=device)
 
 
 def _acc_matmul(a: torch.Tensor, b: torch.Tensor, acc) -> torch.Tensor:
@@ -101,8 +108,8 @@ def fused_mu_u_pass(X, U, V, VtV, l1, l2, eps, n_valid=None):
     unew = torch.empty((n, k), **opts)
     numv = torch.empty((m, k), **opts)
     gramu = torch.empty((k, k), **opts)
-    work = torch.empty(lib.pycmf_workspace_floats(n, m, k), **opts)
     with torch.cuda.device(X.device):
+        work = u_pass_workspace("mu_fused", n, m, k, X.device)
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(int(X.dtype == torch.bfloat16), X.data_ptr(), U.data_ptr(),
                 Vx.data_ptr(), VtV.data_ptr(), n, m, k,

@@ -22,7 +22,8 @@ import torch
 
 from ..linesearch import backtracking_select
 from . import _build
-from .mu_fused import _acc_matmul, check_card_operands, check_data_dtype
+from .mu_fused import (_acc_matmul, check_card_operands, check_data_dtype,
+                       u_pass_workspace)
 from .policy import launch_count, on_card
 
 LAUNCHES = launch_count("fused_newton_linear_u_pass")
@@ -90,8 +91,8 @@ def fused_newton_linear_u_pass(X, U, V, BtB, Hinv, row_sq, l1, l2, *,
     unew = torch.empty((n, k), **opts)
     numv = torch.empty((m, k), **opts)
     gramu = torch.empty((k, k), **opts)
-    work = torch.empty(lib.pycmf_workspace_floats(n, m, k), **opts)
     with torch.cuda.device(X.device):
+        work = u_pass_workspace("newton_fused", n, m, k, X.device)
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(int(X.dtype == torch.bfloat16), X.data_ptr(), U.data_ptr(),
                 Vx.data_ptr(), BtB.data_ptr(), Hinv.data_ptr(), rs.data_ptr(),

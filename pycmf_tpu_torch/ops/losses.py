@@ -1,14 +1,15 @@
-"""CMF objective evaluation (dense, linear links).
+"""CMF objective evaluation (dense data).
 
-Counterpart of the dense linear parts of ``pycmf_tpu/ops/losses.py``:
+Counterpart of the dense parts of ``pycmf_tpu/ops/losses.py``:
 
-    L(U,V,Z) = ½‖X − U Vᵀ‖²_F + ½‖Y − V Zᵀ‖²_F + R(U) + R(V) + R(Z)
+    L(U,V,Z) = ½‖X − f_x(U Vᵀ)‖²_F + ½‖Y − f_y(V Zᵀ)‖²_F + R(U)+R(V)+R(Z)
     R(M)     = alpha · (l1_ratio·‖M‖₁ + ½(1−l1_ratio)·‖M‖²_F)
 
 Linear terms use the factored identity
 ‖A − M Bᵀ‖² = ‖A‖² − 2⟨A, M Bᵀ⟩ + tr((MᵀM)(BᵀB)), except for small
 mixed-precision problems, which take the direct residual (see
-``_linear_term``). Sigmoid links are the next slice (ROADMAP A3).
+``_linear_term``). Sigmoid terms need the elementwise link, so they stream
+over row blocks of the product when it is large.
 """
 from __future__ import annotations
 
@@ -17,7 +18,9 @@ import torch
 from .links import LINEAR
 from .matmul import gram, matmul
 
-# Above this many elements, the direct residual streams over row blocks.
+# Above this many elements, direct residuals, sigmoid terms and the plain
+# sigmoid Newton passes (ops/kernels/sigmoid_newton.py) stream over row
+# blocks.
 _BLOCK_ELEMS = 1 << 24
 
 
@@ -60,14 +63,45 @@ def _linear_term_direct(A: torch.Tensor, M: torch.Tensor,
     return total
 
 
+def rows_per_block(width: int) -> int:
+    """Rows of a (rows, width) intermediate that fit _BLOCK_ELEMS."""
+    return max(1, _BLOCK_ELEMS // max(1, width))
+
+
+def sigmoid_sq_rows(D, Mc, B):
+    """½‖dᵢ − σ(B cᵢ)‖² for every row of Mc (..., p, k): (..., p).
+
+    Leading (candidate) axes are evaluated in one batched product while
+    the residual fits ``_BLOCK_ELEMS``; past that, candidate by candidate
+    over row blocks."""
+    lead, (p, k) = Mc.shape[:-2], Mc.shape[-2:]
+    q = B.shape[0]
+    C = Mc.reshape(-1, p, k)
+    Bf = B.to(Mc.dtype)
+    if C.shape[0] * p * q <= _BLOCK_ELEMS:
+        R = D.to(Mc.dtype) - torch.sigmoid(C @ Bf.mT)
+        return 0.5 * torch.sum(R * R, dim=-1).reshape(*lead, p)
+    out = Mc.new_empty((C.shape[0], p))
+    bs = rows_per_block(q)
+    for c in range(C.shape[0]):
+        for i in range(0, p, bs):
+            R = D[i:i + bs].to(Mc.dtype) - torch.sigmoid(C[c, i:i + bs] @ Bf.mT)
+            out[c, i:i + bs] = 0.5 * torch.sum(R * R, dim=-1)
+    return out.reshape(*lead, p)
+
+
+def _sigmoid_term(A: torch.Tensor, M: torch.Tensor,
+                  B: torch.Tensor) -> torch.Tensor:
+    """½‖A − σ(M Bᵀ)‖² for dense A: the sum of :func:`sigmoid_sq_rows`."""
+    return torch.sum(sigmoid_sq_rows(A, M, B))
+
+
 def reconstruction_term(A, M: torch.Tensor, B: torch.Tensor, link: str,
                         a_sq=None) -> torch.Tensor:
     """½‖A − f(M Bᵀ)‖²_F for one coupled dense matrix."""
-    if link != LINEAR:
-        raise NotImplementedError(
-            "sigmoid links are not ported yet (ROADMAP A3: sigmoid Newton "
-            "with kernels K3-K5)")
-    return _linear_term(A, M, B, a_sq)
+    if link == LINEAR:
+        return _linear_term(A, M, B, a_sq)
+    return _sigmoid_term(A, M, B)
 
 
 def total_loss(X, Y, U, V, Z, x_link: str, y_link: str, alpha, l1_ratio,

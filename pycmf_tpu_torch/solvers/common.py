@@ -44,10 +44,6 @@ class SolverConfig:
             raise ValueError("hessian_form must be 'gauss' or 'full'")
         if not (0.0 < self.sg_sample_ratio <= 1.0):
             raise ValueError("sg_sample_ratio must be in (0, 1]")
-        if self.x_link != LINEAR or self.y_link != LINEAR:
-            raise NotImplementedError(
-                "sigmoid links are not ported yet (ROADMAP A3: sigmoid "
-                "Newton with kernels K3-K5)")
         if self.sg_sample_ratio < 1.0:
             raise NotImplementedError(
                 "sg_sample_ratio < 1 is not ported yet (ROADMAP A3: Newton "
@@ -88,6 +84,9 @@ class Coupled(NamedTuple):
     row_sq: Optional[torch.Tensor] = None    # (p,) per-row ‖aᵢ‖²
     row_sq_t: Optional[torch.Tensor] = None  # (q,) per-row norms of Aᵀ
     a_sq: Optional[torch.Tensor] = None      # ‖A‖²_F
+    # contiguous Aᵀ, made once per fit by run_newton for the fused sigmoid
+    # passes that read A transposed (Z against Yᵀ, V against Xᵀ); else None
+    At: Optional[torch.Tensor] = None
 
 
 def coupled_mm(C: Coupled, B: torch.Tensor,

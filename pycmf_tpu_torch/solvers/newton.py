@@ -1,16 +1,24 @@
-"""Batched row-wise Newton solver (linear links, full batch).
+"""Batched row-wise Newton solver (full batch, Gauss-Newton Hessian).
 
-Counterpart of the linear dense subset of ``pycmf_tpu/solvers/newton.py``.
-Per row of a factor M against its coupled terms (D, B), D ≈ M Bᵀ:
+Counterpart of the dense subset of ``pycmf_tpu/solvers/newton.py``. Per row
+of a factor M against its coupled terms (D, B, link), D ≈ f(M Bᵀ):
 
-    g = Σ (M BᵀB − D B) + l1·sign(M) + l2·M
-    H = Σ BᵀB + (l2 + hessian_pertubation)·I     (shared by every row)
-    M ← proj( M − step · g H⁻¹ ), step from the backtracking line search
+    g = Σ Bᵀ[(f(B mᵢ) − dᵢ)⊙f′] + l1·sign(mᵢ) + l2·mᵢ
+    H = Σ Bᵀ diag(f′²) B + (l2 + hessian_pertubation)·I
+    mᵢ ← proj( mᵢ − step · H⁻¹ g ), step from the backtracking line search
 
-U sees one term (X, V); Z sees (Yᵀ, V); the shared V sees (Xᵀ, U) and
-(Y, Z). With ``use_pallas`` the U update is one call of the fused U pass
-(``ops/kernels/newton_fused.py``: the CUDA kernel on the card), whose
-XᵀU_new and U_newᵀU_new feed V's X term, so V never reads X again.
+A linear term's Hessian BᵀB is shared by every row (one k×k Cholesky); a
+sigmoid term gives each row its own k×k system. U sees one term (X, V); Z
+sees (Yᵀ, V); the shared V sees (Xᵀ, U) and (Y, Z). With ``use_pallas``:
+
+- a linear X link updates U with one call of the fused U pass
+  (``ops/kernels/newton_fused.py``), whose XᵀU_new and U_newᵀU_new feed
+  V's X term, so V never reads X again;
+- a sigmoid-linked factor takes :func:`fused_sigmoid_update`: G and the
+  per-row Hessians in one pass over the data, the batched SPD solve, and
+  every line-search candidate's objective in one more pass
+  (``ops/kernels/sigmoid_newton.py``, ``ops/kernels/batched_solve.py``);
+- every per-row system goes through the batched SPD solve kernel.
 """
 from __future__ import annotations
 
@@ -18,21 +26,23 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from ..ops.kernels import newton_fused
-from ..ops.linesearch import backtracking_select
+from ..ops.kernels import batched_solve, newton_fused, sigmoid_newton
+from ..ops.linesearch import backtracking_select, backtracking_select_table
 from ..ops.links import LINEAR
-from ..ops.losses import penalty, reconstruction_term, total_loss
+from ..ops.losses import (penalty, reconstruction_term, sigmoid_sq_rows,
+                          total_loss)
 from ..ops.matmul import gram, matmul
 from .common import Coupled, Hyper, SolverConfig, check_loop, run_solver_loop
 
 
 class Term(NamedTuple):
-    """One coupled data term of a factor update: D ≈ M Bᵀ row-wise.
+    """One coupled data term of a factor update: D ≈ f(M Bᵀ) row-wise.
 
     row_sq : optional precomputed per-row ‖dᵢ‖² (fit-time constant)
     DB     : optional precomputed D @ B (p, k), e.g. the XᵀU_new the fused
              U pass returns, which saves V's update its own pass over X
     BtB    : optional precomputed gram(B) (k, k), paired with DB
+    (row_sq, DB and BtB serve linear terms only.)
     """
 
     D: torch.Tensor
@@ -51,25 +61,34 @@ class _LinearCtx(NamedTuple):
     row_sq: torch.Tensor
 
 
+class _SigmoidCtx(NamedTuple):
+    """A dense sigmoid term's line search: φᵢ(m) = ½‖dᵢ − σ(B m)‖²."""
+
+    D: torch.Tensor
+    B: torch.Tensor
+
+
 def _accumulate_term(M, term: Term, link: str):
-    """(G_term (p, k), H_shared term (k, k), line-search ctx) of one term."""
-    if link != LINEAR:
-        raise NotImplementedError(
-            "sigmoid links are not ported yet (ROADMAP A3: sigmoid Newton "
-            "with kernels K3-K5)")
+    """(G_term (p, k), H_shared (k, k) | None, H_rows (p, k, k) | None,
+    line-search ctx) of one term."""
     D, B, row_sq, db, btb = term
+    if link != LINEAR:
+        G, H_rows = sigmoid_newton.sigmoid_gh_rows(D, M, B)
+        return G, None, H_rows, _SigmoidCtx(D, B)
     BtB = gram(B) if btb is None else btb
     DB = matmul(D, B) if db is None else db
     G = matmul(M, BtB) - DB
     if row_sq is None:
         Df = D.to(M.dtype)
         row_sq = torch.sum(Df * Df, dim=1)
-    return G, BtB, _LinearCtx(DB, BtB, row_sq)
+    return G, BtB, None, _LinearCtx(DB, BtB, row_sq)
 
 
-def _phi_term(Mc, ctx: _LinearCtx) -> torch.Tensor:
-    """Per-row residual objective ½‖dᵢ − B mᵢ‖² for a candidate factor
+def _phi_term(Mc, ctx) -> torch.Tensor:
+    """Per-row residual objective ½‖dᵢ − f(B mᵢ)‖² for a candidate factor
     (rows on the second-to-last axis, any leading candidate axes)."""
+    if isinstance(ctx, _SigmoidCtx):
+        return sigmoid_sq_rows(ctx.D, Mc, ctx.B)
     quad = torch.sum(matmul(Mc, ctx.BtB) * Mc, dim=-1)
     return 0.5 * (ctx.row_sq - 2.0 * torch.sum(ctx.DB * Mc, dim=-1) + quad)
 
@@ -83,19 +102,36 @@ def _cholesky(H):
     return torch.where(info > 0, torch.nan, L)
 
 
-def _solve_direction(H_shared, G):
-    """d = G H⁻¹ for all rows: one k×k Cholesky (H is SPD)."""
-    return torch.cholesky_solve(G.mT, _cholesky(H_shared)).mT
+def _solve_direction(H_shared, H_rows, G, use_pallas: bool):
+    """d = H⁻¹ g for all rows. H_rows None: one shared k×k SPD system (all
+    links linear), one Cholesky. Else per-row systems H_rows + H_shared,
+    SPD in the Gauss-Newton form: the batched SPD solve kernel under
+    use_pallas, else an LU solve (torch.linalg.solve_ex: no host sync)."""
+    if H_rows is None:
+        return torch.cholesky_solve(G.mT, _cholesky(H_shared)).mT
+    H = H_rows + H_shared
+    if use_pallas:
+        return batched_solve.batched_spd_solve(H, G)
+    return torch.linalg.solve_ex(H, G[..., None])[0][..., 0]
+
+
+def _project(non_negative: bool):
+    if non_negative:
+        return lambda Mc: torch.clamp_min(Mc, 0.0)
+    return lambda Mc: Mc
 
 
 def newton_update_factor(rng, M, terms, links, hyper: Hyper, *,
                          non_negative: bool, trials: int,
                          hessian_form: str = "gauss",
-                         sample_ratio: float = 1.0):
+                         sample_ratio: float = 1.0, use_pallas: bool = False,
+                         return_phi: bool = False):
     """One batched Newton update of factor M against its coupled terms.
 
     rng: a torch.Generator or None; unused at sample_ratio = 1 (column
     sampling, which would draw from it, is ROADMAP A3).
+    return_phi: additionally return the per-row φ at the selected value
+    (see _aux_loss_phi); needs trials >= 1.
     """
     if sample_ratio < 1.0:
         raise NotImplementedError(
@@ -107,19 +143,20 @@ def newton_update_factor(rng, M, terms, links, hyper: Hyper, *,
     k = M.shape[1]
     l1, l2 = hyper.l1, hyper.l2
     G = l1 * torch.sign(M) + l2 * M
-    H = (l2 + hyper.hessian_pertubation) * torch.eye(
+    H_shared = (l2 + hyper.hessian_pertubation) * torch.eye(
         k, dtype=M.dtype, device=M.device)
+    H_rows = None
     ctxs = []
     for term, link in zip(terms, links):
         term = term if isinstance(term, Term) else Term(*term)
-        G_t, BtB, ctx = _accumulate_term(M, term, link)
+        G_t, H_sh, H_rw, ctx = _accumulate_term(M, term, link)
         G = G + G_t
-        H = H + BtB
+        if H_sh is not None:
+            H_shared = H_shared + H_sh
+        if H_rw is not None:
+            H_rows = H_rw if H_rows is None else H_rows + H_rw
         ctxs.append(ctx)
-    d = _solve_direction(H, G)
-
-    def project(Mc):
-        return torch.clamp_min(Mc, 0.0) if non_negative else Mc
+    d = _solve_direction(H_shared, H_rows, G, use_pallas)
 
     def phi(Mc):
         out = l1 * torch.sum(torch.abs(Mc), dim=-1) \
@@ -128,7 +165,61 @@ def newton_update_factor(rng, M, terms, links, hyper: Hyper, *,
             out = out + _phi_term(Mc, ctx)
         return out
 
-    return backtracking_select(phi, project, M, d, trials)
+    return backtracking_select(phi, _project(non_negative), M, d, trials,
+                               return_phi=return_phi)
+
+
+def fused_sigmoid_allowed(cfg: SolverConfig, M) -> bool:
+    """Whether a sigmoid-linked factor takes fused_sigmoid_update: kernels
+    on, full batch, Gauss-Newton form (SPD systems for the batched solve),
+    float factors."""
+    return (cfg.use_pallas and cfg.sg_sample_ratio >= 1.0
+            and cfg.hessian_form == "gauss" and M.dtype != torch.bfloat16)
+
+
+def fused_sigmoid_update(M, X, B, hyper: Hyper, *, trials: int,
+                         non_negative: bool, use_pallas: bool, yterm=None,
+                         y_link: str = LINEAR, return_phi: bool = False):
+    """One Newton update of M (p, k) against X ≈ σ(M Bᵀ), optionally
+    coupled with a second term evaluated in plain PyTorch (V's Y side).
+
+    Two passes over X: sigmoid_gh_pass builds G and the per-row Gauss-
+    Newton Hessians; after the batched SPD solve, sigmoid_phi_pass
+    evaluates every backtracking candidate. Selection rebuilds the winning
+    candidate with the same formula. X must be row-major: for V's update
+    it is the contiguous Xᵀ that run_newton makes once per fit
+    (Coupled.At).
+
+    return_phi: additionally return the per-row φ at the selected
+    candidates (see _aux_loss_phi); needs trials >= 1."""
+    k = M.shape[1]
+    l1, l2 = hyper.l1, hyper.l2
+    G, H_rows = sigmoid_newton.sigmoid_gh_pass(X, M, B, l1, l2)
+    H_shared = (l2 + hyper.hessian_pertubation) * torch.eye(
+        k, dtype=M.dtype, device=M.device)
+    ctx_y = None
+    if yterm is not None:
+        t = yterm if isinstance(yterm, Term) else Term(*yterm)
+        G_y, H_sh_y, H_rw_y, ctx_y = _accumulate_term(M, t, y_link)
+        G = G + G_y
+        if H_sh_y is not None:
+            H_shared = H_shared + H_sh_y
+        if H_rw_y is not None:
+            H_rows = H_rows + H_rw_y
+    d = _solve_direction(H_shared, H_rows, G, use_pallas)
+    project = _project(non_negative)
+    if trials <= 0:
+        if return_phi:
+            raise ValueError("return_phi needs trials >= 1")
+        return project(M - d)
+    phis = sigmoid_newton.sigmoid_phi_pass(X, M, d, B, l1, l2, trials=trials,
+                                           non_negative=non_negative)
+    if ctx_y is not None:
+        # the Y term's objective of every candidate, slot 0 = M unprojected
+        cands = sigmoid_newton.candidates(M, d, trials, non_negative)
+        phis = phis + _phi_term(cands, ctx_y).T
+    return backtracking_select_table(phis, project, M, d,
+                                     return_phi=return_phi)
 
 
 def shared_gauss_hinv(V, hyper: Hyper):
@@ -152,17 +243,39 @@ def fused_newton_u_allowed(cfg: SolverConfig, A, row_sq, U) -> bool:
             and U.dtype != torch.bfloat16 and row_sq is not None)
 
 
-def make_newton_step(cfg: SolverConfig, with_aux: bool = False):
+def _transposed(C: Coupled):
+    """C.A transposed: the contiguous copy run_newton makes when there is
+    one (the card's fused sigmoid passes need it), else a view."""
+    return C.A.mT if C.At is None else C.At
+
+
+def _with_transposes(cfg: SolverConfig, X: Coupled, Y, V0, Z0):
+    """(X, Y) with the contiguous Aᵀ (Coupled.At) that make_newton_step
+    reads: Xᵀ for a fused sigmoid V update, Yᵀ for a fused sigmoid Z
+    update. Made once per fit, never per iteration."""
+    if cfg.update_V and cfg.x_link != LINEAR and fused_sigmoid_allowed(cfg, V0):
+        X = X._replace(At=X.A.mT.contiguous())
+    if (cfg.has_Y and cfg.update_Z and cfg.y_link != LINEAR
+            and fused_sigmoid_allowed(cfg, Z0)):
+        Y = Y._replace(At=Y.A.mT.contiguous())
+    return X, Y
+
+
+def make_newton_step(cfg: SolverConfig, with_aux=None):
     """The Newton step: update U, then Z, then V (pinned order).
 
-    with_aux: additionally return (XᵀU_new, U_newᵀU_new) from the fused U
-    pass (see _aux_loss)."""
+    with_aux: None; "factored" (or True): additionally return (XᵀU_new,
+    U_newᵀU_new) from the fused U pass (see _aux_loss); "phi": return Σφ
+    of V's line search at the accepted candidates (see _aux_loss_phi)."""
+    phi_aux = with_aux == "phi"
     common = dict(trials=cfg.line_search_trials,
                   hessian_form=cfg.hessian_form,
-                  sample_ratio=cfg.sg_sample_ratio)
+                  sample_ratio=cfg.sg_sample_ratio,
+                  use_pallas=cfg.use_pallas)
+    fused = dict(trials=cfg.line_search_trials, use_pallas=cfg.use_pallas)
 
     def step(X: Coupled, Y, U, V, Z, hyper: Hyper, rng=None):
-        numv_x = gram_u = None
+        numv_x = gram_u = phi_sum = None
         if cfg.update_U:
             if fused_newton_u_allowed(cfg, X.A, X.row_sq, U):
                 BtB, Hinv, l1, l2 = shared_gauss_hinv(V, hyper)
@@ -170,25 +283,52 @@ def make_newton_step(cfg: SolverConfig, with_aux: bool = False):
                     X.A, U, V, BtB, Hinv, X.row_sq, l1, l2,
                     trials=cfg.line_search_trials,
                     non_negative=cfg.U_non_negative)
+            elif cfg.x_link != LINEAR and fused_sigmoid_allowed(cfg, U):
+                U = fused_sigmoid_update(U, X.A, V, hyper,
+                                         non_negative=cfg.U_non_negative,
+                                         **fused)
             else:
                 U = newton_update_factor(
                     rng, U, (Term(X.A, V, X.row_sq),), (cfg.x_link,), hyper,
                     non_negative=cfg.U_non_negative, **common)
         if cfg.has_Y and cfg.update_Z:
-            Z = newton_update_factor(
-                rng, Z, (Term(Y.A.mT, V, Y.row_sq_t),), (cfg.y_link,), hyper,
-                non_negative=cfg.Z_non_negative, **common)
+            if cfg.y_link != LINEAR and fused_sigmoid_allowed(cfg, Z):
+                Z = fused_sigmoid_update(Z, _transposed(Y), V, hyper,
+                                         non_negative=cfg.Z_non_negative,
+                                         **fused)
+            else:
+                Z = newton_update_factor(
+                    rng, Z, (Term(Y.A.mT, V, Y.row_sq_t),), (cfg.y_link,),
+                    hyper, non_negative=cfg.Z_non_negative, **common)
         if cfg.update_V:
-            # With the fused U pass's XᵀU_new and U_newᵀU_new, V's X term
-            # needs no second pass over X (D is then never read).
-            terms = (Term(X.A.mT, U, X.row_sq_t, DB=numv_x, BtB=gram_u),)
-            links = (cfg.x_link,)
-            if cfg.has_Y:
-                terms = terms + (Term(Y.A, Z, Y.row_sq),)
-                links = links + (cfg.y_link,)
-            V = newton_update_factor(
-                rng, V, terms, links, hyper,
-                non_negative=cfg.V_non_negative, **common)
+            yterm = Term(Y.A, Z, Y.row_sq) if cfg.has_Y else None
+            if cfg.x_link != LINEAR and fused_sigmoid_allowed(cfg, V):
+                out = fused_sigmoid_update(
+                    V, _transposed(X), U, hyper,
+                    non_negative=cfg.V_non_negative, yterm=yterm,
+                    y_link=cfg.y_link, return_phi=phi_aux, **fused)
+            else:
+                # With the fused U pass's XᵀU_new and U_newᵀU_new, V's X
+                # term needs no second pass over X (D is then never read).
+                terms = (Term(X.A.mT, U, X.row_sq_t, DB=numv_x, BtB=gram_u),)
+                links = (cfg.x_link,)
+                if cfg.has_Y:
+                    terms = terms + (yterm,)
+                    links = links + (cfg.y_link,)
+                out = newton_update_factor(
+                    rng, V, terms, links, hyper,
+                    non_negative=cfg.V_non_negative, return_phi=phi_aux,
+                    **common)
+            if phi_aux:
+                V, phi_rows = out
+                phi_sum = phi_rows.sum()
+            else:
+                V = out
+        if phi_aux:
+            if phi_sum is None:
+                raise ValueError("the phi aux loss needs the V update "
+                                 "(see _aux_kind)")
+            return U, V, Z, phi_sum
         if with_aux:
             if numv_x is None:
                 raise ValueError("with_aux requires the fused U pass "
@@ -231,6 +371,35 @@ def _aux_ok(cfg: SolverConfig, X: Coupled, U0) -> bool:
     return True
 
 
+def _aux_loss_phi(cfg: SolverConfig):
+    """Eval loss from V's accepted-candidate Σφ: no data pass at all.
+
+    V is updated last, and its per-row objective is ½‖(Xᵀ)ⱼ − f(U vⱼ)‖² +
+    ½‖yⱼ − f(Z vⱼ)‖² + l1‖vⱼ‖₁ + ½l2‖vⱼ‖², so Σⱼ φ(V_new) is L_X + L_Y + R(V)
+    at the post-step iterate; only R(U) and R(Z) are added here."""
+
+    def loss_fn(state, aux, hyper: Hyper):
+        X, Y, U, V, Z = state
+        loss = aux + penalty(U, hyper.alpha, hyper.l1_ratio)
+        if cfg.has_Y:
+            loss = loss + penalty(Z, hyper.alpha, hyper.l1_ratio)
+        return loss
+
+    return loss_fn
+
+
+def _aux_kind(cfg: SolverConfig, X: Coupled, U0):
+    """Which zero-extra-pass eval loss applies: "factored" (linear X link,
+    the fused U pass's accumulators), "phi" (any other X link: needs the V
+    update, a line search and the full batch), or None."""
+    if cfg.x_link == LINEAR:
+        return "factored" if _aux_ok(cfg, X, U0) else None
+    if not (cfg.update_V and cfg.line_search_trials >= 1
+            and cfg.sg_sample_ratio >= 1.0):
+        return None
+    return "phi"
+
+
 def _loss_core(cfg: SolverConfig):
     def loss_fn(state, hyper: Hyper):
         X, Y, U, V, Z = state
@@ -242,22 +411,26 @@ def _loss_core(cfg: SolverConfig):
     return loss_fn
 
 
-def _make_block(cfg: SolverConfig, aux: bool):
+def _make_block(cfg: SolverConfig, aux):
     step = make_newton_step(cfg, with_aux=aux)
-    loss_fn = _aux_loss(cfg) if aux else _loss_core(cfg)
+    loss_fn = _loss_core(cfg)
+    aux_loss = None
+    if aux is not None:
+        aux_loss = (_aux_loss_phi if aux == "phi" else _aux_loss)(cfg)
 
     def block(state, hyper: Hyper, rng, n_steps: int):
         X, Y, U, V, Z = state
         a = None
         for _ in range(n_steps):
             out = step(X, Y, U, V, Z, hyper, rng)
-            if aux:
-                U, V, Z, a = out
-            else:
+            if aux is None:
                 U, V, Z = out
+            else:
+                U, V, Z, a = out
         state = (X, Y, U, V, Z)
-        loss = loss_fn(state, a, hyper) if aux else loss_fn(state, hyper)
-        return state, loss, rng
+        if aux is None:
+            return state, loss_fn(state, hyper), rng
+        return state, aux_loss(state, a, hyper), rng
 
     return block
 
@@ -268,7 +441,8 @@ def run_newton(X: Coupled, Y, U0, V0, Z0, cfg: SolverConfig, hyper: Hyper,
                loop: str = "host"):
     """Run the Newton solver (loop semantics as in run_mu)."""
     check_loop(loop)
-    block = _make_block(cfg, _aux_ok(cfg, X, U0))
+    block = _make_block(cfg, _aux_kind(cfg, X, U0))
+    X, Y = _with_transposes(cfg, X, Y, V0, Z0)
     state = (X, Y, U0, V0, Z0)
     state, n_iter, losses, iters, times = run_solver_loop(
         block, state, hyper, rng, max_iter=max_iter, tol=tol,

@@ -9,6 +9,7 @@ bf16-stored fit (f32 factors) ends within an objective gap of 1e-4.
 """
 import subprocess
 import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -103,6 +104,66 @@ def test_bf16_data_objective_gap(solver, max_iter, use_pallas):
     assert gap.max() < 1e-4
 
 
+@pytest.mark.parametrize("x_link,y_link", [("linear", "sigmoid"),
+                                           ("sigmoid", "linear"),
+                                           ("sigmoid", "sigmoid")])
+@pytest.mark.parametrize("use_pallas", [True, False])
+def test_sigmoid_newton_fit_matches_reference_f64(rng, x_link, y_link,
+                                                  use_pallas):
+    """Sigmoid links through the estimator, 60×40 data: a sigmoid X is
+    binarised and arrives sparse (densified at ingest in both); use_pallas
+    runs the fused sigmoid updates, and a sigmoid X the φ eval loss."""
+    X, Y = make_problem(rng, n=60, binary_y=y_link == "sigmoid")
+    if x_link == "sigmoid":
+        X = sp.csr_matrix((X > np.median(X)).astype(float))
+    j, t = _pair(n_components=4, solver="newton", x_link=x_link,
+                 y_link=y_link, alpha=0.1, l1_ratio=0.5, random_state=0,
+                 max_iter=10, eval_every=5, tol=1e-7, dtype="float64",
+                 use_pallas=use_pallas)
+    j.fit(X, Y)
+    t.fit(X, Y)
+    _assert_same_fit(j, t)
+
+
+@pytest.mark.parametrize("use_pallas", [None, False])
+def test_newton_sigmoid_golden_replays_on_the_port(use_pallas):
+    """tests/goldens/newton_sigmoid.npz, the NumPy implementation's
+    trajectory that tests/test_goldens.py replays on the reference, at the
+    same tolerances."""
+    g = np.load(Path(__file__).parent / "goldens" / "newton_sigmoid.npz")
+    m = CMF(n_components=g["U0"].shape[1], solver="newton",
+            alpha=0.05, l1_ratio=0.2, hessian_pertubation=0.3,
+            y_link="sigmoid", U_non_negative=False, V_non_negative=False,
+            Z_non_negative=False, line_search_trials=6,
+            max_iter=int(g["n_iter"]), tol=0.0, eval_every=1,
+            dtype="float64", use_pallas=use_pallas, device="cpu")
+    m.fit(g["X"], g["Y"], U=g["U0"], V=g["V0"], Z=g["Z0"])
+    assert np.allclose(m.loss_history_, g["losses"], rtol=1e-8)
+    assert np.allclose(m.U_, g["U"], rtol=1e-7, atol=1e-10)
+    assert np.allclose(m.V_, g["V"], rtol=1e-7, atol=1e-10)
+    assert np.allclose(m.Z_, g["Z"], rtol=1e-7, atol=1e-10)
+
+
+@pytest.mark.parametrize("links", [dict(x_link="sigmoid"),
+                                   dict(y_link="sigmoid")])
+def test_mu_with_sigmoid_link_raises_like_reference(rng, links):
+    X, Y = make_problem(rng)
+    errors = []
+    for est in _pair(n_components=3, solver="mu", **links):
+        with pytest.raises(ValueError) as info:
+            est.fit(X, Y)
+        errors.append(str(info.value))
+    assert errors[0] == errors[1]
+
+
+def test_cpu_sigmoid_fit_launches_no_kernel(rng):
+    X, Y = make_problem(rng, binary_y=True)
+    policy.reset_launch_counts()
+    CMF(n_components=3, solver="newton", x_link="sigmoid", y_link="sigmoid",
+        max_iter=3, device="cpu").fit((X > np.median(X)).astype(float), Y)
+    assert set(policy.launch_counts().values()) == {0}
+
+
 @pytest.mark.parametrize("solver", ["mu", "newton"])
 def test_from_reference_continues_identically(rng, solver):
     X, Y = make_problem(rng, n=61)
@@ -173,6 +234,8 @@ def test_import_pulls_in_no_jax():
             "import pycmf_tpu_torch, pycmf_tpu_torch.models.cmf\n"
             "import pycmf_tpu_torch.ops.kernels.mu_fused\n"
             "import pycmf_tpu_torch.ops.kernels.newton_fused\n"
+            "import pycmf_tpu_torch.ops.kernels.sigmoid_newton\n"
+            "import pycmf_tpu_torch.ops.kernels.batched_solve\n"
             "import pycmf_tpu_torch.ops.kernels._build\n"
             "import pycmf_tpu_torch.utils.datasets\n"
             "import pycmf_tpu_torch.utils.convert\n"
@@ -184,7 +247,6 @@ def test_import_pulls_in_no_jax():
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(solver="newton", y_link="sigmoid"), "ROADMAP A3"),
     (dict(solver="newton", sg_sample_ratio=0.5), "ROADMAP A3"),
     (dict(n_shards=2), "ROADMAP A10"),
     (dict(data_dtype="fp8"), "ROADMAP A9"),

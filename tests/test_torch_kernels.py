@@ -1,25 +1,33 @@
-"""The port's fused U-pass kernels on the CPU: the wrappers take their plain
-PyTorch versions for CPU tensors, held against the JAX Pallas kernels run
-in interpret mode (pycmf_tpu/ops/pallas/mu_fused.py, newton_fused.py), with
-the same NumPy inputs. The CUDA kernels themselves run only on a card; they
-are checked against these plain versions by chip_smoke.py.
+"""The port's kernels on the CPU: the wrappers take their plain PyTorch
+versions for CPU tensors, held against the JAX Pallas kernels run in
+interpret mode (pycmf_tpu/ops/pallas/mu_fused.py, newton_fused.py,
+sigmoid_newton.py, batched_solve.py), with the same NumPy inputs. The CUDA
+kernels themselves run only on a card; they are checked against these
+plain versions by chip_smoke.py.
 
 Tolerances:
 - float64: rtol 1e-10, the reference's own bar for its kernels against
   their unfused math (tests/test_pallas.py).
 - bf16 X with f32 factors: both round V and U_new to bf16 at the same
   points and accumulate in f32, in different orders: rtol 1e-5 on U_new,
-  1e-4 on numV (a sum over n rows of bf16-rounded U_new).
+  1e-4 on numV (a sum over n rows of bf16-rounded U_new). The sigmoid
+  passes widen X to f32 and sum f32 products in different orders: rtol
+  1e-4 against the largest entry of G, H and φ.
 """
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from pycmf_tpu.ops.pallas.batched_solve import batched_spd_solve as j_solve
 from pycmf_tpu.ops.pallas.mu_fused import fused_mu_u_pass as j_mu
 from pycmf_tpu.ops.pallas.newton_fused import \
     fused_newton_linear_u_pass as j_newton
-from pycmf_tpu_torch.ops.kernels import _build, mu_fused, newton_fused, policy
+from pycmf_tpu.ops.pallas.sigmoid_newton import sigmoid_gh_pass as j_gh
+from pycmf_tpu.ops.pallas.sigmoid_newton import sigmoid_phi_pass as j_phi
+from pycmf_tpu_torch.ops import losses as tlosses
+from pycmf_tpu_torch.ops.kernels import (_build, batched_solve, mu_fused,
+                                         newton_fused, policy, sigmoid_newton)
 
 
 def _t(a, dtype=torch.float64):
@@ -163,7 +171,172 @@ def test_build_without_nvcc_raises_clearly(monkeypatch, tmp_path):
 def test_sources_name_the_kernels_they_replace():
     for name, ref in (("mu_fused", "mu_fused.py:fused_mu_u_pass"),
                       ("newton_fused",
-                       "newton_fused.py:fused_newton_linear_u_pass")):
+                       "newton_fused.py:fused_newton_linear_u_pass"),
+                      ("sigmoid_newton", "sigmoid_newton.py:sigmoid_gh_pass"),
+                      ("sigmoid_newton",
+                       "sigmoid_newton.py:sigmoid_phi_pass"),
+                      ("batched_solve", "batched_solve.py:batched_spd_solve")):
         head = (_build.CSRC / f"{name}.cu").read_text()[:2000]
         assert f"pycmf_tpu/ops/pallas/{ref}" in head
         assert "Bound:" in head and "Design:" in head
+
+
+def _sig_operands(rng, n, m, k):
+    """0/1 data (exact in bf16), O(1) logits."""
+    X = (rng.rand(n, m) < 0.3).astype(np.float64)
+    return X, 0.5 * rng.randn(n, k), 0.5 * rng.randn(m, k)
+
+
+def _close_to_scale(got, want, rtol):
+    want = _np(want)
+    np.testing.assert_allclose(_np(got), want, rtol=rtol,
+                               atol=rtol * np.abs(want).max())
+
+
+# n = 1, n below the Pallas row tile, n past it with a ragged edge; q not a
+# multiple of the CUDA kernels' 32- and 64-column chunks
+_SIG_SHAPES = [(1, 40, 4), (7, 33, 5), (137, 90, 5), (64, 300, 8)]
+
+
+@pytest.mark.parametrize("n,m,k", _SIG_SHAPES)
+def test_sigmoid_gh_f64_matches_pallas(rng, n, m, k):
+    X, M, B = _sig_operands(rng, n, m, k)
+    want = j_gh(jnp.asarray(X), jnp.asarray(M), jnp.asarray(B), 0.05, 0.2)
+    got = sigmoid_newton.sigmoid_gh_pass(_t(X), _t(M), _t(B), 0.05, 0.2)
+    assert got[1].shape == (n, k, k)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(_np(g), _np(w), rtol=1e-10, atol=1e-12)
+
+
+@pytest.mark.parametrize("n,m,k", [(7, 33, 5), (61, 90, 20)])
+def test_sigmoid_gh_bf16_matches_pallas(rng, n, m, k):
+    X, M, B = _sig_operands(rng, n, m, k)
+    want = j_gh(jnp.asarray(X, jnp.bfloat16), jnp.asarray(M, jnp.float32),
+                jnp.asarray(B, jnp.float32), 0.01, 0.02)
+    got = sigmoid_newton.sigmoid_gh_pass(
+        _t(X, torch.bfloat16), _t(M, torch.float32), _t(B, torch.float32),
+        0.01, 0.02)
+    assert all(g.dtype == torch.float32 for g in got)
+    for g, w in zip(got, want):
+        _close_to_scale(g, w, 1e-4)
+
+
+@pytest.mark.parametrize("n,m,k", [(1, 40, 4), (61, 90, 5)])
+@pytest.mark.parametrize("trials", [0, 1, 8])
+@pytest.mark.parametrize("non_negative", [True, False])
+def test_sigmoid_phi_f64_matches_pallas(rng, n, m, k, trials, non_negative):
+    X, M, B = _sig_operands(rng, n, m, k)
+    if non_negative:
+        M = np.abs(M)
+    d = rng.randn(n, k)
+    kw = dict(trials=trials, non_negative=non_negative)
+    want = j_phi(jnp.asarray(X), jnp.asarray(M), jnp.asarray(d),
+                 jnp.asarray(B), 0.05, 0.2, **kw)
+    got = sigmoid_newton.sigmoid_phi_pass(_t(X), _t(M), _t(d), _t(B), 0.05,
+                                          0.2, **kw)
+    assert got.shape == (n, trials + 1)
+    np.testing.assert_allclose(_np(got), _np(want), rtol=1e-10)
+
+
+def test_sigmoid_phi_bf16_matches_pallas(rng):
+    n, m, k = 61, 90, 20
+    X, M, B = _sig_operands(rng, n, m, k)
+    d = 0.1 * rng.randn(n, k)
+    f = lambda a: _t(a, torch.float32)  # noqa: E731
+    want = j_phi(jnp.asarray(X, jnp.bfloat16), *(jnp.asarray(a, jnp.float32)
+                                                 for a in (M, d, B)),
+                 0.01, 0.02, trials=8, non_negative=True)
+    got = sigmoid_newton.sigmoid_phi_pass(_t(X, torch.bfloat16), f(M), f(d),
+                                          f(B), 0.01, 0.02, trials=8,
+                                          non_negative=True)
+    assert got.dtype == torch.float32
+    _close_to_scale(got, want, 1e-5)
+
+
+@pytest.mark.parametrize("stream", ["gh", "phi"])
+def test_sigmoid_rows_stream_like_one_block(rng, monkeypatch, stream):
+    """The plain passes over row blocks (and candidates) of _BLOCK_ELEMS
+    give what one block gives."""
+    X, M, B = _sig_operands(rng, 61, 40, 4)
+    C = np.stack([M, M + 0.1, np.abs(M)])
+    if stream == "gh":
+        def run():
+            return sigmoid_newton.sigmoid_gh_rows(_t(X), _t(M), _t(B))
+    else:
+        def run():
+            return (tlosses.sigmoid_sq_rows(_t(X), _t(C), _t(B)),)
+    whole = run()
+    monkeypatch.setattr(tlosses, "_BLOCK_ELEMS", 7 * 40)
+    for a, b in zip(run(), whole):
+        np.testing.assert_allclose(_np(a), _np(b), rtol=1e-13)
+
+
+def _spd(rng, p, k):
+    A = rng.randn(p, k, k)
+    return np.einsum("pij,pkj->pik", A, A) + 0.5 * np.eye(k), rng.randn(p, k)
+
+
+@pytest.mark.parametrize("p,k", [(1, 3), (5, 3), (130, 8), (1000, 20),
+                                 (7, 40)])
+def test_batched_solve_f64_matches_pallas(rng, p, k):
+    """k = 40 > 32: both packages take a generic LU solve."""
+    H, G = _spd(rng, p, k)
+    want = j_solve(jnp.asarray(H), jnp.asarray(G))
+    got = batched_solve.batched_spd_solve(_t(H), _t(G))
+    np.testing.assert_allclose(_np(got), _np(want), rtol=1e-10, atol=1e-12)
+
+
+def test_batched_solve_f32_matches_pallas(rng):
+    """Damped rank-one systems, the Newton Hessians' structure; f32 at a
+    tolerance of the systems' condition number times f32 rounding."""
+    v = rng.randn(300, 20, 1)
+    H = v @ v.transpose(0, 2, 1) + 0.2 * np.eye(20)
+    G = rng.randn(300, 20)
+    want = j_solve(jnp.asarray(H, jnp.float32), jnp.asarray(G, jnp.float32))
+    got = batched_solve.batched_spd_solve(_t(H, torch.float32),
+                                          _t(G, torch.float32))
+    np.testing.assert_allclose(_np(got), _np(want), rtol=1e-4, atol=1e-5)
+
+
+def test_batched_solve_not_spd_gives_nan_like_reference(rng):
+    H, G = _spd(rng, 4, 3)
+    H[2] = np.array([[1.0, 2.0, 0.0], [2.0, 1.0, 0.0], [0.0, 0.0, 1.0]])
+    want = np.asarray(j_solve(jnp.asarray(H), jnp.asarray(G)))
+    got = _np(batched_solve.batched_spd_solve(_t(H), _t(G)))
+    assert np.isnan(want[2]).all() and np.isnan(got[2]).all()
+    np.testing.assert_allclose(got[[0, 1, 3]], want[[0, 1, 3]], rtol=1e-10)
+
+
+def test_sigmoid_cpu_wrappers_take_plain_versions_without_launching(rng):
+    X, M, B = _sig_operands(rng, 9, 30, 4)
+    d = rng.randn(9, 4)
+    H, G = _spd(rng, 9, 4)
+    policy.reset_launch_counts()
+    a = sigmoid_newton.sigmoid_gh_pass(_t(X), _t(M), _t(B), 0.1, 0.2)
+    b = sigmoid_newton.sigmoid_gh_pass_ref(_t(X), _t(M), _t(B), 0.1, 0.2)
+    kw = dict(trials=3, non_negative=True)
+    c = sigmoid_newton.sigmoid_phi_pass(_t(X), _t(M), _t(d), _t(B), 0.1, 0.2,
+                                        **kw)
+    e = sigmoid_newton.sigmoid_phi_pass_ref(_t(X), _t(M), _t(d), _t(B), 0.1,
+                                            0.2, **kw)
+    f = batched_solve.batched_spd_solve(_t(H), _t(G))
+    g = batched_solve.batched_spd_solve_ref(_t(H), _t(G))
+    for x, y in list(zip(a, b)) + [(c, e), (f, g)]:
+        assert torch.equal(x, y)
+    for name in ("sigmoid_gh_pass", "sigmoid_phi_pass", "batched_spd_solve"):
+        assert policy.launch_counts()[name] == 0
+
+
+def test_sigmoid_wrappers_refuse_fp8_and_transposed_views(rng):
+    X, M, B = _sig_operands(rng, 8, 6, 2)
+    X8 = _t(X, torch.float32).to(torch.float8_e4m3fn)
+    f = lambda a: _t(a, torch.float32)  # noqa: E731
+    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+        sigmoid_newton.sigmoid_gh_pass(X8, f(M), f(B), 0.0, 0.0)
+    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+        sigmoid_newton.sigmoid_phi_pass(X8, f(M), f(M), f(B), 0.0, 0.0,
+                                        trials=2, non_negative=True)
+    # the card's operand check: Xᵀ must be a contiguous copy, not a view
+    Xt = f(X.T.copy()).mT
+    with pytest.raises(ValueError, match="Coupled.At"):
+        sigmoid_newton._card_operands(Xt, f(M), f(B))

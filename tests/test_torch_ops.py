@@ -134,12 +134,46 @@ def test_linear_term_mixed_precision(rng, n):
     np.testing.assert_allclose(float(got), float(want), rtol=1e-5)
 
 
-def test_sigmoid_loss_not_ported(rng):
-    X, Y = make_problem(rng)
-    with pytest.raises(NotImplementedError, match="ROADMAP A3"):
-        tlosses.total_loss(_t(X), _t(Y), _t(np.ones((60, 4))),
-                           _t(np.ones((40, 4))), _t(np.ones((10, 4))),
-                           "linear", "sigmoid", 0.0, 0.0)
+@pytest.mark.parametrize("streamed", [False, True])
+@pytest.mark.parametrize("dtype", ["float64", "bfloat16"])
+def test_sigmoid_term(rng, monkeypatch, streamed, dtype):
+    """Dense ½‖A − σ(M Bᵀ)‖², in one block and streamed over row blocks
+    (_BLOCK_ELEMS cut small in both packages, 61 rows in blocks of 7).
+    f64 rtol 1e-12; bf16 data with f32 factors rtol 1e-6 (f32 sums in two
+    orders)."""
+    A = (rng.rand(61, 40) < 0.3).astype(np.float64)
+    M, B = rng.randn(61, 4), rng.randn(40, 4)
+    if streamed:
+        monkeypatch.setattr(tlosses, "_BLOCK_ELEMS", 7 * 40)
+        monkeypatch.setattr(jlosses, "_BLOCK_ELEMS", 7 * 40)
+    if dtype == "float64":
+        args_t, args_j, rtol = (_t(A), _t(M), _t(B)), \
+            (jnp.asarray(A), jnp.asarray(M), jnp.asarray(B)), 1e-12
+    else:
+        args_t = (_t(A, torch.bfloat16), _t(M, torch.float32),
+                  _t(B, torch.float32))
+        args_j = (jnp.asarray(A, jnp.bfloat16), jnp.asarray(M, jnp.float32),
+                  jnp.asarray(B, jnp.float32))
+        rtol = 1e-6
+    got = tlosses.reconstruction_term(*args_t, "sigmoid")
+    want = jlosses.reconstruction_term(*args_j, "sigmoid")
+    np.testing.assert_allclose(float(got), float(want), rtol=rtol)
+
+
+@pytest.mark.parametrize("x_link,y_link", [("linear", "sigmoid"),
+                                           ("sigmoid", "linear"),
+                                           ("sigmoid", "sigmoid")])
+def test_total_loss_sigmoid_links_f64(rng, x_link, y_link):
+    X, Y = make_problem(rng, binary_y=True)
+    U, V, Z = rng.randn(60, 4), rng.randn(40, 4), rng.randn(10, 4)
+    if x_link == "sigmoid":
+        X = (X > np.median(X)).astype(float)
+    want = jlosses.total_loss(jnp.asarray(X), jnp.asarray(Y), jnp.asarray(U),
+                              jnp.asarray(V), jnp.asarray(Z), x_link, y_link,
+                              0.3, 0.4)
+    got = tlosses.total_loss(_t(X), _t(Y), _t(U), _t(V), _t(Z), x_link,
+                             y_link, 0.3, 0.4)
+    np.testing.assert_allclose(float(got), float(want), rtol=1e-12)
 
 
 def _phi_parts(rng, p=23, k=4):

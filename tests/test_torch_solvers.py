@@ -168,8 +168,6 @@ def test_hyper_rounds_like_reference_f32():
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(y_link="sigmoid"), "ROADMAP A3"),
-    (dict(x_link="sigmoid"), "ROADMAP A3"),
     (dict(sg_sample_ratio=0.5), "ROADMAP A3"),
     (dict(hessian_form="full"), "ROADMAP A3")])
 def test_out_of_slice_configs_raise(kw, match):
@@ -197,3 +195,125 @@ def test_cholesky_of_non_pd_matrix_is_nan_like_reference():
     np.testing.assert_allclose(
         _np(tnewton._cholesky(torch.from_numpy(4.0 * np.eye(2)))),
         2.0 * np.eye(2))
+
+
+def _sig_setup(rng, x_link, y_link, n=61, k=4, with_y=True):
+    X, Y = make_problem(rng, n=n, k=k, binary_y=y_link == "sigmoid")
+    if x_link == "sigmoid":
+        X = (X > np.median(X)).astype(float)
+    U0 = np.abs(rng.randn(n, k))
+    V0 = np.abs(rng.randn(X.shape[1], k))
+    Z0 = np.abs(rng.randn(Y.shape[1], k)) if with_y else np.zeros((0, k))
+    return X, (Y if with_y else None), U0, V0, Z0
+
+
+_LINKS = [("linear", "sigmoid"), ("sigmoid", "linear"), ("sigmoid", "sigmoid")]
+
+
+@pytest.mark.parametrize("use_pallas", [True, False])
+@pytest.mark.parametrize("x_link,y_link", _LINKS)
+@pytest.mark.parametrize("non_negative,trials", [(True, 8), (False, 3)])
+def test_run_newton_sigmoid_trajectory(rng, use_pallas, x_link, y_link,
+                                       non_negative, trials):
+    """Sigmoid links through both branches: use_pallas runs the fused
+    sigmoid updates (K3, K4, K5 in both packages, JAX's in interpret
+    mode), and a sigmoid X link takes the φ eval loss."""
+    X, Y, U0, V0, Z0 = _sig_setup(rng, x_link, y_link)
+    j, t = _run_pair("newton", X, Y, U0, V0, Z0, alpha=0.1, l1_ratio=0.5,
+                     use_pallas=use_pallas, line_search_trials=trials,
+                     x_link=x_link, y_link=y_link,
+                     U_non_negative=non_negative, V_non_negative=non_negative,
+                     Z_non_negative=non_negative, max_iter=12, eval_every=4)
+    _assert_same_run(j, t)
+
+
+@pytest.mark.parametrize("use_pallas", [True, False])
+@pytest.mark.parametrize("trials,with_y", [(0, True), (8, False)])
+def test_run_newton_sigmoid_x_plain_steps_and_no_y(rng, use_pallas, trials,
+                                                   with_y):
+    """trials=0 (plain projected steps, no φ eval loss) and a sigmoid X
+    without Y."""
+    X, Y, U0, V0, Z0 = _sig_setup(rng, "sigmoid", "sigmoid", with_y=with_y)
+    j, t = _run_pair("newton", X, Y, U0, V0, Z0, use_pallas=use_pallas,
+                     line_search_trials=trials, x_link="sigmoid",
+                     y_link="sigmoid", max_iter=8, eval_every=4)
+    _assert_same_run(j, t)
+
+
+def _sig_factor_problem(rng, y_link, n=37, m=50, k=4, r=7):
+    X = (rng.rand(n, m) < 0.3).astype(np.float64)
+    M, B = 0.5 * rng.randn(n, k), 0.5 * rng.randn(m, k)
+    Yd = ((rng.rand(n, r) < 0.4).astype(np.float64) if y_link == "sigmoid"
+          else np.abs(rng.randn(n, r)))
+    return X, M, B, Yd, rng.randn(r, k)
+
+
+@pytest.mark.parametrize("y_link", [None, "linear", "sigmoid"])
+@pytest.mark.parametrize("trials,return_phi,non_negative",
+                         [(8, False, False), (8, True, True), (0, False, True)])
+def test_fused_sigmoid_update_matches_reference(rng, y_link, trials,
+                                                return_phi, non_negative):
+    X, M, B, Yd, Zf = _sig_factor_problem(rng, y_link)
+    jh = jcommon.make_hyper(0.05, 0.3, 1e-9, 0.2, dtype=jnp.float64)
+    th = tcommon.make_hyper(0.05, 0.3, 1e-9, 0.2, dtype=torch.float64)
+    kw = dict(trials=trials, non_negative=non_negative, use_pallas=True,
+              y_link=y_link or "linear", return_phi=return_phi)
+    want = jnewton.fused_sigmoid_update(
+        jnp.asarray(M), jnp.asarray(X), jnp.asarray(B), jh,
+        yterm=(jnewton.Term(jnp.asarray(Yd), jnp.asarray(Zf))
+               if y_link else None), **kw)
+    got = tnewton.fused_sigmoid_update(
+        torch.from_numpy(M), torch.from_numpy(X), torch.from_numpy(B), th,
+        yterm=(tnewton.Term(torch.from_numpy(Yd), torch.from_numpy(Zf))
+               if y_link else None), **kw)
+    if return_phi:
+        (want, wphi), (got, gphi) = want, got
+        np.testing.assert_allclose(float(gphi.sum()), float(wphi),
+                                   rtol=1e-12)
+    np.testing.assert_allclose(_np(got), _np(want), rtol=1e-10, atol=1e-13)
+
+
+@pytest.mark.parametrize("use_pallas", [True, False])
+@pytest.mark.parametrize("y_link", ["linear", "sigmoid"])
+@pytest.mark.parametrize("return_phi", [True, False])
+def test_newton_update_factor_sigmoid_matches_reference(rng, use_pallas,
+                                                        y_link, return_phi):
+    """V's update in the sigmoid-X orientation: a sigmoid term plus a
+    linear or sigmoid Y term, per-row systems (K5 under use_pallas)."""
+    X, M, B, Yd, Zf = _sig_factor_problem(rng, y_link)
+    jh = jcommon.make_hyper(0.05, 0.3, 1e-9, 0.2, dtype=jnp.float64)
+    th = tcommon.make_hyper(0.05, 0.3, 1e-9, 0.2, dtype=torch.float64)
+    kw = dict(non_negative=True, trials=8, hessian_form="gauss",
+              sample_ratio=1.0, use_pallas=use_pallas, return_phi=return_phi)
+    links = ("sigmoid", y_link)
+    want = jnewton.newton_update_factor(
+        jax.random.PRNGKey(0), jnp.asarray(M),
+        (jnewton.Term(jnp.asarray(X), jnp.asarray(B)),
+         jnewton.Term(jnp.asarray(Yd), jnp.asarray(Zf))), links, jh, **kw)
+    got = tnewton.newton_update_factor(
+        None, torch.from_numpy(M),
+        (tnewton.Term(torch.from_numpy(X), torch.from_numpy(B)),
+         tnewton.Term(torch.from_numpy(Yd), torch.from_numpy(Zf))), links,
+        th, **kw)
+    if not return_phi:
+        want, got = (want,), (got,)
+    for a, b in zip(want, got):
+        np.testing.assert_allclose(_np(b), _np(a), rtol=1e-10, atol=1e-13)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(), dict(use_pallas=True), dict(x_link="sigmoid"),
+    dict(x_link="sigmoid", use_pallas=True),
+    dict(x_link="sigmoid", line_search_trials=0),
+    dict(x_link="sigmoid", update_V=False),
+    dict(y_link="sigmoid", use_pallas=True)])
+@pytest.mark.parametrize("dtype", ["float64", "bfloat16"])
+def test_aux_kind_matches_reference(rng, kw, dtype):
+    X, Y, U0, _, _ = _setup(rng)
+    jdt = {"float64": jnp.float64, "bfloat16": jnp.bfloat16}[dtype]
+    tdt = {"float64": torch.float64, "bfloat16": torch.bfloat16}[dtype]
+    want = jnewton._aux_kind(jcommon.SolverConfig(**kw), j_as_coupled(X, jdt),
+                             jnp.asarray(U0))
+    got = tnewton._aux_kind(tcommon.SolverConfig(**kw),
+                            t_as_coupled(X, tdt, "cpu"), torch.from_numpy(U0))
+    assert got == want
