@@ -7,14 +7,18 @@ Run from the repository root, with no arguments:
 
 Phases (any failure exits non-zero and prints no ok line):
  1. device: the card's name and power limit (nvidia-smi);
- 2. build: the four CUDA kernel libraries (five kernels), from
-    pycmf_tpu_torch/csrc;
+ 2. build: the seven CUDA kernel libraries (ten kernels), from
+    pycmf_tpu_torch/csrc, each nvcc started at once;
  3. each kernel against its plain PyTorch version on the same inputs, with
     CUDA-event times and the card's lower bound for the same work:
     K1, K2 at X 30000 x 11314 (bf16 and f32), k = 20; K3, K4 at the main
     path's Z shape (Y^T 20 x 11314, bf16) and at the dense sigmoid-X shape
     (30000 x 11314, bf16 and f32); K5 at 11314 and 30000 systems of 20 x 20,
-    beside torch.linalg.solve;
+    beside torch.linalg.solve; csr_spmm (X V and X^T U) and csr_rowdots on
+    the 20NG surrogate's CSR and an RCV1-v2-shaped one (47236 x 804414,
+    60M nonzeros), beside torch.sparse.mm; fused_mu_update at 11314 x 20 and
+    804414 x 20; bell_spmm on a block-structured 30000 x 11314 X (51M
+    nonzeros), and the fill at which it and csr_spmm take equal time;
  4. MU fit of the 20NG-shaped surrogate, bf16 X, through the estimator:
     kernel launches, and the exact (float64) loss non-increasing along the
     fit, replayed as warm-started segments;
@@ -22,11 +26,15 @@ Phases (any failure exits non-zero and prints no ok line):
  6. path A, bench.py's Newton cell: linear X, sigmoid Y (K2, K3, K4, K5);
  7. path B, dense sigmoid X and Y on the binarised surrogate (K3, K4, K5),
     its phi eval loss against an exact float64 loss taken on the card;
-    then Newton linear and paths A and B under torch.profiler (device time
+    path C, MU on the surrogate kept CSR (sparse_mode='csr': csr_spmm,
+    fused_mu_update, csr_rowdots); path D, bench's Newton cell on the CSR
+    X; path F, MU on the block-structured X through BlockEll (bell_spmm);
+    then Newton linear and paths A to D under torch.profiler (device time
     by kernel, idle share, launches per iteration);
  8. kernel path against plain path on the card for each fit, and the final
-    losses of MU and path A against the NumPy baselines (2% guard);
- 9. transform of 1000 new rows.
+    losses of MU, path A, path C and path D against the NumPy baselines
+    (2% guard);
+ 9. transform of 1000 new rows, dense (MU) and CSR (path C).
 Each fit is run with the launch counts set to 0 just before it and read
 just after. Standard output ends with the fits' record, the card's name and
 power limit, the kernels' JSON record and, last, {"ok": true, ...}.
@@ -315,18 +323,238 @@ def sigmoid_phase(check, torch, sigmoid_newton, batched_solve):
     return rec
 
 
-def fit_phase(check, make_est, X, Y, kernels, label, exact_loss):
+def csr_bytes(A, kw_in: int, kw_out: int) -> float:
+    """Bytes a CSR product must move: the CSR arrays (values, int32 column
+    indices and row pointers; the kernel's row ids are its own design, not
+    the function's), the dense input B (kw_in floats per column of A) and
+    the output (kw_out floats per row of A)."""
+    p, q = A.shape
+    return (A.nnz * (A.data.element_size() + 4) + 4.0 * (p + 1)
+            + 4.0 * q * kw_in + 4.0 * p * kw_out)
+
+
+def sparse_phase(check, torch):
+    """Phase 3, K6-K11: csr_spmm (A and Aᵀ) and csr_rowdots on the 20NG
+    surrogate and on an RCV1-v2-shaped surrogate, bell_spmm on path F's
+    block-structured X, fused_mu_update at V's shapes; each against its
+    plain version on the same inputs widened to float64 (relative Frobenius
+    <= 1e-5: the plain version in float32 sums a row of 8e5 nonzeros of the
+    RCV1 shape with atomics, in no fixed order, and is itself 5e-5 off),
+    two calls bitwise equal; the plain version's time is taken in float32.
+    Then the fill at which bell_spmm and csr_spmm take equal time on the
+    same block-structured matrix (the BlockEll layout's BELL_MIN_FILL)."""
+    import numpy as np
+    import scipy.sparse as sp
+
+    from pycmf_tpu_torch.ops import sparse
+    from pycmf_tpu_torch.ops.kernels import bell, mu_update, spmm
+    from pycmf_tpu_torch.utils.datasets import (block_sparse_matrix,
+                                                synthetic_20ng,
+                                                synthetic_rcv1)
+
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(SEED + 2)
+    rec = {}
+
+    def factor(n):
+        return torch.from_numpy(np.abs(rng.randn(n, K)).astype(np.float32)
+                                ).to(dev)
+
+    def hold(tag, fn, ref, nbytes, flops, library=None, reps=10, **extra):
+        """ref(dtype): the plain version with its float inputs at dtype."""
+        out = fn()
+        again = fn()
+        torch.cuda.synchronize()
+        want = ref(torch.float64)
+        torch.cuda.synchronize()
+        e = rel_fro(out, want)
+        check(e <= 1e-5, f"{tag} rel Frobenius {e:.3g} <= 1e-5")
+        check(bool(torch.equal(out, again)), f"{tag} two calls bitwise equal")
+        bms, bby = bound(nbytes, flops, F32_FLOPS)
+        ms = time_ms(fn, reps=reps)
+        pms = time_ms(lambda: ref(torch.float32), reps=max(3, reps // 2))
+        lib = None
+        if library is not None:
+            lib = time_ms(library, reps=reps)
+        log(f"  {tag} kernel {ms:.4f} ms, plain {pms:.4f} ms, library "
+            f"{'none' if lib is None else f'{lib:.4f} ms'}, bound "
+            f"{bms:.4f} ms ({bby})"
+            + "".join(f", {k} {v:.4g}" for k, v in extra.items()))
+        rec[tag] = dict(max_abs_err=float((out - want).abs().max()), ms=ms,
+                        plain_ms=pms, bound_ms=bms, bound_by=bby,
+                        library_ms=lib, **extra)
+        return ms
+
+    def library_mm(A, B):
+        """torch.sparse.mm on the same CSR (values widened to float32:
+        the library takes no bf16 x f32 product)."""
+        T = torch.sparse_csr_tensor(A.indptr, A.indices, A.data.float(),
+                                    size=A.shape)
+        return lambda: torch.sparse.mm(T, B)
+
+    def library_bsr(L, B):
+        """torch.sparse.mm on the same blocks as a BSR tensor (B padded to
+        whole blocks), or None where this PyTorch build has no such
+        product on the card."""
+        nrb = L.bptr.numel() - 1
+        ncb = -(-L.shape[1] // bell.BLOCK)
+        T = torch.sparse_bsr_tensor(L.bptr, L.bcols, L.blocks,
+                                    size=(nrb * bell.BLOCK, ncb * bell.BLOCK))
+        Bp = B.new_zeros((ncb * bell.BLOCK, B.shape[1]))
+        Bp[:B.shape[0]] = B
+        try:
+            torch.sparse.mm(T, Bp)
+        except (RuntimeError, NotImplementedError) as e:
+            log(f"  BSR product not available: {str(e)[:200]}")
+            return None
+        return lambda: torch.sparse.mm(T, Bp)
+
+    # edge cases at small shapes: every k the kernels instantiate apart,
+    # empty rows, a row crossing many 32-nonzero chunks, fewer nonzeros
+    # than a warp's batch, row and column counts off the 128 grid
+    for k in (1, 7, 20, 32):
+        p, q = 300, 200
+        d = sp.random(p, q, density=0.05, format="lil", random_state=rng)
+        d[3, :] = rng.rand(q)          # 200 nonzeros: seven chunks of 32
+        d[10:40, :] = 0                # empty rows
+        tiny = rng.rand(5, 7) * (rng.rand(5, 7) < 0.4)
+        tiny[0, 0] = 1.0
+        tiny = sp.csr_matrix(tiny)
+        for tag, Xh in ((f"edge k={k}", sp.csr_matrix(d)),
+                        (f"edge k={k} tiny", tiny)):
+            for xname in ("bfloat16", "float32"):
+                dt = getattr(torch, xname)
+                C = sparse.csr_from_scipy(Xh, dt, dev)
+                L = bell.bell_from_scipy(Xh, dt, dev)
+                Mf = torch.from_numpy(rng.rand(Xh.shape[0], k).astype(
+                    np.float32)).to(dev)
+                B = torch.from_numpy(rng.rand(Xh.shape[1], k).astype(
+                    np.float32)).to(dev)
+                S = torch.from_numpy(rng.rand(k, k).astype(np.float32)
+                                     ).to(dev)
+                for name, got, want in (
+                        ("csr_spmm", spmm.csr_spmm(C, B),
+                         spmm.csr_spmm_ref(C, B.double())),
+                        ("csr_rowdots", spmm.csr_rowdots(C, Mf, B),
+                         spmm.csr_rowdots_ref(C, Mf.double(), B.double())),
+                        ("bell_spmm", bell.bell_spmm(L, B),
+                         bell.bell_spmm_ref(L, B.double())),
+                        ("fused_mu_update",
+                         mu_update.fused_mu_update(Mf, S, Mf, 0.1, 0.2,
+                                                   1e-10),
+                         mu_update.fused_mu_update_ref(
+                             Mf.double(), S.double(), Mf.double(), 0.1, 0.2,
+                             1e-10))):
+                    e = rel_fro(got, want)
+                    check(e <= 1e-5, f"{name}[{tag}, {xname}] rel Frobenius "
+                          f"{e:.3g} <= 1e-5")
+
+    t0 = time.perf_counter()
+    X20, _ = synthetic_20ng(random_state=SEED)
+    Xr = synthetic_rcv1(random_state=SEED)
+    log(f"phase 3: sparse surrogates in {time.perf_counter() - t0:.1f} s: "
+        f"20NG {X20.shape} nnz={X20.nnz}, RCV1 {Xr.shape} nnz={Xr.nnz}, "
+        f"longest row {int(np.diff(Xr.indptr).max())}")
+    for shape, Xh in (("20ng", X20), ("rcv1", Xr)):
+        p, q = Xh.shape
+        U, V = factor(p), factor(q)
+        for xname in ("bfloat16", "float32"):
+            C, Ct = sparse.csr_transpose_host(Xh, getattr(torch, xname), dev)
+            gather = C.nnz * K * 4.0
+            for tag, A, B in ((f"csr_spmm[{shape},{xname}] X V", C, V),
+                              (f"csr_spmm[{shape},{xname}] Xt U", Ct, U)):
+                nb = csr_bytes(A, K, K)
+                hold(tag, lambda: spmm.csr_spmm(A, B),
+                     lambda dt: spmm.csr_spmm_ref(A, B.to(dt)), nb,
+                     2.0 * A.nnz * K,
+                     library=library_mm(A, B),
+                     gather_dram_bound_ms=1e3 * (nb + gather) / HBM_BPS)
+            hold(f"csr_rowdots[{shape},{xname}]",
+                 lambda: spmm.csr_rowdots(C, U, V),
+                 lambda dt: spmm.csr_rowdots_ref(C, U.to(dt), V.to(dt)),
+                 csr_bytes(C, K, 1) + 4.0 * p * K,
+                 2.0 * C.nnz * K + 2.0 * p * K,
+                 gather_dram_bound_ms=1e3 * (csr_bytes(C, K, 1)
+                                             + 4.0 * p * K + gather)
+                 / HBM_BPS)
+            del C, Ct
+        # K6 at V's shape
+        Mf, num = factor(q), factor(q)
+        S = Mf.T @ Mf / q
+        hold(f"fused_mu_update[{q}x{K}]",
+             lambda: mu_update.fused_mu_update(Mf, S, num, 1e-3, 2e-3, 1e-10),
+             lambda dt: mu_update.fused_mu_update_ref(
+                 Mf.to(dt), S.to(dt), num.to(dt), 1e-3, 2e-3, 1e-10),
+             4.0 * (3 * q * K + K * K), q * K * (2.0 * K + 5), reps=20)
+        del U, V, Mf, num
+    del Xr
+    torch.cuda.empty_cache()
+
+    # K7 on path F's block-structured X, and the crossover fill
+    t0 = time.perf_counter()
+    Xb = block_sparse_matrix(N, M, 0.15, np.random.RandomState(SEED))
+    keep = np.random.RandomState(SEED + 3).rand(Xb.nnz) < 1.0 / 16
+    Xthin = sp.csr_matrix((Xb.data[keep], Xb.indices[keep],
+                           np.r_[0, np.cumsum(keep)][Xb.indptr]),
+                          shape=Xb.shape)
+    log(f"phase 3: block-structured X {Xb.shape} nnz={Xb.nnz} and its "
+        f"1/16 thinning nnz={Xthin.nnz} in {time.perf_counter() - t0:.1f} s")
+    V = factor(M)
+    cross = {}
+    for xname in ("bfloat16", "float32"):
+        dt = getattr(torch, xname)
+        for fname, Xh in (("full", Xb), ("thin", Xthin)):
+            L = bell.bell_from_scipy(Xh, dt, dev)
+            C = sparse.csr_from_scipy(Xh, dt, dev)
+            nb = (L.nbytes + 4.0 * (L.bcols.numel() + L.bptr.numel())
+                  + 4.0 * (M + N) * K)
+            flops = 2.0 * L.blocks.shape[0] * bell.BLOCK ** 2 * K
+            tb = hold(f"bell_spmm[{fname},{xname}]",
+                      lambda: bell.bell_spmm(L, V),
+                      lambda dt: bell.bell_spmm_ref(L, V.to(dt)), nb, flops,
+                      library=library_bsr(L, V) if xname == "float32"
+                      else None,
+                      fill=L.fill, blocks=float(L.blocks.shape[0]))
+            tc = time_ms(lambda: spmm.csr_spmm(C, V))
+            cross[(xname, fname)] = (tb, tc, C.nnz, L.blocks.shape[0])
+            log(f"  csr_spmm on the same matrix ({fname}, {xname}): "
+                f"{tc:.4f} ms")
+            del L, C
+    for xname in ("bfloat16", "float32"):
+        tb, tc1, n1, nb1 = cross[(xname, "full")]
+        _, tc2, n2, _ = cross[(xname, "thin")]
+        slope = (tc1 - tc2) / (n1 - n2)
+        fill = (tb - (tc1 - slope * n1)) / (slope * nb1 * bell.BLOCK ** 2)
+        rec[f"crossover[{xname}]"] = dict(fill=fill, bell_ms=tb,
+                                          csr_full_ms=tc1, csr_thin_ms=tc2)
+        log(f"  crossover ({xname}): csr_spmm equals bell_spmm at fill "
+            f"{fill:.4g}")
+    fill = rec["crossover[bfloat16]"]["fill"]
+    check(fill / 2 <= bell.BELL_MIN_FILL <= 2 * fill,
+          f"BELL_MIN_FILL {bell.BELL_MIN_FILL} within a factor 2 of the "
+          f"measured bf16 crossover {fill:.4g} (else re-measure it)")
+    del Xb, Xthin, V
+    torch.cuda.empty_cache()
+    return rec
+
+
+def per_iter(**kernels):
+    """Launch minimums of a path: {name: launches per iteration}."""
+    return lambda est: {k: n * est.n_iter_ for k, n in kernels.items()}
+
+
+def fit_phase(check, make_est, X, Y, minimums, label, exact_loss):
     """Fit through the estimator with the launch counts set to 0 just
     before and read just after; check each kernel of the path launched at
     least its minimum; check the objective along the fit.
 
-    kernels: {name: launches required per iteration}. exact_loss(U, V, Z)
-    is the float64 objective. The reported eval-point losses come from the
-    solvers' zero-extra-pass identities, which round (bf16 XᵀU_new, f32
-    sums); monotonicity is checked on the exact objective at each eval
-    point, along the same trajectory replayed as warm-started segments of
-    eval_every iterations, and the replay must end on the fit's own
-    factors bit for bit."""
+    minimums(est) -> {name: launches required in the fit}.
+    exact_loss(U, V, Z) is the float64 objective. The reported eval-point
+    losses come from the solvers' zero-extra-pass identities, which round
+    (bf16 XᵀU_new, f32 sums); monotonicity is checked on the exact
+    objective at each eval point, along the same trajectory replayed as
+    warm-started segments of eval_every iterations, and the replay must end
+    on the fit's own factors bit for bit."""
     import numpy as np
 
     from pycmf_tpu_torch.ops.kernels.policy import (launch_counts,
@@ -343,11 +571,10 @@ def fit_phase(check, make_est, X, Y, kernels, label, exact_loss):
     counts = launch_counts()
     hist = est.loss_history_
     check(all(math.isfinite(v) for v in hist), f"{label}: finite losses")
-    for kernel, per_iter in kernels.items():
+    for kernel, need in minimums(est).items():
         got = counts.get(kernel, 0)
-        check(got >= per_iter * est.n_iter_,
-              f"{label}: {kernel} launches {got} >= {per_iter} x n_iter "
-              f"{est.n_iter_}")
+        check(got >= need, f"{label}: {kernel} launches {got} >= {need} "
+              f"(n_iter {est.n_iter_}, {len(hist)} loss evaluations)")
     ms_iter = 1e3 * sum(est.step_times_) / est.n_iter_
     log(f"  {label}: n_iter {est.n_iter_}, final loss "
         f"{est.reconstruction_err_:.9g}, {ms_iter:.4f} ms/iter (solver "
@@ -504,9 +731,12 @@ def main() -> int:
 
     from baselines import numpy_cmf
     from pycmf_tpu_torch import CMF
-    from pycmf_tpu_torch.ops.kernels import (_build, batched_solve, mu_fused,
-                                             newton_fused, sigmoid_newton)
-    from pycmf_tpu_torch.utils.datasets import synthetic_20ng
+    from pycmf_tpu_torch.ops.kernels import (_build, batched_solve, bell,
+                                             mu_fused, mu_update,
+                                             newton_fused, sigmoid_newton,
+                                             spmm)
+    from pycmf_tpu_torch.utils.datasets import (block_sparse_matrix,
+                                                synthetic_20ng)
 
     check = Checks()
     # 1. device
@@ -532,6 +762,7 @@ def main() -> int:
     krec = u_pass_phase(check, torch, mu_fused, newton_fused)
     krec.update(sigmoid_phase(check, torch, sigmoid_newton,
                               batched_solve))
+    krec.update(sparse_phase(check, torch))
 
     # 4.-7. the paths, through the estimator
     t0 = time.perf_counter()
@@ -544,21 +775,21 @@ def main() -> int:
     mu_kw = dict(solver="mu", max_iter=200, tol=1e-4, eval_every=10)
     mu_est, mu = fit_phase(
         check, lambda: CMF(**mu_kw, **common), X, Y,
-        {"fused_mu_u_pass": 1}, "MU fit",
+        per_iter(fused_mu_u_pass=1, fused_mu_update=2), "MU fit",
         lambda U, V, Z: numpy_cmf.loss(X64, Y64, U, V, Z))
     log("phase 5: Newton fit, linear links")
     nl_kw = dict(solver="newton", max_iter=30, tol=1e-5, eval_every=5)
     _, nt = fit_phase(
         check, lambda: CMF(**nl_kw, **common), X, Y,
-        {"fused_newton_linear_u_pass": 1}, "Newton linear fit",
+        per_iter(fused_newton_linear_u_pass=1), "Newton linear fit",
         lambda U, V, Z: numpy_cmf.loss(X64, Y64, U, V, Z))
     log("phase 6: path A, bench's Newton cell (sigmoid Y)")
     a_kw = dict(solver="newton", y_link="sigmoid", max_iter=50, tol=1e-5,
                 eval_every=5)
     _, pa = fit_phase(
         check, lambda: CMF(**a_kw, **common), X, Y,
-        {"fused_newton_linear_u_pass": 1, "sigmoid_gh_pass": 1,
-         "sigmoid_phi_pass": 1, "batched_spd_solve": 2},
+        per_iter(fused_newton_linear_u_pass=1, sigmoid_gh_pass=1,
+                 sigmoid_phi_pass=1, batched_spd_solve=2),
         "path A fit",
         lambda U, V, Z: numpy_cmf.loss(X64, Y64, U, V, Z,
                                        y_link="sigmoid"))
@@ -572,13 +803,43 @@ def main() -> int:
                 Z_non_negative=False)
     _, pb = fit_phase(
         check, lambda: CMF(**b_kw, **common), Xb, Y,
-        {"sigmoid_gh_pass": 3, "sigmoid_phi_pass": 3,
-         "batched_spd_solve": 3},
+        per_iter(sigmoid_gh_pass=3, sigmoid_phi_pass=3, batched_spd_solve=3),
         "path B fit", card_sigmoid_loss(torch, Xb, Y))
     check(pb["reported_vs_exact_max_rel"] <= 1e-4,
           f"path B: phi eval loss vs exact f64 max rel "
           f"{pb['reported_vs_exact_max_rel']:.3g} <= 1e-4 (f32 sums of "
           f"3.4e8 squared residuals)")
+    log("phase 7: path C, sparse MU (BASELINE.json config #3: CSR X)")
+    c_kw = dict(solver="mu", sparse_mode="csr", max_iter=200, tol=1e-4,
+                eval_every=10)
+    c_est, pc = fit_phase(
+        check, lambda: CMF(**c_kw, **common), X, Y,
+        lambda e: {"csr_spmm": 2 * e.n_iter_,
+                   "fused_mu_update": 3 * e.n_iter_, "csr_rowdots": 1},
+        "path C fit", lambda U, V, Z: numpy_cmf.loss(X64, Y64, U, V, Z))
+    log("phase 7: path D, sparse Newton (bench's Newton cell on CSR X)")
+    d_kw = dict(a_kw, sparse_mode="csr")
+    _, pd = fit_phase(
+        check, lambda: CMF(**d_kw, **common), X, Y,
+        lambda e: {"csr_spmm": 2 * e.n_iter_,
+                   "sigmoid_gh_pass": e.n_iter_,
+                   "sigmoid_phi_pass": e.n_iter_,
+                   "batched_spd_solve": 2 * e.n_iter_,
+                   "csr_rowdots": len(e.loss_history_)},
+        "path D fit",
+        lambda U, V, Z: numpy_cmf.loss(X64, Y64, U, V, Z, y_link="sigmoid"))
+    log("phase 7: path F, block-structured X through BlockEll (MU)")
+    t0 = time.perf_counter()
+    Xf = block_sparse_matrix(N, M, 0.15, np.random.RandomState(SEED))
+    Xf64 = Xf.astype(np.float64)
+    log(f"  data {Xf.shape} nnz={Xf.nnz} in {time.perf_counter() - t0:.1f} s")
+    f_kw = dict(solver="mu", sparse_mode="csr", max_iter=20, tol=0.0,
+                eval_every=10)
+    _, pf = fit_phase(
+        check, lambda: CMF(**f_kw, **common), Xf, Y,
+        lambda e: {"bell_spmm": 2 * e.n_iter_,
+                   "fused_mu_update": 3 * e.n_iter_},
+        "path F fit", lambda U, V, Z: numpy_cmf.loss(Xf64, Y64, U, V, Z))
     log("phase 7b: where the time goes (torch.profiler)")
     nt["profile"] = profile_phase(
         torch, lambda: CMF(**dict(nl_kw, max_iter=10, tol=0.0), **common),
@@ -589,6 +850,12 @@ def main() -> int:
     pb["profile"] = profile_phase(
         torch, lambda: CMF(**dict(b_kw, max_iter=5), **common), Xb, Y,
         "path B")
+    pc["profile"] = profile_phase(
+        torch, lambda: CMF(**dict(c_kw, max_iter=10, tol=0.0), **common),
+        X, Y, "path C")
+    pd["profile"] = profile_phase(
+        torch, lambda: CMF(**dict(d_kw, max_iter=10, tol=0.0), **common),
+        X, Y, "path D")
 
     # 8. kernel path against plain path on the card; the 2% guards. The
     # NumPy baselines run on the host beside these untimed fits, after every
@@ -602,12 +869,18 @@ def main() -> int:
                  "fused_newton_linear_u_pass": newton_fused,
                  "sigmoid_gh_pass": sigmoid_newton,
                  "sigmoid_phi_pass": sigmoid_newton,
-                 "batched_spd_solve": batched_solve}
+                 "batched_spd_solve": batched_solve,
+                 "fused_mu_update": mu_update,
+                 "csr_spmm": spmm, "csr_rowdots": spmm,
+                 "bell_spmm": bell}
         for label, kw, data in (
                 ("MU", dict(mu_kw, max_iter=20, tol=0.0), (X, Y)),
                 ("Newton linear", dict(nl_kw, max_iter=20, tol=0.0), (X, Y)),
                 ("path A", dict(a_kw, max_iter=20, tol=0.0), (X, Y)),
-                ("path B", b_kw, (Xb, Y))):
+                ("path B", b_kw, (Xb, Y)),
+                ("path C", dict(c_kw, max_iter=20, tol=0.0), (X, Y)),
+                ("path D", dict(d_kw, max_iter=20, tol=0.0), (X, Y)),
+                ("path F", f_kw, (Xf, Y))):
             lk = CMF(**kw, **common).fit(*data).reconstruction_err_
             with ExitStack() as patches:
                 for fn, mod in plain.items():
@@ -621,19 +894,23 @@ def main() -> int:
         t0 = time.perf_counter()
         baseline = {kind: f.result() for kind, f in base.items()}
         log(f"host baselines awaited {time.perf_counter() - t0:.1f} s")
-        for kind, fit in (("mu", mu), ("newton", pa)):
+        for label, kind, fit in (("MU", "mu", mu), ("path A", "newton", pa),
+                                 ("path C", "mu", pc),
+                                 ("path D", "newton", pd)):
             ref_loss, ref_iter, secs = baseline[kind]
             gap = abs(fit["loss"] - ref_loss) / ref_loss
             check(gap <= QUALITY_BAR,
-                  f"{kind} final loss {fit['loss']:.9g} vs NumPy baseline "
+                  f"{label} final loss {fit['loss']:.9g} vs NumPy {kind} "
+                  f"baseline "
                   f"{ref_loss:.9g} ({ref_iter} iters, {secs:.1f} s on the "
                   f"host): gap {gap:.4%} <= 2%")
             fit["numpy_loss"], fit["numpy_n_iter"] = ref_loss, ref_iter
 
-    # 9. transform
-    Ut = mu_est.transform(X[:1000])
-    check(Ut.shape == (1000, K) and bool(np.all(np.isfinite(Ut))),
-          f"transform(X[:1000]) -> {Ut.shape}, finite")
+    # 9. transform, dense (MU) and CSR (path C)
+    for est, tag in ((mu_est, "MU"), (c_est, "path C, CSR")):
+        Ut = est.transform(X[:1000])
+        check(Ut.shape == (1000, K) and bool(np.all(np.isfinite(Ut))),
+              f"{tag}: transform(X[:1000]) -> {Ut.shape}, finite")
 
     if check.failed:
         log(f"chip_smoke: {len(check.failed)} check(s) failed: "
@@ -642,27 +919,47 @@ def main() -> int:
     src = "pycmf_tpu_torch/csrc/"
     kernels = []
     for kname, file, replaces, main, fit, extra in (
-            ("fused_mu_u_pass", "mu_fused.cu", "mu_fused.py:143",
+            ("fused_mu_u_pass", "mu_fused.cu", ("mu_fused.py:143",),
              ("fused_mu_u_pass", "bfloat16"), mu,
              {"f32": ("fused_mu_u_pass", "float32")}),
             ("fused_newton_linear_u_pass", "newton_fused.cu",
-             "newton_fused.py:179",
+             ("newton_fused.py:179",),
              ("fused_newton_linear_u_pass", "bfloat16"), pa,
              {"f32": ("fused_newton_linear_u_pass", "float32")}),
-            ("sigmoid_gh_pass", "sigmoid_newton.cu", "sigmoid_newton.py:94",
+            ("sigmoid_gh_pass", "sigmoid_newton.cu",
+             ("sigmoid_newton.py:94",),
              ("sigmoid_gh_pass", "A[bfloat16]"), pa,
              {"b": ("sigmoid_gh_pass", "B[bfloat16]"),
               "b_f32": ("sigmoid_gh_pass", "B[float32]")}),
             ("sigmoid_phi_pass", "sigmoid_newton.cu",
-             "sigmoid_newton.py:176", ("sigmoid_phi_pass", "A[bfloat16]"), pa,
+             ("sigmoid_newton.py:176",), ("sigmoid_phi_pass", "A[bfloat16]"),
+             pa,
              {"b": ("sigmoid_phi_pass", "B[bfloat16]"),
               "b_f32": ("sigmoid_phi_pass", "B[float32]")}),
-            ("batched_spd_solve", "batched_solve.cu", "batched_solve.py:71",
+            ("batched_spd_solve", "batched_solve.cu", ("batched_solve.py:71",),
              ("batched_spd_solve", M), pa,
-             {"p30000": ("batched_spd_solve", N)})):
+             {"p30000": ("batched_spd_solve", N)}),
+            ("fused_mu_update", "mu_update.cu", ("mu_update.py:41",),
+             f"fused_mu_update[{M}x{K}]", pc,
+             {"rcv1": "fused_mu_update[804414x20]"}),
+            ("csr_spmm", "csr_spmm.cu",
+             ("onehot.py:356", "onehot.py:311", "spmm.py:170"),
+             "csr_spmm[20ng,bfloat16] X V", pc,
+             {"t": "csr_spmm[20ng,bfloat16] Xt U",
+              "f32": "csr_spmm[20ng,float32] X V",
+              "rcv1": "csr_spmm[rcv1,bfloat16] X V",
+              "rcv1_t": "csr_spmm[rcv1,bfloat16] Xt U"}),
+            ("csr_rowdots", "csr_spmm.cu", ("spmm.py:230",),
+             "csr_rowdots[20ng,bfloat16]", pd,
+             {"f32": "csr_rowdots[20ng,float32]",
+              "rcv1": "csr_rowdots[rcv1,bfloat16]"}),
+            ("bell_spmm", "bell_spmm.cu", ("bell.py:163",),
+             "bell_spmm[full,bfloat16]", pf,
+             {"f32": "bell_spmm[full,float32]"})):
         r = krec[main]
         entry = {"name": kname, "route": "cuda", "source": src + file,
-                 "replaces": "pycmf_tpu/ops/pallas/" + replaces,
+                 "replaces": ", ".join("pycmf_tpu/ops/pallas/" + f
+                                       for f in replaces),
                  "launches": fit["launches"].get(kname, 0),
                  "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                  "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
@@ -675,7 +972,10 @@ def main() -> int:
                     entry[f"{pre}_{f}"] = krec[key][f]
         kernels.append(entry)
     print(json.dumps({"mu_fit": mu, "newton_linear_fit": nt,
-                      "path_a_fit": pa, "path_b_fit": pb}))
+                      "path_a_fit": pa, "path_b_fit": pb, "path_c_fit": pc,
+                      "path_d_fit": pd, "path_f_fit": pf,
+                      "bell_crossover": {k: v for k, v in krec.items()
+                                         if str(k).startswith("crossover")}}))
     print(f"{name} | nvidia-smi: {smi}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -10,14 +10,18 @@ with a shared V, NumPy in and NumPy out. Validation and initialization run
 on the host (the same NumPy draws as the reference for one
 ``random_state``); the solver loop runs on ``device``. The keyword surface
 is the reference's plus ``device``. The port runs linear and sigmoid links
-on dense or densified data (Newton: full batch, Gauss-Newton Hessian); the
-rest raises NotImplementedError naming the ROADMAP item that brings it.
+on dense or densified data, and linear links on CSR data
+(``sparse_mode='csr'``, or 'auto' past the densify threshold); Newton runs
+full batch with the Gauss-Newton Hessian. The rest raises
+NotImplementedError naming the ROADMAP item that brings it.
 """
 from __future__ import annotations
 
 import inspect
+import warnings
 
 import numpy as np
+import scipy.sparse as sp
 import torch
 
 from ..ops.matmul import FP8_DTYPES
@@ -27,7 +31,8 @@ from ..solvers.newton import run_newton
 from ..utils.convert import (factors_from_numpy, factors_to_numpy,
                              fitted_state_from_reference)
 from ..utils.init import initialize_factors
-from ..utils.validation import as_coupled, check_matrix, validate_cmf_params
+from ..utils.validation import (DENSIFY_THRESHOLD, as_coupled, check_matrix,
+                                validate_cmf_params)
 
 _DTYPES = {
     "float32": torch.float32,
@@ -47,11 +52,14 @@ class CMF:
     use_pallas, hessian_form, line_search_trials, n_shards, shard_layout,
     sparse_mode, loop, data_dtype. Here:
 
-    use_pallas : None (on) | bool. The fused-kernel branch: the U pass of
-        each solver, every sigmoid-linked Newton update and every per-row
-        Newton solve run through hand-written CUDA kernels on the card
-        (their plain PyTorch versions on the CPU). False runs the unfused
-        plain PyTorch path.
+    use_pallas : None (on) | bool. The kernel branch: the U pass of each
+        solver on dense X, every MU ratio tail, every sigmoid-linked Newton
+        update, every per-row Newton solve and every product with CSR data
+        (BlockEll or CSR kernels) run through hand-written CUDA kernels on
+        the card (their plain PyTorch versions on the CPU). False runs the
+        unfused plain PyTorch path.
+    sparse_mode : 'auto' | 'csr' | 'dense' | 'chunked', per matrix as in the
+        reference (see ``_matrix_sparse_mode``); 'chunked' is ROADMAP A8.
     loop : 'auto' | 'host' | 'device'. Every value runs the host loop,
         which syncs with the device once per eval point.
     device : 'cuda' (default) | 'cpu' | a torch.device. 'cuda' raises when
@@ -169,6 +177,35 @@ class CMF:
             raise ValueError("loop must be 'auto', 'host' or 'device'")
         return "host"
 
+    def _use_pallas(self) -> bool:
+        return self.use_pallas is None or bool(self.use_pallas)
+
+    def _matrix_sparse_mode(self, A, link, is_x: bool = True):
+        """Per-matrix sparse policy (the reference's, on one device). A
+        sigmoid-linked sparse matrix under Newton is densified: the update
+        materializes dense sigmoid predictions of the same size anyway.
+        Under 'chunked', or 'auto' past the densify threshold, it takes the
+        streamed layout instead (ROADMAP A8). For a linear-linked Y,
+        'chunked' resolves as 'auto'."""
+        if self.solver == "newton" and link == "sigmoid" and sp.issparse(A):
+            item = self._resolve_data_dtype().itemsize
+            if self.sparse_mode == "chunked" or (
+                    self.sparse_mode == "auto"
+                    and A.shape[0] * A.shape[1] * item > DENSIFY_THRESHOLD):
+                return "chunked"
+            if self.sparse_mode == "csr":
+                warnings.warn(
+                    "sparse_mode='csr' is overridden to 'dense' for a "
+                    "sigmoid-linked matrix under solver='newton': the "
+                    "Newton update materializes dense sigmoid predictions "
+                    "of the same size anyway (sparse_mode='chunked' "
+                    "streams them per row chunk)", UserWarning,
+                    stacklevel=3)
+            return "dense"
+        if not is_x and self.sparse_mode == "chunked":
+            return "auto"
+        return self.sparse_mode
+
     def _config(self, has_Y, update_U=True, update_V=True, update_Z=True):
         return SolverConfig(
             x_link=self.x_link, y_link=self.y_link,
@@ -179,7 +216,7 @@ class CMF:
             has_Y=has_Y, hessian_form=self.hessian_form,
             line_search_trials=self.line_search_trials,
             sg_sample_ratio=self.sg_sample_ratio,
-            use_pallas=self.use_pallas is None or bool(self.use_pallas))
+            use_pallas=self._use_pallas())
 
     def _validate(self, X, Y):
         validate_cmf_params(
@@ -232,8 +269,12 @@ class CMF:
             Z_non_negative=self.Z_non_negative,
             random_state=self.random_state, U=U, V=V, Z=Z)
 
-        Xc = as_coupled(X, ddt, dev, sparse_mode=self.sparse_mode)
-        Yc = (as_coupled(Y, ddt, dev, sparse_mode=self.sparse_mode)
+        up = self._use_pallas()
+        Xc = as_coupled(X, ddt, dev, use_pallas=up,
+                        sparse_mode=self._matrix_sparse_mode(X, self.x_link))
+        Yc = (as_coupled(Y, ddt, dev, use_pallas=up,
+                         sparse_mode=self._matrix_sparse_mode(
+                             Y, self.y_link, is_x=False))
               if Y is not None else None)
         U0, V0, Z0 = factors_from_numpy(U0, V0, Z0, dev, dt)
         if Z0 is None:
@@ -291,7 +332,8 @@ class CMF:
         cfg = self._config(has_Y=False, update_U=True, update_V=False,
                            update_Z=False)
         Xc = as_coupled(X, self._resolve_data_dtype(), dev,
-                        sparse_mode=self.sparse_mode)
+                        use_pallas=self._use_pallas(),
+                        sparse_mode=self._matrix_sparse_mode(X, self.x_link))
         U0, V0, _ = factors_from_numpy(U0, self.V_, None, dev, dt)
         Z0 = torch.zeros((0, k), dtype=dt, device=dev)
         Uf = self._run(Xc, None, U0, V0, Z0, cfg)[0]

@@ -1,0 +1,174 @@
+"""Block-sparse (BlockEll) product: the layout, the CUDA kernel's wrapper
+and its plain PyTorch version.
+
+Counterpart of ``pycmf_tpu/ops/pallas/bell.py``. A sparse matrix whose
+nonzeros cluster is re-laid once per fit into dense 128×128 blocks at the
+block positions that hold nonzeros, sorted by row block; every row block
+holds at least one block (a zero block at column 0 where it had none), so
+every output row is written. ``bell_spmm`` is then a stream of dense block
+products (``csrc/bell_spmm.cu``), and ⟨A, M Bᵀ⟩ is Σ((AᵀM)⊙B) over the
+layout of Aᵀ (``bell_inner``).
+
+The layout pays when the blocks are full enough: the kernel's time follows
+the stored blocks, the CSR kernel's (``ops/kernels/spmm.py``) the nonzeros.
+``bell_from_scipy`` refuses a layout whose fill is below ``min_fill``.
+"""
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+from typing import Optional, Tuple
+
+import numpy as np
+import scipy.sparse as sp
+import torch
+
+from . import _build
+from .policy import launch_count, on_card
+
+LAUNCHES = launch_count("bell_spmm")
+BLOCK = 128
+MAX_K = 32  # the kernel keeps a row's k sums in registers
+# Fill (nnz / stored block entries) below which the CSR kernel is faster
+# than this one on the same matrix: chip_smoke's phase 3 measures the
+# crossover on a block-structured 30000×11314 matrix (3166 blocks) and
+# checks this constant within a factor 2 of the bf16 value. Four runs on an
+# H100 gave 0.094-0.110 with bf16 values and 0.098-0.119 with float32
+# (PERF.md lists each run). The same constant on every device, so the CPU
+# and the card choose the same layout for the same matrix.
+BELL_MIN_FILL = 0.1
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockEll:
+    """Dense-block CSR layout on one device.
+
+    blocks : (NB, 128, 128) dense blocks at the storage dtype (0-padded)
+    brows  : (NB,) int32 row block of each block, ascending
+    bcols  : (NB,) int32 column block of each block
+    bptr   : (ceil(p/128) + 1,) int32: the blocks of row block r are
+             bptr[r] .. bptr[r+1]
+    sq_norm: () Σ data², float32 under bf16 data, else the data's dtype
+             (as ``CsrMatrix.sq_norm``)
+    shape  : (p, q) of the matrix
+    fill   : nnz / (NB · 128 · 128)
+    """
+
+    blocks: torch.Tensor
+    brows: torch.Tensor
+    bcols: torch.Tensor
+    bptr: torch.Tensor
+    sq_norm: torch.Tensor
+    shape: Tuple[int, int]
+    fill: float
+
+    @property
+    def nbytes(self) -> int:
+        return self.blocks.numel() * self.blocks.element_size()
+
+
+def bell_from_scipy(A, dtype=torch.float32, device="cpu", *,
+                    max_bytes: Optional[int] = None,
+                    min_fill: float = 0.0) -> Optional[BlockEll]:
+    """A scipy.sparse matrix as a BlockEll on ``device`` (host, once per
+    fit), or None when the blocks would take more than ``max_bytes`` at
+    ``dtype`` or their fill is below ``min_fill``."""
+    A = sp.csr_matrix(A)
+    A.sum_duplicates()
+    p, q = A.shape
+    nrb = -(-p // BLOCK)
+    ncb = -(-q // BLOCK)
+    coo = A.tocoo()
+    keys = (coo.row // BLOCK).astype(np.int64) * ncb + coo.col // BLOCK
+    uniq = np.unique(keys)
+    # a zero block at column 0 for every row block without one
+    missing = np.setdiff1d(np.arange(nrb, dtype=np.int64),
+                           np.unique(uniq // ncb))
+    if missing.size:
+        uniq = np.unique(np.concatenate([uniq, missing * ncb]))
+    nb = int(uniq.size)
+    fill = A.nnz / float(nb * BLOCK * BLOCK) if nb else 0.0
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    if max_bytes is not None and nb * BLOCK * BLOCK * itemsize > max_bytes:
+        return None
+    if fill < min_fill:
+        return None
+    blocks = np.zeros((nb, BLOCK, BLOCK), dtype=np.float64)
+    blocks[np.searchsorted(uniq, keys), coo.row % BLOCK,
+           coo.col % BLOCK] = coo.data
+    brows = (uniq // ncb).astype(np.int32)
+    bptr = np.searchsorted(brows, np.arange(nrb + 1)).astype(np.int32)
+
+    data = torch.from_numpy(coo.data).to(dtype).to(torch.float64)
+    sq = torch.sum(data ** 2).to(
+        torch.float32 if dtype == torch.bfloat16 else dtype)
+
+    def up(a):
+        return torch.from_numpy(a).to(device)
+
+    return BlockEll(torch.from_numpy(blocks).to(dtype).to(device), up(brows),
+                    up((uniq % ncb).astype(np.int32)), up(bptr),
+                    sq.to(device), (int(p), int(q)), fill)
+
+
+def _acc_dtype(B: torch.Tensor) -> torch.dtype:
+    return torch.float64 if B.dtype == torch.float64 else torch.float32
+
+
+def bell_spmm_ref(A: BlockEll, B: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of :func:`bell_spmm`: one batched product of
+    every block with its rows of B, summed per row block."""
+    p, q = A.shape
+    k = B.shape[1]
+    acc = _acc_dtype(B)
+    nrb = -(-p // BLOCK)
+    ncb = -(-q // BLOCK)
+    Bp = B.new_zeros((ncb * BLOCK, k), dtype=acc)
+    Bp[:q] = B.to(A.blocks.dtype).to(acc)
+    prods = torch.bmm(A.blocks.to(acc),
+                      Bp.view(ncb, BLOCK, k)[A.bcols.long()])
+    out = prods.new_zeros((nrb, BLOCK, k)).index_add_(0, A.brows, prods)
+    return out.reshape(nrb * BLOCK, k)[:p]
+
+
+def bell_spmm(A: BlockEll, B: torch.Tensor) -> torch.Tensor:
+    """A @ B for BlockEll A (p, q) and dense B (q, k) → (p, k), float32
+    (float64 for float64 B on the CPU). B is rounded to the blocks' dtype
+    first, as the reference does.
+
+    CUDA tensors launch ``csrc/bell_spmm.cu``; CPU tensors take
+    :func:`bell_spmm_ref`."""
+    if not on_card(A.blocks, B):
+        return bell_spmm_ref(A, B)
+    p, q = A.shape
+    k = B.shape[1]
+    if A.blocks.dtype not in (torch.float32, torch.bfloat16):
+        raise NotImplementedError(
+            f"the CUDA block-sparse kernel takes float32 or bfloat16 blocks, "
+            f"got {A.blocks.dtype} (use use_pallas=False)")
+    if not 1 <= k <= MAX_K or B.dtype != torch.float32 \
+            or tuple(B.shape) != (q, k):
+        raise NotImplementedError(
+            f"the CUDA block-sparse kernel takes float32 B of shape (q, k) "
+            f"with q = {q}, 1 <= k <= {MAX_K}; got {B.dtype} "
+            f"{tuple(B.shape)} (use use_pallas=False)")
+    B = B.contiguous()
+    out = torch.empty((p, k), dtype=torch.float32, device=B.device)
+    fn = _build.function("bell_spmm", "pycmf_bell_spmm",
+                         [ctypes.c_int] + [ctypes.c_void_p] * 4
+                         + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2)
+    with torch.cuda.device(B.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(int(A.blocks.dtype == torch.bfloat16), A.blocks.data_ptr(),
+                A.bcols.data_ptr(), A.bptr.data_ptr(), B.data_ptr(), p, q, k,
+                out.data_ptr(), stream)
+    _build.check(_build.load("bell_spmm"), rc, "bell_spmm")
+    LAUNCHES.n += 1
+    return out
+
+
+def bell_inner(At_bell: BlockEll, M: torch.Tensor,
+               B: torch.Tensor) -> torch.Tensor:
+    """⟨A, M Bᵀ⟩ = Σ((AᵀM) ⊙ B), with At_bell the layout of Aᵀ; M (p, k),
+    B (q, k)."""
+    return torch.sum(bell_spmm(At_bell, M) * B.to(M.dtype))

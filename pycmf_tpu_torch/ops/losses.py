@@ -1,22 +1,26 @@
-"""CMF objective evaluation (dense data).
+"""CMF objective evaluation (dense and CSR data).
 
-Counterpart of the dense parts of ``pycmf_tpu/ops/losses.py``:
+Counterpart of ``pycmf_tpu/ops/losses.py`` (without the chunked layout):
 
     L(U,V,Z) = ½‖X − f_x(U Vᵀ)‖²_F + ½‖Y − f_y(V Zᵀ)‖²_F + R(U)+R(V)+R(Z)
     R(M)     = alpha · (l1_ratio·‖M‖₁ + ½(1−l1_ratio)·‖M‖²_F)
 
 Linear terms use the factored identity
 ‖A − M Bᵀ‖² = ‖A‖² − 2⟨A, M Bᵀ⟩ + tr((MᵀM)(BᵀB)), except for small
-mixed-precision problems, which take the direct residual (see
-``_linear_term``). Sigmoid terms need the elementwise link, so they stream
+mixed-precision dense problems, which take the direct residual (see
+``_linear_term``); for CSR A the inner product is taken at the nonzeros
+only. Sigmoid terms (dense data) need the elementwise link, so they stream
 over row blocks of the product when it is large.
 """
 from __future__ import annotations
 
 import torch
 
+from .kernels import bell as kbell
+from .kernels import spmm as kspmm
 from .links import LINEAR
 from .matmul import gram, matmul
+from .sparse import is_sparse, sddmm_dot
 
 # Above this many elements, direct residuals, sigmoid terms and the plain
 # sigmoid Newton passes (ops/kernels/sigmoid_newton.py) stream over row
@@ -31,10 +35,23 @@ def penalty(M: torch.Tensor, alpha, l1_ratio) -> torch.Tensor:
     return l1 * torch.sum(torch.abs(M)) + 0.5 * l2 * torch.sum(M * M)
 
 
-def _linear_term(A: torch.Tensor, M: torch.Tensor, B: torch.Tensor,
-                 a_sq=None) -> torch.Tensor:
-    """½‖A − M Bᵀ‖² for dense A via the factored identity."""
+def _linear_term(A, M: torch.Tensor, B: torch.Tensor, a_sq=None,
+                 bell_t=None, use_pallas: bool = False) -> torch.Tensor:
+    """½‖A − M Bᵀ‖² via the factored identity, A dense or CSR.
+
+    For CSR A, ‖A‖² is A.sq_norm and ⟨A, M Bᵀ⟩ is taken at the nonzeros:
+    under ``use_pallas`` as Σ((AᵀM)⊙B) over ``bell_t`` (the BlockEll
+    layout of Aᵀ) when there is one, else by the CSR row-dot kernel; without
+    it by the plain gather."""
     cross = torch.sum(gram(M) * gram(B))
+    if is_sparse(A):
+        if use_pallas and bell_t is not None:
+            inner = kbell.bell_inner(bell_t, M, B)
+        elif use_pallas:
+            inner = torch.sum(kspmm.csr_rowdots(A, M, B))
+        else:
+            inner = sddmm_dot(A, M, B)
+        return 0.5 * (A.sq_norm - 2.0 * inner + cross)
     if A.dtype != M.dtype and A.numel() < (1 << 22):
         # Mixed precision (bf16-stored data), small problem: the factored
         # identity suffers cancellation (‖A‖², ⟨A, MBᵀ⟩ and the cross term
@@ -90,26 +107,36 @@ def sigmoid_sq_rows(D, Mc, B):
     return out.reshape(*lead, p)
 
 
-def _sigmoid_term(A: torch.Tensor, M: torch.Tensor,
-                  B: torch.Tensor) -> torch.Tensor:
-    """½‖A − σ(M Bᵀ)‖² for dense A: the sum of :func:`sigmoid_sq_rows`."""
+def _sigmoid_term(A, M: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """½‖A − σ(M Bᵀ)‖², the sum of :func:`sigmoid_sq_rows`, for dense A
+    (the estimator densifies a sigmoid-linked sparse matrix)."""
+    if is_sparse(A):
+        raise NotImplementedError(
+            "sigmoid-link terms need dense data; their sparse forms come "
+            "with the chunked and sharded layouts (ROADMAP A8, A10)")
     return torch.sum(sigmoid_sq_rows(A, M, B))
 
 
 def reconstruction_term(A, M: torch.Tensor, B: torch.Tensor, link: str,
-                        a_sq=None) -> torch.Tensor:
-    """½‖A − f(M Bᵀ)‖²_F for one coupled dense matrix."""
+                        a_sq=None, bell_t=None,
+                        use_pallas: bool = False) -> torch.Tensor:
+    """½‖A − f(M Bᵀ)‖²_F for one coupled matrix (dense or CSR; see
+    :func:`_linear_term` for ``bell_t`` and ``use_pallas``)."""
     if link == LINEAR:
-        return _linear_term(A, M, B, a_sq)
+        return _linear_term(A, M, B, a_sq, bell_t, use_pallas)
     return _sigmoid_term(A, M, B)
 
 
 def total_loss(X, Y, U, V, Z, x_link: str, y_link: str, alpha, l1_ratio,
-               x_a_sq=None, y_a_sq=None) -> torch.Tensor:
-    """Full CMF objective L(U, V, Z). Y may be None (single matrix / NMF)."""
-    loss = reconstruction_term(X, U, V, x_link, x_a_sq)
+               x_a_sq=None, y_a_sq=None, x_bell_t=None, y_bell_t=None,
+               use_pallas: bool = False) -> torch.Tensor:
+    """Full CMF objective L(U, V, Z). Y may be None (single matrix / NMF).
+    x_bell_t / y_bell_t: BlockEll layouts of Xᵀ / Yᵀ, used under
+    ``use_pallas``."""
+    loss = reconstruction_term(X, U, V, x_link, x_a_sq, x_bell_t, use_pallas)
     loss = loss + penalty(U, alpha, l1_ratio) + penalty(V, alpha, l1_ratio)
     if Y is not None:
-        loss = loss + reconstruction_term(Y, V, Z, y_link, y_a_sq)
+        loss = loss + reconstruction_term(Y, V, Z, y_link, y_a_sq, y_bell_t,
+                                          use_pallas)
         loss = loss + penalty(Z, alpha, l1_ratio)
     return loss

@@ -10,13 +10,14 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import List, NamedTuple, Optional
+from typing import Any, List, NamedTuple, Optional
 
 import numpy as np
 import torch
 
+from ..ops.kernels import bell as kbell
 from ..ops.links import LINEAR, check_link
-from ..ops.matmul import matmul
+from ..ops.sparse import generic_matmul, is_sparse
 
 
 @dataclasses.dataclass(frozen=True)
@@ -78,21 +79,40 @@ def make_hyper(alpha=0.0, l1_ratio=0.0, eps=1e-10, hessian_pertubation=0.2,
 
 
 class Coupled(NamedTuple):
-    """A dense data matrix on the device plus fit-time constants."""
+    """A data matrix on the device (dense, CsrMatrix or BlockEll) plus
+    fit-time constants. The sparsity pattern is fixed for a fit, so a sparse
+    matrix comes with the same layout of its transpose, built once on the
+    host: CSR, or BlockEll where the blocks are full enough (then A is
+    A_bell and At is At_bell)."""
 
-    A: torch.Tensor
+    A: Any
     row_sq: Optional[torch.Tensor] = None    # (p,) per-row ‖aᵢ‖²
     row_sq_t: Optional[torch.Tensor] = None  # (q,) per-row norms of Aᵀ
-    a_sq: Optional[torch.Tensor] = None      # ‖A‖²_F
-    # contiguous Aᵀ, made once per fit by run_newton for the fused sigmoid
-    # passes that read A transposed (Z against Yᵀ, V against Xᵀ); else None
-    At: Optional[torch.Tensor] = None
+    a_sq: Optional[torch.Tensor] = None      # ‖A‖²_F (dense A)
+    # Aᵀ: the layout of Aᵀ for a sparse A; for dense A the contiguous Aᵀ
+    # that run_newton makes once per fit for the fused sigmoid passes that
+    # read A transposed (Z against Yᵀ, V against Xᵀ), else None
+    At: Any = None
+    A_bell: Any = None   # BlockEll layouts of A and Aᵀ (ops/kernels/bell.py)
+    At_bell: Any = None
 
 
-def coupled_mm(C: Coupled, B: torch.Tensor,
-               transpose: bool = False) -> torch.Tensor:
-    """C.A @ B (or C.Aᵀ @ B)."""
-    return matmul(C.A.mT if transpose else C.A, B)
+def layout_spmm(A, layout, B: torch.Tensor, use_pallas: bool) -> torch.Tensor:
+    """A @ B for dense, CSR or BlockEll A: under ``use_pallas`` through
+    A's BlockEll ``layout`` when it has one, else the CSR kernel; otherwise
+    the plain product. Layouts are built once per fit by as_coupled."""
+    if use_pallas and layout is not None:
+        return kbell.bell_spmm(layout, B)
+    return generic_matmul(A, B, use_pallas)
+
+
+def coupled_mm(C: Coupled, B: torch.Tensor, transpose: bool = False,
+               use_pallas: bool = False) -> torch.Tensor:
+    """C.A @ B (or C.Aᵀ @ B) for dense or sparse data (see layout_spmm)."""
+    if not transpose:
+        return layout_spmm(C.A, C.A_bell, B, use_pallas)
+    At = C.At if is_sparse(C.A) else C.A.mT
+    return layout_spmm(At, C.At_bell, B, use_pallas)
 
 
 def run_solver_loop(block_fn, state, hyper, rng, *, max_iter: int, tol: float,

@@ -18,11 +18,14 @@ sees (Yᵀ, V); the shared V sees (Xᵀ, U) and (Y, Z). With ``use_pallas``:
   per-row Hessians in one pass over the data, the batched SPD solve, and
   every line-search candidate's objective in one more pass
   (``ops/kernels/sigmoid_newton.py``, ``ops/kernels/batched_solve.py``);
-- every per-row system goes through the batched SPD solve kernel.
+- every per-row system goes through the batched SPD solve kernel;
+- a linear term over sparse data forms D B through its BlockEll layout or
+  the CSR kernel (``solvers/common.layout_spmm``); the fused U pass and the
+  fused sigmoid passes take dense data only.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import Any, NamedTuple, Optional
 
 import torch
 
@@ -32,24 +35,29 @@ from ..ops.links import LINEAR
 from ..ops.losses import (penalty, reconstruction_term, sigmoid_sq_rows,
                           total_loss)
 from ..ops.matmul import gram, matmul
-from .common import Coupled, Hyper, SolverConfig, check_loop, run_solver_loop
+from ..ops.sparse import is_sparse, row_sq_norms
+from .common import (Coupled, Hyper, SolverConfig, check_loop, layout_spmm,
+                     run_solver_loop)
 
 
 class Term(NamedTuple):
     """One coupled data term of a factor update: D ≈ f(M Bᵀ) row-wise.
 
+    D      : dense, or a CsrMatrix (linear terms only)
     row_sq : optional precomputed per-row ‖dᵢ‖² (fit-time constant)
     DB     : optional precomputed D @ B (p, k), e.g. the XᵀU_new the fused
              U pass returns, which saves V's update its own pass over X
     BtB    : optional precomputed gram(B) (k, k), paired with DB
-    (row_sq, DB and BtB serve linear terms only.)
+    layout : optional BlockEll layout of a sparse D (ops/kernels/bell.py)
+    (row_sq, DB, BtB and layout serve linear terms only.)
     """
 
-    D: torch.Tensor
+    D: Any
     B: torch.Tensor
     row_sq: Optional[torch.Tensor] = None
     DB: Optional[torch.Tensor] = None
     BtB: Optional[torch.Tensor] = None
+    layout: Any = None
 
 
 class _LinearCtx(NamedTuple):
@@ -68,19 +76,29 @@ class _SigmoidCtx(NamedTuple):
     B: torch.Tensor
 
 
-def _accumulate_term(M, term: Term, link: str):
+def _accumulate_term(M, term: Term, link: str, use_pallas: bool = False):
     """(G_term (p, k), H_shared (k, k) | None, H_rows (p, k, k) | None,
     line-search ctx) of one term."""
-    D, B, row_sq, db, btb = term
+    D, B, row_sq, db, btb, layout = term
     if link != LINEAR:
+        if is_sparse(D):
+            # unreachable through the estimator, which densifies a
+            # sigmoid-linked sparse matrix under Newton
+            raise NotImplementedError(
+                "Newton sigmoid-link terms need dense D (the update "
+                "materializes sigmoid predictions per row block); the "
+                "streamed layout is ROADMAP A8")
         G, H_rows = sigmoid_newton.sigmoid_gh_rows(D, M, B)
         return G, None, H_rows, _SigmoidCtx(D, B)
     BtB = gram(B) if btb is None else btb
-    DB = matmul(D, B) if db is None else db
+    DB = layout_spmm(D, layout, B, use_pallas) if db is None else db
     G = matmul(M, BtB) - DB
     if row_sq is None:
-        Df = D.to(M.dtype)
-        row_sq = torch.sum(Df * Df, dim=1)
+        if is_sparse(D):
+            row_sq = row_sq_norms(D)
+        else:
+            Df = D.to(M.dtype)
+            row_sq = torch.sum(Df * Df, dim=1)
     return G, BtB, None, _LinearCtx(DB, BtB, row_sq)
 
 
@@ -149,7 +167,7 @@ def newton_update_factor(rng, M, terms, links, hyper: Hyper, *,
     ctxs = []
     for term, link in zip(terms, links):
         term = term if isinstance(term, Term) else Term(*term)
-        G_t, H_sh, H_rw, ctx = _accumulate_term(M, term, link)
+        G_t, H_sh, H_rw, ctx = _accumulate_term(M, term, link, use_pallas)
         G = G + G_t
         if H_sh is not None:
             H_shared = H_shared + H_sh
@@ -169,11 +187,12 @@ def newton_update_factor(rng, M, terms, links, hyper: Hyper, *,
                                return_phi=return_phi)
 
 
-def fused_sigmoid_allowed(cfg: SolverConfig, M) -> bool:
+def fused_sigmoid_allowed(cfg: SolverConfig, A, M) -> bool:
     """Whether a sigmoid-linked factor takes fused_sigmoid_update: kernels
-    on, full batch, Gauss-Newton form (SPD systems for the batched solve),
-    float factors."""
-    return (cfg.use_pallas and cfg.sg_sample_ratio >= 1.0
+    on, dense data A, full batch, Gauss-Newton form (SPD systems for the
+    batched solve), float factors."""
+    return (cfg.use_pallas and not is_sparse(A)
+            and cfg.sg_sample_ratio >= 1.0
             and cfg.hessian_form == "gauss" and M.dtype != torch.bfloat16)
 
 
@@ -200,7 +219,8 @@ def fused_sigmoid_update(M, X, B, hyper: Hyper, *, trials: int,
     ctx_y = None
     if yterm is not None:
         t = yterm if isinstance(yterm, Term) else Term(*yterm)
-        G_y, H_sh_y, H_rw_y, ctx_y = _accumulate_term(M, t, y_link)
+        G_y, H_sh_y, H_rw_y, ctx_y = _accumulate_term(M, t, y_link,
+                                                      use_pallas)
         G = G + G_y
         if H_sh_y is not None:
             H_shared = H_shared + H_sh_y
@@ -236,16 +256,19 @@ def shared_gauss_hinv(V, hyper: Hyper):
 
 
 def fused_newton_u_allowed(cfg: SolverConfig, A, row_sq, U) -> bool:
-    """Whether the U update takes the fused U pass: linear X link, full
-    batch, and a V update to consume the XᵀU_new / U_newᵀU_new it returns."""
+    """Whether the U update takes the fused U pass: dense X, linear X link,
+    full batch, and a V update to consume the XᵀU_new / U_newᵀU_new it
+    returns."""
     return (cfg.use_pallas and cfg.update_U and cfg.update_V
             and cfg.x_link == LINEAR and cfg.sg_sample_ratio >= 1.0
-            and U.dtype != torch.bfloat16 and row_sq is not None)
+            and not is_sparse(A) and U.dtype != torch.bfloat16
+            and row_sq is not None)
 
 
 def _transposed(C: Coupled):
-    """C.A transposed: the contiguous copy run_newton makes when there is
-    one (the card's fused sigmoid passes need it), else a view."""
+    """C.A transposed: the layout of Aᵀ for sparse data; for dense data the
+    contiguous copy run_newton makes when there is one (the card's fused
+    sigmoid passes need it), else a view."""
     return C.A.mT if C.At is None else C.At
 
 
@@ -253,10 +276,11 @@ def _with_transposes(cfg: SolverConfig, X: Coupled, Y, V0, Z0):
     """(X, Y) with the contiguous Aᵀ (Coupled.At) that make_newton_step
     reads: Xᵀ for a fused sigmoid V update, Yᵀ for a fused sigmoid Z
     update. Made once per fit, never per iteration."""
-    if cfg.update_V and cfg.x_link != LINEAR and fused_sigmoid_allowed(cfg, V0):
+    if (cfg.update_V and cfg.x_link != LINEAR
+            and fused_sigmoid_allowed(cfg, X.A, V0)):
         X = X._replace(At=X.A.mT.contiguous())
     if (cfg.has_Y and cfg.update_Z and cfg.y_link != LINEAR
-            and fused_sigmoid_allowed(cfg, Z0)):
+            and fused_sigmoid_allowed(cfg, Y.A, Z0)):
         Y = Y._replace(At=Y.A.mT.contiguous())
     return X, Y
 
@@ -283,26 +307,30 @@ def make_newton_step(cfg: SolverConfig, with_aux=None):
                     X.A, U, V, BtB, Hinv, X.row_sq, l1, l2,
                     trials=cfg.line_search_trials,
                     non_negative=cfg.U_non_negative)
-            elif cfg.x_link != LINEAR and fused_sigmoid_allowed(cfg, U):
+            elif cfg.x_link != LINEAR and fused_sigmoid_allowed(cfg, X.A, U):
                 U = fused_sigmoid_update(U, X.A, V, hyper,
                                          non_negative=cfg.U_non_negative,
                                          **fused)
             else:
                 U = newton_update_factor(
-                    rng, U, (Term(X.A, V, X.row_sq),), (cfg.x_link,), hyper,
-                    non_negative=cfg.U_non_negative, **common)
+                    rng, U, (Term(X.A, V, X.row_sq, layout=X.A_bell),),
+                    (cfg.x_link,), hyper, non_negative=cfg.U_non_negative,
+                    **common)
         if cfg.has_Y and cfg.update_Z:
-            if cfg.y_link != LINEAR and fused_sigmoid_allowed(cfg, Z):
+            if cfg.y_link != LINEAR and fused_sigmoid_allowed(cfg, Y.A, Z):
                 Z = fused_sigmoid_update(Z, _transposed(Y), V, hyper,
                                          non_negative=cfg.Z_non_negative,
                                          **fused)
             else:
+                zterm = Term(_transposed(Y), V, Y.row_sq_t,
+                             layout=Y.At_bell)
                 Z = newton_update_factor(
-                    rng, Z, (Term(Y.A.mT, V, Y.row_sq_t),), (cfg.y_link,),
+                    rng, Z, (zterm,), (cfg.y_link,),
                     hyper, non_negative=cfg.Z_non_negative, **common)
         if cfg.update_V:
-            yterm = Term(Y.A, Z, Y.row_sq) if cfg.has_Y else None
-            if cfg.x_link != LINEAR and fused_sigmoid_allowed(cfg, V):
+            yterm = (Term(Y.A, Z, Y.row_sq, layout=Y.A_bell) if cfg.has_Y
+                     else None)
+            if cfg.x_link != LINEAR and fused_sigmoid_allowed(cfg, X.A, V):
                 out = fused_sigmoid_update(
                     V, _transposed(X), U, hyper,
                     non_negative=cfg.V_non_negative, yterm=yterm,
@@ -310,7 +338,8 @@ def make_newton_step(cfg: SolverConfig, with_aux=None):
             else:
                 # With the fused U pass's XᵀU_new and U_newᵀU_new, V's X
                 # term needs no second pass over X (D is then never read).
-                terms = (Term(X.A.mT, U, X.row_sq_t, DB=numv_x, BtB=gram_u),)
+                terms = (Term(_transposed(X), U, X.row_sq_t, DB=numv_x,
+                              BtB=gram_u, layout=X.At_bell),)
                 links = (cfg.x_link,)
                 if cfg.has_Y:
                     terms = terms + (yterm,)
@@ -351,8 +380,9 @@ def _aux_loss(cfg: SolverConfig):
         loss = x_term + penalty(U, hyper.alpha, hyper.l1_ratio) \
             + penalty(V, hyper.alpha, hyper.l1_ratio)
         if cfg.has_Y:
-            loss = loss + reconstruction_term(Y.A, V, Z, cfg.y_link,
-                                              a_sq=Y.a_sq)
+            loss = loss + reconstruction_term(
+                Y.A, V, Z, cfg.y_link, a_sq=Y.a_sq, bell_t=Y.At_bell,
+                use_pallas=cfg.use_pallas)
             loss = loss + penalty(Z, hyper.alpha, hyper.l1_ratio)
         return loss
 
@@ -403,10 +433,14 @@ def _aux_kind(cfg: SolverConfig, X: Coupled, U0):
 def _loss_core(cfg: SolverConfig):
     def loss_fn(state, hyper: Hyper):
         X, Y, U, V, Z = state
-        return total_loss(X.A, Y.A if cfg.has_Y else None, U, V, Z,
+        has_y = cfg.has_Y
+        return total_loss(X.A, Y.A if has_y else None, U, V, Z,
                           cfg.x_link, cfg.y_link, hyper.alpha,
                           hyper.l1_ratio, x_a_sq=X.a_sq,
-                          y_a_sq=(Y.a_sq if cfg.has_Y else None))
+                          y_a_sq=(Y.a_sq if has_y else None),
+                          x_bell_t=X.At_bell,
+                          y_bell_t=(Y.At_bell if has_y else None),
+                          use_pallas=cfg.use_pallas)
 
     return loss_fn
 

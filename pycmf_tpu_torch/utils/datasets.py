@@ -90,3 +90,53 @@ def load_20ng(max_features: int = 30000, random_state: int = 0,
             return X, Y, "20newsgroups (sklearn cache)"
     X, Y = synthetic_20ng(random_state=random_state, dtype=dtype)
     return X, Y, f"synthetic 20NG-shaped surrogate ({reason})"
+
+
+def synthetic_rcv1(n_terms: int = 47236, n_docs: int = 804414,
+                   doc_len: float = 95.0, zipf: float = 1.0,
+                   random_state: int = 0, dtype=np.float32) -> sp.csr_matrix:
+    """RCV1-v2-shaped synthetic bag-of-words X (term×document CSR).
+
+    The shape of RCV1-v2 (Lewis et al. 2004, JMLR 5; 47 236 terms ×
+    804 414 documents, ``sklearn.datasets.fetch_rcv1``) at ~0.16% density,
+    ~60M nonzeros: Poisson(doc_len) tokens per document drawn from a Zipf
+    law over the terms (in a random order), counts of repeated terms as
+    values. Row lengths are Zipfian: the most frequent term occurs in
+    nearly every document. Vectorised: tens of seconds on one core."""
+    rng = np.random.default_rng(random_state)
+    w = 1.0 / np.arange(1, n_terms + 1) ** zipf
+    cdf = np.cumsum(w / w.sum())
+    rank_to_term = rng.permutation(n_terms).astype(np.int64)
+    lens = rng.poisson(doc_len, size=n_docs)
+    doc = np.repeat(np.arange(n_docs, dtype=np.int64), lens)
+    rank = np.searchsorted(cdf, rng.random(doc.size, dtype=np.float32))
+    keys = doc * n_terms + rank_to_term[np.minimum(rank, n_terms - 1)]
+    del doc, rank
+    keys, counts = np.unique(keys, return_counts=True)
+    indptr = np.zeros(n_docs + 1, dtype=np.int64)
+    np.cumsum(np.bincount(keys // n_terms, minlength=n_docs), out=indptr[1:])
+    cols = (keys % n_terms).astype(np.int32)
+    Xt = sp.csr_matrix((counts.astype(dtype), cols, indptr),
+                       shape=(n_docs, n_terms))
+    return Xt.T.tocsr()
+
+
+def block_sparse_matrix(p: int, q: int, block_frac: float,
+                        rng) -> sp.csr_matrix:
+    """Random block-structured sparse matrix: each 128-aligned 128×128 block
+    position is dense (uniform values) with probability ``block_frac``, else
+    empty. The reference's ``examples/block_sparse_bell.py`` generator."""
+    rows, cols, vals = [], [], []
+    base = np.arange(128)
+    for i in range(-(-p // 128)):
+        for j in range(-(-q // 128)):
+            if rng.rand() > block_frac:
+                continue
+            r0, c0 = i * 128, j * 128
+            h, w = min(128, p - r0), min(128, q - c0)
+            rows.append(np.repeat(base[:h] + r0, w))
+            cols.append(np.tile(base[:w] + c0, h))
+            vals.append(rng.rand(h * w))
+    return sp.csr_matrix(
+        (np.concatenate(vals), (np.concatenate(rows), np.concatenate(cols))),
+        shape=(p, q))

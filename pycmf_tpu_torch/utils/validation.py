@@ -1,9 +1,10 @@
 """Input/parameter validation and device ingest.
 
-Counterpart of the dense parts of ``pycmf_tpu/utils/validation.py``: host
-matrices (NumPy or scipy.sparse) become ``Coupled`` operands on the device,
-with the per-row and total squared norms computed once on the host in
-float64 from the unquantized values.
+Counterpart of ``pycmf_tpu/utils/validation.py`` (without the chunked and
+fp8 layouts): host matrices (NumPy or scipy.sparse) become ``Coupled``
+operands on the device (dense, CSR or BlockEll), with the per-row and
+total squared norms computed once on the host in float64 from the
+unquantized values.
 """
 from __future__ import annotations
 
@@ -11,8 +12,10 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
+from ..ops.kernels.bell import BELL_MIN_FILL, bell_from_scipy
 from ..ops.links import LINEAR, SIGMOID
 from ..ops.matmul import FP8_DTYPES
+from ..ops.sparse import csr_transpose_host
 from ..solvers.common import Coupled
 
 # Sparse inputs whose dense copy (at the storage dtype) fits under this many
@@ -29,17 +32,21 @@ def _norms(fdt, device, row_sq, col_sq, total) -> dict:
     return dict(row_sq=up(row_sq), row_sq_t=up(col_sq), a_sq=up(total))
 
 
-def as_coupled(A, dtype, device, sparse_mode: str = "auto",
+def as_coupled(A, dtype, device, use_pallas: bool = False,
+               sparse_mode: str = "auto",
                densify_threshold: int = DENSIFY_THRESHOLD) -> Coupled:
-    """Convert a host matrix to a dense ``Coupled`` on ``device``, stored at
+    """Convert a host matrix to a ``Coupled`` on ``device``, stored at
     ``dtype`` (float32, float64 or bfloat16; norms at float32 under bf16).
 
     sparse_mode (scipy.sparse input only; dense input uploads as is):
-      'auto'  densify when the dense copy at the storage dtype fits
-              ``densify_threshold``;
-      'dense' always densify.
-    Sparse device layouts ('csr', 'chunked', 'auto' past the threshold)
-    are not ported yet (ROADMAP A7, A8).
+      'auto'    densify when the dense copy at the storage dtype fits
+                ``densify_threshold``, else 'csr';
+      'csr'     keep CSR on the device, with the CSR of Aᵀ; under
+                ``use_pallas``, BlockEll layouts of A and Aᵀ instead when
+                both fit the threshold and fill at least
+                ``bell.BELL_MIN_FILL``;
+      'dense'   always densify;
+      'chunked' the streamed layout, not ported yet (ROADMAP A8).
     """
     if dtype in FP8_DTYPES:
         raise NotImplementedError(
@@ -60,31 +67,48 @@ def as_coupled(A, dtype, device, sparse_mode: str = "auto",
             f"got {sparse_mode!r}")
     nbytes_dense = A.shape[0] * A.shape[1] * dtype.itemsize
     mode = sparse_mode
-    if mode == "auto" and nbytes_dense <= densify_threshold:
-        mode = "dense"
+    if mode == "auto":
+        mode = "dense" if nbytes_dense <= densify_threshold else "csr"
     if mode == "chunked":
         raise NotImplementedError(
             "sparse_mode='chunked' is not ported yet (ROADMAP A8)")
-    if mode != "dense":
-        raise NotImplementedError(
-            f"sparse device storage is not ported yet (ROADMAP A7): this "
-            f"matrix resolves to CSR (sparse_mode={sparse_mode!r}, dense copy "
-            f"{nbytes_dense / 2**30:.2f} GiB); use sparse_mode='dense'")
-    # Densify ON DEVICE: upload only the COO triplets and scatter them into
-    # device zeros at the storage dtype (duplicates are summed on the host
-    # first, so the scatter is exact).
+    # Host float64 norms of the unquantized values, stored at fdt (float32
+    # under bf16 data: they feed the line-search objectives).
     coo = A.tocoo()
     coo.sum_duplicates()
     n, m = A.shape
     sq64 = coo.data.astype(np.float64) ** 2
     row_sq = np.bincount(coo.row, weights=sq64, minlength=n)
     col_sq = np.bincount(coo.col, weights=sq64, minlength=m)
+    norms = _norms(fdt, device, row_sq, col_sq, sq64.sum())
+    if mode == "csr":
+        # ‖A‖² of a sparse layout is its own sq_norm (of the stored values)
+        sparse_norms = dict(row_sq=norms["row_sq"],
+                            row_sq_t=norms["row_sq_t"])
+        if use_pallas:
+            A_bell = bell_from_scipy(A, dtype, device,
+                                     max_bytes=densify_threshold,
+                                     min_fill=BELL_MIN_FILL)
+            At_bell = (bell_from_scipy(A.T, dtype, device,
+                                       max_bytes=densify_threshold,
+                                       min_fill=BELL_MIN_FILL)
+                       if A_bell is not None else None)
+            if At_bell is not None:
+                # every product and loss of the fit reads the BlockEll
+                # layouts, so no CSR is built
+                return Coupled(A_bell, At=At_bell, A_bell=A_bell,
+                               At_bell=At_bell, **sparse_norms)
+        C, Ct = csr_transpose_host(A, dtype, device)
+        return Coupled(C, At=Ct, **sparse_norms)
+    # Densify ON DEVICE: upload only the COO triplets and scatter them into
+    # device zeros at the storage dtype (duplicates are summed on the host
+    # first, so the scatter is exact).
     rows = torch.from_numpy(coo.row.astype(np.int64)).to(device)
     cols = torch.from_numpy(coo.col.astype(np.int64)).to(device)
     vals = torch.from_numpy(coo.data).to(device).to(dtype)
     Ad = torch.zeros((n, m), dtype=dtype, device=device)
     Ad.index_put_((rows, cols), vals)
-    return Coupled(Ad, **_norms(fdt, device, row_sq, col_sq, sq64.sum()))
+    return Coupled(Ad, **norms)
 
 
 def check_matrix(A, name: str, *, require_non_negative: bool,

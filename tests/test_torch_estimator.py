@@ -236,6 +236,10 @@ def test_import_pulls_in_no_jax():
             "import pycmf_tpu_torch.ops.kernels.newton_fused\n"
             "import pycmf_tpu_torch.ops.kernels.sigmoid_newton\n"
             "import pycmf_tpu_torch.ops.kernels.batched_solve\n"
+            "import pycmf_tpu_torch.ops.kernels.spmm\n"
+            "import pycmf_tpu_torch.ops.kernels.bell\n"
+            "import pycmf_tpu_torch.ops.kernels.mu_update\n"
+            "import pycmf_tpu_torch.ops.sparse\n"
             "import pycmf_tpu_torch.ops.kernels._build\n"
             "import pycmf_tpu_torch.utils.datasets\n"
             "import pycmf_tpu_torch.utils.convert\n"
@@ -250,7 +254,6 @@ def test_import_pulls_in_no_jax():
     (dict(solver="newton", sg_sample_ratio=0.5), "ROADMAP A3"),
     (dict(n_shards=2), "ROADMAP A10"),
     (dict(data_dtype="fp8"), "ROADMAP A9"),
-    (dict(sparse_mode="csr"), "ROADMAP A7"),
     (dict(sparse_mode="chunked"), "ROADMAP A8")])
 def test_out_of_slice_requests_raise(rng, kw, match):
     X, Y = make_problem(rng)
@@ -259,11 +262,17 @@ def test_out_of_slice_requests_raise(rng, kw, match):
 
 
 def test_beyond_densify_threshold_raises(rng):
+    """'auto' past the threshold keeps CSR; the streamed layout, asked for
+    by name, raises naming ROADMAP A8."""
+    from pycmf_tpu_torch.ops.sparse import is_sparse
     from pycmf_tpu_torch.utils.validation import as_coupled
 
     X = sp.csr_matrix(np.eye(40))
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        as_coupled(X, torch.float32, "cpu", densify_threshold=100)
+    C = as_coupled(X, torch.float32, "cpu", densify_threshold=100)
+    assert is_sparse(C.A) and is_sparse(C.At)
+    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+        as_coupled(X, torch.float32, "cpu", densify_threshold=100,
+                   sparse_mode="chunked")
 
 
 def test_cuda_device_without_cuda_raises(rng, monkeypatch):
