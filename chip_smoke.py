@@ -18,7 +18,9 @@ Phases (any failure exits non-zero and prints no ok line):
     the 20NG surrogate's CSR and an RCV1-v2-shaped one (47236 x 804414,
     60M nonzeros), beside torch.sparse.mm; fused_mu_update at 11314 x 20 and
     804414 x 20; bell_spmm on a block-structured 30000 x 11314 X (51M
-    nonzeros), and the fill at which it and csr_spmm take equal time;
+    nonzeros) and on its transpose, beside a BSR torch.sparse.mm, and the
+    fill at which it and csr_spmm take equal device time; edge cases at small
+    shapes, each kernel's output and scratch NaN-filled before one call;
  4. MU fit of the 20NG-shaped surrogate, bf16 X, through the estimator:
     kernel launches, and the exact (float64) loss non-increasing along the
     fit, replayed as warm-started segments;
@@ -29,8 +31,9 @@ Phases (any failure exits non-zero and prints no ok line):
     path C, MU on the surrogate kept CSR (sparse_mode='csr': csr_spmm,
     fused_mu_update, csr_rowdots); path D, bench's Newton cell on the CSR
     X; path F, MU on the block-structured X through BlockEll (bell_spmm);
-    then Newton linear and paths A to D under torch.profiler (device time
-    by kernel, idle share, launches per iteration);
+    then Newton linear and paths A to D and F under torch.profiler
+    (device time by kernel, idle share, launches per iteration, and on
+    path F bell_spmm's share);
  8. kernel path against plain path on the card for each fit, and the final
     losses of MU, path A, path C and path D against the NumPy baselines
     (2% guard);
@@ -39,7 +42,8 @@ Each fit is run with the launch counts set to 0 just before it and read
 just after. Standard output ends with the fits' record, the card's name and
 power limit, the kernels' JSON record and, last, {"ok": true, ...}.
 Details go to standard error. ``python3 -m pycmf_tpu_torch.chip_ab``
-times phase 3's K3, K4 and K5 in several checkouts.
+times phase 3's K3, K4 and K5, or its sparse kernels, in several
+checkouts.
 """
 from __future__ import annotations
 
@@ -93,6 +97,28 @@ def time_ms(fn, warmup: int = 2, reps: int = 10, flush=None) -> float:
             flush()
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    times.sort()
+    return times[len(times) // 2]
+
+
+def device_ms(fn, reps: int = 10) -> float:
+    """Median device time of fn() in ms: the card is held busy (about 1 ms
+    of torch.cuda._sleep) while the host enqueues the events and fn's
+    launches, so the events bracket the device's work alone."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(2_000_000)
         a.record()
         fn()
         b.record()
@@ -336,13 +362,17 @@ def csr_bytes(A, kw_in: int, kw_out: int) -> float:
 def sparse_phase(check, torch):
     """Phase 3, K6-K11: csr_spmm (A and Aᵀ) and csr_rowdots on the 20NG
     surrogate and on an RCV1-v2-shaped surrogate, bell_spmm on path F's
-    block-structured X, fused_mu_update at V's shapes; each against its
+    block-structured X and on Xᵀ (both layouts path F launches it on),
+    fused_mu_update at V's shapes; each against its
     plain version on the same inputs widened to float64 (relative Frobenius
     <= 1e-5: the plain version in float32 sums a row of 8e5 nonzeros of the
     RCV1 shape with atomics, in no fixed order, and is itself 5e-5 off),
     two calls bitwise equal; the plain version's time is taken in float32.
-    Then the fill at which bell_spmm and csr_spmm take equal time on the
-    same block-structured matrix (the BlockEll layout's BELL_MIN_FILL)."""
+    Then the fill at which bell_spmm and csr_spmm take equal device time
+    on the same block-structured matrix (the BlockEll layout's
+    BELL_MIN_FILL). Device time alone: both layouts pay the same host time
+    per call, as large as bell_spmm's device time, and a crossover taken
+    with it swings between runs with the host's noise."""
     import numpy as np
     import scipy.sparse as sp
 
@@ -373,16 +403,21 @@ def sparse_phase(check, torch):
         bms, bby = bound(nbytes, flops, F32_FLOPS)
         ms = time_ms(fn, reps=reps)
         pms = time_ms(lambda: ref(torch.float32), reps=max(3, reps // 2))
-        lib = None
+        lib = lib_dev = None
         if library is not None:
             lib = time_ms(library, reps=reps)
+            lib_dev = device_ms(library)
+        dev_ms = device_ms(fn)
         log(f"  {tag} kernel {ms:.4f} ms, plain {pms:.4f} ms, library "
             f"{'none' if lib is None else f'{lib:.4f} ms'}, bound "
-            f"{bms:.4f} ms ({bby})"
+            f"{bms:.4f} ms ({bby}); device time alone: kernel {dev_ms:.4f} "
+            f"ms, library "
+            f"{'none' if lib_dev is None else f'{lib_dev:.4f} ms'}"
             + "".join(f", {k} {v:.4g}" for k, v in extra.items()))
         rec[tag] = dict(max_abs_err=float((out - want).abs().max()), ms=ms,
                         plain_ms=pms, bound_ms=bms, bound_by=bby,
-                        library_ms=lib, **extra)
+                        library_ms=lib, device_ms=dev_ms,
+                        library_device_ms=lib_dev, **extra)
         return ms
 
     def library_mm(A, B):
@@ -409,19 +444,46 @@ def sparse_phase(check, torch):
             return None
         return lambda: torch.sparse.mm(T, Bp)
 
-    # edge cases at small shapes: every k the kernels instantiate apart,
-    # empty rows, a row crossing many 32-nonzero chunks, fewer nonzeros
-    # than a warp's batch, row and column counts off the 128 grid
+    def nan_filled(fn):
+        """fn() with every floating-point torch.empty (outputs and scratch
+        of the wrappers) filled with NaN: a row the kernel leaves unwritten
+        shows."""
+        real = torch.empty
+
+        def nan_empty(*args, **kw):
+            t = real(*args, **kw)
+            return t.fill_(math.nan) if t.is_floating_point() else t
+
+        with mock.patch.object(torch, "empty", nan_empty):
+            return fn()
+
+    # edge cases at small shapes: every k the kernels instantiate apart;
+    # leading, interior and trailing runs of empty rows (the CSR walk zeroes
+    # them itself); a row crossing many chunks; fewer nonzeros than one
+    # chunk; rows ending exactly on a 16-nonzero chunk or a 4-nonzero step;
+    # a row block with more stored blocks than one segment and one holding
+    # only the zero filler block; row and column counts off the 128 grid
+    d = sp.random(300, 200, density=0.05, format="lil", random_state=rng)
+    d[3, :] = rng.rand(200)          # 200 nonzeros: many chunks
+    d[0:3, :] = 0                    # leading empty rows
+    d[10:40, :] = 0                  # interior
+    d[293:, :] = 0                   # trailing
+    tiny = rng.rand(5, 7) * (rng.rand(5, 7) < 0.4)
+    tiny[0, 0] = 1.0
+    wide = sp.random(260, 1100, density=0.02, format="lil", random_state=rng)
+    wide[5, :] = rng.rand(1100)      # row block 0: 9 blocks, 3 segments
+    wide[128:256, :] = 0             # row block 1: the filler block only
+    lens = np.tile([16, 16, 4, 12, 0, 32, 8, 4, 4, 0, 0, 16, 5, 11, 16], 3)
+    aligned = sp.csr_matrix(
+        (rng.rand(int(lens.sum())) + 0.5,
+         np.concatenate([np.sort(rng.choice(64, n, replace=False))
+                         for n in lens]).astype(np.int32),
+         np.r_[0, np.cumsum(lens)]), shape=(lens.size, 64))
+    edge = (("", sp.csr_matrix(d)), (" tiny", sp.csr_matrix(tiny)),
+            (" wide", sp.csr_matrix(wide)), (" aligned", aligned))
     for k in (1, 7, 20, 32):
-        p, q = 300, 200
-        d = sp.random(p, q, density=0.05, format="lil", random_state=rng)
-        d[3, :] = rng.rand(q)          # 200 nonzeros: seven chunks of 32
-        d[10:40, :] = 0                # empty rows
-        tiny = rng.rand(5, 7) * (rng.rand(5, 7) < 0.4)
-        tiny[0, 0] = 1.0
-        tiny = sp.csr_matrix(tiny)
-        for tag, Xh in ((f"edge k={k}", sp.csr_matrix(d)),
-                        (f"edge k={k} tiny", tiny)):
+        for suffix, Xh in edge:
+            tag = f"edge k={k}{suffix}"
             for xname in ("bfloat16", "float32"):
                 dt = getattr(torch, xname)
                 C = sparse.csr_from_scipy(Xh, dt, dev)
@@ -432,22 +494,27 @@ def sparse_phase(check, torch):
                     np.float32)).to(dev)
                 S = torch.from_numpy(rng.rand(k, k).astype(np.float32)
                                      ).to(dev)
-                for name, got, want in (
-                        ("csr_spmm", spmm.csr_spmm(C, B),
+                for name, call, want in (
+                        ("csr_spmm", lambda: spmm.csr_spmm(C, B),
                          spmm.csr_spmm_ref(C, B.double())),
-                        ("csr_rowdots", spmm.csr_rowdots(C, Mf, B),
+                        ("csr_rowdots", lambda: spmm.csr_rowdots(C, Mf, B),
                          spmm.csr_rowdots_ref(C, Mf.double(), B.double())),
-                        ("bell_spmm", bell.bell_spmm(L, B),
+                        ("bell_spmm", lambda: bell.bell_spmm(L, B),
                          bell.bell_spmm_ref(L, B.double())),
                         ("fused_mu_update",
-                         mu_update.fused_mu_update(Mf, S, Mf, 0.1, 0.2,
-                                                   1e-10),
+                         lambda: mu_update.fused_mu_update(Mf, S, Mf, 0.1,
+                                                           0.2, 1e-10),
                          mu_update.fused_mu_update_ref(
                              Mf.double(), S.double(), Mf.double(), 0.1, 0.2,
                              1e-10))):
+                    got = nan_filled(call)
+                    again = call()
+                    torch.cuda.synchronize()
                     e = rel_fro(got, want)
-                    check(e <= 1e-5, f"{name}[{tag}, {xname}] rel Frobenius "
-                          f"{e:.3g} <= 1e-5")
+                    check(e <= 1e-5 and bool(torch.equal(got, again)),
+                          f"{name}[{tag}, {xname}] rel Frobenius {e:.3g} <= "
+                          f"1e-5 (output and scratch NaN-filled), two calls "
+                          f"bitwise equal")
 
     t0 = time.perf_counter()
     X20, _ = synthetic_20ng(random_state=SEED)
@@ -499,41 +566,50 @@ def sparse_phase(check, torch):
                           shape=Xb.shape)
     log(f"phase 3: block-structured X {Xb.shape} nnz={Xb.nnz} and its "
         f"1/16 thinning nnz={Xthin.nnz} in {time.perf_counter() - t0:.1f} s")
-    V = factor(M)
+    V, U = factor(M), factor(N)
     cross = {}
     for xname in ("bfloat16", "float32"):
         dt = getattr(torch, xname)
-        for fname, Xh in (("full", Xb), ("thin", Xthin)):
+        for fname, Xh, B in (("full", Xb, V), ("fullT", Xb.T, U),
+                             ("thin", Xthin, V)):
             L = bell.bell_from_scipy(Xh, dt, dev)
-            C = sparse.csr_from_scipy(Xh, dt, dev)
             nb = (L.nbytes + 4.0 * (L.bcols.numel() + L.bptr.numel())
                   + 4.0 * (M + N) * K)
             flops = 2.0 * L.blocks.shape[0] * bell.BLOCK ** 2 * K
             tb = hold(f"bell_spmm[{fname},{xname}]",
-                      lambda: bell.bell_spmm(L, V),
-                      lambda dt: bell.bell_spmm_ref(L, V.to(dt)), nb, flops,
-                      library=library_bsr(L, V) if xname == "float32"
+                      lambda: bell.bell_spmm(L, B),
+                      lambda dt: bell.bell_spmm_ref(L, B.to(dt)), nb, flops,
+                      library=library_bsr(L, B) if xname == "float32"
                       else None,
-                      fill=L.fill, blocks=float(L.blocks.shape[0]))
-            tc = time_ms(lambda: spmm.csr_spmm(C, V))
-            cross[(xname, fname)] = (tb, tc, C.nnz, L.blocks.shape[0])
-            log(f"  csr_spmm on the same matrix ({fname}, {xname}): "
-                f"{tc:.4f} ms")
-            del L, C
+                      fill=L.fill, blocks=float(L.blocks.shape[0]),
+                      row_blocks=float(L.bptr.numel() - 1),
+                      segments=float(L.segs.numel() - 1))
+            if fname != "fullT":
+                C = sparse.csr_from_scipy(Xh, dt, dev)
+                tc = time_ms(lambda: spmm.csr_spmm(C, V))
+                db = device_ms(lambda: bell.bell_spmm(L, V))
+                dc = device_ms(lambda: spmm.csr_spmm(C, V))
+                cross[(xname, fname)] = (db, dc, C.nnz, L.blocks.shape[0])
+                log(f"  csr_spmm on the same matrix ({fname}, {xname}): "
+                    f"{tc:.4f} ms; device time alone: bell_spmm {db:.4f} "
+                    f"ms (was {tb:.4f} with the host's), csr_spmm {dc:.4f} ms")
+                del C
+            del L
     for xname in ("bfloat16", "float32"):
         tb, tc1, n1, nb1 = cross[(xname, "full")]
         _, tc2, n2, _ = cross[(xname, "thin")]
         slope = (tc1 - tc2) / (n1 - n2)
         fill = (tb - (tc1 - slope * n1)) / (slope * nb1 * bell.BLOCK ** 2)
-        rec[f"crossover[{xname}]"] = dict(fill=fill, bell_ms=tb,
-                                          csr_full_ms=tc1, csr_thin_ms=tc2)
+        rec[f"crossover[{xname}]"] = dict(
+            fill=fill, bell_device_ms=tb, csr_full_device_ms=tc1,
+            csr_thin_device_ms=tc2)
         log(f"  crossover ({xname}): csr_spmm equals bell_spmm at fill "
             f"{fill:.4g}")
     fill = rec["crossover[bfloat16]"]["fill"]
     check(fill / 2 <= bell.BELL_MIN_FILL <= 2 * fill,
           f"BELL_MIN_FILL {bell.BELL_MIN_FILL} within a factor 2 of the "
           f"measured bf16 crossover {fill:.4g} (else re-measure it)")
-    del Xb, Xthin, V
+    del Xb, Xthin, V, U
     torch.cuda.empty_cache()
     return rec
 
@@ -856,6 +932,14 @@ def main() -> int:
     pd["profile"] = profile_phase(
         torch, lambda: CMF(**dict(d_kw, max_iter=10, tol=0.0), **common),
         X, Y, "path D")
+    pf["profile"] = profile_phase(
+        torch, lambda: CMF(**dict(f_kw, max_iter=10), **common), Xf, Y,
+        "path F")
+    k7 = sum(t["ms_per_iter"] for t in pf["profile"]["top_kernels"]
+             if "bell_" in t["name"])
+    pf["profile"]["bell_spmm_share"] = k7 / pf["profile"]["device_ms_per_iter"]
+    log(f"  path F: bell_spmm's kernels {k7:.4f} ms/iter on the device, "
+        f"{pf['profile']['bell_spmm_share']:.3f} of the device time")
 
     # 8. kernel path against plain path on the card; the 2% guards. The
     # NumPy baselines run on the host beside these untimed fits, after every
@@ -955,7 +1039,9 @@ def main() -> int:
               "rcv1": "csr_rowdots[rcv1,bfloat16]"}),
             ("bell_spmm", "bell_spmm.cu", ("bell.py:163",),
              "bell_spmm[full,bfloat16]", pf,
-             {"f32": "bell_spmm[full,float32]"})):
+             {"f32": "bell_spmm[full,float32]",
+              "t": "bell_spmm[fullT,bfloat16]",
+              "t_f32": "bell_spmm[fullT,float32]"})):
         r = krec[main]
         entry = {"name": kname, "route": "cuda", "source": src + file,
                  "replaces": ", ".join("pycmf_tpu/ops/pallas/" + f
@@ -965,9 +1051,12 @@ def main() -> int:
                  "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                  "bound_by": r["bound_by"],
                  "library_ms": r.get("library_ms")}
+        for f in ("device_ms", "library_device_ms"):
+            if r.get(f) is not None:
+                entry[f] = r[f]
         for pre, key in extra.items():
             for f in ("ms", "plain_ms", "bound_ms", "max_abs_err",
-                      "library_ms"):
+                      "library_ms", "device_ms", "library_device_ms"):
                 if f in krec[key]:
                     entry[f"{pre}_{f}"] = krec[key][f]
         kernels.append(entry)

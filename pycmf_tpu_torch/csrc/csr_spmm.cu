@@ -15,115 +15,194 @@
 // csr_rowdots: out (p,)   = sum_j a_ij (M_i . B_j) = M_i . (A B)_i
 // A's values are f32 or bf16 (widened exactly), B and M f32, 1 <= k <= 32.
 //
-// Bound: bytes. Per nonzero the kernel reads its value, column and row id
-// (10-12 bytes) and gathers a k-float row of B (80 bytes at k = 20) for k
-// f32 FMAs: one FMA per 4 bytes gathered. The compulsory bytes (each input read once,
-// the output written once) are the CSR arrays plus B; the gather reads B
-// nnz/q times over, from L2 when B fits its 50 MB, else from DRAM.
+// Bound: bytes. The compulsory bytes (each input read once, the output
+// written once) are the CSR arrays plus B; per nonzero the kernel also
+// gathers a k-float row of B (80 bytes at k = 20) for k FMAs, from L2 when
+// B fits its 50 MB, else from DRAM (20NG surrogate: 0.0026 ms; RCV1
+// shape: 0.129 ms, 1.58 ms with the gathers from DRAM).
 //
-// Design: the work is split by nonzeros, not rows, because row lengths are
-// Zipfian (a term x document matrix has rows holding most documents). Warp
-// w takes the fixed chunk [w*CH, (w+1)*CH) of the nonzeros; lane j < k owns
-// column j of the output. A batch of 32 nonzeros is loaded coalesced (one
-// per lane) and broadcast by shuffles; all 32 gathers of B are issued
-// before the FMAs that consume them, so each warp keeps 32 loads in flight.
-// A row wholly inside the chunk is written directly. A row that crosses a
-// chunk boundary leaves one partial per chunk it touches (slot 0: the
-// chunk's first row, continuing from the chunk before; slot 1: its last
-// row, continuing into the next), and a second kernel sums those partials
-// in chunk order. Rows with no nonzeros stay as the caller zeroed them. No
-// float atomics: every sum has a fixed order, so a call repeats bit for
-// bit. The chunk size adapts to nnz so that there are several warps per SM
-// scheduler, and the partials stay small (at most 2 * ceil(nnz / CH) rows).
+// Design:
+// - Work split by nonzeros, not rows, because row lengths are Zipfian (a
+//   term x document matrix has rows holding most documents): chunk c is
+//   the fixed range [c*ch, (c+1)*ch) of the nonzeros. The chunk size ch (a
+//   power of two) is chosen by the caller (ops/kernels/spmm.py), which
+//   also sizes the scratch from it: the rule lives in one place.
+// - Lane groups: G = ceil(k / 4) lanes walk one chunk together, lane j of
+//   the group owning output columns 4j .. 4j+3 and gathering them with one
+//   16-byte load (B's row stride `ld` is a multiple of 4). A warp holds
+//   floor(32 / G) groups (6 at k = 20, 30 lanes busy), each on its own
+//   chunk. Every lane reads its nonzero's column, value and row id itself
+//   (a group's same-address reads are one broadcast): no shuffles per
+//   nonzero. Eight nonzeros are loaded (as 16-byte vectors), then their
+//   eight gathers issued, then their FMAs, so each lane keeps eight gathers
+//   in flight without a per-lane array of 32 (the old design's 127
+//   registers, 16 warps per SM).
+// - Row ids: read per nonzero, in the same vector loads as the columns,
+//   so a row change needs no dependent load. The other route (each chunk's
+//   first row by a binary search over indptr, then a load of the next row
+//   pointer at every row change) was not built: at the RCV1 shape the row
+//   ids are 243 MB of the walk's reads, ~0.07 ms at the DRAM rate against
+//   a ~2.4 ms call (an estimate, not a measurement).
+// - Order: a group sums its chunk's nonzeros in order. A row wholly inside
+//   a chunk is written directly. A row that crosses a chunk boundary leaves
+//   one partial per chunk it touches (slot 0: the chunk's first row,
+//   continuing from the chunk before; slot 1: its last row, continuing into
+//   the next), and csr_combine_kernel sums them in chunk order. The combine
+//   pass stays a second launch: folding it into the walk needs a grid-wide
+//   wait for the other chunks of a row (a per-row counter, zeroed every
+//   call, or a spin on chunks that may not be resident). No float atomics:
+//   a call repeats bit for bit.
+// - No memset: the walk writes every output row. A group that sees row r
+//   followed by row r' > r + 1 zeroes rows r+1 .. r'-1; the gap before a
+//   chunk's first row belongs to that chunk, and the last chunk zeroes the
+//   rows after the last nonzero.
+// - Registers and warps per SM: __launch_bounds__(256, 3), 80 registers
+//   (ptxas: 4-12 bytes of spills), 24 warps per SM. Four nonzeros per step
+//   at 64 registers (32 warps per SM) measured 11% slower at the RCV1
+//   shape in one A/B (PERF.md).
 #include "common.cuh"
 
 namespace pycmf {
 
 constexpr int kCsrWarps = 8;
+constexpr int kUnroll = 8;  // nonzeros loaded, then gathered, per step
 
-// Nonzeros per warp: a power of two in [32, 1024], about 64 warps per SM.
-inline int csr_chunk(long long nnz) {
-  long long want = nnz / (64LL * sm_count());
-  int ch = 32;
-  while (ch < 1024 && ch < want) ch <<= 1;
-  return ch;
+__device__ __forceinline__ float4 zero4() { return make_float4(0.f, 0.f, 0.f, 0.f); }
+
+__device__ __forceinline__ float4 ldg4(const float* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
 }
 
-inline long long csr_chunks(long long nnz, int ch) { return (nnz + ch - 1) / ch; }
+// Four consecutive values from a 16-byte-aligned (f32) or 8-byte-aligned
+// (bf16) address, widened to float.
+__device__ __forceinline__ void load4(const float* p, float (&v)[4]) {
+  const float4 x = __ldg(reinterpret_cast<const float4*>(p));
+  v[0] = x.x, v[1] = x.y, v[2] = x.z, v[3] = x.w;
+}
+__device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&v)[4]) {
+  const uint2 x = __ldg(reinterpret_cast<const uint2*>(p));
+  const __nv_bfloat162 a = *reinterpret_cast<const __nv_bfloat162*>(&x.x);
+  const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(&x.y);
+  v[0] = __low2float(a), v[1] = __high2float(a);
+  v[2] = __low2float(b), v[3] = __high2float(b);
+}
 
-// One warp per chunk. kw = k (spmm) or 1 (rowdots): the width of one row of
-// `out` and of one partial.
+// One group per chunk. kw = k (spmm) or 1 (rowdots): the width of one row
+// of `out` and of one partial. B (and M) have row stride ld, a multiple of
+// 4 with zeros past k.
 template <typename T, bool kRowdots>
-__global__ void __launch_bounds__(kCsrWarps * 32)
+__global__ void __launch_bounds__(kCsrWarps * 32, 3)
     csr_chunk_kernel(const T* __restrict__ data, const int* __restrict__ indices,
                      const int* __restrict__ row_ids, const float* __restrict__ B,
-                     const float* __restrict__ M, long long nnz, int k, int ch,
-                     long long n_chunks, float* __restrict__ out,
+                     const float* __restrict__ M, long long nnz, int p, int k,
+                     int ld, int ch, long long n_chunks, float* __restrict__ out,
                      float* __restrict__ part) {
   const int lane = threadIdx.x & 31;
-  const long long c = (long long)blockIdx.x * kCsrWarps + threadIdx.x / 32;
-  if (c >= n_chunks) return;  // the whole warp leaves together
+  const int G = (k + 3) >> 2, P = 32 / G;
+  const int gi = lane / G, sl = lane - gi * G;
+  if (gi >= P) return;
+  const long long c =
+      ((long long)blockIdx.x * kCsrWarps + threadIdx.x / 32) * P + gi;
+  if (c >= n_chunks) return;  // the whole group leaves together
+  const unsigned gmask = ((1u << G) - 1u) << (gi * G);
   const int kw = kRowdots ? 1 : k;
+  const int col0 = 4 * sl;
+  const bool vec_out = (k & 3) == 0;
   const long long s = c * ch;
   const long long e = s + ch < nnz ? s + ch : nnz;
   const int prev_row = s > 0 ? row_ids[s - 1] : -1;
   const int next_row = e < nnz ? row_ids[e] : -1;
-  const bool active = lane < k;
 
-  auto flush = [&](int r, float acc) {
-    float v = acc;
-    if constexpr (kRowdots) {
-      const float m = active ? M[(size_t)r * k + lane] : 0.f;
-      v = warp_sum(m * acc);
-    }
-    float* dst;
-    if (r == prev_row) {
-      dst = part + (size_t)(2 * c) * kw;
-    } else if (r == next_row) {
-      dst = part + (size_t)(2 * c + 1) * kw;
+  // columns col0 .. col0+3 of a k-wide row, those < k
+  auto store_row = [&](float* row, float4 v) {
+    if (vec_out) {
+      *reinterpret_cast<float4*>(row + col0) = v;
     } else {
-      dst = out + (size_t)r * kw;
+      const float a[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (col0 + j < k) row[col0 + j] = a[j];
     }
-    if (kRowdots ? lane == 0 : active) dst[kRowdots ? 0 : lane] = v;
+  };
+  auto flush = [&](int r, float4 a) {
+    float* dst = r == prev_row   ? part + (size_t)(2 * c) * kw
+                 : r == next_row ? part + (size_t)(2 * c + 1) * kw
+                                 : out + (size_t)r * kw;
+    if constexpr (kRowdots) {
+      const float4 m = ldg4(M + (size_t)r * ld + col0);
+      const float v = fmaf(m.w, a.w, fmaf(m.z, a.z, fmaf(m.y, a.y, m.x * a.x)));
+      float sum = 0.f;  // the group's lanes in a fixed order
+      for (int j = 0; j < G; ++j) sum += __shfl_sync(gmask, v, gi * G + j);
+      if (sl == 0) *dst = sum;
+    } else {
+      store_row(dst, a);
+    }
+  };
+  auto zero_rows = [&](int r0, int r1) {  // empty rows r0 .. r1-1
+    for (int r = r0; r < r1; ++r) {
+      if constexpr (kRowdots) {
+        if (sl == 0) out[r] = 0.f;
+      } else {
+        store_row(out + (size_t)r * k, zero4());
+      }
+    }
   };
 
   int cur = row_ids[s];
-  float acc = 0.f;
-  for (long long base = s; base < e; base += 32) {
-    const long long i = base + lane;
-    int col = 0, row = cur;
-    float val = 0.f;
-    if (i < e) {
-      col = indices[i];
-      row = row_ids[i];
-      val = to_float(data[i]);
-    }
-    float bv[32];
+  zero_rows(prev_row + 1, cur);
+  float4 acc = zero4();
+  for (long long base = s; base < e; base += kUnroll) {
+    int col[kUnroll], row[kUnroll];
+    float val[kUnroll];
+    if (base + kUnroll <= e) {  // ch is a multiple of kUnroll: aligned
 #pragma unroll
-    for (int t = 0; t < 32; ++t) {
-      const int ct = __shfl_sync(kFull, col, t);
-      bv[t] = (active && base + t < e) ? B[(size_t)ct * k + lane] : 0.f;
-    }
+      for (int h = 0; h < kUnroll; h += 4) {
+        const int4 ci = __ldg(reinterpret_cast<const int4*>(indices + base + h));
+        const int4 ri = __ldg(reinterpret_cast<const int4*>(row_ids + base + h));
+        col[h] = ci.x, col[h + 1] = ci.y, col[h + 2] = ci.z, col[h + 3] = ci.w;
+        row[h] = ri.x, row[h + 1] = ri.y, row[h + 2] = ri.z, row[h + 3] = ri.w;
+        float v[4];
+        load4(data + base + h, v);
+        val[h] = v[0], val[h + 1] = v[1], val[h + 2] = v[2], val[h + 3] = v[3];
+      }
+    } else {
 #pragma unroll
-    for (int t = 0; t < 32; ++t) {
-      if (base + t < e) {  // warp-uniform
-        const int rt = __shfl_sync(kFull, row, t);
-        const float vt = __shfl_sync(kFull, val, t);
-        if (rt != cur) {
+      for (int u = 0; u < kUnroll; ++u) {
+        const bool in = base + u < e;
+        col[u] = in ? indices[base + u] : 0;
+        row[u] = in ? row_ids[base + u] : cur;
+        val[u] = in ? to_float(data[base + u]) : 0.f;
+      }
+    }
+    float4 bv[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u)
+      bv[u] = base + u < e ? ldg4(B + (size_t)col[u] * ld + col0) : zero4();
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      if (base + u < e) {  // uniform across the group
+        if (row[u] != cur) {
           flush(cur, acc);
-          cur = rt;
-          acc = 0.f;
+          zero_rows(cur + 1, row[u]);
+          cur = row[u];
+          acc = zero4();
         }
-        acc = fmaf(vt, bv[t], acc);
+        acc.x = fmaf(val[u], bv[u].x, acc.x);
+        acc.y = fmaf(val[u], bv[u].y, acc.y);
+        acc.z = fmaf(val[u], bv[u].z, acc.z);
+        acc.w = fmaf(val[u], bv[u].w, acc.w);
       }
     }
   }
   flush(cur, acc);
+  if (e == nnz) zero_rows(cur + 1, p);
 }
 
 // One warp per chunk c: if c is the last chunk of a row that began in an
 // earlier chunk c0, sum the row's partials in chunk order: slot 1 of c0,
-// then slot 0 of c0+1 .. c.
+// then slot 0 of c0+1 .. c. (One lane per chunk, each warp then summing
+// its rows in turn, measured 18 us per call on the 20NG surrogate against
+// this version's 12: too few warps in flight.)
 __global__ void __launch_bounds__(kCsrWarps * 32)
     csr_combine_kernel(const int* __restrict__ indptr,
                        const int* __restrict__ row_ids, long long nnz, int kw,
@@ -139,6 +218,7 @@ __global__ void __launch_bounds__(kCsrWarps * 32)
   if (lane >= kw) return;
   const long long c0 = indptr[r] / ch;
   float acc = part[(size_t)(2 * c0 + 1) * kw + lane];
+#pragma unroll 8
   for (long long cc = c0 + 1; cc <= c; ++cc)
     acc += part[(size_t)(2 * cc) * kw + lane];
   out[(size_t)r * kw + lane] = acc;
@@ -146,61 +226,93 @@ __global__ void __launch_bounds__(kCsrWarps * 32)
 
 template <typename T, bool kRowdots>
 int launch_csr(const T* data, const int* indices, const int* indptr,
-               const int* row_ids, long long nnz, int k, const float* B,
-               const float* M, float* out, float* part, cudaStream_t st) {
-  const int ch = csr_chunk(nnz);
-  const long long n_chunks = csr_chunks(nnz, ch);
-  const int grid = (int)((n_chunks + kCsrWarps - 1) / kCsrWarps);
-  csr_chunk_kernel<T, kRowdots><<<grid, kCsrWarps * 32, 0, st>>>(
-      data, indices, row_ids, B, M, nnz, k, ch, n_chunks, out, part);
+               const int* row_ids, long long nnz, int p, int k, int ld, int ch,
+               const float* B, const float* M, float* out, float* part,
+               cudaStream_t st) {
+  const long long n_chunks = (nnz + ch - 1) / ch;
+  const int per_warp = 32 / ((k + 3) / 4);
+  const long long warps = (n_chunks + per_warp - 1) / per_warp;
+  csr_chunk_kernel<T, kRowdots>
+      <<<(int)((warps + kCsrWarps - 1) / kCsrWarps), kCsrWarps * 32, 0, st>>>(
+          data, indices, row_ids, B, M, nnz, p, k, ld, ch, n_chunks, out, part);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  csr_combine_kernel<<<grid, kCsrWarps * 32, 0, st>>>(
-      indptr, row_ids, nnz, kRowdots ? 1 : k, ch, n_chunks, part, out);
+  csr_combine_kernel<<<(int)((n_chunks + kCsrWarps - 1) / kCsrWarps),
+                       kCsrWarps * 32, 0, st>>>(indptr, row_ids, nnz,
+                                                kRowdots ? 1 : k, ch, n_chunks,
+                                                part, out);
   return (int)cudaGetLastError();
+}
+
+// Makes `device` current for the launches of one call and restores the
+// caller's device after (the Python wrapper then needs no device switch).
+struct DeviceGuard {
+  int prev = -1;
+  explicit DeviceGuard(int device) {
+    cudaGetDevice(&prev);
+    if (prev != device) cudaSetDevice(device);
+    else prev = -1;
+  }
+  ~DeviceGuard() {
+    if (prev >= 0) cudaSetDevice(prev);
+  }
+};
+
+// The walk's vector loads need 16-byte-aligned column and row-id arrays
+// and factors, and 8-byte-aligned values.
+inline bool csr_args_ok(long long nnz, int p, int k, int ld, int ch,
+                        const void* data, const int* indices,
+                        const int* row_ids, const float* B) {
+  const uintptr_t a16 = (uintptr_t)indices | (uintptr_t)row_ids | (uintptr_t)B;
+  return nnz >= 1 && p >= 1 && k >= 1 && k <= kMaxK && ld >= k &&
+         ld % 4 == 0 && ch >= kUnroll && ch % kUnroll == 0 &&
+         (a16 & 15) == 0 && ((uintptr_t)data & 7) == 0;
 }
 
 }  // namespace pycmf
 
-// Floats of scratch one call needs for nnz nonzeros and output width kw.
-extern "C" long long pycmf_csr_workspace_floats(long long nnz, int kw) {
-  using namespace pycmf;
-  return 2 * csr_chunks(nnz, csr_chunk(nnz)) * (long long)kw;
-}
-
 // A: data (nnz, f32 if bf16 == 0 else bf16), indices, indptr (p + 1),
-// row_ids: int32; B (q, k) f32; out (p, k) f32, zeroed by the caller;
-// work: pycmf_csr_workspace_floats(nnz, k) floats. nnz >= 1, 1 <= k <= 32.
+// row_ids: int32; B (q, ld) f32 with zeros past column k (ld a multiple of
+// 4); out (p, k) f32, every row written; ch: nonzeros per chunk, a
+// multiple of 4; work: 2 * ceil(nnz / ch) * k floats; the launches go to
+// `stream` on CUDA device `device`. nnz >= 1, 1 <= k <= 32.
 extern "C" int pycmf_csr_spmm(int bf16, const void* data, const int* indices,
                               const int* indptr, const int* row_ids,
-                              long long nnz, int k, const float* B, float* out,
-                              float* work, void* stream) {
+                              long long nnz, int p, int k, int ld, int ch,
+                              const float* B, float* out, float* work,
+                              int device, void* stream) {
   using namespace pycmf;
-  if (nnz < 1 || k < 1 || k > kMaxK) return (int)cudaErrorInvalidValue;
+  if (!csr_args_ok(nnz, p, k, ld, ch, data, indices, row_ids, B))
+    return (int)cudaErrorInvalidValue;
+  DeviceGuard guard(device);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bf16)
     return launch_csr<__nv_bfloat16, false>(
         static_cast<const __nv_bfloat16*>(data), indices, indptr, row_ids, nnz,
-        k, B, nullptr, out, work, st);
+        p, k, ld, ch, B, nullptr, out, work, st);
   return launch_csr<float, false>(static_cast<const float*>(data), indices,
-                                  indptr, row_ids, nnz, k, B, nullptr, out,
-                                  work, st);
+                                  indptr, row_ids, nnz, p, k, ld, ch, B,
+                                  nullptr, out, work, st);
 }
 
-// As pycmf_csr_spmm with M (p, k) f32; out (p,) f32, zeroed by the caller;
-// work: pycmf_csr_workspace_floats(nnz, 1) floats.
+// As pycmf_csr_spmm with M (p, ld) f32 laid out as B; out (p,) f32;
+// work: 2 * ceil(nnz / ch) floats.
 extern "C" int pycmf_csr_rowdots(int bf16, const void* data, const int* indices,
                                  const int* indptr, const int* row_ids,
-                                 long long nnz, int k, const float* M,
-                                 const float* B, float* out, float* work,
-                                 void* stream) {
+                                 long long nnz, int p, int k, int ld, int ch,
+                                 const float* M, const float* B, float* out,
+                                 float* work, int device, void* stream) {
   using namespace pycmf;
-  if (nnz < 1 || k < 1 || k > kMaxK) return (int)cudaErrorInvalidValue;
+  if (!csr_args_ok(nnz, p, k, ld, ch, data, indices, row_ids, B) ||
+      ((uintptr_t)M & 15) != 0)
+    return (int)cudaErrorInvalidValue;
+  DeviceGuard guard(device);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bf16)
     return launch_csr<__nv_bfloat16, true>(
         static_cast<const __nv_bfloat16*>(data), indices, indptr, row_ids, nnz,
-        k, B, M, out, work, st);
+        p, k, ld, ch, B, M, out, work, st);
   return launch_csr<float, true>(static_cast<const float*>(data), indices,
-                                 indptr, row_ids, nnz, k, B, M, out, work, st);
+                                 indptr, row_ids, nnz, p, k, ld, ch, B, M, out,
+                                 work, st);
 }

@@ -16,7 +16,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict
+from typing import Any, Dict, Tuple
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
@@ -28,6 +28,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+_functions: Dict[Tuple[str, str], Any] = {}
 
 
 def find_nvcc() -> str:
@@ -114,10 +115,14 @@ def load(name: str) -> ctypes.CDLL:
 def function(name: str, symbol: str, argtypes, restype=ctypes.c_int):
     """C function ``symbol`` of the library for ``csrc/<name>.cu``, with its
     argument and result types declared (pointers and streams as c_void_p,
-    so ctypes never cuts them to 32 bits)."""
-    fn = getattr(load(name), symbol)
-    fn.argtypes = list(argtypes)
-    fn.restype = restype
+    so ctypes never cuts them to 32 bits). Resolved once per process: later
+    calls return the same object."""
+    fn = _functions.get((name, symbol))
+    if fn is None:
+        fn = getattr(load(name), symbol)
+        fn.argtypes = list(argtypes)
+        fn.restype = restype
+        _functions[(name, symbol)] = fn
     return fn
 
 

@@ -12,6 +12,11 @@ layout of Aᵀ (``bell_inner``).
 The layout pays when the blocks are full enough: the kernel's time follows
 the stored blocks, the CSR kernel's (``ops/kernels/spmm.py``) the nonzeros.
 ``bell_from_scipy`` refuses a layout whose fill is below ``min_fill``.
+
+The kernel splits its work by stored blocks: each row block's blocks are
+cut into segments of at most ``SEG_BLOCKS`` consecutive blocks
+(:func:`bell_segments`, a function of ``bptr`` alone, built once with the
+layout), one CTA per segment.
 """
 from __future__ import annotations
 
@@ -28,15 +33,23 @@ from .policy import launch_count, on_card
 
 LAUNCHES = launch_count("bell_spmm")
 BLOCK = 128
-MAX_K = 32  # the kernel keeps a row's k sums in registers
+MAX_K = 32  # at most four mma tiles of 8 output columns
+# Blocks per segment (one CTA each): path F's X (235 row blocks, ~13.5
+# blocks each) and Xᵀ (89 row blocks, ~36 each) both give several CTAs per
+# SM of an H100.
+SEG_BLOCKS = 4
 # Fill (nnz / stored block entries) below which the CSR kernel is faster
 # than this one on the same matrix: chip_smoke's phase 3 measures the
-# crossover on a block-structured 30000×11314 matrix (3166 blocks) and
-# checks this constant within a factor 2 of the bf16 value. Four runs on an
-# H100 gave 0.094-0.110 with bf16 values and 0.098-0.119 with float32
-# (PERF.md lists each run). The same constant on every device, so the CPU
-# and the card choose the same layout for the same matrix.
-BELL_MIN_FILL = 0.1
+# crossover of their device times on a block-structured 30000×11314 matrix
+# (3166 blocks) and checks this constant within a factor 2 of the bf16
+# value. Three runs of phase 3 on an H100 (NVIDIA H100 80GB HBM3, 700 W)
+# with the segment-split tensor-core kernel and the lane-group CSR walk
+# gave 0.0592, 0.0601 and 0.0593 with bf16 values (0.153-0.156 with
+# float32); PERF.md lists every run. The kernels before the redesign
+# crossed at 0.094-0.110, and a crossover taken with the host's time per
+# call swung from 0.004 to 0.09. The same constant on every device, so the
+# CPU and the card choose the same layout for the same matrix.
+BELL_MIN_FILL = 0.06
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,6 +61,9 @@ class BlockEll:
     bcols  : (NB,) int32 column block of each block
     bptr   : (ceil(p/128) + 1,) int32: the blocks of row block r are
              bptr[r] .. bptr[r+1]
+    segs   : (n_seg + 1,) int32: segment s holds blocks segs[s] .. segs[s+1]
+    rb_segs: (ceil(p/128) + 1,) int32: the segments of row block r are
+             rb_segs[r] .. rb_segs[r+1]
     sq_norm: () Σ data², float32 under bf16 data, else the data's dtype
              (as ``CsrMatrix.sq_norm``)
     shape  : (p, q) of the matrix
@@ -58,6 +74,8 @@ class BlockEll:
     brows: torch.Tensor
     bcols: torch.Tensor
     bptr: torch.Tensor
+    segs: torch.Tensor
+    rb_segs: torch.Tensor
     sq_norm: torch.Tensor
     shape: Tuple[int, int]
     fill: float
@@ -65,6 +83,21 @@ class BlockEll:
     @property
     def nbytes(self) -> int:
         return self.blocks.numel() * self.blocks.element_size()
+
+
+def bell_segments(bptr: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """(segs, rb_segs) for the row-block pointers ``bptr``: each row block
+    of n blocks is cut into ceil(n / SEG_BLOCKS) segments of consecutive
+    blocks whose sizes differ by at most one."""
+    bptr = np.asarray(bptr, dtype=np.int64)
+    counts = np.diff(bptr)
+    nseg = -(-counts // SEG_BLOCKS)
+    rb_segs = np.r_[0, np.cumsum(nseg)]
+    rb = np.repeat(np.arange(counts.size), nseg)
+    i = np.arange(rb.size) - rb_segs[rb]
+    starts = bptr[rb] + i * counts[rb] // nseg[rb]
+    return (np.r_[starts, bptr[-1]].astype(np.int32),
+            rb_segs.astype(np.int32))
 
 
 def bell_from_scipy(A, dtype=torch.float32, device="cpu", *,
@@ -98,6 +131,7 @@ def bell_from_scipy(A, dtype=torch.float32, device="cpu", *,
            coo.col % BLOCK] = coo.data
     brows = (uniq // ncb).astype(np.int32)
     bptr = np.searchsorted(brows, np.arange(nrb + 1)).astype(np.int32)
+    segs, rb_segs = bell_segments(bptr)
 
     data = torch.from_numpy(coo.data).to(dtype).to(torch.float64)
     sq = torch.sum(data ** 2).to(
@@ -107,8 +141,8 @@ def bell_from_scipy(A, dtype=torch.float32, device="cpu", *,
         return torch.from_numpy(a).to(device)
 
     return BlockEll(torch.from_numpy(blocks).to(dtype).to(device), up(brows),
-                    up((uniq % ncb).astype(np.int32)), up(bptr),
-                    sq.to(device), (int(p), int(q)), fill)
+                    up((uniq % ncb).astype(np.int32)), up(bptr), up(segs),
+                    up(rb_segs), sq.to(device), (int(p), int(q)), fill)
 
 
 def _acc_dtype(B: torch.Tensor) -> torch.dtype:
@@ -153,15 +187,23 @@ def bell_spmm(A: BlockEll, B: torch.Tensor) -> torch.Tensor:
             f"with q = {q}, 1 <= k <= {MAX_K}; got {B.dtype} "
             f"{tuple(B.shape)} (use use_pallas=False)")
     B = B.contiguous()
+    kpn = -(-k // 8) * 8
+    n_seg = A.segs.numel() - 1
     out = torch.empty((p, k), dtype=torch.float32, device=B.device)
+    bt = torch.empty((kpn, -(-q // BLOCK) * BLOCK), dtype=A.blocks.dtype,
+                     device=B.device)
+    part = torch.empty((n_seg, BLOCK, kpn), dtype=torch.float32,
+                       device=B.device)
     fn = _build.function("bell_spmm", "pycmf_bell_spmm",
                          [ctypes.c_int] + [ctypes.c_void_p] * 4
-                         + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2)
+                         + [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+                         + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4)
     with torch.cuda.device(B.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(int(A.blocks.dtype == torch.bfloat16), A.blocks.data_ptr(),
-                A.bcols.data_ptr(), A.bptr.data_ptr(), B.data_ptr(), p, q, k,
-                out.data_ptr(), stream)
+                A.bcols.data_ptr(), A.brows.data_ptr(), A.segs.data_ptr(),
+                n_seg, A.rb_segs.data_ptr(), B.data_ptr(), p, q, k,
+                bt.data_ptr(), part.data_ptr(), out.data_ptr(), stream)
     _build.check(_build.load("bell_spmm"), rc, "bell_spmm")
     LAUNCHES.n += 1
     return out

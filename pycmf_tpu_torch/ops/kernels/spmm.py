@@ -17,6 +17,7 @@ exactly), factors float32, k <= 32; the output is float32.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -27,7 +28,16 @@ from .policy import launch_count, on_card
 
 SPMM_LAUNCHES = launch_count("csr_spmm")
 ROWDOTS_LAUNCHES = launch_count("csr_rowdots")
-MAX_K = 32  # one lane of a warp per output column
+MAX_K = 32  # at most 8 lanes of four columns per nonzero
+# Chunk sizes of the CSR walk (``chunk_size``): small enough that the 20NG
+# surrogate's 873651 nonzeros fill the card, large enough that a long row
+# leaves few partials.
+CHUNK_MIN, CHUNK_MAX = 16, 1024
+CHUNKS_PER_SM = 512
+# leading C arguments of both entry points: bf16, data, indices, indptr,
+# row_ids, nnz, p, k, ld, ch
+_ARGTYPES = ((ctypes.c_int,) + (ctypes.c_void_p,) * 4 + (ctypes.c_longlong,)
+             + (ctypes.c_int,) * 4)
 
 
 def csr_spmm_ref(A: CsrMatrix, B: torch.Tensor) -> torch.Tensor:
@@ -61,27 +71,66 @@ def _check_card_operands(A: CsrMatrix, factors) -> int:
     return k
 
 
+def chunk_size(nnz: int, n_sm: int) -> int:
+    """Nonzeros per chunk of the CSR walk (one lane group each): a power
+    of two in [CHUNK_MIN, CHUNK_MAX], about CHUNKS_PER_SM chunks per SM.
+    The kernel takes it as an argument, so this is the only copy of the
+    rule."""
+    want = nnz // (CHUNKS_PER_SM * n_sm)
+    ch = CHUNK_MIN
+    while ch < CHUNK_MAX and ch < want:
+        ch *= 2
+    return ch
+
+
+def workspace_floats(nnz: int, kw: int, ch: int) -> int:
+    """Floats of partials one call writes at most: two slots of kw floats
+    per chunk (the chunk's first row and its last row, where they cross a
+    chunk boundary)."""
+    return 2 * (-(-nnz // ch)) * kw
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def _padded(t: torch.Tensor, ld: int) -> torch.Tensor:
+    """t (n, k) float32, contiguous and 16-byte aligned, with its rows
+    padded with zeros to ld columns (the kernel reads 16-byte vectors)."""
+    t = t.contiguous()
+    if t.shape[1] == ld and t.data_ptr() % 16 == 0:
+        return t
+    out = t.new_zeros((t.shape[0], ld))
+    out[:, :t.shape[1]] = t
+    return out
+
+
 def _launch(symbol: str, A: CsrMatrix, factors, out: torch.Tensor,
             kw: int) -> None:
-    """Run ``symbol`` of the csr_spmm library over A with the factor
-    pointers ``factors`` into the zeroed ``out``."""
-    fn = _build.function(
-        "csr_spmm", symbol,
-        [ctypes.c_int] + [ctypes.c_void_p] * 4
-        + [ctypes.c_longlong, ctypes.c_int]
-        + [ctypes.c_void_p] * (len(factors) + 3))
-    floats = _build.function("csr_spmm", "pycmf_csr_workspace_floats",
-                             [ctypes.c_longlong, ctypes.c_int],
-                             ctypes.c_longlong)(A.nnz, kw)
-    with torch.cuda.device(out.device):
-        work = torch.empty(floats, dtype=torch.float32, device=out.device)
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(int(A.dtype == torch.bfloat16), A.data.data_ptr(),
-                A.indices.data_ptr(), A.indptr.data_ptr(),
-                A.row_ids.data_ptr(), A.nnz, factors[0].shape[1],
-                *[t.data_ptr() for t in factors], out.data_ptr(),
-                work.data_ptr(), stream)
-    _build.check(_build.load("csr_spmm"), rc, symbol)
+    """Run ``symbol`` of the csr_spmm library over A with the factors
+    ``factors`` ((rows, k) float32 each) into ``out``, which it writes
+    whole."""
+    k = factors[0].shape[1]
+    ld = -(-k // 4) * 4
+    fn = _build.function("csr_spmm", symbol,
+                         _ARGTYPES + (ctypes.c_void_p,) * (len(factors) + 2)
+                         + (ctypes.c_int, ctypes.c_void_p))
+    factors = [_padded(t, ld) for t in factors]
+    dev = out.device.index
+    nnz = A.nnz
+    ch = chunk_size(nnz, _sm_count(dev))
+    work = torch.empty(workspace_floats(nnz, kw, ch), dtype=torch.float32,
+                       device=out.device)
+    # the C side makes `dev` current for its launches (paths C and D are
+    # bound by the host's time per call)
+    rc = fn(int(A.dtype == torch.bfloat16), A.data.data_ptr(),
+            A.indices.data_ptr(), A.indptr.data_ptr(), A.row_ids.data_ptr(),
+            nnz, A.shape[0], k, ld, ch, *[t.data_ptr() for t in factors],
+            out.data_ptr(), work.data_ptr(), dev,
+            torch._C._cuda_getCurrentRawStream(dev))
+    if rc:
+        _build.check(_build.load("csr_spmm"), rc, symbol)
 
 
 def csr_spmm(A: CsrMatrix, B: torch.Tensor) -> torch.Tensor:
@@ -93,10 +142,11 @@ def csr_spmm(A: CsrMatrix, B: torch.Tensor) -> torch.Tensor:
         return csr_spmm_ref(A, B)
     p, q = A.shape
     k = _check_card_operands(A, ((B, q),))
-    out = torch.zeros((p, k), dtype=torch.float32, device=B.device)
-    if A.nnz:
-        _launch("pycmf_csr_spmm", A, (B.contiguous(),), out, k)
-        SPMM_LAUNCHES.n += 1
+    if not A.nnz:
+        return torch.zeros((p, k), dtype=torch.float32, device=B.device)
+    out = torch.empty((p, k), dtype=torch.float32, device=B.device)
+    _launch("pycmf_csr_spmm", A, (B,), out, k)
+    SPMM_LAUNCHES.n += 1
     return out
 
 
@@ -111,9 +161,9 @@ def csr_rowdots(A: CsrMatrix, M: torch.Tensor,
         return csr_rowdots_ref(A, M, B)
     p, q = A.shape
     _check_card_operands(A, ((M, p), (B, q)))
-    out = torch.zeros((p,), dtype=torch.float32, device=B.device)
-    if A.nnz:
-        _launch("pycmf_csr_rowdots", A, (M.contiguous(), B.contiguous()), out,
-                1)
-        ROWDOTS_LAUNCHES.n += 1
+    if not A.nnz:
+        return torch.zeros((p,), dtype=torch.float32, device=B.device)
+    out = torch.empty((p,), dtype=torch.float32, device=B.device)
+    _launch("pycmf_csr_rowdots", A, (M, B), out, 1)
+    ROWDOTS_LAUNCHES.n += 1
     return out

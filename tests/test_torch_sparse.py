@@ -58,6 +58,17 @@ def _scattered(rng, p=60, q=40, density=0.1):
                      data_rvs=lambda n: rng.rand(n) + 0.5)
 
 
+def _sparse_problem(rng, n=60, **kw):
+    """make_problem's sparse X (30% of entries) thinned to about half its
+    nonzeros, so its 128×128 block fills below BELL_MIN_FILL and the fit
+    runs the CSR path."""
+    X, Y = make_problem(rng, n=n, sparse=True, **kw)
+    X = sp.csr_matrix(X.multiply(rng.rand(*X.shape) < 0.5))
+    X.eliminate_zeros()
+    assert tbell.bell_from_scipy(X).fill < tbell.BELL_MIN_FILL
+    return X, Y
+
+
 def _jdt(tdt):
     return jnp.float64 if tdt == torch.float64 else jnp.float32
 
@@ -200,6 +211,80 @@ def test_bell_from_scipy_refusals(rng):
     Le = tbell.bell_from_scipy(E)
     assert Le.brows.tolist()[0] == 0 and Le.bcols.tolist()[0] == 0
     assert float(Le.blocks[0].abs().sum()) == 0.0
+
+
+@pytest.mark.parametrize("counts", [[1], [1, 1, 1], [4, 5, 1, 9],
+                                    [36, 13, 2, 8, 3]])
+def test_bell_segments_cover_each_block_once(counts):
+    """The kernel's work list: every stored block in exactly one segment,
+    in order; no segment crosses a row block; at most SEG_BLOCKS blocks a
+    segment, balanced within a row block; a row block of one block is one
+    segment."""
+    bptr = np.r_[0, np.cumsum(counts)]
+    segs, rb_segs = tbell.bell_segments(bptr)
+    assert segs.dtype == rb_segs.dtype == np.int32
+    assert segs[0] == 0 and segs[-1] == bptr[-1]
+    sizes = np.diff(segs)
+    assert np.all(sizes >= 1) and np.all(sizes <= tbell.SEG_BLOCKS)
+    assert rb_segs[0] == 0 and rb_segs[-1] == sizes.size
+    for r, n in enumerate(counts):
+        s0, s1 = rb_segs[r], rb_segs[r + 1]
+        assert segs[s0] == bptr[r] and segs[s1] == bptr[r + 1]
+        assert s1 - s0 == -(-n // tbell.SEG_BLOCKS)
+        assert np.ptp(sizes[s0:s1]) <= 1
+        if n == 1:
+            assert s1 - s0 == 1
+
+
+def test_bell_from_scipy_carries_its_segments(rng):
+    """Path F's shape in miniature: a row block with more blocks than one
+    segment and a row block holding only the zero filler block."""
+    A = block_sparse_matrix(384, 1280, 0.6, rng).tolil()
+    A[128:256, :] = 0
+    L = tbell.bell_from_scipy(sp.csr_matrix(A))
+    segs, rb_segs = tbell.bell_segments(L.bptr.numpy())
+    np.testing.assert_array_equal(L.segs.numpy(), segs)
+    np.testing.assert_array_equal(L.rb_segs.numpy(), rb_segs)
+    assert int(L.bptr[2] - L.bptr[1]) == 1          # the filler block
+    assert int(L.rb_segs[2] - L.rb_segs[1]) == 1
+    assert int(np.diff(L.rb_segs.numpy()).max()) > 1
+
+
+@pytest.mark.parametrize("nnz", [1, 15, 16, 17, 873651, 10 ** 6,
+                                 60_651_325])
+@pytest.mark.parametrize("n_sm", [1, 132])
+def test_csr_chunk_rule_and_workspace(nnz, n_sm):
+    """The chunk size handed to the CSR kernel is a power of two in range
+    and a multiple of its eight-nonzero step, and the workspace holds both
+    partial slots (2c, 2c + 1) of every chunk c the kernel walks."""
+    ch = tspmm.chunk_size(nnz, n_sm)
+    assert tspmm.CHUNK_MIN <= ch <= tspmm.CHUNK_MAX
+    assert ch & (ch - 1) == 0 and ch % 8 == 0
+    n_chunks = -(-nnz // ch)
+    assert (n_chunks - 1) * ch < nnz <= n_chunks * ch
+    for kw in (1, 20, 32):
+        floats = tspmm.workspace_floats(nnz, kw, ch)
+        assert floats == 2 * n_chunks * kw
+        assert (2 * (n_chunks - 1) + 1) * kw + kw <= floats
+    if n_sm == 132:
+        # the 20NG surrogate fills the card with small chunks, the RCV1
+        # shape takes the largest
+        assert tspmm.chunk_size(873651, n_sm) == 16
+        assert tspmm.chunk_size(60_651_325, n_sm) == tspmm.CHUNK_MAX
+
+
+@pytest.mark.parametrize("k", [1, 7, 20, 32])
+def test_csr_factor_padding(k):
+    """Factors reach the CSR kernel as rows of a multiple of 4 floats,
+    zero past k, 16-byte aligned; an aligned k = 4j factor goes as is."""
+    t = torch.arange(3 * (k + 1), dtype=torch.float32).view(3, k + 1)[:, 1:]
+    ld = -(-k // 4) * 4
+    got = tspmm._padded(t, ld)
+    assert got.shape == (3, ld) and got.is_contiguous()
+    assert got.data_ptr() % 16 == 0
+    assert torch.equal(got[:, :k], t) and not got[:, k:].any()
+    full = torch.ones(5, ld)
+    assert tspmm._padded(full, ld) is full
 
 
 @pytest.mark.parametrize("dtype", ["float64", "float32", "bfloat16"])
@@ -358,7 +443,7 @@ def _csr_problem(rng, kind, binary_y=False):
         if binary_y:
             Y = (Y > np.median(Y)).astype(float)
         return X, Y
-    return make_problem(rng, n=60, sparse=True, binary_y=binary_y)
+    return _sparse_problem(rng, binary_y=binary_y)
 
 
 @pytest.mark.parametrize("solver,y_link", [("mu", "linear"),
@@ -387,7 +472,7 @@ def test_csr_fit_matches_reference_f64(rng, solver, y_link, use_pallas, kind):
 @pytest.mark.parametrize("use_pallas", [True, False])
 def test_csr_y_fit_matches_reference_f64(rng, solver, use_pallas):
     """A linear-linked CSR Y beside a CSR X."""
-    X, Y = make_problem(rng, n=60, sparse=True)
+    X, Y = _sparse_problem(rng)
     Y = sp.csr_matrix(Y * (rng.rand(*Y.shape) > 0.5))
     kw = dict(n_components=4, solver=solver, random_state=0, max_iter=10,
               eval_every=5, tol=1e-7, dtype="float64", use_pallas=use_pallas,
@@ -400,7 +485,7 @@ def test_csr_y_fit_matches_reference_f64(rng, solver, use_pallas):
 
 @pytest.mark.parametrize("solver", ["mu", "newton"])
 def test_csr_transform_matches_reference_f64(rng, solver):
-    X, Y = make_problem(rng, n=60, sparse=True)
+    X, Y = _sparse_problem(rng)
     kw = dict(n_components=4, solver=solver, random_state=3, dtype="float64",
               max_iter=30 if solver == "mu" else 3, eval_every=5, tol=1e-7,
               sparse_mode="csr")
@@ -414,8 +499,7 @@ def test_csr_transform_matches_reference_f64(rng, solver):
 def test_bf16_csr_fit_objective_gap():
     """bf16-stored CSR X with f32 factors: both packages widen the stored
     values exactly and sum f32 products in different orders."""
-    X, Y = make_problem(np.random.RandomState(1), n=61, noise=0.5,
-                        sparse=True)
+    X, Y = _sparse_problem(np.random.RandomState(1), n=61, noise=0.5)
     kw = dict(n_components=4, solver="mu", random_state=0, max_iter=10,
               eval_every=10, data_dtype="bfloat16", sparse_mode="csr")
     j, t = _pair(**kw)
