@@ -11,7 +11,9 @@ Phases (any failure exits non-zero and prints no ok line):
     pycmf_tpu_torch/csrc, each nvcc started at once;
  3. each kernel against its plain PyTorch version on the same inputs, with
     CUDA-event times and the card's lower bound for the same work:
-    K1, K2 at X 30000 x 11314 (bf16 and f32), k = 20; K3, K4 at the main
+    K1, K2 at X 30000 x 11314 (bf16 and f32), k = 20, and at the edges
+    (n in {1, 17, 30000}, m in {1, 15, 4097, 11314}, k in {1, 7, 20, 32},
+    n_valid < n, trials 0 and 8, non_negative both ways); K3, K4 at the main
     path's Z shape (Y^T 20 x 11314, bf16) and at the dense sigmoid-X shape
     (30000 x 11314, bf16 and f32); K5 at 11314 and 30000 systems of 20 x 20,
     beside torch.linalg.solve; csr_spmm (X V and X^T U) and csr_rowdots on
@@ -31,7 +33,7 @@ Phases (any failure exits non-zero and prints no ok line):
     path C, MU on the surrogate kept CSR (sparse_mode='csr': csr_spmm,
     fused_mu_update, csr_rowdots); path D, bench's Newton cell on the CSR
     X; path F, MU on the block-structured X through BlockEll (bell_spmm);
-    then Newton linear and paths A to D and F under torch.profiler
+    then MU, Newton linear and paths A to D and F under torch.profiler
     (device time by kernel, idle share, launches per iteration, and on
     path F bell_spmm's share);
  8. kernel path against plain path on the card for each fit, and the final
@@ -42,8 +44,8 @@ Each fit is run with the launch counts set to 0 just before it and read
 just after. Standard output ends with the fits' record, the card's name and
 power limit, the kernels' JSON record and, last, {"ok": true, ...}.
 Details go to standard error. ``python3 -m pycmf_tpu_torch.chip_ab``
-times phase 3's K3, K4 and K5, or its sparse kernels, in several
-checkouts.
+times phase 3's K3, K4 and K5, its sparse kernels, or K1 and K2, in
+several checkouts.
 """
 from __future__ import annotations
 
@@ -139,6 +141,22 @@ def rel_fro(a, b) -> float:
     return float((a - b).double().norm() / b.double().norm())
 
 
+def nan_filled(fn):
+    """fn() with every floating-point torch.empty (outputs and scratch
+    of the wrappers) filled with NaN: a row the kernel leaves unwritten
+    shows."""
+    import torch
+
+    real = torch.empty
+
+    def nan_empty(*args, **kw):
+        t = real(*args, **kw)
+        return t.fill_(math.nan) if t.is_floating_point() else t
+
+    with mock.patch.object(torch, "empty", nan_empty):
+        return fn()
+
+
 def selected_slot(phis):
     """Per row: the first slot t >= 1 with phi[t] < phi[0], else 0."""
     import torch
@@ -148,29 +166,139 @@ def selected_slot(phis):
     return torch.where(acc.any(dim=1), first, torch.zeros_like(first))
 
 
+def upass_inputs(torch, rng, n, m, k, dev, signed=False):
+    """K1/K2 operands from one seed: MU's X, U, V and Newton's X = U_t V_nᵀ
+    + noise with zero-mean V_n, a well-conditioned least-squares problem
+    per row. (With all-positive V the step U − d cancels to a few percent
+    of |U|, and both versions' f32 rounding, amplified by cond(VᵀV),
+    differs by more than 1e-4 of the result; that would measure the data,
+    not the kernel.)"""
+    import numpy as np
+
+    def f32(a):
+        return torch.from_numpy(a.astype(np.float32)).to(dev)
+
+    X = f32(rng.rand(n, m))
+    U = f32(rng.randn(n, k) if signed else np.abs(rng.randn(n, k)))
+    V = f32(np.abs(rng.randn(m, k)))
+    Vn = f32(rng.randn(m, k))
+    Xn = f32(np.abs(rng.randn(n, k))) @ Vn.T + (X - 0.5)
+    return X, U, V, Vn, Xn
+
+
+def upass_mats(torch, V, Vn, l2, pert):
+    k = V.shape[1]
+    eye = torch.eye(k, device=V.device)
+    BtB = Vn.T @ Vn
+    L = torch.linalg.cholesky(BtB + (l2 + pert) * eye)
+    return V.T @ V, BtB, torch.cholesky_solve(eye, L)
+
+
+def newton_rows_agree(got, want) -> float:
+    """Share of rows whose largest deviation is within 1e-4 of the row's
+    largest entry (a line-search tie may flip a few rows)."""
+    row_dev = (got - want).abs().amax(dim=1)
+    row_scale = want.abs().amax(dim=1).clamp_min(1e-30)
+    return float((row_dev <= 1e-4 * row_scale).float().mean())
+
+
+def own_products(torch, mu_fused, X, got):
+    """Relative Frobenius errors of numV and gramU against the plain
+    products Xᵀ round_X(U_new) and U_newᵀ U_new of the kernel's own U_new
+    (0 where both are 0)."""
+    unew = got[0]
+    want = (mu_fused._acc_matmul(X.mT, unew.to(X.dtype), torch.float32),
+            unew.mT @ unew)
+    return tuple(0.0 if not bool(w.any()) and not bool(g.any())
+                 else rel_fro(g, w) for g, w in zip(got[1:], want))
+
+
+def u_pass_edges(check, torch, mu_fused, newton_fused):
+    """K1, K2 at the edges: n in {1, 17, 30000}, m in {1, 15, 4097, 11314},
+    k in {1, 7, 20, 32}, bf16 and f32 X, MU with n_valid < n, Newton with
+    trials 0 and TRIALS, non_negative both ways; every output and the
+    workspace NaN-filled before the call, a second call bitwise equal, the
+    tolerances of the main shape. U_new is held against the plain
+    version; numV and gramU against the plain products of the kernel's own
+    U_new (at n = 1 a U_new entry a few ulps off that rounds to the other
+    bf16 neighbour moves numV by 4e-3 of its column: the rounding, not the
+    product)."""
+    import numpy as np
+
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(SEED + 4)
+    l1, l2, eps, pert = 1e-3, 2e-3, 1e-10, 0.2
+    n_cases = 0
+    for n in (1, 17, N):
+        for m in (1, 15, 4097, M):
+            if (n, m) == (N, M):
+                continue  # the main shape, held by u_pass_phase
+            for k in (1, 7, 20, 32):
+                X32, U, V, Vn, Xn32 = upass_inputs(torch, rng, n, m, k, dev)
+                Us = U * torch.where(torch.rand_like(U) < 0.5, -1.0, 1.0)
+                VtV, BtB, Hinv = upass_mats(torch, V, Vn, l2, pert)
+                nv = n - 5 if n > 5 else n  # rows past n_valid zeroed
+                for xname in ("bfloat16", "float32"):
+                    dt = getattr(torch, xname)
+                    X, Xn = X32.to(dt), Xn32.to(dt)
+                    row_sq = (Xn.float() ** 2).sum(dim=1)
+                    tag = f"n={n} m={m} k={k} {xname}"
+
+                    def mu():
+                        return mu_fused.fused_mu_u_pass(X, U, V, VtV, l1, l2,
+                                                        eps, n_valid=nv)
+                    got, again = nan_filled(mu), mu()
+                    torch.cuda.synchronize()
+                    want = mu_fused.fused_mu_u_pass_ref(X, U, V, VtV, l1, l2,
+                                                        eps, n_valid=nv)
+                    same = all(bool(torch.equal(a, b))
+                               for a, b in zip(got, again))
+                    ok = bool(torch.allclose(got[0], want[0], rtol=1e-4,
+                                             atol=1e-30))
+                    e1, e2 = own_products(torch, mu_fused, X, got)
+                    check(ok and e1 <= 1e-4 and e2 <= 1e-4 and same,
+                          f"K1[{tag}, n_valid={nv}] U_new rtol 1e-4 {ok}, "
+                          f"numV {e1:.3g}, gramU {e2:.3g} <= 1e-4, two "
+                          f"calls bitwise equal {same}")
+                    for trials in (0, TRIALS):
+                        for nonneg in (True, False):
+                            Uk = U if nonneg else Us
+                            args = (Xn, Uk, Vn, BtB, Hinv, row_sq, l1, l2)
+                            kw = dict(trials=trials, non_negative=nonneg)
+
+                            def nt():
+                                return newton_fused.fused_newton_linear_u_pass(
+                                    *args, **kw)
+                            got, again = nan_filled(nt), nt()
+                            torch.cuda.synchronize()
+                            want = newton_fused.fused_newton_linear_u_pass_ref(
+                                *args, **kw)
+                            same = all(bool(torch.equal(a, b))
+                                       for a, b in zip(got, again))
+                            agree = newton_rows_agree(got[0], want[0])
+                            e1 = own_products(torch, mu_fused, Xn, got)[0]
+                            check(agree >= 0.999 and e1 <= 1e-3 and same,
+                                  f"K2[{tag}, trials={trials}, non_negative="
+                                  f"{nonneg}] rows agreeing {agree:.6f} >= "
+                                  f"0.999, numV {e1:.3g} <= 1e-3, two calls "
+                                  f"bitwise equal {same}")
+                    n_cases += 5
+                del X32, U, V, Vn, Xn32
+    torch.cuda.empty_cache()
+    log(f"  K1/K2 edges: {n_cases} cases")
+
+
 def u_pass_phase(check, torch, mu_fused, newton_fused):
-    """Phase 3, K1 and K2: each against its plain version, bf16 and f32 X."""
+    """Phase 3, K1 and K2: each against its plain version at the main
+    shape, bf16 and f32 X (outputs NaN-filled, two calls bitwise equal),
+    then at the edges (u_pass_edges)."""
     import numpy as np
 
     rng = np.random.RandomState(SEED)
     dev = torch.device("cuda")
-    X32 = torch.from_numpy(rng.rand(N, M).astype(np.float32)).to(dev)
-    U = torch.from_numpy(np.abs(rng.randn(N, K)).astype(np.float32)).to(dev)
-    V = torch.from_numpy(np.abs(rng.randn(M, K)).astype(np.float32)).to(dev)
-    # Newton's inputs: X = U_true V_nᵀ + noise with zero-mean V_n, a
-    # well-conditioned least-squares problem per row. (With all-positive V
-    # the step U − d cancels to a few percent of |U|, and both versions'
-    # f32 rounding, amplified by cond(VᵀV), differs by more than 1e-4 of
-    # the result; that would measure the data, not the kernel.)
-    Ut = torch.from_numpy(np.abs(rng.randn(N, K)).astype(np.float32)).to(dev)
-    Vn = torch.from_numpy(rng.randn(M, K).astype(np.float32)).to(dev)
-    Xn32 = Ut @ Vn.T + (X32 - 0.5)
-    del Ut
+    X32, U, V, Vn, Xn32 = upass_inputs(torch, rng, N, M, K, dev)
     l1, l2, eps, pert = 1e-3, 2e-3, 1e-10, 0.2
-    VtV = V.T @ V
-    BtB = Vn.T @ Vn
-    L = torch.linalg.cholesky(BtB + (l2 + pert) * torch.eye(K, device=dev))
-    Hinv = torch.cholesky_solve(torch.eye(K, device=dev), L)
+    VtV, BtB, Hinv = upass_mats(torch, V, Vn, l2, pert)
     rec = {}
     for xname, cast in (("bfloat16", lambda a: a.to(torch.bfloat16)),
                         ("float32", lambda a: a)):
@@ -182,7 +310,9 @@ def u_pass_phase(check, torch, mu_fused, newton_fused):
         bms, bby = bound(nbytes, flops, BF16_FLOPS if xb == 2 else F32_FLOPS)
         log(f"phase 3: X {xname}")
         # K1
-        out = mu_fused.fused_mu_u_pass(X, U, V, VtV, l1, l2, eps)
+        def k1():
+            return mu_fused.fused_mu_u_pass(X, U, V, VtV, l1, l2, eps)
+        out, again = nan_filled(k1), k1()
         torch.cuda.synchronize()
         ref = mu_fused.fused_mu_u_pass_ref(X, U, V, VtV, l1, l2, eps)
         torch.cuda.synchronize()
@@ -192,42 +322,48 @@ def u_pass_phase(check, torch, mu_fused, newton_fused):
         for i, nm in ((1, "numV"), (2, "gramU")):
             e = rel_fro(out[i], ref[i])
             check(e <= 1e-4, f"K1[{xname}] {nm} rel Frobenius {e:.3g} <= 1e-4")
-        ms = time_ms(lambda: mu_fused.fused_mu_u_pass(X, U, V, VtV, l1, l2,
-                                                       eps))
+        check(all(bool(torch.equal(a, b)) for a, b in zip(out, again)),
+              f"K1[{xname}] outputs NaN-filled, two calls bitwise equal")
+        ms = time_ms(k1)
+        dms = device_ms(k1)
         pms = time_ms(lambda: mu_fused.fused_mu_u_pass_ref(X, U, V, VtV, l1,
                                                            l2, eps))
-        log(f"  K1[{xname}] kernel {ms:.4f} ms, plain {pms:.4f} ms, bound "
-            f"{bms:.4f} ms ({bby})")
+        log(f"  K1[{xname}] kernel {ms:.4f} ms (device alone {dms:.4f}), "
+            f"plain {pms:.4f} ms, bound {bms:.4f} ms ({bby})")
         rec[("fused_mu_u_pass", xname)] = dict(
-            max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms, bound_by=bby)
+            max_abs_err=err, ms=ms, device_ms=dms, plain_ms=pms,
+            bound_ms=bms, bound_by=bby)
         # K2
         kw = dict(trials=TRIALS, non_negative=True)
         args = (Xn, U, Vn, BtB, Hinv, row_sq, l1, l2)
-        out = newton_fused.fused_newton_linear_u_pass(*args, **kw)
+
+        def k2():
+            return newton_fused.fused_newton_linear_u_pass(*args, **kw)
+        out, again = nan_filled(k2), k2()
         torch.cuda.synchronize()
         ref = newton_fused.fused_newton_linear_u_pass_ref(*args, **kw)
         torch.cuda.synchronize()
         err = float((out[0] - ref[0]).abs().max())
-        # a row agrees when its largest deviation is within 1e-4 of its
-        # largest entry; a line-search tie may flip a few rows
-        row_dev = (out[0] - ref[0]).abs().amax(dim=1)
-        row_scale = ref[0].abs().amax(dim=1).clamp_min(1e-30)
-        agree = float((row_dev <= 1e-4 * row_scale).float().mean())
+        agree = newton_rows_agree(out[0], ref[0])
         check(agree >= 0.999, f"K2[{xname}] U_new rows agreeing to rtol "
               f"1e-4: {agree:.6f} >= 0.999 (max abs err {err:.3g})")
         e = rel_fro(out[1], ref[1])
         check(e <= 1e-3, f"K2[{xname}] numV rel Frobenius {e:.3g} <= 1e-3")
-        ms = time_ms(lambda: newton_fused.fused_newton_linear_u_pass(
-            *args, **kw))
+        check(all(bool(torch.equal(a, b)) for a, b in zip(out, again)),
+              f"K2[{xname}] outputs NaN-filled, two calls bitwise equal")
+        ms = time_ms(k2)
+        dms = device_ms(k2)
         pms = time_ms(lambda: newton_fused.fused_newton_linear_u_pass_ref(
             *args, **kw))
-        log(f"  K2[{xname}] kernel {ms:.4f} ms, plain {pms:.4f} ms, bound "
-            f"{bms:.4f} ms ({bby})")
+        log(f"  K2[{xname}] kernel {ms:.4f} ms (device alone {dms:.4f}), "
+            f"plain {pms:.4f} ms, bound {bms:.4f} ms ({bby})")
         rec[("fused_newton_linear_u_pass", xname)] = dict(
-            max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms, bound_by=bby)
-        del X, Xn, row_sq, out, ref, args
+            max_abs_err=err, ms=ms, device_ms=dms, plain_ms=pms,
+            bound_ms=bms, bound_by=bby)
+        del X, Xn, row_sq, out, again, ref, args
     del X32, Xn32
     torch.cuda.empty_cache()
+    u_pass_edges(check, torch, mu_fused, newton_fused)
     return rec
 
 
@@ -443,19 +579,6 @@ def sparse_phase(check, torch):
             log(f"  BSR product not available: {str(e)[:200]}")
             return None
         return lambda: torch.sparse.mm(T, Bp)
-
-    def nan_filled(fn):
-        """fn() with every floating-point torch.empty (outputs and scratch
-        of the wrappers) filled with NaN: a row the kernel leaves unwritten
-        shows."""
-        real = torch.empty
-
-        def nan_empty(*args, **kw):
-            t = real(*args, **kw)
-            return t.fill_(math.nan) if t.is_floating_point() else t
-
-        with mock.patch.object(torch, "empty", nan_empty):
-            return fn()
 
     # edge cases at small shapes: every k the kernels instantiate apart;
     # leading, interior and trailing runs of empty rows (the CSR walk zeroes
@@ -917,6 +1040,9 @@ def main() -> int:
                    "fused_mu_update": 3 * e.n_iter_},
         "path F fit", lambda U, V, Z: numpy_cmf.loss(Xf64, Y64, U, V, Z))
     log("phase 7b: where the time goes (torch.profiler)")
+    mu["profile"] = profile_phase(
+        torch, lambda: CMF(**dict(mu_kw, max_iter=10, tol=0.0), **common),
+        X, Y, "MU")
     nt["profile"] = profile_phase(
         torch, lambda: CMF(**dict(nl_kw, max_iter=10, tol=0.0), **common),
         X, Y, "Newton linear")

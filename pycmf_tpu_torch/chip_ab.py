@@ -1,8 +1,9 @@
 """A/B timing of kernels across checkouts.
 
-    python3 -m pycmf_tpu_torch.chip_ab [--phase sigmoid|sparse] TREE_A TREE_B ...
+    python3 -m pycmf_tpu_torch.chip_ab [--phase PHASE] TREE_A TREE_B ...
 
-Each TREE is a checkout of this repository (for example the parent commit
+PHASE is sigmoid (the default), sparse, upass or paths. Each TREE is a
+checkout of this repository (for example the parent commit
 unpacked with ``git archive`` into a git-ignored directory). Every tree's
 libraries of the phase are built first, in parallel, with the ptxas
 registers and spills of their k = 20 kernels; then the phase of
@@ -13,7 +14,18 @@ own process from that tree, printing one JSON object per run:
   against their plain versions;
 - ``sparse``: ``chip_smoke.sparse_phase``, csr_spmm, csr_rowdots,
   bell_spmm and fused_mu_update on the 20NG, RCV1 and block-structured
-  shapes, and the BlockEll/CSR crossover fill.
+  shapes, and the BlockEll/CSR crossover fill;
+- ``upass``: K1 ``fused_mu_u_pass`` and K2 ``fused_newton_linear_u_pass``
+  at the main shape (X 30000 x 11314, k = 20, bf16 and f32), each held
+  against its plain version and timed with the host's wrapper (``ms``), on
+  the device alone (``device_ms``) and per kernel of the call
+  (``kernels_us``, torch.profiler), beside one read of X by ``torch.sum``
+  (``x_read``: the rate a plain stream reaches);
+- ``paths``: chip_smoke phase 8's kernel-vs-plain fits of MU, Newton linear
+  and path A (20 iterations), with the loss at every iteration of both.
+  The code of ``upass`` and ``paths`` is this file's (``UPASS``),
+  run against each tree's wrappers, so a tree whose chip_smoke predates the
+  redesign is timed the same way.
 
 Compare versions within one invocation only: two invocations may land on
 cards with other power limits. Exits non-zero if a build or a check fails.
@@ -35,7 +47,116 @@ PHASES = {
     "sparse": (("csr_spmm", "bell_spmm"),
                ("Li20E", "Li3E", "csr_", "bell_combine", "bell_bt"),
                "cs.sparse_phase(check, torch)"),
+    # the CUDA-core kernels are instantiated at KP = 20, the tensor-core
+    # ones at NT = 3 tiles of 8 columns
+    "upass": (("mu_fused", "newton_fused"),
+              ("Li20E", "Li3E", "u_pass_reduce", "reduce_parts"),
+              "upass_ab(check, torch, cs)"),
+    "paths": (("mu_fused", "newton_fused", "sigmoid_newton", "batched_solve",
+               "mu_update"), ("Li20E", "Li3E"),
+              "paths_ab(check, torch, cs)"),
 }
+UPASS = """
+def upass_ab(check, torch, cs):
+    import numpy as np
+    from pycmf_tpu_torch.ops.kernels import mu_fused, newton_fused
+    rng = np.random.RandomState(cs.SEED)
+    dev = torch.device("cuda")
+    N, M, K = cs.N, cs.M, cs.K
+
+    def f32(a):
+        return torch.from_numpy(a.astype(np.float32)).to(dev)
+
+    X32, U, V = f32(rng.rand(N, M)), f32(abs(rng.randn(N, K))), \\
+        f32(abs(rng.randn(M, K)))
+    Vn = f32(rng.randn(M, K))
+    Xn32 = f32(abs(rng.randn(N, K))) @ Vn.T + (X32 - 0.5)
+    eye = torch.eye(K, device=dev)
+    VtV, BtB = V.T @ V, Vn.T @ Vn
+    Hinv = torch.cholesky_solve(eye, torch.linalg.cholesky(BtB + 0.202 * eye))
+    rec = {}
+    for xname in ("bfloat16", "float32"):
+        dt = getattr(torch, xname)
+        X, Xn = X32.to(dt), Xn32.to(dt)
+        rs = (Xn.float() ** 2).sum(dim=1)
+        # yardstick: one read of X by PyTorch's own reduction
+        rec[f"x_read[{xname}]"] = dict(device_ms=cs.device_ms(
+            lambda: X.sum(dtype=torch.float32)))
+        k1 = (mu_fused.fused_mu_u_pass, mu_fused.fused_mu_u_pass_ref,
+              (X, U, V, VtV, 1e-3, 2e-3, 1e-10), {})
+        k2 = (newton_fused.fused_newton_linear_u_pass,
+              newton_fused.fused_newton_linear_u_pass_ref,
+              (Xn, U, Vn, BtB, Hinv, rs, 1e-3, 2e-3),
+              dict(trials=cs.TRIALS, non_negative=True))
+        for name, (fn, ref, args, kw) in (("fused_mu_u_pass", k1),
+                                          ("fused_newton_linear_u_pass", k2)):
+            got, want = fn(*args, **kw), ref(*args, **kw)
+            dev_row = (got[0] - want[0]).abs().amax(dim=1)
+            scale = want[0].abs().amax(dim=1).clamp_min(1e-30)
+            agree = float((dev_row <= 1e-4 * scale).float().mean())
+            e = cs.rel_fro(got[1], want[1])
+            check(agree >= 0.999 and e <= 1e-3, f"{name}[{xname}] rows "
+                  f"agreeing {agree:.6f}, numV rel Frobenius {e:.3g}")
+            run = lambda: fn(*args, **kw)  # noqa: E731
+            rec[f"{name}[{xname}]"] = dict(ms=cs.time_ms(run),
+                                           device_ms=cs.device_ms(run),
+                                           kernels_us=per_kernel(torch, run))
+    return rec
+
+
+def paths_ab(check, torch, cs):
+    # chip_smoke phase 8's kernel-vs-plain fits (MU, Newton linear, path A;
+    # 20 iterations on the 20NG surrogate) with the loss read at every
+    # iteration, so trees can be compared on where the two paths part
+    from unittest import mock
+    from contextlib import ExitStack
+    from pycmf_tpu_torch import CMF
+    from pycmf_tpu_torch.ops.kernels import (batched_solve, mu_fused,
+                                             mu_update, newton_fused,
+                                             sigmoid_newton)
+    from pycmf_tpu_torch.utils.datasets import synthetic_20ng
+    X, Y = synthetic_20ng(random_state=cs.SEED)
+    common = dict(n_components=cs.K, data_dtype="bfloat16",
+                  random_state=cs.SEED, device="cuda", max_iter=20, tol=0.0,
+                  eval_every=1)
+    plain = {"fused_mu_u_pass": mu_fused,
+             "fused_newton_linear_u_pass": newton_fused,
+             "sigmoid_gh_pass": sigmoid_newton,
+             "sigmoid_phi_pass": sigmoid_newton,
+             "batched_spd_solve": batched_solve,
+             "fused_mu_update": mu_update}
+    rec = {}
+    for label, kw in (("MU", dict(solver="mu")),
+                      ("Newton linear", dict(solver="newton")),
+                      ("path A", dict(solver="newton", y_link="sigmoid"))):
+        lk = CMF(**kw, **common).fit(X, Y).loss_history_
+        with ExitStack() as patches:
+            for fn, mod in plain.items():
+                patches.enter_context(mock.patch.object(
+                    mod, fn, getattr(mod, fn + "_ref")))
+            lp = CMF(**kw, **common).fit(X, Y).loss_history_
+        rec[label] = dict(kernel=lk, plain=lp,
+                          gap=[abs(a - b) / abs(b) for a, b in zip(lk, lp)])
+    return rec
+
+
+def per_kernel(torch, run, reps=5):
+    # mean device time in microseconds of each kernel of one call
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            run()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            key = e.name.split("(")[0].replace("void ", "")[:60]
+            out[key] = out.get(key, 0.0) + e.time_range.elapsed_us() / reps
+    return out
+"""
 BUILD = """
 from pycmf_tpu_torch.ops.kernels import _build
 _build.NAMES = {names!r}
@@ -52,6 +173,7 @@ for name in _build.NAMES:
 RUN = """
 import json, torch, chip_smoke as cs
 from pycmf_tpu_torch.ops.kernels import sigmoid_newton, batched_solve
+{upass}
 check = cs.Checks()
 rec = {call}
 print(json.dumps({{"kernels": {{k if isinstance(k, str) else
@@ -87,7 +209,8 @@ def main(argv) -> int:
     if not ok:
         return 1
     for tree in trees + trees[::-1]:
-        r = subprocess.run([sys.executable, "-c", RUN.format(call=call)],
+        r = subprocess.run([sys.executable, "-c",
+                            RUN.format(call=call, upass=UPASS)],
                            cwd=tree, capture_output=True, text=True)
         rec = (json.loads(r.stdout.strip().splitlines()[-1])
                if r.returncode == 0 else {"error": r.stderr[-3000:]})

@@ -72,50 +72,6 @@ struct BellSmem {
       BellTile<T>::kStages * kStage * (int)sizeof(T);
 };
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ uint32_t ld_pair(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// x = hi + lo + O(2^-22 |x|), hi and lo TF32 values.
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
-                                           uint32_t& lo) {
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(x));
-  const float r = x - __uint_as_float(hi);
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(r));
-}
-
 // One slab: this warp's 16 rows of A (As at its first row) times the
 // slab's B^T (KPN x 64), into NT m16n8 accumulators. Fragments follow
 // the PTX layouts: g = lane / 4 picks the row (A) or column (B), t =
@@ -156,9 +112,7 @@ __device__ __forceinline__ void slab_mma(const float* As, const float* Bs,
       uint32_t bh0, bl0, bh1, bl1;
       split_tf32(b[0], bh0, bl0);
       split_tf32(b[4], bh1, bl1);
-      mma_tf32(acc[j], lo, bh0, bh1);
-      mma_tf32(acc[j], hi, bl0, bl1);
-      mma_tf32(acc[j], hi, bh0, bh1);
+      mma_3xtf32(acc[j], hi, lo, bh0, bl0, bh1, bl1);
     }
   }
 }
@@ -257,11 +211,6 @@ __global__ void bell_combine_kernel(const int* __restrict__ rb_segs,
   float v = part[((size_t)s0 * kBlk + r) * kpn + n];
   for (int s = s0 + 1; s < s1; ++s) v += part[((size_t)s * kBlk + r) * kpn + n];
   out[idx] = v;
-}
-
-__device__ __forceinline__ void from_float(float x, float& y) { y = x; }
-__device__ __forceinline__ void from_float(float x, __nv_bfloat16& y) {
-  y = __float2bfloat16_rn(x);
 }
 
 // Bt (kpn, qpad) = B^T rounded to T, zero beyond k and q.

@@ -26,6 +26,73 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+__device__ __forceinline__ void from_float(float x, float& y) { y = x; }
+__device__ __forceinline__ void from_float(float x, __nv_bfloat16& y) {
+  y = __float2bfloat16_rn(x);
+}
+
+// 16-byte asynchronous copy global -> shared. With bytes = 0 nothing is
+// read and the 16 bytes of shared memory are zero-filled.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           int bytes = 16) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ uint32_t ld_pair(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// Tensor-core tiles (mma.sync, f32 accumulators). Fragment layouts follow
+// the PTX ISA: g = lane / 4 picks the row of A and the column of B, t =
+// lane % 4 the position along the inner dimension.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// x = hi + lo + O(2^-22 |x|), hi and lo TF32 values.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(x));
+  const float r = x - __uint_as_float(hi);
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(r));
+}
+
+// 3xTF32: lo(a) hi(b) + hi(a) lo(b) + hi(a) hi(b), in that order (about
+// 2^-21 relative error per product: the reference's HIGHEST for f32).
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4],
+                                           const uint32_t (&ahi)[4],
+                                           const uint32_t (&alo)[4],
+                                           uint32_t bh0, uint32_t bl0,
+                                           uint32_t bh1, uint32_t bl1) {
+  mma_tf32(d, alo, bh0, bh1);
+  mma_tf32(d, ahi, bl0, bl1);
+  mma_tf32(d, ahi, bh0, bh1);
+}
+
 inline int pad_k(int k) { return (k + 3) / 4 * 4; }
 
 // Call f(std::integral_constant<int, KP>) with KP = pad_k(k), 4 <= KP <= 32.
@@ -49,6 +116,20 @@ inline int sm_count() {
   }
   return count;
 }
+
+// Makes `device` current for the launches of one call and restores the
+// caller's device after (the Python wrapper then needs no device switch).
+struct DeviceGuard {
+  int prev = -1;
+  explicit DeviceGuard(int device) {
+    cudaGetDevice(&prev);
+    if (prev != device) cudaSetDevice(device);
+    else prev = -1;
+  }
+  ~DeviceGuard() {
+    if (prev >= 0) cudaSetDevice(prev);
+  }
+};
 
 }  // namespace pycmf
 

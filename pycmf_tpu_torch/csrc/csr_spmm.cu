@@ -244,19 +244,6 @@ int launch_csr(const T* data, const int* indices, const int* indptr,
   return (int)cudaGetLastError();
 }
 
-// Makes `device` current for the launches of one call and restores the
-// caller's device after (the Python wrapper then needs no device switch).
-struct DeviceGuard {
-  int prev = -1;
-  explicit DeviceGuard(int device) {
-    cudaGetDevice(&prev);
-    if (prev != device) cudaSetDevice(device);
-    else prev = -1;
-  }
-  ~DeviceGuard() {
-    if (prev >= 0) cudaSetDevice(prev);
-  }
-};
 
 // The walk's vector loads need 16-byte-aligned column and row-id arrays
 // and factors, and 8-byte-aligned values.

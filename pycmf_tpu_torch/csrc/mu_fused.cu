@@ -7,96 +7,68 @@
 //   gramU = U_new^T U_new               (k, k)
 //
 // Bound: bytes of X. At the main-path shape (X 30000 x 11314 bf16, k = 20)
-// X is 679 MB and everything else is under 2 MB, so the call is a stream
-// over X with about 2k flops per element.
+// X is 679 MB and everything else is under 2 MB: one pass over X is 0.20 ms
+// at 3.35 TB/s, against 0.03 ms of bf16 tensor-core work (4 n m k flops).
 //
 // Design: the TPU kernel walks a sequential grid and carries the (k, m)
 // X^T U_new accumulator in VMEM across it. Hopper blocks run in parallel and
-// in no order, so the call is split into phases (u_pass_common.cuh): X V in
-// column segments with V resident in shared memory, this file's row
-// epilogue (the MU ratio), then X^T U_new in row segments, with every
-// partial sum reduced in a fixed order. It reads X twice per call (1.36 GB
-// at the main-path shape); a single-pass version is later work. Rows
-// >= n_valid are zeroed, so a 0 * 0 / 0 = NaN padding row cannot reach the
-// factors or the partial sums.
+// in no order, so the call is split (u_pass_common.cuh): a row sweep that
+// computes X V on tensor cores for 64 rows per CTA and runs this file's
+// epilogue (the MU ratio) on them, then a column sweep that computes
+// X^T U_new on tensor cores in row segments, partial sums reduced in a fixed
+// order. Both sweeps stream X through cp.async rings, so X is read twice per
+// call (1.36 GB at the main-path shape); the two-pass bound is 0.41 ms.
+// Rows >= n_valid are zeroed, so a 0 * 0 / 0 = NaN padding row cannot reach
+// the factors or the partial sums.
 #include "u_pass_common.cuh"
 
 namespace pycmf {
 
-// One warp per row, one component per lane:
 // U_new = U * XV / (U VtV + l1 + l2 U + eps), zero for rows >= n_valid.
-template <typename XT, int KP>
-__global__ void __launch_bounds__(kThreads)
-    mu_epilogue_kernel(const float* __restrict__ xv_part, int n_seg,
-                       const float* __restrict__ U,
-                       const float* __restrict__ VtV, int n, int k,
-                       int n_valid, float l1, float l2, float eps,
-                       float* __restrict__ Unew, float* __restrict__ Ux,
-                       float* __restrict__ gram_part) {
-  __shared__ float Ss[KP * KP];
-  __shared__ float Us[kRowsPerBlock * KP];
-  const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
-  const int row0 = blockIdx.x * kRowsPerBlock + warp * kRowsPerWarp;
-  stage_kxk<KP>(VtV, k, Ss);
-  __syncthreads();
-  for (int t = 0; t < kRowsPerWarp; ++t) {
-    const int row = row0 + t;
-    const bool live = row < n && lane < k;
-    const float num = row < n ? gather_xv(xv_part, n_seg, n, KP, row, k) : 0.f;
-    const float u = live ? U[(size_t)row * k + lane] : 0.f;
-    const float den = lane_matvec<KP>(u, Ss, k);
-    float un = u * num / (den + l1 + l2 * u + eps);
-    if (!live || row >= n_valid) un = 0.f;
-    emit_row<XT, KP>(un, row, n, k, Unew, Ux,
-                     Us + (warp * kRowsPerWarp + t) * KP);
+struct MuEpi {
+  const float* U;
+  const float* VtV;
+  int k, n_valid;
+  float l1, l2, eps;
+  static constexpr int kMats = 1;
+
+  template <int NP>
+  __device__ void stage(float* mats) const {
+    stage_kxk<NP>(VtV, k, mats);
   }
-  __syncthreads();
-  gram_partial<KP>(Us, k, gram_part + (size_t)blockIdx.x * k * k);
-}
 
-template <typename XT, int KP>
-void launch_mu(const void* X, const float* U, const void* Vx, const float* VtV,
-               int n, int m, int k, int n_valid, float l1, float l2, float eps,
-               float* Unew, float* numV, float* gramU, float* work,
-               cudaStream_t st) {
-  const XT* x = static_cast<const XT*>(X);
-  const Workspace w = carve(work, n, m, k);
-  launch_xv<XT, KP>(x, static_cast<const XT*>(Vx), n, m, k, w, st);
-  mu_epilogue_kernel<XT, KP><<<row_blocks(n), kThreads, 0, st>>>(
-      w.xv_part, col_segments(m, k), U, VtV, n, k, n_valid, l1, l2, eps, Unew,
-      w.ux, w.gram_part);
-  launch_numv_and_gram<XT, KP>(x, n, m, k, numV, gramU, w, st);
-}
-
-template <typename XT>
-void dispatch_mu(const void* X, const float* U, const void* Vx,
-                 const float* VtV, int n, int m, int k, int n_valid, float l1,
-                 float l2, float eps, float* Unew, float* numV, float* gramU,
-                 float* work, cudaStream_t st) {
-  with_kp(k, [&](auto kp) {
-    launch_mu<XT, decltype(kp)::value>(X, U, Vx, VtV, n, m, k, n_valid, l1, l2, eps, Unew, numV, gramU, work, st);
-  });
-}
+  template <int NP>
+  __device__ float row(int row, float xv, const float* mats) const {
+    const int lane = threadIdx.x & 31;
+    const float u = lane < k ? U[(size_t)row * k + lane] : 0.f;
+    const float den = lane_matvec<NP>(u, mats, k);
+    const float un = u * xv / (den + l1 + l2 * u + eps);
+    return row < n_valid ? un : 0.f;
+  }
+};
 
 }  // namespace pycmf
 
-// x_is_bf16: 0 for f32 X and Vx, 1 for bf16. U, VtV and every output are
-// f32, row-major and contiguous; work holds pycmf_workspace_floats(n, m, k)
-// floats. Returns the CUDA error of the launches (0 on success).
-extern "C" int pycmf_mu_fused_u_pass(int x_is_bf16, const void* X,
-                                     const float* U, const void* Vx,
-                                     const float* VtV, int n, int m, int k,
-                                     int n_valid, float l1, float l2,
-                                     float eps, float* Unew, float* numV,
-                                     float* gramU, float* work, void* stream) {
+// x_is_bf16: 0 for f32 X, 1 for bf16. U, V, VtV and every output are f32,
+// row-major and contiguous. vt, uxt, gram_part, numv_part and the four ints
+// after them are the wrapper's plan (ops/kernels/mu_fused.py: u_pass_plan);
+// the launches go to `stream` on `device`.
+// Returns the CUDA error of the launches (0 on success).
+extern "C" int pycmf_mu_fused_u_pass(
+    int x_is_bf16, const void* X, const float* U, const float* V,
+    const float* VtV, int n, int m, int k, int n_valid, float l1, float l2,
+    float eps, float* Unew, float* numV, float* gramU, void* vt, void* uxt,
+    float* gram_part, float* numv_part, int ld_vt, int ld_ux, int seg_rows,
+    int n_seg, int device, void* stream) {
   using namespace pycmf;
-  if (n < 1 || m < 1 || k < 1 || k > kMaxK) return (int)cudaErrorInvalidValue;
+  const UPassWork w{vt, uxt, gram_part, numv_part, ld_vt, ld_ux, seg_rows,
+                    n_seg};
+  if (!plan_ok(n, m, k, w)) return (int)cudaErrorInvalidValue;
+  DeviceGuard guard(device);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const MuEpi epi{U, VtV, k, n_valid, l1, l2, eps};
   if (x_is_bf16)
-    dispatch_mu<__nv_bfloat16>(X, U, Vx, VtV, n, m, k, n_valid, l1, l2, eps,
-                               Unew, numV, gramU, work, st);
-  else
-    dispatch_mu<float>(X, U, Vx, VtV, n, m, k, n_valid, l1, l2, eps, Unew,
-                       numV, gramU, work, st);
-  return (int)cudaGetLastError();
+    return launch_u_pass<__nv_bfloat16>(X, V, n, m, k, epi, Unew, numV, gramU,
+                                        w, st);
+  return launch_u_pass<float>(X, V, n, m, k, epi, Unew, numV, gramU, w, st);
 }

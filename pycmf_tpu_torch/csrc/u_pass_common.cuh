@@ -1,197 +1,128 @@
-// Shared pieces of the two fused U-pass kernels (mu_fused.cu, newton_fused.cu).
+// Shared skeleton of the two fused U-pass kernels (mu_fused.cu,
+// newton_fused.cu), on Hopper's tensor cores.
 //
-// Both stream the data matrix X (n, m) row-major, stored as f32 or bf16,
-// against thin f32 factors (k <= 32, zero-padded to KP, the next multiple
-// of 4: float4 access, and no more wasted products than that).
-// A call runs four kernels on the caller's stream:
+// Both stream the data matrix X (n, m) row-major, stored as bf16 or f32,
+// against thin f32 factors (k <= 32). A call runs four kernels on the
+// caller's stream:
 //
-//   1. xv_part_kernel      DB = X Vx in column segments. A block keeps one
-//                          segment of V (as f32) in shared memory for its
-//                          whole life and walks row quads: each warp owns
-//                          4 rows, its lanes stride over the segment's
-//                          columns (coalesced reads of X), and a butterfly
-//                          reduction finishes each row. The segment's
-//                          partial X V goes to scratch.
-//   2. the caller's epilogue, one warp per row, one factor component per
-//                          lane: sums the segments' partials in order, forms
-//                          U_new, writes it and a copy rounded to X's dtype
-//                          (Ux, zero-padded to KP), and a per-block partial
-//                          of U_new^T U_new.
-//   3. xtu_part_kernel     X^T Ux in row segments: each thread owns one column
-//                          and reads the Ux rows as broadcast loads.
-//   4. reduce_parts_kernel sums the row segments' partials (numV) and the
-//                          epilogue blocks' Gram partials (gramU).
+//   1. vt_kernel        Vt (NP x ld_vt) = V^T rounded to X's dtype, zero past
+//                       k and m (NP = k rounded up to 8: the n8 tiles).
+//   2. xv_rows_kernel   one 128-thread CTA per 64 rows sweeps all m columns:
+//                       X V on mma.sync tiles (bf16 m16n8k16; f32 3xTF32
+//                       m16n8k8), X and Vt tiles of 256 bytes per row fed
+//                       by a 3-stage ring of 16-byte cp.async copies. With
+//                       the rows' X V in its registers the CTA runs the
+//                       caller's row epilogue
+//                       (the MU ratio, or the Newton step and line search):
+//                       one warp per row, one factor component per lane. It
+//                       writes U_new, UxT (U_new^T rounded to X's dtype, zero
+//                       for rows past n and for components past k) and the
+//                       CTA's partial of U_new^T U_new.
+//   3. xtu_cols_kernel  one 256-thread CTA per 128 columns and row segment:
+//                       X^T Ux on mma.sync tiles (A = the X tile read
+//                       transposed from shared memory, B = UxT), rows fed by
+//                       a 4-stage cp.async ring; numV directly when there is
+//                       one row segment, else per-segment partials.
+//   4. u_pass_reduce_kernel sums the row segments' partials (numV) and the
+//                       row sweep's Gram partials (gramU), each in order.
 //
-// X is read twice per call (kernels 1 and 3). There are no float atomics:
-// every sum has a fixed order that does not depend on the launch geometry,
-// so results repeat bit for bit. bf16 values are widened to f32 before each
-// product; the product of two bf16 values is exact in f32, so this is bf16
-// inputs with f32 accumulation, as in the reference.
+// Each stage's mma chain starts from zero and is added to the running f32
+// sum in ordinary rounded adds (promote): a chain over all of m or n lost
+// ~1e-4 of a positive sum to the tensor cores' truncated alignment.
+//
+// X is read twice per call (kernels 2 and 3). There are no float atomics:
+// every sum has a fixed order that does not depend on timing, so results
+// repeat bit for bit. Products of two bf16 values are exact in f32, so bf16
+// X is the reference's arithmetic (V and U_new rounded to bf16, f32
+// accumulation) in another summation order; f32 X keeps HIGHEST-class
+// products through the 3xTF32 split.
+//
+// Alignment: rows of X start on any element boundary (m = 11314 bf16 rows
+// are 22628 bytes, 4-byte aligned; odd m leaves them 2-byte aligned), and
+// cp.async moves aligned 16-byte chunks. Each tile row is copied as the
+// aligned chunks covering it, so row r's first column lands at element
+// offset o_r < 16 / sizeof(XT) of its shared-memory row; the fragment loads
+// add o_r. Chunks that hold no element of the tile are zero-filled without
+// a read; the row sweep zeroes the elements past m in the last column tile
+// (the next row's values, or bytes past the end of X). Each thread's chunk
+// addresses are computed once per sweep and stepped per stage.
+//
+// Bound and what holds it back: bytes of X, twice (0.41 ms at the main-path
+// shape on an H100). Both sweeps run at about 2 TB/s, two thirds of the
+// rate at which a plain reduction streams X; per-row bulk copies (the TMA
+// engine) in place of cp.async, and 256-column slices in the column sweep,
+// were measured and did not close that gap (PERF.md). One pass over X is
+// later work.
+//
+// The plan (row segments, leading dimensions, workspace layout) is computed
+// by the Python wrapper (ops/kernels/mu_fused.py: u_pass_plan) and passed
+// in; the entry points check it.
 #pragma once
 
 #include "common.cuh"
 
 namespace pycmf {
 
-constexpr int kThreads = 256;                  // 8 warps
-constexpr int kWarps = kThreads / 32;
-constexpr int kRowsPerWarp = 4;
-constexpr int kRowsPerBlock = kWarps * kRowsPerWarp;   // epilogue block
-constexpr int kSmemBudget = 110 * 1024;        // V segment: 2 blocks per SM
-constexpr int kColsPerBlock = kThreads;        // columns phase: 1 column/thread
-constexpr int kRowUnroll = 8;                  // columns phase: rows per step
-constexpr int kMaxSegments = 64;
+// Row sweep (kernel 2): rows per CTA, warps, stages.
+constexpr int kARows = 64;
+constexpr int kAWarps = kARows / 16;
+constexpr int kAThreads = kAWarps * 32;
+constexpr int kAStages = 3;
+// Column sweep (kernel 3): columns per CTA, warps, stages.
+constexpr int kBCols = 128;
+constexpr int kBWarps = kBCols / 16;
+constexpr int kBThreads = kBWarps * 32;
+constexpr int kBStages = 4;
+constexpr int kBLd = kBCols + 8;  // X tile row stride: bank spread, 16 B rows
 
-// Round an f32 value to X's storage type and back (the reference casts
-// U_new to X's dtype before U_new^T X).
-template <typename XT> __device__ __forceinline__ float round_to(float x);
-template <> __device__ __forceinline__ float round_to<float>(float x) {
-  return x;
-}
-template <> __device__ __forceinline__ float round_to<__nv_bfloat16>(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-// Row stride of the shared V segment, in floats: a multiple of 4 with an
-// odd number of float4s, so eight lanes' float4 reads hit distinct banks.
-__host__ __device__ constexpr int v_ld(int KP) {
-  return 4 * ((KP / 4 + 1) % 2 ? KP / 4 + 1 : KP / 4 + 2);
-}
-
-// Columns of X per V segment: as many as fit the shared-memory budget,
-// a multiple of 32.
-inline int seg_cols(int KP) { return kSmemBudget / (v_ld(KP) * 4) / 32 * 32; }
-
-inline int col_segments(int m, int k) { return ceil_div(m, seg_cols(pad_k(k))); }
-
-inline int row_blocks(int n) { return ceil_div(n, kRowsPerBlock); }
-
-// Row segments of the columns phase: one per 512 rows, at most 64 (45 column
-// blocks x 59 segments at the main-path shape; 64 segments measured 3-4%
-// faster than 16 on the H100), one segment for small n.
-inline int row_segments(int n) {
-  int s = ceil_div(n, 512);
-  return s < 1 ? 1 : (s > kMaxSegments ? kMaxSegments : s);
-}
-
-// Scratch layout, in floats: X V partials (col_segments x n x KP), Ux
-// (n x KP), Gram partials (row_blocks x k x k), X^T Ux partials
-// (row_segments x m x k).
-struct Workspace {
-  float* xv_part;
-  float* ux;
-  float* gram_part;
-  float* seg_part;
+// Per X dtype: elements per 16-byte chunk; the row sweep's stage depth (256
+// bytes of each row: long enough runs for DRAM) and row stride; the column
+// sweep's stage height and the row stride of its UxT tile.
+template <typename XT>
+struct UTile {
+  static constexpr int kEl = 16 / (int)sizeof(XT);
+  static constexpr int kDepth = 256 / (int)sizeof(XT);  // 128 bf16, 64 f32
+  static constexpr int kLd = kDepth + kEl;
+  static constexpr int kRows = 128 / (int)sizeof(XT);   // 64 bf16, 32 f32
+  static constexpr int kLdU = kRows + kEl;
 };
 
-inline long long workspace_floats(int n, int m, int k) {
-  const long long KP = pad_k(k);
-  return (long long)col_segments(m, k) * n * KP + (long long)n * KP +
-         (long long)row_blocks(n) * k * k + (long long)row_segments(n) * m * k;
-}
-
-inline Workspace carve(float* work, int n, int m, int k) {
-  const size_t KP = pad_k(k);
-  Workspace w;
-  w.xv_part = work;
-  w.ux = w.xv_part + (size_t)col_segments(m, k) * n * KP;
-  w.gram_part = w.ux + (size_t)n * KP;
-  w.seg_part = w.gram_part + (size_t)row_blocks(n) * k * k;
-  return w;
-}
-
-// X[row0 + t, c0 + jb + h * 32 + lane] for the warp's rows (0 past the
-// segment or past n).
+// Element offset of X[row, 0] within its 16-byte chunk.
 template <typename XT>
-__device__ __forceinline__ void load_xv_step(const XT* const (&xr)[kRowsPerWarp],
-                                             int jb, int len, int row0, int n,
-                                             float (&xs)[2][kRowsPerWarp]) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int jj = jb + h * 32 + lane;
-#pragma unroll
-    for (int t = 0; t < kRowsPerWarp; ++t)
-      xs[h][t] = (jj < len && row0 + t < n) ? to_float(xr[t][jj]) : 0.f;
+__device__ __forceinline__ int row_offset(const XT* X, int row, int m) {
+  return (int)((reinterpret_cast<uintptr_t>(X + (size_t)row * m) & 15) /
+               sizeof(XT));
+}
+
+// 32 bits holding p[0] (low half) and p[1]; kPairs: p is 4-byte aligned.
+template <bool kPairs>
+__device__ __forceinline__ uint32_t ld_bf16x2(const __nv_bfloat16* p) {
+  if constexpr (kPairs) {
+    return ld_pair(p);
+  } else {
+    const unsigned short* h = reinterpret_cast<const unsigned short*>(p);
+    return (uint32_t)h[0] | ((uint32_t)h[1] << 16);
   }
 }
 
-// 1. part[seg, row, c] = sum_{j in segment seg} X[row, j] * Vx[j, c].
-template <typename XT, int KP>
-__global__ void __launch_bounds__(kThreads, KP <= 24 ? 2 : 1)
-    xv_part_kernel(const XT* __restrict__ X, const XT* __restrict__ Vx, int n,
-                   int m, int k, int seg_len, float* __restrict__ part) {
-  extern __shared__ __align__(16) float Vs[];  // seg_len x v_ld(KP)
-  constexpr int LD = v_ld(KP);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x / 32;
-  const int seg = blockIdx.y, c0 = seg * seg_len;
-  const int len = min(seg_len, m - c0);
-  for (int e = threadIdx.x; e < seg_len * KP; e += kThreads) {
-    const int jj = e / KP, c = e % KP;
-    Vs[jj * LD + c] =
-        (jj < len && c < k) ? to_float(Vx[(size_t)(c0 + jj) * k + c]) : 0.f;
-  }
-  __syncthreads();
-
-  const int n_quads = (n + kRowsPerWarp - 1) / kRowsPerWarp;
-  for (int q = blockIdx.x * kWarps + warp; q < n_quads;
-       q += gridDim.x * kWarps) {
-    const int row0 = q * kRowsPerWarp;
-    const XT* xr[kRowsPerWarp];  // rows past n alias row n - 1, never read
-#pragma unroll
-    for (int t = 0; t < kRowsPerWarp; ++t)
-      xr[t] = X + (size_t)min(row0 + t, n - 1) * m + c0;
-    float acc[kRowsPerWarp][KP];
-#pragma unroll
-    for (int t = 0; t < kRowsPerWarp; ++t)
-#pragma unroll
-      for (int c = 0; c < KP; ++c) acc[t][c] = 0.f;
-    // Columns in steps of 64 per warp: 8 loads in flight per lane.
-    for (int jb = 0; jb < len; jb += 64) {
-      float xs[2][kRowsPerWarp];
-      load_xv_step(xr, jb, len, row0, n, xs);
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int jj = jb + h * 32 + lane;
-        if (jj >= seg_len) break;  // zero-padded beyond len, unused beyond
-        const float4* v4 = reinterpret_cast<const float4*>(Vs + jj * LD);
-#pragma unroll
-        for (int p = 0; p < KP / 4; ++p) {
-          const float4 v = v4[p];
-#pragma unroll
-          for (int t = 0; t < kRowsPerWarp; ++t) {
-            acc[t][4 * p + 0] += xs[h][t] * v.x;
-            acc[t][4 * p + 1] += xs[h][t] * v.y;
-            acc[t][4 * p + 2] += xs[h][t] * v.z;
-            acc[t][4 * p + 3] += xs[h][t] * v.w;
-          }
-        }
-      }
-    }
-#pragma unroll
-    for (int t = 0; t < kRowsPerWarp; ++t) {
-      float mine = 0.f;
-#pragma unroll
-      for (int c = 0; c < KP; ++c) {
-        const float s = warp_sum(acc[t][c]);
-        if (c == lane) mine = s;
-      }
-      if (row0 + t < n && lane < KP)
-        part[((size_t)seg * n + row0 + t) * KP + lane] = mine;
-    }
-  }
+// Two bf16 values from two shared-memory locations, a in the low half.
+__device__ __forceinline__ uint32_t pack_bf16(const __nv_bfloat16* a,
+                                              const __nv_bfloat16* b) {
+  return (uint32_t)*reinterpret_cast<const unsigned short*>(a) |
+         ((uint32_t)*reinterpret_cast<const unsigned short*>(b) << 16);
 }
 
-// Row `row`'s X V, component `lane` (0 for lanes >= k): the segments'
-// partials summed in order.
-__device__ __forceinline__ float gather_xv(const float* __restrict__ part,
-                                           int n_seg, int n, int KP, int row,
-                                           int k) {
-  const int lane = threadIdx.x & 31;
-  float s = 0.f;
-  if (lane < k)
-    for (int g = 0; g < n_seg; ++g) s += part[((size_t)g * n + row) * KP + lane];
-  return s;
+// acc += part, in f32 adds rounded to nearest. The tensor cores align the
+// products to the accumulator's exponent and drop the bits below it, so a
+// chain of thousands of mma steps into one register loses ~1e-4 of a
+// positive sum; each stage's short chain starts from zero instead.
+template <int NT>
+__device__ __forceinline__ void promote(float (&acc)[NT][4],
+                                        const float (&part)[NT][4]) {
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[j][i] += part[j][i];
 }
 
 // y[lane] = sum_l x[l] * M[l, lane] with x spread one component per lane
@@ -211,135 +142,519 @@ __device__ __forceinline__ float lane_matvec(float x, const float* M, int k) {
 template <int KP>
 __device__ __forceinline__ void stage_kxk(const float* __restrict__ A, int k,
                                           float* As) {
-  for (int e = threadIdx.x; e < KP * KP; e += kThreads) {
+  for (int e = threadIdx.x; e < KP * KP; e += blockDim.x) {
     const int a = e / KP, b = e % KP;
     As[e] = (a < k && b < k) ? A[a * k + b] : 0.f;
   }
 }
 
-// Epilogue output for one row: U_new to Unew (live lanes), its rounded
-// copy to Ux (all KP lanes, zeros past k and for rows past the valid
-// range), and the value to the block's staging tile for the Gram partial.
-template <typename XT, int KP>
-__device__ __forceinline__ void emit_row(float un, int row, int n, int k,
-                                         float* __restrict__ Unew,
-                                         float* __restrict__ Ux,
-                                         float* Us_row) {
-  const int lane = threadIdx.x & 31;
-  if (row < n && lane < k) Unew[(size_t)row * k + lane] = un;
-  if (row < n && lane < KP) Ux[(size_t)row * KP + lane] = round_to<XT>(un);
-  if (lane < KP) Us_row[lane] = un;
-}
-
-// Per-block partial of U_new^T U_new from the block's staged rows
-// (Us: kRowsPerBlock x KP, zero for rows past the valid range).
-template <int KP>
-__device__ __forceinline__ void gram_partial(const float* Us, int k,
-                                             float* __restrict__ out) {
-  for (int e = threadIdx.x; e < k * k; e += kThreads) {
-    const int a = e / k, b = e % k;
-    float s = 0.f;
-    for (int r = 0; r < kRowsPerBlock; ++r) s += Us[r * KP + a] * Us[r * KP + b];
-    out[e] = s;
-  }
-}
-
-// X[r0 + i, j] for i < kRowUnroll (0 past r_end or past m; jc is j
-// clamped into the matrix so no address is out of bounds).
+// 1. Vt[c, j] = round_X(V[j, c]) for c < k and j < m, else 0.
 template <typename XT>
-__device__ __forceinline__ void load_xtu_step(const XT* __restrict__ X, int r0,
-                                              int r_end, int m, int j, int jc,
-                                              float (&xs)[kRowUnroll]) {
-#pragma unroll
-  for (int i = 0; i < kRowUnroll; ++i)
-    xs[i] = (r0 + i < r_end && j < m) ? to_float(X[(size_t)(r0 + i) * m + jc])
-                                      : 0.f;
+__global__ void vt_kernel(const float* __restrict__ V, int m, int k, int np,
+                          int ld, XT* __restrict__ Vt) {
+  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= (long long)np * ld) return;
+  const int c = (int)(idx / ld), j = (int)(idx % ld);
+  from_float(c < k && j < m ? V[(size_t)j * k + c] : 0.f, Vt[idx]);
 }
 
-// 3. part[seg, j, c] = sum_{i in row segment seg} X[i, j] * Ux[i, c].
-template <typename XT, int KP>
-__global__ void __launch_bounds__(kThreads)
-    xtu_part_kernel(const XT* __restrict__ X, const float* __restrict__ Ux,
-                    int n, int m, int k, int rows_per_seg,
-                    float* __restrict__ part) {
-  const int j = blockIdx.x * kColsPerBlock + threadIdx.x;
-  const int r_begin = blockIdx.y * rows_per_seg;
-  const int r_end = min(n, r_begin + rows_per_seg);
-  const int jc = min(j, m - 1);
-  float acc[KP];
-#pragma unroll
-  for (int c = 0; c < KP; ++c) acc[c] = 0.f;
+// Shared memory of the row sweep: kAStages x (X tile kARows x kLd, Vt tile
+// NP x kLd), reused by the epilogue.
+template <typename XT, int NT>
+struct ASmem {
+  static constexpr int kLd = UTile<XT>::kLd;
+  static constexpr int kStage = (kARows + NT * 8) * kLd;  // elements
+  static constexpr int kBytes = kAStages * kStage * (int)sizeof(XT);
+};
 
-  for (int r0 = r_begin; r0 < r_end; r0 += kRowUnroll) {
-    float xs[kRowUnroll];
-    load_xtu_step(X, r0, r_end, m, j, jc, xs);
+// This warp's 16 rows (at their offsets) times the stage's Vt, into NT
+// m16n8 accumulators.
+template <bool kPairs, int NT>
+__device__ __forceinline__ void xv_stage_mma(const __nv_bfloat16* alo,
+                                             const __nv_bfloat16* ahi,
+                                             const __nv_bfloat16* Bs,
+                                             float (&acc)[NT][4], int g,
+                                             int t) {
+  constexpr int L = UTile<__nv_bfloat16>::kLd;
 #pragma unroll
-    for (int i = 0; i < kRowUnroll; ++i) {
-      const float4* u4 = reinterpret_cast<const float4*>(
-          Ux + (size_t)min(r0 + i, n - 1) * KP);
+  for (int kk = 0; kk < UTile<__nv_bfloat16>::kDepth; kk += 16) {
+    const uint32_t a[4] = {ld_bf16x2<kPairs>(alo + kk + 2 * t),
+                           ld_bf16x2<kPairs>(ahi + kk + 2 * t),
+                           ld_bf16x2<kPairs>(alo + kk + 8 + 2 * t),
+                           ld_bf16x2<kPairs>(ahi + kk + 8 + 2 * t)};
 #pragma unroll
-      for (int p = 0; p < KP / 4; ++p) {
-        const float4 u = __ldg(u4 + p);
-        acc[4 * p + 0] += xs[i] * u.x;
-        acc[4 * p + 1] += xs[i] * u.y;
-        acc[4 * p + 2] += xs[i] * u.z;
-        acc[4 * p + 3] += xs[i] * u.w;
-      }
+    for (int j = 0; j < NT; ++j) {
+      const __nv_bfloat16* b = Bs + (j * 8 + g) * L + kk + 2 * t;
+      mma_bf16(acc[j], a, ld_pair(b), ld_pair(b + 8));
     }
   }
-  if (j < m) {  // an empty trailing segment writes zeros
-    float* dst = part + ((size_t)blockIdx.y * m + j) * k;
+}
+
+template <bool kPairs, int NT>
+__device__ __forceinline__ void xv_stage_mma(const float* alo, const float* ahi,
+                                             const float* Bs,
+                                             float (&acc)[NT][4], int g,
+                                             int t) {
+  constexpr int L = UTile<float>::kLd;
 #pragma unroll
-    for (int c = 0; c < KP; ++c)
-      if (c < k) dst[c] = acc[c];
+  for (int kk = 0; kk < UTile<float>::kDepth; kk += 8) {
+    uint32_t hi[4], lo[4];
+    split_tf32(alo[kk + t], hi[0], lo[0]);
+    split_tf32(ahi[kk + t], hi[1], lo[1]);
+    split_tf32(alo[kk + t + 4], hi[2], lo[2]);
+    split_tf32(ahi[kk + t + 4], hi[3], lo[3]);
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const float* b = Bs + (j * 8 + g) * L + kk + t;
+      uint32_t bh0, bl0, bh1, bl1;
+      split_tf32(b[0], bh0, bl0);
+      split_tf32(b[4], bh1, bl1);
+      mma_3xtf32(acc[j], hi, lo, bh0, bl0, bh1, bl1);
+    }
   }
 }
 
-// 4. out[e] = sum_p part[p, e], summed in order p = 0, 1, ...
-__global__ void reduce_parts_kernel(const float* __restrict__ part, int n_parts,
-                                    long long len, float* __restrict__ out) {
-  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= len) return;
+// 2. The row sweep and the caller's epilogue (see the header comment).
+// Epi provides kMats, stage<NP>(mats) and row<NP>(row, xv, mats): one warp,
+// lane = component, returning U_new's component (masked by the caller).
+template <typename XT, int NT, bool kPairs, typename Epi>
+__global__ void __launch_bounds__(kAThreads, 3)
+    xv_rows_kernel(const XT* __restrict__ X, int n, int m, int k,
+                   const XT* __restrict__ Vt, int ld_vt, Epi epi,
+                   float* __restrict__ Unew, XT* __restrict__ UxT, int ld_ux,
+                   float* __restrict__ gram_part) {
+  using Sm = ASmem<XT, NT>;
+  using Ti = UTile<XT>;
+  constexpr int NP = NT * 8;
+  constexpr int L = Ti::kLd;
+  constexpr int TC = Ti::kDepth;
+  constexpr int kChunks = L / Ti::kEl;  // chunks per X tile row
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  XT* sm = reinterpret_cast<XT*>(smem_raw);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int row0 = blockIdx.x * kARows;
+  const int n_tiles = (m + TC - 1) / TC;
+
+  // Copy slots: this thread's chunks of the X tile, fixed for the sweep.
+  // xsrc: the chunk of tile 0 (tile i is i * 256 bytes on); xleft: bytes
+  // from it to the end of the row (a chunk starting at or past the end is
+  // zero-filled; rows past n have none).
+  constexpr int kXChunks = kARows * kChunks;
+  constexpr int kXSlots = (kXChunks + kAThreads - 1) / kAThreads;
+  constexpr int kStep = TC * (int)sizeof(XT);
+  const char* xsrc[kXSlots];
+  int xleft[kXSlots], xdst[kXSlots];
+#pragma unroll
+  for (int s = 0; s < kXSlots; ++s) {
+    const int c = tid + s * kAThreads, r = c / kChunks, q = c % kChunks;
+    xdst[s] = c < kXChunks ? r * L + q * Ti::kEl : -1;
+    xsrc[s] = reinterpret_cast<const char*>(X);
+    xleft[s] = 0;
+    if (c < kXChunks && row0 + r < n) {
+      const char* rp =
+          reinterpret_cast<const char*>(X + (size_t)(row0 + r) * m);
+      xsrc[s] = reinterpret_cast<const char*>(
+                    reinterpret_cast<uintptr_t>(rp) & ~uintptr_t(15)) +
+                16 * q;
+      xleft[s] = (int)(rp + (size_t)m * sizeof(XT) - xsrc[s]);
+    }
+  }
+  auto load = [&](int i) {
+    XT* Xs = sm + (i % kAStages) * Sm::kStage;
+    XT* Bs = Xs + kARows * L;
+#pragma unroll
+    for (int s = 0; s < kXSlots; ++s) {
+      if (xdst[s] < 0) continue;
+      const bool ok = xleft[s] > i * kStep;
+      cp_async16(Xs + xdst[s], ok ? xsrc[s] + (size_t)i * kStep : xsrc[s],
+                 ok ? 16 : 0);
+    }
+    constexpr int kVChunks = TC / Ti::kEl;  // per Vt row
+    for (int c = tid; c < NP * kVChunks; c += kAThreads) {
+      const int r = c / kVChunks, e = (c % kVChunks) * Ti::kEl;
+      cp_async16(Bs + r * L + e, Vt + (size_t)r * ld_vt + i * TC + e);
+    }
+  };
+
+  const int rlo = warp * 16 + g, rhi = rlo + 8;
+  const int olo = row0 + rlo < n ? row_offset(X, row0 + rlo, m) : 0;
+  const int ohi = row0 + rhi < n ? row_offset(X, row0 + rhi, m) : 0;
+  float acc[NT][4];
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
+#pragma unroll
+  for (int j = 0; j < kAStages - 1; ++j) {
+    if (j < n_tiles) load(j);
+    cp_async_commit();
+  }
+  for (int i = 0; i < n_tiles; ++i) {
+    cp_async_wait<kAStages - 2>();  // tile i has landed
+    __syncthreads();                // and every warp is done with tile i - 1
+    if (i + kAStages - 1 < n_tiles) load(i + kAStages - 1);
+    cp_async_commit();
+    XT* Xs = sm + (i % kAStages) * Sm::kStage;
+    const int valid = m - i * TC;
+    if (valid < TC) {  // last tile: zero the elements past m
+      for (int e = tid; e < kARows * TC; e += kAThreads) {
+        const int r = e / TC, j = e % TC;
+        if (j >= valid && row0 + r < n)
+          from_float(0.f, Xs[r * L + row_offset(X, row0 + r, m) + j]);
+      }
+      __syncthreads();
+    }
+    float part[NT][4] = {};
+    xv_stage_mma<kPairs, NT>(Xs + rlo * L + olo, Xs + rhi * L + ohi,
+                             Xs + kARows * L, part, g, t);
+    promote(acc, part);
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is free: reuse it for the epilogue
+
+  float* XVs = reinterpret_cast<float*>(smem_raw);  // kARows x NP
+  float* Us = XVs + kARows * NP;                     // kARows x NP
+  float* mats = Us + kARows * NP;                    // Epi::kMats x NP x NP
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = rlo + 8 * h, c = j * 8 + 2 * t;
+      XVs[r * NP + c] = acc[j][2 * h];
+      XVs[r * NP + c + 1] = acc[j][2 * h + 1];
+    }
+  epi.template stage<NP>(mats);
+  __syncthreads();
+  for (int r = warp * 16; r < warp * 16 + 16; ++r) {
+    const int row = row0 + r;
+    float un = 0.f;
+    if (row < n) {  // warp-uniform
+      un = epi.template row<NP>(row, lane < k ? XVs[r * NP + lane] : 0.f,
+                                 mats);
+      if (lane >= k) un = 0.f;
+      if (lane < k) Unew[(size_t)row * k + lane] = un;
+    }
+    if (lane < NP) {
+      XT ux;
+      from_float(un, ux);
+      UxT[(size_t)lane * ld_ux + row] = ux;
+      Us[r * NP + lane] = un;
+    }
+  }
+  __syncthreads();
+  for (int e = tid; e < k * k; e += kAThreads) {
+    const int a = e / k, b = e % k;
+    float s = 0.f;
+    for (int r = 0; r < kARows; ++r) s += Us[r * NP + a] * Us[r * NP + b];
+    gram_part[(size_t)blockIdx.x * k * k + e] = s;
+  }
+}
+
+// Shared memory of the column sweep: kBStages x (X tile kRows x kBLd, UxT
+// tile NP x kLdU).
+template <typename XT, int NT>
+struct BSmem {
+  static constexpr int kXt = UTile<XT>::kRows * kBLd;
+  static constexpr int kStage = kXt + NT * 8 * UTile<XT>::kLdU;  // elements
+  static constexpr int kBytes = kBStages * kStage * (int)sizeof(XT);
+};
+
+// One stage of X^T Ux for this warp's 16 columns: A[c][r] = X[r][c] read
+// transposed (pos[s][i]: shared offset of the lane's i-th row of k-step s),
+// B = the stage's UxT tile.
+template <int NT>
+__device__ __forceinline__ void xtu_stage_mma(const __nv_bfloat16* Xs,
+                                              const __nv_bfloat16* Us,
+                                              const int (&pos)[4][4], int c,
+                                              float (&acc)[NT][4], int g,
+                                              int t) {
+  constexpr int L = UTile<__nv_bfloat16>::kLdU;
+#pragma unroll
+  for (int s = 0; s < 4; ++s) {
+    const int kk = s * 16;
+    const uint32_t a[4] = {pack_bf16(Xs + pos[s][0] + c, Xs + pos[s][1] + c),
+                           pack_bf16(Xs + pos[s][0] + c + 8,
+                                     Xs + pos[s][1] + c + 8),
+                           pack_bf16(Xs + pos[s][2] + c, Xs + pos[s][3] + c),
+                           pack_bf16(Xs + pos[s][2] + c + 8,
+                                     Xs + pos[s][3] + c + 8)};
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const __nv_bfloat16* b = Us + (j * 8 + g) * L + kk + 2 * t;
+      mma_bf16(acc[j], a, ld_pair(b), ld_pair(b + 8));
+    }
+  }
+}
+
+template <int NT>
+__device__ __forceinline__ void xtu_stage_mma(const float* Xs, const float* Us,
+                                              const int (&pos)[4][4], int c,
+                                              float (&acc)[NT][4], int g,
+                                              int t) {
+  constexpr int L = UTile<float>::kLdU;
+#pragma unroll
+  for (int s = 0; s < 4; ++s) {
+    const int kk = s * 8;
+    uint32_t hi[4], lo[4];
+    split_tf32(Xs[pos[s][0] + c], hi[0], lo[0]);
+    split_tf32(Xs[pos[s][0] + c + 8], hi[1], lo[1]);
+    split_tf32(Xs[pos[s][1] + c], hi[2], lo[2]);
+    split_tf32(Xs[pos[s][1] + c + 8], hi[3], lo[3]);
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const float* b = Us + (j * 8 + g) * L + kk + t;
+      uint32_t bh0, bl0, bh1, bl1;
+      split_tf32(b[0], bh0, bl0);
+      split_tf32(b[4], bh1, bl1);
+      mma_3xtf32(acc[j], hi, lo, bh0, bl0, bh1, bl1);
+    }
+  }
+}
+
+// Rows of k-step s read by this lane, relative to the stage: bf16
+// (m16n8k16, A = X^T) rows 2t, 2t+1, 2t+8, 2t+9; f32 (m16n8k8) rows t, t+4.
+template <typename XT>
+__device__ __forceinline__ int xtu_row(int s, int i, int t) {
+  if constexpr (sizeof(XT) == 2) {
+    return s * 16 + 2 * t + (i & 1) + 8 * (i >> 1);
+  } else {
+    return s * 8 + t + 4 * i;
+  }
+}
+
+// 3. numV partial of row segment blockIdx.y for columns blockIdx.x * 128 ...
+template <typename XT, int NT>
+__global__ void __launch_bounds__(kBThreads, 2)
+    xtu_cols_kernel(const XT* __restrict__ X, int n, int m, int k,
+                    const XT* __restrict__ UxT, int ld_ux, int seg_rows,
+                    float* __restrict__ out) {
+  using Sm = BSmem<XT, NT>;
+  using Ti = UTile<XT>;
+  constexpr int RS = Ti::kRows;  // rows per stage
+  constexpr int LU = Ti::kLdU;
+  constexpr int kChunks = (kBCols + Ti::kEl) / Ti::kEl;  // per X tile row
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  XT* sm = reinterpret_cast<XT*>(smem_raw);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int c0 = blockIdx.x * kBCols;
+  const int r_begin = blockIdx.y * seg_rows;
+  const int seg_len = min(n, r_begin + seg_rows) - r_begin;
+  const int n_stages = (seg_len + RS - 1) / RS;
+
+  // Copy slots: this thread's chunks of the X tile, fixed for the sweep.
+  // Stages start on rows that are multiples of RS, and RS rows of X span a
+  // multiple of 16 bytes, so a row's offset (and with it which chunks hold
+  // columns c0 ... c0 + 127 below m) depends on its place in the stage
+  // only. xrow: the slot's row in the stage (past seg_len: zero fill; a
+  // chunk holding no column of the tile never reads); xsrc: its chunk in
+  // stage 0 (stage i is i * RS rows on).
+  constexpr int kXChunks = RS * kChunks;
+  constexpr int kXSlots = (kXChunks + kBThreads - 1) / kBThreads;
+  const size_t stage_bytes = (size_t)RS * m * sizeof(XT);
+  const char* xsrc[kXSlots];
+  int xrow[kXSlots], xdst[kXSlots];
+#pragma unroll
+  for (int s = 0; s < kXSlots; ++s) {
+    const int c = tid + s * kBThreads, r = c / kChunks, q = c % kChunks;
+    const long long rel =
+        (long long)(c0 - row_offset(X, r, m)) * (long long)sizeof(XT) + 16 * q;
+    const bool cols = rel < (long long)min(c0 + kBCols, m) * (long long)sizeof(XT);
+    xdst[s] = c < kXChunks ? r * kBLd + q * Ti::kEl : -1;
+    xrow[s] = cols ? r : seg_rows;
+    xsrc[s] = reinterpret_cast<const char*>(X + (size_t)r_begin * m) +
+              (size_t)r * m * sizeof(XT) + rel;
+  }
+
+  auto load = [&](int i) {
+    XT* Xs = sm + (i % kBStages) * Sm::kStage;
+    XT* Us = Xs + Sm::kXt;
+#pragma unroll
+    for (int s = 0; s < kXSlots; ++s) {
+      if (xdst[s] < 0) continue;
+      const bool ok = xrow[s] + i * RS < seg_len;
+      cp_async16(Xs + xdst[s], ok ? xsrc[s] + i * stage_bytes : xsrc[s],
+                 ok ? 16 : 0);
+    }
+    constexpr int kUChunks = RS / Ti::kEl;  // per UxT row
+    for (int c = tid; c < NT * 8 * kUChunks; c += kBThreads) {
+      const int r = c / kUChunks, e = (c % kUChunks) * Ti::kEl;
+      cp_async16(Us + r * LU + e,
+                 UxT + (size_t)r * ld_ux + r_begin + i * RS + e);
+    }
+  };
+
+  int pos[4][4];  // see xtu_stage_mma
+#pragma unroll
+  for (int s = 0; s < 4; ++s)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = xtu_row<XT>(s, i, t);
+      pos[s][i] = r * kBLd + row_offset(X, r, m);
+    }
+  float acc[NT][4];
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
+#pragma unroll
+  for (int j = 0; j < kBStages - 1; ++j) {
+    if (j < n_stages) load(j);
+    cp_async_commit();
+  }
+  for (int i = 0; i < n_stages; ++i) {
+    cp_async_wait<kBStages - 2>();
+    __syncthreads();
+    if (i + kBStages - 1 < n_stages) load(i + kBStages - 1);
+    cp_async_commit();
+    const XT* Xs = sm + (i % kBStages) * Sm::kStage;
+    float part[NT][4] = {};
+    xtu_stage_mma<NT>(Xs, Xs + Sm::kXt, pos, warp * 16 + g, part, g, t);
+    promote(acc, part);
+  }
+  cp_async_wait<0>();
+
+  float* dst = out + (size_t)blockIdx.y * m * k;
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int col = c0 + warp * 16 + g + 8 * h, c = j * 8 + 2 * t;
+      if (col < m) {
+        if (c < k) dst[(size_t)col * k + c] = acc[j][2 * h];
+        if (c + 1 < k) dst[(size_t)col * k + c + 1] = acc[j][2 * h + 1];
+      }
+    }
+}
+
+// 4. Blocks below num_blocks: numV[e] = sum of the n_seg partials (thread
+// per element); the rest: gramU[e] = sum of the n_gram partials (warp per
+// element, lanes striding the partials, then a butterfly). Fixed orders.
+__global__ void u_pass_reduce_kernel(const float* __restrict__ numv_part,
+                                     int n_seg, long long mk, int num_blocks,
+                                     float* __restrict__ numV,
+                                     const float* __restrict__ gram_part,
+                                     int n_gram, int kk,
+                                     float* __restrict__ gramU) {
+  if ((int)blockIdx.x < num_blocks) {
+    const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (e >= mk) return;
+    float s = 0.f;
+    for (int p = 0; p < n_seg; ++p) s += numv_part[(long long)p * mk + e];
+    numV[e] = s;
+    return;
+  }
+  const int lane = threadIdx.x & 31;
+  const int e = ((int)blockIdx.x - num_blocks) * (blockDim.x / 32) +
+                (int)threadIdx.x / 32;
+  if (e >= kk) return;  // warp-uniform
   float s = 0.f;
-  for (int p = 0; p < n_parts; ++p) s += part[(long long)p * len + e];
-  out[e] = s;
+  for (int p = lane; p < n_gram; p += 32) s += gram_part[(long long)p * kk + e];
+  s = warp_sum(s);
+  if (lane == 0) gramU[e] = s;
 }
 
-// Kernel 1: X V partials into w.xv_part.
-template <typename XT, int KP>
-void launch_xv(const XT* X, const XT* Vx, int n, int m, int k,
-               const Workspace& w, cudaStream_t st) {
-  const int seg_len = seg_cols(KP);
-  const int n_seg = ceil_div(m, seg_len);
-  const int smem = seg_len * v_ld(KP) * (int)sizeof(float);
-  cudaFuncSetAttribute(xv_part_kernel<XT, KP>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  // Two blocks per SM in all; each block walks its share of the row quads.
-  const int quads = ceil_div(n, kRowsPerWarp);
-  int gx = ceil_div(2 * sm_count(), n_seg);
-  gx = gx < 1 ? 1 : (gx > ceil_div(quads, kWarps) ? ceil_div(quads, kWarps) : gx);
-  xv_part_kernel<XT, KP><<<dim3(gx, n_seg), kThreads, smem, st>>>(
-      X, Vx, n, m, k, seg_len, w.xv_part);
+// Workspace and plan of one call (from the wrapper's u_pass_plan).
+struct UPassWork {
+  void* vt;          // NP x ld_vt, X's dtype
+  void* uxt;         // NP x ld_ux, X's dtype
+  float* gram_part;  // ceil(n / kARows) x k x k
+  float* numv_part;  // n_seg x m x k (unused when n_seg == 1)
+  int ld_vt, ld_ux, seg_rows, n_seg;
+};
+
+inline bool plan_ok(int n, int m, int k, const UPassWork& w) {
+  const int row_blocks = ceil_div(n, kARows);
+  return n >= 1 && m >= 1 && k >= 1 && k <= kMaxK &&
+         w.ld_vt >= ceil_div(m, 128) * 128 && w.ld_vt % 128 == 0 &&
+         w.ld_ux >= row_blocks * kARows && w.ld_ux % kARows == 0 &&
+         w.seg_rows >= 64 && w.seg_rows % 64 == 0 && w.n_seg >= 1 &&
+         (long long)(w.n_seg - 1) * w.seg_rows < n &&
+         (long long)w.n_seg * w.seg_rows >= n &&
+         w.n_seg <= 65535;
 }
 
-// Kernels 3 and 4, after the epilogue has written Ux and the Gram partials.
-template <typename XT, int KP>
-void launch_numv_and_gram(const XT* X, int n, int m, int k, float* numV,
-                          float* gramU, const Workspace& w, cudaStream_t st) {
-  const int nseg = row_segments(n);
-  const int rows_per_seg = ceil_div(n, nseg);
-  dim3 grid(ceil_div(m, kColsPerBlock), nseg);
-  xtu_part_kernel<XT, KP><<<grid, kThreads, 0, st>>>(X, w.ux, n, m, k,
-                                                     rows_per_seg, w.seg_part);
-  const long long mk = (long long)m * k, kk = (long long)k * k;
-  reduce_parts_kernel<<<(int)((mk + kThreads - 1) / kThreads), kThreads, 0,
-                        st>>>(w.seg_part, nseg, mk, numV);
-  reduce_parts_kernel<<<(int)((kk + kThreads - 1) / kThreads), kThreads, 0,
-                        st>>>(w.gram_part, row_blocks(n), kk, gramU);
+template <typename Kernel>
+int allow_smem(Kernel kernel, int bytes, bool& done) {
+  if (done) return 0;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e != cudaSuccess) return (int)e;
+  done = true;
+  return 0;
+}
+
+template <typename XT, int NT, bool kPairs, typename Epi>
+int launch_rows(const XT* X, int n, int m, int k, const Epi& epi,
+                float* Unew, const UPassWork& w, cudaStream_t st) {
+  constexpr int smem = ASmem<XT, NT>::kBytes;
+  static_assert(2 * kARows * NT * 8 * 4 + Epi::kMats * NT * NT * 64 * 4 <=
+                    smem,
+                "epilogue buffers exceed the ring");
+  static bool ready = false;
+  if (int e = allow_smem(xv_rows_kernel<XT, NT, kPairs, Epi>, smem, ready))
+    return e;
+  xv_rows_kernel<XT, NT, kPairs, Epi><<<ceil_div(n, kARows), kAThreads, smem,
+                                        st>>>(
+      X, n, m, k, static_cast<const XT*>(w.vt), w.ld_vt, epi, Unew,
+      static_cast<XT*>(w.uxt), w.ld_ux, w.gram_part);
+  return 0;
+}
+
+template <typename XT, int NT, typename Epi>
+int launch_u_pass_nt(const XT* X, const float* V, int n, int m, int k,
+                     const Epi& epi, float* Unew, float* numV, float* gramU,
+                     const UPassWork& w, cudaStream_t st) {
+  constexpr int NP = NT * 8;
+  const long long n_vt = (long long)NP * w.ld_vt;
+  vt_kernel<XT><<<(int)((n_vt + 255) / 256), 256, 0, st>>>(
+      V, m, k, NP, w.ld_vt, static_cast<XT*>(w.vt));
+  int e;
+  if constexpr (sizeof(XT) == 2) {
+    // bf16 pairs are 4-byte aligned when X is and rows hold an even count
+    e = (reinterpret_cast<uintptr_t>(X) % 4 == 0 && m % 2 == 0)
+            ? launch_rows<XT, NT, true>(X, n, m, k, epi, Unew, w, st)
+            : launch_rows<XT, NT, false>(X, n, m, k, epi, Unew, w, st);
+  } else {
+    e = launch_rows<XT, NT, true>(X, n, m, k, epi, Unew, w, st);
+  }
+  if (e) return e;
+  constexpr int smem_b = BSmem<XT, NT>::kBytes;
+  static bool ready_b = false;
+  if (int e2 = allow_smem(xtu_cols_kernel<XT, NT>, smem_b, ready_b)) return e2;
+  xtu_cols_kernel<XT, NT>
+      <<<dim3(ceil_div(m, kBCols), w.n_seg), kBThreads, smem_b, st>>>(
+          X, n, m, k, static_cast<const XT*>(w.uxt), w.ld_ux, w.seg_rows,
+          w.n_seg == 1 ? numV : w.numv_part);
+  const long long mk = (long long)m * k;
+  const int num_blocks = w.n_seg > 1 ? (int)((mk + 255) / 256) : 0;
+  u_pass_reduce_kernel<<<num_blocks + ceil_div(k * k, 8), 256, 0, st>>>(
+      w.numv_part, w.n_seg, mk, num_blocks, numV, w.gram_part,
+      ceil_div(n, kARows), k * k, gramU);
+  return (int)cudaGetLastError();
+}
+
+// The whole call for X's dtype XT, with NT = ceil(k / 8) n8 tiles.
+template <typename XT, typename Epi>
+int launch_u_pass(const void* X, const float* V, int n, int m, int k,
+                  const Epi& epi, float* Unew, float* numV, float* gramU,
+                  const UPassWork& w, cudaStream_t st) {
+  const XT* x = static_cast<const XT*>(X);
+  switch ((k + 7) / 8) {
+    case 1:
+      return launch_u_pass_nt<XT, 1>(x, V, n, m, k, epi, Unew, numV, gramU, w,
+                                     st);
+    case 2:
+      return launch_u_pass_nt<XT, 2>(x, V, n, m, k, epi, Unew, numV, gramU, w,
+                                     st);
+    case 3:
+      return launch_u_pass_nt<XT, 3>(x, V, n, m, k, epi, Unew, numV, gramU, w,
+                                     st);
+    default:
+      return launch_u_pass_nt<XT, 4>(x, V, n, m, k, epi, Unew, numV, gramU, w,
+                                     st);
+  }
 }
 
 }  // namespace pycmf
-
-extern "C" long long pycmf_workspace_floats(int n, int m, int k) {
-  return pycmf::workspace_floats(n, m, k);
-}

@@ -8,11 +8,16 @@ Counterpart of ``pycmf_tpu/ops/pallas/mu_fused.py``. One call computes
 
 with the reference's rounding points: V is cast to X's dtype before X V,
 U_new is cast to X's dtype before Xᵀ U_new, and all accumulation is in the
-factor dtype (float32 on the card). The kernel is ``csrc/mu_fused.cu``.
+factor dtype (float32 on the card). The kernel is ``csrc/mu_fused.cu`` on the
+skeleton ``csrc/u_pass_common.cuh``, shared with ``newton_fused``; this module
+holds the Python side of both: :func:`u_pass_plan` (tiles, row segments and
+workspace layout, computed here only) and :func:`launch_u_pass`.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -21,6 +26,103 @@ from . import _build
 from .policy import launch_count, on_card
 
 LAUNCHES = launch_count("fused_mu_u_pass")
+
+# Geometry of the CUDA U-pass (csrc/u_pass_common.cuh; the C side checks
+# the plan it is given against the same rules).
+A_ROWS = 64          # rows per CTA of the row sweep (X V and the epilogue)
+B_COLS = 128         # columns per CTA of the column sweep (X^T U_new)
+VT_ALIGN = 128       # Vᵀ's leading dimension: whole 256-byte bf16 stages
+B_CTAS_PER_SM = 2    # column-sweep CTAs resident per SM (its launch bounds)
+WORK_ALIGN = 64      # workspace parts start on 256-byte boundaries (floats)
+
+
+class UPassPlan(NamedTuple):
+    """One call's launch plan and workspace layout (all counts in elements;
+    ``offsets`` and ``floats`` in float32 words of one workspace)."""
+    nt: int              # n8 tiles of the factor dimension: ceil(k / 8)
+    ld_vt: int           # row stride of Vᵀ rounded to X's dtype (NP rows)
+    ld_ux: int           # row stride of U_newᵀ rounded to X's dtype
+    row_blocks: int      # row-sweep CTAs, each A_ROWS rows
+    col_slices: int      # column-sweep CTAs per row segment, B_COLS columns
+    seg_rows: int        # rows per row segment of the column sweep
+    n_seg: int           # row segments (numV partials when > 1)
+    offsets: Tuple[int, int, int, int]  # vt, uxt, Gram and numV partials
+    floats: int          # workspace size
+
+
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@functools.lru_cache(maxsize=64)
+def u_pass_plan(n: int, m: int, k: int, x_bytes: int, n_sm: int) -> UPassPlan:
+    """Plan of one U-pass call on a card with ``n_sm`` SMs. The column sweep
+    takes as many row segments as keep its CTAs within one resident wave
+    (B_CTAS_PER_SM per SM), at least one; segments are whole row-sweep
+    blocks, so each starts on a row where X's 16-byte alignment repeats."""
+    np_ = 8 * _ceil(k, 8)
+    row_blocks = _ceil(n, A_ROWS)
+    ld_ux = row_blocks * A_ROWS
+    ld_vt = _ceil(m, VT_ALIGN) * VT_ALIGN
+    col_slices = _ceil(m, B_COLS)
+    n_seg = min(max(1, B_CTAS_PER_SM * n_sm // col_slices), row_blocks)
+    seg_rows = _ceil(row_blocks, n_seg) * A_ROWS
+    n_seg = _ceil(n, seg_rows)
+    sizes = (_ceil(np_ * ld_vt * x_bytes, 4), _ceil(np_ * ld_ux * x_bytes, 4),
+             row_blocks * k * k, n_seg * m * k if n_seg > 1 else 0)
+    offsets, at = [], 0
+    for size in sizes:
+        offsets.append(at)
+        at += _ceil(size, WORK_ALIGN) * WORK_ALIGN
+    return UPassPlan(np_ // 8, ld_vt, ld_ux, row_blocks, col_slices,
+                     seg_rows, n_seg, tuple(offsets), max(at, WORK_ALIGN))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+# leading C arguments of both entry points: x_is_bf16, X, U, V; trailing:
+# Unew, numV, gramU, the four workspace parts, ld_vt, ld_ux, seg_rows,
+# n_seg, device, stream
+_HEAD = (ctypes.c_int,) + (ctypes.c_void_p,) * 3
+_TAIL = (ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 5 + (ctypes.c_void_p,)
+
+
+def entry(library: str, symbol: str, middle) -> object:
+    """The C entry point of a U-pass library, resolved once per process."""
+    return _build.function(library, symbol, _HEAD + tuple(middle) + _TAIL)
+
+
+def launch_u_pass(library: str, symbol: str, middle_types, X, U, V, middle):
+    """Run a U-pass entry point on X (n, m), U (n, k), V (m, k) with the
+    library's own arguments ``middle`` (tensors passed by pointer, held
+    until the launch is enqueued); returns (U_new, numV, gramU)."""
+    fn = entry(library, symbol, middle_types)
+    n, m = X.shape
+    k = U.shape[1]
+    dev = X.device.index
+    plan = u_pass_plan(n, m, k, X.element_size(), _sm_count(dev))
+    work = torch.empty(plan.floats, dtype=torch.float32, device=X.device)
+    # the three outputs in one allocation
+    out = torch.empty(n * k + m * k + k * k, dtype=torch.float32,
+                      device=X.device)
+    unew = out[:n * k].view(n, k)
+    numv = out[n * k:(n + m) * k].view(m, k)
+    gramu = out[(n + m) * k:].view(k, k)
+    base = work.data_ptr()
+    # the C side makes `dev` current for its launches
+    rc = fn(int(X.dtype == torch.bfloat16), X.data_ptr(), U.data_ptr(),
+            V.data_ptr(),
+            *(a.data_ptr() if isinstance(a, torch.Tensor) else a
+              for a in middle), unew.data_ptr(), numv.data_ptr(),
+            gramu.data_ptr(), *(base + 4 * o for o in plan.offsets),
+            plan.ld_vt, plan.ld_ux, plan.seg_rows, plan.n_seg, dev,
+            torch._C._cuda_getCurrentRawStream(dev))
+    if rc:
+        _build.check(_build.load(library), rc, symbol)
+    return unew, numv, gramu
 
 
 def check_data_dtype(X: torch.Tensor) -> None:
@@ -55,13 +157,6 @@ def check_card_operands(X: torch.Tensor, U, V, k_by_k) -> None:
                 f"got {t.dtype} {tuple(t.shape)}")
 
 
-def u_pass_workspace(name: str, n: int, m: int, k: int, device):
-    """Scratch of one U-pass call of library ``name`` (csrc/u_pass_common.cuh)."""
-    floats = _build.function(name, "pycmf_workspace_floats", [ctypes.c_int] * 3,
-                             ctypes.c_longlong)(n, m, k)
-    return torch.empty(floats, dtype=torch.float32, device=device)
-
-
 def _acc_matmul(a: torch.Tensor, b: torch.Tensor, acc) -> torch.Tensor:
     """a @ b with both operands (already in X's dtype) widened to acc."""
     return torch.matmul(a.to(acc), b.to(acc))
@@ -93,29 +188,12 @@ def fused_mu_u_pass(X, U, V, VtV, l1, l2, eps, n_valid=None):
     if not on_card(X, U, V, VtV):
         return fused_mu_u_pass_ref(X, U, V, VtV, l1, l2, eps, n_valid)
     check_card_operands(X, U, V, (VtV,))
-    n, m = X.shape
-    k = U.shape[1]
-    lib = _build.load("mu_fused")
-    fn = lib.pycmf_mu_fused_u_pass
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
-                   + [ctypes.c_float] * 3 + [ctypes.c_void_p] * 5)
-    fn.restype = ctypes.c_int
-    X = X.contiguous()
-    U = U.contiguous()
-    Vx = V.to(X.dtype).contiguous()
-    VtV = VtV.contiguous()
-    opts = dict(dtype=torch.float32, device=X.device)
-    unew = torch.empty((n, k), **opts)
-    numv = torch.empty((m, k), **opts)
-    gramu = torch.empty((k, k), **opts)
-    with torch.cuda.device(X.device):
-        work = u_pass_workspace("mu_fused", n, m, k, X.device)
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(int(X.dtype == torch.bfloat16), X.data_ptr(), U.data_ptr(),
-                Vx.data_ptr(), VtV.data_ptr(), n, m, k,
-                n if n_valid is None else int(n_valid),
-                float(l1), float(l2), float(eps), unew.data_ptr(),
-                numv.data_ptr(), gramu.data_ptr(), work.data_ptr(), stream)
-    _build.check(lib, rc, "fused_mu_u_pass")
+    out = launch_u_pass(
+        "mu_fused", "pycmf_mu_fused_u_pass",
+        (ctypes.c_void_p,) + (ctypes.c_int,) * 4 + (ctypes.c_float,) * 3,
+        X.contiguous(), U.contiguous(), V.contiguous(),
+        (VtV.contiguous(), X.shape[0], X.shape[1], U.shape[1],
+         X.shape[0] if n_valid is None else int(n_valid), float(l1),
+         float(l2), float(eps)))
     LAUNCHES.n += 1
-    return unew, numv, gramu
+    return out

@@ -23,7 +23,7 @@ import torch
 from ..linesearch import backtracking_select
 from . import _build
 from .mu_fused import (_acc_matmul, check_card_operands, check_data_dtype,
-                       u_pass_workspace)
+                       launch_u_pass)
 from .policy import launch_count, on_card
 
 LAUNCHES = launch_count("fused_newton_linear_u_pass")
@@ -71,34 +71,16 @@ def fused_newton_linear_u_pass(X, U, V, BtB, Hinv, row_sq, l1, l2, *,
             non_negative=non_negative)
     check_card_operands(X, U, V, (BtB, Hinv))
     n, m = X.shape
-    k = U.shape[1]
     if row_sq.shape != (n,):
         raise ValueError(f"row_sq must have shape ({n},), got "
                          f"{tuple(row_sq.shape)}")
-    lib = _build.load("newton_fused")
-    fn = lib.pycmf_newton_fused_u_pass
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
-                   + [ctypes.c_float] * 2 + [ctypes.c_int] * 2
-                   + [ctypes.c_void_p] * 5)
-    fn.restype = ctypes.c_int
-    X = X.contiguous()
-    U = U.contiguous()
-    Vx = V.to(X.dtype).contiguous()
-    BtB = BtB.contiguous()
-    Hinv = Hinv.contiguous()
-    rs = row_sq.to(torch.float32).contiguous()
-    opts = dict(dtype=torch.float32, device=X.device)
-    unew = torch.empty((n, k), **opts)
-    numv = torch.empty((m, k), **opts)
-    gramu = torch.empty((k, k), **opts)
-    with torch.cuda.device(X.device):
-        work = u_pass_workspace("newton_fused", n, m, k, X.device)
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(int(X.dtype == torch.bfloat16), X.data_ptr(), U.data_ptr(),
-                Vx.data_ptr(), BtB.data_ptr(), Hinv.data_ptr(), rs.data_ptr(),
-                n, m, k, float(l1), float(l2), int(trials),
-                int(bool(non_negative)), unew.data_ptr(), numv.data_ptr(),
-                gramu.data_ptr(), work.data_ptr(), stream)
-    _build.check(lib, rc, "fused_newton_linear_u_pass")
+    out = launch_u_pass(
+        "newton_fused", "pycmf_newton_fused_u_pass",
+        (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 3 + (ctypes.c_float,) * 2
+        + (ctypes.c_int,) * 2,
+        X.contiguous(), U.contiguous(), V.contiguous(),
+        (BtB.contiguous(), Hinv.contiguous(),
+         row_sq.to(torch.float32).contiguous(), n, m, U.shape[1], float(l1),
+         float(l2), int(trials), int(bool(non_negative))))
     LAUNCHES.n += 1
-    return unew, numv, gramu
+    return out

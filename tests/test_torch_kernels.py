@@ -181,6 +181,79 @@ def test_sources_name_the_kernels_they_replace():
         assert "Bound:" in head and "Design:" in head
 
 
+# n, m on and off the tiles (64 rows, 128 columns, 128-column stages), the
+# main-path shape, k at each count of n8 tiles
+_PLAN_SHAPES = [(1, 1, 1), (17, 15, 7), (64, 128, 8), (65, 129, 9),
+                (30000, 4097, 20), (30000, 11314, 20), (100000, 300, 32)]
+
+
+@pytest.mark.parametrize("n,m,k", _PLAN_SHAPES)
+@pytest.mark.parametrize("x_bytes", [2, 4])
+@pytest.mark.parametrize("n_sm", [1, 132])
+def test_u_pass_plan_covers_each_row_and_column_once(n, m, k, x_bytes, n_sm):
+    """The CUDA U-pass's plan (csrc/u_pass_common.cuh checks the same
+    rules in plan_ok): column slices and row segments cover the matrix
+    exactly once, segments are whole 64-row blocks (so a row's 16-byte
+    alignment repeats in each), the column sweep stays within one resident
+    wave, and the workspace parts hold what the kernels write."""
+    p = mu_fused.u_pass_plan(n, m, k, x_bytes, n_sm)
+    assert p.nt == -(-k // 8) and 8 * p.nt >= k
+    cols = [c for s in range(p.col_slices)
+            for c in range(s * mu_fused.B_COLS,
+                           min(m, (s + 1) * mu_fused.B_COLS))]
+    assert cols == list(range(m))
+    rows = [r for s in range(p.n_seg)
+            for r in range(s * p.seg_rows, min(n, (s + 1) * p.seg_rows))]
+    assert rows == list(range(n))
+    assert p.seg_rows % 64 == 0 and p.seg_rows % 16 == 0
+    assert all(s * p.seg_rows * m * x_bytes % 16 == 0 for s in range(p.n_seg))
+    assert p.n_seg * p.col_slices <= max(p.col_slices,
+                                         mu_fused.B_CTAS_PER_SM * n_sm)
+    assert p.row_blocks * mu_fused.A_ROWS >= n > (p.row_blocks - 1) * 64
+    assert p.ld_vt >= m and p.ld_vt % 128 == 0
+    assert p.ld_ux == p.row_blocks * 64 >= n
+    np8 = 8 * p.nt
+    sizes = (np8 * p.ld_vt * x_bytes / 4, np8 * p.ld_ux * x_bytes / 4,
+             p.row_blocks * k * k, p.n_seg * m * k if p.n_seg > 1 else 0)
+    ends = list(p.offsets[1:]) + [p.floats]
+    for off, size, end in zip(p.offsets, sizes, ends):
+        assert off % mu_fused.WORK_ALIGN == 0 and off + size <= end
+
+
+def test_u_pass_plan_at_the_main_shape():
+    """bf16 X 30000 x 11314, k = 20 on 132 SMs: 469 row blocks, 89 column
+    slices in 2 row segments (178 CTAs, one wave at 2 per SM)."""
+    p = mu_fused.u_pass_plan(30000, 11314, 20, 2, 132)
+    assert (p.nt, p.row_blocks, p.col_slices, p.n_seg, p.seg_rows) == (
+        3, 469, 89, 2, 15040)
+    assert p.floats * 4 < 5 * 2 ** 20  # under 5 MB of scratch per call
+
+
+@pytest.mark.parametrize("library,symbol,middle", [
+    ("mu_fused", "pycmf_mu_fused_u_pass", 8),
+    ("newton_fused", "pycmf_newton_fused_u_pass", 10)])
+def test_u_pass_entry_is_resolved_once(monkeypatch, library, symbol, middle):
+    """The wrappers' C entry points are looked up and typed once per
+    process (pointers as c_void_p), not on every call."""
+    import ctypes
+    import types
+
+    loads = []
+
+    def fake_load(name):
+        loads.append(name)
+        return types.SimpleNamespace(**{symbol: types.SimpleNamespace()})
+
+    monkeypatch.setattr(_build, "load", fake_load)
+    monkeypatch.setattr(_build, "_functions", {})
+    types_ = (ctypes.c_float,) * middle
+    a = mu_fused.entry(library, symbol, types_)
+    b = mu_fused.entry(library, symbol, types_)
+    assert a is b and loads == [library]
+    assert len(a.argtypes) == 4 + middle + 13
+    assert a.argtypes[1] is ctypes.c_void_p and a.restype is ctypes.c_int
+
+
 def _sig_operands(rng, n, m, k):
     """0/1 data (exact in bf16), O(1) logits."""
     X = (rng.rand(n, m) < 0.3).astype(np.float64)
