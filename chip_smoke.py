@@ -12,17 +12,21 @@ Phases (any failure exits non-zero and prints no ok line):
  3. each kernel against its plain PyTorch version on the same inputs, with
     CUDA-event times and the card's lower bound for the same work:
     K1, K2 at X 30000 x 11314 (bf16 and f32), k = 20, and at the edges
-    (n in {1, 17, 30000}, m in {1, 15, 4097, 11314}, k in {1, 7, 20, 32},
-    n_valid < n, trials 0 and 8, non_negative both ways); K3, K4 at the main
-    path's Z shape (Y^T 20 x 11314, bf16) and at the dense sigmoid-X shape
-    (30000 x 11314, bf16 and f32); K5 at 11314 and 30000 systems of 20 x 20,
+    (n in {1, 17, 30000}, m in {1, 15, 4097, 11314}, k in {1, 7, 20, 32,
+    33, 64, 100}, n_valid < n, trials 0 and 8, non_negative both ways); K3,
+    K4 at the main path's Z shape (Y^T 20 x 11314, bf16) and at the dense
+    sigmoid-X shapes (30000 x 11314, bf16 and f32, and its transpose), and
+    at the edges (n in {1, 17, 20, 30000}, q in {1, 15, 4097, 11314}, k in
+    {1, 7, 20, 32, 33, 64, 100}, bf16 and f32, trials 0 and 8,
+    non_negative both ways); K5 at 11314 and 30000 systems of 20 x 20,
     beside torch.linalg.solve; csr_spmm (X V and X^T U) and csr_rowdots on
     the 20NG surrogate's CSR and an RCV1-v2-shaped one (47236 x 804414,
     60M nonzeros), beside torch.sparse.mm; fused_mu_update at 11314 x 20 and
     804414 x 20; bell_spmm on a block-structured 30000 x 11314 X (51M
     nonzeros) and on its transpose, beside a BSR torch.sparse.mm, and the
     fill at which it and csr_spmm take equal device time; edge cases at small
-    shapes, each kernel's output and scratch NaN-filled before one call;
+    shapes (k up to 100), each kernel's output and scratch NaN-filled
+    before one call;
  4. MU fit of the 20NG-shaped surrogate, bf16 X, through the estimator:
     kernel launches, and the exact (float64) loss non-increasing along the
     fit, replayed as warm-started segments;
@@ -33,12 +37,17 @@ Phases (any failure exits non-zero and prints no ok line):
     path C, MU on the surrogate kept CSR (sparse_mode='csr': csr_spmm,
     fused_mu_update, csr_rowdots); path D, bench's Newton cell on the CSR
     X; path F, MU on the block-structured X through BlockEll (bell_spmm);
-    then MU, Newton linear and paths A to D and F under torch.profiler
+    the MU cell and path A at n_components=40 (k > 32, use_pallas left at
+    its default); then MU, Newton linear and paths A to D and F under
+    torch.profiler
     (device time by kernel, idle share, launches per iteration, and on
     path F bell_spmm's share);
- 8. kernel path against plain path on the card for each fit, and the final
-    losses of MU, path A, path C and path D against the NumPy baselines
-    (2% guard);
+ 8. kernel path against plain path on the card: after 20 iterations,
+    checked to 1e-3 on paths B, C, D and F and printed for MU, Newton
+    linear and path A, whose dense bf16 trajectories are chaotic; those,
+    and the k = 40 fits, step by step from shared factors (step_agreement:
+    factors 1e-4 (MU) or 1e-3 (Newton), exact loss 1e-6); and the final losses of MU, path A, path C and path D against
+    the NumPy baselines (2% guard);
  9. transform of 1000 new rows, dense (MU) and CSR (path C).
 Each fit is run with the launch counts set to 0 just before it and read
 just after. Standard output ends with the fits' record, the card's name and
@@ -68,6 +77,14 @@ TRIALS = 8
 HBM_BPS = 3.35e12
 F32_FLOPS = 67e12
 BF16_FLOPS = 989e12
+TF32_FLOPS = 495e12
+SMS = 132
+SFU_PER_SM_CLOCK = 16   # MUFU operations (ex2, rcp) per SM per clock
+# K4's line-search slots: a row whose float64 phi differences that decide
+# its slot are within TIE_REL of phi is a tie at float32 precision (phi
+# itself is rounded to 2^-24; its float32 sums over q carry several such
+# roundings); at least MIN_DECIDED of the rows must be decided
+TIE_REL, MIN_DECIDED = 2.0 ** -20, 0.9
 
 
 def log(msg: str) -> None:
@@ -161,9 +178,39 @@ def selected_slot(phis):
     """Per row: the first slot t >= 1 with phi[t] < phi[0], else 0."""
     import torch
 
+    if phis.shape[1] == 1:  # trials = 0: slot 0 only
+        return torch.zeros(phis.shape[0], dtype=torch.long,
+                           device=phis.device)
     acc = phis[:, 1:] < phis[:, :1]
     first = acc.to(torch.int8).argmax(dim=1) + 1
     return torch.where(acc.any(dim=1), first, torch.zeros_like(first))
+
+
+def slot_agreement(a, b, rows=None) -> float:
+    """Share of rows (of those `rows` marks, if given) whose selected
+    line-search slot agrees."""
+    same = selected_slot(a) == selected_slot(b)
+    if rows is not None:
+        same = same[rows]
+    return float(same.float().mean()) if same.numel() else 1.0
+
+
+def decided_rows(phi64, rel):
+    """Rows whose line-search slot float64 decides by more than `rel` of
+    their phi: every comparison phi[t] < phi[0] that selects the slot (t up
+    to the selected slot, or every t where none is selected) has a margin
+    above rel |phi[0]|. Elsewhere the choice is a tie at that precision."""
+    import torch
+
+    diff = (phi64[:, 1:] - phi64[:, :1]).abs()
+    if diff.shape[1] == 0:
+        return torch.ones(phi64.shape[0], dtype=torch.bool,
+                          device=phi64.device)
+    sel = selected_slot(phi64)
+    t = torch.arange(1, diff.shape[1] + 1, device=phi64.device)
+    deciding = (t[None, :] <= sel[:, None]) | (sel[:, None] == 0)
+    margin = torch.where(deciding, diff, torch.inf).amin(dim=1)
+    return margin > rel * phi64[:, 0].abs()
 
 
 def upass_inputs(torch, rng, n, m, k, dev, signed=False):
@@ -215,14 +262,23 @@ def own_products(torch, mu_fused, X, got):
 
 def u_pass_edges(check, torch, mu_fused, newton_fused):
     """K1, K2 at the edges: n in {1, 17, 30000}, m in {1, 15, 4097, 11314},
-    k in {1, 7, 20, 32}, bf16 and f32 X, MU with n_valid < n, Newton with
+    k in {1, 7, 20, 32, 33, 64, 100} (k > 32: the wide route), bf16 and f32
+    X, MU with n_valid < n, Newton with
     trials 0 and TRIALS, non_negative both ways; every output and the
     workspace NaN-filled before the call, a second call bitwise equal, the
     tolerances of the main shape. U_new is held against the plain
     version; numV and gramU against the plain products of the kernel's own
     U_new (at n = 1 a U_new entry a few ulps off that rounds to the other
     bf16 neighbour moves numV by 4e-3 of its column: the rounding, not the
-    product)."""
+    product). K2's rows: >= 0.999 agreeing with the plain version, or, where
+    they do not, agreeing with a float64 evaluation of the plain version on
+    no fewer rows than the plain float32 version does: with
+    m < k (m = 1, 15 at k = 33..100) each row's damped system has a rank-m
+    BᵀB, U_new cancels most of U, and f32 rounding in any summation order
+    moves more than 1e-4 of some rows; the second clause holds the kernel
+    to the plain version's own accuracy there (which 3xTF32's ~2^-22 per
+    product did not reach with f32 X: the wide route takes six TF32
+    products there, u_pass_common.cuh: xv_stage_mma_6x)."""
     import numpy as np
 
     dev = torch.device("cuda")
@@ -233,7 +289,7 @@ def u_pass_edges(check, torch, mu_fused, newton_fused):
         for m in (1, 15, 4097, M):
             if (n, m) == (N, M):
                 continue  # the main shape, held by u_pass_phase
-            for k in (1, 7, 20, 32):
+            for k in (1, 7, 20, 32, 33, 64, 100):
                 X32, U, V, Vn, Xn32 = upass_inputs(torch, rng, n, m, k, dev)
                 Us = U * torch.where(torch.rand_like(U) < 0.5, -1.0, 1.0)
                 VtV, BtB, Hinv = upass_mats(torch, V, Vn, l2, pert)
@@ -276,12 +332,26 @@ def u_pass_edges(check, torch, mu_fused, newton_fused):
                             same = all(bool(torch.equal(a, b))
                                        for a, b in zip(got, again))
                             agree = newton_rows_agree(got[0], want[0])
+                            extra, rows_ok = "", agree >= 0.999
+                            if not rows_ok:
+                                # float64, keeping the contract's
+                                # rounding point: V at X's dtype
+                                w64 = newton_fused.fused_newton_linear_u_pass_ref(
+                                    Xn.double(), Uk.double(),
+                                    Vn.to(Xn.dtype).double(),
+                                    *(a.double() for a in args[3:6]), l1, l2,
+                                    **kw)[0]
+                                a_k = newton_rows_agree(got[0], w64)
+                                a_p = newton_rows_agree(want[0], w64)
+                                extra = (f"; vs float64: kernel {a_k:.6f} "
+                                         f">= plain f32 {a_p:.6f}")
+                                rows_ok = a_k >= a_p
                             e1 = own_products(torch, mu_fused, Xn, got)[0]
-                            check(agree >= 0.999 and e1 <= 1e-3 and same,
+                            check(rows_ok and e1 <= 1e-3 and same,
                                   f"K2[{tag}, trials={trials}, non_negative="
                                   f"{nonneg}] rows agreeing {agree:.6f} >= "
-                                  f"0.999, numV {e1:.3g} <= 1e-3, two calls "
-                                  f"bitwise equal {same}")
+                                  f"0.999{extra}, numV {e1:.3g} <= 1e-3, two "
+                                  f"calls bitwise equal {same}")
                     n_cases += 5
                 del X32, U, V, Vn, Xn32
     torch.cuda.empty_cache()
@@ -367,47 +437,219 @@ def u_pass_phase(check, torch, mu_fused, newton_fused):
     return rec
 
 
+def sm_clock_hz() -> float:
+    """The SM clock the card reports as its maximum (nvidia-smi), for the
+    SFU's rate; the data sheet's 1980 MHz if it gives none."""
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.max.sm",
+             "--format=csv,noheader,nounits"], capture_output=True,
+            text=True, timeout=60).stdout.split()
+        return float(out[0]) * 1e6
+    except (OSError, ValueError, IndexError, subprocess.SubprocessError):
+        return 1.98e9
+
+
+def sigmoid_bound(n, q, k, slots, x_bytes, clock_hz, gh) -> tuple:
+    """(least ms for K3 (gh) or K4 on this card, what bounds it): the
+    largest of the bytes over the DRAM rate, the tensor-core products (3
+    passes each: 3xTF32 over the TF32 peak, split bf16 over the bf16 peak),
+    the f32 work left on the CUDA cores over the f32 peak, and the sigmoids
+    (two MUFU operations each) over the SFU rate at the reported clock. K3:
+    logits and G (3xTF32) and H's packed triangle (split bf16) per element
+    of X, one sigmoid, ~6 f32 operations (f', W, RF); K4: logits per
+    (element, slot) (3xTF32), a sigmoid and ~4 f32 operations (residual,
+    square, sum, the candidate's entry)."""
+    if gh:
+        nbytes = n * q * x_bytes + 4.0 * (2 * n * k + q * k + n * k * k)
+        tc = (2.0 * n * q * 2 * k * 3 / TF32_FLOPS
+              + 2.0 * n * q * (k * (k + 1) // 2) * 3 / BF16_FLOPS)
+        f32, sig = 6.0 * n * q, float(n) * q
+    else:
+        nbytes = n * q * x_bytes + 4.0 * (3 * n * k + q * k + n * slots)
+        tc = 2.0 * n * q * k * slots * 3 / TF32_FLOPS
+        f32, sig = 4.0 * n * q * slots, float(n) * q * slots
+    times = {"bytes": nbytes / HBM_BPS, "tensor cores": tc,
+             "f32 operations": f32 / F32_FLOPS,
+             "sigmoids": 2.0 * sig / (SFU_PER_SM_CLOCK * SMS * clock_hz)}
+    by = max(times, key=times.get)
+    return 1e3 * times[by], by
+
+
+def sig_inputs(torch, rng, n, q, k, dev):
+    """0/1 labels (exact in bf16) and N(0, 0.3²) factors: O(1) logits."""
+    import numpy as np
+
+    def f32(a):
+        return torch.from_numpy(a.astype(np.float32)).to(dev)
+
+    return (f32((rng.rand(n, q) < 0.3).astype(np.float32)),
+            f32(0.3 * rng.randn(n, k)), f32(0.3 * rng.randn(q, k)))
+
+
+def sigmoid_edges(check, torch, sigmoid_newton, batched_solve):
+    """K3, K4 at the edges: n in {1, 17, 20, 30000}, q in {1, 15, 4097,
+    11314}, k in {1, 7, 20, 32, 33, 64, 100}, bf16 and f32 X, K4 with
+    trials 0 and TRIALS and non_negative both ways; then the route that
+    reads M, d and B from device memory (plan ops_smem = 0: the operands no
+    longer fit in shared memory beside the ring), K3 at k = 256 and K4 at
+    k = 128 with the most trials it takes (MAX_SLOTS - 1 = 255), at n in
+    {17, 20} and q in {15, 4097}. Every
+    output and the workspace NaN-filled before the call, a second call
+    bitwise equal, the bars of the main shapes (sigmoid_phase). K4's d is
+    the Newton direction of its factors, as in sigmoid_phase and in a fit:
+    with an arbitrary d most slots tie slot 0 within rounding, and the
+    slot-agreement bar assumes they do not. Where fewer than 0.999 of the
+    rows select the plain version's slot, the bar applies to the rows whose
+    slot float64 decides (decided_rows: every deciding phi difference above
+    2^-20 of phi, at least 0.9 of the rows): there the kernel must select
+    a float64 evaluation's slot on >= 0.999 of them. At k = 1 (30000 x
+    4097) ~0.5% of the rows' slots tie slot 0 within phi's float32
+    rounding: the plain float32 version matches float64 on only ~0.997 of
+    all rows, and which of the two float32 versions matches more of them
+    changes with the seed (`chip_ab --phase ties`, PERF.md §6). This
+    relaxes the 0.999 bar on those tie rows. Skipped for time: (30000,
+    11314), held at k = 20 by sigmoid_phase, and the shapes whose H build
+    exceeds 1e11 products (n q k(k+1)/2: 30000 x 4097 at k >= 64)."""
+    import numpy as np
+
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(SEED + 5)
+    l1, l2, pert = 0.5, 1.0, 0.2
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def case(n, q, k, trials_set, gh_only=False, ops_smem=None):
+        lab, Mf, Bf = sig_inputs(torch, rng, n, q, k, dev)
+        eye = (l2 + pert) * torch.eye(k, device=dev)
+        cases = 0
+        for xname in ("bfloat16", "float32"):
+            X = lab.to(getattr(torch, xname))
+            xb = X.element_size()
+            tag = f"n={n} q={q} k={k} {xname}"
+            if ops_smem is not None:
+                route = (sigmoid_newton.gh_plan(n, q, k, xb, n_sm).ops_smem
+                         if gh_only else
+                         sigmoid_newton.phi_plan(n, q, k, max(trials_set) + 1,
+                                                 xb, n_sm).ops_smem)
+                check(route == ops_smem, f"{'K3' if gh_only else 'K4'}"
+                      f"[{tag}] plan ops_smem {route} == {ops_smem}")
+
+            def gh():
+                return sigmoid_newton.sigmoid_gh_pass(X, Mf, Bf, l1, l2)
+            if gh_only or ops_smem is None:
+                got, again = nan_filled(gh), gh()
+                torch.cuda.synchronize()
+                want = sigmoid_newton.sigmoid_gh_pass_ref(X, Mf, Bf, l1, l2)
+                eg, eh = rel_fro(got[0], want[0]), rel_fro(got[1], want[1])
+                same = all(bool(torch.equal(a, b))
+                           for a, b in zip(got, again))
+                check(eg <= 1e-4 and eh <= 1e-4 and same,
+                      f"K3[{tag}] G rel Frobenius {eg:.3g}, H {eh:.3g} <= "
+                      f"1e-4 (outputs and scratch NaN-filled), two calls "
+                      f"bitwise equal {same}")
+                cases += 1
+            if gh_only:
+                continue
+            for nonneg in (True, False):
+                Mk = Mf.abs() if nonneg else Mf
+                Gk, Hk = sigmoid_newton.sigmoid_gh_pass_ref(X, Mk, Bf, l1, l2)
+                d = torch.linalg.solve(Hk + eye, Gk[..., None])[..., 0]
+                for trials in trials_set:
+                    kw = dict(trials=trials, non_negative=nonneg)
+
+                    def phi():
+                        return sigmoid_newton.sigmoid_phi_pass(
+                            X, Mk, d, Bf, l1, l2, **kw)
+                    got, again = nan_filled(phi), phi()
+                    torch.cuda.synchronize()
+                    want = sigmoid_newton.sigmoid_phi_pass_ref(
+                        X, Mk, d, Bf, l1, l2, **kw)
+                    rel = float((got - want).abs().max() / want.abs().max())
+                    agree = slot_agreement(got, want)
+                    extra, rows_ok = "", agree >= 0.999
+                    if not rows_ok:
+                        w64 = sigmoid_newton.sigmoid_phi_pass_ref(
+                            X.double(), Mk.double(), d.double(),
+                            Bf.double(), l1, l2, **kw)
+                        rows = decided_rows(w64, TIE_REL)
+                        dec = float(rows.float().mean())
+                        a_k = slot_agreement(got, w64, rows)
+                        a_p = slot_agreement(want, w64, rows)
+                        extra = (f"; on the {dec:.6f} >= {MIN_DECIDED} of "
+                                 f"rows float64 decides by > 2^-20 of phi: "
+                                 f"kernel vs float64 {a_k:.6f} >= 0.999 "
+                                 f"(plain f32 {a_p:.6f})")
+                        rows_ok = dec >= MIN_DECIDED and a_k >= 0.999
+                    same = bool(torch.equal(got, again))
+                    check(rel <= 2e-5 and rows_ok and same,
+                          f"K4[{tag}, trials={trials}, non_negative="
+                          f"{nonneg}] max abs phi err {rel:.3g} of the "
+                          f"largest |phi| <= 2e-5, rows selecting the same "
+                          f"slot {agree:.6f} >= 0.999{extra}, two calls "
+                          f"bitwise equal {same}")
+                    cases += 1
+        return cases
+
+    n_cases = skipped = 0
+    for n in (1, 17, 20, N):
+        for q in (1, 15, 4097, M):
+            for k in (1, 7, 20, 32, 33, 64, 100):
+                if (n, q) == (N, M) or n * q * k * (k + 1) / 2 > 1e11:
+                    skipped += 1
+                    continue
+                n_cases += case(n, q, k, (0, TRIALS))
+    for n, q in ((17, 15), (20, 4097)):
+        n_cases += case(n, q, 256, (), gh_only=True, ops_smem=0)
+        n_cases += case(n, q, 128, (sigmoid_newton.MAX_SLOTS - 1,),
+                        ops_smem=0)
+    torch.cuda.empty_cache()
+    log(f"  K3/K4 edges: {n_cases} cases, {skipped} shapes skipped")
+
+
 def sigmoid_phase(check, torch, sigmoid_newton, batched_solve):
     """Phase 3, K3, K4, K5: each against its plain version.
 
     Inputs: 0/1 labels (exact in bf16) and N(0, 0.3²) factors, so logits
     are O(1) as in a fit; penalties large enough to show in phi (about
-    3 of phi's ~1.5e3 per row), so a phi without them fails. Tolerances:
+    3 of phi's ~1.5e3 per row), so a phi without them fails. Shapes: path
+    A's Z update (Yᵀ 20 x 11314, bf16), path B's U and V updates (X 30000 x
+    11314, bf16 and f32, and Xᵀ 11314 x 30000, bf16). Tolerances:
     G and H by relative Frobenius norm, 1e-4 (f32 sums over q terms in two
     orders); phi by its largest deviation, 2e-5 of the table's largest |phi|
     (f32 sums of q = 11314 terms in two orders, about 3·sqrt(q)·2⁻²⁴), and
     by the share of rows whose selected line-search slot agrees, >= 0.999
     (a slot whose phi ties slot 0 within rounding may flip); d by relative
     Frobenius norm, 1e-3 (the same f32 systems, cond(H) amplifies the
-    different rounding)."""
+    different rounding). The edges are sigmoid_edges."""
     import numpy as np
 
     rng = np.random.RandomState(SEED + 1)
     dev = torch.device("cuda")
     l1, l2, pert = 0.5, 1.0, 0.2
-
-    def f32(a):
-        return torch.from_numpy(a.astype(np.float32)).to(dev)
-
+    clock = sm_clock_hz()
+    log(f"phase 3: SFU rate at {clock / 1e6:.0f} MHz")
     rec = {}
     H_b = G_b = None
-    for shape, n, q in (("A", K, M), ("B", N, M)):
-        lab = f32((rng.rand(n, q) < 0.3).astype(np.float32))
-        Mf = f32(0.3 * rng.randn(n, K))
-        Bf = f32(0.3 * rng.randn(q, K))
-        for xname in (("bfloat16",) if shape == "A"
-                      else ("bfloat16", "float32")):
+    for shape, n, q, xnames in (("A", K, M, ("bfloat16",)),
+                                ("B", N, M, ("bfloat16", "float32")),
+                                ("Bt", M, N, ("bfloat16",))):
+        lab, Mf, Bf = sig_inputs(torch, rng, n, q, K, dev)
+        for xname in xnames:
             X = lab.to(torch.bfloat16) if xname == "bfloat16" else lab
             tag = f"{shape}[{xname}]"
-            xb = n * q * X.element_size()
+            xb = X.element_size()
             # K3
-            G, H = sigmoid_newton.sigmoid_gh_pass(X, Mf, Bf, l1, l2)
+            G, H = nan_filled(lambda: sigmoid_newton.sigmoid_gh_pass(
+                X, Mf, Bf, l1, l2))
+            G2, H2 = sigmoid_newton.sigmoid_gh_pass(X, Mf, Bf, l1, l2)
             torch.cuda.synchronize()
             Gr, Hr = sigmoid_newton.sigmoid_gh_pass_ref(X, Mf, Bf, l1, l2)
             torch.cuda.synchronize()
             eg, eh = rel_fro(G, Gr), rel_fro(H, Hr)
             check(eg <= 1e-4 and eh <= 1e-4, f"K3{tag} G rel Frobenius "
                   f"{eg:.3g}, H {eh:.3g} <= 1e-4")
+            check(torch.equal(G, G2) and torch.equal(H, H2),
+                  f"K3{tag} outputs NaN-filled, two calls bitwise equal")
             err3 = max(float((G - Gr).abs().max()), float((H - Hr).abs().max()))
             Hs = Hr + (l2 + pert) * torch.eye(K, device=dev)
             d = batched_solve.batched_spd_solve_ref(Hs, Gr)
@@ -415,7 +657,9 @@ def sigmoid_phase(check, torch, sigmoid_newton, batched_solve):
                 H_b, G_b = Hs, Gr
             # K4
             kw = dict(trials=TRIALS, non_negative=True)
-            phi = sigmoid_newton.sigmoid_phi_pass(X, Mf, d, Bf, l1, l2, **kw)
+            phi = nan_filled(lambda: sigmoid_newton.sigmoid_phi_pass(
+                X, Mf, d, Bf, l1, l2, **kw))
+            phi2 = sigmoid_newton.sigmoid_phi_pass(X, Mf, d, Bf, l1, l2, **kw)
             torch.cuda.synchronize()
             phr = sigmoid_newton.sigmoid_phi_pass_ref(X, Mf, d, Bf, l1, l2,
                                                       **kw)
@@ -428,31 +672,35 @@ def sigmoid_phase(check, torch, sigmoid_newton, batched_solve):
                   f"{rel4:.3g} of the largest |phi| <= 2e-5")
             check(agree >= 0.999, f"K4{tag} rows selecting the same slot "
                   f"{agree:.6f} >= 0.999")
-            ops3 = float(n) * q * (4 * K + K * (K + 1))
-            b3 = bound(xb + 4 * (2 * n * K + q * K + n * K * K), ops3,
-                       F32_FLOPS)
-            ops4 = 2.0 * n * q * K * (TRIALS + 1)
-            b4 = bound(xb + 4 * (3 * n * K + q * K + n * (TRIALS + 1)), ops4,
-                       F32_FLOPS)
-            t3 = time_ms(lambda: sigmoid_newton.sigmoid_gh_pass(
-                X, Mf, Bf, l1, l2))
+            check(torch.equal(phi, phi2),
+                  f"K4{tag} output NaN-filled, two calls bitwise equal")
+            b3 = sigmoid_bound(n, q, K, 1, xb, clock, True)
+            b4 = sigmoid_bound(n, q, K, TRIALS + 1, xb, clock, False)
+
+            def k3():
+                return sigmoid_newton.sigmoid_gh_pass(X, Mf, Bf, l1, l2)
+
+            def k4():
+                return sigmoid_newton.sigmoid_phi_pass(X, Mf, d, Bf, l1, l2,
+                                                       **kw)
+            t3, dt3 = time_ms(k3), device_ms(k3)
             p3 = time_ms(lambda: sigmoid_newton.sigmoid_gh_pass_ref(
                 X, Mf, Bf, l1, l2), reps=5)
-            t4 = time_ms(lambda: sigmoid_newton.sigmoid_phi_pass(
-                X, Mf, d, Bf, l1, l2, **kw))
+            t4, dt4 = time_ms(k4), device_ms(k4)
             p4 = time_ms(lambda: sigmoid_newton.sigmoid_phi_pass_ref(
                 X, Mf, d, Bf, l1, l2, **kw), reps=5)
-            log(f"  K3{tag} kernel {t3:.4f} ms, plain {p3:.4f} ms, bound "
-                f"{b3[0]:.4f} ms ({b3[1]}); K4{tag} kernel {t4:.4f} ms, "
+            log(f"  K3{tag} kernel {t3:.4f} ms (device alone {dt3:.4f}), "
+                f"plain {p3:.4f} ms, bound {b3[0]:.4f} ms ({b3[1]}); "
+                f"K4{tag} kernel {t4:.4f} ms (device alone {dt4:.4f}), "
                 f"plain {p4:.4f} ms, bound {b4[0]:.4f} ms ({b4[1]})")
             rec[("sigmoid_gh_pass", tag)] = dict(
-                max_abs_err=err3, ms=t3, plain_ms=p3, bound_ms=b3[0],
-                bound_by=b3[1])
+                max_abs_err=err3, ms=t3, device_ms=dt3, plain_ms=p3,
+                bound_ms=b3[0], bound_by=b3[1])
             rec[("sigmoid_phi_pass", tag)] = dict(
-                max_abs_err=err4, ms=t4, plain_ms=p4, bound_ms=b4[0],
-                bound_by=b4[1], slot_agreement=agree)
-            del G, H, Gr, Hr, phi, phr, d
-        del lab, X
+                max_abs_err=err4, ms=t4, device_ms=dt4, plain_ms=p4,
+                bound_ms=b4[0], bound_by=b4[1], slot_agreement=agree)
+            del G, H, G2, H2, Gr, Hr, phi, phi2, phr, d
+        del lab, X, Mf, Bf
     # K5 on the real Gauss-Newton systems of the sigmoid-X shape
     flush_buf = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
     for p in (M, N):
@@ -580,7 +828,8 @@ def sparse_phase(check, torch):
             return None
         return lambda: torch.sparse.mm(T, Bp)
 
-    # edge cases at small shapes: every k the kernels instantiate apart;
+    # edge cases at small shapes: every k the kernels instantiate apart, and
+    # k > 32 in 32-column slices (a full slice, a full and a ragged one);
     # leading, interior and trailing runs of empty rows (the CSR walk zeroes
     # them itself); a row crossing many chunks; fewer nonzeros than one
     # chunk; rows ending exactly on a 16-nonzero chunk or a 4-nonzero step;
@@ -604,7 +853,7 @@ def sparse_phase(check, torch):
          np.r_[0, np.cumsum(lens)]), shape=(lens.size, 64))
     edge = (("", sp.csr_matrix(d)), (" tiny", sp.csr_matrix(tiny)),
             (" wide", sp.csr_matrix(wide)), (" aligned", aligned))
-    for k in (1, 7, 20, 32):
+    for k in (1, 7, 20, 32, 33, 64, 100):
         for suffix, Xh in edge:
             tag = f"edge k={k}{suffix}"
             for xname in ("bfloat16", "float32"):
@@ -742,23 +991,13 @@ def per_iter(**kernels):
     return lambda est: {k: n * est.n_iter_ for k, n in kernels.items()}
 
 
-def fit_phase(check, make_est, X, Y, minimums, label, exact_loss):
-    """Fit through the estimator with the launch counts set to 0 just
-    before and read just after; check each kernel of the path launched at
-    least its minimum; check the objective along the fit.
-
-    minimums(est) -> {name: launches required in the fit}.
-    exact_loss(U, V, Z) is the float64 objective. The reported eval-point
-    losses come from the solvers' zero-extra-pass identities, which round
-    (bf16 XᵀU_new, f32 sums); monotonicity is checked on the exact
-    objective at each eval point, along the same trajectory replayed as
-    warm-started segments of eval_every iterations, and the replay must end
-    on the fit's own factors bit for bit."""
-    import numpy as np
-
+def run_fit(check, make_est, X, Y, minimums, label):
+    """Fit through the estimator, after an untimed warm-up fit, with the
+    launch counts set to 0 just before and read just after; check the
+    losses are finite and each kernel of the path launched at least its
+    minimum (minimums(est) -> {name: launches required in the fit})."""
     from pycmf_tpu_torch.ops.kernels.policy import (launch_counts,
                                                     reset_launch_counts)
-    from pycmf_tpu_torch.utils.init import initialize_factors
 
     # warm-up, not timed: the first launch of each library kernel loads it
     make_est().set_params(max_iter=2, eval_every=1, tol=0.0).fit(X, Y)
@@ -778,7 +1017,25 @@ def fit_phase(check, make_est, X, Y, minimums, label, exact_loss):
     log(f"  {label}: n_iter {est.n_iter_}, final loss "
         f"{est.reconstruction_err_:.9g}, {ms_iter:.4f} ms/iter (solver "
         f"loop), fit wall {wall:.3f} s incl. ingest; launches {counts}")
+    return est, dict(n_iter=est.n_iter_, loss=est.reconstruction_err_,
+                     ms_per_iter=ms_iter, launches=counts, wall_s=wall)
 
+
+def fit_phase(check, make_est, X, Y, minimums, label, exact_loss):
+    """run_fit, then check the objective along the fit.
+
+    exact_loss(U, V, Z) is the float64 objective. The reported eval-point
+    losses come from the solvers' zero-extra-pass identities, which round
+    (bf16 XᵀU_new, f32 sums); monotonicity is checked on the exact
+    objective at each eval point, along the same trajectory replayed as
+    warm-started segments of eval_every iterations, and the replay must end
+    on the fit's own factors bit for bit."""
+    import numpy as np
+
+    from pycmf_tpu_torch.utils.init import initialize_factors
+
+    est, rec = run_fit(check, make_est, X, Y, minimums, label)
+    hist = est.loss_history_
     U, V, Z = initialize_factors(
         X, Y, K, random_state=SEED, U_non_negative=est.U_non_negative,
         V_non_negative=est.V_non_negative, Z_non_negative=est.Z_non_negative)
@@ -799,9 +1056,7 @@ def fit_phase(check, make_est, X, Y, minimums, label, exact_loss):
     check(all(r <= 1e-6 for _, r in rises),
           f"{label}: exact loss non-increasing up to rel 1e-6 (rises at "
           f"(iter, rel): {rises}); reported vs exact max rel {dev:.3g}")
-    return est, dict(n_iter=est.n_iter_, loss=est.reconstruction_err_,
-                     exact_loss=exact[-1], ms_per_iter=ms_iter,
-                     launches=counts, wall_s=wall,
+    return est, dict(rec, exact_loss=exact[-1],
                      reported_vs_exact_max_rel=dev)
 
 
@@ -885,6 +1140,58 @@ def card_sigmoid_loss(torch, X, Y):
     return loss
 
 
+def step_agreement(check, make_est, X, Y, k, plain, label, exact_loss,
+                   steps, factor_bar):
+    """Kernel path against plain path on the card, one step at a time from
+    shared factors: at each of `steps` steps both paths start from the same
+    factors (the kernel path's after the step before; the first from the
+    estimator's init) and run one iteration (a warm-started fit of
+    max_iter=1). Two bars hold at every step: the factors U, V, Z of the two
+    results agree to `factor_bar` in relative Frobenius norm, phase 3's bar
+    for what the step's kernels return (1e-4 for K1's U_new and K6 on the MU
+    paths; 1e-3 on the Newton paths, K2's numV and K5's d), and their exact
+    float64 objectives agree to 1e-6 relative (the clean runs read at most
+    6.3e-8: PERF.md §6). The loss alone would not do: near the fit it is
+    flat to first order in the factors. Over 20 free iterations the two
+    paths of a dense bf16 fit part by 1e-4 to 1e-3 whatever the kernels
+    (bf16 rounding of U_new and line-search decisions amplify f32 summation
+    order: PERF.md §6), which measures that chaos, not the kernels; one
+    step from shared factors measures the kernels. Returns the largest loss
+    gap."""
+    import numpy as np
+
+    from pycmf_tpu_torch.utils.init import initialize_factors
+
+    est = make_est()
+    U, V, Z = initialize_factors(
+        X, Y, k, random_state=SEED, U_non_negative=est.U_non_negative,
+        V_non_negative=est.V_non_negative, Z_non_negative=est.Z_non_negative)
+    gaps, dev = [], []
+    for _ in range(steps):
+        def one():
+            return make_est().set_params(max_iter=1, eval_every=1, tol=0.0
+                                         ).fit_transform(X, Y, U=U, V=V, Z=Z)
+        got = one()
+        with ExitStack() as patches:
+            for fn, mod in plain.items():
+                patches.enter_context(mock.patch.object(
+                    mod, fn, getattr(mod, fn + "_ref")))
+            want = one()
+        lk, lp = exact_loss(*got), exact_loss(*want)
+        gaps.append(abs(lk - lp) / abs(lp))
+        dev.append(max(float(np.linalg.norm(a - b) / np.linalg.norm(b))
+                       for a, b in zip(got, want)))
+        U, V, Z = got
+    worst, far = max(gaps), max(dev)
+    check(worst <= 1e-6 and far <= factor_bar,
+          f"{label}: kernel vs plain step from shared factors, {steps} "
+          f"steps, exact f64 loss rel gap max {worst:.3g} <= 1e-6 (per step "
+          f"{[float(f'{g:.3g}') for g in gaps]}), factors rel Frobenius max "
+          f"{far:.3g} <= {factor_bar:g} (per step "
+          f"{[float(f'{g:.3g}') for g in dev]})")
+    return worst
+
+
 def _numpy_baseline(kind: str) -> tuple:
     """bench.py's NumPy baseline run (in a worker process): MU in float32,
     or Newton with a sigmoid Y link in float64. Returns (final loss,
@@ -961,6 +1268,7 @@ def main() -> int:
     krec = u_pass_phase(check, torch, mu_fused, newton_fused)
     krec.update(sigmoid_phase(check, torch, sigmoid_newton,
                               batched_solve))
+    sigmoid_edges(check, torch, sigmoid_newton, batched_solve)
     krec.update(sparse_phase(check, torch))
 
     # 4.-7. the paths, through the estimator
@@ -1039,6 +1347,16 @@ def main() -> int:
         lambda e: {"bell_spmm": 2 * e.n_iter_,
                    "fused_mu_update": 3 * e.n_iter_},
         "path F fit", lambda U, V, Z: numpy_cmf.loss(Xf64, Y64, U, V, Z))
+    log("phase 7: CMF(n_components=40), k > 32: the MU cell and path A")
+    wide_k = 40
+    common_w = dict(common, n_components=wide_k)
+    _, mu_w = run_fit(
+        check, lambda: CMF(**mu_kw, **common_w), X, Y,
+        per_iter(fused_mu_u_pass=1, fused_mu_update=2), "MU fit, k=40")
+    _, pa_w = run_fit(
+        check, lambda: CMF(**a_kw, **common_w), X, Y,
+        per_iter(fused_newton_linear_u_pass=1, sigmoid_gh_pass=1,
+                 sigmoid_phi_pass=1), "path A fit, k=40")
     log("phase 7b: where the time goes (torch.profiler)")
     mu["profile"] = profile_phase(
         torch, lambda: CMF(**dict(mu_kw, max_iter=10, tol=0.0), **common),
@@ -1075,6 +1393,8 @@ def main() -> int:
         base = {kind: pool.submit(_numpy_baseline, kind)
                 for kind in ("newton", "mu")}
         log("phase 8: kernel path vs plain path")
+        gaps20 = {}
+        stepped = {"MU": None, "Newton linear": None, "path A": None}
         plain = {"fused_mu_u_pass": mu_fused,
                  "fused_newton_linear_u_pass": newton_fused,
                  "sigmoid_gh_pass": sigmoid_newton,
@@ -1098,9 +1418,25 @@ def main() -> int:
                         mod, fn, getattr(mod, fn + "_ref")))
                 lp = CMF(**kw, **common).fit(*data).reconstruction_err_
             gap = abs(lk - lp) / abs(lp)
-            check(gap <= 1e-3, f"{label}: kernel {lk:.9g} vs plain {lp:.9g} "
-                  f"after {kw['max_iter']} iterations, rel gap {gap:.3g} "
-                  f"<= 1e-3")
+            gaps20[label] = gap
+            what = (f"{label}: kernel {lk:.9g} vs plain {lp:.9g} after "
+                    f"{kw['max_iter']} iterations, rel gap {gap:.3g}")
+            if label in stepped:  # dense bf16: held step by step below
+                log(f"  {what} (printed; the per-step check holds this path)")
+            else:
+                check(gap <= 1e-3, f"{what} <= 1e-3")
+        lin = lambda U, V, Z: numpy_cmf.loss(X64, Y64, U, V, Z)  # noqa: E731
+        sig = lambda U, V, Z: numpy_cmf.loss(  # noqa: E731
+            X64, Y64, U, V, Z, y_link="sigmoid")
+        for label, kw, kk, loss, steps, bar in (
+                ("MU", mu_kw, K, lin, 20, 1e-4),
+                ("Newton linear", nl_kw, K, lin, 20, 1e-3),
+                ("path A", a_kw, K, sig, 20, 1e-3),
+                ("MU k=40", mu_kw, wide_k, lin, 10, 1e-4),
+                ("path A k=40", a_kw, wide_k, sig, 10, 1e-3)):
+            stepped[label] = step_agreement(
+                check, lambda: CMF(**kw, **dict(common, n_components=kk)),
+                X, Y, kk, plain, label, loss, steps, bar)
         t0 = time.perf_counter()
         baseline = {kind: f.result() for kind, f in base.items()}
         log(f"host baselines awaited {time.perf_counter() - t0:.1f} s")
@@ -1189,6 +1525,9 @@ def main() -> int:
     print(json.dumps({"mu_fit": mu, "newton_linear_fit": nt,
                       "path_a_fit": pa, "path_b_fit": pb, "path_c_fit": pc,
                       "path_d_fit": pd, "path_f_fit": pf,
+                      "mu_fit_k40": mu_w, "path_a_fit_k40": pa_w,
+                      "phase8_gap_after_20": gaps20,
+                      "phase8_step_gap_max": stepped,
                       "bell_crossover": {k: v for k, v in krec.items()
                                          if str(k).startswith("crossover")}}))
     print(f"{name} | nvidia-smi: {smi}")

@@ -2,7 +2,7 @@
 
     python3 -m pycmf_tpu_torch.chip_ab [--phase PHASE] TREE_A TREE_B ...
 
-PHASE is sigmoid (the default), sparse, upass or paths. Each TREE is a
+PHASE is sigmoid (the default), sparse, upass, paths or ties. Each TREE is a
 checkout of this repository (for example the parent commit
 unpacked with ``git archive`` into a git-ignored directory). Every tree's
 libraries of the phase are built first, in parallel, with the ptxas
@@ -22,8 +22,13 @@ own process from that tree, printing one JSON object per run:
   (``kernels_us``, torch.profiler), beside one read of X by ``torch.sum``
   (``x_read``: the rate a plain stream reaches);
 - ``paths``: chip_smoke phase 8's kernel-vs-plain fits of MU, Newton linear
-  and path A (20 iterations), with the loss at every iteration of both.
-  The code of ``upass`` and ``paths`` is this file's (``UPASS``),
+  and path A (20 iterations), with the loss at every iteration of both;
+- ``ties``: K4 at chip_smoke's k = 1 edge shape (30000 x 4097, trials 8)
+  on eight seeds: the share of rows whose selected line-search slot agrees
+  with the plain version's, and the share on which each of the two matches
+  a float64 evaluation, on all rows and on the rows float64 decides by
+  more than 2^-22, 2^-20 and 2^-18 of phi (``chip_smoke.decided_rows``).
+  The code of ``upass``, ``paths`` and ``ties`` is this file's (``UPASS``),
   run against each tree's wrappers, so a tree whose chip_smoke predates the
   redesign is timed the same way.
 
@@ -39,7 +44,10 @@ import sys
 
 # phase: (libraries, the ptxas entries reported, the phase function)
 PHASES = {
-    "sigmoid": (("sigmoid_newton", "batched_solve"), ("Li20E",),
+    # K3's and K4's tensor-core kernels are instantiated on X's dtype (and
+    # K4's on k's mma steps), the CUDA-core ones at KP = 20
+    "sigmoid": (("sigmoid_newton", "batched_solve"),
+                ("gh_part", "phi_part", "Li20E"),
                 "cs.sigmoid_phase(check, torch, sigmoid_newton, "
                 "batched_solve)"),
     # bell_spmm's k = 20 kernel is instantiated at KP = 20 (CUDA-core) or at
@@ -55,6 +63,7 @@ PHASES = {
     "paths": (("mu_fused", "newton_fused", "sigmoid_newton", "batched_solve",
                "mu_update"), ("Li20E", "Li3E"),
               "paths_ab(check, torch, cs)"),
+    "ties": (("sigmoid_newton",), ("phi_part",), "ties_ab(check, torch, cs)"),
 }
 UPASS = """
 def upass_ab(check, torch, cs):
@@ -140,6 +149,43 @@ def paths_ab(check, torch, cs):
     return rec
 
 
+def ties_ab(check, torch, cs, seeds=8):
+    # K4 at the k = 1 edge shape (30000 x 4097, trials 8, bf16 X), one
+    # draw of chip_smoke's edge inputs per seed: the share of rows whose
+    # selected line-search slot agrees between kernel and plain version,
+    # and the share on which each matches a float64 evaluation
+    import numpy as np
+    from pycmf_tpu_torch.ops.kernels import sigmoid_newton as sn
+    dev = torch.device("cuda")
+    l1, l2, pert = 0.5, 1.0, 0.2
+    rec = {}
+    for seed in range(seeds):
+        lab, Mf, Bf = cs.sig_inputs(torch, np.random.RandomState(seed),
+                                    cs.N, 4097, 1, dev)
+        X = lab.to(torch.bfloat16)
+        for nonneg in (True, False):
+            Mk = Mf.abs() if nonneg else Mf
+            G, H = sn.sigmoid_gh_pass_ref(X, Mk, Bf, l1, l2)
+            eye = (l2 + pert) * torch.eye(1, device=dev)
+            d = torch.linalg.solve(H + eye, G[..., None])[..., 0]
+            kw = dict(trials=cs.TRIALS, non_negative=nonneg)
+            got = sn.sigmoid_phi_pass(X, Mk, d, Bf, l1, l2, **kw)
+            want = sn.sigmoid_phi_pass_ref(X, Mk, d, Bf, l1, l2, **kw)
+            w64 = sn.sigmoid_phi_pass_ref(X.double(), Mk.double(), d.double(),
+                                          Bf.double(), l1, l2, **kw)
+            rel = float((got - want).abs().max() / want.abs().max())
+            check(rel <= 2e-5, f"K4 seed {seed} phi err {rel:.3g} <= 2e-5")
+            r = dict(agree=cs.slot_agreement(got, want),
+                     kernel_vs_f64=cs.slot_agreement(got, w64),
+                     plain_vs_f64=cs.slot_agreement(want, w64))
+            # the same on the rows float64 decides by more than 2^-e of phi
+            for e in (22, 20, 18):
+                rows = cs.decided_rows(w64, 2.0 ** -e)
+                r[f"decided_{e}"] = float(rows.float().mean())
+                r[f"kernel_vs_f64_{e}"] = cs.slot_agreement(got, w64, rows)
+                r[f"plain_vs_f64_{e}"] = cs.slot_agreement(want, w64, rows)
+            rec[f"seed={seed} non_negative={nonneg}"] = r
+    return rec
 def per_kernel(torch, run, reps=5):
     # mean device time in microseconds of each kernel of one call
     from torch.autograd import DeviceType

@@ -9,7 +9,7 @@
 // reference (B.astype(blocks dtype)), rounded to the blocks' dtype first.
 //
 // Bound: bytes. Each stored block is read once (32 KB in bf16, 64 KB in
-// f32) for 2 * 128 * 128 * k flops, k <= 32: on tensor cores the blocks'
+// f32) for 2 * 128 * 128 * k flops, k ~ 20: on tensor cores the blocks'
 // bytes over 3.35 TB/s bind (path F's X, 3166 bf16 blocks: 0.032 ms).
 //
 // Design:
@@ -38,6 +38,10 @@
 //   pass is ~3e-3 off); 3xTF32 moves the f32 kernel onto the tensor cores
 //   at three times the bf16 product count, still below the bytes of its
 //   64 KB blocks.
+// - k > 32: the grid's second dimension walks 32-column slices of B^T and
+//   of the output (four mma tiles each, B^T zero-padded to whole slices),
+//   each slice with its own partials; the combine pass sums each output
+//   column's partials of its slice.
 // - Registers and warps per SM (ptxas, k = 20): 48 registers, no spills;
 //   bf16 64 KB of shared memory, 3 CTAs = 24 warps per SM; f32 81 KB, 2
 //   CTAs = 16 warps per SM. On an H100 it runs at 2.0x its bytes bound on
@@ -117,7 +121,11 @@ __device__ __forceinline__ void slab_mma(const float* As, const float* Bs,
   }
 }
 
-// One CTA per segment s: blocks segs[s] .. segs[s+1] of row block rb.
+// Output columns per slice (blockIdx.y) when k > 32.
+constexpr int kBellSlice = 32;
+
+// One CTA per segment s: blocks segs[s] .. segs[s+1] of row block rb, for
+// the output columns of slice blockIdx.y (all of them when k <= 32).
 template <typename T, int NT>
 __global__ void __launch_bounds__(kBellThreads)
     bell_segment_kernel(const T* __restrict__ blocks,
@@ -128,6 +136,10 @@ __global__ void __launch_bounds__(kBellThreads)
                         const T* __restrict__ Bt, int qpad, int p, int k,
                         float* __restrict__ out, float* __restrict__ part) {
   using Sm = BellSmem<T, NT>;
+  const int c0 = blockIdx.y * kBellSlice;
+  const int kk = min(k, c0 + NT * 8) - c0;  // this slice's columns
+  Bt += (size_t)c0 * qpad;
+  part += (size_t)blockIdx.y * gridDim.x * kBlk * (NT * 8);
   constexpr int kStages = BellTile<T>::kStages;
   constexpr int L = Sm::kLd;
   constexpr int kEl = 16 / (int)sizeof(T);    // elements per 16-byte copy
@@ -187,8 +199,8 @@ __global__ void __launch_bounds__(kBellThreads)
       if (direct) {
         const int row = rb * kBlk + r;
         if (row < p) {
-          if (n < k) out[(size_t)row * k + n] = v0;
-          if (n + 1 < k) out[(size_t)row * k + n + 1] = v1;
+          if (n < kk) out[(size_t)row * k + c0 + n] = v0;
+          if (n + 1 < kk) out[(size_t)row * k + c0 + n + 1] = v1;
         }
       } else {
         *reinterpret_cast<float2*>(part + ((size_t)s * kBlk + r) * (NT * 8) +
@@ -198,16 +210,20 @@ __global__ void __launch_bounds__(kBellThreads)
   }
 }
 
-// Rows of row blocks with several segments: their partials in segment order.
+// Rows of row blocks with several segments: their partials in segment order
+// (of column n's slice: kpn = NT * 8 partial columns per slice).
 __global__ void bell_combine_kernel(const int* __restrict__ rb_segs,
-                                    const float* __restrict__ part, int p,
-                                    int k, int kpn, float* __restrict__ out) {
+                                    const float* __restrict__ part, int n_seg,
+                                    int p, int k, int kpn,
+                                    float* __restrict__ out) {
   const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= (long long)p * k) return;
-  const int row = (int)(idx / k), n = (int)(idx % k);
+  const int row = (int)(idx / k), col = (int)(idx % k);
+  const int y = col / kBellSlice, n = col % kBellSlice;
   const int rb = row / kBlk, r = row % kBlk;
   const int s0 = rb_segs[rb], s1 = rb_segs[rb + 1];
   if (s1 - s0 == 1) return;  // written by its only segment
+  part += (size_t)y * n_seg * kBlk * kpn;
   float v = part[((size_t)s0 * kBlk + r) * kpn + n];
   for (int s = s0 + 1; s < s1; ++s) v += part[((size_t)s * kBlk + r) * kpn + n];
   out[idx] = v;
@@ -239,14 +255,16 @@ int launch_bell(const T* blocks, const int* bcols, const int* brows,
     smem_set = true;
   }
   const int qpad = ceil_div(q, kBlk) * kBlk;
-  const long long n_bt = (long long)kpn * qpad;
-  bell_bt_kernel<T><<<(int)((n_bt + 255) / 256), 256, 0, st>>>(B, q, k, kpn,
-                                                               qpad, Bt);
-  bell_segment_kernel<T, NT><<<n_seg, kBellThreads, Sm::kBytes, st>>>(
-      blocks, bcols, brows, segs, rb_segs, Bt, qpad, p, k, out, part);
+  const int n_slices = ceil_div(k, kpn);
+  const long long n_bt = (long long)kpn * n_slices * qpad;
+  bell_bt_kernel<T><<<(int)((n_bt + 255) / 256), 256, 0, st>>>(
+      B, q, k, kpn * n_slices, qpad, Bt);
+  bell_segment_kernel<T, NT>
+      <<<dim3(n_seg, n_slices), kBellThreads, Sm::kBytes, st>>>(
+          blocks, bcols, brows, segs, rb_segs, Bt, qpad, p, k, out, part);
   const long long n_out = (long long)p * k;
   bell_combine_kernel<<<(int)((n_out + 255) / 256), 256, 0, st>>>(
-      rb_segs, part, p, k, kpn, out);
+      rb_segs, part, n_seg, p, k, kpn, out);
   return (int)cudaGetLastError();
 }
 
@@ -279,15 +297,16 @@ int dispatch_bell(const T* blocks, const int* bcols, const int* brows,
 // segments: segment s holds blocks segs[s] .. segs[s+1], row block r the
 // segments rb_segs[r] .. rb_segs[r+1]); B (q, k) f32; out (p, k) f32.
 // Scratch: Bt (KPN, ceil(q / 128) * 128) at the blocks' dtype and part
-// (n_seg, 128, KPN) f32, KPN = k rounded up to 8. 1 <= k <= 32. Returns
-// the CUDA error of the launches (0 on success).
+// (n_seg, 128, KPN) f32, KPN = k rounded up to 8 (k <= 32) or to 32
+// (k > 32, in 32-column slices). k >= 1. Returns the CUDA error of the
+// launches (0 on success).
 extern "C" int pycmf_bell_spmm(int bf16, const void* blocks, const int* bcols,
                                const int* brows, const int* segs, int n_seg,
                                const int* rb_segs, const float* B, int p,
                                int q, int k, void* Bt, float* part,
                                float* out, void* stream) {
   using namespace pycmf;
-  if (p < 1 || q < 1 || k < 1 || k > kMaxK || n_seg < 1)
+  if (p < 1 || q < 1 || k < 1 || n_seg < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bf16)

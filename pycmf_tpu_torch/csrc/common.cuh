@@ -10,6 +10,8 @@
 
 namespace pycmf {
 
+// Widest k of the one-warp-per-row routes (K5, and K6's shared S tile);
+// wider k goes in 32-column slices or tiles (each kernel's header).
 constexpr int kMaxK = 32;
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -21,6 +23,12 @@ __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
 // Butterfly sum: every lane ends with the same bits (each step adds the
 // same two operands on both partner lanes).
 __device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
+  return v;
+}
+
+__device__ __forceinline__ double warp_sum_d(double v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
   return v;

@@ -13,7 +13,7 @@
 //
 // csr_spmm:    out (p, k) = A (p, q) @ B (q, k)
 // csr_rowdots: out (p,)   = sum_j a_ij (M_i . B_j) = M_i . (A B)_i
-// A's values are f32 or bf16 (widened exactly), B and M f32, 1 <= k <= 32.
+// A's values are f32 or bf16 (widened exactly), B and M f32, any k >= 1.
 //
 // Bound: bytes. The compulsory bytes (each input read once, the output
 // written once) are the CSR arrays plus B; per nonzero the kernel also
@@ -56,6 +56,11 @@
 //   followed by row r' > r + 1 zeroes rows r+1 .. r'-1; the gap before a
 //   chunk's first row belongs to that chunk, and the last chunk zeroes the
 //   rows after the last nonzero.
+// - k > 32: the grid's second dimension walks 32-column slices of B (and
+//   M) and of the output, each slice the k <= 32 walk on its columns with
+//   its own partials. csr_rowdots writes each slice's per-row dots to
+//   scratch and csr_rowdots_slices_kernel sums them per row in slice order
+//   (a row crossing chunks: its partials in chunk order first).
 // - Registers and warps per SM: __launch_bounds__(256, 3), 80 registers
 //   (ptxas: 4-12 bytes of spills), 24 warps per SM. Four nonzeros per step
 //   at 64 registers (32 warps per SM) measured 11% slower at the RCV1
@@ -87,33 +92,61 @@ __device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&v)[4]) {
   v[2] = __low2float(b), v[3] = __high2float(b);
 }
 
-// One group per chunk. kw = k (spmm) or 1 (rowdots): the width of one row
-// of `out` and of one partial. B (and M) have row stride ld, a multiple of
-// 4 with zeros past k.
+// Columns of one slice of the factors (blockIdx.y walks the slices).
+constexpr int kCsrSlice = 32;
+
+// Where slice y of a call reads and writes: B and M from column c0 on, its
+// kk (<= 32) columns; spmm output columns c0 .. c0+kk-1 of rows of stride
+// k, rowdots one float per row (the output when there is one slice, else
+// row y of the (n_slices, p) scratch); partials of width kw from slice
+// offset 2 * n_chunks * c0 (spmm) or 2 * n_chunks * y (rowdots).
+struct CsrSlice {
+  int c0, kk, kw, ldo;
+  __device__ CsrSlice(int y, int k, bool rowdots) {
+    c0 = y * kCsrSlice;
+    kk = min(kCsrSlice, k - c0);
+    kw = rowdots ? 1 : kk;
+    ldo = rowdots ? 1 : k;
+  }
+};
+
+// One group per chunk of slice blockIdx.y. B (and M) have row stride ld, a
+// multiple of 4 with zeros past k. slice_out: the rowdots scratch of a
+// call with several slices (unused otherwise).
 template <typename T, bool kRowdots>
 __global__ void __launch_bounds__(kCsrWarps * 32, 3)
     csr_chunk_kernel(const T* __restrict__ data, const int* __restrict__ indices,
                      const int* __restrict__ row_ids, const float* __restrict__ B,
                      const float* __restrict__ M, long long nnz, int p, int k,
                      int ld, int ch, long long n_chunks, float* __restrict__ out,
-                     float* __restrict__ part) {
+                     float* __restrict__ part, float* __restrict__ slice_out) {
+  const CsrSlice sc(blockIdx.y, k, kRowdots);
+  B += sc.c0;
+  if constexpr (kRowdots) {
+    M += sc.c0;
+    part += 2 * n_chunks * blockIdx.y;
+    if (gridDim.y > 1) out = slice_out + (size_t)blockIdx.y * p;
+  } else {
+    part += 2 * n_chunks * sc.c0;
+    out += sc.c0;
+  }
   const int lane = threadIdx.x & 31;
-  const int G = (k + 3) >> 2, P = 32 / G;
+  const int G = (sc.kk + 3) >> 2, P = 32 / G;
   const int gi = lane / G, sl = lane - gi * G;
   if (gi >= P) return;
   const long long c =
       ((long long)blockIdx.x * kCsrWarps + threadIdx.x / 32) * P + gi;
   if (c >= n_chunks) return;  // the whole group leaves together
   const unsigned gmask = ((1u << G) - 1u) << (gi * G);
-  const int kw = kRowdots ? 1 : k;
+  const int kw = sc.kw, kk = sc.kk;
   const int col0 = 4 * sl;
-  const bool vec_out = (k & 3) == 0;
+  const bool vec_out = (sc.ldo & 3) == 0 && (kk & 3) == 0;
   const long long s = c * ch;
   const long long e = s + ch < nnz ? s + ch : nnz;
   const int prev_row = s > 0 ? row_ids[s - 1] : -1;
   const int next_row = e < nnz ? row_ids[e] : -1;
 
-  // columns col0 .. col0+3 of a k-wide row, those < k
+  // columns col0 .. col0+3 of the slice's row, those < kk
   auto store_row = [&](float* row, float4 v) {
     if (vec_out) {
       *reinterpret_cast<float4*>(row + col0) = v;
@@ -121,13 +154,13 @@ __global__ void __launch_bounds__(kCsrWarps * 32, 3)
       const float a[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
       for (int j = 0; j < 4; ++j)
-        if (col0 + j < k) row[col0 + j] = a[j];
+        if (col0 + j < kk) row[col0 + j] = a[j];
     }
   };
   auto flush = [&](int r, float4 a) {
     float* dst = r == prev_row   ? part + (size_t)(2 * c) * kw
                  : r == next_row ? part + (size_t)(2 * c + 1) * kw
-                                 : out + (size_t)r * kw;
+                                 : out + (size_t)r * sc.ldo;
     if constexpr (kRowdots) {
       const float4 m = ldg4(M + (size_t)r * ld + col0);
       const float v = fmaf(m.w, a.w, fmaf(m.z, a.z, fmaf(m.y, a.y, m.x * a.x)));
@@ -143,7 +176,7 @@ __global__ void __launch_bounds__(kCsrWarps * 32, 3)
       if constexpr (kRowdots) {
         if (sl == 0) out[r] = 0.f;
       } else {
-        store_row(out + (size_t)r * k, zero4());
+        store_row(out + (size_t)r * sc.ldo, zero4());
       }
     }
   };
@@ -203,11 +236,21 @@ __global__ void __launch_bounds__(kCsrWarps * 32, 3)
 // then slot 0 of c0+1 .. c. (One lane per chunk, each warp then summing
 // its rows in turn, measured 18 us per call on the 20NG surrogate against
 // this version's 12: too few warps in flight.)
+// Slice blockIdx.y, laid out as in csr_chunk_kernel.
+template <bool kRowdots>
 __global__ void __launch_bounds__(kCsrWarps * 32)
     csr_combine_kernel(const int* __restrict__ indptr,
-                       const int* __restrict__ row_ids, long long nnz, int kw,
-                       int ch, long long n_chunks,
-                       const float* __restrict__ part, float* __restrict__ out) {
+                       const int* __restrict__ row_ids, long long nnz, int k,
+                       int ch, long long n_chunks, const float* __restrict__ part,
+                       float* __restrict__ out) {
+  const CsrSlice sc(blockIdx.y, k, kRowdots);
+  const int kw = sc.kw;
+  if constexpr (kRowdots) {
+    part += 2 * n_chunks * blockIdx.y;
+  } else {
+    part += 2 * n_chunks * sc.c0;
+    out += sc.c0;
+  }
   const int lane = threadIdx.x & 31;
   const long long c = (long long)blockIdx.x * kCsrWarps + threadIdx.x / 32;
   if (c < 1 || c >= n_chunks) return;
@@ -221,26 +264,68 @@ __global__ void __launch_bounds__(kCsrWarps * 32)
 #pragma unroll 8
   for (long long cc = c0 + 1; cc <= c; ++cc)
     acc += part[(size_t)(2 * cc) * kw + lane];
-  out[(size_t)r * kw + lane] = acc;
+  out[(size_t)r * sc.ldo + lane] = acc;
 }
 
+// csr_rowdots with several slices: out[r] = the slices' dots of row r in
+// slice order, each a row's partials in chunk order where it crosses
+// chunks (slot 1 of its first chunk, then slot 0 of the next ones, as in
+// csr_combine_kernel), else the slice's scratch row.
+__global__ void __launch_bounds__(kCsrWarps * 32)
+    csr_rowdots_slices_kernel(const int* __restrict__ indptr, int p, int ch,
+                              int n_slices, long long n_chunks,
+                              const float* __restrict__ part,
+                              const float* __restrict__ slice_out,
+                              float* __restrict__ out) {
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= p) return;
+  const long long a = indptr[r], b = indptr[r + 1];
+  const long long c0 = a / ch, c1 = b > a ? (b - 1) / ch : c0;
+  float total = 0.f;
+  for (int y = 0; y < n_slices; ++y) {
+    const float* pt = part + 2 * n_chunks * y;
+    float v;
+    if (c1 > c0) {
+      v = pt[2 * c0 + 1];
+      for (long long cc = c0 + 1; cc <= c1; ++cc) v += pt[2 * cc];
+    } else {
+      v = slice_out[(size_t)y * p + r];
+    }
+    total += v;
+  }
+  out[r] = total;
+}
+
+// Scratch (floats): the partials, 2 * n_chunks per column of the output
+// (spmm: k; rowdots: one per slice), then for rowdots with several slices
+// their (n_slices, p) per-row dots.
 template <typename T, bool kRowdots>
 int launch_csr(const T* data, const int* indices, const int* indptr,
                const int* row_ids, long long nnz, int p, int k, int ld, int ch,
-               const float* B, const float* M, float* out, float* part,
+               const float* B, const float* M, float* out, float* work,
                cudaStream_t st) {
   const long long n_chunks = (nnz + ch - 1) / ch;
-  const int per_warp = 32 / ((k + 3) / 4);
+  const int n_slices = ceil_div(k, kCsrSlice);
+  const int per_warp = 32 / ((min(k, kCsrSlice) + 3) / 4);
   const long long warps = (n_chunks + per_warp - 1) / per_warp;
+  const bool sliced_dots = kRowdots && n_slices > 1;
+  float* slice_out = work + 2 * n_chunks * (kRowdots ? n_slices : k);
   csr_chunk_kernel<T, kRowdots>
-      <<<(int)((warps + kCsrWarps - 1) / kCsrWarps), kCsrWarps * 32, 0, st>>>(
-          data, indices, row_ids, B, M, nnz, p, k, ld, ch, n_chunks, out, part);
+      <<<dim3((unsigned)((warps + kCsrWarps - 1) / kCsrWarps), n_slices),
+         kCsrWarps * 32, 0, st>>>(data, indices, row_ids, B, M, nnz, p, k, ld,
+                                  ch, n_chunks, out, work, slice_out);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  csr_combine_kernel<<<(int)((n_chunks + kCsrWarps - 1) / kCsrWarps),
-                       kCsrWarps * 32, 0, st>>>(indptr, row_ids, nnz,
-                                                kRowdots ? 1 : k, ch, n_chunks,
-                                                part, out);
+  if (sliced_dots) {
+    csr_rowdots_slices_kernel<<<ceil_div(p, kCsrWarps * 32), kCsrWarps * 32, 0,
+                                st>>>(indptr, p, ch, n_slices, n_chunks, work,
+                                      slice_out, out);
+  } else {
+    csr_combine_kernel<kRowdots>
+        <<<dim3((unsigned)((n_chunks + kCsrWarps - 1) / kCsrWarps), n_slices),
+           kCsrWarps * 32, 0, st>>>(indptr, row_ids, nnz, k, ch, n_chunks,
+                                    work, out);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -251,7 +336,7 @@ inline bool csr_args_ok(long long nnz, int p, int k, int ld, int ch,
                         const void* data, const int* indices,
                         const int* row_ids, const float* B) {
   const uintptr_t a16 = (uintptr_t)indices | (uintptr_t)row_ids | (uintptr_t)B;
-  return nnz >= 1 && p >= 1 && k >= 1 && k <= kMaxK && ld >= k &&
+  return nnz >= 1 && p >= 1 && k >= 1 && ld >= k &&
          ld % 4 == 0 && ch >= kUnroll && ch % kUnroll == 0 &&
          (a16 & 15) == 0 && ((uintptr_t)data & 7) == 0;
 }
@@ -261,8 +346,8 @@ inline bool csr_args_ok(long long nnz, int p, int k, int ld, int ch,
 // A: data (nnz, f32 if bf16 == 0 else bf16), indices, indptr (p + 1),
 // row_ids: int32; B (q, ld) f32 with zeros past column k (ld a multiple of
 // 4); out (p, k) f32, every row written; ch: nonzeros per chunk, a
-// multiple of 4; work: 2 * ceil(nnz / ch) * k floats; the launches go to
-// `stream` on CUDA device `device`. nnz >= 1, 1 <= k <= 32.
+// multiple of 8; work: 2 * ceil(nnz / ch) * k floats; the launches go to
+// `stream` on CUDA device `device`. nnz >= 1, k >= 1.
 extern "C" int pycmf_csr_spmm(int bf16, const void* data, const int* indices,
                               const int* indptr, const int* row_ids,
                               long long nnz, int p, int k, int ld, int ch,
@@ -283,7 +368,8 @@ extern "C" int pycmf_csr_spmm(int bf16, const void* data, const int* indices,
 }
 
 // As pycmf_csr_spmm with M (p, ld) f32 laid out as B; out (p,) f32;
-// work: 2 * ceil(nnz / ch) floats.
+// work: 2 * ceil(nnz / ch) * S floats, S = ceil(k / 32), and S * p more
+// when S > 1.
 extern "C" int pycmf_csr_rowdots(int bf16, const void* data, const int* indices,
                                  const int* indptr, const int* row_ids,
                                  long long nnz, int p, int k, int ld, int ch,

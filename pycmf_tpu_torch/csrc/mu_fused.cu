@@ -18,6 +18,8 @@
 // X^T U_new on tensor cores in row segments, partial sums reduced in a fixed
 // order. Both sweeps stream X through cp.async rings, so X is read twice per
 // call (1.36 GB at the main-path shape); the two-pass bound is 0.41 ms.
+// k > 32 takes the skeleton's wide route (32-component slices, the ratio in
+// a kernel of its own).
 // Rows >= n_valid are zeroed, so a 0 * 0 / 0 = NaN padding row cannot reach
 // the factors or the partial sums.
 #include "u_pass_common.cuh"
@@ -44,6 +46,19 @@ struct MuEpi {
     const float den = lane_matvec<NP>(u, mats, k);
     const float un = u * xv / (den + l1 + l2 * u + eps);
     return row < n_valid ? un : 0.f;
+  }
+
+  // k > 32 (u_pass_common.cuh: wide_rows_kernel): the same ratio, lanes
+  // striding the components, VtV read through L1.
+  __device__ void wide(int row, const float* xv, float* out, float*) const {
+    const int lane = threadIdx.x & 31;
+    const float* u = U + (size_t)row * k;
+    for (int c = lane; c < k; c += 32) {
+      float den = 0.f;
+      for (int l = 0; l < k; ++l) den += u[l] * VtV[(size_t)l * k + c];
+      const float un = u[c] * xv[c] / (den + l1 + l2 * u[c] + eps);
+      out[c] = row < n_valid ? un : 0.f;
+    }
   }
 };
 

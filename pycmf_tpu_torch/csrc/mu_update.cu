@@ -5,16 +5,16 @@
 //
 //   out = M * num / (M S + l1 + l2 * M + eps)      M, num (p, k), S (k, k)
 //
-// all f32, 1 <= k <= 32.
+// all f32, any k >= 1.
 //
 // Bound: bytes. Each element reads M and num and writes out (12 bytes) for
 // k + 4 flops, far below the card's ~20 f32 FMAs per byte of DRAM. At the
 // main path's shapes (11314 x 20, 804414 x 20 at the RCV1 shape) a call
 // moves 2.7 MB or 193 MB: the small one is a launch, not a DRAM stream.
 //
-// Design: one thread per element (i, j), S in shared memory, row i of M
-// read through L1 by the k threads that share it; M S is never written to
-// device memory. Its value is the launches it saves on launch-bound paths:
+// Design: one thread per element (i, j), S (k^2 floats every block shares)
+// and row i of M (shared by its k threads) read through L1; M S is never
+// written to device memory. Its value is the launches it saves on launch-bound paths:
 // the plain version is a GEMM and four elementwise kernels. Sums over c
 // run in a fixed order, so a call repeats bit for bit.
 #include "common.cuh"
@@ -27,29 +27,26 @@ __global__ void __launch_bounds__(kMuThreads)
     mu_update_kernel(const float* __restrict__ M, const float* __restrict__ S,
                      const float* __restrict__ num, long long n, int k,
                      float l1, float l2, float eps, float* __restrict__ out) {
-  __shared__ float Ss[kMaxK * kMaxK];
-  for (int e = threadIdx.x; e < k * k; e += kMuThreads) Ss[e] = S[e];
-  __syncthreads();
   const long long idx = (long long)blockIdx.x * kMuThreads + threadIdx.x;
   if (idx >= n) return;
   const long long i = idx / k;
   const int j = (int)(idx - i * k);
   const float* m = M + i * k;
   float ms = 0.f;
-  for (int c = 0; c < k; ++c) ms = fmaf(m[c], Ss[c * k + j], ms);
+  for (int c = 0; c < k; ++c) ms = fmaf(m[c], __ldg(S + (size_t)c * k + j), ms);
   const float mij = m[j];
   out[idx] = mij * num[idx] / (ms + l1 + l2 * mij + eps);
 }
 
 }  // namespace pycmf
 
-// M, num, out (p, k) and S (k, k): f32, row-major, contiguous.
+// M, num, out (p, k) and S (k, k): f32, row-major, contiguous; k >= 1.
 // Returns the CUDA error of the launch (0 on success).
 extern "C" int pycmf_mu_update(const float* M, const float* S, const float* num,
                                int p, int k, float l1, float l2, float eps,
                                float* out, void* stream) {
   using namespace pycmf;
-  if (p < 1 || k < 1 || k > kMaxK) return (int)cudaErrorInvalidValue;
+  if (p < 1 || k < 1) return (int)cudaErrorInvalidValue;
   const long long n = (long long)p * k;
   const int grid = (int)((n + kMuThreads - 1) / kMuThreads);
   mu_update_kernel<<<grid, kMuThreads, 0, static_cast<cudaStream_t>(stream)>>>(

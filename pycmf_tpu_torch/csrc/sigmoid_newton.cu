@@ -10,243 +10,564 @@
 //       H[i]    = sum_j f'_ij^2 B_j B_j^T           (Gauss-Newton, (n, k, k))
 //   K4  phi[i,0] = phi_i(M_i), phi[i,t] = phi_i(proj(M_i - 2^-(t-1) d_i)),
 //       phi_i(c) = l1 |c|_1 + l2/2 |c|^2 + 1/2 sum_j (X_ij - sigmoid(c.B_j))^2
-// The (n, q) predictions never reach device memory.
+// The (n, q) predictions never reach device memory. Any k >= 1.
 //
-// Bound: operations. Per element of X, K3 does 2k FMAs for the logit and
-// G and k(k+1)/2 for the symmetric H (250 at k = 20) plus a sigmoid; K4
-// does (trials+1) k FMAs and trials+1 sigmoids (180 and 9 at k = 20,
-// trials = 8). At the dense sigmoid-X shape (30000 x 11314) that is 85 G
-// and 61 G f32 FMAs against 0.68 GB of bf16 X: ~2.5 ms and ~1.8 ms at the
-// card's 67 TFLOP/s f32 rate against 0.2 ms for the bytes.
+// Bound: operations. Per element of X, K3 does k products for the logit,
+// k for G and k(k+1)/2 for H's packed triangle (250 at k = 20), K4 does
+// (trials + 1) k products and trials + 1 sigmoids (180 and 9 at k = 20,
+// trials = 8). At the dense sigmoid-X shape (30000 x 11314) K3's products
+// take ~0.6 ms on the tensor cores' peaks (logits and G in 3xTF32 at 495
+// TFLOP/s, H in split bf16 at 989), K4's ~0.74 ms (3xTF32); K4's 3.05 G
+// sigmoids take two MUFU operations each (ex2, rcp), ~1.5 ms at 16 per SM
+// per clock; X's 0.68 GB of bf16 take 0.2 ms. mma.sync reaches a fraction
+// of those peaks (they are wgmma's).
 //
-// Design: both kernels split the q axis as well as the rows (the main
-// path's Z update has 20 rows), write one partial per (q segment, row), and
-// a second kernel sums the segments in order and adds the elastic-net
-// terms once, after the sum (the reference's axis_name arithmetic). No
-// float atomics: a call repeats bit for bit. Logits, G and H are f32 FMAs
-// on the CUDA cores, no TF32 (the line search compares objectives whose
-// differences are far below TF32's noise).
-//   K3 treats H as a product W (rows x q) times BB (q x k(k+1)/2), with
-//   W = f'^2 and BB_j the upper triangle of B_j B_j^T, and G as RF (rows x
-//   q) times B with RF = (P - X) f'. A block owns R rows and walks its q
-//   segment in chunks of J columns: it stages the chunk of X and B in
-//   shared memory, builds BB for the chunk, computes the logits (one row
-//   per thread, B broadcast) and W, RF, then each thread accumulates an
-//   8 x 8 tile of H (or an 8 x 4 tile of G) in registers from float4 reads;
-//   H and G tiles sit in separate warps.
-//   K4 gives each thread one (row, slot) candidate in registers and walks
-//   the chunk's columns with B broadcast, summing the squared residuals.
+// Design:
+// - Logits and G on mma.sync m16n8k8 TF32 tiles in 3xTF32 (common.cuh:
+//   mma_3xtf32), the reference's HIGHEST. H, the bulk of the products, in
+//   split bf16 on m16n8k16 tiles (mma_3xbf16: each operand split into two
+//   bf16 parts, three products, ~2^-16 relative per product): half the
+//   mma.sync instructions of 3xTF32 per product, and the reference itself
+//   builds H at DEFAULT precision. (A single TF32 or bf16 pass carries
+//   2^-11 to 2^-8 relative error per product: at small q that is above the
+//   1e-4 bar H's checks hold it to.) Each chunk's mma chain starts from
+//   zero and is added to the f32 running sums (promote, as in
+//   u_pass_common.cuh).
+// - The splits are integer operations (split_fast, split_bf16x2), each
+//   operand split once where it is made: cvt.rna runs on the conversion
+//   pipe, a quarter of the FMA rate, and a first version that split every
+//   operand at each use was bound by it.
+// - One prologue launch pads B, M (and K4's d) to KG = k rounded up to 8
+//   columns and whole 32-row (64-row) tiles, so the CTAs copy them without
+//   masks (K3's M in TF32 parts), and builds K3's pair table (below).
+// - K3 is a GEMM with an epilogue in front: [H | G] (rows x T's width) =
+//   [W | RF] (rows x q) times T, T_j = [BB_j, the packed upper triangle of
+//   B_j B_j^T, padded to 8 | B_j (KG columns)], with W = f'^2 for T's pair
+//   columns and RF = (P - X) f' for its B columns. G's columns come last,
+//   where the last column tile has room; zero columns are skipped. A
+//   256-thread CTA owns 64 rows, 128 columns of T and a segment of q,
+//   walked in 32-column chunks. X comes through a 3-stage cp.async ring,
+//   two chunks ahead of its use (one chunk ahead left the sweep waiting on
+//   DRAM), its rows copied as the 16-byte chunks covering them and read at
+//   their offsets, as in u_pass_common.cuh (bf16 rows of odd q are 2-byte
+//   aligned); B's rows and the pair tile come one chunk ahead. Per chunk:
+//   the logits (64 x 32) = M B^T on mma, P, f', W and RF in registers, then
+//   W (bf16 parts) and RF (f32) to shared memory as the next mma's A
+//   operand; then W times the chunk's tile of T's pair columns, and RF
+//   times the chunk's B for the CTA's G columns, into registers. The pair
+//   columns are built once per call (gh_table_entry: bf16 parts, column by
+//   column within each chunk, so that each fragment register is one 32-bit
+//   load; 11.6 MB at q = 11314, k = 20, read from L2): built in each CTA
+//   instead, for every 64 rows, they took about a third of the call at the
+//   sigmoid-X shape. Column tiles across the grid are what let any k run.
+// - K4: a 256-thread CTA owns 64 rows and a q segment; each warp holds 16
+//   rows and 16 columns of a chunk, reads its X values from shared memory
+//   once, and walks the slots: the candidate rows are built in the A
+//   fragments (slot 0 = M, slot t = proj(M - 2^-(t-1) d), candidates()'s
+//   f32 formula), their logits on mma, the squared residuals summed per
+//   (row, slot) in registers, then across the quad's lanes by shuffles and
+//   into a per-(row, slot) shared-memory sum. For k <= 32 the warp's M and
+//   d fragments stay in registers for the call, and the chunk's B
+//   fragments, split, for all its slots.
+// - M, d and the chunk's B rows sit in shared memory when they fit (KG up
+//   to ~240); past that the fragments are read from the padded copies in
+//   device memory (the same generic loads).
+// - Both kernels split q into segments so that path A's 20 rows fill the
+//   card, write one partial per (segment, row), and a second kernel sums
+//   the segments in order and adds the elastic-net terms once, after the
+//   sum (the reference's axis_name arithmetic). No float atomics: a call
+//   repeats bit for bit.
+// - The plan (q segments, the table's width, whether the operands fit in
+//   shared memory) is computed by the Python wrapper
+//   (ops/kernels/sigmoid_newton.py) and checked here.
 #include "common.cuh"
 
 namespace pycmf {
 
-__device__ __forceinline__ float sigmoid(float t) { return 1.f / (1.f + expf(-t)); }
+constexpr int kSRows = 64;       // rows per CTA
+constexpr int kSQ = 32;          // q columns per chunk
+constexpr int kSCols = 128;      // columns of T per K3 CTA
+constexpr int kSThreads = 256;   // 8 warps
+constexpr int kSStages = 2;       // K4's ring; K3's B and pair tiles
+constexpr int kXStages = 3;       // K3's X ring: X two chunks ahead
+constexpr int kWLd = kSQ + 4;     // RF tile row stride (words): 4 g + t
+constexpr int kP2 = kSQ / 2 + 4;  // W and T bf16-pair rows (words): 20 g + t
+constexpr int kSmemMax = 232448;
 
-// Split q into segments (multiples of the chunk width J) so that row tiles
-// times segments give about four blocks per SM.
-struct SegPlan {
-  int n_seg;
-  int seg_len;
+// sigma(t) with the SFU's exp and reciprocal (~1e-7 relative).
+__device__ __forceinline__ float sigmoid_fast(float t) {
+  return __fdividef(1.f, 1.f + __expf(-t));
+}
+
+// x = hi + lo: hi is x rounded to TF32 (to nearest on the 13 dropped bits,
+// by integer operations), lo = x - hi exactly; the tensor core drops lo's
+// own low bits (~2^-21 |x|), as with split_tf32's second cvt.rna.
+__device__ __forceinline__ void split_fast(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  const uint32_t h = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  hi = h;
+  lo = __float_as_uint(x - __uint_as_float(h));
+}
+
+// Two values as bf16 pairs, x0 in the low halves: hi = the values rounded
+// to bf16 (to nearest even), lo = the remainders rounded to bf16; x = hi +
+// lo + O(2^-16 |x|).
+__device__ __forceinline__ uint32_t bf16_rne(float x) {
+  const uint32_t u = __float_as_uint(x);
+  return (u + 0x7fffu + ((u >> 16) & 1u)) >> 16;
+}
+__device__ __forceinline__ void split_bf16x2(float x0, float x1, uint32_t& hi,
+                                             uint32_t& lo) {
+  const uint32_t h0 = bf16_rne(x0), h1 = bf16_rne(x1);
+  hi = h0 | (h1 << 16);
+  lo = bf16_rne(x0 - __uint_as_float(h0 << 16)) |
+       (bf16_rne(x1 - __uint_as_float(h1 << 16)) << 16);
+}
+
+// Split bf16: lo(a) hi(b) + hi(a) lo(b) + hi(a) hi(b), in that order.
+__device__ __forceinline__ void mma_3xbf16(float (&d)[4],
+                                           const uint32_t (&ahi)[4],
+                                           const uint32_t (&alo)[4],
+                                           uint32_t bh0, uint32_t bl0,
+                                           uint32_t bh1, uint32_t bl1) {
+  mma_bf16(d, alo, bh0, bh1);
+  mma_bf16(d, ahi, bl0, bl1);
+  mma_bf16(d, ahi, bh0, bh1);
+}
+
+__host__ __device__ inline int pad8(int k) { return (k + 7) / 8 * 8; }
+__host__ __device__ inline int ops_ld(int kg) { return kg + 4; }
+
+// Shared-memory layout of one CTA, in bytes (all offsets multiples of 16):
+// per stage the X tile (kSRows x (kSQ + 16 / xb) elements) and, when the
+// operands sit in shared memory, the chunk's B rows (kSQ x ops_ld f32);
+// then K3's M in TF32 parts or K4's M and d (kSRows x ops_ld words each,
+// same condition); then K3's W tile (bf16 pairs, hi and lo, kSRows x kP2
+// words each) and RF tile (f32, kSRows x kWLd), or K4's per-(row, slot)
+// sums. K3's X ring comes first, and its stages hold the pair tile (bf16
+// pairs, hi and lo, kSCols x kP2 words each) and B's rows.
+struct SLayout {
+  int x_ld, x_bytes, t_bytes, bk_bytes, stage, x_ring, ops, tail, total;
+  __host__ __device__ SLayout(int xb, int kg, bool gh, bool ops_smem,
+                              int slots) {
+    x_ld = kSQ + 16 / xb;
+    x_bytes = kSRows * x_ld * xb;
+    t_bytes = gh ? 2 * kSCols * kP2 * 4 : 0;
+    bk_bytes = ops_smem ? kSQ * ops_ld(kg) * 4 : 0;
+    // K3: X ring of its own, then stages of (pair tile, B rows); K4:
+    // stages of (X tile, B rows)
+    stage = (gh ? 0 : x_bytes) + t_bytes + bk_bytes;
+    x_ring = gh ? kXStages * x_bytes : 0;
+    ops = ops_smem ? 2 * kSRows * ops_ld(kg) * 4 : 0;  // M hi, lo; M, d
+    tail = gh ? (2 * kSRows * kP2 + kSRows * kWLd) * 4
+              : 2 * slots * kSRows * 4;
+    total = x_ring + kSStages * stage + ops + tail;
+  }
 };
 
-inline SegPlan plan_segments(int row_tiles, int q, int J) {
-  const int chunks = ceil_div(q, J);
-  int s = ceil_div(4 * sm_count(), row_tiles);
-  s = s < 1 ? 1 : (s > chunks ? chunks : s);
-  const int per = ceil_div(chunks, s);
-  return {ceil_div(chunks, per), per * J};
+// Copy slots of one thread for the X tile: chunk c of the tile (row r =
+// c / n_ch, 16-byte chunk q = c % n_ch of the row), fixed for the sweep.
+// Chunks start on the aligned 16 bytes below X[row, c_begin]; a chunk at or
+// past the row's end is zero-filled, as are rows past n. The chunk of
+// stage i is i * kSQ columns on (kSQ columns span a multiple of 16 bytes).
+template <typename XT, int kSlots>
+struct XCopy {
+  const char* src[kSlots];
+  long long left[kSlots];
+  int dst[kSlots];
+
+  __device__ void init(const XT* X, int n, int q, int row0, int c_begin,
+                       int x_ld) {
+    constexpr int kEl = 16 / (int)sizeof(XT);
+    const int n_ch = x_ld / kEl;
+#pragma unroll
+    for (int s = 0; s < kSlots; ++s) {
+      const int c = threadIdx.x + s * kSThreads, r = c / n_ch, qc = c % n_ch;
+      dst[s] = r < kSRows ? r * x_ld + qc * kEl : -1;
+      src[s] = reinterpret_cast<const char*>(X);
+      left[s] = 0;
+      if (r < kSRows && row0 + r < n) {
+        const char* rp = reinterpret_cast<const char*>(X + (size_t)(row0 + r) * q);
+        const char* at = reinterpret_cast<const char*>(X + (size_t)(row0 + r) * q + c_begin);
+        src[s] = reinterpret_cast<const char*>(
+                     reinterpret_cast<uintptr_t>(at) & ~uintptr_t(15)) + 16 * qc;
+        left[s] = (long long)(rp + (size_t)q * sizeof(XT) - src[s]);
+      }
+    }
+  }
+
+  __device__ void load(XT* Xs, int i) const {
+    constexpr long long kStep = kSQ * (long long)sizeof(XT);
+#pragma unroll
+    for (int s = 0; s < kSlots; ++s) {
+      if (dst[s] < 0) continue;
+      const bool ok = left[s] > i * kStep;
+      cp_async16(Xs + dst[s], ok ? src[s] + i * kStep : src[s], ok ? 16 : 0);
+    }
+  }
+};
+
+template <typename XT>
+__host__ __device__ constexpr int x_slots() {
+  return (kSRows * ((kSQ + 16 / (int)sizeof(XT)) / (16 / (int)sizeof(XT))) +
+          kSThreads - 1) / kSThreads;
+}
+
+// Element offset of X[row, c_begin] within its 16-byte chunk (0 past n).
+template <typename XT>
+__device__ __forceinline__ int x_offset(const XT* X, int n, int q, int row,
+                                        int c_begin) {
+  if (row >= n) return 0;
+  return (int)((reinterpret_cast<uintptr_t>(X + (size_t)row * q + c_begin) &
+                15) / sizeof(XT));
+}
+
+// Copy rows (columns 0 .. cols - 1, cols a multiple of 4) of a row-major
+// f32 matrix with row stride ld into shared memory with row stride lds.
+__device__ __forceinline__ void copy_rows(float* dst, int lds,
+                                          const float* src, size_t ld,
+                                          int rows, int cols) {
+  const int per = cols / 4;
+  for (int c = threadIdx.x; c < rows * per; c += kSThreads) {
+    const int r = c / per, e = (c % per) * 4;
+    cp_async16(dst + r * lds + e, src + r * ld + e);
+  }
+}
+
+// A fragment (m16 x k8 at column kk) of a row-major f32 operand with row
+// stride ld, split.
+__device__ __forceinline__ void a_frag(const float* A, int ld, int kk, int g,
+                                       int t, uint32_t (&hi)[4],
+                                       uint32_t (&lo)[4]) {
+  split_fast(A[g * ld + kk + t], hi[0], lo[0]);
+  split_fast(A[(g + 8) * ld + kk + t], hi[1], lo[1]);
+  split_fast(A[g * ld + kk + t + 4], hi[2], lo[2]);
+  split_fast(A[(g + 8) * ld + kk + t + 4], hi[3], lo[3]);
+}
+
+// The same fragment of an operand stored split (hi and lo arrays).
+__device__ __forceinline__ void a_frag_split(const uint32_t* H,
+                                             const uint32_t* L, int ld,
+                                             int kk, int g, int t,
+                                             uint32_t (&hi)[4],
+                                             uint32_t (&lo)[4]) {
+  const int o[4] = {g * ld + kk + t, (g + 8) * ld + kk + t,
+                    g * ld + kk + t + 4, (g + 8) * ld + kk + t + 4};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    hi[i] = H[o[i]];
+    lo[i] = L[o[i]];
+  }
 }
 
 // ---------------------------------------------------------------- K3 ----
 
-template <int KP>
-struct Gh {
-  static constexpr int R = KP <= 24 ? 64 : 32;  // rows per block
-  static constexpr int J = 32;                  // columns per chunk
-  static constexpr int NP = KP * (KP + 1) / 2;  // packed upper triangle
-  static constexpr int NGH = (NP + 7) / 8;      // 8-wide H column groups
-  static constexpr int NP8 = NGH * 8;
-  static constexpr int NGG = KP / 4;            // 4-wide G column groups
-  static constexpr int NRG = R / 8;             // 8-row groups
-  // H tiles, then G tiles, each role padded to whole warps (a warp that
-  // held both would run both loops, one after the other)
-  static constexpr int NH_TILES = NRG * NGH;
-  static constexpr int NG_TILES = NRG * NGG;
-  static constexpr int NH = (NH_TILES + 31) / 32 * 32;
-  static constexpr int NT = NH + (NG_TILES + 31) / 32 * 32;
-  static constexpr int EJG = NT / R;            // logit phase: column groups
-  static constexpr int XLD = J + 1;             // odd strides: no bank conflicts
-  static constexpr int MLD = KP + 1;
-  // shared memory, in floats; the float4-read arrays come first (aligned)
-  static constexpr int OFF_BB = J * KP;
-  static constexpr int OFF_W = OFF_BB + J * NP8;
-  static constexpr int OFF_RF = OFF_W + J * R;
-  static constexpr int OFF_X = OFF_RF + J * R;
-  static constexpr int OFF_M = OFF_X + R * XLD;
-  static constexpr int OFF_PAIR = OFF_M + R * MLD;
-  static constexpr int SMEM_BYTES = (OFF_PAIR + 2 * NP8) * 4;
-};
+// Column of G's first component in T: the pairs rounded up to 8.
+__host__ __device__ inline int g_offset(int k) { return pad8(k * (k + 1) / 2); }
 
-// Offset of pair (a, b), a <= b, in the packed upper triangle of a KP x KP
-// matrix (row-major).
-__host__ __device__ __forceinline__ int pair_index(int a, int b, int KP) {
-  return a * KP - a * (a - 1) / 2 + (b - a);
+// part[seg, row, c] for c in this CTA's 128 columns of T: the segment's
+// sum of W (pair columns) or RF (G's columns) times T[:, c]. Bp (q rounded
+// up to 32 rows x kg): B zero-padded; Mh, Ml (n rounded up to 64 rows x
+// kg): M zero-padded, in TF32 parts; Tg: T's pair columns
+// (gh_table_kernel).
+template <typename XT>
+__global__ void __launch_bounds__(kSThreads, 2)
+    gh_part_kernel(const XT* __restrict__ X, const uint32_t* __restrict__ Mh,
+                   const uint32_t* __restrict__ Ml,
+                   const float* __restrict__ Bp,
+                   const uint32_t* __restrict__ Tg, int n, int q, int k,
+                   int ldp, int seg_len, int ops_smem,
+                   float* __restrict__ part) {
+  const int kg = pad8(k), gofs = g_offset(k);
+  const SLayout lay(sizeof(XT), kg, true, ops_smem, 0);
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int row0 = blockIdx.x * kSRows;
+  const int col0 = blockIdx.y * kSCols;
+  const int c_begin = blockIdx.z * seg_len;
+  const int c_end = min(q, c_begin + seg_len);
+  const int n_chunks = (c_end - c_begin + kSQ - 1) / kSQ;
+  const int ldo = ops_ld(kg);
+  unsigned char* stages = smem + lay.x_ring;
+  uint32_t* Msh = reinterpret_cast<uint32_t*>(stages + kSStages * lay.stage);
+  uint32_t* Msl = Msh + kSRows * ldo;
+  uint32_t* Wh = reinterpret_cast<uint32_t*>(stages + kSStages * lay.stage +
+                                             lay.ops);  // [row][q pair]
+  uint32_t* Wl = Wh + kSRows * kP2;
+  float* RFs = reinterpret_cast<float*>(Wl + kSRows * kP2);  // [row][q]
+  auto stage_x = [&](int i) {
+    return reinterpret_cast<XT*>(smem + (i % kXStages) * lay.x_bytes);
+  };
+  // pair tile [column][q pair]: hi words, then lo words
+  auto stage_t = [&](int i) {
+    return reinterpret_cast<uint32_t*>(stages + (i % kSStages) * lay.stage);
+  };
+  auto stage_bk = [&](int i) {
+    return reinterpret_cast<float*>(stages + (i % kSStages) * lay.stage +
+                                    lay.t_bytes);
+  };
+
+  XCopy<XT, x_slots<XT>()> xc;
+  xc.init(X, n, q, row0, c_begin, lay.x_ld);
+  auto load_x = [&](int i) {
+    if (i < n_chunks) xc.load(stage_x(i), i);
+    cp_async_commit();
+  };
+  // the chunk's 128 pair columns: 32 words each (16 hi, 16 lo)
+  auto load_tb = [&](int i) {
+    if (i < n_chunks) {
+      const int ci = c_begin / kSQ + i;
+      const uint32_t* src = Tg + ((size_t)ci * ldp + col0) * kSQ;
+      uint32_t* th = stage_t(i);
+      for (int c = tid; c < kSCols * 8; c += kSThreads) {
+        const int col = c >> 3, part4 = c & 7;
+        cp_async16(th + (part4 >> 2) * kSCols * kP2 + col * kP2 +
+                       (part4 & 3) * 4,
+                   src + col * kSQ + part4 * 4);
+      }
+      if (ops_smem)
+        copy_rows(stage_bk(i), ldo, Bp + (size_t)(c_begin + i * kSQ) * kg,
+                  kg, kSQ, kg);
+    }
+    cp_async_commit();
+  };
+  if (ops_smem) {
+    copy_rows(reinterpret_cast<float*>(Msh), ldo,
+              reinterpret_cast<const float*>(Mh) + (size_t)row0 * kg, kg,
+              kSRows, kg);
+    copy_rows(reinterpret_cast<float*>(Msl), ldo,
+              reinterpret_cast<const float*>(Ml) + (size_t)row0 * kg, kg,
+              kSRows, kg);
+  }
+  load_tb(0);  // with M
+  load_x(0);
+  load_x(1);
+
+  // logit phase: warp = (16-row tile lm, n8 tiles ln, ln + 1 of the chunk)
+  const int lm = warp >> 1, ln = (warp & 1) * 2;
+  const size_t moff = (size_t)(row0 + lm * 16) * kg;
+  const uint32_t* Mah = ops_smem ? Msh + lm * 16 * ldo : Mh + moff;
+  const uint32_t* Mal = ops_smem ? Msl + lm * 16 * ldo : Ml + moff;
+  const int lda = ops_smem ? ldo : kg;
+  const int rlo = lm * 16 + g, rhi = rlo + 8;
+  const int xo[2] = {x_offset(X, n, q, row0 + rlo, c_begin),
+                     x_offset(X, n, q, row0 + rhi, c_begin)};
+  // product phase: warp = (16-row tile lm, 64 columns hc of the tile)
+  const int hc = (warp & 1) * 64;
+  // the CTA holds some of G's columns [gofs, gofs + kg), and so does this
+  // warp
+  const bool cta_g = col0 < gofs + kg && col0 + kSCols > gofs;
+  const bool has_g = col0 + hc < gofs + kg && col0 + hc + 64 > gofs;
+  float acc[8][4];
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+  for (int i = 0; i < n_chunks; ++i) {
+    // groups in flight: ..., (pair tile, B) of i, X of i + 1; all but the
+    // newest complete: chunk i landed
+    cp_async_wait<1>();
+    __syncthreads();  // ... and every warp is done with chunk i - 1
+    load_tb(i + 1);
+    load_x(i + 2);
+    const int j0 = c_begin + i * kSQ;
+    const XT* Xs = stage_x(i);
+    const float* Bk = ops_smem ? stage_bk(i) : Bp + (size_t)j0 * kg;
+    const int ldb = ops_smem ? ldo : kg;
+    // two chains per tile (even and odd k-steps) for the tensor cores'
+    // latency, added in f32 after
+    float c[2][4] = {}, c2[2][4] = {};
+    auto logit_step = [&](int kk, float (&cc)[2][4]) {
+      uint32_t hi[4], lo[4];
+      a_frag_split(Mah, Mal, lda, kk, g, t, hi, lo);
+#pragma unroll
+      for (int jn = 0; jn < 2; ++jn) {
+        const float* b = Bk + ((ln + jn) * 8 + g) * ldb + kk + t;
+        uint32_t bh0, bl0, bh1, bl1;
+        split_fast(b[0], bh0, bl0);
+        split_fast(b[4], bh1, bl1);
+        mma_3xtf32(cc[jn], hi, lo, bh0, bl0, bh1, bl1);
+      }
+    };
+    for (int kk = 0; kk < kg; kk += 16) {
+      logit_step(kk, c);
+      if (kk + 8 < kg) logit_step(kk + 8, c2);
+    }
+#pragma unroll
+    for (int jn = 0; jn < 2; ++jn)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) c[jn][e] += c2[jn][e];
+#pragma unroll
+    for (int jn = 0; jn < 2; ++jn)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = h ? rhi : rlo, jc = (ln + jn) * 8 + 2 * t;
+        float w[2], rf[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const bool ok = row0 + r < n && j0 + jc + e < c_end;
+          const float p = sigmoid_fast(c[jn][2 * h + e]);
+          const float fp = p * (1.f - p);
+          const float x = to_float(Xs[r * lay.x_ld + xo[h] + jc + e]);
+          w[e] = ok ? fp * fp : 0.f;
+          rf[e] = ok ? (p - x) * fp : 0.f;
+        }
+        split_bf16x2(w[0], w[1], Wh[r * kP2 + jc / 2], Wl[r * kP2 + jc / 2]);
+        if (cta_g) {
+          RFs[r * kWLd + jc] = rf[0];
+          RFs[r * kWLd + jc + 1] = rf[1];
+        }
+      }
+    __syncthreads();  // W and RF of the chunk are in shared memory
+    const uint32_t* Th = stage_t(i);
+    const uint32_t* Tl = Th + kSCols * kP2;
+    // each tile's chain of the chunk starts from zero and is added to acc
+    // H: W times the pair tile, m16n8k16 in split bf16 (word kw = q pair)
+    uint32_t whi[2][4], wlo[2][4];
+#pragma unroll
+    for (int s2 = 0; s2 < 2; ++s2)
+      a_frag_split(Wh + lm * 16 * kP2, Wl + lm * 16 * kP2, kP2, 8 * s2, g, t,
+                   whi[s2], wlo[s2]);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      if (col0 + hc + 8 * j >= gofs) continue;  // G's or zero (uniform)
+      float part_[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int s2 = 0; s2 < 2; ++s2) {
+        const int o = (hc + 8 * j + g) * kP2 + 8 * s2 + t;
+        mma_3xbf16(part_, whi[s2], wlo[s2], Th[o], Tl[o], Th[o + 4],
+                   Tl[o + 4]);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] += part_[e];
+    }
+    // G: RF times the chunk's B columns, 3xTF32
+    if (has_g) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int gc = col0 + hc + 8 * j - gofs;  // B's column
+        if (gc < 0 || gc >= kg) continue;  // warp-uniform
+        float part_[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int kk = 0; kk < kSQ; kk += 8) {
+          uint32_t rhi_[4], rlo_[4], bh0, bl0, bh1, bl1;
+          a_frag(RFs + lm * 16 * kWLd, kWLd, kk, g, t, rhi_, rlo_);
+          split_fast(Bk[(kk + t) * ldb + gc + g], bh0, bl0);
+          split_fast(Bk[(kk + t + 4) * ldb + gc + g], bh1, bl1);
+          mma_3xtf32(part_, rhi_, rlo_, bh0, bl0, bh1, bl1);
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[j][e] += part_[e];
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  float* dst = part + (size_t)blockIdx.z * n * ldp;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = row0 + lm * 16 + g + 8 * h;
+      const int col = col0 + hc + 8 * j + 2 * t;
+      if (row < n)
+        *reinterpret_cast<float2*>(dst + (size_t)row * ldp + col) =
+            make_float2(acc[j][2 * h], acc[j][2 * h + 1]);
+    }
 }
 
-// part_g[seg, row, 0:KP] and part_h[seg, row, 0:NP8]: the segment's sums.
-// Two blocks per SM: at one (the 155 registers the compiler picks) each
-// chunk's global loads and barriers stall the SM; capped at two it spills
-// a few bytes and ran 22% faster on an H100 at 30000 x 11314 (PERF.md).
-template <typename XT, int KP>
-__global__ void __launch_bounds__(Gh<KP>::NT, 2)
-    gh_part_kernel(const XT* __restrict__ X, const float* __restrict__ M,
-                   const float* __restrict__ B, int n, int q, int k,
-                   int seg_len, float* __restrict__ part_g,
-                   float* __restrict__ part_h) {
-  using C = Gh<KP>;
-  extern __shared__ __align__(16) float sm[];
-  float* Bs = sm;                // J x KP
-  float* BBs = sm + C::OFF_BB;   // J x NP8
-  float* Ws = sm + C::OFF_W;     // J x R, column-major in rows
-  float* RFs = sm + C::OFF_RF;   // J x R
-  float* Xs = sm + C::OFF_X;     // R x XLD
-  float* Ms = sm + C::OFF_M;     // R x MLD
-  int* pa = reinterpret_cast<int*>(sm + C::OFF_PAIR);
-  int* pb = pa + C::NP8;
-  const int tid = threadIdx.x;
-  const int row0 = blockIdx.x * C::R;
-  const int seg = blockIdx.y;
-  const int c_begin = seg * seg_len;
-  const int c_end = min(q, c_begin + seg_len);
-
-  for (int e = tid; e < C::NP8; e += C::NT) {
-    int a = -1, b = -1;  // padding pairs
-    if (e < C::NP) {
-      int r = e;
-      a = 0;
-      while (r >= KP - a) {  // row a of the triangle holds KP - a pairs
-        r -= KP - a;
-        ++a;
-      }
-      b = a + r;
+// Tg (q rounded up to 32 / 32 chunks x ldp columns x 32 words): for chunk
+// ci and column c of T below k(k+1)/2, pair (a, b) = the column's place in
+// the packed upper triangle, word jp < 16 holds the bf16 high parts of
+// B_ja B_jb for j = 32 ci + 2 jp and j + 1 (zero past q), word 16 + jp
+// their low parts; columns past the pairs are zero (G's columns are read
+// from B itself).
+__device__ __forceinline__ void gh_table_entry(const float* __restrict__ B,
+                                               int q, int k, int ldp,
+                                               long long idx,
+                                               uint32_t* __restrict__ Tg) {
+  const int jp = (int)(idx % (kSQ / 2));
+  const long long cc = idx / (kSQ / 2);
+  const int c = (int)(cc % ldp), ci = (int)(cc / ldp);
+  float v[2] = {0.f, 0.f};
+  if (c < k * (k + 1) / 2) {
+    int r = c, a = 0;
+    while (r >= k - a) {  // row a of the triangle holds k - a pairs
+      r -= k - a;
+      ++a;
     }
-    pa[e] = a;
-    pb[e] = b;
-  }
-  for (int e = tid; e < C::R * KP; e += C::NT) {
-    const int r = e / KP, c = e % KP;
-    Ms[r * C::MLD + c] =
-        (row0 + r < n && c < k) ? M[(size_t)(row0 + r) * k + c] : 0.f;
-  }
-
-  const bool is_h = tid < C::NH_TILES;
-  const bool is_g = tid >= C::NH && tid - C::NH < C::NG_TILES;
-  const int item = tid < C::NH ? tid : tid - C::NH;
-  const int rg = tid < C::NH ? item / C::NGH : item / C::NGG;
-  const int cg = tid < C::NH ? item % C::NGH : item % C::NGG;
-  float acc[8][8];
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int c = 0; c < 8; ++c) acc[i][c] = 0.f;
-
-  // logit phase: thread = (row, column group)
-  const int er = tid % C::R, ejg = tid / C::R;
-  const bool is_logit = ejg < C::EJG;
-
-  for (int j0 = c_begin; j0 < c_end; j0 += C::J) {
-    const int len = min(C::J, c_end - j0);
-    __syncthreads();  // the previous chunk is done with every buffer
-    for (int e = tid; e < C::R * C::J; e += C::NT) {
-      const int r = e / C::J, j = e % C::J;
-      Xs[r * C::XLD + j] = (row0 + r < n && j < len)
-                               ? to_float(X[(size_t)(row0 + r) * q + j0 + j])
-                               : 0.f;
-    }
-    for (int e = tid; e < C::J * KP; e += C::NT) {
-      const int j = e / KP, c = e % KP;
-      Bs[e] = (j < len && c < k) ? B[(size_t)(j0 + j) * k + c] : 0.f;
-    }
-    __syncthreads();
-    for (int e = tid; e < C::J * C::NP8; e += C::NT) {
-      const int j = e / C::NP8, pr = e % C::NP8;
-      const int a = pa[pr];
-      BBs[e] = a >= 0 ? Bs[j * KP + a] * Bs[j * KP + pb[pr]] : 0.f;
-    }
-    if (is_logit) {
-      float m[KP];
-#pragma unroll
-      for (int c = 0; c < KP; ++c) m[c] = Ms[er * C::MLD + c];
-      for (int j = ejg; j < len; j += C::EJG) {
-        const float4* b4 = reinterpret_cast<const float4*>(Bs + j * KP);
-        float t = 0.f;
-#pragma unroll
-        for (int p = 0; p < KP / 4; ++p) {
-          const float4 v = b4[p];
-          t += m[4 * p + 0] * v.x;
-          t += m[4 * p + 1] * v.y;
-          t += m[4 * p + 2] * v.z;
-          t += m[4 * p + 3] * v.w;
-        }
-        const float pr = sigmoid(t);
-        const float fp = pr * (1.f - pr);
-        Ws[j * C::R + er] = fp * fp;
-        RFs[j * C::R + er] = (pr - Xs[er * C::XLD + j]) * fp;
-      }
-    }
-    __syncthreads();
-    if (is_h) {
-      for (int j = 0; j < len; ++j) {
-        // the tile's 8 pair slots are 4cg..4cg+3 and 4(NGH+cg)..: lanes
-        // read consecutive float4s (no bank conflicts)
-        const float4* w4 = reinterpret_cast<const float4*>(Ws + j * C::R + rg * 8);
-        const float4* b4 = reinterpret_cast<const float4*>(BBs + j * C::NP8);
-        const float4 w0 = w4[0], w1 = w4[1], b0 = b4[cg], b1 = b4[C::NGH + cg];
-        const float w[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
-        const float bb[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-#pragma unroll
-          for (int c = 0; c < 8; ++c) acc[i][c] += w[i] * bb[c];
-      }
-    } else if (is_g) {
-      for (int j = 0; j < len; ++j) {
-        const float4* r4 = reinterpret_cast<const float4*>(RFs + j * C::R + rg * 8);
-        const float4 r0 = r4[0], r1 = r4[1];
-        const float4 bv = *reinterpret_cast<const float4*>(Bs + j * KP + cg * 4);
-        const float rf[8] = {r0.x, r0.y, r0.z, r0.w, r1.x, r1.y, r1.z, r1.w};
-        const float bb[4] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-#pragma unroll
-          for (int c = 0; c < 4; ++c) acc[i][c] += rf[i] * bb[c];
-      }
+    for (int e = 0; e < 2; ++e) {
+      const int j = ci * kSQ + 2 * jp + e;
+      if (j < q) v[e] = B[(size_t)j * k + a] * B[(size_t)j * k + a + r];
     }
   }
+  uint32_t hi, lo;
+  split_bf16x2(v[0], v[1], hi, lo);
+  uint32_t* dst = Tg + cc * kSQ;
+  dst[jp] = hi;
+  dst[kSQ / 2 + jp] = lo;
+}
 
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int row = row0 + rg * 8 + i;
-    if (row >= n) continue;
-    if (is_h) {
-      float* dst = part_h + ((size_t)seg * n + row) * C::NP8;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        dst[4 * cg + c] = acc[i][c];
-        dst[4 * (C::NGH + cg) + c] = acc[i][4 + c];
-      }
-    } else if (is_g) {
-      float* dst = part_g + ((size_t)seg * n + row) * KP + cg * 4;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) dst[c] = acc[i][c];
-    }
+// Offset of pair (a, b), a <= b, in the packed upper triangle of a k x k
+// matrix (row-major).
+__host__ __device__ __forceinline__ int pair_index(int a, int b, int k) {
+  return a * k - a * (a - 1) / 2 + (b - a);
+}
+
+// Entry idx of A (rows x k) zero-padded to kg columns.
+__device__ __forceinline__ float padded(const float* __restrict__ A, int rows,
+                                        int k, int kg, long long idx) {
+  const int r = (int)(idx / kg), c = (int)(idx % kg);
+  return r < rows && c < k ? A[(size_t)r * k + c] : 0.f;
+}
+
+// K3's prologue, one launch: Bp (q_pad x kg) = B padded; Mh, Ml (n_pad x
+// kg) = M padded, in TF32 parts; Tg = T's pair columns.
+__global__ void gh_prologue_kernel(const float* __restrict__ B,
+                                   const float* __restrict__ M, int n, int q,
+                                   int k, int kg, int ldp,
+                                   float* __restrict__ Bp,
+                                   uint32_t* __restrict__ Mh,
+                                   uint32_t* __restrict__ Ml,
+                                   uint32_t* __restrict__ Tg) {
+  const long long nb = (long long)((q + kSQ - 1) / kSQ) * kSQ * kg;
+  const long long nm = (long long)((n + kSRows - 1) / kSRows) * kSRows * kg;
+  const long long nt = (long long)((q + kSQ - 1) / kSQ) * ldp * (kSQ / 2);
+  long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx < nb) {
+    Bp[idx] = padded(B, q, k, kg, idx);
+  } else if ((idx -= nb) < nm) {
+    split_fast(padded(M, n, k, kg, idx), Mh[idx], Ml[idx]);
+  } else if ((idx -= nm) < nt) {
+    gh_table_entry(B, q, k, ldp, idx, Tg);
+  }
+}
+
+// K4's prologue, one launch: Bp, Mp, Dp = B, M, d padded.
+__global__ void phi_prologue_kernel(const float* __restrict__ B,
+                                    const float* __restrict__ M,
+                                    const float* __restrict__ d, int n, int q,
+                                    int k, int kg, float* __restrict__ Bp,
+                                    float* __restrict__ Mp,
+                                    float* __restrict__ Dp) {
+  const long long nb = (long long)((q + kSQ - 1) / kSQ) * kSQ * kg;
+  const long long nm = (long long)((n + kSRows - 1) / kSRows) * kSRows * kg;
+  long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx < nb) {
+    Bp[idx] = padded(B, q, k, kg, idx);
+  } else if ((idx -= nb) < nm) {
+    Mp[idx] = padded(M, n, k, kg, idx);
+  } else if ((idx -= nm) < nm) {
+    Dp[idx] = padded(d, n, k, kg, idx);
   }
 }
 
 // G = sum over segments (in order) + l1 sign(M) + l2 M; H unpacked to (k, k).
-__global__ void gh_reduce_kernel(const float* __restrict__ part_g,
-                                 const float* __restrict__ part_h, int n_seg,
-                                 int n, int k, int KP, int NP8,
+__global__ void gh_reduce_kernel(const float* __restrict__ part, int n_seg,
+                                 int n, int k, int ldp,
                                  const float* __restrict__ M, float l1,
                                  float l2, float* __restrict__ G,
                                  float* __restrict__ H) {
@@ -254,120 +575,218 @@ __global__ void gh_reduce_kernel(const float* __restrict__ part_g,
   const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= (long long)n * per) return;
   const int row = (int)(idx / per), e = (int)(idx % per);
+  const float* p = part + (size_t)row * ldp;
+  const size_t seg_stride = (size_t)n * ldp;
   float s = 0.f;
   if (e < k) {
-    for (int g = 0; g < n_seg; ++g) s += part_g[((size_t)g * n + row) * KP + e];
+    const int c = g_offset(k) + e;
+    for (int sg = 0; sg < n_seg; ++sg) s += p[sg * seg_stride + c];
     const float m = M[(size_t)row * k + e];
     const float sgn = m > 0.f ? 1.f : (m < 0.f ? -1.f : 0.f);
     G[(size_t)row * k + e] = s + l1 * sgn + l2 * m;
   } else {
     const int ab = e - k, a = ab / k, b = ab % k;
-    const int pr = pair_index(min(a, b), max(a, b), KP);
-    for (int g = 0; g < n_seg; ++g) s += part_h[((size_t)g * n + row) * NP8 + pr];
+    const int c = pair_index(min(a, b), max(a, b), k);
+    for (int sg = 0; sg < n_seg; ++sg) s += p[sg * seg_stride + c];
     H[(size_t)row * k * k + ab] = s;
   }
 }
 
-template <int KP>
-SegPlan gh_plan(int n, int q) {
-  return plan_segments(ceil_div(n, Gh<KP>::R), q, Gh<KP>::J);
-}
-
-template <typename XT, int KP>
-void launch_gh(const void* X, const float* M, const float* B, int n, int q,
-               int k, float l1, float l2, float* G, float* H, float* work,
-               cudaStream_t st) {
-  using C = Gh<KP>;
-  const SegPlan sp = gh_plan<KP>(n, q);
-  float* part_g = work;
-  float* part_h = work + (size_t)sp.n_seg * n * KP;
-  cudaFuncSetAttribute(gh_part_kernel<XT, KP>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM_BYTES);
-  gh_part_kernel<XT, KP><<<dim3(ceil_div(n, C::R), sp.n_seg), C::NT,
-                           C::SMEM_BYTES, st>>>(
-      static_cast<const XT*>(X), M, B, n, q, k, sp.seg_len, part_g, part_h);
-  const long long total = (long long)n * (k + k * k);
-  gh_reduce_kernel<<<(int)((total + 255) / 256), 256, 0, st>>>(
-      part_g, part_h, sp.n_seg, n, k, KP, C::NP8, M, l1, l2, G, H);
-}
-
 // ---------------------------------------------------------------- K4 ----
 
-constexpr int kPhiThreads = 256;
-constexpr int kPhiJ = 64;
-
-__host__ __device__ inline int phi_rows(int slots) { return kPhiThreads / slots; }
+// Candidate entry: slot 0 = M, slot s = proj(M - 2^-(s-1) d) (the product
+// is exact: candidates()'s value).
+__device__ __forceinline__ float candidate(float m, float d, int s,
+                                           float step, int non_negative) {
+  if (s == 0) return m;
+  const float v = m - step * d;
+  return non_negative ? fmaxf(v, 0.f) : v;
+}
 
 // part[seg, row, s] = sum over the segment's columns of
-// (X_ij - sigmoid(c_s . B_j))^2 for row i's candidate c_s.
-template <typename XT, int KP>
-__global__ void __launch_bounds__(kPhiThreads)
-    phi_part_kernel(const XT* __restrict__ X, const float* __restrict__ M,
-                    const float* __restrict__ d, const float* __restrict__ B,
-                    int n, int q, int k, int slots, int non_negative,
-                    int seg_len, float* __restrict__ part) {
-  extern __shared__ __align__(16) float sm[];
-  constexpr int XLD = kPhiJ + 1;
-  float* Bs = sm;                 // kPhiJ x KP
-  float* Xs = sm + kPhiJ * KP;    // R x XLD
-  const int tid = threadIdx.x;
-  const int R = phi_rows(slots);
-  const int row0 = blockIdx.x * R;
-  const int seg = blockIdx.y;
-  const int c_begin = seg * seg_len;
+// (X_ij - sigmoid(c_s . B_j))^2 for row i's candidate c_s. KS = kg / 8 for
+// kg <= 32 (fragments of M, d and each chunk's B held in registers), 0 for
+// any kg (fragments read per use).
+template <typename XT, int KS>
+__global__ void __launch_bounds__(kSThreads, 2)
+    phi_part_kernel(const XT* __restrict__ X, const float* __restrict__ Mp,
+                    const float* __restrict__ Dp, const float* __restrict__ Bp,
+                    int n, int q, int kg, int slots, int non_negative,
+                    int seg_len, int ops_smem, float* __restrict__ part) {
+  const SLayout lay(sizeof(XT), kg, false, ops_smem, slots);
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int row0 = blockIdx.x * kSRows;
+  const int c_begin = blockIdx.y * seg_len;
   const int c_end = min(q, c_begin + seg_len);
-  const int r = tid / slots, s = tid % slots;
-  const int row = row0 + r;
-  const bool mine = r < R && row < n;
+  const int n_chunks = (c_end - c_begin + kSQ - 1) / kSQ;
+  const int ldo = ops_ld(kg);
+  float* Ms = reinterpret_cast<float*>(smem + kSStages * lay.stage);
+  float* Ds = Ms + kSRows * ldo;
+  float* Sq = reinterpret_cast<float*>(smem + kSStages * lay.stage + lay.ops);
+  auto stage_x = [&](int i) {
+    return reinterpret_cast<XT*>(smem + (i % kSStages) * lay.stage);
+  };
+  auto stage_bk = [&](int i) {
+    return reinterpret_cast<float*>(smem + (i % kSStages) * lay.stage +
+                                    lay.x_bytes);
+  };
+  for (int e = tid; e < 2 * slots * kSRows; e += kSThreads) Sq[e] = 0.f;
 
-  // slot 0: M (unprojected); slot t: proj(M - 2^-(t-1) d), the product exact
-  float cand[KP];
+  XCopy<XT, x_slots<XT>()> xc;
+  xc.init(X, n, q, row0, c_begin, lay.x_ld);
+  auto load = [&](int i) {
+    xc.load(stage_x(i), i);
+    if (ops_smem)
+      copy_rows(stage_bk(i), ldo, Bp + (size_t)(c_begin + i * kSQ) * kg, kg,
+                kSQ, kg);
+  };
+  if (ops_smem) {
+    copy_rows(Ms, ldo, Mp + (size_t)row0 * kg, kg, kSRows, kg);
+    copy_rows(Ds, ldo, Dp + (size_t)row0 * kg, kg, kSRows, kg);
+  }
+  load(0);
+  cp_async_commit();
+
+  // warp = (16-row tile lm, the chunk's columns 16 hc .. 16 hc + 15)
+  const int lm = warp >> 1, hc = warp & 1;
+  const int lda = ops_smem ? ldo : kg;
+  const float* Ma = ops_smem ? Ms + lm * 16 * ldo : Mp + (size_t)(row0 + lm * 16) * kg;
+  const float* Da = ops_smem ? Ds + lm * 16 * ldo : Dp + (size_t)(row0 + lm * 16) * kg;
+  const int rlo = lm * 16 + g, rhi = rlo + 8;
+  const int xo[2] = {x_offset(X, n, q, row0 + rlo, c_begin),
+                     x_offset(X, n, q, row0 + rhi, c_begin)};
+  float* sq_mine = Sq + hc * slots * kSRows;
+  // A fragment offsets of k-step kk: rows g, g + 8, columns kk + t, + 4
+  auto a_off = [&](int f, int kk) {
+    return (g + 8 * (f & 1)) * lda + kk + t + 4 * (f >> 1);
+  };
+  constexpr int KR = KS > 0 ? KS : 1;
+  float mf[KR][4], df[KR][4];
+  if constexpr (KS > 0) {
+    cp_async_wait<0>();
+    __syncthreads();  // M and d (and chunk 0) landed
 #pragma unroll
-  for (int c = 0; c < KP; ++c) {
-    float v = 0.f;
-    if (mine && c < k) {
-      v = M[(size_t)row * k + c];
-      if (s > 0) {
-        v -= ldexpf(1.f, 1 - s) * d[(size_t)row * k + c];
-        if (non_negative) v = fmaxf(v, 0.f);
+    for (int s = 0; s < KS; ++s)
+#pragma unroll
+      for (int f = 0; f < 4; ++f) {
+        mf[s][f] = Ma[a_off(f, 8 * s)];
+        df[s][f] = Da[a_off(f, 8 * s)];
       }
-    }
-    cand[c] = v;
   }
 
-  float acc = 0.f;
-  for (int j0 = c_begin; j0 < c_end; j0 += kPhiJ) {
-    const int len = min(kPhiJ, c_end - j0);
+  for (int i = 0; i < n_chunks; ++i) {
+    cp_async_wait<0>();
     __syncthreads();
-    for (int e = tid; e < R * kPhiJ; e += kPhiThreads) {
-      const int rr = e / kPhiJ, j = e % kPhiJ;
-      Xs[rr * XLD + j] = (row0 + rr < n && j < len)
-                             ? to_float(X[(size_t)(row0 + rr) * q + j0 + j])
-                             : 0.f;
-    }
-    for (int e = tid; e < kPhiJ * KP; e += kPhiThreads) {
-      const int j = e / KP, c = e % KP;
-      Bs[e] = (j < len && c < k) ? B[(size_t)(j0 + j) * k + c] : 0.f;
-    }
-    __syncthreads();
-    if (mine) {
-      for (int j = 0; j < len; ++j) {
-        const float4* b4 = reinterpret_cast<const float4*>(Bs + j * KP);
-        float t = 0.f;
+    if (i + 1 < n_chunks) load(i + 1);
+    cp_async_commit();
+    const int j0 = c_begin + i * kSQ;
+    const XT* Xs = stage_x(i);
+    const float* Bk = ops_smem ? stage_bk(i) : Bp + (size_t)j0 * kg;
+    const int ldb = ops_smem ? ldo : kg;
+    // this lane's X values (rows rlo, rhi; two n8 tiles, two columns each)
+    float x[2][2][2];
+    bool ok[2][2][2];
 #pragma unroll
-        for (int p = 0; p < KP / 4; ++p) {
-          const float4 v = b4[p];
-          t += cand[4 * p + 0] * v.x;
-          t += cand[4 * p + 1] * v.y;
-          t += cand[4 * p + 2] * v.z;
-          t += cand[4 * p + 3] * v.w;
+    for (int jn = 0; jn < 2; ++jn)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int r = h ? rhi : rlo, jc = hc * 16 + jn * 8 + 2 * t + e;
+          ok[jn][h][e] = row0 + r < n && j0 + jc < c_end;
+          x[jn][h][e] = to_float(Xs[r * lay.x_ld + xo[h] + jc]);
         }
-        const float e = Xs[r * XLD + j] - sigmoid(t);
-        acc += e * e;
+    // the chunk's B fragments, split once for every slot (KS > 0)
+    uint32_t bh[KR][2][2], bl[KR][2][2];
+    if constexpr (KS > 0) {
+#pragma unroll
+      for (int s = 0; s < KS; ++s)
+#pragma unroll
+        for (int jn = 0; jn < 2; ++jn)
+#pragma unroll
+          for (int v = 0; v < 2; ++v)
+            split_fast(Bk[(hc * 16 + jn * 8 + g) * ldb + 8 * s + t + 4 * v],
+                       bh[s][jn][v], bl[s][jn][v]);
+    }
+    // two slots per pass (s, s + 1): four independent mma chains per warp
+    for (int s = 0; s < slots; s += 2) {
+      const bool two = s + 1 < slots;  // slot s + 1 exists (uniform)
+      const float step[2] = {s > 0 ? ldexpf(1.f, 1 - s) : 0.f,
+                             ldexpf(1.f, -s)};
+      float c[2][2][4] = {};  // [slot s, s + 1][n8 tile]
+      if constexpr (KS > 0) {
+#pragma unroll
+        for (int ks = 0; ks < KS; ++ks)
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+            uint32_t hi[4], lo[4];
+#pragma unroll
+            for (int f = 0; f < 4; ++f)
+              split_fast(candidate(mf[ks][f], df[ks][f], s + u, step[u],
+                                   non_negative),
+                         hi[f], lo[f]);
+#pragma unroll
+            for (int jn = 0; jn < 2; ++jn)
+              mma_3xtf32(c[u][jn], hi, lo, bh[ks][jn][0], bl[ks][jn][0],
+                         bh[ks][jn][1], bl[ks][jn][1]);
+          }
+      } else {
+        for (int kk = 0; kk < kg; kk += 8) {
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+            uint32_t hi[4], lo[4];
+#pragma unroll
+            for (int f = 0; f < 4; ++f)
+              split_fast(candidate(Ma[a_off(f, kk)], Da[a_off(f, kk)], s + u,
+                                   step[u], non_negative),
+                         hi[f], lo[f]);
+#pragma unroll
+            for (int jn = 0; jn < 2; ++jn) {
+              const float* b =
+                  Bk + (size_t)(hc * 16 + jn * 8 + g) * ldb + kk + t;
+              uint32_t bh0, bl0, bh1, bl1;
+              split_fast(b[0], bh0, bl0);
+              split_fast(b[4], bh1, bl1);
+              mma_3xtf32(c[u][jn], hi, lo, bh0, bl0, bh1, bl1);
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        float sq[2] = {0.f, 0.f};
+#pragma unroll
+        for (int jn = 0; jn < 2; ++jn)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const float r = x[jn][h][e] - sigmoid_fast(c[u][jn][2 * h + e]);
+              if (ok[jn][h][e]) sq[h] += r * r;
+            }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {  // the quad's lanes, same bits on each
+          sq[h] += __shfl_xor_sync(kFull, sq[h], 1);
+          sq[h] += __shfl_xor_sync(kFull, sq[h], 2);
+        }
+        if (t == 0 && (u == 0 || two)) {  // one lane per (row, slot)
+          sq_mine[(s + u) * kSRows + rlo] += sq[0];
+          sq_mine[(s + u) * kSRows + rhi] += sq[1];
+        }
       }
     }
   }
-  if (mine) part[((size_t)seg * n + row) * slots + s] = acc;
+  cp_async_wait<0>();
+  __syncthreads();
+  float* dst = part + (size_t)blockIdx.y * n * slots;
+  for (int e = tid; e < kSRows * slots; e += kSThreads) {
+    const int r = e / slots, s = e % slots;
+    if (row0 + r < n)
+      dst[(size_t)(row0 + r) * slots + s] =
+          Sq[s * kSRows + r] + Sq[slots * kSRows + s * kSRows + r];
+  }
 }
 
 // phi[row, s] = l1 |c_s|_1 + l2/2 |c_s|^2 + 1/2 sum over segments (in order).
@@ -394,86 +813,164 @@ __global__ void phi_reduce_kernel(const float* __restrict__ part, int n_seg,
   phi[idx] = l1 * a1 + 0.5f * l2 * a2 + 0.5f * r2;
 }
 
-inline SegPlan phi_plan(int n, int q, int slots) {
-  return plan_segments(ceil_div(n, phi_rows(slots)), q, kPhiJ);
+// The wrapper's plan (ops/kernels/sigmoid_newton.py: gh_plan, phi_plan).
+// ldp: K3's partial row width, T's width rounded up to 128 columns.
+struct SPlan {
+  int ldp, n_seg, seg_len, ops_smem;
+};
+
+inline bool splan_ok(int xb, int n, int q, int k, int slots, bool gh,
+                     const SPlan& p) {
+  const int kg = pad8(k);
+  if (n < 1 || q < 1 || k < 1 || slots < 1 || p.seg_len < kSQ ||
+      p.seg_len % kSQ || p.n_seg < 1 || p.n_seg > 65535 ||
+      (long long)(p.n_seg - 1) * p.seg_len >= q ||
+      (long long)p.n_seg * p.seg_len < q ||
+      (gh && (p.ldp < g_offset(k) + kg || p.ldp % kSCols ||
+              p.ldp / kSCols > 65535)) ||
+      k >= 65536 || (p.ops_smem != 0 && p.ops_smem != 1))
+    return false;
+  return SLayout(xb, kg, gh, p.ops_smem, slots).total <= kSmemMax;
 }
 
-template <typename XT, int KP>
-void launch_phi(const void* X, const float* M, const float* d, const float* B,
-                int n, int q, int k, int slots, int non_negative, float l1,
-                float l2, float* phi, float* work, cudaStream_t st) {
-  const SegPlan sp = phi_plan(n, q, slots);
-  const int smem = (kPhiJ * KP + phi_rows(slots) * (kPhiJ + 1)) * 4;
-  phi_part_kernel<XT, KP><<<dim3(ceil_div(n, phi_rows(slots)), sp.n_seg),
-                            kPhiThreads, smem, st>>>(
-      static_cast<const XT*>(X), M, d, B, n, q, k, slots, non_negative,
-      sp.seg_len, work);
-  const long long total = (long long)n * slots;
-  phi_reduce_kernel<<<(int)((total + 255) / 256), 256, 0, st>>>(
-      work, sp.n_seg, n, k, slots, non_negative, M, d, l1, l2, phi);
+// Raise a kernel's dynamic shared-memory limit to `bytes` when it is below
+// (`granted`: the caller's record of the limit already set).
+template <typename Kernel>
+cudaError_t set_smem(Kernel kernel, int bytes, int& granted) {
+  if (bytes <= 48 * 1024 || bytes <= granted) return cudaSuccess;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e == cudaSuccess) granted = bytes;
+  return e;
+}
+
+inline int blocks_for(long long total) { return (int)((total + 255) / 256); }
+
+template <typename XT>
+int launch_gh(const void* X, const float* M, const float* B, int n, int q,
+              int k, float l1, float l2, float* G, float* H, float* Bp,
+              uint32_t* Mh, uint32_t* Ml, uint32_t* Tg, float* part,
+              const SPlan& p, cudaStream_t st) {
+  const int kg = pad8(k);
+  const int q_pad = ceil_div(q, kSQ) * kSQ, n_pad = ceil_div(n, kSRows) * kSRows;
+  gh_prologue_kernel<<<blocks_for((long long)(q_pad + n_pad) * kg +
+                                   (long long)q_pad / kSQ * p.ldp * (kSQ / 2)),
+                       256, 0, st>>>(B, M, n, q, k, kg, p.ldp, Bp, Mh, Ml, Tg);
+  const int smem = SLayout(sizeof(XT), kg, true, p.ops_smem, 0).total;
+  static int granted = 0;
+  if (cudaError_t e = set_smem(gh_part_kernel<XT>, smem, granted)) return (int)e;
+  gh_part_kernel<XT><<<dim3(n_pad / kSRows, p.ldp / kSCols, p.n_seg),
+                       kSThreads, smem, st>>>(
+      static_cast<const XT*>(X), Mh, Ml, Bp, Tg, n, q, k, p.ldp, p.seg_len,
+      p.ops_smem, part);
+  gh_reduce_kernel<<<blocks_for((long long)n * (k + k * k)), 256, 0, st>>>(
+      part, p.n_seg, n, k, p.ldp, M, l1, l2, G, H);
+  return (int)cudaGetLastError();
+}
+
+template <typename XT, int KS>
+int launch_phi_ks(const void* X, const float* Mp, const float* Dp,
+                  const float* Bp, int n, int q, int kg, int slots,
+                  int non_negative, float* part, const SPlan& p,
+                  cudaStream_t st) {
+  const int smem = SLayout(sizeof(XT), kg, false, p.ops_smem, slots).total;
+  static int granted = 0;
+  if (cudaError_t e = set_smem(phi_part_kernel<XT, KS>, smem, granted))
+    return (int)e;
+  phi_part_kernel<XT, KS>
+      <<<dim3(ceil_div(n, kSRows), p.n_seg), kSThreads, smem, st>>>(
+          static_cast<const XT*>(X), Mp, Dp, Bp, n, q, kg, slots, non_negative,
+          p.seg_len, p.ops_smem, part);
+  return 0;
+}
+
+template <typename XT>
+int launch_phi(const void* X, const float* M, const float* d, const float* B,
+               int n, int q, int k, int slots, int non_negative, float l1,
+               float l2, float* phi, float* Bp, float* Mp, float* Dp,
+               float* part, const SPlan& p, cudaStream_t st) {
+  const int kg = pad8(k);
+  const int q_pad = ceil_div(q, kSQ) * kSQ, n_pad = ceil_div(n, kSRows) * kSRows;
+  phi_prologue_kernel<<<blocks_for((long long)(q_pad + 2 * n_pad) * kg), 256,
+                        0, st>>>(B, M, d, n, q, k, kg, Bp, Mp, Dp);
+  int e;
+  switch (kg) {
+    case 8:
+      e = launch_phi_ks<XT, 1>(X, Mp, Dp, Bp, n, q, kg, slots, non_negative,
+                               part, p, st);
+      break;
+    case 16:
+      e = launch_phi_ks<XT, 2>(X, Mp, Dp, Bp, n, q, kg, slots, non_negative,
+                               part, p, st);
+      break;
+    case 24:
+      e = launch_phi_ks<XT, 3>(X, Mp, Dp, Bp, n, q, kg, slots, non_negative,
+                               part, p, st);
+      break;
+    case 32:
+      e = launch_phi_ks<XT, 4>(X, Mp, Dp, Bp, n, q, kg, slots, non_negative,
+                               part, p, st);
+      break;
+    default:
+      e = launch_phi_ks<XT, 0>(X, Mp, Dp, Bp, n, q, kg, slots, non_negative,
+                               part, p, st);
+  }
+  if (e) return e;
+  phi_reduce_kernel<<<blocks_for((long long)n * slots), 256, 0, st>>>(
+      part, p.n_seg, n, k, slots, non_negative, M, d, l1, l2, phi);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace pycmf
 
-// Scratch floats for one call (the segment partials).
-extern "C" long long pycmf_gh_workspace_floats(int n, int q, int k) {
-  using namespace pycmf;
-  long long out = 0;
-  with_kp(k, [&](auto kp) {
-    constexpr int KP = decltype(kp)::value;
-    const SegPlan sp = gh_plan<KP>(n, q);
-    out = (long long)sp.n_seg * n * (KP + Gh<KP>::NP8);
-  });
-  return out;
-}
-
-extern "C" long long pycmf_phi_workspace_floats(int n, int q, int slots) {
-  using namespace pycmf;
-  return (long long)phi_plan(n, q, slots).n_seg * n * slots;
-}
-
 // X (n, q): f32 (x_is_bf16 = 0) or bf16; M (n, k), B (q, k), G (n, k),
-// H (n, k, k): f32. All row-major and contiguous; 1 <= k <= 32. Returns
-// the CUDA error of the launches (0 on success).
+// H (n, k, k): f32. All row-major and contiguous; k >= 1. Scratch (16-byte
+// aligned): Bp (ceil(q / 32) * 32 x KG f32), Mh and Ml (ceil(n / 64) * 64
+// x KG words each), Tg (ceil(q / 32) x ldp x 32 words), part (n_seg x n x
+// ldp f32). ldp, n_seg, seg_len and ops_smem: the
+// wrapper's plan (checked). The launches go to `stream` on `device`.
+// Returns the CUDA error of the launches (0 on success).
 extern "C" int pycmf_sigmoid_gh_pass(int x_is_bf16, const void* X,
                                      const float* M, const float* B, int n,
                                      int q, int k, float l1, float l2,
-                                     float* G, float* H, float* work,
+                                     float* G, float* H, float* Bp,
+                                     uint32_t* Mh, uint32_t* Ml, uint32_t* Tg,
+                                     float* part, int ldp, int n_seg,
+                                     int seg_len, int ops_smem, int device,
                                      void* stream) {
   using namespace pycmf;
-  if (n < 1 || q < 1 || k < 1 || k > kMaxK) return (int)cudaErrorInvalidValue;
+  const SPlan p{ldp, n_seg, seg_len, ops_smem};
+  if (!splan_ok(x_is_bf16 ? 2 : 4, n, q, k, 1, true, p))
+    return (int)cudaErrorInvalidValue;
+  DeviceGuard guard(device);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  with_kp(k, [&](auto kp) {
-    constexpr int KP = decltype(kp)::value;
-    if (x_is_bf16)
-      launch_gh<__nv_bfloat16, KP>(X, M, B, n, q, k, l1, l2, G, H, work, st);
-    else
-      launch_gh<float, KP>(X, M, B, n, q, k, l1, l2, G, H, work, st);
-  });
-  return (int)cudaGetLastError();
+  if (x_is_bf16)
+    return launch_gh<__nv_bfloat16>(X, M, B, n, q, k, l1, l2, G, H, Bp, Mh,
+                                    Ml, Tg, part, p, st);
+  return launch_gh<float>(X, M, B, n, q, k, l1, l2, G, H, Bp, Mh, Ml, Tg,
+                          part, p, st);
 }
 
-// X as above; M, d (n, k), B (q, k), phi (n, slots): f32; slots = trials + 1
-// with 1 <= slots <= 256.
+// X as above; M, d (n, k), B (q, k), phi (n, slots): f32; slots = trials +
+// 1 >= 1. Scratch: Bp (ceil(q / 32) * 32 x KG), Mp and Dp (ceil(n / 64) *
+// 64 x KG), part (n_seg x n x slots).
 extern "C" int pycmf_sigmoid_phi_pass(int x_is_bf16, const void* X,
                                       const float* M, const float* d,
                                       const float* B, int n, int q, int k,
                                       int slots, int non_negative, float l1,
-                                      float l2, float* phi, float* work,
-                                      void* stream) {
+                                      float l2, float* phi, float* Bp,
+                                      float* Mp, float* Dp, float* part,
+                                      int n_seg, int seg_len, int ops_smem,
+                                      int device, void* stream) {
   using namespace pycmf;
-  if (n < 1 || q < 1 || k < 1 || k > kMaxK || slots < 1 ||
-      slots > kPhiThreads)
+  const SPlan p{0, n_seg, seg_len, ops_smem};
+  if (!splan_ok(x_is_bf16 ? 2 : 4, n, q, k, slots, false, p))
     return (int)cudaErrorInvalidValue;
+  DeviceGuard guard(device);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  with_kp(k, [&](auto kp) {
-    constexpr int KP = decltype(kp)::value;
-    if (x_is_bf16)
-      launch_phi<__nv_bfloat16, KP>(X, M, d, B, n, q, k, slots, non_negative,
-                                    l1, l2, phi, work, st);
-    else
-      launch_phi<float, KP>(X, M, d, B, n, q, k, slots, non_negative, l1, l2,
-                            phi, work, st);
-  });
-  return (int)cudaGetLastError();
+  if (x_is_bf16)
+    return launch_phi<__nv_bfloat16>(X, M, d, B, n, q, k, slots, non_negative,
+                                     l1, l2, phi, Bp, Mp, Dp, part, p, st);
+  return launch_phi<float>(X, M, d, B, n, q, k, slots, non_negative, l1, l2,
+                           phi, Bp, Mp, Dp, part, p, st);
 }

@@ -2,7 +2,7 @@
 // newton_fused.cu), on Hopper's tensor cores.
 //
 // Both stream the data matrix X (n, m) row-major, stored as bf16 or f32,
-// against thin f32 factors (k <= 32). A call runs four kernels on the
+// against thin f32 factors. For k <= 32 a call runs four kernels on the
 // caller's stream:
 //
 //   1. vt_kernel        Vt (NP x ld_vt) = V^T rounded to X's dtype, zero past
@@ -25,6 +25,24 @@
 //                       one row segment, else per-segment partials.
 //   4. u_pass_reduce_kernel sums the row segments' partials (numV) and the
 //                       row sweep's Gram partials (gramU), each in order.
+//
+// For k > 32 (the wide route) the factor dimension goes in 32-column
+// slices, and the epilogue leaves the row sweep:
+//
+//   1. vt_kernel        as above, NP = 32 * ceil(k / 32) rows.
+//   2. xv_rows_kernel   grid (row blocks, slices): X V for the slice's 32
+//                       components into an (n, k) f32 scratch (kWide);
+//                       f32 X in six TF32 products (xv_stage_mma_6x).
+//   3. wide_rows_kernel one 256-thread CTA per 64 rows: the caller's row
+//                       epilogue (Epi::wide), one warp per row and
+//                       ceil(k / 32) components per lane, its k x k
+//                       matrices read through L1; then UxT and the CTA's
+//                       Gram partial, as the row sweep writes them.
+//   3'. xtu_cols_kernel grid (column slices, row segments, k slices).
+//   4. u_pass_reduce_kernel as above, over the full k x k Gram.
+//
+// X is read once more per slice by the row sweep. The k <= 32 route is
+// unchanged by this one.
 //
 // Each stage's mma chain starts from zero and is added to the running f32
 // sum in ordinary rounded adds (promote): a chain over all of m or n lost
@@ -214,15 +232,62 @@ __device__ __forceinline__ void xv_stage_mma(const float* alo, const float* ahi,
   }
 }
 
+// The same stage for f32 X in six TF32 products: x = hi + mid + lo (each
+// TF32, ~2^-33 |x| left), hi*hi + hi*mid + mid*hi + mid*mid + hi*lo + lo*hi
+// summed small terms first: ~2^-24 per product, IEEE f32's, where 3xTF32
+// keeps ~2^-22. The wide route takes it: with k > m the rows' damped
+// systems amplify X V's rounding past 3xTF32's accuracy.
+__device__ __forceinline__ void split3_tf32(float x, uint32_t& hi,
+                                            uint32_t& mid, uint32_t& lo) {
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(x));
+  const float r = x - __uint_as_float(hi);
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(mid) : "f"(r));
+  const float r2 = r - __uint_as_float(mid);
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(r2));
+}
+
+template <bool kPairs, int NT>
+__device__ __forceinline__ void xv_stage_mma_6x(const float* alo,
+                                                const float* ahi,
+                                                const float* Bs,
+                                                float (&acc)[NT][4], int g,
+                                                int t) {
+  constexpr int L = UTile<float>::kLd;
+#pragma unroll
+  for (int kk = 0; kk < UTile<float>::kDepth; kk += 8) {
+    uint32_t hi[4], mid[4], lo[4];
+    split3_tf32(alo[kk + t], hi[0], mid[0], lo[0]);
+    split3_tf32(ahi[kk + t], hi[1], mid[1], lo[1]);
+    split3_tf32(alo[kk + t + 4], hi[2], mid[2], lo[2]);
+    split3_tf32(ahi[kk + t + 4], hi[3], mid[3], lo[3]);
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const float* b = Bs + (j * 8 + g) * L + kk + t;
+      uint32_t bh0, bm0, bl0, bh1, bm1, bl1;
+      split3_tf32(b[0], bh0, bm0, bl0);
+      split3_tf32(b[4], bh1, bm1, bl1);
+      mma_tf32(acc[j], mid, bm0, bm1);
+      mma_tf32(acc[j], hi, bl0, bl1);
+      mma_tf32(acc[j], lo, bh0, bh1);
+      mma_tf32(acc[j], hi, bm0, bm1);
+      mma_tf32(acc[j], mid, bh0, bh1);
+      mma_tf32(acc[j], hi, bh0, bh1);
+    }
+  }
+}
+
 // 2. The row sweep and the caller's epilogue (see the header comment).
 // Epi provides kMats, stage<NP>(mats) and row<NP>(row, xv, mats): one warp,
 // lane = component, returning U_new's component (masked by the caller).
-template <typename XT, int NT, bool kPairs, typename Epi>
+// kWide (k > 32, NT = 4): slice blockIdx.y of V's components only, its
+// X V written to Unew (then the (n, k) X V scratch), no epilogue.
+template <typename XT, int NT, bool kPairs, typename Epi, bool kWide = false>
 __global__ void __launch_bounds__(kAThreads, 3)
     xv_rows_kernel(const XT* __restrict__ X, int n, int m, int k,
                    const XT* __restrict__ Vt, int ld_vt, Epi epi,
                    float* __restrict__ Unew, XT* __restrict__ UxT, int ld_ux,
                    float* __restrict__ gram_part) {
+  if constexpr (kWide) Vt += (size_t)blockIdx.y * NT * 8 * ld_vt;
   using Sm = ASmem<XT, NT>;
   using Ti = UTile<XT>;
   constexpr int NP = NT * 8;
@@ -306,11 +371,28 @@ __global__ void __launch_bounds__(kAThreads, 3)
       __syncthreads();
     }
     float part[NT][4] = {};
-    xv_stage_mma<kPairs, NT>(Xs + rlo * L + olo, Xs + rhi * L + ohi,
-                             Xs + kARows * L, part, g, t);
+    if constexpr (kWide && sizeof(XT) == 4)
+      xv_stage_mma_6x<kPairs, NT>(Xs + rlo * L + olo, Xs + rhi * L + ohi,
+                                  Xs + kARows * L, part, g, t);
+    else
+      xv_stage_mma<kPairs, NT>(Xs + rlo * L + olo, Xs + rhi * L + ohi,
+                               Xs + kARows * L, part, g, t);
     promote(acc, part);
   }
   cp_async_wait<0>();
+  if constexpr (kWide) {
+    const int c0 = blockIdx.y * NT * 8;
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int row = row0 + rlo + 8 * h, c = c0 + j * 8 + 2 * t + e;
+          if (row < n && c < k) Unew[(size_t)row * k + c] = acc[j][2 * h + e];
+        }
+    return;
+  }
   __syncthreads();  // the ring is free: reuse it for the epilogue
 
   float* XVs = reinterpret_cast<float*>(smem_raw);  // kARows x NP
@@ -347,6 +429,43 @@ __global__ void __launch_bounds__(kAThreads, 3)
     const int a = e / k, b = e % k;
     float s = 0.f;
     for (int r = 0; r < kARows; ++r) s += Us[r * NP + a] * Us[r * NP + b];
+    gram_part[(size_t)blockIdx.x * k * k + e] = s;
+  }
+}
+
+// 3 (k > 32). The row epilogue on the X V scratch: Epi::wide(row, xv, out,
+// scratch) runs one warp per row, lanes striding the components, and
+// writes U_new's row to out (which it may use as scratch before), with
+// scratch a k-float row of its own. Then UxT for NP components and the
+// CTA's Gram partial, over rows in order, as the row sweep writes them.
+constexpr int kEThreads = 256;
+
+template <typename XT, typename Epi>
+__global__ void __launch_bounds__(kEThreads)
+    wide_rows_kernel(int n, int k, int np, Epi epi, const float* XV,
+                     float* scratch, float* Unew, XT* __restrict__ UxT,
+                     int ld_ux, float* __restrict__ gram_part) {
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int row0 = blockIdx.x * kARows;
+  for (int r = warp; r < kARows; r += kEThreads / 32) {
+    const int row = row0 + r;
+    if (row < n)  // warp-uniform
+      epi.wide(row, XV + (size_t)row * k, Unew + (size_t)row * k,
+               scratch + (size_t)row * k);
+  }
+  __syncthreads();  // every row of the block is written
+  for (int e = tid; e < np * kARows; e += kEThreads) {
+    const int c = e / kARows, row = row0 + e % kARows;
+    XT ux;
+    from_float(row < n && c < k ? Unew[(size_t)row * k + c] : 0.f, ux);
+    UxT[(size_t)c * ld_ux + row] = ux;
+  }
+  const int rows = min(kARows, n - row0);
+  for (int e = tid; e < k * k; e += kEThreads) {
+    const int a = e / k, b = e % k;
+    float s = 0.f;
+    for (int r = 0; r < rows; ++r)
+      s += Unew[(size_t)(row0 + r) * k + a] * Unew[(size_t)(row0 + r) * k + b];
     gram_part[(size_t)blockIdx.x * k * k + e] = s;
   }
 }
@@ -424,6 +543,7 @@ __device__ __forceinline__ int xtu_row(int s, int i, int t) {
 }
 
 // 3. numV partial of row segment blockIdx.y for columns blockIdx.x * 128 ...
+// and components slice blockIdx.z (of NT * 8; one slice when k <= 32).
 template <typename XT, int NT>
 __global__ void __launch_bounds__(kBThreads, 2)
     xtu_cols_kernel(const XT* __restrict__ X, int n, int m, int k,
@@ -442,6 +562,9 @@ __global__ void __launch_bounds__(kBThreads, 2)
   const int r_begin = blockIdx.y * seg_rows;
   const int seg_len = min(n, r_begin + seg_rows) - r_begin;
   const int n_stages = (seg_len + RS - 1) / RS;
+  const int kc0 = blockIdx.z * NT * 8;  // this slice's first component
+  const int kk = k - kc0;               // components past kc0 (masked below)
+  UxT += (size_t)kc0 * ld_ux;
 
   // Copy slots: this thread's chunks of the X tile, fixed for the sweep.
   // Stages start on rows that are multiples of RS, and RS rows of X span a
@@ -515,15 +638,15 @@ __global__ void __launch_bounds__(kBThreads, 2)
   }
   cp_async_wait<0>();
 
-  float* dst = out + (size_t)blockIdx.y * m * k;
+  float* dst = out + (size_t)blockIdx.y * m * k + kc0;
 #pragma unroll
   for (int j = 0; j < NT; ++j)
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int col = c0 + warp * 16 + g + 8 * h, c = j * 8 + 2 * t;
       if (col < m) {
-        if (c < k) dst[(size_t)col * k + c] = acc[j][2 * h];
-        if (c + 1 < k) dst[(size_t)col * k + c + 1] = acc[j][2 * h + 1];
+        if (c < kk) dst[(size_t)col * k + c] = acc[j][2 * h];
+        if (c + 1 < kk) dst[(size_t)col * k + c + 1] = acc[j][2 * h + 1];
       }
     }
 }
@@ -560,13 +683,15 @@ struct UPassWork {
   void* vt;          // NP x ld_vt, X's dtype
   void* uxt;         // NP x ld_ux, X's dtype
   float* gram_part;  // ceil(n / kARows) x k x k
-  float* numv_part;  // n_seg x m x k (unused when n_seg == 1)
+  float* numv_part;  // n_seg x m x k (unused when n_seg == 1); for k > 32
+                     // at least 2 n k floats: before the column sweep
+                     // writes it, the X V scratch, then Epi::wide's
   int ld_vt, ld_ux, seg_rows, n_seg;
 };
 
 inline bool plan_ok(int n, int m, int k, const UPassWork& w) {
   const int row_blocks = ceil_div(n, kARows);
-  return n >= 1 && m >= 1 && k >= 1 && k <= kMaxK &&
+  return n >= 1 && m >= 1 && k >= 1 &&
          w.ld_vt >= ceil_div(m, 128) * 128 && w.ld_vt % 128 == 0 &&
          w.ld_ux >= row_blocks * kARows && w.ld_ux % kARows == 0 &&
          w.seg_rows >= 64 && w.seg_rows % 64 == 0 && w.n_seg >= 1 &&
@@ -585,21 +710,65 @@ int allow_smem(Kernel kernel, int bytes, bool& done) {
   return 0;
 }
 
-template <typename XT, int NT, bool kPairs, typename Epi>
+template <typename XT, int NT, bool kPairs, typename Epi, bool kWide = false>
 int launch_rows(const XT* X, int n, int m, int k, const Epi& epi,
-                float* Unew, const UPassWork& w, cudaStream_t st) {
+                float* Unew, const UPassWork& w, int n_slices,
+                cudaStream_t st) {
   constexpr int smem = ASmem<XT, NT>::kBytes;
-  static_assert(2 * kARows * NT * 8 * 4 + Epi::kMats * NT * NT * 64 * 4 <=
-                    smem,
+  static_assert(kWide || 2 * kARows * NT * 8 * 4 +
+                                 Epi::kMats * NT * NT * 64 * 4 <=
+                             smem,
                 "epilogue buffers exceed the ring");
   static bool ready = false;
-  if (int e = allow_smem(xv_rows_kernel<XT, NT, kPairs, Epi>, smem, ready))
+  if (int e = allow_smem(xv_rows_kernel<XT, NT, kPairs, Epi, kWide>, smem,
+                         ready))
     return e;
-  xv_rows_kernel<XT, NT, kPairs, Epi><<<ceil_div(n, kARows), kAThreads, smem,
-                                        st>>>(
-      X, n, m, k, static_cast<const XT*>(w.vt), w.ld_vt, epi, Unew,
-      static_cast<XT*>(w.uxt), w.ld_ux, w.gram_part);
+  xv_rows_kernel<XT, NT, kPairs, Epi, kWide>
+      <<<dim3(ceil_div(n, kARows), n_slices), kAThreads, smem, st>>>(
+          X, n, m, k, static_cast<const XT*>(w.vt), w.ld_vt, epi, Unew,
+          static_cast<XT*>(w.uxt), w.ld_ux, w.gram_part);
   return 0;
+}
+
+// Kernel 2 for X's alignment: bf16 pairs are 4-byte aligned when X is and
+// rows hold an even count.
+template <typename XT, int NT, typename Epi, bool kWide = false>
+int launch_rows_aligned(const XT* X, int n, int m, int k, const Epi& epi,
+                        float* Unew, const UPassWork& w, int n_slices,
+                        cudaStream_t st) {
+  if constexpr (sizeof(XT) == 2) {
+    if (reinterpret_cast<uintptr_t>(X) % 4 == 0 && m % 2 == 0)
+      return launch_rows<XT, NT, true, Epi, kWide>(X, n, m, k, epi, Unew, w,
+                                                   n_slices, st);
+    return launch_rows<XT, NT, false, Epi, kWide>(X, n, m, k, epi, Unew, w,
+                                                  n_slices, st);
+  } else {
+    return launch_rows<XT, NT, true, Epi, kWide>(X, n, m, k, epi, Unew, w,
+                                                 n_slices, st);
+  }
+}
+
+// Kernels 3 and 4 (3' with n_slices > 1). Templated on Epi although it
+// does not use it: a static local of a template function is one object
+// across every loaded library that instantiates it (a GNU unique symbol),
+// and each library must set the shared-memory limit of its own kernel.
+template <typename XT, int NT, typename Epi>
+int launch_cols_reduce(const XT* X, int n, int m, int k, float* numV,
+                       float* gramU, const UPassWork& w, int n_slices,
+                       cudaStream_t st) {
+  constexpr int smem_b = BSmem<XT, NT>::kBytes;
+  static bool ready_b = false;
+  if (int e = allow_smem(xtu_cols_kernel<XT, NT>, smem_b, ready_b)) return e;
+  xtu_cols_kernel<XT, NT>
+      <<<dim3(ceil_div(m, kBCols), w.n_seg, n_slices), kBThreads, smem_b,
+         st>>>(X, n, m, k, static_cast<const XT*>(w.uxt), w.ld_ux, w.seg_rows,
+               w.n_seg == 1 ? numV : w.numv_part);
+  const long long mk = (long long)m * k;
+  const int num_blocks = w.n_seg > 1 ? (int)((mk + 255) / 256) : 0;
+  u_pass_reduce_kernel<<<num_blocks + ceil_div(k * k, 8), 256, 0, st>>>(
+      w.numv_part, w.n_seg, mk, num_blocks, numV, w.gram_part,
+      ceil_div(n, kARows), k * k, gramU);
+  return (int)cudaGetLastError();
 }
 
 template <typename XT, int NT, typename Epi>
@@ -610,32 +779,35 @@ int launch_u_pass_nt(const XT* X, const float* V, int n, int m, int k,
   const long long n_vt = (long long)NP * w.ld_vt;
   vt_kernel<XT><<<(int)((n_vt + 255) / 256), 256, 0, st>>>(
       V, m, k, NP, w.ld_vt, static_cast<XT*>(w.vt));
-  int e;
-  if constexpr (sizeof(XT) == 2) {
-    // bf16 pairs are 4-byte aligned when X is and rows hold an even count
-    e = (reinterpret_cast<uintptr_t>(X) % 4 == 0 && m % 2 == 0)
-            ? launch_rows<XT, NT, true>(X, n, m, k, epi, Unew, w, st)
-            : launch_rows<XT, NT, false>(X, n, m, k, epi, Unew, w, st);
-  } else {
-    e = launch_rows<XT, NT, true>(X, n, m, k, epi, Unew, w, st);
-  }
-  if (e) return e;
-  constexpr int smem_b = BSmem<XT, NT>::kBytes;
-  static bool ready_b = false;
-  if (int e2 = allow_smem(xtu_cols_kernel<XT, NT>, smem_b, ready_b)) return e2;
-  xtu_cols_kernel<XT, NT>
-      <<<dim3(ceil_div(m, kBCols), w.n_seg), kBThreads, smem_b, st>>>(
-          X, n, m, k, static_cast<const XT*>(w.uxt), w.ld_ux, w.seg_rows,
-          w.n_seg == 1 ? numV : w.numv_part);
-  const long long mk = (long long)m * k;
-  const int num_blocks = w.n_seg > 1 ? (int)((mk + 255) / 256) : 0;
-  u_pass_reduce_kernel<<<num_blocks + ceil_div(k * k, 8), 256, 0, st>>>(
-      w.numv_part, w.n_seg, mk, num_blocks, numV, w.gram_part,
-      ceil_div(n, kARows), k * k, gramU);
-  return (int)cudaGetLastError();
+  if (int e = launch_rows_aligned<XT, NT>(X, n, m, k, epi, Unew, w, 1, st))
+    return e;
+  return launch_cols_reduce<XT, NT, Epi>(X, n, m, k, numV, gramU, w, 1, st);
 }
 
-// The whole call for X's dtype XT, with NT = ceil(k / 8) n8 tiles.
+// k > 32: the wide route of the header comment, in 32-component slices.
+template <typename XT, typename Epi>
+int launch_u_pass_wide(const XT* X, const float* V, int n, int m, int k,
+                       const Epi& epi, float* Unew, float* numV, float* gramU,
+                       const UPassWork& w, cudaStream_t st) {
+  const int n_slices = ceil_div(k, 32);
+  const int np = 32 * n_slices;
+  float* xv = w.numv_part;
+  float* scratch = w.numv_part + (size_t)n * k;
+  const long long n_vt = (long long)np * w.ld_vt;
+  vt_kernel<XT><<<(int)((n_vt + 255) / 256), 256, 0, st>>>(
+      V, m, k, np, w.ld_vt, static_cast<XT*>(w.vt));
+  if (int e = launch_rows_aligned<XT, 4, Epi, true>(X, n, m, k, epi, xv, w,
+                                                    n_slices, st))
+    return e;
+  wide_rows_kernel<XT, Epi><<<ceil_div(n, kARows), kEThreads, 0, st>>>(
+      n, k, np, epi, xv, scratch, Unew, static_cast<XT*>(w.uxt), w.ld_ux,
+      w.gram_part);
+  return launch_cols_reduce<XT, 4, Epi>(X, n, m, k, numV, gramU, w, n_slices,
+                                        st);
+}
+
+// The whole call for X's dtype XT, with NT = ceil(k / 8) n8 tiles (k <= 32)
+// or the wide route.
 template <typename XT, typename Epi>
 int launch_u_pass(const void* X, const float* V, int n, int m, int k,
                   const Epi& epi, float* Unew, float* numV, float* gramU,
@@ -651,9 +823,12 @@ int launch_u_pass(const void* X, const float* V, int n, int m, int k,
     case 3:
       return launch_u_pass_nt<XT, 3>(x, V, n, m, k, epi, Unew, numV, gramU, w,
                                      st);
-    default:
+    case 4:
       return launch_u_pass_nt<XT, 4>(x, V, n, m, k, epi, Unew, numV, gramU, w,
                                      st);
+    default:
+      return launch_u_pass_wide<XT>(x, V, n, m, k, epi, Unew, numV, gramU, w,
+                                    st);
   }
 }
 

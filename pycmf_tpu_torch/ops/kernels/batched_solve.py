@@ -47,7 +47,7 @@ def batched_spd_solve(H, G):
             raise NotImplementedError(
                 f"the CUDA batched solve takes float32 H (p, k, k) and G "
                 f"(p, k), got {t.dtype} {tuple(t.shape)} for shape {shape} "
-                "(float64 on the card: ROADMAP B5 follow-up)")
+                "(float64 on the card: ROADMAP C1)")
     H = H.contiguous()
     G = G.contiguous()
     out = torch.empty((p, k), dtype=torch.float32, device=H.device)

@@ -33,7 +33,7 @@ from .policy import launch_count, on_card
 
 LAUNCHES = launch_count("bell_spmm")
 BLOCK = 128
-MAX_K = 32  # at most four mma tiles of 8 output columns
+SLICE = 32  # output columns per CTA: at most four mma tiles of 8 columns
 # Blocks per segment (one CTA each): path F's X (235 row blocks, ~13.5
 # blocks each) and Xᵀ (89 row blocks, ~36 each) both give several CTAs per
 # SM of an H100.
@@ -165,6 +165,32 @@ def bell_spmm_ref(A: BlockEll, B: torch.Tensor) -> torch.Tensor:
     return out.reshape(nrb * BLOCK, k)[:p]
 
 
+def bell_tiles(k: int) -> Tuple[int, int]:
+    """(columns per slice, slices) of the kernel's output: k rounded up to
+    the 8-column mma tiles in one slice for k <= SLICE, else SLICE-column
+    slices (csrc/bell_spmm.cu takes the same rule from k)."""
+    if k <= SLICE:
+        return -(-k // 8) * 8, 1
+    return SLICE, -(-k // SLICE)
+
+
+def check_card_operands(A: BlockEll, B: torch.Tensor) -> None:
+    """Raise on what the CUDA block-sparse kernel does not take: float32
+    or bfloat16 blocks, float32 B (q, k), any k >= 1."""
+    q = A.shape[1]
+    if A.blocks.dtype not in (torch.float32, torch.bfloat16):
+        raise NotImplementedError(
+            f"the CUDA block-sparse kernel takes float32 or bfloat16 blocks, "
+            f"got {A.blocks.dtype} (float64 on the card: ROADMAP C1; use "
+            "use_pallas=False)")
+    if B.dim() != 2 or B.shape[1] < 1 or B.dtype != torch.float32 \
+            or B.shape[0] != q:
+        raise NotImplementedError(
+            f"the CUDA block-sparse kernel takes float32 B of shape (q, k) "
+            f"with q = {q}, k >= 1; got {B.dtype} {tuple(B.shape)} (float64 "
+            "factors on the card: ROADMAP C1; use use_pallas=False)")
+
+
 def bell_spmm(A: BlockEll, B: torch.Tensor) -> torch.Tensor:
     """A @ B for BlockEll A (p, q) and dense B (q, k) → (p, k), float32
     (float64 for float64 B on the CPU). B is rounded to the blocks' dtype
@@ -174,25 +200,16 @@ def bell_spmm(A: BlockEll, B: torch.Tensor) -> torch.Tensor:
     :func:`bell_spmm_ref`."""
     if not on_card(A.blocks, B):
         return bell_spmm_ref(A, B)
+    check_card_operands(A, B)
     p, q = A.shape
     k = B.shape[1]
-    if A.blocks.dtype not in (torch.float32, torch.bfloat16):
-        raise NotImplementedError(
-            f"the CUDA block-sparse kernel takes float32 or bfloat16 blocks, "
-            f"got {A.blocks.dtype} (use use_pallas=False)")
-    if not 1 <= k <= MAX_K or B.dtype != torch.float32 \
-            or tuple(B.shape) != (q, k):
-        raise NotImplementedError(
-            f"the CUDA block-sparse kernel takes float32 B of shape (q, k) "
-            f"with q = {q}, 1 <= k <= {MAX_K}; got {B.dtype} "
-            f"{tuple(B.shape)} (use use_pallas=False)")
     B = B.contiguous()
-    kpn = -(-k // 8) * 8
+    kpn, n_slices = bell_tiles(k)
     n_seg = A.segs.numel() - 1
     out = torch.empty((p, k), dtype=torch.float32, device=B.device)
-    bt = torch.empty((kpn, -(-q // BLOCK) * BLOCK), dtype=A.blocks.dtype,
-                     device=B.device)
-    part = torch.empty((n_seg, BLOCK, kpn), dtype=torch.float32,
+    bt = torch.empty((kpn * n_slices, -(-q // BLOCK) * BLOCK),
+                     dtype=A.blocks.dtype, device=B.device)
+    part = torch.empty((n_slices, n_seg, BLOCK, kpn), dtype=torch.float32,
                        device=B.device)
     fn = _build.function("bell_spmm", "pycmf_bell_spmm",
                          [ctypes.c_int] + [ctypes.c_void_p] * 4

@@ -34,12 +34,15 @@ B_COLS = 128         # columns per CTA of the column sweep (X^T U_new)
 VT_ALIGN = 128       # Vᵀ's leading dimension: whole 256-byte bf16 stages
 B_CTAS_PER_SM = 2    # column-sweep CTAs resident per SM (its launch bounds)
 WORK_ALIGN = 64      # workspace parts start on 256-byte boundaries (floats)
+K_SLICE = 32         # k > K_SLICE: the wide route, in K_SLICE-component slices
 
 
 class UPassPlan(NamedTuple):
     """One call's launch plan and workspace layout (all counts in elements;
     ``offsets`` and ``floats`` in float32 words of one workspace)."""
-    nt: int              # n8 tiles of the factor dimension: ceil(k / 8)
+    nt: int              # n8 tiles of the factor dimension: ceil(k / 8),
+    #                      or 4 per slice on the wide route
+    k_slices: int        # component slices: 1, or ceil(k / 32) for k > 32
     ld_vt: int           # row stride of Vᵀ rounded to X's dtype (NP rows)
     ld_ux: int           # row stride of U_newᵀ rounded to X's dtype
     row_blocks: int      # row-sweep CTAs, each A_ROWS rows
@@ -47,6 +50,8 @@ class UPassPlan(NamedTuple):
     seg_rows: int        # rows per row segment of the column sweep
     n_seg: int           # row segments (numV partials when > 1)
     offsets: Tuple[int, int, int, int]  # vt, uxt, Gram and numV partials
+    #                      (the last also the wide route's X V and scratch,
+    #                      2 n k floats, which the column sweep overwrites)
     floats: int          # workspace size
 
 
@@ -59,8 +64,11 @@ def u_pass_plan(n: int, m: int, k: int, x_bytes: int, n_sm: int) -> UPassPlan:
     """Plan of one U-pass call on a card with ``n_sm`` SMs. The column sweep
     takes as many row segments as keep its CTAs within one resident wave
     (B_CTAS_PER_SM per SM), at least one; segments are whole row-sweep
-    blocks, so each starts on a row where X's 16-byte alignment repeats."""
-    np_ = 8 * _ceil(k, 8)
+    blocks, so each starts on a row where X's 16-byte alignment repeats.
+    For k > K_SLICE the factor dimension goes in K_SLICE-component slices
+    (csrc/u_pass_common.cuh: the wide route)."""
+    k_slices = 1 if k <= K_SLICE else _ceil(k, K_SLICE)
+    np_ = 8 * _ceil(k, 8) if k_slices == 1 else K_SLICE * k_slices
     row_blocks = _ceil(n, A_ROWS)
     ld_ux = row_blocks * A_ROWS
     ld_vt = _ceil(m, VT_ALIGN) * VT_ALIGN
@@ -69,13 +77,16 @@ def u_pass_plan(n: int, m: int, k: int, x_bytes: int, n_sm: int) -> UPassPlan:
     seg_rows = _ceil(row_blocks, n_seg) * A_ROWS
     n_seg = _ceil(n, seg_rows)
     sizes = (_ceil(np_ * ld_vt * x_bytes, 4), _ceil(np_ * ld_ux * x_bytes, 4),
-             row_blocks * k * k, n_seg * m * k if n_seg > 1 else 0)
+             row_blocks * k * k,
+             max(n_seg * m * k if n_seg > 1 else 0,
+                 2 * n * k if k_slices > 1 else 0))
     offsets, at = [], 0
     for size in sizes:
         offsets.append(at)
         at += _ceil(size, WORK_ALIGN) * WORK_ALIGN
-    return UPassPlan(np_ // 8, ld_vt, ld_ux, row_blocks, col_slices,
-                     seg_rows, n_seg, tuple(offsets), max(at, WORK_ALIGN))
+    return UPassPlan(np_ // 8, k_slices, ld_vt, ld_ux, row_blocks,
+                     col_slices, seg_rows, n_seg, tuple(offsets),
+                     max(at, WORK_ALIGN))
 
 
 @functools.lru_cache(maxsize=None)
@@ -137,19 +148,19 @@ def check_card_operands(X: torch.Tensor, U, V, k_by_k) -> None:
     if X.dim() != 2 or X.dtype not in (torch.float32, torch.bfloat16):
         raise NotImplementedError(
             f"the CUDA data-pass kernels take 2-D float32 or bfloat16 X, got "
-            f"{X.dtype} {tuple(X.shape)} (float64 on the card: ROADMAP B1/B2 "
-            "follow-up; use use_pallas=False for the plain path)")
+            f"{X.dtype} {tuple(X.shape)} (float64 on the card: ROADMAP C1; "
+            "use use_pallas=False for the plain path)")
     n, m = X.shape
     k = U.shape[1]
-    if not 1 <= k <= 32:
+    if k < 1:
         raise NotImplementedError(
-            f"the CUDA data-pass kernels take 1 <= k <= 32, got k={k} "
-            "(ROADMAP B1/B2 follow-up; use use_pallas=False)")
+            f"the CUDA data-pass kernels take k >= 1, got k={k}")
     for t, rows in ((U, n), (V, m)):
         if t.dtype != torch.float32 or t.shape != (rows, k):
             raise NotImplementedError(
                 f"the CUDA data-pass kernels take float32 factors of shape "
-                f"({rows}, {k}), got {t.dtype} {tuple(t.shape)}")
+                f"({rows}, {k}), got {t.dtype} {tuple(t.shape)} (float64 "
+                "factors on the card: ROADMAP C1; use use_pallas=False)")
     for t in k_by_k:
         if t.dtype != torch.float32 or t.shape != (k, k):
             raise NotImplementedError(

@@ -7,7 +7,7 @@ every MU factor update,
     M ⊙ num ⊘ (M S + l1 + l2·M + ε),   M, num (p, k), S (k, k),
 
 in one pass over row tiles, without writing M S to device memory. The
-kernel is ``csrc/mu_update.cu`` (float32, k <= 32).
+kernel is ``csrc/mu_update.cu`` (float32, any k).
 """
 from __future__ import annotations
 
@@ -19,7 +19,6 @@ from . import _build
 from .policy import launch_count, on_card
 
 LAUNCHES = launch_count("fused_mu_update")
-MAX_K = 32  # S lives in a 32×32 shared-memory tile
 
 
 def fused_mu_update_ref(M, S, num, l1, l2, eps):
@@ -27,22 +26,28 @@ def fused_mu_update_ref(M, S, num, l1, l2, eps):
     return M * num / (M @ S + l1 + l2 * M + eps)
 
 
+def check_card_operands(M, S, num) -> None:
+    """Raise on what the CUDA MU update does not take: float32 M, num
+    (p, k) and S (k, k), any k >= 1."""
+    p, k = M.shape
+    for t, shape in ((M, (p, k)), (num, (p, k)), (S, (k, k))):
+        if t.dtype != torch.float32 or tuple(t.shape) != shape or k < 1:
+            raise NotImplementedError(
+                f"the CUDA MU update takes float32 M, num (p, k) and S (k, k) "
+                f"with k >= 1, got {t.dtype} {tuple(t.shape)} for shape "
+                f"{shape} (float64 factors on the card: ROADMAP C1; use "
+                "use_pallas=False)")
+
+
 def fused_mu_update(M, S, num, l1, l2, eps):
     """M ⊙ num ⊘ (M S + l1 + l2·M + ε) for M, num (p, k) and S (k, k).
 
-    CUDA tensors (float32, k <= 32) launch ``csrc/mu_update.cu``; CPU
+    CUDA tensors (float32) launch ``csrc/mu_update.cu``; CPU
     tensors take :func:`fused_mu_update_ref`."""
     if not on_card(M, S, num):
         return fused_mu_update_ref(M, S, num, l1, l2, eps)
+    check_card_operands(M, S, num)
     p, k = M.shape
-    for t, shape in ((M, (p, k)), (num, (p, k)), (S, (k, k))):
-        if t.dtype != torch.float32 or tuple(t.shape) != shape \
-                or not 1 <= k <= MAX_K:
-            raise NotImplementedError(
-                f"the CUDA MU update takes float32 M, num (p, k) and S (k, k) "
-                f"with 1 <= k <= {MAX_K}, got {t.dtype} {tuple(t.shape)} for "
-                f"shape {shape} (float64 on the card: ROADMAP B1/B2 "
-                "follow-up; use use_pallas=False)")
     out = torch.empty((p, k), dtype=torch.float32, device=M.device)
     if p == 0:
         return out

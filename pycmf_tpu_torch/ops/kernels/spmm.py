@@ -12,7 +12,8 @@ TPU kernels of ``pycmf_tpu/ops/pallas/``:
 The reference's one-hot strips and row-block-padded tiles exist because a
 TPU has no fast gather; Hopper gathers B's rows natively, so the kernels
 read the CSR arrays as they are. Values are float32 or bf16 (widened
-exactly), factors float32, k <= 32; the output is float32.
+exactly), factors float32, any k (k > 32 in 32-column slices, ``SLICE``);
+the output is float32.
 """
 from __future__ import annotations
 
@@ -28,7 +29,7 @@ from .policy import launch_count, on_card
 
 SPMM_LAUNCHES = launch_count("csr_spmm")
 ROWDOTS_LAUNCHES = launch_count("csr_rowdots")
-MAX_K = 32  # at most 8 lanes of four columns per nonzero
+SLICE = 32  # factor columns per slice: 8 lanes of four columns per nonzero
 # Chunk sizes of the CSR walk (``chunk_size``): small enough that the 20NG
 # surrogate's 873651 nonzeros fill the card, large enough that a long row
 # leaves few partials.
@@ -56,13 +57,12 @@ def _check_card_operands(A: CsrMatrix, factors) -> int:
     if A.dtype not in (torch.float32, torch.bfloat16):
         raise NotImplementedError(
             f"the CUDA CSR kernels take float32 or bfloat16 values, got "
-            f"{A.dtype} (float64 on the card: ROADMAP B1/B2 follow-up; use "
+            f"{A.dtype} (float64 on the card: ROADMAP C1; use "
             "use_pallas=False for the plain path)")
     k = factors[0][0].shape[1]
-    if not 1 <= k <= MAX_K:
+    if k < 1:
         raise NotImplementedError(
-            f"the CUDA CSR kernels take 1 <= k <= {MAX_K}, got k={k} "
-            "(use use_pallas=False)")
+            f"the CUDA CSR kernels take k >= 1, got k={k}")
     for t, rows in factors:
         if t.dtype != torch.float32 or tuple(t.shape) != (rows, k):
             raise NotImplementedError(
@@ -86,8 +86,17 @@ def chunk_size(nnz: int, n_sm: int) -> int:
 def workspace_floats(nnz: int, kw: int, ch: int) -> int:
     """Floats of partials one call writes at most: two slots of kw floats
     per chunk (the chunk's first row and its last row, where they cross a
-    chunk boundary)."""
+    chunk boundary); csr_spmm has kw = k, one slot column per output
+    column, its slices side by side."""
     return 2 * (-(-nnz // ch)) * kw
+
+
+def rowdots_workspace_floats(nnz: int, k: int, ch: int, p: int) -> int:
+    """Scratch of one csr_rowdots call: one partial column per slice of
+    k, and with more than one slice each slice's (p,) row dots."""
+    n_slices = -(-k // SLICE)
+    return workspace_floats(nnz, n_slices, ch) \
+        + (n_slices * p if n_slices > 1 else 0)
 
 
 @functools.lru_cache(maxsize=None)
@@ -107,10 +116,10 @@ def _padded(t: torch.Tensor, ld: int) -> torch.Tensor:
 
 
 def _launch(symbol: str, A: CsrMatrix, factors, out: torch.Tensor,
-            kw: int) -> None:
+            work_floats) -> None:
     """Run ``symbol`` of the csr_spmm library over A with the factors
     ``factors`` ((rows, k) float32 each) into ``out``, which it writes
-    whole."""
+    whole; work_floats(nnz, k, ch): its scratch."""
     k = factors[0].shape[1]
     ld = -(-k // 4) * 4
     fn = _build.function("csr_spmm", symbol,
@@ -120,7 +129,7 @@ def _launch(symbol: str, A: CsrMatrix, factors, out: torch.Tensor,
     dev = out.device.index
     nnz = A.nnz
     ch = chunk_size(nnz, _sm_count(dev))
-    work = torch.empty(workspace_floats(nnz, kw, ch), dtype=torch.float32,
+    work = torch.empty(work_floats(nnz, k, ch), dtype=torch.float32,
                        device=out.device)
     # the C side makes `dev` current for its launches (paths C and D are
     # bound by the host's time per call)
@@ -145,7 +154,7 @@ def csr_spmm(A: CsrMatrix, B: torch.Tensor) -> torch.Tensor:
     if not A.nnz:
         return torch.zeros((p, k), dtype=torch.float32, device=B.device)
     out = torch.empty((p, k), dtype=torch.float32, device=B.device)
-    _launch("pycmf_csr_spmm", A, (B,), out, k)
+    _launch("pycmf_csr_spmm", A, (B,), out, workspace_floats)
     SPMM_LAUNCHES.n += 1
     return out
 
@@ -164,6 +173,7 @@ def csr_rowdots(A: CsrMatrix, M: torch.Tensor,
     if not A.nnz:
         return torch.zeros((p,), dtype=torch.float32, device=B.device)
     out = torch.empty((p,), dtype=torch.float32, device=B.device)
-    _launch("pycmf_csr_rowdots", A, (M, B), out, 1)
+    _launch("pycmf_csr_rowdots", A, (M, B), out,
+            lambda nnz, k, ch: rowdots_workspace_floats(nnz, k, ch, p))
     ROWDOTS_LAUNCHES.n += 1
     return out

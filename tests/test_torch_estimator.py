@@ -125,6 +125,26 @@ def test_sigmoid_newton_fit_matches_reference_f64(rng, x_link, y_link,
     _assert_same_fit(j, t)
 
 
+@pytest.mark.parametrize("solver,y_link", [("mu", "linear"),
+                                           ("newton", "sigmoid")])
+@pytest.mark.parametrize("use_pallas", [None, False])
+def test_wide_k_fit_matches_reference_f64(rng, solver, y_link, use_pallas):
+    """n_components=40 > 32 (the card's kernels take it in slices; on the
+    CPU the plain versions run): bench's MU cell and path A's
+    configuration (linear X, sigmoid Y) on 61 x 96 data, against
+    pycmf_tpu in float64."""
+    X, Y = make_problem(rng, n=61, m=96, binary_y=y_link == "sigmoid")
+    kw = dict(n_components=40, solver=solver, y_link=y_link,
+              random_state=0, max_iter=10, eval_every=5, tol=1e-7,
+              dtype="float64", use_pallas=use_pallas)
+    if solver == "newton":
+        kw.update(alpha=0.1, l1_ratio=0.5)
+    j, t = _pair(**kw)
+    j.fit(X, Y)
+    t.fit(X, Y)
+    _assert_same_fit(j, t)
+
+
 @pytest.mark.parametrize("use_pallas", [None, False])
 def test_newton_sigmoid_golden_replays_on_the_port(use_pallas):
     """tests/goldens/newton_sigmoid.npz, the NumPy implementation's

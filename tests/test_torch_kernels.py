@@ -413,3 +413,191 @@ def test_sigmoid_wrappers_refuse_fp8_and_transposed_views(rng):
     Xt = f(X.T.copy()).mT
     with pytest.raises(ValueError, match="Coupled.At"):
         sigmoid_newton._card_operands(Xt, f(M), f(B))
+
+
+# -- k > 32: the plain versions against the Pallas kernels, and the card's
+# plans and operand checks (the CUDA kernels take any k, wider than 32 in
+# 32-component slices or tiles of the product table) ------------------------
+
+_WIDE_K = [33, 40, 64]
+
+
+@pytest.mark.parametrize("k", _WIDE_K)
+def test_mu_pass_wide_k_f64_matches_pallas(rng, k):
+    X, U, V, VtV, _ = _operands(rng, 61, 40, k)
+    args = (0.2, 0.5, 1e-10)
+    want = j_mu(jnp.asarray(X), jnp.asarray(U), jnp.asarray(V),
+                jnp.asarray(VtV), *args, row_tile=16, n_valid=50)
+    got = mu_fused.fused_mu_u_pass(_t(X), _t(U), _t(V), _t(VtV), *args,
+                                   n_valid=50)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(_np(g), _np(w), rtol=1e-10, atol=1e-12)
+
+
+@pytest.mark.parametrize("k", _WIDE_K)
+def test_newton_pass_wide_k_f64_matches_pallas(rng, k):
+    """m = 96 > k: with m < k, BᵀB has rank m and the damped Hinv's
+    condition number (~1e4) amplifies f64 rounding past rtol 1e-10."""
+    X, U, V, BtB, Hinv = _operands(rng, 61, 96, k)
+    row_sq = (X ** 2).sum(axis=1)
+    kw = dict(trials=8, non_negative=True)
+    want = j_newton(jnp.asarray(X), jnp.asarray(U), jnp.asarray(V),
+                    jnp.asarray(BtB), jnp.asarray(Hinv), jnp.asarray(row_sq),
+                    0.0, 0.01, row_tile=16, **kw)
+    got = newton_fused.fused_newton_linear_u_pass(
+        _t(X), _t(U), _t(V), _t(BtB), _t(Hinv), _t(row_sq), 0.0, 0.01, **kw)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(_np(g), _np(w), rtol=1e-10, atol=1e-12)
+
+
+@pytest.mark.parametrize("k", _WIDE_K)
+def test_sigmoid_gh_wide_k_f64_matches_pallas(rng, k):
+    X, M, B = _sig_operands(rng, 7, 33, k)
+    want = j_gh(jnp.asarray(X), jnp.asarray(M), jnp.asarray(B), 0.05, 0.2)
+    got = sigmoid_newton.sigmoid_gh_pass(_t(X), _t(M), _t(B), 0.05, 0.2)
+    assert got[1].shape == (7, k, k)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(_np(g), _np(w), rtol=1e-10, atol=1e-12)
+
+
+@pytest.mark.parametrize("k", _WIDE_K)
+def test_sigmoid_phi_wide_k_f64_matches_pallas(rng, k):
+    X, M, B = _sig_operands(rng, 7, 33, k)
+    d = 0.1 * rng.randn(7, k)
+    kw = dict(trials=8, non_negative=False)
+    want = j_phi(jnp.asarray(X), jnp.asarray(M), jnp.asarray(d),
+                 jnp.asarray(B), 0.05, 0.2, **kw)
+    got = sigmoid_newton.sigmoid_phi_pass(_t(X), _t(M), _t(d), _t(B), 0.05,
+                                          0.2, **kw)
+    np.testing.assert_allclose(_np(got), _np(want), rtol=1e-10)
+
+
+@pytest.mark.parametrize("n,m", [(1, 1), (65, 129), (30000, 11314)])
+@pytest.mark.parametrize("k", [33, 64, 100, 128])
+@pytest.mark.parametrize("x_bytes", [2, 4])
+def test_u_pass_plan_wide_k_slices_cover_each_component_once(n, m, k,
+                                                             x_bytes):
+    """k > 32 (csrc/u_pass_common.cuh's wide route): 32-component slices
+    cover 0 .. k-1 exactly once, Vᵀ and U_newᵀ hold every slice's rows,
+    and the last workspace part holds the X V and scratch rows (2 n k
+    floats) as well as the column sweep's partials."""
+    p = mu_fused.u_pass_plan(n, m, k, x_bytes, 132)
+    assert p.k_slices == -(-k // 32) and p.nt == 4 * p.k_slices
+    comps = [c for s in range(p.k_slices)
+             for c in range(32 * s, min(k, 32 * (s + 1)))]
+    assert comps == list(range(k))
+    assert 8 * p.nt >= k
+    ends = list(p.offsets[1:]) + [p.floats]
+    sizes = (8 * p.nt * p.ld_vt * x_bytes / 4, 8 * p.nt * p.ld_ux * x_bytes / 4,
+             p.row_blocks * k * k,
+             max(2 * n * k, p.n_seg * m * k if p.n_seg > 1 else 0))
+    for off, size, end in zip(p.offsets, sizes, ends):
+        assert off % mu_fused.WORK_ALIGN == 0 and off + size <= end
+    assert mu_fused.u_pass_plan(n, m, 32, x_bytes, 132).k_slices == 1
+
+
+_SPLAN_SHAPES = [(1, 1, 1), (17, 15, 7), (20, 11314, 20), (30000, 11314, 20),
+                 (11314, 30000, 20), (17, 4097, 33), (20, 300, 64),
+                 (1, 15, 100), (65, 97, 300)]
+
+
+@pytest.mark.parametrize("n,q,k", _SPLAN_SHAPES)
+@pytest.mark.parametrize("x_bytes", [2, 4])
+@pytest.mark.parametrize("n_sm", [1, 132])
+def test_sigmoid_gh_plan_covers_each_row_column_and_segment_once(n, q, k,
+                                                                x_bytes,
+                                                                n_sm):
+    """K3's plan (csrc/sigmoid_newton.cu checks the same rules in
+    splan_ok): row tiles, q segments (whole 32-column chunks) and the
+    product table's 128-column tiles cover rows, q and the table exactly
+    once; the table holds B's padded columns then every pair (a <= b);
+    the CTA's shared memory fits, and the workspace parts hold the padded
+    B, M's two TF32 parts, T's pair columns (32 words per chunk and column)
+    and one partial per (segment, row)."""
+    p = sigmoid_newton.gh_plan(n, q, k, x_bytes, n_sm)
+    rows = [r for t in range(p.row_tiles)
+            for r in range(t * sigmoid_newton.ROWS,
+                           min(n, (t + 1) * sigmoid_newton.ROWS))]
+    assert rows == list(range(n))
+    assert p.seg_len % sigmoid_newton.CHUNK == 0
+    cols = [c for s in range(p.n_seg)
+            for c in range(s * p.seg_len, min(q, (s + 1) * p.seg_len))]
+    assert cols == list(range(q))
+    assert p.kg == 8 * -(-k // 8)
+    g0 = sigmoid_newton.g_offset(k)  # T = [pairs, padded to 8 | B]
+    assert g0 % 8 == 0 and k * (k + 1) // 2 <= g0 < k * (k + 1) // 2 + 8
+    assert p.ldp >= g0 + p.kg
+    tiles = [c for t in range(p.col_tiles)
+             for c in range(t * sigmoid_newton.COLS,
+                            (t + 1) * sigmoid_newton.COLS)]
+    assert tiles == list(range(p.ldp))
+    assert p.smem == sigmoid_newton.smem_bytes(x_bytes, p.kg, True,
+                                               p.ops_smem, 1)
+    assert p.smem <= sigmoid_newton.SMEM_MAX
+    q_pad = sigmoid_newton.CHUNK * -(-q // sigmoid_newton.CHUNK)
+    rows = sigmoid_newton.ROWS * p.row_tiles * p.kg
+    sizes = (q_pad * p.kg, rows, rows, q_pad * p.ldp, p.n_seg * n * p.ldp)
+    ends = list(p.offsets[1:]) + [p.floats]
+    for off, size, end in zip(p.offsets, sizes, ends):
+        assert off % sigmoid_newton.WORK_ALIGN == 0 and off + size <= end
+    assert p.n_seg == 1 or \
+        p.row_tiles * p.col_tiles * (p.n_seg - 1) \
+        < sigmoid_newton.CTAS_PER_SM * n_sm
+
+
+@pytest.mark.parametrize("n,q,k", _SPLAN_SHAPES)
+@pytest.mark.parametrize("slots", [1, 9, 256])
+def test_sigmoid_phi_plan_covers_each_row_and_segment_once(n, q, k, slots):
+    """K4's plan: rows and q segments covered once, the per-(row, slot)
+    sums fit in shared memory with the operands there or in device memory,
+    and the workspace holds B, M and d padded to kg columns and one partial
+    per (segment, row, slot)."""
+    p = sigmoid_newton.phi_plan(n, q, k, slots, 2, 132)
+    assert p.kg == 8 * -(-k // 8) and p.col_tiles == 1 and p.ldp == 0
+    cols = [c for s in range(p.n_seg)
+            for c in range(s * p.seg_len, min(q, (s + 1) * p.seg_len))]
+    assert cols == list(range(q))
+    assert p.row_tiles * sigmoid_newton.ROWS >= n
+    assert p.smem <= sigmoid_newton.SMEM_MAX
+    assert p.ops_smem == int(sigmoid_newton.smem_bytes(
+        2, p.kg, False, True, slots) <= sigmoid_newton.SMEM_MAX)
+    padded = sigmoid_newton.ROWS * p.row_tiles * p.kg
+    sizes = (sigmoid_newton.CHUNK * -(-q // sigmoid_newton.CHUNK) * p.kg,
+             padded, padded, p.n_seg * n * slots)
+    ends = list(p.offsets[1:]) + [p.floats]
+    for off, size, end in zip(p.offsets, sizes, ends):
+        assert off % sigmoid_newton.WORK_ALIGN == 0 and off + size <= end
+
+
+def test_sigmoid_plans_at_the_main_shapes():
+    """Path A's Z update (20 x 11314) splits q so that its one row tile
+    fills the card; path B's 30000 rows take one segment; both keep their
+    operands in shared memory at two CTAs per SM."""
+    a = sigmoid_newton.gh_plan(20, 11314, 20, 2, 132)
+    assert (a.row_tiles, a.col_tiles, a.ldp) == (1, 2, 256)
+    assert a.n_seg * a.col_tiles >= 132 and a.ops_smem == 1
+    b = sigmoid_newton.gh_plan(30000, 11314, 20, 2, 132)
+    assert (b.row_tiles, b.n_seg, b.ops_smem) == (469, 1, 1)
+    assert 2 * b.smem <= 228 * 1024
+    f = sigmoid_newton.phi_plan(20, 11314, 20, 9, 2, 132)
+    assert f.n_seg >= 132 and f.ops_smem == 1
+
+
+@pytest.mark.parametrize("k", [1, 32, 33, 64, 100, 128])
+@pytest.mark.parametrize("xdt", [torch.float32, torch.bfloat16])
+def test_card_operand_checks_take_any_k(k, xdt):
+    """The CUDA wrappers' operand checks, called directly: any k for f32
+    or bf16 data and f32 factors; float64 factors and fp8 data still
+    refused, naming ROADMAP C1 and A9."""
+    X = torch.zeros(5, 7, dtype=xdt)
+    U, V = torch.zeros(5, k), torch.zeros(7, k)
+    S = torch.zeros(k, k)
+    mu_fused.check_card_operands(X, U, V, (S,))
+    sigmoid_newton._card_operands(X, U, V)
+    with pytest.raises(NotImplementedError, match="ROADMAP C1"):
+        mu_fused.check_card_operands(X, U.double(), V.double(), ())
+    with pytest.raises(NotImplementedError, match="ROADMAP C1"):
+        mu_fused.check_card_operands(X.double(), U, V, ())
+    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+        sigmoid_newton.sigmoid_gh_pass(X.float().to(torch.float8_e4m3fn),
+                                       U, V, 0.0, 0.0)

@@ -308,6 +308,108 @@ def test_mu_update_ref_matches_pallas_f64(rng):
     np.testing.assert_allclose(_np(got), _np(want), rtol=1e-12)
 
 
+# -- k > 32 (the CUDA kernels take it in 32-column slices) -------------------
+
+_WIDE_K = [33, 40, 64]
+
+
+@pytest.mark.parametrize("k", _WIDE_K)
+def test_csr_spmm_ref_matches_spmm_tiled_wide_k(rng, k):
+    A = _scattered(rng)
+    B = rng.randn(40, k)
+    want = spmm_tiled(tile_csr_from_matrix(jsparse.csr_from_scipy(
+        A, jnp.float64)), jnp.asarray(B))
+    got = tspmm.csr_spmm(tsparse.csr_from_scipy(A, torch.float64),
+                         torch.from_numpy(B))
+    np.testing.assert_allclose(_np(got), _np(want), rtol=1e-12, atol=1e-14)
+
+
+@pytest.mark.parametrize("k", _WIDE_K)
+def test_csr_rowdots_ref_matches_sddmm_tiled_wide_k(rng, k):
+    A = _scattered(rng)
+    M, B = rng.randn(60, k), rng.randn(40, k)
+    want = sddmm_rowdots_tiled(tile_csr_from_matrix(jsparse.csr_from_scipy(
+        A, jnp.float64)), jnp.asarray(M), jnp.asarray(B))
+    got = tspmm.csr_rowdots(tsparse.csr_from_scipy(A, torch.float64),
+                            torch.from_numpy(M), torch.from_numpy(B))
+    np.testing.assert_allclose(_np(got), _np(want), rtol=1e-12, atol=1e-13)
+
+
+@pytest.mark.parametrize("k", _WIDE_K)
+def test_bell_spmm_ref_matches_pallas_wide_k(rng, k):
+    A = block_sparse_matrix(384, 256, 0.5, rng)
+    B = rng.rand(256, k)
+    want = jbell.bell_spmm(jbell.bell_from_scipy(A, jnp.float64),
+                           jnp.asarray(B))
+    got = tbell.bell_spmm(tbell.bell_from_scipy(A, torch.float64),
+                          torch.from_numpy(B))
+    np.testing.assert_allclose(_np(got), _np(want), rtol=1e-12)
+
+
+@pytest.mark.parametrize("k", _WIDE_K)
+def test_mu_update_ref_matches_pallas_f64_wide_k(rng, k):
+    M, num = np.abs(rng.randn(61, k)), np.abs(rng.randn(61, k))
+    S = np.abs(rng.randn(k, k))
+    want = j_mu_update(jnp.asarray(M), jnp.asarray(S), jnp.asarray(num),
+                       0.1, 0.2, 1e-10)
+    got = tmu_update.fused_mu_update(torch.from_numpy(M), torch.from_numpy(S),
+                                     torch.from_numpy(num), 0.1, 0.2, 1e-10)
+    np.testing.assert_allclose(_np(got), _np(want), rtol=1e-12)
+
+
+@pytest.mark.parametrize("k", [1, 8, 32, 33, 64, 100, 128])
+def test_bell_tiles_cover_each_column_once(k):
+    """csrc/bell_spmm.cu's output slices: one slice of k rounded up to 8
+    for k <= 32, else 32-column slices, which cover 0 .. k-1 once."""
+    kpn, n_slices = tbell.bell_tiles(k)
+    assert kpn % 8 == 0 and kpn * n_slices >= k > kpn * (n_slices - 1)
+    cols = [c for s in range(n_slices)
+            for c in range(s * kpn, min(k, (s + 1) * kpn))]
+    assert cols == list(range(k))
+    assert n_slices == 1 or kpn == tbell.SLICE
+
+
+@pytest.mark.parametrize("k", [1, 32, 33, 64, 100])
+def test_csr_slices_and_rowdots_workspace(k):
+    """csrc/csr_spmm.cu walks k in 32-column slices: csr_spmm's partials
+    lie side by side (2 slots per chunk and output column), csr_rowdots
+    keeps one partial column per slice and, with more than one slice,
+    each slice's row dots."""
+    nnz, ch, p = 1000, 16, 300
+    n_chunks = -(-nnz // ch)
+    n_slices = -(-k // tspmm.SLICE)
+    assert tspmm.workspace_floats(nnz, k, ch) == 2 * n_chunks * k
+    want = 2 * n_chunks * n_slices + (n_slices * p if n_slices > 1 else 0)
+    assert tspmm.rowdots_workspace_floats(nnz, k, ch, p) == want
+    widths = [min(tspmm.SLICE, k - tspmm.SLICE * s) for s in range(n_slices)]
+    assert sum(widths) == k and all(0 < w <= 8 * 4 for w in widths)
+
+
+@pytest.mark.parametrize("k", [1, 32, 33, 64, 100, 128])
+def test_sparse_card_operand_checks_take_any_k(rng, k):
+    """The CUDA sparse wrappers' operand checks, called directly: any k
+    for f32 or bf16 values and f32 factors; float64 refused naming
+    ROADMAP C1."""
+    A = _scattered(rng)
+    for dt in (torch.float32, torch.bfloat16):
+        C = tsparse.csr_from_scipy(A, dt)
+        assert tspmm._check_card_operands(
+            C, ((torch.zeros(60, k), 60), (torch.zeros(40, k), 40))) == k
+        L = tbell.bell_from_scipy(A, dt)
+        tbell.check_card_operands(L, torch.zeros(40, k))
+    tmu_update.check_card_operands(torch.zeros(5, k), torch.zeros(k, k),
+                                   torch.zeros(5, k))
+    with pytest.raises(NotImplementedError, match="ROADMAP C1"):
+        tspmm._check_card_operands(tsparse.csr_from_scipy(A, torch.float64),
+                                   ((torch.zeros(40, k), 40),))
+    with pytest.raises(NotImplementedError, match="ROADMAP C1"):
+        tbell.check_card_operands(tbell.bell_from_scipy(A, torch.float64),
+                                  torch.zeros(40, k))
+    with pytest.raises(NotImplementedError, match="ROADMAP C1"):
+        tmu_update.check_card_operands(torch.zeros(5, k, dtype=torch.float64),
+                                       torch.zeros(k, k), torch.zeros(5, k))
+
+
 # -- losses ------------------------------------------------------------------
 
 @pytest.mark.parametrize("use_pallas", [True, False])
