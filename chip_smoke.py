@@ -19,11 +19,13 @@ Phases (any failure exits non-zero and prints no ok line):
     at the edges (n in {1, 17, 20, 30000}, q in {1, 15, 4097, 11314}, k in
     {1, 7, 20, 32, 33, 64, 100}, bf16 and f32, trials 0 and 8,
     non_negative both ways); K5 at 11314 and 30000 systems of 20 x 20,
-    beside torch.linalg.solve; csr_spmm (X V and X^T U) and csr_rowdots on
-    the 20NG surrogate's CSR and an RCV1-v2-shaped one (47236 x 804414,
-    60M nonzeros), beside torch.sparse.mm; fused_mu_update at 11314 x 20 and
-    804414 x 20; bell_spmm on a block-structured 30000 x 11314 X (51M
-    nonzeros) and on its transpose, beside a BSR torch.sparse.mm, and the
+    whole and with H_shared apart, beside torch.linalg.solve, and K5 and
+    K6 at the edges of their tiles (solve_update_edges); csr_spmm (X V and
+    X^T U) and csr_rowdots on the 20NG surrogate's CSR and an
+    RCV1-v2-shaped one (47236 x 804414, 60M nonzeros), beside
+    torch.sparse.mm; fused_mu_update at 11314 x 20 and 804414 x 20;
+    bell_spmm on a block-structured 30000 x 11314 X (51M nonzeros) and
+    on its transpose, beside a BSR torch.sparse.mm, and the
     fill at which it and csr_spmm take equal device time; edge cases at small
     shapes (k up to 100), each kernel's output and scratch NaN-filled
     before one call;
@@ -31,15 +33,16 @@ Phases (any failure exits non-zero and prints no ok line):
     kernel launches, and the exact (float64) loss non-increasing along the
     fit, replayed as warm-started segments;
  5. the same for a Newton fit with linear links;
- 6. path A, bench.py's Newton cell: linear X, sigmoid Y (K2, K3, K4, K5);
+ 6. path A, bench.py's Newton cell: linear X, sigmoid Y (K2, K3, K4, K5),
+    and K5 handed H_shared apart on every call;
  7. path B, dense sigmoid X and Y on the binarised surrogate (K3, K4, K5),
     its phi eval loss against an exact float64 loss taken on the card;
     path C, MU on the surrogate kept CSR (sparse_mode='csr': csr_spmm,
     fused_mu_update, csr_rowdots); path D, bench's Newton cell on the CSR
     X; path F, MU on the block-structured X through BlockEll (bell_spmm);
     the MU cell and path A at n_components=40 (k > 32, use_pallas left at
-    its default); then MU, Newton linear and paths A to D and F under
-    torch.profiler
+    its default); then MU, Newton linear, paths A to D and F and path A
+    at k = 40 under torch.profiler
     (device time by kernel, idle share, launches per iteration, and on
     path F bell_spmm's share);
  8. kernel path against plain path on the card: after 20 iterations,
@@ -125,16 +128,19 @@ def time_ms(fn, warmup: int = 2, reps: int = 10, flush=None) -> float:
     return times[len(times) // 2]
 
 
-def device_ms(fn, reps: int = 10) -> float:
+def device_ms(fn, reps: int = 10, flush=None) -> float:
     """Median device time of fn() in ms: the card is held busy (about 1 ms
     of torch.cuda._sleep) while the host enqueues the events and fn's
-    launches, so the events bracket the device's work alone."""
+    launches, so the events bracket the device's work alone; flush() (not
+    timed) is enqueued before each hold."""
     import torch
 
     fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
+        if flush is not None:
+            flush()
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         torch.cuda._sleep(2_000_000)
@@ -654,7 +660,7 @@ def sigmoid_phase(check, torch, sigmoid_newton, batched_solve):
             Hs = Hr + (l2 + pert) * torch.eye(K, device=dev)
             d = batched_solve.batched_spd_solve_ref(Hs, Gr)
             if shape == "B" and xname == "bfloat16":
-                H_b, G_b = Hs, Gr
+                H_b, G_b = Hr, Gr
             # K4
             kw = dict(trials=TRIALS, non_negative=True)
             phi = nan_filled(lambda: sigmoid_newton.sigmoid_phi_pass(
@@ -701,11 +707,16 @@ def sigmoid_phase(check, torch, sigmoid_newton, batched_solve):
                 bound_ms=b4[0], bound_by=b4[1], slot_agreement=agree)
             del G, H, G2, H2, Gr, Hr, phi, phi2, phr, d
         del lab, X, Mf, Bf
-    # K5 on the real Gauss-Newton systems of the sigmoid-X shape
+    # K5 on the real Gauss-Newton systems of the sigmoid-X shape, given
+    # whole (H) and as the Newton solver passes them (the per-row part and
+    # H_shared, which the kernel adds as it reads each system)
     flush_buf = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    shared = (l2 + pert) * torch.eye(K, device=dev)
     for p in (M, N):
-        H, G = H_b[:p].contiguous(), G_b[:p].contiguous()
+        Hr, G = H_b[:p].contiguous(), G_b[:p].contiguous()
+        H = Hr + shared
         d = batched_solve.batched_spd_solve(H, G)
+        d_sh = batched_solve.batched_spd_solve(Hr, G, shared)
         torch.cuda.synchronize()
         dr = batched_solve.batched_spd_solve_ref(H, G)
         e = rel_fro(d, dr)
@@ -713,24 +724,148 @@ def sigmoid_phase(check, torch, sigmoid_newton, batched_solve):
                      - G.double()).norm() / G.double().norm())
         check(e <= 1e-3, f"K5[p={p}] d rel Frobenius {e:.3g} <= 1e-3; "
               f"kernel residual |Hd - G|/|G| {res:.3g}")
+        check(bits_equal(torch, d, d_sh), f"K5[p={p}] with H_shared equals "
+              f"the solve of H + H_shared bit for bit")
         nbytes = 4.0 * p * (K * K + 2 * K)
         b5 = bound(nbytes, p * (K ** 3 / 3.0 + 2 * K * K), F32_FLOPS)
         flush = flush_buf.zero_
-        t5 = time_ms(lambda: batched_solve.batched_spd_solve(H, G),
-                     reps=20, flush=flush)
+
+        def k5():
+            return batched_solve.batched_spd_solve(H, G)
+
+        def k5_shared():
+            return batched_solve.batched_spd_solve(Hr, G, shared)
+
+        def library():
+            return torch.linalg.solve(H, G[..., None])
+        t5 = time_ms(k5, reps=20, flush=flush)
+        dt5 = device_ms(k5, reps=20, flush=flush)
+        ts5 = time_ms(k5_shared, reps=20, flush=flush)
+        dts5 = device_ms(k5_shared, reps=20, flush=flush)
         p5 = time_ms(lambda: batched_solve.batched_spd_solve_ref(H, G),
                      reps=20, flush=flush)
-        lib = time_ms(lambda: torch.linalg.solve(H, G[..., None]), reps=20,
-                      flush=flush)
-        log(f"  K5[p={p}] kernel {t5:.4f} ms, plain {p5:.4f} ms, "
-            f"torch.linalg.solve {lib:.4f} ms, bound {b5[0]:.4f} ms "
-            f"({b5[1]}); L2 flushed before each call")
+        lib = time_ms(library, reps=20, flush=flush)
+        dlib = device_ms(library, reps=20, flush=flush)
+        log(f"  K5[p={p}] kernel {t5:.4f} ms (device alone {dt5:.4f}; with "
+            f"H_shared {ts5:.4f}, device {dts5:.4f}), plain {p5:.4f} ms, "
+            f"torch.linalg.solve {lib:.4f} ms (device {dlib:.4f}), bound "
+            f"{b5[0]:.4f} ms ({b5[1]}); L2 flushed before each call")
         rec[("batched_spd_solve", p)] = dict(
-            max_abs_err=float((d - dr).abs().max()), ms=t5, plain_ms=p5,
-            library_ms=lib, bound_ms=b5[0], bound_by=b5[1])
+            max_abs_err=float((d - dr).abs().max()), ms=t5, device_ms=dt5,
+            shared_ms=ts5, shared_device_ms=dts5, plain_ms=p5,
+            library_ms=lib, library_device_ms=dlib, bound_ms=b5[0],
+            bound_by=b5[1])
     del flush_buf, H_b, G_b
     torch.cuda.empty_cache()
     return rec
+
+
+def bits_equal(torch, a, b) -> bool:
+    """a and b hold the same bits (NaN included)."""
+    return a.shape == b.shape and bool(torch.equal(a.view(torch.int32),
+                                                   b.view(torch.int32)))
+
+
+def solve_update_edges(check, torch, batched_solve, mu_update):
+    """K5 and K6 at the edges of their tiles, warps and staging copies.
+
+    K6 (fused_mu_update): p in {1, 7, R + 1, 2 SMs R + 1} for R the most
+    rows a tile holds at that k (the route for k <= 32 walks whole tiles,
+    and at the last p the persistent grid's tiles end ragged), k in {1, 3,
+    20, 33, 64, 100} (k > 32: one thread per element), and a case whose
+    M and num start 4 bytes off a 16-byte boundary (the 4-byte staging
+    copies); against the plain version in float64, relative
+    Frobenius <= 1e-5 (sparse_phase's bar).
+    K5 (batched_spd_solve): p in {1, 20, 33}, k in {1, 3, 20, 32}, with and
+    without H_shared, one case with H 4 bytes off a 16-byte boundary;
+    systems A Aᵀ/k + H_shared with H_shared = 0.5 I + a random SPD part
+    (or the whole sum in H), d against the float64 solve of the same f32
+    systems by relative Frobenius <= 1e-4 (cond(H) below ~100 times f32
+    rounding); with H_shared the result must equal the solve of the sum
+    taken beforehand bit for bit (the kernel adds it in f32 as it reads);
+    one system in the middle is made indefinite (its sum is -I): its row
+    must be all NaN and every other row finite and unchanged, bit for bit.
+    Every output NaN-filled before the call, a second call bitwise equal."""
+    import numpy as np
+
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(SEED + 6)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def f32(a):
+        return torch.from_numpy(np.asarray(a, dtype=np.float32)).to(dev)
+
+    def offset(t):
+        """t's values in a tensor whose storage starts 4 bytes later."""
+        flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)
+        flat[1:] = t.reshape(-1)
+        return flat[1:].view(t.shape)
+
+    n6 = 0
+    for k in (1, 3, 20, 33, 64, 100):
+        most = mu_update.tile_rows(1 << 30, k, n_sm) or 128
+        for p in (1, 7, most + 1, 2 * n_sm * most + 1):
+            M, num = f32(rng.rand(p, k)), f32(rng.rand(p, k))
+            S = f32(rng.rand(k, k))
+            want = mu_update.fused_mu_update_ref(M.double(), S.double(),
+                                                 num.double(), 0.1, 0.2,
+                                                 1e-10)
+            for tag, Mi, Ni in (("", M, num),
+                                (" unaligned", offset(M), offset(num))):
+                if tag and p != 7:
+                    continue
+                got = nan_filled(lambda: mu_update.fused_mu_update(
+                    Mi, S, Ni, 0.1, 0.2, 1e-10))
+                again = mu_update.fused_mu_update(Mi, S, Ni, 0.1, 0.2, 1e-10)
+                torch.cuda.synchronize()
+                e = rel_fro(got, want)
+                check(e <= 1e-5 and bits_equal(torch, got, again),
+                      f"fused_mu_update[edge p={p} k={k}{tag}] rel Frobenius "
+                      f"{e:.3g} <= 1e-5 (output NaN-filled), two calls "
+                      f"bitwise equal")
+                n6 += 1
+    n5 = 0
+    for k in (1, 3, 20, 32):
+        for p in (1, 20, 33):
+            A = rng.randn(p, k, k)
+            R = rng.randn(k, k)
+            Hs = 0.5 * np.eye(k) + R @ R.T / k
+            H = np.einsum("pij,pkj->pik", A, A) / k
+            bad = p // 2 if p > 1 else None
+            if bad is not None:
+                H[bad] = -np.eye(k) - Hs
+            Hr, Hsh, G = f32(H), f32(Hs), f32(rng.randn(p, k))
+            Hsum = Hr + Hsh
+            want = batched_solve.batched_spd_solve_ref(Hsum.double(),
+                                                       G.double())
+            for tag, args in (("", (Hsum, G)),
+                              (" H_shared", (Hr, G, Hsh)),
+                              (" unaligned", (offset(Hsum), G))):
+                if tag == " unaligned" and p != 20:
+                    continue
+                got = nan_filled(lambda: batched_solve.batched_spd_solve(
+                    *args))
+                again = batched_solve.batched_spd_solve(*args)
+                torch.cuda.synchronize()
+                ok = [r for r in range(p) if r != bad]
+                e = rel_fro(got[ok], want[ok])
+                nan_row = (bad is None
+                           or bool(torch.isnan(got[bad]).all()))
+                finite = bool(torch.isfinite(got[ok]).all())
+                check(e <= 1e-4 and nan_row and finite
+                      and bits_equal(torch, got, again),
+                      f"batched_spd_solve[edge p={p} k={k}{tag}] d rel "
+                      f"Frobenius {e:.3g} <= 1e-4 on the SPD rows (output "
+                      f"NaN-filled), indefinite row all NaN {nan_row}, "
+                      f"others finite {finite}, two calls bitwise equal")
+                if tag == " H_shared":
+                    plain_sum = batched_solve.batched_spd_solve(Hsum, G)
+                    check(bits_equal(torch, got, plain_sum),
+                          f"batched_spd_solve[edge p={p} k={k}] with H_shared"
+                          f" equals the solve of H + H_shared bit for bit")
+                n5 += 1
+    torch.cuda.empty_cache()
+    log(f"  K5/K6 edges: {n5} K5 cases, {n6} K6 cases")
 
 
 def csr_bytes(A, kw_in: int, kw_out: int) -> float:
@@ -1269,6 +1404,7 @@ def main() -> int:
     krec.update(sigmoid_phase(check, torch, sigmoid_newton,
                               batched_solve))
     sigmoid_edges(check, torch, sigmoid_newton, batched_solve)
+    solve_update_edges(check, torch, batched_solve, mu_update)
     krec.update(sparse_phase(check, torch))
 
     # 4.-7. the paths, through the estimator
@@ -1300,6 +1436,19 @@ def main() -> int:
         "path A fit",
         lambda U, V, Z: numpy_cmf.loss(X64, Y64, U, V, Z,
                                        y_link="sigmoid"))
+    # path A's V and Z updates hand K5 the per-row Hessians and H_shared
+    # apart: the kernel adds H_shared as it reads, no (p, k, k) sum
+    real_solve, shared_seen = batched_solve.batched_spd_solve, []
+
+    def spy_solve(H, G, H_shared=None):
+        shared_seen.append(H_shared is not None)
+        return real_solve(H, G, H_shared)
+    with mock.patch.object(batched_solve, "batched_spd_solve", spy_solve):
+        CMF(**dict(a_kw, max_iter=2, eval_every=1, tol=0.0), **common).fit(
+            X, Y)
+    check(len(shared_seen) == 4 and all(shared_seen),
+          f"path A: K5 takes H_shared apart on each of its "
+          f"{len(shared_seen)} calls in 2 iterations (4 expected)")
     log("phase 7: path B, dense sigmoid X and Y")
     Xb = (X > 0).astype(np.float32)
     # signed factors: with non-negative ones every logit is >= 0, and on
@@ -1379,6 +1528,9 @@ def main() -> int:
     pf["profile"] = profile_phase(
         torch, lambda: CMF(**dict(f_kw, max_iter=10), **common), Xf, Y,
         "path F")
+    pa_w["profile"] = profile_phase(
+        torch, lambda: CMF(**dict(a_kw, max_iter=5, tol=0.0), **common_w),
+        X, Y, "path A, k=40")
     k7 = sum(t["ms_per_iter"] for t in pf["profile"]["top_kernels"]
              if "bell_" in t["name"])
     pf["profile"]["bell_spmm_share"] = k7 / pf["profile"]["device_ms_per_iter"]
@@ -1513,12 +1665,14 @@ def main() -> int:
                  "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                  "bound_by": r["bound_by"],
                  "library_ms": r.get("library_ms")}
-        for f in ("device_ms", "library_device_ms"):
+        for f in ("device_ms", "library_device_ms", "shared_ms",
+                  "shared_device_ms"):
             if r.get(f) is not None:
                 entry[f] = r[f]
         for pre, key in extra.items():
             for f in ("ms", "plain_ms", "bound_ms", "max_abs_err",
-                      "library_ms", "device_ms", "library_device_ms"):
+                      "library_ms", "device_ms", "library_device_ms",
+                      "shared_ms", "shared_device_ms"):
                 if f in krec[key]:
                     entry[f"{pre}_{f}"] = krec[key][f]
         kernels.append(entry)

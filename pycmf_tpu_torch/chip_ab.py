@@ -2,13 +2,15 @@
 
     python3 -m pycmf_tpu_torch.chip_ab [--phase PHASE] TREE_A TREE_B ...
 
-PHASE is sigmoid (the default), sparse, upass, paths or ties. Each TREE is a
-checkout of this repository (for example the parent commit
+PHASE is sigmoid (the default), sparse, upass, paths, k5k6 or ties. Each
+TREE is a checkout of this repository (for example the parent commit
 unpacked with ``git archive`` into a git-ignored directory). Every tree's
 libraries of the phase are built first, in parallel, with the ptxas
 registers and spills of their k = 20 kernels; then the phase of
 ``chip_smoke`` runs once per tree in the order A B ... B A, each run in its
-own process from that tree, printing one JSON object per run:
+own process from that tree, printing one JSON object per run (each
+tree's build also prints the machine instructions of those kernels, from
+``cuobjdump -sass`` where the toolkit has it):
 
 - ``sigmoid`` (the default): ``chip_smoke.sigmoid_phase``, K3, K4 and K5
   against their plain versions;
@@ -23,14 +25,26 @@ own process from that tree, printing one JSON object per run:
   (``x_read``: the rate a plain stream reaches);
 - ``paths``: chip_smoke phase 8's kernel-vs-plain fits of MU, Newton linear
   and path A (20 iterations), with the loss at every iteration of both;
+- ``k5k6``: K6 ``fused_mu_update`` at 20 x 20, 11314 x 20, 804414 x 20
+  and 11314 x 40 (ms, device ms, and a digest of each output: the digests
+  of every run must agree, so the trees' outputs are equal bit for bit);
+  K5 ``batched_spd_solve`` at p = 20, 11314 and 30000 systems of 20 x 20
+  with L2 flushed, given H whole and as the Newton solver passes it
+  (``path_*``: H_rows and H_shared apart, or their sum for a tree whose
+  kernel takes no H_shared), beside ``torch.linalg.solve``'s device time;
+  the host's time of one call at 11314 taken apart (``host_us``: the
+  least of 5 batches of 200 calls of the wrapper and of each of its steps
+  alone); then the MU fit and paths A, C, D and F: ms/iter (the least of
+  3 fits), and device ms/iter, idle share and launches under
+  torch.profiler;
 - ``ties``: K4 at chip_smoke's k = 1 edge shape (30000 x 4097, trials 8)
   on eight seeds: the share of rows whose selected line-search slot agrees
   with the plain version's, and the share on which each of the two matches
   a float64 evaluation, on all rows and on the rows float64 decides by
   more than 2^-22, 2^-20 and 2^-18 of phi (``chip_smoke.decided_rows``).
-  The code of ``upass``, ``paths`` and ``ties`` is this file's (``UPASS``),
-  run against each tree's wrappers, so a tree whose chip_smoke predates the
-  redesign is timed the same way.
+  The code of ``upass``, ``paths``, ``k5k6`` and ``ties`` is this file's
+  (``UPASS``), run against each tree's wrappers, so a tree whose
+  chip_smoke predates the redesign is timed the same way.
 
 Compare versions within one invocation only: two invocations may land on
 cards with other power limits. Exits non-zero if a build or a check fails.
@@ -64,6 +78,14 @@ PHASES = {
                "mu_update"), ("Li20E", "Li3E"),
               "paths_ab(check, torch, cs)"),
     "ties": (("sigmoid_newton",), ("phi_part",), "ties_ab(check, torch, cs)"),
+    # K5's and K6's k = 20 kernels (KP = 20) and K6's per-element one (the
+    # parent's only kernel, the k > 32 route since); the fits build every
+    # library
+    "k5k6": (("batched_solve", "mu_update", "mu_fused", "newton_fused",
+              "sigmoid_newton", "csr_spmm", "bell_spmm"),
+             ("chol_solve_kernelILi20", "mu_update_kernel",
+              "mu_update_wide", "mu_update_tile_kernelILi20"),
+             "k5k6_ab(check, torch, cs)"),
 }
 UPASS = """
 def upass_ab(check, torch, cs):
@@ -186,6 +208,194 @@ def ties_ab(check, torch, cs, seeds=8):
                 r[f"plain_vs_f64_{e}"] = cs.slot_agreement(want, w64, rows)
             rec[f"seed={seed} non_negative={nonneg}"] = r
     return rec
+def k5k6_ab(check, torch, cs):
+    # K6 and K5 at the main path's and the large shapes, the host's time of
+    # one call taken apart, and the fits that launch them; the same code
+    # against each tree's wrappers (a tree whose K5 takes no H_shared is
+    # given H_rows + H_shared, as its solver adds them)
+    import hashlib
+    import inspect
+    import time
+    import numpy as np
+    from pycmf_tpu_torch import CMF
+    from pycmf_tpu_torch.ops.kernels import (_build, batched_solve,
+                                             mu_update, policy)
+    from pycmf_tpu_torch.utils.datasets import (block_sparse_matrix,
+                                                synthetic_20ng)
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(cs.SEED + 7)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev).zero_
+    rec = {}
+
+    def f32(a):
+        return torch.from_numpy(np.asarray(a, dtype=np.float32)).to(dev)
+
+    def dev_ms(fn, flush=None, reps=20):
+        # chip_smoke.device_ms, with an optional L2 flush before each hold
+        fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(reps):
+            if flush is not None:
+                flush()
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(2_000_000)
+            a.record()
+            fn()
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b))
+        return sorted(times)[reps // 2]
+
+    def host_us(fn, n=200, batches=5):
+        # host time per call in microseconds, launches enqueued unsynced:
+        # the least of `batches` batches of n calls (the host is shared)
+        fn()
+        torch.cuda.synchronize()
+        best = float("inf")
+        for _ in range(batches):
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            best = min(best, time.perf_counter() - t0)
+            torch.cuda.synchronize()
+        return 1e6 * best / n
+
+    def host_split(lib, symbol, call, operands, out_shape):
+        # the wrapper's call, and each of its steps alone; the C entry's
+        # own time with the arguments of a real call (recorded, its output
+        # kept alive) and with p = 0 (arguments converted, no launch)
+        fn = _build.function(lib, symbol, [])  # resolved by call() first
+        seen = []
+
+        def record(*args):
+            seen.append(args)
+            return fn(*args)
+        _build._functions[(lib, symbol)] = record
+        try:
+            out = call()
+        finally:
+            _build._functions[(lib, symbol)] = fn
+        args = seen[-1]
+        zeros = [None if a is ctypes.c_void_p else
+                 (0.0 if a is ctypes.c_float else 0) for a in fn.argtypes]
+        d = dev.index or 0
+        steps = {
+            "call": call,
+            "c_entry_launch": lambda: (fn(*args), out),
+            "on_card": lambda: policy.on_card(*operands),
+            "contiguous": lambda: [t.contiguous() for t in operands],
+            "data_ptr": lambda: [t.data_ptr() for t in operands],
+            "empty": lambda: torch.empty(out_shape, dtype=torch.float32,
+                                         device=dev),
+            "function": lambda: _build.function(lib, symbol, []),
+            "load_and_check": lambda: _build.check(_build.load(lib), 0, ""),
+            "device_context_and_stream": lambda: _stream_in_context(torch, d),
+            "raw_stream": lambda: torch._C._cuda_getCurrentRawStream(d),
+            "ctypes_call_no_launch": lambda: fn(*zeros),
+        }
+        return {k: host_us(v) for k, v in steps.items()}
+
+    def digest(t):
+        return hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()[:16]
+
+    # K6: the bits of every output are compared across the trees (chip_ab's
+    # main), so the inputs are drawn on the host
+    for p, k in ((20, 20), (11314, 20), (804414, 20), (11314, 40)):
+        M, num = f32(np.abs(rng.randn(p, k))), f32(np.abs(rng.randn(p, k)))
+        S = f32(np.abs(rng.randn(k, k)) / k)
+
+        def run():
+            return mu_update.fused_mu_update(M, S, num, 1e-3, 2e-3, 1e-10)
+        out, again = run(), run()
+        want = mu_update.fused_mu_update_ref(M.double(), S.double(),
+                                             num.double(), 1e-3, 2e-3, 1e-10)
+        e = cs.rel_fro(out, want)
+        check(e <= 1e-5 and bool(torch.equal(out, again)),
+              f"fused_mu_update[{p}x{k}] rel Frobenius {e:.3g} <= 1e-5, "
+              f"two calls bitwise equal")
+        r = dict(ms=cs.time_ms(run, reps=50), device_ms=dev_ms(run, reps=50),
+                 bitwise=digest(out), rel_fro=e)
+        if (p, k) == (11314, 20):
+            r["host_us"] = host_split("mu_update", "pycmf_mu_update", run,
+                                      (M, S, num), (p, k))
+        rec[f"fused_mu_update[{p}x{k}]"] = r
+    del M, num, out, again, want
+
+    # K5 at k = 20: systems A Aᵀ/k (per row) + a shared SPD part
+    takes_shared = "H_shared" in inspect.signature(
+        batched_solve.batched_spd_solve).parameters
+    k = cs.K
+    R = rng.randn(k, k)
+    shared = f32(0.21 * np.eye(k) + R @ R.T / k)
+    for p in (20, 11314, 30000):
+        A = f32(rng.randn(p, k, k))
+        Hr = (A @ A.mT) / k
+        G = f32(rng.randn(p, k))
+        H = Hr + shared
+
+        def solve():
+            return batched_solve.batched_spd_solve(H, G)
+        if takes_shared:
+            def path():
+                return batched_solve.batched_spd_solve(Hr, G, shared)
+        else:
+            def path():
+                return batched_solve.batched_spd_solve(Hr + shared, G)
+        d, again = solve(), solve()
+        want = batched_solve.batched_spd_solve_ref(H.double(), G.double())
+        e = cs.rel_fro(d, want)
+        check(e <= 1e-4 and bool(torch.equal(d, again)),
+              f"batched_spd_solve[p={p}] d rel Frobenius {e:.3g} <= 1e-4, "
+              f"two calls bitwise equal")
+        r = dict(ms=cs.time_ms(solve, reps=20, flush=flush),
+                 device_ms=dev_ms(solve, flush),
+                 path_ms=cs.time_ms(path, reps=20, flush=flush),
+                 path_device_ms=dev_ms(path, flush), rel_fro=e,
+                 library_device_ms=dev_ms(
+                     lambda: torch.linalg.solve(H, G[..., None]), flush))
+        if p == 11314:
+            r["host_us"] = host_split("batched_solve",
+                                      "pycmf_batched_spd_solve", solve,
+                                      (H, G), (p, k))
+        rec[f"batched_spd_solve[p={p}]"] = r
+    del A, Hr, H, G, d, again, want
+
+    # the fits that launch them: ms/iter on the host clock (warm-up fit
+    # first), then device ms/iter and idle share under torch.profiler
+    X, Y = synthetic_20ng(random_state=cs.SEED)
+    Xf = block_sparse_matrix(cs.N, cs.M, 0.15, np.random.RandomState(cs.SEED))
+    common = dict(n_components=cs.K, data_dtype="bfloat16",
+                  random_state=cs.SEED, device="cuda", tol=0.0)
+    mu_kw = dict(solver="mu", max_iter=40, eval_every=10)
+    a_kw = dict(solver="newton", y_link="sigmoid", max_iter=20, eval_every=5)
+    for label, kw, data in (("MU", mu_kw, X), ("A", a_kw, X),
+                            ("C", dict(mu_kw, sparse_mode="csr"), X),
+                            ("D", dict(a_kw, sparse_mode="csr"), X),
+                            ("F", dict(mu_kw, sparse_mode="csr",
+                                       max_iter=20), Xf)):
+        def make():
+            return CMF(**kw, **common)
+        make().set_params(max_iter=2, eval_every=1).fit(data, Y)
+        ests = [make().fit(data, Y) for _ in range(3)]
+        prof = cs.profile_phase(torch, lambda: make().set_params(
+            max_iter=10), data, Y, f"path {label}")
+        rec[f"fit {label}"] = dict(
+            ms_per_iter=min(1e3 * sum(e.step_times_) / e.n_iter_
+                            for e in ests),
+            loss=ests[0].reconstruction_err_,
+            **{f: prof[f] for f in ("wall_ms_per_iter", "device_ms_per_iter",
+                                    "device_idle_share",
+                                    "device_launches_per_iter")})
+    return rec
+
+
+def _stream_in_context(torch, d):
+    with torch.cuda.device(d):
+        return torch.cuda.current_stream().cuda_stream
+
+
 def per_kernel(torch, run, reps=5):
     # mean device time in microseconds of each kernel of one call
     from torch.autograd import DeviceType
@@ -204,9 +414,11 @@ def per_kernel(torch, run, reps=5):
     return out
 """
 BUILD = """
+import os, subprocess
 from pycmf_tpu_torch.ops.kernels import _build
 _build.NAMES = {names!r}
 _build.build_all()
+dump = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
 for name in _build.NAMES:
     entry = ""
     for line in _build.build_log(name).splitlines():
@@ -215,9 +427,25 @@ for name in _build.NAMES:
         elif (("registers" in line or "spill" in line)
               and any(tag in entry for tag in {tags!r})):
             print(name, entry, line.strip())
+    # machine instructions per reported kernel (cuobjdump -sass)
+    if not os.path.exists(dump):
+        continue
+    sass = subprocess.run([dump, "-sass", str(_build._library_path(name))],
+                          capture_output=True, text=True).stdout
+    entry = None
+    count = {{}}
+    for line in sass.splitlines():
+        if "Function :" in line:
+            entry = line.split(":", 1)[1].strip()
+            count[entry] = 0
+        elif entry and line.strip().startswith("/*") and ";" in line:
+            count[entry] += 1
+    for entry, n in count.items():
+        if any(tag in entry for tag in {tags!r}):
+            print(name, entry, "SASS instructions", n)
 """
 RUN = """
-import json, torch, chip_smoke as cs
+import ctypes, json, torch, chip_smoke as cs
 from pycmf_tpu_torch.ops.kernels import sigmoid_newton, batched_solve
 {upass}
 check = cs.Checks()
@@ -254,6 +482,7 @@ def main(argv) -> int:
                           "ptxas": out.splitlines()}), flush=True)
     if not ok:
         return 1
+    bits = {}
     for tree in trees + trees[::-1]:
         r = subprocess.run([sys.executable, "-c",
                             RUN.format(call=call, upass=UPASS)],
@@ -262,6 +491,13 @@ def main(argv) -> int:
                if r.returncode == 0 else {"error": r.stderr[-3000:]})
         ok &= r.returncode == 0 and not rec.get("failed")
         print(json.dumps({"tree": tree, "phase": phase, **rec}), flush=True)
+        for key, v in rec.get("kernels", {}).items():
+            if isinstance(v, dict) and "bitwise" in v:
+                bits.setdefault(key, set()).add(v["bitwise"])
+    if bits:  # outputs digested by every run must agree across the trees
+        same = {key: len(d) == 1 for key, d in bits.items()}
+        ok &= all(same.values())
+        print(json.dumps({"bitwise_equal_across_trees": same}), flush=True)
     return 0 if ok else 1
 
 

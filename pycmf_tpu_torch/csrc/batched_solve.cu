@@ -3,108 +3,194 @@
 // Replaces: pycmf_tpu/ops/pallas/batched_solve.py:batched_spd_solve
 // (TPU kernel K5).
 //
-// For every system i < p: H[i] d[i] = G[i], with H[i] (k x k, row-major,
-// symmetric positive definite; only its lower triangle is read) factored by
-// an unpivoted Cholesky L L^T, then a forward and a back substitution, all
-// in f32. A matrix that is not positive definite yields NaN in its row of
-// d (sqrt of a non-positive pivot), never an error or a host sync.
+// For every system i < p: (H[i] + Hs) d[i] = G[i], with Hs an optional
+// k x k matrix shared by all systems (the Gauss-Newton solve's H_shared;
+// absent, the TPU kernel's H[i] d[i] = G[i]). The sum is symmetric positive
+// definite; only its lower triangle decides the result. It is factored by
+// an unpivoted Cholesky L L^T, with a forward and a back substitution, all
+// in f32. A matrix that is not positive definite yields NaN in its own row
+// of d (a non-positive pivot), never an error or a host sync.
 //
 // Bound: bytes. Each system reads k*k + k floats and writes k; the work is
 // ~k^3/6 FMAs, about 1.4 k FMAs per byte read at k = 20, far below the
 // card's ~20 f32 FMAs per byte of DRAM bandwidth. At p = 11314 (the V
 // update of the main path) H is 18 MB: ~6 us at 3.35 TB/s.
 //
-// Design: one warp per system, lane i holding row i of the lower triangle
-// in registers (k <= 32). The warp stages its system in shared memory with
-// coalesced loads, then runs a right-looking factorization: at step j lane
-// i scales its L[i][j] by the pivot's reciprocal (broadcast by a shuffle)
-// and updates its trailing entries with L[c][j] taken by shuffles from
-// lane c. The forward substitution broadcasts y_j from lane j; the back
-// substitution sums L[t][i] x_t over lanes t > i with a butterfly
-// reduction. Lanes >= k hold zeros. Every sum has a fixed order, so a call
-// repeats bit for bit. The TPU kernel's lane-transposed (k*k, p) layout and
-// identity padding are not carried over: each warp reads its own system
-// and the ragged edge is a bounds check.
+// Design: a persistent grid of about one wave; each warp walks systems
+// with a stride and holds one system at a time, lane i row i of the lower
+// triangle in registers (k <= 32; KP = k rounded up to 4 at compile time,
+// rows k..KP-1 an identity block, so every loop is unrolled with no test
+// of k). The next system's k*k contiguous floats are copied into a second
+// shared buffer of the warp by 16-byte cp.async (4-byte copies for odd k
+// or an unaligned H) while the current one factors; Hs is staged once per
+// block and added to each row as it leaves shared memory (the same f32 sum
+// as H + Hs taken beforehand, so the same result bit for bit). The
+// right-looking factorization runs on the augmented system [H | g], so
+// y comes out of its own KP steps (no forward chain of its own): at step
+// j each lane publishes its entry of column j (and lane j its g_j) to a
+// shared buffer, every lane reads the column back as 16-byte broadcasts
+// (no shuffle per entry) and takes 1 / L[j][j] by one rsqrtf. L's rows
+// then go to shared memory, and the back substitution runs column by
+// column: one shuffle of x_t, one read of L[t][i] and one FMA per step.
+// A non-positive pivot gives NaN, which reaches every entry of its
+// system's d and no other. Every sum has a fixed order, so a call repeats
+// bit for bit. The TPU kernel's lane-transposed (k*k, p) layout and
+// identity padding of p are not carried over: each warp reads its own
+// system and the ragged edge is a bounds check.
 #include "common.cuh"
+
+#include <algorithm>
 
 namespace pycmf {
 
-constexpr int kSolveWarps = 8;
+constexpr int kSolveWarps = 4;
 
-template <int KP>
+template <int KP, bool SHARED>  // SHARED: Hs given
 __global__ void __launch_bounds__(kSolveWarps * 32)
-    chol_solve_kernel(const float* __restrict__ H, const float* __restrict__ G,
-                      int p, int k, float* __restrict__ D) {
-  constexpr int LD = KP + 1;  // odd stride: lane i's row reads hit distinct banks
-  __shared__ float Hs[kSolveWarps][KP * LD];
+    chol_solve_kernel(const float* __restrict__ H,
+                      const float* __restrict__ Hshared,
+                      const float* __restrict__ G, int p, int k, int vec,
+                      float* __restrict__ D) {
+  constexpr int LDL = KP + 1;  // L's rows in shared memory: odd stride
+  // per warp: two system buffers (the second takes the next system's copy;
+  // the first then holds L, whose row KP - 1 lanes read 32 wide), and two
+  // column buffers of 32 entries plus g_j
+  __shared__ __align__(16) float hbuf[kSolveWarps][2][KP * LDL + 32];
+  __shared__ __align__(16) float colbuf[kSolveWarps][2][36];
+  __shared__ float hsh[SHARED ? KP * KP : 1];
   const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
-  const int sys = blockIdx.x * kSolveWarps + warp;
+  const int kk = k * k;
+  if (SHARED)
+    for (int e = threadIdx.x; e < kk; e += kSolveWarps * 32) hsh[e] = Hshared[e];
+  __syncthreads();
+  const int stride = gridDim.x * kSolveWarps;
+  int sys = blockIdx.x * kSolveWarps + warp;
   if (sys >= p) return;  // the whole warp leaves together
-  const float* h = H + (size_t)sys * k * k;
-  float* hs = Hs[warp];
-  for (int e = lane; e < k * k; e += 32) hs[(e / k) * LD + e % k] = h[e];
-  __syncwarp();
 
-  float a[KP];  // row `lane` of the lower triangle, then of L
-#pragma unroll
-  for (int c = 0; c < KP; ++c)
-    a[c] = (lane < k && c <= lane) ? hs[lane * LD + c] : 0.f;
-  float b = lane < k ? G[(size_t)sys * k + lane] : 0.f;
+  auto stage = [&](int s, float* dst) {
+    const float* src = H + (size_t)s * kk;
+    if (vec) {
+      for (int c = lane; c < kk / 4; c += 32) cp_async16(dst + 4 * c, src + 4 * c);
+    } else {
+      for (int e = lane; e < kk; e += 32) cp_async4(dst + e, src + e);
+    }
+  };
+  stage(sys, hbuf[warp][0]);
+  cp_async_commit();
+  float g_next = lane < k ? G[(size_t)sys * k + lane] : 0.f;
 
-  float inv_diag = 0.f;  // 1 / L[lane][lane]
+  for (int it = 0; sys < p; ++it, sys += stride) {
+    const int nxt = sys + stride;
+    if (nxt < p) stage(nxt, hbuf[warp][(it + 1) & 1]);
+    cp_async_commit();
+    float b = g_next;  // g, then what steps j < lane leave of it
+    if (nxt < p && lane < k) g_next = G[(size_t)nxt * k + lane];
+    cp_async_wait<1>();
+    __syncwarp();
+    float* cur = hbuf[warp][it & 1];
+
+    // row `lane`, read whole (what lies above the diagonal, and past k in
+    // the next row, only ever reaches entries above the diagonal, which
+    // nothing reads); rows k..KP-1 of the identity, so the factorization
+    // runs KP steps with no test of k
+    float a[KP];
+    if (lane < k) {
 #pragma unroll
-  for (int j = 0; j < KP; ++j) {
-    if (j < k) {  // warp-uniform
-      const float ljj = sqrtf(__shfl_sync(kFull, a[j], j));
-      const float inv = 1.f / ljj;
-      if (lane == j) inv_diag = inv;
-      const float lij = lane > j ? a[j] * inv : (lane == j ? ljj : 0.f);
-      a[j] = lij;
-      // A[i][c] -= L[i][j] * L[c][j] for j < c <= i
+      for (int c = 0; c < KP; ++c) {
+        a[c] = cur[lane * k + c];
+        if (SHARED) a[c] += hsh[lane * k + c];
+      }
+    } else {
 #pragma unroll
-      for (int c = j + 1; c < KP; ++c) {
-        const float lcj = __shfl_sync(kFull, lij, c);
-        if (c <= lane) a[c] -= lij * lcj;
+      for (int c = 0; c < KP; ++c) a[c] = c == lane ? 1.f : 0.f;
+    }
+
+    // Right-looking, on [H | g]. At step j lane i (>= j) publishes A[i][j]
+    // and lane j its g_j; every lane reads the column as 16-byte
+    // broadcasts, takes 1 / L[j][j] by one rsqrtf, and with
+    // w = A[i][j] / L[j][j]^2 updates A[i][c] -= w A[c][j] for c > j and
+    // g_i -= w g_j (= L[i][j] y_j). Entries above the diagonal take
+    // updates that are never read; the lower triangle is L.
+    float inv_diag = 0.f, y = 0.f;  // 1 / L[lane][lane], y[lane]
+#pragma unroll
+    for (int j = 0; j < KP; ++j) {
+      float* cb = colbuf[warp][j & 1];
+      cb[lane] = a[j];
+      if (lane == j) cb[32] = b;
+      __syncwarp();
+      const float ajj = cb[j], bj = cb[32];
+      const float inv = ajj > 0.f ? rsqrtf(ajj) : __int_as_float(0x7fc00000);
+      const float w = a[j] * (inv * inv), yj = bj * inv;
+      if (lane == j) inv_diag = inv, y = yj;
+      a[j] *= inv;  // L[lane][j] below the diagonal
+      b -= w * bj;
+#pragma unroll
+      for (int c0 = (j + 1) & ~3; c0 < KP; c0 += 4) {
+        const float4 q = *reinterpret_cast<const float4*>(cb + c0);
+        const float v[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          if (c0 + u > j) a[c0 + u] -= w * v[u];
       }
     }
-  }
 
-  // L y = b: at step j, lane j's b has had every earlier term removed.
-  float y = 0.f;
+    // L's rows to shared memory (the buffer just factored), then
+    // L^T x = y from the last row up: x_t = acc_t / L[t][t], and every
+    // lane i < t removes L[t][i] x_t from its acc (lanes >= t, done, take
+    // updates nothing reads)
+    if (lane < KP) {
 #pragma unroll
-  for (int j = 0; j < KP; ++j) {
-    if (j < k) {
-      const float yj = __shfl_sync(kFull, b * inv_diag, j);
-      if (lane == j) y = yj;
-      if (lane > j) b -= a[j] * yj;
+      for (int c = 0; c < KP; ++c) cur[lane * LDL + c] = a[c];
     }
+    __syncwarp();
+    float acc = y, x = 0.f;
+#pragma unroll
+    for (int t = KP - 1; t >= 0; --t) {
+      const float xt = __shfl_sync(kFull, acc * inv_diag, t);
+      if (lane == t) x = xt;
+      acc -= cur[t * LDL + lane] * xt;
+    }
+    if (lane < k) D[(size_t)sys * k + lane] = x;
+    __syncwarp();  // the buffer just read is refilled next iteration
   }
+}
 
-  // L^T x = y, from the last row up: x_i = (y_i - sum_{t>i} L[t][i] x_t) / L[i][i]
-  float x = 0.f;
-#pragma unroll
-  for (int i = KP - 1; i >= 0; --i) {
-    if (i < k) {
-      const float s = warp_sum(lane > i ? a[i] * x : 0.f);
-      if (lane == i) x = (y - s) * inv_diag;
-    }
+template <int KP, bool SHARED>
+int solve_blocks_per_sm() {
+  static int n = 0;
+  if (n == 0) {
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &n, chol_solve_kernel<KP, SHARED>, kSolveWarps * 32, 0);
+    if (n < 1) n = 1;
   }
-  if (lane < k) D[(size_t)sys * k + lane] = x;
+  return n;
 }
 
 }  // namespace pycmf
 
-// H (p, k, k), G (p, k) and D (p, k): f32, row-major, contiguous, 1 <= k <= 32.
-// Returns the CUDA error of the launch (0 on success).
-extern "C" int pycmf_batched_spd_solve(const float* H, const float* G, int p,
-                                       int k, float* D, void* stream) {
+// H (p, k, k), G (p, k) and D (p, k): f32, row-major, contiguous,
+// 1 <= k <= 32; H_shared (k, k) f32 contiguous, or null. Makes `device`
+// current for the launch. Returns the CUDA error of the launch (0 on
+// success).
+extern "C" int pycmf_batched_spd_solve(const float* H, const float* H_shared,
+                                       const float* G, int p, int k, float* D,
+                                       int device, void* stream) {
   using namespace pycmf;
+  DeviceGuard guard(device);
   if (p < 1 || k < 1 || k > kMaxK) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int vec = k % 2 == 0 && (reinterpret_cast<uintptr_t>(H) & 15) == 0;
   with_kp(k, [&](auto kp) {
     constexpr int KP = decltype(kp)::value;
-    chol_solve_kernel<KP><<<ceil_div(p, kSolveWarps), kSolveWarps * 32, 0, st>>>(
-        H, G, p, k, D);
+    auto launch = [&](auto shared) {
+      constexpr bool SH = decltype(shared)::value;
+      const int grid = std::min(ceil_div(p, kSolveWarps),
+                                sm_count() * solve_blocks_per_sm<KP, SH>());
+      chol_solve_kernel<KP, SH><<<grid, kSolveWarps * 32, 0, st>>>(
+          H, H_shared, G, p, k, vec, D);
+    };
+    if (H_shared) launch(std::true_type{});
+    else launch(std::false_type{});
   });
   return (int)cudaGetLastError();
 }

@@ -48,6 +48,14 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
                "l"(gmem), "r"(bytes)
                : "memory");
 }
+// 4-byte asynchronous copy global -> shared (through L1), for data whose
+// address is not 16-byte aligned.
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }

@@ -3,9 +3,12 @@ version.
 
 Counterpart of ``pycmf_tpu/ops/pallas/batched_solve.py``: H[i] d[i] = G[i]
 for every i, by an unpivoted Cholesky factorization and two triangular
-solves. H must be symmetric positive definite (the Gauss-Newton Hessians
-are, by construction: H ⪰ (l2 + hessian_pertubation)·I); a system that is
-not gives NaN, with no host sync. The kernel is ``csrc/batched_solve.cu``.
+solves, with an optional k×k H_shared added to every system (the Newton
+solver's per-row Hessians plus their shared part). Each system must be
+symmetric positive definite (the Gauss-Newton Hessians are, by
+construction: H ⪰ (l2 + hessian_pertubation)·I); a system that is not
+gives NaN in its own row, with no host sync. The kernel is
+``csrc/batched_solve.cu``.
 """
 from __future__ import annotations
 
@@ -18,45 +21,64 @@ from .policy import launch_count, on_card
 
 LAUNCHES = launch_count("batched_spd_solve")
 MAX_K = 32  # the kernel holds a row of H per lane of one warp
+_ARGTYPES = ((ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 2
+             + (ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p))
 
 
-def batched_spd_solve_ref(H, G):
+def batched_spd_solve_ref(H, G, H_shared=None):
     """Plain PyTorch version of :func:`batched_spd_solve` (k <= MAX_K)."""
+    if H_shared is not None:
+        H = H + H_shared
     L, info = torch.linalg.cholesky_ex(H)
     L = torch.where((info > 0)[:, None, None], torch.nan, L)
     return torch.cholesky_solve(G[..., None], L)[..., 0]
 
 
-def batched_spd_solve(H, G):
-    """Solve H[i] d[i] = G[i] for all i. H: (p, k, k) SPD, G: (p, k) → (p, k).
+def _check_card_operands(ops, p: int, k: int) -> None:
+    """Raise on what the CUDA batched solve does not take: float32 H
+    (p, k, k), G (p, k) and, if given, H_shared (k, k)."""
+    f32 = torch.float32
+    if not (all(t.dtype is f32 for t in ops) and ops[1].shape == (p, k)
+            and (len(ops) == 2 or ops[2].shape == (k, k))):
+        raise NotImplementedError(
+            "the CUDA batched solve takes float32 H (p, k, k), G (p, k) and "
+            "H_shared (k, k), got "
+            + ", ".join(f"{t.dtype} {tuple(t.shape)}" for t in ops)
+            + " (float64 on the card: ROADMAP C1)")
 
-    For k > MAX_K both devices call ``torch.linalg.solve`` (the reference's
-    own rule for large k, ``jnp.linalg.solve``), which is not a launch of
-    the kernel. Otherwise CUDA tensors (float32) launch
-    ``csrc/batched_solve.cu`` and CPU tensors take
-    :func:`batched_spd_solve_ref`."""
+
+def batched_spd_solve(H, G, H_shared=None):
+    """Solve (H[i] + H_shared) d[i] = G[i] for all i. H: (p, k, k), G: (p, k)
+    → (p, k); H_shared: (k, k), or None for H[i] d[i] = G[i]. Each sum must
+    be SPD.
+
+    The card's kernel adds H_shared to each system as it reads it, so the
+    (p, k, k) sum is never written. For k > MAX_K both devices call
+    ``torch.linalg.solve`` on the sum (the reference's own rule for large
+    k, ``jnp.linalg.solve``), which is not a launch of the kernel.
+    Otherwise CUDA tensors (float32) launch ``csrc/batched_solve.cu`` and
+    CPU tensors take :func:`batched_spd_solve_ref`."""
     p, k, _ = H.shape
     if k > MAX_K:
-        return torch.linalg.solve(H, G[..., None])[..., 0]
+        Hs = H if H_shared is None else H + H_shared
+        return torch.linalg.solve(Hs, G[..., None])[..., 0]
     if p == 0:
         return G.new_empty((0, k))
-    if not on_card(H, G):
-        return batched_spd_solve_ref(H, G)
-    for t, shape in ((H, (p, k, k)), (G, (p, k))):
-        if t.dtype != torch.float32 or tuple(t.shape) != shape:
-            raise NotImplementedError(
-                f"the CUDA batched solve takes float32 H (p, k, k) and G "
-                f"(p, k), got {t.dtype} {tuple(t.shape)} for shape {shape} "
-                "(float64 on the card: ROADMAP C1)")
-    H = H.contiguous()
-    G = G.contiguous()
-    out = torch.empty((p, k), dtype=torch.float32, device=H.device)
+    ops = (H, G) if H_shared is None else (H, G, H_shared)
+    if not on_card(*ops):
+        return batched_spd_solve_ref(H, G, H_shared)
+    _check_card_operands(ops, p, k)
+    H, G = H.contiguous(), G.contiguous()
+    hs = None if H_shared is None else H_shared.contiguous()
+    out = torch.empty_like(G)
     fn = _build.function("batched_solve", "pycmf_batched_spd_solve",
-                         [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
-                         + [ctypes.c_void_p] * 2)
-    with torch.cuda.device(H.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(H.data_ptr(), G.data_ptr(), p, k, out.data_ptr(), stream)
-    _build.check(_build.load("batched_solve"), rc, "batched_spd_solve")
+                         _ARGTYPES)
+    dev = H.get_device()
+    # the C side makes `dev` current for its launch
+    rc = fn(H.data_ptr(), None if hs is None else hs.data_ptr(),
+            G.data_ptr(), p, k, out.data_ptr(), dev,
+            torch._C._cuda_getCurrentRawStream(dev))
+    if rc:
+        _build.check(_build.load("batched_solve"), rc, "batched_spd_solve")
     LAUNCHES.n += 1
     return out

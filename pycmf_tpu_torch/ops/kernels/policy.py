@@ -45,11 +45,12 @@ def reset_launch_counts() -> None:
 
 def on_card(*tensors: torch.Tensor) -> bool:
     """True when every tensor lies on a CUDA device, False when every one
-    lies on the CPU; anything else raises."""
-    kinds = {t.device.type for t in tensors}
-    if kinds == {"cuda"}:
-        return True
-    if kinds == {"cpu"}:
-        return False
-    raise ValueError(f"kernel operands must all be on one CUDA device or all "
-                     f"on the CPU, got devices {sorted(kinds)}")
+    lies on the CPU; anything else raises. (On every launch's path: it
+    reads flags, not torch.device objects.)"""
+    cuda = tensors[0].is_cuda
+    for t in tensors:
+        if t.is_cuda is not cuda or not (cuda or t.is_cpu):
+            kinds = sorted({t.device.type for t in tensors})
+            raise ValueError(f"kernel operands must all be on one CUDA "
+                             f"device or all on the CPU, got devices {kinds}")
+    return cuda

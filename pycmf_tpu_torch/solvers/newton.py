@@ -124,13 +124,13 @@ def _solve_direction(H_shared, H_rows, G, use_pallas: bool):
     """d = H⁻¹ g for all rows. H_rows None: one shared k×k SPD system (all
     links linear), one Cholesky. Else per-row systems H_rows + H_shared,
     SPD in the Gauss-Newton form: the batched SPD solve kernel under
-    use_pallas, else an LU solve (torch.linalg.solve_ex: no host sync)."""
+    use_pallas, which adds H_shared as it reads each system, else an LU
+    solve of the sum (torch.linalg.solve_ex: no host sync)."""
     if H_rows is None:
         return torch.cholesky_solve(G.mT, _cholesky(H_shared)).mT
-    H = H_rows + H_shared
     if use_pallas:
-        return batched_solve.batched_spd_solve(H, G)
-    return torch.linalg.solve_ex(H, G[..., None])[0][..., 0]
+        return batched_solve.batched_spd_solve(H_rows, G, H_shared)
+    return torch.linalg.solve_ex(H_rows + H_shared, G[..., None])[0][..., 0]
 
 
 def _project(non_negative: bool):

@@ -25,9 +25,12 @@ from pycmf_tpu.ops.pallas.newton_fused import \
     fused_newton_linear_u_pass as j_newton
 from pycmf_tpu.ops.pallas.sigmoid_newton import sigmoid_gh_pass as j_gh
 from pycmf_tpu.ops.pallas.sigmoid_newton import sigmoid_phi_pass as j_phi
+from pycmf_tpu.solvers import newton as jnewton
 from pycmf_tpu_torch.ops import losses as tlosses
 from pycmf_tpu_torch.ops.kernels import (_build, batched_solve, mu_fused,
-                                         newton_fused, policy, sigmoid_newton)
+                                         mu_update, newton_fused, policy,
+                                         sigmoid_newton)
+from pycmf_tpu_torch.solvers import newton as tnewton
 
 
 def _t(a, dtype=torch.float64):
@@ -378,6 +381,143 @@ def test_batched_solve_not_spd_gives_nan_like_reference(rng):
     got = _np(batched_solve.batched_spd_solve(_t(H), _t(G)))
     assert np.isnan(want[2]).all() and np.isnan(got[2]).all()
     np.testing.assert_allclose(got[[0, 1, 3]], want[[0, 1, 3]], rtol=1e-10)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("p,k", [(1, 3), (33, 20), (7, 40)])
+def test_batched_solve_with_shared_equals_solve_of_sum(rng, dtype, p, k):
+    """H_shared apart gives what the solve of H + H_shared gives, bit for
+    bit (the plain version adds first; k = 40 > 32 takes the generic solve
+    on the sum)."""
+    H, G = _spd(rng, p, k)
+    Hs = _spd(rng, 1, k)[0][0]
+    for fn in (batched_solve.batched_spd_solve,
+               batched_solve.batched_spd_solve_ref):
+        if k > batched_solve.MAX_K and fn is not batched_solve.batched_spd_solve:
+            continue
+        got = fn(_t(H, dtype), _t(G, dtype), _t(Hs, dtype))
+        want = fn(_t(H, dtype) + _t(Hs, dtype), _t(G, dtype))
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("p,k", [(1, 3), (40, 8), (300, 20), (5, 40)])
+def test_solve_direction_pallas_matches_reference(rng, p, k):
+    """_solve_direction under use_pallas: the port hands K5 H_rows and
+    H_shared apart, the reference adds them first; f64 at rtol 1e-9."""
+    H, G = _spd(rng, p, k)
+    Hs = _spd(rng, 1, k)[0][0]
+    want = jnewton._solve_direction(jnp.asarray(Hs), jnp.asarray(H),
+                                    jnp.asarray(G), True)
+    got = tnewton._solve_direction(_t(Hs), _t(H), _t(G), True)
+    np.testing.assert_allclose(_np(got), _np(want), rtol=1e-9, atol=1e-12)
+
+
+def _lean_operands(kernel, dtype=torch.float32):
+    """A CPU call of K5 or K6 through its card route: (module, library,
+    symbol, call)."""
+    f = lambda *shape: torch.rand(*shape, dtype=dtype)  # noqa: E731
+    if kernel == "batched_spd_solve":
+        H = torch.eye(4, dtype=dtype).expand(6, 4, 4).contiguous()
+        return (batched_solve, "batched_solve", "pycmf_batched_spd_solve",
+                lambda: batched_solve.batched_spd_solve(H, f(6, 4),
+                                                        f(4, 4)))
+    return (mu_update, "mu_update", "pycmf_mu_update",
+            lambda: mu_update.fused_mu_update(f(6, 4), f(4, 4), f(6, 4),
+                                              0.1, 0.2, 1e-9))
+
+
+@pytest.fixture
+def lean_entry(monkeypatch):
+    """Routes K5 and K6 through their launch code on CPU tensors: a fake
+    library whose entry records its arguments and returns `rc`, and a fake
+    raw stream. Yields the record."""
+    import types
+
+    rec = types.SimpleNamespace(loads=[], calls=[], streams=[], rc=0)
+
+    def entry(*args):
+        rec.calls.append(args)
+        return rec.rc
+
+    def fake_load(name):
+        rec.loads.append(name)
+        return types.SimpleNamespace(
+            pycmf_batched_spd_solve=entry, pycmf_mu_update=entry,
+            pycmf_error_string=lambda rc: b"fake failure")
+
+    def raw_stream(dev):
+        rec.streams.append(dev)
+        return 0xBEEF
+
+    monkeypatch.setattr(_build, "load", fake_load)
+    monkeypatch.setattr(_build, "_functions", {})
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream", raw_stream,
+                        raising=False)
+    for mod in (batched_solve, mu_update):
+        monkeypatch.setattr(mod, "on_card", lambda *t: True)
+    monkeypatch.setattr(mu_update, "_sm_count", lambda dev: 132)
+    yield rec
+
+
+@pytest.mark.parametrize("kernel", ["batched_spd_solve", "fused_mu_update"])
+def test_lean_launch_resolves_entry_once_and_passes_device_and_stream(
+        lean_entry, kernel):
+    """K5's and K6's wrappers launch as K1's do: the C entry is looked up
+    once per process, gets the device index (the C side makes it current)
+    and the raw current stream, and nothing else wraps the call."""
+    import ctypes
+
+    mod, library, symbol, call = _lean_operands(kernel)
+    policy.reset_launch_counts()
+    call()
+    call()
+    assert lean_entry.loads == [library]
+    fn = _build._functions[(library, symbol)]
+    assert fn.restype is ctypes.c_int
+    assert fn.argtypes[-2:] == [ctypes.c_int, ctypes.c_void_p]
+    assert len(lean_entry.calls) == 2
+    for args, dev in zip(lean_entry.calls, lean_entry.streams):
+        assert len(args) == len(fn.argtypes)
+        assert args[-1] == 0xBEEF and args[-2] == dev
+    assert lean_entry.streams == [-1, -1]  # a CPU tensor's get_device()
+    assert policy.launch_counts()[kernel] == 2
+
+
+@pytest.mark.parametrize("kernel", ["batched_spd_solve", "fused_mu_update"])
+def test_lean_launch_raises_on_nonzero_rc(lean_entry, kernel):
+    mod, library, symbol, call = _lean_operands(kernel)
+    policy.reset_launch_counts()
+    lean_entry.rc = 700
+    with pytest.raises(RuntimeError, match="CUDA error 700"):
+        call()
+    # the entry resolved, then the library asked for the error's text
+    assert lean_entry.loads == [library, library]
+    assert policy.launch_counts()[kernel] == 0
+
+
+@pytest.mark.parametrize("kernel", ["batched_spd_solve", "fused_mu_update"])
+def test_lean_launch_refuses_float64_naming_c1(lean_entry, kernel):
+    mod, library, symbol, call = _lean_operands(kernel, torch.float64)
+    with pytest.raises(NotImplementedError, match="ROADMAP C1"):
+        call()
+    assert lean_entry.calls == []
+
+
+def test_mu_update_tile_rows_cover_each_row_once():
+    """K6's plan for k <= 32 (csrc/mu_update.cu checks the same rules):
+    whole tiles of a multiple of 4 rows, at most TILE_FLOATS floats, about
+    two per SM on a short M; 0 above 32 (one thread per element)."""
+    for k in (1, 3, 4, 20, 32):
+        for p in (1, 7, 129, 11314, 804414):
+            r = mu_update.tile_rows(p, k, 132)
+            assert r >= 4 and r % 4 == 0 and r * k <= mu_update.TILE_FLOATS
+            n_tiles = -(-p // r)
+            assert (n_tiles - 1) * r < p <= n_tiles * r
+            if p >= 2 * 132 * r:
+                assert r == mu_update.TILE_FLOATS // k // 4 * 4
+    assert mu_update.tile_rows(11314, 20, 132) == 44
+    assert mu_update.tile_rows(804414, 20, 132) == 128
+    assert mu_update.tile_rows(100, 33, 132) == 0
 
 
 def test_sigmoid_cpu_wrappers_take_plain_versions_without_launching(rng):
