@@ -45,7 +45,18 @@ Phases (any failure exits non-zero and prints no ok line):
     at k = 40 under torch.profiler
     (device time by kernel, idle share, launches per iteration, and on
     path F bell_spmm's share);
- 8. kernel path against plain path on the card: after 20 iterations,
+ 7c. the device loop (loop='device': one CUDA graph of an eval block,
+    captured once per fit, replayed per block; what loop='auto' runs on
+    the card, so phases 4-7 run it too) against the host loop on MU,
+    Newton linear and paths A, C, D, F and the MU cell at k = 40: the same
+    n_iter_ and eval points, losses within 1e-6 relative, factors within
+    1e-5, equal launch counts; each loop's ms/iter (least of 3 fits),
+    capture time, device ms/iter, idle share and host launch calls per
+    block and per replay; path A at k = 40, whose generic batched solve a
+    capture refuses, takes the host loop under 'auto' and raises under
+    'device';
+ 8. kernel path against plain path on the card (the plain fits on the host
+    loop: a capture refuses the plain batched solve): after 20 iterations,
     checked to 1e-3 on paths B, C, D and F and printed for MU, Newton
     linear and path A, whose dense bf16 trajectories are chaotic; those,
     and the k = 40 fits, step by step from shared factors (step_agreement:
@@ -1195,19 +1206,29 @@ def fit_phase(check, make_est, X, Y, minimums, label, exact_loss):
                      reported_vs_exact_max_rel=dev)
 
 
+# the host's calls that start device work, as torch.profiler names them
+LAUNCH_APIS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+               "cuLaunchKernelEx", "cudaGraphLaunch", "cudaMemcpyAsync",
+               "cudaMemsetAsync")
+REPLAY = "pycmf block replay"
+
+
 def profile_phase(torch, make_est, X, Y, label):
     """torch.profiler over the solver loop of one fit (the estimator's
     _run: ingest and init excluded). Returns, per iteration, the wall
     time under the profiler, the device time (kernels, copies and memsets
     by their device timestamps), the device launches, the device's idle
-    share of the window, and the kernels by device time."""
+    share of the window, and the kernels by device time; per eval block,
+    the host's launch calls (LAUNCH_APIS), and under the device loop those
+    made inside each graph replay."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     from pycmf_tpu_torch.models.cmf import CMF
+    from pycmf_tpu_torch.solvers.common import CudaBlockGraph
 
     seen = {}
-    run = CMF._run
+    run, replay = CMF._run, CudaBlockGraph.replay
 
     def profiled_run(self, *args):
         torch.cuda.synchronize()
@@ -1220,33 +1241,175 @@ def profile_phase(torch, make_est, X, Y, label):
         seen["prof"] = prof
         return out
 
-    with mock.patch.object(CMF, "_run", profiled_run):
+    def marked_replay(self):
+        with record_function(REPLAY):
+            replay(self)
+
+    with mock.patch.object(CMF, "_run", profiled_run), \
+            mock.patch.object(CudaBlockGraph, "replay", marked_replay):
         est = make_est().fit(X, Y)
     n = est.n_iter_
-    by_name = {}
+    by_name, calls, replays = {}, [], []
     for e in seen["prof"].events():
-        if e.device_type == DeviceType.CUDA:
+        if e.name == REPLAY:  # the range also shows on the device
+            if e.device_type != DeviceType.CUDA:
+                replays.append((e.time_range.start, e.time_range.end))
+        elif e.device_type == DeviceType.CUDA:
             c = by_name.setdefault(e.name, [0, 0.0])
             c[0] += 1
             c[1] += e.time_range.elapsed_us() / 1e3
+        elif e.name in LAUNCH_APIS:
+            calls.append(e.time_range.start)
     busy = sum(c[1] for c in by_name.values())
     launches = sum(c[0] for c in by_name.values())
+    in_replay = sum(any(a <= t <= b for a, b in replays) for t in calls)
+    blocks = len(est.loss_history_) - 1
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
     out = dict(n_iter=n, wall_ms_per_iter=seen["wall_ms"] / n,
                device_ms_per_iter=busy / n,
                device_idle_share=1.0 - busy / seen["wall_ms"],
                device_launches_per_iter=launches / n,
+               launch_calls_per_block=len(calls) / blocks,
+               replays=len(replays),
+               launch_calls_per_replay=(in_replay / len(replays)
+                                        if replays else None),
                top_kernels=[dict(name=k[:90], launches_per_iter=c[0] / n,
                                  ms_per_iter=c[1] / n) for k, c in top])
     log(f"  {label} under torch.profiler, {n} iterations: "
         f"{out['wall_ms_per_iter']:.4f} ms/iter wall, "
         f"{out['device_ms_per_iter']:.4f} ms/iter on the device, idle share "
         f"{out['device_idle_share']:.3f}, {out['device_launches_per_iter']:.1f}"
-        f" device launches/iter")
+        f" device launches/iter, {out['launch_calls_per_block']:.1f} host "
+        f"launch calls per eval block ({blocks} blocks), "
+        f"{out['launch_calls_per_replay']} per graph replay "
+        f"({len(replays)} replays)")
     for t in out["top_kernels"]:
         log(f"    {t['ms_per_iter']:9.4f} ms/iter {t['launches_per_iter']:6.1f}"
             f" x/iter  {t['name']}")
     return out
+
+
+def cached_ingest():
+    """A patch of the estimator's ingest that builds each matrix's Coupled
+    once and hands it to every later fit (the fits read it and never write
+    it). The loop phase fits each path many times; ingest is outside
+    ms/iter, and path F's takes ~9 s."""
+    from pycmf_tpu_torch.models import cmf
+
+    real, memo = cmf.as_coupled, {}
+
+    def ingest(A, dtype, device, **kw):
+        key = (id(A), dtype, str(device), tuple(sorted(kw.items())))
+        if key not in memo:
+            memo[key] = (A, real(A, dtype, device, **kw))  # A kept: its id
+        return memo[key][1]
+
+    return mock.patch.object(cmf, "as_coupled", ingest)
+
+
+def loop_phase(check, torch, make_est, X, Y, label):
+    """The device loop (a CUDA graph of one eval block, captured once per
+    fit) against the host loop on one path, both from the estimator's
+    init: an untimed warm-up fit, then three host and three device fits
+    in the order H D, D H, H D. Each device fit must capture once (every
+    path here runs two full blocks or more) and agree with the host fit
+    beside it: the same n_iter_ and loss_iters_, each loss within 1e-6
+    relative, the factors within phase 3's relative Frobenius bar of 1e-5,
+    the same launches of every kernel. Then one fit of each loop under
+    torch.profiler. Returns the record of both loops."""
+    import numpy as np
+
+    from pycmf_tpu_torch.ops.kernels.policy import (launch_counts,
+                                                    reset_launch_counts)
+    from pycmf_tpu_torch.solvers.common import CudaBlockGraph
+
+    captures, capture = [], CudaBlockGraph.capture
+
+    def timed_capture(self, fn, outputs):
+        t0 = time.perf_counter()
+        capture(self, fn, outputs)
+        captures.append(time.perf_counter() - t0)
+
+    fits = {"host": [], "device": []}
+    with mock.patch.object(CudaBlockGraph, "capture", timed_capture):
+        make_est().set_params(loop="device").fit(X, Y)
+        for order in (("host", "device"), ("device", "host"),
+                      ("host", "device")):
+            for loop in order:
+                est = make_est().set_params(loop=loop)
+                before = len(captures)
+                reset_launch_counts()
+                est.fit(X, Y)
+                # replayed blocks: full blocks after the first, the
+                # capture's time taken out of the block that paid it
+                took = list(est.step_times_)
+                if captures[before:]:
+                    took[1] -= captures[before]
+                replayed = [t / s for i, (t, s) in enumerate(
+                    zip(took, np.diff(est.loss_iters_)))
+                    if loop == "device" and i >= 1 and s == est.eval_every]
+                fits[loop].append(dict(
+                    est=est, counts=launch_counts(),
+                    captures=captures[before:],
+                    ms=1e3 * sum(est.step_times_) / est.n_iter_,
+                    replay_ms=1e3 * min(replayed) if replayed else None))
+    gaps, fro, bit = [], [], True
+    for h, d in zip(fits["host"], fits["device"]):
+        he, de = h["est"], d["est"]
+        check(len(d["captures"]) == 1 and not h["captures"],
+              f"{label}: the device fit captured {len(d['captures'])} "
+              f"graph(s), the host fit {len(h['captures'])} (1 and 0)")
+        check(he.n_iter_ == de.n_iter_ and he.loss_iters_ == de.loss_iters_,
+              f"{label}: device loop n_iter {de.n_iter_}, eval points "
+              f"{de.loss_iters_} == host loop's {he.n_iter_}, "
+              f"{he.loss_iters_}")
+        gaps.append(max(abs(a - b) / abs(a) for a, b in
+                        zip(he.loss_history_, de.loss_history_)))
+        bit = bit and he.loss_history_ == de.loss_history_ and all(
+            np.array_equal(getattr(he, f), getattr(de, f))
+            for f in ("U_", "V_", "Z_"))
+        fro.append(max(float(np.linalg.norm(getattr(de, f) - getattr(he, f))
+                             / np.linalg.norm(getattr(he, f)))
+                       for f in ("U_", "V_", "Z_")))
+        check(h["counts"] == d["counts"],
+              f"{label}: launch counts, device loop {d['counts']} == host "
+              f"loop {h['counts']}")
+    check(max(gaps) <= 1e-6 and max(fro) <= 1e-5,
+          f"{label}: device vs host loop, loss max rel gap {max(gaps):.3g} "
+          f"<= 1e-6, factors rel Frobenius max {max(fro):.3g} <= 1e-5, "
+          f"bit for bit equal: {bit}")
+    rec = dict(loss_max_rel_gap=max(gaps), factor_rel_fro=max(fro),
+               bit_equal=bit, n_iter=fits["host"][0]["est"].n_iter_,
+               eval_every=fits["host"][0]["est"].eval_every)
+    for loop, runs in fits.items():
+        r = dict(ms_per_iter=min(f["ms"] for f in runs),
+                 ms_per_iter_all=[f["ms"] for f in runs])
+        if loop == "device":
+            r["replay_ms_per_iter"] = min(f["replay_ms"] for f in runs
+                                          if f["replay_ms"] is not None) \
+                if any(f["replay_ms"] is not None for f in runs) else None
+            r["capture_ms"] = [1e3 * f["captures"][0] for f in runs
+                               if f["captures"]]
+        r["profile"] = profile_phase(
+            torch, lambda: make_est().set_params(loop=loop), X, Y,
+            f"{label}, {loop} loop")
+        rec[loop] = r
+    d, h = rec["device"], rec["host"]
+    if d["replay_ms_per_iter"]:
+        d["replay_idle_share"] = 1.0 - d["profile"]["device_ms_per_iter"] \
+            / d["replay_ms_per_iter"]
+    log(f"  {label}: host loop {h['ms_per_iter']:.4f} ms/iter, device loop "
+        f"{d['ms_per_iter']:.4f} (least of 3; replayed blocks "
+        f"{d['replay_ms_per_iter']} ms/iter, idle share "
+        f"{d.get('replay_idle_share')}; capture ms {d['capture_ms']}); "
+        f"device ms/iter {h['profile']['device_ms_per_iter']:.4f} / "
+        f"{d['profile']['device_ms_per_iter']:.4f}, idle share "
+        f"{h['profile']['device_idle_share']:.3f} / "
+        f"{d['profile']['device_idle_share']:.3f}, host launch calls per "
+        f"block {h['profile']['launch_calls_per_block']:.1f} / "
+        f"{d['profile']['launch_calls_per_block']:.1f}, per replay "
+        f"{d['profile']['launch_calls_per_replay']}")
+    return rec
 
 
 def card_sigmoid_loss(torch, X, Y):
@@ -1311,7 +1474,7 @@ def step_agreement(check, make_est, X, Y, k, plain, label, exact_loss,
             for fn, mod in plain.items():
                 patches.enter_context(mock.patch.object(
                     mod, fn, getattr(mod, fn + "_ref")))
-            want = one()
+            want = one()  # one block: no capture in either loop
         lk, lp = exact_loss(*got), exact_loss(*want)
         gaps.append(abs(lk - lp) / abs(lp))
         dev.append(max(float(np.linalg.norm(a - b) / np.linalg.norm(b))
@@ -1537,6 +1700,34 @@ def main() -> int:
     log(f"  path F: bell_spmm's kernels {k7:.4f} ms/iter on the device, "
         f"{pf['profile']['bell_spmm_share']:.3f} of the device time")
 
+    log(f"phase 7c: the device loop (a CUDA graph per eval block) against "
+        f"the host loop; {name}, nvidia-smi: {smi}")
+    loops = {}
+    with cached_ingest():
+        for lab, kw, data, cm in (
+                ("MU", mu_kw, (X, Y), common),
+                ("Newton linear", nl_kw, (X, Y), common),
+                ("path A", a_kw, (X, Y), common),
+                ("path C", c_kw, (X, Y), common),
+                ("path D", d_kw, (X, Y), common),
+                ("path F", f_kw, (Xf, Y), common),
+                ("MU k=40", mu_kw, (X, Y), common_w)):
+            loops[lab] = loop_phase(
+                check, torch, lambda: CMF(**kw, **cm), *data, lab)
+    # path A at k = 40 reaches the generic batched solve (MAGMA), which a
+    # capture refuses: 'auto' takes the host loop, 'device' raises
+    est_w = CMF(**a_kw, **common_w)
+    check(est_w._resolve_loop(est_w._config(has_Y=True)) == "host",
+          "path A, k=40: loop='auto' resolves to the host loop")
+    try:
+        est_w.set_params(loop="device", max_iter=10).fit(X, Y)
+        raised = "nothing"
+    except NotImplementedError as e:
+        raised = str(e)
+    check("ROADMAP B5" in raised,
+          f"path A, k=40: loop='device' raises NotImplementedError naming "
+          f"ROADMAP B5 ({raised[:80]}...)")
+
     # 8. kernel path against plain path on the card; the 2% guards. The
     # NumPy baselines run on the host beside these untimed fits, after every
     # timed phase: their BLAS threads take host cores that launch kernels.
@@ -1564,11 +1755,15 @@ def main() -> int:
                 ("path D", dict(d_kw, max_iter=20, tol=0.0), (X, Y)),
                 ("path F", f_kw, (Xf, Y))):
             lk = CMF(**kw, **common).fit(*data).reconstruction_err_
+            # the plain path on the host loop: a capture refuses the plain
+            # batched solve (MAGMA); the device loop ends where the host
+            # loop does, bit for bit (phase 7c)
             with ExitStack() as patches:
                 for fn, mod in plain.items():
                     patches.enter_context(mock.patch.object(
                         mod, fn, getattr(mod, fn + "_ref")))
-                lp = CMF(**kw, **common).fit(*data).reconstruction_err_
+                lp = CMF(**kw, **common, loop="host").fit(
+                    *data).reconstruction_err_
             gap = abs(lk - lp) / abs(lp)
             gaps20[label] = gap
             what = (f"{label}: kernel {lk:.9g} vs plain {lp:.9g} after "
@@ -1680,6 +1875,7 @@ def main() -> int:
                       "path_a_fit": pa, "path_b_fit": pb, "path_c_fit": pc,
                       "path_d_fit": pd, "path_f_fit": pf,
                       "mu_fit_k40": mu_w, "path_a_fit_k40": pa_w,
+                      "device_vs_host_loop": loops,
                       "phase8_gap_after_20": gaps20,
                       "phase8_step_gap_max": stepped,
                       "bell_crossover": {k: v for k, v in krec.items()

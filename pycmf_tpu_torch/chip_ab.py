@@ -147,9 +147,11 @@ def paths_ab(check, torch, cs):
                                              sigmoid_newton)
     from pycmf_tpu_torch.utils.datasets import synthetic_20ng
     X, Y = synthetic_20ng(random_state=cs.SEED)
+    # the host loop: a capture refuses the plain batched solve, and a tree
+    # older than the device loop has only the host loop
     common = dict(n_components=cs.K, data_dtype="bfloat16",
                   random_state=cs.SEED, device="cuda", max_iter=20, tol=0.0,
-                  eval_every=1)
+                  eval_every=1, loop="host")
     plain = {"fused_mu_u_pass": mu_fused,
              "fused_newton_linear_u_pass": newton_fused,
              "sigmoid_gh_pass": sigmoid_newton,
@@ -366,8 +368,9 @@ def k5k6_ab(check, torch, cs):
     # first), then device ms/iter and idle share under torch.profiler
     X, Y = synthetic_20ng(random_state=cs.SEED)
     Xf = block_sparse_matrix(cs.N, cs.M, 0.15, np.random.RandomState(cs.SEED))
+    # the host loop, which every tree has: the A/B compares kernels
     common = dict(n_components=cs.K, data_dtype="bfloat16",
-                  random_state=cs.SEED, device="cuda", tol=0.0)
+                  random_state=cs.SEED, device="cuda", tol=0.0, loop="host")
     mu_kw = dict(solver="mu", max_iter=40, eval_every=10)
     a_kw = dict(solver="newton", y_link="sigmoid", max_iter=20, eval_every=5)
     for label, kw, data in (("MU", mu_kw, X), ("A", a_kw, X),

@@ -27,7 +27,7 @@ import torch
 from ..ops.matmul import FP8_DTYPES
 from ..solvers.common import SolverConfig, make_hyper
 from ..solvers.mu import run_mu
-from ..solvers.newton import run_newton
+from ..solvers.newton import captures_on_card, run_newton
 from ..utils.convert import (factors_from_numpy, factors_to_numpy,
                              fitted_state_from_reference)
 from ..utils.init import initialize_factors
@@ -60,8 +60,11 @@ class CMF:
         unfused plain PyTorch path.
     sparse_mode : 'auto' | 'csr' | 'dense' | 'chunked', per matrix as in the
         reference (see ``_matrix_sparse_mode``); 'chunked' is ROADMAP A8.
-    loop : 'auto' | 'host' | 'device'. Every value runs the host loop,
-        which syncs with the device once per eval point.
+    loop : 'auto' | 'host' | 'device'. 'host' runs every eval block
+        eagerly; 'device' is the reference's device-resident loop: on the
+        card one CUDA graph of an eval block, captured once per fit and
+        replayed per block (on the CPU the same schedule, run eagerly).
+        Both sync with the device once per eval point. See _resolve_loop.
     device : 'cuda' (default) | 'cpu' | a torch.device. 'cuda' raises when
         CUDA is not available.
 
@@ -172,10 +175,27 @@ class CMF:
             return self._resolve_dtype()
         return self._resolve_dtype(self.data_dtype)
 
-    def _resolve_loop(self):
+    def _resolve_loop(self, cfg=None):
+        """The reference's rule: 'auto' → the device loop on a CUDA device
+        and the host loop on the CPU (where the device loop only runs the
+        same blocks eagerly); verbose > 0 takes the host loop under 'auto',
+        as in the reference. One more case takes the host loop under
+        'auto': a Newton fit on the card that the device loop cannot
+        capture (``solvers/newton.captures_on_card``: per-row systems
+        through a library's batched solve, k > 32 or use_pallas off),
+        where an explicit 'device' raises. An explicit 'host' or 'device'
+        is honoured. cfg: the fit's SolverConfig (default: with Y)."""
         if self.loop not in ("auto", "host", "device"):
             raise ValueError("loop must be 'auto', 'host' or 'device'")
-        return "host"
+        if self.loop != "auto":
+            return self.loop
+        if self.verbose or self._resolve_device().type != "cuda":
+            return "host"
+        if self.solver == "newton" and not captures_on_card(
+                cfg if cfg is not None else self._config(has_Y=True),
+                int(self.n_components or 0)):
+            return "host"
+        return "device"
 
     def _use_pallas(self) -> bool:
         return self.use_pallas is None or bool(self.use_pallas)
@@ -242,7 +262,7 @@ class CMF:
                            self.hessian_pertubation, dtype=U0.dtype)
         kw = dict(max_iter=self.max_iter, tol=self.tol,
                   eval_every=self.eval_every, verbose=self.verbose,
-                  loop=self._resolve_loop())
+                  loop=self._resolve_loop(cfg))
         if self.solver == "mu":
             return run_mu(Xc, Yc, U0, V0, Z0, cfg, hyper, **kw)
         return run_newton(Xc, Yc, U0, V0, Z0, cfg, hyper, None, **kw)

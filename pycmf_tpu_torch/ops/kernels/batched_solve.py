@@ -54,14 +54,16 @@ def batched_spd_solve(H, G, H_shared=None):
 
     The card's kernel adds H_shared to each system as it reads it, so the
     (p, k, k) sum is never written. For k > MAX_K both devices call
-    ``torch.linalg.solve`` on the sum (the reference's own rule for large
-    k, ``jnp.linalg.solve``), which is not a launch of the kernel.
+    ``torch.linalg.solve_ex`` on the sum (the reference's own rule for
+    large k, ``jnp.linalg.solve``), which is not a launch of the kernel; it
+    checks nothing on the host, and a singular system gives a non-finite
+    row that the fit loop reports.
     Otherwise CUDA tensors (float32) launch ``csrc/batched_solve.cu`` and
     CPU tensors take :func:`batched_spd_solve_ref`."""
     p, k, _ = H.shape
     if k > MAX_K:
         Hs = H if H_shared is None else H + H_shared
-        return torch.linalg.solve(Hs, G[..., None])[..., 0]
+        return torch.linalg.solve_ex(Hs, G[..., None])[0][..., 0]
     if p == 0:
         return G.new_empty((0, k))
     ops = (H, G) if H_shared is None else (H, G, H_shared)

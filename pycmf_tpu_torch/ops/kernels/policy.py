@@ -9,7 +9,11 @@ Dispatch is by the device the tensors lie on, and nothing else:
   the path the CPU tests run against the JAX reference.
 
 There is no environment override. Each kernel wrapper counts its launches
-so a run can show that its main path went through the kernels.
+so a run can show that its main path went through the kernels. A CUDA
+graph's replay runs its kernels without passing through the wrappers, so
+the device loop (``solvers/common.py``) takes back what its capture counted
+and adds that once per replay (:func:`launches_since`,
+:func:`set_launch_counts`, :func:`add_launches`).
 """
 from __future__ import annotations
 
@@ -41,6 +45,24 @@ def launch_counts() -> Dict[str, int]:
 def reset_launch_counts() -> None:
     for c in _COUNTS.values():
         c.n = 0
+
+
+def launches_since(before: Dict[str, int]) -> Dict[str, int]:
+    """How far each counter rose since ``before`` (a launch_counts())."""
+    return {name: c.n - before.get(name, 0) for name, c in _COUNTS.items()
+            if c.n != before.get(name, 0)}
+
+
+def set_launch_counts(counts: Dict[str, int]) -> None:
+    """Set every counter to its value in ``counts`` (0 where absent)."""
+    for name, c in _COUNTS.items():
+        c.n = counts.get(name, 0)
+
+
+def add_launches(delta: Dict[str, int]) -> None:
+    """Add ``delta`` ({name: launches}) to the counters."""
+    for name, n in delta.items():
+        launch_count(name).n += n
 
 
 def on_card(*tensors: torch.Tensor) -> bool:

@@ -1,21 +1,24 @@
-"""Shared solver machinery: static config, hyperparameters, host loop.
+"""Shared solver machinery: static config, hyperparameters, the fit loop.
 
 Counterpart of ``pycmf_tpu/solvers/common.py``. A solver is a step
-``(X, Y, U, V, Z, hyper) → (U, V, Z)`` on tensors, driven by a host loop
-that evaluates the loss every ``eval_every`` iterations. PyTorch runs
-eagerly, so there is no compiled device loop: the loop syncs with the
-device once per eval point, when it reads the loss.
+``(X, Y, U, V, Z, hyper) → (U, V, Z)`` on tensors, run in blocks of
+``eval_every`` steps that end in the loss. The host loop runs every block
+eagerly; the device loop (the reference's ``loop='device'``) runs a full
+block after the first as the replay of one CUDA graph, captured once per
+fit. Both sync with the device once per block, when they read its loss.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
-from typing import Any, List, NamedTuple, Optional
+from typing import Any, Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from ..ops.kernels import bell as kbell
+from ..ops.kernels import policy
 from ..ops.links import LINEAR, check_link
 from ..ops.sparse import generic_matmul, is_sparse
 
@@ -115,16 +118,136 @@ def coupled_mm(C: Coupled, B: torch.Tensor, transpose: bool = False,
     return layout_spmm(At, C.At_bell, B, use_pallas)
 
 
+_CAPTURE_STREAMS: Dict[torch.device, torch.cuda.Stream] = {}
+
+
+class CudaBlockGraph:
+    """One eval block as a CUDA graph (``torch.cuda.graph``: a side stream,
+    a private memory pool). The whole device loop runs on that stream, its
+    eager blocks too: the first is the warm-up the capture needs (it loads
+    each kernel library, sets the kernels' shared-memory attributes and
+    makes the cuBLAS and cuSOLVER handles and workspaces of this stream).
+    Every device loop on a device uses the same stream, as
+    ``torch.cuda.graph`` keeps one default capture stream: PyTorch keeps a
+    cuBLAS workspace per stream, and a new stream per fit would cycle
+    through its pool of streams, each with a workspace of its own. Neither
+    capture nor replay is guarded: an error raises."""
+
+    def __init__(self, device):
+        if device not in _CAPTURE_STREAMS:
+            _CAPTURE_STREAMS[device] = torch.cuda.Stream(device)
+        self.stream = _CAPTURE_STREAMS[device]
+        self.graph = torch.cuda.CUDAGraph()
+        self._caller = None
+
+    @contextlib.contextmanager
+    def on_stream(self):
+        self._caller = torch.cuda.current_stream(self.stream.device)
+        self.stream.wait_stream(self._caller)
+        try:
+            with torch.cuda.stream(self.stream):
+                yield
+        finally:
+            self._caller.wait_stream(self.stream)
+
+    def capture(self, fn, outputs):
+        """Record fn(), which writes its results into ``outputs``."""
+        with torch.cuda.graph(self.graph, stream=self.stream):
+            fn()
+
+    def replay(self):
+        self.graph.replay()
+
+    def hand_back(self, tensors):
+        """Mark the loop's results as used on the caller's stream, so the
+        caching allocator does not hand their memory to this stream while
+        the caller still reads them."""
+        for t in tensors:
+            t.record_stream(self._caller)
+
+
+class EagerBlockGraph:
+    """CudaBlockGraph's stand-in for CPU tensors, with its contract:
+    capture passes through fn once, as a capture does (the kernel wrappers
+    count what it records), and leaves ``outputs`` as they were (a capture
+    runs nothing); replay runs fn again with the wrappers' counts hidden (a
+    replay passes through no wrapper). Every block thus runs eagerly, and
+    the capture's pass costs one block more per fit."""
+
+    def on_stream(self):
+        return contextlib.nullcontext()
+
+    def capture(self, fn, outputs):
+        saved = [t.clone() for t in outputs]
+        fn()
+        for t, s in zip(outputs, saved):
+            t.copy_(s)
+        self._fn = fn
+
+    def replay(self):
+        counts = policy.launch_counts()
+        self._fn()
+        policy.set_launch_counts(counts)
+
+    def hand_back(self, tensors):
+        pass
+
+
+def block_graph(loop: str, U: torch.Tensor):
+    """The block graph of a fit whose factor U is given: None for the host
+    loop; for the device loop a CudaBlockGraph on U's CUDA device, else the
+    eager stand-in."""
+    check_loop(loop)
+    if loop == "host":
+        return None
+    if U.is_cuda:
+        return CudaBlockGraph(U.device)
+    return EagerBlockGraph()
+
+
+def _capture_block(graph, block_fn, state, hyper, rng, n_steps: int, loss):
+    """Capture one block of ``n_steps`` that reads and writes static
+    copies of U, V and Z and writes its loss into a static 0-d tensor like
+    ``loss``. Returns (the static state, the static loss, the launches one
+    replay makes). The block's rng is the one given (unused while
+    sg_sample_ratio = 1)."""
+    statics = [t.clone() for t in state[2:]]
+    static_state = tuple(state[:2]) + tuple(statics)
+    static_loss = torch.empty_like(loss)
+
+    def body():
+        out, block_loss, _ = block_fn(static_state, hyper, rng, n_steps)
+        for dst, src in zip(statics, out[2:]):
+            dst.copy_(src)
+        static_loss.copy_(block_loss)
+
+    before = policy.launch_counts()
+    graph.capture(body, statics + [static_loss])
+    launches = policy.launches_since(before)
+    policy.set_launch_counts(before)  # a capture launches nothing
+    return static_state, static_loss, launches
+
+
 def run_solver_loop(block_fn, state, hyper, rng, *, max_iter: int, tol: float,
                     eval_every: int, verbose: int = 0,
-                    initial_loss_fn=None) -> tuple:
-    """Host loop over blocks of ``eval_every`` iterations with the
+                    initial_loss_fn=None, graph=None) -> tuple:
+    """Loop over blocks of ``eval_every`` iterations with the
     relative-decrease stopping rule
 
         stop when (L_prev − L) / L_init < tol
 
     checked after every block (the last block may be shorter). A non-finite
     loss raises FloatingPointError.
+
+    graph None is the host loop: every block runs eagerly. Otherwise it is
+    the device loop (counterpart of the reference's ``device_fit_core``),
+    with ``graph`` from :func:`block_graph`: the first block runs eagerly
+    (the capture's warm-up); if a second full block will run, one full
+    block is captured before it, and every full block after the first is a
+    replay; a shorter last block runs eagerly. Either way the host reads
+    the loss once per block, and ``step_times`` holds each block's host
+    clock (the capture's in the block after it), so
+    ``len(step_times) == len(loss_history) - 1``.
     """
     eval_every = max(1, min(eval_every, max_iter))
     loss_history: List[float] = []
@@ -140,35 +263,48 @@ def run_solver_loop(block_fn, state, hyper, rng, *, max_iter: int, tol: float,
 
     prev_loss = loss_init
     n_iter = 0
-    while n_iter < max_iter:
-        n_steps = min(eval_every, max_iter - n_iter)
-        t0 = time.perf_counter()
-        state, loss, rng = block_fn(state, hyper, rng, n_steps)
-        loss = float(loss)
-        step_times.append(time.perf_counter() - t0)
-        n_iter += n_steps
-        if not np.isfinite(loss):
-            raise FloatingPointError(
-                f"non-finite loss ({loss}) at iteration {n_iter}; this "
-                "usually means the problem scale overflows the compute "
-                "dtype — try dtype='float64' (CPU), a larger "
-                "hessian_pertubation (Newton), or alpha-regularization. "
-                f"History so far: {loss_history}")
-        loss_history.append(loss)
-        loss_iters.append(n_iter)
-        if verbose:
-            print(f"[pycmf_tpu_torch] iter {n_iter:5d}  loss {loss:.8g}")
-        if loss_init is None:
-            loss_init = loss_history[0]
-        if prev_loss is not None and loss_init > 0:
-            if (prev_loss - loss) / loss_init < tol:
-                break
-        prev_loss = loss
+    captured = False
+    with graph.on_stream() if graph is not None else contextlib.nullcontext():
+        while n_iter < max_iter:
+            n_steps = min(eval_every, max_iter - n_iter)
+            t0 = time.perf_counter()
+            if graph is None or n_iter == 0 or n_steps < eval_every:
+                state, loss_t, rng = block_fn(state, hyper, rng, n_steps)
+            else:
+                if not captured:
+                    state, loss_t, launches = _capture_block(
+                        graph, block_fn, state, hyper, rng, n_steps, loss_t)
+                    captured = True
+                graph.replay()
+                policy.add_launches(launches)
+            loss = float(loss_t)
+            step_times.append(time.perf_counter() - t0)
+            n_iter += n_steps
+            if not np.isfinite(loss):
+                raise FloatingPointError(
+                    f"non-finite loss ({loss}) at iteration {n_iter}; this "
+                    "usually means the problem scale overflows the compute "
+                    "dtype — try dtype='float64' (CPU), a larger "
+                    "hessian_pertubation (Newton), or alpha-regularization. "
+                    f"History so far: {loss_history}")
+            loss_history.append(loss)
+            loss_iters.append(n_iter)
+            if verbose:
+                print(f"[pycmf_tpu_torch] iter {n_iter:5d}  loss {loss:.8g}")
+            if loss_init is None:
+                loss_init = loss_history[0]
+            if prev_loss is not None and loss_init > 0:
+                if (prev_loss - loss) / loss_init < tol:
+                    break
+            prev_loss = loss
+        if graph is not None:
+            graph.hand_back(state[2:])
     return state, n_iter, loss_history, loss_iters, step_times
 
 
 def check_loop(loop: str) -> None:
-    """'host' and 'device' both run the host loop (PyTorch has no compiled
-    device-resident loop); the reference's names are accepted."""
+    """'host': every block eager; 'device': the device loop, a CUDA graph
+    of one block replayed per block on the card and the same schedule run
+    eagerly on the CPU (see run_solver_loop)."""
     if loop not in ("host", "device"):
         raise ValueError("loop must be 'host' or 'device'")

@@ -24,7 +24,7 @@ from ..ops.kernels import mu_fused, mu_update
 from ..ops.losses import penalty, reconstruction_term, total_loss
 from ..ops.matmul import gram, matmul
 from ..ops.sparse import is_sparse
-from .common import (Coupled, Hyper, SolverConfig, check_loop, coupled_mm,
+from .common import (Coupled, Hyper, SolverConfig, block_graph, coupled_mm,
                      run_solver_loop)
 
 
@@ -176,13 +176,15 @@ def run_mu(X: Coupled, Y, U0, V0, Z0, cfg: SolverConfig, hyper: Hyper, *,
            max_iter: int = 200, tol: float = 1e-4, eval_every: int = 10,
            verbose: int = 0, loop: str = "host"):
     """Run the MU solver. Returns (U, V, Z, n_iter, loss_history,
-    loss_iters, step_times)."""
-    check_loop(loop)
+    loss_iters, step_times). loop: 'host' runs every block eagerly,
+    'device' the device loop (a CUDA graph of one block on the card; see
+    solvers/common.run_solver_loop)."""
+    graph = block_graph(loop, U0)
     block = _make_block(cfg, _aux_ok(cfg, X, U0))
     state = (X, Y, U0, V0, Z0)
     state, n_iter, losses, iters, times = run_solver_loop(
         block, state, hyper, rng=None, max_iter=max_iter, tol=tol,
         eval_every=eval_every, verbose=verbose,
-        initial_loss_fn=_loss_core(cfg))
+        initial_loss_fn=_loss_core(cfg), graph=graph)
     _, _, U, V, Z = state
     return U, V, Z, n_iter, losses, iters, times

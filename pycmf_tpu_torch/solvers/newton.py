@@ -36,7 +36,7 @@ from ..ops.losses import (penalty, reconstruction_term, sigmoid_sq_rows,
                           total_loss)
 from ..ops.matmul import gram, matmul
 from ..ops.sparse import is_sparse, row_sq_norms
-from .common import (Coupled, Hyper, SolverConfig, check_loop, layout_spmm,
+from .common import (Coupled, Hyper, SolverConfig, block_graph, layout_spmm,
                      run_solver_loop)
 
 
@@ -445,6 +445,20 @@ def _loss_core(cfg: SolverConfig):
     return loss_fn
 
 
+def captures_on_card(cfg: SolverConfig, k: int) -> bool:
+    """Whether the Newton step can be captured in a CUDA graph on the
+    card: not when it reaches a library's batched solve, that is per-row
+    systems (a sigmoid-linked term) solved without K5 (use_pallas off, or
+    k > batched_solve.MAX_K). That solve is MAGMA's batched LU or Cholesky,
+    which allocates device memory inside the call, and a capture refuses
+    that (ROADMAP B5)."""
+    per_row = ((cfg.x_link != LINEAR and (cfg.update_U or cfg.update_V))
+               or (cfg.has_Y and cfg.y_link != LINEAR
+                   and (cfg.update_Z or cfg.update_V)))
+    return not (per_row and (not cfg.use_pallas
+                             or k > batched_solve.MAX_K))
+
+
 def _make_block(cfg: SolverConfig, aux):
     step = make_newton_step(cfg, with_aux=aux)
     loss_fn = _loss_core(cfg)
@@ -473,14 +487,24 @@ def run_newton(X: Coupled, Y, U0, V0, Z0, cfg: SolverConfig, hyper: Hyper,
                rng: Optional[torch.Generator] = None, *, max_iter: int = 200,
                tol: float = 1e-4, eval_every: int = 10, verbose: int = 0,
                loop: str = "host"):
-    """Run the Newton solver (loop semantics as in run_mu)."""
-    check_loop(loop)
+    """Run the Newton solver (loop semantics as in run_mu). Under the
+    device loop the captured block holds ``rng`` fixed, which is right
+    while nothing draws from it (sg_sample_ratio = 1)."""
+    graph = block_graph(loop, U0)
+    if U0.is_cuda and graph is not None \
+            and not captures_on_card(cfg, U0.shape[1]):
+        raise NotImplementedError(
+            "loop='device' cannot capture this Newton fit on the card: its "
+            "per-row systems (a sigmoid link) take a library's batched solve "
+            "(use_pallas off, or k > 32), which allocates device memory "
+            "inside the call (ROADMAP B5: a K5 route for k > 32); use "
+            "loop='host' or 'auto'")
     block = _make_block(cfg, _aux_kind(cfg, X, U0))
     X, Y = _with_transposes(cfg, X, Y, V0, Z0)
     state = (X, Y, U0, V0, Z0)
     state, n_iter, losses, iters, times = run_solver_loop(
         block, state, hyper, rng, max_iter=max_iter, tol=tol,
         eval_every=eval_every, verbose=verbose,
-        initial_loss_fn=_loss_core(cfg))
+        initial_loss_fn=_loss_core(cfg), graph=graph)
     _, _, U, V, Z = state
     return U, V, Z, n_iter, losses, iters, times

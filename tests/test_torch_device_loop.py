@@ -1,0 +1,265 @@
+"""The port's device loop (``loop='device'``) on the CPU.
+
+On the card the device loop replays one CUDA graph of an eval block; on the
+CPU it runs the same schedule with every block eager (the graph's stand-in,
+``solvers/common.EagerBlockGraph``). Here it is held against the
+reference's ``loop='device'`` (the jitted while loop, JAX on the CPU) in
+float64 at rtol 1e-9, for MU on dense and CSR X and Newton with linear
+links and with a sigmoid Y, an early stop and a remainder block included;
+its schedule and launch counts are checked with a recording stand-in and
+a fake block, and the estimator's loop rule case by case.
+"""
+import numpy as np
+import pytest
+import torch
+
+from pycmf_tpu import CMF as JCMF
+from pycmf_tpu_torch import CMF
+from pycmf_tpu_torch.ops.kernels import policy
+from pycmf_tpu_torch.solvers import common as tcommon
+from pycmf_tpu_torch.solvers.common import SolverConfig
+from pycmf_tpu_torch.solvers.newton import captures_on_card
+from tests.conftest import make_problem
+
+
+def _factors(rng, n, m, r, k):
+    return (np.abs(rng.randn(n, k)), np.abs(rng.randn(m, k)),
+            np.abs(rng.randn(r, k)))
+
+
+CASES = {
+    "mu_dense": dict(solver="mu", max_iter=30, eval_every=5, tol=1e-7),
+    "mu_csr": dict(solver="mu", max_iter=30, eval_every=5, tol=1e-7,
+                   sparse_mode="csr"),
+    "newton_linear": dict(solver="newton", max_iter=12, eval_every=4,
+                          tol=1e-7, alpha=0.1, l1_ratio=0.5),
+    "newton_sigmoid_y": dict(solver="newton", y_link="sigmoid", max_iter=12,
+                             eval_every=4, tol=1e-7),
+    "newton_sigmoid_y_k40": dict(solver="newton", y_link="sigmoid",
+                                 max_iter=8, eval_every=4, tol=1e-7,
+                                 n_components=40),
+    "mu_early_stop": dict(solver="mu", max_iter=200, eval_every=5,
+                          tol=1e-3),
+    "mu_remainder": dict(solver="mu", max_iter=23, eval_every=10, tol=0.0),
+}
+
+
+@pytest.mark.parametrize("use_pallas", [None, False])
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_device_loop_matches_reference_device_loop_f64(rng, case,
+                                                       use_pallas):
+    kw = dict(n_components=4, dtype="float64", use_pallas=use_pallas)
+    kw.update(CASES[case])
+    sigmoid = kw.get("y_link") == "sigmoid"
+    X, Y = make_problem(rng, n=61, m=96 if kw["n_components"] > 32 else 40,
+                        sparse=kw.get("sparse_mode") == "csr",
+                        binary_y=sigmoid)
+    U0, V0, Z0 = _factors(rng, X.shape[0], X.shape[1], Y.shape[1],
+                          kw["n_components"])
+    j = JCMF(loop="device", **kw).fit(X, Y, U=U0, V=V0, Z=Z0)
+    t = CMF(loop="device", device="cpu", **kw).fit(X, Y, U=U0, V=V0, Z=Z0)
+    assert t.n_iter_ == j.n_iter_
+    assert t.loss_iters_ == j.loss_iters_
+    np.testing.assert_allclose(t.loss_history_, j.loss_history_, rtol=1e-9)
+    for name in ("U_", "V_", "Z_"):
+        np.testing.assert_allclose(getattr(t, name), getattr(j, name),
+                                   rtol=1e-9, atol=1e-12)
+    assert len(t.step_times_) == len(t.loss_history_) - 1
+    if case == "mu_early_stop":
+        assert t.n_iter_ < kw["max_iter"]
+    if case == "mu_remainder":
+        assert t.loss_iters_ == [0, 10, 20, 23]
+
+
+@pytest.mark.parametrize("solver", ["mu", "newton"])
+def test_device_loop_equals_host_loop_bit_for_bit(rng, solver):
+    """Both loops run the same blocks in the same order on the CPU."""
+    X, Y = make_problem(rng, n=61)
+    kw = dict(n_components=4, solver=solver, random_state=0, max_iter=23,
+              eval_every=5, tol=1e-7, dtype="float64", device="cpu")
+    h = CMF(loop="host", **kw).fit(X, Y)
+    d = CMF(loop="device", **kw).fit(X, Y)
+    assert d.loss_history_ == h.loss_history_
+    assert d.loss_iters_ == h.loss_iters_
+    for name in ("U_", "V_", "Z_"):
+        assert np.array_equal(getattr(d, name), getattr(h, name))
+
+
+def test_divergent_device_loop_raises(rng):
+    """A Newton fit built to overflow float32 raises FloatingPointError
+    from the device loop, as from the reference's
+    (tests/test_round2_fixes.py)."""
+    X, Y = make_problem(rng, n=24, m=16, non_negative=False)
+    m = CMF(n_components=3, solver="newton", loop="device", dtype="float32",
+            max_iter=6, tol=0.0, random_state=0, U_non_negative=False,
+            V_non_negative=False, Z_non_negative=False,
+            line_search_trials=0, hessian_pertubation=0.0, eps=0.0,
+            device="cpu")
+    with pytest.raises(FloatingPointError):
+        m.fit(X * 1e30, Y * 1e30)
+
+
+# -- the schedule, with a recording stand-in and a fake block --------------
+
+class RecordingGraph(tcommon.EagerBlockGraph):
+    def __init__(self, events):
+        self.events = events
+
+    def capture(self, fn, outputs):
+        self.events.append("capture")
+        super().capture(fn, outputs)
+
+    def replay(self):
+        self.events.append("replay")
+        super().replay()
+
+
+def _fake_run(graph, max_iter, eval_every, plateau_after=None):
+    """run_solver_loop over a fake block: each step moves U and V and
+    counts one launch of a fake kernel, each loss counts one more; the loss
+    stops falling once V sums past ``plateau_after`` (a tol stop)."""
+    fake_step = policy.launch_count("test_fake_step")
+    fake_loss = policy.launch_count("test_fake_loss")
+    calls = []
+
+    def block(state, hyper, rng, n_steps):
+        X, Y, U, V, Z = state
+        calls.append(n_steps)
+        for _ in range(n_steps):
+            U = U * 0.5 + 1.0
+            V = V + U.sum()
+            fake_step.n += 1
+        fake_loss.n += 1
+        done = torch.minimum(V.sum(), torch.tensor(1e30, dtype=V.dtype))
+        loss = 1.0 / (1.0 + done) if plateau_after is None else \
+            torch.where(V.sum() > plateau_after, torch.tensor(1.0),
+                        1.0 / (1.0 + done))
+        return (X, Y, U, V, Z), loss, rng
+
+    state = (None, None, torch.ones(3, 2), torch.zeros(2, 2),
+             torch.zeros(0, 2))
+    policy.reset_launch_counts()
+    out = tcommon.run_solver_loop(
+        block, state, None, None, max_iter=max_iter, tol=1e-12,
+        eval_every=eval_every, initial_loss_fn=lambda s, h: torch.tensor(
+            2.0), graph=graph)
+    counts = {k: v for k, v in policy.launch_counts().items()
+              if k.startswith("test_fake")}
+    return out, counts, calls
+
+
+@pytest.mark.parametrize("max_iter,eval_every,events", [
+    (10, 10, []),
+    (15, 10, []),
+    (20, 10, ["capture", "replay"]),
+    (33, 10, ["capture", "replay", "replay"]),
+    (40, 10, ["capture", "replay", "replay", "replay"]),
+    (5, 1, ["capture", "replay", "replay", "replay", "replay"]),
+])
+def test_device_loop_schedule_and_launch_counts(max_iter, eval_every,
+                                                events):
+    """Block 1 eager; one capture, only when a second full block will run;
+    a replay per later full block; a shorter last block eager; the launch
+    counts, the losses and the factors those of the host loop."""
+    got = []
+    dev, dev_counts, dev_calls = _fake_run(RecordingGraph(got), max_iter,
+                                           eval_every)
+    host, host_counts, host_calls = _fake_run(None, max_iter, eval_every)
+    assert got == events
+    n_full, rem = divmod(max_iter, eval_every)
+    # eager calls: block 1, the capture's pass, each replay, the remainder
+    assert dev_calls[0] == eval_every and host_calls == (
+        [eval_every] * n_full + ([rem] if rem else []))
+    assert dev_calls[-1] == (rem if rem else eval_every)
+    assert dev_counts == host_counts == {"test_fake_step": max_iter,
+                                         "test_fake_loss": len(host_calls)}
+    (sd, nd, ld, id_, td), (sh, nh, lh, ih, th) = dev, host
+    assert (nd, ld, id_) == (nh, lh, ih)
+    assert len(td) == len(ld) - 1
+    for a, b in zip(sd[2:], sh[2:]):
+        assert torch.equal(a, b)
+
+
+def test_device_loop_early_stop_skips_later_blocks():
+    """A tol stop after the captured block's first replay ends the loop:
+    no further replay, no remainder."""
+    got = []
+    (state, n_iter, losses, iters, times), counts, _ = _fake_run(
+        RecordingGraph(got), 45, 10, plateau_after=30.0)
+    host = _fake_run(None, 45, 10, plateau_after=30.0)
+    assert n_iter < 45
+    assert got == ["capture"] + ["replay"] * (n_iter // 10 - 1)
+    assert (n_iter, losses, iters) == host[0][1:4]
+    assert counts == host[1]
+
+
+def test_launch_count_bookkeeping():
+    c = policy.launch_count("test_bookkeeping")
+    policy.reset_launch_counts()
+    before = policy.launch_counts()
+    c.n += 3
+    delta = policy.launches_since(before)
+    assert delta == {"test_bookkeeping": 3}
+    policy.set_launch_counts(before)
+    assert c.n == 0
+    policy.add_launches(delta)
+    policy.add_launches(delta)
+    assert c.n == 6
+    policy.reset_launch_counts()
+
+
+def test_block_graph_by_loop_and_device():
+    U = torch.zeros(3, 2)
+    assert tcommon.block_graph("host", U) is None
+    assert isinstance(tcommon.block_graph("device", U),
+                      tcommon.EagerBlockGraph)
+    with pytest.raises(ValueError, match="loop"):
+        tcommon.block_graph("gpu", U)
+
+
+# -- the estimator's loop rule ---------------------------------------------
+
+@pytest.mark.parametrize("kw,cuda,want", [
+    (dict(loop="auto"), False, "host"),
+    (dict(loop="auto"), True, "device"),
+    (dict(loop="auto", verbose=1), True, "host"),
+    (dict(loop="device"), False, "device"),
+    (dict(loop="host"), True, "host"),
+    (dict(loop="device", verbose=1), True, "device"),
+    (dict(loop="auto", solver="newton", n_components=40), True, "device"),
+    (dict(loop="auto", solver="newton", y_link="sigmoid"), True, "device"),
+    (dict(loop="auto", solver="newton", y_link="sigmoid",
+          n_components=40), True, "host"),
+    (dict(loop="auto", solver="newton", x_link="sigmoid",
+          use_pallas=False), True, "host"),
+    (dict(loop="auto", solver="mu", use_pallas=False, n_components=40),
+     True, "device"),
+])
+def test_resolve_loop_rule(monkeypatch, kw, cuda, want):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: cuda)
+    kw = dict(dict(n_components=4, device="cuda" if cuda else "cpu"), **kw)
+    assert CMF(**kw)._resolve_loop() == want
+
+
+def test_resolve_loop_verbose_auto_is_host_in_both_packages():
+    assert JCMF(n_components=2, verbose=1, loop="auto")._resolve_loop() \
+        == "host"
+    assert CMF(n_components=2, verbose=1, loop="auto",
+               device="cpu")._resolve_loop() == "host"
+
+
+@pytest.mark.parametrize("kw,k,want", [
+    (dict(), 40, True),
+    (dict(y_link="sigmoid"), 32, True),
+    (dict(y_link="sigmoid"), 33, False),
+    (dict(x_link="sigmoid", use_pallas=True), 20, True),
+    (dict(x_link="sigmoid", use_pallas=False), 20, False),
+    (dict(y_link="sigmoid", has_Y=False), 40, True),
+    (dict(y_link="sigmoid", update_Z=False, update_V=False), 40, True),
+    (dict(use_pallas=False), 20, True),
+])
+def test_captures_on_card(kw, k, want):
+    """Per-row systems (a sigmoid link) through a library's batched solve
+    (use_pallas off or k > 32) cannot be captured on the card."""
+    kw = dict(dict(use_pallas=True), **kw)
+    assert captures_on_card(SolverConfig(**kw), k) is want
