@@ -7,8 +7,9 @@ Run from the repository root, with no arguments:
 
 Phases (any failure exits non-zero and prints no ok line):
  1. device: the card's name and power limit (nvidia-smi);
- 2. build: the seven CUDA kernel libraries (ten kernels), from
-    pycmf_tpu_torch/csrc, each nvcc started at once;
+ 2. build: the seven CUDA kernel libraries (eleven kernels: K5 has a
+    wide route for 32 < k <= 64), from pycmf_tpu_torch/csrc, each nvcc
+    started at once;
  3. each kernel against its plain PyTorch version on the same inputs, with
     CUDA-event times and the card's lower bound for the same work:
     K1, K2 at X 30000 x 11314 (bf16 and f32), k = 20, and at the edges
@@ -19,7 +20,8 @@ Phases (any failure exits non-zero and prints no ok line):
     at the edges (n in {1, 17, 20, 30000}, q in {1, 15, 4097, 11314}, k in
     {1, 7, 20, 32, 33, 64, 100}, bf16 and f32, trials 0 and 8,
     non_negative both ways); K5 at 11314 and 30000 systems of 20 x 20,
-    whole and with H_shared apart, beside torch.linalg.solve, and K5 and
+    and its wide route at k in {33, 40, 64}, whole and with H_shared
+    apart, beside torch.linalg.solve, and K5 and
     K6 at the edges of their tiles (solve_update_edges); csr_spmm (X V and
     X^T U) and csr_rowdots on the 20NG surrogate's CSR and an
     RCV1-v2-shaped one (47236 x 804414, 60M nonzeros), beside
@@ -41,27 +43,37 @@ Phases (any failure exits non-zero and prints no ok line):
     fused_mu_update, csr_rowdots); path D, bench's Newton cell on the CSR
     X; path F, MU on the block-structured X through BlockEll (bell_spmm);
     the MU cell and path A at n_components=40 (k > 32, use_pallas left at
-    its default); then MU, Newton linear, paths A to D and F and path A
-    at k = 40 under torch.profiler
+    its default; path A's per-row solves on K5's wide route, on the device
+    loop); path S, stochastic minibatch Newton (path A with
+    sg_sample_ratio=0.25: K5 on every per-row solve, no fused pass);
+    path S4, BASELINE.json config #4 (tall |N(0,1)| X 20000 x 1000, Y
+    1000 x 200, f32, sg_sample_ratio=0.25); path SD (path D with
+    sg_sample_ratio=0.25: csr_spmm on B·mask, masked row norms); path H
+    (path A with hessian_form='full': LU per-row solves, the host loop
+    under 'auto', loop='device' raising naming ROADMAP C3); each sampled
+    fit's exact float64 loss at its end; then MU, Newton linear, paths A
+    to D, F, S and SD and path A at k = 40 under torch.profiler
     (device time by kernel, idle share, launches per iteration, and on
     path F bell_spmm's share);
  7c. the device loop (loop='device': one CUDA graph of an eval block,
     captured once per fit, replayed per block; what loop='auto' runs on
     the card, so phases 4-7 run it too) against the host loop on MU,
-    Newton linear and paths A, C, D, F and the MU cell at k = 40: the same
-    n_iter_ and eval points, losses within 1e-6 relative, factors within
-    1e-5, equal launch counts; each loop's ms/iter (least of 3 fits),
-    capture time, device ms/iter, idle share and host launch calls per
-    block and per replay; path A at k = 40, whose generic batched solve a
-    capture refuses, takes the host loop under 'auto' and raises under
-    'device';
+    Newton linear and paths A, C, D, F, S, S4 and SD and the MU cell and
+    path A at k = 40: the same n_iter_ and eval points, losses within 1e-6
+    relative, factors within 1e-5, equal launch counts (a sampled fit
+    equal bit for bit only if each replay draws anew); each loop's
+    ms/iter (least of 3 fits), capture time, device ms/iter, idle share
+    and host launch calls per block and per replay; two fits of path S
+    with one random_state equal, with another not;
  8. kernel path against plain path on the card (the plain fits on the host
     loop: a capture refuses the plain batched solve): after 20 iterations,
     checked to 1e-3 on paths B, C, D and F and printed for MU, Newton
     linear and path A, whose dense bf16 trajectories are chaotic; those,
-    and the k = 40 fits, step by step from shared factors (step_agreement:
-    factors 1e-4 (MU) or 1e-3 (Newton), exact loss 1e-6); and the final losses of MU, path A, path C and path D against
-    the NumPy baselines (2% guard);
+    and the k = 40 fits, and paths S and SD (both paths of a step making
+    the same draws), step by step from shared factors (step_agreement:
+    factors 1e-4 (MU) or 1e-3 (Newton), exact loss 1e-6); and the final
+    losses of MU, path A, path C and path D against the NumPy baselines
+    (2% guard);
  9. transform of 1000 new rows, dense (MU) and CSR (path C).
 Each fit is run with the launch counts set to 0 just before it and read
 just after. Standard output ends with the fits' record, the card's name and
@@ -771,6 +783,84 @@ def sigmoid_phase(check, torch, sigmoid_newton, batched_solve):
     return rec
 
 
+WIDE_K = (33, 40, 64)   # K5's wide route: phase 3's shapes
+
+
+def k5_wide_phase(check, torch, batched_solve):
+    """Phase 3, K5's wide route (32 < k <= 64: the system in shared memory,
+    two rows per lane) at k in WIDE_K on 11314 and 30000 systems, against
+    its plain version (rel. Frobenius <= 1e-3, the bar of the k = 20
+    systems), whole and with H_shared apart (bit for bit equal to the
+    whole), each timed beside its bound and torch.linalg.solve. The
+    systems are Gauss-Newton Hessians of a sigmoid term, H = Bᵀ diag(σ′²)
+    B over 2048 columns (N(0, 0.3²) factors) plus 1.2 I, the solver's
+    damping; G ~ N(0, 1). L2 flushed before each timed call."""
+    import numpy as np
+
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(SEED + 7)
+    flush_buf = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    flush = flush_buf.zero_
+    rec = {}
+    for k in WIDE_K:
+        B = torch.from_numpy(0.3 * rng.randn(2048, k).astype(np.float32)) \
+            .to(dev)
+        BB = (B[:, :, None] * B[:, None, :]).reshape(2048, k * k)
+        shared = 1.2 * torch.eye(k, device=dev)
+        for p in (M, N):
+            Mf = torch.from_numpy(0.3 * rng.randn(p, k).astype(np.float32)) \
+                .to(dev)
+            P = torch.sigmoid(Mf @ B.T)
+            Hr = (((P * (1 - P)) ** 2) @ BB).reshape(p, k, k)
+            G = torch.from_numpy(rng.randn(p, k).astype(np.float32)).to(dev)
+            H = Hr + shared
+            del Mf, P
+            d = nan_filled(lambda: batched_solve.batched_spd_solve(H, G))
+            d_sh = batched_solve.batched_spd_solve(Hr, G, shared)
+            again = batched_solve.batched_spd_solve(H, G)
+            torch.cuda.synchronize()
+            dr = batched_solve.batched_spd_solve_ref(H, G)
+            e = rel_fro(d, dr)
+            check(e <= 1e-3 and bits_equal(torch, d, again),
+                  f"K5 wide[p={p} k={k}] d rel Frobenius {e:.3g} <= 1e-3 "
+                  f"(output NaN-filled), two calls bitwise equal")
+            check(bits_equal(torch, d, d_sh), f"K5 wide[p={p} k={k}] with "
+                  f"H_shared equals the solve of H + H_shared bit for bit")
+            b5 = bound(4.0 * p * (k * k + 2 * k),
+                       p * (k ** 3 / 3.0 + 2 * k * k), F32_FLOPS)
+
+            def k5():
+                return batched_solve.batched_spd_solve(H, G)
+
+            def k5_shared():
+                return batched_solve.batched_spd_solve(Hr, G, shared)
+
+            def library():
+                return torch.linalg.solve(H, G[..., None])
+            t5 = time_ms(k5, reps=20, flush=flush)
+            dt5 = device_ms(k5, reps=20, flush=flush)
+            ts5 = time_ms(k5_shared, reps=20, flush=flush)
+            dts5 = device_ms(k5_shared, reps=20, flush=flush)
+            p5 = time_ms(lambda: batched_solve.batched_spd_solve_ref(H, G),
+                         reps=10, flush=flush)
+            lib = time_ms(library, reps=10, flush=flush)
+            dlib = device_ms(library, reps=10, flush=flush)
+            log(f"  K5 wide[p={p} k={k}] kernel {t5:.4f} ms (device alone "
+                f"{dt5:.4f}; with H_shared {ts5:.4f}, device {dts5:.4f}), "
+                f"plain {p5:.4f} ms, torch.linalg.solve {lib:.4f} ms "
+                f"(device {dlib:.4f}), bound {b5[0]:.4f} ms ({b5[1]})")
+            rec[("batched_spd_solve_wide", p, k)] = dict(
+                max_abs_err=float((d - dr).abs().max()), ms=t5,
+                device_ms=dt5, shared_ms=ts5, shared_device_ms=dts5,
+                plain_ms=p5, library_ms=lib, library_device_ms=dlib,
+                bound_ms=b5[0], bound_by=b5[1])
+            del H, Hr, G, d, d_sh, again, dr
+        torch.cuda.empty_cache()
+    del flush_buf
+    torch.cuda.empty_cache()
+    return rec
+
+
 def bits_equal(torch, a, b) -> bool:
     """a and b hold the same bits (NaN included)."""
     return a.shape == b.shape and bool(torch.equal(a.view(torch.int32),
@@ -787,7 +877,8 @@ def solve_update_edges(check, torch, batched_solve, mu_update):
     M and num start 4 bytes off a 16-byte boundary (the 4-byte staging
     copies); against the plain version in float64, relative
     Frobenius <= 1e-5 (sparse_phase's bar).
-    K5 (batched_spd_solve): p in {1, 20, 33}, k in {1, 3, 20, 32}, with and
+    K5 (batched_spd_solve): p in {1, 20, 33}, k in {1, 3, 20, 32} and, on
+    the wide route (the system in shared memory), {33, 47, 64}, with and
     without H_shared, one case with H 4 bytes off a 16-byte boundary;
     systems A Aᵀ/k + H_shared with H_shared = 0.5 I + a random SPD part
     (or the whole sum in H), d against the float64 solve of the same f32
@@ -836,7 +927,7 @@ def solve_update_edges(check, torch, batched_solve, mu_update):
                       f"bitwise equal")
                 n6 += 1
     n5 = 0
-    for k in (1, 3, 20, 32):
+    for k in (1, 3, 20, 32, 33, 47, 64):
         for p in (1, 20, 33):
             A = rng.randn(p, k, k)
             R = rng.randn(k, k)
@@ -1206,6 +1297,27 @@ def fit_phase(check, make_est, X, Y, minimums, label, exact_loss):
                      reported_vs_exact_max_rel=dev)
 
 
+def run_fit_checked(check, make_est, X, Y, minimums, absent, label,
+                    exact_loss, loop):
+    """run_fit, then: the kernels in ``absent`` launched no time, the fit
+    ran the loop ``loop`` under 'auto', and the exact float64 objective of
+    its final factors (a sampled fit's is not monotone along the fit, and
+    a warm-started replay would restart its draws, so fit_phase's checks
+    do not apply)."""
+    from pycmf_tpu_torch.ops.kernels.policy import launch_counts
+
+    est, rec = run_fit(check, make_est, X, Y, minimums, label)
+    counts = launch_counts()
+    check(all(counts.get(k, 0) == 0 for k in absent),
+          f"{label}: no launch of {absent} ({counts})")
+    got = est._resolve_loop(est._config(has_Y=Y is not None))
+    check(got == loop, f"{label}: loop='auto' resolves to {got} ({loop})")
+    rec["exact_loss"] = exact_loss(est.U_, est.V_, est.Z_)
+    log(f"  {label}: exact f64 loss of the final factors "
+        f"{rec['exact_loss']:.9g}")
+    return est, rec
+
+
 # the host's calls that start device work, as torch.profiler names them
 LAUNCH_APIS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
                "cuLaunchKernelEx", "cudaGraphLaunch", "cudaMemcpyAsync",
@@ -1311,8 +1423,9 @@ def loop_phase(check, torch, make_est, X, Y, label):
     """The device loop (a CUDA graph of one eval block, captured once per
     fit) against the host loop on one path, both from the estimator's
     init: an untimed warm-up fit, then three host and three device fits
-    in the order H D, D H, H D. Each device fit must capture once (every
-    path here runs two full blocks or more) and agree with the host fit
+    in the order H D, D H, H D. Each device fit must capture once when a
+    second full block runs (once on every path but one that stops after
+    its first block) and agree with the host fit
     beside it: the same n_iter_ and loss_iters_, each loss within 1e-6
     relative, the factors within phase 3's relative Frobenius bar of 1e-5,
     the same launches of every kernel. Then one fit of each loop under
@@ -1325,9 +1438,9 @@ def loop_phase(check, torch, make_est, X, Y, label):
 
     captures, capture = [], CudaBlockGraph.capture
 
-    def timed_capture(self, fn, outputs):
+    def timed_capture(self, fn, outputs, *generators):
         t0 = time.perf_counter()
-        capture(self, fn, outputs)
+        capture(self, fn, outputs, *generators)
         captures.append(time.perf_counter() - t0)
 
     fits = {"host": [], "device": []}
@@ -1356,9 +1469,11 @@ def loop_phase(check, torch, make_est, X, Y, label):
     gaps, fro, bit = [], [], True
     for h, d in zip(fits["host"], fits["device"]):
         he, de = h["est"], d["est"]
-        check(len(d["captures"]) == 1 and not h["captures"],
+        # a capture when a second full block runs (run_solver_loop)
+        want = int(he.n_iter_ >= 2 * he.eval_every)
+        check(len(d["captures"]) == want and not h["captures"],
               f"{label}: the device fit captured {len(d['captures'])} "
-              f"graph(s), the host fit {len(h['captures'])} (1 and 0)")
+              f"graph(s), the host fit {len(h['captures'])} ({want} and 0)")
         check(he.n_iter_ == de.n_iter_ and he.loss_iters_ == de.loss_iters_,
               f"{label}: device loop n_iter {de.n_iter_}, eval points "
               f"{de.loss_iters_} == host loop's {he.n_iter_}, "
@@ -1566,6 +1681,7 @@ def main() -> int:
     krec = u_pass_phase(check, torch, mu_fused, newton_fused)
     krec.update(sigmoid_phase(check, torch, sigmoid_newton,
                               batched_solve))
+    krec.update(k5_wide_phase(check, torch, batched_solve))
     sigmoid_edges(check, torch, sigmoid_newton, batched_solve)
     solve_update_edges(check, torch, batched_solve, mu_update)
     krec.update(sparse_phase(check, torch))
@@ -1665,10 +1781,61 @@ def main() -> int:
     _, mu_w = run_fit(
         check, lambda: CMF(**mu_kw, **common_w), X, Y,
         per_iter(fused_mu_u_pass=1, fused_mu_update=2), "MU fit, k=40")
-    _, pa_w = run_fit(
+    sig = lambda U, V, Z: numpy_cmf.loss(  # noqa: E731
+        X64, Y64, U, V, Z, y_link="sigmoid")
+    _, pa_w = run_fit_checked(
         check, lambda: CMF(**a_kw, **common_w), X, Y,
         per_iter(fused_newton_linear_u_pass=1, sigmoid_gh_pass=1,
-                 sigmoid_phi_pass=1), "path A fit, k=40")
+                 sigmoid_phi_pass=1, batched_spd_solve_wide=2), (),
+        "path A fit, k=40", sig, "device")
+    log("phase 7: path S, stochastic minibatch Newton (path A with "
+        "sg_sample_ratio=0.25)")
+    s_kw = dict(a_kw, sg_sample_ratio=0.25)
+    fused = ("fused_newton_linear_u_pass", "sigmoid_gh_pass",
+             "sigmoid_phi_pass")
+    _, ps = run_fit_checked(
+        check, lambda: CMF(**s_kw, **common), X, Y,
+        per_iter(batched_spd_solve=2), fused, "path S fit", sig, "device")
+    log(f"  path S: final exact loss {ps['exact_loss']:.9g} after "
+        f"{ps['n_iter']} iterations; path A's {pa['exact_loss']:.9g} after "
+        f"{pa['n_iter']}")
+    log("phase 7: path S4, BASELINE.json config #4 (benchmarks/run_all.py:"
+        "159-168: tall |N(0,1)| X 20000 x 1000, Y 1000 x 200, f32)")
+    rs4 = np.random.RandomState(SEED)
+    X4, Y4 = np.abs(rs4.randn(20000, 1000)), np.abs(rs4.randn(1000, 200))
+    s4_kw = dict(solver="newton", sg_sample_ratio=0.25, tol=1e-5,
+                 max_iter=30, eval_every=5)
+    common4 = dict(n_components=K, random_state=SEED, device="cuda")
+    _, ps4 = run_fit_checked(
+        check, lambda: CMF(**s4_kw, **common4), X4, Y4, per_iter(),
+        fused, "path S4 fit",
+        lambda U, V, Z: numpy_cmf.loss(X4, Y4, U, V, Z), "device")
+    log("phase 7: path SD, path D (CSR X) with sg_sample_ratio=0.25: "
+        "csr_spmm on B·mask, masked row norms")
+    sd_kw = dict(d_kw, sg_sample_ratio=0.25)
+    _, psd = run_fit_checked(
+        check, lambda: CMF(**sd_kw, **common), X, Y,
+        lambda e: {"csr_spmm": 4 * e.n_iter_,
+                   "batched_spd_solve": 2 * e.n_iter_,
+                   "csr_rowdots": len(e.loss_history_)},
+        ("sigmoid_gh_pass", "sigmoid_phi_pass"), "path SD fit", sig,
+        "device")
+    log("phase 7: path H, path A with hessian_form='full' (LU per-row "
+        "solves)")
+    h_kw = dict(a_kw, hessian_form="full")
+    h_est, ph = run_fit_checked(
+        check, lambda: CMF(**h_kw, **common), X, Y,
+        per_iter(fused_newton_linear_u_pass=1),
+        ("sigmoid_gh_pass", "sigmoid_phi_pass", "batched_spd_solve"),
+        "path H fit", sig, "host")
+    try:
+        h_est.set_params(loop="device", max_iter=10).fit(X, Y)
+        raised = "nothing"
+    except NotImplementedError as e:
+        raised = str(e)
+    check("ROADMAP C3" in raised and "hessian_form='full'" in raised,
+          f"path H: loop='device' raises NotImplementedError naming "
+          f"ROADMAP C3 and the full form ({raised[:120]}...)")
     log("phase 7b: where the time goes (torch.profiler)")
     mu["profile"] = profile_phase(
         torch, lambda: CMF(**dict(mu_kw, max_iter=10, tol=0.0), **common),
@@ -1692,8 +1859,14 @@ def main() -> int:
         torch, lambda: CMF(**dict(f_kw, max_iter=10), **common), Xf, Y,
         "path F")
     pa_w["profile"] = profile_phase(
-        torch, lambda: CMF(**dict(a_kw, max_iter=5, tol=0.0), **common_w),
+        torch, lambda: CMF(**dict(a_kw, max_iter=10, tol=0.0), **common_w),
         X, Y, "path A, k=40")
+    ps["profile"] = profile_phase(
+        torch, lambda: CMF(**dict(s_kw, max_iter=10, tol=0.0), **common),
+        X, Y, "path S")
+    psd["profile"] = profile_phase(
+        torch, lambda: CMF(**dict(sd_kw, max_iter=10, tol=0.0), **common),
+        X, Y, "path SD")
     k7 = sum(t["ms_per_iter"] for t in pf["profile"]["top_kernels"]
              if "bell_" in t["name"])
     pf["profile"]["bell_spmm_share"] = k7 / pf["profile"]["device_ms_per_iter"]
@@ -1711,22 +1884,22 @@ def main() -> int:
                 ("path C", c_kw, (X, Y), common),
                 ("path D", d_kw, (X, Y), common),
                 ("path F", f_kw, (Xf, Y), common),
-                ("MU k=40", mu_kw, (X, Y), common_w)):
+                ("MU k=40", mu_kw, (X, Y), common_w),
+                ("path A k=40", a_kw, (X, Y), common_w),
+                ("path S", s_kw, (X, Y), common),
+                ("path S4", s4_kw, (X4, Y4), common4),
+                ("path SD", sd_kw, (X, Y), common)):
             loops[lab] = loop_phase(
                 check, torch, lambda: CMF(**kw, **cm), *data, lab)
-    # path A at k = 40 reaches the generic batched solve (MAGMA), which a
-    # capture refuses: 'auto' takes the host loop, 'device' raises
-    est_w = CMF(**a_kw, **common_w)
-    check(est_w._resolve_loop(est_w._config(has_Y=True)) == "host",
-          "path A, k=40: loop='auto' resolves to the host loop")
-    try:
-        est_w.set_params(loop="device", max_iter=10).fit(X, Y)
-        raised = "nothing"
-    except NotImplementedError as e:
-        raised = str(e)
-    check("ROADMAP B5" in raised,
-          f"path A, k=40: loop='device' raises NotImplementedError naming "
-          f"ROADMAP B5 ({raised[:80]}...)")
+        # the draws follow the seed: the same random_state gives the same
+        # fit, another random_state another
+        same = [CMF(**s_kw, **common).fit(X, Y) for _ in range(2)]
+        other = CMF(**s_kw, **dict(common, random_state=SEED + 1)).fit(X, Y)
+        check(np.array_equal(same[0].U_, same[1].U_)
+              and same[0].loss_history_ == same[1].loss_history_
+              and not np.array_equal(same[0].U_, other.U_),
+              "path S: two fits with random_state=0 equal bit for bit, one "
+              "with random_state=1 differs")
 
     # 8. kernel path against plain path on the card; the 2% guards. The
     # NumPy baselines run on the host beside these untimed fits, after every
@@ -1773,8 +1946,27 @@ def main() -> int:
             else:
                 check(gap <= 1e-3, f"{what} <= 1e-3")
         lin = lambda U, V, Z: numpy_cmf.loss(X64, Y64, U, V, Z)  # noqa: E731
-        sig = lambda U, V, Z: numpy_cmf.loss(  # noqa: E731
-            X64, Y64, U, V, Z, y_link="sigmoid")
+        # sampled steps: a fresh fit seeds its generator from
+        # random_state, so both paths of a step make the same draws
+        # (recorded and compared)
+        from pycmf_tpu_torch.solvers import newton as tnewton
+        draw, drawn = tnewton.draw_columns, []
+
+        def recorded(gen, q, s):
+            drawn.append(draw(gen, q, s))
+            return drawn[-1]
+        for label, kw in (("path S", s_kw), ("path SD", sd_kw)):
+            drawn.clear()
+            with mock.patch.object(tnewton, "draw_columns", recorded):
+                stepped[label] = step_agreement(
+                    check, lambda: CMF(**kw, **common), X, Y, K, plain,
+                    label, sig, 4, 1e-3)
+            per_fit = len(drawn) // 8
+            check(per_fit > 0 and all(
+                bits_equal(torch, a, b) for a, b in zip(
+                    drawn, drawn[:per_fit] * 8)) and len(drawn) == 8 * per_fit,
+                f"{label}: the kernel and the plain step drew the same "
+                f"columns ({per_fit} draws per step)")
         for label, kw, kk, loss, steps, bar in (
                 ("MU", mu_kw, K, lin, 20, 1e-4),
                 ("Newton linear", nl_kw, K, lin, 20, 1e-3),
@@ -1832,6 +2024,12 @@ def main() -> int:
             ("batched_spd_solve", "batched_solve.cu", ("batched_solve.py:71",),
              ("batched_spd_solve", M), pa,
              {"p30000": ("batched_spd_solve", N)}),
+            ("batched_spd_solve_wide", "batched_solve.cu",
+             ("batched_solve.py:71",),
+             ("batched_spd_solve_wide", M, 40), pa_w,
+             {f"{tag}k{k}": ("batched_spd_solve_wide", p, k)
+              for k in WIDE_K for p, tag in ((M, ""), (N, "p30000_"))
+              if (p, k) != (M, 40)}),
             ("fused_mu_update", "mu_update.cu", ("mu_update.py:41",),
              f"fused_mu_update[{M}x{K}]", pc,
              {"rcv1": "fused_mu_update[804414x20]"}),
@@ -1875,6 +2073,8 @@ def main() -> int:
                       "path_a_fit": pa, "path_b_fit": pb, "path_c_fit": pc,
                       "path_d_fit": pd, "path_f_fit": pf,
                       "mu_fit_k40": mu_w, "path_a_fit_k40": pa_w,
+                      "path_s_fit": ps, "path_s4_fit": ps4,
+                      "path_sd_fit": psd, "path_h_fit": ph,
                       "device_vs_host_loop": loops,
                       "phase8_gap_after_20": gaps20,
                       "phase8_step_gap_max": stepped,

@@ -11,9 +11,13 @@ on the host (the same NumPy draws as the reference for one
 ``random_state``); the solver loop runs on ``device``. The keyword surface
 is the reference's plus ``device``. The port runs linear and sigmoid links
 on dense or densified data, and linear links on CSR data
-(``sparse_mode='csr'``, or 'auto' past the densify threshold); Newton runs
-full batch with the Gauss-Newton Hessian. The rest raises
-NotImplementedError naming the ROADMAP item that brings it.
+(``sparse_mode='csr'``, or 'auto' past the densify threshold). Newton runs
+full batch or sampled (``sg_sample_ratio`` < 1: stochastic minibatch
+Newton, its column draws from a ``torch.Generator`` seeded by the
+reference's rule from ``random_state``), with the Gauss-Newton or the
+full Hessian (``hessian_form``). The rest (``n_shards``, fp8 data, the
+chunked layout) raises NotImplementedError naming the ROADMAP item that
+brings it.
 """
 from __future__ import annotations
 
@@ -40,6 +44,28 @@ _DTYPES = {
     "bfloat16": torch.bfloat16,
 }
 _FP8_NAMES = ("fp8", "float8_e4m3fn")
+
+
+def _seed(random_state) -> int:
+    """The seed of the fit's sampling generator from a sklearn-style
+    random_state, by the reference's rule (``pycmf_tpu/models/cmf.py:
+    _jax_seed``): an int is itself, a RandomState its state's first word
+    (read, not consumed), None 0."""
+    if isinstance(random_state, np.random.RandomState):
+        return int(random_state.get_state()[1][0])
+    if isinstance(random_state, (int, np.integer)):
+        return int(random_state)
+    return 0
+
+
+def _generator(random_state, device: torch.device) -> torch.Generator:
+    """A torch.Generator on ``device`` seeded by :func:`_seed`: stochastic
+    Newton draws its columns from it (the reference draws from
+    ``jax.random.PRNGKey(_jax_seed(random_state))``; torch cannot
+    reproduce those bits, only the rule)."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(_seed(random_state))
+    return gen
 
 
 class CMF:
@@ -182,9 +208,10 @@ class CMF:
         as in the reference. One more case takes the host loop under
         'auto': a Newton fit on the card that the device loop cannot
         capture (``solvers/newton.captures_on_card``: per-row systems
-        through a library's batched solve, k > 32 or use_pallas off),
-        where an explicit 'device' raises. An explicit 'host' or 'device'
-        is honoured. cfg: the fit's SolverConfig (default: with Y)."""
+        through a library's batched solve, that is k > 64, use_pallas off
+        or hessian_form='full'; ROADMAP C3), where an explicit 'device'
+        raises. An explicit 'host' or 'device' is honoured. cfg: the fit's
+        SolverConfig (default: with Y)."""
         if self.loop not in ("auto", "host", "device"):
             raise ValueError("loop must be 'auto', 'host' or 'device'")
         if self.loop != "auto":
@@ -265,7 +292,8 @@ class CMF:
                   loop=self._resolve_loop(cfg))
         if self.solver == "mu":
             return run_mu(Xc, Yc, U0, V0, Z0, cfg, hyper, **kw)
-        return run_newton(Xc, Yc, U0, V0, Z0, cfg, hyper, None, **kw)
+        return run_newton(Xc, Yc, U0, V0, Z0, cfg, hyper,
+                          _generator(self.random_state, U0.device), **kw)
 
     # -- public API (reference parity) -------------------------------------
 

@@ -8,7 +8,10 @@ solver's per-row Hessians plus their shared part). Each system must be
 symmetric positive definite (the Gauss-Newton Hessians are, by
 construction: H ⪰ (l2 + hessian_pertubation)·I); a system that is not
 gives NaN in its own row, with no host sync. The kernel is
-``csrc/batched_solve.cu``.
+``csrc/batched_solve.cu``: one row of a system per lane up to k = 32, and
+above that, up to MAX_K = 64, a wide route that holds each system in
+shared memory, two rows per lane (counted apart, as
+``batched_spd_solve_wide``).
 """
 from __future__ import annotations
 
@@ -20,7 +23,9 @@ from . import _build
 from .policy import launch_count, on_card
 
 LAUNCHES = launch_count("batched_spd_solve")
-MAX_K = 32  # the kernel holds a row of H per lane of one warp
+WIDE_LAUNCHES = launch_count("batched_spd_solve_wide")
+NARROW_K = 32  # a row of H per lane of one warp, in registers
+MAX_K = 64     # above NARROW_K: two rows per lane, the system in shared memory
 _ARGTYPES = ((ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 2
              + (ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p))
 
@@ -57,9 +62,10 @@ def batched_spd_solve(H, G, H_shared=None):
     ``torch.linalg.solve_ex`` on the sum (the reference's own rule for
     large k, ``jnp.linalg.solve``), which is not a launch of the kernel; it
     checks nothing on the host, and a singular system gives a non-finite
-    row that the fit loop reports.
-    Otherwise CUDA tensors (float32) launch ``csrc/batched_solve.cu`` and
-    CPU tensors take :func:`batched_spd_solve_ref`."""
+    row that the fit loop reports. A CUDA graph capture refuses that call.
+    Otherwise CUDA tensors (float32) launch ``csrc/batched_solve.cu`` (its
+    wide route above NARROW_K) and CPU tensors take
+    :func:`batched_spd_solve_ref`."""
     p, k, _ = H.shape
     if k > MAX_K:
         Hs = H if H_shared is None else H + H_shared
@@ -82,5 +88,5 @@ def batched_spd_solve(H, G, H_shared=None):
             torch._C._cuda_getCurrentRawStream(dev))
     if rc:
         _build.check(_build.load("batched_solve"), rc, "batched_spd_solve")
-    LAUNCHES.n += 1
+    (LAUNCHES if k <= NARROW_K else WIDE_LAUNCHES).n += 1
     return out

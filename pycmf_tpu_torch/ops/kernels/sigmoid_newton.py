@@ -138,27 +138,38 @@ def phi_plan(n: int, q: int, k: int, slots: int, x_bytes: int,
     return _plan(n, q, k, x_bytes, n_sm, False, slots)
 
 
-def sigmoid_gh_rows(D, M, B):
-    """(G (p, k), H (p, k, k)) of the data term ½‖D − σ(M Bᵀ)‖² in Gauss-
-    Newton form, without penalties: G = ((P − D)⊙f′)B and
-    H[i] = Bᵀ diag(f′ᵢ²) B = (f′² @ BB)[i], BB_j = vec(b_j b_jᵀ)."""
+def sigmoid_gh_rows(D, M, B, hessian_form: str = "gauss", mask=None):
+    """(G (p, k), H (p, k, k)) of the data term ½‖D − σ(M Bᵀ)‖², without
+    penalties: G = (R⊙f′)B with R = P − D, and H[i] = Bᵀ diag(Wᵢ) B =
+    (W @ BB)[i], BB_j = vec(b_j b_jᵀ), where W = f′² (``'gauss'``) or
+    f′² + R⊙f′⊙(1 − 2P) (``'full'``, the exact Hessian: f″ = f′(1 − 2P)).
+    With a (q,) column ``mask``, R⊙f′ and W are masked by column
+    (the reference's ``_accumulate_term``, pycmf_tpu/solvers/newton.py:
+    242-262)."""
     p, k = M.shape
     q = B.shape[0]
     Bf = B.to(M.dtype)
     BB = (Bf[:, :, None] * Bf[:, None, :]).reshape(q, k * k)
+
+    def rows(Mi, Di):
+        P = torch.sigmoid(Mi @ Bf.mT)
+        fp = P * (1.0 - P)
+        R = P - Di.to(M.dtype)
+        Rfp, W = R * fp, fp * fp
+        if hessian_form == "full":
+            W = W + R * (fp * (1.0 - 2.0 * P))
+        if mask is not None:
+            Rfp, W = Rfp * mask, W * mask
+        return Rfp @ Bf, W @ BB
+
     bs = losses.rows_per_block(q)
     if bs >= p:
-        P = torch.sigmoid(M @ Bf.mT)
-        fp = P * (1.0 - P)
-        G = ((P - D.to(M.dtype)) * fp) @ Bf
-        return G, ((fp * fp) @ BB).reshape(p, k, k)
+        G, H = rows(M, D)
+        return G, H.reshape(p, k, k)
     G = M.new_empty((p, k))
     H = M.new_empty((p, k * k))
     for i in range(0, p, bs):
-        P = torch.sigmoid(M[i:i + bs] @ Bf.mT)
-        fp = P * (1.0 - P)
-        G[i:i + bs] = ((P - D[i:i + bs].to(M.dtype)) * fp) @ Bf
-        H[i:i + bs] = (fp * fp) @ BB
+        G[i:i + bs], H[i:i + bs] = rows(M[i:i + bs], D[i:i + bs])
     return G, H.reshape(p, k, k)
 
 

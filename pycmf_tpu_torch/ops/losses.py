@@ -85,8 +85,9 @@ def rows_per_block(width: int) -> int:
     return max(1, _BLOCK_ELEMS // max(1, width))
 
 
-def sigmoid_sq_rows(D, Mc, B):
-    """½‖dᵢ − σ(B cᵢ)‖² for every row of Mc (..., p, k): (..., p).
+def sigmoid_sq_rows(D, Mc, B, mask=None):
+    """½‖dᵢ − σ(B cᵢ)‖² for every row of Mc (..., p, k): (..., p); with a
+    (q,) column ``mask``, ½Σⱼ maskⱼ (dᵢⱼ − σ(bⱼ·cᵢ))².
 
     Leading (candidate) axes are evaluated in one batched product while
     the residual fits ``_BLOCK_ELEMS``; past that, candidate by candidate
@@ -95,15 +96,20 @@ def sigmoid_sq_rows(D, Mc, B):
     q = B.shape[0]
     C = Mc.reshape(-1, p, k)
     Bf = B.to(Mc.dtype)
+
+    def half_sq(R):
+        return 0.5 * torch.sum(R * R if mask is None else R * R * mask,
+                               dim=-1)
+
     if C.shape[0] * p * q <= _BLOCK_ELEMS:
         R = D.to(Mc.dtype) - torch.sigmoid(C @ Bf.mT)
-        return 0.5 * torch.sum(R * R, dim=-1).reshape(*lead, p)
+        return half_sq(R).reshape(*lead, p)
     out = Mc.new_empty((C.shape[0], p))
     bs = rows_per_block(q)
     for c in range(C.shape[0]):
         for i in range(0, p, bs):
             R = D[i:i + bs].to(Mc.dtype) - torch.sigmoid(C[c, i:i + bs] @ Bf.mT)
-            out[c, i:i + bs] = 0.5 * torch.sum(R * R, dim=-1)
+            out[c, i:i + bs] = half_sq(R)
     return out.reshape(*lead, p)
 
 

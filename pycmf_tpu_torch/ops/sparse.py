@@ -135,6 +135,28 @@ def row_sq_norms(A: CsrMatrix) -> torch.Tensor:
     return _segment_sum(A.data * A.data, A)
 
 
+def masked_row_sq_norms(A, col_mask: torch.Tensor,
+                        use_pallas: bool = False) -> torch.Tensor:
+    """Per-row Σⱼ maskⱼ·aᵢⱼ² → (p,), squared at the mask's (factor) dtype
+    even for bf16 data: a column subsample of stochastic Newton enters
+    the line search's row norms as a mask (``solvers/newton.py``).
+
+    Counterpart of ``pycmf_tpu/ops/sparse.py:masked_row_sq_norms``. It is
+    the product of A's squared values with the mask, so under
+    ``use_pallas`` the CSR kernel (or, for a BlockEll A, ``bell_spmm``)
+    takes it: their fixed-order sums repeat bit for bit, where the plain
+    segment sum's ``index_add_`` on a card adds in no fixed order."""
+    sq = col_mask[:, None]
+    if isinstance(A, BlockEll):
+        from .kernels import bell as kbell
+
+        A2 = dataclasses.replace(A, blocks=A.blocks.to(col_mask.dtype) ** 2)
+        fn = kbell.bell_spmm if use_pallas else kbell.bell_spmm_ref
+        return fn(A2, sq)[:, 0]
+    A2 = dataclasses.replace(A, data=A.data.to(col_mask.dtype) ** 2)
+    return generic_matmul(A2, sq, use_pallas)[:, 0]
+
+
 def generic_matmul(A, B: torch.Tensor,
                    use_pallas: bool = False) -> torch.Tensor:
     """A @ B for dense or CSR A. Under ``use_pallas`` a CSR A goes through

@@ -48,13 +48,6 @@ class SolverConfig:
             raise ValueError("hessian_form must be 'gauss' or 'full'")
         if not (0.0 < self.sg_sample_ratio <= 1.0):
             raise ValueError("sg_sample_ratio must be in (0, 1]")
-        if self.sg_sample_ratio < 1.0:
-            raise NotImplementedError(
-                "sg_sample_ratio < 1 is not ported yet (ROADMAP A3: Newton "
-                "column sampling)")
-        if self.hessian_form != "gauss":
-            raise NotImplementedError(
-                "hessian_form='full' is not ported yet (ROADMAP A3)")
 
 
 class Hyper(NamedTuple):
@@ -150,8 +143,14 @@ class CudaBlockGraph:
         finally:
             self._caller.wait_stream(self.stream)
 
-    def capture(self, fn, outputs):
-        """Record fn(), which writes its results into ``outputs``."""
+    def capture(self, fn, outputs, generators=()):
+        """Record fn(), which writes its results into ``outputs`` and may
+        draw from ``generators`` (torch.Generators on this device). They
+        are registered with the graph first: each replay then draws at
+        the generator's offset and advances it, as the same calls made
+        eagerly would, and the capture itself advances none."""
+        for g in generators:
+            self.graph.register_generator_state(g)
         with torch.cuda.graph(self.graph, stream=self.stream):
             fn()
 
@@ -169,19 +168,23 @@ class CudaBlockGraph:
 class EagerBlockGraph:
     """CudaBlockGraph's stand-in for CPU tensors, with its contract:
     capture passes through fn once, as a capture does (the kernel wrappers
-    count what it records), and leaves ``outputs`` as they were (a capture
-    runs nothing); replay runs fn again with the wrappers' counts hidden (a
-    replay passes through no wrapper). Every block thus runs eagerly, and
-    the capture's pass costs one block more per fit."""
+    count what it records), and leaves ``outputs`` and ``generators`` as
+    they were (a capture runs nothing and draws nothing); replay runs fn
+    again with the wrappers' counts hidden (a replay passes through no
+    wrapper) and draws anew. Every block thus runs eagerly, and the
+    capture's pass costs one block more per fit."""
 
     def on_stream(self):
         return contextlib.nullcontext()
 
-    def capture(self, fn, outputs):
+    def capture(self, fn, outputs, generators=()):
         saved = [t.clone() for t in outputs]
+        states = [g.get_state() for g in generators]
         fn()
         for t, s in zip(outputs, saved):
             t.copy_(s)
+        for g, s in zip(generators, states):
+            g.set_state(s)
         self._fn = fn
 
     def replay(self):
@@ -209,8 +212,8 @@ def _capture_block(graph, block_fn, state, hyper, rng, n_steps: int, loss):
     """Capture one block of ``n_steps`` that reads and writes static
     copies of U, V and Z and writes its loss into a static 0-d tensor like
     ``loss``. Returns (the static state, the static loss, the launches one
-    replay makes). The block's rng is the one given (unused while
-    sg_sample_ratio = 1)."""
+    replay makes). ``rng``, the block's torch.Generator or None, is
+    registered with the graph (each replay draws anew)."""
     statics = [t.clone() for t in state[2:]]
     static_state = tuple(state[:2]) + tuple(statics)
     static_loss = torch.empty_like(loss)
@@ -222,7 +225,8 @@ def _capture_block(graph, block_fn, state, hyper, rng, n_steps: int, loss):
         static_loss.copy_(block_loss)
 
     before = policy.launch_counts()
-    graph.capture(body, statics + [static_loss])
+    graph.capture(body, statics + [static_loss],
+                  (rng,) if isinstance(rng, torch.Generator) else ())
     launches = policy.launches_since(before)
     policy.set_launch_counts(before)  # a capture launches nothing
     return static_state, static_loss, launches

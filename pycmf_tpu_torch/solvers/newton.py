@@ -1,11 +1,24 @@
-"""Batched row-wise Newton solver (full batch, Gauss-Newton Hessian).
+"""Batched row-wise Newton solver.
 
-Counterpart of the dense subset of ``pycmf_tpu/solvers/newton.py``. Per row
-of a factor M against its coupled terms (D, B, link), D ≈ f(M Bᵀ):
+Counterpart of the single-device subset of ``pycmf_tpu/solvers/newton.py``.
+Per row of a factor M against its coupled terms (D, B, link),
+D ≈ f(M Bᵀ):
 
     g = Σ Bᵀ[(f(B mᵢ) − dᵢ)⊙f′] + l1·sign(mᵢ) + l2·mᵢ
-    H = Σ Bᵀ diag(f′²) B + (l2 + hessian_pertubation)·I
+    H = Σ Bᵀ diag(w) B + (l2 + hessian_pertubation)·I
+        w = f′²                  (hessian_form='gauss')
+        w = f′² + (f(B mᵢ) − dᵢ)⊙f″  (hessian_form='full')
     mᵢ ← proj( mᵢ − step · H⁻¹ g ), step from the backtracking line search
+
+Sampling: with ``sg_sample_ratio`` < 1 each term's g, H and line-search
+objective sum over a uniform draw of s = ⌈ratio·q⌉ of its q columns, made
+anew per term and step, without rescaling (the reference's rule). Dense
+data gathers the drawn columns; CSR and BlockEll data keep them all and
+take the draw as a 0/1 column mask folded into B, which gives the same
+sums. The draws come from the fit's ``torch.Generator`` on the factors'
+device, in the order U's term, Z's term, V's terms, through
+:func:`draw_columns`: no host sync and a static size, so a CUDA graph of
+the step replays fresh draws.
 
 A linear term's Hessian BᵀB is shared by every row (one k×k Cholesky); a
 sigmoid term gives each row its own k×k system. U sees one term (X, V); Z
@@ -18,10 +31,13 @@ sees (Yᵀ, V); the shared V sees (Xᵀ, U) and (Y, Z). With ``use_pallas``:
   per-row Hessians in one pass over the data, the batched SPD solve, and
   every line-search candidate's objective in one more pass
   (``ops/kernels/sigmoid_newton.py``, ``ops/kernels/batched_solve.py``);
-- every per-row system goes through the batched SPD solve kernel;
+- every per-row Gauss-Newton system goes through the batched SPD solve
+  kernel (the full form's may be indefinite: an LU solve, as the
+  reference's ``jnp.linalg.solve``);
 - a linear term over sparse data forms D B through its BlockEll layout or
   the CSR kernel (``solvers/common.layout_spmm``); the fused U pass and the
-  fused sigmoid passes take dense data only.
+  fused sigmoid passes take dense data, the full batch and the
+  Gauss-Newton form only.
 """
 from __future__ import annotations
 
@@ -35,7 +51,7 @@ from ..ops.links import LINEAR
 from ..ops.losses import (penalty, reconstruction_term, sigmoid_sq_rows,
                           total_loss)
 from ..ops.matmul import gram, matmul
-from ..ops.sparse import is_sparse, row_sq_norms
+from ..ops.sparse import is_sparse, masked_row_sq_norms, row_sq_norms
 from .common import (Coupled, Hyper, SolverConfig, block_graph, layout_spmm,
                      run_solver_loop)
 
@@ -70,15 +86,83 @@ class _LinearCtx(NamedTuple):
 
 
 class _SigmoidCtx(NamedTuple):
-    """A dense sigmoid term's line search: φᵢ(m) = ½‖dᵢ − σ(B m)‖²."""
+    """A dense sigmoid term's line search: φᵢ(m) = ½‖dᵢ − σ(B m)‖², the
+    columns weighted by ``mask`` when there is one."""
 
     D: torch.Tensor
     B: torch.Tensor
+    mask: Optional[torch.Tensor] = None
 
 
-def _accumulate_term(M, term: Term, link: str, use_pallas: bool = False):
+def sample_size(q: int, ratio: float) -> int:
+    """Columns a term of q columns draws at ``sg_sample_ratio`` ratio:
+    ⌈ratio·q⌉, at least 1, a static size (the reference's formula)."""
+    return max(1, int(-(-ratio * q // 1)))
+
+
+def draw_columns(gen: torch.Generator, q: int, s: int) -> torch.Tensor:
+    """s distinct indices of range(q), uniform without replacement, in
+    ascending order, drawn from ``gen`` on its own device: random keys
+    and an argsort, so no host sync and a static shape (a CUDA graph
+    replays a fresh draw). The reference draws with
+    ``jax.random.choice``, which torch cannot reproduce; its tests hand
+    the port the reference's draws through this function."""
+    if not isinstance(gen, torch.Generator):
+        raise ValueError("sg_sample_ratio < 1 draws from a torch.Generator "
+                         f"on the factors' device, got {gen!r}")
+    keys = torch.rand(q, generator=gen, device=gen.device,
+                      dtype=torch.float64)
+    return torch.sort(torch.argsort(keys)[:s]).values
+
+
+def _sample_columns(gen, D, B, ratio: float):
+    """(D, B) restricted to a draw of their q columns (dense D:
+    ``index_select``); unchanged when the draw would take every column.
+    Reference: ``pycmf_tpu/solvers/newton.py:_sample_columns``."""
+    q = B.shape[0]
+    s = sample_size(q, ratio)
+    if s >= q:
+        return D, B
+    idx = draw_columns(gen, q, s)
+    return D.index_select(1, idx), B.index_select(0, idx)
+
+
+def sample_mask(gen, q: int, ratio: float, dtype):
+    """The same draw as :func:`_sample_columns` as a (q,) 0/1 mask, or
+    None when it would take every column. Sums over the drawn columns
+    equal the mask-weighted sums over all of them, which is how CSR and
+    BlockEll terms, whose columns are not gathered on the device, sample.
+    Reference: ``pycmf_tpu/solvers/newton.py:sample_mask``."""
+    s = sample_size(q, ratio)
+    if s >= q:
+        return None
+    idx = draw_columns(gen, q, s)
+    return torch.zeros(q, dtype=dtype, device=idx.device).index_fill_(
+        0, idx, 1)
+
+
+def _sample_term(gen, term: Term, ratio: float, dtype):
+    """(term, mask) of one sampled term (the reference's per-term draw,
+    ``pycmf_tpu/solvers/newton.py:360-381``). Dense D takes the gathered
+    columns; sparse D keeps its layout and returns the draw as a mask. The
+    caches (row_sq, DB, BtB) describe the full term and go (for sparse D
+    only when a mask is drawn, as in the reference)."""
+    D, B = term.D, term.B
+    if is_sparse(D):
+        mask = sample_mask(gen, B.shape[0], ratio, dtype)
+        if mask is None:
+            return term, None
+        return Term(D, B, layout=term.layout), mask
+    D, B = _sample_columns(gen, D, B, ratio)
+    return Term(D, B), None
+
+
+def _accumulate_term(M, term: Term, link: str, use_pallas: bool = False,
+                     hessian_form: str = "gauss", mask=None):
     """(G_term (p, k), H_shared (k, k) | None, H_rows (p, k, k) | None,
-    line-search ctx) of one term."""
+    line-search ctx) of one term; ``mask``: an optional (q,) 0/1 column
+    mask (a sampled sparse term). Reference:
+    ``pycmf_tpu/solvers/newton.py:_accumulate_term``."""
     D, B, row_sq, db, btb, layout = term
     if link != LINEAR:
         if is_sparse(D):
@@ -88,8 +172,24 @@ def _accumulate_term(M, term: Term, link: str, use_pallas: bool = False):
                 "Newton sigmoid-link terms need dense D (the update "
                 "materializes sigmoid predictions per row block); the "
                 "streamed layout is ROADMAP A8")
-        G, H_rows = sigmoid_newton.sigmoid_gh_rows(D, M, B)
-        return G, None, H_rows, _SigmoidCtx(D, B)
+        G, H_rows = sigmoid_newton.sigmoid_gh_rows(D, M, B, hessian_form,
+                                                   mask)
+        return G, None, H_rows, _SigmoidCtx(D, B, mask)
+    if mask is not None:
+        # the mask folds into B: zeroed rows drop out of BᵀB and D B as
+        # gathering the drawn columns would; the row norms take the mask
+        mv = mask.to(M.dtype)
+        Bm = B * mask[:, None].to(B.dtype)
+        BtB = gram(Bm)
+        if is_sparse(D):
+            DB = layout_spmm(D, layout, Bm, use_pallas)
+            row_sq = masked_row_sq_norms(D, mv, use_pallas)
+        else:
+            DB = matmul(D, Bm)
+            Df = D.to(M.dtype)
+            row_sq = (Df * Df) @ mv
+        G = matmul(M, BtB) - DB
+        return G, BtB, None, _LinearCtx(DB, BtB, row_sq)
     BtB = gram(B) if btb is None else btb
     DB = layout_spmm(D, layout, B, use_pallas) if db is None else db
     G = matmul(M, BtB) - DB
@@ -106,7 +206,7 @@ def _phi_term(Mc, ctx) -> torch.Tensor:
     """Per-row residual objective ½‖dᵢ − f(B mᵢ)‖² for a candidate factor
     (rows on the second-to-last axis, any leading candidate axes)."""
     if isinstance(ctx, _SigmoidCtx):
-        return sigmoid_sq_rows(ctx.D, Mc, ctx.B)
+        return sigmoid_sq_rows(ctx.D, Mc, ctx.B, ctx.mask)
     quad = torch.sum(matmul(Mc, ctx.BtB) * Mc, dim=-1)
     return 0.5 * (ctx.row_sq - 2.0 * torch.sum(ctx.DB * Mc, dim=-1) + quad)
 
@@ -120,15 +220,18 @@ def _cholesky(H):
     return torch.where(info > 0, torch.nan, L)
 
 
-def _solve_direction(H_shared, H_rows, G, use_pallas: bool):
+def _solve_direction(H_shared, H_rows, G, use_pallas: bool,
+                     spd: bool = True):
     """d = H⁻¹ g for all rows. H_rows None: one shared k×k SPD system (all
-    links linear), one Cholesky. Else per-row systems H_rows + H_shared,
-    SPD in the Gauss-Newton form: the batched SPD solve kernel under
-    use_pallas, which adds H_shared as it reads each system, else an LU
-    solve of the sum (torch.linalg.solve_ex: no host sync)."""
+    links linear), one Cholesky. Else per-row systems H_rows + H_shared:
+    when they are SPD (``spd``: the Gauss-Newton form) the batched SPD
+    solve kernel under use_pallas, which adds H_shared as it reads each
+    system; otherwise (use_pallas off, or the full form, whose systems may
+    be indefinite) an LU solve of the sum (torch.linalg.solve_ex: no host
+    sync). Reference: ``pycmf_tpu/solvers/newton.py:_solve_direction``."""
     if H_rows is None:
         return torch.cholesky_solve(G.mT, _cholesky(H_shared)).mT
-    if use_pallas:
+    if use_pallas and spd:
         return batched_solve.batched_spd_solve(H_rows, G, H_shared)
     return torch.linalg.solve_ex(H_rows + H_shared, G[..., None])[0][..., 0]
 
@@ -144,20 +247,14 @@ def newton_update_factor(rng, M, terms, links, hyper: Hyper, *,
                          hessian_form: str = "gauss",
                          sample_ratio: float = 1.0, use_pallas: bool = False,
                          return_phi: bool = False):
-    """One batched Newton update of factor M against its coupled terms.
+    """One batched Newton update of factor M against its coupled terms
+    (reference: ``pycmf_tpu/solvers/newton.py:newton_update_factor``).
 
-    rng: a torch.Generator or None; unused at sample_ratio = 1 (column
-    sampling, which would draw from it, is ROADMAP A3).
+    rng: the fit's torch.Generator, on M's device; each term draws its
+    columns from it in turn when sample_ratio < 1 (unused otherwise).
     return_phi: additionally return the per-row φ at the selected value
     (see _aux_loss_phi); needs trials >= 1.
     """
-    if sample_ratio < 1.0:
-        raise NotImplementedError(
-            "sg_sample_ratio < 1 is not ported yet (ROADMAP A3: Newton "
-            "column sampling)")
-    if hessian_form != "gauss":
-        raise NotImplementedError(
-            "hessian_form='full' is not ported yet (ROADMAP A3)")
     k = M.shape[1]
     l1, l2 = hyper.l1, hyper.l2
     G = l1 * torch.sign(M) + l2 * M
@@ -167,14 +264,19 @@ def newton_update_factor(rng, M, terms, links, hyper: Hyper, *,
     ctxs = []
     for term, link in zip(terms, links):
         term = term if isinstance(term, Term) else Term(*term)
-        G_t, H_sh, H_rw, ctx = _accumulate_term(M, term, link, use_pallas)
+        mask = None
+        if sample_ratio < 1.0:
+            term, mask = _sample_term(rng, term, sample_ratio, M.dtype)
+        G_t, H_sh, H_rw, ctx = _accumulate_term(M, term, link, use_pallas,
+                                                hessian_form, mask)
         G = G + G_t
         if H_sh is not None:
             H_shared = H_shared + H_sh
         if H_rw is not None:
             H_rows = H_rw if H_rows is None else H_rows + H_rw
         ctxs.append(ctx)
-    d = _solve_direction(H_shared, H_rows, G, use_pallas)
+    d = _solve_direction(H_shared, H_rows, G, use_pallas,
+                         spd=hessian_form == "gauss")
 
     def phi(Mc):
         out = l1 * torch.sum(torch.abs(Mc), dim=-1) \
@@ -445,18 +547,35 @@ def _loss_core(cfg: SolverConfig):
     return loss_fn
 
 
+def _per_row_systems(cfg: SolverConfig) -> bool:
+    """Whether a step solves per-row systems (a sigmoid-linked term)."""
+    return ((cfg.x_link != LINEAR and (cfg.update_U or cfg.update_V))
+            or (cfg.has_Y and cfg.y_link != LINEAR
+                and (cfg.update_Z or cfg.update_V)))
+
+
 def captures_on_card(cfg: SolverConfig, k: int) -> bool:
     """Whether the Newton step can be captured in a CUDA graph on the
-    card: not when it reaches a library's batched solve, that is per-row
-    systems (a sigmoid-linked term) solved without K5 (use_pallas off, or
-    k > batched_solve.MAX_K). That solve is MAGMA's batched LU or Cholesky,
-    which allocates device memory inside the call, and a capture refuses
-    that (ROADMAP B5)."""
-    per_row = ((cfg.x_link != LINEAR and (cfg.update_U or cfg.update_V))
-               or (cfg.has_Y and cfg.y_link != LINEAR
-                   and (cfg.update_Z or cfg.update_V)))
-    return not (per_row and (not cfg.use_pallas
-                             or k > batched_solve.MAX_K))
+    card: not when its per-row systems (a sigmoid-linked term) reach a
+    library's batched solve instead of K5, that is with use_pallas off,
+    with k > batched_solve.MAX_K (64), or in the full Hessian form (LU:
+    its systems may be indefinite). That solve is MAGMA's batched LU or
+    Cholesky, which allocates device memory inside the call, and a capture
+    refuses that (ROADMAP C3)."""
+    return not _per_row_systems(cfg) or (
+        cfg.use_pallas and k <= batched_solve.MAX_K
+        and cfg.hessian_form == "gauss")
+
+
+def _uncapturable(cfg: SolverConfig, k: int) -> str:
+    """Why captures_on_card refuses (cfg, k)."""
+    if not cfg.use_pallas:
+        return "use_pallas=False solves them by torch.linalg.solve_ex"
+    if cfg.hessian_form != "gauss":
+        return ("hessian_form='full' solves them by LU "
+                "(torch.linalg.solve_ex: they may be indefinite)")
+    return (f"k = {k} > {batched_solve.MAX_K} solves them by "
+            "torch.linalg.solve_ex")
 
 
 def _make_block(cfg: SolverConfig, aux):
@@ -487,21 +606,25 @@ def run_newton(X: Coupled, Y, U0, V0, Z0, cfg: SolverConfig, hyper: Hyper,
                rng: Optional[torch.Generator] = None, *, max_iter: int = 200,
                tol: float = 1e-4, eval_every: int = 10, verbose: int = 0,
                loop: str = "host"):
-    """Run the Newton solver (loop semantics as in run_mu). Under the
-    device loop the captured block holds ``rng`` fixed, which is right
-    while nothing draws from it (sg_sample_ratio = 1)."""
+    """Run the Newton solver (loop semantics as in run_mu). ``rng``: the
+    fit's torch.Generator on the factors' device, from which a sampled
+    step (sg_sample_ratio < 1) draws its columns; the device loop
+    registers it with its graph, so each replay draws anew and the fit
+    leaves it where the host loop does."""
     graph = block_graph(loop, U0)
     if U0.is_cuda and graph is not None \
             and not captures_on_card(cfg, U0.shape[1]):
         raise NotImplementedError(
             "loop='device' cannot capture this Newton fit on the card: its "
-            "per-row systems (a sigmoid link) take a library's batched solve "
-            "(use_pallas off, or k > 32), which allocates device memory "
-            "inside the call (ROADMAP B5: a K5 route for k > 32); use "
-            "loop='host' or 'auto'")
+            "per-row systems (a sigmoid link) take a library's batched "
+            f"solve ({_uncapturable(cfg, U0.shape[1])}), which allocates "
+            "device memory inside the call (ROADMAP C3); use loop='host' "
+            "or 'auto'")
     block = _make_block(cfg, _aux_kind(cfg, X, U0))
     X, Y = _with_transposes(cfg, X, Y, V0, Z0)
     state = (X, Y, U0, V0, Z0)
+    if cfg.sg_sample_ratio >= 1.0:
+        rng = None  # nothing draws: no generator for the graph to carry
     state, n_iter, losses, iters, times = run_solver_loop(
         block, state, hyper, rng, max_iter=max_iter, tol=tol,
         eval_every=eval_every, verbose=verbose,

@@ -271,7 +271,6 @@ def test_import_pulls_in_no_jax():
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(solver="newton", sg_sample_ratio=0.5), "ROADMAP A3"),
     (dict(n_shards=2), "ROADMAP A10"),
     (dict(data_dtype="fp8"), "ROADMAP A9"),
     (dict(sparse_mode="chunked"), "ROADMAP A8")])

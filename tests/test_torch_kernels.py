@@ -355,7 +355,8 @@ def _spd(rng, p, k):
 @pytest.mark.parametrize("p,k", [(1, 3), (5, 3), (130, 8), (1000, 20),
                                  (7, 40)])
 def test_batched_solve_f64_matches_pallas(rng, p, k):
-    """k = 40 > 32: both packages take a generic LU solve."""
+    """k = 40 > 32: the reference takes a generic LU solve, the port's
+    plain version Cholesky (the card's wide route)."""
     H, G = _spd(rng, p, k)
     want = j_solve(jnp.asarray(H), jnp.asarray(G))
     got = batched_solve.batched_spd_solve(_t(H), _t(G))
@@ -398,6 +399,20 @@ def test_batched_solve_with_shared_equals_solve_of_sum(rng, dtype, p, k):
         got = fn(_t(H, dtype), _t(G, dtype), _t(Hs, dtype))
         want = fn(_t(H, dtype) + _t(Hs, dtype), _t(G, dtype))
         assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("k", [33, 40, 64])
+def test_batched_solve_ref_wide_k_matches_reference(rng, k):
+    """32 < k <= 64, the card's wide route: the plain version (Cholesky)
+    against the reference, which takes jnp.linalg.solve (LU) above 32;
+    SPD systems, f64 rtol 1e-9."""
+    H, G = _spd(rng, 9, k)
+    Hs = _spd(rng, 1, k)[0][0]
+    want = j_solve(jnp.asarray(H + Hs), jnp.asarray(G))
+    got = batched_solve.batched_spd_solve_ref(_t(H), _t(G), _t(Hs))
+    np.testing.assert_allclose(_np(got), _np(want), rtol=1e-9, atol=1e-12)
+    assert torch.equal(batched_solve.batched_spd_solve(_t(H), _t(G), _t(Hs)),
+                       got)
 
 
 @pytest.mark.parametrize("p,k", [(1, 3), (40, 8), (300, 20), (5, 40)])
@@ -501,6 +516,27 @@ def test_lean_launch_refuses_float64_naming_c1(lean_entry, kernel):
     with pytest.raises(NotImplementedError, match="ROADMAP C1"):
         call()
     assert lean_entry.calls == []
+
+
+@pytest.mark.parametrize("k,route", [(32, "batched_spd_solve"),
+                                     (33, "batched_spd_solve_wide"),
+                                     (64, "batched_spd_solve_wide"),
+                                     (65, None)])
+def test_batched_solve_dispatch_boundary(lean_entry, k, route):
+    """On the card k <= 64 launches the kernel (its wide route above 32,
+    counted apart); k = 65 takes torch.linalg.solve_ex on the sum, as the
+    reference takes jnp.linalg.solve, and launches nothing."""
+    H = torch.eye(k).expand(3, k, k).contiguous()
+    G, Hs = torch.rand(3, k), torch.eye(k)
+    policy.reset_launch_counts()
+    out = batched_solve.batched_spd_solve(H, G, Hs)
+    counts = {n: c for n, c in policy.launch_counts().items() if c}
+    if route is None:
+        assert lean_entry.calls == [] and counts == {}
+        torch.testing.assert_close(out, G / 2)
+    else:
+        assert len(lean_entry.calls) == 1 and counts == {route: 1}
+        assert lean_entry.calls[0][4] == k  # (H, Hs, G, p, k, out, dev, st)
 
 
 def test_mu_update_tile_rows_cover_each_row_once():

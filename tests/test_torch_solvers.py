@@ -167,14 +167,6 @@ def test_hyper_rounds_like_reference_f32():
     assert th.hessian_pertubation == float(jh.hessian_pertubation)
 
 
-@pytest.mark.parametrize("kw,match", [
-    (dict(sg_sample_ratio=0.5), "ROADMAP A3"),
-    (dict(hessian_form="full"), "ROADMAP A3")])
-def test_out_of_slice_configs_raise(kw, match):
-    with pytest.raises(NotImplementedError, match=match):
-        tcommon.SolverConfig(**kw)
-
-
 def test_invalid_configs_raise_value_error():
     with pytest.raises(ValueError):
         tcommon.SolverConfig(x_link="relu")
