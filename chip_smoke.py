@@ -8,7 +8,8 @@ Run from the repository root, with no arguments:
 Phases (any failure exits non-zero and prints no ok line):
  1. device: the card's name and power limit (nvidia-smi);
  2. build: the seven CUDA kernel libraries (eleven kernels: K5 has a
-    wide route for 32 < k <= 64), from pycmf_tpu_torch/csrc, each nvcc
+    wide route for 32 < k <= 64, a block route for k > 64 and an LU route
+    for the full Hessian form), from pycmf_tpu_torch/csrc, each nvcc
     started at once;
  3. each kernel against its plain PyTorch version on the same inputs, with
     CUDA-event times and the card's lower bound for the same work:
@@ -21,7 +22,11 @@ Phases (any failure exits non-zero and prints no ok line):
     {1, 7, 20, 32, 33, 64, 100}, bf16 and f32, trials 0 and 8,
     non_negative both ways); K5 at 11314 and 30000 systems of 20 x 20,
     and its wide route at k in {33, 40, 64}, whole and with H_shared
-    apart, beside torch.linalg.solve, and K5 and
+    apart, beside torch.linalg.solve; K5's block route at k in {65, 100,
+    128} (11314 systems) and at the largest k kept in shared memory and
+    one above (2048 systems, a global scratch), its LU route at k in {20,
+    40, 100} on SPD and indefinite systems (relative Frobenius 1e-3 and
+    residual 1e-4), a singular system's row NaN; K5 and
     K6 at the edges of their tiles (solve_update_edges); csr_spmm (X V and
     X^T U) and csr_rowdots on the 20NG surrogate's CSR and an
     RCV1-v2-shaped one (47236 x 804414, 60M nonzeros), beside
@@ -49,29 +54,44 @@ Phases (any failure exits non-zero and prints no ok line):
     path S4, BASELINE.json config #4 (tall |N(0,1)| X 20000 x 1000, Y
     1000 x 200, f32, sg_sample_ratio=0.25); path SD (path D with
     sg_sample_ratio=0.25: csr_spmm on B·mask, masked row norms); path H
-    (path A with hessian_form='full': LU per-row solves, the host loop
-    under 'auto', loop='device' raising naming ROADMAP C3); each sampled
-    fit's exact float64 loss at its end; then MU, Newton linear, paths A
-    to D, F, S and SD and path A at k = 40 under torch.profiler
+    (path A with hessian_form='full': K5's LU route, the device loop;
+    with use_pallas=False loop='device' raises naming ROADMAP C3); path A
+    at k = 100 (K5's block route, the device loop); each sampled fit's
+    exact float64 loss at its end; the chunked layout
+    (sparse_mode='chunked'): path K (the MU cell, 3 chunks: K1 per chunk),
+    KA (path A: K2 per chunk), KB (path B with X and Y chunked: K3, K5, K4
+    per chunk of X), KS (KA sampled at 0.25), each with its peak device
+    memory; path KR (the RCV1 surrogate as doc x term, 804414 x 47236
+    bf16, MU, 10 iterations, chunked against CSR: ms/iter, device ms/iter,
+    idle share, the layout's padding) and path KRS (its binarised form,
+    sigmoid X under 'auto', which must resolve to the chunked layout,
+    Newton, 2 iterations: s/iter, launches, peak memory); then MU, Newton
+    linear, paths A to D, F, S and SD and path A at k = 40 under
+    torch.profiler
     (device time by kernel, idle share, launches per iteration, and on
     path F bell_spmm's share);
  7c. the device loop (loop='device': one CUDA graph of an eval block,
     captured once per fit, replayed per block; what loop='auto' runs on
     the card, so phases 4-7 run it too) against the host loop on MU,
     Newton linear and paths A, C, D, F, S, S4 and SD and the MU cell and
-    path A at k = 40: the same n_iter_ and eval points, losses within 1e-6
-    relative, factors within 1e-5, equal launch counts (a sampled fit
-    equal bit for bit only if each replay draws anew); each loop's
-    ms/iter (least of 3 fits), capture time, device ms/iter, idle share
+    path A at k = 40, and paths H, A at k = 100, K, KA, KB and KS (bit
+    for bit required), two fits per loop: the same n_iter_ and eval
+    points, losses within 1e-6 relative, factors within 1e-5, equal
+    launch counts (a sampled fit equal bit for bit only if each replay
+    draws anew); each loop's
+    ms/iter (least of 2 fits), capture time, device ms/iter, idle share
     and host launch calls per block and per replay; two fits of path S
     with one random_state equal, with another not;
  8. kernel path against plain path on the card (the plain fits on the host
     loop: a capture refuses the plain batched solve): after 20 iterations,
     checked to 1e-3 on paths B, C, D and F and printed for MU, Newton
     linear and path A, whose dense bf16 trajectories are chaotic; those,
-    and the k = 40 fits, and paths S and SD (both paths of a step making
-    the same draws), step by step from shared factors (step_agreement:
-    factors 1e-4 (MU) or 1e-3 (Newton), exact loss 1e-6); and the final
+    and the k = 40 fits, paths S and SD (both paths of a step making
+    the same draws) and the chunked paths K and KA, step by step from
+    shared factors (step_agreement: factors 1e-4 (MU) or 1e-3 (Newton),
+    exact loss 1e-6); one step of path K against one dense MU step on the
+    same data (factors 1e-4); K5's block route on path A's own systems at
+    k = 100, call by call against its plain version (1e-3); and the final
     losses of MU, path A, path C and path D against the NumPy baselines
     (2% guard);
  9. transform of 1000 new rows, dense (MU) and CSR (path C).
@@ -92,7 +112,7 @@ import subprocess
 import sys
 import time
 from concurrent.futures import ProcessPoolExecutor
-from contextlib import ExitStack
+from contextlib import ExitStack, contextmanager
 from unittest import mock
 
 N, M, K = 30000, 11314, 20
@@ -185,6 +205,20 @@ def bound(nbytes: float, flops: float, peak: float) -> tuple:
 
 def rel_fro(a, b) -> float:
     return float((a - b).double().norm() / b.double().norm())
+
+
+def factor_gap(got, want) -> float:
+    """The largest ‖a − b‖ / ‖b‖ over pairs of host factors, in float64:
+    0 for a pair both all zero (a step can zero Z of a sigmoid Y under
+    non-negative factors), inf for a zero b beside a nonzero a, and NaN
+    when a factor holds a NaN, so that a bar compared with it fails."""
+    import numpy as np
+
+    gaps = []
+    for a, b in zip(got, want):
+        d, n = np.linalg.norm(a - b), np.linalg.norm(b)
+        gaps.append(d / n if n else (0.0 if d == 0 else math.inf))
+    return float(np.max(gaps))
 
 
 def nan_filled(fn):
@@ -861,6 +895,151 @@ def k5_wide_phase(check, torch, batched_solve):
     return rec
 
 
+BLOCK_K = (65, 100, 128)  # K5's block route (k > 64) at 11314 systems
+LU_K = (20, 40, 100)      # its LU route (the full Hessian form)
+
+
+def gn_systems(torch, rng, p, k):
+    """(H_rows, H_shared, G): Gauss-Newton Hessians of a sigmoid term,
+    H_rows = Bᵀ diag(σ′²) B over 2048 columns (N(0, 0.3²) factors), the
+    solver's damping 1.2 I, G ~ N(0, 1) (k5_wide_phase's systems)."""
+    import numpy as np
+
+    dev = torch.device("cuda")
+    B = torch.from_numpy(0.3 * rng.randn(2048, k).astype(np.float32)).to(dev)
+    Mf = torch.from_numpy(0.3 * rng.randn(p, k).astype(np.float32)).to(dev)
+    P = torch.sigmoid(Mf @ B.T)
+    Hr = torch.empty((p, k * k), device=dev)
+    for i in range(0, p, 4096):  # (rows, k²) blocks of the product
+        Hr[i:i + 4096] = ((P[i:i + 4096] * (1 - P[i:i + 4096])) ** 2) \
+            @ (B[:, :, None] * B[:, None, :]).reshape(2048, k * k)
+    G = torch.from_numpy(rng.randn(p, k).astype(np.float32)).to(dev)
+    return Hr.view(p, k, k), 1.2 * torch.eye(k, device=dev), G
+
+
+def indefinite_systems(torch, rng, p, k):
+    """(H_rows, H_shared, G): Q diag(λ) Qᵀ - 0.2 I with |λ| in [1, 3] and
+    each sign flipped at random (λ₀ < 0), plus H_shared = 0.2 I: symmetric,
+    indefinite, cond <= 3."""
+    import numpy as np
+
+    dev = torch.device("cuda")
+    Q = torch.linalg.qr(torch.from_numpy(
+        rng.randn(p, k, k).astype(np.float32)).to(dev))[0]
+    lam = (1.0 + 2.0 * rng.rand(p, k)) * np.where(rng.rand(p, k) < 0.5,
+                                                   -1.0, 1.0)
+    lam[:, 0] = -np.abs(lam[:, 0])
+    lam = torch.from_numpy(lam.astype(np.float32)).to(dev)
+    eye = torch.eye(k, device=dev)
+    H = (Q * lam[:, None, :]) @ Q.mT - 0.2 * eye
+    G = torch.from_numpy(rng.randn(p, k).astype(np.float32)).to(dev)
+    return H.contiguous(), 0.2 * eye, G
+
+
+def k5_block_lu_phase(check, torch, batched_solve):
+    """Phase 3, K5's block route (one CTA per system, k > 64: the system in
+    shared memory up to block_max_k, above it in a global scratch slot)
+    at k in BLOCK_K on 11314 systems and at block_max_k and one above on
+    2048, and its LU route (partial pivoting: the full Hessian form) at k
+    in LU_K on 11314 Gauss-Newton (SPD) and indefinite systems. Each
+    against its plain version (relative Frobenius <= 1e-3, K5's bar),
+    output NaN-filled, two calls bitwise equal, H_shared apart bit for bit
+    equal to the solve of the sum; the LU route also by its residual
+    ||(H + H_s) d - G|| / ||G|| <= 1e-4 (float64, the systems' cond <~
+    10). Edges at p = 33: one system made singular (block: its sum -I;
+    LU: all zeros) gives an all-NaN row and leaves every other row
+    unchanged. Each timed beside its bound and torch.linalg.solve, L2
+    flushed."""
+    import numpy as np
+
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(SEED + 8)
+    kmax = batched_solve.block_max_k(0)
+    log(f"phase 3: K5 block/LU routes, block_max_k = {kmax} (the largest k "
+        f"kept in one CTA's shared memory)")
+    flush_buf = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    flush = flush_buf.zero_
+    rec = {"block_max_k": kmax}
+    cases = [("batched_spd_solve_block", M, k, "spd") for k in BLOCK_K]
+    cases += [("batched_spd_solve_block", 2048, k, "spd")
+              for k in (kmax, kmax + 1)]
+    cases += [("batched_lu_solve", M, k, kind) for k in LU_K
+              for kind in ("spd", "indefinite")]
+    for name, p, k, kind in cases:
+        lu = name == "batched_lu_solve"
+        solve = batched_solve.batched_lu_solve if lu \
+            else batched_solve.batched_spd_solve
+        ref = batched_solve.batched_lu_solve_ref if lu \
+            else batched_solve.batched_spd_solve_ref
+        Hr, Hs, G = (indefinite_systems if kind == "indefinite"
+                     else gn_systems)(torch, rng, p, k)
+        H = Hr + Hs
+        tag = f"{name}[p={p} k={k} {kind}]"
+        d = nan_filled(lambda: solve(H, G))
+        again = solve(H, G)
+        d_sh = solve(Hr, G, Hs)
+        torch.cuda.synchronize()
+        dr = ref(H, G)
+        e = rel_fro(d, dr)
+        check(e <= 1e-3 and bits_equal(torch, d, again)
+              and bool(torch.isfinite(d).all()),
+              f"{tag} d rel Frobenius {e:.3g} <= 1e-3 (output NaN-filled), "
+              f"finite, two calls bitwise equal")
+        check(bits_equal(torch, d, d_sh),
+              f"{tag} with H_shared equals the solve of H + H_shared bit for "
+              f"bit")
+        res = None
+        if lu:
+            r = (H.double() @ d.double()[..., None])[..., 0] - G.double()
+            res = float(r.norm() / G.double().norm())
+            check(res <= 1e-4, f"{tag} residual ||Hd - G|| / ||G|| "
+                  f"{res:.3g} <= 1e-4")
+        flops = k ** 3 * (2.0 if lu else 1.0) / 3.0 + 2.0 * k * k
+        b5 = bound(4.0 * p * (k * k + 2 * k), p * flops, F32_FLOPS)
+
+        def kern():
+            return solve(Hr, G, Hs)
+
+        def library():
+            return torch.linalg.solve(H, G[..., None])
+        reps = 10 if k <= 128 else 3
+        t5 = time_ms(kern, reps=reps, flush=flush)
+        dt5 = device_ms(kern, reps=reps, flush=flush)
+        p5 = time_ms(lambda: ref(Hr, G, Hs), reps=3, flush=flush)
+        lib = time_ms(library, reps=3, flush=flush)
+        dlib = device_ms(library, reps=3, flush=flush)
+        log(f"  {tag} kernel {t5:.4f} ms (device {dt5:.4f}), plain "
+            f"{p5:.4f} ms, torch.linalg.solve {lib:.4f} ms (device "
+            f"{dlib:.4f}), bound {b5[0]:.4f} ms ({b5[1]})")
+        rec[(name, p, k) if not lu else (name, p, k, kind)] = dict(
+            max_abs_err=float((d - dr).abs().max()), ms=t5, device_ms=dt5,
+            plain_ms=p5, library_ms=lib, library_device_ms=dlib,
+            bound_ms=b5[0], bound_by=b5[1], residual=res)
+        del Hr, Hs, G, H, d, again, d_sh, dr
+        torch.cuda.empty_cache()
+    # edges: one singular system among 33
+    for name, k in (("batched_spd_solve_block", 65),
+                    ("batched_spd_solve_block", kmax + 1),
+                    ("batched_lu_solve", 7), ("batched_lu_solve", 100)):
+        lu = name == "batched_lu_solve"
+        solve = batched_solve.batched_lu_solve if lu \
+            else batched_solve.batched_spd_solve
+        Hr, Hs, G = gn_systems(torch, rng, 33, k)
+        H = (Hr + Hs).contiguous()
+        H[16] = 0.0 if lu else -torch.eye(k, device=dev)
+        d = nan_filled(lambda: solve(H, G))
+        ok = [r for r in range(33) if r != 16]
+        alone = solve(H[ok].contiguous(), G[ok].contiguous())
+        torch.cuda.synchronize()
+        check(bool(torch.isnan(d[16]).all()) and bits_equal(torch, d[ok],
+                                                             alone),
+              f"{name}[edge p=33 k={k}] singular system's row all NaN, the "
+              f"others as solved without it, bit for bit")
+    del flush_buf
+    torch.cuda.empty_cache()
+    return rec
+
+
 def bits_equal(torch, a, b) -> bool:
     """a and b hold the same bits (NaN included)."""
     return a.shape == b.shape and bool(torch.equal(a.view(torch.int32),
@@ -1255,7 +1434,8 @@ def run_fit(check, make_est, X, Y, minimums, label):
         f"{est.reconstruction_err_:.9g}, {ms_iter:.4f} ms/iter (solver "
         f"loop), fit wall {wall:.3f} s incl. ingest; launches {counts}")
     return est, dict(n_iter=est.n_iter_, loss=est.reconstruction_err_,
-                     ms_per_iter=ms_iter, launches=counts, wall_s=wall)
+                     ms_per_iter=ms_iter, launches=counts, wall_s=wall,
+                     blocks=list(est.step_times_))
 
 
 def fit_phase(check, make_est, X, Y, minimums, label, exact_loss):
@@ -1419,21 +1599,10 @@ def cached_ingest():
     return mock.patch.object(cmf, "as_coupled", ingest)
 
 
-def loop_phase(check, torch, make_est, X, Y, label):
-    """The device loop (a CUDA graph of one eval block, captured once per
-    fit) against the host loop on one path, both from the estimator's
-    init: an untimed warm-up fit, then three host and three device fits
-    in the order H D, D H, H D. Each device fit must capture once when a
-    second full block runs (once on every path but one that stops after
-    its first block) and agree with the host fit
-    beside it: the same n_iter_ and loss_iters_, each loss within 1e-6
-    relative, the factors within phase 3's relative Frobenius bar of 1e-5,
-    the same launches of every kernel. Then one fit of each loop under
-    torch.profiler. Returns the record of both loops."""
-    import numpy as np
-
-    from pycmf_tpu_torch.ops.kernels.policy import (launch_counts,
-                                                    reset_launch_counts)
+@contextmanager
+def timed_captures():
+    """A patch of the device loop's capture that records the seconds each
+    capture of a block's graph takes (a list, in capture order)."""
     from pycmf_tpu_torch.solvers.common import CudaBlockGraph
 
     captures, capture = [], CudaBlockGraph.capture
@@ -1442,12 +1611,33 @@ def loop_phase(check, torch, make_est, X, Y, label):
         t0 = time.perf_counter()
         capture(self, fn, outputs, *generators)
         captures.append(time.perf_counter() - t0)
+    with mock.patch.object(CudaBlockGraph, "capture", timed_capture):
+        yield captures
+
+
+def loop_phase(check, torch, make_est, X, Y, label, bits=False):
+    """The device loop (a CUDA graph of one eval block, captured once per
+    fit) against the host loop on one path, both from the estimator's
+    init: an untimed warm-up fit, then two host and two device fits in the
+    order H D, D H. Each device fit must capture once
+    when a second full block runs (once on every path but one that stops
+    after its first block) and agree with the host fit
+    beside it: the same n_iter_ and loss_iters_, each loss within 1e-6
+    relative, the factors within phase 3's relative Frobenius bar of 1e-5,
+    the same launches of every kernel, and with ``bits`` the same bits.
+    Then one fit of each loop under torch.profiler; the graph's nodes are
+    read as the device operations of one replayed block (the profiler's
+    device launches per iteration times eval_every). Returns the record of
+    both loops."""
+    import numpy as np
+
+    from pycmf_tpu_torch.ops.kernels.policy import (launch_counts,
+                                                    reset_launch_counts)
 
     fits = {"host": [], "device": []}
-    with mock.patch.object(CudaBlockGraph, "capture", timed_capture):
+    with timed_captures() as captures:
         make_est().set_params(loop="device").fit(X, Y)
-        for order in (("host", "device"), ("device", "host"),
-                      ("host", "device")):
+        for order in (("host", "device"), ("device", "host")):
             for loop in order:
                 est = make_est().set_params(loop=loop)
                 before = len(captures)
@@ -1483,17 +1673,16 @@ def loop_phase(check, torch, make_est, X, Y, label):
         bit = bit and he.loss_history_ == de.loss_history_ and all(
             np.array_equal(getattr(he, f), getattr(de, f))
             for f in ("U_", "V_", "Z_"))
-        fro.append(max(float(np.linalg.norm(getattr(de, f) - getattr(he, f))
-                             / np.linalg.norm(getattr(he, f)))
-                       for f in ("U_", "V_", "Z_")))
+        fro.append(factor_gap([de.U_, de.V_, de.Z_], [he.U_, he.V_, he.Z_]))
         check(h["counts"] == d["counts"],
               f"{label}: launch counts, device loop {d['counts']} == host "
               f"loop {h['counts']}")
-    check(max(gaps) <= 1e-6 and max(fro) <= 1e-5,
-          f"{label}: device vs host loop, loss max rel gap {max(gaps):.3g} "
-          f"<= 1e-6, factors rel Frobenius max {max(fro):.3g} <= 1e-5, "
-          f"bit for bit equal: {bit}")
-    rec = dict(loss_max_rel_gap=max(gaps), factor_rel_fro=max(fro),
+    gap, far = float(np.max(gaps)), float(np.max(fro))
+    check(gap <= 1e-6 and far <= 1e-5 and (bit or not bits),
+          f"{label}: device vs host loop, loss max rel gap {gap:.3g} "
+          f"<= 1e-6, factors rel Frobenius max {far:.3g} <= 1e-5, "
+          f"bit for bit equal: {bit}" + (" (required)" if bits else ""))
+    rec = dict(loss_max_rel_gap=gap, factor_rel_fro=far,
                bit_equal=bit, n_iter=fits["host"][0]["est"].n_iter_,
                eval_every=fits["host"][0]["est"].eval_every)
     for loop, runs in fits.items():
@@ -1510,13 +1699,16 @@ def loop_phase(check, torch, make_est, X, Y, label):
             f"{label}, {loop} loop")
         rec[loop] = r
     d, h = rec["device"], rec["host"]
+    d["graph_nodes"] = d["profile"]["device_launches_per_iter"] \
+        * rec["eval_every"]
     if d["replay_ms_per_iter"]:
         d["replay_idle_share"] = 1.0 - d["profile"]["device_ms_per_iter"] \
             / d["replay_ms_per_iter"]
     log(f"  {label}: host loop {h['ms_per_iter']:.4f} ms/iter, device loop "
-        f"{d['ms_per_iter']:.4f} (least of 3; replayed blocks "
+        f"{d['ms_per_iter']:.4f} (least of 2; replayed blocks "
         f"{d['replay_ms_per_iter']} ms/iter, idle share "
-        f"{d.get('replay_idle_share')}; capture ms {d['capture_ms']}); "
+        f"{d.get('replay_idle_share')}; capture ms {d['capture_ms']}, "
+        f"~{d['graph_nodes']:.0f} graph nodes); "
         f"device ms/iter {h['profile']['device_ms_per_iter']:.4f} / "
         f"{d['profile']['device_ms_per_iter']:.4f}, idle share "
         f"{h['profile']['device_idle_share']:.3f} / "
@@ -1592,10 +1784,9 @@ def step_agreement(check, make_est, X, Y, k, plain, label, exact_loss,
             want = one()  # one block: no capture in either loop
         lk, lp = exact_loss(*got), exact_loss(*want)
         gaps.append(abs(lk - lp) / abs(lp))
-        dev.append(max(float(np.linalg.norm(a - b) / np.linalg.norm(b))
-                       for a, b in zip(got, want)))
+        dev.append(factor_gap(got, want))
         U, V, Z = got
-    worst, far = max(gaps), max(dev)
+    worst, far = float(np.max(gaps)), float(np.max(dev))
     check(worst <= 1e-6 and far <= factor_bar,
           f"{label}: kernel vs plain step from shared factors, {steps} "
           f"steps, exact f64 loss rel gap max {worst:.3g} <= 1e-6 (per step "
@@ -1603,6 +1794,121 @@ def step_agreement(check, make_est, X, Y, k, plain, label, exact_loss,
           f"{far:.3g} <= {factor_bar:g} (per step "
           f"{[float(f'{g:.3g}') for g in dev]})")
     return worst
+
+
+_RCV1 = {}
+
+
+def rcv1_surrogate():
+    """The RCV1-v2-shaped surrogate (utils/datasets.py:synthetic_rcv1,
+    47236 x 804414, 60.7M nonzeros), drawn once per run (~20 s)."""
+    if "X" not in _RCV1:
+        from pycmf_tpu_torch.utils.datasets import synthetic_rcv1
+
+        _RCV1["X"] = synthetic_rcv1(random_state=SEED)
+    return _RCV1["X"]
+
+
+@contextmanager
+def ingested_layouts():
+    """A patch of the estimator's ingest that records, for each matrix it
+    ingests, the geometry of the chunked layout the fit got (chunks C of R
+    rows, each padded to L entries, and the padding ratio C·L / nnz), or
+    None for any other layout. Enter it before cached_ingest, which then
+    wraps it (one record per matrix, however many fits read it)."""
+    from pycmf_tpu_torch.models import cmf
+    from pycmf_tpu_torch.ops.chunked import is_chunked
+
+    real, seen = cmf.as_coupled, []
+
+    def ingest(A, *a, **kw):
+        out = real(A, *a, **kw)
+        ck = out.A
+        seen.append(dict(chunks=ck.n_chunks, chunk_rows=ck.chunk_rows,
+                         L=int(ck.data.shape[1]), nnz=ck.nnz,
+                         padding_ratio=ck.capacity / ck.nnz)
+                    if is_chunked(ck) else None)
+        return out
+
+    with mock.patch.object(cmf, "as_coupled", ingest):
+        yield seen
+
+
+def shared_u_step(check, make_est, X, Y, k, plain, label, exact_loss, steps,
+                  bar):
+    """step_agreement with K2 (fused_newton_linear_u_pass) launched on both
+    sides: each step's V and Z updates start from the same U_new, bit for
+    bit (K2 is repeatable, phase 3), so the bars hold K3, K4 and K5 on a
+    whole step. Then one step from the estimator's init three ways, all
+    kernels, K2 alone, all plain, to show what the plain U step changes:
+    U_new's rel Frobenius gap, the rows whose U_new differs by more than
+    1e-2 relative (a line-search slot chosen differently; rounding alone
+    moves a row by ~1e-4) and V's and Z's gaps. Returns the record."""
+    import numpy as np
+
+    from pycmf_tpu_torch.utils.init import initialize_factors
+
+    hybrid = {fn: mod for fn, mod in plain.items()
+              if fn != "fused_newton_linear_u_pass"}
+    worst = step_agreement(check, make_est, X, Y, k, hybrid,
+                           f"{label}, K2's U_new shared", exact_loss, steps,
+                           bar)
+    est = make_est()
+    U, V, Z = initialize_factors(
+        X, Y, k, random_state=SEED, U_non_negative=est.U_non_negative,
+        V_non_negative=est.V_non_negative, Z_non_negative=est.Z_non_negative)
+
+    def one(patch):
+        with ExitStack() as patches:
+            for fn, mod in patch.items():
+                patches.enter_context(mock.patch.object(
+                    mod, fn, getattr(mod, fn + "_ref")))
+            return make_est().set_params(max_iter=1, eval_every=1, tol=0.0
+                                         ).fit_transform(X, Y, U=U, V=V, Z=Z)
+    got, shared, want = one({}), one(hybrid), one(plain)
+
+    def fro(a, b):
+        return factor_gap([a], [b])
+    row = (np.linalg.norm(got[0] - want[0], axis=1)
+           / np.maximum(np.linalg.norm(want[0], axis=1), 1e-30))
+    rec = dict(
+        loss_gap_shared_u=worst,
+        u_new_gap=fro(got[0], want[0]),
+        u_rows_over_1e2=int(np.sum(row > 1e-2)), u_rows=int(row.size),
+        u_row_gap_median=float(np.median(row)),
+        plain_vs_kernel={f: fro(g, w) for f, g, w in zip("VZ", got[1:],
+                                                          want[1:])},
+        shared_u_vs_kernel={f: fro(g, w) for f, g, w in zip(
+            "UVZ", got, shared)})
+    check(rec["shared_u_vs_kernel"]["U"] == 0.0,
+          f"{label}: K2's U_new is the same bits in the kernel step and the "
+          f"step with K2 alone launched")
+    log(f"  {label}, one step from init: U_new kernel vs plain rel Frobenius "
+        f"{rec['u_new_gap']:.3g}, {rec['u_rows_over_1e2']} of "
+        f"{rec['u_rows']} rows over 1e-2 relative (median row "
+        f"{rec['u_row_gap_median']:.3g}); V, Z kernel vs all plain "
+        f"{rec['plain_vs_kernel']}, vs the plain V and Z steps from the "
+        f"kernel's U_new {rec['shared_u_vs_kernel']}")
+    return rec
+
+
+def step_vs_dense(check, make_est, X, Y, k, label, bar):
+    """One step of the chunked layout against one step of the dense path on
+    the same data (X densified), from the estimator's init: factors within
+    ``bar`` relative Frobenius."""
+    from pycmf_tpu_torch.utils.init import initialize_factors
+
+    U, V, Z = initialize_factors(X, Y, k, random_state=SEED)
+
+    def one(mode):
+        return make_est().set_params(max_iter=1, eval_every=1, tol=0.0,
+                                     sparse_mode=mode).fit_transform(
+            X, Y, U=U, V=V, Z=Z)
+    got, want = one("chunked"), one("dense")
+    far = factor_gap(got, want)
+    check(far <= bar, f"{label}: one chunked step vs one dense step from the "
+          f"same factors, rel Frobenius max {far:.3g} <= {bar:g}")
+    return far
 
 
 def _numpy_baseline(kind: str) -> tuple:
@@ -1647,6 +1953,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, root)
     import numpy as np
+    import scipy.sparse as sp
 
     from baselines import numpy_cmf
     from pycmf_tpu_torch import CMF
@@ -1682,6 +1989,7 @@ def main() -> int:
     krec.update(sigmoid_phase(check, torch, sigmoid_newton,
                               batched_solve))
     krec.update(k5_wide_phase(check, torch, batched_solve))
+    krec.update(k5_block_lu_phase(check, torch, batched_solve))
     sigmoid_edges(check, torch, sigmoid_newton, batched_solve)
     solve_update_edges(check, torch, batched_solve, mu_update)
     krec.update(sparse_phase(check, torch))
@@ -1820,22 +2128,160 @@ def main() -> int:
                    "csr_rowdots": len(e.loss_history_)},
         ("sigmoid_gh_pass", "sigmoid_phi_pass"), "path SD fit", sig,
         "device")
-    log("phase 7: path H, path A with hessian_form='full' (LU per-row "
-        "solves)")
+    log("phase 7: path H, path A with hessian_form='full' (K5's LU route "
+        "on the per-row solves, the device loop)")
     h_kw = dict(a_kw, hessian_form="full")
     h_est, ph = run_fit_checked(
         check, lambda: CMF(**h_kw, **common), X, Y,
-        per_iter(fused_newton_linear_u_pass=1),
+        per_iter(fused_newton_linear_u_pass=1, batched_lu_solve=2),
         ("sigmoid_gh_pass", "sigmoid_phi_pass", "batched_spd_solve"),
-        "path H fit", sig, "host")
+        "path H fit", sig, "device")
     try:
-        h_est.set_params(loop="device", max_iter=10).fit(X, Y)
+        h_est.set_params(loop="device", use_pallas=False, max_iter=10).fit(
+            X, Y)
         raised = "nothing"
     except NotImplementedError as e:
         raised = str(e)
-    check("ROADMAP C3" in raised and "hessian_form='full'" in raised,
-          f"path H: loop='device' raises NotImplementedError naming "
-          f"ROADMAP C3 and the full form ({raised[:120]}...)")
+    check("ROADMAP C3" in raised and "use_pallas=False" in raised,
+          f"path H with use_pallas=False: loop='device' raises "
+          f"NotImplementedError naming ROADMAP C3 ({raised[:120]}...)")
+    log("phase 7: path A at k = 100 (K5's block route, the device loop)")
+    common_100 = dict(common, n_components=100)
+    _, pa_100 = run_fit_checked(
+        check, lambda: CMF(**a_kw, **common_100), X, Y,
+        per_iter(fused_newton_linear_u_pass=1, sigmoid_gh_pass=1,
+                 sigmoid_phi_pass=1, batched_spd_solve_block=2), (),
+        "path A fit, k=100", sig, "device")
+
+    # the streamed chunked-COO layout (sparse_mode='chunked')
+    lin = lambda U, V, Z: numpy_cmf.loss(X64, Y64, U, V, Z)  # noqa: E731
+    chunked = {}
+
+    def chunked_fit(key, fn):
+        torch.cuda.reset_peak_memory_stats()
+        _, r = fn()
+        r["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        log(f"  {key}: peak device memory {r['peak_mem_gb']:.3f} GB (all "
+            f"live allocations)")
+        chunked[key] = r
+        return r
+    log("phase 7: path K, the MU cell on the chunked layout")
+    k_kw = dict(mu_kw, sparse_mode="chunked")
+    with ingested_layouts() as lays:
+        pk = chunked_fit("path_k_fit", lambda: fit_phase(
+            check, lambda: CMF(**k_kw, **common), X, Y,
+            per_iter(fused_mu_u_pass=3, fused_mu_update=2), "path K fit",
+            lin))
+    pk["layout"] = next(lay for lay in lays if lay)
+    log(f"  path K: exact f64 loss {pk['exact_loss']:.9g} after "
+        f"{pk['n_iter']} iterations; the MU cell's {mu['exact_loss']:.9g} "
+        f"after {mu['n_iter']}; the fit's layout {pk['layout']}")
+    log("phase 7: path KA, path A on the chunked layout")
+    ka_kw = dict(a_kw, sparse_mode="chunked")
+    chunked_fit("path_ka_fit", lambda: fit_phase(
+        check, lambda: CMF(**ka_kw, **common), X, Y,
+        per_iter(fused_newton_linear_u_pass=3, sigmoid_gh_pass=1,
+                 sigmoid_phi_pass=1, batched_spd_solve=2),
+        "path KA fit", sig))
+    log("phase 7: path KB, path B with X and Y chunked (CSR given)")
+    kb_kw = dict(b_kw, sparse_mode="chunked")
+    Ysp = sp.csr_matrix(Y)
+    pkb = chunked_fit("path_kb_fit", lambda: fit_phase(
+        check, lambda: CMF(**kb_kw, **common), Xb, Ysp,
+        per_iter(sigmoid_gh_pass=3, sigmoid_phi_pass=3, batched_spd_solve=5),
+        "path KB fit", card_sigmoid_loss(torch, Xb, Y)))
+    log(f"  path KB: phi eval loss vs exact f64 max rel "
+        f"{pkb['reported_vs_exact_max_rel']:.3g} (path B's "
+        f"{pb['reported_vs_exact_max_rel']:.3g})")
+    log("phase 7: path KS, path KA with sg_sample_ratio=0.25")
+    ks_kw = dict(s_kw, sparse_mode="chunked")
+    chunked_fit("path_ks_fit", lambda: run_fit_checked(
+        check, lambda: CMF(**ks_kw, **common), X, Y,
+        per_iter(batched_spd_solve=2), fused, "path KS fit", sig, "device"))
+    log("phase 7: path KR, the RCV1 surrogate as doc x term, MU, chunked "
+        "and CSR")
+    t0 = time.perf_counter()
+    Xr = rcv1_surrogate().T.tocsr()
+    log(f"  data {Xr.shape} nnz={Xr.nnz} in {time.perf_counter() - t0:.1f} "
+        f"s")
+    kr = {}
+    # three eval blocks of 5: the first eager, the second captured (its
+    # time holds the capture's), the third a replay alone; the replayed
+    # block's ms/iter is the one to compare (the whole fit's depends on
+    # the capture's time)
+    with ingested_layouts() as lays, cached_ingest():
+        for mode in ("chunked", "csr"):
+            kr_kw = dict(solver="mu", sparse_mode=mode, max_iter=15,
+                         tol=0.0, eval_every=5)
+            need = ((lambda est: per_iter(
+                fused_mu_u_pass=lays[0]["chunks"], fused_mu_update=1)(est))
+                if mode == "chunked"
+                else per_iter(csr_spmm=2, fused_mu_update=2))
+            with timed_captures() as caps:
+                r = chunked_fit(f"path_kr_{mode}", lambda: run_fit(
+                    check, lambda: CMF(**kr_kw, **common), Xr, None, need,
+                    f"path KR fit, {mode}"))
+            r["capture_ms"] = [1e3 * c for c in caps]
+            r["block_ms_per_iter"] = [1e3 * t / 5 for t in r.pop("blocks")]
+            r["replay_ms_per_iter"] = r["block_ms_per_iter"][2]
+            r["profile"] = profile_phase(
+                torch, lambda: CMF(**kr_kw, **common), Xr, None,
+                f"path KR, {mode}")
+            kr[mode] = r
+        lay = kr["layout"] = lays[0]
+        check(lays[1:] == [None], f"path KR: the chunked fit's layout {lay}, "
+              f"the CSR fit's none ({lays[1:]})")
+        for mode in ("chunked", "csr"):
+            r = kr[mode]
+            log(f"  path KR, {mode}: ms/iter per block "
+                f"{r['block_ms_per_iter']} (eager, capture + replay, "
+                f"replay), captures {r['capture_ms']} ms (warm-up fit's "
+                f"first), replayed {r['replay_ms_per_iter']:.4f} ms/iter, "
+                f"device {r['profile']['device_ms_per_iter']:.4f}, idle "
+                f"{r['profile']['device_idle_share']:.3f}")
+        log("phase 7: path KRS, the binarised RCV1 surrogate (doc x term), "
+            "sigmoid X, Newton, signed factors, no Y, sparse_mode='auto'")
+        Xrb = Xr.copy()
+        Xrb.data[:] = 1.0
+        krs_kw = dict(solver="newton", x_link="sigmoid", max_iter=2,
+                      eval_every=1, tol=0.0, U_non_negative=False,
+                      V_non_negative=False)
+        from pycmf_tpu_torch.ops.kernels.policy import (launch_counts,
+                                                        reset_launch_counts)
+        with ingested_layouts() as kinds:
+            # no warm-up fit: every kernel of the path is loaded by now
+            torch.cuda.reset_peak_memory_stats()
+            est = CMF(**krs_kw, **common)
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            est.fit(Xrb)
+            wall = time.perf_counter() - t0
+        counts = launch_counts()
+        krs = dict(n_iter=est.n_iter_, losses=est.loss_history_,
+                   s_per_iter=sum(est.step_times_) / est.n_iter_,
+                   wall_s=wall, launches_per_iter={
+                       kk: v / est.n_iter_ for kk, v in counts.items() if v},
+                   peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                   block_s=est.step_times_)
+        check(len(kinds) == 1 and kinds[0] is not None,
+              f"path KRS: 'auto' resolves the sigmoid-linked X past the "
+              f"threshold to the chunked layout ({kinds})")
+        krs["layout"] = kinds[0] or lay
+        check(all(math.isfinite(v) for v in est.loss_history_)
+              and est.loss_history_[-1] < est.loss_history_[0]
+              and counts.get("sigmoid_gh_pass", 0)
+              == krs["layout"]["chunks"] * 2
+              and counts.get("sigmoid_phi_pass", 0)
+              == krs["layout"]["chunks"] * 2,
+              f"path KRS: losses {est.loss_history_} finite and falling; "
+              f"K3/K4 {krs['layout']['chunks']} per iteration")
+        log(f"  path KRS: {krs['s_per_iter']:.3f} s/iter (blocks "
+            f"{est.step_times_} s), fit wall {wall:.1f} s, launches per "
+            f"iteration {krs['launches_per_iter']}, peak device memory "
+            f"{krs['peak_mem_gb']:.2f} GB")
+        chunked["path_krs_fit"] = krs
+        del Xrb
+    chunked["path_kr"] = kr
     log("phase 7b: where the time goes (torch.profiler)")
     mu["profile"] = profile_phase(
         torch, lambda: CMF(**dict(mu_kw, max_iter=10, tol=0.0), **common),
@@ -1891,6 +2337,17 @@ def main() -> int:
                 ("path SD", sd_kw, (X, Y), common)):
             loops[lab] = loop_phase(
                 check, torch, lambda: CMF(**kw, **cm), *data, lab)
+        # K5's new routes and the chunked layout: bit for bit required
+        for lab, kw, data, cm in (
+                ("path H", h_kw, (X, Y), common),
+                ("path A k=100", a_kw, (X, Y), common_100),
+                ("path K", k_kw, (X, Y), common),
+                ("path KA", ka_kw, (X, Y), common),
+                ("path KB", kb_kw, (Xb, Ysp), common),
+                ("path KS", ks_kw, (X, Y), common)):
+            loops[lab] = loop_phase(
+                check, torch, lambda: CMF(**kw, **cm), *data, lab,
+                bits=True)
         # the draws follow the seed: the same random_state gives the same
         # fit, another random_state another
         same = [CMF(**s_kw, **common).fit(X, Y) for _ in range(2)]
@@ -1916,6 +2373,7 @@ def main() -> int:
                  "sigmoid_gh_pass": sigmoid_newton,
                  "sigmoid_phi_pass": sigmoid_newton,
                  "batched_spd_solve": batched_solve,
+                 "batched_lu_solve": batched_solve,
                  "fused_mu_update": mu_update,
                  "csr_spmm": spmm, "csr_rowdots": spmm,
                  "bell_spmm": bell}
@@ -1945,7 +2403,6 @@ def main() -> int:
                 log(f"  {what} (printed; the per-step check holds this path)")
             else:
                 check(gap <= 1e-3, f"{what} <= 1e-3")
-        lin = lambda U, V, Z: numpy_cmf.loss(X64, Y64, U, V, Z)  # noqa: E731
         # sampled steps: a fresh fit seeds its generator from
         # random_state, so both paths of a step make the same draws
         # (recorded and compared)
@@ -1972,10 +2429,42 @@ def main() -> int:
                 ("Newton linear", nl_kw, K, lin, 20, 1e-3),
                 ("path A", a_kw, K, sig, 20, 1e-3),
                 ("MU k=40", mu_kw, wide_k, lin, 10, 1e-4),
-                ("path A k=40", a_kw, wide_k, sig, 10, 1e-3)):
+                ("path A k=40", a_kw, wide_k, sig, 10, 1e-3),
+                ("path K", k_kw, K, lin, 3, 1e-4),
+                ("path KA", ka_kw, K, sig, 3, 1e-3)):
             stepped[label] = step_agreement(
                 check, lambda: CMF(**kw, **dict(common, n_components=kk)),
                 X, Y, kk, plain, label, loss, steps, bar)
+        stepped["path K vs dense"] = step_vs_dense(
+            check, lambda: CMF(**k_kw, **common), X, Y, K, "path K", 1e-4)
+        # path A at k = 100, the one fit on K5's block route: whole steps
+        # with K2's U_new shared (both paths launch K2, so V's and Z's steps
+        # start from the same U_new and hold K3, K4 and K5's block route),
+        # then what the plain U step alone changes (shared_u_step)
+        a100 = lambda: CMF(**a_kw, **common_100)  # noqa: E731
+        stepped["path A k=100"] = shared_u_step(
+            check, a100, X, Y, 100, plain, "path A k=100", sig, 3, 1e-3)
+        # and K5's block route on the fit's own systems, each call against
+        # its plain version (the host loop: a capture would take the plain
+        # Cholesky into the graph)
+        real_solve, block_errs = batched_solve.batched_spd_solve, []
+
+        def held_solve(H, G, H_shared=None):
+            out = real_solve(H, G, H_shared)
+            if H.shape[-1] > batched_solve.MAX_K:
+                want = batched_solve.batched_spd_solve_ref(H, G, H_shared)
+                block_errs.append(rel_fro(out, want))
+            return out
+        with mock.patch.object(batched_solve, "batched_spd_solve",
+                               held_solve):
+            CMF(**dict(a_kw, max_iter=3, eval_every=1, tol=0.0,
+                       loop="host"), **common_100).fit(X, Y)
+        check(len(block_errs) == 6 and max(block_errs) <= 1e-3,
+              f"path A k=100: K5's block route on the fit's systems (Z's 20 "
+              f"and V's 11314 per step, 3 steps) against its plain version, "
+              f"rel Frobenius max {max(block_errs):.3g} <= 1e-3 "
+              f"({len(block_errs)} calls)")
+        stepped["path A k=100 block route"] = max(block_errs)
         t0 = time.perf_counter()
         baseline = {kind: f.result() for kind, f in base.items()}
         log(f"host baselines awaited {time.perf_counter() - t0:.1f} s")
@@ -2030,6 +2519,20 @@ def main() -> int:
              {f"{tag}k{k}": ("batched_spd_solve_wide", p, k)
               for k in WIDE_K for p, tag in ((M, ""), (N, "p30000_"))
               if (p, k) != (M, 40)}),
+            ("batched_spd_solve_block", "batched_solve.cu",
+             ("batched_solve.py:74",),
+             ("batched_spd_solve_block", M, 100), pa_100,
+             dict({f"k{k}": ("batched_spd_solve_block", M, k)
+                   for k in BLOCK_K if k != 100},
+                  **{f"p2048_k{k}": ("batched_spd_solve_block", 2048, k)
+                     for k in (krec["block_max_k"],
+                               krec["block_max_k"] + 1)})),
+            ("batched_lu_solve", "batched_solve.cu",
+             ("pycmf_tpu/solvers/newton.py:308",),
+             ("batched_lu_solve", M, 20, "spd"), ph,
+             {f"{kind}_k{k}": ("batched_lu_solve", M, k, kind)
+              for k in LU_K for kind in ("spd", "indefinite")
+              if (k, kind) != (20, "spd")}),
             ("fused_mu_update", "mu_update.cu", ("mu_update.py:41",),
              f"fused_mu_update[{M}x{K}]", pc,
              {"rcv1": "fused_mu_update[804414x20]"}),
@@ -2051,8 +2554,9 @@ def main() -> int:
               "t_f32": "bell_spmm[fullT,float32]"})):
         r = krec[main]
         entry = {"name": kname, "route": "cuda", "source": src + file,
-                 "replaces": ", ".join("pycmf_tpu/ops/pallas/" + f
-                                       for f in replaces),
+                 "replaces": ", ".join(
+                     f if f.startswith("pycmf_tpu/") else
+                     "pycmf_tpu/ops/pallas/" + f for f in replaces),
                  "launches": fit["launches"].get(kname, 0),
                  "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                  "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
@@ -2075,6 +2579,8 @@ def main() -> int:
                       "mu_fit_k40": mu_w, "path_a_fit_k40": pa_w,
                       "path_s_fit": ps, "path_s4_fit": ps4,
                       "path_sd_fit": psd, "path_h_fit": ph,
+                      "path_a_fit_k100": pa_100, "chunked": chunked,
+                      "block_max_k": krec["block_max_k"],
                       "device_vs_host_loop": loops,
                       "phase8_gap_after_20": gaps20,
                       "phase8_step_gap_max": stepped,

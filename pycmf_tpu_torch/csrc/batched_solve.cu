@@ -58,6 +58,28 @@
 // an SM and hide each other's loads. Bound: bytes (at k = 40, 11314
 // systems read 72 MB, ~0.023 ms); the work is bound by instruction
 // throughput, ~k^3/3 shared loads and stores per system.
+//
+// Block route, k > 64 (the reference's jnp.linalg.solve above its
+// unrolled kernel, pycmf_tpu/ops/pallas/batched_solve.py:74-77), and LU
+// route, any k (the full Hessian form's systems, which may be indefinite:
+// the reference's jnp.linalg.solve at pycmf_tpu/solvers/newton.py:308).
+// One CTA per system (block_solve_kernel; LU a template flag): the system,
+// H + Hs as it is read, lies in shared memory at an odd row stride while
+// it fits the block's opt-in limit (k <= ~240 in f32; `block_max_k`), and
+// above that in a global scratch slot per CTA that the wrapper allocates
+// (the CTAs then walk the systems with a stride). Cholesky: right-looking,
+// unpivoted, on the lower triangle, with g carried along (forward
+// substitution inside the factorization) and the back substitution on
+// L^T; a non-positive pivot gives NaN. LU: partial pivoting as LAPACK's
+// getrf (the pivot is the first row of largest |a| at or below the
+// diagonal; whole rows swap, g with them), then back substitution on U; a
+// zero or NaN pivot gives NaN. Either way NaN reaches every entry of its
+// system's d and no other. The trailing update takes a row per warp and a
+// column per lane. Each entry is updated by one thread in a fixed order,
+// so a call repeats bit for bit; no host sync, no allocation.
+// Bound: bytes (11314 systems at k = 100 read 462 MB, 0.138 ms); this
+// simple route is bound by its ~3k barriers per system and, in global
+// scratch, by the scratch's traffic (ROADMAP B5).
 #include "common.cuh"
 
 #include <algorithm>
@@ -262,6 +284,183 @@ __global__ void __launch_bounds__(kWideWarps * 32)
   if (has1) D[(size_t)sys * k + i1] = x1;
 }
 
+
+// ---- block and LU routes: one CTA per system -----------------------------
+
+constexpr int kBlockThreads = 256;
+
+__host__ __device__ inline int round4(int k) { return (k + 3) & ~3; }
+
+// Shared floats of one CTA besides the system: g, the pivots' reciprocals
+// (or 1 / L_jj) and the pivot search's per-warp values and rows.
+__host__ __device__ inline int block_aux_floats(int k) {
+  return 2 * round4(k) + 64;
+}
+__host__ __device__ inline size_t block_system_floats(int k) {
+  return (size_t)k * (k | 1);
+}
+
+// (value, row) with the larger value, the smaller row on a tie; NaN never
+// wins (every comparison with it is false).
+__device__ __forceinline__ void better(float& v, int& i, float v2, int i2) {
+  if (v2 > v || (v2 == v && i2 < i)) v = v2, i = i2;
+}
+
+template <bool LU, bool SHARED>  // SHARED: Hs given
+__global__ void __launch_bounds__(kBlockThreads)
+    block_solve_kernel(const float* __restrict__ H,
+                       const float* __restrict__ Hshared,
+                       const float* __restrict__ G, int p, int k,
+                       float* __restrict__ D, float* __restrict__ scratch) {
+  extern __shared__ __align__(16) float block_smem[];
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int lane = tid & 31, warp = tid >> 5, nwarps = (nt + 31) >> 5;
+  const int ld = k | 1, kr = round4(k);
+  float* b = block_smem;         // g, then y, then back substitution's rest
+  float* inv = b + kr;           // 1 / pivot of each column
+  float* red_v = inv + kr;       // pivot search: each warp's best
+  int* red_i = reinterpret_cast<int*>(red_v + 32);
+  float* S = scratch ? scratch + (size_t)blockIdx.x * block_system_floats(k)
+                     : red_v + 64;
+  const float qnan = __int_as_float(0x7fc00000);
+  const size_t kk = (size_t)k * k;
+
+  for (int sys = blockIdx.x; sys < p; sys += gridDim.x) {
+    const float* src = H + (size_t)sys * kk;
+    for (int i = warp; i < k; i += nwarps)  // a row per warp, coalesced
+      for (int c = lane; c < k; c += 32) {
+        float v = src[i * k + c];
+        if (SHARED) v += __ldg(Hshared + i * k + c);
+        S[i * ld + c] = v;
+      }
+    for (int i = tid; i < k; i += nt) b[i] = G[(size_t)sys * k + i];
+    __syncthreads();
+
+    for (int j = 0; j < k; ++j) {
+      if (LU) {
+        // pivot: the first row of largest |a| in column j at or below j
+        float bv = -1.f;
+        int bi = k;
+        for (int r = j + tid; r < k; r += nt)
+          better(bv, bi, fabsf(S[r * ld + j]), r);
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1)
+          better(bv, bi, __shfl_xor_sync(kFull, bv, o),
+                 __shfl_xor_sync(kFull, bi, o));
+        if (lane == 0) red_v[warp] = bv, red_i[warp] = bi;
+        __syncthreads();
+        float v = red_v[0];
+        int piv = red_i[0];
+        for (int w = 1; w < nwarps; ++w) better(v, piv, red_v[w], red_i[w]);
+        if (piv >= k) piv = j;  // the column is all NaN: its pivot is NaN
+        if (piv != j) {
+          for (int c = tid; c < k; c += nt) {
+            const float t = S[j * ld + c];
+            S[j * ld + c] = S[piv * ld + c];
+            S[piv * ld + c] = t;
+          }
+          if (tid == 0) {
+            const float t = b[j];
+            b[j] = b[piv];
+            b[piv] = t;
+          }
+        }
+        __syncthreads();
+        const float pv = S[j * ld + j];
+        const float r = pv != 0.f ? 1.f / pv : qnan;  // NaN stays NaN
+        // L[i][j] = a[i][j] / pivot below the diagonal
+        for (int i = j + 1 + tid; i < k; i += nt) S[i * ld + j] *= r;
+        if (tid == 0) inv[j] = r;
+        __syncthreads();
+        // trailing block and g, a row per warp: a[i][c] -= L[i][j] u[j][c],
+        // g_i -= L[i][j] g_j
+        const float bj = b[j];
+        for (int i = j + 1 + warp; i < k; i += nwarps) {
+          const float l = S[i * ld + j];
+          for (int c = j + 1 + lane; c < k; c += 32)
+            S[i * ld + c] -= l * S[j * ld + c];
+          if (lane == 0) b[i] -= l * bj;
+        }
+        __syncthreads();
+      } else {
+        // Cholesky: L[j][j] = sqrt(a[j][j]) (NaN unless positive),
+        // L[i][j] = a[i][j] / L[j][j], y_j = g_j / L[j][j]
+        const float ajj = S[j * ld + j];
+        const float r = ajj > 0.f ? rsqrtf(ajj) : qnan;
+        const float yj = b[j] * r;  // read by all before thread 0 stores it
+        for (int i = j + 1 + tid; i < k; i += nt) S[i * ld + j] *= r;
+        __syncthreads();
+        if (tid == 0) inv[j] = r, b[j] = yj;
+        // trailing lower triangle, a row per warp: a[i][c] -= L[i][j]
+        // L[c][j] for j < c <= i (column j read at the odd stride: no
+        // bank conflicts); g_i -= L[i][j] y_j
+        for (int i = j + 1 + warp; i < k; i += nwarps) {
+          const float l = S[i * ld + j];
+          for (int c = j + 1 + lane; c <= i; c += 32)
+            S[i * ld + c] -= l * S[c * ld + j];
+          if (lane == 0) b[i] -= l * yj;
+        }
+        __syncthreads();
+      }
+    }
+    // back substitution from the last row up: x_t = b_t / (its pivot),
+    // then b_i -= a x_t for every i < t, with a = U[i][t] (LU) or
+    // L[t][i] (Cholesky, L^T's entry)
+    for (int t = k - 1; t >= 0; --t) {
+      const float xt = b[t] * inv[t];
+      for (int i = tid; i < t; i += nt)
+        b[i] -= (LU ? S[i * ld + t] : S[t * ld + i]) * xt;
+      if (tid == 0) D[(size_t)sys * k + t] = xt;
+      __syncthreads();
+    }
+  }
+}
+
+// Largest k whose system fits one CTA's shared memory on this device.
+inline int block_max_k(int device) {
+  int optin = 0;
+  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                         device);
+  int k = 1;
+  while (sizeof(float) * (block_aux_floats(k + 1) +
+                          block_system_floats(k + 1)) <= (size_t)optin)
+    ++k;
+  return k;
+}
+
+namespace {
+// cudaFuncSetAttribute done, per device and instantiation (internal
+// linkage: this library's own flags)
+bool block_attr_done[16][4];
+}  // namespace
+
+template <bool LU, bool SH>
+int launch_block_solve(const float* H, const float* Hs, const float* G, int p,
+                       int k, float* D, float* scratch, int slots,
+                       int device, cudaStream_t st) {
+  const int nt = LU && k <= 64 ? 32 : kBlockThreads;
+  size_t smem = sizeof(float) * block_aux_floats(k);
+  int grid = p;
+  if (scratch) {
+    grid = std::min(p, slots);
+  } else {
+    smem += sizeof(float) * block_system_floats(k);
+  }
+  auto kern = block_solve_kernel<LU, SH>;
+  const int slot = (LU ? 2 : 0) + (SH ? 1 : 0);
+  if (smem > 48 * 1024 && !block_attr_done[device][slot]) {
+    int optin = 0;
+    cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                           device);
+    cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
+    if (e != cudaSuccess) return (int)e;
+    block_attr_done[device][slot] = true;
+  }
+  kern<<<grid, nt, smem, st>>>(H, Hs, G, p, k, D, scratch);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace pycmf
 
 // H (p, k, k), G (p, k) and D (p, k): f32, row-major, contiguous,
@@ -300,4 +499,38 @@ extern "C" int pycmf_batched_spd_solve(const float* H, const float* H_shared,
     else launch(std::false_type{});
   });
   return (int)cudaGetLastError();
+}
+
+
+// The block route (lu = 0: SPD, any k, meant for k > 64) or the LU route
+// (lu = 1, any k) of (H[i] + H_shared) d[i] = G[i]: operands as for
+// pycmf_batched_spd_solve. scratch: null when k <= pycmf_block_solve_max_k
+// (the system in shared memory), else `slots` >= 1 global slots of
+// k * (k | 1) floats (one per CTA). Returns the CUDA error of the launch.
+extern "C" int pycmf_batched_block_solve(const float* H, const float* H_shared,
+                                         const float* G, int p, int k, int lu,
+                                         float* D, float* scratch, int slots,
+                                         int device, void* stream) {
+  using namespace pycmf;
+  DeviceGuard guard(device);
+  if (p < 1 || k < 1 || (!scratch && k > block_max_k(device)) ||
+      (scratch && slots < 1) || (device < 0 || device >= 16))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (lu) {
+    return H_shared ? launch_block_solve<true, true>(H, H_shared, G, p, k, D,
+                                                     scratch, slots, device, st)
+                    : launch_block_solve<true, false>(
+                          H, H_shared, G, p, k, D, scratch, slots, device, st);
+  }
+  return H_shared ? launch_block_solve<false, true>(H, H_shared, G, p, k, D,
+                                                    scratch, slots, device, st)
+                  : launch_block_solve<false, false>(H, H_shared, G, p, k, D,
+                                                     scratch, slots, device, st);
+}
+
+// Largest k whose system the block and LU routes keep in shared memory.
+extern "C" int pycmf_block_solve_max_k(int device) {
+  using namespace pycmf;
+  return block_max_k(device);
 }

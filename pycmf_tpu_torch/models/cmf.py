@@ -10,14 +10,15 @@ with a shared V, NumPy in and NumPy out. Validation and initialization run
 on the host (the same NumPy draws as the reference for one
 ``random_state``); the solver loop runs on ``device``. The keyword surface
 is the reference's plus ``device``. The port runs linear and sigmoid links
-on dense or densified data, and linear links on CSR data
-(``sparse_mode='csr'``, or 'auto' past the densify threshold). Newton runs
-full batch or sampled (``sg_sample_ratio`` < 1: stochastic minibatch
-Newton, its column draws from a ``torch.Generator`` seeded by the
-reference's rule from ``random_state``), with the Gauss-Newton or the
-full Hessian (``hessian_form``). The rest (``n_shards``, fp8 data, the
-chunked layout) raises NotImplementedError naming the ROADMAP item that
-brings it.
+on dense or densified data, linear links on CSR data
+(``sparse_mode='csr'``, or 'auto' past the densify threshold), and both on
+the streamed chunked-COO layout (``sparse_mode='chunked'``, or 'auto' past
+the threshold for a sigmoid-linked matrix under Newton). Newton runs full
+batch or sampled (``sg_sample_ratio`` < 1: stochastic minibatch Newton,
+its column draws from a ``torch.Generator`` seeded by the reference's rule
+from ``random_state``), with the Gauss-Newton or the full Hessian
+(``hessian_form``). The rest (``n_shards``, fp8 data) raises
+NotImplementedError naming the ROADMAP item that brings it.
 """
 from __future__ import annotations
 
@@ -35,8 +36,7 @@ from ..solvers.newton import captures_on_card, run_newton
 from ..utils.convert import (factors_from_numpy, factors_to_numpy,
                              fitted_state_from_reference)
 from ..utils.init import initialize_factors
-from ..utils.validation import (DENSIFY_THRESHOLD, as_coupled, check_matrix,
-                                validate_cmf_params)
+from ..utils.validation import as_coupled, check_matrix, validate_cmf_params
 
 _DTYPES = {
     "float32": torch.float32,
@@ -84,8 +84,8 @@ class CMF:
         (BlockEll or CSR kernels) run through hand-written CUDA kernels on
         the card (their plain PyTorch versions on the CPU). False runs the
         unfused plain PyTorch path.
-    sparse_mode : 'auto' | 'csr' | 'dense' | 'chunked', per matrix as in the
-        reference (see ``_matrix_sparse_mode``); 'chunked' is ROADMAP A8.
+    sparse_mode : 'auto' | 'csr' | 'dense' | 'chunked', per matrix (see
+        ``_matrix_sparse_mode`` and ``_chunked_ok``).
     loop : 'auto' | 'host' | 'device'. 'host' runs every eval block
         eagerly; 'device' is the reference's device-resident loop: on the
         card one CUDA graph of an eval block, captured once per fit and
@@ -208,9 +208,9 @@ class CMF:
         as in the reference. One more case takes the host loop under
         'auto': a Newton fit on the card that the device loop cannot
         capture (``solvers/newton.captures_on_card``: per-row systems
-        through a library's batched solve, that is k > 64, use_pallas off
-        or hessian_form='full'; ROADMAP C3), where an explicit 'device'
-        raises. An explicit 'host' or 'device' is honoured. cfg: the fit's
+        through a library's batched solve, which is the plain path's,
+        use_pallas=False; ROADMAP C3), where an explicit 'device' raises.
+        An explicit 'host' or 'device' is honoured. cfg: the fit's
         SolverConfig (default: with Y)."""
         if self.loop not in ("auto", "host", "device"):
             raise ValueError("loop must be 'auto', 'host' or 'device'")
@@ -219,8 +219,7 @@ class CMF:
         if self.verbose or self._resolve_device().type != "cuda":
             return "host"
         if self.solver == "newton" and not captures_on_card(
-                cfg if cfg is not None else self._config(has_Y=True),
-                int(self.n_components or 0)):
+                cfg if cfg is not None else self._config(has_Y=True)):
             return "host"
         return "device"
 
@@ -229,17 +228,15 @@ class CMF:
 
     def _matrix_sparse_mode(self, A, link, is_x: bool = True):
         """Per-matrix sparse policy (the reference's, on one device). A
-        sigmoid-linked sparse matrix under Newton is densified: the update
-        materializes dense sigmoid predictions of the same size anyway.
-        Under 'chunked', or 'auto' past the densify threshold, it takes the
-        streamed layout instead (ROADMAP A8). For a linear-linked Y,
-        'chunked' resolves as 'auto'."""
-        if self.solver == "newton" and link == "sigmoid" and sp.issparse(A):
-            item = self._resolve_data_dtype().itemsize
-            if self.sparse_mode == "chunked" or (
-                    self.sparse_mode == "auto"
-                    and A.shape[0] * A.shape[1] * item > DENSIFY_THRESHOLD):
-                return "chunked"
+        sigmoid-linked sparse matrix under Newton is densified under
+        'dense' and 'csr' (the update materializes dense sigmoid
+        predictions of the same size anyway) and streamed under
+        'chunked'; under 'auto' as_coupled densifies it below the densify
+        threshold and streams it past it (``_chunked_ok``), X or Y alike.
+        For a linear-linked Y, 'chunked' resolves as 'auto'."""
+        if self._chunked_ok(link) and sp.issparse(A):
+            if self.sparse_mode in ("chunked", "auto"):
+                return self.sparse_mode
             if self.sparse_mode == "csr":
                 warnings.warn(
                     "sparse_mode='csr' is overridden to 'dense' for a "
@@ -252,6 +249,18 @@ class CMF:
         if not is_x and self.sparse_mode == "chunked":
             return "auto"
         return self.sparse_mode
+
+    def _chunked_ok(self, link) -> bool:
+        """Whether 'auto' streams a sparse matrix past the densify
+        threshold (as_coupled's chunked_ok): only a sigmoid-linked one
+        under Newton, which has no other path there. The reference streams
+        a linear-linked one too (its per-nonzero products ran ~79× slower
+        than a dense chunk on the TPU); the port keeps it CSR, whose
+        kernels on the card take a few ms per product where a chunked
+        iteration must zero, scatter and read the whole dense equivalent
+        (ROADMAP A7 re-decides it on measured numbers). 'chunked' by name
+        streams any matrix X."""
+        return self.solver == "newton" and link == "sigmoid"
 
     def _config(self, has_Y, update_U=True, update_V=True, update_Z=True):
         return SolverConfig(
@@ -319,10 +328,12 @@ class CMF:
 
         up = self._use_pallas()
         Xc = as_coupled(X, ddt, dev, use_pallas=up,
-                        sparse_mode=self._matrix_sparse_mode(X, self.x_link))
+                        sparse_mode=self._matrix_sparse_mode(X, self.x_link),
+                        chunked_ok=self._chunked_ok(self.x_link))
         Yc = (as_coupled(Y, ddt, dev, use_pallas=up,
                          sparse_mode=self._matrix_sparse_mode(
-                             Y, self.y_link, is_x=False))
+                             Y, self.y_link, is_x=False),
+                         chunked_ok=self._chunked_ok(self.y_link))
               if Y is not None else None)
         U0, V0, Z0 = factors_from_numpy(U0, V0, Z0, dev, dt)
         if Z0 is None:
@@ -381,7 +392,8 @@ class CMF:
                            update_Z=False)
         Xc = as_coupled(X, self._resolve_data_dtype(), dev,
                         use_pallas=self._use_pallas(),
-                        sparse_mode=self._matrix_sparse_mode(X, self.x_link))
+                        sparse_mode=self._matrix_sparse_mode(X, self.x_link),
+                        chunked_ok=self._chunked_ok(self.x_link))
         U0, V0, _ = factors_from_numpy(U0, self.V_, None, dev, dt)
         Z0 = torch.zeros((0, k), dtype=dt, device=dev)
         Uf = self._run(Xc, None, U0, V0, Z0, cfg)[0]

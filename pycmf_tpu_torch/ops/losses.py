@@ -1,6 +1,6 @@
-"""CMF objective evaluation (dense and CSR data).
+"""CMF objective evaluation (dense, CSR and chunked-COO data).
 
-Counterpart of ``pycmf_tpu/ops/losses.py`` (without the chunked layout):
+Counterpart of ``pycmf_tpu/ops/losses.py``:
 
     L(U,V,Z) = ½‖X − f_x(U Vᵀ)‖²_F + ½‖Y − f_y(V Zᵀ)‖²_F + R(U)+R(V)+R(Z)
     R(M)     = alpha · (l1_ratio·‖M‖₁ + ½(1−l1_ratio)·‖M‖²_F)
@@ -9,13 +9,17 @@ Linear terms use the factored identity
 ‖A − M Bᵀ‖² = ‖A‖² − 2⟨A, M Bᵀ⟩ + tr((MᵀM)(BᵀB)), except for small
 mixed-precision dense problems, which take the direct residual (see
 ``_linear_term``); for CSR A the inner product is taken at the nonzeros
-only. Sigmoid terms (dense data) need the elementwise link, so they stream
-over row blocks of the product when it is large.
+only, and for a chunked A by one streamed pass. Sigmoid terms need the
+elementwise link, so they stream over row blocks of the product when it is
+large (dense A), over the chunks (chunked A, padding rows masked), or take
+Σσ² in row blocks plus a sum over the nonzeros (CSR A).
 """
 from __future__ import annotations
 
 import torch
 
+from .chunked import _chunk_rows, _pad_rows, chunked_inner, densify_chunk, \
+    is_chunked
 from .kernels import bell as kbell
 from .kernels import spmm as kspmm
 from .links import LINEAR
@@ -44,6 +48,10 @@ def _linear_term(A, M: torch.Tensor, B: torch.Tensor, a_sq=None,
     layout of Aᵀ) when there is one, else by the CSR row-dot kernel; without
     it by the plain gather."""
     cross = torch.sum(gram(M) * gram(B))
+    if is_chunked(A):
+        # ‖A‖² cached at ingest; the inner product is one streamed pass
+        return 0.5 * (A.sq_norm.to(M.dtype) - 2.0 * chunked_inner(A, M, B)
+                      + cross)
     if is_sparse(A):
         if use_pallas and bell_t is not None:
             inner = kbell.bell_inner(bell_t, M, B)
@@ -113,13 +121,43 @@ def sigmoid_sq_rows(D, Mc, B, mask=None):
     return out.reshape(*lead, p)
 
 
+def _sigmoid_sq_sum(M: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """Σᵢⱼ σ(M Bᵀ)ᵢⱼ², over row blocks of _BLOCK_ELEMS."""
+    bs = rows_per_block(B.shape[0])
+    total = torch.zeros((), dtype=M.dtype, device=M.device)
+    Bf = B.to(M.dtype)
+    for i in range(0, M.shape[0], bs):
+        s = torch.sigmoid(M[i:i + bs] @ Bf.mT)
+        total = total + torch.sum(s * s)
+    return total
+
+
 def _sigmoid_term(A, M: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
-    """½‖A − σ(M Bᵀ)‖², the sum of :func:`sigmoid_sq_rows`, for dense A
-    (the estimator densifies a sigmoid-linked sparse matrix)."""
-    if is_sparse(A):
+    """½‖A − σ(M Bᵀ)‖² for dense, chunked or CSR A.
+
+    Chunked A: one streamed pass, the sum of :func:`sigmoid_sq_rows` over
+    each chunk's true rows (a padding row's σ(0) = ½ is not data). CSR A:
+    ‖A − S‖² = ΣS² + Σ_nnz (a² − 2a·S) with S = σ(M Bᵀ); only ΣS² needs
+    the dense product, in row blocks (the reference's form,
+    ``pycmf_tpu/ops/losses.py:178-231``)."""
+    if is_chunked(A):
+        Mp = _pad_rows(M, A.n_pad)
+        total = torch.zeros((), dtype=M.dtype, device=M.device)
+        for c in range(A.n_chunks):
+            rows = sigmoid_sq_rows(densify_chunk(A, c), _chunk_rows(Mp, A, c),
+                                   B)
+            total = total + torch.sum(rows[:A.chunk_valid(c)])
+        return total
+    if isinstance(A, kbell.BlockEll):
         raise NotImplementedError(
-            "sigmoid-link terms need dense data; their sparse forms come "
-            "with the chunked and sharded layouts (ROADMAP A8, A10)")
+            "sigmoid-link terms need dense data, CSR or a chunked layout, "
+            "not a BlockEll layout")
+    if is_sparse(A):
+        e = torch.sum(M[A.row_ids.long()] * B.to(M.dtype)[A.indices.long()],
+                      dim=1)
+        nnz_part = A.sq_norm.to(M.dtype) - 2.0 * torch.dot(
+            A.data.to(M.dtype), torch.sigmoid(e))
+        return 0.5 * (_sigmoid_sq_sum(M, B) + nnz_part)
     return torch.sum(sigmoid_sq_rows(A, M, B))
 
 

@@ -17,6 +17,7 @@ from typing import Any, Dict, List, NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..ops.chunked import ChunkedT, chunked_spmm, chunked_spmm_t, is_chunked
 from ..ops.kernels import bell as kbell
 from ..ops.kernels import policy
 from ..ops.links import LINEAR, check_link
@@ -75,11 +76,12 @@ def make_hyper(alpha=0.0, l1_ratio=0.0, eps=1e-10, hessian_pertubation=0.2,
 
 
 class Coupled(NamedTuple):
-    """A data matrix on the device (dense, CsrMatrix or BlockEll) plus
-    fit-time constants. The sparsity pattern is fixed for a fit, so a sparse
-    matrix comes with the same layout of its transpose, built once on the
-    host: CSR, or BlockEll where the blocks are full enough (then A is
-    A_bell and At is At_bell)."""
+    """A data matrix on the device (dense, CsrMatrix, BlockEll or
+    ChunkedCoo) plus fit-time constants. The sparsity pattern is fixed for
+    a fit, so a CSR matrix comes with the same layout of its transpose,
+    built once on the host: CSR, or BlockEll where the blocks are full
+    enough (then A is A_bell and At is At_bell). A chunked matrix streams
+    its transpose from its own chunks."""
 
     A: Any
     row_sq: Optional[torch.Tensor] = None    # (p,) per-row ‖aᵢ‖²
@@ -96,7 +98,12 @@ class Coupled(NamedTuple):
 def layout_spmm(A, layout, B: torch.Tensor, use_pallas: bool) -> torch.Tensor:
     """A @ B for dense, CSR or BlockEll A: under ``use_pallas`` through
     A's BlockEll ``layout`` when it has one, else the CSR kernel; otherwise
-    the plain product. Layouts are built once per fit by as_coupled."""
+    the plain product. Layouts are built once per fit by as_coupled. A
+    chunked A (or its transpose, ChunkedT) streams its chunks."""
+    if isinstance(A, ChunkedT):
+        return chunked_spmm_t(A.ck, B)
+    if is_chunked(A):
+        return chunked_spmm(A, B)
     if use_pallas and layout is not None:
         return kbell.bell_spmm(layout, B)
     return generic_matmul(A, B, use_pallas)
@@ -104,10 +111,12 @@ def layout_spmm(A, layout, B: torch.Tensor, use_pallas: bool) -> torch.Tensor:
 
 def coupled_mm(C: Coupled, B: torch.Tensor, transpose: bool = False,
                use_pallas: bool = False) -> torch.Tensor:
-    """C.A @ B (or C.Aᵀ @ B) for dense or sparse data (see layout_spmm)."""
+    """C.A @ B (or C.Aᵀ @ B) for dense, sparse or chunked data (see
+    layout_spmm)."""
     if not transpose:
         return layout_spmm(C.A, C.A_bell, B, use_pallas)
-    At = C.At if is_sparse(C.A) else C.A.mT
+    At = (ChunkedT(C.A) if is_chunked(C.A) else C.At if is_sparse(C.A)
+          else C.A.mT)
     return layout_spmm(At, C.At_bell, B, use_pallas)
 
 

@@ -14,12 +14,16 @@ those make the eval-point loss free of extra passes over X
 (``_aux_loss``). CSR X takes the unfused order, its products through the
 BlockEll or CSR kernels (``solvers/common.coupled_mm``), and the same aux
 loss. Every ratio tail is the fused MU update kernel under ``use_pallas``
-(``ops/kernels/mu_update.py``).
+(``ops/kernels/mu_update.py``). A chunked X (``ops/chunked.py``) takes the
+single-pass order on any setting: one streamed pass returns U_new and V's
+X-side terms (through K1 per chunk under ``use_pallas``), and the aux loss
+reads the layout's Σ data².
 """
 from __future__ import annotations
 
 import torch
 
+from ..ops.chunked import chunked_mu_u_pass, is_chunked
 from ..ops.kernels import mu_fused, mu_update
 from ..ops.losses import penalty, reconstruction_term, total_loss
 from ..ops.matmul import gram, matmul
@@ -38,7 +42,12 @@ def mu_ratio_update(M, S, num, l1, l2, eps, use_pallas: bool = False):
 
 def _fused(cfg: SolverConfig, X: Coupled, U) -> bool:
     return cfg.use_pallas and cfg.update_U and cfg.update_V \
-        and not is_sparse(X.A) and U.dtype != torch.bfloat16
+        and not is_sparse(X.A) and not is_chunked(X.A) \
+        and U.dtype != torch.bfloat16
+
+
+def _chunked(cfg: SolverConfig, X: Coupled) -> bool:
+    return is_chunked(X.A) and cfg.update_U and cfg.update_V
 
 
 def make_mu_step(cfg: SolverConfig, with_aux: bool = False):
@@ -54,12 +63,17 @@ def make_mu_step(cfg: SolverConfig, with_aux: bool = False):
 
     def step(X: Coupled, Y, U, V, Z, hyper: Hyper):
         l1, l2, eps = hyper.l1, hyper.l2, hyper.eps
-        if _fused(cfg, X, U):
-            # Single fused U pass: U_new plus the X side of V's numerator
-            # and Gram, the same values as the U → Z → V order.
+        if _fused(cfg, X, U) or _chunked(cfg, X):
+            # Single U pass (fused kernel, or the chunked stream): U_new
+            # plus the X side of V's numerator and Gram, the same values
+            # as the U → Z → V order.
             VtV = gram(V)
-            U, num_vx, gram_u = mu_fused.fused_mu_u_pass(
-                X.A, U, V, VtV, l1, l2, eps)
+            if is_chunked(X.A):
+                U, num_vx, gram_u = chunked_mu_u_pass(X.A, U, V, VtV, l1,
+                                                      l2, eps, up)
+            else:
+                U, num_vx, gram_u = mu_fused.fused_mu_u_pass(
+                    X.A, U, V, VtV, l1, l2, eps)
             if cfg.has_Y and cfg.update_Z:
                 num = coupled_mm(Y, V, transpose=True, use_pallas=up)
                 Z = mu_ratio_update(Z, VtV, num, l1, l2, eps, up)
@@ -104,8 +118,8 @@ def _aux_loss(cfg: SolverConfig):
     def loss_fn(state, aux, hyper: Hyper):
         X, Y, U, V, Z = state
         num_vx, gram_u = aux
-        # a CSR X carries its own Σ data²
-        a_sq = X.A.sq_norm if is_sparse(X.A) else X.a_sq
+        # a CSR or chunked X carries its own Σ data²
+        a_sq = X.A.sq_norm if is_sparse(X.A) or is_chunked(X.A) else X.a_sq
         inner = (num_vx * V).sum()
         x_term = 0.5 * (a_sq - 2.0 * inner + (gram_u * gram(V)).sum())
         loss = x_term + penalty(U, hyper.alpha, hyper.l1_ratio) \
@@ -125,7 +139,10 @@ def _aux_ok(cfg: SolverConfig, X: Coupled, U0) -> bool:
     runs with both U and V updated (fresh aux every step), ‖X‖² is known,
     and not the small dense mixed-precision regime where the factored
     identity suffers cancellation (ops/losses.py takes the direct residual
-    there)."""
+    there). A chunked X computes the aux pair on any setting, and is far
+    past that regime by construction."""
+    if _chunked(cfg, X):
+        return True
     if not (cfg.use_pallas and cfg.update_U and cfg.update_V):
         return False
     if is_sparse(X.A):

@@ -32,12 +32,20 @@ sees (Yᵀ, V); the shared V sees (Xᵀ, U) and (Y, Z). With ``use_pallas``:
   every line-search candidate's objective in one more pass
   (``ops/kernels/sigmoid_newton.py``, ``ops/kernels/batched_solve.py``);
 - every per-row Gauss-Newton system goes through the batched SPD solve
-  kernel (the full form's may be indefinite: an LU solve, as the
-  reference's ``jnp.linalg.solve``);
+  kernel, and every per-row system of the full form (which may be
+  indefinite) through its LU route (``batched_lu_solve``, as the
+  reference's ``jnp.linalg.solve``), at any k: no per-row solve leaves
+  the kernels, so the device loop captures every such step;
 - a linear term over sparse data forms D B through its BlockEll layout or
   the CSR kernel (``solvers/common.layout_spmm``); the fused U pass and the
   fused sigmoid passes take dense data, the full batch and the
   Gauss-Newton form only.
+
+A chunked X (``ops/chunked.py``) streams: a linear U leg in one pass that
+also returns V's X-side terms (K2 per chunk under ``use_pallas``), a
+sigmoid U leg row-local per chunk, and V's (and a chunked sigmoid Y's Z)
+terms accumulated over the chunks (``solvers/newton_chunked.py``, the
+``ChunkedT`` marker). A sampled chunked term takes its draw as a mask.
 """
 from __future__ import annotations
 
@@ -45,6 +53,9 @@ from typing import Any, NamedTuple, Optional
 
 import torch
 
+from ..ops.chunked import (ChunkedT, chunked_masked_col_sq,
+                           chunked_masked_row_sq,
+                           chunked_newton_linear_u_pass, is_chunked)
 from ..ops.kernels import batched_solve, newton_fused, sigmoid_newton
 from ..ops.linesearch import backtracking_select, backtracking_select_table
 from ..ops.links import LINEAR
@@ -54,12 +65,20 @@ from ..ops.matmul import gram, matmul
 from ..ops.sparse import is_sparse, masked_row_sq_norms, row_sq_norms
 from .common import (Coupled, Hyper, SolverConfig, block_graph, layout_spmm,
                      run_solver_loop)
+from .newton_chunked import (ChunkedSigRowCtx, ChunkedTSigCtx,
+                             chunked_sigmoid_colwise_phi,
+                             chunked_sigmoid_colwise_terms,
+                             chunked_sigmoid_row_update,
+                             chunked_sigmoid_rowwise_phi,
+                             chunked_sigmoid_rowwise_terms)
 
 
 class Term(NamedTuple):
     """One coupled data term of a factor update: D ≈ f(M Bᵀ) row-wise.
 
-    D      : dense, or a CsrMatrix (linear terms only)
+    D      : dense; a CsrMatrix (linear terms only); a ChunkedCoo (rows
+             of the factor are X's rows), or ChunkedT of one (they are
+             X's columns)
     row_sq : optional precomputed per-row ‖dᵢ‖² (fit-time constant)
     DB     : optional precomputed D @ B (p, k), e.g. the XᵀU_new the fused
              U pass returns, which saves V's update its own pass over X
@@ -144,11 +163,11 @@ def sample_mask(gen, q: int, ratio: float, dtype):
 def _sample_term(gen, term: Term, ratio: float, dtype):
     """(term, mask) of one sampled term (the reference's per-term draw,
     ``pycmf_tpu/solvers/newton.py:360-381``). Dense D takes the gathered
-    columns; sparse D keeps its layout and returns the draw as a mask. The
-    caches (row_sq, DB, BtB) describe the full term and go (for sparse D
-    only when a mask is drawn, as in the reference)."""
+    columns; sparse and chunked D keep their layout and return the draw as
+    a mask. The caches (row_sq, DB, BtB) describe the full term and go
+    (for such D only when a mask is drawn, as in the reference)."""
     D, B = term.D, term.B
-    if is_sparse(D):
+    if is_sparse(D) or is_chunked(D) or isinstance(D, ChunkedT):
         mask = sample_mask(gen, B.shape[0], ratio, dtype)
         if mask is None:
             return term, None
@@ -165,13 +184,24 @@ def _accumulate_term(M, term: Term, link: str, use_pallas: bool = False,
     ``pycmf_tpu/solvers/newton.py:_accumulate_term``."""
     D, B, row_sq, db, btb, layout = term
     if link != LINEAR:
+        if isinstance(D, ChunkedT):
+            # V's X term on a chunked X (or Z's on a chunked Y): G and H
+            # accumulate over the forward chunks, φ streams them
+            G, H_rows = chunked_sigmoid_colwise_terms(D.ck, M, B,
+                                                      hessian_form, mask)
+            return G, None, H_rows, ChunkedTSigCtx(D.ck, B, mask)
+        if is_chunked(D):
+            # M's rows are D's rows (V against a chunked sigmoid Y)
+            G, H_rows = chunked_sigmoid_rowwise_terms(D, M, B, hessian_form,
+                                                      mask)
+            return G, None, H_rows, ChunkedSigRowCtx(D, B, mask)
         if is_sparse(D):
-            # unreachable through the estimator, which densifies a
-            # sigmoid-linked sparse matrix under Newton
+            # unreachable through the estimator, which densifies or
+            # streams a sigmoid-linked sparse matrix under Newton
             raise NotImplementedError(
-                "Newton sigmoid-link terms need dense D (the update "
-                "materializes sigmoid predictions per row block); the "
-                "streamed layout is ROADMAP A8")
+                "Newton sigmoid-link terms need dense D or a chunked layout "
+                "(the update materializes sigmoid predictions per row "
+                "block)")
         G, H_rows = sigmoid_newton.sigmoid_gh_rows(D, M, B, hessian_form,
                                                    mask)
         return G, None, H_rows, _SigmoidCtx(D, B, mask)
@@ -181,11 +211,14 @@ def _accumulate_term(M, term: Term, link: str, use_pallas: bool = False,
         mv = mask.to(M.dtype)
         Bm = B * mask[:, None].to(B.dtype)
         BtB = gram(Bm)
-        if is_sparse(D):
-            DB = layout_spmm(D, layout, Bm, use_pallas)
+        DB = layout_spmm(D, layout, Bm, use_pallas)
+        if isinstance(D, ChunkedT):
+            row_sq = chunked_masked_col_sq(D.ck, mv)
+        elif is_chunked(D):
+            row_sq = chunked_masked_row_sq(D, mv)
+        elif is_sparse(D):
             row_sq = masked_row_sq_norms(D, mv, use_pallas)
         else:
-            DB = matmul(D, Bm)
             Df = D.to(M.dtype)
             row_sq = (Df * Df) @ mv
         G = matmul(M, BtB) - DB
@@ -194,6 +227,10 @@ def _accumulate_term(M, term: Term, link: str, use_pallas: bool = False,
     DB = layout_spmm(D, layout, B, use_pallas) if db is None else db
     G = matmul(M, BtB) - DB
     if row_sq is None:
+        if is_chunked(D) or isinstance(D, ChunkedT):
+            raise ValueError(
+                "chunked Newton terms need their precomputed row_sq (a "
+                "fit-time constant: see as_coupled)")
         if is_sparse(D):
             row_sq = row_sq_norms(D)
         else:
@@ -207,6 +244,10 @@ def _phi_term(Mc, ctx) -> torch.Tensor:
     (rows on the second-to-last axis, any leading candidate axes)."""
     if isinstance(ctx, _SigmoidCtx):
         return sigmoid_sq_rows(ctx.D, Mc, ctx.B, ctx.mask)
+    if isinstance(ctx, ChunkedTSigCtx):
+        return chunked_sigmoid_colwise_phi(ctx, Mc)
+    if isinstance(ctx, ChunkedSigRowCtx):
+        return chunked_sigmoid_rowwise_phi(ctx, Mc)
     quad = torch.sum(matmul(Mc, ctx.BtB) * Mc, dim=-1)
     return 0.5 * (ctx.row_sq - 2.0 * torch.sum(ctx.DB * Mc, dim=-1) + quad)
 
@@ -223,16 +264,19 @@ def _cholesky(H):
 def _solve_direction(H_shared, H_rows, G, use_pallas: bool,
                      spd: bool = True):
     """d = H⁻¹ g for all rows. H_rows None: one shared k×k SPD system (all
-    links linear), one Cholesky. Else per-row systems H_rows + H_shared:
-    when they are SPD (``spd``: the Gauss-Newton form) the batched SPD
-    solve kernel under use_pallas, which adds H_shared as it reads each
-    system; otherwise (use_pallas off, or the full form, whose systems may
-    be indefinite) an LU solve of the sum (torch.linalg.solve_ex: no host
-    sync). Reference: ``pycmf_tpu/solvers/newton.py:_solve_direction``."""
+    links linear), one Cholesky. Else per-row systems H_rows + H_shared,
+    under use_pallas through the batched solve kernel, which adds H_shared
+    as it reads each system: its Cholesky routes when they are SPD
+    (``spd``: the Gauss-Newton form), its LU route otherwise (the full
+    form's systems may be indefinite). With use_pallas off, an LU solve of
+    the sum (torch.linalg.solve_ex: no host sync). Reference:
+    ``pycmf_tpu/solvers/newton.py:_solve_direction``."""
     if H_rows is None:
         return torch.cholesky_solve(G.mT, _cholesky(H_shared)).mT
-    if use_pallas and spd:
-        return batched_solve.batched_spd_solve(H_rows, G, H_shared)
+    if use_pallas:
+        if spd:
+            return batched_solve.batched_spd_solve(H_rows, G, H_shared)
+        return batched_solve.batched_lu_solve(H_rows, G, H_shared)
     return torch.linalg.solve_ex(H_rows + H_shared, G[..., None])[0][..., 0]
 
 
@@ -291,9 +335,10 @@ def newton_update_factor(rng, M, terms, links, hyper: Hyper, *,
 
 def fused_sigmoid_allowed(cfg: SolverConfig, A, M) -> bool:
     """Whether a sigmoid-linked factor takes fused_sigmoid_update: kernels
-    on, dense data A, full batch, Gauss-Newton form (SPD systems for the
+    on, dense data A (a chunked A takes it chunk by chunk inside
+    newton_chunked), full batch, Gauss-Newton form (SPD systems for the
     batched solve), float factors."""
-    return (cfg.use_pallas and not is_sparse(A)
+    return (cfg.use_pallas and not is_sparse(A) and not is_chunked(A)
             and cfg.sg_sample_ratio >= 1.0
             and cfg.hessian_form == "gauss" and M.dtype != torch.bfloat16)
 
@@ -363,14 +408,18 @@ def fused_newton_u_allowed(cfg: SolverConfig, A, row_sq, U) -> bool:
     returns."""
     return (cfg.use_pallas and cfg.update_U and cfg.update_V
             and cfg.x_link == LINEAR and cfg.sg_sample_ratio >= 1.0
-            and not is_sparse(A) and U.dtype != torch.bfloat16
+            and not is_sparse(A) and not is_chunked(A)
+            and U.dtype != torch.bfloat16
             and row_sq is not None)
 
 
 def _transposed(C: Coupled):
-    """C.A transposed: the layout of Aᵀ for sparse data; for dense data the
-    contiguous copy run_newton makes when there is one (the card's fused
-    sigmoid passes need it), else a view."""
+    """C.A transposed: the layout of Aᵀ for sparse data; a chunked A marked
+    as its transpose (ChunkedT: its forward chunks are streamed); for dense
+    data the contiguous copy run_newton makes when there is one (the card's
+    fused sigmoid passes need it), else a view."""
+    if is_chunked(C.A):
+        return ChunkedT(C.A)
     return C.A.mT if C.At is None else C.At
 
 
@@ -400,10 +449,34 @@ def make_newton_step(cfg: SolverConfig, with_aux=None):
                   use_pallas=cfg.use_pallas)
     fused = dict(trials=cfg.line_search_trials, use_pallas=cfg.use_pallas)
 
+    sampled = cfg.sg_sample_ratio < 1.0
+
     def step(X: Coupled, Y, U, V, Z, hyper: Hyper, rng=None):
         numv_x = gram_u = phi_sum = None
+        x_chunked = is_chunked(X.A)
         if cfg.update_U:
-            if fused_newton_u_allowed(cfg, X.A, X.row_sq, U):
+            if x_chunked and cfg.x_link != LINEAR:
+                # row-local streamed sigmoid update; a sampled step takes
+                # the U term's draw as its column mask
+                col_mask = (sample_mask(rng, X.A.shape[1],
+                                        cfg.sg_sample_ratio, U.dtype)
+                            if sampled else None)
+                U = chunked_sigmoid_row_update(
+                    X.A, U, V, hyper, trials=cfg.line_search_trials,
+                    non_negative=cfg.U_non_negative,
+                    hessian_form=cfg.hessian_form,
+                    use_pallas=cfg.use_pallas, col_mask=col_mask)
+            elif x_chunked and cfg.update_V and not sampled:
+                # one streamed pass: U_new and V's X-side terms (the fused
+                # U pass's contract); a U-only or sampled step takes the
+                # generic term below
+                BtB, Hinv, l1, l2 = shared_gauss_hinv(V, hyper)
+                U, numv_x, gram_u = chunked_newton_linear_u_pass(
+                    X.A, U, V, BtB, Hinv, X.row_sq, l1, l2,
+                    trials=cfg.line_search_trials,
+                    non_negative=cfg.U_non_negative,
+                    use_pallas=cfg.use_pallas)
+            elif fused_newton_u_allowed(cfg, X.A, X.row_sq, U):
                 BtB, Hinv, l1, l2 = shared_gauss_hinv(V, hyper)
                 U, numv_x, gram_u = newton_fused.fused_newton_linear_u_pass(
                     X.A, U, V, BtB, Hinv, X.row_sq, l1, l2,
@@ -492,8 +565,12 @@ def _aux_loss(cfg: SolverConfig):
 
 
 def _aux_ok(cfg: SolverConfig, X: Coupled, U0) -> bool:
-    """The aux loss needs the fused U pass every step, ‖X‖², and not the
-    small mixed-precision cancellation regime (mirrors solvers/mu.py)."""
+    """The aux loss needs a U pass that returns XᵀU_new every step (the
+    fused kernel, or the chunked stream), ‖X‖², and not the small
+    mixed-precision cancellation regime (mirrors solvers/mu.py)."""
+    if is_chunked(X.A):
+        return (cfg.update_U and cfg.update_V and cfg.x_link == LINEAR
+                and cfg.sg_sample_ratio >= 1.0 and X.a_sq is not None)
     if not fused_newton_u_allowed(cfg, X.A, X.row_sq, U0):
         return False
     if X.a_sq is None:
@@ -554,28 +631,15 @@ def _per_row_systems(cfg: SolverConfig) -> bool:
                 and (cfg.update_Z or cfg.update_V)))
 
 
-def captures_on_card(cfg: SolverConfig, k: int) -> bool:
+def captures_on_card(cfg: SolverConfig) -> bool:
     """Whether the Newton step can be captured in a CUDA graph on the
     card: not when its per-row systems (a sigmoid-linked term) reach a
-    library's batched solve instead of K5, that is with use_pallas off,
-    with k > batched_solve.MAX_K (64), or in the full Hessian form (LU:
-    its systems may be indefinite). That solve is MAGMA's batched LU or
-    Cholesky, which allocates device memory inside the call, and a capture
-    refuses that (ROADMAP C3)."""
-    return not _per_row_systems(cfg) or (
-        cfg.use_pallas and k <= batched_solve.MAX_K
-        and cfg.hessian_form == "gauss")
-
-
-def _uncapturable(cfg: SolverConfig, k: int) -> str:
-    """Why captures_on_card refuses (cfg, k)."""
-    if not cfg.use_pallas:
-        return "use_pallas=False solves them by torch.linalg.solve_ex"
-    if cfg.hessian_form != "gauss":
-        return ("hessian_form='full' solves them by LU "
-                "(torch.linalg.solve_ex: they may be indefinite)")
-    return (f"k = {k} > {batched_solve.MAX_K} solves them by "
-            "torch.linalg.solve_ex")
+    library's batched solve instead of K5, which is the plain path's
+    (use_pallas off) torch.linalg.solve_ex: MAGMA's batched LU, which
+    allocates device memory inside the call, and a capture refuses that
+    (ROADMAP C3). Under use_pallas every k and both Hessian forms take K5's
+    routes."""
+    return not _per_row_systems(cfg) or cfg.use_pallas
 
 
 def _make_block(cfg: SolverConfig, aux):
@@ -613,13 +677,13 @@ def run_newton(X: Coupled, Y, U0, V0, Z0, cfg: SolverConfig, hyper: Hyper,
     leaves it where the host loop does."""
     graph = block_graph(loop, U0)
     if U0.is_cuda and graph is not None \
-            and not captures_on_card(cfg, U0.shape[1]):
+            and not captures_on_card(cfg):
         raise NotImplementedError(
             "loop='device' cannot capture this Newton fit on the card: its "
             "per-row systems (a sigmoid link) take a library's batched "
-            f"solve ({_uncapturable(cfg, U0.shape[1])}), which allocates "
-            "device memory inside the call (ROADMAP C3); use loop='host' "
-            "or 'auto'")
+            "solve (use_pallas=False solves them by torch.linalg.solve_ex), "
+            "which allocates device memory inside the call (ROADMAP C3); "
+            "use loop='host' or 'auto'")
     block = _make_block(cfg, _aux_kind(cfg, X, U0))
     X, Y = _with_transposes(cfg, X, Y, V0, Z0)
     state = (X, Y, U0, V0, Z0)

@@ -1,10 +1,10 @@
 """Input/parameter validation and device ingest.
 
-Counterpart of ``pycmf_tpu/utils/validation.py`` (without the chunked and
-fp8 layouts): host matrices (NumPy or scipy.sparse) become ``Coupled``
-operands on the device (dense, CSR or BlockEll), with the per-row and
-total squared norms computed once on the host in float64 from the
-unquantized values.
+Counterpart of ``pycmf_tpu/utils/validation.py`` (without the fp8
+layouts, ROADMAP A9): host matrices (NumPy or scipy.sparse) become
+``Coupled`` operands on the device (dense, CSR, BlockEll or chunked COO),
+with the per-row and total squared norms computed once on the host in
+float64 from the unquantized values.
 """
 from __future__ import annotations
 
@@ -12,6 +12,7 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
+from ..ops.chunked import chunked_from_scipy
 from ..ops.kernels.bell import BELL_MIN_FILL, bell_from_scipy
 from ..ops.links import LINEAR, SIGMOID
 from ..ops.matmul import FP8_DTYPES
@@ -34,19 +35,22 @@ def _norms(fdt, device, row_sq, col_sq, total) -> dict:
 
 def as_coupled(A, dtype, device, use_pallas: bool = False,
                sparse_mode: str = "auto",
-               densify_threshold: int = DENSIFY_THRESHOLD) -> Coupled:
+               densify_threshold: int = DENSIFY_THRESHOLD,
+               chunked_ok: bool = False) -> Coupled:
     """Convert a host matrix to a ``Coupled`` on ``device``, stored at
     ``dtype`` (float32, float64 or bfloat16; norms at float32 under bf16).
 
     sparse_mode (scipy.sparse input only; dense input uploads as is):
       'auto'    densify when the dense copy at the storage dtype fits
-                ``densify_threshold``, else 'csr';
+                ``densify_threshold``, else 'chunked' if ``chunked_ok``
+                (the caller's consumer streams it), else 'csr';
       'csr'     keep CSR on the device, with the CSR of Aᵀ; under
                 ``use_pallas``, BlockEll layouts of A and Aᵀ instead when
                 both fit the threshold and fill at least
                 ``bell.BELL_MIN_FILL``;
       'dense'   always densify;
-      'chunked' the streamed layout, not ported yet (ROADMAP A8).
+      'chunked' the streamed chunked-COO layout (``ops/chunked.py``), with
+                the host's norms; fp8 data raises (ROADMAP A9).
     """
     if dtype in FP8_DTYPES:
         raise NotImplementedError(
@@ -68,10 +72,8 @@ def as_coupled(A, dtype, device, use_pallas: bool = False,
     nbytes_dense = A.shape[0] * A.shape[1] * dtype.itemsize
     mode = sparse_mode
     if mode == "auto":
-        mode = "dense" if nbytes_dense <= densify_threshold else "csr"
-    if mode == "chunked":
-        raise NotImplementedError(
-            "sparse_mode='chunked' is not ported yet (ROADMAP A8)")
+        mode = ("dense" if nbytes_dense <= densify_threshold
+                else "chunked" if chunked_ok else "csr")
     # Host float64 norms of the unquantized values, stored at fdt (float32
     # under bf16 data: they feed the line-search objectives).
     coo = A.tocoo()
@@ -81,6 +83,8 @@ def as_coupled(A, dtype, device, use_pallas: bool = False,
     row_sq = np.bincount(coo.row, weights=sq64, minlength=n)
     col_sq = np.bincount(coo.col, weights=sq64, minlength=m)
     norms = _norms(fdt, device, row_sq, col_sq, sq64.sum())
+    if mode == "chunked":
+        return Coupled(chunked_from_scipy(coo, dtype, device), **norms)
     if mode == "csr":
         # ‖A‖² of a sparse layout is its own sq_norm (of the stored values)
         sparse_norms = dict(row_sq=norms["row_sq"],

@@ -229,7 +229,7 @@ def test_block_graph_by_loop_and_device():
     (dict(loop="auto", solver="newton", n_components=40), True, "device"),
     (dict(loop="auto", solver="newton", y_link="sigmoid"), True, "device"),
     (dict(loop="auto", solver="newton", y_link="sigmoid",
-          n_components=65), True, "host"),
+          n_components=65), True, "device"),
     (dict(loop="auto", solver="newton", x_link="sigmoid",
           use_pallas=False), True, "host"),
     (dict(loop="auto", solver="mu", use_pallas=False, n_components=40),
@@ -237,7 +237,7 @@ def test_block_graph_by_loop_and_device():
     (dict(loop="auto", solver="newton", y_link="sigmoid",
           n_components=40), True, "device"),
     (dict(loop="auto", solver="newton", y_link="sigmoid",
-          hessian_form="full"), True, "host"),
+          hessian_form="full"), True, "device"),
     (dict(loop="auto", solver="newton", sg_sample_ratio=0.25,
           y_link="sigmoid"), True, "device"),
 ])
@@ -264,34 +264,38 @@ def test_resolve_loop_verbose_auto_is_host_in_both_packages():
     (dict(y_link="sigmoid", update_Z=False, update_V=False), 40, True),
     (dict(use_pallas=False), 20, True),
     (dict(y_link="sigmoid"), 64, True),
-    (dict(y_link="sigmoid"), 65, False),
-    (dict(y_link="sigmoid", hessian_form="full"), 20, False),
-    (dict(x_link="sigmoid", hessian_form="full"), 20, False),
+    (dict(y_link="sigmoid"), 65, True),
+    (dict(y_link="sigmoid", hessian_form="full"), 20, True),
+    (dict(x_link="sigmoid", hessian_form="full"), 20, True),
     (dict(hessian_form="full"), 20, True),
     (dict(y_link="sigmoid", sg_sample_ratio=0.25), 20, True),
 ])
 def test_captures_on_card(kw, k, want):
     """Per-row systems (a sigmoid link) through a library's batched solve
-    (use_pallas off, k > 64, or the full Hessian form's LU) cannot be
-    captured on the card."""
+    (use_pallas off) cannot be captured on the card; under use_pallas K5
+    takes every k (its block route above 64) and the full Hessian form
+    (its LU route)."""
     kw = dict(dict(use_pallas=True), **kw)
-    assert captures_on_card(SolverConfig(**kw), k) is want
+    assert captures_on_card(SolverConfig(**kw)) is want
 
 
 @pytest.mark.parametrize("kw,why", [
     (dict(y_link="sigmoid", use_pallas=False), "use_pallas=False"),
-    (dict(y_link="sigmoid", hessian_form="full"), "hessian_form='full'"),
-    (dict(x_link="sigmoid"), "k = 65 > 64")])
+    (dict(y_link="sigmoid", hessian_form="full", use_pallas=False),
+     "use_pallas=False"),
+    (dict(x_link="sigmoid", use_pallas=False), "use_pallas=False k=65")])
 def test_device_loop_on_card_refuses_uncapturable_fit_naming_c3(
         monkeypatch, kw, why):
-    """loop='device' on a fit the card cannot capture raises, naming C3
-    and the case; it does not fall back to the host loop. (A card is
-    faked: the refusal comes before any work.)"""
+    """loop='device' on a fit the card cannot capture (per-row systems on
+    the plain path's library solve) raises, naming C3 and the case, at
+    any k and either Hessian form; it does not fall back to the host
+    loop. (A card is faked: the refusal comes before any work.)"""
     from pycmf_tpu_torch.solvers import newton as tnewton
 
     monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda t: True))
     monkeypatch.setattr(tnewton, "block_graph", lambda loop, U: object())
     k = 65 if "65" in why else 20
+    why = why.split(" ")[0]
     cfg = SolverConfig(**dict(dict(use_pallas=True), **kw))
     U0 = torch.zeros(3, k)
     with pytest.raises(NotImplementedError, match="ROADMAP C3") as e:

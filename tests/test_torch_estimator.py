@@ -273,7 +273,7 @@ def test_import_pulls_in_no_jax():
 @pytest.mark.parametrize("kw,match", [
     (dict(n_shards=2), "ROADMAP A10"),
     (dict(data_dtype="fp8"), "ROADMAP A9"),
-    (dict(sparse_mode="chunked"), "ROADMAP A8")])
+    (dict(data_dtype="fp8", sparse_mode="chunked"), "ROADMAP A9")])
 def test_out_of_slice_requests_raise(rng, kw, match):
     X, Y = make_problem(rng)
     with pytest.raises(NotImplementedError, match=match):
@@ -281,17 +281,27 @@ def test_out_of_slice_requests_raise(rng, kw, match):
 
 
 def test_beyond_densify_threshold_raises(rng):
-    """'auto' past the threshold keeps CSR; the streamed layout, asked for
-    by name, raises naming ROADMAP A8."""
+    """The port's 'auto' rule past the threshold: CSR unless the consumer
+    streams the matrix (chunked_ok: a sigmoid-linked one under Newton),
+    then the chunked layout; the streamed layout asked for by name is
+    built either way."""
+    from pycmf_tpu_torch.ops.chunked import is_chunked
     from pycmf_tpu_torch.ops.sparse import is_sparse
     from pycmf_tpu_torch.utils.validation import as_coupled
 
     X = sp.csr_matrix(np.eye(40))
     C = as_coupled(X, torch.float32, "cpu", densify_threshold=100)
     assert is_sparse(C.A) and is_sparse(C.At)
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        as_coupled(X, torch.float32, "cpu", densify_threshold=100,
-                   sparse_mode="chunked")
+    C = as_coupled(X, torch.float32, "cpu", densify_threshold=100,
+                   chunked_ok=True)
+    assert is_chunked(C.A)
+    assert is_chunked(as_coupled(X, torch.float32, "cpu",
+                                 sparse_mode="chunked").A)
+    assert not is_sparse(as_coupled(X, torch.float32, "cpu",
+                                    chunked_ok=True).A)  # below: dense
+    est = CMF(n_components=2, solver="newton", device="cpu")
+    assert est._chunked_ok("sigmoid") and not est._chunked_ok("linear")
+    assert not CMF(n_components=2, device="cpu")._chunked_ok("sigmoid")
 
 
 def test_cuda_device_without_cuda_raises(rng, monkeypatch):

@@ -458,6 +458,8 @@ def lean_entry(monkeypatch):
         rec.loads.append(name)
         return types.SimpleNamespace(
             pycmf_batched_spd_solve=entry, pycmf_mu_update=entry,
+            pycmf_batched_block_solve=entry,
+            pycmf_block_solve_max_k=lambda dev: 239,
             pycmf_error_string=lambda rc: b"fake failure")
 
     def raw_stream(dev):
@@ -521,22 +523,18 @@ def test_lean_launch_refuses_float64_naming_c1(lean_entry, kernel):
 @pytest.mark.parametrize("k,route", [(32, "batched_spd_solve"),
                                      (33, "batched_spd_solve_wide"),
                                      (64, "batched_spd_solve_wide"),
-                                     (65, None)])
+                                     (65, "batched_spd_solve_block")])
 def test_batched_solve_dispatch_boundary(lean_entry, k, route):
-    """On the card k <= 64 launches the kernel (its wide route above 32,
-    counted apart); k = 65 takes torch.linalg.solve_ex on the sum, as the
-    reference takes jnp.linalg.solve, and launches nothing."""
+    """On the card every k launches the kernel: its wide route above 32
+    and its block route above 64 (each counted apart), where the
+    reference takes jnp.linalg.solve."""
     H = torch.eye(k).expand(3, k, k).contiguous()
     G, Hs = torch.rand(3, k), torch.eye(k)
     policy.reset_launch_counts()
-    out = batched_solve.batched_spd_solve(H, G, Hs)
+    batched_solve.batched_spd_solve(H, G, Hs)
     counts = {n: c for n, c in policy.launch_counts().items() if c}
-    if route is None:
-        assert lean_entry.calls == [] and counts == {}
-        torch.testing.assert_close(out, G / 2)
-    else:
-        assert len(lean_entry.calls) == 1 and counts == {route: 1}
-        assert lean_entry.calls[0][4] == k  # (H, Hs, G, p, k, out, dev, st)
+    assert len(lean_entry.calls) == 1 and counts == {route: 1}
+    assert lean_entry.calls[0][4] == k  # (H, Hs, G, p, k, ...)
 
 
 def test_mu_update_tile_rows_cover_each_row_once():

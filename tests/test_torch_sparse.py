@@ -429,12 +429,22 @@ def test_reconstruction_term_csr_f64(rng, use_pallas):
 
 @pytest.mark.parametrize("layout", ["csr", "bell"])
 def test_sigmoid_term_on_sparse_layout_raises(rng, layout):
-    """Sigmoid terms take dense data: the estimator densifies a
-    sigmoid-linked sparse matrix before any loss is evaluated."""
+    """A sigmoid term over a BlockEll layout raises (the estimator never
+    makes one for a sigmoid-linked matrix); over CSR it is the reference's
+    ΣS² + Σ_nnz(a² − 2a·S), f64 rtol 1e-12."""
     A = block_sparse_matrix(384, 256, 0.5, rng)
     L = (tsparse.csr_from_scipy(A, torch.float64) if layout == "csr"
          else tbell.bell_from_scipy(A, torch.float64))
     assert tsparse.is_sparse(L)
+    M, B = 0.3 * rng.randn(384, 3), 0.3 * rng.randn(256, 3)
+    if layout == "csr":
+        want = jlosses.reconstruction_term(
+            jsparse.csr_from_scipy(A, dtype=jnp.float64), jnp.asarray(M),
+            jnp.asarray(B), "sigmoid")
+        got = tlosses.reconstruction_term(L, torch.from_numpy(M),
+                                          torch.from_numpy(B), "sigmoid")
+        np.testing.assert_allclose(float(got), float(want), rtol=1e-12)
+        return
     with pytest.raises(NotImplementedError, match="dense data"):
         tlosses.reconstruction_term(L, torch.zeros(384, 3),
                                     torch.zeros(256, 3), "sigmoid")
