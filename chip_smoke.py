@@ -35,7 +35,12 @@ Phases (any failure exits non-zero and prints no ok line):
     on its transpose, beside a BSR torch.sparse.mm, and the
     fill at which it and csr_spmm take equal device time; edge cases at small
     shapes (k up to 100), each kernel's output and scratch NaN-filled
-    before one call;
+    before one call; the fp8 forms of K1 and K2 (e4m3 X 30000 x 11314, k =
+    20 and 40) and of K3 and K4 (the dense sigmoid-X shape and its
+    transpose), each against its plain version and against its own bf16
+    form on X widened to bf16 (bit for bit), timed beside that bf16 form,
+    with the bound at 1 byte per element, and at the edges (n in {1, 17,
+    20}, m or q in {1, 15, 17, 4097, 11314}, X at odd byte offsets);
  4. MU fit of the 20NG-shaped surrogate, bf16 X, through the estimator:
     kernel launches, and the exact (float64) loss non-increasing along the
     fit, replayed as warm-started segments;
@@ -65,7 +70,13 @@ Phases (any failure exits non-zero and prints no ok line):
     bf16, MU, 10 iterations, chunked against CSR: ms/iter, device ms/iter,
     idle share, the layout's padding) and path KRS (its binarised form,
     sigmoid X under 'auto', which must resolve to the chunked layout,
-    Newton, 2 iterations: s/iter, launches, peak memory); then MU, Newton
+    Newton, 2 iterations: s/iter, launches, peak memory); fp8 storage
+    (data_dtype='fp8'): the ingest (the e4m3 bytes against the host's
+    conversion, the peak of its float32 buffer), 'csr' and 'chunked'
+    refused with the reference's ValueError, and the MU cell, path A and
+    path B as fit_phase runs them (K1, K2, K3/K4's fp8 forms counted
+    apart, the bf16 forms of K1 and K2 launched no time, the exact loss on
+    the quantized X, peak device memory); then MU, Newton
     linear, paths A to D, F, S and SD and path A at k = 40 under
     torch.profiler
     (device time by kernel, idle share, launches per iteration, and on
@@ -74,8 +85,9 @@ Phases (any failure exits non-zero and prints no ok line):
     captured once per fit, replayed per block; what loop='auto' runs on
     the card, so phases 4-7 run it too) against the host loop on MU,
     Newton linear and paths A, C, D, F, S, S4 and SD and the MU cell and
-    path A at k = 40, and paths H, A at k = 100, K, KA, KB and KS (bit
-    for bit required), two fits per loop: the same n_iter_ and eval
+    path A at k = 40, and paths H, A at k = 100, K, KA, KB, KS and the
+    fp8 MU cell, path A and path B (bit for bit required), two fits per
+    loop: the same n_iter_ and eval
     points, losses within 1e-6 relative, factors within 1e-5, equal
     launch counts (a sampled fit equal bit for bit only if each replay
     draws anew); each loop's
@@ -91,10 +103,14 @@ Phases (any failure exits non-zero and prints no ok line):
     shared factors (step_agreement: factors 1e-4 (MU) or 1e-3 (Newton),
     exact loss 1e-6); one step of path K against one dense MU step on the
     same data (factors 1e-4); K5's block route on path A's own systems at
-    k = 100, call by call against its plain version (1e-3); and the final
+    k = 100, call by call against its plain version (1e-3); the fp8 MU
+    cell and path A step by step against their plain versions (5 steps),
+    and each fp8 path (MU 20, A 20, B 10 iterations) against the bf16 fit
+    of the quantized X from the same factors, bit for bit, with the
+    fold-in of 1000 rows; and the final
     losses of MU, path A, path C and path D against the NumPy baselines
     (2% guard);
- 9. transform of 1000 new rows, dense (MU) and CSR (path C).
+ 9. transform of 1000 new rows, dense (MU), CSR (path C) and fp8 (MU).
 Each fit is run with the launch counts set to 0 just before it and read
 just after. Standard output ends with the fits' record, the card's name and
 power limit, the kernels' JSON record and, last, {"ok": true, ...}.
@@ -314,11 +330,13 @@ def newton_rows_agree(got, want) -> float:
 
 def own_products(torch, mu_fused, X, got):
     """Relative Frobenius errors of numV and gramU against the plain
-    products Xᵀ round_X(U_new) and U_newᵀ U_new of the kernel's own U_new
-    (0 where both are 0)."""
+    products Xᵀ round(U_new) and U_newᵀ U_new of the kernel's own U_new,
+    rounded to X's operand dtype (bf16 for e4m3 X; 0 where both are 0)."""
+    from pycmf_tpu_torch.ops.matmul import operand_dtype
+
     unew = got[0]
-    want = (mu_fused._acc_matmul(X.mT, unew.to(X.dtype), torch.float32),
-            unew.mT @ unew)
+    want = (mu_fused._acc_matmul(X.mT, unew.to(operand_dtype(X.dtype)),
+                                 torch.float32), unew.mT @ unew)
     return tuple(0.0 if not bool(w.any()) and not bool(g.any())
                  else rel_fro(g, w) for g, w in zip(got[1:], want))
 
@@ -1911,6 +1929,472 @@ def step_vs_dense(check, make_est, X, Y, k, label, bar):
     return far
 
 
+# -- fp8 data storage (data_dtype='fp8': e4m3 X, ROADMAP A9) ---------------
+
+E4M3 = "float8_e4m3fn"
+
+
+def quantized(torch, A):
+    """Host matrix A with its values rounded to e4m3 as the port's ingest
+    rounds them (through float32), as float64: the data an fp8 fit fits."""
+    import numpy as np
+    import scipy.sparse as sp
+
+    def q(a):
+        return torch.from_numpy(np.asarray(a, dtype=np.float32)).to(
+            torch.float8_e4m3fn).double().numpy()
+    if sp.issparse(A):
+        A = A.tocsr(copy=True).astype(np.float64)
+        A.data = q(A.data)
+        return A
+    return q(A)
+
+
+def fp8_pair_equal(torch, got, bf16):
+    """Whether every output of an fp8 form equals its bf16 form's bit for
+    bit (outputs: a tensor or a tuple of them)."""
+    if isinstance(got, torch.Tensor):
+        got, bf16 = (got,), (bf16,)
+    return all(bool(torch.equal(a, b)) for a, b in zip(got, bf16))
+
+
+def fp8_u_pass_phase(check, torch, mu_fused, newton_fused):
+    """Phase 3, the fp8 forms of K1 and K2: e4m3 X 30000 x 11314 (the
+    bf16 inputs of u_pass_phase rounded to e4m3, subnormals among them) at
+    k = 20 and k = 40 (the wide route), each against its plain version
+    (u_pass_phase's bars: K1's U_new rtol 1e-4, numV and gramU 1e-4 relative
+    Frobenius; K2's rows agreeing 0.999, numV 1e-3) and against its own
+    bf16 form on X widened to bf16, bit for bit (the fp8 form keeps the
+    bf16 form's stages in elements: u_pass_common.cuh); outputs NaN-filled,
+    two calls bitwise equal; times of the fp8 form, its bf16 form and the
+    plain version, and the bound at 1 byte per element of X. Then the edges
+    (fp8_u_pass_edges)."""
+    import numpy as np
+
+    rng = np.random.RandomState(SEED)
+    dev = torch.device("cuda")
+    l1, l2, eps, pert = 1e-3, 2e-3, 1e-10, 0.2
+    rec = {}
+    # one draw of the data at k = 40; k = 20 takes the factors' first 20
+    # columns (Xn is then a least-squares problem of rank 40 data)
+    X32, U40, V40, Vn40, Xn32 = upass_inputs(torch, rng, N, M, 40, dev)
+    X, Xn = X32.to(torch.float8_e4m3fn), Xn32.to(torch.float8_e4m3fn)
+    del X32, Xn32
+    Xb, Xnb = X.to(torch.bfloat16), Xn.to(torch.bfloat16)
+    row_sq = (Xn.float() ** 2).sum(dim=1)
+    for k in (K, 40):
+        U, V, Vn = (a[:, :k].contiguous() for a in (U40, V40, Vn40))
+        VtV, BtB, Hinv = upass_mats(torch, V, Vn, l2, pert)
+        nbytes = N * M * 1 + 4 * (3 * N * k + 2 * M * k + 2 * k * k)
+        bms, bby = bound(nbytes, 4.0 * N * M * k, BF16_FLOPS)
+        tag = f"{E4M3}, k={k}"
+        sub = (X.float().abs() < 2 ** -6) & (X.float() != 0)
+        log(f"phase 3: X {tag} (subnormal share "
+            f"{float(sub.float().mean()):.4f})")
+        del sub
+        kw = dict(trials=TRIALS, non_negative=True)
+        calls = {
+            "fused_mu_u_pass": (
+                lambda A: mu_fused.fused_mu_u_pass(A, U, V, VtV, l1, l2, eps),
+                lambda A: mu_fused.fused_mu_u_pass_ref(A, U, V, VtV, l1, l2,
+                                                       eps), X, Xb),
+            "fused_newton_linear_u_pass": (
+                lambda A: newton_fused.fused_newton_linear_u_pass(
+                    A, U, Vn, BtB, Hinv, row_sq, l1, l2, **kw),
+                lambda A: newton_fused.fused_newton_linear_u_pass_ref(
+                    A, U, Vn, BtB, Hinv, row_sq, l1, l2, **kw), Xn, Xnb)}
+        for name, (fn, ref, A, Ab) in calls.items():
+            out, again = nan_filled(lambda: fn(A)), fn(A)
+            bf = fn(Ab)
+            torch.cuda.synchronize()
+            want = ref(A)
+            torch.cuda.synchronize()
+            err = float((out[0] - want[0]).abs().max())
+            if name == "fused_mu_u_pass":
+                ok = bool(torch.allclose(out[0], want[0], rtol=1e-4,
+                                         atol=0.0))
+                e1, e2 = rel_fro(out[1], want[1]), rel_fro(out[2], want[2])
+                check(ok and e1 <= 1e-4 and e2 <= 1e-4,
+                      f"K1[{tag}] U_new rtol 1e-4 {ok} (max abs err "
+                      f"{err:.3g}), numV {e1:.3g}, gramU {e2:.3g} <= 1e-4")
+            else:
+                agree = newton_rows_agree(out[0], want[0])
+                e1 = rel_fro(out[1], want[1])
+                check(agree >= 0.999 and e1 <= 1e-3,
+                      f"K2[{tag}] U_new rows agreeing to rtol 1e-4: "
+                      f"{agree:.6f} >= 0.999 (max abs err {err:.3g}), numV "
+                      f"rel Frobenius {e1:.3g} <= 1e-3")
+            same = fp8_pair_equal(torch, out, again)
+            eq = fp8_pair_equal(torch, out, bf)
+            check(same and eq, f"{name}[{tag}] outputs NaN-filled, two "
+                  f"calls bitwise equal {same}; equal to the bf16 form on "
+                  f"X widened to bf16, bit for bit {eq}")
+            run = lambda: fn(A)  # noqa: E731
+            run_b = lambda: fn(Ab)  # noqa: E731
+            ms, dms = time_ms(run), device_ms(run)
+            bf_ms, bf_dms = time_ms(run_b), device_ms(run_b)
+            pms = time_ms(lambda: ref(A), reps=5)
+            log(f"  {name}[{tag}] fp8 form {ms:.4f} ms (device alone "
+                f"{dms:.4f}); bf16 form on the same values {bf_ms:.4f} "
+                f"({bf_dms:.4f}); plain {pms:.4f} ms; bound {bms:.4f} ms "
+                f"({bby}, 1 byte per element of X)")
+            rec[(name, "fp8", k)] = dict(
+                max_abs_err=err, ms=ms, device_ms=dms, plain_ms=pms,
+                bound_ms=bms, bound_by=bby, bf16_form_ms=bf_ms,
+                bf16_form_device_ms=bf_dms, equal_to_bf16_form=eq)
+            del out, again, bf, want
+    del X, Xn, Xb, Xnb, U, V, Vn, U40, V40, Vn40, row_sq
+    torch.cuda.empty_cache()
+    fp8_u_pass_edges(check, torch, mu_fused, newton_fused)
+    return rec
+
+
+def fp8_u_pass_edges(check, torch, mu_fused, newton_fused):
+    """The fp8 forms of K1 and K2 at the edges of their tiles and of X's
+    byte alignment: n in {1, 17}, m in {1, 15, 17, 4097, 11314} (rows of
+    odd m start on any byte), k in {1, 7, 20, 33, 40, 100}, and X at byte
+    offsets 1 and 3 of its allocation (n = 17, m = 4097 and 11314). Each:
+    outputs and workspace NaN-filled, two calls bitwise equal, equal bit for
+    bit to the bf16 form on X widened to bf16, and against the plain
+    version with u_pass_edges' bars (U_new rtol 1e-4; numV and gramU 1e-4
+    against the plain products of the kernel's own U_new; K2's rows, or
+    float64's clause where m < k makes rounding in any order move rows)."""
+    import numpy as np
+
+    from pycmf_tpu_torch.ops.matmul import operand_dtype
+
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(SEED + 6)
+    l1, l2, eps, pert = 1e-3, 2e-3, 1e-10, 0.2
+    n_cases = 0
+
+    def at_offset(A, off):
+        """A copy of A (fp8) starting `off` bytes into its allocation."""
+        buf = torch.empty(A.numel() + 16, dtype=torch.uint8, device=dev)
+        out = buf[off:off + A.numel()].view(A.dtype).view(A.shape)
+        out.copy_(A)
+        return out
+
+    def one(n, m, k, off=0):
+        X32, U, V, Vn, Xn32 = upass_inputs(torch, rng, n, m, k, dev)
+        Us = U * torch.where(torch.rand_like(U) < 0.5, -1.0, 1.0)
+        VtV, BtB, Hinv = upass_mats(torch, V, Vn, l2, pert)
+        X = X32.to(torch.float8_e4m3fn)
+        Xn = Xn32.to(torch.float8_e4m3fn)
+        if off:
+            X, Xn = at_offset(X, off), at_offset(Xn, off)
+        Xb, Xnb = X.to(torch.bfloat16), Xn.to(torch.bfloat16)
+        row_sq = (Xn.float() ** 2).sum(dim=1)
+        nv = n - 5 if n > 5 else n
+        tag = f"n={n} m={m} k={k} {E4M3}" + (f" at byte {off}" if off else "")
+
+        def mu(A):
+            return mu_fused.fused_mu_u_pass(A, U, V, VtV, l1, l2, eps,
+                                            n_valid=nv)
+        got, again, bf = nan_filled(lambda: mu(X)), mu(X), mu(Xb)
+        torch.cuda.synchronize()
+        want = mu_fused.fused_mu_u_pass_ref(X, U, V, VtV, l1, l2, eps,
+                                            n_valid=nv)
+        ok = bool(torch.allclose(got[0], want[0], rtol=1e-4, atol=1e-30))
+        e1, e2 = own_products(torch, mu_fused, X, got)
+        same, eq = fp8_pair_equal(torch, got, again), \
+            fp8_pair_equal(torch, got, bf)
+        check(ok and e1 <= 1e-4 and e2 <= 1e-4 and same and eq,
+              f"K1[{tag}, n_valid={nv}] U_new rtol 1e-4 {ok}, numV "
+              f"{e1:.3g}, gramU {e2:.3g} <= 1e-4, two calls bitwise equal "
+              f"{same}, equal to the bf16 form {eq}")
+        for trials, nonneg in ((TRIALS, True), (0, False)):
+            Uk = U if nonneg else Us
+            kw = dict(trials=trials, non_negative=nonneg)
+
+            def nt(A):
+                return newton_fused.fused_newton_linear_u_pass(
+                    A, Uk, Vn, BtB, Hinv, row_sq, l1, l2, **kw)
+            got, again, bf = nan_filled(lambda: nt(Xn)), nt(Xn), nt(Xnb)
+            torch.cuda.synchronize()
+            want = newton_fused.fused_newton_linear_u_pass_ref(
+                Xn, Uk, Vn, BtB, Hinv, row_sq, l1, l2, **kw)
+            agree = newton_rows_agree(got[0], want[0])
+            extra, rows_ok = "", agree >= 0.999
+            if not rows_ok:
+                w64 = newton_fused.fused_newton_linear_u_pass_ref(
+                    Xn.float().double(), Uk.double(),
+                    Vn.to(operand_dtype(Xn.dtype)).double(),
+                    BtB.double(), Hinv.double(), row_sq.double(), l1, l2,
+                    **kw)[0]
+                a_k = newton_rows_agree(got[0], w64)
+                a_p = newton_rows_agree(want[0], w64)
+                extra = (f"; vs float64: kernel {a_k:.6f} >= plain f32 "
+                         f"{a_p:.6f}")
+                rows_ok = a_k >= a_p
+            e1 = own_products(torch, mu_fused, Xn, got)[0]
+            same, eq = fp8_pair_equal(torch, got, again), \
+                fp8_pair_equal(torch, got, bf)
+            check(rows_ok and e1 <= 1e-3 and same and eq,
+                  f"K2[{tag}, trials={trials}, non_negative={nonneg}] rows "
+                  f"agreeing {agree:.6f} >= 0.999{extra}, numV {e1:.3g} <= "
+                  f"1e-3, two calls bitwise equal {same}, equal to the bf16 "
+                  f"form {eq}")
+        return 3
+
+    for n in (1, 17):
+        for m in (1, 15, 17, 4097, M):
+            for k in (1, 7, 20, 33, 40, 100):
+                n_cases += one(n, m, k)
+    for m in (4097, M):
+        for off in (1, 3):
+            n_cases += one(17, m, 20, off)
+    torch.cuda.empty_cache()
+    log(f"  K1/K2 fp8 edges: {n_cases} cases")
+
+
+def fp8_sigmoid_phase(check, torch, sigmoid_newton, batched_solve):
+    """Phase 3, the fp8 forms of K3 and K4: e4m3 X at the dense sigmoid-X
+    shape (30000 x 11314) and its transpose, uniform [0, 1) values rounded
+    to e4m3 (every e4m3 value below 1 occurs, subnormals too), against the
+    plain version with sigmoid_phase's bars (G, H 1e-4 relative Frobenius;
+    phi 2e-5 of its largest |phi|, rows selecting the same slot >= 0.999)
+    and against the bf16 form on X widened to bf16, bit for bit (both widen
+    X to f32 elementwise, exactly); times of the fp8 form, its bf16 form and
+    the plain version, and the bound at 1 byte per element. Then the edges
+    (fp8_sigmoid_edges)."""
+    import numpy as np
+
+    rng = np.random.RandomState(SEED + 7)
+    dev = torch.device("cuda")
+    l1, l2, pert = 0.5, 1.0, 0.2
+    clock = sm_clock_hz()
+    rec = {}
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 7)
+    for shape, n, q in (("B", N, M), ("Bt", M, N)):
+        Mf = 0.3 * torch.from_numpy(rng.randn(n, K).astype(np.float32)).to(dev)
+        Bf = 0.3 * torch.from_numpy(rng.randn(q, K).astype(np.float32)).to(dev)
+        X = torch.rand(n, q, device=dev, generator=gen).to(
+            torch.float8_e4m3fn)
+        Xb = X.to(torch.bfloat16)
+        tag = f"{shape}[fp8]"
+        G, H = nan_filled(lambda: sigmoid_newton.sigmoid_gh_pass(
+            X, Mf, Bf, l1, l2))
+        G2, H2 = sigmoid_newton.sigmoid_gh_pass(X, Mf, Bf, l1, l2)
+        Gb, Hb = sigmoid_newton.sigmoid_gh_pass(Xb, Mf, Bf, l1, l2)
+        torch.cuda.synchronize()
+        Gr, Hr = sigmoid_newton.sigmoid_gh_pass_ref(X, Mf, Bf, l1, l2)
+        eg, eh = rel_fro(G, Gr), rel_fro(H, Hr)
+        same = fp8_pair_equal(torch, (G, H), (G2, H2))
+        eq3 = fp8_pair_equal(torch, (G, H), (Gb, Hb))
+        check(eg <= 1e-4 and eh <= 1e-4 and same and eq3,
+              f"K3{tag} G rel Frobenius {eg:.3g}, H {eh:.3g} <= 1e-4, "
+              f"NaN-filled, two calls bitwise equal {same}, equal to the "
+              f"bf16 form {eq3}")
+        err3 = max(float((G - Gr).abs().max()), float((H - Hr).abs().max()))
+        d = batched_solve.batched_spd_solve_ref(
+            Hr + (l2 + pert) * torch.eye(K, device=dev), Gr)
+        del G, H, G2, H2, Gb, Hb, Hr
+        kw = dict(trials=TRIALS, non_negative=True)
+        phi = nan_filled(lambda: sigmoid_newton.sigmoid_phi_pass(
+            X, Mf, d, Bf, l1, l2, **kw))
+        phi2 = sigmoid_newton.sigmoid_phi_pass(X, Mf, d, Bf, l1, l2, **kw)
+        phib = sigmoid_newton.sigmoid_phi_pass(Xb, Mf, d, Bf, l1, l2, **kw)
+        torch.cuda.synchronize()
+        phr = sigmoid_newton.sigmoid_phi_pass_ref(X, Mf, d, Bf, l1, l2, **kw)
+        agree = slot_agreement(phi, phr)
+        err4 = float((phi - phr).abs().max())
+        rel4 = err4 / float(phr.abs().max())
+        same = bool(torch.equal(phi, phi2))
+        eq4 = bool(torch.equal(phi, phib))
+        check(rel4 <= 2e-5 and agree >= 0.999 and same and eq4,
+              f"K4{tag} max abs phi err {err4:.3g}, {rel4:.3g} of the "
+              f"largest |phi| <= 2e-5, rows selecting the same slot "
+              f"{agree:.6f} >= 0.999, NaN-filled, two calls bitwise equal "
+              f"{same}, equal to the bf16 form {eq4}")
+        b3 = sigmoid_bound(n, q, K, 1, 1, clock, True)
+        b4 = sigmoid_bound(n, q, K, TRIALS + 1, 1, clock, False)
+        for name, fn, ref, b, err, eq in (
+                ("sigmoid_gh_pass",
+                 lambda A: sigmoid_newton.sigmoid_gh_pass(A, Mf, Bf, l1, l2),
+                 lambda: sigmoid_newton.sigmoid_gh_pass_ref(X, Mf, Bf, l1,
+                                                            l2), b3, err3,
+                 eq3),
+                ("sigmoid_phi_pass",
+                 lambda A: sigmoid_newton.sigmoid_phi_pass(A, Mf, d, Bf, l1,
+                                                           l2, **kw),
+                 lambda: sigmoid_newton.sigmoid_phi_pass_ref(
+                     X, Mf, d, Bf, l1, l2, **kw), b4, err4, eq4)):
+            ms, dms = time_ms(lambda: fn(X)), device_ms(lambda: fn(X))
+            bf_ms, bf_dms = time_ms(lambda: fn(Xb)), device_ms(lambda: fn(Xb))
+            pms = time_ms(ref, reps=5)
+            log(f"  {name}{tag} fp8 form {ms:.4f} ms (device alone "
+                f"{dms:.4f}); bf16 form {bf_ms:.4f} ({bf_dms:.4f}); plain "
+                f"{pms:.4f} ms; bound {b[0]:.4f} ms ({b[1]}, 1 byte per "
+                f"element of X)")
+            rec[(name, tag)] = dict(
+                max_abs_err=err, ms=ms, device_ms=dms, plain_ms=pms,
+                bound_ms=b[0], bound_by=b[1], bf16_form_ms=bf_ms,
+                bf16_form_device_ms=bf_dms, equal_to_bf16_form=eq)
+        rec[("sigmoid_phi_pass", tag)]["slot_agreement"] = agree
+        del X, Xb, Mf, Bf, Gr, d, phi, phi2, phib, phr
+        torch.cuda.empty_cache()
+    fp8_sigmoid_edges(check, torch, sigmoid_newton)
+    return rec
+
+
+def fp8_sigmoid_edges(check, torch, sigmoid_newton):
+    """The fp8 forms of K3 and K4 at the edges: n in {1, 17, 20}, q in {1,
+    15, 17, 4097, 11314} (rows of odd q start on any byte), k in {1, 7, 20,
+    33, 100}, K4 with trials 0 and TRIALS and non_negative both ways, and X
+    at byte offset 1 of its allocation; outputs NaN-filled, two calls
+    bitwise equal, equal bit for bit to the bf16 form on X widened to bf16,
+    and against the plain version with sigmoid_phase's bars (where the
+    bf16 form's edges, sigmoid_edges, hold the slots of tied rows by
+    float64, the bit-for-bit equality carries that here)."""
+    import numpy as np
+
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(SEED + 8)
+    l1, l2, pert = 0.5, 1.0, 0.2
+    n_cases = 0
+
+    def one(n, q, k, off=0):
+        Mf = 0.3 * torch.from_numpy(rng.randn(n, k).astype(np.float32)).to(dev)
+        Bf = 0.3 * torch.from_numpy(rng.randn(q, k).astype(np.float32)).to(dev)
+        X = torch.from_numpy(rng.rand(n, q).astype(np.float32)).to(dev).to(
+            torch.float8_e4m3fn)
+        if off:
+            buf = torch.empty(n * q + 16, dtype=torch.uint8, device=dev)
+            Xo = buf[off:off + n * q].view(X.dtype).view(n, q)
+            Xo.copy_(X)
+            X = Xo
+        Xb = X.to(torch.bfloat16)
+        tag = f"n={n} q={q} k={k} {E4M3}" + (f" at byte {off}" if off else "")
+
+        def gh(A):
+            return sigmoid_newton.sigmoid_gh_pass(A, Mf, Bf, l1, l2)
+        got, again, bf = nan_filled(lambda: gh(X)), gh(X), gh(Xb)
+        torch.cuda.synchronize()
+        want = sigmoid_newton.sigmoid_gh_pass_ref(X, Mf, Bf, l1, l2)
+        eg, eh = rel_fro(got[0], want[0]), rel_fro(got[1], want[1])
+        same, eq = fp8_pair_equal(torch, got, again), \
+            fp8_pair_equal(torch, got, bf)
+        check(eg <= 1e-4 and eh <= 1e-4 and same and eq,
+              f"K3[{tag}] G rel Frobenius {eg:.3g}, H {eh:.3g} <= 1e-4, two "
+              f"calls bitwise equal {same}, equal to the bf16 form {eq}")
+        eye = (l2 + pert) * torch.eye(k, device=dev)
+        cases = 1
+        for nonneg in (True, False):
+            Mk = Mf.abs() if nonneg else Mf
+            Gk, Hk = sigmoid_newton.sigmoid_gh_pass_ref(X, Mk, Bf, l1, l2)
+            d = torch.linalg.solve(Hk + eye, Gk[..., None])[..., 0]
+            for trials in (0, TRIALS):
+                kw = dict(trials=trials, non_negative=nonneg)
+
+                def phi(A):
+                    return sigmoid_newton.sigmoid_phi_pass(
+                        A, Mk, d, Bf, l1, l2, **kw)
+                got, again, bf = nan_filled(lambda: phi(X)), phi(X), phi(Xb)
+                torch.cuda.synchronize()
+                want = sigmoid_newton.sigmoid_phi_pass_ref(
+                    X, Mk, d, Bf, l1, l2, **kw)
+                rel = float((got - want).abs().max() / want.abs().max())
+                agree = slot_agreement(got, want)
+                same, eq = bool(torch.equal(got, again)), \
+                    bool(torch.equal(got, bf))
+                check(rel <= 2e-5 and same and eq,
+                      f"K4[{tag}, trials={trials}, non_negative={nonneg}] "
+                      f"max abs phi err {rel:.3g} of the largest |phi| <= "
+                      f"2e-5 (slots agreeing {agree:.6f}), two calls "
+                      f"bitwise equal {same}, equal to the bf16 form {eq}")
+                cases += 1
+        return cases
+
+    for n in (1, 17, 20):
+        for q in (1, 15, 17, 4097, M):
+            for k in (1, 7, 20, 33, 100):
+                n_cases += one(n, q, k)
+    n_cases += one(17, 4097, 20, off=1)
+    torch.cuda.empty_cache()
+    log(f"  K3/K4 fp8 edges: {n_cases} cases")
+
+
+def fp8_ingest_phase(check, torch, X, Y):
+    """fp8 ingest on the card: the stored e4m3 bytes of the densified 20NG
+    surrogate equal the host's conversion (through float32), the norms are
+    those of the stored values, Y is stored at bf16, and the peak device
+    memory of the ingest (a transient float32 buffer: 1.36 GB at this
+    shape); then the refusals, with the reference's ValueErrors."""
+    import numpy as np
+
+    from pycmf_tpu_torch import CMF
+    from pycmf_tpu_torch.utils.validation import as_coupled
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    c = as_coupled(X, torch.float8_e4m3fn, torch.device("cuda"))
+    torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    host = torch.from_numpy(X.toarray().astype(np.float32)).to(
+        torch.float8_e4m3fn)
+    same = bool(torch.equal(c.A.view(torch.uint8).cpu(),
+                            host.view(torch.uint8)))
+    q = host.double()
+    a_sq = float((q ** 2).sum())
+    check(same and c.A.dtype == torch.float8_e4m3fn
+          and abs(float(c.a_sq) - a_sq) <= 1e-6 * a_sq,
+          f"fp8 ingest: {tuple(c.A.shape)} e4m3 on the card, bytes equal to "
+          f"the host's conversion {same}, ||X||^2 {float(c.a_sq):.9g} of the "
+          f"stored values ({a_sq:.9g}); peak {peak:.3f} GB above the "
+          f"resident (the float32 buffer)")
+    del c, host, q
+    torch.cuda.empty_cache()
+    refusals = {}
+    for mode, match in (("csr", "dense device storage"),
+                        ("chunked", "dense device storage")):
+        try:
+            CMF(n_components=K, data_dtype="fp8", sparse_mode=mode,
+                max_iter=2, device="cuda").fit(X, Y)
+            raised = "nothing"
+        except ValueError as e:
+            raised = str(e)
+        refusals[mode] = raised
+        check(match in raised, f"fp8 with sparse_mode={mode!r} on the card "
+              f"raises ValueError: {raised[:100]}...")
+    return dict(ingest_peak_gb=peak, bytes_equal=same, refusals=refusals)
+
+
+def fp8_matches_bf16(check, make8, makeb, X, Xq, Y, label):
+    """An fp8 fit on the card against the bf16 fit of X quantized to e4m3,
+    from the same initial factors: equal bit for bit (losses, factors,
+    n_iter_; every fp8 form equals its bf16 form, phase 3, and the rest of
+    the path is the same), and then the fold-in of 1000 new rows from the
+    same U. Returns (the two estimators, the record)."""
+    import numpy as np
+
+    from pycmf_tpu_torch.utils.init import initialize_factors
+
+    est = make8()
+    U, V, Z = initialize_factors(
+        X, Y, K, random_state=SEED, U_non_negative=est.U_non_negative,
+        V_non_negative=est.V_non_negative, Z_non_negative=est.Z_non_negative)
+    a = make8().fit(X, Y, U=U, V=V, Z=Z)
+    b = makeb().fit(Xq, Y, U=U, V=V, Z=Z)
+    bits = a.n_iter_ == b.n_iter_ and a.loss_history_ == b.loss_history_ \
+        and all(np.array_equal(getattr(a, f), getattr(b, f))
+                for f in ("U_", "V_", "Z_"))
+    gap = factor_gap([a.U_, a.V_, a.Z_], [b.U_, b.V_, b.Z_])
+    Ut8 = a.transform(X[:1000], U=U[:1000])
+    Utb = b.transform(Xq[:1000], U=U[:1000])
+    tbits = bool(np.array_equal(Ut8, Utb))
+    check(bits and tbits and bool(np.all(np.isfinite(Ut8)))
+          and Ut8.shape == (1000, K),
+          f"{label}: fp8 fit vs the bf16 fit of the quantized X from the "
+          f"same factors, {a.n_iter_} iterations: bit for bit {bits} "
+          f"(factors rel Frobenius {gap:.3g}); transform of 1000 rows "
+          f"{Ut8.shape}, finite, bit for bit {tbits}")
+    return a, b, dict(n_iter=a.n_iter_, bit_equal=bits, factor_gap=gap,
+                      transform_bit_equal=tbits)
+
+
 def _numpy_baseline(kind: str) -> tuple:
     """bench.py's NumPy baseline run (in a worker process): MU in float32,
     or Newton with a sigmoid Y link in float64. Returns (final loss,
@@ -1993,6 +2477,9 @@ def main() -> int:
     sigmoid_edges(check, torch, sigmoid_newton, batched_solve)
     solve_update_edges(check, torch, batched_solve, mu_update)
     krec.update(sparse_phase(check, torch))
+    krec.update(fp8_u_pass_phase(check, torch, mu_fused, newton_fused))
+    krec.update(fp8_sigmoid_phase(check, torch, sigmoid_newton,
+                                  batched_solve))
 
     # 4.-7. the paths, through the estimator
     t0 = time.perf_counter()
@@ -2282,6 +2769,49 @@ def main() -> int:
         chunked["path_krs_fit"] = krs
         del Xrb
     chunked["path_kr"] = kr
+
+    # fp8 data storage: X stored as e4m3 (Y at bf16), the data-pass
+    # kernels' fp8 forms (K1 on MU, K2 on path A, K3 and K4 on path B)
+    log("phase 7: fp8 data storage (data_dtype='fp8'): the MU cell, path A "
+        "and path B")
+    common8 = dict(common, data_dtype="fp8")
+    Xq = quantized(torch, X)  # the data the fp8 fits fit, float64
+    Xb_sp = sp.csr_matrix(Xb)  # path B's 0/1 X, densified at ingest
+    fp8 = {"ingest": fp8_ingest_phase(check, torch, X, Y)}
+    lin8 = lambda U, V, Z: numpy_cmf.loss(Xq, Y64, U, V, Z)  # noqa: E731
+    sig8 = lambda U, V, Z: numpy_cmf.loss(  # noqa: E731
+        Xq, Y64, U, V, Z, y_link="sigmoid")
+
+    def fp8_fit(key, fn, absent):
+        torch.cuda.reset_peak_memory_stats()
+        est, r = fn()
+        r["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        check(all(r["launches"].get(a, 0) == 0 for a in absent),
+              f"fp8 {key}: the bf16 forms {absent} launched no time; peak "
+              f"device memory {r['peak_mem_gb']:.3f} GB (all live "
+              f"allocations)")
+        fp8[key] = r
+        return est
+    mu8 = fp8_fit("mu", lambda: fit_phase(
+        check, lambda: CMF(**mu_kw, **common8), X, Y,
+        per_iter(fused_mu_u_pass_fp8=1, fused_mu_update=2), "MU fit, fp8",
+        lin8), ("fused_mu_u_pass",))
+    fp8_fit("path_a", lambda: fit_phase(
+        check, lambda: CMF(**a_kw, **common8), X, Y,
+        per_iter(fused_newton_linear_u_pass_fp8=1, sigmoid_gh_pass=1,
+                 sigmoid_phi_pass=1, batched_spd_solve=2),
+        "path A fit, fp8", sig8), ("fused_newton_linear_u_pass",))
+    fp8_fit("path_b", lambda: fit_phase(
+        check, lambda: CMF(**b_kw, **common8), Xb_sp, Y,
+        per_iter(sigmoid_gh_pass_fp8=2, sigmoid_phi_pass_fp8=2,
+                 sigmoid_gh_pass=1, sigmoid_phi_pass=1, batched_spd_solve=3),
+        "path B fit, fp8", card_sigmoid_loss(torch, Xb_sp, Y)), ())
+    for key, ref in (("mu", mu), ("path_a", pa), ("path_b", pb)):
+        log(f"  fp8 {key}: exact f64 loss on the quantized X "
+            f"{fp8[key]['exact_loss']:.9g} after {fp8[key]['n_iter']} "
+            f"iterations, {fp8[key]['ms_per_iter']:.4f} ms/iter; the bf16 "
+            f"fit's {ref['exact_loss']:.9g} after {ref['n_iter']}, "
+            f"{ref['ms_per_iter']:.4f} ms/iter")
     log("phase 7b: where the time goes (torch.profiler)")
     mu["profile"] = profile_phase(
         torch, lambda: CMF(**dict(mu_kw, max_iter=10, tol=0.0), **common),
@@ -2344,7 +2874,10 @@ def main() -> int:
                 ("path K", k_kw, (X, Y), common),
                 ("path KA", ka_kw, (X, Y), common),
                 ("path KB", kb_kw, (Xb, Ysp), common),
-                ("path KS", ks_kw, (X, Y), common)):
+                ("path KS", ks_kw, (X, Y), common),
+                ("MU fp8", mu_kw, (X, Y), common8),
+                ("path A fp8", a_kw, (X, Y), common8),
+                ("path B fp8", b_kw, (Xb_sp, Y), common8)):
             loops[lab] = loop_phase(
                 check, torch, lambda: CMF(**kw, **cm), *data, lab,
                 bits=True)
@@ -2435,6 +2968,22 @@ def main() -> int:
             stepped[label] = step_agreement(
                 check, lambda: CMF(**kw, **dict(common, n_components=kk)),
                 X, Y, kk, plain, label, loss, steps, bar)
+        # fp8: kernel vs plain step by step, and each fp8 fit against the
+        # bf16 fit of the quantized X (bit for bit)
+        stepped["MU fp8"] = step_agreement(
+            check, lambda: CMF(**mu_kw, **common8), X, Y, K, plain,
+            "MU fp8", lin8, 5, 1e-4)
+        stepped["path A fp8"] = step_agreement(
+            check, lambda: CMF(**a_kw, **common8), X, Y, K, plain,
+            "path A fp8", sig8, 5, 1e-3)
+        for label, kw, data in (
+                ("MU fp8", dict(mu_kw, max_iter=20, tol=0.0), (X, Xq, Y)),
+                ("path A fp8", dict(a_kw, max_iter=20, tol=0.0),
+                 (X, Xq, Y)),
+                ("path B fp8", b_kw, (Xb_sp, Xb_sp, Y))):
+            fp8[f"{label} vs bf16"] = fp8_matches_bf16(
+                check, lambda: CMF(**kw, **common8),
+                lambda: CMF(**kw, **common), *data, label)[2]
         stepped["path K vs dense"] = step_vs_dense(
             check, lambda: CMF(**k_kw, **common), X, Y, K, "path K", 1e-4)
         # path A at k = 100, the one fit on K5's block route: whole steps
@@ -2481,7 +3030,8 @@ def main() -> int:
             fit["numpy_loss"], fit["numpy_n_iter"] = ref_loss, ref_iter
 
     # 9. transform, dense (MU) and CSR (path C)
-    for est, tag in ((mu_est, "MU"), (c_est, "path C, CSR")):
+    for est, tag in ((mu_est, "MU"), (c_est, "path C, CSR"),
+                     (mu8, "MU, fp8")):
         Ut = est.transform(X[:1000])
         check(Ut.shape == (1000, K) and bool(np.all(np.isfinite(Ut))),
               f"{tag}: transform(X[:1000]) -> {Ut.shape}, finite")
@@ -2500,6 +3050,19 @@ def main() -> int:
              ("newton_fused.py:179",),
              ("fused_newton_linear_u_pass", "bfloat16"), pa,
              {"f32": ("fused_newton_linear_u_pass", "float32")}),
+            ("fused_mu_u_pass_fp8", "mu_fused.cu", ("mu_fused.py:143",),
+             ("fused_mu_u_pass", "fp8", K), fp8["mu"],
+             {"k40": ("fused_mu_u_pass", "fp8", 40)}),
+            ("fused_newton_linear_u_pass_fp8", "newton_fused.cu",
+             ("newton_fused.py:179",),
+             ("fused_newton_linear_u_pass", "fp8", K), fp8["path_a"],
+             {"k40": ("fused_newton_linear_u_pass", "fp8", 40)}),
+            ("sigmoid_gh_pass_fp8", "sigmoid_newton.cu",
+             ("sigmoid_newton.py:94",), ("sigmoid_gh_pass", "B[fp8]"),
+             fp8["path_b"], {"t": ("sigmoid_gh_pass", "Bt[fp8]")}),
+            ("sigmoid_phi_pass_fp8", "sigmoid_newton.cu",
+             ("sigmoid_newton.py:176",), ("sigmoid_phi_pass", "B[fp8]"),
+             fp8["path_b"], {"t": ("sigmoid_phi_pass", "Bt[fp8]")}),
             ("sigmoid_gh_pass", "sigmoid_newton.cu",
              ("sigmoid_newton.py:94",),
              ("sigmoid_gh_pass", "A[bfloat16]"), pa,
@@ -2560,16 +3123,22 @@ def main() -> int:
                  "launches": fit["launches"].get(kname, 0),
                  "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                  "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                 "bound_by": r["bound_by"],
+                 # the contract's two kinds; which operations (tensor
+                 # cores, sigmoids) in bound_detail
+                 "bound_by": ("bytes" if r["bound_by"] == "bytes"
+                              else "operations"),
+                 "bound_detail": r["bound_by"],
                  "library_ms": r.get("library_ms")}
         for f in ("device_ms", "library_device_ms", "shared_ms",
-                  "shared_device_ms"):
+                  "shared_device_ms", "bf16_form_ms", "bf16_form_device_ms",
+                  "equal_to_bf16_form"):
             if r.get(f) is not None:
                 entry[f] = r[f]
         for pre, key in extra.items():
             for f in ("ms", "plain_ms", "bound_ms", "max_abs_err",
                       "library_ms", "device_ms", "library_device_ms",
-                      "shared_ms", "shared_device_ms"):
+                      "shared_ms", "shared_device_ms", "bf16_form_ms",
+                      "bf16_form_device_ms", "equal_to_bf16_form"):
                 if f in krec[key]:
                     entry[f"{pre}_{f}"] = krec[key][f]
         kernels.append(entry)
@@ -2580,6 +3149,7 @@ def main() -> int:
                       "path_s_fit": ps, "path_s4_fit": ps4,
                       "path_sd_fit": psd, "path_h_fit": ph,
                       "path_a_fit_k100": pa_100, "chunked": chunked,
+                      "fp8": fp8,
                       "block_max_k": krec["block_max_k"],
                       "device_vs_host_loop": loops,
                       "phase8_gap_after_20": gaps20,

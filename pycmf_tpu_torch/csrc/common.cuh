@@ -3,6 +3,8 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -15,9 +17,20 @@ namespace pycmf {
 constexpr int kMaxK = 32;
 constexpr unsigned kFull = 0xffffffffu;
 
+// X's dtype as the entry points of the data-pass kernels (K1-K4) take it
+// (ops/kernels/mu_fused.py: X_CODES); sizes in bytes.
+enum XDtype : int { kXF32 = 0, kXBF16 = 1, kXE4M3 = 2 };
+inline int x_dtype_bytes(int code) {
+  return code == kXF32 ? 4 : code == kXBF16 ? 2 : code == kXE4M3 ? 1 : 0;
+}
+
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);
+}
+// e4m3 -> f16 -> f32, each step exact for every finite e4m3 value.
+__device__ __forceinline__ float to_float(__nv_fp8_e4m3 x) {
+  return __half2float(__half(__nv_cvt_fp8_to_halfraw(x.__x, __NV_E4M3)));
 }
 
 // Butterfly sum: every lane ends with the same bits (each step adds the
@@ -37,6 +50,9 @@ __device__ __forceinline__ double warp_sum_d(double v) {
 __device__ __forceinline__ void from_float(float x, float& y) { y = x; }
 __device__ __forceinline__ void from_float(float x, __nv_bfloat16& y) {
   y = __float2bfloat16_rn(x);
+}
+__device__ __forceinline__ void from_float(float x, __nv_fp8_e4m3& y) {
+  y.__x = __nv_cvt_float_to_fp8(x, __NV_SATFINITE, __NV_E4M3);
 }
 
 // 16-byte asynchronous copy global -> shared. With bytes = 0 nothing is

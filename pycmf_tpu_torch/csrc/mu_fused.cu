@@ -9,6 +9,10 @@
 // Bound: bytes of X. At the main-path shape (X 30000 x 11314 bf16, k = 20)
 // X is 679 MB and everything else is under 2 MB: one pass over X is 0.20 ms
 // at 3.35 TB/s, against 0.03 ms of bf16 tensor-core work (4 n m k flops).
+// e4m3 X (fp8 storage) is 339 MB, 0.10 ms per pass, and converts each X
+// value to bf16 in registers (u_pass_common.cuh: e4m3x2_to_bf16x2) before
+// the same bf16 tensor-core products: an e4m3 call equals the bf16 call on
+// X widened to bf16 bit for bit.
 //
 // Design: the TPU kernel walks a sequential grid and carries the (k, m)
 // X^T U_new accumulator in VMEM across it. Hopper blocks run in parallel and
@@ -64,13 +68,14 @@ struct MuEpi {
 
 }  // namespace pycmf
 
-// x_is_bf16: 0 for f32 X, 1 for bf16. U, V, VtV and every output are f32,
+// x_dtype: X's dtype code (common.cuh: XDtype; 0 f32, 1 bf16, 2 e4m3).
+// U, V, VtV and every output are f32,
 // row-major and contiguous. vt, uxt, gram_part, numv_part and the four ints
 // after them are the wrapper's plan (ops/kernels/mu_fused.py: u_pass_plan);
 // the launches go to `stream` on `device`.
 // Returns the CUDA error of the launches (0 on success).
 extern "C" int pycmf_mu_fused_u_pass(
-    int x_is_bf16, const void* X, const float* U, const float* V,
+    int x_dtype, const void* X, const float* U, const float* V,
     const float* VtV, int n, int m, int k, int n_valid, float l1, float l2,
     float eps, float* Unew, float* numV, float* gramU, void* vt, void* uxt,
     float* gram_part, float* numv_part, int ld_vt, int ld_ux, int seg_rows,
@@ -82,8 +87,6 @@ extern "C" int pycmf_mu_fused_u_pass(
   DeviceGuard guard(device);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const MuEpi epi{U, VtV, k, n_valid, l1, l2, eps};
-  if (x_is_bf16)
-    return launch_u_pass<__nv_bfloat16>(X, V, n, m, k, epi, Unew, numV, gramU,
-                                        w, st);
-  return launch_u_pass<float>(X, V, n, m, k, epi, Unew, numV, gramU, w, st);
+  return launch_u_pass_dtype(x_dtype, X, V, n, m, k, epi, Unew, numV, gramU,
+                             w, st);
 }

@@ -13,7 +13,8 @@
 // then numV = X^T round_X(U_new) and gramU = U_new^T U_new, as in mu_fused.cu.
 //
 // Bound: bytes of X, as for the MU pass: 679 MB of bf16 X at the main-path
-// shape (0.20 ms per pass) against a few MB of everything else; the per-row
+// shape (0.20 ms per pass; e4m3 X, contracted in bf16 as in mu_fused.cu:
+// 339 MB, 0.10 ms) against a few MB of everything else; the per-row
 // line search is k-wide work done once per row.
 //
 // Design: the sweeps of mu_fused.cu (u_pass_common.cuh: X V and X^T U_new on
@@ -156,13 +157,14 @@ struct NewtonEpi {
 
 }  // namespace pycmf
 
-// x_is_bf16: 0 for f32 X, 1 for bf16. U, V, BtB, Hinv, row_sq and every
+// x_dtype: X's dtype code (common.cuh: XDtype; 0 f32, 1 bf16, 2 e4m3).
+// U, V, BtB, Hinv, row_sq and every
 // output are f32, row-major and contiguous. vt, uxt, gram_part, numv_part and
 // the four ints after them are the wrapper's plan (ops/kernels/mu_fused.py:
 // u_pass_plan); the launches go to `stream` on `device`. Returns the CUDA
 // error of the launches (0 on success).
 extern "C" int pycmf_newton_fused_u_pass(
-    int x_is_bf16, const void* X, const float* U, const float* V,
+    int x_dtype, const void* X, const float* U, const float* V,
     const float* BtB, const float* Hinv, const float* row_sq, int n, int m,
     int k, float l1, float l2, int trials, int non_negative, float* Unew,
     float* numV, float* gramU, void* vt, void* uxt, float* gram_part,
@@ -175,8 +177,6 @@ extern "C" int pycmf_newton_fused_u_pass(
   DeviceGuard guard(device);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const NewtonEpi epi{U, BtB, Hinv, row_sq, k, l1, l2, trials, non_negative};
-  if (x_is_bf16)
-    return launch_u_pass<__nv_bfloat16>(X, V, n, m, k, epi, Unew, numV, gramU,
-                                        w, st);
-  return launch_u_pass<float>(X, V, n, m, k, epi, Unew, numV, gramU, w, st);
+  return launch_u_pass_dtype(x_dtype, X, V, n, m, k, epi, Unew, numV, gramU,
+                             w, st);
 }

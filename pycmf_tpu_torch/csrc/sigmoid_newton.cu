@@ -4,8 +4,9 @@
 // kernel K3) and pycmf_tpu/ops/pallas/sigmoid_newton.py:sigmoid_phi_pass
 // (TPU kernel K4).
 //
-// With X (n, q) stored as f32 or bf16 (widened to f32 in the kernel), M
-// (n, k), B (q, k), P = sigmoid(M B^T), f' = P (1 - P):
+// With X (n, q) stored as f32, bf16 or e4m3 (widened to f32 in the kernel,
+// exactly: an e4m3 call equals the bf16 call on X widened to bf16 bit for
+// bit), M (n, k), B (q, k), P = sigmoid(M B^T), f' = P (1 - P):
 //   K3  G[i]    = sum_j (P_ij - X_ij) f'_ij B_j + l1 sign(M_i) + l2 M_i
 //       H[i]    = sum_j f'_ij^2 B_j B_j^T           (Gauss-Newton, (n, k, k))
 //   K4  phi[i,0] = phi_i(M_i), phi[i,t] = phi_i(proj(M_i - 2^-(t-1) d_i)),
@@ -19,8 +20,8 @@
 // take ~0.6 ms on the tensor cores' peaks (logits and G in 3xTF32 at 495
 // TFLOP/s, H in split bf16 at 989), K4's ~0.74 ms (3xTF32); K4's 3.05 G
 // sigmoids take two MUFU operations each (ex2, rcp), ~1.5 ms at 16 per SM
-// per clock; X's 0.68 GB of bf16 take 0.2 ms. mma.sync reaches a fraction
-// of those peaks (they are wgmma's).
+// per clock; X's 0.68 GB of bf16 take 0.2 ms (0.34 GB of e4m3, 0.1 ms).
+// mma.sync reaches a fraction of those peaks (they are wgmma's).
 //
 // Design:
 // - Logits and G on mma.sync m16n8k8 TF32 tiles in 3xTF32 (common.cuh:
@@ -50,11 +51,12 @@
 //   two chunks ahead of its use (one chunk ahead left the sweep waiting on
 //   DRAM), its rows copied as the 16-byte chunks covering them and read at
 //   their offsets, as in u_pass_common.cuh (bf16 rows of odd q are 2-byte
-//   aligned); B's rows and the pair tile come one chunk ahead. Per chunk:
-//   the logits (64 x 32) = M B^T on mma, P, f', W and RF in registers, then
-//   W (bf16 parts) and RF (f32) to shared memory as the next mma's A
-//   operand; then W times the chunk's tile of T's pair columns, and RF
-//   times the chunk's B for the CTA's G columns, into registers. The pair
+//   aligned, e4m3 rows of odd q start on any byte); B's rows and the pair
+//   tile come one chunk ahead. Per chunk: the logits (64 x 32) = M B^T on
+//   mma, P, f', W and RF in registers, then W (bf16 parts) and RF (f32) to
+//   shared memory as the next mma's A operand; then W times the chunk's
+//   tile of T's pair columns, and RF times the chunk's B for the CTA's G
+//   columns, into registers. The pair
 //   columns are built once per call (gh_table_entry: bf16 parts, column by
 //   column within each chunk, so that each fragment register is one 32-bit
 //   load; 11.6 MB at q = 11314, k = 20, read from L2): built in each CTA
@@ -923,14 +925,15 @@ int launch_phi(const void* X, const float* M, const float* d, const float* B,
 
 }  // namespace pycmf
 
-// X (n, q): f32 (x_is_bf16 = 0) or bf16; M (n, k), B (q, k), G (n, k),
+// X (n, q): f32, bf16 or e4m3 by x_dtype (common.cuh: XDtype); M (n, k),
+// B (q, k), G (n, k),
 // H (n, k, k): f32. All row-major and contiguous; k >= 1. Scratch (16-byte
 // aligned): Bp (ceil(q / 32) * 32 x KG f32), Mh and Ml (ceil(n / 64) * 64
 // x KG words each), Tg (ceil(q / 32) x ldp x 32 words), part (n_seg x n x
 // ldp f32). ldp, n_seg, seg_len and ops_smem: the
 // wrapper's plan (checked). The launches go to `stream` on `device`.
 // Returns the CUDA error of the launches (0 on success).
-extern "C" int pycmf_sigmoid_gh_pass(int x_is_bf16, const void* X,
+extern "C" int pycmf_sigmoid_gh_pass(int x_dtype, const void* X,
                                      const float* M, const float* B, int n,
                                      int q, int k, float l1, float l2,
                                      float* G, float* H, float* Bp,
@@ -940,12 +943,16 @@ extern "C" int pycmf_sigmoid_gh_pass(int x_is_bf16, const void* X,
                                      void* stream) {
   using namespace pycmf;
   const SPlan p{ldp, n_seg, seg_len, ops_smem};
-  if (!splan_ok(x_is_bf16 ? 2 : 4, n, q, k, 1, true, p))
+  const int xb = x_dtype_bytes(x_dtype);
+  if (xb == 0 || !splan_ok(xb, n, q, k, 1, true, p))
     return (int)cudaErrorInvalidValue;
   DeviceGuard guard(device);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (x_is_bf16)
+  if (x_dtype == kXBF16)
     return launch_gh<__nv_bfloat16>(X, M, B, n, q, k, l1, l2, G, H, Bp, Mh,
+                                    Ml, Tg, part, p, st);
+  if (x_dtype == kXE4M3)
+    return launch_gh<__nv_fp8_e4m3>(X, M, B, n, q, k, l1, l2, G, H, Bp, Mh,
                                     Ml, Tg, part, p, st);
   return launch_gh<float>(X, M, B, n, q, k, l1, l2, G, H, Bp, Mh, Ml, Tg,
                           part, p, st);
@@ -954,7 +961,7 @@ extern "C" int pycmf_sigmoid_gh_pass(int x_is_bf16, const void* X,
 // X as above; M, d (n, k), B (q, k), phi (n, slots): f32; slots = trials +
 // 1 >= 1. Scratch: Bp (ceil(q / 32) * 32 x KG), Mp and Dp (ceil(n / 64) *
 // 64 x KG), part (n_seg x n x slots).
-extern "C" int pycmf_sigmoid_phi_pass(int x_is_bf16, const void* X,
+extern "C" int pycmf_sigmoid_phi_pass(int x_dtype, const void* X,
                                       const float* M, const float* d,
                                       const float* B, int n, int q, int k,
                                       int slots, int non_negative, float l1,
@@ -964,12 +971,16 @@ extern "C" int pycmf_sigmoid_phi_pass(int x_is_bf16, const void* X,
                                       int device, void* stream) {
   using namespace pycmf;
   const SPlan p{0, n_seg, seg_len, ops_smem};
-  if (!splan_ok(x_is_bf16 ? 2 : 4, n, q, k, slots, false, p))
+  const int xb = x_dtype_bytes(x_dtype);
+  if (xb == 0 || !splan_ok(xb, n, q, k, slots, false, p))
     return (int)cudaErrorInvalidValue;
   DeviceGuard guard(device);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (x_is_bf16)
+  if (x_dtype == kXBF16)
     return launch_phi<__nv_bfloat16>(X, M, d, B, n, q, k, slots, non_negative,
+                                     l1, l2, phi, Bp, Mp, Dp, part, p, st);
+  if (x_dtype == kXE4M3)
+    return launch_phi<__nv_fp8_e4m3>(X, M, d, B, n, q, k, slots, non_negative,
                                      l1, l2, phi, Bp, Mp, Dp, part, p, st);
   return launch_phi<float>(X, M, d, B, n, q, k, slots, non_negative, l1, l2,
                            phi, Bp, Mp, Dp, part, p, st);

@@ -1,21 +1,25 @@
 // Shared skeleton of the two fused U-pass kernels (mu_fused.cu,
 // newton_fused.cu), on Hopper's tensor cores.
 //
-// Both stream the data matrix X (n, m) row-major, stored as bf16 or f32,
-// against thin f32 factors. For k <= 32 a call runs four kernels on the
-// caller's stream:
+// Both stream the data matrix X (n, m) row-major, stored as f32, bf16 or
+// e4m3 (fp8), against thin f32 factors. X is contracted in its operand
+// type OT (op_t): its own for f32 and bf16, bf16 for e4m3, whose tile is
+// converted to bf16 in registers as each mma fragment is built (exact for
+// every finite e4m3 value), so V and U_new are never rounded below bf16.
+// For k <= 32 a call runs four kernels on the caller's stream:
 //
-//   1. vt_kernel        Vt (NP x ld_vt) = V^T rounded to X's dtype, zero past
+//   1. vt_kernel        Vt (NP x ld_vt) = V^T rounded to OT, zero past
 //                       k and m (NP = k rounded up to 8: the n8 tiles).
 //   2. xv_rows_kernel   one 128-thread CTA per 64 rows sweeps all m columns:
-//                       X V on mma.sync tiles (bf16 m16n8k16; f32 3xTF32
-//                       m16n8k8), X and Vt tiles of 256 bytes per row fed
-//                       by a 3-stage ring of 16-byte cp.async copies. With
+//                       X V on mma.sync tiles (bf16 m16n8k16, for e4m3 X
+//                       too; f32 3xTF32 m16n8k8), X and Vt tiles of 128
+//                       (bf16, e4m3) or 64 (f32) columns per row fed by a
+//                       3-stage ring of 16-byte cp.async copies. With
 //                       the rows' X V in its registers the CTA runs the
 //                       caller's row epilogue
 //                       (the MU ratio, or the Newton step and line search):
 //                       one warp per row, one factor component per lane. It
-//                       writes U_new, UxT (U_new^T rounded to X's dtype, zero
+//                       writes U_new, UxT (U_new^T rounded to OT, zero
 //                       for rows past n and for components past k) and the
 //                       CTA's partial of U_new^T U_new.
 //   3. xtu_cols_kernel  one 256-thread CTA per 128 columns and row segment:
@@ -53,15 +57,21 @@
 // repeat bit for bit. Products of two bf16 values are exact in f32, so bf16
 // X is the reference's arithmetic (V and U_new rounded to bf16, f32
 // accumulation) in another summation order; f32 X keeps HIGHEST-class
-// products through the 3xTF32 split.
+// products through the 3xTF32 split. e4m3 X keeps the bf16 form's stages
+// in elements (the tile depths and heights follow OT, not X's bytes), and
+// the plan does not depend on X's size, so an e4m3 call adds the same f32
+// products in the same order as the bf16 call on X widened to bf16: the
+// two are equal bit for bit.
 //
 // Alignment: rows of X start on any element boundary (m = 11314 bf16 rows
-// are 22628 bytes, 4-byte aligned; odd m leaves them 2-byte aligned), and
-// cp.async moves aligned 16-byte chunks. Each tile row is copied as the
-// aligned chunks covering it, so row r's first column lands at element
-// offset o_r < 16 / sizeof(XT) of its shared-memory row; the fragment loads
-// add o_r. Chunks that hold no element of the tile are zero-filled without
-// a read; the row sweep zeroes the elements past m in the last column tile
+// are 22628 bytes, 4-byte aligned; odd m leaves them 2-byte aligned, and
+// e4m3 rows of odd m start on any byte), and cp.async moves aligned
+// 16-byte chunks. Each tile row is copied as the aligned chunks covering
+// it, so row r's first column lands at element offset o_r < 16 /
+// sizeof(XT) of its shared-memory row; the fragment loads add o_r, and
+// read element pairs whole only where every pair is aligned (kPairs).
+// Chunks that hold no element of the tile are zero-filled without a read;
+// the row sweep zeroes the elements past m in the last column tile
 // (the next row's values, or bytes past the end of X). Each thread's chunk
 // addresses are computed once per sweep and stepped per stage.
 //
@@ -91,18 +101,35 @@ constexpr int kBCols = 128;
 constexpr int kBWarps = kBCols / 16;
 constexpr int kBThreads = kBWarps * 32;
 constexpr int kBStages = 4;
-constexpr int kBLd = kBCols + 8;  // X tile row stride: bank spread, 16 B rows
 
-// Per X dtype: elements per 16-byte chunk; the row sweep's stage depth (256
-// bytes of each row: long enough runs for DRAM) and row stride; the column
-// sweep's stage height and the row stride of its UxT tile.
+// The type X is contracted in: its own, or bf16 for e4m3 X.
+template <typename XT>
+struct OpOf {
+  using type = XT;
+};
+template <>
+struct OpOf<__nv_fp8_e4m3> {
+  using type = __nv_bfloat16;
+};
+template <typename XT>
+using op_t = typename OpOf<XT>::type;
+
+// Per X dtype: X and operand elements per 16-byte chunk; the row sweep's
+// stage depth in elements (256 bytes of each operand row: long enough runs
+// for DRAM; e4m3 X keeps bf16's 128 columns, 128 bytes of X) and the row
+// strides of its X and Vt tiles; the column sweep's stage height, the row
+// stride of its X tile (bank spread, 16-byte rows) and of its UxT tile.
 template <typename XT>
 struct UTile {
+  using OT = op_t<XT>;
   static constexpr int kEl = 16 / (int)sizeof(XT);
-  static constexpr int kDepth = 256 / (int)sizeof(XT);  // 128 bf16, 64 f32
+  static constexpr int kOEl = 16 / (int)sizeof(OT);
+  static constexpr int kDepth = 256 / (int)sizeof(OT);  // 128; f32: 64
   static constexpr int kLd = kDepth + kEl;
-  static constexpr int kRows = 128 / (int)sizeof(XT);   // 64 bf16, 32 f32
-  static constexpr int kLdU = kRows + kEl;
+  static constexpr int kLdV = kDepth + kOEl;
+  static constexpr int kRows = 128 / (int)sizeof(OT);   // 64; f32: 32
+  static constexpr int kBLd = kBCols + (kEl > 8 ? kEl : 8);
+  static constexpr int kLdU = kRows + kOEl;
 };
 
 // Element offset of X[row, 0] within its 16-byte chunk.
@@ -128,6 +155,27 @@ __device__ __forceinline__ uint32_t pack_bf16(const __nv_bfloat16* a,
                                               const __nv_bfloat16* b) {
   return (uint32_t)*reinterpret_cast<const unsigned short*>(a) |
          ((uint32_t)*reinterpret_cast<const unsigned short*>(b) << 16);
+}
+
+// Two e4m3 values (v: the first in the low byte) as a bf16 pair, the first
+// in the low half: cvt.rn.f16x2.e4m3x2, then f16 -> f32 -> bf16, each step
+// exact for every finite e4m3 value.
+__device__ __forceinline__ uint32_t e4m3x2_to_bf16x2(uint32_t v) {
+  const __half2 h(__nv_cvt_fp8x2_to_halfraw2(
+      static_cast<__nv_fp8x2_storage_t>(v), __NV_E4M3));
+  const __nv_bfloat162 b = __float22bfloat162_rn(__half22float2(h));
+  return *reinterpret_cast<const uint32_t*>(&b);
+}
+
+// 16 bits holding p[0] (low byte) and p[1]; kPairs: p is 2-byte aligned.
+template <bool kPairs>
+__device__ __forceinline__ uint32_t ld_e4m3x2(const __nv_fp8_e4m3* p) {
+  const unsigned char* b = reinterpret_cast<const unsigned char*>(p);
+  if constexpr (kPairs) {
+    return *reinterpret_cast<const unsigned short*>(b);
+  } else {
+    return (uint32_t)b[0] | ((uint32_t)b[1] << 8);
+  }
 }
 
 // acc += part, in f32 adds rounded to nearest. The tensor cores align the
@@ -166,23 +214,25 @@ __device__ __forceinline__ void stage_kxk(const float* __restrict__ A, int k,
   }
 }
 
-// 1. Vt[c, j] = round_X(V[j, c]) for c < k and j < m, else 0.
-template <typename XT>
+// 1. Vt[c, j] = round_OT(V[j, c]) for c < k and j < m, else 0.
+template <typename OT>
 __global__ void vt_kernel(const float* __restrict__ V, int m, int k, int np,
-                          int ld, XT* __restrict__ Vt) {
+                          int ld, OT* __restrict__ Vt) {
   const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= (long long)np * ld) return;
   const int c = (int)(idx / ld), j = (int)(idx % ld);
   from_float(c < k && j < m ? V[(size_t)j * k + c] : 0.f, Vt[idx]);
 }
 
-// Shared memory of the row sweep: kAStages x (X tile kARows x kLd, Vt tile
-// NP x kLd), reused by the epilogue.
+// Shared memory of the row sweep: kAStages x (X tile kARows x kLd of XT,
+// Vt tile NP x kLdV of OT), in bytes, reused by the epilogue.
 template <typename XT, int NT>
 struct ASmem {
-  static constexpr int kLd = UTile<XT>::kLd;
-  static constexpr int kStage = (kARows + NT * 8) * kLd;  // elements
-  static constexpr int kBytes = kAStages * kStage * (int)sizeof(XT);
+  using Ti = UTile<XT>;
+  static constexpr int kXBytes = kARows * Ti::kLd * (int)sizeof(XT);
+  static constexpr int kStage =
+      kXBytes + NT * 8 * Ti::kLdV * (int)sizeof(op_t<XT>);
+  static constexpr int kBytes = kAStages * kStage;
 };
 
 // This warp's 16 rows (at their offsets) times the stage's Vt, into NT
@@ -193,7 +243,7 @@ __device__ __forceinline__ void xv_stage_mma(const __nv_bfloat16* alo,
                                              const __nv_bfloat16* Bs,
                                              float (&acc)[NT][4], int g,
                                              int t) {
-  constexpr int L = UTile<__nv_bfloat16>::kLd;
+  constexpr int L = UTile<__nv_bfloat16>::kLdV;
 #pragma unroll
   for (int kk = 0; kk < UTile<__nv_bfloat16>::kDepth; kk += 16) {
     const uint32_t a[4] = {ld_bf16x2<kPairs>(alo + kk + 2 * t),
@@ -208,12 +258,36 @@ __device__ __forceinline__ void xv_stage_mma(const __nv_bfloat16* alo,
   }
 }
 
+// The same stage for e4m3 X: the fragments are the bf16 stage's, the X
+// values converted to bf16 as they are loaded.
+template <bool kPairs, int NT>
+__device__ __forceinline__ void xv_stage_mma(const __nv_fp8_e4m3* alo,
+                                             const __nv_fp8_e4m3* ahi,
+                                             const __nv_bfloat16* Bs,
+                                             float (&acc)[NT][4], int g,
+                                             int t) {
+  constexpr int L = UTile<__nv_fp8_e4m3>::kLdV;
+#pragma unroll
+  for (int kk = 0; kk < UTile<__nv_fp8_e4m3>::kDepth; kk += 16) {
+    const uint32_t a[4] = {
+        e4m3x2_to_bf16x2(ld_e4m3x2<kPairs>(alo + kk + 2 * t)),
+        e4m3x2_to_bf16x2(ld_e4m3x2<kPairs>(ahi + kk + 2 * t)),
+        e4m3x2_to_bf16x2(ld_e4m3x2<kPairs>(alo + kk + 8 + 2 * t)),
+        e4m3x2_to_bf16x2(ld_e4m3x2<kPairs>(ahi + kk + 8 + 2 * t))};
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const __nv_bfloat16* b = Bs + (j * 8 + g) * L + kk + 2 * t;
+      mma_bf16(acc[j], a, ld_pair(b), ld_pair(b + 8));
+    }
+  }
+}
+
 template <bool kPairs, int NT>
 __device__ __forceinline__ void xv_stage_mma(const float* alo, const float* ahi,
                                              const float* Bs,
                                              float (&acc)[NT][4], int g,
                                              int t) {
-  constexpr int L = UTile<float>::kLd;
+  constexpr int L = UTile<float>::kLdV;
 #pragma unroll
   for (int kk = 0; kk < UTile<float>::kDepth; kk += 8) {
     uint32_t hi[4], lo[4];
@@ -252,7 +326,7 @@ __device__ __forceinline__ void xv_stage_mma_6x(const float* alo,
                                                 const float* Bs,
                                                 float (&acc)[NT][4], int g,
                                                 int t) {
-  constexpr int L = UTile<float>::kLd;
+  constexpr int L = UTile<float>::kLdV;
 #pragma unroll
   for (int kk = 0; kk < UTile<float>::kDepth; kk += 8) {
     uint32_t hi[4], mid[4], lo[4];
@@ -284,25 +358,34 @@ __device__ __forceinline__ void xv_stage_mma_6x(const float* alo,
 template <typename XT, int NT, bool kPairs, typename Epi, bool kWide = false>
 __global__ void __launch_bounds__(kAThreads, 3)
     xv_rows_kernel(const XT* __restrict__ X, int n, int m, int k,
-                   const XT* __restrict__ Vt, int ld_vt, Epi epi,
-                   float* __restrict__ Unew, XT* __restrict__ UxT, int ld_ux,
-                   float* __restrict__ gram_part) {
+                   const op_t<XT>* __restrict__ Vt, int ld_vt, Epi epi,
+                   float* __restrict__ Unew, op_t<XT>* __restrict__ UxT,
+                   int ld_ux, float* __restrict__ gram_part) {
   if constexpr (kWide) Vt += (size_t)blockIdx.y * NT * 8 * ld_vt;
+  using OT = op_t<XT>;
   using Sm = ASmem<XT, NT>;
   using Ti = UTile<XT>;
   constexpr int NP = NT * 8;
   constexpr int L = Ti::kLd;
+  constexpr int LV = Ti::kLdV;
   constexpr int TC = Ti::kDepth;
   constexpr int kChunks = L / Ti::kEl;  // chunks per X tile row
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  XT* sm = reinterpret_cast<XT*>(smem_raw);
+  // stage i: the X tile, then the Vt tile
+  auto stage_x = [&](int i) {
+    return reinterpret_cast<XT*>(smem_raw + (i % kAStages) * Sm::kStage);
+  };
+  auto stage_v = [&](const XT* Xs) {
+    return reinterpret_cast<OT*>(
+        reinterpret_cast<unsigned char*>(const_cast<XT*>(Xs)) + Sm::kXBytes);
+  };
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
   const int row0 = blockIdx.x * kARows;
   const int n_tiles = (m + TC - 1) / TC;
 
   // Copy slots: this thread's chunks of the X tile, fixed for the sweep.
-  // xsrc: the chunk of tile 0 (tile i is i * 256 bytes on); xleft: bytes
+  // xsrc: the chunk of tile 0 (tile i is i * kStep bytes on); xleft: bytes
   // from it to the end of the row (a chunk starting at or past the end is
   // zero-filled; rows past n have none).
   constexpr int kXChunks = kARows * kChunks;
@@ -326,8 +409,8 @@ __global__ void __launch_bounds__(kAThreads, 3)
     }
   }
   auto load = [&](int i) {
-    XT* Xs = sm + (i % kAStages) * Sm::kStage;
-    XT* Bs = Xs + kARows * L;
+    XT* Xs = stage_x(i);
+    OT* Bs = stage_v(Xs);
 #pragma unroll
     for (int s = 0; s < kXSlots; ++s) {
       if (xdst[s] < 0) continue;
@@ -335,10 +418,10 @@ __global__ void __launch_bounds__(kAThreads, 3)
       cp_async16(Xs + xdst[s], ok ? xsrc[s] + (size_t)i * kStep : xsrc[s],
                  ok ? 16 : 0);
     }
-    constexpr int kVChunks = TC / Ti::kEl;  // per Vt row
+    constexpr int kVChunks = TC / Ti::kOEl;  // per Vt row
     for (int c = tid; c < NP * kVChunks; c += kAThreads) {
-      const int r = c / kVChunks, e = (c % kVChunks) * Ti::kEl;
-      cp_async16(Bs + r * L + e, Vt + (size_t)r * ld_vt + i * TC + e);
+      const int r = c / kVChunks, e = (c % kVChunks) * Ti::kOEl;
+      cp_async16(Bs + r * LV + e, Vt + (size_t)r * ld_vt + i * TC + e);
     }
   };
 
@@ -360,7 +443,7 @@ __global__ void __launch_bounds__(kAThreads, 3)
     __syncthreads();                // and every warp is done with tile i - 1
     if (i + kAStages - 1 < n_tiles) load(i + kAStages - 1);
     cp_async_commit();
-    XT* Xs = sm + (i % kAStages) * Sm::kStage;
+    XT* Xs = stage_x(i);
     const int valid = m - i * TC;
     if (valid < TC) {  // last tile: zero the elements past m
       for (int e = tid; e < kARows * TC; e += kAThreads) {
@@ -373,10 +456,10 @@ __global__ void __launch_bounds__(kAThreads, 3)
     float part[NT][4] = {};
     if constexpr (kWide && sizeof(XT) == 4)
       xv_stage_mma_6x<kPairs, NT>(Xs + rlo * L + olo, Xs + rhi * L + ohi,
-                                  Xs + kARows * L, part, g, t);
+                                  stage_v(Xs), part, g, t);
     else
       xv_stage_mma<kPairs, NT>(Xs + rlo * L + olo, Xs + rhi * L + ohi,
-                               Xs + kARows * L, part, g, t);
+                               stage_v(Xs), part, g, t);
     promote(acc, part);
   }
   cp_async_wait<0>();
@@ -418,7 +501,7 @@ __global__ void __launch_bounds__(kAThreads, 3)
       if (lane < k) Unew[(size_t)row * k + lane] = un;
     }
     if (lane < NP) {
-      XT ux;
+      OT ux;
       from_float(un, ux);
       UxT[(size_t)lane * ld_ux + row] = ux;
       Us[r * NP + lane] = un;
@@ -440,10 +523,10 @@ __global__ void __launch_bounds__(kAThreads, 3)
 // CTA's Gram partial, over rows in order, as the row sweep writes them.
 constexpr int kEThreads = 256;
 
-template <typename XT, typename Epi>
+template <typename OT, typename Epi>
 __global__ void __launch_bounds__(kEThreads)
     wide_rows_kernel(int n, int k, int np, Epi epi, const float* XV,
-                     float* scratch, float* Unew, XT* __restrict__ UxT,
+                     float* scratch, float* Unew, OT* __restrict__ UxT,
                      int ld_ux, float* __restrict__ gram_part) {
   const int tid = threadIdx.x, warp = tid >> 5;
   const int row0 = blockIdx.x * kARows;
@@ -456,7 +539,7 @@ __global__ void __launch_bounds__(kEThreads)
   __syncthreads();  // every row of the block is written
   for (int e = tid; e < np * kARows; e += kEThreads) {
     const int c = e / kARows, row = row0 + e % kARows;
-    XT ux;
+    OT ux;
     from_float(row < n && c < k ? Unew[(size_t)row * k + c] : 0.f, ux);
     UxT[(size_t)c * ld_ux + row] = ux;
   }
@@ -470,13 +553,15 @@ __global__ void __launch_bounds__(kEThreads)
   }
 }
 
-// Shared memory of the column sweep: kBStages x (X tile kRows x kBLd, UxT
-// tile NP x kLdU).
+// Shared memory of the column sweep: kBStages x (X tile kRows x kBLd of
+// XT, UxT tile NP x kLdU of OT), in bytes.
 template <typename XT, int NT>
 struct BSmem {
-  static constexpr int kXt = UTile<XT>::kRows * kBLd;
-  static constexpr int kStage = kXt + NT * 8 * UTile<XT>::kLdU;  // elements
-  static constexpr int kBytes = kBStages * kStage * (int)sizeof(XT);
+  using Ti = UTile<XT>;
+  static constexpr int kXtBytes = Ti::kRows * Ti::kBLd * (int)sizeof(XT);
+  static constexpr int kStage =
+      kXtBytes + NT * 8 * Ti::kLdU * (int)sizeof(op_t<XT>);
+  static constexpr int kBytes = kBStages * kStage;
 };
 
 // One stage of X^T Ux for this warp's 16 columns: A[c][r] = X[r][c] read
@@ -498,6 +583,34 @@ __device__ __forceinline__ void xtu_stage_mma(const __nv_bfloat16* Xs,
                            pack_bf16(Xs + pos[s][2] + c, Xs + pos[s][3] + c),
                            pack_bf16(Xs + pos[s][2] + c + 8,
                                      Xs + pos[s][3] + c + 8)};
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const __nv_bfloat16* b = Us + (j * 8 + g) * L + kk + 2 * t;
+      mma_bf16(acc[j], a, ld_pair(b), ld_pair(b + 8));
+    }
+  }
+}
+
+// The same stage for e4m3 X: the bf16 stage's fragments, each pair of X
+// values (two rows of one column) converted to bf16 as it is loaded.
+template <int NT>
+__device__ __forceinline__ void xtu_stage_mma(const __nv_fp8_e4m3* Xs,
+                                              const __nv_bfloat16* Us,
+                                              const int (&pos)[4][4], int c,
+                                              float (&acc)[NT][4], int g,
+                                              int t) {
+  constexpr int L = UTile<__nv_fp8_e4m3>::kLdU;
+  const unsigned char* xb = reinterpret_cast<const unsigned char*>(Xs);
+  auto pair = [&](int lo, int hi) {
+    return e4m3x2_to_bf16x2((uint32_t)xb[lo] | ((uint32_t)xb[hi] << 8));
+  };
+#pragma unroll
+  for (int s = 0; s < 4; ++s) {
+    const int kk = s * 16;
+    const uint32_t a[4] = {pair(pos[s][0] + c, pos[s][1] + c),
+                           pair(pos[s][0] + c + 8, pos[s][1] + c + 8),
+                           pair(pos[s][2] + c, pos[s][3] + c),
+                           pair(pos[s][2] + c + 8, pos[s][3] + c + 8)};
 #pragma unroll
     for (int j = 0; j < NT; ++j) {
       const __nv_bfloat16* b = Us + (j * 8 + g) * L + kk + 2 * t;
@@ -531,11 +644,11 @@ __device__ __forceinline__ void xtu_stage_mma(const float* Xs, const float* Us,
   }
 }
 
-// Rows of k-step s read by this lane, relative to the stage: bf16
+// Rows of k-step s read by this lane, relative to the stage: bf16 and e4m3
 // (m16n8k16, A = X^T) rows 2t, 2t+1, 2t+8, 2t+9; f32 (m16n8k8) rows t, t+4.
 template <typename XT>
 __device__ __forceinline__ int xtu_row(int s, int i, int t) {
-  if constexpr (sizeof(XT) == 2) {
+  if constexpr (sizeof(op_t<XT>) == 2) {
     return s * 16 + 2 * t + (i & 1) + 8 * (i >> 1);
   } else {
     return s * 8 + t + 4 * i;
@@ -547,15 +660,24 @@ __device__ __forceinline__ int xtu_row(int s, int i, int t) {
 template <typename XT, int NT>
 __global__ void __launch_bounds__(kBThreads, 2)
     xtu_cols_kernel(const XT* __restrict__ X, int n, int m, int k,
-                    const XT* __restrict__ UxT, int ld_ux, int seg_rows,
+                    const op_t<XT>* __restrict__ UxT, int ld_ux, int seg_rows,
                     float* __restrict__ out) {
+  using OT = op_t<XT>;
   using Sm = BSmem<XT, NT>;
   using Ti = UTile<XT>;
   constexpr int RS = Ti::kRows;  // rows per stage
   constexpr int LU = Ti::kLdU;
+  constexpr int BL = Ti::kBLd;
   constexpr int kChunks = (kBCols + Ti::kEl) / Ti::kEl;  // per X tile row
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  XT* sm = reinterpret_cast<XT*>(smem_raw);
+  // stage i: the X tile, then the UxT tile
+  auto stage_x = [&](int i) {
+    return reinterpret_cast<XT*>(smem_raw + (i % kBStages) * Sm::kStage);
+  };
+  auto stage_u = [&](const XT* Xs) {
+    return reinterpret_cast<OT*>(
+        reinterpret_cast<unsigned char*>(const_cast<XT*>(Xs)) + Sm::kXtBytes);
+  };
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
   const int c0 = blockIdx.x * kBCols;
@@ -584,15 +706,15 @@ __global__ void __launch_bounds__(kBThreads, 2)
     const long long rel =
         (long long)(c0 - row_offset(X, r, m)) * (long long)sizeof(XT) + 16 * q;
     const bool cols = rel < (long long)min(c0 + kBCols, m) * (long long)sizeof(XT);
-    xdst[s] = c < kXChunks ? r * kBLd + q * Ti::kEl : -1;
+    xdst[s] = c < kXChunks ? r * BL + q * Ti::kEl : -1;
     xrow[s] = cols ? r : seg_rows;
     xsrc[s] = reinterpret_cast<const char*>(X + (size_t)r_begin * m) +
               (size_t)r * m * sizeof(XT) + rel;
   }
 
   auto load = [&](int i) {
-    XT* Xs = sm + (i % kBStages) * Sm::kStage;
-    XT* Us = Xs + Sm::kXt;
+    XT* Xs = stage_x(i);
+    OT* Us = stage_u(Xs);
 #pragma unroll
     for (int s = 0; s < kXSlots; ++s) {
       if (xdst[s] < 0) continue;
@@ -600,9 +722,9 @@ __global__ void __launch_bounds__(kBThreads, 2)
       cp_async16(Xs + xdst[s], ok ? xsrc[s] + i * stage_bytes : xsrc[s],
                  ok ? 16 : 0);
     }
-    constexpr int kUChunks = RS / Ti::kEl;  // per UxT row
+    constexpr int kUChunks = RS / Ti::kOEl;  // per UxT row
     for (int c = tid; c < NT * 8 * kUChunks; c += kBThreads) {
-      const int r = c / kUChunks, e = (c % kUChunks) * Ti::kEl;
+      const int r = c / kUChunks, e = (c % kUChunks) * Ti::kOEl;
       cp_async16(Us + r * LU + e,
                  UxT + (size_t)r * ld_ux + r_begin + i * RS + e);
     }
@@ -614,7 +736,7 @@ __global__ void __launch_bounds__(kBThreads, 2)
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int r = xtu_row<XT>(s, i, t);
-      pos[s][i] = r * kBLd + row_offset(X, r, m);
+      pos[s][i] = r * BL + row_offset(X, r, m);
     }
   float acc[NT][4];
 #pragma unroll
@@ -631,9 +753,9 @@ __global__ void __launch_bounds__(kBThreads, 2)
     __syncthreads();
     if (i + kBStages - 1 < n_stages) load(i + kBStages - 1);
     cp_async_commit();
-    const XT* Xs = sm + (i % kBStages) * Sm::kStage;
+    const XT* Xs = stage_x(i);
     float part[NT][4] = {};
-    xtu_stage_mma<NT>(Xs, Xs + Sm::kXt, pos, warp * 16 + g, part, g, t);
+    xtu_stage_mma<NT>(Xs, stage_u(Xs), pos, warp * 16 + g, part, g, t);
     promote(acc, part);
   }
   cp_async_wait<0>();
@@ -680,8 +802,8 @@ __global__ void u_pass_reduce_kernel(const float* __restrict__ numv_part,
 
 // Workspace and plan of one call (from the wrapper's u_pass_plan).
 struct UPassWork {
-  void* vt;          // NP x ld_vt, X's dtype
-  void* uxt;         // NP x ld_ux, X's dtype
+  void* vt;          // NP x ld_vt, X's operand type (op_t)
+  void* uxt;         // NP x ld_ux, X's operand type
   float* gram_part;  // ceil(n / kARows) x k x k
   float* numv_part;  // n_seg x m x k (unused when n_seg == 1); for k > 32
                      // at least 2 n k floats: before the column sweep
@@ -725,19 +847,19 @@ int launch_rows(const XT* X, int n, int m, int k, const Epi& epi,
     return e;
   xv_rows_kernel<XT, NT, kPairs, Epi, kWide>
       <<<dim3(ceil_div(n, kARows), n_slices), kAThreads, smem, st>>>(
-          X, n, m, k, static_cast<const XT*>(w.vt), w.ld_vt, epi, Unew,
-          static_cast<XT*>(w.uxt), w.ld_ux, w.gram_part);
+          X, n, m, k, static_cast<const op_t<XT>*>(w.vt), w.ld_vt, epi, Unew,
+          static_cast<op_t<XT>*>(w.uxt), w.ld_ux, w.gram_part);
   return 0;
 }
 
-// Kernel 2 for X's alignment: bf16 pairs are 4-byte aligned when X is and
-// rows hold an even count.
+// Kernel 2 for X's alignment: bf16 (e4m3) pairs are 4-byte (2-byte)
+// aligned when X is and rows hold an even count.
 template <typename XT, int NT, typename Epi, bool kWide = false>
 int launch_rows_aligned(const XT* X, int n, int m, int k, const Epi& epi,
                         float* Unew, const UPassWork& w, int n_slices,
                         cudaStream_t st) {
-  if constexpr (sizeof(XT) == 2) {
-    if (reinterpret_cast<uintptr_t>(X) % 4 == 0 && m % 2 == 0)
+  if constexpr (sizeof(XT) < 4) {
+    if (reinterpret_cast<uintptr_t>(X) % (2 * sizeof(XT)) == 0 && m % 2 == 0)
       return launch_rows<XT, NT, true, Epi, kWide>(X, n, m, k, epi, Unew, w,
                                                    n_slices, st);
     return launch_rows<XT, NT, false, Epi, kWide>(X, n, m, k, epi, Unew, w,
@@ -761,7 +883,8 @@ int launch_cols_reduce(const XT* X, int n, int m, int k, float* numV,
   if (int e = allow_smem(xtu_cols_kernel<XT, NT>, smem_b, ready_b)) return e;
   xtu_cols_kernel<XT, NT>
       <<<dim3(ceil_div(m, kBCols), w.n_seg, n_slices), kBThreads, smem_b,
-         st>>>(X, n, m, k, static_cast<const XT*>(w.uxt), w.ld_ux, w.seg_rows,
+         st>>>(X, n, m, k, static_cast<const op_t<XT>*>(w.uxt), w.ld_ux,
+               w.seg_rows,
                w.n_seg == 1 ? numV : w.numv_part);
   const long long mk = (long long)m * k;
   const int num_blocks = w.n_seg > 1 ? (int)((mk + 255) / 256) : 0;
@@ -777,8 +900,8 @@ int launch_u_pass_nt(const XT* X, const float* V, int n, int m, int k,
                      const UPassWork& w, cudaStream_t st) {
   constexpr int NP = NT * 8;
   const long long n_vt = (long long)NP * w.ld_vt;
-  vt_kernel<XT><<<(int)((n_vt + 255) / 256), 256, 0, st>>>(
-      V, m, k, NP, w.ld_vt, static_cast<XT*>(w.vt));
+  vt_kernel<op_t<XT>><<<(int)((n_vt + 255) / 256), 256, 0, st>>>(
+      V, m, k, NP, w.ld_vt, static_cast<op_t<XT>*>(w.vt));
   if (int e = launch_rows_aligned<XT, NT>(X, n, m, k, epi, Unew, w, 1, st))
     return e;
   return launch_cols_reduce<XT, NT, Epi>(X, n, m, k, numV, gramU, w, 1, st);
@@ -794,13 +917,13 @@ int launch_u_pass_wide(const XT* X, const float* V, int n, int m, int k,
   float* xv = w.numv_part;
   float* scratch = w.numv_part + (size_t)n * k;
   const long long n_vt = (long long)np * w.ld_vt;
-  vt_kernel<XT><<<(int)((n_vt + 255) / 256), 256, 0, st>>>(
-      V, m, k, np, w.ld_vt, static_cast<XT*>(w.vt));
+  vt_kernel<op_t<XT>><<<(int)((n_vt + 255) / 256), 256, 0, st>>>(
+      V, m, k, np, w.ld_vt, static_cast<op_t<XT>*>(w.vt));
   if (int e = launch_rows_aligned<XT, 4, Epi, true>(X, n, m, k, epi, xv, w,
                                                     n_slices, st))
     return e;
-  wide_rows_kernel<XT, Epi><<<ceil_div(n, kARows), kEThreads, 0, st>>>(
-      n, k, np, epi, xv, scratch, Unew, static_cast<XT*>(w.uxt), w.ld_ux,
+  wide_rows_kernel<op_t<XT>, Epi><<<ceil_div(n, kARows), kEThreads, 0, st>>>(
+      n, k, np, epi, xv, scratch, Unew, static_cast<op_t<XT>*>(w.uxt), w.ld_ux,
       w.gram_part);
   return launch_cols_reduce<XT, 4, Epi>(X, n, m, k, numV, gramU, w, n_slices,
                                         st);
@@ -829,6 +952,28 @@ int launch_u_pass(const void* X, const float* V, int n, int m, int k,
     default:
       return launch_u_pass_wide<XT>(x, V, n, m, k, epi, Unew, numV, gramU, w,
                                     st);
+  }
+}
+
+// The whole call for X's dtype code (common.cuh: XDtype); an unknown code
+// launches nothing.
+template <typename Epi>
+int launch_u_pass_dtype(int x_dtype, const void* X, const float* V, int n,
+                        int m, int k, const Epi& epi, float* Unew,
+                        float* numV, float* gramU, const UPassWork& w,
+                        cudaStream_t st) {
+  switch (x_dtype) {
+    case kXF32:
+      return launch_u_pass<float>(X, V, n, m, k, epi, Unew, numV, gramU, w,
+                                  st);
+    case kXBF16:
+      return launch_u_pass<__nv_bfloat16>(X, V, n, m, k, epi, Unew, numV,
+                                          gramU, w, st);
+    case kXE4M3:
+      return launch_u_pass<__nv_fp8_e4m3>(X, V, n, m, k, epi, Unew, numV,
+                                          gramU, w, st);
+    default:
+      return (int)cudaErrorInvalidValue;
   }
 }
 

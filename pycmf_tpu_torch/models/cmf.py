@@ -17,8 +17,9 @@ the threshold for a sigmoid-linked matrix under Newton). Newton runs full
 batch or sampled (``sg_sample_ratio`` < 1: stochastic minibatch Newton,
 its column draws from a ``torch.Generator`` seeded by the reference's rule
 from ``random_state``), with the Gauss-Newton or the full Hessian
-(``hessian_form``). The rest (``n_shards``, fp8 data) raises
-NotImplementedError naming the ROADMAP item that brings it.
+(``hessian_form``). ``data_dtype='fp8'`` stores X dense as float8_e4m3fn
+(Y then at bf16), contracted in bf16 as the reference does. ``n_shards``
+raises NotImplementedError naming the ROADMAP item that brings it.
 """
 from __future__ import annotations
 
@@ -36,7 +37,8 @@ from ..solvers.newton import captures_on_card, run_newton
 from ..utils.convert import (factors_from_numpy, factors_to_numpy,
                              fitted_state_from_reference)
 from ..utils.init import initialize_factors
-from ..utils.validation import as_coupled, check_matrix, validate_cmf_params
+from ..utils.validation import (DENSIFY_THRESHOLD, as_coupled, check_matrix,
+                                validate_cmf_params)
 
 _DTYPES = {
     "float32": torch.float32,
@@ -182,13 +184,10 @@ class CMF:
             else:
                 raise ValueError(
                     f"dtype must be one of {list(_DTYPES) + list(_FP8_NAMES)}")
-        if dt in FP8_DTYPES:
-            if which is None:
-                raise ValueError(
-                    "fp8 is a data storage dtype, not a factor/compute "
-                    "dtype; pass it as data_dtype='fp8' with dtype='float32'")
-            raise NotImplementedError(
-                "fp8 data storage is not ported yet (ROADMAP A9)")
+        if which is None and dt in FP8_DTYPES:
+            raise ValueError(
+                "fp8 is a data storage dtype, not a factor/compute "
+                "dtype; pass it as data_dtype='fp8' with dtype='float32'")
         if which is None and dt == torch.bfloat16:
             raise ValueError(
                 "dtype='bfloat16' is not a factor/compute dtype (factor "
@@ -197,9 +196,20 @@ class CMF:
         return dt
 
     def _resolve_data_dtype(self):
+        """Storage dtype of X on the device: ``data_dtype``, else
+        ``dtype``. 'bfloat16' halves the data passes' traffic and 'fp8'
+        (float8_e4m3fn, dense X only) halves it again; factors and all
+        accumulation stay in ``dtype``."""
         if self.data_dtype is None:
             return self._resolve_dtype()
         return self._resolve_dtype(self.data_dtype)
+
+    def _y_dtype(self):
+        """Storage dtype of Y: X's, except bf16 under fp8 X (the reference
+        quantizes only the big matrix; ``as_coupled`` then counts Y's
+        dense copy at 2 bytes per element)."""
+        ddt = self._resolve_data_dtype()
+        return torch.bfloat16 if ddt in FP8_DTYPES else ddt
 
     def _resolve_loop(self, cfg=None):
         """The reference's rule: 'auto' → the device loop on a CUDA device
@@ -250,6 +260,19 @@ class CMF:
             return "auto"
         return self.sparse_mode
 
+    def _stays_sparse(self, A) -> bool:
+        """Whether host matrix A stays CSR or chunked on the device (is not
+        densified) under sparse_mode, by as_coupled's storage-byte rule: fp8
+        counts 4 bytes per element (its densify goes through a float32
+        buffer)."""
+        if not sp.issparse(A) or self.sparse_mode == "dense":
+            return False
+        if self.sparse_mode in ("csr", "chunked"):
+            return True
+        ddt = self._resolve_data_dtype()
+        item = 4 if ddt in FP8_DTYPES else ddt.itemsize
+        return A.shape[0] * A.shape[1] * item > DENSIFY_THRESHOLD
+
     def _chunked_ok(self, link) -> bool:
         """Whether 'auto' streams a sparse matrix past the densify
         threshold (as_coupled's chunked_ok): only a sigmoid-linked one
@@ -291,6 +314,17 @@ class CMF:
         X = check_matrix(X, "X", require_non_negative=mu)
         if Y is not None:
             Y = check_matrix(Y, "Y", require_non_negative=mu)
+        if self._resolve_data_dtype() in FP8_DTYPES:
+            # fp8 stores X dense only (Y is bf16); the rule follows the
+            # per-matrix decision, so a sigmoid-linked Newton X that
+            # _matrix_sparse_mode densifies passes
+            if sp.issparse(X) and self._matrix_sparse_mode(
+                    X, self.x_link) != "dense" and self._stays_sparse(X):
+                raise ValueError(
+                    "data_dtype='fp8' requires dense device storage, but "
+                    f"X stays CSR under sparse_mode={self.sparse_mode!r}; "
+                    "use sparse_mode='dense' (or 'auto' below the densify "
+                    "threshold)")
         return X, Y
 
     def _run(self, Xc, Yc, U0, V0, Z0, cfg):
@@ -330,7 +364,7 @@ class CMF:
         Xc = as_coupled(X, ddt, dev, use_pallas=up,
                         sparse_mode=self._matrix_sparse_mode(X, self.x_link),
                         chunked_ok=self._chunked_ok(self.x_link))
-        Yc = (as_coupled(Y, ddt, dev, use_pallas=up,
+        Yc = (as_coupled(Y, self._y_dtype(), dev, use_pallas=up,
                          sparse_mode=self._matrix_sparse_mode(
                              Y, self.y_link, is_x=False),
                          chunked_ok=self._chunked_ok(self.y_link))

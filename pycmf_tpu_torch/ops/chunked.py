@@ -35,7 +35,7 @@ import torch
 
 from .kernels import mu_fused, newton_fused
 from .linesearch import backtracking_select
-from .matmul import matmul
+from .matmul import FP8_DTYPES, matmul
 
 # Target size of the dense chunk buffer at the storage dtype. The value is
 # the reference's, chosen for a TPU; choosing it for an 80 GB card is
@@ -135,6 +135,11 @@ def chunked_from_scipy(A, dtype=torch.float32, device="cpu", *,
     padding makes C·L more than 4× the true count (heavily skewed rows)."""
     import scipy.sparse as sp
 
+    if dtype in FP8_DTYPES:
+        raise ValueError(
+            "fp8 data storage requires dense device form; the chunked "
+            "streaming layout stores COO + a transient dense chunk — "
+            "use data_dtype='bfloat16' for beyond-threshold X")
     A = sp.coo_matrix(A)
     A.sum_duplicates()
     n, m = A.shape

@@ -6,9 +6,11 @@ Counterpart of ``pycmf_tpu/ops/pallas/mu_fused.py``. One call computes
     numV  = Xᵀ U_new                                 (V's X-side numerator)
     gramU = U_newᵀ U_new                             (V's X-side Gram)
 
-with the reference's rounding points: V is cast to X's dtype before X V,
-U_new is cast to X's dtype before Xᵀ U_new, and all accumulation is in the
-factor dtype (float32 on the card). The kernel is ``csrc/mu_fused.cu`` on the
+with the reference's rounding points: V is cast to X's operand dtype before
+X V, U_new is cast to it before Xᵀ U_new, and all accumulation is in the
+factor dtype (float32 on the card). The operand dtype is X's own, or bf16
+for fp8 X (float8_e4m3fn, widened to bf16 exactly:
+``matmul.operand_dtype``). The kernel is ``csrc/mu_fused.cu`` on the
 skeleton ``csrc/u_pass_common.cuh``, shared with ``newton_fused``; this module
 holds the Python side of both: :func:`u_pass_plan` (tiles, row segments and
 workspace layout, computed here only) and :func:`launch_u_pass`.
@@ -21,11 +23,13 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from ..matmul import FP8_DTYPES
+from ..matmul import FP8_DTYPES, operand_dtype
 from . import _build
 from .policy import launch_count, on_card
 
+# the fp8 form (e4m3 X) is counted apart from the f32 and bf16 forms
 LAUNCHES = launch_count("fused_mu_u_pass")
+LAUNCHES_FP8 = launch_count("fused_mu_u_pass_fp8")
 
 # Geometry of the CUDA U-pass (csrc/u_pass_common.cuh; the C side checks
 # the plan it is given against the same rules).
@@ -43,8 +47,8 @@ class UPassPlan(NamedTuple):
     nt: int              # n8 tiles of the factor dimension: ceil(k / 8),
     #                      or 4 per slice on the wide route
     k_slices: int        # component slices: 1, or ceil(k / 32) for k > 32
-    ld_vt: int           # row stride of Vᵀ rounded to X's dtype (NP rows)
-    ld_ux: int           # row stride of U_newᵀ rounded to X's dtype
+    ld_vt: int           # row stride of Vᵀ in the operand dtype (NP rows)
+    ld_ux: int           # row stride of U_newᵀ in the operand dtype
     row_blocks: int      # row-sweep CTAs, each A_ROWS rows
     col_slices: int      # column-sweep CTAs per row segment, B_COLS columns
     seg_rows: int        # rows per row segment of the column sweep
@@ -60,8 +64,11 @@ def _ceil(a: int, b: int) -> int:
 
 
 @functools.lru_cache(maxsize=64)
-def u_pass_plan(n: int, m: int, k: int, x_bytes: int, n_sm: int) -> UPassPlan:
-    """Plan of one U-pass call on a card with ``n_sm`` SMs. The column sweep
+def u_pass_plan(n: int, m: int, k: int, op_bytes: int, n_sm: int) -> UPassPlan:
+    """Plan of one U-pass call on a card with ``n_sm`` SMs; ``op_bytes``:
+    the size of X's operand dtype (2 for bf16 and fp8 X, 4 for f32), in
+    which Vᵀ and U_newᵀ are stored. The plan does not depend on X's own
+    size, so an fp8 call runs the bf16 call's plan. The column sweep
     takes as many row segments as keep its CTAs within one resident wave
     (B_CTAS_PER_SM per SM), at least one; segments are whole row-sweep
     blocks, so each starts on a row where X's 16-byte alignment repeats.
@@ -76,7 +83,8 @@ def u_pass_plan(n: int, m: int, k: int, x_bytes: int, n_sm: int) -> UPassPlan:
     n_seg = min(max(1, B_CTAS_PER_SM * n_sm // col_slices), row_blocks)
     seg_rows = _ceil(row_blocks, n_seg) * A_ROWS
     n_seg = _ceil(n, seg_rows)
-    sizes = (_ceil(np_ * ld_vt * x_bytes, 4), _ceil(np_ * ld_ux * x_bytes, 4),
+    sizes = (_ceil(np_ * ld_vt * op_bytes, 4),
+             _ceil(np_ * ld_ux * op_bytes, 4),
              row_blocks * k * k,
              max(n_seg * m * k if n_seg > 1 else 0,
                  2 * n * k if k_slices > 1 else 0))
@@ -94,7 +102,17 @@ def _sm_count(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
-# leading C arguments of both entry points: x_is_bf16, X, U, V; trailing:
+# X's dtype as the C entry points take it (csrc/common.cuh: XDtype)
+X_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float8_e4m3fn: 2}
+
+
+def launches(X: torch.Tensor, plain, fp8):
+    """The launch counter of a data-pass kernel's form for X: its fp8 form
+    (e4m3 X) is counted apart."""
+    return fp8 if X.dtype in FP8_DTYPES else plain
+
+
+# leading C arguments of both entry points: X's code, X, U, V; trailing:
 # Unew, numV, gramU, the four workspace parts, ld_vt, ld_ux, seg_rows,
 # n_seg, device, stream
 _HEAD = (ctypes.c_int,) + (ctypes.c_void_p,) * 3
@@ -114,7 +132,8 @@ def launch_u_pass(library: str, symbol: str, middle_types, X, U, V, middle):
     n, m = X.shape
     k = U.shape[1]
     dev = X.device.index
-    plan = u_pass_plan(n, m, k, X.element_size(), _sm_count(dev))
+    plan = u_pass_plan(n, m, k, operand_dtype(X.dtype).itemsize,
+                       _sm_count(dev))
     work = torch.empty(plan.floats, dtype=torch.float32, device=X.device)
     # the three outputs in one allocation
     out = torch.empty(n * k + m * k + k * k, dtype=torch.float32,
@@ -124,7 +143,7 @@ def launch_u_pass(library: str, symbol: str, middle_types, X, U, V, middle):
     gramu = out[(n + m) * k:].view(k, k)
     base = work.data_ptr()
     # the C side makes `dev` current for its launches
-    rc = fn(int(X.dtype == torch.bfloat16), X.data_ptr(), U.data_ptr(),
+    rc = fn(X_CODES[X.dtype], X.data_ptr(), U.data_ptr(),
             V.data_ptr(),
             *(a.data_ptr() if isinstance(a, torch.Tensor) else a
               for a in middle), unew.data_ptr(), numv.data_ptr(),
@@ -137,19 +156,21 @@ def launch_u_pass(library: str, symbol: str, middle_types, X, U, V, middle):
 
 
 def check_data_dtype(X: torch.Tensor) -> None:
-    """fp8 storage is not ported: it raises on every device."""
-    if X.dtype in FP8_DTYPES:
+    """fp8 data is float8_e4m3fn (the estimator's 'fp8'); float8_e5m2 has
+    no form in these kernels and raises on every device."""
+    if X.dtype in FP8_DTYPES and X.dtype != torch.float8_e4m3fn:
         raise NotImplementedError(
-            "fp8 data storage is not ported yet (ROADMAP A9)")
+            f"the data-pass kernels take fp8 data as float8_e4m3fn (the "
+            f"estimator's data_dtype='fp8'), got {X.dtype}")
 
 
 def check_card_operands(X: torch.Tensor, U, V, k_by_k) -> None:
     """Raise on what the CUDA data-pass kernels (K1-K4) do not take."""
-    if X.dim() != 2 or X.dtype not in (torch.float32, torch.bfloat16):
+    if X.dim() != 2 or X.dtype not in X_CODES:
         raise NotImplementedError(
-            f"the CUDA data-pass kernels take 2-D float32 or bfloat16 X, got "
-            f"{X.dtype} {tuple(X.shape)} (float64 on the card: ROADMAP C1; "
-            "use use_pallas=False for the plain path)")
+            f"the CUDA data-pass kernels take 2-D float32, bfloat16 or "
+            f"float8_e4m3fn X, got {X.dtype} {tuple(X.shape)} (float64 on "
+            "the card: ROADMAP C1; use use_pallas=False for the plain path)")
     n, m = X.shape
     k = U.shape[1]
     if k < 1:
@@ -169,31 +190,35 @@ def check_card_operands(X: torch.Tensor, U, V, k_by_k) -> None:
 
 
 def _acc_matmul(a: torch.Tensor, b: torch.Tensor, acc) -> torch.Tensor:
-    """a @ b with both operands (already in X's dtype) widened to acc."""
+    """a @ b with both operands (already in X's operand dtype, or fp8 X,
+    which widens exactly) widened to acc."""
     return torch.matmul(a.to(acc), b.to(acc))
 
 
 def fused_mu_u_pass_ref(X, U, V, VtV, l1, l2, eps, n_valid=None):
-    """Plain PyTorch version of :func:`fused_mu_u_pass` (same contract)."""
+    """Plain PyTorch version of :func:`fused_mu_u_pass` (same contract).
+    fp8 X gives the bf16 version's result on X widened to bf16 bit for
+    bit: the same products of the same values."""
     check_data_dtype(X)
     n = X.shape[0]
     acc = U.dtype
-    num_u = _acc_matmul(X, V.to(X.dtype), acc)
+    op = operand_dtype(X.dtype)
+    num_u = _acc_matmul(X, V.to(op), acc)
     unew = U * num_u / (U @ VtV + l1 + l2 * U + eps)
     nv = n if n_valid is None else int(n_valid)
     if nv < n:
         unew[nv:] = 0.0
-    numv = _acc_matmul(X.mT, unew.to(X.dtype), acc)
+    numv = _acc_matmul(X.mT, unew.to(op), acc)
     return unew, numv, unew.mT @ unew
 
 
 def fused_mu_u_pass(X, U, V, VtV, l1, l2, eps, n_valid=None):
     """Single-call MU U-update plus V's X-side terms.
 
-    X: (n, m) dense, float32 or bfloat16 on the card; U: (n, k), V: (m, k),
-    VtV: (k, k) float32. Returns (U_new (n, k), numV (m, k), gramU (k, k)).
-    CUDA tensors launch ``csrc/mu_fused.cu``; CPU tensors take
-    :func:`fused_mu_u_pass_ref`.
+    X: (n, m) dense, float32, bfloat16 or float8_e4m3fn on the card; U:
+    (n, k), V: (m, k), VtV: (k, k) float32. Returns (U_new (n, k), numV
+    (m, k), gramU (k, k)). CUDA tensors launch ``csrc/mu_fused.cu`` (its
+    fp8 form for e4m3 X); CPU tensors take :func:`fused_mu_u_pass_ref`.
     """
     check_data_dtype(X)
     if not on_card(X, U, V, VtV):
@@ -206,5 +231,5 @@ def fused_mu_u_pass(X, U, V, VtV, l1, l2, eps, n_valid=None):
         (VtV.contiguous(), X.shape[0], X.shape[1], U.shape[1],
          X.shape[0] if n_valid is None else int(n_valid), float(l1),
          float(l2), float(eps)))
-    LAUNCHES.n += 1
+    launches(X, LAUNCHES, LAUNCHES_FP8).n += 1
     return out

@@ -12,7 +12,8 @@ DB = X V:
             φ(M) = l1‖M‖₁ + ½l2‖M‖² + ½(‖x‖² − 2⟨DB, M⟩ + M BtB Mᵀ)
 
 plus numV = Xᵀ U_new and gramU = U_newᵀ U_new as in ``mu_fused``, with the
-same rounding points. The kernel is ``csrc/newton_fused.cu``.
+same rounding points (fp8 X contracts in bf16). The kernel is
+``csrc/newton_fused.cu``.
 """
 from __future__ import annotations
 
@@ -21,12 +22,14 @@ import ctypes
 import torch
 
 from ..linesearch import backtracking_select
+from ..matmul import operand_dtype
 from . import _build
 from .mu_fused import (_acc_matmul, check_card_operands, check_data_dtype,
-                       launch_u_pass)
+                       launch_u_pass, launches)
 from .policy import launch_count, on_card
 
 LAUNCHES = launch_count("fused_newton_linear_u_pass")
+LAUNCHES_FP8 = launch_count("fused_newton_linear_u_pass_fp8")
 
 
 def fused_newton_linear_u_pass_ref(X, U, V, BtB, Hinv, row_sq, l1, l2, *,
@@ -34,7 +37,8 @@ def fused_newton_linear_u_pass_ref(X, U, V, BtB, Hinv, row_sq, l1, l2, *,
     """Plain PyTorch version of :func:`fused_newton_linear_u_pass`."""
     check_data_dtype(X)
     acc = U.dtype
-    db = _acc_matmul(X, V.to(X.dtype), acc)
+    op = operand_dtype(X.dtype)
+    db = _acc_matmul(X, V.to(op), acc)
     g = U @ BtB - db + l1 * torch.sign(U) + l2 * U
     d = g @ Hinv
     rs = row_sq.to(acc)
@@ -50,7 +54,7 @@ def fused_newton_linear_u_pass_ref(X, U, V, BtB, Hinv, row_sq, l1, l2, *,
         return pen + 0.5 * (rs - 2.0 * lin + quad)
 
     unew = backtracking_select(phi, project, U, d, trials)
-    numv = _acc_matmul(X.mT, unew.to(X.dtype), acc)
+    numv = _acc_matmul(X.mT, unew.to(op), acc)
     return unew, numv, unew.mT @ unew
 
 
@@ -58,7 +62,8 @@ def fused_newton_linear_u_pass(X, U, V, BtB, Hinv, row_sq, l1, l2, *,
                                trials: int, non_negative: bool):
     """One-call Newton update of U (linear link, shared Hessian).
 
-    X: (n, m) dense, float32 or bfloat16 on the card; U: (n, k), V: (m, k);
+    X: (n, m) dense, float32, bfloat16 or float8_e4m3fn on the card; U:
+    (n, k), V: (m, k);
     BtB = VᵀV and Hinv = (BtB + (l2 + pert)·I)⁻¹: (k, k); row_sq: (n,)
     per-row ‖xᵢ‖², all float32. Returns (U_new, numV = XᵀU_new,
     gramU = U_newᵀU_new). CUDA tensors launch ``csrc/newton_fused.cu``; CPU
@@ -82,5 +87,5 @@ def fused_newton_linear_u_pass(X, U, V, BtB, Hinv, row_sq, l1, l2, *,
         (BtB.contiguous(), Hinv.contiguous(),
          row_sq.to(torch.float32).contiguous(), n, m, U.shape[1], float(l1),
          float(l2), int(trials), int(bool(non_negative))))
-    LAUNCHES.n += 1
+    launches(X, LAUNCHES, LAUNCHES_FP8).n += 1
     return out

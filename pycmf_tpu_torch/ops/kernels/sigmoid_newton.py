@@ -32,11 +32,15 @@ import torch
 
 from .. import losses
 from . import _build
-from .mu_fused import _sm_count, check_card_operands, check_data_dtype
+from .mu_fused import (X_CODES, _sm_count, check_card_operands,
+                       check_data_dtype, launches)
 from .policy import launch_count, on_card
 
+# the fp8 forms (e4m3 X) are counted apart from the f32 and bf16 forms
 GH_LAUNCHES = launch_count("sigmoid_gh_pass")
+GH_LAUNCHES_FP8 = launch_count("sigmoid_gh_pass_fp8")
 PHI_LAUNCHES = launch_count("sigmoid_phi_pass")
+PHI_LAUNCHES_FP8 = launch_count("sigmoid_phi_pass_fp8")
 MAX_SLOTS = 256  # trials + 1: K4's per-(row, slot) sums in shared memory
 
 # Geometry of the CUDA passes (csrc/sigmoid_newton.cu; the C side checks
@@ -221,7 +225,8 @@ _PHI_ARGS = ((ctypes.c_int,) + (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 5
 def sigmoid_gh_pass(X, M, B, l1, l2):
     """One-pass sigmoid G and Gauss-Newton H build.
 
-    X: (n, q) dense, float32 or bfloat16 (contiguous on the card); M:
+    X: (n, q) dense, float32, bfloat16 or float8_e4m3fn (contiguous on the
+    card; widened to float32 elementwise, exactly); M:
     (n, k), B: (q, k) float32. Returns (G (n, k) including the elastic-net
     gradient, H (n, k, k) the data Hessians). CUDA tensors launch
     ``csrc/sigmoid_newton.cu``; CPU tensors take :func:`sigmoid_gh_pass_ref`.
@@ -240,14 +245,14 @@ def sigmoid_gh_pass(X, M, B, l1, l2):
     base = work.data_ptr()
     fn = _build.function("sigmoid_newton", "pycmf_sigmoid_gh_pass", _GH_ARGS)
     # the C side makes `dev` current for its launches
-    rc = fn(int(X.dtype == torch.bfloat16), X.data_ptr(), M.data_ptr(),
+    rc = fn(X_CODES[X.dtype], X.data_ptr(), M.data_ptr(),
             B.data_ptr(), n, q, k, float(l1), float(l2), G.data_ptr(),
             H.data_ptr(), *(base + 4 * o for o in plan.offsets), plan.ldp,
             plan.n_seg, plan.seg_len, plan.ops_smem, dev,
             torch._C._cuda_getCurrentRawStream(dev))
     if rc:
         _build.check(_build.load("sigmoid_newton"), rc, "sigmoid_gh_pass")
-    GH_LAUNCHES.n += 1
+    launches(X, GH_LAUNCHES, GH_LAUNCHES_FP8).n += 1
     return G, H
 
 
@@ -282,7 +287,7 @@ def sigmoid_phi_pass(X, M, d, B, l1, l2, *, trials: int, non_negative: bool):
     base = work.data_ptr()
     fn = _build.function("sigmoid_newton", "pycmf_sigmoid_phi_pass",
                          _PHI_ARGS)
-    rc = fn(int(X.dtype == torch.bfloat16), X.data_ptr(), M.data_ptr(),
+    rc = fn(X_CODES[X.dtype], X.data_ptr(), M.data_ptr(),
             d.data_ptr(), B.data_ptr(), n, q, k, slots,
             int(bool(non_negative)), float(l1), float(l2), phi.data_ptr(),
             *(base + 4 * o for o in plan.offsets), plan.n_seg,
@@ -290,5 +295,5 @@ def sigmoid_phi_pass(X, M, d, B, l1, l2, *, trials: int, non_negative: bool):
             torch._C._cuda_getCurrentRawStream(dev))
     if rc:
         _build.check(_build.load("sigmoid_newton"), rc, "sigmoid_phi_pass")
-    PHI_LAUNCHES.n += 1
+    launches(X, PHI_LAUNCHES, PHI_LAUNCHES_FP8).n += 1
     return phi

@@ -61,19 +61,36 @@ def _linear_term(A, M: torch.Tensor, B: torch.Tensor, a_sq=None,
             inner = sddmm_dot(A, M, B)
         return 0.5 * (A.sq_norm - 2.0 * inner + cross)
     if A.dtype != M.dtype and A.numel() < (1 << 22):
-        # Mixed precision (bf16-stored data), small problem: the factored
-        # identity suffers cancellation (‖A‖², ⟨A, MBᵀ⟩ and the cross term
-        # are each ≫ the residual near convergence, and with few products
-        # the quantization noise does not average out), so evaluate the
-        # residual directly. At large sizes the identity is safe: a_sq is
-        # precomputed exactly and the bf16 inner product's random error
-        # averages down as 1/√(n·m).
+        # Mixed precision (bf16- or fp8-stored data), small problem: the
+        # factored identity suffers cancellation (‖A‖², ⟨A, MBᵀ⟩ and the
+        # cross term are each ≫ the residual near convergence, and with
+        # few products the quantization noise does not average out), so
+        # evaluate the residual directly. At large sizes the identity is
+        # safe: a_sq is precomputed exactly and the bf16 inner product's
+        # random error averages down as 1/√(n·m).
         return _linear_term_direct(A, M, B)
     if a_sq is None:
-        Af = A.to(M.dtype)
-        a_sq = torch.sum(Af * Af)
-    inner = torch.sum(matmul(A, B) * M)
+        a_sq = _row_blocks_sum(A, M, lambda Ab, Mb: torch.sum(
+            Ab.to(M.dtype) ** 2))
+    # a product with bf16 or fp8 data rounds B to bf16 (ops/matmul.py)
+    inner = _row_blocks_sum(A, M, lambda Ab, Mb: torch.sum(
+        matmul(Ab, B) * Mb))
     return 0.5 * (a_sq - 2.0 * inner + cross)
+
+
+def _row_blocks_sum(A, M: torch.Tensor, fn) -> torch.Tensor:
+    """Σ fn(A_b, M_b) over row blocks b of _BLOCK_ELEMS when A is stored
+    below M's dtype (bf16 or fp8 data), else fn(A, M): what fn upcasts is
+    one block of A, never a whole-matrix float32 copy (the reference's
+    streamed_inner)."""
+    p, q = A.shape
+    if A.dtype == M.dtype or p * q <= _BLOCK_ELEMS:
+        return fn(A, M)
+    bs = rows_per_block(q)
+    total = torch.zeros((), dtype=M.dtype, device=M.device)
+    for i in range(0, p, bs):
+        total = total + fn(A[i:i + bs], M[i:i + bs])
+    return total
 
 
 def _linear_term_direct(A: torch.Tensor, M: torch.Tensor,

@@ -61,7 +61,7 @@ from ..ops.linesearch import backtracking_select, backtracking_select_table
 from ..ops.links import LINEAR
 from ..ops.losses import (penalty, reconstruction_term, sigmoid_sq_rows,
                           total_loss)
-from ..ops.matmul import gram, matmul
+from ..ops.matmul import contiguous_t, gram, matmul, select_columns
 from ..ops.sparse import is_sparse, masked_row_sq_norms, row_sq_norms
 from .common import (Coupled, Hyper, SolverConfig, block_graph, layout_spmm,
                      run_solver_loop)
@@ -136,14 +136,15 @@ def draw_columns(gen: torch.Generator, q: int, s: int) -> torch.Tensor:
 
 def _sample_columns(gen, D, B, ratio: float):
     """(D, B) restricted to a draw of their q columns (dense D:
-    ``index_select``); unchanged when the draw would take every column.
+    ``index_select``, on the byte view of fp8 data); unchanged when the
+    draw would take every column.
     Reference: ``pycmf_tpu/solvers/newton.py:_sample_columns``."""
     q = B.shape[0]
     s = sample_size(q, ratio)
     if s >= q:
         return D, B
     idx = draw_columns(gen, q, s)
-    return D.index_select(1, idx), B.index_select(0, idx)
+    return select_columns(D, idx), B.index_select(0, idx)
 
 
 def sample_mask(gen, q: int, ratio: float, dtype):
@@ -426,13 +427,14 @@ def _transposed(C: Coupled):
 def _with_transposes(cfg: SolverConfig, X: Coupled, Y, V0, Z0):
     """(X, Y) with the contiguous Aᵀ (Coupled.At) that make_newton_step
     reads: Xᵀ for a fused sigmoid V update, Yᵀ for a fused sigmoid Z
-    update. Made once per fit, never per iteration."""
+    update. Made once per fit, never per iteration, at the data's own
+    dtype (fp8 through its byte view)."""
     if (cfg.update_V and cfg.x_link != LINEAR
             and fused_sigmoid_allowed(cfg, X.A, V0)):
-        X = X._replace(At=X.A.mT.contiguous())
+        X = X._replace(At=contiguous_t(X.A))
     if (cfg.has_Y and cfg.update_Z and cfg.y_link != LINEAR
             and fused_sigmoid_allowed(cfg, Y.A, Z0)):
-        Y = Y._replace(At=Y.A.mT.contiguous())
+        Y = Y._replace(At=contiguous_t(Y.A))
     return X, Y
 
 

@@ -1,10 +1,11 @@
 """Input/parameter validation and device ingest.
 
-Counterpart of ``pycmf_tpu/utils/validation.py`` (without the fp8
-layouts, ROADMAP A9): host matrices (NumPy or scipy.sparse) become
-``Coupled`` operands on the device (dense, CSR, BlockEll or chunked COO),
-with the per-row and total squared norms computed once on the host in
-float64 from the unquantized values.
+Counterpart of ``pycmf_tpu/utils/validation.py``: host matrices (NumPy or
+scipy.sparse) become ``Coupled`` operands on the device (dense, CSR,
+BlockEll or chunked COO), with the per-row and total squared norms computed
+once on the host in float64: from the unquantized values under float32 and
+bf16 storage, from the stored (quantized) values under fp8, the
+reference's loss convention for each.
 """
 from __future__ import annotations
 
@@ -25,6 +26,21 @@ from ..solvers.common import Coupled
 DENSIFY_THRESHOLD = 1 << 31  # 2 GB
 
 
+def check_fp8_range(A, dtype) -> None:
+    """Raise ValueError when |A| exceeds the fp8 storage range. The
+    reference's conversion turns such values into NaN and fails the fit
+    later; torch's saturates them to ±448 (e4m3), which would fit clipped
+    data silently, so this check is the port's only guard."""
+    fmax = float(torch.finfo(dtype).max)
+    amax = float(abs(A).max() if not sp.issparse(A)
+                 else (abs(A.data).max() if A.nnz else 0.0))
+    if amax > fmax:
+        raise ValueError(
+            f"data max |x| = {amax:.4g} exceeds "
+            f"{str(dtype).removeprefix('torch.')}'s range (±{fmax:.0f}); "
+            "scale the data (e.g. X / c) or use data_dtype='bfloat16'")
+
+
 def _norms(fdt, device, row_sq, col_sq, total) -> dict:
     def up(a):
         return torch.as_tensor(np.asarray(a, dtype=np.float64)).to(
@@ -38,7 +54,11 @@ def as_coupled(A, dtype, device, use_pallas: bool = False,
                densify_threshold: int = DENSIFY_THRESHOLD,
                chunked_ok: bool = False) -> Coupled:
     """Convert a host matrix to a ``Coupled`` on ``device``, stored at
-    ``dtype`` (float32, float64 or bfloat16; norms at float32 under bf16).
+    ``dtype`` (float32, float64, bfloat16 or float8_e4m3fn; norms at
+    float32 under bf16 and fp8). fp8 data is stored dense only: its values
+    are rounded to e4m3 as the reference's conversion rounds them (through
+    float32), a sparse one densified through a transient float32 buffer on
+    the device.
 
     sparse_mode (scipy.sparse input only; dense input uploads as is):
       'auto'    densify when the dense copy at the storage dtype fits
@@ -50,18 +70,21 @@ def as_coupled(A, dtype, device, use_pallas: bool = False,
                 ``bell.BELL_MIN_FILL``;
       'dense'   always densify;
       'chunked' the streamed chunked-COO layout (``ops/chunked.py``), with
-                the host's norms; fp8 data raises (ROADMAP A9).
+                the host's norms.
+    Under fp8 a matrix that resolves to 'csr' or 'chunked' raises
+    ValueError, as in the reference.
     """
-    if dtype in FP8_DTYPES:
-        raise NotImplementedError(
-            "fp8 data storage is not ported yet (ROADMAP A9)")
-    fdt = torch.float32 if dtype == torch.bfloat16 else dtype
+    fp8 = dtype in FP8_DTYPES
+    fdt = torch.float32 if fp8 or dtype == torch.bfloat16 else dtype
+    if fp8:
+        check_fp8_range(A, dtype)
 
     if not sp.issparse(A):
-        Ah = np.asarray(A)
-        sq = Ah.astype(np.float64) ** 2
-        return Coupled(torch.from_numpy(np.ascontiguousarray(Ah)).to(dtype)
-                       .to(device),
+        Ah = torch.from_numpy(np.ascontiguousarray(A)).to(dtype)
+        # fp8: the norms of the stored values (the reference's convention)
+        sq = (Ah.to(torch.float64).numpy() if fp8
+              else np.asarray(A).astype(np.float64)) ** 2
+        return Coupled(Ah.to(device),
                        **_norms(fdt, device, sq.sum(axis=1), sq.sum(axis=0),
                                 sq.sum()))
 
@@ -69,17 +92,35 @@ def as_coupled(A, dtype, device, use_pallas: bool = False,
         raise ValueError(
             f"sparse_mode must be 'auto', 'csr', 'dense' or 'chunked', "
             f"got {sparse_mode!r}")
-    nbytes_dense = A.shape[0] * A.shape[1] * dtype.itemsize
+    # fp8 densifies through a float32 buffer: its dense copy counts 4 bytes
+    # per element against the threshold
+    nbytes_dense = A.shape[0] * A.shape[1] * (4 if fp8 else dtype.itemsize)
     mode = sparse_mode
     if mode == "auto":
         mode = ("dense" if nbytes_dense <= densify_threshold
                 else "chunked" if chunked_ok else "csr")
-    # Host float64 norms of the unquantized values, stored at fdt (float32
-    # under bf16 data: they feed the line-search objectives).
+    if fp8 and mode == "chunked":
+        raise ValueError(
+            "fp8 data storage requires dense device form; the chunked "
+            "streaming layout stores COO + a transient dense chunk — "
+            "use data_dtype='bfloat16' for beyond-threshold X")
+    if fp8 and mode == "csr":
+        raise ValueError(
+            "fp8 data storage requires dense device form, but this matrix "
+            "resolves to CSR (sparse_mode="
+            f"{sparse_mode!r}, dense copy {nbytes_dense / 2**30:.2f} GiB); "
+            "use sparse_mode='dense', shrink the matrix, or "
+            "data_dtype='bfloat16'")
+    # Host float64 norms, stored at fdt (float32 under bf16 and fp8 data:
+    # they feed the line-search objectives): of the unquantized values,
+    # or under fp8 of the stored ones (rounded through float32, as the
+    # device's scatter below and the reference round them).
     coo = A.tocoo()
     coo.sum_duplicates()
     n, m = A.shape
-    sq64 = coo.data.astype(np.float64) ** 2
+    vals = coo.data.astype(np.float32) if fp8 else coo.data
+    sq64 = (torch.from_numpy(vals).to(dtype).to(torch.float64).numpy() if fp8
+            else vals.astype(np.float64)) ** 2
     row_sq = np.bincount(coo.row, weights=sq64, minlength=n)
     col_sq = np.bincount(coo.col, weights=sq64, minlength=m)
     norms = _norms(fdt, device, row_sq, col_sq, sq64.sum())
@@ -106,13 +147,14 @@ def as_coupled(A, dtype, device, use_pallas: bool = False,
         return Coupled(C, At=Ct, **sparse_norms)
     # Densify ON DEVICE: upload only the COO triplets and scatter them into
     # device zeros at the storage dtype (duplicates are summed on the host
-    # first, so the scatter is exact).
+    # first, so the scatter is exact); fp8 scatters into a transient
+    # float32 buffer and converts it (the reference's scatter_densify).
+    scat = torch.float32 if fp8 else dtype
     rows = torch.from_numpy(coo.row.astype(np.int64)).to(device)
     cols = torch.from_numpy(coo.col.astype(np.int64)).to(device)
-    vals = torch.from_numpy(coo.data).to(device).to(dtype)
-    Ad = torch.zeros((n, m), dtype=dtype, device=device)
-    Ad.index_put_((rows, cols), vals)
-    return Coupled(Ad, **norms)
+    Ad = torch.zeros((n, m), dtype=scat, device=device)
+    Ad.index_put_((rows, cols), torch.from_numpy(vals).to(device).to(scat))
+    return Coupled(Ad.to(dtype) if fp8 else Ad, **norms)
 
 
 def check_matrix(A, name: str, *, require_non_negative: bool,

@@ -16,7 +16,7 @@ the CPU, and the batched solve's block and LU routes.
   ``solvers/newton.draw_columns``, and ``transform``; n_iter, loss
   histories (rtol 1e-9) and factors;
 - the device loop's CPU stand-in against the host loop, bit for bit;
-- the port's 'auto' rule, and fp8 with the chunked layout;
+- the port's 'auto' rule, and fp8 with the chunked layout (refused);
 - K5's block route (k > 64) and LU route, their plain versions against
   the reference's solves and the dispatch of every (k, form, use_pallas).
 """
@@ -521,12 +521,19 @@ def test_sigmoid_y_past_threshold_streams_linear_y_does_not(rng):
 
 
 def test_fp8_with_chunked_raises_naming_a9(rng):
+    """fp8 storage (ROADMAP A9, ported) is dense only: the chunked layout
+    raises the reference's ValueErrors, from the estimator, from
+    as_coupled and from the layout's own builder."""
+    from pycmf_tpu_torch.ops.chunked import chunked_from_scipy
+
     X = _sparse(rng)
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+    with pytest.raises(ValueError, match="dense device storage"):
         CMF(n_components=2, device="cpu", data_dtype="fp8",
             sparse_mode="chunked").fit(X)
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+    with pytest.raises(ValueError, match="dense device form"):
         as_coupled(X, torch.float8_e4m3fn, "cpu", sparse_mode="chunked")
+    with pytest.raises(ValueError, match="dense device form"):
+        chunked_from_scipy(X, torch.float8_e4m3fn)
 
 
 def test_as_coupled_chunked_norms_match_reference(rng):

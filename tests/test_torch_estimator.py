@@ -270,14 +270,31 @@ def test_import_pulls_in_no_jax():
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)
 
 
-@pytest.mark.parametrize("kw,match", [
-    (dict(n_shards=2), "ROADMAP A10"),
-    (dict(data_dtype="fp8"), "ROADMAP A9"),
-    (dict(data_dtype="fp8", sparse_mode="chunked"), "ROADMAP A9")])
-def test_out_of_slice_requests_raise(rng, kw, match):
+@pytest.mark.parametrize("kw,error,match", [
+    (dict(n_shards=2), NotImplementedError, "ROADMAP A10"),
+    # fp8 (ported): the reference's behaviour. 'auto' densifies a small CSR
+    # X, which then fits; 'chunked' keeps it sparse, which fp8 refuses.
+    (dict(data_dtype="fp8"), None, None),
+    (dict(data_dtype="fp8", sparse_mode="chunked"), ValueError,
+     "dense device storage")])
+def test_out_of_slice_requests_raise(rng, kw, error, match):
     X, Y = make_problem(rng)
-    with pytest.raises(NotImplementedError, match=match):
-        CMF(n_components=3, device="cpu", **kw).fit(sp.csr_matrix(X), Y)
+    # both on the unfused branch (the reference's default on the CPU)
+    kw = dict(n_components=3, max_iter=4, tol=0.0, random_state=0,
+              use_pallas=False, **kw)
+    if error is None:
+        t = CMF(device="cpu", **kw).fit(sp.csr_matrix(X), Y)
+        j = JCMF(**kw).fit(sp.csr_matrix(X), Y)
+        assert t.n_iter_ == j.n_iter_ == 4
+        assert np.isfinite(t.reconstruction_err_)
+        np.testing.assert_allclose(t.loss_history_, j.loss_history_,
+                                   rtol=1e-4)
+        return
+    with pytest.raises(error, match=match):
+        CMF(device="cpu", **kw).fit(sp.csr_matrix(X), Y)
+    if error is ValueError:  # the reference raises the same
+        with pytest.raises(error, match=match):
+            JCMF(**kw).fit(sp.csr_matrix(X), Y)
 
 
 def test_beyond_densify_threshold_raises(rng):

@@ -144,12 +144,15 @@ def test_cpu_wrappers_take_plain_versions_without_launching(rng):
 
 
 def test_fp8_data_raises_in_both_wrappers(rng):
+    """fp8 data is stored as float8_e4m3fn (the estimator's 'fp8'); the
+    kernels have no float8_e5m2 form, and both wrappers refuse it on every
+    device (tests/test_torch_fp8.py holds the e4m3 forms)."""
     X, U, V, BtB, Hinv = _operands(rng, 8, 6, 2)
-    X8 = _t(X, torch.float32).to(torch.float8_e4m3fn)
+    X8 = _t(X, torch.float32).to(torch.float8_e5m2)
     f = lambda a: _t(a, torch.float32)  # noqa: E731
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+    with pytest.raises(NotImplementedError, match="float8_e4m3fn"):
         mu_fused.fused_mu_u_pass(X8, f(U), f(V), f(BtB), 0.0, 0.0, 1e-10)
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+    with pytest.raises(NotImplementedError, match="float8_e4m3fn"):
         newton_fused.fused_newton_linear_u_pass(
             X8, f(U), f(V), f(BtB), f(Hinv), f(np.ones(8)), 0.0, 0.0,
             trials=2, non_negative=True)
@@ -575,12 +578,14 @@ def test_sigmoid_cpu_wrappers_take_plain_versions_without_launching(rng):
 
 
 def test_sigmoid_wrappers_refuse_fp8_and_transposed_views(rng):
+    """fp8 data other than float8_e4m3fn (the e5m2 format, which no kernel
+    form takes) and, on the card, transposed views."""
     X, M, B = _sig_operands(rng, 8, 6, 2)
-    X8 = _t(X, torch.float32).to(torch.float8_e4m3fn)
+    X8 = _t(X, torch.float32).to(torch.float8_e5m2)
     f = lambda a: _t(a, torch.float32)  # noqa: E731
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+    with pytest.raises(NotImplementedError, match="float8_e4m3fn"):
         sigmoid_newton.sigmoid_gh_pass(X8, f(M), f(B), 0.0, 0.0)
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+    with pytest.raises(NotImplementedError, match="float8_e4m3fn"):
         sigmoid_newton.sigmoid_phi_pass(X8, f(M), f(M), f(B), 0.0, 0.0,
                                         trials=2, non_negative=True)
     # the card's operand check: Xᵀ must be a contiguous copy, not a view
@@ -758,11 +763,12 @@ def test_sigmoid_plans_at_the_main_shapes():
 
 
 @pytest.mark.parametrize("k", [1, 32, 33, 64, 100, 128])
-@pytest.mark.parametrize("xdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("xdt", [torch.float32, torch.bfloat16,
+                                 torch.float8_e4m3fn])
 def test_card_operand_checks_take_any_k(k, xdt):
-    """The CUDA wrappers' operand checks, called directly: any k for f32
-    or bf16 data and f32 factors; float64 factors and fp8 data still
-    refused, naming ROADMAP C1 and A9."""
+    """The CUDA wrappers' operand checks, called directly: any k for f32,
+    bf16 or e4m3 data and f32 factors; float64 factors (naming ROADMAP C1)
+    and e5m2 data still refused."""
     X = torch.zeros(5, 7, dtype=xdt)
     U, V = torch.zeros(5, k), torch.zeros(7, k)
     S = torch.zeros(k, k)
@@ -772,6 +778,9 @@ def test_card_operand_checks_take_any_k(k, xdt):
         mu_fused.check_card_operands(X, U.double(), V.double(), ())
     with pytest.raises(NotImplementedError, match="ROADMAP C1"):
         mu_fused.check_card_operands(X.double(), U, V, ())
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        sigmoid_newton.sigmoid_gh_pass(X.float().to(torch.float8_e4m3fn),
+    with pytest.raises(NotImplementedError, match="float8_e4m3fn"):
+        sigmoid_newton.sigmoid_gh_pass(X.float().to(torch.float8_e5m2),
                                        U, V, 0.0, 0.0)
+    with pytest.raises(NotImplementedError, match="float8_e4m3fn"):
+        mu_fused.check_card_operands(X.float().to(torch.float8_e5m2), U, V,
+                                     ())
