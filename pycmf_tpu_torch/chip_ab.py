@@ -2,7 +2,8 @@
 
     python3 -m pycmf_tpu_torch.chip_ab [--phase PHASE] TREE_A TREE_B ...
 
-PHASE is sigmoid (the default), sparse, upass, paths, k5k6 or ties. Each
+PHASE is sigmoid (the default), sparse, upass, paths, k5k6, ties or
+loops. Each
 TREE is a checkout of this repository (for example the parent commit
 unpacked with ``git archive`` into a git-ignored directory). Every tree's
 libraries of the phase are built first, in parallel, with the ptxas
@@ -42,7 +43,19 @@ tree's build also prints the machine instructions of those kernels, from
   with the plain version's, and the share on which each of the two matches
   a float64 evaluation, on all rows and on the rows float64 decides by
   more than 2^-22, 2^-20 and 2^-18 of phi (``chip_smoke.decided_rows``).
-  The code of ``upass``, ``paths``, ``k5k6`` and ``ties`` is this file's
+- ``loops``: the whole fit (the solver's call, L0 included, between two
+  syncs) per iteration on the device loop and on the host loop, for MU,
+  path A, path F, path A at k = 40, path SD, path S4 and the fp8 MU cell
+  (chip_smoke's configurations): the first device fit of a key (the fit
+  cache emptied first, where the tree has one; the least of 2), once with
+  the data ingested anew just before it (``fresh``: the ingest's own
+  temporaries freed, as in a user's fit) and once on data ingested
+  earlier, the key's second device fit and a later one (the least of 2),
+  and the host loop's (the least of 2), each device fit with its peak
+  device memory above what was allocated before it (a fresh ingest's
+  included). Ingest is outside ms/iter.
+  The code of ``upass``, ``paths``, ``k5k6``, ``ties`` and ``loops`` is
+  this file's
   (``UPASS``), run against each tree's wrappers, so a tree whose
   chip_smoke predates the redesign is timed the same way.
 
@@ -78,6 +91,10 @@ PHASES = {
                "mu_update"), ("Li20E", "Li3E"),
               "paths_ab(check, torch, cs)"),
     "ties": (("sigmoid_newton",), ("phi_part",), "ties_ab(check, torch, cs)"),
+    # every library the paths launch (fit_loop where the tree has it)
+    "loops": (("mu_fused", "newton_fused", "sigmoid_newton", "batched_solve",
+               "mu_update", "csr_spmm", "bell_spmm", "fit_loop"), ("Li20E",),
+              "loops_ab(check, torch, cs)"),
     # K5's and K6's k = 20 kernels (KP = 20) and K6's per-element one (the
     # parent's only kernel, the k > 32 route since); the fits build every
     # library
@@ -394,6 +411,101 @@ def k5k6_ab(check, torch, cs):
     return rec
 
 
+def loops_ab(check, torch, cs):
+    # whole fits per iteration: a key's first device fit, its second, a
+    # later one, and the host loop's, with the device fits' peak memory
+    import numpy as np
+    from unittest import mock
+    from pycmf_tpu_torch import CMF
+    from pycmf_tpu_torch.models import cmf as tcmf
+    from pycmf_tpu_torch.solvers import common as tcommon
+    from pycmf_tpu_torch.utils.datasets import (block_sparse_matrix,
+                                                synthetic_20ng)
+    clear = getattr(tcommon, "clear_fit_cache", lambda: None)
+    X, Y = synthetic_20ng(random_state=cs.SEED)
+    Xf = block_sparse_matrix(cs.N, cs.M, 0.15, np.random.RandomState(cs.SEED))
+    rs4 = np.random.RandomState(cs.SEED)
+    X4, Y4 = np.abs(rs4.randn(20000, 1000)), np.abs(rs4.randn(1000, 200))
+    common = dict(n_components=cs.K, data_dtype="bfloat16",
+                  random_state=cs.SEED, device="cuda")
+    common4 = dict(n_components=cs.K, random_state=cs.SEED, device="cuda")
+    mu_kw = dict(solver="mu", max_iter=200, tol=1e-4, eval_every=10)
+    a_kw = dict(solver="newton", y_link="sigmoid", max_iter=50, tol=1e-5,
+                eval_every=5)
+    f_kw = dict(solver="mu", sparse_mode="csr", max_iter=20, tol=0.0,
+                eval_every=10)
+    sd_kw = dict(a_kw, sparse_mode="csr", sg_sample_ratio=0.25)
+    s4_kw = dict(solver="newton", sg_sample_ratio=0.25, tol=1e-5,
+                 max_iter=30, eval_every=5)
+    common8 = dict(common, data_dtype="fp8")
+    real, memo, run_ms = tcmf.as_coupled, {}, []
+
+    def ingest(A, dtype, device, **kw):
+        key = (id(A), dtype, str(device), tuple(sorted(kw.items())))
+        if key not in memo:
+            memo[key] = (A, real(A, dtype, device, **kw))
+        return memo[key][1]
+
+    run = tcmf.CMF._run
+
+    def whole(self, *args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run(self, *args)
+        torch.cuda.synchronize()
+        run_ms.append(1e3 * (time.perf_counter() - t0) / out[3])
+        return out
+
+    def fit(make, loop, data, fresh=False):
+        if fresh:
+            memo.clear()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        make().set_params(loop=loop).fit(*data)
+        return run_ms[-1], (torch.cuda.max_memory_allocated() - base) / 1e9
+
+    rec = {}
+    with mock.patch.object(tcmf, "as_coupled", ingest), \
+            mock.patch.object(tcmf.CMF, "_run", whole):
+        for label, kw, cm, data in (
+                ("MU", mu_kw, common, (X, Y)),
+                ("path A", a_kw, common, (X, Y)),
+                ("path F", f_kw, common, (Xf, Y)),
+                ("path A k=40", a_kw, dict(common, n_components=40), (X, Y)),
+                ("path SD", sd_kw, common, (X, Y)),
+                ("path S4", s4_kw, common4, (X4, Y4)),
+                ("MU fp8", mu_kw, common8, (X, Y))):
+            def make():
+                return CMF(**kw, **cm)
+            make().set_params(max_iter=2, eval_every=1, loop="host").fit(
+                *data)                    # warm-up: loads the libraries
+            fresh, first = [], []
+            for _ in range(2):
+                clear()
+                fresh.append(fit(make, "device", data, fresh=True))
+            for _ in range(2):
+                clear()
+                first.append(fit(make, "device", data))
+            second = fit(make, "device", data)
+            later = [fit(make, "device", data) for _ in range(2)]
+            host = [fit(make, "host", data)[0] for _ in range(2)]
+            clear()
+            memo.clear()
+            r = dict(fresh_ms_per_iter=min(t for t, _ in fresh),
+                     fresh_peak_gb=max(p for _, p in fresh),
+                     first_ms_per_iter=min(t for t, _ in first),
+                     first_peak_gb=max(p for _, p in first),
+                     second_ms_per_iter=second[0], second_peak_gb=second[1],
+                     later_ms_per_iter=min(t for t, _ in later),
+                     later_peak_gb=max(p for _, p in later),
+                     host_ms_per_iter=min(host),
+                     all=dict(fresh=fresh, first=first, second=second,
+                              later=later, host=host))
+            rec[label] = r
+    return rec
+
+
 def _stream_in_context(torch, d):
     with torch.cuda.device(d):
         return torch.cuda.current_stream().cuda_stream
@@ -419,7 +531,8 @@ def per_kernel(torch, run, reps=5):
 BUILD = """
 import os, subprocess
 from pycmf_tpu_torch.ops.kernels import _build
-_build.NAMES = {names!r}
+_build.NAMES = tuple(n for n in {names!r}  # those the tree has
+                     if (_build.CSRC / (n + '.cu')).exists())
 _build.build_all()
 dump = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
 for name in _build.NAMES:
@@ -448,7 +561,7 @@ for name in _build.NAMES:
             print(name, entry, "SASS instructions", n)
 """
 RUN = """
-import ctypes, json, torch, chip_smoke as cs
+import ctypes, json, time, torch, chip_smoke as cs
 from pycmf_tpu_torch.ops.kernels import sigmoid_newton, batched_solve
 {upass}
 check = cs.Checks()

@@ -89,10 +89,18 @@ class CMF:
     sparse_mode : 'auto' | 'csr' | 'dense' | 'chunked', per matrix (see
         ``_matrix_sparse_mode`` and ``_chunked_ok``).
     loop : 'auto' | 'host' | 'device'. 'host' runs every eval block
-        eagerly; 'device' is the reference's device-resident loop: on the
-        card one CUDA graph of an eval block, captured once per fit and
-        replayed per block (on the CPU the same schedule, run eagerly).
-        Both sync with the device once per eval point. See _resolve_loop.
+        eagerly and syncs with the device once per eval point. 'device'
+        is the reference's device-resident loop, the loss history and the
+        stop rule on the device. On the card the first fit of a config and
+        shapes replays a CUDA graph of one eval block per block; the next
+        fit of that key builds the cache's one entry (a copy of the fit's
+        data, when it takes at most 1/8 of the card's memory), and it and
+        every later fit of the key run as one launch of a CUDA graph (the
+        eval block inside a conditional while node) and one readback; a
+        sampled fit replays the cached eval block per block. On the CPU
+        the same schedule runs eagerly.
+        ``pycmf_tpu_torch.solvers.common.clear_fit_cache()``
+        frees the cache. See _resolve_loop.
     device : 'cuda' (default) | 'cpu' | a torch.device. 'cuda' raises when
         CUDA is not available.
 

@@ -28,7 +28,7 @@ from ..ops.kernels import mu_fused, mu_update
 from ..ops.losses import penalty, reconstruction_term, total_loss
 from ..ops.matmul import gram, matmul
 from ..ops.sparse import is_sparse
-from .common import (Coupled, Hyper, SolverConfig, block_graph, coupled_mm,
+from .common import (Coupled, Hyper, SolverConfig, check_loop, coupled_mm,
                      run_solver_loop)
 
 
@@ -194,14 +194,15 @@ def run_mu(X: Coupled, Y, U0, V0, Z0, cfg: SolverConfig, hyper: Hyper, *,
            verbose: int = 0, loop: str = "host"):
     """Run the MU solver. Returns (U, V, Z, n_iter, loss_history,
     loss_iters, step_times). loop: 'host' runs every block eagerly,
-    'device' the device loop (a CUDA graph of one block on the card; see
-    solvers/common.run_solver_loop)."""
-    graph = block_graph(loop, U0)
-    block = _make_block(cfg, _aux_ok(cfg, X, U0))
+    'device' the device loop (on the card one launch of a cached fit
+    graph; see solvers/common.run_device_fit)."""
+    check_loop(loop)
+    aux = _aux_ok(cfg, X, U0)
+    block = _make_block(cfg, aux)
     state = (X, Y, U0, V0, Z0)
     state, n_iter, losses, iters, times = run_solver_loop(
         block, state, hyper, rng=None, max_iter=max_iter, tol=tol,
         eval_every=eval_every, verbose=verbose,
-        initial_loss_fn=_loss_core(cfg), graph=graph)
+        initial_loss_fn=_loss_core(cfg), loop=loop, key=("mu", cfg, aux))
     _, _, U, V, Z = state
     return U, V, Z, n_iter, losses, iters, times

@@ -63,7 +63,7 @@ from ..ops.losses import (penalty, reconstruction_term, sigmoid_sq_rows,
                           total_loss)
 from ..ops.matmul import contiguous_t, gram, matmul, select_columns
 from ..ops.sparse import is_sparse, masked_row_sq_norms, row_sq_norms
-from .common import (Coupled, Hyper, SolverConfig, block_graph, layout_spmm,
+from .common import (Coupled, Hyper, SolverConfig, check_loop, layout_spmm,
                      run_solver_loop)
 from .newton_chunked import (ChunkedSigRowCtx, ChunkedTSigCtx,
                              chunked_sigmoid_colwise_phi,
@@ -674,19 +674,19 @@ def run_newton(X: Coupled, Y, U0, V0, Z0, cfg: SolverConfig, hyper: Hyper,
                loop: str = "host"):
     """Run the Newton solver (loop semantics as in run_mu). ``rng``: the
     fit's torch.Generator on the factors' device, from which a sampled
-    step (sg_sample_ratio < 1) draws its columns; the device loop
-    registers it with its graph, so each replay draws anew and the fit
-    leaves it where the host loop does."""
-    graph = block_graph(loop, U0)
-    if U0.is_cuda and graph is not None \
-            and not captures_on_card(cfg):
+    step (sg_sample_ratio < 1) draws its columns; the device loop loads
+    its state into the generator registered with its cached graph, so
+    each replay draws anew, and leaves it where the host loop does."""
+    check_loop(loop)
+    if U0.is_cuda and loop == "device" and not captures_on_card(cfg):
         raise NotImplementedError(
             "loop='device' cannot capture this Newton fit on the card: its "
             "per-row systems (a sigmoid link) take a library's batched "
             "solve (use_pallas=False solves them by torch.linalg.solve_ex), "
             "which allocates device memory inside the call (ROADMAP C3); "
             "use loop='host' or 'auto'")
-    block = _make_block(cfg, _aux_kind(cfg, X, U0))
+    aux = _aux_kind(cfg, X, U0)
+    block = _make_block(cfg, aux)
     X, Y = _with_transposes(cfg, X, Y, V0, Z0)
     state = (X, Y, U0, V0, Z0)
     if cfg.sg_sample_ratio >= 1.0:
@@ -694,6 +694,6 @@ def run_newton(X: Coupled, Y, U0, V0, Z0, cfg: SolverConfig, hyper: Hyper,
     state, n_iter, losses, iters, times = run_solver_loop(
         block, state, hyper, rng, max_iter=max_iter, tol=tol,
         eval_every=eval_every, verbose=verbose,
-        initial_loss_fn=_loss_core(cfg), graph=graph)
+        initial_loss_fn=_loss_core(cfg), loop=loop, key=("newton", cfg, aux))
     _, _, U, V, Z = state
     return U, V, Z, n_iter, losses, iters, times

@@ -1,13 +1,17 @@
 """The port's device loop (``loop='device'``) on the CPU.
 
-On the card the device loop replays one CUDA graph of an eval block; on the
-CPU it runs the same schedule with every block eager (the graph's stand-in,
-``solvers/common.EagerBlockGraph``). Here it is held against the
-reference's ``loop='device'`` (the jitted while loop, JAX on the CPU) in
-float64 at rtol 1e-9, for MU on dense and CSR X and Newton with linear
-links and with a sigmoid Y, an early stop and a remainder block included;
-its schedule and launch counts are checked with a recording stand-in and
-a fake block, and the estimator's loop rule case by case.
+On the card a key's first device fit replays a graph of one eval block
+per block, and its later fits run as one launch of a cached CUDA graph (an
+eval block inside a conditional while node); on the CPU the device loop
+runs the same schedule with every block eager (the stand-ins
+``solvers/common.EagerBlockGraph`` and ``EagerFitGraph``). Here it is held
+against the reference's ``loop='device'`` (the jitted while loop, JAX on
+the CPU) in float64 at rtol 1e-9, for MU on dense and CSR X and Newton with
+linear links and with a sigmoid Y, early stops and remainder blocks
+included; its schedule and launch counts, on a key's first fit, on the fit
+that builds its cache entry and on a cache hit, are checked with a
+recording stand-in and a fake block, and the estimator's loop rule case by
+case.
 """
 import numpy as np
 import pytest
@@ -102,8 +106,7 @@ def test_divergent_device_loop_raises(rng):
 # -- the schedule, with a recording stand-in and a fake block --------------
 
 class RecordingGraph(tcommon.EagerBlockGraph):
-    def __init__(self, events):
-        self.events = events
+    events = []
 
     def capture(self, fn, outputs, generators=()):
         self.events.append("capture")
@@ -114,10 +117,14 @@ class RecordingGraph(tcommon.EagerBlockGraph):
         super().replay()
 
 
-def _fake_run(graph, max_iter, eval_every, plateau_after=None):
+def _fake_run(device, max_iter, eval_every, plateau_after=None):
     """run_solver_loop over a fake block: each step moves U and V and
     counts one launch of a fake kernel, each loss counts one more; the loss
-    stops falling once V sums past ``plateau_after`` (a tol stop)."""
+    stops falling once V sums past ``plateau_after`` (a tol stop). Returns
+    the loop's result, the fake launches and the block's step counts, call
+    by call; under the device loop three fits of one key from a cleared
+    cache (the first fit, the fit that builds the entry, a cache hit), each
+    with the graphs' events and the loop's record (LAST_FIT)."""
     fake_step = policy.launch_count("test_fake_step")
     fake_loss = policy.launch_count("test_fake_loss")
     calls = []
@@ -136,61 +143,93 @@ def _fake_run(graph, max_iter, eval_every, plateau_after=None):
                         1.0 / (1.0 + done))
         return (X, Y, U, V, Z), loss, rng
 
-    state = (None, None, torch.ones(3, 2), torch.zeros(2, 2),
-             torch.zeros(0, 2))
-    policy.reset_launch_counts()
-    out = tcommon.run_solver_loop(
-        block, state, None, None, max_iter=max_iter, tol=1e-12,
-        eval_every=eval_every, initial_loss_fn=lambda s, h: torch.tensor(
-            2.0), graph=graph)
-    counts = {k: v for k, v in policy.launch_counts().items()
-              if k.startswith("test_fake")}
-    return out, counts, calls
+    def fit():
+        state = (None, None, torch.ones(3, 2), torch.zeros(2, 2),
+                 torch.zeros(0, 2))
+        policy.reset_launch_counts()
+        RecordingGraph.events = []
+        calls.clear()
+        out = tcommon.run_solver_loop(
+            block, state, None, None, max_iter=max_iter, tol=1e-12,
+            eval_every=eval_every, initial_loss_fn=lambda s, h: torch.tensor(
+                2.0), loop="device" if device else "host",
+            key=("fake", plateau_after))
+        counts = {k: v for k, v in policy.launch_counts().items()
+                  if k.startswith("test_fake")}
+        return (out, counts, list(calls), RecordingGraph.events,
+                dict(tcommon.LAST_FIT))
+
+    if not device:
+        return fit()[:3]
+    tcommon.clear_fit_cache()
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tcommon, "EagerBlockGraph", RecordingGraph)
+        runs = fit(), fit(), fit()
+    tcommon.clear_fit_cache()
+    return runs
 
 
-@pytest.mark.parametrize("max_iter,eval_every,events", [
-    (10, 10, []),
-    (15, 10, []),
-    (20, 10, ["capture", "replay"]),
-    (33, 10, ["capture", "replay", "replay"]),
-    (40, 10, ["capture", "replay", "replay", "replay"]),
-    (5, 1, ["capture", "replay", "replay", "replay", "replay"]),
+@pytest.mark.parametrize("max_iter,eval_every,events,build_events", [
+    (10, 10, [], ["capture", "replay"]),
+    (15, 10, [], ["capture", "capture", "replay", "replay"]),
+    (20, 10, ["capture", "replay"], ["capture", "replay", "replay"]),
+    (33, 10, ["capture", "replay", "replay"],
+     ["capture", "capture"] + ["replay"] * 4),
+    (40, 10, ["capture", "replay", "replay", "replay"],
+     ["capture"] + ["replay"] * 4),
+    (5, 1, ["capture", "replay", "replay", "replay", "replay"],
+     ["capture"] + ["replay"] * 5),
 ])
 def test_device_loop_schedule_and_launch_counts(max_iter, eval_every,
-                                                events):
-    """Block 1 eager; one capture, only when a second full block will run;
-    a replay per later full block; a shorter last block eager; the launch
-    counts, the losses and the factors those of the host loop."""
-    got = []
-    dev, dev_counts, dev_calls = _fake_run(RecordingGraph(got), max_iter,
-                                           eval_every)
-    host, host_counts, host_calls = _fake_run(None, max_iter, eval_every)
-    assert got == events
+                                                events, build_events):
+    """A key's first fit: block 1 eager, one eval block captured when a
+    second full block runs and replayed for each, the remainder eager. The
+    second fit builds the entry: it captures the eval block (and the
+    remainder block, when max_iter % eval_every) and runs every block in
+    the fit graph, as a cache hit does with no capture. All three: the
+    launch counts, the losses and the factors those of the host loop."""
+    first, build, hit = _fake_run(True, max_iter, eval_every)
+    host, host_counts, host_calls = _fake_run(False, max_iter, eval_every)
     n_full, rem = divmod(max_iter, eval_every)
-    # eager calls: block 1, the capture's pass, each replay, the remainder
-    assert dev_calls[0] == eval_every and host_calls == (
-        [eval_every] * n_full + ([rem] if rem else []))
-    assert dev_calls[-1] == (rem if rem else eval_every)
-    assert dev_counts == host_counts == {"test_fake_step": max_iter,
-                                         "test_fake_loss": len(host_calls)}
-    (sd, nd, ld, id_, td), (sh, nh, lh, ih, th) = dev, host
-    assert (nd, ld, id_) == (nh, lh, ih)
-    assert len(td) == len(ld) - 1
-    for a, b in zip(sd[2:], sh[2:]):
-        assert torch.equal(a, b)
+    tail = [rem] if rem else []
+    assert host_calls == [eval_every] * n_full + tail
+    assert first[3] == events and build[3] == build_events
+    assert hit[3] == ["replay"] * (n_full + bool(rem))
+    # calls: block 1 eager, the capture's pass, the replays, the remainder
+    assert first[2] == [eval_every] * (1 + 2 * (n_full > 1)) + [
+        eval_every] * max(0, n_full - 2) + tail
+    assert build[2] == [eval_every] + tail + [eval_every] * n_full + tail
+    assert first[4] == dict(hit=False, eager_blocks=1,
+                            captures=int(n_full > 1), graph_launches=0,
+                            replays=n_full - 1)
+    assert build[4] == dict(hit=False, eager_blocks=0,
+                            captures=1 + (rem > 0), graph_launches=1,
+                            replays=0)
+    assert hit[4] == dict(hit=True, eager_blocks=0, captures=0,
+                          graph_launches=1, replays=0)
+    for (sd, nd, ld, id_, td), dev_counts, *_ in (first, build, hit):
+        (sh, nh, lh, ih, th) = host
+        assert dev_counts == host_counts == {
+            "test_fake_step": max_iter, "test_fake_loss": len(host_calls)}
+        assert (nd, ld, id_) == (nh, lh, ih)
+        assert len(td) == len(ld) - 1
+        for a, b in zip(sd[2:], sh[2:]):
+            assert torch.equal(a, b)
 
 
 def test_device_loop_early_stop_skips_later_blocks():
-    """A tol stop after the captured block's first replay ends the loop:
-    no further replay, no remainder."""
-    got = []
-    (state, n_iter, losses, iters, times), counts, _ = _fake_run(
-        RecordingGraph(got), 45, 10, plateau_after=30.0)
-    host = _fake_run(None, 45, 10, plateau_after=30.0)
-    assert n_iter < 45
-    assert got == ["capture"] + ["replay"] * (n_iter // 10 - 1)
-    assert (n_iter, losses, iters) == host[0][1:4]
-    assert counts == host[1]
+    """A tol stop ends the loop: no further block, no remainder, on a
+    key's first fit, on the fit that builds its entry and on a hit."""
+    first, build, hit = _fake_run(True, 45, 10, plateau_after=30.0)
+    host = _fake_run(False, 45, 10, plateau_after=30.0)
+    n_iter = host[0][1]
+    assert n_iter < 40
+    assert first[3] == ["capture"] + ["replay"] * (n_iter // 10 - 1)
+    assert build[3] == ["capture", "capture"] + ["replay"] * (n_iter // 10)
+    assert hit[3] == ["replay"] * (n_iter // 10)
+    for (state, n, losses, iters, times), counts, *_ in (first, build, hit):
+        assert (n, losses, iters) == host[0][1:4]
+        assert counts == host[1]
 
 
 def test_launch_count_bookkeeping():
@@ -209,12 +248,23 @@ def test_launch_count_bookkeeping():
 
 
 def test_block_graph_by_loop_and_device():
+    """A CPU factor takes the eager stand-in of a block graph; a loop name
+    other than 'host' and 'device' raises, in the loop and in both
+    solvers."""
+    from pycmf_tpu_torch.solvers import mu as tmu
+    from pycmf_tpu_torch.solvers import newton as tnewton
+
     U = torch.zeros(3, 2)
-    assert tcommon.block_graph("host", U) is None
-    assert isinstance(tcommon.block_graph("device", U),
-                      tcommon.EagerBlockGraph)
-    with pytest.raises(ValueError, match="loop"):
-        tcommon.block_graph("gpu", U)
+    assert isinstance(tcommon.block_graph(U), tcommon.EagerBlockGraph)
+    for run in (lambda: tcommon.run_solver_loop(
+            None, None, None, None, max_iter=1, tol=0.0, eval_every=1,
+            loop="gpu"),
+            lambda: tmu.run_mu(None, None, U, U, U, SolverConfig(), None,
+                               loop="gpu"),
+            lambda: tnewton.run_newton(None, None, U, U, U, SolverConfig(),
+                                       None, loop="gpu")):
+        with pytest.raises(ValueError, match="loop"):
+            run()
 
 
 # -- the estimator's loop rule ---------------------------------------------
@@ -293,7 +343,6 @@ def test_device_loop_on_card_refuses_uncapturable_fit_naming_c3(
     from pycmf_tpu_torch.solvers import newton as tnewton
 
     monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda t: True))
-    monkeypatch.setattr(tnewton, "block_graph", lambda loop, U: object())
     k = 65 if "65" in why else 20
     why = why.split(" ")[0]
     cfg = SolverConfig(**dict(dict(use_pallas=True), **kw))
