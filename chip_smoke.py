@@ -109,6 +109,20 @@ Phases (any failure exits non-zero and prints no ok line):
     graph nodes, device ms/iter, idle share, host launch calls and graph
     launches per fit; two fits of path S with one random_state equal,
     with another not;
+ R. the row-sharded fit (n_shards, parallel/sharded.py) at the main
+    path's full width: R1, run_sharded on a one-rank NCCL group in this
+    process, MU and path A against the single-device host-loop fit of the
+    same inputs (n_iter, the loss history and the factors; bit for bit
+    expected, 1e-6 checked), with launch counts, ms/iter in turns beside the
+    single-device fit, a one-rank gloo group and the NCCL fit without its
+    collective, the host's time in each all-reduce call, and the
+    all-reduce's share of each iteration (CUDA events around it); R2,
+    CMF(n_shards=2) in two spawned gloo ranks on the one card (NCCL refuses
+    two ranks on one device): MU, path A, path C, path F and path B, each
+    within 1e-4 of its phase-7 fit's exact float64 loss, both ranks'
+    losses equal and each rank's launches counted, and which gloo
+    collectives take CUDA tensors; every kernel's launches in the kernels
+    line include these fits';
  8. kernel path against plain path on the card (the plain fits on the host
     loop: a capture refuses the plain batched solve): after 20 iterations,
     checked to 1e-3 on paths B, C, D and F and printed for MU, Newton
@@ -2698,6 +2712,328 @@ def fp8_matches_bf16(check, make8, makeb, X, Xq, Y, label):
                       transform_bit_equal=tbits)
 
 
+R2_TIMEOUT = 360.0  # seconds for phase R2's two ranks, start to end
+
+
+R1_ROUNDS = 5  # phase R1's timed rounds: the four variants in turn
+
+
+def nccl_world1_phase(check, torch, X, Y, common, paths):
+    """Phase R1: run_sharded on a one-rank NCCL group in this process (the
+    estimator's n_shards=1 is the single-device fit), each path against the
+    single-device host-loop fit of the same inputs: n_iter, the loss
+    history and the factors, bit for bit expected. Its time beside three
+    variants, in turns over R1_ROUNDS rounds (the host loop of a
+    launch-bound path spreads from fit to fit): the single-device fit, a
+    one-rank gloo group on the same CUDA tensors, and the NCCL fit with the
+    collective replaced by nothing (at one rank it changes no value: what
+    the sharded path costs without its collective). Then one more NCCL fit
+    with CUDA events around every all-reduce. Returns (record, launches of
+    the sharded fits)."""
+    import tempfile
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from pycmf_tpu_torch import CMF
+    from pycmf_tpu_torch.ops.kernels.policy import (launch_counts,
+                                                    reset_launch_counts)
+    from pycmf_tpu_torch.parallel.mesh import COMM
+    from pycmf_tpu_torch.parallel.sharded import run_sharded
+    from pycmf_tpu_torch.solvers.common import make_hyper
+    from pycmf_tpu_torch.utils.init import initialize_factors
+
+    rec, launches = {}, {}
+    store = os.path.join(tempfile.mkdtemp(prefix="pycmf_r1_"), "store")
+    dist.init_process_group("nccl", store=dist.FileStore(store, 1), rank=0,
+                            world_size=1)
+    try:
+        gloo = dist.new_group(backend="gloo")
+        for label, kw, minimums in paths:
+            est = CMF(**kw, **common, loop="host")
+            cfg = est._config(has_Y=True)
+            hyper = make_hyper(est.alpha, est.l1_ratio, est.eps,
+                               est.hessian_pertubation, dtype=torch.float32)
+            U0, V0, Z0 = initialize_factors(
+                X, Y, K, random_state=SEED,
+                U_non_negative=est.U_non_negative,
+                V_non_negative=est.V_non_negative,
+                Z_non_negative=est.Z_non_negative)
+
+            def sharded(max_iter=est.max_iter, timed=False, group=None):
+                COMM.reset(timed)
+                out = run_sharded(
+                    est.solver, X, Y, U0, V0, Z0, cfg, hyper, n_shards=1,
+                    group=group, dtype=torch.float32,
+                    data_dtype=torch.bfloat16, device=common["device"],
+                    max_iter=max_iter, tol=est.tol,
+                    eval_every=est.eval_every,
+                    sparse_mode=est._matrix_sparse_mode(X, est.x_link))
+                torch.cuda.synchronize()
+                return out
+
+            def ms_iter(out):
+                return 1e3 * sum(out[6]) / out[3]
+
+            def single():
+                e = CMF(**kw, **common, loop="host").fit(X, Y)
+                return 1e3 * sum(e.step_times_) / e.n_iter_
+
+            def without_collective():
+                with mock.patch.object(dist, "all_reduce",
+                                       lambda *a, **k: None):
+                    return ms_iter(sharded())
+            # warm-ups, not timed
+            sharded(max_iter=2)
+            sharded(max_iter=2, group=gloo)
+            CMF(**dict(kw, max_iter=2, eval_every=1, tol=0.0), **common,
+                loop="host").fit(X, Y)
+            reset_launch_counts()
+            U, V, Z, n_iter, losses, iters, times = sharded()
+            counts = launch_counts()
+            calls, nbytes = COMM.calls, COMM.nbytes
+            for name, n in counts.items():
+                launches[name] = launches.get(name, 0) + n
+            one = CMF(**kw, **common, loop="host").fit(X, Y)
+            variants = {
+                "single_device": single,
+                "nccl": lambda: ms_iter(sharded()),
+                "gloo": lambda: ms_iter(sharded(group=gloo)),
+                "no_collective": without_collective}
+            ms = {v: [] for v in variants}
+            host = {"nccl": [], "gloo": []}
+            for _ in range(R1_ROUNDS):
+                for v, fn in variants.items():
+                    ms[v].append(fn())
+                    if v in host:
+                        host[v].append(1e3 * COMM.host_s / COMM.calls)
+            # with CUDA events around every all-reduce; the first two (the
+            # set-up's norms, the initial loss) and the last (the gather of
+            # U) lie outside the blocks
+            t_out = sharded(timed=True)
+            comm_ms = sum(a.elapsed_time(b) for a, b in COMM.events[2:-1])
+            fit_ms = 1e3 * sum(t_out[6])
+            m, k = X.shape[1], K
+            r = dict(
+                n_iter=n_iter, single_n_iter=one.n_iter_,
+                losses=[float(v) for v in losses],
+                single_losses=one.loss_history_,
+                losses_bit_equal=[float(v) for v in losses]
+                == one.loss_history_,
+                loss_max_rel=float(np.max(
+                    np.abs(np.subtract(losses, one.loss_history_))
+                    / np.abs(one.loss_history_))),
+                factor_gap=factor_gap(
+                    [U.double().cpu().numpy(), V.double().cpu().numpy()],
+                    [one.U_, one.V_]),
+                ms_per_iter={v: sorted(t) for v, t in ms.items()},
+                least_ms_per_iter={v: min(t) for v, t in ms.items()},
+                median_ms_per_iter={v: float(np.median(t))
+                                    for v, t in ms.items()},
+                allreduce_host_ms_per_call={v: min(t)
+                                            for v, t in host.items()},
+                timed_ms_per_iter=fit_ms / t_out[3],
+                allreduce_ms_per_iter=comm_ms / t_out[3],
+                allreduce_share=comm_ms / fit_ms,
+                allreduce_calls=calls,
+                allreduce_bytes=nbytes,
+                allreduce_bytes_per_iter_code=(m * k + k * k) * 4,
+                launches=counts)
+            check(n_iter == one.n_iter_ and r["loss_max_rel"] <= 1e-6,
+                  f"R1 {label}: n_iter {n_iter} (single {one.n_iter_}); "
+                  f"loss history within 1e-6 of the single-device fit's "
+                  f"(max rel {r['loss_max_rel']:.3g}, bit for bit: "
+                  f"{r['losses_bit_equal']}); factors gap "
+                  f"{r['factor_gap']:.3g}")
+            for name, per in minimums.items():
+                got = counts.get(name, 0)
+                check(got >= per * n_iter,
+                      f"R1 {label}: {name} launches {got} >= {per} x "
+                      f"{n_iter}")
+            least, med = r["least_ms_per_iter"], r["median_ms_per_iter"]
+            log(f"  R1 {label}: ms/iter least (median) of {R1_ROUNDS}: "
+                + ", ".join(f"{v} {least[v]:.4f} ({med[v]:.4f})"
+                            for v in variants)
+                + f"; host ms per all-reduce call "
+                f"{r['allreduce_host_ms_per_call']}; with events "
+                f"{r['timed_ms_per_iter']:.4f} ms/iter of which all-reduce "
+                f"{r['allreduce_ms_per_iter']:.4f} "
+                f"({r['allreduce_share']:.3%}); {calls} all-reduces, "
+                f"{nbytes} bytes in the fit, "
+                f"{r['allreduce_bytes_per_iter_code']} per iteration by the "
+                f"code; launches {counts}")
+            rec[label] = r
+    finally:
+        dist.destroy_process_group()
+    return rec, launches
+
+
+def _gloo_probe(torch, dist, dev) -> dict:
+    """Which gloo collectives take tensors on ``dev`` (both ranks make the
+    same calls, so an unsupported one fails on both)."""
+    w = dist.get_world_size()
+    probes = {
+        "all_reduce": lambda t: dist.all_reduce(t),
+        "broadcast": lambda t: dist.broadcast(t, src=0),
+        "all_gather": lambda t: dist.all_gather(
+            [torch.empty_like(t) for _ in range(w)], t),
+        "all_gather_into_tensor": lambda t: dist.all_gather_into_tensor(
+            torch.empty(w * t.numel(), device=dev), t),
+        "reduce_scatter_tensor": lambda t: dist.reduce_scatter_tensor(
+            torch.empty(t.numel() // w, device=dev), t),
+    }
+    out = {}
+    for name, fn in probes.items():
+        try:
+            fn(torch.ones(8, device=dev))
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            out[name] = "ok"
+        except (RuntimeError, ValueError, NotImplementedError) as e:
+            out[name] = f"{type(e).__name__}: {str(e).splitlines()[0][:120]}"
+        dist.barrier()
+    return out
+
+
+def _r2_rank(rank, store, tmp, fits, common):
+    """One of phase R2's two ranks (a spawned process): gloo over a
+    FileStore, both ranks on cuda:0, each path through CMF(n_shards=2)."""
+    import pickle
+    from datetime import timedelta
+
+    import numpy as np
+    import scipy.sparse as sp
+    import torch
+    import torch.distributed as dist
+
+    from pycmf_tpu_torch import CMF
+    from pycmf_tpu_torch.ops.kernels.policy import (launch_counts,
+                                                    reset_launch_counts)
+    from pycmf_tpu_torch.parallel.mesh import COMM
+
+    dist.init_process_group("gloo", store=dist.FileStore(store, 2),
+                            rank=rank, world_size=2,
+                            timeout=timedelta(seconds=120))
+    try:
+        data = {}
+        for name in sorted(os.listdir(tmp)):
+            base, ext = os.path.splitext(name)
+            if ext == ".npz":
+                data[base] = sp.load_npz(os.path.join(tmp, name))
+            elif ext == ".npy":
+                data[base] = np.load(os.path.join(tmp, name))
+        dev = torch.device(common["device"], 0)
+        out = {"probe": _gloo_probe(torch, dist, dev), "fits": {}}
+        for label, kw, xk, yk in fits:
+            est = CMF(n_shards=2, **kw, **common)
+            COMM.reset()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            est.fit(data[xk], data[yk])
+            wall = time.perf_counter() - t0
+            r = dict(n_iter=est.n_iter_, losses=est.loss_history_,
+                     ms_per_iter=1e3 * sum(est.step_times_) / est.n_iter_,
+                     wall_s=wall, allreduce_calls=COMM.calls,
+                     allreduce_bytes=COMM.nbytes,
+                     launches={k: v for k, v in launch_counts().items() if v})
+            if rank == 0:
+                r.update(U=est.U_, V=est.V_, Z=est.Z_)
+            out["fits"][label] = r
+        with open(os.path.join(tmp, f"rank{rank}.pkl"), "wb") as f:
+            pickle.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def gloo_two_rank_phase(check, torch, data, common, fits, refs):
+    """Phase R2: CMF(n_shards=2) in two spawned ranks of a gloo group, both
+    on the one card (NCCL refuses two ranks on one device). data: {key:
+    host matrix} the ranks load; fits: (label, kw, X key, Y key); refs:
+    {label: (the single-device fit's record, exact float64 loss of
+    factors, {kernel: launches per iteration})}. Each fit runs as many
+    iterations as its single-device fit and is held to it by the exact
+    loss of its final factors and by each rank's launch counts. Returns
+    (record, launches of both ranks)."""
+    import pickle
+    import tempfile
+
+    import numpy as np
+    import scipy.sparse as sp
+    import torch.multiprocessing as tmp_mp
+
+    # each fit runs its single-device fit's iterations (tol 0): the stop
+    # rule on bf16 eval losses that differ in their last bits can stop a
+    # block apart, which says nothing of the sharded trajectory
+    fits = [(label, dict(kw, max_iter=refs[label][0]["n_iter"], tol=0.0), xk,
+             yk) for label, kw, xk, yk in fits]
+    tmp = tempfile.mkdtemp(prefix="pycmf_r2_")
+    t0 = time.perf_counter()
+    for key, A in data.items():
+        if sp.issparse(A):
+            sp.save_npz(os.path.join(tmp, key + ".npz"), A.tocsr(),
+                        compressed=False)
+        else:
+            np.save(os.path.join(tmp, key + ".npy"), np.asarray(A))
+    ctx = tmp_mp.start_processes(
+        _r2_rank, args=(os.path.join(tmp, "store"), tmp, fits, common),
+        nprocs=2, join=False, start_method="spawn")
+    deadline = time.monotonic() + R2_TIMEOUT
+    try:
+        while not ctx.join(timeout=max(0.0, deadline - time.monotonic())):
+            if time.monotonic() >= deadline:
+                raise TimeoutError(f"R2's ranks ran past {R2_TIMEOUT} s")
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.kill()
+                proc.join(10)
+    ranks = []
+    for rank in range(2):
+        with open(os.path.join(tmp, f"rank{rank}.pkl"), "rb") as f:
+            ranks.append(pickle.load(f))
+    wall = time.perf_counter() - t0
+    rec, launches = {"probe": ranks[0]["probe"], "wall_s": wall}, {}
+    log(f"  R2: gloo collectives on CUDA tensors: {ranks[0]['probe']}; "
+        f"{wall:.1f} s for both ranks, start to end")
+    for label, kw, _, _ in fits:
+        single, exact_loss, per = refs[label]
+        a, b = (r["fits"][label] for r in ranks)
+        exact = exact_loss(a["U"], a["V"], a["Z"])
+        gap = abs(exact - single["exact_loss"]) / single["exact_loss"]
+        check(gap < 1e-4 and a["losses"] == b["losses"],
+              f"R2 {label}: exact f64 loss {exact:.9g} after {a['n_iter']} "
+              f"iterations vs the single-device fit's "
+              f"{single['exact_loss']:.9g} after {single['n_iter']}: rel gap "
+              f"{gap:.3g} < 1e-4; both ranks' loss histories equal")
+        check(a["n_iter"] == single["n_iter"],
+              f"R2 {label}: ran the single-device fit's {single['n_iter']} "
+              f"iterations ({a['n_iter']})")
+        for r, rank in ((a, 0), (b, 1)):
+            for name, n in r["launches"].items():
+                launches[name] = launches.get(name, 0) + n
+            for name, p in per.items():
+                got = r["launches"].get(name, 0)
+                check(got >= p * r["n_iter"],
+                      f"R2 {label}, rank {rank}: {name} launches {got} >= "
+                      f"{p} x {r['n_iter']}")
+        rec[label] = dict(
+            n_iter=a["n_iter"], exact_loss=exact,
+            single_exact_loss=single["exact_loss"],
+            single_n_iter=single["n_iter"], rel_gap=gap,
+            ms_per_iter=[a["ms_per_iter"], b["ms_per_iter"]],
+            single_ms_per_iter=single["ms_per_iter"],
+            wall_s=[a["wall_s"], b["wall_s"]],
+            allreduce_calls=a["allreduce_calls"],
+            allreduce_bytes=a["allreduce_bytes"],
+            launches=[a["launches"], b["launches"]])
+        log(f"  R2 {label}: {a['ms_per_iter']:.3f} / {b['ms_per_iter']:.3f} "
+            f"ms/iter on the two ranks (gloo through the host, one card), "
+            f"single device {single['ms_per_iter']:.3f}; fit wall "
+            f"{a['wall_s']:.1f} s; {a['allreduce_calls']} all-reduces, "
+            f"{a['allreduce_bytes']} bytes per rank")
+    return rec, launches
+
+
 def _numpy_baseline(kind: str) -> tuple:
     """bench.py's NumPy baseline run (in a worker process): MU in float32,
     or Newton with a sigmoid Y link in float64. Returns (final loss,
@@ -3214,6 +3550,36 @@ def main() -> int:
               "path S: two fits with random_state=0 equal bit for bit, one "
               "with random_state=1 differs")
 
+    # R. the row-sharded fit (n_shards): R1 on a one-rank NCCL group, R2 in
+    # two gloo ranks sharing the card
+    log(f"phase R1: run_sharded on a one-rank NCCL group; {name}, "
+        f"nvidia-smi: {smi}")
+    r1, r_launches = nccl_world1_phase(check, torch, X, Y, common, (
+        ("MU", mu_kw, {"fused_mu_u_pass": 1}),
+        ("path A", a_kw, {"fused_newton_linear_u_pass": 1,
+                          "sigmoid_gh_pass": 1, "sigmoid_phi_pass": 1,
+                          "batched_spd_solve": 2})))
+    log("phase R2: CMF(n_shards=2), two gloo ranks on the one card")
+    linf = lambda U, V, Z: numpy_cmf.loss(Xf64, Y64, U, V, Z)  # noqa: E731
+    r2, r2_launches = gloo_two_rank_phase(
+        check, torch, {"X": X, "Y": Y, "Xb": Xb, "Xf": Xf}, common,
+        (("MU", mu_kw, "X", "Y"), ("path A", a_kw, "X", "Y"),
+         ("path C", c_kw, "X", "Y"), ("path F", f_kw, "Xf", "Y"),
+         ("path B", b_kw, "Xb", "Y")),
+        {"MU": (mu, lin, {"fused_mu_u_pass": 1}),
+         "path A": (pa, sig, {"fused_newton_linear_u_pass": 1,
+                              "sigmoid_gh_pass": 1, "sigmoid_phi_pass": 1,
+                              "batched_spd_solve": 2}),
+         "path C": (pc, lin, {"csr_spmm": 2, "fused_mu_update": 3}),
+         "path F": (pf, linf, {"bell_spmm": 2, "fused_mu_update": 3}),
+         "path B": (pb, card_sigmoid_loss(torch, Xb, Y),
+                    {"sigmoid_gh_pass": 3, "sigmoid_phi_pass": 3,
+                     "batched_spd_solve": 3})})
+    for kname, n in r2_launches.items():
+        r_launches[kname] = r_launches.get(kname, 0) + n
+    sharded = {"r1_nccl_world1": r1, "r2_gloo_two_ranks": r2,
+               "launches": r_launches}
+
     # 8. kernel path against plain path on the card; the 2% guards. The
     # NumPy baselines run on the host beside these untimed fits, after every
     # timed phase: their BLAS threads take host cores that launch kernels.
@@ -3443,7 +3809,9 @@ def main() -> int:
                  "replaces": ", ".join(
                      f if f.startswith("pycmf_tpu/") else
                      "pycmf_tpu/ops/pallas/" + f for f in replaces),
-                 "launches": fit["launches"].get(kname, 0),
+                 "launches": (fit["launches"].get(kname, 0)
+                              + r_launches.get(kname, 0)),
+                 "sharded_launches": r_launches.get(kname, 0),
                  "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                  "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                  # the contract's two kinds; which operations (tensor
@@ -3488,6 +3856,7 @@ def main() -> int:
                       "block_max_k": krec["block_max_k"],
                       "device_vs_host_loop": loops,
                       "phase8_gap_after_20": gaps20,
+                      "sharded": sharded,
                       "phase8_step_gap_max": stepped,
                       "bell_crossover": {k: v for k, v in krec.items()
                                          if str(k).startswith("crossover")}})

@@ -19,7 +19,9 @@ its column draws from a ``torch.Generator`` seeded by the reference's rule
 from ``random_state``), with the Gauss-Newton or the full Hessian
 (``hessian_form``). ``data_dtype='fp8'`` stores X dense as float8_e4m3fn
 (Y then at bf16), contracted in bf16 as the reference does. ``n_shards``
-raises NotImplementedError naming the ROADMAP item that brings it.
+> 1 fits row-sharded over a torch.distributed process group, one process
+per shard (``parallel/sharded.py``); the sharded requests not ported yet
+raise NotImplementedError naming the ROADMAP item that brings them.
 """
 from __future__ import annotations
 
@@ -31,6 +33,8 @@ import scipy.sparse as sp
 import torch
 
 from ..ops.matmul import FP8_DTYPES
+from ..parallel.mesh import broadcast, group_size, make_mesh
+from ..parallel.sharded import check_shardable, run_sharded
 from ..solvers.common import SolverConfig, make_hyper
 from ..solvers.mu import run_mu
 from ..solvers.newton import captures_on_card, run_newton
@@ -103,6 +107,14 @@ class CMF:
         frees the cache. See _resolve_loop.
     device : 'cuda' (default) | 'cpu' | a torch.device. 'cuda' raises when
         CUDA is not available.
+    n_shards : None | int | -1 | 'all'. Above 1, the fit (and transform)
+        is row-sharded over the default torch.distributed process group,
+        whose size it must equal (-1 and 'all': the group's size). Every
+        rank calls fit with the whole X and Y and gets the same result; a
+        rank computes on ``device`` ('cuda': ``cuda:$LOCAL_RANK``, else
+        the rank modulo the visible cards). Only ``shard_layout='rows'``,
+        the host loop and full-batch dense, densified or CSR data are
+        ported (``parallel/sharded.py``).
 
     Attributes: U_, V_, Z_ (NumPy float64), reconstruction_err_, n_iter_,
     loss_history_, loss_iters_, step_times_, n_components_.
@@ -182,6 +194,44 @@ class CMF:
             raise ValueError(f"device must be 'cuda' or 'cpu', got {dev}")
         return dev
 
+    def _resolve_n_shards(self):
+        """None or a positive int, passed through; -1 or 'all': the size of
+        the default process group (ValueError when there is none). A
+        (rows, cols) tuple and the cols and grid layouts are not ported
+        (NotImplementedError naming ROADMAP A10b). Any other value raises,
+        as in the reference (``pycmf_tpu/models/cmf.py:161-197``): a typo
+        such as n_shards=0 must not fit on one device."""
+        ns = self.n_shards
+        if ns is None:
+            return None
+        if isinstance(ns, (tuple, list)):
+            if len(ns) == 2 and all(
+                    isinstance(v, (int, np.integer))
+                    and not isinstance(v, bool) and v >= 1 for v in ns):
+                check_shardable(layout="grid")
+            raise ValueError(
+                f"n_shards={ns!r} not understood; a tuple must be two "
+                "positive ints (rows, cols) with shard_layout='grid'")
+        resolved = None
+        if isinstance(ns, str) and ns.lower() == "all":
+            resolved = group_size()
+        elif isinstance(ns, (int, np.integer)) and not isinstance(ns, bool):
+            if ns == -1:
+                resolved = group_size()
+            elif ns >= 1:
+                resolved = int(ns)
+        if resolved is None:
+            raise ValueError(
+                f"n_shards={ns!r} not understood; use a positive int, -1, "
+                "'all', a (rows, cols) tuple, or None")
+        if resolved > 1:
+            check_shardable(layout=self.shard_layout)
+        return resolved
+
+    def _sharded(self) -> bool:
+        ns = self._resolve_n_shards()
+        return ns is not None and ns > 1
+
     def _resolve_dtype(self, which=None):
         dt = which if which is not None else self.dtype
         if isinstance(dt, str):
@@ -234,7 +284,8 @@ class CMF:
             raise ValueError("loop must be 'auto', 'host' or 'device'")
         if self.loop != "auto":
             return self.loop
-        if self.verbose or self._resolve_device().type != "cuda":
+        if (self.verbose or self._sharded()
+                or self._resolve_device().type != "cuda"):
             return "host"
         if self.solver == "newton" and not captures_on_card(
                 cfg if cfg is not None else self._config(has_Y=True)):
@@ -251,9 +302,11 @@ class CMF:
         predictions of the same size anyway) and streamed under
         'chunked'; under 'auto' as_coupled densifies it below the densify
         threshold and streams it past it (``_chunked_ok``), X or Y alike.
-        For a linear-linked Y, 'chunked' resolves as 'auto'."""
+        Under n_shards > 1 'auto' densifies it, as the reference's sharded
+        fits do. For a linear-linked Y, 'chunked' resolves as 'auto'."""
         if self._chunked_ok(link) and sp.issparse(A):
-            if self.sparse_mode in ("chunked", "auto"):
+            if self.sparse_mode == "chunked" or (
+                    self.sparse_mode == "auto" and not self._sharded()):
                 return self.sparse_mode
             if self.sparse_mode == "csr":
                 warnings.warn(
@@ -314,10 +367,12 @@ class CMF:
             Z_non_negative=self.Z_non_negative, alpha=self.alpha,
             l1_ratio=self.l1_ratio, tol=self.tol, max_iter=self.max_iter,
             sg_sample_ratio=self.sg_sample_ratio)
-        if self.n_shards not in (None, 1):
-            raise NotImplementedError(
-                "n_shards is not ported yet (ROADMAP A10: sharding on "
-                "torch.distributed)")
+        if self._sharded():
+            check_shardable(
+                layout=self.shard_layout, loop=self.loop,
+                sg_sample_ratio=self.sg_sample_ratio,
+                sparse_mode=self.sparse_mode,
+                data_dtype=self._resolve_data_dtype())
         mu = self.solver == "mu"
         X = check_matrix(X, "X", require_non_negative=mu)
         if Y is not None:
@@ -346,6 +401,34 @@ class CMF:
         return run_newton(Xc, Yc, U0, V0, Z0, cfg, hyper,
                           _generator(self.random_state, U0.device), **kw)
 
+    def _run_sharded(self, X, Y, U0, V0, Z0, cfg):
+        """The row-sharded fit on this rank (``parallel/sharded.py``), from
+        the first rank's U0, V0 and Z0: a draw without a fixed
+        random_state differs between processes."""
+        self._resolve_device()
+        mesh = make_mesh(self._resolve_n_shards(), device=self.device)
+        dt = self._resolve_dtype()
+        ddt = self._resolve_data_dtype()
+
+        def first_rank(a):
+            if a is None:
+                return None
+            t = torch.as_tensor(np.asarray(a, dtype=np.float64)).to(
+                mesh.device)
+            return broadcast(mesh, t).cpu().numpy()
+
+        U0, V0, Z0 = (first_rank(a) for a in (U0, V0, Z0))
+        hyper = make_hyper(self.alpha, self.l1_ratio, self.eps,
+                           self.hessian_pertubation, dtype=dt)
+        return run_sharded(
+            self.solver, X, Y, U0, V0, Z0, cfg, hyper, n_shards=mesh.world,
+            group=mesh.group, dtype=dt,
+            data_dtype=None if ddt == dt else ddt, device=mesh.device,
+            max_iter=self.max_iter, tol=self.tol,
+            eval_every=self.eval_every, verbose=self.verbose,
+            loop=self._resolve_loop(cfg),
+            sparse_mode=self._matrix_sparse_mode(X, self.x_link))
+
     # -- public API (reference parity) -------------------------------------
 
     def fit_transform(self, X, Y=None, U=None, V=None, Z=None):
@@ -368,20 +451,25 @@ class CMF:
             Z_non_negative=self.Z_non_negative,
             random_state=self.random_state, U=U, V=V, Z=Z)
 
-        up = self._use_pallas()
-        Xc = as_coupled(X, ddt, dev, use_pallas=up,
-                        sparse_mode=self._matrix_sparse_mode(X, self.x_link),
-                        chunked_ok=self._chunked_ok(self.x_link))
-        Yc = (as_coupled(Y, self._y_dtype(), dev, use_pallas=up,
-                         sparse_mode=self._matrix_sparse_mode(
-                             Y, self.y_link, is_x=False),
-                         chunked_ok=self._chunked_ok(self.y_link))
-              if Y is not None else None)
-        U0, V0, Z0 = factors_from_numpy(U0, V0, Z0, dev, dt)
-        if Z0 is None:
-            Z0 = torch.zeros((0, k), dtype=dt, device=dev)
-        Uf, Vf, Zf, n_iter, losses, iters, times = self._run(
-            Xc, Yc, U0, V0, Z0, cfg)
+        if self._sharded():
+            Uf, Vf, Zf, n_iter, losses, iters, times = self._run_sharded(
+                X, Y, U0, V0, Z0, cfg)
+        else:
+            up = self._use_pallas()
+            Xc = as_coupled(X, ddt, dev, use_pallas=up,
+                            sparse_mode=self._matrix_sparse_mode(
+                                X, self.x_link),
+                            chunked_ok=self._chunked_ok(self.x_link))
+            Yc = (as_coupled(Y, self._y_dtype(), dev, use_pallas=up,
+                             sparse_mode=self._matrix_sparse_mode(
+                                 Y, self.y_link, is_x=False),
+                             chunked_ok=self._chunked_ok(self.y_link))
+                  if Y is not None else None)
+            U0, V0, Z0 = factors_from_numpy(U0, V0, Z0, dev, dt)
+            if Z0 is None:
+                Z0 = torch.zeros((0, k), dtype=dt, device=dev)
+            Uf, Vf, Zf, n_iter, losses, iters, times = self._run(
+                Xc, Yc, U0, V0, Z0, cfg)
 
         self.U_, self.V_, self.Z_ = factors_to_numpy(
             Uf, Vf, Zf if Y is not None else None)
@@ -432,6 +520,10 @@ class CMF:
 
         cfg = self._config(has_Y=False, update_U=True, update_V=False,
                            update_Z=False)
+        if self._sharded():
+            # the rows layout whatever the fit's: the new rows are the axis
+            Uf = self._run_sharded(X, None, U0, self.V_, None, cfg)[0]
+            return factors_to_numpy(Uf, None, None)[0]
         Xc = as_coupled(X, self._resolve_data_dtype(), dev,
                         use_pallas=self._use_pallas(),
                         sparse_mode=self._matrix_sparse_mode(X, self.x_link),

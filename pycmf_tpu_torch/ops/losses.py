@@ -72,10 +72,16 @@ def _linear_term(A, M: torch.Tensor, B: torch.Tensor, a_sq=None,
     if a_sq is None:
         a_sq = _row_blocks_sum(A, M, lambda Ab, Mb: torch.sum(
             Ab.to(M.dtype) ** 2))
-    # a product with bf16 or fp8 data rounds B to bf16 (ops/matmul.py)
-    inner = _row_blocks_sum(A, M, lambda Ab, Mb: torch.sum(
+    return 0.5 * (a_sq - 2.0 * streamed_inner(A, M, B) + cross)
+
+
+def streamed_inner(A: torch.Tensor, M: torch.Tensor,
+                   B: torch.Tensor) -> torch.Tensor:
+    """⟨A, M Bᵀ⟩ = Σ((A B) ⊙ M) at M's precision for dense A, over row
+    blocks when A is stored below it (a product with bf16 or fp8 data
+    rounds B to bf16, ops/matmul.py)."""
+    return _row_blocks_sum(A, M, lambda Ab, Mb: torch.sum(
         matmul(Ab, B) * Mb))
-    return 0.5 * (a_sq - 2.0 * inner + cross)
 
 
 def _row_blocks_sum(A, M: torch.Tensor, fn) -> torch.Tensor:

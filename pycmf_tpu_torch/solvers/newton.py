@@ -63,6 +63,7 @@ from ..ops.losses import (penalty, reconstruction_term, sigmoid_sq_rows,
                           total_loss)
 from ..ops.matmul import contiguous_t, gram, matmul, select_columns
 from ..ops.sparse import is_sparse, masked_row_sq_norms, row_sq_norms
+from ..parallel.mesh import all_reduce
 from .common import (Coupled, Hyper, SolverConfig, check_loop, layout_spmm,
                      run_solver_loop)
 from .newton_chunked import (ChunkedSigRowCtx, ChunkedTSigCtx,
@@ -291,43 +292,81 @@ def newton_update_factor(rng, M, terms, links, hyper: Hyper, *,
                          non_negative: bool, trials: int,
                          hessian_form: str = "gauss",
                          sample_ratio: float = 1.0, use_pallas: bool = False,
+                         distributed=(), masks=(), group=None,
                          return_phi: bool = False):
     """One batched Newton update of factor M against its coupled terms
     (reference: ``pycmf_tpu/solvers/newton.py:newton_update_factor``).
 
     rng: the fit's torch.Generator, on M's device; each term draws its
     columns from it in turn when sample_ratio < 1 (unused otherwise).
+    distributed: one bool per term; True marks a term whose columns are
+    sharded over ``group`` (a ``parallel.mesh.Mesh``): its G, H and φ
+    contributions are summed over the ranks, in one all-reduce for G and
+    H and one per φ evaluation. masks: one optional (q,) column mask per
+    term (a sigmoid term's padding columns on a shard).
     return_phi: additionally return the per-row φ at the selected value
     (see _aux_loss_phi); needs trials >= 1.
     """
     k = M.shape[1]
     l1, l2 = hyper.l1, hyper.l2
+    distributed = distributed or (False,) * len(terms)
+    masks = masks or (None,) * len(terms)
+    any_dist = group is not None and any(distributed)
+    if any_dist and sample_ratio < 1.0:
+        raise NotImplementedError(
+            "sampled Newton across shards is not ported yet (ROADMAP "
+            "A10c: the per-shard fold of the draws)")
     G = l1 * torch.sign(M) + l2 * M
     H_shared = (l2 + hyper.hessian_pertubation) * torch.eye(
         k, dtype=M.dtype, device=M.device)
     H_rows = None
+    # the sharded terms' G, H_shared and H_rows, summed over the ranks
+    # before they join the local ones
+    acc_d = [torch.zeros_like(M), torch.zeros_like(H_shared), None] \
+        if any_dist else None
     ctxs = []
-    for term, link in zip(terms, links):
+    for term, link, dist, mask in zip(terms, links, distributed, masks):
         term = term if isinstance(term, Term) else Term(*term)
-        mask = None
         if sample_ratio < 1.0:
             term, mask = _sample_term(rng, term, sample_ratio, M.dtype)
         G_t, H_sh, H_rw, ctx = _accumulate_term(M, term, link, use_pallas,
                                                 hessian_form, mask)
-        G = G + G_t
-        if H_sh is not None:
-            H_shared = H_shared + H_sh
-        if H_rw is not None:
-            H_rows = H_rw if H_rows is None else H_rows + H_rw
-        ctxs.append(ctx)
+        dist = dist and any_dist
+        if dist:
+            acc_d[0] = acc_d[0] + G_t
+            if H_sh is not None:
+                acc_d[1] = acc_d[1] + H_sh
+            if H_rw is not None:
+                acc_d[2] = H_rw if acc_d[2] is None else acc_d[2] + H_rw
+        else:
+            G = G + G_t
+            if H_sh is not None:
+                H_shared = H_shared + H_sh
+            if H_rw is not None:
+                H_rows = H_rw if H_rows is None else H_rows + H_rw
+        ctxs.append((ctx, dist))
+    if any_dist:
+        G_d, H_sh_d, *H_rw_d = all_reduce(
+            group, *(t for t in acc_d if t is not None))
+        G = G + G_d
+        H_shared = H_shared + H_sh_d
+        if H_rw_d:
+            H_rows = H_rw_d[0] if H_rows is None else H_rows + H_rw_d[0]
     d = _solve_direction(H_shared, H_rows, G, use_pallas,
                          spd=hessian_form == "gauss")
 
     def phi(Mc):
         out = l1 * torch.sum(torch.abs(Mc), dim=-1) \
             + 0.5 * l2 * torch.sum(Mc * Mc, dim=-1)
-        for ctx in ctxs:
-            out = out + _phi_term(Mc, ctx)
+        acc = None
+        for ctx, dist in ctxs:
+            if dist:
+                t = _phi_term(Mc, ctx)
+                acc = t if acc is None else acc + t
+            else:
+                out = out + _phi_term(Mc, ctx)
+        if acc is not None:
+            out = out + all_reduce(group, acc)[0]
         return out
 
     return backtracking_select(phi, _project(non_negative), M, d, trials,
@@ -346,7 +385,8 @@ def fused_sigmoid_allowed(cfg: SolverConfig, A, M) -> bool:
 
 def fused_sigmoid_update(M, X, B, hyper: Hyper, *, trials: int,
                          non_negative: bool, use_pallas: bool, yterm=None,
-                         y_link: str = LINEAR, return_phi: bool = False):
+                         y_link: str = LINEAR, row_mask=None, group=None,
+                         return_phi: bool = False):
     """One Newton update of M (p, k) against X ≈ σ(M Bᵀ), optionally
     coupled with a second term evaluated in plain PyTorch (V's Y side).
 
@@ -357,11 +397,30 @@ def fused_sigmoid_update(M, X, B, hyper: Hyper, *, trials: int,
     it is the contiguous Xᵀ that run_newton makes once per fit
     (Coupled.At).
 
+    row_mask: an optional (p,) 0/1 mask of M's rows; the rows it zeroes
+    (a shard's padding rows, whose σ(0) = ½ residuals give nonzero
+    updates) are zeroed after selection.
+
+    group: a ``parallel.mesh.Mesh`` when X and B hold this rank's slice of
+    the q axis (M replicated): K3's G and H and K4's φ are summed over the
+    ranks. The kernels then get l1 = l2 = 0 and the elastic-net terms are
+    added once after the sums; ``yterm`` stays local. B's padding rows are
+    zero, so the padding columns add nothing to G and H, and to every φ
+    slot of a row the same σ(0) = ½ residual, which leaves the selection
+    as it is (reference: ``pycmf_tpu/solvers/newton.py:482-600``).
+
     return_phi: additionally return the per-row φ at the selected
-    candidates (see _aux_loss_phi); needs trials >= 1."""
+    candidates (see _aux_loss_phi; zero on rows ``row_mask`` zeroes);
+    needs trials >= 1. Under ``group`` it includes 0.125 per padding
+    column, which a caller that sums it as a loss subtracts."""
     k = M.shape[1]
     l1, l2 = hyper.l1, hyper.l2
-    G, H_rows = sigmoid_newton.sigmoid_gh_pass(X, M, B, l1, l2)
+    if group is None:
+        G, H_rows = sigmoid_newton.sigmoid_gh_pass(X, M, B, l1, l2)
+    else:
+        G, H_rows = all_reduce(
+            group, *sigmoid_newton.sigmoid_gh_pass(X, M, B, 0.0, 0.0))
+        G = G + l1 * torch.sign(M) + l2 * M
     H_shared = (l2 + hyper.hessian_pertubation) * torch.eye(
         k, dtype=M.dtype, device=M.device)
     ctx_y = None
@@ -379,15 +438,34 @@ def fused_sigmoid_update(M, X, B, hyper: Hyper, *, trials: int,
     if trials <= 0:
         if return_phi:
             raise ValueError("return_phi needs trials >= 1")
-        return project(M - d)
-    phis = sigmoid_newton.sigmoid_phi_pass(X, M, d, B, l1, l2, trials=trials,
-                                           non_negative=non_negative)
-    if ctx_y is not None:
-        # the Y term's objective of every candidate, slot 0 = M unprojected
+        out = project(M - d)
+        return out if row_mask is None else out * row_mask[:, None]
+    if group is None:
+        phis = sigmoid_newton.sigmoid_phi_pass(X, M, d, B, l1, l2,
+                                               trials=trials,
+                                               non_negative=non_negative)
+    else:
+        phis = all_reduce(group, sigmoid_newton.sigmoid_phi_pass(
+            X, M, d, B, 0.0, 0.0, trials=trials,
+            non_negative=non_negative))[0]
+    if group is not None or ctx_y is not None:
+        # the φ columns the kernel does not carry, slot 0 = M unprojected:
+        # the penalties (added once, after the sum) and the Y term
         cands = sigmoid_newton.candidates(M, d, trials, non_negative)
-        phis = phis + _phi_term(cands, ctx_y).T
-    return backtracking_select_table(phis, project, M, d,
-                                     return_phi=return_phi)
+        extra = 0.0
+        if group is not None:
+            extra = l1 * torch.sum(torch.abs(cands), dim=-1) \
+                + 0.5 * l2 * torch.sum(cands * cands, dim=-1)
+        if ctx_y is not None:
+            extra = extra + _phi_term(cands, ctx_y)
+        phis = phis + extra.T
+    out = backtracking_select_table(phis, project, M, d,
+                                    return_phi=return_phi)
+    if row_mask is None:
+        return out
+    if return_phi:
+        return out[0] * row_mask[:, None], out[1] * row_mask
+    return out * row_mask[:, None]
 
 
 def shared_gauss_hinv(V, hyper: Hyper):

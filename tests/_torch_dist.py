@@ -1,0 +1,181 @@
+"""Run a function on every rank of a gloo process group of spawned CPU
+processes, for the tests of the port's sharded fits.
+
+The ranks meet at a ``FileStore`` (no TCP port: the suite runs several
+workers at once) and import only this module, torch, numpy, scipy and the
+port, never JAX. Each rank writes what its function returns to a file; a
+rank's exception reaches the caller, and a run past its time limit kills
+every rank and raises, so a hang cannot stall the suite.
+"""
+from __future__ import annotations
+
+import pickle
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+JOIN_TIMEOUT = 240.0
+
+
+def _rank_main(rank, world, store_path, out_dir, fn, args):
+    import torch
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    store = dist.FileStore(store_path, world)
+    dist.init_process_group("gloo", store=store, rank=rank, world_size=world)
+    try:
+        out = fn(rank, *args)
+        out = {"result": out, "jax_imported": "jax" in sys.modules}
+        with open(Path(out_dir) / f"rank{rank}.pkl", "wb") as f:
+            pickle.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+class Spawned:
+    """The ranks of one spawn; :meth:`join` waits for them (within the time
+    limit left) and returns each rank's result, in rank order."""
+
+    def __init__(self, ctx, world, out_dir, deadline):
+        self.ctx, self.world, self.out_dir = ctx, world, out_dir
+        self.deadline = deadline
+
+    def join(self):
+        try:
+            while not self.ctx.join(timeout=max(
+                    0.0, self.deadline - time.monotonic())):
+                if time.monotonic() >= self.deadline:
+                    raise TimeoutError(
+                        f"the {self.world} ranks did not finish within "
+                        f"{JOIN_TIMEOUT:.0f} s")
+        finally:
+            for p in self.ctx.processes:
+                if p.is_alive():
+                    p.kill()
+                    p.join(5)
+        outs = []
+        for r in range(self.world):
+            with open(Path(self.out_dir) / f"rank{r}.pkl", "rb") as f:
+                out = pickle.load(f)
+            if out["jax_imported"]:
+                raise AssertionError(f"rank {r} imported jax")
+            outs.append(out["result"])
+        return outs
+
+
+def spawn(fn, world: int, tmp_dir, *args,
+          timeout: float = JOIN_TIMEOUT) -> Spawned:
+    """Start fn(rank, *args) on ``world`` spawned ranks of a gloo group;
+    returns at once (:meth:`Spawned.join` for the results). fn and args
+    must pickle, and fn's module must not import JAX."""
+    import torch.multiprocessing as mp
+
+    tmp_dir = Path(tmp_dir)
+    tmp_dir.mkdir(parents=True, exist_ok=True)
+    store = tmp_dir / "store"
+    if store.exists():
+        store.unlink()
+    ctx = mp.start_processes(
+        _rank_main, args=(world, str(store), str(tmp_dir), fn, args),
+        nprocs=world, join=False, start_method="spawn")
+    return Spawned(ctx, world, tmp_dir, time.monotonic() + timeout)
+
+
+# ---------------------------------------------------------------------------
+# what the ranks run
+# ---------------------------------------------------------------------------
+
+
+def _fitted(est):
+    return {"U": est.U_, "V": est.V_, "Z": est.Z_, "n_iter": est.n_iter_,
+            "losses": list(est.loss_history_),
+            "iters": list(est.loss_iters_)}
+
+
+def run_cases(rank, cases):
+    """Each case on this rank, in order; {name: result}. A case is a dict:
+
+    kind 'fit': CMF(device='cpu', **kw).fit(X, Y, U=, V=, Z=), and when
+        'Xn' is given, transform(Xn) after it (its U0 'Un');
+    kind 'sigmoid': fused_sigmoid_update on this rank's columns of X
+        (rank r of d takes columns [r·q/d, (r+1)·q/d)) with the group;
+    kind 'newton_factor': newton_update_factor with a distributed term on
+        this rank's columns and a local one.
+    """
+    from pycmf_tpu_torch import CMF
+
+    out = {}
+    for name, case in cases.items():
+        kind = case["kind"]
+        if kind == "fit":
+            est = CMF(device="cpu", **case["kw"])
+            est.fit(case["X"], case.get("Y"), **case.get("init", {}))
+            res = _fitted(est)
+            if case.get("Xn") is not None:
+                res["transform"] = est.transform(case["Xn"],
+                                                 U=case.get("Un"))
+            out[name] = res
+        elif kind == "sigmoid":
+            out[name] = _sigmoid_case(rank, case)
+        elif kind == "newton_factor":
+            out[name] = _newton_factor_case(rank, case)
+        else:
+            raise ValueError(f"unknown case kind {kind!r}")
+    return out
+
+
+def _shard_cols(A, rank, d):
+    q = A.shape[-1] if A.ndim == 1 else A.shape[1]
+    w = q // d
+    return slice(rank * w, (rank + 1) * w)
+
+
+def _sigmoid_case(rank, case):
+    import torch
+
+    from pycmf_tpu_torch.parallel.mesh import make_mesh
+    from pycmf_tpu_torch.solvers.common import make_hyper
+    from pycmf_tpu_torch.solvers.newton import Term, fused_sigmoid_update
+
+    mesh = make_mesh(device="cpu")
+    t = lambda a: None if a is None else torch.from_numpy(  # noqa: E731
+        np.ascontiguousarray(a, dtype=np.float64))
+    cols = _shard_cols(case["X"], rank, mesh.world)
+    hyper = make_hyper(*case["hyper"], dtype=torch.float64)
+    yterm = Term(t(case["Y"]), t(case["Z"])) if "Y" in case else None
+    out = fused_sigmoid_update(
+        t(case["M"]), t(case["X"][:, cols]), t(case["B"][cols]), hyper,
+        trials=case["trials"], non_negative=case["non_negative"],
+        use_pallas=True, yterm=yterm, y_link=case.get("y_link", "linear"),
+        row_mask=t(case.get("row_mask")), group=mesh,
+        return_phi=case["return_phi"])
+    if case["return_phi"]:
+        return out[0].numpy(), out[1].numpy()
+    return out.numpy()
+
+
+def _newton_factor_case(rank, case):
+    import torch
+
+    from pycmf_tpu_torch.parallel.mesh import make_mesh
+    from pycmf_tpu_torch.solvers.common import make_hyper
+    from pycmf_tpu_torch.solvers.newton import Term, newton_update_factor
+
+    mesh = make_mesh(device="cpu")
+    t = lambda a: None if a is None else torch.from_numpy(  # noqa: E731
+        np.ascontiguousarray(a, dtype=np.float64))
+    cols = _shard_cols(case["D"], rank, mesh.world)
+    hyper = make_hyper(*case["hyper"], dtype=torch.float64)
+    mask = case.get("mask")
+    terms = (Term(t(case["D"][:, cols]), t(case["B"][cols])),
+             Term(t(case["D2"]), t(case["B2"])))
+    out = newton_update_factor(
+        None, t(case["M"]), terms, (case["link"], case["link2"]), hyper,
+        non_negative=case["non_negative"], trials=case["trials"],
+        use_pallas=False, distributed=(True, False),
+        masks=(None if mask is None else t(mask[cols]), None), group=mesh,
+        return_phi=True)
+    return out[0].numpy(), out[1].numpy()

@@ -1,0 +1,432 @@
+"""The port's row-sharded CMF (``n_shards``, one process per shard on
+torch.distributed) against the reference's (``shard_map`` over JAX's
+virtual CPU devices), on the CPU.
+
+The reference runs in this process; the port runs in d spawned gloo ranks
+(``tests/_torch_dist.py``; the ranks never import JAX), one spawn per d for
+every case, started before the reference's fits and joined after them. Both
+get the same NumPy data and the same U0, V0, Z0 (and U0 of the fold-in).
+n = 61 rows (23 in the fold-in) leave a
+padding row on the last shard for d = 2 and 3 for d = 4.
+
+Tolerances: float64 rtol 1e-9 on factors (atol 1e-12), loss histories and
+transforms, and equal n_iter_ (the reference's own sharded-vs-single bar,
+MULTICHIP_r05.json); every rank's result equal bit for bit.
+"""
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import numpy as np
+import pytest
+import scipy.sparse as sp
+import torch
+import torch.distributed as dist
+from jax.sharding import PartitionSpec as P
+
+from pycmf_tpu import CMF as JCMF
+from pycmf_tpu.parallel.mesh import AXIS as J_AXIS
+from pycmf_tpu.parallel.mesh import make_mesh as j_make_mesh
+from pycmf_tpu.solvers.common import make_hyper as j_make_hyper
+from pycmf_tpu.solvers.newton import Term as JTerm
+from pycmf_tpu.solvers.newton import \
+    fused_sigmoid_update as j_fused_sigmoid_update
+from pycmf_tpu.solvers.newton import \
+    newton_update_factor as j_newton_update_factor
+from pycmf_tpu_torch import CMF
+from pycmf_tpu_torch.parallel import mesh as tmesh
+from pycmf_tpu_torch.parallel.sharded import row_block, run_sharded
+from pycmf_tpu_torch.solvers.common import SolverConfig
+from pycmf_tpu_torch.solvers.common import make_hyper as t_make_hyper
+from pycmf_tpu_torch.solvers.newton import \
+    fused_sigmoid_update as t_fused_sigmoid_update
+from tests._torch_dist import run_cases, spawn
+from tests.conftest import make_problem
+
+K = 4
+BASE = dict(n_components=K, tol=1e-7, eval_every=5, dtype="float64",
+            random_state=0, use_pallas=True)
+SIGNED = dict(U_non_negative=False, V_non_negative=False,
+              Z_non_negative=False)
+
+
+def _data():
+    rng = np.random.RandomState(7)
+    X, Y = make_problem(rng, n=61, m=40)
+    Xs = make_problem(np.random.RandomState(8), n=61, m=40, sparse=True)[0]
+    Xn = make_problem(np.random.RandomState(9), n=23, m=40)[0]
+    init = dict(U=np.abs(rng.randn(61, K)), V=np.abs(rng.randn(40, K)),
+                Z=np.abs(rng.randn(Y.shape[1], K)))
+    return dict(X=X, Y=Y, Xs=Xs, Xb=(X > np.median(X)).astype(float),
+                Yb=(Y > np.median(Y)).astype(float), Xn=Xn,
+                Un=np.abs(rng.randn(23, K)), init=init)
+
+
+DATA = _data()
+
+# name: (estimator kwargs, X, Y); every case fits from DATA["init"]
+CASES = {
+    "mu_dense": (dict(solver="mu", max_iter=20), "X", "Y"),
+    "mu_csr": (dict(solver="mu", max_iter=20, sparse_mode="csr"), "Xs", "Y"),
+    "newton_sigmoid_y": (dict(solver="newton", y_link="sigmoid",
+                              max_iter=10), "X", "Yb"),
+    "newton_sigmoid_x": (dict(solver="newton", x_link="sigmoid", max_iter=6,
+                              **SIGNED), "Xb", "Y"),
+    "newton_sigmoid_x_plain": (dict(solver="newton", x_link="sigmoid",
+                                    max_iter=6, use_pallas=False, **SIGNED),
+                               "Xb", "Y"),
+    "newton_csr": (dict(solver="newton", max_iter=10, sparse_mode="csr"),
+                   "Xs", "Y"),
+    "newton_elastic_net": (dict(solver="newton", y_link="sigmoid",
+                                max_iter=10, alpha=0.1, l1_ratio=0.4,
+                                **SIGNED), "X", "Yb"),
+}
+# the port's n_shards=-1 / 'all', held to the reference's n_shards=d fit of
+# the same case (the reference's -1 would take all 8 virtual devices)
+ALL_SHARDS = {"all_minus_1": -1, "all_str": "all"}
+# held to the port's single-device fit too; the elastic-net case keeps
+# padding rows with l1 > 0 and signed factors (the reference's own sharded
+# fit equals its single-device one there)
+SINGLE = ("mu_dense", "newton_sigmoid_y", "newton_elastic_net")
+
+
+def _kw(name):
+    kw, _, _ = CASES[name]
+    return dict(BASE, **kw)
+
+
+def _fit_args(name):
+    _, x, y = CASES[name]
+    return DATA[x], DATA[y]
+
+
+# -- the forms of the solvers' distributed pieces (d = 2) --------------------
+
+def _sigmoid_form_case():
+    rng = np.random.RandomState(3)
+    p, q, k, r = 13, 30, K, 6
+    X = (rng.rand(p, q) > 0.5).astype(float)
+    B = rng.randn(q, k)
+    # the layout's padding columns: zero data against zero factor rows
+    X[:, -2:] = 0.0
+    B[-2:] = 0.0
+    mask = np.ones(p)
+    mask[-3:] = 0.0
+    return dict(kind="sigmoid", M=rng.randn(p, k) * 0.5, X=X, B=B,
+                Y=rng.randn(p, r), Z=rng.randn(r, k) * 0.5,
+                row_mask=mask, trials=8, non_negative=False,
+                return_phi=True, hyper=(0.1, 0.4, 1e-10, 0.2))
+
+
+def _newton_factor_case(link):
+    rng = np.random.RandomState(4)
+    p, q, q2, k = 11, 30, 9, K
+    D = ((rng.rand(p, q) > 0.5).astype(float) if link == "sigmoid"
+         else np.abs(rng.randn(p, q)))
+    mask = np.ones(q)
+    mask[-2:] = 0.0  # padding columns
+    D[:, -2:] = 0.0
+    B = rng.randn(q, k) * 0.5
+    B[-2:] = 0.0
+    return dict(kind="newton_factor", M=rng.randn(p, k) * 0.3, D=D, B=B,
+                D2=np.abs(rng.randn(p, q2)), B2=np.abs(rng.randn(q2, k)),
+                link=link, link2="linear",
+                mask=mask if link == "sigmoid" else None, trials=8,
+                non_negative=False, hyper=(0.1, 0.4, 1e-10, 0.2))
+
+
+FORMS = {"sigmoid_group": _sigmoid_form_case(),
+         "newton_factor_sigmoid": _newton_factor_case("sigmoid"),
+         "newton_factor_linear": _newton_factor_case("linear")}
+
+
+def _port_cases(d):
+    cases = {}
+    for name in CASES:
+        X, Y = _fit_args(name)
+        case = dict(kind="fit", kw=dict(_kw(name), n_shards=d), X=X, Y=Y,
+                    init=DATA["init"])
+        if name == "mu_dense":  # and the fold-in of new rows after it
+            case.update(Xn=DATA["Xn"], Un=DATA["Un"])
+        cases[name] = case
+    for name, ns in ALL_SHARDS.items():
+        X, Y = _fit_args("mu_dense")
+        cases[name] = dict(kind="fit", kw=dict(_kw("mu_dense"), n_shards=ns),
+                           X=X, Y=Y, init=DATA["init"])
+    if d == 2:
+        cases.update(FORMS)
+    return cases
+
+
+def _ref_sigmoid_form(case):
+    hyper = j_make_hyper(*case["hyper"], dtype=jax.numpy.float64)
+
+    def f(M, X, B, Y, Z, mask):
+        return j_fused_sigmoid_update(
+            M, X, B, hyper, trials=case["trials"],
+            non_negative=case["non_negative"], use_pallas=True,
+            yterm=JTerm(Y, Z), row_mask=mask, axis_name=J_AXIS,
+            return_phi=True)
+
+    sm = jax.jit(jax.shard_map(f, mesh=j_make_mesh(2), in_specs=(
+        P(), P(None, J_AXIS), P(J_AXIS, None), P(), P(), P()),
+        out_specs=(P(), P()), check_vma=False))
+    out, phi = sm(case["M"], case["X"], case["B"], case["Y"], case["Z"],
+                  case["row_mask"])
+    return np.asarray(out), float(phi)
+
+
+def _ref_newton_factor(case):
+    hyper = j_make_hyper(*case["hyper"], dtype=jax.numpy.float64)
+    masked = case["mask"] is not None
+
+    def f(M, D, B, D2, B2, mask):
+        return j_newton_update_factor(
+            jax.random.PRNGKey(0), M, (JTerm(D, B), JTerm(D2, B2)),
+            (case["link"], case["link2"]), hyper,
+            non_negative=case["non_negative"], trials=case["trials"],
+            hessian_form="gauss", sample_ratio=1.0, use_pallas=False,
+            distributed=(True, False),
+            masks=(mask if masked else None, None), axis_name=J_AXIS,
+            return_phi=True)
+
+    mask = case["mask"] if masked else np.ones(case["D"].shape[1])
+    sm = jax.jit(jax.shard_map(f, mesh=j_make_mesh(2), in_specs=(
+        P(), P(None, J_AXIS), P(J_AXIS, None), P(), P(), P(J_AXIS)),
+        out_specs=(P(), P()), check_vma=False))
+    out, phi = sm(case["M"], case["D"], case["B"], case["D2"], case["B2"],
+                  mask)
+    return np.asarray(out), np.asarray(phi)
+
+
+@pytest.fixture(scope="module", params=[2, 4], ids=["d2", "d4"])
+def sharded(request, tmp_path_factory):
+    """(d, the reference's results, each rank's results): the port's
+    ranks run while the reference fits."""
+    d = request.param
+    ranks = spawn(run_cases, d, tmp_path_factory.mktemp(f"ranks{d}"),
+                  _port_cases(d))
+    ref = {}
+    try:
+        for name in CASES:
+            est = JCMF(n_shards=d, **_kw(name))
+            est.fit(*_fit_args(name), **DATA["init"])
+            ref[name] = est
+        ref["transformed"] = ref["mu_dense"].transform(DATA["Xn"],
+                                                       U=DATA["Un"])
+        if d == 2:
+            ref["sigmoid_group"] = _ref_sigmoid_form(FORMS["sigmoid_group"])
+            for name in ("newton_factor_sigmoid", "newton_factor_linear"):
+                ref[name] = _ref_newton_factor(FORMS[name])
+    finally:
+        ports = ranks.join()
+    return d, ref, ports
+
+
+def _assert_fit(got, want):
+    assert got["n_iter"] == want.n_iter_
+    assert got["iters"] == list(want.loss_iters_)
+    np.testing.assert_allclose(got["losses"], want.loss_history_, rtol=1e-9)
+    for name in ("U", "V", "Z"):
+        np.testing.assert_allclose(got[name], getattr(want, name + "_"),
+                                   rtol=1e-9, atol=1e-12)
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_sharded_fit_matches_reference_f64(sharded, case):
+    d, ref, ports = sharded
+    _assert_fit(ports[0][case], ref[case])
+
+
+def test_sharded_transform_matches_reference_f64(sharded):
+    """transform under n_shards (the rows layout, U's update alone) of 23
+    new rows after the mu_dense fit."""
+    d, ref, ports = sharded
+    np.testing.assert_allclose(ports[0]["mu_dense"]["transform"],
+                               ref["transformed"], rtol=1e-9, atol=1e-12)
+
+
+@pytest.mark.parametrize("case", list(ALL_SHARDS))
+def test_all_shards_resolves_to_the_group(sharded, case):
+    """n_shards=-1 and 'all' take the group's size: the fit of n_shards=d."""
+    d, ref, ports = sharded
+    _assert_fit(ports[0][case], ref["mu_dense"])
+
+
+@pytest.mark.parametrize("case", SINGLE)
+def test_sharded_fit_matches_port_single_device(sharded, case):
+    d, _, ports = sharded
+    est = CMF(device="cpu", **_kw(case))
+    est.fit(*_fit_args(case), **DATA["init"])
+    _assert_fit(ports[0][case], est)
+
+
+def test_every_rank_returns_the_same_result(sharded):
+    d, _, ports = sharded
+    assert len(ports) == d
+    for name in list(CASES) + list(ALL_SHARDS):
+        for other in ports[1:]:
+            a, b = ports[0][name], other[name]
+            assert a["n_iter"] == b["n_iter"] and a["losses"] == b["losses"]
+            for key in ("U", "V", "Z", "transform"):
+                if key in a:
+                    np.testing.assert_array_equal(a[key], b[key])
+
+
+@pytest.mark.parametrize("sharded", [2], indirect=True, ids=["d2"])
+def test_fused_sigmoid_update_group_form_matches_reference(sharded):
+    """The group form (K3's G/H and K4's φ summed over 2 ranks, the
+    elastic-net terms added once, the Y term local) with a row mask and
+    two padding columns, whose φ constant (0.125 per padding column and
+    unmasked row) both keep. (The forms run in the 2-rank spawn.)"""
+    d, ref, ports = sharded
+    want_M, want_phi = ref["sigmoid_group"]
+    for rank in ports:
+        got_M, got_phi = rank["sigmoid_group"]
+        np.testing.assert_allclose(got_M, want_M, rtol=1e-9, atol=1e-12)
+        np.testing.assert_allclose(got_phi.sum(), want_phi, rtol=1e-9)
+        assert np.all(got_M[-3:] == 0) and np.all(got_phi[-3:] == 0)
+
+
+@pytest.mark.parametrize("sharded", [2], indirect=True, ids=["d2"])
+@pytest.mark.parametrize("link", ["sigmoid", "linear"])
+def test_newton_update_factor_distributed_form_matches_reference(sharded,
+                                                                 link):
+    """A term sharded over 2 ranks by column (distributed, with the
+    padding-column mask under a sigmoid link) beside a local one."""
+    d, ref, ports = sharded
+    want_M, want_phi = ref[f"newton_factor_{link}"]
+    for rank in ports:
+        got_M, got_phi = rank[f"newton_factor_{link}"]
+        np.testing.assert_allclose(got_M, want_M, rtol=1e-9, atol=1e-12)
+        np.testing.assert_allclose(got_phi, want_phi, rtol=1e-9)
+
+
+def test_fused_sigmoid_update_row_mask_form_matches_reference():
+    """The row-mask form alone (U's update on a shard), in this process."""
+    case = _sigmoid_form_case()
+    j_hyper = j_make_hyper(*case["hyper"], dtype=jax.numpy.float64)
+    want, want_phi = j_fused_sigmoid_update(
+        case["M"], case["X"], case["B"], j_hyper, trials=8,
+        non_negative=True, use_pallas=True, row_mask=case["row_mask"],
+        return_phi=True)
+    t = torch.from_numpy
+    got, got_phi = t_fused_sigmoid_update(
+        t(case["M"]), t(case["X"]), t(case["B"]),
+        t_make_hyper(*case["hyper"], dtype=torch.float64), trials=8,
+        non_negative=True, use_pallas=True, row_mask=t(case["row_mask"]),
+        return_phi=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-9,
+                               atol=1e-12)
+    np.testing.assert_allclose(float(got_phi.sum()), float(want_phi),
+                               rtol=1e-9)
+    assert np.all(got.numpy()[-3:] == 0)
+
+
+def test_row_block_pads_like_the_reference():
+    """Rank r's block: rows r·⌈n/d⌉ on, zero rows past n; CSR and dense
+    alike."""
+    X = DATA["Xs"]
+    for rank in range(4):
+        blk, n_valid = row_block(X, 16, rank)
+        want = np.zeros((16, X.shape[1]))
+        rows = X.toarray()[rank * 16:rank * 16 + 16]
+        want[:rows.shape[0]] = rows
+        assert sp.issparse(blk) and blk.shape == (16, X.shape[1])
+        np.testing.assert_array_equal(blk.toarray(), want)
+        assert n_valid == rows.shape[0]
+        dense, nv = row_block(X.toarray(), 16, rank)
+        np.testing.assert_array_equal(dense, want)
+        assert nv == n_valid
+    assert row_block(X, 16, 3)[1] == 61 - 48
+
+
+# -- refusals, in this process ----------------------------------------------
+
+def _est(**kw):
+    return CMF(device="cpu", n_components=2, max_iter=2, **kw)
+
+
+@pytest.mark.parametrize("kw", [dict(n_shards=2), dict(n_shards=-1),
+                                dict(n_shards="all")],
+                         ids=["2", "minus_1", "all"])
+def test_shards_without_a_process_group_raise(kw):
+    assert not dist.is_initialized()
+    with pytest.raises(ValueError, match="no torch.distributed process "
+                                         "group is initialized"):
+        _est(**kw).fit(DATA["X"], DATA["Y"])
+
+
+def test_group_of_the_wrong_size_raises(tmp_path):
+    dist.init_process_group("gloo", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        with pytest.raises(ValueError, match="requested 2 devices but the "
+                                             "process group has 1"):
+            _est(n_shards=2).fit(DATA["X"], DATA["Y"])
+        # -1 takes the group's size, 1: the single-device fit
+        a = _est(n_shards=-1, random_state=0).fit(DATA["X"], DATA["Y"])
+        b = _est(random_state=0).fit(DATA["X"], DATA["Y"])
+        np.testing.assert_array_equal(a.U_, b.U_)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("kw,item", [
+    (dict(n_shards=2, shard_layout="cols"), "A10b"),
+    (dict(n_shards=2, shard_layout="grid"), "A10b"),
+    (dict(n_shards=(2, 1), shard_layout="grid"), "A10b"),
+    (dict(n_shards=(2, 1)), "A10b"),
+    (dict(n_shards=2, loop="device"), "A10c"),
+    (dict(n_shards=2, solver="newton", sg_sample_ratio=0.5), "A10c"),
+    (dict(n_shards=2, sparse_mode="chunked"), "A10c"),
+    (dict(n_shards=2, data_dtype="fp8", dtype="float32"), "A10c"),
+], ids=["cols", "grid", "grid_tuple", "tuple", "device_loop", "sampled",
+        "chunked", "fp8"])
+def test_unported_shard_requests_raise_naming_their_item(kw, item):
+    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+        _est(**kw).fit(DATA["X"], DATA["Y"])
+
+
+@pytest.mark.parametrize("n_shards", [0, "two", (2, 0), True])
+def test_malformed_n_shards_raise_value_error(n_shards):
+    with pytest.raises(ValueError, match="not understood"):
+        _est(n_shards=n_shards).fit(DATA["X"], DATA["Y"])
+
+
+@pytest.mark.parametrize("kw,item", [(dict(layout="cols"), "A10b"),
+                                     (dict(loop="device"), "A10c")])
+def test_run_sharded_refuses_unported_layouts_and_loops(kw, item):
+    cfg = SolverConfig(use_pallas=True)
+    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+        run_sharded("mu", DATA["X"], DATA["Y"], DATA["init"]["U"],
+                    DATA["init"]["V"], DATA["init"]["Z"], cfg,
+                    t_make_hyper(), n_shards=2, device="cpu", **kw)
+
+
+def test_rank_device_rule(monkeypatch):
+    """cpu stays cpu, an explicit card index is kept, else LOCAL_RANK, else
+    the rank modulo the visible cards."""
+    assert tmesh.rank_device(3, "cpu") == torch.device("cpu")
+    assert tmesh.rank_device(3, "cuda:1") == torch.device("cuda", 1)
+    monkeypatch.setenv("LOCAL_RANK", "2")
+    assert tmesh.rank_device(5, "cuda") == torch.device("cuda", 2)
+    monkeypatch.delenv("LOCAL_RANK")
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    assert tmesh.rank_device(5, "cuda") == torch.device("cuda", 1)
+
+
+def test_torchrun_demo_runs_two_ranks():
+    """The README's command: two processes under torchrun (a localhost
+    rendezvous on a free port), gloo, on the CPU."""
+    root = Path(__file__).resolve().parents[1]
+    out = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "2", "-m", "pycmf_tpu_torch.parallel.demo",
+         "--backend", "gloo", "--device", "cpu", "--docs", "300",
+         "--terms", "400", "--max-iter", "10"],
+        cwd=root, capture_output=True, text=True, timeout=180)
+    assert out.returncode == 0, out.stderr[-2000:]
+    line = [s for s in out.stdout.splitlines() if "shards:" in s]
+    assert len(line) == 1 and line[0].startswith("2 shards: n_iter 10")
