@@ -121,8 +121,15 @@ Phases (any failure exits non-zero and prints no ok line):
     two ranks on one device): MU, path A, path C, path F and path B, each
     within 1e-4 of its phase-7 fit's exact float64 loss, both ranks'
     losses equal and each rank's launches counted, and which gloo
-    collectives take CUDA tensors; every kernel's launches in the kernels
-    line include these fits';
+    collectives take CUDA tensors; R1c, run_sharded(layout='cols') on a
+    one-rank NCCL group, MU and path A run to the single-device host
+    fit's n_iter (tol 0) and held to it by the exact float64 loss (1e-4),
+    with launch counts, ms/iter in turns beside the single-device fit,
+    the all-reduce's calls, bytes and device ms; R2c,
+    CMF(n_shards=2, shard_layout='cols') in two gloo ranks on the card:
+    MU, path A, path C, path F and path B as R2 (K6, K3/K4, K5, csr_spmm
+    and bell_spmm launched by each rank); every kernel's launches in the
+    kernels line include these fits';
  8. kernel path against plain path on the card (the plain fits on the host
     loop: a capture refuses the plain batched solve): after 20 iterations,
     checked to 1e-3 on paths B, C, D and F and printed for MU, Newton
@@ -139,7 +146,11 @@ Phases (any failure exits non-zero and prints no ok line):
     fold-in of 1000 rows; and the final
     losses of MU, path A, path C and path D against the NumPy baselines
     (2% guard);
- 9. transform of 1000 new rows, dense (MU), CSR (path C) and fp8 (MU).
+ 9. transform of 1000 new rows, dense (MU), CSR (path C) and fp8 (MU);
+    the estimator's utilities on the card: print_topic_terms of the MU
+    fit, a save_model/load_model(device='cuda') round trip whose transform
+    equals the fitted model's bit for bit, and utils.profiling.trace
+    around one fit, whose trace names the port's kernels.
 Each fit is run with the launch counts set to 0 just before it and read
 just after. Standard output ends with the fits' record, the card's name and
 power limit, the kernels' JSON record and, last, {"ok": true, ...}.
@@ -2868,6 +2879,186 @@ def nccl_world1_phase(check, torch, X, Y, common, paths):
     return rec, launches
 
 
+R1C_ROUNDS = 3  # phase R1c's timed rounds: cols and single device in turn
+
+
+def nccl_world1_cols_phase(check, torch, X, Y, common, paths):
+    """Phase R1c: run_sharded(layout='cols') on a one-rank NCCL group in
+    this process, each path run to the single-device host-loop fit's n_iter
+    (tol 0) and held to it by the exact float64 loss of the final factors
+    (1e-4 relative): a one-rank cols fit is not the single device's
+    arithmetic (X V is a plain product summed over the ranks, K1 and K2
+    never run). Times in turns over R1C_ROUNDS rounds beside the
+    single-device fit, then one fit with CUDA events around every
+    all-reduce. paths: (label, kw, exact loss of (U, V, Z), {kernel:
+    launches per iteration}). Returns (record, launches of the cols
+    fits)."""
+    import tempfile
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from pycmf_tpu_torch import CMF
+    from pycmf_tpu_torch.ops.kernels.policy import (launch_counts,
+                                                    reset_launch_counts)
+    from pycmf_tpu_torch.parallel.mesh import COMM
+    from pycmf_tpu_torch.parallel.sharded import run_sharded
+    from pycmf_tpu_torch.solvers.common import make_hyper
+    from pycmf_tpu_torch.utils.init import initialize_factors
+
+    rec, launches = {}, {}
+    store = os.path.join(tempfile.mkdtemp(prefix="pycmf_r1c_"), "store")
+    dist.init_process_group("nccl", store=dist.FileStore(store, 1), rank=0,
+                            world_size=1)
+    try:
+        for label, kw, exact_loss, minimums in paths:
+            est = CMF(**kw, **common, loop="host")
+            cfg = est._config(has_Y=True)
+            hyper = make_hyper(est.alpha, est.l1_ratio, est.eps,
+                               est.hessian_pertubation, dtype=torch.float32)
+            U0, V0, Z0 = initialize_factors(
+                X, Y, K, random_state=SEED,
+                U_non_negative=est.U_non_negative,
+                V_non_negative=est.V_non_negative,
+                Z_non_negative=est.Z_non_negative)
+            one = CMF(**kw, **common, loop="host").fit(X, Y)
+
+            def cols(max_iter=one.n_iter_, timed=False):
+                COMM.reset(timed)
+                out = run_sharded(
+                    est.solver, X, Y, U0, V0, Z0, cfg, hyper, n_shards=1,
+                    layout="cols", dtype=torch.float32,
+                    data_dtype=torch.bfloat16, device=common["device"],
+                    max_iter=max_iter, tol=0.0, eval_every=est.eval_every,
+                    sparse_mode=est._matrix_sparse_mode(X, est.x_link))
+                torch.cuda.synchronize()
+                return out
+
+            def single():
+                e = CMF(**kw, **common, loop="host").fit(X, Y)
+                return 1e3 * sum(e.step_times_) / e.n_iter_
+
+            cols(max_iter=2)  # warm-up, not timed
+            reset_launch_counts()
+            U, V, Z, n_iter, losses, iters, times = cols()
+            counts = launch_counts()
+            calls, nbytes = COMM.calls, COMM.nbytes
+            for name, n in counts.items():
+                launches[name] = launches.get(name, 0) + n
+            ms = {"single_device": [], "cols": []}
+            for _ in range(R1C_ROUNDS):
+                ms["single_device"].append(single())
+                out = cols()
+                ms["cols"].append(1e3 * sum(out[6]) / out[3])
+            # events around every all-reduce; the first two (the set-up's
+            # ‖X‖², the initial loss) and the last (the gather of V) lie
+            # outside the blocks
+            t_out = cols(timed=True)
+            comm_ms = sum(a.elapsed_time(b) for a, b in COMM.events[2:-1])
+            fit_ms = 1e3 * sum(t_out[6])
+            exact = exact_loss(*(t.double().cpu().numpy()
+                                 for t in (U, V, Z)))
+            want = exact_loss(one.U_, one.V_, one.Z_)
+            gap = abs(exact - want) / want
+            n, m = X.shape
+            r = dict(
+                n_iter=n_iter, single_n_iter=one.n_iter_, exact_loss=exact,
+                single_exact_loss=want, rel_gap=gap,
+                losses=[float(v) for v in losses],
+                single_losses=one.loss_history_,
+                ms_per_iter={v: sorted(t) for v, t in ms.items()},
+                least_ms_per_iter={v: min(t) for v, t in ms.items()},
+                timed_ms_per_iter=fit_ms / t_out[3],
+                allreduce_ms_per_iter=comm_ms / t_out[3],
+                allreduce_share=comm_ms / fit_ms,
+                allreduce_calls=calls, allreduce_bytes=nbytes,
+                allreduce_bytes_per_iter_code=(
+                    (n * K + K * K + Y.shape[1] * K) * 4
+                    if est.solver == "mu" else None),
+                launches=counts)
+            check(n_iter == one.n_iter_ and gap < 1e-4,
+                  f"R1c {label}: {n_iter} iterations (single device "
+                  f"{one.n_iter_}); exact f64 loss {exact:.9g} vs the "
+                  f"single-device fit's {want:.9g}: rel gap {gap:.3g} < 1e-4")
+            for name, per in minimums.items():
+                got = counts.get(name, 0)
+                check(got >= per * n_iter,
+                      f"R1c {label}: {name} launches {got} >= {per} x "
+                      f"{n_iter}")
+            least = r["least_ms_per_iter"]
+            log(f"  R1c {label}: ms/iter least of {R1C_ROUNDS}: cols "
+                f"{least['cols']:.4f}, single device "
+                f"{least['single_device']:.4f}; with events "
+                f"{r['timed_ms_per_iter']:.4f} ms/iter of which all-reduce "
+                f"{r['allreduce_ms_per_iter']:.4f} "
+                f"({r['allreduce_share']:.3%}); {calls} all-reduces, "
+                f"{nbytes} bytes in the fit, "
+                f"{r['allreduce_bytes_per_iter_code']} per iteration by the "
+                f"code; launches {counts}")
+            rec[label] = r
+    finally:
+        dist.destroy_process_group()
+    return rec, launches
+
+
+def a6_phase(check, torch, est, X, make_fit, Y):
+    """The estimator's utilities on the card: print_topic_terms of a
+    fitted model (against topic_terms_string of its U), a
+    save_model/load_model(device='cuda') round trip whose transform of
+    1000 rows equals the fitted model's bit for bit, and
+    utils.profiling.trace around one fit (make_fit), whose trace names
+    the annotated region and the port's kernels."""
+    import io
+    import tempfile
+
+    import numpy as np
+
+    from pycmf_tpu_torch.utils import profiling
+    from pycmf_tpu_torch.utils.analysis import topic_terms_string
+    from pycmf_tpu_torch.utils.checkpoint import load_model, save_model
+
+    tmp = tempfile.mkdtemp(prefix="pycmf_a6_")
+    vocab = [f"term{i}" for i in range(X.shape[0])]
+    out = io.StringIO()
+    s = est.print_topic_terms(vocabulary=vocab, factor="U", n_top_words=8,
+                              file=out)
+    lines = s.splitlines()
+    check(len(lines) == K and out.getvalue() == s + "\n"
+          and s == topic_terms_string(est.U_, vocabulary=vocab,
+                                      n_top_words=8),
+          f"A6: print_topic_terms of the MU fit, {len(lines)} topics; "
+          f"{lines[0] if lines else ''}")
+    path = os.path.join(tmp, "mu.npz")
+    t0 = time.perf_counter()
+    save_model(path, est)
+    back = load_model(path, device="cuda")
+    io_s = time.perf_counter() - t0
+    a, b = est.transform(X[:1000]), back.transform(X[:1000])
+    same = bool(np.array_equal(a, b))
+    check(same and back.get_params() == est.get_params()
+          and np.array_equal(back.V_, est.V_),
+          f"A6: save_model/load_model(device='cuda') round trip "
+          f"({os.path.getsize(path)} bytes, {io_s:.2f} s): params and "
+          f"factors equal, transform of 1000 rows bit for bit {same}")
+    log_dir = os.path.join(tmp, "trace")
+    t0 = time.perf_counter()
+    with profiling.trace(log_dir):
+        with profiling.annotate("chip_smoke_a6_fit"):
+            make_fit().fit(X, Y)
+    trace_s = time.perf_counter() - t0
+    files = os.listdir(log_dir)
+    text = "".join(open(os.path.join(log_dir, f)).read() for f in files)
+    names = sorted({w.split("(")[0] for w in text.split('"')
+                    if "pycmf::" in w})
+    check(len(files) == 1 and "chip_smoke_a6_fit" in text and names,
+          f"A6: trace() around one fit ({trace_s:.1f} s): {len(files)} "
+          f"file, {len(text)} bytes, the annotated region and "
+          f"{len(names)} of the port's kernels named: {names[:4]}")
+    return dict(topics=lines, checkpoint_bytes=os.path.getsize(path),
+                transform_bit_equal=same, trace_bytes=len(text),
+                trace_kernels=names)
+
+
 def _gloo_probe(torch, dist, dev) -> dict:
     """Which gloo collectives take tensors on ``dev`` (both ranks make the
     same calls, so an unsupported one fails on both)."""
@@ -3577,7 +3768,35 @@ def main() -> int:
                      "batched_spd_solve": 3})})
     for kname, n in r2_launches.items():
         r_launches[kname] = r_launches.get(kname, 0) + n
+    log(f"phase R1c: run_sharded(layout='cols') on a one-rank NCCL group; "
+        f"{name}, nvidia-smi: {smi}")
+    r1c, r1c_launches = nccl_world1_cols_phase(check, torch, X, Y, common, (
+        ("MU", mu_kw, lin, {"fused_mu_update": 3}),
+        ("path A", a_kw, sig, {"sigmoid_gh_pass": 1, "sigmoid_phi_pass": 1,
+                               "batched_spd_solve": 2})))
+    log("phase R2c: CMF(n_shards=2, shard_layout='cols'), two gloo ranks on "
+        "the one card")
+    cols = dict(shard_layout="cols")
+    r2c, r2c_launches = gloo_two_rank_phase(
+        check, torch, {"X": X, "Y": Y, "Xb": Xb, "Xf": Xf}, common,
+        (("cols MU", dict(mu_kw, **cols), "X", "Y"),
+         ("cols path A", dict(a_kw, **cols), "X", "Y"),
+         ("cols path C", dict(c_kw, **cols), "X", "Y"),
+         ("cols path F", dict(f_kw, **cols), "Xf", "Y"),
+         ("cols path B", dict(b_kw, **cols), "Xb", "Y")),
+        {"cols MU": (mu, lin, {"fused_mu_update": 3}),
+         "cols path A": (pa, sig, {"sigmoid_gh_pass": 1,
+                                   "sigmoid_phi_pass": 1,
+                                   "batched_spd_solve": 2}),
+         "cols path C": (pc, lin, {"csr_spmm": 2, "fused_mu_update": 3}),
+         "cols path F": (pf, linf, {"bell_spmm": 2, "fused_mu_update": 3}),
+         "cols path B": (pb, card_sigmoid_loss(torch, Xb, Y),
+                         {"sigmoid_gh_pass": 3, "sigmoid_phi_pass": 3,
+                          "batched_spd_solve": 3})})
+    for kname, n in list(r1c_launches.items()) + list(r2c_launches.items()):
+        r_launches[kname] = r_launches.get(kname, 0) + n
     sharded = {"r1_nccl_world1": r1, "r2_gloo_two_ranks": r2,
+               "r1c_nccl_world1_cols": r1c, "r2c_gloo_two_ranks_cols": r2c,
                "launches": r_launches}
 
     # 8. kernel path against plain path on the card; the 2% guards. The
@@ -3724,6 +3943,9 @@ def main() -> int:
         Ut = est.transform(X[:1000])
         check(Ut.shape == (1000, K) and bool(np.all(np.isfinite(Ut))),
               f"{tag}: transform(X[:1000]) -> {Ut.shape}, finite")
+    log("phase 9: the estimator's utilities (A6) on the card")
+    a6 = a6_phase(check, torch, mu_est, X, lambda: CMF(
+        **dict(mu_kw, max_iter=10, tol=0.0), **common, loop="host"), Y)
 
     if check.failed:
         log(f"chip_smoke: {len(check.failed)} check(s) failed: "
@@ -3856,7 +4078,7 @@ def main() -> int:
                       "block_max_k": krec["block_max_k"],
                       "device_vs_host_loop": loops,
                       "phase8_gap_after_20": gaps20,
-                      "sharded": sharded,
+                      "sharded": sharded, "utilities": a6,
                       "phase8_step_gap_max": stepped,
                       "bell_crossover": {k: v for k, v in krec.items()
                                          if str(k).startswith("crossover")}})

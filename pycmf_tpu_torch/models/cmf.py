@@ -19,9 +19,13 @@ its column draws from a ``torch.Generator`` seeded by the reference's rule
 from ``random_state``), with the Gauss-Newton or the full Hessian
 (``hessian_form``). ``data_dtype='fp8'`` stores X dense as float8_e4m3fn
 (Y then at bf16), contracted in bf16 as the reference does. ``n_shards``
-> 1 fits row-sharded over a torch.distributed process group, one process
-per shard (``parallel/sharded.py``); the sharded requests not ported yet
-raise NotImplementedError naming the ROADMAP item that brings them.
+> 1 fits row- or column-sharded over a torch.distributed process group,
+one process per shard (``parallel/sharded.py``); the sharded requests not
+ported yet raise NotImplementedError naming the ROADMAP item that brings
+them. Beside fit and transform, the reference's sklearn surface:
+``components_``, ``inverse_transform``, ``get_feature_names_out`` and
+``print_topic_terms``; sklearn itself is imported only when sklearn asks
+for the estimator's tags (the card's machine has none).
 """
 from __future__ import annotations
 
@@ -108,13 +112,16 @@ class CMF:
     device : 'cuda' (default) | 'cpu' | a torch.device. 'cuda' raises when
         CUDA is not available.
     n_shards : None | int | -1 | 'all'. Above 1, the fit (and transform)
-        is row-sharded over the default torch.distributed process group,
+        is sharded over the default torch.distributed process group,
         whose size it must equal (-1 and 'all': the group's size). Every
         rank calls fit with the whole X and Y and gets the same result; a
         rank computes on ``device`` ('cuda': ``cuda:$LOCAL_RANK``, else
-        the rank modulo the visible cards). Only ``shard_layout='rows'``,
-        the host loop and full-batch dense, densified or CSR data are
-        ported (``parallel/sharded.py``).
+        the rank modulo the visible cards).
+    shard_layout : 'rows' (X's rows and U sharded) | 'cols' (the shared
+        dimension: X's columns, Y's rows and V sharded). transform folds
+        in by rows whatever the fit's layout. Under shards only the host
+        loop and full-batch dense, densified or CSR data are ported
+        (``parallel/sharded.py``); 'grid' raises naming ROADMAP A10b.
 
     Attributes: U_, V_, Z_ (NumPy float64), reconstruction_err_, n_iter_,
     loss_history_, loss_iters_, step_times_, n_components_.
@@ -197,7 +204,7 @@ class CMF:
     def _resolve_n_shards(self):
         """None or a positive int, passed through; -1 or 'all': the size of
         the default process group (ValueError when there is none). A
-        (rows, cols) tuple and the cols and grid layouts are not ported
+        (rows, cols) tuple and the grid layout are not ported
         (NotImplementedError naming ROADMAP A10b). Any other value raises,
         as in the reference (``pycmf_tpu/models/cmf.py:161-197``): a typo
         such as n_shards=0 must not fit on one device."""
@@ -401,10 +408,11 @@ class CMF:
         return run_newton(Xc, Yc, U0, V0, Z0, cfg, hyper,
                           _generator(self.random_state, U0.device), **kw)
 
-    def _run_sharded(self, X, Y, U0, V0, Z0, cfg):
-        """The row-sharded fit on this rank (``parallel/sharded.py``), from
-        the first rank's U0, V0 and Z0: a draw without a fixed
-        random_state differs between processes."""
+    def _run_sharded(self, X, Y, U0, V0, Z0, cfg, layout=None):
+        """The sharded fit on this rank (``parallel/sharded.py``) in
+        ``layout`` (default: shard_layout), from the first rank's U0, V0
+        and Z0: a draw without a fixed random_state differs between
+        processes."""
         self._resolve_device()
         mesh = make_mesh(self._resolve_n_shards(), device=self.device)
         dt = self._resolve_dtype()
@@ -422,7 +430,7 @@ class CMF:
                            self.hessian_pertubation, dtype=dt)
         return run_sharded(
             self.solver, X, Y, U0, V0, Z0, cfg, hyper, n_shards=mesh.world,
-            group=mesh.group, dtype=dt,
+            group=mesh.group, layout=layout or self.shard_layout, dtype=dt,
             data_dtype=None if ddt == dt else ddt, device=mesh.device,
             max_iter=self.max_iter, tol=self.tol,
             eval_every=self.eval_every, verbose=self.verbose,
@@ -522,7 +530,8 @@ class CMF:
                            update_Z=False)
         if self._sharded():
             # the rows layout whatever the fit's: the new rows are the axis
-            Uf = self._run_sharded(X, None, U0, self.V_, None, cfg)[0]
+            Uf = self._run_sharded(X, None, U0, self.V_, None, cfg,
+                                   layout="rows")[0]
             return factors_to_numpy(Uf, None, None)[0]
         Xc = as_coupled(X, self._resolve_data_dtype(), dev,
                         use_pallas=self._use_pallas(),
@@ -532,6 +541,61 @@ class CMF:
         Z0 = torch.zeros((0, k), dtype=dt, device=dev)
         Uf = self._run(Xc, None, U0, V0, Z0, cfg)[0]
         return factors_to_numpy(Uf, None, None)[0]
+
+    def get_feature_names_out(self, input_features=None):
+        """Names of the k output columns of transform (sklearn pipelines):
+        ``cmf0 .. cmf{k-1}``."""
+        if not hasattr(self, "n_components_"):
+            raise AttributeError(
+                "get_feature_names_out is only available after fit")
+        return np.asarray([f"cmf{i}" for i in range(self.n_components_)],
+                          dtype=object)
+
+    @property
+    def components_(self):
+        """sklearn-NMF-style components (k × m): X ≈ transform(X) @
+        components_."""
+        if not hasattr(self, "V_"):
+            raise AttributeError("components_ is only available after fit")
+        return self.V_.T
+
+    def inverse_transform(self, U):
+        """X's rows rebuilt from factor rows: f_x(U Vᵀ), in NumPy."""
+        if not hasattr(self, "V_"):
+            raise RuntimeError("inverse_transform called before fit")
+        T = np.asarray(U) @ self.V_.T
+        if self.x_link == "sigmoid":
+            return 1.0 / (1.0 + np.exp(-T))
+        return T
+
+    def print_topic_terms(self, vectorizer=None, vocabulary=None,
+                          factor="U", n_top_words=10, file=None):
+        """Print (to ``file``) and return the top-weighted terms of each
+        component of ``factor`` ('U', 'V' or 'Z'). In the 20NG orientation
+        (X = term×document, Y = document×label) the term factor is U; pass
+        factor='V' when the vocabulary indexes X's columns."""
+        from ..utils.analysis import topic_terms_string
+
+        M = {"U": getattr(self, "U_", None),
+             "V": getattr(self, "V_", None),
+             "Z": getattr(self, "Z_", None)}[factor]
+        if M is None:
+            raise RuntimeError("model is not fitted (or factor is absent)")
+        s = topic_terms_string(M, vectorizer=vectorizer,
+                               vocabulary=vocabulary,
+                               n_top_words=n_top_words)
+        print(s, file=file)
+        return s
+
+    def __sklearn_tags__(self):
+        """The reference's tags (a BaseEstimator's), which sklearn reads
+        in a Pipeline's transform. sklearn is imported here only: the
+        package does not need it."""
+        from sklearn.utils import InputTags, Tags, TargetTags
+
+        return Tags(estimator_type=None,
+                    target_tags=TargetTags(required=False),
+                    transformer_tags=None, input_tags=InputTags())
 
     @classmethod
     def from_reference(cls, ref, device="cuda"):

@@ -1,10 +1,14 @@
-"""Row-sharded CMF: X's rows (and U) split over the ranks of a process group.
+"""Sharded CMF: X split over the ranks of a process group, by rows or by
+columns.
 
-Counterpart of the ``"rows"`` layout of ``pycmf_tpu/parallel/sharded.py``.
-Rank r of d holds rows r·n_loc .. (r+1)·n_loc − 1 of X and U, n_loc =
-⌈n / d⌉, the last block padded with zero rows; V, Z and Y are replicated.
-Each iteration sums V's shared X-side terms over the ranks (BASELINE.json
-config #5: row-sharded X with an all-reduce of the shared-V terms):
+Counterpart of the ``"rows"`` and ``"cols"`` layouts of
+``pycmf_tpu/parallel/sharded.py``, one process per shard.
+
+**rows.** Rank r of d holds rows r·n_loc .. (r+1)·n_loc − 1 of X and U,
+n_loc = ⌈n / d⌉, the last block padded with zero rows; V, Z and Y are
+replicated. Each iteration sums V's shared X-side terms over the ranks
+(BASELINE.json config #5: row-sharded X with an all-reduce of the
+shared-V terms):
 
 - MU: XᵀU_new and U_newᵀU_new, from K1 on a dense shard (rows past the
   shard's real ones come out zero), else from the CSR or BlockEll products;
@@ -14,20 +18,30 @@ config #5: row-sharded X with an all-reduce of the shared-V terms):
   X) and every line-search φ (K4's) of V's X term.
 
 U's update is row-local and its padding rows stay exactly zero, so they add
-nothing to any sum. The loss sums the X side over the ranks; with the
-zero-extra-pass eval losses (the summed V terms, or V's Σφ) a block's loss
-costs one scalar all-reduce. At the end every rank gathers U, so every rank
-returns the same result.
+nothing to any sum. At the end every rank gathers U.
 
-Every rank is given the whole host X and Y, as the reference's single
-controller holds them, and uploads only its own row block of X (CSR or
-BlockEll by the single-device rule for that block, or dense). Not ported
-yet: the ``cols`` and ``grid`` layouts (ROADMAP A10b) and, across shards,
-the chunked layout, fp8 data, sampled Newton and the device loop (A10c);
-each raises NotImplementedError naming its item.
+**cols.** Rank r holds the shared dimension's block r·m_loc ..
+(r+1)·m_loc − 1, m_loc = ⌈m / d⌉: X's column block, Y's row block and V's
+row block, the last block padded with zeros; U and Z are replicated. The
+sums move to U's and Z's terms: MU sums X·V, VᵀV and YᵀV (one all-reduce,
+all from the same V); Newton sums U's and Z's G, H and φ (K3/K4's group
+form on a dense sigmoid term). V's update is local to its rows (its
+padding rows forced back to zero), and K1/K2 do not run: no rank holds
+whole rows of X. At the end every rank gathers V.
+
+The loss sums its per-rank parts in one all-reduce; with the
+zero-extra-pass eval losses (the summed or local V terms, or V's Σφ) a
+block's loss costs one small all-reduce. Every rank is given the whole host
+X and Y, as the reference's single controller holds them, and uploads only
+its own block of X (CSR or BlockEll by the single-device rule for that
+block, or dense). Not ported yet: the ``grid`` layout and ``n_shards``
+tuples (ROADMAP A10b part b) and, across shards, the chunked layout, fp8
+data, sampled Newton and the device loop (A10c); each raises
+NotImplementedError naming its item.
 """
 from __future__ import annotations
 
+import warnings
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -40,7 +54,7 @@ from ..ops.losses import (penalty, reconstruction_term, sigmoid_sq_rows,
 from ..ops.kernels import bell as kbell
 from ..ops.kernels import mu_fused, newton_fused
 from ..ops.kernels import spmm as kspmm
-from ..ops.matmul import FP8_DTYPES, gram
+from ..ops.matmul import FP8_DTYPES, gram, matmul
 from ..ops.sparse import is_sparse, sddmm_dot
 from ..solvers.common import (Coupled, Hyper, SolverConfig, check_loop,
                               coupled_mm, run_solver_loop)
@@ -137,6 +151,99 @@ def prepare_rows(X, Y, U0, mesh: Mesh, dtype, data_dtype, cfg: SolverConfig,
     ops = RowOperands(Xc, Yc, mask, n_valid, d * n_loc - n, a_sq, col_sq,
                       d * n_loc * m)
     return ops, U, n
+
+
+class ColOperands(NamedTuple):
+    """This rank's operands of the cols layout.
+
+    X       : its column block of X, padded to m_loc columns, as a Coupled
+              (dense, CSR or BlockEll, with the layout of the block's
+              transpose; row_sq (n,) the PARTIAL ‖xᵢ‖² over the block's
+              columns, which U's summed φ completes; row_sq_t (m_loc,) the
+              EXACT norms of the block's rows of Xᵀ)
+    Y       : its row block of Y (dense, m_loc rows) or None
+    mask    : (m_loc,) 1 on the block's real shared-dimension entries
+    m_valid : the block's real columns
+    a_sq    : ‖X‖² over all ranks (the factored eval loss)
+    x_size  : elements of the padded X over all ranks (the eval-loss rule)
+    """
+
+    X: Coupled
+    Y: Optional[Coupled]
+    mask: torch.Tensor
+    m_valid: int
+    a_sq: torch.Tensor
+    x_size: int
+
+
+def col_block(X, m_loc: int, rank: int):
+    """Columns rank·m_loc .. (rank+1)·m_loc − 1 of host X (sparse or
+    ndarray), padded with zero columns to m_loc, and how many are real:
+    the reference's split (``_prepare_cols``), of which each rank keeps
+    its own block (CSR when X is sparse)."""
+    n, m = X.shape
+    lo = min(rank * m_loc, m)
+    hi = min(lo + m_loc, m)
+    if sp.issparse(X):
+        blk = sp.csc_matrix(X)[:, lo:hi]
+        if hi - lo < m_loc:
+            blk = sp.hstack([blk, sp.csc_matrix((n, m_loc - (hi - lo)))])
+        return sp.csr_matrix(blk), hi - lo
+    blk = np.zeros((n, m_loc), dtype=np.asarray(X).dtype)
+    blk[:, :hi - lo] = np.asarray(X)[:, lo:hi]
+    return blk, hi - lo
+
+
+def prepare_cols(X, Y, V0, mesh: Mesh, dtype, data_dtype, cfg: SolverConfig,
+                 x_mode: str = "dense"):
+    """(ColOperands, this rank's V block, m) on mesh.device.
+
+    x_mode: how a sparse X's block is stored, as in :func:`prepare_rows`
+    ('dense', or 'csr': CSR, or BlockEll under use_pallas by the
+    single-device rule). Y's rows are the sharded axis here, so each rank
+    stores its row block dense: a sigmoid-linked sparse Y is densified on
+    the device up to the densify threshold (past it the chunked carrier,
+    ROADMAP A10c); a linear-linked sparse Y is densified on the host, with
+    the reference's warning. Reference:
+    ``pycmf_tpu/parallel/sharded.py:_prepare_cols``."""
+    n, m = X.shape
+    d, dev, up = mesh.world, mesh.device, cfg.use_pallas
+    m_loc = -(-m // d)
+    blk, m_valid = col_block(X, m_loc, mesh.rank)
+    Xc = as_coupled(blk, data_dtype, dev, use_pallas=up,
+                    sparse_mode=x_mode if sp.issparse(blk) else "auto")
+    if Y is None:
+        Yc = None
+    else:
+        if sp.issparse(Y) and cfg.y_link != LINEAR:
+            if d * m_loc * Y.shape[1] * data_dtype.itemsize \
+                    > DENSIFY_THRESHOLD:
+                raise NotImplementedError(
+                    "a sigmoid-linked sparse Y past the densify threshold "
+                    "under shard_layout='cols' takes the per-shard chunked "
+                    "carrier, which is not ported yet (ROADMAP A10c)")
+        elif sp.issparse(Y):
+            warnings.warn(
+                "shard_layout='cols' stores a LINEAR-linked sparse Y as a "
+                "dense row-sharded block on each device; the sparse Y was "
+                f"densified on the host ({Y.shape[0]}x{Y.shape[1]}). Fine "
+                "for label matrices; for a large sparse Y use "
+                "shard_layout='rows' (keeps Y CSR).",
+                UserWarning, stacklevel=3)
+            Y = np.asarray(Y.todense())
+        yblk = col_block(Y.T, m_loc, mesh.rank)[0].T
+        Yc = as_coupled(yblk, data_dtype, dev, sparse_mode="dense")
+    # ‖X‖² over all ranks: one all-reduce of the blocks' own
+    a_sq = Xc.A.sq_norm if is_sparse(Xc.A) else Xc.a_sq
+    a_sq = all_reduce(mesh, a_sq.to(dtype))[0]
+    mask = torch.zeros(m_loc, dtype=dtype, device=dev)
+    mask[:m_valid] = 1
+    V = torch.zeros((m_loc, V0.shape[1]), dtype=dtype, device=dev)
+    lo = min(mesh.rank * m_loc, m)
+    V[:m_valid] = torch.as_tensor(np.asarray(V0[lo:lo + m_valid],
+                                             dtype=np.float64)).to(dev, dtype)
+    ops = ColOperands(Xc, Yc, mask, m_valid, a_sq, n * d * m_loc)
+    return ops, V, m
 
 
 # ---------------------------------------------------------------------------
@@ -373,6 +480,250 @@ def newton_rows_iter(cfg: SolverConfig, ops: RowOperands, U, V, Z,
 
 
 # ---------------------------------------------------------------------------
+# the cols layout: losses and iterations
+# ---------------------------------------------------------------------------
+
+
+def _cols_padded(ops: ColOperands) -> bool:
+    return ops.m_valid < ops.mask.shape[0]
+
+
+def _reduce_cols(cfg: SolverConfig, ops: ColOperands, V, Z, hyper: Hyper,
+                 mesh: Mesh, x_parts, need_gv: bool):
+    """Sum ``x_parts`` over the ranks with what every cols loss sums: VᵀV
+    (when ``need_gv``), R(V) and the local parts of Y's term, in one
+    all-reduce. Returns (the summed x_parts, ΣVᵀV or None, R(V) + Y's
+    term + R(Z)). Y's term is summed over its row blocks: linear,
+    ½(‖Y‖² − 2⟨YᵀV, Z⟩ + ⟨VᵀV, ZᵀZ⟩); sigmoid, the masked residual (a
+    padding row's σ(0) = ½ is not data). Reference: ``_loss_cols``."""
+    dt = V.dtype
+    local = list(x_parts)
+    if need_gv:
+        local.append(gram(V))
+    local.append(penalty(V, hyper.alpha, hyper.l1_ratio))
+    if cfg.has_Y:
+        Yf = ops.Y.A.to(dt)
+        if cfg.y_link == LINEAR:
+            local += [torch.sum(Yf * Yf), torch.sum(matmul(Yf.mT, V) * Z)]
+        else:
+            rows = sigmoid_sq_rows(Yf, V, Z)
+            if _cols_padded(ops):
+                rows = rows * ops.mask
+            local.append(torch.sum(rows))
+    sums = all_reduce(mesh, *(t.to(dt) for t in local))
+    nx = len(x_parts)
+    x_sums, rest = sums[:nx], sums[nx:]
+    gV = rest.pop(0) if need_gv else None
+    rest_loss = rest.pop(0)
+    if cfg.has_Y:
+        if cfg.y_link == LINEAR:
+            y_sq, y_inner = rest
+            y_term = 0.5 * (y_sq - 2.0 * y_inner
+                            + torch.sum(gV * gram(Z)))
+        else:
+            y_term = rest[0]
+        rest_loss = rest_loss + y_term + penalty(Z, hyper.alpha,
+                                                 hyper.l1_ratio)
+    return x_sums, gV, rest_loss
+
+
+def loss_cols(cfg: SolverConfig, ops: ColOperands, U, V, Z, hyper: Hyper,
+              mesh: Mesh):
+    """L(U, V, Z) with the shared dimension sharded: X's term, R(V) and Y's
+    term summed over the ranks in one all-reduce, whose one Gram of V
+    serves both linear terms. A linear X term takes the factored identity
+    with ⟨X_loc, U V_locᵀ⟩ = Σ((X_locᵀU) ⊙ V_loc); a sigmoid one the
+    residual masked on the padding columns (σ(0) = ½ ≠ 0). Reference:
+    ``pycmf_tpu/parallel/sharded.py:_loss_cols``."""
+    X, up = ops.X, cfg.use_pallas
+    if cfg.x_link == LINEAR:
+        if is_sparse(X.A):
+            a_sq = X.A.sq_norm
+            if up and X.At_bell is not None:
+                inner = kbell.bell_inner(X.At_bell, U, V)
+            else:
+                inner = torch.sum(coupled_mm(X, U, transpose=True,
+                                             use_pallas=up) * V)
+        else:
+            a_sq = X.a_sq
+            inner = streamed_inner(X.A.mT, V, U)
+        parts = (a_sq.to(U.dtype) - 2.0 * inner,)
+    else:
+        rows = sigmoid_sq_rows(X.A, U, V,
+                               ops.mask if _cols_padded(ops) else None)
+        parts = (torch.sum(rows),)
+    need_gv = cfg.x_link == LINEAR or (cfg.has_Y and cfg.y_link == LINEAR)
+    (x_sum,), gV, rest = _reduce_cols(cfg, ops, V, Z, hyper, mesh, parts,
+                                      need_gv)
+    if cfg.x_link == LINEAR:
+        x_sum = 0.5 * (x_sum + torch.sum(gram(U) * gV))
+    return x_sum + penalty(U, hyper.alpha, hyper.l1_ratio) + rest
+
+
+def _aux_loss_cols(cfg: SolverConfig, mesh: Mesh, kind: str):
+    """The eval loss from what the last step computed anyway: "factored"
+    (this rank's X_locᵀU_new and U_newᵀU_new: V is sharded, so only
+    ⟨X_locᵀU_new, V_loc⟩, VᵀV, R(V) and Y's parts are summed) or "phi"
+    (V's Σφ at the accepted candidates, already summed: X and Y terms and
+    R(V)); U and Z are replicated, their penalties added once. Reference:
+    ``pycmf_tpu/parallel/sharded.py:_aux_loss_cols``,
+    ``_aux_loss_cols_phi``."""
+
+    def loss_fn(state, aux, hyper: Hyper):
+        ops, U, V, Z = state
+        pen_u = penalty(U, hyper.alpha, hyper.l1_ratio)
+        if kind == "phi":
+            loss = aux + pen_u
+            if cfg.has_Y:
+                loss = loss + penalty(Z, hyper.alpha, hyper.l1_ratio)
+            return loss
+        num, S = aux
+        (inner,), gV, rest = _reduce_cols(cfg, ops, V, Z, hyper, mesh,
+                                          (torch.sum(num * V),), True)
+        x_term = 0.5 * (ops.a_sq - 2.0 * inner + torch.sum(S * gV))
+        return x_term + pen_u + rest
+
+    return loss_fn
+
+
+def cols_aux_kind(cfg: SolverConfig, ops: ColOperands, V, solver: str):
+    """None | "factored" | "phi" (reference: ``_cols_aux_kind``,
+    ``_cols_aux_ok``, ``_cols_aux_ok_newton``). The factored loss needs U
+    and V updating, a linear X, and not a small dense X stored below the
+    factors' precision (the identity's cancellation, judged on the whole
+    padded X); under Newton also the full batch and the Gauss-Newton form
+    (V's update hands over its X term's pair). The φ loss (a sigmoid X)
+    needs the V update, a line search and the full batch."""
+    if solver == "mu" or cfg.x_link == LINEAR:
+        A = ops.X.A
+        ok = (cfg.update_U and cfg.update_V and cfg.x_link == LINEAR
+              and (is_sparse(A) or A.dtype == V.dtype
+                   or ops.x_size >= (1 << 22)))
+        if solver != "mu":
+            ok = (ok and cfg.sg_sample_ratio >= 1.0
+                  and cfg.hessian_form == "gauss")
+        return "factored" if ok else None
+    if not (cfg.update_V and cfg.line_search_trials >= 1
+            and cfg.sg_sample_ratio >= 1.0):
+        return None
+    return "phi"
+
+
+def mu_cols_iter(cfg: SolverConfig, ops: ColOperands, U, V, Z, hyper: Hyper,
+                 mesh: Mesh):
+    """One MU iteration: (U, V, Z, (X_locᵀU_new, U_newᵀU_new) or None).
+    U's X·V and VᵀV and Z's YᵀV are summed in one all-reduce (all from the
+    same V); V's update is local. Reference:
+    ``pycmf_tpu/parallel/sharded.py:_mu_cols_iter``."""
+    l1, l2, eps, up = hyper.l1, hyper.l2, hyper.eps, cfg.use_pallas
+    X, Y = ops.X, ops.Y
+    upd_z = cfg.has_Y and cfg.update_Z
+    local = []
+    if cfg.update_U or upd_z:
+        local.append(gram(V))
+    if cfg.update_U:
+        local.append(coupled_mm(X, V, use_pallas=up))
+    if upd_z:
+        local.append(matmul(Y.A.mT, V))
+    sums = all_reduce(mesh, *local) if local else []
+    if cfg.update_U:
+        U = mu_ratio_update(U, sums[0], sums[1], l1, l2, eps, up)
+    if upd_z:
+        Z = mu_ratio_update(Z, sums[0], sums[-1], l1, l2, eps, up)
+    aux = None
+    if cfg.update_V:
+        num = coupled_mm(X, U, transpose=True, use_pallas=up)
+        S = gram(U)
+        aux = (num, S)
+        if cfg.has_Y:
+            num = num + matmul(Y.A, Z)
+            S = S + gram(Z)
+        V = mu_ratio_update(V, S, num, l1, l2, eps, up)
+        if _cols_padded(ops):
+            # the padding rows are 0·0/0 = NaN when l1 = eps = 0: back to
+            # exact zeros before they enter any sum
+            V = torch.where(ops.mask[:, None] > 0.5, V, 0.0)
+    return U, V, Z, aux
+
+
+def newton_cols_iter(cfg: SolverConfig, ops: ColOperands, U, V, Z,
+                     hyper: Hyper, mesh: Mesh, with_aux=None):
+    """One full-batch Newton iteration, U then Z then V: (U, V, Z, aux), aux
+    this rank's (X_locᵀU_new, U_newᵀU_new) under with_aux="factored", V's
+    summed Σφ under "phi", else None. U's and Z's G, H and φ are summed
+    over the ranks (their terms' columns are the sharded m); V's update is
+    local. Reference: ``pycmf_tpu/parallel/sharded.py:_newton_cols_iter``."""
+    common = dict(trials=cfg.line_search_trials,
+                  hessian_form=cfg.hessian_form, use_pallas=cfg.use_pallas)
+    fused_kw = dict(trials=cfg.line_search_trials, use_pallas=cfg.use_pallas)
+    X, Y = ops.X, ops.Y
+    mask = ops.mask if _cols_padded(ops) else None
+    if cfg.update_U:
+        if cfg.x_link != LINEAR and fused_sigmoid_allowed(cfg, X.A, U):
+            # K3/K4's partials summed; the padding columns pair with V's
+            # zero rows (fused_sigmoid_update's group contract)
+            U = fused_sigmoid_update(U, X.A, V, hyper,
+                                     non_negative=cfg.U_non_negative,
+                                     group=mesh, **fused_kw)
+        else:
+            U = newton_update_factor(
+                None, U, (Term(X.A, V, X.row_sq, layout=X.A_bell),),
+                (cfg.x_link,), hyper, non_negative=cfg.U_non_negative,
+                distributed=(True,),
+                masks=(mask if cfg.x_link != LINEAR else None,), group=mesh,
+                **common)
+    if cfg.has_Y and cfg.update_Z:
+        if cfg.y_link != LINEAR and fused_sigmoid_allowed(cfg, Y.A, Z):
+            Z = fused_sigmoid_update(Z, _transposed(Y), V, hyper,
+                                     non_negative=cfg.Z_non_negative,
+                                     group=mesh, **fused_kw)
+        else:
+            Z = newton_update_factor(
+                None, Z, (Term(_transposed(Y), V),), (cfg.y_link,), hyper,
+                non_negative=cfg.Z_non_negative, distributed=(True,),
+                masks=(mask if cfg.y_link != LINEAR else None,), group=mesh,
+                **common)
+    aux = None
+    if cfg.update_V:
+        phi = with_aux == "phi"
+        yterm = Term(Y.A, Z, Y.row_sq) if cfg.has_Y else None
+        Xt = _transposed(X)
+        if cfg.x_link != LINEAR and fused_sigmoid_allowed(cfg, Xt, V):
+            # V's rows see whole columns of X and whole rows of Y: the
+            # single-device call, the padding rows zeroed by row_mask
+            out = fused_sigmoid_update(
+                V, Xt, U, hyper, non_negative=cfg.V_non_negative,
+                yterm=yterm, y_link=cfg.y_link, row_mask=mask,
+                return_phi=phi, **fused_kw)
+            if phi:
+                V, phi_rows = out
+                aux = all_reduce(mesh, phi_rows.sum())[0]
+            else:
+                V = out
+        else:
+            terms = (Term(Xt, U, X.row_sq_t, layout=X.At_bell),)
+            links = (cfg.x_link,)
+            if cfg.has_Y:
+                terms, links = terms + (yterm,), links + (cfg.y_link,)
+            out = newton_update_factor(
+                None, V, terms, links, hyper,
+                non_negative=cfg.V_non_negative, return_phi=phi,
+                term_cache=0 if with_aux == "factored" else None, **common)
+            if phi:
+                V, phi_rows = out
+                if mask is not None:
+                    phi_rows = phi_rows * mask
+                aux = all_reduce(mesh, phi_rows.sum())[0]
+            elif with_aux == "factored":
+                V, aux = out
+            else:
+                V = out
+            if mask is not None:
+                V = V * mask[:, None]   # the padding rows back to zero
+    return U, V, Z, aux
+
+
+# ---------------------------------------------------------------------------
 # the fit
 # ---------------------------------------------------------------------------
 
@@ -405,16 +756,44 @@ def make_rows_block(cfg: SolverConfig, solver: str, mesh: Mesh, aux):
     return block, loss_fn
 
 
+def make_cols_block(cfg: SolverConfig, solver: str, mesh: Mesh, aux):
+    """(block, initial loss) for run_solver_loop over the cols layout's
+    state (ops, U, V, Z), as :func:`make_rows_block`. Reference:
+    ``pycmf_tpu/parallel/sharded.py:_make_cols_block``."""
+    aux_loss = _aux_loss_cols(cfg, mesh, aux) if aux is not None else None
+
+    def loss_fn(state, hyper: Hyper):
+        ops, U, V, Z = state
+        return loss_cols(cfg, ops, U, V, Z, hyper, mesh)
+
+    def block(state, hyper: Hyper, rng, n_steps: int):
+        ops, U, V, Z = state
+        a = None
+        for _ in range(n_steps):
+            if solver == "mu":
+                U, V, Z, a = mu_cols_iter(cfg, ops, U, V, Z, hyper, mesh)
+            else:
+                U, V, Z, a = newton_cols_iter(cfg, ops, U, V, Z, hyper, mesh,
+                                              with_aux=aux)
+        state = (ops, U, V, Z)
+        if aux is None:
+            return state, loss_fn(state, hyper), rng
+        return state, aux_loss(state, a, hyper), rng
+
+    return block, loss_fn
+
+
 def check_shardable(*, layout: str = "rows", loop: str = "host",
                     sg_sample_ratio: float = 1.0, sparse_mode: str = "auto",
                     data_dtype=None) -> None:
     """Raise NotImplementedError, naming its ROADMAP item, for a sharded
     request this port does not run yet."""
-    if layout in ("cols", "grid"):
+    if layout == "grid":
         raise NotImplementedError(
-            f"shard_layout={layout!r} is not ported yet (ROADMAP A10b); "
-            "use shard_layout='rows'")
-    if layout != "rows":
+            "shard_layout='grid' (and an n_shards (rows, cols) tuple) is "
+            "not ported yet (ROADMAP A10b part b); use shard_layout='rows' "
+            "or 'cols'")
+    if layout not in ("rows", "cols"):
         raise ValueError(
             f"layout must be 'rows', 'cols' or 'grid', got {layout!r}")
     todo = []
@@ -433,6 +812,10 @@ def check_shardable(*, layout: str = "rows", loop: str = "host",
             + "; ".join(todo))
 
 
+def _factor(A, device, dtype) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(A, dtype=np.float64)).to(device, dtype)
+
+
 def run_sharded(solver: str, X, Y, U0, V0, Z0, cfg: SolverConfig,
                 hyper: Hyper, *, n_shards: Optional[int] = None,
                 group=None, layout: str = "rows", dtype=torch.float32,
@@ -443,51 +826,63 @@ def run_sharded(solver: str, X, Y, U0, V0, Z0, cfg: SolverConfig,
     default process group), whose size must be ``n_shards`` when that is
     given. X, Y: the whole host matrices (ndarray or scipy.sparse), on every
     rank; U0, V0, Z0: host arrays (Z0 may be None), the same on every rank.
-    Returns (U, V, Z, n_iter, loss_history, loss_iters, step_times), U
-    gathered over the ranks: the same on every rank.
+    Returns (U, V, Z, n_iter, loss_history, loss_iters, step_times), the
+    sharded factor (U under 'rows', V's real rows under 'cols') gathered
+    over the ranks: the same on every rank.
 
     sparse_mode (a sparse X): 'dense' densifies this rank's block; 'auto'
-    densifies it when the block's dense copy fits the densify threshold
-    (the reference's rule on the local shard), else keeps it as 'csr'
-    does: CSR, or BlockEll under use_pallas where its tiles fill enough (a
+    densifies it when the block's dense copy (⌈n/d⌉·m elements under
+    'rows', n·⌈m/d⌉ under 'cols') fits the densify threshold (the
+    reference's rule on the local shard), else keeps it as 'csr' does:
+    CSR, or BlockEll under use_pallas where its tiles fill enough (a
     sigmoid-linked X would take a chunked block there: ROADMAP A10c).
-    Reference: ``pycmf_tpu/parallel/sharded.py:run_sharded``, layout
-    'rows', loop 'host'."""
+    Reference: ``pycmf_tpu/parallel/sharded.py:run_sharded``, layouts
+    'rows' and 'cols', loop 'host'."""
     check_loop(loop)
     check_shardable(layout=layout, loop=loop,
                     sg_sample_ratio=cfg.sg_sample_ratio,
                     sparse_mode=sparse_mode, data_dtype=data_dtype)
     mesh = make_mesh(n_shards, group, device)
     ddt = dtype if data_dtype is None else data_dtype
+    n, m = X.shape
+    d, dev = mesh.world, mesh.device
     x_mode = "dense"
     if sp.issparse(X) and sparse_mode != "dense":
-        n, m = X.shape
-        local = -(-n // mesh.world) * m * ddt.itemsize
-        x_mode = ("csr" if sparse_mode == "csr" or local > DENSIFY_THRESHOLD
-                  else "dense")
+        local = (-(-n // d) * m if layout == "rows" else n * -(-m // d))
+        x_mode = ("csr" if sparse_mode == "csr"
+                  or local * ddt.itemsize > DENSIFY_THRESHOLD else "dense")
         if x_mode == "csr" and cfg.x_link != LINEAR and solver == "newton":
             raise NotImplementedError(
                 "a sigmoid-linked sparse X whose shard is past the densify "
                 "threshold takes a chunked layout per shard, which is not "
                 "ported yet (ROADMAP A10c); use sparse_mode='dense' or more "
                 "shards")
-    ops, U, n = prepare_rows(X, Y, U0, mesh, dtype, ddt, cfg, x_mode)
-    k = U.shape[1]
-    V = torch.as_tensor(np.asarray(V0, dtype=np.float64)).to(mesh.device,
-                                                            dtype)
-    Z = (torch.as_tensor(np.asarray(Z0, dtype=np.float64)).to(mesh.device,
-                                                              dtype)
-         if Z0 is not None and cfg.has_Y
-         else torch.zeros((0, k), dtype=dtype, device=mesh.device))
+    k = U0.shape[1]
+    Z = (_factor(Z0, dev, dtype) if Z0 is not None and cfg.has_Y
+         else torch.zeros((0, k), dtype=dtype, device=dev))
+    if layout == "rows":
+        ops, U, _ = prepare_rows(X, Y, U0, mesh, dtype, ddt, cfg, x_mode)
+        V = _factor(V0, dev, dtype)
+    else:
+        ops, V, _ = prepare_cols(X, Y, V0, mesh, dtype, ddt, cfg, x_mode)
+        U = _factor(U0, dev, dtype)
     if solver == "newton":
         # the contiguous Xᵀ and Yᵀ the fused sigmoid V and Z updates read
         Xc, Yc = _with_transposes(cfg, ops.X, ops.Y, V, Z)
         ops = ops._replace(X=Xc, Y=Yc)
-    aux = rows_aux_kind(cfg, ops, U, solver)
-    block, loss_fn = make_rows_block(cfg, solver, mesh, aux)
+    if layout == "rows":
+        aux = rows_aux_kind(cfg, ops, U, solver)
+        block, loss_fn = make_rows_block(cfg, solver, mesh, aux)
+    else:
+        aux = cols_aux_kind(cfg, ops, V, solver)
+        block, loss_fn = make_cols_block(cfg, solver, mesh, aux)
     state, n_iter, losses, iters, times = run_solver_loop(
         block, (ops, U, V, Z), hyper, None, max_iter=max_iter, tol=tol,
         eval_every=eval_every, verbose=verbose if mesh.rank == 0 else 0,
         initial_loss_fn=loss_fn)
     _, U, V, Z = state
-    return gather_rows(mesh, U, n), V, Z, n_iter, losses, iters, times
+    if layout == "rows":
+        U = gather_rows(mesh, U, n)
+    else:
+        V = gather_rows(mesh, V, m)
+    return U, V, Z, n_iter, losses, iters, times

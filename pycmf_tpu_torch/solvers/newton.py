@@ -293,7 +293,7 @@ def newton_update_factor(rng, M, terms, links, hyper: Hyper, *,
                          hessian_form: str = "gauss",
                          sample_ratio: float = 1.0, use_pallas: bool = False,
                          distributed=(), masks=(), group=None,
-                         return_phi: bool = False):
+                         return_phi: bool = False, term_cache=None):
     """One batched Newton update of factor M against its coupled terms
     (reference: ``pycmf_tpu/solvers/newton.py:newton_update_factor``).
 
@@ -306,7 +306,13 @@ def newton_update_factor(rng, M, terms, links, hyper: Hyper, *,
     term (a sigmoid term's padding columns on a shard).
     return_phi: additionally return the per-row φ at the selected value
     (see _aux_loss_phi); needs trials >= 1.
+    term_cache: a term's index: additionally return that linear term's
+    (D B, BᵀB), which the update computes anyway and which do not depend on
+    the selected step (the cols layout's factored eval loss; full batch
+    only: a sampled term's pair describes its draw). Not with return_phi.
     """
+    if return_phi and term_cache is not None:
+        raise ValueError("return_phi and term_cache are exclusive")
     k = M.shape[1]
     l1, l2 = hyper.l1, hyper.l2
     distributed = distributed or (False,) * len(terms)
@@ -369,8 +375,14 @@ def newton_update_factor(rng, M, terms, links, hyper: Hyper, *,
             out = out + all_reduce(group, acc)[0]
         return out
 
-    return backtracking_select(phi, _project(non_negative), M, d, trials,
-                               return_phi=return_phi)
+    out = backtracking_select(phi, _project(non_negative), M, d, trials,
+                              return_phi=return_phi)
+    if term_cache is None:
+        return out
+    ctx = ctxs[term_cache][0]
+    if not isinstance(ctx, _LinearCtx):
+        raise ValueError("term_cache requires a linear term")
+    return out, (ctx.DB, ctx.BtB)
 
 
 def fused_sigmoid_allowed(cfg: SolverConfig, A, M) -> bool:

@@ -100,6 +100,7 @@ def run_cases(rank, cases):
 
     kind 'fit': CMF(device='cpu', **kw).fit(X, Y, U=, V=, Z=), and when
         'Xn' is given, transform(Xn) after it (its U0 'Un');
+    kind 'raises': that fit, which must raise: (type name, message);
     kind 'sigmoid': fused_sigmoid_update on this rank's columns of X
         (rank r of d takes columns [r·q/d, (r+1)·q/d)) with the group;
     kind 'newton_factor': newton_update_factor with a distributed term on
@@ -118,6 +119,13 @@ def run_cases(rank, cases):
                 res["transform"] = est.transform(case["Xn"],
                                                  U=case.get("Un"))
             out[name] = res
+        elif kind == "raises":
+            try:
+                CMF(device="cpu", **case["kw"]).fit(case["X"], case.get("Y"))
+            except Exception as e:  # noqa: BLE001 -- reported to the test
+                out[name] = (type(e).__name__, str(e))
+            else:
+                out[name] = None
         elif kind == "sigmoid":
             out[name] = _sigmoid_case(rank, case)
         elif kind == "newton_factor":

@@ -271,8 +271,9 @@ def test_import_pulls_in_no_jax():
 
 
 @pytest.mark.parametrize("kw,error,match", [
-    # n_shards > 1 is ported in the rows layout; the cols layout is not
-    (dict(n_shards=2, shard_layout="cols"), NotImplementedError,
+    # n_shards > 1 is ported in the rows and cols layouts; the grid layout
+    # is not
+    (dict(n_shards=2, shard_layout="grid"), NotImplementedError,
      "ROADMAP A10"),
     # fp8 (ported): the reference's behaviour. 'auto' densifies a small CSR
     # X, which then fits; 'chunked' keeps it sparse, which fp8 refuses.

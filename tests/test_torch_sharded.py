@@ -374,7 +374,6 @@ def test_group_of_the_wrong_size_raises(tmp_path):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(n_shards=2, shard_layout="cols"), "A10b"),
     (dict(n_shards=2, shard_layout="grid"), "A10b"),
     (dict(n_shards=(2, 1), shard_layout="grid"), "A10b"),
     (dict(n_shards=(2, 1)), "A10b"),
@@ -382,7 +381,7 @@ def test_group_of_the_wrong_size_raises(tmp_path):
     (dict(n_shards=2, solver="newton", sg_sample_ratio=0.5), "A10c"),
     (dict(n_shards=2, sparse_mode="chunked"), "A10c"),
     (dict(n_shards=2, data_dtype="fp8", dtype="float32"), "A10c"),
-], ids=["cols", "grid", "grid_tuple", "tuple", "device_loop", "sampled",
+], ids=["grid", "grid_tuple", "tuple", "device_loop", "sampled",
         "chunked", "fp8"])
 def test_unported_shard_requests_raise_naming_their_item(kw, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
@@ -395,7 +394,7 @@ def test_malformed_n_shards_raise_value_error(n_shards):
         _est(n_shards=n_shards).fit(DATA["X"], DATA["Y"])
 
 
-@pytest.mark.parametrize("kw,item", [(dict(layout="cols"), "A10b"),
+@pytest.mark.parametrize("kw,item", [(dict(layout="grid"), "A10b"),
                                      (dict(loop="device"), "A10c")])
 def test_run_sharded_refuses_unported_layouts_and_loops(kw, item):
     cfg = SolverConfig(use_pallas=True)
