@@ -109,17 +109,19 @@ Phases (any failure exits non-zero and prints no ok line):
     graph nodes, device ms/iter, idle share, host launch calls and graph
     launches per fit; two fits of path S with one random_state equal,
     with another not;
- R. the row-sharded fit (n_shards, parallel/sharded.py) at the main
-    path's full width: R1, run_sharded on a one-rank NCCL group in this
-    process, MU and path A against the single-device host-loop fit of the
-    same inputs (n_iter, the loss history and the factors; bit for bit
-    expected, 1e-6 checked), with launch counts, ms/iter in turns beside the
+ R. the sharded fits (n_shards, parallel/sharded.py, parallel/grid.py)
+    at the main path's full width: R1, run_sharded on a one-rank NCCL
+    group in this process, MU and path A against the single-device
+    host-loop fit of the same inputs (n_iter, the loss history and the
+    factors; bit for bit expected, 1e-6 checked), with launch counts,
+    ms/iter in turns beside the
     single-device fit, a one-rank gloo group and the NCCL fit without its
     collective, the host's time in each all-reduce call, and the
     all-reduce's share of each iteration (CUDA events around it); R2,
     CMF(n_shards=2) in two spawned gloo ranks on the one card (NCCL refuses
     two ranks on one device): MU, path A, path C, path F and path B, each
-    within 1e-4 of its phase-7 fit's exact float64 loss, both ranks'
+    run to its phase-7 fit's n_iter (its loop at tol -inf) and held
+    within 1e-4 of that fit's exact float64 loss, both ranks'
     losses equal and each rank's launches counted, and which gloo
     collectives take CUDA tensors; R1c, run_sharded(layout='cols') on a
     one-rank NCCL group, MU and path A run to the single-device host
@@ -128,7 +130,22 @@ Phases (any failure exits non-zero and prints no ok line):
     the all-reduce's calls, bytes and device ms; R2c,
     CMF(n_shards=2, shard_layout='cols') in two gloo ranks on the card:
     MU, path A, path C, path F and path B as R2 (K6, K3/K4, K5, csr_spmm
-    and bell_spmm launched by each rank); every kernel's launches in the
+    and bell_spmm launched by each rank); R1g, run_grid(grid=(1, 1)) on a
+    one-rank NCCL group (its two axis subgroups made under NCCL; an axis
+    of one rank makes no collective, the world's calls remain): MU, path
+    A and path F (a BlockEll cell) to the single-device fit's n_iter (tol
+    0), held by the exact float64 loss (1e-5), with launch counts, ms/iter
+    (MU and A in turns beside the single device, least of 3; F least of
+    two grid fits beside its phase-7 fit) and the all-reduce's calls,
+    bytes and device ms per mesh axis; R2g, CMF(n_shards=(2, 2),
+    shard_layout='grid') in four gloo ranks on the card: MU, path A, path
+    C (CSR cells) and path B (K3/K4 on both axes) as R2; R1 fp8,
+    run_sharded (rows) with e4m3 X on a one-rank NCCL group: the MU cell
+    and path A bit for bit with the single-device fp8 host fits (every
+    eval loss and the factors), K1's and K2's e4m3 forms launched and
+    their bf16 forms not; R2 fp8, the fp8 MU
+    cell in two gloo ranks, rows and grid (2, 1), within 1e-4 of the
+    single-device fp8 fit's exact loss; every kernel's launches in the
     kernels line include these fits';
  8. kernel path against plain path on the card (the plain fits on the host
     loop: a capture refuses the plain batched solve): after 20 iterations,
@@ -2879,19 +2896,26 @@ def nccl_world1_phase(check, torch, X, Y, common, paths):
     return rec, launches
 
 
-R1C_ROUNDS = 3  # phase R1c's timed rounds: cols and single device in turn
+R1C_ROUNDS = 3  # phases R1c and R1g: the layout and single device in turn
 
 
-def nccl_world1_cols_phase(check, torch, X, Y, common, paths):
-    """Phase R1c: run_sharded(layout='cols') on a one-rank NCCL group in
-    this process, each path run to the single-device host-loop fit's n_iter
-    (tol 0) and held to it by the exact float64 loss of the final factors
-    (1e-4 relative): a one-rank cols fit is not the single device's
-    arithmetic (X V is a plain product summed over the ranks, K1 and K2
-    never run). Times in turns over R1C_ROUNDS rounds beside the
-    single-device fit, then one fit with CUDA events around every
-    all-reduce. paths: (label, kw, exact loss of (U, V, Z), {kernel:
-    launches per iteration}). Returns (record, launches of the cols
+def nccl_world1_layout_phase(check, torch, Y, common, paths, layout, tag,
+                             bar):
+    """Phases R1c and R1g: run_sharded(layout='cols') or
+    run_grid(grid=(1, 1)) on a one-rank NCCL group in this process (the
+    grid's two axis subgroups made under NCCL too; on a (1, 1) mesh they
+    make no collective, the world group's calls remain), each path run to
+    the single-device host-loop fit's n_iter (tol 0) and held to it by the
+    exact float64 loss of the final factors (``bar`` relative): neither is the
+    single device's arithmetic (X V is a plain product summed over the
+    ranks, K1 and K2 never run). Times in turns over R1C_ROUNDS rounds
+    beside the single-device fit, then one fit with CUDA events around
+    every all-reduce (calls, bytes and device ms per mesh axis). paths:
+    (label, kw, X, exact loss of (U, V, Z), {kernel: launches per
+    iteration}, ref); with ``ref`` (the path's phase-7 record: n_iter,
+    exact_loss, and ms_per_iter of its host-loop fit) no single-device fit
+    is run and the layout's ms/iter is the least of its counted and timed
+    fits (a path whose ingest takes seconds). Returns (record, launches of the layout's
     fits)."""
     import tempfile
 
@@ -2901,17 +2925,22 @@ def nccl_world1_cols_phase(check, torch, X, Y, common, paths):
     from pycmf_tpu_torch import CMF
     from pycmf_tpu_torch.ops.kernels.policy import (launch_counts,
                                                     reset_launch_counts)
+    from pycmf_tpu_torch.parallel.grid import run_grid
     from pycmf_tpu_torch.parallel.mesh import COMM
     from pycmf_tpu_torch.parallel.sharded import run_sharded
     from pycmf_tpu_torch.solvers.common import make_hyper
     from pycmf_tpu_torch.utils.init import initialize_factors
 
     rec, launches = {}, {}
-    store = os.path.join(tempfile.mkdtemp(prefix="pycmf_r1c_"), "store")
+    store = os.path.join(tempfile.mkdtemp(prefix=f"pycmf_{tag}_"), "store")
     dist.init_process_group("nccl", store=dist.FileStore(store, 1), rank=0,
                             world_size=1)
+    # the first two events lie outside the blocks (the set-up's and the
+    # initial loss), and for cols the last (the gather of V); on the (1, 1)
+    # grid the gathers of U and V run on one-rank axes, which make no call
+    tail = 1 if layout == "cols" else 0
     try:
-        for label, kw, exact_loss, minimums in paths:
+        for label, kw, X, exact_loss, minimums, ref in paths:
             est = CMF(**kw, **common, loop="host")
             cfg = est._config(has_Y=True)
             hyper = make_hyper(est.alpha, est.l1_ratio, est.eps,
@@ -2921,16 +2950,22 @@ def nccl_world1_cols_phase(check, torch, X, Y, common, paths):
                 U_non_negative=est.U_non_negative,
                 V_non_negative=est.V_non_negative,
                 Z_non_negative=est.Z_non_negative)
-            one = CMF(**kw, **common, loop="host").fit(X, Y)
+            rounds = ref is None   # else ms/iter from the phase-7 fit
+            if rounds:
+                one = CMF(**kw, **common, loop="host").fit(X, Y)
+                ref = dict(n_iter=one.n_iter_,
+                           exact_loss=exact_loss(one.U_, one.V_, one.Z_))
 
-            def cols(max_iter=one.n_iter_, timed=False):
+            def fit(max_iter=ref["n_iter"], timed=False):
                 COMM.reset(timed)
-                out = run_sharded(
-                    est.solver, X, Y, U0, V0, Z0, cfg, hyper, n_shards=1,
-                    layout="cols", dtype=torch.float32,
-                    data_dtype=torch.bfloat16, device=common["device"],
-                    max_iter=max_iter, tol=0.0, eval_every=est.eval_every,
-                    sparse_mode=est._matrix_sparse_mode(X, est.x_link))
+                args = (est.solver, X, Y, U0, V0, Z0, cfg, hyper)
+                kws = dict(dtype=torch.float32, data_dtype=torch.bfloat16,
+                           device=common["device"], max_iter=max_iter,
+                           tol=0.0, eval_every=est.eval_every,
+                           sparse_mode=est._matrix_sparse_mode(X, est.x_link))
+                out = (run_sharded(*args, n_shards=1, layout="cols", **kws)
+                       if layout == "cols" else
+                       run_grid(*args, grid=(1, 1), **kws))
                 torch.cuda.synchronize()
                 return out
 
@@ -2938,63 +2973,156 @@ def nccl_world1_cols_phase(check, torch, X, Y, common, paths):
                 e = CMF(**kw, **common, loop="host").fit(X, Y)
                 return 1e3 * sum(e.step_times_) / e.n_iter_
 
-            cols(max_iter=2)  # warm-up, not timed
+            if rounds:
+                fit(max_iter=2)  # warm-up, not timed
             reset_launch_counts()
-            U, V, Z, n_iter, losses, iters, times = cols()
+            U, V, Z, n_iter, losses, iters, times = out = fit()
             counts = launch_counts()
             calls, nbytes = COMM.calls, COMM.nbytes
+            by_axis = {a: list(v) for a, v in COMM.by_axis.items()}
             for name, n in counts.items():
                 launches[name] = launches.get(name, 0) + n
-            ms = {"single_device": [], "cols": []}
-            for _ in range(R1C_ROUNDS):
-                ms["single_device"].append(single())
-                out = cols()
-                ms["cols"].append(1e3 * sum(out[6]) / out[3])
-            # events around every all-reduce; the first two (the set-up's
-            # ‖X‖², the initial loss) and the last (the gather of V) lie
-            # outside the blocks
-            t_out = cols(timed=True)
-            comm_ms = sum(a.elapsed_time(b) for a, b in COMM.events[2:-1])
+            ms = {"single_device": [], layout: [1e3 * sum(out[6]) / out[3]]}
+            if not rounds:
+                ms["single_device"].append(ref["ms_per_iter"])
+            else:
+                ms[layout] = []
+                for _ in range(R1C_ROUNDS):
+                    ms["single_device"].append(single())
+                    o = fit()
+                    ms[layout].append(1e3 * sum(o[6]) / o[3])
+            t_out = fit(timed=True)
+            blocks = list(zip(COMM.events, COMM.event_axes))[
+                2:len(COMM.events) - tail]
+            comm_ms = sum(a.elapsed_time(b) for (a, b), _ in blocks)
+            axis_ms = {}
+            for (a, b), ax in blocks:
+                axis_ms[ax] = axis_ms.get(ax, 0.0) + a.elapsed_time(b)
             fit_ms = 1e3 * sum(t_out[6])
+            if not rounds:
+                ms[layout].append(fit_ms / t_out[3])
             exact = exact_loss(*(t.double().cpu().numpy()
                                  for t in (U, V, Z)))
-            want = exact_loss(one.U_, one.V_, one.Z_)
+            want = ref["exact_loss"]
             gap = abs(exact - want) / want
-            n, m = X.shape
+            n = X.shape[0]
             r = dict(
-                n_iter=n_iter, single_n_iter=one.n_iter_, exact_loss=exact,
+                n_iter=n_iter, single_n_iter=ref["n_iter"], exact_loss=exact,
                 single_exact_loss=want, rel_gap=gap,
                 losses=[float(v) for v in losses],
-                single_losses=one.loss_history_,
                 ms_per_iter={v: sorted(t) for v, t in ms.items()},
                 least_ms_per_iter={v: min(t) for v, t in ms.items()},
                 timed_ms_per_iter=fit_ms / t_out[3],
                 allreduce_ms_per_iter=comm_ms / t_out[3],
                 allreduce_share=comm_ms / fit_ms,
                 allreduce_calls=calls, allreduce_bytes=nbytes,
+                allreduce_by_axis=by_axis,
+                allreduce_ms_per_iter_by_axis={
+                    a: v / t_out[3] for a, v in axis_ms.items()},
                 allreduce_bytes_per_iter_code=(
                     (n * K + K * K + Y.shape[1] * K) * 4
-                    if est.solver == "mu" else None),
+                    if est.solver == "mu" and layout == "cols" else None),
                 launches=counts)
-            check(n_iter == one.n_iter_ and gap < 1e-4,
-                  f"R1c {label}: {n_iter} iterations (single device "
-                  f"{one.n_iter_}); exact f64 loss {exact:.9g} vs the "
-                  f"single-device fit's {want:.9g}: rel gap {gap:.3g} < 1e-4")
+            check(n_iter == ref["n_iter"] and gap < bar,
+                  f"{tag} {label}: {n_iter} iterations (single device "
+                  f"{ref['n_iter']}); exact f64 loss {exact:.9g} vs the "
+                  f"single-device fit's {want:.9g}: rel gap {gap:.3g} < "
+                  f"{bar:g}")
             for name, per in minimums.items():
                 got = counts.get(name, 0)
                 check(got >= per * n_iter,
-                      f"R1c {label}: {name} launches {got} >= {per} x "
+                      f"{tag} {label}: {name} launches {got} >= {per} x "
                       f"{n_iter}")
             least = r["least_ms_per_iter"]
-            log(f"  R1c {label}: ms/iter least of {R1C_ROUNDS}: cols "
-                f"{least['cols']:.4f}, single device "
-                f"{least['single_device']:.4f}; with events "
+            log(f"  {tag} {label}: ms/iter least of "
+                f"{len(ms[layout])}: {layout} {least[layout]:.4f}, single "
+                f"device {least['single_device']:.4f}; with events "
                 f"{r['timed_ms_per_iter']:.4f} ms/iter of which all-reduce "
                 f"{r['allreduce_ms_per_iter']:.4f} "
-                f"({r['allreduce_share']:.3%}); {calls} all-reduces, "
-                f"{nbytes} bytes in the fit, "
-                f"{r['allreduce_bytes_per_iter_code']} per iteration by the "
-                f"code; launches {counts}")
+                f"({r['allreduce_share']:.3%}); by axis (calls, bytes in "
+                f"the fit) {by_axis}, device ms/iter "
+                f"{r['allreduce_ms_per_iter_by_axis']}; {calls} all-reduces,"
+                f" {nbytes} bytes; launches {counts}")
+            rec[label] = r
+    finally:
+        dist.destroy_process_group()
+    return rec, launches
+
+
+def nccl_world1_fp8_phase(check, torch, X, Y, common8, paths):
+    """Phase R1 fp8: run_sharded (rows) on a one-rank NCCL group with e4m3
+    X, each path against the single-device fp8 host-loop fit of the same
+    inputs, run to its n_iter (tol 0): every eval loss and the factors bit
+    for bit, K1's or K2's e4m3 form launched every iteration and the bf16
+    form never. paths: (label, kw, {kernel:
+    launches per iteration}, kernels absent). Returns (record, launches)."""
+    import tempfile
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from pycmf_tpu_torch import CMF
+    from pycmf_tpu_torch.ops.kernels.policy import (launch_counts,
+                                                    reset_launch_counts)
+    from pycmf_tpu_torch.parallel.sharded import run_sharded
+    from pycmf_tpu_torch.solvers.common import make_hyper
+    from pycmf_tpu_torch.utils.init import initialize_factors
+
+    rec, launches = {}, {}
+    store = os.path.join(tempfile.mkdtemp(prefix="pycmf_r1f_"), "store")
+    dist.init_process_group("nccl", store=dist.FileStore(store, 1), rank=0,
+                            world_size=1)
+    try:
+        for label, kw, minimums, absent in paths:
+            est = CMF(**kw, **common8, loop="host")
+            one = CMF(**kw, **common8, loop="host").fit(X, Y)
+            cfg = est._config(has_Y=True)
+            hyper = make_hyper(est.alpha, est.l1_ratio, est.eps,
+                               est.hessian_pertubation, dtype=torch.float32)
+            U0, V0, Z0 = initialize_factors(
+                X, Y, K, random_state=SEED,
+                U_non_negative=est.U_non_negative,
+                V_non_negative=est.V_non_negative,
+                Z_non_negative=est.Z_non_negative)
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            U, V, Z, n_iter, losses, iters, times = run_sharded(
+                est.solver, X, Y, U0, V0, Z0, cfg, hyper, n_shards=1,
+                dtype=torch.float32, data_dtype=torch.float8_e4m3fn,
+                device=common8["device"], max_iter=one.n_iter_, tol=0.0,
+                eval_every=est.eval_every,
+                sparse_mode=est._matrix_sparse_mode(X, est.x_link))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = launch_counts()
+            for name, n in counts.items():
+                launches[name] = launches.get(name, 0) + n
+            got = [U.double().cpu().numpy(), V.double().cpu().numpy(),
+                   Z.double().cpu().numpy()]
+            bits = ([float(v) for v in losses] == one.loss_history_
+                    and all(np.array_equal(a, b) for a, b in zip(
+                        got, (one.U_, one.V_, one.Z_))))
+            ms = 1e3 * sum(times) / n_iter
+            r = dict(n_iter=n_iter, single_n_iter=one.n_iter_,
+                     bit_equal=bits,
+                     factor_gap=factor_gap(got, [one.U_, one.V_, one.Z_]),
+                     ms_per_iter=ms,
+                     single_ms_per_iter=1e3 * sum(one.step_times_)
+                     / one.n_iter_, wall_s=wall, launches=counts)
+            check(n_iter == one.n_iter_ and bits,
+                  f"R1 fp8 {label}: {n_iter} iterations (single device "
+                  f"{one.n_iter_}); eval losses and factors bit for bit: "
+                  f"{bits} (factors gap {r['factor_gap']:.3g})")
+            for name, per in minimums.items():
+                check(counts.get(name, 0) >= per * n_iter,
+                      f"R1 fp8 {label}: {name} launches "
+                      f"{counts.get(name, 0)} >= {per} x {n_iter}")
+            check(all(counts.get(a, 0) == 0 for a in absent),
+                  f"R1 fp8 {label}: the bf16 forms {absent} launched no "
+                  f"time")
+            log(f"  R1 fp8 {label}: {ms:.4f} ms/iter (single device "
+                f"{r['single_ms_per_iter']:.4f}), fit wall {wall:.2f} s incl."
+                f" the host's densify and e4m3 conversion; launches {counts}")
             rec[label] = r
     finally:
         dist.destroy_process_group()
@@ -3086,9 +3214,10 @@ def _gloo_probe(torch, dist, dev) -> dict:
     return out
 
 
-def _r2_rank(rank, store, tmp, fits, common):
-    """One of phase R2's two ranks (a spawned process): gloo over a
-    FileStore, both ranks on cuda:0, each path through CMF(n_shards=2)."""
+def _r2_rank(rank, store, tmp, fits, common, world=2):
+    """One of phase R2's ranks (a spawned process): gloo over a FileStore,
+    every rank on cuda:0, each path through CMF(n_shards=world) (or the
+    fit's own n_shards and layout)."""
     import pickle
     from datetime import timedelta
 
@@ -3100,10 +3229,22 @@ def _r2_rank(rank, store, tmp, fits, common):
     from pycmf_tpu_torch import CMF
     from pycmf_tpu_torch.ops.kernels.policy import (launch_counts,
                                                     reset_launch_counts)
+    from pycmf_tpu_torch.parallel import grid as pgrid
+    from pycmf_tpu_torch.parallel import sharded as psharded
     from pycmf_tpu_torch.parallel.mesh import COMM
 
-    dist.init_process_group("gloo", store=dist.FileStore(store, 2),
-                            rank=rank, world_size=2,
+    def never_stops(loop):
+        # the fit's loop at tol -inf: no eval loss ends it (the estimator
+        # takes tol >= 0 only, and under tol 0 a reported bf16 loss that
+        # rises by its rounding noise, ROADMAP C2, would end the fit before
+        # its single-device n_iter, which says nothing of the sharded
+        # trajectory)
+        def run(*args, **kw):
+            return loop(*args, **dict(kw, tol=-math.inf))
+        return run
+
+    dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world,
                             timeout=timedelta(seconds=120))
     try:
         data = {}
@@ -3115,36 +3256,45 @@ def _r2_rank(rank, store, tmp, fits, common):
                 data[base] = np.load(os.path.join(tmp, name))
         dev = torch.device(common["device"], 0)
         out = {"probe": _gloo_probe(torch, dist, dev), "fits": {}}
-        for label, kw, xk, yk in fits:
-            est = CMF(n_shards=2, **kw, **common)
-            COMM.reset()
-            reset_launch_counts()
-            t0 = time.perf_counter()
-            est.fit(data[xk], data[yk])
-            wall = time.perf_counter() - t0
-            r = dict(n_iter=est.n_iter_, losses=est.loss_history_,
-                     ms_per_iter=1e3 * sum(est.step_times_) / est.n_iter_,
-                     wall_s=wall, allreduce_calls=COMM.calls,
-                     allreduce_bytes=COMM.nbytes,
-                     launches={k: v for k, v in launch_counts().items() if v})
-            if rank == 0:
-                r.update(U=est.U_, V=est.V_, Z=est.Z_)
-            out["fits"][label] = r
+        with mock.patch.object(psharded, "run_solver_loop",
+                               never_stops(psharded.run_solver_loop)), \
+                mock.patch.object(pgrid, "run_solver_loop",
+                                  never_stops(pgrid.run_solver_loop)):
+            for label, kw, xk, yk in fits:
+                est = CMF(**{**common, "n_shards": world, **kw})
+                COMM.reset()
+                reset_launch_counts()
+                t0 = time.perf_counter()
+                est.fit(data[xk], data[yk])
+                wall = time.perf_counter() - t0
+                r = dict(n_iter=est.n_iter_, losses=est.loss_history_,
+                         ms_per_iter=1e3 * sum(est.step_times_)
+                         / est.n_iter_,
+                         wall_s=wall, allreduce_calls=COMM.calls,
+                         allreduce_bytes=COMM.nbytes,
+                         launches={k: v for k, v
+                                   in launch_counts().items() if v})
+                if rank == 0:
+                    r.update(U=est.U_, V=est.V_, Z=est.Z_)
+                out["fits"][label] = r
         with open(os.path.join(tmp, f"rank{rank}.pkl"), "wb") as f:
             pickle.dump(out, f)
     finally:
         dist.destroy_process_group()
 
 
-def gloo_two_rank_phase(check, torch, data, common, fits, refs):
-    """Phase R2: CMF(n_shards=2) in two spawned ranks of a gloo group, both
-    on the one card (NCCL refuses two ranks on one device). data: {key:
-    host matrix} the ranks load; fits: (label, kw, X key, Y key); refs:
-    {label: (the single-device fit's record, exact float64 loss of
-    factors, {kernel: launches per iteration})}. Each fit runs as many
-    iterations as its single-device fit and is held to it by the exact
-    loss of its final factors and by each rank's launch counts. Returns
-    (record, launches of both ranks)."""
+def gloo_two_rank_phase(check, torch, data, common, fits, refs, world=2,
+                        tag="R2"):
+    """Phase R2 (and R2c, R2g, R2 fp8): CMF(n_shards=world) in ``world``
+    spawned ranks of a gloo group, all on the one card (NCCL refuses two
+    ranks on one device). data: {key: host matrix} the ranks load; fits:
+    (label, kw, X key, Y key), kw overriding ``common`` (n_shards and
+    shard_layout too); refs: {label: (the single-device fit's record,
+    exact float64 loss of factors, {kernel: launches per iteration})}. Each
+    fit runs as many iterations as its single-device fit and is held to it
+    by the exact loss of its final factors, every rank's loss history
+    equal, and by each rank's launch counts. Returns (record, launches of
+    every rank)."""
     import pickle
     import tempfile
 
@@ -3152,7 +3302,8 @@ def gloo_two_rank_phase(check, torch, data, common, fits, refs):
     import scipy.sparse as sp
     import torch.multiprocessing as tmp_mp
 
-    # each fit runs its single-device fit's iterations (tol 0): the stop
+    # each fit runs its single-device fit's iterations at its own
+    # eval_every, its loop at tol -inf in the ranks (never_stops): the stop
     # rule on bf16 eval losses that differ in their last bits can stop a
     # block apart, which says nothing of the sharded trajectory
     fits = [(label, dict(kw, max_iter=refs[label][0]["n_iter"], tol=0.0), xk,
@@ -3166,60 +3317,64 @@ def gloo_two_rank_phase(check, torch, data, common, fits, refs):
         else:
             np.save(os.path.join(tmp, key + ".npy"), np.asarray(A))
     ctx = tmp_mp.start_processes(
-        _r2_rank, args=(os.path.join(tmp, "store"), tmp, fits, common),
-        nprocs=2, join=False, start_method="spawn")
+        _r2_rank, args=(os.path.join(tmp, "store"), tmp, fits, common,
+                        world),
+        nprocs=world, join=False, start_method="spawn")
     deadline = time.monotonic() + R2_TIMEOUT
     try:
         while not ctx.join(timeout=max(0.0, deadline - time.monotonic())):
             if time.monotonic() >= deadline:
-                raise TimeoutError(f"R2's ranks ran past {R2_TIMEOUT} s")
+                raise TimeoutError(f"{tag}'s ranks ran past {R2_TIMEOUT} s")
     finally:
         for proc in ctx.processes:
             if proc.is_alive():
                 proc.kill()
                 proc.join(10)
     ranks = []
-    for rank in range(2):
+    for rank in range(world):
         with open(os.path.join(tmp, f"rank{rank}.pkl"), "rb") as f:
             ranks.append(pickle.load(f))
     wall = time.perf_counter() - t0
     rec, launches = {"probe": ranks[0]["probe"], "wall_s": wall}, {}
-    log(f"  R2: gloo collectives on CUDA tensors: {ranks[0]['probe']}; "
-        f"{wall:.1f} s for both ranks, start to end")
+    log(f"  {tag}: gloo collectives on CUDA tensors: {ranks[0]['probe']}; "
+        f"{wall:.1f} s for the {world} ranks, start to end")
     for label, kw, _, _ in fits:
         single, exact_loss, per = refs[label]
-        a, b = (r["fits"][label] for r in ranks)
+        got = [r["fits"][label] for r in ranks]
+        a = got[0]
         exact = exact_loss(a["U"], a["V"], a["Z"])
         gap = abs(exact - single["exact_loss"]) / single["exact_loss"]
-        check(gap < 1e-4 and a["losses"] == b["losses"],
-              f"R2 {label}: exact f64 loss {exact:.9g} after {a['n_iter']} "
-              f"iterations vs the single-device fit's "
+        same = all(g["losses"] == a["losses"] for g in got)
+        check(gap < 1e-4 and same,
+              f"{tag} {label}: exact f64 loss {exact:.9g} after "
+              f"{a['n_iter']} iterations vs the single-device fit's "
               f"{single['exact_loss']:.9g} after {single['n_iter']}: rel gap "
-              f"{gap:.3g} < 1e-4; both ranks' loss histories equal")
+              f"{gap:.3g} < 1e-4; every rank's loss history equal: {same}")
         check(a["n_iter"] == single["n_iter"],
-              f"R2 {label}: ran the single-device fit's {single['n_iter']} "
-              f"iterations ({a['n_iter']})")
-        for r, rank in ((a, 0), (b, 1)):
+              f"{tag} {label}: ran the single-device fit's "
+              f"{single['n_iter']} iterations ({a['n_iter']})")
+        for rank, r in enumerate(got):
             for name, n in r["launches"].items():
                 launches[name] = launches.get(name, 0) + n
             for name, p in per.items():
-                got = r["launches"].get(name, 0)
-                check(got >= p * r["n_iter"],
-                      f"R2 {label}, rank {rank}: {name} launches {got} >= "
+                n = r["launches"].get(name, 0)
+                check(n >= p * r["n_iter"],
+                      f"{tag} {label}, rank {rank}: {name} launches {n} >= "
                       f"{p} x {r['n_iter']}")
         rec[label] = dict(
             n_iter=a["n_iter"], exact_loss=exact,
             single_exact_loss=single["exact_loss"],
             single_n_iter=single["n_iter"], rel_gap=gap,
-            ms_per_iter=[a["ms_per_iter"], b["ms_per_iter"]],
+            ms_per_iter=[g["ms_per_iter"] for g in got],
             single_ms_per_iter=single["ms_per_iter"],
-            wall_s=[a["wall_s"], b["wall_s"]],
+            wall_s=[g["wall_s"] for g in got],
             allreduce_calls=a["allreduce_calls"],
             allreduce_bytes=a["allreduce_bytes"],
-            launches=[a["launches"], b["launches"]])
-        log(f"  R2 {label}: {a['ms_per_iter']:.3f} / {b['ms_per_iter']:.3f} "
-            f"ms/iter on the two ranks (gloo through the host, one card), "
-            f"single device {single['ms_per_iter']:.3f}; fit wall "
+            launches=[g["launches"] for g in got])
+        log(f"  {tag} {label}: "
+            + " / ".join(f"{g['ms_per_iter']:.3f}" for g in got)
+            + f" ms/iter on the {world} ranks (gloo through the host, one "
+            f"card), single device {single['ms_per_iter']:.3f}; fit wall "
             f"{a['wall_s']:.1f} s; {a['allreduce_calls']} all-reduces, "
             f"{a['allreduce_bytes']} bytes per rank")
     return rec, launches
@@ -3281,6 +3436,7 @@ def main() -> int:
                                                 synthetic_20ng)
 
     check = Checks()
+    t_start = time.perf_counter()
     # 1. device
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(
@@ -3770,10 +3926,12 @@ def main() -> int:
         r_launches[kname] = r_launches.get(kname, 0) + n
     log(f"phase R1c: run_sharded(layout='cols') on a one-rank NCCL group; "
         f"{name}, nvidia-smi: {smi}")
-    r1c, r1c_launches = nccl_world1_cols_phase(check, torch, X, Y, common, (
-        ("MU", mu_kw, lin, {"fused_mu_update": 3}),
-        ("path A", a_kw, sig, {"sigmoid_gh_pass": 1, "sigmoid_phi_pass": 1,
-                               "batched_spd_solve": 2})))
+    r1c, r1c_launches = nccl_world1_layout_phase(check, torch, Y, common, (
+        ("MU", mu_kw, X, lin, {"fused_mu_update": 3}, None),
+        ("path A", a_kw, X, sig, {"sigmoid_gh_pass": 1,
+                                  "sigmoid_phi_pass": 1,
+                                  "batched_spd_solve": 2}, None)),
+        "cols", "R1c", 1e-4)
     log("phase R2c: CMF(n_shards=2, shard_layout='cols'), two gloo ranks on "
         "the one card")
     cols = dict(shard_layout="cols")
@@ -3793,10 +3951,61 @@ def main() -> int:
          "cols path B": (pb, card_sigmoid_loss(torch, Xb, Y),
                          {"sigmoid_gh_pass": 3, "sigmoid_phi_pass": 3,
                           "batched_spd_solve": 3})})
-    for kname, n in list(r1c_launches.items()) + list(r2c_launches.items()):
-        r_launches[kname] = r_launches.get(kname, 0) + n
+    log(f"phase R1g: run_grid(grid=(1, 1)) on a one-rank NCCL group (its "
+        f"two axis subgroups under NCCL); {name}, nvidia-smi: {smi}")
+    r1g, r1g_launches = nccl_world1_layout_phase(check, torch, Y, common, (
+        ("MU", mu_kw, X, lin, {"fused_mu_update": 3}, None),
+        ("path A", a_kw, X, sig, {"sigmoid_gh_pass": 1,
+                                  "sigmoid_phi_pass": 1,
+                                  "batched_spd_solve": 2}, None),
+        # F's ms/iter beside its phase-7c host-loop fits (the grid runs the
+        # host loop; a key's first device fit spreads widely, §5 of PERF.md)
+        ("path F", f_kw, Xf, linf, {"bell_spmm": 2, "fused_mu_update": 3},
+         dict(pf, ms_per_iter=loops["path F"]["host"]["ms_per_iter"]))),
+        "grid", "R1g", 1e-5)
+    log("phase R2g: CMF(n_shards=(2, 2), shard_layout='grid'), four gloo "
+        "ranks on the one card")
+    grid = dict(n_shards=(2, 2), shard_layout="grid")
+    r2g, r2g_launches = gloo_two_rank_phase(
+        check, torch, {"X": X, "Y": Y, "Xb": Xb}, common,
+        (("grid MU", dict(mu_kw, **grid), "X", "Y"),
+         ("grid path A", dict(a_kw, **grid), "X", "Y"),
+         ("grid path C", dict(c_kw, **grid), "X", "Y"),
+         ("grid path B", dict(b_kw, **grid), "Xb", "Y")),
+        {"grid MU": (mu, lin, {"fused_mu_update": 3}),
+         "grid path A": (pa, sig, {"sigmoid_gh_pass": 1,
+                                   "sigmoid_phi_pass": 1,
+                                   "batched_spd_solve": 2}),
+         "grid path C": (pc, lin, {"csr_spmm": 2, "fused_mu_update": 3}),
+         "grid path B": (pb, card_sigmoid_loss(torch, Xb, Y),
+                         {"sigmoid_gh_pass": 3, "sigmoid_phi_pass": 3,
+                          "batched_spd_solve": 3})}, world=4, tag="R2g")
+    log(f"phase R1 fp8: run_sharded (rows) with e4m3 X on a one-rank NCCL "
+        f"group; {name}, nvidia-smi: {smi}")
+    r1f, r1f_launches = nccl_world1_fp8_phase(check, torch, X, Y, common8, (
+        ("MU", mu_kw, {"fused_mu_u_pass_fp8": 1}, ("fused_mu_u_pass",)),
+        ("path A", a_kw, {"fused_newton_linear_u_pass_fp8": 1,
+                          "sigmoid_gh_pass": 1, "sigmoid_phi_pass": 1,
+                          "batched_spd_solve": 2},
+         ("fused_newton_linear_u_pass",))))
+    log("phase R2 fp8: MU with e4m3 X in two gloo ranks, rows and grid "
+        "(2, 1)")
+    r2f, r2f_launches = gloo_two_rank_phase(
+        check, torch, {"X": X, "Y": Y}, common8,
+        (("rows MU fp8", mu_kw, "X", "Y"),
+         ("grid MU fp8", dict(mu_kw, n_shards=(2, 1), shard_layout="grid"),
+          "X", "Y")),
+        {"rows MU fp8": (fp8["mu"], lin8, {"fused_mu_u_pass_fp8": 1}),
+         "grid MU fp8": (fp8["mu"], lin8, {"fused_mu_update": 3})},
+        tag="R2 fp8")
+    for part in (r1c_launches, r2c_launches, r1g_launches, r2g_launches,
+                 r1f_launches, r2f_launches):
+        for kname, n in part.items():
+            r_launches[kname] = r_launches.get(kname, 0) + n
     sharded = {"r1_nccl_world1": r1, "r2_gloo_two_ranks": r2,
                "r1c_nccl_world1_cols": r1c, "r2c_gloo_two_ranks_cols": r2c,
+               "r1g_nccl_world1_grid": r1g, "r2g_gloo_four_ranks_grid": r2g,
+               "r1_fp8_nccl_world1_rows": r1f, "r2_fp8_gloo_two_ranks": r2f,
                "launches": r_launches}
 
     # 8. kernel path against plain path on the card; the 2% guards. The
@@ -3947,6 +4156,9 @@ def main() -> int:
     a6 = a6_phase(check, torch, mu_est, X, lambda: CMF(
         **dict(mu_kw, max_iter=10, tol=0.0), **common, loop="host"), Y)
 
+    total_s = time.perf_counter() - t_start
+    log(f"chip_smoke: {total_s:.1f} s from the device query to the record "
+        f"(the build, the data and every phase)")
     if check.failed:
         log(f"chip_smoke: {len(check.failed)} check(s) failed: "
             + "; ".join(check.failed))
@@ -4079,6 +4291,7 @@ def main() -> int:
                       "device_vs_host_loop": loops,
                       "phase8_gap_after_20": gaps20,
                       "sharded": sharded, "utilities": a6,
+                      "seconds": total_s,
                       "phase8_step_gap_max": stepped,
                       "bell_crossover": {k: v for k, v in krec.items()
                                          if str(k).startswith("crossover")}})

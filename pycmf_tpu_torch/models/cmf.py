@@ -19,11 +19,12 @@ its column draws from a ``torch.Generator`` seeded by the reference's rule
 from ``random_state``), with the Gauss-Newton or the full Hessian
 (``hessian_form``). ``data_dtype='fp8'`` stores X dense as float8_e4m3fn
 (Y then at bf16), contracted in bf16 as the reference does. ``n_shards``
-> 1 fits row- or column-sharded over a torch.distributed process group,
-one process per shard (``parallel/sharded.py``); the sharded requests not
-ported yet raise NotImplementedError naming the ROADMAP item that brings
-them. Beside fit and transform, the reference's sklearn surface:
-``components_``, ``inverse_transform``, ``get_feature_names_out`` and
+> 1 fits row-, column- or grid-sharded over a torch.distributed process
+group, one process per shard or cell (``parallel/sharded.py``,
+``parallel/grid.py``); the sharded requests not ported yet raise
+NotImplementedError naming the ROADMAP item that brings them. Beside fit
+and transform, the reference's sklearn surface: ``components_``,
+``inverse_transform``, ``get_feature_names_out`` and
 ``print_topic_terms``; sklearn itself is imported only when sklearn asks
 for the estimator's tags (the card's machine has none).
 """
@@ -37,6 +38,7 @@ import scipy.sparse as sp
 import torch
 
 from ..ops.matmul import FP8_DTYPES
+from ..parallel.grid import factor_grid, run_grid
 from ..parallel.mesh import broadcast, group_size, make_mesh
 from ..parallel.sharded import check_shardable, run_sharded
 from ..solvers.common import SolverConfig, make_hyper
@@ -111,17 +113,20 @@ class CMF:
         frees the cache. See _resolve_loop.
     device : 'cuda' (default) | 'cpu' | a torch.device. 'cuda' raises when
         CUDA is not available.
-    n_shards : None | int | -1 | 'all'. Above 1, the fit (and transform)
-        is sharded over the default torch.distributed process group,
-        whose size it must equal (-1 and 'all': the group's size). Every
-        rank calls fit with the whole X and Y and gets the same result; a
-        rank computes on ``device`` ('cuda': ``cuda:$LOCAL_RANK``, else
-        the rank modulo the visible cards).
+    n_shards : None | int | -1 | 'all' | (rows, cols). Above 1, the fit
+        (and transform) is sharded over the default torch.distributed
+        process group, whose size it must equal (-1 and 'all': the group's
+        size; a tuple, shard_layout='grid' only: rows·cols). Every rank
+        calls fit with the whole X and Y and gets the same result; a rank
+        computes on ``device`` ('cuda': ``cuda:$LOCAL_RANK``, else the rank
+        modulo the visible cards).
     shard_layout : 'rows' (X's rows and U sharded) | 'cols' (the shared
-        dimension: X's columns, Y's rows and V sharded). transform folds
-        in by rows whatever the fit's layout. Under shards only the host
-        loop and full-batch dense, densified or CSR data are ported
-        (``parallel/sharded.py``); 'grid' raises naming ROADMAP A10b.
+        dimension: X's columns, Y's rows and V sharded) | 'grid' (X's
+        cells over a (rows, cols) mesh: the tuple, or an int's
+        ``factor_grid``). transform folds in by rows, over every rank,
+        whatever the fit's layout. Under shards only the host loop and
+        full-batch dense, densified or CSR data (fp8 dense) are ported
+        (``parallel/sharded.py``, ``parallel/grid.py``).
 
     Attributes: U_, V_, Z_ (NumPy float64), reconstruction_err_, n_iter_,
     loss_history_, loss_iters_, step_times_, n_components_.
@@ -203,9 +208,9 @@ class CMF:
 
     def _resolve_n_shards(self):
         """None or a positive int, passed through; -1 or 'all': the size of
-        the default process group (ValueError when there is none). A
-        (rows, cols) tuple and the grid layout are not ported
-        (NotImplementedError naming ROADMAP A10b). Any other value raises,
+        the default process group (ValueError when there is none); a
+        (rows, cols) tuple under shard_layout='grid': rows·cols (under
+        another layout the reference's ValueError). Any other value raises,
         as in the reference (``pycmf_tpu/models/cmf.py:161-197``): a typo
         such as n_shards=0 must not fit on one device."""
         ns = self.n_shards
@@ -215,7 +220,11 @@ class CMF:
             if len(ns) == 2 and all(
                     isinstance(v, (int, np.integer))
                     and not isinstance(v, bool) and v >= 1 for v in ns):
-                check_shardable(layout="grid")
+                if self.shard_layout != "grid":
+                    raise ValueError(
+                        "a (rows, cols) n_shards tuple requires "
+                        "shard_layout='grid'")
+                return int(ns[0]) * int(ns[1])
             raise ValueError(
                 f"n_shards={ns!r} not understood; a tuple must be two "
                 "positive ints (rows, cols) with shard_layout='grid'")
@@ -238,6 +247,15 @@ class CMF:
     def _sharded(self) -> bool:
         ns = self._resolve_n_shards()
         return ns is not None and ns > 1
+
+    def _resolve_grid(self):
+        """(rows, cols) of the grid layout's mesh: a tuple as given, else
+        ``factor_grid`` of the resolved count (n_shards=2 is (1, 2)).
+        Reference: ``pycmf_tpu/models/cmf.py:_resolve_grid``."""
+        ns = self.n_shards
+        if isinstance(ns, (tuple, list)):
+            return int(ns[0]), int(ns[1])
+        return factor_grid(self._resolve_n_shards())
 
     def _resolve_dtype(self, which=None):
         dt = which if which is not None else self.dtype
@@ -332,14 +350,26 @@ class CMF:
         """Whether host matrix A stays CSR or chunked on the device (is not
         densified) under sparse_mode, by as_coupled's storage-byte rule: fp8
         counts 4 bytes per element (its densify goes through a float32
-        buffer)."""
+        buffer). Under n_shards > 1 each shard or cell is sized alone (the
+        rows layout's ⌈n/d⌉·m, the cols layout's n·⌈m/d⌉, the grid's
+        ⌈n/r⌉·⌈m/c⌉), fp8 at 1 byte per element (densified on the host).
+        Reference: ``pycmf_tpu/models/cmf.py:_stays_sparse``."""
         if not sp.issparse(A) or self.sparse_mode == "dense":
             return False
         if self.sparse_mode in ("csr", "chunked"):
             return True
         ddt = self._resolve_data_dtype()
-        item = 4 if ddt in FP8_DTYPES else ddt.itemsize
-        return A.shape[0] * A.shape[1] * item > DENSIFY_THRESHOLD
+        n, m = A.shape
+        sharded = self._sharded()
+        item = (1 if sharded else 4) if ddt in FP8_DTYPES else ddt.itemsize
+        if sharded and self.shard_layout == "grid":
+            r, c = self._resolve_grid()
+            n, m = -(-n // r), -(-m // c)
+        elif sharded and self.shard_layout == "cols":
+            m = -(-m // self._resolve_n_shards())
+        elif sharded:
+            n = -(-n // self._resolve_n_shards())
+        return n * m * item > DENSIFY_THRESHOLD
 
     def _chunked_ok(self, link) -> bool:
         """Whether 'auto' streams a sparse matrix past the densify
@@ -378,8 +408,7 @@ class CMF:
             check_shardable(
                 layout=self.shard_layout, loop=self.loop,
                 sg_sample_ratio=self.sg_sample_ratio,
-                sparse_mode=self.sparse_mode,
-                data_dtype=self._resolve_data_dtype())
+                sparse_mode=self.sparse_mode)
         mu = self.solver == "mu"
         X = check_matrix(X, "X", require_non_negative=mu)
         if Y is not None:
@@ -409,10 +438,10 @@ class CMF:
                           _generator(self.random_state, U0.device), **kw)
 
     def _run_sharded(self, X, Y, U0, V0, Z0, cfg, layout=None):
-        """The sharded fit on this rank (``parallel/sharded.py``) in
-        ``layout`` (default: shard_layout), from the first rank's U0, V0
-        and Z0: a draw without a fixed random_state differs between
-        processes."""
+        """The sharded fit on this rank (``parallel/sharded.py``, the grid
+        layout ``parallel/grid.py``) in ``layout`` (default:
+        shard_layout), from the first rank's U0, V0 and Z0: a draw without
+        a fixed random_state differs between processes."""
         self._resolve_device()
         mesh = make_mesh(self._resolve_n_shards(), device=self.device)
         dt = self._resolve_dtype()
@@ -428,14 +457,18 @@ class CMF:
         U0, V0, Z0 = (first_rank(a) for a in (U0, V0, Z0))
         hyper = make_hyper(self.alpha, self.l1_ratio, self.eps,
                            self.hessian_pertubation, dtype=dt)
-        return run_sharded(
-            self.solver, X, Y, U0, V0, Z0, cfg, hyper, n_shards=mesh.world,
-            group=mesh.group, layout=layout or self.shard_layout, dtype=dt,
-            data_dtype=None if ddt == dt else ddt, device=mesh.device,
-            max_iter=self.max_iter, tol=self.tol,
-            eval_every=self.eval_every, verbose=self.verbose,
-            loop=self._resolve_loop(cfg),
-            sparse_mode=self._matrix_sparse_mode(X, self.x_link))
+        layout = layout or self.shard_layout
+        kw = dict(group=mesh.group, dtype=dt,
+                  data_dtype=None if ddt == dt else ddt, device=mesh.device,
+                  max_iter=self.max_iter, tol=self.tol,
+                  eval_every=self.eval_every, verbose=self.verbose,
+                  loop=self._resolve_loop(cfg),
+                  sparse_mode=self._matrix_sparse_mode(X, self.x_link))
+        if layout == "grid":
+            return run_grid(self.solver, X, Y, U0, V0, Z0, cfg, hyper,
+                            grid=self._resolve_grid(), **kw)
+        return run_sharded(self.solver, X, Y, U0, V0, Z0, cfg, hyper,
+                           n_shards=mesh.world, layout=layout, **kw)
 
     # -- public API (reference parity) -------------------------------------
 
@@ -529,7 +562,8 @@ class CMF:
         cfg = self._config(has_Y=False, update_U=True, update_V=False,
                            update_Z=False)
         if self._sharded():
-            # the rows layout whatever the fit's: the new rows are the axis
+            # the rows layout over every rank whatever the fit's: the new
+            # rows are the axis
             Uf = self._run_sharded(X, None, U0, self.V_, None, cfg,
                                    layout="rows")[0]
             return factors_to_numpy(Uf, None, None)[0]

@@ -72,16 +72,23 @@ def _linear_term(A, M: torch.Tensor, B: torch.Tensor, a_sq=None,
     if a_sq is None:
         a_sq = _row_blocks_sum(A, M, lambda Ab, Mb: torch.sum(
             Ab.to(M.dtype) ** 2))
-    return 0.5 * (a_sq - 2.0 * streamed_inner(A, M, B) + cross)
+    # the product at the data's precision (B rounded to bf16 under bf16 or
+    # fp8 data), as the reference's single-device term takes it
+    inner = _row_blocks_sum(A, M, lambda Ab, Mb: torch.sum(
+        matmul(Ab, B) * Mb))
+    return 0.5 * (a_sq - 2.0 * inner + cross)
 
 
 def streamed_inner(A: torch.Tensor, M: torch.Tensor,
                    B: torch.Tensor) -> torch.Tensor:
-    """⟨A, M Bᵀ⟩ = Σ((A B) ⊙ M) at M's precision for dense A, over row
-    blocks when A is stored below it (a product with bf16 or fp8 data
-    rounds B to bf16, ops/matmul.py)."""
+    """⟨A, M Bᵀ⟩ = Σ((A B) ⊙ M) at M's precision for dense A: a block of A
+    stored below it (bf16 or fp8) is upcast to M's dtype before the
+    product, so B is not rounded. The sharded losses' inner (the
+    reference's ``streamed_inner``): the factored identity cancels large
+    terms, and a bf16 product's rounding of B would bias it at any size.
+    Over row blocks when A is stored below M's dtype."""
     return _row_blocks_sum(A, M, lambda Ab, Mb: torch.sum(
-        matmul(Ab, B) * Mb))
+        matmul(Ab.to(Mb.dtype), B) * Mb))
 
 
 def _row_blocks_sum(A, M: torch.Tensor, fn) -> torch.Tensor:

@@ -4,10 +4,11 @@
         --backend gloo --device cpu --docs 2000 --terms 3000
 
 (``--backend nccl --device cuda`` on a machine with a card per process;
-``--layout cols`` shards the shared dimension instead of X's rows). Every
-rank fits ``CMF(n_shards=<world size>, shard_layout=<layout>)`` on the
-whole 20NG-shaped surrogate; rank 0 prints what it got and the
-single-device fit's loss beside it.
+``--layout cols`` shards the shared dimension instead of X's rows,
+``--layout grid --grid R C`` X's cells over an R×C mesh of R·C processes).
+Every rank fits ``CMF(n_shards=<world size, or (R, C)>,
+shard_layout=<layout>)`` on the whole 20NG-shaped surrogate; rank 0 prints
+what it got and the single-device fit's loss beside it.
 """
 from __future__ import annotations
 
@@ -27,7 +28,11 @@ def main(argv=None) -> None:
     ap.add_argument("--terms", type=int, default=30000)
     ap.add_argument("--solver", default="mu", choices=("mu", "newton"))
     ap.add_argument("--max-iter", type=int, default=50)
-    ap.add_argument("--layout", default="rows", choices=("rows", "cols"))
+    ap.add_argument("--layout", default="rows",
+                    choices=("rows", "cols", "grid"))
+    ap.add_argument("--grid", type=int, nargs=2, metavar=("R", "C"),
+                    help="the grid layout's mesh (default: factor_grid of "
+                    "the world size)")
     args = ap.parse_args(argv)
     dist.init_process_group(args.backend)
     try:
@@ -35,14 +40,17 @@ def main(argv=None) -> None:
                               random_state=0)
         kw = dict(n_components=20, solver=args.solver, random_state=0,
                   max_iter=args.max_iter, device=args.device)
-        est = CMF(n_shards=dist.get_world_size(),
-                  shard_layout=args.layout, **kw).fit(X, Y)
+        shards = (tuple(args.grid) if args.layout == "grid" and args.grid
+                  else dist.get_world_size())
+        est = CMF(n_shards=shards, shard_layout=args.layout, **kw).fit(X, Y)
         if dist.get_rank() == 0:
             single = CMF(**kw).fit(X, Y)
             print(f"{dist.get_world_size()} shards: n_iter {est.n_iter_}, "
                   f"loss {est.reconstruction_err_:.9g}; one device: n_iter "
                   f"{single.n_iter_}, loss {single.reconstruction_err_:.9g}; "
-                  f"layout {args.layout}", flush=True)
+                  f"layout {args.layout}"
+                  + (" {}x{}".format(*est._resolve_grid())
+                     if args.layout == "grid" else ""), flush=True)
     finally:
         dist.destroy_process_group()
 

@@ -8,32 +8,42 @@ Whoever creates the group names its backend: NCCL across cards, gloo
 across CPU processes (or CUDA tensors through the host). The port chooses
 no backend and never switches one.
 
+The grid layout's (rows × cols) mesh is the world group plus two sets of
+subgroups (:func:`make_grid_mesh`): the ranks of one mesh column (a sum over
+the ROW axis) and of one mesh row (a sum over the COL axis).
+
 Every reduction of a sharded fit goes through :func:`all_reduce`, which
 packs the terms summed at one point into one buffer and one collective,
-and counts the calls, bytes and host time in :data:`COMM` (with CUDA-event
-times when ``COMM.timed`` is set).
+and counts the calls, bytes and host time in :data:`COMM`, in all and per
+mesh axis (with CUDA-event times when ``COMM.timed`` is set).
 """
 from __future__ import annotations
 
 import dataclasses
 import os
 import time
-from typing import Any, List, NamedTuple, Tuple
+import weakref
+from typing import Any, Dict, List, NamedTuple, Tuple
 
 import torch
 import torch.distributed as dist
 
 AXIS = "shards"
+GRID_AXIS = "grid"   # the grid layout's whole mesh
+ROW_AXIS = "rows"    # ranks sharing a mesh column: sums over the row blocks
+COL_AXIS = "cols"    # ranks sharing a mesh row: sums over the column blocks
 
 
 class Mesh(NamedTuple):
     """A sharded fit's process group, this process's rank in it, the
-    group's size, and the device this rank computes on."""
+    group's size, the device this rank computes on, and the name of the
+    mesh axis the group spans (what :data:`COMM` counts it under)."""
 
     group: Any
     rank: int
     world: int
     device: torch.device
+    axis: str = AXIS
 
 
 def rank_device(rank: int, device="cuda") -> torch.device:
@@ -82,26 +92,103 @@ def make_mesh(n_devices: int | None = None, group=None,
     return Mesh(group, rank, world, rank_device(rank, device))
 
 
+class GridMesh(NamedTuple):
+    """The grid layout's (rows × cols) mesh from one rank's view: rank =
+    i·cols + j sits at mesh position (i, j), row-major as the reference's
+    ``make_grid_mesh`` reshapes its devices.
+
+    world : every rank (axis ``GRID_AXIS``)
+    row   : the ranks of mesh column j, i = 0 .. rows − 1 (``ROW_AXIS``;
+            rank i in it): sums over X's row blocks (V's X-side terms)
+    col   : the ranks of mesh row i, j = 0 .. cols − 1 (``COL_AXIS``;
+            rank j in it): sums over X's column blocks (U's and Z's terms)
+    """
+
+    world: Mesh
+    row: Mesh
+    col: Mesh
+    rows: int
+    cols: int
+
+    @property
+    def i(self) -> int:
+        return self.world.rank // self.cols
+
+    @property
+    def j(self) -> int:
+        return self.world.rank % self.cols
+
+
+# the axis subgroups made for each parent group and mesh shape, kept so a
+# fit does not create new communicators every time (torch frees none before
+# the process group is destroyed): (parent, shape, this rank's ROW-axis
+# group, its COL-axis group), all weak references, so an entry dies with
+# its groups when the process group is destroyed
+_GRID_GROUPS: List[Tuple[Any, Tuple[int, int], Any, Any]] = []
+
+
+def _axis_groups(parent, rows: int, cols: int, i: int, j: int):
+    """This rank's (ROW-axis group: mesh column j, COL-axis group: mesh row
+    i) of ``parent``. Every rank creates every subgroup, in the same order
+    (torch's rule for ``new_group``: a rank that skips one hangs the
+    others); a rank keeps the two it belongs to."""
+    key = (parent if parent is not None
+           else dist.distributed_c10d._get_default_group())
+    _GRID_GROUPS[:] = [e for e in _GRID_GROUPS
+                       if all(ref() is not None for ref in (e[0], *e[2:]))]
+    for p, shape, row_ref, col_ref in _GRID_GROUPS:
+        if p() is key and shape == (rows, cols):
+            return row_ref(), col_ref()
+
+    def glob(r):
+        return dist.get_global_rank(parent, r) if parent is not None else r
+
+    row_groups = [dist.new_group([glob(a * cols + b) for a in range(rows)])
+                  for b in range(cols)]
+    col_groups = [dist.new_group([glob(a * cols + b) for b in range(cols)])
+                  for a in range(rows)]
+    row, col = row_groups[j], col_groups[i]
+    _GRID_GROUPS.append((weakref.ref(key), (rows, cols), weakref.ref(row),
+                         weakref.ref(col)))
+    return row, col
+
+
+def make_grid_mesh(rows: int, cols: int, group=None,
+                   device="cuda") -> GridMesh:
+    """The (rows × cols) mesh of a grid fit over ``group`` (default: the
+    default process group), whose size must be rows·cols (ValueError, as
+    :func:`make_mesh`). The axis subgroups are made once per parent group
+    and shape, on every rank of the job: with a ``group`` other than the
+    default one, every process of the job must make the same call.
+    Reference: ``pycmf_tpu/parallel/mesh.py:make_grid_mesh``."""
+    world = make_mesh(rows * cols, group, device)._replace(axis=GRID_AXIS)
+    i, j = divmod(world.rank, cols)
+    row, col = _axis_groups(group, rows, cols, i, j)
+    return GridMesh(world, Mesh(row, i, rows, world.device, ROW_AXIS),
+                    Mesh(col, j, cols, world.device, COL_AXIS), rows, cols)
+
+
 @dataclasses.dataclass
 class CommStats:
     """What the sharded fits' collectives did in this process: all-reduce
     calls, the bytes each rank contributed and the host's seconds inside
-    the calls; with ``timed`` set, a pair of CUDA events around every
-    all-reduce of CUDA tensors (``events``, read with :meth:`elapsed_ms`
-    after a sync)."""
+    the calls, in all and per mesh axis (``by_axis``: axis → [calls,
+    bytes]); with ``timed`` set, a pair of CUDA events around every
+    all-reduce of CUDA tensors (``events``, the axis of each in
+    ``event_axes``; read them after a sync)."""
 
     calls: int = 0
     nbytes: int = 0
     host_s: float = 0.0
     timed: bool = False
     events: List[Tuple[Any, Any]] = dataclasses.field(default_factory=list)
+    event_axes: List[str] = dataclasses.field(default_factory=list)
+    by_axis: Dict[str, List[int]] = dataclasses.field(default_factory=dict)
 
     def reset(self, timed: bool = False) -> None:
         self.calls, self.nbytes, self.host_s = 0, 0, 0.0
-        self.timed, self.events = timed, []
-
-    def elapsed_ms(self) -> float:
-        return sum(a.elapsed_time(b) for a, b in self.events)
+        self.timed, self.events, self.event_axes = timed, [], []
+        self.by_axis = {}
 
 
 COMM = CommStats()
@@ -110,10 +197,18 @@ COMM = CommStats()
 def all_reduce(mesh: Mesh, *tensors: torch.Tensor) -> List[torch.Tensor]:
     """Each tensor summed over the mesh's ranks (new tensors; the inputs are
     left as they are), in one collective: the tensors, of one dtype, go
-    into one flat buffer."""
+    into one flat buffer. On a grid's axis of one rank the sum is the
+    tensor itself: no collective, nothing counted (the world mesh, and the
+    rows and cols layouts' of one rank, keep theirs)."""
+    if mesh.world == 1 and mesh.axis in (ROW_AXIS, COL_AXIS):
+        return [t.contiguous() for t in tensors]
     flat = torch.cat([t.reshape(-1) for t in tensors])
+    nbytes = flat.numel() * flat.element_size()
     COMM.calls += 1
-    COMM.nbytes += flat.numel() * flat.element_size()
+    COMM.nbytes += nbytes
+    per = COMM.by_axis.setdefault(mesh.axis, [0, 0])
+    per[0] += 1
+    per[1] += nbytes
     timed = COMM.timed and flat.is_cuda
     if timed:
         a = torch.cuda.Event(enable_timing=True)
@@ -125,6 +220,7 @@ def all_reduce(mesh: Mesh, *tensors: torch.Tensor) -> List[torch.Tensor]:
     if timed:
         b.record()
         COMM.events.append((a, b))
+        COMM.event_axes.append(mesh.axis)
     out, off = [], 0
     for t in tensors:
         out.append(flat[off:off + t.numel()].view(t.shape))

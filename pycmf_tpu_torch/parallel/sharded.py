@@ -34,10 +34,10 @@ zero-extra-pass eval losses (the summed or local V terms, or V's Σφ) a
 block's loss costs one small all-reduce. Every rank is given the whole host
 X and Y, as the reference's single controller holds them, and uploads only
 its own block of X (CSR or BlockEll by the single-device rule for that
-block, or dense). Not ported yet: the ``grid`` layout and ``n_shards``
-tuples (ROADMAP A10b part b) and, across shards, the chunked layout, fp8
-data, sampled Newton and the device loop (A10c); each raises
-NotImplementedError naming its item.
+block, or dense; under fp8 data densified on the host and stored as e4m3,
+Y at bf16). The 2-D ``grid`` layout is ``parallel/grid.py``. Not
+ported yet across shards: the chunked layout, sampled Newton and the device
+loop (ROADMAP A10c); each raises NotImplementedError naming it.
 """
 from __future__ import annotations
 
@@ -63,7 +63,7 @@ from ..solvers.newton import (Term, _transposed, _with_transposes,
                               fused_newton_u_allowed, fused_sigmoid_allowed,
                               fused_sigmoid_update, newton_update_factor,
                               shared_gauss_hinv)
-from ..utils.validation import DENSIFY_THRESHOLD, as_coupled
+from ..utils.validation import DENSIFY_THRESHOLD, as_coupled, check_fp8_range
 from .mesh import Mesh, all_reduce, gather_rows, make_mesh
 
 
@@ -110,6 +110,22 @@ def row_block(X, n_loc: int, rank: int):
     return blk, hi - lo
 
 
+def y_dtype(data_dtype) -> torch.dtype:
+    """Y's storage dtype: X's, but bf16 under fp8 X (the reference
+    quantizes only the big matrix)."""
+    return torch.bfloat16 if data_dtype in FP8_DTYPES else data_dtype
+
+
+def stored_block(blk, data_dtype):
+    """A rank's block of X as it is uploaded: under fp8 a sparse block is
+    densified on the host (at X's dtype) and stored as e4m3 at 1 byte per
+    element by as_coupled, the norms those of the stored values (the
+    reference's sharded fp8 shards and cells); else as it is."""
+    if sp.issparse(blk) and data_dtype in FP8_DTYPES:
+        return blk.toarray()
+    return blk
+
+
 def prepare_rows(X, Y, U0, mesh: Mesh, dtype, data_dtype, cfg: SolverConfig,
                  x_mode: str = "dense"):
     """(RowOperands, this rank's U block, n) on mesh.device.
@@ -124,20 +140,22 @@ def prepare_rows(X, Y, U0, mesh: Mesh, dtype, data_dtype, cfg: SolverConfig,
     d, dev, up = mesh.world, mesh.device, cfg.use_pallas
     n_loc = -(-n // d)
     blk, n_valid = row_block(X, n_loc, mesh.rank)
+    blk = stored_block(blk, data_dtype)
     Xc = as_coupled(blk, data_dtype, dev, use_pallas=up,
                     sparse_mode=x_mode if sp.issparse(blk) else "auto")
+    ydt = y_dtype(data_dtype)
     if Y is None:
         Yc = None
     elif sp.issparse(Y) and cfg.y_link == LINEAR:
-        Yc = as_coupled(Y, data_dtype, dev, use_pallas=up, sparse_mode="csr")
+        Yc = as_coupled(Y, ydt, dev, use_pallas=up, sparse_mode="csr")
     else:
         if sp.issparse(Y) and (Y.shape[0] * Y.shape[1]
-                               * data_dtype.itemsize > DENSIFY_THRESHOLD):
+                               * ydt.itemsize > DENSIFY_THRESHOLD):
             raise NotImplementedError(
                 "a sigmoid-linked sparse Y past the densify threshold under "
                 "n_shards takes the replicated chunked layout, which is not "
                 "ported yet (ROADMAP A10c)")
-        Yc = as_coupled(Y, data_dtype, dev, sparse_mode="dense")
+        Yc = as_coupled(Y, ydt, dev, sparse_mode="dense")
     # ‖X‖² and the column norms over all ranks: one all-reduce of the
     # blocks' own (host float64, stored at the factor precision)
     a_sq = Xc.A.sq_norm if is_sparse(Xc.A) else Xc.a_sq
@@ -210,29 +228,11 @@ def prepare_cols(X, Y, V0, mesh: Mesh, dtype, data_dtype, cfg: SolverConfig,
     d, dev, up = mesh.world, mesh.device, cfg.use_pallas
     m_loc = -(-m // d)
     blk, m_valid = col_block(X, m_loc, mesh.rank)
+    blk = stored_block(blk, data_dtype)
     Xc = as_coupled(blk, data_dtype, dev, use_pallas=up,
                     sparse_mode=x_mode if sp.issparse(blk) else "auto")
-    if Y is None:
-        Yc = None
-    else:
-        if sp.issparse(Y) and cfg.y_link != LINEAR:
-            if d * m_loc * Y.shape[1] * data_dtype.itemsize \
-                    > DENSIFY_THRESHOLD:
-                raise NotImplementedError(
-                    "a sigmoid-linked sparse Y past the densify threshold "
-                    "under shard_layout='cols' takes the per-shard chunked "
-                    "carrier, which is not ported yet (ROADMAP A10c)")
-        elif sp.issparse(Y):
-            warnings.warn(
-                "shard_layout='cols' stores a LINEAR-linked sparse Y as a "
-                "dense row-sharded block on each device; the sparse Y was "
-                f"densified on the host ({Y.shape[0]}x{Y.shape[1]}). Fine "
-                "for label matrices; for a large sparse Y use "
-                "shard_layout='rows' (keeps Y CSR).",
-                UserWarning, stacklevel=3)
-            Y = np.asarray(Y.todense())
-        yblk = col_block(Y.T, m_loc, mesh.rank)[0].T
-        Yc = as_coupled(yblk, data_dtype, dev, sparse_mode="dense")
+    Yc = y_block(Y, d * m_loc, m_loc, mesh.rank, data_dtype, dev, cfg,
+                 "cols")
     # ‖X‖² over all ranks: one all-reduce of the blocks' own
     a_sq = Xc.A.sq_norm if is_sparse(Xc.A) else Xc.a_sq
     a_sq = all_reduce(mesh, a_sq.to(dtype))[0]
@@ -244,6 +244,38 @@ def prepare_cols(X, Y, V0, mesh: Mesh, dtype, data_dtype, cfg: SolverConfig,
                                              dtype=np.float64)).to(dev, dtype)
     ops = ColOperands(Xc, Yc, mask, m_valid, a_sq, n * d * m_loc)
     return ops, V, m
+
+
+def y_block(Y, m_pad: int, m_loc: int, block: int, data_dtype, device,
+            cfg: SolverConfig, layout: str) -> Optional[Coupled]:
+    """Row block ``block`` of Y (its rows are the sharded shared dimension,
+    padded to m_pad), dense on ``device``, or None. A sigmoid-linked
+    sparse Y is densified on the device up to the densify threshold (past
+    it the chunked carrier, ROADMAP A10c); a linear-linked sparse Y on the
+    host, with the reference's warning. Reference: ``_prepare_cols``,
+    ``pycmf_tpu/parallel/grid.py:_prepare_grid``."""
+    if Y is None:
+        return None
+    ydt = y_dtype(data_dtype)
+    if sp.issparse(Y) and cfg.y_link != LINEAR:
+        if m_pad * Y.shape[1] * ydt.itemsize > DENSIFY_THRESHOLD:
+            raise NotImplementedError(
+                "a sigmoid-linked sparse Y past the densify threshold under "
+                f"shard_layout={layout!r} takes the per-shard chunked "
+                "carrier, which is not ported yet (ROADMAP A10c)")
+    elif sp.issparse(Y):
+        what = ("a dense row-sharded block on each device" if layout == "cols"
+                else "dense COL-sharded blocks")
+        warnings.warn(
+            f"shard_layout={layout!r} stores a LINEAR-linked sparse Y as "
+            f"{what}; the sparse Y was densified on the host "
+            f"({Y.shape[0]}x{Y.shape[1]}). Fine for label matrices; for a "
+            "large sparse Y use shard_layout='rows'"
+            + (" (keeps Y CSR)." if layout == "cols" else "."),
+            UserWarning, stacklevel=4)
+        Y = np.asarray(Y.todense())
+    yblk = col_block(Y.T, m_loc, block)[0].T
+    return as_coupled(yblk, ydt, device, sparse_mode="dense")
 
 
 # ---------------------------------------------------------------------------
@@ -502,29 +534,41 @@ def _reduce_cols(cfg: SolverConfig, ops: ColOperands, V, Z, hyper: Hyper,
         local.append(gram(V))
     local.append(penalty(V, hyper.alpha, hyper.l1_ratio))
     if cfg.has_Y:
-        Yf = ops.Y.A.to(dt)
-        if cfg.y_link == LINEAR:
-            local += [torch.sum(Yf * Yf), torch.sum(matmul(Yf.mT, V) * Z)]
-        else:
-            rows = sigmoid_sq_rows(Yf, V, Z)
-            if _cols_padded(ops):
-                rows = rows * ops.mask
-            local.append(torch.sum(rows))
+        local += y_parts(cfg, ops.Y, V, Z,
+                         ops.mask if _cols_padded(ops) else None)
     sums = all_reduce(mesh, *(t.to(dt) for t in local))
     nx = len(x_parts)
     x_sums, rest = sums[:nx], sums[nx:]
     gV = rest.pop(0) if need_gv else None
     rest_loss = rest.pop(0)
     if cfg.has_Y:
-        if cfg.y_link == LINEAR:
-            y_sq, y_inner = rest
-            y_term = 0.5 * (y_sq - 2.0 * y_inner
-                            + torch.sum(gV * gram(Z)))
-        else:
-            y_term = rest[0]
-        rest_loss = rest_loss + y_term + penalty(Z, hyper.alpha,
-                                                 hyper.l1_ratio)
+        rest_loss = rest_loss + y_term(cfg, rest, gV, Z, hyper)
     return x_sums, gV, rest_loss
+
+
+def y_parts(cfg: SolverConfig, Y: Coupled, V, Z, mask=None) -> list:
+    """This rank's parts of Y's term over its row block Y_b (V_b its rows
+    of V), each summed over the blocks by the caller: linear, ‖Y_b‖² and
+    ⟨Y_bᵀV_b, Z⟩; sigmoid, the residual masked on the padding rows
+    (``mask``: σ(0) = ½ is not data)."""
+    Yf = Y.A.to(V.dtype)
+    if cfg.y_link == LINEAR:
+        return [torch.sum(Yf * Yf), torch.sum(matmul(Yf.mT, V) * Z)]
+    rows = sigmoid_sq_rows(Yf, V, Z)
+    if mask is not None:
+        rows = rows * mask
+    return [torch.sum(rows)]
+
+
+def y_term(cfg: SolverConfig, sums, gV, Z, hyper: Hyper):
+    """Y's term + R(Z) from the summed :func:`y_parts` (linear:
+    ½(‖Y‖² − 2⟨YᵀV, Z⟩ + ⟨VᵀV, ZᵀZ⟩), gV the summed VᵀV)."""
+    if cfg.y_link == LINEAR:
+        y_sq, y_inner = sums
+        term = 0.5 * (y_sq - 2.0 * y_inner + torch.sum(gV * gram(Z)))
+    else:
+        term = sums[0]
+    return term + penalty(Z, hyper.alpha, hyper.l1_ratio)
 
 
 def loss_cols(cfg: SolverConfig, ops: ColOperands, U, V, Z, hyper: Hyper,
@@ -728,72 +772,45 @@ def newton_cols_iter(cfg: SolverConfig, ops: ColOperands, U, V, Z,
 # ---------------------------------------------------------------------------
 
 
-def make_rows_block(cfg: SolverConfig, solver: str, mesh: Mesh, aux):
-    """(block, initial loss) for run_solver_loop, whose state is (ops, U,
-    V, Z): a block runs n_steps iterations, then the eval loss (the aux
-    loss of ``aux``, else :func:`loss_rows`). Reference:
-    ``pycmf_tpu/parallel/sharded.py:_make_rows_block``."""
-    aux_loss = _aux_loss_rows(cfg, mesh, aux) if aux is not None else None
+def make_block(cfg: SolverConfig, solver: str, mesh, aux, *, mu_iter,
+               newton_iter, loss, aux_loss):
+    """(block, initial loss) for run_solver_loop over a sharded layout's
+    state (ops, U, V, Z): a block runs n_steps iterations (``mu_iter`` or
+    ``newton_iter``), then the eval loss (``aux_loss(cfg, mesh, aux)`` where
+    ``aux`` names one, else ``loss``). Each layout passes its own functions
+    and the mesh they take (a Mesh, or the grid's GridMesh). Reference:
+    ``_make_rows_block`` and ``_make_cols_block`` in
+    ``pycmf_tpu/parallel/sharded.py``, ``_make_grid_block`` in ``grid.py``."""
+    aux_fn = aux_loss(cfg, mesh, aux) if aux is not None else None
 
     def loss_fn(state, hyper: Hyper):
         ops, U, V, Z = state
-        return loss_rows(cfg, ops, U, V, Z, hyper, mesh)
+        return loss(cfg, ops, U, V, Z, hyper, mesh)
 
     def block(state, hyper: Hyper, rng, n_steps: int):
         ops, U, V, Z = state
         a = None
         for _ in range(n_steps):
             if solver == "mu":
-                U, V, Z, a = mu_rows_iter(cfg, ops, U, V, Z, hyper, mesh)
+                U, V, Z, a = mu_iter(cfg, ops, U, V, Z, hyper, mesh)
             else:
-                U, V, Z, a = newton_rows_iter(cfg, ops, U, V, Z, hyper, mesh,
-                                              with_aux=aux)
+                U, V, Z, a = newton_iter(cfg, ops, U, V, Z, hyper, mesh,
+                                         with_aux=aux)
         state = (ops, U, V, Z)
         if aux is None:
             return state, loss_fn(state, hyper), rng
-        return state, aux_loss(state, a, hyper), rng
-
-    return block, loss_fn
-
-
-def make_cols_block(cfg: SolverConfig, solver: str, mesh: Mesh, aux):
-    """(block, initial loss) for run_solver_loop over the cols layout's
-    state (ops, U, V, Z), as :func:`make_rows_block`. Reference:
-    ``pycmf_tpu/parallel/sharded.py:_make_cols_block``."""
-    aux_loss = _aux_loss_cols(cfg, mesh, aux) if aux is not None else None
-
-    def loss_fn(state, hyper: Hyper):
-        ops, U, V, Z = state
-        return loss_cols(cfg, ops, U, V, Z, hyper, mesh)
-
-    def block(state, hyper: Hyper, rng, n_steps: int):
-        ops, U, V, Z = state
-        a = None
-        for _ in range(n_steps):
-            if solver == "mu":
-                U, V, Z, a = mu_cols_iter(cfg, ops, U, V, Z, hyper, mesh)
-            else:
-                U, V, Z, a = newton_cols_iter(cfg, ops, U, V, Z, hyper, mesh,
-                                              with_aux=aux)
-        state = (ops, U, V, Z)
-        if aux is None:
-            return state, loss_fn(state, hyper), rng
-        return state, aux_loss(state, a, hyper), rng
+        return state, aux_fn(state, a, hyper), rng
 
     return block, loss_fn
 
 
 def check_shardable(*, layout: str = "rows", loop: str = "host",
-                    sg_sample_ratio: float = 1.0, sparse_mode: str = "auto",
-                    data_dtype=None) -> None:
-    """Raise NotImplementedError, naming its ROADMAP item, for a sharded
-    request this port does not run yet."""
-    if layout == "grid":
-        raise NotImplementedError(
-            "shard_layout='grid' (and an n_shards (rows, cols) tuple) is "
-            "not ported yet (ROADMAP A10b part b); use shard_layout='rows' "
-            "or 'cols'")
-    if layout not in ("rows", "cols"):
+                    sg_sample_ratio: float = 1.0,
+                    sparse_mode: str = "auto") -> None:
+    """Raise ValueError for an unknown layout, and NotImplementedError,
+    naming its ROADMAP item, for a sharded request this port does not run
+    yet (the same in the rows, cols and grid layouts)."""
+    if layout not in ("rows", "cols", "grid"):
         raise ValueError(
             f"layout must be 'rows', 'cols' or 'grid', got {layout!r}")
     todo = []
@@ -804,16 +821,43 @@ def check_shardable(*, layout: str = "rows", loop: str = "host",
         todo.append("sg_sample_ratio < 1 (the per-shard draws)")
     if sparse_mode == "chunked":
         todo.append("sparse_mode='chunked' (per-shard chunked layouts)")
-    if data_dtype in FP8_DTYPES:
-        todo.append("data_dtype='fp8' (per-shard fp8 storage)")
     if todo:
         raise NotImplementedError(
             "not ported yet under n_shards > 1 (ROADMAP A10c): "
             + "; ".join(todo))
 
 
-def _factor(A, device, dtype) -> torch.Tensor:
+def factor(A, device, dtype) -> torch.Tensor:
     return torch.as_tensor(np.asarray(A, dtype=np.float64)).to(device, dtype)
+
+
+def x_mode(X, local: int, ddt, cfg: SolverConfig, solver: str,
+           sparse_mode: str, where: str = "shard") -> str:
+    """How each rank stores its block of X (``local`` elements): 'dense',
+    or for a sparse X 'csr' under 'csr', or under 'auto' when the block's
+    dense copy at the storage dtype (fp8: 1 byte per element) is past the
+    densify threshold (the reference's rule on the local shard or cell).
+    Under fp8 the range is checked and a block that would stay sparse
+    raises the reference's ValueError. ``where``: 'shard' or 'cell'."""
+    mode = "dense"
+    if sp.issparse(X) and sparse_mode != "dense":
+        mode = ("csr" if sparse_mode == "csr"
+                or local * ddt.itemsize > DENSIFY_THRESHOLD else "dense")
+    if ddt in FP8_DTYPES:
+        if mode == "csr":
+            more = "more shards" if where == "shard" else "a bigger grid"
+            raise ValueError(
+                f"fp8 data storage requires dense device {where}s, but X "
+                f"stays sparse under sparse_mode={sparse_mode!r} at this "
+                f"{where} size; use data_dtype='bfloat16' or {more}")
+        check_fp8_range(X, ddt)
+    if mode == "csr" and cfg.x_link != LINEAR and solver == "newton":
+        raise NotImplementedError(
+            f"a sigmoid-linked sparse X whose {where} is past the densify "
+            f"threshold takes a chunked layout per {where}, which is not "
+            "ported yet (ROADMAP A10c); use sparse_mode='dense' or more "
+            "shards")
+    return mode
 
 
 def run_sharded(solver: str, X, Y, U0, V0, Z0, cfg: SolverConfig,
@@ -836,46 +880,46 @@ def run_sharded(solver: str, X, Y, U0, V0, Z0, cfg: SolverConfig,
     reference's rule on the local shard), else keeps it as 'csr' does:
     CSR, or BlockEll under use_pallas where its tiles fill enough (a
     sigmoid-linked X would take a chunked block there: ROADMAP A10c).
-    Reference: ``pycmf_tpu/parallel/sharded.py:run_sharded``, layouts
-    'rows' and 'cols', loop 'host'."""
+    data_dtype fp8: each block dense on the host, stored as e4m3 (a block
+    that stays sparse raises ValueError), Y at bf16; a dense rows block
+    takes K1/K2's e4m3 forms. Reference:
+    ``pycmf_tpu/parallel/sharded.py:run_sharded``, layouts 'rows' and
+    'cols', loop 'host' (the grid layout: ``parallel/grid.py:run_grid``)."""
     check_loop(loop)
     check_shardable(layout=layout, loop=loop,
                     sg_sample_ratio=cfg.sg_sample_ratio,
-                    sparse_mode=sparse_mode, data_dtype=data_dtype)
+                    sparse_mode=sparse_mode)
+    if layout not in ("rows", "cols"):
+        raise ValueError(f"layout must be 'rows' or 'cols' (the grid "
+                         f"layout is run_grid's), got {layout!r}")
     mesh = make_mesh(n_shards, group, device)
     ddt = dtype if data_dtype is None else data_dtype
     n, m = X.shape
     d, dev = mesh.world, mesh.device
-    x_mode = "dense"
-    if sp.issparse(X) and sparse_mode != "dense":
-        local = (-(-n // d) * m if layout == "rows" else n * -(-m // d))
-        x_mode = ("csr" if sparse_mode == "csr"
-                  or local * ddt.itemsize > DENSIFY_THRESHOLD else "dense")
-        if x_mode == "csr" and cfg.x_link != LINEAR and solver == "newton":
-            raise NotImplementedError(
-                "a sigmoid-linked sparse X whose shard is past the densify "
-                "threshold takes a chunked layout per shard, which is not "
-                "ported yet (ROADMAP A10c); use sparse_mode='dense' or more "
-                "shards")
+    local = (-(-n // d) * m if layout == "rows" else n * -(-m // d))
+    mode = x_mode(X, local, ddt, cfg, solver, sparse_mode)
     k = U0.shape[1]
-    Z = (_factor(Z0, dev, dtype) if Z0 is not None and cfg.has_Y
+    Z = (factor(Z0, dev, dtype) if Z0 is not None and cfg.has_Y
          else torch.zeros((0, k), dtype=dtype, device=dev))
     if layout == "rows":
-        ops, U, _ = prepare_rows(X, Y, U0, mesh, dtype, ddt, cfg, x_mode)
-        V = _factor(V0, dev, dtype)
+        ops, U, _ = prepare_rows(X, Y, U0, mesh, dtype, ddt, cfg, mode)
+        V = factor(V0, dev, dtype)
     else:
-        ops, V, _ = prepare_cols(X, Y, V0, mesh, dtype, ddt, cfg, x_mode)
-        U = _factor(U0, dev, dtype)
+        ops, V, _ = prepare_cols(X, Y, V0, mesh, dtype, ddt, cfg, mode)
+        U = factor(U0, dev, dtype)
     if solver == "newton":
         # the contiguous Xᵀ and Yᵀ the fused sigmoid V and Z updates read
         Xc, Yc = _with_transposes(cfg, ops.X, ops.Y, V, Z)
         ops = ops._replace(X=Xc, Y=Yc)
     if layout == "rows":
         aux = rows_aux_kind(cfg, ops, U, solver)
-        block, loss_fn = make_rows_block(cfg, solver, mesh, aux)
+        fns = dict(mu_iter=mu_rows_iter, newton_iter=newton_rows_iter,
+                   loss=loss_rows, aux_loss=_aux_loss_rows)
     else:
         aux = cols_aux_kind(cfg, ops, V, solver)
-        block, loss_fn = make_cols_block(cfg, solver, mesh, aux)
+        fns = dict(mu_iter=mu_cols_iter, newton_iter=newton_cols_iter,
+                   loss=loss_cols, aux_loss=_aux_loss_cols)
+    block, loss_fn = make_block(cfg, solver, mesh, aux, **fns)
     state, n_iter, losses, iters, times = run_solver_loop(
         block, (ops, U, V, Z), hyper, None, max_iter=max_iter, tol=tol,
         eval_every=eval_every, verbose=verbose if mesh.rank == 0 else 0,

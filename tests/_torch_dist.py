@@ -104,7 +104,11 @@ def run_cases(rank, cases):
     kind 'sigmoid': fused_sigmoid_update on this rank's columns of X
         (rank r of d takes columns [r·q/d, (r+1)·q/d)) with the group;
     kind 'newton_factor': newton_update_factor with a distributed term on
-        this rank's columns and a local one.
+        this rank's columns and a local one;
+    kind 'grid_meshes': make_grid_mesh at each of the case's 'shapes' in
+        turn, then again: whether each shape got its first axis groups
+        back, and one all-reduce of (rank + 1) on each axis of the first
+        shape with what COMM counted per axis.
     """
     from pycmf_tpu_torch import CMF
 
@@ -130,6 +134,8 @@ def run_cases(rank, cases):
             out[name] = _sigmoid_case(rank, case)
         elif kind == "newton_factor":
             out[name] = _newton_factor_case(rank, case)
+        elif kind == "grid_meshes":
+            out[name] = _grid_meshes_case(rank, case)
         else:
             raise ValueError(f"unknown case kind {kind!r}")
     return out
@@ -187,3 +193,22 @@ def _newton_factor_case(rank, case):
         masks=(None if mask is None else t(mask[cols]), None), group=mesh,
         return_phi=True)
     return out[0].numpy(), out[1].numpy()
+
+
+def _grid_meshes_case(rank, case):
+    import torch
+
+    from pycmf_tpu_torch.parallel import mesh as tmesh
+
+    shapes = case["shapes"]
+    first = [tmesh.make_grid_mesh(*s, device="cpu") for s in shapes]
+    again = [tmesh.make_grid_mesh(*s, device="cpu") for s in shapes]
+    reused = [a.row.group is b.row.group and a.col.group is b.col.group
+              for a, b in zip(first, again)]
+    gm = first[0]
+    tmesh.COMM.reset()
+    x = torch.full((3,), float(rank + 1), dtype=torch.float64)
+    sums = {ax: tmesh.all_reduce(m, x)[0].tolist()
+            for ax, m in (("row", gm.row), ("col", gm.col))}
+    return dict(reused=reused, sums=sums,
+                by_axis={a: list(v) for a, v in tmesh.COMM.by_axis.items()})

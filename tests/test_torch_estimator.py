@@ -271,10 +271,10 @@ def test_import_pulls_in_no_jax():
 
 
 @pytest.mark.parametrize("kw,error,match", [
-    # n_shards > 1 is ported in the rows and cols layouts; the grid layout
-    # is not
-    (dict(n_shards=2, shard_layout="grid"), NotImplementedError,
-     "ROADMAP A10"),
+    # n_shards > 1 is ported in every layout; a (rows, cols) tuple outside
+    # the grid layout raises the reference's ValueError
+    (dict(n_shards=(2, 1), shard_layout="rows"), ValueError,
+     "requires shard_layout='grid'"),
     # fp8 (ported): the reference's behaviour. 'auto' densifies a small CSR
     # X, which then fits; 'chunked' keeps it sparse, which fp8 refuses.
     (dict(data_dtype="fp8"), None, None),

@@ -1,8 +1,8 @@
 """Smoke tests of ``examples/*.py`` on the port: each example's calls, made on
 ``pycmf_tpu_torch`` at a small size on the CPU (the examples themselves
 drive the reference and import its compile cache, which the port does not
-have). The sharded example runs its rows and cols fits in 2 gloo ranks
-(``tests/_torch_dist.py``); its grid layout raises naming ROADMAP A10b.
+have). The sharded example runs its rows, cols and grid fits in 2 gloo
+ranks (``tests/_torch_dist.py``).
 
 Bars: float32 fits, so agreement between two layouts of one fit is held to
 1e-4 relative on the final loss (1e-2 for a bf16-stored X against the
@@ -120,27 +120,26 @@ def test_block_sparse_bell():
 
 
 def test_pod_scale_sharded(tmp_path):
-    """examples/pod_scale_sharded.py in 2 gloo ranks: the rows and cols
-    layouts against the single-device fit, the grid layout refused (A10b
-    part b), and the sharded fold-in."""
+    """examples/pod_scale_sharded.py in 2 gloo ranks: the rows, cols and
+    grid ((2, 1)) layouts against the single-device fit, and the sharded
+    fold-in."""
     rng = np.random.RandomState(0)
     n, m, r, k = 256, 96, 16, 4
     X = np.abs(rng.randn(n, m)).astype(np.float32)
     Y = np.abs(rng.randn(m, r)).astype(np.float32)
     kw = dict(n_components=k, solver="mu", random_state=0, max_iter=20,
               tol=0.0)
-    cases = {layout: dict(kind="fit", kw=dict(kw, n_shards=2,
+    shards = {"rows": 2, "cols": 2, "grid": (2, 1)}
+    cases = {layout: dict(kind="fit", kw=dict(kw, n_shards=ns,
                                               shard_layout=layout),
                           X=X, Y=Y, Xn=X[:32])
-             for layout in ("rows", "cols")}
-    cases["grid"] = dict(kind="raises", X=X, Y=Y, kw=dict(
-        kw, n_shards=(2, 1), shard_layout="grid"))
+             for layout, ns in shards.items()}
     ranks = spawn(run_cases, 2, tmp_path, cases)
     try:
         single = CMF(**kw, device="cpu").fit(X, Y)
     finally:
         ports = ranks.join()
-    for layout in ("rows", "cols"):
+    for layout in shards:
         got = ports[0][layout]
         assert got["n_iter"] == 20
         gap = abs(got["losses"][-1] - single.reconstruction_err_) \
@@ -148,8 +147,6 @@ def test_pod_scale_sharded(tmp_path):
         assert gap < 1e-4
         assert got["transform"].shape == (32, k)
         assert got["losses"] == ports[1][layout]["losses"]
-    kind, msg = ports[0]["grid"]
-    assert kind == "NotImplementedError" and "ROADMAP A10b" in msg
 
 
 @pytest.mark.parametrize("name", ["supervised_topics_20ng",
