@@ -145,7 +145,20 @@ Phases (any failure exits non-zero and prints no ok line):
     eval loss and the factors), K1's and K2's e4m3 forms launched and
     their bf16 forms not; R2 fp8, the fp8 MU
     cell in two gloo ranks, rows and grid (2, 1), within 1e-4 of the
-    single-device fp8 fit's exact loss; every kernel's launches in the
+    single-device fp8 fit's exact loss; R1 S, R1 K and R1 KA, run_sharded
+    (rows) on a one-rank NCCL group with path S (sampled: the sharded
+    fit's draws recorded and replayed into the single-device fit), path K
+    and path KA (chunked blocks): n_iter and the factors bit for bit with
+    the single-device host fit, K's and KA's eval losses too, S's within
+    R1S_LOSS_BAR (the sharded full loss takes the reference's
+    factor-precision inner product, the single device the bf16 product),
+    K1 (K) and K2 (KA) launched per chunk as on the single device, K5 on
+    S; R1c K and R1g K, path K in the cols layout and on the (1, 1) grid
+    to its n_iter (tol 0), exact-loss gap 1e-5; R2 S, path S in the R2
+    spawn, its ranks drawing from their own and the shared streams, within
+    R2S_BAR of path S's exact loss and below the initial factors'; R2g K,
+    path K on the (2, 2) grid in the R2g spawn; every R2-family rank's
+    factors equal bit for bit (by digest); every kernel's launches in the
     kernels line include these fits';
  8. kernel path against plain path on the card (the plain fits on the host
     loop: a capture refuses the plain batched solve): after 20 iterations,
@@ -206,8 +219,13 @@ SFU_PER_SM_CLOCK = 16   # MUFU operations (ex2, rcp) per SM per clock
 TIE_REL, MIN_DECIDED = 2.0 ** -20, 0.9
 
 
+_T0 = time.perf_counter()
+
+
 def log(msg: str) -> None:
-    print(msg, file=sys.stderr, flush=True)
+    """A line on standard error, after the seconds since the start."""
+    print(f"[{time.perf_counter() - _T0:7.1f} s] {msg}", file=sys.stderr,
+          flush=True)
 
 
 class Checks:
@@ -1674,11 +1692,12 @@ def fit_phase(check, make_est, X, Y, minimums, label, exact_loss):
         V_non_negative=est.V_non_negative, Z_non_negative=est.Z_non_negative)
     exact = [exact_loss(U, V, Z)]
     step = est.eval_every
-    for done in range(0, est.n_iter_, step):
-        n = min(step, est.n_iter_ - done)
-        seg = make_est().set_params(max_iter=n, eval_every=n, tol=0.0)
-        U, V, Z = seg.fit_transform(X, Y, U=U, V=V, Z=Z)
-        exact.append(exact_loss(U, V, Z))
+    with cached_ingest():  # one ingest for the segments (path F's ~12 s)
+        for done in range(0, est.n_iter_, step):
+            n = min(step, est.n_iter_ - done)
+            seg = make_est().set_params(max_iter=n, eval_every=n, tol=0.0)
+            U, V, Z = seg.fit_transform(X, Y, U=U, V=V, Z=Z)
+            exact.append(exact_loss(U, V, Z))
     check(np.array_equal(U, est.U_) and np.array_equal(V, est.V_),
           f"{label}: warm-started replay ends on the fit's factors")
     rises = [(est.loss_iters_[i + 1], (b - a) / a)
@@ -2743,7 +2762,7 @@ def fp8_matches_bf16(check, make8, makeb, X, Xq, Y, label):
 R2_TIMEOUT = 360.0  # seconds for phase R2's two ranks, start to end
 
 
-R1_ROUNDS = 5  # phase R1's timed rounds: the four variants in turn
+R1_ROUNDS = 3  # phase R1's timed rounds: the four variants in turn
 
 
 def nccl_world1_phase(check, torch, X, Y, common, paths):
@@ -2896,7 +2915,14 @@ def nccl_world1_phase(check, torch, X, Y, common, paths):
     return rec, launches
 
 
-R1C_ROUNDS = 3  # phases R1c and R1g: the layout and single device in turn
+R1C_ROUNDS = 2  # phases R1c and R1g: the layout and single device in turn
+# R2 S (path S in two gloo ranks, each drawing other columns than the
+# single device, so only the draws' statistics are shared): the largest
+# relative gap of its exact loss to path S's single-device one
+R2S_BAR = 5e-2
+# R1 S's eval losses (full losses of bit-equal factors: the sharded one at
+# the factors' precision, the single device's on the bf16 product)
+R1S_LOSS_BAR = 1e-4
 
 
 def nccl_world1_layout_phase(check, torch, Y, common, paths, layout, tag,
@@ -3129,6 +3155,146 @@ def nccl_world1_fp8_phase(check, torch, X, Y, common8, paths):
     return rec, launches
 
 
+def nccl_world1_bits_phase(check, torch, X, Y, common, paths):
+    """Phases R1 S, R1 K and R1 KA: run_sharded (rows) on a one-rank NCCL
+    group, each path against the single-device host-loop fit of the same
+    inputs: n_iter and the factors bit for bit, and every eval loss (L0
+    included) bit for bit, or within ``loss_bar`` where the two take
+    different formulas: a sampled path's eval losses are full losses, and
+    the sharded one takes ⟨X, UVᵀ⟩ at the factors' precision where the
+    single device takes the bf16 product (the reference's two formulas).
+    The sampled path (S) records the sharded fit's draws by wrapping
+    draw_columns and replays them, in the order they were made, into the
+    single-device fit (one order on both: U's term, Z's, V's X and Y
+    terms); on a chunked path the U pass's kernel launches as often as on
+    the single device (its chunks per iteration). Then one more sharded fit
+    with CUDA events around every all-reduce (its share). paths: (label,
+    kw, {kernel: launches per iteration}, kernels launched as often as on
+    the single device, kernels absent, loss_bar: 0 for bit for bit).
+    Returns (record, launches of the counted sharded fits)."""
+    import tempfile
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from pycmf_tpu_torch import CMF
+    from pycmf_tpu_torch.ops.kernels.policy import (launch_counts,
+                                                    reset_launch_counts)
+    from pycmf_tpu_torch.parallel.mesh import COMM
+    from pycmf_tpu_torch.parallel.sharded import run_sharded
+    from pycmf_tpu_torch.solvers import newton as tnewton
+    from pycmf_tpu_torch.solvers.common import make_hyper
+    from pycmf_tpu_torch.utils.init import initialize_factors
+
+    rec, launches = {}, {}
+    store = os.path.join(tempfile.mkdtemp(prefix="pycmf_r1b_"), "store")
+    dist.init_process_group("nccl", store=dist.FileStore(store, 1), rank=0,
+                            world_size=1)
+    real_draw = tnewton.draw_columns
+    try:
+        for label, kw, minimums, same, absent, loss_bar in paths:
+            est = CMF(**kw, **common, loop="host")
+            cfg = est._config(has_Y=True)
+            hyper = make_hyper(est.alpha, est.l1_ratio, est.eps,
+                               est.hessian_pertubation, dtype=torch.float32)
+            U0, V0, Z0 = initialize_factors(
+                X, Y, K, random_state=SEED,
+                U_non_negative=est.U_non_negative,
+                V_non_negative=est.V_non_negative,
+                Z_non_negative=est.Z_non_negative)
+
+            def sharded(timed=False):
+                COMM.reset(timed)
+                out = run_sharded(
+                    est.solver, X, Y, U0, V0, Z0, cfg, hyper, n_shards=1,
+                    dtype=torch.float32, data_dtype=torch.bfloat16,
+                    device=common["device"], max_iter=est.max_iter,
+                    tol=est.tol, eval_every=est.eval_every,
+                    sparse_mode=est._matrix_sparse_mode(X, est.x_link),
+                    seed=SEED)
+                torch.cuda.synchronize()
+                return out
+            drawn = []
+
+            def recorded(gen, q, s):
+                drawn.append((q, real_draw(gen, q, s)))
+                return drawn[-1][1]
+            reset_launch_counts()
+            with mock.patch.object(tnewton, "draw_columns", recorded):
+                U, V, Z, n_iter, losses, iters, times = sharded()
+            counts = launch_counts()
+            calls, nbytes = COMM.calls, COMM.nbytes
+            for name, n in counts.items():
+                launches[name] = launches.get(name, 0) + n
+            replay, misfits = iter(drawn), []
+
+            def replayed(gen, q, s):
+                want_q, idx = next(replay)
+                if (want_q, idx.numel()) != (q, s):
+                    misfits.append((q, s, want_q, idx.numel()))
+                return idx
+            reset_launch_counts()
+            with mock.patch.object(tnewton, "draw_columns", replayed):
+                one = CMF(**kw, **common, loop="host").fit(X, Y)
+            single = launch_counts()
+            t_out = sharded(timed=True)
+            comm_ms = sum(a.elapsed_time(b) for a, b in COMM.events[2:-1])
+            fit_ms = 1e3 * sum(t_out[6])
+            got = [t.double().cpu().numpy() for t in (U, V, Z)]
+            loss_bits = [float(v) for v in losses] == one.loss_history_
+            factor_bits = all(np.array_equal(a, b) for a, b in zip(
+                got, (one.U_, one.V_, one.Z_)))
+            r = dict(
+                n_iter=n_iter, single_n_iter=one.n_iter_,
+                draws=len(drawn), losses=[float(v) for v in losses],
+                single_losses=one.loss_history_,
+                losses_bit_equal=loss_bits, factors_bit_equal=factor_bits,
+                loss_max_rel=float(np.max(
+                    np.abs(np.subtract(losses, one.loss_history_))
+                    / np.abs(one.loss_history_))),
+                factor_gap=factor_gap(got, [one.U_, one.V_, one.Z_]),
+                ms_per_iter=1e3 * sum(times) / n_iter,
+                single_ms_per_iter=1e3 * sum(one.step_times_) / one.n_iter_,
+                timed_ms_per_iter=fit_ms / t_out[3],
+                allreduce_ms_per_iter=comm_ms / t_out[3],
+                allreduce_share=comm_ms / fit_ms, allreduce_calls=calls,
+                allreduce_bytes=nbytes, launches=counts,
+                single_launches=single)
+            losses_ok = loss_bits or r["loss_max_rel"] < loss_bar
+            check(n_iter == one.n_iter_ and losses_ok and factor_bits
+                  and not misfits,
+                  f"R1 {label}: {n_iter} iterations (single {one.n_iter_}); "
+                  f"factors bit for bit: {factor_bits} (gap "
+                  f"{r['factor_gap']:.3g}); every eval loss bit for bit: "
+                  f"{loss_bits}" + (f", else within {loss_bar:g} (max rel "
+                                    f"{r['loss_max_rel']:.3g})"
+                                    if loss_bar else "")
+                  + f"; {len(drawn)} draws replayed, each of the recorded "
+                  f"size: {not misfits}")
+            for name, per in minimums.items():
+                check(counts.get(name, 0) >= per * n_iter,
+                      f"R1 {label}: {name} launches {counts.get(name, 0)} "
+                      f">= {per} x {n_iter}")
+            for name in same:
+                check(counts.get(name, 0) == single.get(name, 0)
+                      == minimums[name] * n_iter,
+                      f"R1 {label}: {name} launches {counts.get(name, 0)}, "
+                      f"the single device's {single.get(name, 0)}: "
+                      f"{minimums[name]} per iteration (its chunks)")
+            check(all(counts.get(a, 0) == 0 for a in absent),
+                  f"R1 {label}: {absent} launched no time")
+            log(f"  R1 {label}: {r['ms_per_iter']:.4f} ms/iter (single "
+                f"device {r['single_ms_per_iter']:.4f}); with events "
+                f"{r['timed_ms_per_iter']:.4f} ms/iter of which all-reduce "
+                f"{r['allreduce_ms_per_iter']:.4f} "
+                f"({r['allreduce_share']:.3%}); {calls} all-reduces, "
+                f"{nbytes} bytes; launches {counts}")
+            rec[label] = r
+    finally:
+        dist.destroy_process_group()
+    return rec, launches
+
+
 def a6_phase(check, torch, est, X, make_fit, Y):
     """The estimator's utilities on the card: print_topic_terms of a
     fitted model (against topic_terms_string of its U), a
@@ -3218,6 +3384,7 @@ def _r2_rank(rank, store, tmp, fits, common, world=2):
     """One of phase R2's ranks (a spawned process): gloo over a FileStore,
     every rank on cuda:0, each path through CMF(n_shards=world) (or the
     fit's own n_shards and layout)."""
+    import hashlib
     import pickle
     from datetime import timedelta
 
@@ -3273,7 +3440,11 @@ def _r2_rank(rank, store, tmp, fits, common, world=2):
                          wall_s=wall, allreduce_calls=COMM.calls,
                          allreduce_bytes=COMM.nbytes,
                          launches={k: v for k, v
-                                   in launch_counts().items() if v})
+                                   in launch_counts().items() if v},
+                         # every rank's factors, by their bytes
+                         digest=hashlib.sha256(b"".join(
+                             np.ascontiguousarray(f).tobytes()
+                             for f in (est.U_, est.V_, est.Z_))).hexdigest())
                 if rank == 0:
                     r.update(U=est.U_, V=est.V_, Z=est.Z_)
                 out["fits"][label] = r
@@ -3290,11 +3461,13 @@ def gloo_two_rank_phase(check, torch, data, common, fits, refs, world=2,
     ranks on one device). data: {key: host matrix} the ranks load; fits:
     (label, kw, X key, Y key), kw overriding ``common`` (n_shards and
     shard_layout too); refs: {label: (the single-device fit's record,
-    exact float64 loss of factors, {kernel: launches per iteration})}. Each
-    fit runs as many iterations as its single-device fit and is held to it
-    by the exact loss of its final factors, every rank's loss history
-    equal, and by each rank's launch counts. Returns (record, launches of
-    every rank)."""
+    exact float64 loss of factors, {kernel: launches per iteration}[,
+    {"bar": relative gap, "l0": exact loss of the initial factors}])}.
+    Each fit runs as many iterations as its single-device fit and is held
+    to it by the exact loss of its final factors (within 1e-4, or the
+    given bar; with "l0", also below it), every rank's loss history and
+    factors equal bit for bit, and each rank's launch counts. Returns
+    (record, launches of every rank)."""
     import pickle
     import tempfile
 
@@ -3339,17 +3512,25 @@ def gloo_two_rank_phase(check, torch, data, common, fits, refs, world=2,
     log(f"  {tag}: gloo collectives on CUDA tensors: {ranks[0]['probe']}; "
         f"{wall:.1f} s for the {world} ranks, start to end")
     for label, kw, _, _ in fits:
-        single, exact_loss, per = refs[label]
+        single, exact_loss, per, *more = refs[label]
+        more = more[0] if more else {}
+        bar = more.get("bar", 1e-4)
         got = [r["fits"][label] for r in ranks]
         a = got[0]
         exact = exact_loss(a["U"], a["V"], a["Z"])
         gap = abs(exact - single["exact_loss"]) / single["exact_loss"]
-        same = all(g["losses"] == a["losses"] for g in got)
-        check(gap < 1e-4 and same,
+        same = all(g["losses"] == a["losses"] and g["digest"] == a["digest"]
+                   for g in got)
+        check(gap < bar and same,
               f"{tag} {label}: exact f64 loss {exact:.9g} after "
               f"{a['n_iter']} iterations vs the single-device fit's "
               f"{single['exact_loss']:.9g} after {single['n_iter']}: rel gap "
-              f"{gap:.3g} < 1e-4; every rank's loss history equal: {same}")
+              f"{gap:.3g} < {bar:g}; every rank's loss history and factors "
+              f"equal bit for bit: {same}")
+        if "l0" in more:
+            check(exact < more["l0"],
+                  f"{tag} {label}: the exact loss falls from L0 "
+                  f"{more['l0']:.9g} to {exact:.9g}")
         check(a["n_iter"] == single["n_iter"],
               f"{tag} {label}: ran the single-device fit's "
               f"{single['n_iter']} iterations ({a['n_iter']})")
@@ -3364,7 +3545,8 @@ def gloo_two_rank_phase(check, torch, data, common, fits, refs, world=2,
         rec[label] = dict(
             n_iter=a["n_iter"], exact_loss=exact,
             single_exact_loss=single["exact_loss"],
-            single_n_iter=single["n_iter"], rel_gap=gap,
+            single_n_iter=single["n_iter"], rel_gap=gap, bar=bar,
+            exact_l0=more.get("l0"),
             ms_per_iter=[g["ms_per_iter"] for g in got],
             single_ms_per_iter=single["ms_per_iter"],
             wall_s=[g["wall_s"] for g in got],
@@ -3434,6 +3616,7 @@ def main() -> int:
                                                 fit_cache_entries)
     from pycmf_tpu_torch.utils.datasets import (block_sparse_matrix,
                                                 synthetic_20ng)
+    from pycmf_tpu_torch.utils.init import initialize_factors
 
     check = Checks()
     t_start = time.perf_counter()
@@ -3734,7 +3917,9 @@ def main() -> int:
             "sigmoid X, Newton, signed factors, no Y, sparse_mode='auto'")
         Xrb = Xr.copy()
         Xrb.data[:] = 1.0
-        krs_kw = dict(solver="newton", x_link="sigmoid", max_iter=2,
+        # one iteration (two before PR 16: the second took ~13 s and
+        # checks nothing the first does not)
+        krs_kw = dict(solver="newton", x_link="sigmoid", max_iter=1,
                       eval_every=1, tol=0.0, U_non_negative=False,
                       V_non_negative=False)
         from pycmf_tpu_torch.ops.kernels.policy import (launch_counts,
@@ -3762,9 +3947,9 @@ def main() -> int:
         check(all(math.isfinite(v) for v in est.loss_history_)
               and est.loss_history_[-1] < est.loss_history_[0]
               and counts.get("sigmoid_gh_pass", 0)
-              == krs["layout"]["chunks"] * 2
+              == krs["layout"]["chunks"] * est.n_iter_
               and counts.get("sigmoid_phi_pass", 0)
-              == krs["layout"]["chunks"] * 2,
+              == krs["layout"]["chunks"] * est.n_iter_,
               f"path KRS: losses {est.loss_history_} finite and falling; "
               f"K3/K4 {krs['layout']['chunks']} per iteration")
         log(f"  path KRS: {krs['s_per_iter']:.3f} s/iter (blocks "
@@ -3906,13 +4091,28 @@ def main() -> int:
         ("path A", a_kw, {"fused_newton_linear_u_pass": 1,
                           "sigmoid_gh_pass": 1, "sigmoid_phi_pass": 1,
                           "batched_spd_solve": 2})))
-    log("phase R2: CMF(n_shards=2), two gloo ranks on the one card")
+    log(f"phase R1 S, K, KA: run_sharded (rows) on a one-rank NCCL group, "
+        f"sampled and chunked, bit for bit with the single device; {name}, "
+        f"nvidia-smi: {smi}")
+    r1b, r1b_launches = nccl_world1_bits_phase(check, torch, X, Y, common, (
+        ("S", s_kw, {"batched_spd_solve": 2}, (), fused, R1S_LOSS_BAR),
+        ("K", k_kw, {"fused_mu_u_pass": pk["layout"]["chunks"],
+                     "fused_mu_update": 2}, ("fused_mu_u_pass",), (), 0),
+        ("KA", ka_kw, {"fused_newton_linear_u_pass": pk["layout"]["chunks"],
+                       "sigmoid_gh_pass": 1, "sigmoid_phi_pass": 1,
+                       "batched_spd_solve": 2},
+         ("fused_newton_linear_u_pass",), (), 0)))
+    for kname, n in r1b_launches.items():
+        r_launches[kname] = r_launches.get(kname, 0) + n
+    log("phase R2: CMF(n_shards=2), two gloo ranks on the one card (R2 S: "
+        "path S sampled, each rank drawing from its streams)")
     linf = lambda U, V, Z: numpy_cmf.loss(Xf64, Y64, U, V, Z)  # noqa: E731
+    s_init = initialize_factors(X, Y, K, random_state=SEED)
     r2, r2_launches = gloo_two_rank_phase(
         check, torch, {"X": X, "Y": Y, "Xb": Xb, "Xf": Xf}, common,
         (("MU", mu_kw, "X", "Y"), ("path A", a_kw, "X", "Y"),
          ("path C", c_kw, "X", "Y"), ("path F", f_kw, "Xf", "Y"),
-         ("path B", b_kw, "Xb", "Y")),
+         ("path B", b_kw, "Xb", "Y"), ("path S", s_kw, "X", "Y")),
         {"MU": (mu, lin, {"fused_mu_u_pass": 1}),
          "path A": (pa, sig, {"fused_newton_linear_u_pass": 1,
                               "sigmoid_gh_pass": 1, "sigmoid_phi_pass": 1,
@@ -3921,7 +4121,11 @@ def main() -> int:
          "path F": (pf, linf, {"bell_spmm": 2, "fused_mu_update": 3}),
          "path B": (pb, card_sigmoid_loss(torch, Xb, Y),
                     {"sigmoid_gh_pass": 3, "sigmoid_phi_pass": 3,
-                     "batched_spd_solve": 3})})
+                     "batched_spd_solve": 3}),
+         # other draws than the single device's: held within R2S_BAR of
+         # its exact loss, and below the exact loss of the initial factors
+         "path S": (ps, sig, {"batched_spd_solve": 2},
+                    {"bar": R2S_BAR, "l0": sig(*s_init)})})
     for kname, n in r2_launches.items():
         r_launches[kname] = r_launches.get(kname, 0) + n
     log(f"phase R1c: run_sharded(layout='cols') on a one-rank NCCL group; "
@@ -3963,6 +4167,16 @@ def main() -> int:
         ("path F", f_kw, Xf, linf, {"bell_spmm": 2, "fused_mu_update": 3},
          dict(pf, ms_per_iter=loops["path F"]["host"]["ms_per_iter"]))),
         "grid", "R1g", 1e-5)
+    log(f"phases R1c K and R1g K: path K (chunked MU) in the cols layout and "
+        f"the (1, 1) grid on a one-rank NCCL group; {name}, nvidia-smi: "
+        f"{smi}")
+    k_ref = dict(pk, ms_per_iter=loops["path K"]["host"]["ms_per_iter"])
+    r1ck, r1ck_launches = nccl_world1_layout_phase(check, torch, Y, common, (
+        ("path K", k_kw, X, lin, {"fused_mu_update": 3}, k_ref),),
+        "cols", "R1c K", 1e-5)
+    r1gk, r1gk_launches = nccl_world1_layout_phase(check, torch, Y, common, (
+        ("path K", k_kw, X, lin, {"fused_mu_update": 3}, k_ref),),
+        "grid", "R1g K", 1e-5)
     log("phase R2g: CMF(n_shards=(2, 2), shard_layout='grid'), four gloo "
         "ranks on the one card")
     grid = dict(n_shards=(2, 2), shard_layout="grid")
@@ -3971,8 +4185,10 @@ def main() -> int:
         (("grid MU", dict(mu_kw, **grid), "X", "Y"),
          ("grid path A", dict(a_kw, **grid), "X", "Y"),
          ("grid path C", dict(c_kw, **grid), "X", "Y"),
-         ("grid path B", dict(b_kw, **grid), "Xb", "Y")),
+         ("grid path B", dict(b_kw, **grid), "Xb", "Y"),
+         ("grid path K", dict(k_kw, **grid), "X", "Y")),
         {"grid MU": (mu, lin, {"fused_mu_update": 3}),
+         "grid path K": (pk, lin, {"fused_mu_update": 3}),
          "grid path A": (pa, sig, {"sigmoid_gh_pass": 1,
                                    "sigmoid_phi_pass": 1,
                                    "batched_spd_solve": 2}),
@@ -3999,13 +4215,16 @@ def main() -> int:
          "grid MU fp8": (fp8["mu"], lin8, {"fused_mu_update": 3})},
         tag="R2 fp8")
     for part in (r1c_launches, r2c_launches, r1g_launches, r2g_launches,
-                 r1f_launches, r2f_launches):
+                 r1f_launches, r2f_launches, r1ck_launches, r1gk_launches):
         for kname, n in part.items():
             r_launches[kname] = r_launches.get(kname, 0) + n
     sharded = {"r1_nccl_world1": r1, "r2_gloo_two_ranks": r2,
                "r1c_nccl_world1_cols": r1c, "r2c_gloo_two_ranks_cols": r2c,
                "r1g_nccl_world1_grid": r1g, "r2g_gloo_four_ranks_grid": r2g,
                "r1_fp8_nccl_world1_rows": r1f, "r2_fp8_gloo_two_ranks": r2f,
+               "r1_bits_nccl_world1_sampled_chunked": r1b,
+               "r1c_k_nccl_world1_cols_chunked": r1ck,
+               "r1g_k_nccl_world1_grid_chunked": r1gk,
                "launches": r_launches}
 
     # 8. kernel path against plain path on the card; the 2% guards. The
@@ -4027,32 +4246,36 @@ def main() -> int:
                  "fused_mu_update": mu_update,
                  "csr_spmm": spmm, "csr_rowdots": spmm,
                  "bell_spmm": bell}
-        for label, kw, data in (
-                ("MU", dict(mu_kw, max_iter=20, tol=0.0), (X, Y)),
-                ("Newton linear", dict(nl_kw, max_iter=20, tol=0.0), (X, Y)),
-                ("path A", dict(a_kw, max_iter=20, tol=0.0), (X, Y)),
-                ("path B", b_kw, (Xb, Y)),
-                ("path C", dict(c_kw, max_iter=20, tol=0.0), (X, Y)),
-                ("path D", dict(d_kw, max_iter=20, tol=0.0), (X, Y)),
-                ("path F", f_kw, (Xf, Y))):
-            lk = CMF(**kw, **common).fit(*data).reconstruction_err_
-            # the plain path on the host loop: a capture refuses the plain
-            # batched solve (MAGMA); the device loop ends where the host
-            # loop does, bit for bit (phase 7c)
-            with ExitStack() as patches:
-                for fn, mod in plain.items():
-                    patches.enter_context(mock.patch.object(
-                        mod, fn, getattr(mod, fn + "_ref")))
-                lp = CMF(**kw, **common, loop="host").fit(
-                    *data).reconstruction_err_
-            gap = abs(lk - lp) / abs(lp)
-            gaps20[label] = gap
-            what = (f"{label}: kernel {lk:.9g} vs plain {lp:.9g} after "
-                    f"{kw['max_iter']} iterations, rel gap {gap:.3g}")
-            if label in stepped:  # dense bf16: held step by step below
-                log(f"  {what} (printed; the per-step check holds this path)")
-            else:
-                check(gap <= 1e-3, f"{what} <= 1e-3")
+        # each matrix ingested once for both fits (path F's ~12 s)
+        with cached_ingest():
+            for label, kw, data in (
+                    ("MU", dict(mu_kw, max_iter=20, tol=0.0), (X, Y)),
+                    ("Newton linear", dict(nl_kw, max_iter=20, tol=0.0),
+                     (X, Y)),
+                    ("path A", dict(a_kw, max_iter=20, tol=0.0), (X, Y)),
+                    ("path B", b_kw, (Xb, Y)),
+                    ("path C", dict(c_kw, max_iter=20, tol=0.0), (X, Y)),
+                    ("path D", dict(d_kw, max_iter=20, tol=0.0), (X, Y)),
+                    ("path F", f_kw, (Xf, Y))):
+                lk = CMF(**kw, **common).fit(*data).reconstruction_err_
+                # the plain path on the host loop: a capture refuses the
+                # plain batched solve (MAGMA); the device loop ends where
+                # the host loop does, bit for bit (phase 7c)
+                with ExitStack() as patches:
+                    for fn, mod in plain.items():
+                        patches.enter_context(mock.patch.object(
+                            mod, fn, getattr(mod, fn + "_ref")))
+                    lp = CMF(**kw, **common, loop="host").fit(
+                        *data).reconstruction_err_
+                gap = abs(lk - lp) / abs(lp)
+                gaps20[label] = gap
+                what = (f"{label}: kernel {lk:.9g} vs plain {lp:.9g} after "
+                        f"{kw['max_iter']} iterations, rel gap {gap:.3g}")
+                if label in stepped:  # dense bf16: held step by step below
+                    log(f"  {what} (printed; the per-step check holds this "
+                        f"path)")
+                else:
+                    check(gap <= 1e-3, f"{what} <= 1e-3")
         # sampled steps: a fresh fit seeds its generator from
         # random_state, so both paths of a step make the same draws
         # (recorded and compared)

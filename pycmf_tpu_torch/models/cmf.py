@@ -21,8 +21,9 @@ from ``random_state``), with the Gauss-Newton or the full Hessian
 (Y then at bf16), contracted in bf16 as the reference does. ``n_shards``
 > 1 fits row-, column- or grid-sharded over a torch.distributed process
 group, one process per shard or cell (``parallel/sharded.py``,
-``parallel/grid.py``); the sharded requests not ported yet raise
-NotImplementedError naming the ROADMAP item that brings them. Beside fit
+``parallel/grid.py``), sampled Newton and the chunked layout included;
+the device loop under shards is not ported yet and raises
+NotImplementedError naming the ROADMAP item that brings it. Beside fit
 and transform, the reference's sklearn surface: ``components_``,
 ``inverse_transform``, ``get_feature_names_out`` and
 ``print_topic_terms``; sklearn itself is imported only when sklearn asks
@@ -124,8 +125,10 @@ class CMF:
         dimension: X's columns, Y's rows and V sharded) | 'grid' (X's
         cells over a (rows, cols) mesh: the tuple, or an int's
         ``factor_grid``). transform folds in by rows, over every rank,
-        whatever the fit's layout. Under shards only the host loop and
-        full-batch dense, densified or CSR data (fp8 dense) are ported
+        whatever the fit's layout. Under shards the host loop runs dense,
+        densified, CSR or chunked data (fp8 dense), full batch or sampled
+        (each rank's draws by the reference's key schedule:
+        ``parallel/sharded.Draws``); ``loop='device'`` raises
         (``parallel/sharded.py``, ``parallel/grid.py``).
 
     Attributes: U_, V_, Z_ (NumPy float64), reconstruction_err_, n_iter_,
@@ -405,10 +408,7 @@ class CMF:
             l1_ratio=self.l1_ratio, tol=self.tol, max_iter=self.max_iter,
             sg_sample_ratio=self.sg_sample_ratio)
         if self._sharded():
-            check_shardable(
-                layout=self.shard_layout, loop=self.loop,
-                sg_sample_ratio=self.sg_sample_ratio,
-                sparse_mode=self.sparse_mode)
+            check_shardable(layout=self.shard_layout, loop=self.loop)
         mu = self.solver == "mu"
         X = check_matrix(X, "X", require_non_negative=mu)
         if Y is not None:
@@ -441,7 +441,9 @@ class CMF:
         """The sharded fit on this rank (``parallel/sharded.py``, the grid
         layout ``parallel/grid.py``) in ``layout`` (default:
         shard_layout), from the first rank's U0, V0 and Z0: a draw without
-        a fixed random_state differs between processes."""
+        a fixed random_state differs between processes. A sampled Newton
+        fit's draw streams are seeded by the reference's rule
+        (:func:`_seed`), as on one device."""
         self._resolve_device()
         mesh = make_mesh(self._resolve_n_shards(), device=self.device)
         dt = self._resolve_dtype()
@@ -463,7 +465,8 @@ class CMF:
                   max_iter=self.max_iter, tol=self.tol,
                   eval_every=self.eval_every, verbose=self.verbose,
                   loop=self._resolve_loop(cfg),
-                  sparse_mode=self._matrix_sparse_mode(X, self.x_link))
+                  sparse_mode=self._matrix_sparse_mode(X, self.x_link),
+                  seed=_seed(self.random_state))
         if layout == "grid":
             return run_grid(self.solver, X, Y, U0, V0, Z0, cfg, hyper,
                             grid=self._resolve_grid(), **kw)

@@ -1,8 +1,13 @@
 """Streamed chunked-COO layout: a sparse X too big to densify, streamed
 through one dense chunk buffer per pass.
 
-Counterpart of ``pycmf_tpu/ops/chunked.py:41-310`` and ``:378-466`` (the
-single-device part; the sharded stacks are ROADMAP A10). At fit time the
+Counterpart of ``pycmf_tpu/ops/chunked.py:41-310`` and ``:378-466``. The
+reference's sharded stacks (``stack_chunked_blocks``, ``stack_chunked_grid``)
+have no counterpart: a sharded fit runs one process per shard, and each
+rank builds this layout of its own zero-padded block or cell, with
+``chunk_rows`` from the local shape, so every rank has the same chunk
+geometry; a shard's padding rows enter the passes as ``n_valid`` or a row
+mask (``parallel/sharded.py``, ``parallel/grid.py``). At fit time the
 COO nonzeros are sorted by row and split into C chunks of R rows (R chosen
 so the R×m chunk fits ``DEFAULT_BUFFER_BYTES``), each padded to a common
 count L. Every pass over X is a Python loop over the chunks in chunk
@@ -191,12 +196,27 @@ def _pad_rows(M: torch.Tensor, n_pad: int) -> torch.Tensor:
     return out
 
 
-def valid_rows(X: ChunkedCoo, dtype) -> torch.Tensor:
+def valid_rows(X: ChunkedCoo, dtype, row_mask=None) -> torch.Tensor:
     """(C, R) 1.0 on true rows, 0.0 on the last chunk's tail rows
     (consumers whose per-row results are not exactly zero there, such as
-    σ(0) = ½, mask them out of updates and sums)."""
-    valid = torch.arange(X.n_pad, device=X.device) < X.shape[0]
-    return valid.to(dtype).reshape(X.n_chunks, X.chunk_rows)
+    σ(0) = ½, mask them out of updates and sums). row_mask: an optional
+    (n,) mask of X's rows (a shard's zero-padding rows lie inside its
+    layout's n), multiplied in. Reference: ``pycmf_tpu/ops/chunked.py:
+    valid_rows``."""
+    valid = (torch.arange(X.n_pad, device=X.device) < X.shape[0]).to(dtype)
+    if row_mask is not None:
+        valid = valid * _pad_rows(row_mask[:, None].to(dtype), X.n_pad)[:, 0]
+    return valid.reshape(X.n_chunks, X.chunk_rows)
+
+
+def _rows_to_update(X: ChunkedCoo, c: int, n_valid=None) -> int:
+    """Rows of chunk c that a U pass updates: its true rows, cut at
+    ``n_valid`` (a shard's real rows; the rows past it are the shard's
+    zero padding) when given."""
+    nv = X.chunk_valid(c)
+    if n_valid is None:
+        return nv
+    return max(0, min(nv, int(n_valid) - c * X.chunk_rows))
 
 
 def densify_chunk(X: ChunkedCoo, c: int) -> torch.Tensor:
@@ -274,7 +294,7 @@ def chunked_inner(X: ChunkedCoo, M: torch.Tensor, B: torch.Tensor
 
 
 def chunked_mu_u_pass(X: ChunkedCoo, U, V, VtV, l1, l2, eps,
-                      use_pallas: bool = False):
+                      use_pallas: bool = False, n_valid=None):
     """One streamed MU leg: U_new and V's X-side terms in one pass over X
     (the fused U pass's contract, solvers/mu.py):
 
@@ -282,10 +302,12 @@ def chunked_mu_u_pass(X: ChunkedCoo, U, V, VtV, l1, l2, eps,
         numV  = Σ_c X_cᵀ U_c_new,   gramU = Σ_c U_c_newᵀ U_c_new
 
     Padding rows are exact zeros (the ratio alone gives 0/0 = NaN when
-    l1 = ε = 0). With ``use_pallas`` each chunk is one call of
-    ``fused_mu_u_pass`` (K1), its tail rows cut by ``n_valid``. Returns
-    (U_new (n, k), numV, gramU); reference
-    ``pycmf_tpu/ops/chunked.py:427-466``."""
+    l1 = ε = 0): the last chunk's tail rows, and with ``n_valid`` every
+    row from it on (a rows shard's zero padding, the reference's
+    ``row_mask``). With ``use_pallas`` each chunk is one call of
+    ``fused_mu_u_pass`` (K1), its padding rows cut by K1's ``n_valid``;
+    a chunk with no row to update launches nothing. Returns (U_new (n,
+    k), numV, gramU); reference ``pycmf_tpu/ops/chunked.py:427-466``."""
     n, m = X.shape
     k = U.shape[1]
     Up = _pad_rows(U, X.n_pad)
@@ -293,8 +315,11 @@ def chunked_mu_u_pass(X: ChunkedCoo, U, V, VtV, l1, l2, eps,
     numV = torch.zeros((m, k), dtype=U.dtype, device=U.device)
     gramU = torch.zeros((k, k), dtype=U.dtype, device=U.device)
     for c in range(X.n_chunks):
+        nv = _rows_to_update(X, c, n_valid)
+        if nv == 0:
+            _chunk_rows(out, X, c).zero_()
+            continue
         Xc, uc = densify_chunk(X, c), _chunk_rows(Up, X, c)
-        nv = X.chunk_valid(c)
         if use_pallas:
             u_new, nv_c, g_c = mu_fused.fused_mu_u_pass(Xc, uc, V, VtV, l1,
                                                         l2, eps, n_valid=nv)
@@ -312,15 +337,18 @@ def chunked_mu_u_pass(X: ChunkedCoo, U, V, VtV, l1, l2, eps,
 
 def chunked_newton_linear_u_pass(X: ChunkedCoo, U, V, BtB, Hinv, row_sq, l1,
                                  l2, *, trials: int, non_negative: bool,
-                                 use_pallas: bool = False):
+                                 use_pallas: bool = False, n_valid=None):
     """One streamed Newton U leg (linear link, full batch, Gauss-Newton):
     per chunk the fused Newton U pass's contract (shared H = BtB +
     (l2 + pert)·I with Hinv precomputed, per-row backtracking on φ,
     projection before φ), and V's X-side XᵀU_new and U_newᵀU_new summed
     in chunk order. With ``use_pallas`` each chunk is one call of
     ``fused_newton_linear_u_pass`` (K2); a padding row (zero data, zero U,
-    zero norm) takes a zero step there and stays zero. Returns (U_new
-    (n, k), numV, gramU); reference ``pycmf_tpu/ops/chunked.py:378-424``."""
+    zero norm) takes a zero step there and stays zero. ``n_valid``: a rows
+    shard's real rows; the rows from it on are set to exact zeros after
+    each chunk's update (they are zero already: the shard's padding), and
+    a chunk with no row to update launches nothing. Returns (U_new (n,
+    k), numV, gramU); reference ``pycmf_tpu/ops/chunked.py:378-424``."""
     n, m = X.shape
     k = U.shape[1]
     Up = _pad_rows(U, X.n_pad)
@@ -333,6 +361,10 @@ def chunked_newton_linear_u_pass(X: ChunkedCoo, U, V, BtB, Hinv, row_sq, l1,
         return torch.clamp_min(Mc, 0.0) if non_negative else Mc
 
     for c in range(X.n_chunks):
+        nv = _rows_to_update(X, c, n_valid)
+        if nv == 0:
+            _chunk_rows(out, X, c).zero_()
+            continue
         Xc, uc, rsc = (densify_chunk(X, c), _chunk_rows(Up, X, c),
                        _chunk_rows(rs, X, c))
         if use_pallas:
@@ -352,6 +384,8 @@ def chunked_newton_linear_u_pass(X: ChunkedCoo, U, V, BtB, Hinv, row_sq, l1,
 
             u_new = backtracking_select(phi, project, uc, d, trials)
             nv_c, g_c = matmul(Xc.mT, u_new), u_new.mT @ u_new
+        if n_valid is not None and nv < X.chunk_rows:
+            u_new[nv:] = 0.0   # the shard's padding: zero rows already
         _chunk_rows(out, X, c).copy_(u_new)
         numV = numV + nv_c
         gramU = gramU + g_c

@@ -162,22 +162,31 @@ def _sigmoid_sq_sum(M: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     return total
 
 
-def _sigmoid_term(A, M: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+def _sigmoid_term(A, M: torch.Tensor, B: torch.Tensor, row_mask=None,
+                  col_mask=None) -> torch.Tensor:
     """½‖A − σ(M Bᵀ)‖² for dense, chunked or CSR A.
 
     Chunked A: one streamed pass, the sum of :func:`sigmoid_sq_rows` over
-    each chunk's true rows (a padding row's σ(0) = ½ is not data). CSR A:
-    ‖A − S‖² = ΣS² + Σ_nnz (a² − 2a·S) with S = σ(M Bᵀ); only ΣS² needs
-    the dense product, in row blocks (the reference's form,
-    ``pycmf_tpu/ops/losses.py:178-231``)."""
+    each chunk's true rows (a padding row's σ(0) = ½ is not data), each
+    row weighted by ``row_mask`` and each column by ``col_mask`` when
+    given (a shard's or cell's zero-padding rows and columns; chunked A
+    only, as in the reference). CSR A: ‖A − S‖² = ΣS² + Σ_nnz (a² − 2a·S)
+    with S = σ(M Bᵀ); only ΣS² needs the dense product, in row blocks (the
+    reference's form, ``pycmf_tpu/ops/losses.py:178-231``)."""
     if is_chunked(A):
         Mp = _pad_rows(M, A.n_pad)
+        rm = (None if row_mask is None
+              else _pad_rows(row_mask[:, None].to(M.dtype), A.n_pad)[:, 0])
         total = torch.zeros((), dtype=M.dtype, device=M.device)
         for c in range(A.n_chunks):
             rows = sigmoid_sq_rows(densify_chunk(A, c), _chunk_rows(Mp, A, c),
-                                   B)
+                                   B, col_mask)
+            if rm is not None:
+                rows = rows * _chunk_rows(rm, A, c)
             total = total + torch.sum(rows[:A.chunk_valid(c)])
         return total
+    if row_mask is not None or col_mask is not None:
+        raise ValueError("row_mask and col_mask are for chunked A only")
     if isinstance(A, kbell.BlockEll):
         raise NotImplementedError(
             "sigmoid-link terms need dense data, CSR or a chunked layout, "
@@ -192,13 +201,14 @@ def _sigmoid_term(A, M: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
 
 
 def reconstruction_term(A, M: torch.Tensor, B: torch.Tensor, link: str,
-                        a_sq=None, bell_t=None,
-                        use_pallas: bool = False) -> torch.Tensor:
-    """½‖A − f(M Bᵀ)‖²_F for one coupled matrix (dense or CSR; see
-    :func:`_linear_term` for ``bell_t`` and ``use_pallas``)."""
+                        a_sq=None, bell_t=None, use_pallas: bool = False,
+                        row_mask=None, col_mask=None) -> torch.Tensor:
+    """½‖A − f(M Bᵀ)‖²_F for one coupled matrix (dense, CSR or chunked;
+    see :func:`_linear_term` for ``bell_t`` and ``use_pallas``, and
+    :func:`_sigmoid_term` for the masks of a chunked sigmoid term)."""
     if link == LINEAR:
         return _linear_term(A, M, B, a_sq, bell_t, use_pallas)
-    return _sigmoid_term(A, M, B)
+    return _sigmoid_term(A, M, B, row_mask, col_mask)
 
 
 def total_loss(X, Y, U, V, Z, x_link: str, y_link: str, alpha, l1_ratio,

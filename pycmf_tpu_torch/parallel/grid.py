@@ -23,7 +23,13 @@ Padding rows of U and V are forced to exact zero after every update; under
 a sigmoid link U's terms take the column mask of the padded m and V's the
 mask of the padded n. No rank holds whole rows or columns of X, so K1/K2
 never run here; every other kernel of the path does (K3-K6, and on a sparse
-cell ``csr_spmm``/``csr_rowdots`` or ``bell_spmm``).
+cell ``csr_spmm``/``csr_rowdots`` or ``bell_spmm``). A chunked cell
+(``sparse_mode='chunked'``, or 'auto' past the threshold for a
+sigmoid-linked X under Newton) is streamed by every product, its transpose
+through ``ChunkedT``, and a sigmoid-linked sparse Y past the threshold
+takes one chunked carrier per row block j. A sampled Newton step draws
+U's and Z's terms and V's Y term from the stream of mesh column j, V's X
+term from the cell's own (``sharded.Draws``).
 
 The loss sums its parts over the whole mesh in one all-reduce: a term of a
 factor replicated along an axis (U_i's along the mesh row, V_j's and Y_j's
@@ -40,10 +46,12 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
+from ..ops.chunked import chunked_inner, is_chunked
 from ..ops.kernels import bell as kbell
 from ..ops.kernels import spmm as kspmm
 from ..ops.links import LINEAR
-from ..ops.losses import penalty, sigmoid_sq_rows, streamed_inner
+from ..ops.losses import (penalty, reconstruction_term, sigmoid_sq_rows,
+                          streamed_inner)
 from ..ops.matmul import FP8_DTYPES, gram, matmul
 from ..ops.sparse import is_sparse, sddmm_dot
 from ..solvers.common import (Coupled, Hyper, SolverConfig, check_loop,
@@ -54,9 +62,9 @@ from ..solvers.newton import (Term, _transposed, _with_transposes,
                               newton_update_factor)
 from ..utils.validation import as_coupled
 from .mesh import GridMesh, all_reduce, gather_rows, make_grid_mesh
-from .sharded import (check_shardable, col_block, cols_aux_kind, factor,
-                      make_block, row_block, stored_block, x_mode, y_block,
-                      y_parts, y_term)
+from .sharded import (Draws, check_shardable, col_block, cols_aux_kind,
+                      factor, make_block, make_draws, row_block,
+                      stored_block, x_mode, y_block, y_parts, y_term)
 
 
 def factor_grid(n_devices: int) -> tuple[int, int]:
@@ -72,11 +80,11 @@ class GridOperands(NamedTuple):
     """This rank's cell of the grid layout.
 
     X       : cell (i, j) of X, padded to (n_loc, m_loc), as a Coupled
-              (dense, CSR or BlockEll, with the layout of the cell's
-              transpose; row_sq (n_loc,) the PARTIAL ‖xᵢ‖² over the cell's
-              columns, row_sq_t (m_loc,) the partial norms over its rows,
-              which the summed φ complete)
-    Y       : row block j of Y (dense, m_loc rows) or None
+              (dense, or CSR or BlockEll with the layout of the cell's
+              transpose, or chunked; row_sq (n_loc,) the PARTIAL ‖xᵢ‖² over
+              the cell's columns, row_sq_t (m_loc,) the partial norms over
+              its rows, which the summed φ complete)
+    Y       : row block j of Y (dense or chunked, m_loc rows) or None
     nmask   : (n_loc,) 1 on the cell's real rows
     mmask   : (m_loc,) 1 on its real columns
     n_valid : the cell's real rows
@@ -120,17 +128,21 @@ def _sq_norm64(cell, data_dtype) -> float:
 
 
 def prepare_grid(X, Y, U0, V0, gm: GridMesh, dtype, data_dtype,
-                 cfg: SolverConfig, mode: str = "dense"):
+                 cfg: SolverConfig, mode: str = "dense",
+                 chunked: bool = False):
     """(GridOperands, this rank's U block, its V block) on the mesh's
     device.
 
     mode: how a sparse X's cell is stored: 'dense' (densified on the
-    device; under fp8 on the host) or 'csr' (CSR with the CSR of its local
+    device; under fp8 on the host), 'csr' (CSR with the CSR of its local
     transpose, or under use_pallas BlockEll layouts of both where the
-    cell's tiles fill enough). BlockEll is taken on every cell or on none,
-    as the reference's ``_stack_bell_grid`` decides: one all-reduce of a
-    flag, with ‖X‖²'s, so every rank launches the same kernels. Y's row
-    block j as in the cols layout (``sharded.y_block``). Reference:
+    cell's tiles fill enough) or 'chunked' (the streamed layout of the
+    cell, its chunk rows picked on the cell's shape: the same geometry on
+    every rank). BlockEll is taken on every cell or on none, as the
+    reference's ``_stack_bell_grid`` decides: one all-reduce of a flag,
+    with ‖X‖²'s, so every rank launches the same kernels. Y's row block j
+    as in the cols layout (``sharded.y_block``; ``chunked``: a
+    sigmoid-linked sparse Y's chunked carrier at any size). Reference:
     ``pycmf_tpu/parallel/grid.py:_prepare_grid``."""
     n, m = X.shape
     r, c, dev, up = gm.rows, gm.cols, gm.world.device, cfg.use_pallas
@@ -150,7 +162,8 @@ def prepare_grid(X, Y, U0, V0, gm: GridMesh, dtype, data_dtype,
         device=dev))[0].tolist()
     if bell and n_bell < r * c:
         Xc = upload(False)   # another cell is too scattered: CSR everywhere
-    Yc = y_block(Y, c * m_loc, m_loc, j, data_dtype, dev, cfg, "grid")
+    Yc = y_block(Y, c * m_loc, m_loc, j, data_dtype, dev, cfg, "grid",
+                 chunked)
     fdt = Xc.row_sq.dtype
     nmask = torch.zeros(n_loc, dtype=dtype, device=dev)
     nmask[:n_valid] = 1
@@ -219,18 +232,25 @@ def mu_grid_iter(cfg: SolverConfig, ops: GridOperands, U, V, Z,
 
 
 def newton_grid_iter(cfg: SolverConfig, ops: GridOperands, U, V, Z,
-                     hyper: Hyper, gm: GridMesh, with_aux=None):
-    """One full-batch Newton iteration, U then Z then V: (U, V, Z, aux),
-    aux this cell's (X[i,j]ᵀU_new, U_newᵀU_new) under "factored" (V's
-    update hands them over, ``term_cache``), V_j's Σφ summed over ROW
-    under "phi" (the same on every rank of the mesh column), else None.
-    Reference: ``pycmf_tpu/parallel/grid.py:_newton_grid_iter``."""
+                     hyper: Hyper, gm: GridMesh, with_aux=None,
+                     draws: Optional[Draws] = None):
+    """One Newton iteration, U then Z then V: (U, V, Z, aux), aux this
+    cell's (X[i,j]ᵀU_new, U_newᵀU_new) under "factored" (V's update hands
+    them over, ``term_cache``), V_j's Σφ summed over ROW under "phi" (the
+    same on every rank of the mesh column), else None. Sampled
+    (``draws``): U's and Z's terms and V's Y term draw from the common
+    stream of mesh column j (the reference folds their keys with the COL
+    index, V's before the call), V's X term from the cell's own (folded
+    again with the ROW index). Reference:
+    ``pycmf_tpu/parallel/grid.py:_newton_grid_iter``."""
     common = dict(trials=cfg.line_search_trials,
-                  hessian_form=cfg.hessian_form, use_pallas=cfg.use_pallas)
+                  hessian_form=cfg.hessian_form,
+                  sample_ratio=cfg.sg_sample_ratio, use_pallas=cfg.use_pallas)
     fused_kw = dict(trials=cfg.line_search_trials, use_pallas=cfg.use_pallas)
     X, Y = ops.X, ops.Y
     nmask, mmask = _masks(ops)
     sig_x = cfg.x_link != LINEAR
+    col_j, cell = draws if draws is not None else (None, None)
     if cfg.update_U:
         if sig_x and fused_sigmoid_allowed(cfg, X.A, U):
             # K3/K4's partials summed over COL; the padding columns pair
@@ -241,7 +261,7 @@ def newton_grid_iter(cfg: SolverConfig, ops: GridOperands, U, V, Z,
                                      row_mask=nmask, group=gm.col, **fused_kw)
         else:
             U = newton_update_factor(
-                None, U, (Term(X.A, V, X.row_sq, layout=X.A_bell),),
+                col_j, U, (Term(X.A, V, X.row_sq, layout=X.A_bell),),
                 (cfg.x_link,), hyper, non_negative=cfg.U_non_negative,
                 distributed=(True,), masks=(mmask if sig_x else None,),
                 group=gm.col, **common)
@@ -254,7 +274,7 @@ def newton_grid_iter(cfg: SolverConfig, ops: GridOperands, U, V, Z,
                                      group=gm.col, **fused_kw)
         else:
             Z = newton_update_factor(
-                None, Z, (Term(_transposed(Y), V),), (cfg.y_link,), hyper,
+                col_j, Z, (Term(_transposed(Y), V),), (cfg.y_link,), hyper,
                 non_negative=cfg.Z_non_negative, distributed=(True,),
                 masks=(mmask if cfg.y_link != LINEAR else None,),
                 group=gm.col, **common)
@@ -285,7 +305,7 @@ def newton_grid_iter(cfg: SolverConfig, ops: GridOperands, U, V, Z,
                 terms, links = terms + (yterm,), links + (cfg.y_link,)
                 dist, masks = dist + (False,), masks + (None,)
             out = newton_update_factor(
-                None, V, terms, links, hyper,
+                (cell, col_j)[:len(terms)], V, terms, links, hyper,
                 non_negative=cfg.V_non_negative, distributed=dist,
                 masks=masks, group=gm.row, return_phi=phi,
                 term_cache=0 if with_aux == "factored" else None, **common)
@@ -350,12 +370,15 @@ def loss_grid(cfg: SolverConfig, ops: GridOperands, U, V, Z, hyper: Hyper,
     """L(U, V, Z) over the mesh in one all-reduce: a linear X term by the
     factored identity, its ⟨X[i,j], U_i V_jᵀ⟩ summed over both axes with
     ‖X‖² and UᵀU, VᵀV; a sigmoid one as the residual masked on both
-    padding axes. Reference: ``pycmf_tpu/parallel/grid.py:_loss_grid``."""
+    padding axes (a chunked cell streams both). Reference:
+    ``pycmf_tpu/parallel/grid.py:_loss_grid``."""
     X, up = ops.X, cfg.use_pallas
     nmask, mmask = _masks(ops)
     linear = cfg.x_link == LINEAR
     if linear:
-        if is_sparse(X.A):
+        if is_chunked(X.A):
+            cell = chunked_inner(X.A, U, V)
+        elif is_sparse(X.A):
             if up and X.At_bell is not None:
                 cell = kbell.bell_inner(X.At_bell, U, V)
             elif up:
@@ -364,6 +387,9 @@ def loss_grid(cfg: SolverConfig, ops: GridOperands, U, V, Z, hyper: Hyper,
                 cell = sddmm_dot(X.A, U, V)
         else:
             cell = streamed_inner(X.A, U, V)
+    elif is_chunked(X.A):
+        cell = reconstruction_term(X.A, U, V, cfg.x_link, row_mask=nmask,
+                                   col_mask=mmask)
     else:
         rows = sigmoid_sq_rows(X.A, U, V, mmask)
         if nmask is not None:
@@ -420,7 +446,7 @@ def run_grid(solver: str, X, Y, U0, V0, Z0, cfg: SolverConfig,
              hyper: Hyper, *, grid: tuple, group=None, dtype=torch.float32,
              data_dtype=None, device="cuda", max_iter: int = 200,
              tol: float = 1e-4, eval_every: int = 10, verbose: int = 0,
-             loop: str = "host", sparse_mode: str = "auto"):
+             loop: str = "host", sparse_mode: str = "auto", seed: int = 0):
     """The grid fit on this process's rank of ``group`` (default: the
     default process group), whose size must be rows·cols of ``grid``. X, Y:
     the whole host matrices, on every rank; U0, V0, Z0: host arrays, the
@@ -428,20 +454,22 @@ def run_grid(solver: str, X, Y, U0, V0, Z0, cfg: SolverConfig,
     loss_iters, step_times), U gathered over the mesh column and V over the
     mesh row: the same on every rank.
 
-    sparse_mode (a sparse X): 'dense' densifies this rank's cell; 'auto'
-    densifies it when the cell's dense copy (⌈n/r⌉·⌈m/c⌉ elements at the
-    storage dtype) fits the densify threshold, else keeps it as 'csr'
-    does: CSR (and the CSR of its local transpose), or BlockEll on every
-    cell under use_pallas where every cell's tiles fill enough. The
-    reference streams a scattered cell past the threshold (chunked, ROADMAP
-    C4): here it stays CSR, and a sigmoid-linked one under Newton raises
-    naming A10c. data_dtype fp8: each cell dense on the host, stored as
-    e4m3, Y at bf16. Reference: ``pycmf_tpu/parallel/grid.py:run_grid``,
-    loop 'host'."""
+    sparse_mode (a sparse X): 'dense' densifies this rank's cell; 'csr'
+    keeps it CSR (and the CSR of its local transpose), or BlockEll on
+    every cell under use_pallas where every cell's tiles fill enough;
+    'chunked' streams it; 'auto' densifies it when the cell's dense copy
+    (⌈n/r⌉·⌈m/c⌉ elements at the storage dtype) fits the densify
+    threshold, else streams a sigmoid-linked X under Newton and keeps any
+    other as 'csr' does (the reference streams a scattered linear cell
+    too: ROADMAP C4, ``sharded.x_mode``). data_dtype fp8: each cell dense
+    on the host, stored as e4m3, Y at bf16.
+
+    seed: a sampled Newton fit's draw streams (``sharded.Draws``): the one
+    of mesh column j, shared by the ranks of that column, and the cell's
+    own. Reference: ``pycmf_tpu/parallel/grid.py:run_grid``, loop
+    'host'."""
     check_loop(loop)
-    check_shardable(layout="grid", loop=loop,
-                    sg_sample_ratio=cfg.sg_sample_ratio,
-                    sparse_mode=sparse_mode)
+    check_shardable(layout="grid", loop=loop)
     r, c = grid
     gm = make_grid_mesh(r, c, group, device)
     ddt = dtype if data_dtype is None else data_dtype
@@ -449,7 +477,8 @@ def run_grid(solver: str, X, Y, U0, V0, Z0, cfg: SolverConfig,
     mode = x_mode(X, -(-n // r) * -(-m // c), ddt, cfg, solver, sparse_mode,
                   "cell")
     dev = gm.world.device
-    ops, U, V = prepare_grid(X, Y, U0, V0, gm, dtype, ddt, cfg, mode)
+    ops, U, V = prepare_grid(X, Y, U0, V0, gm, dtype, ddt, cfg, mode,
+                             sparse_mode == "chunked")
     k = U0.shape[1]
     Z = (factor(Z0, dev, dtype) if Z0 is not None and cfg.has_Y
          else torch.zeros((0, k), dtype=dtype, device=dev))
@@ -465,8 +494,10 @@ def run_grid(solver: str, X, Y, U0, V0, Z0, cfg: SolverConfig,
         cfg, solver, gm, aux, mu_iter=mu_grid_iter,
         newton_iter=newton_grid_iter, loss=loss_grid,
         aux_loss=_aux_loss_grid)
+    draws = (make_draws(seed, dev, (1, gm.j), (2, gm.i, gm.j))
+             if solver == "newton" and cfg.sg_sample_ratio < 1.0 else None)
     state, n_iter, losses, iters, times = run_solver_loop(
-        block, (ops, U, V, Z), hyper, None, max_iter=max_iter, tol=tol,
+        block, (ops, U, V, Z), hyper, draws, max_iter=max_iter, tol=tol,
         eval_every=eval_every, verbose=verbose if gm.world.rank == 0 else 0,
         initial_loss_fn=loss_fn)
     _, U, V, Z = state

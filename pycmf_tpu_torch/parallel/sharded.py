@@ -34,10 +34,26 @@ zero-extra-pass eval losses (the summed or local V terms, or V's Σφ) a
 block's loss costs one small all-reduce. Every rank is given the whole host
 X and Y, as the reference's single controller holds them, and uploads only
 its own block of X (CSR or BlockEll by the single-device rule for that
-block, or dense; under fp8 data densified on the host and stored as e4m3,
-Y at bf16). The 2-D ``grid`` layout is ``parallel/grid.py``. Not
-ported yet across shards: the chunked layout, sampled Newton and the device
-loop (ROADMAP A10c); each raises NotImplementedError naming it.
+block, the streamed chunked layout of ``ops/chunked.py``, or dense; under
+fp8 data densified on the host and stored as e4m3, Y at bf16). The 2-D
+``grid`` layout is ``parallel/grid.py``.
+
+**Chunked blocks.** Under ``sparse_mode='chunked'``, or 'auto' for a
+sigmoid-linked X under Newton whose block is past the densify threshold,
+each rank builds the chunked layout of its own zero-padded block, its
+chunk rows picked on the local shape (the same geometry on every rank).
+Under 'rows' the U passes stream it chunk by chunk (K1, K2, or K3-K5 on
+each chunk of a sigmoid X), the shard's padding rows cut by ``n_valid``
+or its row mask, and V's terms stream its transpose (``ChunkedT``) and
+are summed over the ranks; under 'cols' the products stream it. A
+sigmoid-linked sparse Y past the threshold (or under 'chunked') takes the
+chunked carrier: replicated under 'rows', one row block per rank under
+'cols'.
+
+**Sampled Newton** (``sg_sample_ratio`` < 1) draws from the two streams of
+:class:`Draws` by the reference's key schedule. The device loop under
+shards is not ported yet (ROADMAP A10c) and raises NotImplementedError
+naming it.
 """
 from __future__ import annotations
 
@@ -48,6 +64,8 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
+from ..ops.chunked import (chunked_inner, chunked_mu_u_pass,
+                           chunked_newton_linear_u_pass, is_chunked)
 from ..ops.links import LINEAR
 from ..ops.losses import (penalty, reconstruction_term, sigmoid_sq_rows,
                           streamed_inner)
@@ -63,6 +81,7 @@ from ..solvers.newton import (Term, _transposed, _with_transposes,
                               fused_newton_u_allowed, fused_sigmoid_allowed,
                               fused_sigmoid_update, newton_update_factor,
                               shared_gauss_hinv)
+from ..solvers.newton_chunked import chunked_sigmoid_row_update
 from ..utils.validation import DENSIFY_THRESHOLD, as_coupled, check_fp8_range
 from .mesh import Mesh, all_reduce, gather_rows, make_mesh
 
@@ -71,8 +90,8 @@ class RowOperands(NamedTuple):
     """This rank's operands of the rows layout.
 
     X       : its row block of X, padded to n_loc rows, as a Coupled (dense,
-              CSR or BlockEll, with the layout of the block's transpose and
-              the block's norms: row_sq (n_loc,), row_sq_t (m,))
+              CSR or BlockEll, with the layout of the block's transpose, or
+              chunked; and the block's norms: row_sq (n_loc,), row_sq_t (m,))
     Y       : the replicated Y (a Coupled) or None
     mask    : (n_loc,) 1 on the block's real rows, 0 on its padding
     n_valid : the block's real rows
@@ -90,6 +109,54 @@ class RowOperands(NamedTuple):
     a_sq: torch.Tensor
     col_sq: torch.Tensor
     x_size: int
+
+
+class Draws(NamedTuple):
+    """The column-draw streams of a sampled sharded Newton fit, one
+    torch.Generator each on the rank's device (the single device draws
+    from one; ``solvers/newton.draw_columns``), by the reference's key
+    schedule (``pycmf_tpu/solvers/newton.py:363-381``, the layouts'
+    ``fold_in`` of the axis index):
+
+    common : a stream identical on every rank that holds the updated
+             factor's replica, for a term whose reference key is not
+             folded with an axis index. rows: every rank (Z's term, V's Y
+             term); grid: the ranks of mesh column j (U's and Z's terms,
+             V's Y term); cols: unused.
+    own    : a stream keyed by the rank's coordinate, for a term whose key
+             the reference folds with an axis index. rows: rank r (U's
+             term, V's X term); cols: rank r (every term); grid: cell
+             (i, j) (V's X term).
+
+    Each stream is drawn in the step's order (U's terms, Z's, V's), so
+    the ranks sharing one make the same draws and a replicated factor
+    stays bit for bit equal on them; the same seed and world give the
+    same fit on every run."""
+
+    common: torch.Generator
+    own: torch.Generator
+
+
+def stream_seed(seed: int, *key: int) -> int:
+    """The seed of one draw stream: ``seed`` itself for the key (), the
+    single device's; else a 63-bit value mixed from the seed and the
+    key by NumPy's SeedSequence (the key: (0, rank) for a rows or cols
+    rank's own stream, (1, j) for the grid's mesh column j, (2, i, j)
+    for its cell)."""
+    if not key:
+        return int(seed)
+    ss = np.random.SeedSequence(int(seed) % (1 << 64), spawn_key=key)
+    return int(ss.generate_state(1, np.uint64)[0] >> np.uint64(1))
+
+
+def make_draws(seed: int, device, common=(), own=()) -> Draws:
+    """The Draws of a rank: generators on ``device`` seeded by
+    :func:`stream_seed` of the two keys."""
+    def gen(key):
+        g = torch.Generator(device=device)
+        g.manual_seed(stream_seed(seed, *key))
+        return g
+    return Draws(gen(common), gen(own))
 
 
 def row_block(X, n_loc: int, rank: int):
@@ -126,15 +193,29 @@ def stored_block(blk, data_dtype):
     return blk
 
 
+def y_chunked(Y, rows: int, ydt, cfg: SolverConfig, chunked: bool) -> bool:
+    """Whether a sigmoid-linked sparse Y takes the chunked carrier: under
+    sparse_mode='chunked' (``chunked``), or when its dense copy of ``rows``
+    rows (the whole Y under 'rows', the padded m under 'cols' and 'grid')
+    is past the densify threshold. Reference: ``_prepare_rows``,
+    ``_prepare_cols``, ``grid.py:_prepare_grid``."""
+    return (sp.issparse(Y) and cfg.y_link != LINEAR
+            and (chunked or rows * Y.shape[1] * ydt.itemsize
+                 > DENSIFY_THRESHOLD))
+
+
 def prepare_rows(X, Y, U0, mesh: Mesh, dtype, data_dtype, cfg: SolverConfig,
-                 x_mode: str = "dense"):
+                 x_mode: str = "dense", chunked: bool = False):
     """(RowOperands, this rank's U block, n) on mesh.device.
 
     x_mode: how a sparse X's block is stored: 'dense' (densified on the
-    device) or 'csr' (CSR, or BlockEll under use_pallas where the block's
-    128×128 tiles fill enough: as_coupled's single-device rule). A sparse
-    Y stays CSR under a linear link (as the reference's rows layout keeps
-    it) and is densified under a sigmoid one up to the densify threshold.
+    device), 'csr' (CSR, or BlockEll under use_pallas where the block's
+    128×128 tiles fill enough: as_coupled's single-device rule) or
+    'chunked' (the streamed layout of the block, its chunk rows picked on
+    the block's shape). A sparse Y stays CSR under a linear link (as the
+    reference's rows layout keeps it); under a sigmoid one it is
+    densified on the device, or replicated as the chunked carrier past the
+    densify threshold or under ``chunked`` (sparse_mode='chunked').
     Reference: ``pycmf_tpu/parallel/sharded.py:_prepare_rows``."""
     n, m = X.shape
     d, dev, up = mesh.world, mesh.device, cfg.use_pallas
@@ -149,16 +230,12 @@ def prepare_rows(X, Y, U0, mesh: Mesh, dtype, data_dtype, cfg: SolverConfig,
     elif sp.issparse(Y) and cfg.y_link == LINEAR:
         Yc = as_coupled(Y, ydt, dev, use_pallas=up, sparse_mode="csr")
     else:
-        if sp.issparse(Y) and (Y.shape[0] * Y.shape[1]
-                               * ydt.itemsize > DENSIFY_THRESHOLD):
-            raise NotImplementedError(
-                "a sigmoid-linked sparse Y past the densify threshold under "
-                "n_shards takes the replicated chunked layout, which is not "
-                "ported yet (ROADMAP A10c)")
-        Yc = as_coupled(Y, ydt, dev, sparse_mode="dense")
+        Yc = as_coupled(Y, ydt, dev, sparse_mode=(
+            "chunked" if y_chunked(Y, Y.shape[0], ydt, cfg, chunked)
+            else "dense"))
     # ‖X‖² and the column norms over all ranks: one all-reduce of the
     # blocks' own (host float64, stored at the factor precision)
-    a_sq = Xc.A.sq_norm if is_sparse(Xc.A) else Xc.a_sq
+    a_sq = _a_sq(Xc)
     col_sq, a_sq = all_reduce(mesh, Xc.row_sq_t, a_sq.to(Xc.row_sq_t.dtype))
     mask = torch.zeros(n_loc, dtype=dtype, device=dev)
     mask[:n_valid] = 1
@@ -171,15 +248,21 @@ def prepare_rows(X, Y, U0, mesh: Mesh, dtype, data_dtype, cfg: SolverConfig,
     return ops, U, n
 
 
+def _a_sq(Xc: Coupled) -> torch.Tensor:
+    """A block's ‖X‖²: a sparse or chunked layout's own Σ data², else the
+    dense block's host norm."""
+    return Xc.A.sq_norm if is_sparse(Xc.A) or is_chunked(Xc.A) else Xc.a_sq
+
+
 class ColOperands(NamedTuple):
     """This rank's operands of the cols layout.
 
     X       : its column block of X, padded to m_loc columns, as a Coupled
               (dense, CSR or BlockEll, with the layout of the block's
-              transpose; row_sq (n,) the PARTIAL ‖xᵢ‖² over the block's
-              columns, which U's summed φ completes; row_sq_t (m_loc,) the
-              EXACT norms of the block's rows of Xᵀ)
-    Y       : its row block of Y (dense, m_loc rows) or None
+              transpose, or chunked; row_sq (n,) the PARTIAL ‖xᵢ‖² over the
+              block's columns, which U's summed φ completes; row_sq_t
+              (m_loc,) the EXACT norms of the block's rows of Xᵀ)
+    Y       : its row block of Y (dense or chunked, m_loc rows) or None
     mask    : (m_loc,) 1 on the block's real shared-dimension entries
     m_valid : the block's real columns
     a_sq    : ‖X‖² over all ranks (the factored eval loss)
@@ -213,16 +296,14 @@ def col_block(X, m_loc: int, rank: int):
 
 
 def prepare_cols(X, Y, V0, mesh: Mesh, dtype, data_dtype, cfg: SolverConfig,
-                 x_mode: str = "dense"):
+                 x_mode: str = "dense", chunked: bool = False):
     """(ColOperands, this rank's V block, m) on mesh.device.
 
     x_mode: how a sparse X's block is stored, as in :func:`prepare_rows`
-    ('dense', or 'csr': CSR, or BlockEll under use_pallas by the
-    single-device rule). Y's rows are the sharded axis here, so each rank
-    stores its row block dense: a sigmoid-linked sparse Y is densified on
-    the device up to the densify threshold (past it the chunked carrier,
-    ROADMAP A10c); a linear-linked sparse Y is densified on the host, with
-    the reference's warning. Reference:
+    ('dense'; 'csr': CSR, or BlockEll under use_pallas by the
+    single-device rule; 'chunked'). Y's rows are the sharded axis here, so
+    each rank stores its row block (:func:`y_block`: dense, or a
+    sigmoid-linked sparse Y's chunked carrier). Reference:
     ``pycmf_tpu/parallel/sharded.py:_prepare_cols``."""
     n, m = X.shape
     d, dev, up = mesh.world, mesh.device, cfg.use_pallas
@@ -232,9 +313,9 @@ def prepare_cols(X, Y, V0, mesh: Mesh, dtype, data_dtype, cfg: SolverConfig,
     Xc = as_coupled(blk, data_dtype, dev, use_pallas=up,
                     sparse_mode=x_mode if sp.issparse(blk) else "auto")
     Yc = y_block(Y, d * m_loc, m_loc, mesh.rank, data_dtype, dev, cfg,
-                 "cols")
+                 "cols", chunked)
     # ‖X‖² over all ranks: one all-reduce of the blocks' own
-    a_sq = Xc.A.sq_norm if is_sparse(Xc.A) else Xc.a_sq
+    a_sq = _a_sq(Xc)
     a_sq = all_reduce(mesh, a_sq.to(dtype))[0]
     mask = torch.zeros(m_loc, dtype=dtype, device=dev)
     mask[:m_valid] = 1
@@ -247,22 +328,22 @@ def prepare_cols(X, Y, V0, mesh: Mesh, dtype, data_dtype, cfg: SolverConfig,
 
 
 def y_block(Y, m_pad: int, m_loc: int, block: int, data_dtype, device,
-            cfg: SolverConfig, layout: str) -> Optional[Coupled]:
+            cfg: SolverConfig, layout: str,
+            chunked: bool = False) -> Optional[Coupled]:
     """Row block ``block`` of Y (its rows are the sharded shared dimension,
-    padded to m_pad), dense on ``device``, or None. A sigmoid-linked
-    sparse Y is densified on the device up to the densify threshold (past
-    it the chunked carrier, ROADMAP A10c); a linear-linked sparse Y on the
-    host, with the reference's warning. Reference: ``_prepare_cols``,
-    ``pycmf_tpu/parallel/grid.py:_prepare_grid``."""
+    padded to m_pad) on ``device``, or None: dense, or the chunked
+    carrier of the block for a sigmoid-linked sparse Y past the densify
+    threshold or under ``chunked`` (sparse_mode='chunked'). A smaller
+    sigmoid-linked sparse Y is densified on the device; a linear-linked
+    sparse Y on the host, with the reference's warning. Reference:
+    ``_prepare_cols``, ``pycmf_tpu/parallel/grid.py:_prepare_grid``."""
     if Y is None:
         return None
     ydt = y_dtype(data_dtype)
+    mode = "dense"
     if sp.issparse(Y) and cfg.y_link != LINEAR:
-        if m_pad * Y.shape[1] * ydt.itemsize > DENSIFY_THRESHOLD:
-            raise NotImplementedError(
-                "a sigmoid-linked sparse Y past the densify threshold under "
-                f"shard_layout={layout!r} takes the per-shard chunked "
-                "carrier, which is not ported yet (ROADMAP A10c)")
+        if y_chunked(Y, m_pad, ydt, cfg, chunked):
+            mode = "chunked"
     elif sp.issparse(Y):
         what = ("a dense row-sharded block on each device" if layout == "cols"
                 else "dense COL-sharded blocks")
@@ -275,7 +356,7 @@ def y_block(Y, m_pad: int, m_loc: int, block: int, data_dtype, device,
             UserWarning, stacklevel=4)
         Y = np.asarray(Y.todense())
     yblk = col_block(Y.T, m_loc, block)[0].T
-    return as_coupled(yblk, ydt, device, sparse_mode="dense")
+    return as_coupled(yblk, ydt, device, sparse_mode=mode)
 
 
 # ---------------------------------------------------------------------------
@@ -299,12 +380,16 @@ def _padded(ops: RowOperands) -> bool:
 def loss_rows(cfg: SolverConfig, ops: RowOperands, U, V, Z, hyper: Hyper,
               mesh: Mesh):
     """L(U, V, Z) with X and U row-sharded: the X side and U's penalty
-    summed over the ranks in one all-reduce. Reference:
-    ``pycmf_tpu/parallel/sharded.py:_loss_rows``."""
+    summed over the ranks in one all-reduce. A chunked block streams its
+    inner product, or its sigmoid residual with the shard's padding rows
+    masked. Reference: ``pycmf_tpu/parallel/sharded.py:_loss_rows``."""
     X, up = ops.X, cfg.use_pallas
     pen_u = penalty(U, hyper.alpha, hyper.l1_ratio)
     if cfg.x_link == LINEAR:
-        if is_sparse(X.A):
+        if is_chunked(X.A):
+            a_sq = X.A.sq_norm
+            inner = chunked_inner(X.A, U, V)
+        elif is_sparse(X.A):
             a_sq = X.A.sq_norm
             if up and X.At_bell is not None:
                 inner = kbell.bell_inner(X.At_bell, U, V)
@@ -318,6 +403,10 @@ def loss_rows(cfg: SolverConfig, ops: RowOperands, U, V, Z, hyper: Hyper,
         gU, part, pen_u = all_reduce(mesh, gram(U), a_sq - 2.0 * inner,
                                      pen_u)
         x_term = 0.5 * (part + torch.sum(gU * gram(V)))
+    elif is_chunked(X.A):
+        x_term, pen_u = all_reduce(mesh, reconstruction_term(
+            X.A, U, V, cfg.x_link,
+            row_mask=ops.mask if _padded(ops) else None), pen_u)
     else:
         rows = sigmoid_sq_rows(X.A, U, V)
         if _padded(ops):
@@ -362,17 +451,21 @@ def _rows_aux_ok(cfg: SolverConfig, ops: RowOperands, U) -> bool:
     if not (cfg.update_U and cfg.update_V and cfg.x_link == LINEAR):
         return False
     A = ops.X.A
-    return is_sparse(A) or A.dtype == U.dtype or ops.x_size >= (1 << 22)
+    return (is_sparse(A) or is_chunked(A) or A.dtype == U.dtype
+            or ops.x_size >= (1 << 22))
 
 
 def rows_aux_kind(cfg: SolverConfig, ops: RowOperands, U, solver: str):
     """None | "factored" | "phi" (reference: ``_rows_aux_kind``): Newton's
-    factored loss needs the fused U pass, its φ loss (a sigmoid X) the V
-    update, a line search and the full batch."""
+    factored loss needs the fused U pass (or a chunked block's streamed U
+    pass, full batch), its φ loss (a sigmoid X) the V update, a line
+    search and the full batch."""
     if solver == "mu" or cfg.x_link == LINEAR:
+        A = ops.X.A
         ok = _rows_aux_ok(cfg, ops, U) and (
             solver == "mu"
-            or fused_newton_u_allowed(cfg, ops.X.A, ops.X.row_sq, U))
+            or (cfg.sg_sample_ratio >= 1.0 if is_chunked(A)
+                else fused_newton_u_allowed(cfg, A, ops.X.row_sq, U)))
         return "factored" if ok else None
     if not (cfg.update_V and cfg.line_search_trials >= 1
             and cfg.sg_sample_ratio >= 1.0):
@@ -387,18 +480,24 @@ def rows_aux_kind(cfg: SolverConfig, ops: RowOperands, U, solver: str):
 
 def mu_rows_iter(cfg: SolverConfig, ops: RowOperands, U, V, Z, hyper: Hyper,
                  mesh: Mesh):
-    """One MU iteration: (U, V, Z, (ΣXᵀU_new, ΣU_newᵀU_new) or None).
-    Reference: ``pycmf_tpu/parallel/sharded.py:_mu_rows_iter``."""
+    """One MU iteration: (U, V, Z, (ΣXᵀU_new, ΣU_newᵀU_new) or None). A
+    chunked block takes the streamed U pass (K1 per chunk under
+    use_pallas), the shard's padding rows cut by ``n_valid``. Reference:
+    ``pycmf_tpu/parallel/sharded.py:_mu_rows_iter``."""
     l1, l2, eps, up = hyper.l1, hyper.l2, hyper.eps, cfg.use_pallas
     X = ops.X
+    chunk = is_chunked(X.A) and cfg.update_V
     fused = (up and cfg.update_U and cfg.update_V and not is_sparse(X.A)
-             and U.dtype != torch.bfloat16)
+             and not is_chunked(X.A) and U.dtype != torch.bfloat16)
     num_vx = gram_u = None
     VtV = gram(V) if (cfg.update_U or (cfg.has_Y and cfg.update_Z)) else None
     if cfg.update_U:
         # the padding rows come out exactly zero: their ratio is 0·0/0 = NaN
         # when l1 = eps = 0, and a NaN row would poison every sum
-        if fused:
+        if chunk:
+            U, num_vx, gram_u = chunked_mu_u_pass(
+                X.A, U, V, VtV, l1, l2, eps, up, n_valid=ops.n_valid)
+        elif fused:
             U, num_vx, gram_u = mu_fused.fused_mu_u_pass(
                 X.A, U, V, VtV, l1, l2, eps, n_valid=ops.n_valid)
         else:
@@ -423,20 +522,42 @@ def mu_rows_iter(cfg: SolverConfig, ops: RowOperands, U, V, Z, hyper: Hyper,
 
 
 def newton_rows_iter(cfg: SolverConfig, ops: RowOperands, U, V, Z,
-                     hyper: Hyper, mesh: Mesh, with_aux=None):
-    """One full-batch Newton iteration, U then Z then V: (U, V, Z, aux),
-    aux the summed (XᵀU_new, U_newᵀU_new) under with_aux="factored", V's
-    Σφ under "phi", else None. Reference:
-    ``pycmf_tpu/parallel/sharded.py:_newton_rows_iter``."""
+                     hyper: Hyper, mesh: Mesh, with_aux=None,
+                     draws: Optional[Draws] = None):
+    """One Newton iteration, U then Z then V: (U, V, Z, aux), aux the
+    summed (XᵀU_new, U_newᵀU_new) under with_aux="factored", V's Σφ under
+    "phi", else None. Sampled (``draws``): U's term and V's X term draw
+    from the rank's own stream, Z's term and V's Y term from the common
+    one. A chunked block: U's full-batch update streams its chunks (K2 per
+    chunk on a linear X, handing V the summed pair; K3-K5 per chunk on a
+    sigmoid X), V's X term its transpose (``ChunkedT``), summed over the
+    ranks. Reference: ``pycmf_tpu/parallel/sharded.py:_newton_rows_iter``."""
     common = dict(trials=cfg.line_search_trials,
-                  hessian_form=cfg.hessian_form, use_pallas=cfg.use_pallas)
+                  hessian_form=cfg.hessian_form,
+                  sample_ratio=cfg.sg_sample_ratio, use_pallas=cfg.use_pallas)
     fused_kw = dict(trials=cfg.line_search_trials, use_pallas=cfg.use_pallas)
     X, Y = ops.X, ops.Y
     mask = mask_u = ops.mask if _padded(ops) else None
+    shared, own = draws if draws is not None else (None, None)
+    chunk = is_chunked(X.A) and cfg.sg_sample_ratio >= 1.0
     numv_x = gram_u = None
     if cfg.update_U:
         # row-local: no collective; the padding rows stay exactly zero
-        if fused_newton_u_allowed(cfg, X.A, X.row_sq, U):
+        if chunk and cfg.x_link != LINEAR:
+            U = chunked_sigmoid_row_update(
+                X.A, U, V, hyper, trials=cfg.line_search_trials,
+                non_negative=cfg.U_non_negative,
+                hessian_form=cfg.hessian_form, use_pallas=cfg.use_pallas,
+                row_mask=mask)
+            mask_u = None   # zeroed inside
+        elif chunk and cfg.update_V:
+            BtB, Hinv, l1, l2 = shared_gauss_hinv(V, hyper)
+            U, numv_x, gram_u = chunked_newton_linear_u_pass(
+                X.A, U, V, BtB, Hinv, X.row_sq, l1, l2,
+                trials=cfg.line_search_trials,
+                non_negative=cfg.U_non_negative, use_pallas=cfg.use_pallas,
+                n_valid=ops.n_valid)
+        elif fused_newton_u_allowed(cfg, X.A, X.row_sq, U):
             BtB, Hinv, l1, l2 = shared_gauss_hinv(V, hyper)
             U, numv_x, gram_u = newton_fused.fused_newton_linear_u_pass(
                 X.A, U, V, BtB, Hinv, X.row_sq, l1, l2,
@@ -449,21 +570,22 @@ def newton_rows_iter(cfg: SolverConfig, ops: RowOperands, U, V, Z,
             mask_u = None   # zeroed inside
         else:
             U = newton_update_factor(
-                None, U, (Term(X.A, V, X.row_sq, layout=X.A_bell),),
+                own, U, (Term(X.A, V, X.row_sq, layout=X.A_bell),),
                 (cfg.x_link,), hyper, non_negative=cfg.U_non_negative,
                 **common)
         if mask_u is not None:
             U = U * mask_u[:, None]
     if cfg.has_Y and cfg.update_Z:
-        # Y is replicated: every rank makes the same update
+        # Y is replicated: every rank makes the same update (a sampled
+        # one from the common stream)
         if cfg.y_link != LINEAR and fused_sigmoid_allowed(cfg, Y.A, Z):
             Z = fused_sigmoid_update(Z, _transposed(Y), V, hyper,
                                      non_negative=cfg.Z_non_negative,
                                      **fused_kw)
         else:
             Z = newton_update_factor(
-                None, Z, (Term(_transposed(Y), V, Y.row_sq_t,
-                               layout=Y.At_bell),),
+                shared, Z, (Term(_transposed(Y), V, Y.row_sq_t,
+                                 layout=Y.At_bell),),
                 (cfg.y_link,), hyper, non_negative=cfg.Z_non_negative,
                 **common)
     aux = None
@@ -500,7 +622,7 @@ def newton_rows_iter(cfg: SolverConfig, ops: RowOperands, U, V, Z,
                 terms, links = terms + (yterm,), links + (cfg.y_link,)
                 dist, masks = dist + (False,), masks + (None,)
             out = newton_update_factor(
-                None, V, terms, links, hyper,
+                (own, shared)[:len(terms)], V, terms, links, hyper,
                 non_negative=cfg.V_non_negative, distributed=dist,
                 masks=masks, group=mesh, return_phi=phi, **common)
             if phi:
@@ -550,7 +672,10 @@ def y_parts(cfg: SolverConfig, Y: Coupled, V, Z, mask=None) -> list:
     """This rank's parts of Y's term over its row block Y_b (V_b its rows
     of V), each summed over the blocks by the caller: linear, ‖Y_b‖² and
     ⟨Y_bᵀV_b, Z⟩; sigmoid, the residual masked on the padding rows
-    (``mask``: σ(0) = ½ is not data)."""
+    (``mask``: σ(0) = ½ is not data), streamed over a chunked carrier's
+    chunks."""
+    if is_chunked(Y.A):
+        return [reconstruction_term(Y.A, V, Z, cfg.y_link, row_mask=mask)]
     Yf = Y.A.to(V.dtype)
     if cfg.y_link == LINEAR:
         return [torch.sum(Yf * Yf), torch.sum(matmul(Yf.mT, V) * Z)]
@@ -577,11 +702,16 @@ def loss_cols(cfg: SolverConfig, ops: ColOperands, U, V, Z, hyper: Hyper,
     term summed over the ranks in one all-reduce, whose one Gram of V
     serves both linear terms. A linear X term takes the factored identity
     with ⟨X_loc, U V_locᵀ⟩ = Σ((X_locᵀU) ⊙ V_loc); a sigmoid one the
-    residual masked on the padding columns (σ(0) = ½ ≠ 0). Reference:
+    residual masked on the padding columns (σ(0) = ½ ≠ 0). A chunked
+    block streams both. Reference:
     ``pycmf_tpu/parallel/sharded.py:_loss_cols``."""
     X, up = ops.X, cfg.use_pallas
+    mask = ops.mask if _cols_padded(ops) else None
     if cfg.x_link == LINEAR:
-        if is_sparse(X.A):
+        if is_chunked(X.A):
+            a_sq = X.A.sq_norm
+            inner = chunked_inner(X.A, U, V)
+        elif is_sparse(X.A):
             a_sq = X.A.sq_norm
             if up and X.At_bell is not None:
                 inner = kbell.bell_inner(X.At_bell, U, V)
@@ -592,10 +722,10 @@ def loss_cols(cfg: SolverConfig, ops: ColOperands, U, V, Z, hyper: Hyper,
             a_sq = X.a_sq
             inner = streamed_inner(X.A.mT, V, U)
         parts = (a_sq.to(U.dtype) - 2.0 * inner,)
+    elif is_chunked(X.A):
+        parts = (reconstruction_term(X.A, U, V, cfg.x_link, col_mask=mask),)
     else:
-        rows = sigmoid_sq_rows(X.A, U, V,
-                               ops.mask if _cols_padded(ops) else None)
-        parts = (torch.sum(rows),)
+        parts = (torch.sum(sigmoid_sq_rows(X.A, U, V, mask)),)
     need_gv = cfg.x_link == LINEAR or (cfg.has_Y and cfg.y_link == LINEAR)
     (x_sum,), gV, rest = _reduce_cols(cfg, ops, V, Z, hyper, mesh, parts,
                                       need_gv)
@@ -641,7 +771,7 @@ def cols_aux_kind(cfg: SolverConfig, ops: ColOperands, V, solver: str):
     if solver == "mu" or cfg.x_link == LINEAR:
         A = ops.X.A
         ok = (cfg.update_U and cfg.update_V and cfg.x_link == LINEAR
-              and (is_sparse(A) or A.dtype == V.dtype
+              and (is_sparse(A) or is_chunked(A) or A.dtype == V.dtype
                    or ops.x_size >= (1 << 22)))
         if solver != "mu":
             ok = (ok and cfg.sg_sample_ratio >= 1.0
@@ -691,17 +821,23 @@ def mu_cols_iter(cfg: SolverConfig, ops: ColOperands, U, V, Z, hyper: Hyper,
 
 
 def newton_cols_iter(cfg: SolverConfig, ops: ColOperands, U, V, Z,
-                     hyper: Hyper, mesh: Mesh, with_aux=None):
-    """One full-batch Newton iteration, U then Z then V: (U, V, Z, aux), aux
-    this rank's (X_locᵀU_new, U_newᵀU_new) under with_aux="factored", V's
+                     hyper: Hyper, mesh: Mesh, with_aux=None,
+                     draws: Optional[Draws] = None):
+    """One Newton iteration, U then Z then V: (U, V, Z, aux), aux this
+    rank's (X_locᵀU_new, U_newᵀU_new) under with_aux="factored", V's
     summed Σφ under "phi", else None. U's and Z's G, H and φ are summed
     over the ranks (their terms' columns are the sharded m); V's update is
-    local. Reference: ``pycmf_tpu/parallel/sharded.py:_newton_cols_iter``."""
+    local. Sampled (``draws``): every term draws from the rank's own
+    stream. A chunked block or Y carrier streams its products (its
+    transpose through ``ChunkedT``). Reference:
+    ``pycmf_tpu/parallel/sharded.py:_newton_cols_iter``."""
     common = dict(trials=cfg.line_search_trials,
-                  hessian_form=cfg.hessian_form, use_pallas=cfg.use_pallas)
+                  hessian_form=cfg.hessian_form,
+                  sample_ratio=cfg.sg_sample_ratio, use_pallas=cfg.use_pallas)
     fused_kw = dict(trials=cfg.line_search_trials, use_pallas=cfg.use_pallas)
     X, Y = ops.X, ops.Y
     mask = ops.mask if _cols_padded(ops) else None
+    own = None if draws is None else draws.own
     if cfg.update_U:
         if cfg.x_link != LINEAR and fused_sigmoid_allowed(cfg, X.A, U):
             # K3/K4's partials summed; the padding columns pair with V's
@@ -711,7 +847,7 @@ def newton_cols_iter(cfg: SolverConfig, ops: ColOperands, U, V, Z,
                                      group=mesh, **fused_kw)
         else:
             U = newton_update_factor(
-                None, U, (Term(X.A, V, X.row_sq, layout=X.A_bell),),
+                own, U, (Term(X.A, V, X.row_sq, layout=X.A_bell),),
                 (cfg.x_link,), hyper, non_negative=cfg.U_non_negative,
                 distributed=(True,),
                 masks=(mask if cfg.x_link != LINEAR else None,), group=mesh,
@@ -723,7 +859,7 @@ def newton_cols_iter(cfg: SolverConfig, ops: ColOperands, U, V, Z,
                                      group=mesh, **fused_kw)
         else:
             Z = newton_update_factor(
-                None, Z, (Term(_transposed(Y), V),), (cfg.y_link,), hyper,
+                own, Z, (Term(_transposed(Y), V),), (cfg.y_link,), hyper,
                 non_negative=cfg.Z_non_negative, distributed=(True,),
                 masks=(mask if cfg.y_link != LINEAR else None,), group=mesh,
                 **common)
@@ -750,7 +886,7 @@ def newton_cols_iter(cfg: SolverConfig, ops: ColOperands, U, V, Z,
             if cfg.has_Y:
                 terms, links = terms + (yterm,), links + (cfg.y_link,)
             out = newton_update_factor(
-                None, V, terms, links, hyper,
+                own, V, terms, links, hyper,
                 non_negative=cfg.V_non_negative, return_phi=phi,
                 term_cache=0 if with_aux == "factored" else None, **common)
             if phi:
@@ -776,7 +912,8 @@ def make_block(cfg: SolverConfig, solver: str, mesh, aux, *, mu_iter,
                newton_iter, loss, aux_loss):
     """(block, initial loss) for run_solver_loop over a sharded layout's
     state (ops, U, V, Z): a block runs n_steps iterations (``mu_iter`` or
-    ``newton_iter``), then the eval loss (``aux_loss(cfg, mesh, aux)`` where
+    ``newton_iter``, the latter given the loop's rng, a sampled fit's
+    :class:`Draws`), then the eval loss (``aux_loss(cfg, mesh, aux)`` where
     ``aux`` names one, else ``loss``). Each layout passes its own functions
     and the mesh they take (a Mesh, or the grid's GridMesh). Reference:
     ``_make_rows_block`` and ``_make_cols_block`` in
@@ -795,7 +932,7 @@ def make_block(cfg: SolverConfig, solver: str, mesh, aux, *, mu_iter,
                 U, V, Z, a = mu_iter(cfg, ops, U, V, Z, hyper, mesh)
             else:
                 U, V, Z, a = newton_iter(cfg, ops, U, V, Z, hyper, mesh,
-                                         with_aux=aux)
+                                         with_aux=aux, draws=rng)
         state = (ops, U, V, Z)
         if aux is None:
             return state, loss_fn(state, hyper), rng
@@ -804,27 +941,19 @@ def make_block(cfg: SolverConfig, solver: str, mesh, aux, *, mu_iter,
     return block, loss_fn
 
 
-def check_shardable(*, layout: str = "rows", loop: str = "host",
-                    sg_sample_ratio: float = 1.0,
-                    sparse_mode: str = "auto") -> None:
+def check_shardable(*, layout: str = "rows", loop: str = "host") -> None:
     """Raise ValueError for an unknown layout, and NotImplementedError,
-    naming its ROADMAP item, for a sharded request this port does not run
-    yet (the same in the rows, cols and grid layouts)."""
+    naming its ROADMAP item, for the sharded request this port does not
+    run yet (the same in the rows, cols and grid layouts): the device
+    loop."""
     if layout not in ("rows", "cols", "grid"):
         raise ValueError(
             f"layout must be 'rows', 'cols' or 'grid', got {layout!r}")
-    todo = []
     if loop == "device":
-        todo.append("loop='device' (the device loop under shards: NCCL "
-                    "collectives inside the fit's CUDA graphs)")
-    if sg_sample_ratio < 1.0:
-        todo.append("sg_sample_ratio < 1 (the per-shard draws)")
-    if sparse_mode == "chunked":
-        todo.append("sparse_mode='chunked' (per-shard chunked layouts)")
-    if todo:
         raise NotImplementedError(
             "not ported yet under n_shards > 1 (ROADMAP A10c): "
-            + "; ".join(todo))
+            "loop='device' (the device loop under shards: NCCL collectives "
+            "inside the fit's CUDA graphs)")
 
 
 def factor(A, device, dtype) -> torch.Tensor:
@@ -834,29 +963,38 @@ def factor(A, device, dtype) -> torch.Tensor:
 def x_mode(X, local: int, ddt, cfg: SolverConfig, solver: str,
            sparse_mode: str, where: str = "shard") -> str:
     """How each rank stores its block of X (``local`` elements): 'dense',
-    or for a sparse X 'csr' under 'csr', or under 'auto' when the block's
-    dense copy at the storage dtype (fp8: 1 byte per element) is past the
-    densify threshold (the reference's rule on the local shard or cell).
-    Under fp8 the range is checked and a block that would stay sparse
-    raises the reference's ValueError. ``where``: 'shard' or 'cell'."""
+    or for a sparse X 'chunked' under 'chunked', 'csr' under 'csr', and
+    under 'auto', when the block's dense copy at the storage dtype (fp8: 1
+    byte per element) is past the densify threshold (the reference's rule
+    on the local shard or cell), 'chunked' for a sigmoid-linked X under
+    Newton (the reference's per-shard streamed layout) and 'csr' for any
+    other. The reference streams a scattered linear block past the
+    threshold too; the port keeps it CSR (or BlockEll), as on one device
+    (ROADMAP C4, owned by A7). Under fp8 the range is checked and a block
+    that would stay sparse raises the reference's ValueError. A
+    sigmoid-linked X under Newton cannot stay CSR (its terms need dense
+    or chunked data): 'csr' raises ValueError there. ``where``: 'shard'
+    or 'cell'."""
     mode = "dense"
-    if sp.issparse(X) and sparse_mode != "dense":
-        mode = ("csr" if sparse_mode == "csr"
-                or local * ddt.itemsize > DENSIFY_THRESHOLD else "dense")
+    sig_newton = cfg.x_link != LINEAR and solver == "newton"
+    if sp.issparse(X) and sparse_mode in ("csr", "chunked"):
+        mode = sparse_mode
+    elif (sp.issparse(X) and sparse_mode != "dense"
+          and local * ddt.itemsize > DENSIFY_THRESHOLD):
+        mode = "chunked" if sig_newton else "csr"
     if ddt in FP8_DTYPES:
-        if mode == "csr":
+        if mode != "dense":
             more = "more shards" if where == "shard" else "a bigger grid"
             raise ValueError(
                 f"fp8 data storage requires dense device {where}s, but X "
                 f"stays sparse under sparse_mode={sparse_mode!r} at this "
                 f"{where} size; use data_dtype='bfloat16' or {more}")
         check_fp8_range(X, ddt)
-    if mode == "csr" and cfg.x_link != LINEAR and solver == "newton":
-        raise NotImplementedError(
-            f"a sigmoid-linked sparse X whose {where} is past the densify "
-            f"threshold takes a chunked layout per {where}, which is not "
-            "ported yet (ROADMAP A10c); use sparse_mode='dense' or more "
-            "shards")
+    if mode == "csr" and sig_newton:
+        raise ValueError(
+            "sparse_mode='csr' cannot hold a sigmoid-linked X under Newton "
+            f"(its terms need dense or chunked data); use sparse_mode="
+            "'dense', 'chunked' or 'auto'")
     return mode
 
 
@@ -865,7 +1003,8 @@ def run_sharded(solver: str, X, Y, U0, V0, Z0, cfg: SolverConfig,
                 group=None, layout: str = "rows", dtype=torch.float32,
                 data_dtype=None, device="cuda", max_iter: int = 200,
                 tol: float = 1e-4, eval_every: int = 10, verbose: int = 0,
-                loop: str = "host", sparse_mode: str = "auto"):
+                loop: str = "host", sparse_mode: str = "auto",
+                seed: int = 0):
     """The sharded fit, on this process's rank of ``group`` (default: the
     default process group), whose size must be ``n_shards`` when that is
     given. X, Y: the whole host matrices (ndarray or scipy.sparse), on every
@@ -874,21 +1013,26 @@ def run_sharded(solver: str, X, Y, U0, V0, Z0, cfg: SolverConfig,
     sharded factor (U under 'rows', V's real rows under 'cols') gathered
     over the ranks: the same on every rank.
 
-    sparse_mode (a sparse X): 'dense' densifies this rank's block; 'auto'
-    densifies it when the block's dense copy (⌈n/d⌉·m elements under
-    'rows', n·⌈m/d⌉ under 'cols') fits the densify threshold (the
-    reference's rule on the local shard), else keeps it as 'csr' does:
-    CSR, or BlockEll under use_pallas where its tiles fill enough (a
-    sigmoid-linked X would take a chunked block there: ROADMAP A10c).
-    data_dtype fp8: each block dense on the host, stored as e4m3 (a block
-    that stays sparse raises ValueError), Y at bf16; a dense rows block
-    takes K1/K2's e4m3 forms. Reference:
+    sparse_mode (a sparse X): 'dense' densifies this rank's block; 'csr'
+    keeps it CSR, or BlockEll under use_pallas where its tiles fill
+    enough; 'chunked' streams it (a chunked block per rank, and a
+    sigmoid-linked sparse Y's chunked carrier); 'auto' densifies it when
+    the block's dense copy (⌈n/d⌉·m elements under 'rows', n·⌈m/d⌉ under
+    'cols') fits the densify threshold (the reference's rule on the local
+    shard), else streams a sigmoid-linked X under Newton and keeps any
+    other as 'csr' does (:func:`x_mode`). data_dtype fp8: each block dense
+    on the host, stored as e4m3 (a block that stays sparse raises
+    ValueError), Y at bf16; a dense rows block takes K1/K2's e4m3 forms.
+
+    seed: a sampled Newton fit's (``cfg.sg_sample_ratio`` < 1) draw
+    streams (:class:`Draws`): under 'rows' U's term and V's X term draw
+    from the rank's own stream and Z's term and V's Y term from the one
+    every rank shares, under 'cols' every term from the rank's own, as the
+    reference folds its keys. Reference:
     ``pycmf_tpu/parallel/sharded.py:run_sharded``, layouts 'rows' and
     'cols', loop 'host' (the grid layout: ``parallel/grid.py:run_grid``)."""
     check_loop(loop)
-    check_shardable(layout=layout, loop=loop,
-                    sg_sample_ratio=cfg.sg_sample_ratio,
-                    sparse_mode=sparse_mode)
+    check_shardable(layout=layout, loop=loop)
     if layout not in ("rows", "cols"):
         raise ValueError(f"layout must be 'rows' or 'cols' (the grid "
                          f"layout is run_grid's), got {layout!r}")
@@ -901,11 +1045,14 @@ def run_sharded(solver: str, X, Y, U0, V0, Z0, cfg: SolverConfig,
     k = U0.shape[1]
     Z = (factor(Z0, dev, dtype) if Z0 is not None and cfg.has_Y
          else torch.zeros((0, k), dtype=dtype, device=dev))
+    chunked = sparse_mode == "chunked"
     if layout == "rows":
-        ops, U, _ = prepare_rows(X, Y, U0, mesh, dtype, ddt, cfg, mode)
+        ops, U, _ = prepare_rows(X, Y, U0, mesh, dtype, ddt, cfg, mode,
+                                 chunked)
         V = factor(V0, dev, dtype)
     else:
-        ops, V, _ = prepare_cols(X, Y, V0, mesh, dtype, ddt, cfg, mode)
+        ops, V, _ = prepare_cols(X, Y, V0, mesh, dtype, ddt, cfg, mode,
+                                 chunked)
         U = factor(U0, dev, dtype)
     if solver == "newton":
         # the contiguous Xᵀ and Yᵀ the fused sigmoid V and Z updates read
@@ -920,8 +1067,10 @@ def run_sharded(solver: str, X, Y, U0, V0, Z0, cfg: SolverConfig,
         fns = dict(mu_iter=mu_cols_iter, newton_iter=newton_cols_iter,
                    loss=loss_cols, aux_loss=_aux_loss_cols)
     block, loss_fn = make_block(cfg, solver, mesh, aux, **fns)
+    draws = (make_draws(seed, dev, own=(0, mesh.rank))
+             if solver == "newton" and cfg.sg_sample_ratio < 1.0 else None)
     state, n_iter, losses, iters, times = run_solver_loop(
-        block, (ops, U, V, Z), hyper, None, max_iter=max_iter, tol=tol,
+        block, (ops, U, V, Z), hyper, draws, max_iter=max_iter, tol=tol,
         eval_every=eval_every, verbose=verbose if mesh.rank == 0 else 0,
         initial_loss_fn=loss_fn)
     _, U, V, Z = state

@@ -135,17 +135,19 @@ def draw_columns(gen: torch.Generator, q: int, s: int) -> torch.Tensor:
     return torch.sort(torch.argsort(keys)[:s]).values
 
 
-def _sample_columns(gen, D, B, ratio: float):
-    """(D, B) restricted to a draw of their q columns (dense D:
-    ``index_select``, on the byte view of fp8 data); unchanged when the
-    draw would take every column.
+def _sample_columns(gen, D, B, ratio: float, mask=None):
+    """(D, B, mask) restricted to a draw of their q columns (dense D:
+    ``index_select``, on the byte view of fp8 data; the optional (q,)
+    column mask, a shard's padding, gathered with them); unchanged when
+    the draw would take every column.
     Reference: ``pycmf_tpu/solvers/newton.py:_sample_columns``."""
     q = B.shape[0]
     s = sample_size(q, ratio)
     if s >= q:
-        return D, B
+        return D, B, mask
     idx = draw_columns(gen, q, s)
-    return select_columns(D, idx), B.index_select(0, idx)
+    return (select_columns(D, idx), B.index_select(0, idx),
+            None if mask is None else mask.index_select(0, idx))
 
 
 def sample_mask(gen, q: int, ratio: float, dtype):
@@ -162,20 +164,23 @@ def sample_mask(gen, q: int, ratio: float, dtype):
         0, idx, 1)
 
 
-def _sample_term(gen, term: Term, ratio: float, dtype):
+def _sample_term(gen, term: Term, ratio: float, dtype, mask=None):
     """(term, mask) of one sampled term (the reference's per-term draw,
     ``pycmf_tpu/solvers/newton.py:360-381``). Dense D takes the gathered
-    columns; sparse and chunked D keep their layout and return the draw as
-    a mask. The caches (row_sq, DB, BtB) describe the full term and go
-    (for such D only when a mask is drawn, as in the reference)."""
+    columns, and the term's own column mask (a shard's padding) the same
+    gather; sparse and chunked D keep their layout and return the draw as
+    a mask, multiplied into the term's own. The caches (row_sq, DB, BtB)
+    describe the full term and go (for such D only when a mask is drawn,
+    as in the reference)."""
     D, B = term.D, term.B
     if is_sparse(D) or is_chunked(D) or isinstance(D, ChunkedT):
-        mask = sample_mask(gen, B.shape[0], ratio, dtype)
-        if mask is None:
-            return term, None
-        return Term(D, B, layout=term.layout), mask
-    D, B = _sample_columns(gen, D, B, ratio)
-    return Term(D, B), None
+        drawn = sample_mask(gen, B.shape[0], ratio, dtype)
+        if drawn is None:
+            return term, mask
+        return (Term(D, B, layout=term.layout),
+                drawn if mask is None else mask * drawn)
+    D, B, mask = _sample_columns(gen, D, B, ratio, mask)
+    return Term(D, B), mask
 
 
 def _accumulate_term(M, term: Term, link: str, use_pallas: bool = False,
@@ -297,8 +302,18 @@ def newton_update_factor(rng, M, terms, links, hyper: Hyper, *,
     """One batched Newton update of factor M against its coupled terms
     (reference: ``pycmf_tpu/solvers/newton.py:newton_update_factor``).
 
-    rng: the fit's torch.Generator, on M's device; each term draws its
-    columns from it in turn when sample_ratio < 1 (unused otherwise).
+    rng: the fit's torch.Generator on M's device, or a tuple of them, one
+    per term; when sample_ratio < 1 each term draws its columns from its
+    generator in turn (unused otherwise). The rule of a sharded step
+    (``parallel/sharded.py:Draws``): a term whose draw the reference
+    shares across ranks (its key not folded with an axis index) draws from
+    a stream identical on every rank that holds the updated factor, so a
+    replicated factor stays bit for bit equal on them; a term whose key
+    the reference folds with an axis index (a distributed term, whose
+    columns are the rank's own padded block, or every term of a factor
+    whose key is folded before the call) draws from a stream keyed by the
+    rank's coordinate on that axis. A distributed term's draw covers the
+    rank's padded local columns, and its padding columns stay masked.
     distributed: one bool per term; True marks a term whose columns are
     sharded over ``group`` (a ``parallel.mesh.Mesh``): its G, H and φ
     contributions are summed over the ranks, in one all-reduce for G and
@@ -318,61 +333,51 @@ def newton_update_factor(rng, M, terms, links, hyper: Hyper, *,
     distributed = distributed or (False,) * len(terms)
     masks = masks or (None,) * len(terms)
     any_dist = group is not None and any(distributed)
-    if any_dist and sample_ratio < 1.0:
-        raise NotImplementedError(
-            "sampled Newton across shards is not ported yet (ROADMAP "
-            "A10c: the per-shard fold of the draws)")
+    gens = rng if isinstance(rng, (tuple, list)) else (rng,) * len(terms)
+    parts, ctxs = [], []
+    for term, link, dist, mask, gen in zip(terms, links, distributed, masks,
+                                           gens):
+        term = term if isinstance(term, Term) else Term(*term)
+        if sample_ratio < 1.0:
+            term, mask = _sample_term(gen, term, sample_ratio, M.dtype,
+                                      mask)
+        G_t, H_sh, H_rw, ctx = _accumulate_term(M, term, link, use_pallas,
+                                                hessian_form, mask)
+        parts.append([G_t, H_sh, H_rw])
+        ctxs.append((ctx, dist and any_dist))
+    if any_dist:
+        # the sharded terms' G, H_shared and H_rows summed over the ranks
+        # in one all-reduce; every term then joins in term order, as on one
+        # device (a one-rank group's fit is the single device's bit for bit)
+        slots = [(t, j) for t, (_, dist) in enumerate(ctxs) if dist
+                 for j in range(3) if parts[t][j] is not None]
+        for (t, j), v in zip(slots, all_reduce(
+                group, *(parts[t][j] for t, j in slots))):
+            parts[t][j] = v
     G = l1 * torch.sign(M) + l2 * M
     H_shared = (l2 + hyper.hessian_pertubation) * torch.eye(
         k, dtype=M.dtype, device=M.device)
     H_rows = None
-    # the sharded terms' G, H_shared and H_rows, summed over the ranks
-    # before they join the local ones
-    acc_d = [torch.zeros_like(M), torch.zeros_like(H_shared), None] \
-        if any_dist else None
-    ctxs = []
-    for term, link, dist, mask in zip(terms, links, distributed, masks):
-        term = term if isinstance(term, Term) else Term(*term)
-        if sample_ratio < 1.0:
-            term, mask = _sample_term(rng, term, sample_ratio, M.dtype)
-        G_t, H_sh, H_rw, ctx = _accumulate_term(M, term, link, use_pallas,
-                                                hessian_form, mask)
-        dist = dist and any_dist
-        if dist:
-            acc_d[0] = acc_d[0] + G_t
-            if H_sh is not None:
-                acc_d[1] = acc_d[1] + H_sh
-            if H_rw is not None:
-                acc_d[2] = H_rw if acc_d[2] is None else acc_d[2] + H_rw
-        else:
-            G = G + G_t
-            if H_sh is not None:
-                H_shared = H_shared + H_sh
-            if H_rw is not None:
-                H_rows = H_rw if H_rows is None else H_rows + H_rw
-        ctxs.append((ctx, dist))
-    if any_dist:
-        G_d, H_sh_d, *H_rw_d = all_reduce(
-            group, *(t for t in acc_d if t is not None))
-        G = G + G_d
-        H_shared = H_shared + H_sh_d
-        if H_rw_d:
-            H_rows = H_rw_d[0] if H_rows is None else H_rows + H_rw_d[0]
+    for G_t, H_sh, H_rw in parts:
+        G = G + G_t
+        if H_sh is not None:
+            H_shared = H_shared + H_sh
+        if H_rw is not None:
+            H_rows = H_rw if H_rows is None else H_rows + H_rw
     d = _solve_direction(H_shared, H_rows, G, use_pallas,
                          spd=hessian_form == "gauss")
 
     def phi(Mc):
+        terms_phi = [_phi_term(Mc, ctx) for ctx, _ in ctxs]
+        dist = [t for t, (_, d) in enumerate(ctxs) if d]
+        if dist:   # one all-reduce per evaluation
+            for t, v in zip(dist, all_reduce(
+                    group, *(terms_phi[t] for t in dist))):
+                terms_phi[t] = v
         out = l1 * torch.sum(torch.abs(Mc), dim=-1) \
             + 0.5 * l2 * torch.sum(Mc * Mc, dim=-1)
-        acc = None
-        for ctx, dist in ctxs:
-            if dist:
-                t = _phi_term(Mc, ctx)
-                acc = t if acc is None else acc + t
-            else:
-                out = out + _phi_term(Mc, ctx)
-        if acc is not None:
-            out = out + all_reduce(group, acc)[0]
+        for v in terms_phi:
+            out = out + v
         return out
 
     out = backtracking_select(phi, _project(non_negative), M, d, trials,
@@ -387,11 +392,11 @@ def newton_update_factor(rng, M, terms, links, hyper: Hyper, *,
 
 def fused_sigmoid_allowed(cfg: SolverConfig, A, M) -> bool:
     """Whether a sigmoid-linked factor takes fused_sigmoid_update: kernels
-    on, dense data A (a chunked A takes it chunk by chunk inside
-    newton_chunked), full batch, Gauss-Newton form (SPD systems for the
-    batched solve), float factors."""
+    on, dense data A (a chunked A, or its ChunkedT, takes it chunk by
+    chunk inside newton_chunked), full batch, Gauss-Newton form (SPD
+    systems for the batched solve), float factors."""
     return (cfg.use_pallas and not is_sparse(A) and not is_chunked(A)
-            and cfg.sg_sample_ratio >= 1.0
+            and not isinstance(A, ChunkedT) and cfg.sg_sample_ratio >= 1.0
             and cfg.hessian_form == "gauss" and M.dtype != torch.bfloat16)
 
 

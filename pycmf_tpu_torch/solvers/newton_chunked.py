@@ -59,13 +59,17 @@ def _blocks(rows: int, width: int):
 
 def chunked_sigmoid_row_update(X: ChunkedCoo, M, B, hyper, *, trials: int,
                                non_negative: bool, hessian_form: str,
-                               use_pallas: bool, col_mask=None):
+                               use_pallas: bool, row_mask=None,
+                               col_mask=None):
     """Row-local streamed Newton update of M (n, k) against X ≈ σ(M Bᵀ):
     each chunk densified once and updated as dense rows (module
-    docstring). Tail rows of the last chunk are dropped. col_mask: an
-    optional (m,) 0/1 column mask, the sampled term's draw, applied to g,
-    H and φ as the dense masked sigmoid term applies it. Reference:
-    ``pycmf_tpu/solvers/newton_chunked.py:55-114``."""
+    docstring). Tail rows of the last chunk are dropped. row_mask: an
+    optional (n,) 0/1 mask of M's rows (a rows shard's zero padding,
+    whose σ(0) = ½ residuals give nonzero steps): the rows it zeroes come
+    out exact zeros. col_mask: an optional (m,) 0/1 column mask, the
+    sampled term's draw, applied to g, H and φ as the dense masked sigmoid
+    term applies it. Reference: ``pycmf_tpu/solvers/newton_chunked.py:
+    55-114``."""
     from .newton import _solve_direction, fused_sigmoid_update
 
     n = X.shape[0]
@@ -74,6 +78,8 @@ def chunked_sigmoid_row_update(X: ChunkedCoo, M, B, hyper, *, trials: int,
     H_shared = (l2 + hyper.hessian_pertubation) * torch.eye(
         k, dtype=M.dtype, device=M.device)
     Mp = _pad_rows(M, X.n_pad)
+    rm = (None if row_mask is None
+          else _pad_rows(row_mask[:, None].to(M.dtype), X.n_pad)[:, 0])
     out = torch.empty((n, k), dtype=M.dtype, device=M.device)
     fused = use_pallas and hessian_form == "gauss" and col_mask is None
 
@@ -83,10 +89,11 @@ def chunked_sigmoid_row_update(X: ChunkedCoo, M, B, hyper, *, trials: int,
     for c in range(X.n_chunks):
         Xc, mc = densify_chunk(X, c), _chunk_rows(Mp, X, c)
         nv = X.chunk_valid(c)
+        rc = None if rm is None else _chunk_rows(rm, X, c)
         if fused:
             m_new = fused_sigmoid_update(mc, Xc, B, hyper, trials=trials,
                                          non_negative=non_negative,
-                                         use_pallas=True)
+                                         use_pallas=True, row_mask=rc)
         else:
             G, H_rows = sigmoid_gh_rows(Xc, mc, B, hessian_form, col_mask)
             G = G + l1 * torch.sign(mc) + l2 * mc
@@ -99,6 +106,8 @@ def chunked_sigmoid_row_update(X: ChunkedCoo, M, B, hyper, *, trials: int,
                         + losses.sigmoid_sq_rows(Xc, Mc, B, col_mask))
 
             m_new = backtracking_select(phi, project, mc, d, trials)
+            if rc is not None:
+                m_new = torch.where(rc[:, None] > 0.5, m_new, 0.0)
         out[c * X.chunk_rows:c * X.chunk_rows + nv] = m_new[:nv]
     return out
 

@@ -95,11 +95,127 @@ def _fitted(est):
             "iters": list(est.loss_iters_)}
 
 
+class StreamDraws:
+    """``solvers/newton.draw_columns``' stand-in in a rank: the reference's
+    draws, computed in the test's process from its key schedule. ``draws``
+    maps a stream's seed (``sharded.stream_seed``) to one list of
+    (q, indices) per generator made with that seed, in the order the
+    generators are made (a fit's, then a transform's); each call of a
+    generator takes its list's next entry and checks its q. The fake holds
+    every generator it saw, so no id is reused."""
+
+    def __init__(self, draws):
+        self.draws = draws
+        self.seen = {}
+        self.made = {}
+
+    def __call__(self, gen, q, s):
+        import torch
+
+        if id(gen) not in self.seen:
+            seed = gen.initial_seed()
+            n = self.made.get(seed, 0)
+            self.made[seed] = n + 1
+            self.seen[id(gen)] = (gen, iter(self.draws[seed][n]))
+        want_q, idx = next(self.seen[id(gen)][1])
+        assert (q, s) == (want_q, len(idx)), (q, s, want_q, len(idx))
+        return torch.from_numpy(np.asarray(idx, dtype=np.int64))
+
+
+class Recorded:
+    """Wraps draw_columns: each call's (generator seed, indices)."""
+
+    def __init__(self, fn):
+        self.fn, self.calls = fn, []
+
+    def __call__(self, gen, q, s):
+        idx = self.fn(gen, q, s)
+        self.calls.append((gen.initial_seed(), idx.numpy().copy()))
+        return idx
+
+
+def _case_patches(case):
+    """The patches a case asks for: 'draws' (StreamDraws keyed by the
+    stream keys of the case's seed), 'record' (Recorded), 'threshold'
+    (the sharded layouts' densify threshold, bytes) and 'chunk_rows' (the
+    chunked layout's rows per chunk; the shapes of the chunked layouts
+    built are then listed in case['_built']). Returns (ExitStack,
+    Recorded or None)."""
+    from contextlib import ExitStack
+    from unittest import mock
+
+    from pycmf_tpu_torch.ops import chunked
+    from pycmf_tpu_torch.parallel import sharded
+    from pycmf_tpu_torch.solvers import newton
+
+    stack, rec = ExitStack(), None
+    if "draws" in case:
+        seed = case["seed"]
+        fake = StreamDraws({sharded.stream_seed(seed, *key): uses
+                            for key, uses in case["draws"].items()})
+        stack.enter_context(mock.patch.object(newton, "draw_columns", fake))
+    if case.get("record"):
+        rec = Recorded(newton.draw_columns)
+        stack.enter_context(mock.patch.object(newton, "draw_columns", rec))
+    if "threshold" in case:
+        stack.enter_context(mock.patch.object(
+            sharded, "DENSIFY_THRESHOLD", case["threshold"]))
+    if "chunk_rows" in case:
+        rows = case["chunk_rows"]
+        stack.enter_context(mock.patch.object(
+            chunked, "pick_chunk_rows", lambda *a, **k: rows))
+        # and the shapes of the chunked layouts the fit builds
+        from pycmf_tpu_torch.utils import validation
+
+        built, make = [], validation.chunked_from_scipy
+
+        def spy(A, *args, **kw):
+            built.append(tuple(A.shape))
+            return make(A, *args, **kw)
+        stack.enter_context(mock.patch.object(validation,
+                                              "chunked_from_scipy", spy))
+        case["_built"] = built
+    return stack, rec
+
+
+def _run_layout(case):
+    """run_sharded (or run_grid when the case has 'grid') on the default
+    group, float64 on the CPU: the case's solver, X, Y, init, cfg (a
+    SolverConfig's fields), hyper (make_hyper's arguments) and run
+    keywords."""
+    import torch
+
+    from pycmf_tpu_torch.parallel.grid import run_grid
+    from pycmf_tpu_torch.parallel.sharded import run_sharded
+    from pycmf_tpu_torch.solvers.common import SolverConfig, make_hyper
+
+    init = case["init"]
+    args = (case["solver"], case["X"], case.get("Y"), init["U"], init["V"],
+            init.get("Z"), SolverConfig(**case["cfg"]),
+            make_hyper(*case.get("hyper", ()), dtype=torch.float64))
+    kw = dict(case["run"], dtype=torch.float64, device="cpu")
+    if "grid" in case:
+        out = run_grid(*args, grid=case["grid"], **kw)
+    else:
+        out = run_sharded(*args, **kw)
+    U, V, Z, n_iter, losses, iters, _ = out
+    return {"U": U.numpy(), "V": V.numpy(), "Z": Z.numpy(),
+            "n_iter": int(n_iter), "losses": [float(v) for v in losses],
+            "iters": list(iters)}
+
+
 def run_cases(rank, cases):
     """Each case on this rank, in order; {name: result}. A case is a dict:
 
     kind 'fit': CMF(device='cpu', **kw).fit(X, Y, U=, V=, Z=), and when
-        'Xn' is given, transform(Xn) after it (its U0 'Un');
+        'Xn' is given, transform(Xn) after it (its U0 'Un'); with
+        'draws' (and 'seed') the reference's column draws are injected,
+        'rank_draws' giving each rank its own ({rank: draws}); with
+        'record' the result has each draw ('draws': (seed, indices));
+        'threshold' and 'chunk_rows' patch the densify threshold and the
+        chunk rows (see _case_patches);
+    kind 'run': run_sharded or run_grid called directly (_run_layout),
+        with the same patches;
     kind 'raises': that fit, which must raise: (type name, message);
     kind 'sigmoid': fused_sigmoid_update on this rank's columns of X
         (rank r of d takes columns [r·q/d, (r+1)·q/d)) with the group;
@@ -115,13 +231,25 @@ def run_cases(rank, cases):
     out = {}
     for name, case in cases.items():
         kind = case["kind"]
-        if kind == "fit":
-            est = CMF(device="cpu", **case["kw"])
-            est.fit(case["X"], case.get("Y"), **case.get("init", {}))
-            res = _fitted(est)
-            if case.get("Xn") is not None:
-                res["transform"] = est.transform(case["Xn"],
-                                                 U=case.get("Un"))
+        case = dict(case)
+        if "rank_draws" in case:
+            case["draws"] = case["rank_draws"][rank]
+        if kind in ("fit", "run"):
+            stack, rec = _case_patches(case)
+            with stack:
+                if kind == "run":
+                    res = _run_layout(case)
+                else:
+                    est = CMF(device="cpu", **case["kw"])
+                    est.fit(case["X"], case.get("Y"), **case.get("init", {}))
+                    res = _fitted(est)
+                    if case.get("Xn") is not None:
+                        res["transform"] = est.transform(case["Xn"],
+                                                         U=case.get("Un"))
+            if rec is not None:
+                res["draws"] = rec.calls
+            if "_built" in case:
+                res["chunked"] = case["_built"]
             out[name] = res
         elif kind == "raises":
             try:

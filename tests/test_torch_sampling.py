@@ -220,7 +220,7 @@ def test_sample_mask_equals_gather(rng):
     M, B, D = rng.randn(p, k), rng.randn(q, k), np.abs(rng.randn(p, q))
     g1, g2 = torch.Generator(), torch.Generator()
     mask = tnewton.sample_mask(g1, q, 0.3, torch.float64)
-    Ds, Bs = tnewton._sample_columns(g2, _t(D), _t(B), 0.3)
+    Ds, Bs, _ = tnewton._sample_columns(g2, _t(D), _t(B), 0.3)
     assert int(mask.sum()) == tnewton.sample_size(q, 0.3) == Bs.shape[0]
     assert torch.equal(g1.get_state(), g2.get_state())
     a = tnewton._accumulate_term(_t(M), tnewton.Term(_t(D), _t(B)),

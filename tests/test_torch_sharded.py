@@ -41,6 +41,7 @@ from pycmf_tpu_torch.solvers.common import SolverConfig
 from pycmf_tpu_torch.solvers.common import make_hyper as t_make_hyper
 from pycmf_tpu_torch.solvers.newton import \
     fused_sigmoid_update as t_fused_sigmoid_update
+from tests._shard_draws import rank_draws
 from tests._torch_dist import run_cases, spawn
 from tests.conftest import make_problem
 
@@ -140,16 +141,32 @@ FORMS = {"sigmoid_group": _sigmoid_form_case(),
          "newton_factor_sigmoid": _newton_factor_case("sigmoid"),
          "newton_factor_linear": _newton_factor_case("linear")}
 
-# requests the rows-and-cols port refused and this one fits (the grid layout
-# in both spellings, fp8 data), in the two-rank spawn: held to the
-# reference's fit of the same request
+# requests earlier slices refused and this one fits (the grid layout in
+# both spellings, fp8 data, sampled Newton with the reference's draws
+# injected, the chunked layout on a sparse X), in the two-rank spawn: held
+# to the reference's fit of the same request
 REQUEST = dict(n_components=2, max_iter=2, random_state=0)
 NOW_FIT = {
     "grid": dict(n_shards=2, shard_layout="grid", dtype="float64"),
     "grid_tuple": dict(n_shards=(2, 1), shard_layout="grid",
                        dtype="float64"),
     "fp8": dict(n_shards=2, data_dtype="fp8", dtype="float32"),
+    "sampled": dict(n_shards=2, solver="newton", sg_sample_ratio=0.5,
+                    dtype="float64"),
+    "chunked": dict(n_shards=2, sparse_mode="chunked", dtype="float64"),
 }
+REQUEST_X = {"chunked": "Xs"}   # else X
+
+
+def _request_case(name):
+    X = DATA[REQUEST_X.get(name, "X")]
+    case = dict(kind="fit", kw=dict(REQUEST, **NOW_FIT[name]), X=X,
+                Y=DATA["Y"])
+    if name == "sampled":
+        case.update(seed=0, rank_draws=rank_draws(
+            "rows", (2,), seed=0, n_iter=REQUEST["max_iter"], n=X.shape[0],
+            m=X.shape[1], ry=DATA["Y"].shape[1], ratio=0.5))
+    return case
 
 
 def _port_cases(d):
@@ -167,9 +184,8 @@ def _port_cases(d):
                            X=X, Y=Y, init=DATA["init"])
     if d == 2:
         cases.update(FORMS)
-        for name, kw in NOW_FIT.items():
-            cases["request_" + name] = dict(kind="fit", kw=dict(REQUEST, **kw),
-                                            X=DATA["X"], Y=DATA["Y"])
+        for name in NOW_FIT:
+            cases["request_" + name] = _request_case(name)
     return cases
 
 
@@ -235,7 +251,7 @@ def sharded(request, tmp_path_factory):
                 ref[name] = _ref_newton_factor(FORMS[name])
             for name, kw in NOW_FIT.items():
                 ref["request_" + name] = JCMF(**REQUEST, **kw).fit(
-                    DATA["X"], DATA["Y"])
+                    DATA[REQUEST_X.get(name, "X")], DATA["Y"])
     finally:
         ports = ranks.join()
     return d, ref, ports
@@ -396,19 +412,18 @@ def test_group_of_the_wrong_size_raises(tmp_path):
     (None, "grid_tuple"),
     (dict(n_shards=(2, 1)), (ValueError, "requires shard_layout='grid'")),
     (dict(n_shards=2, loop="device"), (NotImplementedError, "ROADMAP A10c")),
-    (dict(n_shards=2, solver="newton", sg_sample_ratio=0.5),
-     (NotImplementedError, "ROADMAP A10c")),
-    (dict(n_shards=2, sparse_mode="chunked"),
-     (NotImplementedError, "ROADMAP A10c")),
+    (None, "sampled"),
+    (None, "chunked"),
     (None, "fp8"),
 ], ids=["grid", "grid_tuple", "tuple", "device_loop", "sampled",
         "chunked", "fp8"])
 def test_unported_shard_requests_raise_naming_their_item(sharded, kw, want):
-    """What is still refused raises naming its item (a tuple under the rows
-    layout: the reference's ValueError); the grid layout (an int n_shards
-    or a tuple) and fp8 data now fit in the two ranks, as the reference's
-    fits of the same request do (f64 rtol 1e-9; fp8: the objective within
-    1e-4, test_torch_fp8.py's bar)."""
+    """What is still refused raises naming its item (the device loop; a
+    tuple under the rows layout: the reference's ValueError); the grid
+    layout (an int n_shards or a tuple), sampled Newton (the reference's
+    draws injected), the chunked layout (a sparse X) and fp8 data now fit
+    in the two ranks, as the reference's fits of the same request do (f64
+    rtol 1e-9; fp8: the objective within 1e-4, test_torch_fp8.py's bar)."""
     if isinstance(want, tuple):
         error, match = want
         with pytest.raises(error, match=match):

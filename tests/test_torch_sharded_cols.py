@@ -22,6 +22,7 @@ import scipy.sparse as sp
 from pycmf_tpu import CMF as JCMF
 from pycmf_tpu_torch import CMF
 from pycmf_tpu_torch.parallel.sharded import col_block
+from tests._shard_draws import rank_draws
 from tests._torch_dist import run_cases, spawn
 from tests.conftest import make_problem
 
@@ -84,10 +85,28 @@ def _fit_args(name):
     return DATA[x], DATA[y]
 
 
-# fp8 data under the cols layout (a request the cols port refused), held to
-# the reference's fit of the same request
-FP8_REQUEST = dict(n_components=2, max_iter=2, random_state=0,
-                   shard_layout="cols", data_dtype="fp8", dtype="float32")
+# requests the cols port refused and now fits in the two ranks, each held to
+# the reference's fit of the same request: fp8 data, sampled Newton (the
+# reference's draws injected) and the chunked layout (a sparse X)
+REQUEST = dict(n_components=2, max_iter=2, random_state=0,
+               shard_layout="cols")
+FP8_REQUEST = dict(REQUEST, data_dtype="fp8", dtype="float32")
+NOW_FIT = {
+    "fp8": (FP8_REQUEST, "X"),
+    "sampled": (dict(REQUEST, solver="newton", sg_sample_ratio=0.5,
+                     dtype="float64"), "X"),
+    "chunked": (dict(REQUEST, sparse_mode="chunked", dtype="float64"), "Xs"),
+}
+
+
+def _request_case(name):
+    kw, x = NOW_FIT[name]
+    case = dict(kind="fit", kw=dict(kw, n_shards=2), X=DATA[x], Y=DATA["Y"])
+    if name == "sampled":
+        case.update(seed=0, rank_draws=rank_draws(
+            "cols", (2,), seed=0, n_iter=kw["max_iter"], n=N, m=M,
+            ry=DATA["Y"].shape[1], ratio=0.5))
+    return case
 
 
 def _port_cases(d):
@@ -100,9 +119,8 @@ def _port_cases(d):
             case.update(Xn=DATA["Xn"], Un=DATA["Un"])
         cases[name] = case
     if d == 2:
-        cases["request_fp8"] = dict(kind="fit",
-                                    kw=dict(FP8_REQUEST, n_shards=2),
-                                    X=DATA["X"], Y=DATA["Y"])
+        for name in NOW_FIT:
+            cases["request_" + name] = _request_case(name)
     return cases
 
 
@@ -124,8 +142,9 @@ def sharded(request, tmp_path_factory):
         ref["transformed"] = ref["mu_dense"].transform(DATA["Xn"],
                                                        U=DATA["Un"])
         if d == 2:
-            ref["request_fp8"] = JCMF(n_shards=2, **FP8_REQUEST).fit(
-                DATA["X"], DATA["Y"])
+            for name, (kw, x) in NOW_FIT.items():
+                ref["request_" + name] = JCMF(n_shards=2, **kw).fit(
+                    DATA[x], DATA["Y"])
     finally:
         ports = ranks.join()
     return d, ref, ports
@@ -202,21 +221,26 @@ def _est(**kw):
 @pytest.mark.parametrize("sharded", [2], indirect=True, ids=["d2"])
 @pytest.mark.parametrize("kw", [
     dict(n_shards=2, loop="device"),
-    dict(n_shards=2, solver="newton", sg_sample_ratio=0.5),
-    dict(n_shards=2, sparse_mode="chunked"),
-    None,
+    "sampled",
+    "chunked",
+    "fp8",
 ], ids=["device_loop", "sampled", "chunked", "fp8"])
 def test_cols_unported_requests_raise_naming_a10c(sharded, kw):
-    """The device loop, sampled Newton and the chunked layout still raise
-    naming A10c; fp8 data fits in the two ranks, its objective within 1e-4
-    of the reference's cols fp8 fit (test_torch_fp8.py's bar)."""
-    if kw is not None:
+    """The device loop still raises naming A10c; sampled Newton (the
+    reference's draws injected) and the chunked layout (a sparse X) fit in
+    the two ranks as the reference's cols fits of the same request do (f64
+    rtol 1e-9), and fp8 data with its objective within 1e-4 of the
+    reference's cols fp8 fit (test_torch_fp8.py's bar)."""
+    if isinstance(kw, dict):
         with pytest.raises(NotImplementedError, match="ROADMAP A10c"):
             _est(**kw).fit(DATA["X"], DATA["Y"])
         return
     d, ref, ports = sharded
-    got, want = ports[0]["request_fp8"], ref["request_fp8"]
+    got, want = ports[0]["request_" + kw], ref["request_" + kw]
     assert got["n_iter"] == want.n_iter_ == 2
+    if kw != "fp8":
+        _assert_fit(got, want)
+        return
     np.testing.assert_allclose(got["losses"], want.loss_history_, rtol=1e-4)
 
 
@@ -247,22 +271,47 @@ def test_cols_one_rank_equals_single_device(world1):
 
 
 def test_cols_sigmoid_sparse_y_past_threshold_raises(world1, monkeypatch):
-    """A sigmoid-linked sparse Y past the densify threshold would take the
-    per-shard chunked carrier (A10c); the reference's linear-Y warning
-    stays."""
+    """A sigmoid-linked sparse Y past the densify threshold, which earlier
+    slices refused (hence the name), now takes the per-shard chunked
+    carrier: the one-rank cols fit builds it (Y's padded row block) and
+    equals the reference's cols fit at n_shards=1 with the same threshold
+    (f64 rtol 1e-9); the reference's linear-Y warning stays."""
+    import jax
+    import jax.numpy as jnp
     import torch
 
+    from pycmf_tpu.parallel.sharded import run_sharded as j_run_sharded
+    from pycmf_tpu.solvers import common as jcommon
+    from pycmf_tpu.utils import validation as jvalidation
     from pycmf_tpu_torch.parallel import sharded
     from pycmf_tpu_torch.solvers.common import SolverConfig, make_hyper
+    from pycmf_tpu_torch.utils import validation
 
     monkeypatch.setattr(sharded, "DENSIFY_THRESHOLD", 8)
+    monkeypatch.setattr(jvalidation, "DENSIFY_THRESHOLD", 8)
+    built, make = [], validation.chunked_from_scipy
+    monkeypatch.setattr(validation, "chunked_from_scipy", lambda A, *a, **k: (
+        built.append(A.shape), make(A, *a, **k))[1])
     U, V, Z = (DATA["init"][c] for c in "UVZ")
-    cfg = SolverConfig(y_link="sigmoid")
-    with pytest.raises(NotImplementedError, match="ROADMAP A10c"):
-        sharded.run_sharded("newton", DATA["X"], DATA["Ybs"], U, V, Z, cfg,
-                            make_hyper(dtype=torch.float64), n_shards=1,
-                            layout="cols", dtype=torch.float64,
-                            device="cpu", max_iter=1)
+    flags = dict(y_link="sigmoid", U_non_negative=False,
+                 V_non_negative=False, Z_non_negative=False)
+    run = dict(n_shards=1, layout="cols", max_iter=4, tol=1e-7,
+               eval_every=2)
+    got = sharded.run_sharded(
+        "newton", DATA["X"], DATA["Ybs"], U, V, Z,
+        SolverConfig(use_pallas=True, **flags),
+        make_hyper(dtype=torch.float64), dtype=torch.float64, device="cpu",
+        **run)
+    assert built == [DATA["Ybs"].shape]
+    want = j_run_sharded(
+        "newton", DATA["X"], DATA["Ybs"], U, V, Z,
+        jcommon.SolverConfig(**flags), jcommon.make_hyper(dtype=jnp.float64),
+        jax.random.PRNGKey(0), dtype=jnp.float64, **run)
+    assert got[3] == int(want[3]) and list(got[5]) == list(want[5])
+    np.testing.assert_allclose(got[4], np.asarray(want[4]), rtol=1e-9)
+    for g, w in zip(got[:3], want[:3]):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-9,
+                                   atol=1e-12)
     with pytest.warns(UserWarning, match="LINEAR-linked sparse Y"):
         sharded.run_sharded("mu", DATA["X"], DATA["Ys"], U, V, Z,
                             SolverConfig(), make_hyper(dtype=torch.float64),

@@ -31,6 +31,7 @@ from pycmf_tpu.parallel.grid import _prepare_grid as j_prepare_grid
 from pycmf_tpu_torch import CMF
 from pycmf_tpu_torch.parallel.grid import factor_grid, grid_cell
 from pycmf_tpu_torch.utils.validation import as_coupled
+from tests._shard_draws import rank_draws
 from tests._torch_dist import run_cases, spawn
 from tests.conftest import make_problem
 
@@ -322,14 +323,59 @@ def _est(**kw):
                **kw)
 
 
+# requests earlier slices refused and this one fits on the mesh (2, 1), each
+# held to the reference's fit of the same request: sampled Newton (the
+# reference's draws injected) and the chunked layout (a sparse X)
+REQUEST = dict(n_components=2, max_iter=2, random_state=0, n_shards=(2, 1),
+               shard_layout="grid", dtype="float64")
+NOW_FIT = {"sampled": (dict(REQUEST, solver="newton", sg_sample_ratio=0.5),
+                       "X"),
+           "chunked": (dict(REQUEST, sparse_mode="chunked"), "Xs")}
+_NOW_FIT_RESULTS = {}
+
+
+def _now_fit(tmp_path_factory):
+    """{name: (the rank 0 result, the reference's fit)}: one two-rank spawn
+    for both requests, the reference's fits while it runs; once per
+    module."""
+    if _NOW_FIT_RESULTS:
+        return _NOW_FIT_RESULTS
+    cases = {}
+    for name, (kw, x) in NOW_FIT.items():
+        cases[name] = dict(kind="fit", kw=kw, X=DATA[x], Y=DATA["Y"])
+    cases["sampled"].update(seed=0, rank_draws=rank_draws(
+        "grid", (2, 1), seed=0, n_iter=REQUEST["max_iter"], n=N, m=M,
+        ry=DATA["Y"].shape[1], ratio=0.5))
+    ranks = spawn(run_cases, 2, tmp_path_factory.mktemp("grid_requests"),
+                  cases)
+    try:
+        ref = {name: JCMF(**kw).fit(DATA[x], DATA["Y"])
+               for name, (kw, x) in NOW_FIT.items()}
+    finally:
+        ports = ranks.join()
+    for name in NOW_FIT:
+        assert ports[0][name]["losses"] == ports[1][name]["losses"]
+        _NOW_FIT_RESULTS[name] = (ports[0][name], ref[name])
+    return _NOW_FIT_RESULTS
+
+
 @pytest.mark.parametrize("kw", [
     dict(n_shards=(2, 1), loop="device"),
-    dict(n_shards=(2, 1), solver="newton", sg_sample_ratio=0.5),
-    dict(n_shards=(2, 1), sparse_mode="chunked"),
+    "sampled",
+    "chunked",
 ], ids=["device_loop", "sampled", "chunked"])
-def test_grid_unported_requests_raise_naming_a10c(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP A10c"):
-        _est(**kw).fit(DATA["X"], DATA["Y"])
+def test_grid_unported_requests_raise_naming_a10c(kw, tmp_path_factory):
+    """The device loop still raises naming A10c; sampled Newton and the
+    chunked layout, which earlier slices refused, fit on the mesh (2, 1)
+    in two ranks as the reference's grid fits of the same request do (f64
+    rtol 1e-9, every rank's losses equal)."""
+    if isinstance(kw, dict):
+        with pytest.raises(NotImplementedError, match="ROADMAP A10c"):
+            _est(**kw).fit(DATA["X"], DATA["Y"])
+        return
+    got, want = _now_fit(tmp_path_factory)[kw]
+    assert want.n_iter_ == 2
+    _assert_fit(got, want)
 
 
 @pytest.mark.parametrize("layout", ["rows", "cols"])
@@ -406,28 +452,55 @@ def test_grid_one_rank_equals_single_device(world1):
 
 
 def test_grid_refusals_past_the_threshold(world1, monkeypatch):
-    """A cell past the densify threshold stays CSR: a sigmoid-linked X under
-    Newton there would take a chunked cell (A10c), and fp8 data the
-    reference's ValueError; a sigmoid-linked sparse Y past it raises
-    naming A10c; a linear-linked sparse Y is densified with the
-    reference's warning."""
+    """A cell past the densify threshold: a sigmoid-linked X under Newton,
+    which earlier slices refused there, takes a chunked cell under 'auto',
+    and a sigmoid-linked sparse Y its chunked carrier; each (1, 1) fit
+    builds its chunked layout and equals the reference's run_grid at the
+    same threshold (f64 rtol 1e-9). Still refused: fp8 data on a cell that
+    stays sparse (the reference's ValueError); a linear-linked sparse Y is
+    densified with the reference's warning."""
+    import jax
+
+    from pycmf_tpu.parallel.grid import run_grid as j_run_grid
+    from pycmf_tpu.solvers import common as jcommon
+    from pycmf_tpu.utils import validation as jvalidation
     from pycmf_tpu_torch.parallel import grid, sharded
     from pycmf_tpu_torch.solvers.common import SolverConfig, make_hyper
+    from pycmf_tpu_torch.utils import validation
 
     U, V, Z = (DATA["init"][c] for c in "UVZ")
     hyper = make_hyper(dtype=torch.float64)
     kw = dict(grid=(1, 1), dtype=torch.float64, device="cpu", max_iter=1)
     monkeypatch.setattr(sharded, "DENSIFY_THRESHOLD", 8)
-    Xs = sp.csr_matrix(DATA["Xb"])
-    with pytest.raises(NotImplementedError, match="ROADMAP A10c"):
-        grid.run_grid("newton", Xs, DATA["Y"], U, V, Z,
-                      SolverConfig(x_link="sigmoid"), hyper, **kw)
+    monkeypatch.setattr(jvalidation, "DENSIFY_THRESHOLD", 8)
+    built, make = [], validation.chunked_from_scipy
+    monkeypatch.setattr(validation, "chunked_from_scipy", lambda A, *a, **k: (
+        built.append(A.shape), make(A, *a, **k))[1])
+    signed = dict(U_non_negative=False, V_non_negative=False,
+                  Z_non_negative=False)
+    run = dict(max_iter=4, tol=1e-7, eval_every=2)
+    for X, Y, link, shape in (
+            (sp.csr_matrix(DATA["Xb"]), DATA["Y"], dict(x_link="sigmoid"),
+             (N, M)),
+            (DATA["X"], DATA["Ybs"], dict(y_link="sigmoid"),
+             DATA["Ybs"].shape)):
+        built.clear()
+        got = grid.run_grid("newton", X, Y, U, V, Z, SolverConfig(
+            use_pallas=True, **link, **signed), hyper, grid=(1, 1),
+            dtype=torch.float64, device="cpu", **run)
+        assert built == [shape]
+        want = j_run_grid(X, Y, U, V, Z, jcommon.SolverConfig(
+            **link, **signed), jcommon.make_hyper(dtype=jnp.float64),
+            grid=(1, 1), dtype=jnp.float64, solver="newton",
+            rng=jax.random.PRNGKey(0), **run)
+        assert got[3] == int(want[3]) and list(got[5]) == list(want[5])
+        np.testing.assert_allclose(got[4], np.asarray(want[4]), rtol=1e-9)
+        for g, w in zip(got[:3], want[:3]):
+            np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-9,
+                                       atol=1e-12)
     with pytest.raises(ValueError, match="dense device cells"):
         grid.run_grid("mu", DATA["Xs"], DATA["Y"], U, V, Z, SolverConfig(),
                       hyper, data_dtype=torch.float8_e4m3fn, **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP A10c"):
-        grid.run_grid("newton", DATA["X"], DATA["Ybs"], U, V, Z,
-                      SolverConfig(y_link="sigmoid"), hyper, **kw)
     with pytest.warns(UserWarning, match="LINEAR-linked sparse Y"):
         grid.run_grid("mu", DATA["X"], DATA["Ys"], U, V, Z, SolverConfig(),
                       hyper, **kw)
