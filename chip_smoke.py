@@ -158,8 +158,20 @@ Phases (any failure exits non-zero and prints no ok line):
     spawn, its ranks drawing from their own and the shared streams, within
     R2S_BAR of path S's exact loss and below the initial factors'; R2g K,
     path K on the (2, 2) grid in the R2g spawn; every R2-family rank's
-    factors equal bit for bit (by digest); every kernel's launches in the
-    kernels line include these fits';
+    factors equal bit for bit (by digest); R1d, the device loop under
+    shards (loop='device': each block's all-reduces captured into the
+    fit's CUDA graphs) on a one-rank NCCL group: rows MU, rows path A,
+    cols path A, grid (1, 1) path A, rows path S and rows path K, each
+    from an emptied fit cache as the key's first fit, its second (builds
+    the cache entry) and two hits (one launch of the fit graph; a replay
+    per block when sampled or when the captured block holds a node type a
+    conditional body refuses, named), every one bit for bit with the
+    host loop of the same sharded call (n_iter, losses, U, V, Z) with
+    equal COMM calls and bytes and, for the hits, equal kernel launches
+    but fit_loop's; ms/iter of each, the hit's host launch calls and
+    graph launches (torch.profiler), and the hit with dist.all_reduce
+    patched out of its captures; every kernel's launches in the kernels
+    line include these fits';
  8. kernel path against plain path on the card (the plain fits on the host
     loop: a capture refuses the plain batched solve): after 20 iterations,
     checked to 1e-3 on paths B, C, D and F and printed for MU, Newton
@@ -2762,7 +2774,7 @@ def fp8_matches_bf16(check, make8, makeb, X, Xq, Y, label):
 R2_TIMEOUT = 360.0  # seconds for phase R2's two ranks, start to end
 
 
-R1_ROUNDS = 3  # phase R1's timed rounds: the four variants in turn
+R1_ROUNDS = 2  # phase R1's timed rounds: the four variants in turn
 
 
 def nccl_world1_phase(check, torch, X, Y, common, paths):
@@ -2961,9 +2973,9 @@ def nccl_world1_layout_phase(check, torch, Y, common, paths, layout, tag,
     store = os.path.join(tempfile.mkdtemp(prefix=f"pycmf_{tag}_"), "store")
     dist.init_process_group("nccl", store=dist.FileStore(store, 1), rank=0,
                             world_size=1)
-    # the first two events lie outside the blocks (the set-up's and the
-    # initial loss), and for cols the last (the gather of V); on the (1, 1)
-    # grid the gathers of U and V run on one-rank axes, which make no call
+    # the set-up's event and the initial loss's lie outside the blocks, and
+    # for cols the last (the gather of V); on the (1, 1) grid the gathers
+    # of U and V run on one-rank axes, which make no call
     tail = 1 if layout == "cols" else 0
     try:
         for label, kw, X, exact_loss, minimums, ref in paths:
@@ -2981,6 +2993,9 @@ def nccl_world1_layout_phase(check, torch, Y, common, paths, layout, tag,
                 one = CMF(**kw, **common, loop="host").fit(X, Y)
                 ref = dict(n_iter=one.n_iter_,
                            exact_loss=exact_loss(one.U_, one.V_, one.Z_))
+            # a path whose upload takes seconds (F's BlockEll cell, K's
+            # chunked one) uploads once for its two fits
+            setup = None if rounds else shard_setup_once()
 
             def fit(max_iter=ref["n_iter"], timed=False):
                 COMM.reset(timed)
@@ -3018,8 +3033,13 @@ def nccl_world1_layout_phase(check, torch, Y, common, paths, layout, tag,
                     o = fit()
                     ms[layout].append(1e3 * sum(o[6]) / o[3])
             t_out = fit(timed=True)
+            if setup is not None:
+                setup.close()
+            # the set-up's all-reduce (none when uploaded once) and L0's
+            # precede the blocks
+            head = 2 if setup is None else 1
             blocks = list(zip(COMM.events, COMM.event_axes))[
-                2:len(COMM.events) - tail]
+                head:len(COMM.events) - tail]
             comm_ms = sum(a.elapsed_time(b) for (a, b), _ in blocks)
             axis_ms = {}
             for (a, b), ax in blocks:
@@ -3291,6 +3311,252 @@ def nccl_world1_bits_phase(check, torch, X, Y, common, paths):
                 f"{nbytes} bytes; launches {counts}")
             rec[label] = r
     finally:
+        dist.destroy_process_group()
+    return rec, launches
+
+
+def launch_profile(torch, fn) -> dict:
+    """fn() under torch.profiler: the host's launch calls (LAUNCH_APIS),
+    its graph launches (cudaGraphLaunch, one per replay or fit graph), the
+    device's busy ms (kernels, copies and memsets) and the wall ms."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    calls = graphs = 0
+    busy = 0.0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            busy += e.time_range.elapsed_us() / 1e3
+        elif e.name in LAUNCH_APIS:
+            calls += 1
+            graphs += e.name == "cudaGraphLaunch"
+    return dict(out=out, launch_calls=calls, graph_launches=graphs,
+                device_ms=busy, wall_ms=wall)
+
+
+def shard_setup_once():
+    """A patch of the sharded layouts' set-up (``prepare_rows``,
+    ``prepare_cols``, ``prepare_grid``) that uploads each call's operands
+    once and hands them to every later call with the same arguments (the
+    fits read them and never write them; each gets its own copy of the
+    initial factors). Phase R1d runs each path a dozen times; the upload
+    is outside ms/iter and its collectives precede the fit (so only the
+    first call counts them in COMM). Active from the call; close() the
+    returned ExitStack to end it."""
+    import numpy as np
+    import scipy.sparse as sp
+    import torch
+
+    from pycmf_tpu_torch.parallel import grid as tgrid
+    from pycmf_tpu_torch.parallel import sharded as tsharded
+
+    memo = {}
+
+    def once(fn):
+        def setup(*args):
+            key = (fn.__name__,) + tuple(
+                id(a) if isinstance(a, (np.ndarray, sp.spmatrix)) else a
+                for a in args)
+            if key not in memo:
+                memo[key] = (args, fn(*args))  # args kept: their ids
+            return tuple(t.clone() if isinstance(t, torch.Tensor) else t
+                         for t in memo[key][1])
+        return setup
+
+    stack = ExitStack()
+    for mod, name in ((tsharded, "prepare_rows"), (tsharded, "prepare_cols"),
+                      (tgrid, "prepare_grid")):
+        stack.enter_context(mock.patch.object(mod, name,
+                                              once(getattr(mod, name))))
+    return stack
+
+
+def nccl_world1_device_loop_phase(check, torch, X, Y, common, paths):
+    """Phase R1d: the device loop under shards (loop='device' of
+    run_sharded and run_grid) on a one-rank NCCL group in this process,
+    each path's collectives captured into the fit's CUDA graphs. Per path,
+    from an emptied fit cache: two host-loop fits of the same sharded
+    call, then the key's first device fit (an eager block, a graph of one
+    eval block replayed per block), its second (builds the cache entry)
+    and two hits (one launch of the fit graph; a replay per block when
+    sampled, or when the captured block holds a node type a conditional
+    body refuses, which LAST_FIT names). Each device fit is held bit for
+    bit against the host fit (n_iter, the loss history, U, V, Z) with equal
+    COMM calls and bytes; the hit's kernel launches equal the host fit's
+    but fit_loop's. Then a hit and a host fit under torch.profiler (host
+    launch calls, graph launches, device ms per fit), and the first fit,
+    second fit and two hits again with dist.all_reduce patched to nothing
+    (at one rank it changes no value; the captures record no collective):
+    the hit's ms/iter without its collective. Host loop and hits: least of
+    2. paths: (label, kw, layout, {kernel: launches per iteration}).
+    Returns (record, launches of the first hit)."""
+    import tempfile
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from pycmf_tpu_torch import CMF
+    from pycmf_tpu_torch.ops.kernels.policy import (launch_counts,
+                                                    reset_launch_counts)
+    from pycmf_tpu_torch.parallel.grid import run_grid
+    from pycmf_tpu_torch.parallel.mesh import COMM
+    from pycmf_tpu_torch.parallel.sharded import run_sharded
+    from pycmf_tpu_torch.solvers.common import (LAST_FIT, clear_fit_cache,
+                                                fit_cache_entries, make_hyper)
+    from pycmf_tpu_torch.utils.init import initialize_factors
+
+    rec, launches = {}, {}
+    store = os.path.join(tempfile.mkdtemp(prefix="pycmf_r1d_"), "store")
+    dist.init_process_group("nccl", store=dist.FileStore(store, 1), rank=0,
+                            world_size=1)
+    setup = shard_setup_once()
+    try:
+        for label, kw, layout, minimums in paths:
+            est = CMF(**kw, **common, loop="host")
+            cfg = est._config(has_Y=True)
+            hyper = make_hyper(est.alpha, est.l1_ratio, est.eps,
+                               est.hessian_pertubation, dtype=torch.float32)
+            U0, V0, Z0 = initialize_factors(
+                X, Y, K, random_state=SEED,
+                U_non_negative=est.U_non_negative,
+                V_non_negative=est.V_non_negative,
+                Z_non_negative=est.Z_non_negative)
+            sampled = est.sg_sample_ratio < 1.0
+
+            def fit(loop):
+                COMM.reset()
+                LAST_FIT.clear()
+                reset_launch_counts()
+                args = (est.solver, X, Y, U0, V0, Z0, cfg, hyper)
+                kws = dict(dtype=torch.float32, data_dtype=torch.bfloat16,
+                           device=common["device"], max_iter=est.max_iter,
+                           tol=est.tol, eval_every=est.eval_every,
+                           loop=loop, seed=SEED,
+                           sparse_mode=est._matrix_sparse_mode(X, est.x_link))
+                out = (run_grid(*args, grid=(1, 1), **kws)
+                       if layout == "grid" else
+                       run_sharded(*args, n_shards=1, layout=layout, **kws))
+                torch.cuda.synchronize()
+                U, V, Z, n_iter, losses, iters, times = out
+                return dict(
+                    n_iter=n_iter, losses=[float(v) for v in losses],
+                    factors=[t.cpu() for t in (U, V, Z)],
+                    ms_per_iter=1e3 * sum(times) / n_iter,
+                    comm=(COMM.calls, COMM.nbytes), counts=launch_counts(),
+                    info=dict(LAST_FIT))
+
+            def same(a, b):
+                return (a["n_iter"] == b["n_iter"]
+                        and a["losses"] == b["losses"]
+                        and all(torch.equal(x, y) for x, y in
+                                zip(a["factors"], b["factors"])))
+
+            clear_fit_cache()
+            host, host2 = fit("host"), fit("host")
+            first, build, hit, hit2 = (fit("device") for _ in range(4))
+            (entry,) = fit_cache_entries()
+            nodes = entry.nodes
+            prof = launch_profile(torch, lambda: fit("device"))
+            pfit, hprof = prof.pop("out"), launch_profile(
+                torch, lambda: fit("host"))
+            hprof.pop("out")
+            with mock.patch.object(dist, "all_reduce",
+                                   lambda *a, **k: None):
+                clear_fit_cache()
+                bare = [fit("device") for _ in range(4)]
+            clear_fit_cache()
+
+            def least(*fits):
+                return min(f["ms_per_iter"] for f in fits)
+            full = host["n_iter"] // min(est.eval_every, est.max_iter)
+            blocks = len(host["losses"]) - 1
+            refused = hit["info"].get("refused")
+            per_block = sampled or refused is not None
+            want = (0, full) if per_block else (1, 0)
+            for name, f in (("first", first), ("second", build),
+                            ("hit", hit), ("second hit", hit2),
+                            ("profiled hit", pfit),
+                            ("hit without collective", bare[3])):
+                check(same(f, host) and f["comm"] == host2["comm"],
+                      f"R1d {label}: the {name} device fit equals the host "
+                      f"loop's bit for bit (n_iter {f['n_iter']}, "
+                      f"{len(f['losses'])} losses, U, V, Z), COMM calls and "
+                      f"bytes {f['comm']} == {host2['comm']} (the host "
+                      f"loop's on the same uploaded operands)")
+            fi, bi, hi = first["info"], build["info"], hit["info"]
+            check(not fi["hit"] and fi["eager_blocks"] == 1
+                  and fi["captures"] == int(full > 1)
+                  and not bi["hit"] and bi["captures"] >= 1
+                  and (bi["graph_launches"], bi["replays"]) == want
+                  and hi["hit"] and hi["captures"] == 0
+                  and hi["eager_blocks"] == 0
+                  and (hi["graph_launches"], hi["replays"]) == want,
+                  f"R1d {label}: first fit {fi}, second {bi}, hit {hi} "
+                  f"(per block: {per_block}, refused node: {refused})")
+            hc, dc = ({k: v for k, v in c.items() if k != "fit_loop"}
+                      for c in (host["counts"], hit["counts"]))
+            check(hc == dc, f"R1d {label}: the hit's launches {dc} equal the "
+                  f"host loop's")
+            for name, per in minimums.items():
+                check(dc.get(name, 0) >= per * hit["n_iter"],
+                      f"R1d {label}: {name} launches {dc.get(name, 0)} >= "
+                      f"{per} x {hit['n_iter']}")
+            for name, n in hit["counts"].items():
+                launches[name] = launches.get(name, 0) + n
+            r = dict(
+                layout=layout, n_iter=host["n_iter"], blocks=blocks,
+                host_ms_per_iter=least(host, host2),
+                first_ms_per_iter=first["ms_per_iter"],
+                second_ms_per_iter=build["ms_per_iter"],
+                hit_ms_per_iter=least(hit, hit2),
+                profiled_hit_ms_per_iter=pfit["ms_per_iter"],
+                hit_no_collective_ms_per_iter=least(*bare[2:]),
+                no_collective_first_ms_per_iter=bare[0]["ms_per_iter"],
+                no_collective_second_ms_per_iter=bare[1]["ms_per_iter"],
+                comm_calls=hit["comm"][0], comm_bytes=hit["comm"][1],
+                host_comm_calls=host2["comm"][0],
+                host_comm_bytes=host2["comm"][1],
+                collectives_per_block=hi.get("collectives"),
+                refused_node=refused, graph_nodes=nodes,
+                hit_launch_calls=prof["launch_calls"],
+                hit_graph_launches=prof["graph_launches"],
+                hit_device_ms_per_iter=prof["device_ms"] / host["n_iter"],
+                hit_idle_share=1.0 - prof["device_ms"] / prof["wall_ms"],
+                host_launch_calls=hprof["launch_calls"],
+                host_device_ms_per_iter=hprof["device_ms"] / host["n_iter"],
+                host_idle_share=1.0 - hprof["device_ms"] / hprof["wall_ms"],
+                infos=dict(first=fi, second=bi, hit=hi),
+                launches=hit["counts"])
+            log(f"  R1d {label} ({layout}): {host['n_iter']} iterations, "
+                f"{blocks} eval blocks; ms/iter (host loop and hits least of "
+                f"2) host loop {r['host_ms_per_iter']:.4f}, device loop: "
+                f"first fit "
+                f"{r['first_ms_per_iter']:.4f}, second "
+                f"{r['second_ms_per_iter']:.4f}, hit "
+                f"{r['hit_ms_per_iter']:.4f}, hit without its collective "
+                f"{r['hit_no_collective_ms_per_iter']:.4f}; host launch "
+                f"calls per fit: hit {r['hit_launch_calls']} (graph launches "
+                f"{r['hit_graph_launches']}), host loop "
+                f"{r['host_launch_calls']}; device ms/iter hit "
+                f"{r['hit_device_ms_per_iter']:.4f} (idle "
+                f"{r['hit_idle_share']:.3f}), host loop "
+                f"{r['host_device_ms_per_iter']:.4f} (idle "
+                f"{r['host_idle_share']:.3f}); COMM calls, bytes: device "
+                f"{hit['comm']}, host {host2['comm']}; "
+                f"{r['collectives_per_block']} all-reduces per captured "
+                f"block; fit graph nodes {nodes}; refused node type "
+                f"{refused}")
+            rec[label] = r
+    finally:
+        setup.close()
+        clear_fit_cache()  # its graphs hold the group's communicator
         dist.destroy_process_group()
     return rec, launches
 
@@ -3871,12 +4137,13 @@ def main() -> int:
     log(f"  data {Xr.shape} nnz={Xr.nnz} in {time.perf_counter() - t0:.1f} "
         f"s")
     kr = {}
-    # three eval blocks of 5: run_fit's fit is the first of its key (an
-    # eager block, the capture, a replay per block); a second fit builds
-    # the cache entry, a third finds it (the whole fit as one launch)
+    # two eval blocks of 5: run_fit's fit is the first of its key (an
+    # eager block, the capture, a replay); a second
+    # fit builds the cache entry, a third finds it (the whole fit as one
+    # launch)
     with ingested_layouts() as lays, cached_ingest():
         for mode in ("chunked", "csr"):
-            kr_kw = dict(solver="mu", sparse_mode=mode, max_iter=15,
+            kr_kw = dict(solver="mu", sparse_mode=mode, max_iter=10,
                          tol=0.0, eval_every=5)
             need = ((lambda est: per_iter(
                 fused_mu_u_pass=lays[0]["chunks"], fused_mu_update=1)(est))
@@ -4214,8 +4481,27 @@ def main() -> int:
         {"rows MU fp8": (fp8["mu"], lin8, {"fused_mu_u_pass_fp8": 1}),
          "grid MU fp8": (fp8["mu"], lin8, {"fused_mu_update": 3})},
         tag="R2 fp8")
+    log(f"phase R1d: the device loop under shards (loop='device', each "
+        f"block's all-reduces captured into the fit's CUDA graphs) on a "
+        f"one-rank NCCL group, rows, cols and the (1, 1) grid; {name}, "
+        f"nvidia-smi: {smi}")
+    sigmoid_y = {"sigmoid_gh_pass": 1, "sigmoid_phi_pass": 1,
+                 "batched_spd_solve": 2}
+    r1d, r1d_launches = nccl_world1_device_loop_phase(
+        check, torch, X, Y, common, (
+            ("rows MU", mu_kw, "rows", {"fused_mu_u_pass": 1,
+                                        "fused_mu_update": 2}),
+            ("rows path A", a_kw, "rows",
+             dict(sigmoid_y, fused_newton_linear_u_pass=1)),
+            ("cols path A", a_kw, "cols", sigmoid_y),
+            ("grid path A", a_kw, "grid", sigmoid_y),
+            ("rows path S", s_kw, "rows", {"batched_spd_solve": 2}),
+            ("rows path K", k_kw, "rows",
+             {"fused_mu_u_pass": pk["layout"]["chunks"],
+              "fused_mu_update": 2})))
     for part in (r1c_launches, r2c_launches, r1g_launches, r2g_launches,
-                 r1f_launches, r2f_launches, r1ck_launches, r1gk_launches):
+                 r1f_launches, r2f_launches, r1ck_launches, r1gk_launches,
+                 r1d_launches):
         for kname, n in part.items():
             r_launches[kname] = r_launches.get(kname, 0) + n
     sharded = {"r1_nccl_world1": r1, "r2_gloo_two_ranks": r2,
@@ -4225,6 +4511,7 @@ def main() -> int:
                "r1_bits_nccl_world1_sampled_chunked": r1b,
                "r1c_k_nccl_world1_cols_chunked": r1ck,
                "r1g_k_nccl_world1_grid_chunked": r1gk,
+               "r1d_nccl_world1_device_loop": r1d,
                "launches": r_launches}
 
     # 8. kernel path against plain path on the card; the 2% guards. The

@@ -21,9 +21,9 @@ from ``random_state``), with the Gauss-Newton or the full Hessian
 (Y then at bf16), contracted in bf16 as the reference does. ``n_shards``
 > 1 fits row-, column- or grid-sharded over a torch.distributed process
 group, one process per shard or cell (``parallel/sharded.py``,
-``parallel/grid.py``), sampled Newton and the chunked layout included;
-the device loop under shards is not ported yet and raises
-NotImplementedError naming the ROADMAP item that brings it. Beside fit
+``parallel/grid.py``), sampled Newton, the chunked layout and the device
+loop included (over NCCL on the card, each block's collectives captured
+into the fit's CUDA graphs). Beside fit
 and transform, the reference's sklearn surface: ``components_``,
 ``inverse_transform``, ``get_feature_names_out`` and
 ``print_topic_terms``; sklearn itself is imported only when sklearn asks
@@ -40,7 +40,7 @@ import torch
 
 from ..ops.matmul import FP8_DTYPES
 from ..parallel.grid import factor_grid, run_grid
-from ..parallel.mesh import broadcast, group_size, make_mesh
+from ..parallel.mesh import broadcast, captures, group_size, make_mesh
 from ..parallel.sharded import check_shardable, run_sharded
 from ..solvers.common import SolverConfig, make_hyper
 from ..solvers.mu import run_mu
@@ -109,7 +109,8 @@ class CMF:
         every later fit of the key run as one launch of a CUDA graph (the
         eval block inside a conditional while node) and one readback; a
         sampled fit replays the cached eval block per block. On the CPU
-        the same schedule runs eagerly.
+        the same schedule runs eagerly. Under n_shards > 1 every rank runs
+        it, on the same branch (see shard_layout).
         ``pycmf_tpu_torch.solvers.common.clear_fit_cache()``
         frees the cache. See _resolve_loop.
     device : 'cuda' (default) | 'cpu' | a torch.device. 'cuda' raises when
@@ -125,11 +126,16 @@ class CMF:
         dimension: X's columns, Y's rows and V sharded) | 'grid' (X's
         cells over a (rows, cols) mesh: the tuple, or an int's
         ``factor_grid``). transform folds in by rows, over every rank,
-        whatever the fit's layout. Under shards the host loop runs dense,
+        whatever the fit's layout. Under shards both loops run dense,
         densified, CSR or chunked data (fp8 dense), full batch or sampled
         (each rank's draws by the reference's key schedule:
-        ``parallel/sharded.Draws``); ``loop='device'`` raises
-        (``parallel/sharded.py``, ``parallel/grid.py``).
+        ``parallel/sharded.Draws``); ``loop='device'`` runs the device loop
+        on every rank, its collectives captured into the
+        graphs, which on CUDA tensors needs an NCCL group (ValueError over
+        gloo) and on the CPU runs eagerly (``parallel/sharded.py``,
+        ``parallel/grid.py``). Free the fit cache
+        (``solvers.common.clear_fit_cache``) before destroying the group:
+        its graphs hold the group's communicator.
 
     Attributes: U_, V_, Z_ (NumPy float64), reconstruction_err_, n_iter_,
     loss_history_, loss_iters_, step_times_, n_components_.
@@ -301,19 +307,25 @@ class CMF:
         """The reference's rule: 'auto' → the device loop on a CUDA device
         and the host loop on the CPU (where the device loop only runs the
         same blocks eagerly); verbose > 0 takes the host loop under 'auto',
-        as in the reference. One more case takes the host loop under
-        'auto': a Newton fit on the card that the device loop cannot
-        capture (``solvers/newton.captures_on_card``: per-row systems
-        through a library's batched solve, which is the plain path's,
-        use_pallas=False; ROADMAP C3), where an explicit 'device' raises.
-        An explicit 'host' or 'device' is honoured. cfg: the fit's
-        SolverConfig (default: with Y)."""
+        as in the reference. Under n_shards > 1 likewise, whatever the
+        layout: the device loop on CUDA tensors over an NCCL group (the
+        default process group's), the host loop over gloo, whose
+        collectives of CUDA tensors a graph cannot capture. One more case
+        takes the host loop under 'auto': a Newton fit on the card that the
+        device loop cannot capture (``solvers/newton.captures_on_card``:
+        per-row systems through a library's batched solve, which is the
+        plain path's, use_pallas=False; ROADMAP C3), where an explicit
+        'device' raises. An explicit 'host' or 'device' is honoured
+        ('device' over gloo on CUDA tensors raises ValueError). cfg: the
+        fit's SolverConfig (default: with Y)."""
         if self.loop not in ("auto", "host", "device"):
             raise ValueError("loop must be 'auto', 'host' or 'device'")
         if self.loop != "auto":
             return self.loop
-        if (self.verbose or self._sharded()
-                or self._resolve_device().type != "cuda"):
+        dev = self._resolve_device()
+        if self.verbose or dev.type != "cuda":
+            return "host"
+        if self._sharded() and not captures(dev):
             return "host"
         if self.solver == "newton" and not captures_on_card(
                 cfg if cfg is not None else self._config(has_Y=True)):
@@ -408,7 +420,7 @@ class CMF:
             l1_ratio=self.l1_ratio, tol=self.tol, max_iter=self.max_iter,
             sg_sample_ratio=self.sg_sample_ratio)
         if self._sharded():
-            check_shardable(layout=self.shard_layout, loop=self.loop)
+            check_shardable(layout=self.shard_layout)
         mu = self.solver == "mu"
         X = check_matrix(X, "X", require_non_negative=mu)
         if Y is not None:

@@ -113,11 +113,12 @@ def stop_rule(ctl, fctl, hist, loss, mode: int = BLOCK) -> None:
     LAUNCHES.n += 1
 
 
-def graph_nodes(graph: int, device: int) -> int:
-    """Nodes of a captured graph (``CUDAGraph.raw_cuda_graph()``) and its
-    child graphs. Raises if one is of a type a conditional node's body
-    refuses (kernel, memcpy, memset, empty, child graph and conditional
-    nodes only), naming the type."""
+def refused_node(graph: int, device: int):
+    """(nodes, refused) of a captured graph (``CUDAGraph.raw_cuda_graph()``)
+    and its child graphs: how many nodes they hold, and the
+    cudaGraphNodeType of the first node a conditional node's body refuses
+    (it takes kernel, memcpy, memset, empty, child-graph and conditional
+    nodes only; ``NODE_TYPES`` names it), or None."""
     fn = _build.function("fit_loop", "pycmf_fit_graph_check",
                          (ctypes.c_void_p, ctypes.c_int,
                           ctypes.POINTER(ctypes.c_int),
@@ -126,14 +127,22 @@ def graph_nodes(graph: int, device: int) -> int:
     rc = fn(graph, device, ctypes.byref(bad), ctypes.byref(nodes))
     if rc:
         _build.check(_build.load("fit_loop"), rc, "fit graph check")
-    if bad.value >= 0:
+    return nodes.value, (bad.value if bad.value >= 0 else None)
+
+
+def graph_nodes(graph: int, device: int) -> int:
+    """Nodes of a captured graph and its child graphs (:func:`refused_node`).
+    Raises if one is of a type a conditional node's body refuses, naming
+    the type."""
+    nodes, bad = refused_node(graph, device)
+    if bad is not None:
         raise RuntimeError(
             "the device loop cannot put this eval block in a conditional "
             f"node: its captured graph holds a "
-            f"{NODE_TYPES.get(bad.value, bad.value)!s} node (type "
-            f"{bad.value}); a conditional body takes kernel, memcpy, memset, "
-            "empty, child-graph and conditional nodes only")
-    return nodes.value
+            f"{NODE_TYPES.get(bad, bad)!s} node (type {bad}); a conditional "
+            "body takes kernel, memcpy, memset, empty, child-graph and "
+            "conditional nodes only")
+    return nodes
 
 
 class FitGraph:

@@ -8,7 +8,9 @@
 ``--layout grid --grid R C`` X's cells over an R×C mesh of R·C processes).
 Every rank fits ``CMF(n_shards=<world size, or (R, C)>,
 shard_layout=<layout>)`` on the whole 20NG-shaped surrogate; rank 0 prints
-what it got and the single-device fit's loss beside it.
+what it got and the single-device fit's loss beside it (under NCCL
+``loop='auto'`` is the device loop, its collectives captured into the fit's
+CUDA graphs; over gloo the host loop).
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ import argparse
 import torch.distributed as dist
 
 from ..models.cmf import CMF
+from ..solvers.common import clear_fit_cache
 from ..utils.datasets import synthetic_20ng
 
 
@@ -52,6 +55,7 @@ def main(argv=None) -> None:
                   + (" {}x{}".format(*est._resolve_grid())
                      if args.layout == "grid" else ""), flush=True)
     finally:
+        clear_fit_cache()  # its graphs hold the group's communicator
         dist.destroy_process_group()
 
 

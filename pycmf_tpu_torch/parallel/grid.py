@@ -40,6 +40,7 @@ local pair (X[i,j]ᵀU_new, U_newᵀU_new) of V's update (factored) or V's Σφ
 """
 from __future__ import annotations
 
+from functools import partial
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -58,10 +59,11 @@ from ..solvers.common import (Coupled, Hyper, SolverConfig, check_loop,
                               coupled_mm, run_solver_loop)
 from ..solvers.mu import mu_ratio_update
 from ..solvers.newton import (Term, _transposed, _with_transposes,
-                              fused_sigmoid_allowed, fused_sigmoid_update,
-                              newton_update_factor)
+                              check_device_loop, fused_sigmoid_allowed,
+                              fused_sigmoid_update, newton_update_factor)
 from ..utils.validation import as_coupled
-from .mesh import GridMesh, all_reduce, gather_rows, make_grid_mesh
+from .mesh import (GridMesh, all_ranks, all_reduce, gather_rows, group_key,
+                   make_grid_mesh)
 from .sharded import (Draws, check_shardable, col_block, cols_aux_kind,
                       factor, make_block, make_draws, row_block,
                       stored_block, x_mode, y_block, y_parts, y_term)
@@ -466,12 +468,19 @@ def run_grid(solver: str, X, Y, U0, V0, Z0, cfg: SolverConfig,
 
     seed: a sampled Newton fit's draw streams (``sharded.Draws``): the one
     of mesh column j, shared by the ranks of that column, and the cell's
-    own. Reference: ``pycmf_tpu/parallel/grid.py:run_grid``, loop
-    'host'."""
+    own.
+
+    loop: 'host' or 'device', as in ``sharded.run_sharded`` (the device
+    loop's cache key names the world and both axis groups; the ranks agree
+    on each fit's branch over the world). Reference:
+    ``pycmf_tpu/parallel/grid.py:run_grid``."""
     check_loop(loop)
-    check_shardable(layout="grid", loop=loop)
     r, c = grid
     gm = make_grid_mesh(r, c, group, device)
+    check_shardable(layout="grid", loop=loop, mesh=gm.world)
+    if solver == "newton":
+        check_device_loop(cfg, gm.world.device.type == "cuda",
+                          loop)
     ddt = dtype if data_dtype is None else data_dtype
     n, m = X.shape
     mode = x_mode(X, -(-n // r) * -(-m // c), ddt, cfg, solver, sparse_mode,
@@ -497,9 +506,12 @@ def run_grid(solver: str, X, Y, U0, V0, Z0, cfg: SolverConfig,
     draws = (make_draws(seed, dev, (1, gm.j), (2, gm.i, gm.j))
              if solver == "newton" and cfg.sg_sample_ratio < 1.0 else None)
     state, n_iter, losses, iters, times = run_solver_loop(
-        block, (ops, U, V, Z), hyper, draws, max_iter=max_iter, tol=tol,
-        eval_every=eval_every, verbose=verbose if gm.world.rank == 0 else 0,
-        initial_loss_fn=loss_fn)
-    _, U, V, Z = state
+        block, (ops, None, U, V, Z), hyper, draws, max_iter=max_iter,
+        tol=tol, eval_every=eval_every,
+        verbose=verbose if gm.world.rank == 0 else 0, initial_loss_fn=loss_fn,
+        loop=loop, key=("grid", solver, cfg, aux, group_key(gm.world),
+                        group_key(gm.row), group_key(gm.col)),
+        agree=partial(all_ranks, gm.world))
+    _, _, U, V, Z = state
     return (gather_rows(gm.row, U, n), gather_rows(gm.col, V, m), Z, n_iter,
             losses, iters, times)

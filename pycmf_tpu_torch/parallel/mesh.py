@@ -15,11 +15,21 @@ the ROW axis) and of one mesh row (a sum over the COL axis).
 Every reduction of a sharded fit goes through :func:`all_reduce`, which
 packs the terms summed at one point into one buffer and one collective,
 and counts the calls, bytes and host time in :data:`COMM`, in all and per
-mesh axis (with CUDA-event times when ``COMM.timed`` is set).
+mesh axis (with CUDA-event times when ``COMM.timed`` is set). A collective
+captured into a CUDA graph passes through :func:`all_reduce` once, at the
+capture: the device loop takes that pass's counts back and adds them per
+replay (``solvers/common.py``), so both loops count the same calls.
+
+The device loop captures a sharded fit's collectives only over NCCL
+(:func:`captures`): a gloo all-reduce of CUDA tensors goes through the
+host. Its cached program is keyed on the group (:func:`group_key`) and
+holds the group's communicator in its graphs: free it
+(``solvers.common.clear_fit_cache``) before destroying the group.
 """
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import os
 import time
 import weakref
@@ -190,8 +200,93 @@ class CommStats:
         self.timed, self.events, self.event_axes = timed, [], []
         self.by_axis = {}
 
+    def counts(self) -> tuple:
+        """(calls, bytes, host seconds, by_axis) as they stand."""
+        return (self.calls, self.nbytes, self.host_s,
+                {a: list(v) for a, v in self.by_axis.items()})
+
+    def set_counts(self, counts: tuple) -> None:
+        """Put back what :meth:`counts` returned (a capture calls no
+        collective: the device loop takes back what its pass counted)."""
+        calls, nbytes, host_s, by_axis = counts
+        self.calls, self.nbytes, self.host_s = calls, nbytes, host_s
+        self.by_axis = {a: list(v) for a, v in by_axis.items()}
+
+    def since(self, counts: tuple) -> tuple:
+        """(calls, bytes, by_axis) counted since :meth:`counts` gave
+        ``counts``: what one pass of a captured block calls."""
+        calls, nbytes, _, by_axis = counts
+        per = {a: [v[0] - by_axis.get(a, [0, 0])[0],
+                   v[1] - by_axis.get(a, [0, 0])[1]]
+               for a, v in self.by_axis.items()}
+        return (self.calls - calls, self.nbytes - nbytes,
+                {a: v for a, v in per.items() if v[0]})
+
+    def add(self, delta: tuple, times: int = 1) -> None:
+        """Count ``times`` runs of what :meth:`since` returned (the replays
+        of a captured block, which pass through no Python)."""
+        calls, nbytes, by_axis = delta
+        self.calls += calls * times
+        self.nbytes += nbytes * times
+        for a, (c, b) in by_axis.items():
+            per = self.by_axis.setdefault(a, [0, 0])
+            per[0] += c * times
+            per[1] += b * times
+
 
 COMM = CommStats()
+
+
+def cuda_backend(group=None) -> str:
+    """The backend that takes ``group``'s collectives of CUDA tensors:
+    'nccl', 'gloo', ... (the one backend the group was made with, or the
+    'cuda:' entry of a 'cpu:gloo,cuda:nccl' spelling)."""
+    name = str(dist.get_backend(group))
+    for part in name.split(","):
+        dev, _, backend = part.rpartition(":")
+        if dev in ("", "cuda"):
+            return backend
+    return name
+
+
+def captures(device, group=None) -> bool:
+    """Whether a sharded fit's collectives on ``device`` can be captured
+    into a CUDA graph: CUDA tensors over a group whose CUDA backend is
+    NCCL. A gloo all-reduce of CUDA tensors copies them through the host,
+    which a capture cannot record."""
+    return torch.device(device).type == "cuda" and cuda_backend(group) \
+        == "nccl"
+
+
+# a serial per process group this process has seen (weakly held: it dies
+# with the group object), so that a cached program keyed on it is never
+# reused by a later group, whatever address the later group gets
+_GROUP_SERIALS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+_SERIAL = itertools.count()
+
+
+def group_key(mesh: Mesh) -> tuple:
+    """The part of a device fit's cache key that names its mesh: the axis,
+    the world size, the group's serial in this process and its backend."""
+    g = (mesh.group if mesh.group is not None
+         else dist.distributed_c10d._get_default_group())
+    if g not in _GROUP_SERIALS:
+        _GROUP_SERIALS[g] = next(_SERIAL)
+    return (mesh.axis, mesh.world, _GROUP_SERIALS[g], cuda_backend(g))
+
+
+def all_ranks(mesh: Mesh, flags) -> List[bool]:
+    """Each flag true on every rank of the mesh: one all-reduce (MIN) of
+    the flags on mesh.device. It decides how a sharded device fit runs, so
+    that every rank takes the same branch; it is the loop's control, not a
+    sum of the fit, and :data:`COMM` does not count it. One rank: the
+    flags as given."""
+    flags = [bool(f) for f in flags]
+    if mesh.world == 1:
+        return flags
+    t = torch.tensor(flags, dtype=torch.int32, device=mesh.device)
+    dist.all_reduce(t, op=dist.ReduceOp.MIN, group=mesh.group)
+    return [bool(v) for v in t.tolist()]
 
 
 def all_reduce(mesh: Mesh, *tensors: torch.Tensor) -> List[torch.Tensor]:
@@ -210,6 +305,11 @@ def all_reduce(mesh: Mesh, *tensors: torch.Tensor) -> List[torch.Tensor]:
     per[0] += 1
     per[1] += nbytes
     timed = COMM.timed and flat.is_cuda
+    if timed and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(
+            "COMM.timed cannot time an all-reduce captured into a CUDA "
+            "graph (its events would time the capture, not the replays); "
+            "time the host loop, or reset COMM with timed=False")
     if timed:
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)

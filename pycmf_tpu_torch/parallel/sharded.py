@@ -51,13 +51,21 @@ chunked carrier: replicated under 'rows', one row block per rank under
 'cols'.
 
 **Sampled Newton** (``sg_sample_ratio`` < 1) draws from the two streams of
-:class:`Draws` by the reference's key schedule. The device loop under
-shards is not ported yet (ROADMAP A10c) and raises NotImplementedError
-naming it.
+:class:`Draws` by the reference's key schedule.
+
+**The device loop** (``loop='device'``) runs ``solvers/common.py``'s loop
+on each rank's state, as the reference runs ``device_fit_core`` inside
+``shard_map``: the state is ``(ops, None, U, V, Z)`` (the reference's
+``core(ops, None, U, V, Z, …)``), each block's collectives are captured
+into the rank's graphs, and the ranks agree on each fit's branch
+(``mesh.all_ranks``). On CUDA tensors it needs an NCCL group
+(``mesh.captures``); on the CPU it runs the same schedule eagerly over
+gloo.
 """
 from __future__ import annotations
 
 import warnings
+from functools import partial
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -78,12 +86,13 @@ from ..solvers.common import (Coupled, Hyper, SolverConfig, check_loop,
                               coupled_mm, run_solver_loop)
 from ..solvers.mu import mu_ratio_update
 from ..solvers.newton import (Term, _transposed, _with_transposes,
-                              fused_newton_u_allowed, fused_sigmoid_allowed,
-                              fused_sigmoid_update, newton_update_factor,
-                              shared_gauss_hinv)
+                              check_device_loop, fused_newton_u_allowed,
+                              fused_sigmoid_allowed, fused_sigmoid_update,
+                              newton_update_factor, shared_gauss_hinv)
 from ..solvers.newton_chunked import chunked_sigmoid_row_update
 from ..utils.validation import DENSIFY_THRESHOLD, as_coupled, check_fp8_range
-from .mesh import Mesh, all_reduce, gather_rows, make_mesh
+from .mesh import (Mesh, all_ranks, all_reduce, captures, gather_rows,
+                   group_key, make_mesh)
 
 
 class RowOperands(NamedTuple):
@@ -911,7 +920,10 @@ def newton_cols_iter(cfg: SolverConfig, ops: ColOperands, U, V, Z,
 def make_block(cfg: SolverConfig, solver: str, mesh, aux, *, mu_iter,
                newton_iter, loss, aux_loss):
     """(block, initial loss) for run_solver_loop over a sharded layout's
-    state (ops, U, V, Z): a block runs n_steps iterations (``mu_iter`` or
+    state (ops, None, U, V, Z), the solvers' (X, Y, U, V, Z) with the
+    layout's operands in X's place, so the host and device loops take it
+    as they take a single device's (the reference's ``core(ops, None, U,
+    V, Z, …)``): a block runs n_steps iterations (``mu_iter`` or
     ``newton_iter``, the latter given the loop's rng, a sampled fit's
     :class:`Draws`), then the eval loss (``aux_loss(cfg, mesh, aux)`` where
     ``aux`` names one, else ``loss``). Each layout passes its own functions
@@ -921,11 +933,11 @@ def make_block(cfg: SolverConfig, solver: str, mesh, aux, *, mu_iter,
     aux_fn = aux_loss(cfg, mesh, aux) if aux is not None else None
 
     def loss_fn(state, hyper: Hyper):
-        ops, U, V, Z = state
+        ops, _, U, V, Z = state
         return loss(cfg, ops, U, V, Z, hyper, mesh)
 
     def block(state, hyper: Hyper, rng, n_steps: int):
-        ops, U, V, Z = state
+        ops, _, U, V, Z = state
         a = None
         for _ in range(n_steps):
             if solver == "mu":
@@ -933,27 +945,29 @@ def make_block(cfg: SolverConfig, solver: str, mesh, aux, *, mu_iter,
             else:
                 U, V, Z, a = newton_iter(cfg, ops, U, V, Z, hyper, mesh,
                                          with_aux=aux, draws=rng)
-        state = (ops, U, V, Z)
+        state = (ops, None, U, V, Z)
         if aux is None:
             return state, loss_fn(state, hyper), rng
-        return state, aux_fn(state, a, hyper), rng
+        return state, aux_fn((ops, U, V, Z), a, hyper), rng
 
     return block, loss_fn
 
 
-def check_shardable(*, layout: str = "rows", loop: str = "host") -> None:
-    """Raise ValueError for an unknown layout, and NotImplementedError,
-    naming its ROADMAP item, for the sharded request this port does not
-    run yet (the same in the rows, cols and grid layouts): the device
-    loop."""
+def check_shardable(*, layout: str = "rows", loop: str = "host",
+                    mesh: Optional[Mesh] = None) -> None:
+    """Raise ValueError for an unknown layout and, given the fit's
+    ``mesh``, for loop='device' on CUDA tensors over a group whose
+    collectives a CUDA graph cannot capture (gloo: ``mesh.captures``)."""
     if layout not in ("rows", "cols", "grid"):
         raise ValueError(
             f"layout must be 'rows', 'cols' or 'grid', got {layout!r}")
-    if loop == "device":
-        raise NotImplementedError(
-            "not ported yet under n_shards > 1 (ROADMAP A10c): "
-            "loop='device' (the device loop under shards: NCCL collectives "
-            "inside the fit's CUDA graphs)")
+    if (loop == "device" and mesh is not None and mesh.device.type == "cuda"
+            and not captures(mesh.device, mesh.group)):
+        raise ValueError(
+            "loop='device' under n_shards > 1 captures each block's "
+            "collectives into CUDA graphs, which needs an NCCL process "
+            "group: a gloo all-reduce of CUDA tensors goes through the host "
+            "and cannot be captured; use loop='host' (or 'auto') over gloo")
 
 
 def factor(A, device, dtype) -> torch.Tensor:
@@ -1028,15 +1042,21 @@ def run_sharded(solver: str, X, Y, U0, V0, Z0, cfg: SolverConfig,
     streams (:class:`Draws`): under 'rows' U's term and V's X term draw
     from the rank's own stream and Z's term and V's Y term from the one
     every rank shares, under 'cols' every term from the rank's own, as the
-    reference folds its keys. Reference:
-    ``pycmf_tpu/parallel/sharded.py:run_sharded``, layouts 'rows' and
-    'cols', loop 'host' (the grid layout: ``parallel/grid.py:run_grid``)."""
+    reference folds its keys.
+
+    loop: 'host' or 'device' (the device loop on every rank: see the module
+    docstring; on CUDA tensors over an NCCL group only, ValueError
+    otherwise). Reference: ``pycmf_tpu/parallel/sharded.py:run_sharded``,
+    layouts 'rows' and 'cols' (the grid layout:
+    ``parallel/grid.py:run_grid``)."""
     check_loop(loop)
-    check_shardable(layout=layout, loop=loop)
     if layout not in ("rows", "cols"):
         raise ValueError(f"layout must be 'rows' or 'cols' (the grid "
                          f"layout is run_grid's), got {layout!r}")
     mesh = make_mesh(n_shards, group, device)
+    check_shardable(layout=layout, loop=loop, mesh=mesh)
+    if solver == "newton":
+        check_device_loop(cfg, mesh.device.type == "cuda", loop)
     ddt = dtype if data_dtype is None else data_dtype
     n, m = X.shape
     d, dev = mesh.world, mesh.device
@@ -1070,10 +1090,12 @@ def run_sharded(solver: str, X, Y, U0, V0, Z0, cfg: SolverConfig,
     draws = (make_draws(seed, dev, own=(0, mesh.rank))
              if solver == "newton" and cfg.sg_sample_ratio < 1.0 else None)
     state, n_iter, losses, iters, times = run_solver_loop(
-        block, (ops, U, V, Z), hyper, draws, max_iter=max_iter, tol=tol,
-        eval_every=eval_every, verbose=verbose if mesh.rank == 0 else 0,
-        initial_loss_fn=loss_fn)
-    _, U, V, Z = state
+        block, (ops, None, U, V, Z), hyper, draws, max_iter=max_iter,
+        tol=tol, eval_every=eval_every,
+        verbose=verbose if mesh.rank == 0 else 0, initial_loss_fn=loss_fn,
+        loop=loop, key=(layout, solver, cfg, aux, group_key(mesh)),
+        agree=partial(all_ranks, mesh))
+    _, _, U, V, Z = state
     if layout == "rows":
         U = gather_rows(mesh, U, n)
     else:

@@ -14,6 +14,12 @@ graph: the eval block inside a conditional while node, the stop rule
 evaluated on the device. That reuse is what jit's cache gives the
 reference's compiled loop (:func:`run_device_fit`). On the CPU the device
 loop runs the same schedule eagerly.
+
+A sharded fit runs the same loop on every rank, its collectives captured
+into each rank's graphs (NCCL; ``parallel/mesh.py``): the ranks agree on
+the branch each fit takes before it starts, so that none captures while
+another runs a block eagerly, and the stop rule reads a loss that is
+all-reduced, so every rank runs the same blocks.
 """
 from __future__ import annotations
 
@@ -31,6 +37,7 @@ from ..ops.kernels import fit_loop as kfit
 from ..ops.kernels import policy
 from ..ops.links import LINEAR, check_link
 from ..ops.sparse import generic_matmul, is_sparse
+from ..parallel.mesh import COMM
 
 
 @dataclasses.dataclass(frozen=True)
@@ -178,10 +185,14 @@ class CudaBlockGraph:
         draw from ``generators`` (torch.Generators on this device). They
         are registered with the graph first: each replay then draws at
         the generator's offset and advances it, as the same calls made
-        eagerly would, and the capture itself advances none."""
+        eagerly would, and the capture itself advances none. The capture
+        checks this thread's CUDA calls only ('thread_local'): another
+        thread's, such as the NCCL watchdog's event queries, cannot
+        invalidate it."""
         for g in generators:
             self.graph.register_generator_state(g)
-        with torch.cuda.graph(self.graph, pool=self.pool, stream=self.stream):
+        with torch.cuda.graph(self.graph, pool=self.pool, stream=self.stream,
+                              capture_error_mode="thread_local"):
             fn()
         if generators and self.keep:
             self.graph.instantiate()
@@ -200,9 +211,11 @@ class CudaBlockGraph:
 class EagerBlockGraph:
     """CudaBlockGraph's stand-in for CPU tensors, with its contract:
     capture passes through fn once, as a capture does (the kernel wrappers
-    count what it records), and leaves ``outputs`` and ``generators`` as
-    they were (a capture runs nothing and draws nothing); replay runs fn
-    again with the wrappers' counts hidden (a replay passes through no
+    and ``mesh.all_reduce`` count what it records), and leaves ``outputs``
+    and ``generators`` as they were (a capture runs nothing and draws
+    nothing; a sharded block's collectives do run, on every rank, since
+    the ranks take the same branch); replay runs fn again with the
+    wrappers' and collectives' counts hidden (a replay passes through no
     wrapper) and draws anew. Every block thus runs eagerly, and a capture's
     pass costs one block more."""
 
@@ -217,9 +230,10 @@ class EagerBlockGraph:
         self._fn = fn
 
     def replay(self):
-        counts = policy.launch_counts()
+        counts, comm = policy.launch_counts(), COMM.counts()
         self._fn()
         policy.set_launch_counts(counts)
+        COMM.set_counts(comm)
 
     def close(self):
         self._fn = None
@@ -233,26 +247,64 @@ def block_graph(U: torch.Tensor, pool=None, keep=False):
     return EagerBlockGraph()
 
 
-def _capture_block(graph, block_fn, state, hyper, gen, n_steps: int,
+def generators(rng) -> tuple:
+    """The torch.Generators a fit's ``rng`` holds: itself, each field of
+    a tuple of them (a sharded fit's ``Draws``), or none."""
+    if isinstance(rng, torch.Generator):
+        return (rng,)
+    if isinstance(rng, tuple):
+        return tuple(g for g in rng if isinstance(g, torch.Generator))
+    return ()
+
+
+def _copy_rng(rng, device):
+    """``rng`` (a torch.Generator or a tuple of them) with each generator
+    replaced by a new one on ``device`` at its state."""
+    def copy(g):
+        c = torch.Generator(device=device)
+        c.set_state(g.get_state())
+        return c
+    if isinstance(rng, torch.Generator):
+        return copy(rng)
+    vals = [copy(g) for g in rng]
+    return type(rng)(*vals) if hasattr(rng, "_fields") else tuple(vals)
+
+
+class Recorded(NamedTuple):
+    """What one run of a captured block does that its replay cannot count
+    itself, recorded at the capture: each kernel's launches (the wrappers'
+    counts) and its collectives (``mesh.COMM``: calls, bytes, by axis)."""
+
+    launches: Dict[str, int]
+    comm: tuple
+
+    def add(self, times: int = 1) -> None:
+        """Count ``times`` replays."""
+        policy.add_launches({k: n * times for k, n in self.launches.items()})
+        COMM.add(self.comm, times)
+
+
+def _capture_block(graph, block_fn, state, hyper, rng, n_steps: int,
                   statics, loss):
     """Capture one block of ``n_steps`` from ``state`` (X, Y and the static
     U, V, Z), writing U, V, Z back into ``statics`` and the loss (float64)
-    into the 0-d ``loss``. ``gen``, the block's torch.Generator or None, is
-    registered with the graph (each replay draws anew). Returns the
-    launches one replay makes."""
+    into the 0-d ``loss``. ``rng``, the block's torch.Generator, a tuple of
+    them or None, is handed to the block and each generator registered
+    with the graph (each replay draws anew). Returns what one replay does
+    (:class:`Recorded`); the capture itself is counted as nothing."""
 
     def body():
-        out, block_loss, _ = block_fn(state, hyper, gen, n_steps)
+        out, block_loss, _ = block_fn(state, hyper, rng, n_steps)
         for dst, src in zip(statics, out[2:]):
             dst.copy_(src)
         loss.copy_(block_loss)
 
-    before = policy.launch_counts()
-    graph.capture(body, list(statics) + [loss],
-                  (gen,) if gen is not None else ())
-    launches = policy.launches_since(before)
+    before, comm = policy.launch_counts(), COMM.counts()
+    graph.capture(body, list(statics) + [loss], generators(rng))
+    rec = Recorded(policy.launches_since(before), COMM.since(comm))
     policy.set_launch_counts(before)  # a capture launches nothing
-    return launches
+    COMM.set_counts(comm)
+    return rec
 
 
 def _as_loss(loss_t, device) -> torch.Tensor:
@@ -412,8 +464,11 @@ class FitEntry:
     static factors U, V, Z, the loop's control and loss buffers), the
     captured blocks and, for a full-batch fit, the fit graph (on the card
     ``ops/kernels/fit_loop.FitGraph``, on the CPU its stand-in). A sampled
-    fit keeps the eval block alone and its own generator, registered with
-    the graph, into which each fit loads its generator's state.
+    fit keeps the eval block alone and its own generators, registered with
+    the graph, into which each fit loads its generators' states. So does a
+    fit whose captured block holds a node type a conditional body refuses
+    (``fit_loop.refused_node``; ``refused`` names it): the rule is read off
+    the captured graph, the same on every rank of a sharded fit.
 
     Built from a fit's initial ``state`` (X, Y, U, V, Z): the captures read
     the copies. ``nbytes``: the buffers' bytes (the graph pool's apart)."""
@@ -438,18 +493,21 @@ class FitEntry:
         self.loss = torch.zeros((), dtype=torch.float64, device=dev)
         self.rem_loss = torch.zeros((), dtype=torch.float64, device=dev)
         self.hist = None
-        self.gen = None
-        if isinstance(rng, torch.Generator):
-            self.gen = torch.Generator(device=dev)
-            self.gen.set_state(rng.get_state())
-        self.block, self.block_launches = self._capture(
+        self.rng = _copy_rng(rng, dev) if generators(rng) else None
+        self.block, self.block_rec = self._capture(
             block_fn, hyper, eval_every, self.loss, None)
-        self.rem, self.rem_launches = None, {}
-        if rem and self.gen is None:
-            self.rem, self.rem_launches = self._capture(
+        self.rem, self.rem_rec = None, None
+        sampled = self.rng is not None
+        if rem and not sampled:
+            self.rem, self.rem_rec = self._capture(
                 block_fn, hyper, rem, self.rem_loss, self.block)
+        self.refused = None
+        for g in (self.block, self.rem) if self.card and not sampled else ():
+            bad = kfit.refused_node(g.raw(), dev.index)[1] if g else None
+            if bad is not None and self.refused is None:
+                self.refused = kfit.NODE_TYPES.get(bad, str(bad))
         self.fit = None
-        if self.gen is None:
+        if not sampled and self.refused is None:
             self.fit = (kfit.FitGraph(
                 self.block.raw(), self.rem.raw() if self.rem else 0,
                 self.ctl, self.fctl, self.loss, self.rem_loss)
@@ -461,10 +519,10 @@ class FitEntry:
         graph = block_graph(self.statics[0],
                             share.graph.pool() if self.card and share
                             else None, keep=True)
-        launches = _capture_block(graph, block_fn,
-                                 (self.X, self.Y, *self.statics), hyper,
-                                 self.gen, n_steps, self.statics, loss_buf)
-        return graph, launches
+        rec = _capture_block(graph, block_fn,
+                             (self.X, self.Y, *self.statics), hyper,
+                             self.rng, n_steps, self.statics, loss_buf)
+        return graph, rec
 
     @property
     def nodes(self) -> int:
@@ -488,39 +546,48 @@ class FitEntry:
 
     def run(self, block_fn, hyper, rng, *, n_full: int, rem: int, info):
         """Run a fit from block 0 on the entry's buffers; returns U, V, Z.
-        A full-batch fit is one launch of the fit graph. A sampled fit
-        replays the eval block per block (_run_blocks) from the fit's
-        generator state and runs its remainder eagerly, leaving ``rng``
-        where the host loop leaves it."""
-        if self.gen is None:
+        A full-batch fit is one launch of the fit graph. Otherwise (a
+        sampled fit, or a refused node) the eval block is replayed per
+        block (_run_blocks) from the fit's generator states, and the
+        remainder replayed (full batch) or run eagerly (sampled), leaving
+        ``rng`` where the host loop leaves it."""
+        if self.fit is not None:
             self.fit.launch()
             info["graph_launches"] = 1
             return self.statics
 
         def replay(j):
             self.block.replay()
-            policy.add_launches(self.block_launches)
+            self.block_rec.add()
             info["replays"] += 1
             return self.loss
 
-        self.gen.set_state(rng.get_state())
+        ours, theirs = generators(self.rng), generators(rng)
+        for g, src in zip(ours, theirs):
+            g.set_state(src.get_state())
         stopped = _run_blocks(replay, self.ctl, self.fctl, self.hist, n_full)
-        rng.set_state(self.gen.get_state())
+        for g, dst in zip(ours, theirs):
+            dst.set_state(g.get_state())
         state = (self.X, self.Y, *self.statics)
-        if rem and not stopped:
+        if rem and not stopped and self.rem is not None:
+            self.rem.replay()
+            self.rem_rec.add()
+            info["replays"] += 1
+            kfit.stop_rule(self.ctl, self.fctl, self.hist, self.rem_loss,
+                           kfit.REMAINDER)
+        elif rem and not stopped:
             state, loss_t, _ = block_fn(state, hyper, rng, rem)
             kfit.stop_rule(self.ctl, self.fctl, self.hist,
                            _as_loss(loss_t, self.ctl.device), kfit.REMAINDER)
         return state[2:]
 
     def count_launches(self, blocks: int, rem_ran: bool) -> None:
-        """Add what the fit graph ran to the launch counts: a graph passes
-        through no wrapper (fit_loop's rule nodes are FitGraph's to
-        count)."""
-        policy.add_launches({k: n * blocks
-                             for k, n in self.block_launches.items()})
+        """Add what the fit graph ran to the launch and collective counts:
+        a graph passes through no wrapper (fit_loop's rule nodes are
+        FitGraph's to count)."""
+        self.block_rec.add(blocks)
         if rem_ran:
-            policy.add_launches(self.rem_launches)
+            self.rem_rec.add()
         self.fit.ran(blocks, rem_ran)
 
     def close(self) -> None:
@@ -530,6 +597,7 @@ class FitEntry:
                 g.close()
         self.fit = self.block = self.rem = None
         self.X = self.Y = self.data = self.statics = self.hist = None
+        self.rng = None
 
 
 def fit_key(key, state, hyper, eval_every: int, rem: int,
@@ -606,26 +674,27 @@ def _first_fit(block_fn, state, hyper, rng, ctl, fctl, hist, *,
     cur = {"state": state, "rng": rng}
     graph = block_graph(state[2])
     loss = torch.zeros((), dtype=torch.float64, device=ctl.device)
-    launches = None
+    rec = None
 
     def run_block(j):
-        nonlocal launches
+        nonlocal rec
         if j == 0:
             cur["state"], loss_t, cur["rng"] = block_fn(
                 cur["state"], hyper, cur["rng"], eval_every)
             info["eager_blocks"] += 1
             return _as_loss(loss_t, ctl.device)
-        if launches is None:
+        if rec is None:
             s = cur["state"]
             statics = [t.clone() for t in s[2:]]
-            gen = cur["rng"] if isinstance(cur["rng"], torch.Generator) \
-                else None
-            launches = _capture_block(graph, block_fn, (*s[:2], *statics),
-                                     hyper, gen, eval_every, statics, loss)
+            rng_b = cur["rng"] if generators(cur["rng"]) else None
+            rec = _capture_block(graph, block_fn, (*s[:2], *statics),
+                                 hyper, rng_b, eval_every, statics, loss)
             cur["state"] = (*s[:2], *statics)
             info["captures"] += 1
+            if "collectives" in info:
+                info["collectives"] = rec.comm[0]
         graph.replay()
-        policy.add_launches(launches)
+        rec.add()
         info["replays"] += 1
         return loss
 
@@ -639,7 +708,8 @@ def _first_fit(block_fn, state, hyper, rng, ctl, fctl, hist, *,
 
 
 def run_device_fit(block_fn, state, hyper, rng, *, max_iter: int, tol: float,
-                   eval_every: int, initial_loss_fn, key=()) -> tuple:
+                   eval_every: int, initial_loss_fn, key=(),
+                   agree=None) -> tuple:
     """The device loop, counterpart of the reference's ``device_fit_core``
     with jit's cache, keyed on :func:`fit_key`.
 
@@ -655,23 +725,37 @@ def run_device_fit(block_fn, state, hyper, rng, *, max_iter: int, tol: float,
     block. Every fit ends in one readback of the iteration count and the
     loss history; the results are never the entry's buffers; a non-finite
     loss raises FloatingPointError after the readback, and ``step_times``
-    are the wall time amortized over the blocks (amortize_step_times)."""
+    are the wall time amortized over the blocks (amortize_step_times).
+
+    A sharded fit passes ``agree`` (``mesh.all_ranks`` over its mesh):
+    whether the cache holds the key, whether the key was seen last and
+    whether the copy fits the limit are each taken as true only where they
+    hold on every rank, so every rank takes the same branch even where
+    their caches, limits or layouts' bytes differ. Its record (LAST_FIT)
+    adds ``collectives``: the all-reduces one captured eval block makes
+    (0 when the fit captured none). A fit whose cached block holds a node
+    type a conditional body refuses runs the eval block per block and
+    names the type under ``refused``."""
     if initial_loss_fn is None:
         raise ValueError("the device loop needs initial_loss_fn (L0)")
     eval_every = max(1, min(eval_every, max_iter))
     n_full, rem = divmod(max_iter, eval_every)
     X, Y, U = state[0], state[1], state[2]
     full_key = fit_key(key, state, hyper, eval_every, rem,
-                       isinstance(rng, torch.Generator))
+                       bool(generators(rng)))
     entry = _CACHE["entry"]
-    hit = entry is not None and entry.key == full_key
+    limit = fit_cache_limit(U.device)
+    flags = [entry is not None and entry.key == full_key,
+             _CACHE["seen"] == full_key,
+             limit is None or _nbytes(
+                 [t for t, s in _leaves((X, Y)) if not s] + list(state[2:]))
+             <= limit]
+    hit, seen, fits = agree(flags) if agree is not None else flags
+    build = not hit and seen and fits
     info = dict(hit=hit, eager_blocks=0, captures=0, graph_launches=0,
                 replays=0)
-    limit = fit_cache_limit(U.device)
-    build = not hit and _CACHE["seen"] == full_key and (
-        limit is None or _nbytes(
-            [t for t, s in _leaves((X, Y)) if not s] + list(state[2:]))
-        <= limit)
+    if agree is not None:
+        info["collectives"] = 0
     _CACHE["seen"] = full_key
     with fit_stream(U.device) as caller:
         t0 = time.perf_counter()
@@ -687,6 +771,10 @@ def run_device_fit(block_fn, state, hyper, rng, *, max_iter: int, tol: float,
                 info["captures"] = 1 + (entry.rem is not None)
             else:
                 entry.load(state)
+            if agree is not None:
+                info["collectives"] = entry.block_rec.comm[0]
+            if entry.refused is not None:
+                info["refused"] = entry.refused
             entry.start(hist, L0, n_full=n_full, tol=tol)
             out = entry.run(block_fn, hyper, rng, n_full=n_full, rem=rem,
                             info=info)
@@ -705,7 +793,7 @@ def run_device_fit(block_fn, state, hyper, rng, *, max_iter: int, tol: float,
         if caller is not None:
             for t in factors:
                 t.record_stream(caller)
-    if entry is not None and (hit or build) and entry.gen is None:
+    if entry is not None and (hit or build) and entry.fit is not None:
         entry.count_launches(i_end, rem_ran)
     LAST_FIT.clear()
     LAST_FIT.update(info)
@@ -719,7 +807,7 @@ def run_device_fit(block_fn, state, hyper, rng, *, max_iter: int, tol: float,
 def run_solver_loop(block_fn, state, hyper, rng, *, max_iter: int, tol: float,
                     eval_every: int, verbose: int = 0,
                     initial_loss_fn=None, loop: str = "host",
-                    key=()) -> tuple:
+                    key=(), agree=None) -> tuple:
     """Loop over blocks of ``eval_every`` iterations with the
     relative-decrease stopping rule
 
@@ -731,13 +819,15 @@ def run_solver_loop(block_fn, state, hyper, rng, *, max_iter: int, tol: float,
     loop 'host' runs every block eagerly and reads each block's loss (one
     sync per block); ``step_times`` holds each block's host clock, so
     ``len(step_times) == len(loss_history) - 1``. loop 'device' is
-    :func:`run_device_fit` (``key``: the solver's part of its cache key).
+    :func:`run_device_fit` (``key``: the solver's part of its cache key;
+    ``agree``: a sharded fit's agreement of its ranks on the branch).
     """
     check_loop(loop)
     if loop == "device":
         return run_device_fit(block_fn, state, hyper, rng, max_iter=max_iter,
                               tol=tol, eval_every=eval_every,
-                              initial_loss_fn=initial_loss_fn, key=key)
+                              initial_loss_fn=initial_loss_fn, key=key,
+                              agree=agree)
     eval_every = max(1, min(eval_every, max_iter))
     loss_history: List[float] = []
     loss_iters: List[int] = []

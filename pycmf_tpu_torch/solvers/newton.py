@@ -739,6 +739,20 @@ def captures_on_card(cfg: SolverConfig) -> bool:
     return not _per_row_systems(cfg) or cfg.use_pallas
 
 
+def check_device_loop(cfg: SolverConfig, on_card: bool, loop: str) -> None:
+    """Raise NotImplementedError for loop='device' on the card
+    (``on_card``) where the Newton step cannot be captured
+    (:func:`captures_on_card`: ROADMAP C3), on one device or under
+    shards."""
+    if on_card and loop == "device" and not captures_on_card(cfg):
+        raise NotImplementedError(
+            "loop='device' cannot capture this Newton fit on the card: its "
+            "per-row systems (a sigmoid link) take a library's batched "
+            "solve (use_pallas=False solves them by torch.linalg.solve_ex), "
+            "which allocates device memory inside the call (ROADMAP C3); "
+            "use loop='host' or 'auto'")
+
+
 def _make_block(cfg: SolverConfig, aux):
     step = make_newton_step(cfg, with_aux=aux)
     loss_fn = _loss_core(cfg)
@@ -773,13 +787,7 @@ def run_newton(X: Coupled, Y, U0, V0, Z0, cfg: SolverConfig, hyper: Hyper,
     its state into the generator registered with its cached graph, so
     each replay draws anew, and leaves it where the host loop does."""
     check_loop(loop)
-    if U0.is_cuda and loop == "device" and not captures_on_card(cfg):
-        raise NotImplementedError(
-            "loop='device' cannot capture this Newton fit on the card: its "
-            "per-row systems (a sigmoid link) take a library's batched "
-            "solve (use_pallas=False solves them by torch.linalg.solve_ex), "
-            "which allocates device memory inside the call (ROADMAP C3); "
-            "use loop='host' or 'auto'")
+    check_device_loop(cfg, U0.is_cuda, loop)
     aux = _aux_kind(cfg, X, U0)
     block = _make_block(cfg, aux)
     X, Y = _with_transposes(cfg, X, Y, V0, Z0)

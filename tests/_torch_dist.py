@@ -23,6 +23,8 @@ def _rank_main(rank, world, store_path, out_dir, fn, args):
     import torch
     import torch.distributed as dist
 
+    from pycmf_tpu_torch.solvers.common import clear_fit_cache
+
     torch.set_num_threads(1)
     store = dist.FileStore(store_path, world)
     dist.init_process_group("gloo", store=store, rank=rank, world_size=world)
@@ -32,6 +34,7 @@ def _rank_main(rank, world, store_path, out_dir, fn, args):
         with open(Path(out_dir) / f"rank{rank}.pkl", "wb") as f:
             pickle.dump(out, f)
     finally:
+        clear_fit_cache()  # a cached device fit's graphs hold the group
         dist.destroy_process_group()
 
 
@@ -102,16 +105,32 @@ class StreamDraws:
     (q, indices) per generator made with that seed, in the order the
     generators are made (a fit's, then a transform's); each call of a
     generator takes its list's next entry and checks its q. The fake holds
-    every generator it saw, so no id is reused."""
+    every generator it saw, so no id is reused.
 
-    def __init__(self, draws):
+    ``by_state``: the n-th draw is read off the generator's state instead
+    (each draw advances it by one value), from the seed's first list, as
+    ``tests/test_torch_sampling.py:RefDraws`` does: the device loop's
+    capture pass restores its generators, and a cached fit draws from
+    copies of them, so only the state says which draw is due."""
+
+    def __init__(self, draws, by_state=False):
         self.draws = draws
+        self.by_state = by_state
         self.seen = {}
         self.made = {}
+        self.pos = {}
 
     def __call__(self, gen, q, s):
         import torch
 
+        if self.by_state:
+            state = bytes(gen.get_state().numpy())
+            n = self.pos.setdefault(state, 0)
+            want_q, idx = self.draws[gen.initial_seed()][0][n]
+            torch.rand(1, generator=gen)
+            self.pos[bytes(gen.get_state().numpy())] = n + 1
+            assert (q, s) == (want_q, len(idx)), (q, s, want_q, len(idx))
+            return torch.from_numpy(np.asarray(idx, dtype=np.int64))
         if id(gen) not in self.seen:
             seed = gen.initial_seed()
             n = self.made.get(seed, 0)
@@ -134,26 +153,32 @@ class Recorded:
         return idx
 
 
-def _case_patches(case):
+def _case_patches(case, rank):
     """The patches a case asks for: 'draws' (StreamDraws keyed by the
-    stream keys of the case's seed), 'record' (Recorded), 'threshold'
-    (the sharded layouts' densify threshold, bytes) and 'chunk_rows' (the
-    chunked layout's rows per chunk; the shapes of the chunked layouts
-    built are then listed in case['_built']). Returns (ExitStack,
-    Recorded or None)."""
+    stream keys of the case's seed; by state with 'draws_by_state'),
+    'record' (Recorded), 'threshold' (the sharded layouts' densify
+    threshold, bytes), 'chunk_rows' (the chunked layout's rows per chunk;
+    the shapes of the chunked layouts built are then listed in
+    case['_built']) and 'no_cache_rank' (on that rank alone the fit cache
+    may copy nothing: ``fit_cache_limit`` 0). Returns (ExitStack, Recorded
+    or None)."""
     from contextlib import ExitStack
     from unittest import mock
 
     from pycmf_tpu_torch.ops import chunked
     from pycmf_tpu_torch.parallel import sharded
-    from pycmf_tpu_torch.solvers import newton
+    from pycmf_tpu_torch.solvers import common, newton
 
     stack, rec = ExitStack(), None
     if "draws" in case:
         seed = case["seed"]
         fake = StreamDraws({sharded.stream_seed(seed, *key): uses
-                            for key, uses in case["draws"].items()})
+                            for key, uses in case["draws"].items()},
+                           by_state=case.get("draws_by_state", False))
         stack.enter_context(mock.patch.object(newton, "draw_columns", fake))
+    if case.get("no_cache_rank") == rank:
+        stack.enter_context(mock.patch.object(common, "fit_cache_limit",
+                                              lambda device: 0))
     if case.get("record"):
         rec = Recorded(newton.draw_columns)
         stack.enter_context(mock.patch.object(newton, "draw_columns", rec))
@@ -178,11 +203,11 @@ def _case_patches(case):
     return stack, rec
 
 
-def _run_layout(case):
-    """run_sharded (or run_grid when the case has 'grid') on the default
-    group, float64 on the CPU: the case's solver, X, Y, init, cfg (a
-    SolverConfig's fields), hyper (make_hyper's arguments) and run
-    keywords."""
+def _run_layout(case, group=None):
+    """run_sharded (or run_grid when the case has 'grid') on ``group``
+    (default: the default group), float64 on the CPU: the case's solver,
+    X, Y, init, cfg (a SolverConfig's fields), hyper (make_hyper's
+    arguments) and run keywords."""
     import torch
 
     from pycmf_tpu_torch.parallel.grid import run_grid
@@ -193,7 +218,7 @@ def _run_layout(case):
     args = (case["solver"], case["X"], case.get("Y"), init["U"], init["V"],
             init.get("Z"), SolverConfig(**case["cfg"]),
             make_hyper(*case.get("hyper", ()), dtype=torch.float64))
-    kw = dict(case["run"], dtype=torch.float64, device="cpu")
+    kw = dict(case["run"], dtype=torch.float64, device="cpu", group=group)
     if "grid" in case:
         out = run_grid(*args, grid=case["grid"], **kw)
     else:
@@ -204,6 +229,47 @@ def _run_layout(case):
             "iters": list(iters)}
 
 
+def _fit_once(kind, case):
+    """One fit of a 'fit' or 'run' case: its result, with what COMM
+    counted in it ('comm': calls, bytes, by axis) and the device loop's
+    record ('info': LAST_FIT, empty on the host loop)."""
+    from pycmf_tpu_torch import CMF
+    from pycmf_tpu_torch.parallel.mesh import COMM
+    from pycmf_tpu_torch.solvers.common import LAST_FIT
+
+    COMM.reset()
+    LAST_FIT.clear()
+    if kind == "run":
+        res = _run_layout(case)
+    else:
+        est = CMF(device="cpu", **case["kw"])
+        est.fit(case["X"], case.get("Y"), **case.get("init", {}))
+        res = _fitted(est)
+        if case.get("Xn") is not None:
+            res["transform"] = est.transform(case["Xn"], U=case.get("Un"))
+    res["comm"] = (COMM.calls, COMM.nbytes,
+                   {a: list(v) for a, v in COMM.by_axis.items()})
+    res["info"] = dict(LAST_FIT)
+    return res
+
+
+def _new_group_fit(case):
+    """The case's run on a new group of every rank, its cache entry freed
+    and the group destroyed after: (result, LAST_FIT)."""
+    import torch.distributed as dist
+
+    from pycmf_tpu_torch.solvers.common import LAST_FIT, clear_fit_cache
+
+    group = dist.new_group(list(range(dist.get_world_size())))
+    try:
+        LAST_FIT.clear()
+        res = _run_layout(case, group=group)
+        return res, dict(LAST_FIT)
+    finally:
+        clear_fit_cache()
+        dist.destroy_process_group(group)
+
+
 def run_cases(rank, cases):
     """Each case on this rank, in order; {name: result}. A case is a dict:
 
@@ -212,10 +278,18 @@ def run_cases(rank, cases):
         'draws' (and 'seed') the reference's column draws are injected,
         'rank_draws' giving each rank its own ({rank: draws}); with
         'record' the result has each draw ('draws': (seed, indices));
-        'threshold' and 'chunk_rows' patch the densify threshold and the
-        chunk rows (see _case_patches);
+        'threshold', 'chunk_rows' and 'no_cache_rank' patch the densify
+        threshold, the chunk rows and one rank's fit cache limit (see
+        _case_patches); the result holds the fit's COMM counts ('comm')
+        and device-loop record ('info'); with 'repeat' n the fit runs n
+        times from an emptied fit cache (the device loop's first fit of
+        its key, the fit that builds the cache entry, hits), the result
+        the first's with every fit's result under 'fits';
     kind 'run': run_sharded or run_grid called directly (_run_layout),
-        with the same patches;
+        with the same patches and 'repeat', and with 'new_group' one more
+        run on a new group of every rank ('new_group': its result and
+        LAST_FIT), after which the cache is emptied and the group
+        destroyed;
     kind 'raises': that fit, which must raise: (type name, message);
     kind 'sigmoid': fused_sigmoid_update on this rank's columns of X
         (rank r of d takes columns [r·q/d, (r+1)·q/d)) with the group;
@@ -227,6 +301,7 @@ def run_cases(rank, cases):
         shape with what COMM counted per axis.
     """
     from pycmf_tpu_torch import CMF
+    from pycmf_tpu_torch.solvers.common import clear_fit_cache
 
     out = {}
     for name, case in cases.items():
@@ -235,17 +310,18 @@ def run_cases(rank, cases):
         if "rank_draws" in case:
             case["draws"] = case["rank_draws"][rank]
         if kind in ("fit", "run"):
-            stack, rec = _case_patches(case)
+            stack, rec = _case_patches(case, rank)
             with stack:
-                if kind == "run":
-                    res = _run_layout(case)
+                if "repeat" in case:
+                    clear_fit_cache()
+                    fits = [_fit_once(kind, case)
+                            for _ in range(case["repeat"])]
+                    res = dict(fits[0], fits=fits)
+                    if case.get("new_group"):
+                        res["new_group"] = _new_group_fit(case)
+                    clear_fit_cache()
                 else:
-                    est = CMF(device="cpu", **case["kw"])
-                    est.fit(case["X"], case.get("Y"), **case.get("init", {}))
-                    res = _fitted(est)
-                    if case.get("Xn") is not None:
-                        res["transform"] = est.transform(case["Xn"],
-                                                         U=case.get("Un"))
+                    res = _fit_once(kind, case)
             if rec is not None:
                 res["draws"] = rec.calls
             if "_built" in case:

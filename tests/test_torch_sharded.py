@@ -12,6 +12,12 @@ padding row on the last shard for d = 2 and 3 for d = 4.
 Tolerances: float64 rtol 1e-9 on factors (atol 1e-12), loss histories and
 transforms, and equal n_iter_ (the reference's own sharded-vs-single bar,
 MULTICHIP_r05.json); every rank's result equal bit for bit.
+
+The device loop under shards (``loop='device'``) runs in the two-rank
+spawn: each case's fits from an emptied fit cache (the key's first fit,
+the fit that builds the cache entry, a hit) against the reference's
+``loop='device'`` fit of the same request and, bit for bit, against the
+port's own host loop, with the same COMM counts.
 """
 import subprocess
 import sys
@@ -157,6 +163,51 @@ NOW_FIT = {
 }
 REQUEST_X = {"chunked": "Xs"}   # else X
 
+# the device loop under shards in the two-rank spawn: name: (estimator
+# kwargs, X, Y); each fits from DATA["init"] three times from an emptied
+# fit cache (first fit, build, hit), beside its host-loop twin; the sampled
+# case with the reference's draws injected by generator state
+DEVICE = {
+    "device_mu": (dict(BASE, solver="mu", max_iter=13, eval_every=3),
+                  "X", "Y"),
+    "device_sampled": (dict(BASE, solver="newton", y_link="sigmoid",
+                            sg_sample_ratio=0.5, max_iter=7, eval_every=2,
+                            tol=0.0), "X", "Yb"),
+}
+# run_sharded's own loop='device' on device_mu's request (two runs: first
+# fit, build), then a run on a new group of the same ranks, which must not
+# find the cache entry
+RUN_DEVICE = dict(solver="mu", cfg=dict(use_pallas=True),
+                  run=dict(n_shards=2, loop="device", max_iter=13, tol=1e-7,
+                           eval_every=3))
+
+
+def _device_case(name, loop="device"):
+    kw, x, y = DEVICE[name]
+    case = dict(kind="fit", kw=dict(kw, n_shards=2, loop=loop), X=DATA[x],
+                Y=DATA[y], init=DATA["init"], repeat=3)
+    if kw["solver"] == "newton":
+        case.update(seed=0, draws_by_state=True, rank_draws=rank_draws(
+            "rows", (2,), seed=0, n_iter=kw["max_iter"], n=61, m=40,
+            ry=DATA[y].shape[1], ratio=0.5))
+    return case
+
+
+def _device_cases():
+    cases = {}
+    for name in DEVICE:
+        cases[name] = _device_case(name)
+        cases[name + "_host"] = _device_case(name, "host")
+    # fit_cache_limit 0 on rank 1 alone: its second fit may not build, so
+    # neither rank does
+    cases["device_mu_no_cache_rank1"] = dict(_device_case("device_mu"),
+                                             repeat=2, no_cache_rank=1)
+    init = DATA["init"]
+    cases["run_device"] = dict(kind="run", X=DATA["X"], Y=DATA["Y"],
+                               init=init, repeat=2, new_group=True,
+                               **RUN_DEVICE)
+    return cases
+
 
 def _request_case(name):
     X = DATA[REQUEST_X.get(name, "X")]
@@ -186,6 +237,7 @@ def _port_cases(d):
         cases.update(FORMS)
         for name in NOW_FIT:
             cases["request_" + name] = _request_case(name)
+        cases.update(_device_cases())
     return cases
 
 
@@ -252,6 +304,9 @@ def sharded(request, tmp_path_factory):
             for name, kw in NOW_FIT.items():
                 ref["request_" + name] = JCMF(**REQUEST, **kw).fit(
                     DATA[REQUEST_X.get(name, "X")], DATA["Y"])
+            for name, (kw, x, y) in DEVICE.items():
+                ref[name] = JCMF(n_shards=2, loop="device", **kw).fit(
+                    DATA[x], DATA[y], **DATA["init"])
     finally:
         ports = ranks.join()
     return d, ref, ports
@@ -411,25 +466,29 @@ def test_group_of_the_wrong_size_raises(tmp_path):
     (None, "grid"),
     (None, "grid_tuple"),
     (dict(n_shards=(2, 1)), (ValueError, "requires shard_layout='grid'")),
-    (dict(n_shards=2, loop="device"), (NotImplementedError, "ROADMAP A10c")),
+    (None, "device_loop"),
     (None, "sampled"),
     (None, "chunked"),
     (None, "fp8"),
 ], ids=["grid", "grid_tuple", "tuple", "device_loop", "sampled",
         "chunked", "fp8"])
 def test_unported_shard_requests_raise_naming_their_item(sharded, kw, want):
-    """What is still refused raises naming its item (the device loop; a
-    tuple under the rows layout: the reference's ValueError); the grid
-    layout (an int n_shards or a tuple), sampled Newton (the reference's
-    draws injected), the chunked layout (a sparse X) and fp8 data now fit
-    in the two ranks, as the reference's fits of the same request do (f64
-    rtol 1e-9; fp8: the objective within 1e-4, test_torch_fp8.py's bar)."""
+    """What is still refused raises (a tuple under the rows layout: the
+    reference's ValueError); the grid layout (an int n_shards or a
+    tuple), sampled Newton (the reference's draws injected), the chunked
+    layout (a sparse X), fp8 data and the device loop (loop='device',
+    which earlier slices refused naming ROADMAP A10c) now fit in the two
+    ranks, as the reference's fits of the same request do (f64 rtol 1e-9;
+    fp8: the objective within 1e-4, test_torch_fp8.py's bar)."""
     if isinstance(want, tuple):
         error, match = want
         with pytest.raises(error, match=match):
             _est(**kw).fit(DATA["X"], DATA["Y"])
         return
     d, ref, ports = sharded
+    if want == "device_loop":
+        _assert_fit(ports[0]["device_mu"], ref["device_mu"])
+        return
     got, ref = ports[0]["request_" + want], ref["request_" + want]
     if want != "fp8":
         _assert_fit(got, ref)
@@ -446,14 +505,97 @@ def test_malformed_n_shards_raise_value_error(n_shards):
 
 @pytest.mark.parametrize("kw,error,match", [
     # the grid layout is run_grid's (parallel/grid.py), not run_sharded's
-    (dict(layout="grid"), ValueError, "layout must be 'rows' or 'cols'"),
-    (dict(loop="device"), NotImplementedError, "ROADMAP A10c")])
+    (dict(layout="grid"), ValueError, "layout must be 'rows' or 'cols'")])
 def test_run_sharded_refuses_unported_layouts_and_loops(kw, error, match):
     cfg = SolverConfig(use_pallas=True)
     with pytest.raises(error, match=match):
         run_sharded("mu", DATA["X"], DATA["Y"], DATA["init"]["U"],
                     DATA["init"]["V"], DATA["init"]["Z"], cfg,
                     t_make_hyper(), n_shards=2, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("sharded", [2], indirect=True, ids=["d2"])
+def test_run_sharded_device_loop_matches_reference(sharded):
+    """run_sharded(loop='device'), which earlier slices refused naming
+    ROADMAP A10c, in two ranks: its first fit and the fit that builds the
+    cache entry equal the reference's CMF(loop='device', n_shards=2) fit
+    of the same request (device_mu's; f64 rtol 1e-9) and each other bit
+    for bit; a run
+    on a new group of the same ranks finds no cache entry (the key names
+    the group) and runs the key's first-fit schedule to the same result."""
+    d, ref, ports = sharded
+    want = ref["device_mu"]   # the same request through the estimator
+    for port in ports:
+        got = port["run_device"]
+        first, build = got["fits"]
+        assert not first["info"]["hit"] and first["info"]["eager_blocks"] == 1
+        assert build["info"]["graph_launches"] == 1
+        _assert_fit(first, want)
+        _assert_bits(build, first)
+        again, info = got["new_group"]
+        assert not info["hit"] and info["eager_blocks"] == 1, info
+        _assert_bits(again, first)
+
+
+def _assert_bits(got, want):
+    assert got["n_iter"] == want["n_iter"]
+    assert got["losses"] == want["losses"]
+    assert got["iters"] == want["iters"]
+    for name in ("U", "V", "Z"):
+        np.testing.assert_array_equal(got[name], want[name])
+
+
+@pytest.mark.parametrize("sharded", [2], indirect=True, ids=["d2"])
+@pytest.mark.parametrize("case", list(DEVICE))
+def test_device_loop_under_shards_matches_reference_and_host_loop(sharded,
+                                                                  case):
+    """loop='device' over two ranks (rows): the key's first fit, the fit
+    that builds the cache entry and a hit each equal the reference's
+    loop='device' sharded fit (f64 rtol 1e-9, equal n_iter_) and, bit for
+    bit, the port's host-loop fit, with the same COMM calls and bytes; the
+    ranks take the same branch in every fit and end with the same
+    factors. The sampled case draws the reference's columns, read off
+    each generator's state, so every replay draws what the host loop
+    draws."""
+    d, ref, ports = sharded
+    for port in ports:
+        host = port[case + "_host"]
+        fits = port[case]["fits"]
+        _assert_fit(fits[0], ref[case])
+        for f in fits:
+            _assert_bits(f, host)
+            assert f["comm"][:2] == host["comm"][:2], (f["comm"],
+                                                       host["comm"])
+        first, build, hit = (f["info"] for f in fits)
+        assert not first["hit"] and first["eager_blocks"] == 1
+        assert first["captures"] == 1 and not build["hit"]
+        assert hit["hit"] and hit["captures"] == 0 and \
+            hit["eager_blocks"] == 0
+        sampled = "sampled" in case
+        assert (hit["graph_launches"], hit["replays"] > 0) == (
+            (0, True) if sampled else (1, False))
+    for other in ports[1:]:
+        assert [f["info"] for f in other[case]["fits"]] == [
+            f["info"] for f in ports[0][case]["fits"]]
+        _assert_bits(other[case], ports[0][case])
+
+
+@pytest.mark.parametrize("sharded", [2], indirect=True, ids=["d2"])
+def test_ranks_agree_on_the_cache_branch(sharded):
+    """fit_cache_limit 0 on rank 1 alone: rank 0 could build the cache
+    entry on the key's second fit, but the ranks agree on each branch, so
+    both run the first-fit schedule twice (LAST_FIT equal on every rank)
+    and the results are those of the unpatched fits, bit for bit."""
+    d, _, ports = sharded
+    infos = [[f["info"] for f in p["device_mu_no_cache_rank1"]["fits"]]
+             for p in ports]
+    assert infos[0] == infos[1]
+    for info in infos[0]:
+        assert not info["hit"] and info["eager_blocks"] == 1 \
+            and info["graph_launches"] == 0, info
+    for port in ports:
+        for f in port["device_mu_no_cache_rank1"]["fits"]:
+            _assert_bits(f, port["device_mu"])
 
 
 def test_rank_device_rule(monkeypatch):

@@ -11,7 +11,10 @@ padding rows).
 
 Tolerances: float64 rtol 1e-9 on factors (atol 1e-12), loss histories and
 transforms, equal n_iter_ and loss_iters_; every rank's result equal bit for
-bit.
+bit. The device loop (``loop='device'``, Newton with its factored eval
+loss) runs in the two-rank spawn: the key's first fit, the fit that builds
+the cache entry and a hit, each against the reference's ``loop='device'``
+cols fit and, bit for bit, the port's host loop.
 """
 import warnings
 
@@ -91,7 +94,13 @@ def _fit_args(name):
 REQUEST = dict(n_components=2, max_iter=2, random_state=0,
                shard_layout="cols")
 FP8_REQUEST = dict(REQUEST, data_dtype="fp8", dtype="float32")
+# the device loop: Newton on a linear X (cols_aux_kind 'factored': V's
+# update hands over the eval loss's terms), three fits from an emptied fit
+# cache beside its host-loop twin
+DEVICE_KW = dict(REQUEST, n_components=K, solver="newton", max_iter=9,
+                 eval_every=2, tol=1e-7, dtype="float64", use_pallas=True)
 NOW_FIT = {
+    "device_loop": (dict(DEVICE_KW, loop="device"), "X"),
     "fp8": (FP8_REQUEST, "X"),
     "sampled": (dict(REQUEST, solver="newton", sg_sample_ratio=0.5,
                      dtype="float64"), "X"),
@@ -120,7 +129,12 @@ def _port_cases(d):
         cases[name] = case
     if d == 2:
         for name in NOW_FIT:
-            cases["request_" + name] = _request_case(name)
+            if name != "device_loop":   # that request is device_device's
+                cases["request_" + name] = _request_case(name)
+        for loop in ("device", "host"):
+            cases["device_" + loop] = dict(
+                kind="fit", kw=dict(DEVICE_KW, n_shards=2, loop=loop),
+                X=DATA["X"], Y=DATA["Y"], init=DATA["init"], repeat=3)
     return cases
 
 
@@ -143,8 +157,9 @@ def sharded(request, tmp_path_factory):
                                                        U=DATA["Un"])
         if d == 2:
             for name, (kw, x) in NOW_FIT.items():
+                init = DATA["init"] if name == "device_loop" else {}
                 ref["request_" + name] = JCMF(n_shards=2, **kw).fit(
-                    DATA[x], DATA["Y"])
+                    DATA[x], DATA["Y"], **init)
     finally:
         ports = ranks.join()
     return d, ref, ports
@@ -220,28 +235,55 @@ def _est(**kw):
 
 @pytest.mark.parametrize("sharded", [2], indirect=True, ids=["d2"])
 @pytest.mark.parametrize("kw", [
-    dict(n_shards=2, loop="device"),
+    "device_loop",
     "sampled",
     "chunked",
     "fp8",
 ], ids=["device_loop", "sampled", "chunked", "fp8"])
 def test_cols_unported_requests_raise_naming_a10c(sharded, kw):
-    """The device loop still raises naming A10c; sampled Newton (the
-    reference's draws injected) and the chunked layout (a sparse X) fit in
-    the two ranks as the reference's cols fits of the same request do (f64
-    rtol 1e-9), and fp8 data with its objective within 1e-4 of the
-    reference's cols fp8 fit (test_torch_fp8.py's bar)."""
-    if isinstance(kw, dict):
-        with pytest.raises(NotImplementedError, match="ROADMAP A10c"):
-            _est(**kw).fit(DATA["X"], DATA["Y"])
-        return
+    """Requests earlier slices refused naming A10c fit in the two ranks:
+    the device loop (Newton, its factored eval loss), sampled Newton (the
+    reference's draws injected) and the chunked layout (a sparse X) as the
+    reference's cols fits of the same request do (f64 rtol 1e-9), and fp8
+    data with its objective within 1e-4 of the reference's cols fp8 fit
+    (test_torch_fp8.py's bar)."""
     d, ref, ports = sharded
-    got, want = ports[0]["request_" + kw], ref["request_" + kw]
+    want = ref["request_" + kw]
+    if kw == "device_loop":   # from DATA["init"]: the device_device case
+        _assert_fit(ports[0]["device_device"], want)
+        return
+    got = ports[0]["request_" + kw]
     assert got["n_iter"] == want.n_iter_ == 2
     if kw != "fp8":
         _assert_fit(got, want)
         return
     np.testing.assert_allclose(got["losses"], want.loss_history_, rtol=1e-4)
+
+
+@pytest.mark.parametrize("sharded", [2], indirect=True, ids=["d2"])
+def test_cols_device_loop_matches_host_loop_bit_for_bit(sharded):
+    """The cols device loop's first fit, the fit that builds the cache
+    entry and a hit (one launch of the fit graph's stand-in) each equal
+    the port's host-loop cols fit bit for bit, with the same COMM calls
+    and bytes, on every rank, and every rank takes the same branch with
+    the same all-reduces per captured block."""
+    d, ref, ports = sharded
+    for port in ports:
+        host = port["device_host"]
+        fits = port["device_device"]["fits"]
+        _assert_fit(fits[0], ref["request_device_loop"])
+        for f in fits:
+            assert f["n_iter"] == host["n_iter"]
+            assert f["losses"] == host["losses"]
+            for key in ("U", "V", "Z"):
+                np.testing.assert_array_equal(f[key], host[key])
+            assert f["comm"][:2] == host["comm"][:2]
+        first, build, hit = (f["info"] for f in fits)
+        assert (first["eager_blocks"], build["graph_launches"],
+                hit["hit"], hit["graph_launches"]) == (1, 1, True, 1)
+        assert first["collectives"] == hit["collectives"] > 0
+    assert [f["info"] for f in ports[1]["device_device"]["fits"]] == [
+        f["info"] for f in ports[0]["device_device"]["fits"]]
 
 
 @pytest.fixture

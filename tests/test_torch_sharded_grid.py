@@ -325,19 +325,24 @@ def _est(**kw):
 
 # requests earlier slices refused and this one fits on the mesh (2, 1), each
 # held to the reference's fit of the same request: sampled Newton (the
-# reference's draws injected) and the chunked layout (a sparse X)
+# reference's draws injected), the chunked layout (a sparse X) and the
+# device loop (MU on the chunked layout, its first fit, the fit that builds
+# the cache entry and a hit, beside its host-loop twin)
 REQUEST = dict(n_components=2, max_iter=2, random_state=0, n_shards=(2, 1),
                shard_layout="grid", dtype="float64")
+DEVICE_KW = dict(REQUEST, sparse_mode="chunked", max_iter=9, eval_every=2,
+                 tol=1e-7)
 NOW_FIT = {"sampled": (dict(REQUEST, solver="newton", sg_sample_ratio=0.5),
                        "X"),
-           "chunked": (dict(REQUEST, sparse_mode="chunked"), "Xs")}
+           "chunked": (dict(REQUEST, sparse_mode="chunked"), "Xs"),
+           "device_loop": (dict(DEVICE_KW, loop="device"), "Xs")}
 _NOW_FIT_RESULTS = {}
 
 
 def _now_fit(tmp_path_factory):
-    """{name: (the rank 0 result, the reference's fit)}: one two-rank spawn
-    for both requests, the reference's fits while it runs; once per
-    module."""
+    """{name: (every rank's result, the reference's fit)}: one two-rank
+    spawn for the requests (and the device loop's host-loop twin), the
+    reference's fits while it runs; once per module."""
     if _NOW_FIT_RESULTS:
         return _NOW_FIT_RESULTS
     cases = {}
@@ -346,6 +351,9 @@ def _now_fit(tmp_path_factory):
     cases["sampled"].update(seed=0, rank_draws=rank_draws(
         "grid", (2, 1), seed=0, n_iter=REQUEST["max_iter"], n=N, m=M,
         ry=DATA["Y"].shape[1], ratio=0.5))
+    cases["device_loop"]["repeat"] = 3
+    cases["device_host"] = dict(cases["device_loop"],
+                                kw=dict(DEVICE_KW, loop="host"))
     ranks = spawn(run_cases, 2, tmp_path_factory.mktemp("grid_requests"),
                   cases)
     try:
@@ -355,27 +363,51 @@ def _now_fit(tmp_path_factory):
         ports = ranks.join()
     for name in NOW_FIT:
         assert ports[0][name]["losses"] == ports[1][name]["losses"]
-        _NOW_FIT_RESULTS[name] = (ports[0][name], ref[name])
+        _NOW_FIT_RESULTS[name] = ([p[name] for p in ports], ref[name])
+    _NOW_FIT_RESULTS["device_host"] = ([p["device_host"] for p in ports],
+                                       None)
     return _NOW_FIT_RESULTS
 
 
 @pytest.mark.parametrize("kw", [
-    dict(n_shards=(2, 1), loop="device"),
+    "device_loop",
     "sampled",
     "chunked",
 ], ids=["device_loop", "sampled", "chunked"])
 def test_grid_unported_requests_raise_naming_a10c(kw, tmp_path_factory):
-    """The device loop still raises naming A10c; sampled Newton and the
-    chunked layout, which earlier slices refused, fit on the mesh (2, 1)
+    """Requests earlier slices refused naming A10c fit on the mesh (2, 1)
     in two ranks as the reference's grid fits of the same request do (f64
-    rtol 1e-9, every rank's losses equal)."""
-    if isinstance(kw, dict):
-        with pytest.raises(NotImplementedError, match="ROADMAP A10c"):
-            _est(**kw).fit(DATA["X"], DATA["Y"])
-        return
+    rtol 1e-9, every rank's losses equal): sampled Newton, the chunked
+    layout, and the device loop (loop='device', MU on chunked cells,
+    against the reference's loop='device' grid fit)."""
     got, want = _now_fit(tmp_path_factory)[kw]
-    assert want.n_iter_ == 2
-    _assert_fit(got, want)
+    assert want.n_iter_ == (2 if kw != "device_loop" else got[0]["n_iter"])
+    _assert_fit(got[0], want)
+
+
+def test_grid_device_loop_matches_host_loop_bit_for_bit(tmp_path_factory):
+    """On the mesh (2, 1), chunked MU: the device loop's first fit, the fit
+    that builds the cache entry and a hit each equal the port's host-loop
+    grid fit bit for bit, with the same COMM calls and bytes per axis; the
+    ranks take the same branch, and a captured block holds the same
+    all-reduces on every rank (the ROW axis's sums and the world loss; the
+    one-rank COL axis makes none)."""
+    ports, _ = _now_fit(tmp_path_factory)["device_loop"]
+    hosts, _ = _now_fit(tmp_path_factory)["device_host"]
+    for port, host in zip(ports, hosts):
+        for f in port["fits"]:
+            assert f["n_iter"] == host["n_iter"]
+            assert f["losses"] == host["losses"]
+            for key in ("U", "V", "Z"):
+                np.testing.assert_array_equal(f[key], host[key])
+            assert f["comm"] == host["comm"]
+        first, build, hit = (f["info"] for f in port["fits"])
+        assert (first["eager_blocks"], first["captures"],
+                build["graph_launches"], hit["hit"],
+                hit["graph_launches"]) == (1, 1, 1, True, 1)
+        assert set(host["comm"][2]) == {"grid", "rows"}
+    infos = [[f["info"] for f in p["fits"]] for p in ports]
+    assert infos[0] == infos[1] and infos[0][0]["collectives"] > 0
 
 
 @pytest.mark.parametrize("layout", ["rows", "cols"])
