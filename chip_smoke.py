@@ -1002,6 +1002,9 @@ def k5_wide_phase(check, torch, batched_solve):
 
 BLOCK_K = (65, 100, 128)  # K5's block route (k > 64) at 11314 systems
 LU_K = (20, 40, 100)      # its LU route (the full Hessian form)
+P_LATENCY = 20            # Z's systems on paths A and H: one SM per system
+P_TOP = 512               # systems past block_max_k: the scratch slots
+P_WIDE = 33               # systems at the largest k (work area in the slot)
 
 
 def gn_systems(torch, rng, p, k):
@@ -1015,8 +1018,9 @@ def gn_systems(torch, rng, p, k):
     Mf = torch.from_numpy(0.3 * rng.randn(p, k).astype(np.float32)).to(dev)
     P = torch.sigmoid(Mf @ B.T)
     Hr = torch.empty((p, k * k), device=dev)
-    for i in range(0, p, 4096):  # (rows, k²) blocks of the product
-        Hr[i:i + 4096] = ((P[i:i + 4096] * (1 - P[i:i + 4096])) ** 2) \
+    rows = max(1, (1 << 28) // (4 * k * k))  # (rows, k²) blocks of ~256 MB
+    for i in range(0, p, rows):
+        Hr[i:i + rows] = ((P[i:i + rows] * (1 - P[i:i + rows])) ** 2) \
             @ (B[:, :, None] * B[:, None, :]).reshape(2048, k * k)
     G = torch.from_numpy(rng.randn(p, k).astype(np.float32)).to(dev)
     return Hr.view(p, k, k), 1.2 * torch.eye(k, device=dev), G
@@ -1041,45 +1045,113 @@ def indefinite_systems(torch, rng, p, k):
     return H.contiguous(), 0.2 * eye, G
 
 
+def k5_block_shapes(batched_solve) -> dict:
+    """The block and LU routes' crossovers on this card (the launch plan's):
+    the largest k one CTA holds, and the least k whose scratch slot takes
+    the work area too (shared memory no longer holds it)."""
+    import torch
+
+    optin = batched_solve.smem_optin(0)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    top = {}
+    for lu, sfx in ((False, ""), (True, "_lu")):
+        top["block_max_k" + sfx] = kb = batched_solve.block_max_k(0, lu)
+        top["slot_all_k" + sfx] = next(
+            k for k in range(kb + 1, 1 << 14)
+            if batched_solve.solve_plan(1, k, lu, optin, sms).place
+            == batched_solve.SLOT_ALL)
+    return top
+
+
+def k5_block_cases(top) -> list:
+    """(name, p, k, kind) of phase 3's block and LU shapes."""
+    spd, lu = "batched_spd_solve_block", "batched_lu_solve"
+    cases = [(spd, M, k, "spd") for k in BLOCK_K]
+    cases += [(spd, P_LATENCY, 100, "spd")]
+    cases += [(spd, 2048, k, "spd") for k in sorted(
+        {top["block_max_k"], top["block_max_k"] + 1, 239, 240})]
+    cases += [(spd, P_TOP, 444, "spd"),
+              (spd, P_WIDE, top["slot_all_k"], "wide spd")]
+    cases += [(lu, M, k, kind) for k in LU_K
+              for kind in ("spd", "indefinite")]
+    cases += [(lu, P_LATENCY, 20, "spd"),
+              (lu, 2048, top["block_max_k_lu"] + 1, "indefinite"),
+              (lu, P_TOP, 385, "indefinite"),
+              (lu, P_WIDE, top["slot_all_k_lu"], "wide indefinite")]
+    return cases
+
+
+def wide_systems(torch, p, k, kind, seed):
+    """(H_rows, H_shared, G) at a k whose Gauss-Newton Hessians would take
+    a (2048, k²) product: 'wide spd' A Aᵀ + 0.8 I + H_shared 0.2 I with A
+    N(0, 1/k) (k × k: eigenvalues in [1, 5]); 'wide indefinite' the rows of
+    3 I + A (singular values in about [1, 5]) in a random order, so that
+    every column pivots, H_shared 0; drawn on the card from ``seed``."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    eye = torch.eye(k, device=dev)
+    A = torch.randn((p, k, k), device=dev, generator=gen) / k ** 0.5
+    if kind == "wide spd":
+        H, Hs = A @ A.mT + 0.8 * eye, 0.2 * eye
+    else:
+        order = torch.argsort(torch.rand((p, k), device=dev, generator=gen))
+        H = torch.gather(A + 3.0 * eye, 1, order[:, :, None].expand(p, k, k))
+        Hs = torch.zeros_like(eye)
+    G = torch.randn((p, k), device=dev, generator=gen)
+    return H.contiguous(), Hs, G
+
+
 def k5_block_lu_phase(check, torch, batched_solve):
-    """Phase 3, K5's block route (one CTA per system, k > 64: the system in
-    shared memory up to block_max_k, above it in a global scratch slot)
-    at k in BLOCK_K on 11314 systems and at block_max_k and one above on
-    2048, and its LU route (partial pivoting: the full Hessian form) at k
-    in LU_K on 11314 Gauss-Newton (SPD) and indefinite systems. Each
-    against its plain version (relative Frobenius <= 1e-3, K5's bar),
-    output NaN-filled, two calls bitwise equal, H_shared apart bit for bit
-    equal to the solve of the sum; the LU route also by its residual
-    ||(H + H_s) d - G|| / ||G|| <= 1e-4 (float64, the systems' cond <~
-    10). Edges at p = 33: one system made singular (block: its sum -I;
-    LU: all zeros) gives an all-NaN row and leaves every other row
-    unchanged. Each timed beside its bound and torch.linalg.solve, L2
-    flushed."""
+    """Phase 3, K5's block route (SPD, k > 64) and LU route (partial
+    pivoting: the full Hessian form), each in every regime of the launch
+    plan: the LU route's warp per system (k <= 32), one CTA per system in
+    shared memory (to block_max_k), past it global scratch slots (two an
+    SM), the work area in shared memory while it fits, else in the slot
+    (from slot_all_k). Shapes: the block route at k in BLOCK_K on 11314
+    systems, at P_LATENCY x 100 (Z's systems on path A at k = 100), at
+    block_max_k, one above, 239 and 240 on 2048, at 444 on P_TOP and at
+    slot_all_k on P_WIDE; the LU route at k in LU_K on 11314 Gauss-Newton
+    (SPD) and indefinite systems, at P_LATENCY x 20 (path H's Z), at
+    block_max_k (LU's) + 1 on 2048, at 385 on P_TOP and at its slot_all_k
+    on P_WIDE (wide_systems there). Each against its plain version
+    (relative Frobenius <= 1e-3, K5's bar), output NaN-filled, two calls
+    bitwise equal, H_shared apart bit for bit equal to the solve of the
+    sum; the LU route also by its residual ||(H + H_s) d - G|| / ||G|| <=
+    1e-4 (float64, the systems' cond <~ 10). The P_LATENCY shapes also
+    equal, bit for bit, the same systems solved among 200, and at k = 100
+    the kernel's two scratch variants equal the plan's one CTA per system.
+    Edges at p = 33 in every regime, slot_all_k - 1 and slot_all_k
+    included: one system made singular
+    (block: its sum -I; LU: all zeros) gives an all-NaN row and leaves
+    every other row as the other 32 solved alone, bit for bit. Each timed
+    beside its bound and torch.linalg.solve, L2 flushed."""
     import numpy as np
 
     dev = torch.device("cuda")
     rng = np.random.RandomState(SEED + 8)
-    kmax = batched_solve.block_max_k(0)
-    log(f"phase 3: K5 block/LU routes, block_max_k = {kmax} (the largest k "
-        f"kept in one CTA's shared memory)")
+    top = k5_block_shapes(batched_solve)
+    log(f"phase 3: K5 block/LU routes, crossovers {top} (the largest k "
+        f"kept in one CTA's shared memory, the least whose work area "
+        f"leaves it)")
     flush_buf = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
     flush = flush_buf.zero_
-    rec = {"block_max_k": kmax}
-    cases = [("batched_spd_solve_block", M, k, "spd") for k in BLOCK_K]
-    cases += [("batched_spd_solve_block", 2048, k, "spd")
-              for k in (kmax, kmax + 1)]
-    cases += [("batched_lu_solve", M, k, kind) for k in LU_K
-              for kind in ("spd", "indefinite")]
-    for name, p, k, kind in cases:
+    rec = dict(top)
+    optin = batched_solve.smem_optin(0)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for name, p, k, kind in k5_block_cases(top):
         lu = name == "batched_lu_solve"
         solve = batched_solve.batched_lu_solve if lu \
             else batched_solve.batched_spd_solve
         ref = batched_solve.batched_lu_solve_ref if lu \
             else batched_solve.batched_spd_solve_ref
-        Hr, Hs, G = (indefinite_systems if kind == "indefinite"
-                     else gn_systems)(torch, rng, p, k)
+        if kind.startswith("wide"):
+            Hr, Hs, G = wide_systems(torch, p, k, kind, SEED + k)
+        else:
+            Hr, Hs, G = (indefinite_systems if kind == "indefinite"
+                         else gn_systems)(torch, rng, p, k)
         H = Hr + Hs
-        tag = f"{name}[p={p} k={k} {kind}]"
+        plan = batched_solve.solve_plan(p, k, lu, optin, sms)
+        tag = f"{name}[p={p} k={k} {kind}; {plan.route} place={plan.place}]"
         d = nan_filled(lambda: solve(H, G))
         again = solve(H, G)
         d_sh = solve(Hr, G, Hs)
@@ -1093,6 +1165,13 @@ def k5_block_lu_phase(check, torch, batched_solve):
         check(bits_equal(torch, d, d_sh),
               f"{tag} with H_shared equals the solve of H + H_shared bit for "
               f"bit")
+        if p == P_LATENCY:
+            many = solve(H.repeat(10, 1, 1), G.repeat(10, 1))
+            route = batched_solve.solve_plan(10 * p, k, lu, optin, sms).route
+            check(bits_equal(torch, d, many[:p]),
+                  f"{tag} equals the same systems solved among {10 * p} "
+                  f"({route}) bit for bit")
+            del many
         res = None
         if lu:
             r = (H.double() @ d.double()[..., None])[..., 0] - G.double()
@@ -1107,29 +1186,73 @@ def k5_block_lu_phase(check, torch, batched_solve):
 
         def library():
             return torch.linalg.solve(H, G[..., None])
-        reps = 10 if k <= 128 else 3
+        reps = 10 if k <= 128 else 3 if k <= 1024 else 1
         t5 = time_ms(kern, reps=reps, flush=flush)
         dt5 = device_ms(kern, reps=reps, flush=flush)
-        p5 = time_ms(lambda: ref(Hr, G, Hs), reps=3, flush=flush)
-        lib = time_ms(library, reps=3, flush=flush)
-        dlib = device_ms(library, reps=3, flush=flush)
+        p5 = time_ms(lambda: ref(Hr, G, Hs), reps=min(reps, 3), flush=flush)
+        lib = time_ms(library, reps=min(reps, 3), flush=flush)
+        dlib = device_ms(library, reps=min(reps, 3), flush=flush)
         log(f"  {tag} kernel {t5:.4f} ms (device {dt5:.4f}), plain "
             f"{p5:.4f} ms, torch.linalg.solve {lib:.4f} ms (device "
             f"{dlib:.4f}), bound {b5[0]:.4f} ms ({b5[1]})")
         rec[(name, p, k) if not lu else (name, p, k, kind)] = dict(
             max_abs_err=float((d - dr).abs().max()), ms=t5, device_ms=dt5,
             plain_ms=p5, library_ms=lib, library_device_ms=dlib,
-            bound_ms=b5[0], bound_by=b5[1], residual=res)
+            bound_ms=b5[0], bound_by=b5[1], residual=res, route=plan.route,
+            place=plan.place)
         del Hr, Hs, G, H, d, again, d_sh, dr
         torch.cuda.empty_cache()
-    # edges: one singular system among 33
+    # every variant of the blocked kernel gives the plan's bits: at k = 100
+    # (one CTA per system by the plan) the C entry given scratch slots, the
+    # work area in shared memory and in the slot (not counted: no wrapper
+    # call)
+    from pycmf_tpu_torch.ops.kernels import _build
+    entry = _build.function("batched_solve", "pycmf_batched_block_solve",
+                            batched_solve._BLOCK_ARGTYPES)
+    for lu in (False, True):
+        k, p = 100, 64
+        Hr, Hs, G = (indefinite_systems if lu else gn_systems)(torch, rng, p,
+                                                               k)
+        solve = batched_solve.batched_lu_solve if lu \
+            else batched_solve.batched_spd_solve
+        want = solve(Hr, G, Hs)
+        for place in (batched_solve.SLOT_ROWS, batched_solve.SLOT_ALL):
+            slots = p // 2  # each CTA walks two systems
+            scratch = torch.empty(
+                slots * batched_solve.block_slot_floats(k, lu, place),
+                device=dev)
+            out = torch.full_like(G, float("nan"))
+            rc = entry(Hr.data_ptr(), Hs.data_ptr(), G.data_ptr(), p, k,
+                       int(lu), out.data_ptr(), scratch.data_ptr(), slots,
+                       batched_solve.block_threads(k, lu),
+                       4 * batched_solve.block_smem_floats(k, lu, place), 0,
+                       torch._C._cuda_getCurrentRawStream(0))
+            torch.cuda.synchronize()
+            name = "batched_lu_solve" if lu else "batched_spd_solve_block"
+            check(rc == 0 and bits_equal(torch, out, want),
+                  f"{name}[p={p} k={k}] in {slots} scratch slots, place "
+                  f"{place} (rc {rc}), equals the plan's one CTA per system "
+                  f"bit for bit")
+        del Hr, Hs, G, want, out, scratch
+    # edges: one singular system among 33, in every regime of the plan
     for name, k in (("batched_spd_solve_block", 65),
-                    ("batched_spd_solve_block", kmax + 1),
-                    ("batched_lu_solve", 7), ("batched_lu_solve", 100)):
+                    ("batched_spd_solve_block", 100),
+                    ("batched_spd_solve_block", top["block_max_k"] + 1),
+                    ("batched_spd_solve_block", top["slot_all_k"] - 1),
+                    ("batched_spd_solve_block", top["slot_all_k"]),
+                    ("batched_lu_solve", 7), ("batched_lu_solve", 20),
+                    ("batched_lu_solve", 100),
+                    ("batched_lu_solve", top["block_max_k_lu"] + 1),
+                    ("batched_lu_solve", top["slot_all_k_lu"] - 1),
+                    ("batched_lu_solve", top["slot_all_k_lu"])):
         lu = name == "batched_lu_solve"
         solve = batched_solve.batched_lu_solve if lu \
             else batched_solve.batched_spd_solve
-        Hr, Hs, G = gn_systems(torch, rng, 33, k)
+        if k > 1024:
+            Hr, Hs, G = wide_systems(
+                torch, 33, k, "wide indefinite" if lu else "wide spd", k)
+        else:
+            Hr, Hs, G = gn_systems(torch, rng, 33, k)
         H = (Hr + Hs).contiguous()
         H[16] = 0.0 if lu else -torch.eye(k, device=dev)
         d = nan_filled(lambda: solve(H, G))
@@ -4718,17 +4841,15 @@ def main() -> int:
             ("batched_spd_solve_block", "batched_solve.cu",
              ("batched_solve.py:74",),
              ("batched_spd_solve_block", M, 100), pa_100,
-             dict({f"k{k}": ("batched_spd_solve_block", M, k)
-                   for k in BLOCK_K if k != 100},
-                  **{f"p2048_k{k}": ("batched_spd_solve_block", 2048, k)
-                     for k in (krec["block_max_k"],
-                               krec["block_max_k"] + 1)})),
+             {(f"k{k}" if p == M else f"p{p}_k{k}"): (n, p, k)
+              for n, p, k, _ in k5_block_cases(krec)
+              if n == "batched_spd_solve_block" and (p, k) != (M, 100)}),
             ("batched_lu_solve", "batched_solve.cu",
              ("pycmf_tpu/solvers/newton.py:308",),
              ("batched_lu_solve", M, 20, "spd"), ph,
-             {f"{kind}_k{k}": ("batched_lu_solve", M, k, kind)
-              for k in LU_K for kind in ("spd", "indefinite")
-              if (k, kind) != (20, "spd")}),
+             {(f"{kind}_k{k}" if p == M else f"p{p}_{kind}_k{k}"):
+              (n, p, k, kind) for n, p, k, kind in k5_block_cases(krec)
+              if n == "batched_lu_solve" and (p, k, kind) != (M, 20, "spd")}),
             ("fused_mu_update", "mu_update.cu", ("mu_update.py:41",),
              f"fused_mu_update[{M}x{K}]", pc,
              {"rcv1": "fused_mu_update[804414x20]"}),
@@ -4798,6 +4919,9 @@ def main() -> int:
                       "path_a_fit_k100": pa_100, "chunked": chunked,
                       "fp8": fp8,
                       "block_max_k": krec["block_max_k"],
+                      "k5_crossovers": {key: krec[key] for key in (
+                          "block_max_k", "block_max_k_lu", "slot_all_k",
+                          "slot_all_k_lu")},
                       "device_vs_host_loop": loops,
                       "phase8_gap_after_20": gaps20,
                       "sharded": sharded, "utilities": a6,

@@ -2,8 +2,8 @@
 
     python3 -m pycmf_tpu_torch.chip_ab [--phase PHASE] TREE_A TREE_B ...
 
-PHASE is sigmoid (the default), sparse, upass, paths, k5k6, ties or
-loops. Each
+PHASE is sigmoid (the default), sparse, upass, paths, k5k6, k5block,
+ties or loops. Each
 TREE is a checkout of this repository (for example the parent commit
 unpacked with ``git archive`` into a git-ignored directory). Every tree's
 libraries of the phase are built first, in parallel, with the ptxas
@@ -38,6 +38,16 @@ tree's build also prints the machine instructions of those kernels, from
   alone); then the MU fit and paths A, C, D and F: ms/iter (the least of
   3 fits), and device ms/iter, idle share and launches under
   torch.profiler;
+- ``k5block``: K5's block route (SPD) and LU route at chip_smoke phase
+  3's shapes, the crossovers those of the redesigned routes on an H100
+  (block_max_k 320, LU's 220; the work area in the scratch slot from 3204,
+  LU's 1653, timed on the change only; and 239/240, the parent's
+  crossover), each tree's kernel on the same systems
+  drawn here: rel Frobenius against float64 (1e-3), the LU residual
+  (1e-4), two calls bitwise equal, ``ms`` and ``device_ms`` with L2
+  flushed, beside the plain version's and ``torch.linalg.solve``'s device
+  times; then paths H and A at k = 100 (phase 7c's): the host loop's and a
+  cache hit's ms per iteration of the whole solver call;
 - ``ties``: K4 at chip_smoke's k = 1 edge shape (30000 x 4097, trials 8)
   on eight seeds: the share of rows whose selected line-search slot agrees
   with the plain version's, and the share on which each of the two matches
@@ -54,7 +64,8 @@ tree's build also prints the machine instructions of those kernels, from
   and the host loop's (the least of 2), each device fit with its peak
   device memory above what was allocated before it (a fresh ingest's
   included). Ingest is outside ms/iter.
-  The code of ``upass``, ``paths``, ``k5k6``, ``ties`` and ``loops`` is
+  The code of ``upass``, ``paths``, ``k5k6``, ``k5block``, ``ties`` and
+  ``loops`` is
   this file's
   (``UPASS``), run against each tree's wrappers, so a tree whose
   chip_smoke predates the redesign is timed the same way.
@@ -98,6 +109,13 @@ PHASES = {
     # K5's and K6's k = 20 kernels (KP = 20) and K6's per-element one (the
     # parent's only kernel, the k > 32 route since); the fits build every
     # library
+    # K5's block and LU routes (the redesign's kernels and the parent's),
+    # then paths H and A at k = 100, which build every library they launch
+    "k5block": (("mu_fused", "newton_fused", "sigmoid_newton",
+                 "batched_solve", "mu_update", "csr_spmm", "bell_spmm",
+                 "fit_loop"),
+                ("blocked_solve", "block_solve", "lu_solve_warp"),
+                "k5block_ab(check, torch, cs)"),
     "k5k6": (("batched_solve", "mu_update", "mu_fused", "newton_fused",
               "sigmoid_newton", "csr_spmm", "bell_spmm"),
              ("chol_solve_kernelILi20", "mu_update_kernel",
@@ -503,6 +521,159 @@ def loops_ab(check, torch, cs):
                      all=dict(fresh=fresh, first=first, second=second,
                               later=later, host=host))
             rec[label] = r
+    return rec
+
+
+def k5block_ab(check, torch, cs):
+    # K5's block and LU routes at chip_smoke phase 3's shapes (the change's
+    # crossovers on an H100 fixed here, and the systems drawn here, so that
+    # every tree solves the same systems), then paths H and A at k = 100:
+    # the host loop and the device loop's cache hit
+    import numpy as np
+    from unittest import mock
+    from pycmf_tpu_torch import CMF
+    from pycmf_tpu_torch.models import cmf as tcmf
+    from pycmf_tpu_torch.ops.kernels import batched_solve
+    from pycmf_tpu_torch.solvers import common as tcommon
+    from pycmf_tpu_torch.utils.datasets import synthetic_20ng
+    dev = torch.device("cuda")
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev).zero_
+    rec = {}
+
+    def dev_ms(fn, reps):
+        # chip_smoke.device_ms with the L2 flushed before each hold
+        fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(reps):
+            flush()
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(2_000_000)
+            a.record()
+            fn()
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b))
+        return sorted(times)[reps // 2]
+
+    def systems(rng, p, k, kind):
+        # chip_smoke's gn_systems, indefinite_systems and wide_systems
+        f32 = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev)
+        eye = torch.eye(k, device=dev)
+        if kind.startswith("wide"):
+            gen = torch.Generator(device=dev).manual_seed(cs.SEED + k)
+            A = torch.randn((p, k, k), device=dev, generator=gen) / k ** 0.5
+            if kind == "wide spd":
+                H, Hs = A @ A.mT + 0.8 * eye, 0.2 * eye
+            else:
+                order = torch.argsort(torch.rand((p, k), device=dev,
+                                                 generator=gen))
+                H = torch.gather(A + 3.0 * eye, 1,
+                                 order[:, :, None].expand(p, k, k))
+                Hs = torch.zeros_like(eye)
+            G = torch.randn((p, k), device=dev, generator=gen)
+            return H.contiguous(), Hs, G
+        if kind == "indefinite":
+            Q = torch.linalg.qr(f32(rng.randn(p, k, k)))[0]
+            lam = (1.0 + 2.0 * rng.rand(p, k)) * np.where(
+                rng.rand(p, k) < 0.5, -1.0, 1.0)
+            lam[:, 0] = -np.abs(lam[:, 0])
+            H = (Q * f32(lam)[:, None, :]) @ Q.mT - 0.2 * eye
+            return H.contiguous(), 0.2 * eye, f32(rng.randn(p, k))
+        B, Mf = f32(0.3 * rng.randn(2048, k)), f32(0.3 * rng.randn(p, k))
+        P = torch.sigmoid(Mf @ B.T)
+        BB = (B[:, :, None] * B[:, None, :]).reshape(2048, k * k)
+        Hr = torch.empty((p, k * k), device=dev)
+        for i in range(0, p, 256):
+            Hr[i:i + 256] = ((P[i:i + 256] * (1 - P[i:i + 256])) ** 2) @ BB
+        return Hr.view(p, k, k), 1.2 * eye, f32(rng.randn(p, k))
+
+    M = cs.M
+    shapes = [("block", M, 65, "spd"), ("block", M, 100, "spd"),
+              ("block", M, 128, "spd"), ("block", 20, 100, "spd")]
+    shapes += [("block", 2048, k, "spd") for k in (239, 240, 320, 321)]
+    shapes += [("block", 512, 444, "spd")]
+    shapes += [("lu", M, k, kind) for k in (20, 40, 100)
+               for kind in ("spd", "indefinite")]
+    shapes += [("lu", 20, 20, "spd"), ("lu", 2048, 221, "indefinite"),
+               ("lu", 512, 385, "indefinite")]
+    if hasattr(batched_solve, "SLOT_ALL"):
+        # where the work area leaves shared memory (the parent's scratch
+        # route, a column at a time, takes seconds a call there: not timed)
+        shapes += [("block", 33, 3204, "wide spd"),
+                   ("lu", 33, 1653, "wide indefinite")]
+    for name, p, k, kind in shapes:
+        rng = np.random.RandomState(cs.SEED + 8 + 7 * k + p)
+        Hr, Hs, G = systems(rng, p, k, kind)
+        H = Hr + Hs
+        lu = name == "lu"
+        solve = (batched_solve.batched_lu_solve if lu
+                 else batched_solve.batched_spd_solve)
+        ref = (batched_solve.batched_lu_solve_ref if lu
+               else batched_solve.batched_spd_solve_ref)
+
+        def kern():
+            return solve(Hr, G, Hs)
+        d, again = kern(), kern()
+        want = ref(H.double(), G.double())
+        e = cs.rel_fro(d, want)
+        tag = f"{name} {p}x{k} {kind}"
+        r = dict(rel_fro_f64=e)
+        ok = e <= 1e-3 and bool(torch.equal(d, again)) and bool(
+            torch.isfinite(d).all())
+        if lu:
+            res = (H.double() @ d.double()[..., None])[..., 0] - G.double()
+            r["residual"] = float(res.norm() / G.double().norm())
+            ok &= r["residual"] <= 1e-4
+        check(ok, f"{tag}: rel Frobenius {e:.3g} against float64, two calls "
+              f"bitwise equal, finite, residual {r.get('residual')}")
+        reps = 10 if k <= 128 else 3 if k <= 1024 else 1
+        r["ms"] = cs.time_ms(kern, reps=reps, flush=flush)
+        r["device_ms"] = dev_ms(kern, reps)
+        r["plain_device_ms"] = dev_ms(lambda: ref(Hr, G, Hs), min(reps, 3))
+        r["library_device_ms"] = dev_ms(
+            lambda: torch.linalg.solve(H, G[..., None]), min(reps, 3))
+        rec[tag] = r
+        del Hr, Hs, G, H, d, again, want
+        torch.cuda.empty_cache()
+
+    # paths H and A at k = 100 (chip_smoke phase 7c's): ms per iteration of
+    # the whole solver call, the host loop (least of 2) and a cache hit (the
+    # key's third device fit on, least of 2)
+    X, Y = synthetic_20ng(random_state=cs.SEED)
+    common = dict(n_components=cs.K, data_dtype="bfloat16",
+                  random_state=cs.SEED, device="cuda")
+    a_kw = dict(solver="newton", y_link="sigmoid", max_iter=50, tol=1e-5,
+                eval_every=5)
+    clear = getattr(tcommon, "clear_fit_cache", lambda: None)
+    run, run_ms = tcmf.CMF._run, []
+
+    def whole(self, *args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run(self, *args)
+        torch.cuda.synchronize()
+        run_ms.append((1e3 * (time.perf_counter() - t0) / out[3], out[3]))
+        return out
+    with mock.patch.object(tcmf.CMF, "_run", whole):
+        for label, kw, cm in (
+                ("path H", dict(a_kw, hessian_form="full"), common),
+                ("path A k=100", a_kw, dict(common, n_components=100))):
+            def make(loop):
+                return CMF(**kw, **cm, loop=loop)
+            make("host").set_params(max_iter=2, eval_every=1).fit(X, Y)
+            host = [(make("host").fit(X, Y), run_ms[-1])[1]
+                    for _ in range(2)]
+            clear()
+            fits = [(make("device").fit(X, Y), run_ms[-1])[1]
+                    for _ in range(4)]
+            clear()
+            rec[label] = dict(host_ms_per_iter=min(t for t, _ in host),
+                              hit_ms_per_iter=min(t for t, _ in fits[2:]),
+                              first_ms_per_iter=fits[0][0],
+                              second_ms_per_iter=fits[1][0],
+                              n_iter=[n for _, n in host + fits])
     return rec
 
 

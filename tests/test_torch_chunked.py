@@ -610,7 +610,8 @@ def test_batched_lu_solve_singular_row_nan_others_exact(rng):
 @pytest.fixture
 def fake_solve_lib(monkeypatch):
     """The batched solve's card routes on CPU tensors: a fake library whose
-    entries record their symbol and arguments; block_max_k 239."""
+    entries record their symbol and arguments, with an H100's opt-in
+    shared memory per CTA (227 KB) and 132 SMs."""
     import types
 
     calls = []
@@ -621,7 +622,7 @@ def fake_solve_lib(monkeypatch):
     monkeypatch.setattr(_build, "load", lambda name: types.SimpleNamespace(
         pycmf_batched_spd_solve=entry("spd"),
         pycmf_batched_block_solve=entry("block"),
-        pycmf_block_solve_max_k=lambda dev: 239,
+        pycmf_block_solve_optin=lambda dev: 232448,
         pycmf_error_string=lambda rc: b"fake"))
     monkeypatch.setattr(_build, "_functions", {})
     monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream",
@@ -629,8 +630,10 @@ def fake_solve_lib(monkeypatch):
     monkeypatch.setattr(batched_solve, "on_card", lambda *t: True)
     monkeypatch.setattr(batched_solve, "_sm_count", lambda dev: 132)
     batched_solve.block_max_k.cache_clear()
+    batched_solve.smem_optin.cache_clear()
     yield calls
     batched_solve.block_max_k.cache_clear()
+    batched_solve.smem_optin.cache_clear()
 
 
 @pytest.mark.parametrize("k", [20, 40, 65, 100, 239, 240])
@@ -640,9 +643,10 @@ def test_solve_direction_route_by_k_form_and_use_pallas(fake_solve_lib, k,
                                                         form, use_pallas):
     """Under use_pallas every per-row system launches K5: the Gauss-Newton
     form its narrow (k <= 32), wide (<= 64) or block route, the full form
-    its LU route (lu = 1); above block_max_k (239) with a global scratch
-    of min(p, 4 per SM) slots. use_pallas off launches nothing (the plain
-    path's torch.linalg.solve_ex)."""
+    its LU route (lu = 1), with the launch plan's threads, shared bytes
+    and scratch (LU at k = 239 and 240 in global scratch
+    slots; every SPD system here in one CTA's shared memory). use_pallas
+    off launches nothing (the plain path's torch.linalg.solve_ex)."""
     p = 3
     H = torch.eye(k, dtype=torch.float32).expand(p, k, k).contiguous()
     G, Hs = torch.rand(p, k), torch.eye(k)
@@ -665,10 +669,13 @@ def test_solve_direction_route_by_k_form_and_use_pallas(fake_solve_lib, k,
     assert name == ("spd" if want in ("batched_spd_solve",
                                       "batched_spd_solve_wide") else "block")
     if name == "block":
-        # (H, Hs, G, p, k, lu, out, scratch, slots, device, stream)
+        # (H, Hs, G, p, k, lu, out, scratch, slots, threads, smem, device,
+        # stream)
+        plan = batched_solve.solve_plan(p, k, form == "full", 232448, 132)
         assert args[4] == k and args[5] == int(form == "full")
-        assert (args[7] is None) == (k <= 239)
-        assert args[8] == (0 if k <= 239 else p)
+        assert (args[7] is None) == (form == "gauss" or k <= 220)
+        assert (args[7] is None) == (plan.slots == 0)
+        assert args[8:11] == (plan.slots, plan.threads, plan.smem)
 
 
 @pytest.mark.parametrize("kw,k", [

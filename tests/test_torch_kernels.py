@@ -444,6 +444,9 @@ def _lean_operands(kernel, dtype=torch.float32):
                                               0.1, 0.2, 1e-9))
 
 
+H100_SMEM_OPTIN = 232448  # an H100's shared memory per CTA, opted in
+
+
 @pytest.fixture
 def lean_entry(monkeypatch):
     """Routes K5 and K6 through their launch code on CPU tensors: a fake
@@ -462,7 +465,7 @@ def lean_entry(monkeypatch):
         return types.SimpleNamespace(
             pycmf_batched_spd_solve=entry, pycmf_mu_update=entry,
             pycmf_batched_block_solve=entry,
-            pycmf_block_solve_max_k=lambda dev: 239,
+            pycmf_block_solve_optin=lambda dev: H100_SMEM_OPTIN,
             pycmf_error_string=lambda rc: b"fake failure")
 
     def raw_stream(dev):
@@ -475,8 +478,12 @@ def lean_entry(monkeypatch):
                         raising=False)
     for mod in (batched_solve, mu_update):
         monkeypatch.setattr(mod, "on_card", lambda *t: True)
-    monkeypatch.setattr(mu_update, "_sm_count", lambda dev: 132)
+        monkeypatch.setattr(mod, "_sm_count", lambda dev: 132)
+    batched_solve.smem_optin.cache_clear()
+    batched_solve.block_max_k.cache_clear()
     yield rec
+    batched_solve.smem_optin.cache_clear()
+    batched_solve.block_max_k.cache_clear()
 
 
 @pytest.mark.parametrize("kernel", ["batched_spd_solve", "fused_mu_update"])
@@ -538,6 +545,123 @@ def test_batched_solve_dispatch_boundary(lean_entry, k, route):
     counts = {n: c for n, c in policy.launch_counts().items() if c}
     assert len(lean_entry.calls) == 1 and counts == {route: 1}
     assert lean_entry.calls[0][4] == k  # (H, Hs, G, p, k, ...)
+
+
+# k at each crossover of the plan on an H100 and one past it: one CTA's
+# reach (SPD 320, LU 220) and the scratch slot's work area (in shared
+# memory to SPD 3203, LU 1652)
+PLAN_KS = [1, 20, 32, 33, 64, 65, 100, 220, 221, 239, 240, 320, 321, 1652,
+           1653, 2000, 3203, 3204, 5000]
+
+
+@pytest.mark.parametrize("lu", [False, True], ids=["spd", "lu"])
+@pytest.mark.parametrize("k", PLAN_KS, ids=str)
+def test_batched_solve_plan_routes_and_scratch(k, lu):
+    """The launch plan on an H100 (227 KB of shared memory per CTA, 132
+    SMs): SPD's narrow and wide routes, LU's warp per system at k <= 32,
+    then the blocked routes: one CTA per system while its shared memory
+    holds it; past that two global scratch slots an SM (fewer for fewer
+    systems), the work area in shared memory while it fits, else in the
+    slot, where shared memory no longer grows with k: every k runs."""
+    smem = batched_solve.block_smem_floats
+    slot = batched_solve.block_slot_floats
+    for p in (11314, 2048, 20, 3):
+        plan = batched_solve.solve_plan(p, k, lu, H100_SMEM_OPTIN, 132)
+        if k <= 32:
+            assert plan.route == ("lu_warp" if lu else "narrow")
+            assert (plan.smem, plan.slots) == (0, 0)
+            continue
+        if k <= 64 and not lu:
+            assert plan.route == "wide"
+            continue
+        assert plan.threads == batched_solve.block_threads(k, lu)
+        assert plan.smem <= H100_SMEM_OPTIN
+        if 4 * smem(k, lu) <= H100_SMEM_OPTIN:
+            assert (plan.route, plan.place, plan.slots) == (
+                "block", batched_solve.SHARED, 0)
+            assert plan.smem == 4 * smem(k, lu)
+            continue
+        place = (batched_solve.SLOT_ROWS
+                 if 4 * smem(k, lu, batched_solve.SLOT_ROWS)
+                 <= H100_SMEM_OPTIN else batched_solve.SLOT_ALL)
+        assert (plan.route, plan.place) == ("scratch", place)
+        assert plan.smem == 4 * smem(k, lu, place)
+        assert plan.slots == min(p, 2 * 132)
+        assert plan.slot_floats == slot(k, lu, place)
+        # a slot holds the whole rows [H | g], and the work area with it
+        # where shared memory does not
+        assert slot(k, lu, place) >= k * (k + 1)
+    top, wide = (220, 1652) if lu else (320, 3203)
+    plan = batched_solve.solve_plan(2048, k, lu, H100_SMEM_OPTIN, 132)
+    if k > (32 if lu else 64):
+        assert (plan.route, plan.place) == (
+            ("block", batched_solve.SHARED) if k <= top else
+            ("scratch", batched_solve.SLOT_ROWS) if k <= wide else
+            ("scratch", batched_solve.SLOT_ALL))
+    if k > wide:  # the same shared bytes at every k past the work area's
+        assert plan.smem == batched_solve.solve_plan(
+            2048, 2 * k, lu, H100_SMEM_OPTIN, 132).smem
+
+
+@pytest.mark.parametrize("k,lu", [
+    (k, lu) for lu in (False, True)
+    for k in ([20, 33, 221, 1653] if lu else [321]) + [65, 100, 240]],
+    ids=str)
+def test_blocked_solve_launch_passes_the_plan(lean_entry, monkeypatch, k,
+                                              lu):
+    """The wrapper hands the C entry the plan's scratch slots, threads and
+    shared bytes, the scratch allocated before the launch (slots x
+    slot_floats floats), after H (p, k, ...) as before; one launch, counted
+    under its route's name."""
+    p = 3
+    H = torch.eye(k).expand(p, k, k).contiguous()
+    G, Hs = torch.rand(p, k), torch.eye(k)
+    policy.reset_launch_counts()
+    allocs = []
+    empty = torch.empty
+
+    def spy_empty(*shape, **kw):
+        out = empty(*shape, **kw)
+        allocs.append(out.numel())
+        return out
+    monkeypatch.setattr(batched_solve.torch, "empty", spy_empty)
+    (batched_solve.batched_lu_solve if lu
+     else batched_solve.batched_spd_solve)(H, G, Hs)
+    plan = batched_solve.solve_plan(p, k, lu, H100_SMEM_OPTIN, 132)
+    (args,) = lean_entry.calls
+    # (H, Hs, G, p, k, lu, out, scratch, slots, threads, smem, dev, stream)
+    assert args[3:6] == (p, k, int(lu))
+    assert (args[7] is None) == (plan.slots == 0)
+    assert args[8:11] == (plan.slots, plan.threads, plan.smem)
+    assert (plan.slots * plan.slot_floats in allocs) == (plan.slots > 0)
+    counts = {n: c for n, c in policy.launch_counts().items() if c}
+    assert counts == {"batched_lu_solve" if lu
+                      else "batched_spd_solve_block": 1}
+
+
+def test_block_max_k_follows_the_cards_shared_memory(lean_entry):
+    """block_max_k from the card's opt-in shared memory: an H100's 227 KB
+    holds SPD systems to k = 320 in one CTA (the packed lower triangle;
+    LU 220, whole rows and its panel); one above, the scratch slots."""
+    assert batched_solve.block_max_k(-1) == 320
+    assert batched_solve.block_max_k(-1, lu=True) == 220
+    for lu in (False, True):
+        top = batched_solve.block_max_k(-1, lu)
+        assert batched_solve.solve_plan(
+            2048, top, lu, H100_SMEM_OPTIN, 132).route == "block"
+        assert batched_solve.solve_plan(
+            2048, top + 1, lu, H100_SMEM_OPTIN, 132).route == "scratch"
+
+
+def test_blocked_solve_panel_width_matches_the_source():
+    """The plan's panel width NB is the kernel's kNB: the shared bytes the
+    plan asks for are what the C entry checks."""
+    import re
+    from pathlib import Path
+
+    src = (Path(_build.CSRC) / "batched_solve.cu").read_text()
+    assert int(re.search(r"constexpr int kNB = (\d+);", src).group(1)) \
+        == batched_solve.NB
 
 
 def test_mu_update_tile_rows_cover_each_row_once():
