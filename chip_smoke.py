@@ -7,7 +7,7 @@ Run from the repository root, with no arguments:
 
 Phases (any failure exits non-zero and prints no ok line):
  1. device: the card's name and power limit (nvidia-smi);
- 2. build: the eight CUDA kernel libraries (the eleven kernels of the
+ 2. build: the nine CUDA kernel libraries (the eleven kernels of the
     TPU's: K5 has a wide route for 32 < k <= 64, a block route for k > 64
     and an LU route for the full Hessian form; and fit_loop, the device
     loop's stop rule and fit graph), from pycmf_tpu_torch/csrc, each nvcc
@@ -22,8 +22,9 @@ Phases (any failure exits non-zero and prints no ok line):
     at the edges (n in {1, 17, 20, 30000}, q in {1, 15, 4097, 11314}, k in
     {1, 7, 20, 32, 33, 64, 100}, bf16 and f32, trials 0 and 8,
     non_negative both ways); K5 at 11314 and 30000 systems of 20 x 20,
-    and its wide route at k in {33, 40, 64}, whole and with H_shared
-    apart, beside torch.linalg.solve; K5's block route at k in {65, 100,
+    and its wide route at k in {33, 40, 48, 64} on 20, 11314 and 30000
+    systems, whole and with H_shared apart, beside torch.linalg.solve and
+    the blocked route on the same systems; K5's block route at k in {65, 100,
     128} (11314 systems) and at the largest k kept in shared memory and
     one above (2048 systems, a global scratch), its LU route at k in {20,
     40, 100} on SPD and indefinite systems (relative Frobenius 1e-3 and
@@ -304,6 +305,24 @@ def bound(nbytes: float, flops: float, peak: float) -> tuple:
     t_bytes, t_ops = nbytes / HBM_BPS, flops / peak
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
+
+
+def spd_bytes(p: int, k: int) -> float:
+    """Least bytes of p SPD solves of k x k from a row-major (p, k, k) H:
+    an unpivoted Cholesky reads each system's lower triangle alone, in the
+    32-byte sectors its rows touch (the rows' offsets within a sector recur
+    every 8 systems), reads g once and writes d once."""
+    import numpy as np
+
+    def sectors(n):
+        i = np.arange(k)
+        start = 4 * (np.arange(n)[:, None] * k * k + i * k).ravel()
+        first = start // 32
+        last = (start + 4 * np.tile(i + 1, n) - 1) // 32
+        # rows in memory order: a row shares at most its first sector with
+        # the row before it
+        return int((last - first + 1).sum() - (first[1:] == last[:-1]).sum())
+    return 32.0 * ((p // 8) * sectors(8) + sectors(p % 8)) + 8.0 * p * k
 
 
 def rel_fro(a, b) -> float:
@@ -888,8 +907,8 @@ def sigmoid_phase(check, torch, sigmoid_newton, batched_solve):
               f"kernel residual |Hd - G|/|G| {res:.3g}")
         check(bits_equal(torch, d, d_sh), f"K5[p={p}] with H_shared equals "
               f"the solve of H + H_shared bit for bit")
-        nbytes = 4.0 * p * (K * K + 2 * K)
-        b5 = bound(nbytes, p * (K ** 3 / 3.0 + 2 * K * K), F32_FLOPS)
+        b5 = bound(spd_bytes(p, K), p * (K ** 3 / 3.0 + 2 * K * K),
+                   F32_FLOPS)
         flush = flush_buf.zero_
 
         def k5():
@@ -922,18 +941,20 @@ def sigmoid_phase(check, torch, sigmoid_newton, batched_solve):
     return rec
 
 
-WIDE_K = (33, 40, 64)   # K5's wide route: phase 3's shapes
+WIDE_K = (33, 40, 48, 64)   # K5's wide route: phase 3's shapes
+WIDE_P = (20, M, N)  # Z's systems (P_LATENCY), V's, U's
 
 
 def k5_wide_phase(check, torch, batched_solve):
-    """Phase 3, K5's wide route (32 < k <= 64: the system in shared memory,
-    two rows per lane) at k in WIDE_K on 11314 and 30000 systems, against
-    its plain version (rel. Frobenius <= 1e-3, the bar of the k = 20
-    systems), whole and with H_shared apart (bit for bit equal to the
-    whole), each timed beside its bound and torch.linalg.solve. The
-    systems are Gauss-Newton Hessians of a sigmoid term, H = Bᵀ diag(σ′²)
-    B over 2048 columns (N(0, 0.3²) factors) plus 1.2 I, the solver's
-    damping; G ~ N(0, 1). L2 flushed before each timed call."""
+    """Phase 3, K5's wide route (32 < k <= 64: a warp per system, its rows
+    in registers) at k in WIDE_K on p in WIDE_P systems, against its plain
+    version (rel. Frobenius <= 1e-3, the bar of the k = 20 systems),
+    whole and with H_shared apart (bit for bit equal to the whole), each
+    timed beside its bound, torch.linalg.solve and the blocked route
+    (``batched_spd_solve_block``, the k > 64 route) on the same systems.
+    The systems are Gauss-Newton Hessians of a sigmoid term, H = Bᵀ
+    diag(σ′²) B over 2048 columns (N(0, 0.3²) factors) plus 1.2 I, the
+    solver's damping; G ~ N(0, 1). L2 flushed before each timed call."""
     import numpy as np
 
     dev = torch.device("cuda")
@@ -946,7 +967,7 @@ def k5_wide_phase(check, torch, batched_solve):
             .to(dev)
         BB = (B[:, :, None] * B[:, None, :]).reshape(2048, k * k)
         shared = 1.2 * torch.eye(k, device=dev)
-        for p in (M, N):
+        for p in WIDE_P:
             Mf = torch.from_numpy(0.3 * rng.randn(p, k).astype(np.float32)) \
                 .to(dev)
             P = torch.sigmoid(Mf @ B.T)
@@ -965,8 +986,8 @@ def k5_wide_phase(check, torch, batched_solve):
                   f"(output NaN-filled), two calls bitwise equal")
             check(bits_equal(torch, d, d_sh), f"K5 wide[p={p} k={k}] with "
                   f"H_shared equals the solve of H + H_shared bit for bit")
-            b5 = bound(4.0 * p * (k * k + 2 * k),
-                       p * (k ** 3 / 3.0 + 2 * k * k), F32_FLOPS)
+            b5 = bound(spd_bytes(p, k), p * (k ** 3 / 3.0 + 2 * k * k),
+                       F32_FLOPS)
 
             def k5():
                 return batched_solve.batched_spd_solve(H, G)
@@ -974,25 +995,31 @@ def k5_wide_phase(check, torch, batched_solve):
             def k5_shared():
                 return batched_solve.batched_spd_solve(Hr, G, shared)
 
+            def blocked():
+                return batched_solve.batched_spd_solve_block(Hr, G, shared)
+
             def library():
                 return torch.linalg.solve(H, G[..., None])
-            t5 = time_ms(k5, reps=20, flush=flush)
-            dt5 = device_ms(k5, reps=20, flush=flush)
-            ts5 = time_ms(k5_shared, reps=20, flush=flush)
-            dts5 = device_ms(k5_shared, reps=20, flush=flush)
+            reps = 20 if p > P_LATENCY else 50
+            t5 = time_ms(k5, reps=reps, flush=flush)
+            dt5 = device_ms(k5, reps=reps, flush=flush)
+            ts5 = time_ms(k5_shared, reps=reps, flush=flush)
+            dts5 = device_ms(k5_shared, reps=reps, flush=flush)
+            dtb = device_ms(blocked, reps=reps, flush=flush)
             p5 = time_ms(lambda: batched_solve.batched_spd_solve_ref(H, G),
                          reps=10, flush=flush)
             lib = time_ms(library, reps=10, flush=flush)
             dlib = device_ms(library, reps=10, flush=flush)
             log(f"  K5 wide[p={p} k={k}] kernel {t5:.4f} ms (device alone "
                 f"{dt5:.4f}; with H_shared {ts5:.4f}, device {dts5:.4f}), "
-                f"plain {p5:.4f} ms, torch.linalg.solve {lib:.4f} ms "
-                f"(device {dlib:.4f}), bound {b5[0]:.4f} ms ({b5[1]})")
+                f"blocked route device {dtb:.4f}, plain {p5:.4f} ms, "
+                f"torch.linalg.solve {lib:.4f} ms (device {dlib:.4f}), "
+                f"bound {b5[0]:.4f} ms ({b5[1]})")
             rec[("batched_spd_solve_wide", p, k)] = dict(
                 max_abs_err=float((d - dr).abs().max()), ms=t5,
                 device_ms=dt5, shared_ms=ts5, shared_device_ms=dts5,
-                plain_ms=p5, library_ms=lib, library_device_ms=dlib,
-                bound_ms=b5[0], bound_by=b5[1])
+                blocked_device_ms=dtb, plain_ms=p5, library_ms=lib,
+                library_device_ms=dlib, bound_ms=b5[0], bound_by=b5[1])
             del H, Hr, G, d, d_sh, again, dr
         torch.cuda.empty_cache()
     del flush_buf
@@ -1179,7 +1206,8 @@ def k5_block_lu_phase(check, torch, batched_solve):
             check(res <= 1e-4, f"{tag} residual ||Hd - G|| / ||G|| "
                   f"{res:.3g} <= 1e-4")
         flops = k ** 3 * (2.0 if lu else 1.0) / 3.0 + 2.0 * k * k
-        b5 = bound(4.0 * p * (k * k + 2 * k), p * flops, F32_FLOPS)
+        nbytes = 4.0 * p * (k * k + 2 * k) if lu else spd_bytes(p, k)
+        b5 = bound(nbytes, p * flops, F32_FLOPS)
 
         def kern():
             return solve(Hr, G, Hs)
@@ -1285,7 +1313,7 @@ def solve_update_edges(check, torch, batched_solve, mu_update):
     copies); against the plain version in float64, relative
     Frobenius <= 1e-5 (sparse_phase's bar).
     K5 (batched_spd_solve): p in {1, 20, 33}, k in {1, 3, 20, 32} and, on
-    the wide route (the system in shared memory), {33, 47, 64}, with and
+    the wide route (a warp per system in registers), {33, 47, 64}, with and
     without H_shared, one case with H 4 bytes off a 16-byte boundary;
     systems A Aᵀ/k + H_shared with H_shared = 0.5 I + a random SPD part
     (or the whole sum in H), d against the float64 solve of the same f32
@@ -1373,6 +1401,18 @@ def solve_update_edges(check, torch, batched_solve, mu_update):
                           f"batched_spd_solve[edge p={p} k={k}] with H_shared"
                           f" equals the solve of H + H_shared bit for bit")
                 n5 += 1
+    # the wide route's pivots below FLT_MIN: a subnormal first pivot gives
+    # NaN in its own row (its ftz reciprocal would give inf) and no other
+    for k in (33, 64):
+        H = torch.eye(k, device="cuda").repeat(3, 1, 1)
+        H[1, 0, 0] = 1e-40
+        G = f32(rng.randn(3, k))
+        got = batched_solve.batched_spd_solve(H, G)
+        e = rel_fro(got[0::2], G[0::2])
+        check(bool(torch.isnan(got[1]).all()) and e <= 1e-6,
+              f"batched_spd_solve[edge k={k} subnormal pivot] its row all "
+              f"NaN, the identity rows within {e:.3g} <= 1e-6 of g")
+        n5 += 1
     torch.cuda.empty_cache()
     log(f"  K5/K6 edges: {n5} K5 cases, {n6} K6 cases")
 
@@ -4832,12 +4872,12 @@ def main() -> int:
             ("batched_spd_solve", "batched_solve.cu", ("batched_solve.py:71",),
              ("batched_spd_solve", M), pa,
              {"p30000": ("batched_spd_solve", N)}),
-            ("batched_spd_solve_wide", "batched_solve.cu",
+            ("batched_spd_solve_wide", "batched_solve_wide.cu",
              ("batched_solve.py:71",),
              ("batched_spd_solve_wide", M, 40), pa_w,
-             {f"{tag}k{k}": ("batched_spd_solve_wide", p, k)
-              for k in WIDE_K for p, tag in ((M, ""), (N, "p30000_"))
-              if (p, k) != (M, 40)}),
+             {(f"k{k}" if p == M else f"p{p}_k{k}"):
+              ("batched_spd_solve_wide", p, k)
+              for k in WIDE_K for p in WIDE_P if (p, k) != (M, 40)}),
             ("batched_spd_solve_block", "batched_solve.cu",
              ("batched_solve.py:74",),
              ("batched_spd_solve_block", M, 100), pa_100,

@@ -3,7 +3,7 @@
     python3 -m pycmf_tpu_torch.chip_ab [--phase PHASE] TREE_A TREE_B ...
 
 PHASE is sigmoid (the default), sparse, upass, paths, k5k6, k5block,
-ties or loops. Each
+k5wide, ties or loops. Each
 TREE is a checkout of this repository (for example the parent commit
 unpacked with ``git archive`` into a git-ignored directory). Every tree's
 libraries of the phase are built first, in parallel, with the ptxas
@@ -48,6 +48,15 @@ tree's build also prints the machine instructions of those kernels, from
   flushed, beside the plain version's and ``torch.linalg.solve``'s device
   times; then paths H and A at k = 100 (phase 7c's): the host loop's and a
   cache hit's ms per iteration of the whole solver call;
+- ``k5wide``: K5's wide route (33 <= k <= 64) at k in {33, 40, 48, 64}
+  on p in {20, 11314, 30000} systems (chip_smoke phase 3's shapes; the
+  solver's form, H_rows and H_shared apart, drawn here so that every tree
+  solves the same systems): rel Frobenius against float64 (1e-3), two
+  calls bitwise equal, H_shared apart bit for bit the whole H, ``ms`` and
+  ``device_ms`` with L2 flushed, beside the blocked route's device time
+  on the same systems (``pycmf_batched_block_solve``, lu = 0, which takes
+  any k in both trees); then path A at k = 40 (phase 7's): the host
+  loop's and a cache hit's ms per iteration of the whole solver call;
 - ``ties``: K4 at chip_smoke's k = 1 edge shape (30000 x 4097, trials 8)
   on eight seeds: the share of rows whose selected line-search slot agrees
   with the plain version's, and the share on which each of the two matches
@@ -64,8 +73,8 @@ tree's build also prints the machine instructions of those kernels, from
   and the host loop's (the least of 2), each device fit with its peak
   device memory above what was allocated before it (a fresh ingest's
   included). Ingest is outside ms/iter.
-  The code of ``upass``, ``paths``, ``k5k6``, ``k5block``, ``ties`` and
-  ``loops`` is
+  The code of ``upass``, ``paths``, ``k5k6``, ``k5block``, ``k5wide``,
+  ``ties`` and ``loops`` is
   this file's
   (``UPASS``), run against each tree's wrappers, so a tree whose
   chip_smoke predates the redesign is timed the same way.
@@ -104,7 +113,8 @@ PHASES = {
     "ties": (("sigmoid_newton",), ("phi_part",), "ties_ab(check, torch, cs)"),
     # every library the paths launch (fit_loop where the tree has it)
     "loops": (("mu_fused", "newton_fused", "sigmoid_newton", "batched_solve",
-               "mu_update", "csr_spmm", "bell_spmm", "fit_loop"), ("Li20E",),
+               "batched_solve_wide", "mu_update", "csr_spmm", "bell_spmm",
+               "fit_loop"), ("Li20E",),
               "loops_ab(check, torch, cs)"),
     # K5's and K6's k = 20 kernels (KP = 20) and K6's per-element one (the
     # parent's only kernel, the k > 32 route since); the fits build every
@@ -116,6 +126,13 @@ PHASES = {
                  "fit_loop"),
                 ("blocked_solve", "block_solve", "lu_solve_warp"),
                 "k5block_ab(check, torch, cs)"),
+    # K5's wide route (the redesign's kernel and the parent's) and the
+    # blocked route, then path A at k = 40, which builds what it launches
+    "k5wide": (("mu_fused", "newton_fused", "sigmoid_newton",
+                "batched_solve", "batched_solve_wide", "mu_update",
+                "fit_loop"),
+               ("chol_solve_wide", "blocked_solve_kernelILb0ELi0"),
+               "k5wide_ab(check, torch, cs)"),
     "k5k6": (("batched_solve", "mu_update", "mu_fused", "newton_fused",
               "sigmoid_newton", "csr_spmm", "bell_spmm"),
              ("chol_solve_kernelILi20", "mu_update_kernel",
@@ -674,6 +691,132 @@ def k5block_ab(check, torch, cs):
                               first_ms_per_iter=fits[0][0],
                               second_ms_per_iter=fits[1][0],
                               n_iter=[n for _, n in host + fits])
+    return rec
+
+
+def k5wide_ab(check, torch, cs):
+    # K5's wide route at chip_smoke phase 3's shapes on systems drawn here
+    # (every tree solves the same), the blocked route beside it; then path
+    # A at k = 40: the host loop and the device loop's cache hit
+    import ctypes
+    import numpy as np
+    from unittest import mock
+    from pycmf_tpu_torch import CMF
+    from pycmf_tpu_torch.models import cmf as tcmf
+    from pycmf_tpu_torch.ops.kernels import _build, batched_solve as bs
+    from pycmf_tpu_torch.solvers import common as tcommon
+    from pycmf_tpu_torch.utils.datasets import synthetic_20ng
+    dev = torch.device("cuda")
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev).zero_
+    block = _build.function(
+        "batched_solve", "pycmf_batched_block_solve",
+        (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 3 + (ctypes.c_void_p,) * 2
+        + (ctypes.c_int,) * 4 + (ctypes.c_void_p,))
+    rec = {}
+
+    def dev_ms(fn, reps):
+        # chip_smoke.device_ms with the L2 flushed before each hold
+        fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(reps):
+            flush()
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(2_000_000)
+            a.record()
+            fn()
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b))
+        return sorted(times)[reps // 2]
+
+    def blocked(Hr, G, Hs):
+        # the blocked SPD route, one CTA per system in shared memory
+        p, k = G.shape
+        out = torch.empty_like(G)
+        rc = block(Hr.data_ptr(), Hs.data_ptr(), G.data_ptr(), p, k, 0,
+                   out.data_ptr(), None, 0, bs.block_threads(k, False),
+                   4 * bs.block_smem_floats(k, False), 0,
+                   torch._C._cuda_getCurrentRawStream(0))
+        if rc:
+            raise RuntimeError(f"the blocked route, k = {k}: CUDA error {rc}")
+        return out
+
+    for k in (33, 40, 48, 64):
+        rng = np.random.RandomState(cs.SEED + 9 * k)
+        B = torch.from_numpy((0.3 * rng.randn(2048, k)).astype(np.float32)) \
+            .to(dev)
+        BB = (B[:, :, None] * B[:, None, :]).reshape(2048, k * k)
+        Hs = 1.2 * torch.eye(k, device=dev)
+        for p in (20, cs.M, cs.N):
+            Mf = torch.from_numpy(
+                (0.3 * rng.randn(p, k)).astype(np.float32)).to(dev)
+            P = torch.sigmoid(Mf @ B.T)
+            Hr = torch.empty((p, k * k), device=dev)
+            for i in range(0, p, 4096):
+                Hr[i:i + 4096] = ((P[i:i + 4096] * (1 - P[i:i + 4096])) ** 2) \
+                    @ BB
+            Hr = Hr.view(p, k, k)
+            G = torch.from_numpy(rng.randn(p, k).astype(np.float32)).to(dev)
+            H = Hr + Hs
+            del Mf, P
+
+            def kern():
+                return bs.batched_spd_solve(Hr, G, Hs)
+            d, again = kern(), kern()
+            whole = bs.batched_spd_solve(H, G)
+            want = bs.batched_spd_solve_ref(H.double(), G.double())
+            e = cs.rel_fro(d, want)
+            ok = (e <= 1e-3 and bool(torch.equal(d, again))
+                  and bool(torch.equal(d, whole)))
+            tag = f"wide {p}x{k}"
+            check(ok, f"{tag}: rel Frobenius {e:.3g} against float64, two "
+                  f"calls bitwise equal, H_shared apart equal to the whole")
+            reps = 20 if p > 20 else 50
+            r = dict(rel_fro_f64=e)
+            r["ms"] = cs.time_ms(kern, reps=reps, flush=flush)
+            r["device_ms"] = dev_ms(kern, reps)
+            r["whole_device_ms"] = dev_ms(
+                lambda: bs.batched_spd_solve(H, G), reps)
+            r["blocked_device_ms"] = dev_ms(lambda: blocked(Hr, G, Hs), reps)
+            r["plain_device_ms"] = dev_ms(
+                lambda: bs.batched_spd_solve_ref(Hr, G, Hs), 3)
+            r["library_device_ms"] = dev_ms(
+                lambda: torch.linalg.solve(H, G[..., None]), 3)
+            rec[tag] = r
+            del Hr, G, H, d, again, whole, want
+            torch.cuda.empty_cache()
+
+    # path A at k = 40 (chip_smoke phase 7's): ms per iteration of the whole
+    # solver call, the host loop (least of 2) and a cache hit (the key's
+    # third device fit on, least of 2)
+    X, Y = synthetic_20ng(random_state=cs.SEED)
+    kw = dict(solver="newton", y_link="sigmoid", max_iter=50, tol=1e-5,
+              eval_every=5, n_components=40, data_dtype="bfloat16",
+              random_state=cs.SEED, device="cuda")
+    clear = getattr(tcommon, "clear_fit_cache", lambda: None)
+    run, run_ms = tcmf.CMF._run, []
+
+    def whole_fit(self, *args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run(self, *args)
+        torch.cuda.synchronize()
+        run_ms.append((1e3 * (time.perf_counter() - t0) / out[3], out[3]))
+        return out
+    with mock.patch.object(tcmf.CMF, "_run", whole_fit):
+        def make(loop):
+            return CMF(**kw, loop=loop)
+        make("host").set_params(max_iter=2, eval_every=1).fit(X, Y)
+        host = [(make("host").fit(X, Y), run_ms[-1])[1] for _ in range(2)]
+        clear()
+        fits = [(make("device").fit(X, Y), run_ms[-1])[1] for _ in range(4)]
+        clear()
+        rec["path A k=40"] = dict(
+            host_ms_per_iter=min(t for t, _ in host),
+            hit_ms_per_iter=min(t for t, _ in fits[2:]),
+            n_iter=[n for _, n in host + fits])
     return rec
 
 

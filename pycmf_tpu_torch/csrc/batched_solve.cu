@@ -11,10 +11,11 @@
 // in f32. A matrix that is not positive definite yields NaN in its own row
 // of d (a non-positive pivot), never an error or a host sync.
 //
-// Bound: bytes. Each system reads k*k + k floats and writes k; the work is
-// ~k^3/6 FMAs, about 1.4 k FMAs per byte read at k = 20, far below the
-// card's ~20 f32 FMAs per byte of DRAM bandwidth. At p = 11314 (the V
-// update of the main path) H is 18 MB: ~6 us at 3.35 TB/s.
+// Bound: bytes. Each system reads its lower triangle (in 32-byte sectors)
+// and g, and writes d; the work is ~k^3/6 FMAs, about one FMA per byte at
+// k = 20, far below the card's ~20 f32 FMAs per byte of DRAM bandwidth. At
+// p = 11314 (the V update of the main path) that is 15.6 MB: ~4.6 us at
+// 3.35 TB/s (chip_smoke.py: spd_bytes).
 //
 // Design: a persistent grid of about one wave; each warp walks systems
 // with a stride and holds one system at a time, lane i row i of the lower
@@ -38,34 +39,17 @@
 // identity padding of p are not carried over: each warp reads its own
 // system and the ragged edge is a bounds check.
 //
-// Wide route, 33 <= k <= 64 (the TPU kernel unrolls up to 32 and leaves
-// wider k to jnp.linalg.solve, pycmf_tpu/ops/pallas/batched_solve.py:74;
-// the port solves them here so that a fit at k <= 64 makes no library
-// call a CUDA graph capture would refuse). Two rows per lane in registers
-// would spill (128 floats of L at k = 64), so each warp holds its system in
-// shared memory, rows at an odd stride (ld = k | 1: the 32 lanes' rows
-// fall in 32 banks), lane i owning rows i and i + 32. The copy from
-// device memory is coalesced (4-byte loads; H_shared, read through L1,
-// added on the way, the same f32 sum as H + Hs beforehand). The same
-// right-looking factorization on [H | g] then runs with loops over
-// columns: at step j every lane scales its entries of column j by
-// 1 / L[j][j] (one rsqrtf, NaN for a non-positive pivot) and updates its
-// rows' trailing columns, row i only up to column i (row i < 32 stops at
-// column 31: a loop bound the warp shares). The back substitution reads
-// L[t][i] from shared memory as the narrow route does. One system per
-// warp, two warps per block (33 KB of shared memory at k = 64, under the
-// 48 KB a launch may take without an attribute), so 6 to 17 blocks share
-// an SM and hide each other's loads. Bound: bytes (at k = 40, 11314
-// systems read 72 MB, ~0.023 ms); the work is bound by instruction
-// throughput, ~k^3/3 shared loads and stores per system.
+// Wide route, 33 <= k <= 64: csrc/batched_solve_wide.cu (a library of its
+// own, so that its build runs beside this one's).
 //
 // Block route, k > 64 (the reference's jnp.linalg.solve above its
 // unrolled kernel, pycmf_tpu/ops/pallas/batched_solve.py:74-77), and LU
 // route, any k (the full Hessian form's systems, which may be indefinite:
 // the reference's jnp.linalg.solve at pycmf_tpu/solvers/newton.py:308).
-// Bound: bytes at the main path's shapes (11314 systems at k = 100 read
-// 462 MB, 0.138 ms; the operations, k^3/3 at 67 TFLOP/s, take 0.06), and
-// operations past k ~ 200. A factorization one column at a time would be
+// Bound: bytes at the main path's shapes (11314 SPD systems at k = 100
+// read 262 MB of their lower triangles, 0.078 ms; the operations, k^3/3 at
+// 67 TFLOP/s, take 0.06), and operations from k = 128 (LU, which reads
+// whole rows, from k = 120). A factorization one column at a time would be
 // held far above that by ~3k barriers and ~k^3/3 shared-memory round
 // trips per system, so both routes work by panels of kNB = 16 columns;
 // what holds them above the bound on an H100 is each panel's serial steps
@@ -249,82 +233,6 @@ int solve_blocks_per_sm() {
   }
   return n;
 }
-
-constexpr int kWideMaxK = 64;
-constexpr int kWideWarps = 2;
-
-__host__ __device__ inline int wide_ld(int k) { return k | 1; }
-
-template <bool SHARED>  // SHARED: Hs given
-__global__ void __launch_bounds__(kWideWarps * 32)
-    chol_solve_wide_kernel(const float* __restrict__ H,
-                           const float* __restrict__ Hshared,
-                           const float* __restrict__ G, int p, int k,
-                           float* __restrict__ D) {
-  extern __shared__ float wide_smem[];
-  const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
-  const int sys = blockIdx.x * kWideWarps + warp;
-  if (sys >= p) return;  // the whole warp leaves together
-  const int ld = wide_ld(k), kk = k * k;
-  float* S = wide_smem + warp * k * ld;
-  const float* src = H + (size_t)sys * kk;
-  // the system, row-major, into rows of stride ld: entry e = i * k + c;
-  // k > 32, so a step of 32 entries wraps a row at most once
-  for (int e = lane, i = 0, c = lane; e < kk; e += 32) {
-    float v = src[e];
-    if (SHARED) v += __ldg(Hshared + e);
-    S[i * ld + c] = v;
-    c += 32;
-    if (c >= k) c -= k, ++i;
-  }
-  const int i1 = lane + 32;  // the lane's second row
-  const bool has1 = i1 < k;
-  float b0 = G[(size_t)sys * k + lane];  // g, then what steps j < i leave
-  float b1 = has1 ? G[(size_t)sys * k + i1] : 0.f;
-  float inv0 = 0.f, inv1 = 0.f, y0 = 0.f, y1 = 0.f;  // per row: 1/L_ii, y_i
-  __syncwarp();
-  for (int j = 0; j < k; ++j) {
-    const float ajj = S[j * ld + j];
-    const float inv = ajj > 0.f ? rsqrtf(ajj) : __int_as_float(0x7fc00000);
-    const float bj = __shfl_sync(kFull, j < 32 ? b0 : b1, j & 31);
-    const float yj = bj * inv;
-    float l0 = 0.f, l1 = 0.f;  // L[i][j] of the lane's rows below j
-    if (lane > j) {
-      l0 = S[lane * ld + j] * inv;
-      S[lane * ld + j] = l0;
-      b0 -= l0 * yj;
-    }
-    if (has1 && i1 > j) {
-      l1 = S[i1 * ld + j] * inv;
-      S[i1 * ld + j] = l1;
-      b1 -= l1 * yj;
-    }
-    if (lane == j) inv0 = inv, y0 = yj;
-    if (i1 == j) inv1 = inv, y1 = yj;
-    __syncwarp();
-    // A[i][c] -= L[i][j] L[c][j] for j < c <= i (rows at or above j take
-    // l = 0, and entries above the diagonal take updates nothing reads)
-    for (int c = j + 1; c < k; ++c) {
-      const float lc = S[c * ld + j];
-      if (c < 32) S[lane * ld + c] -= l0 * lc;
-      if (has1) S[i1 * ld + c] -= l1 * lc;
-    }
-    __syncwarp();
-  }
-  // L^T x = y from the last row up, as the narrow route
-  float acc0 = y0, acc1 = y1, x0 = 0.f, x1 = 0.f;
-  for (int t = k - 1; t >= 0; --t) {
-    const float xt =
-        __shfl_sync(kFull, t < 32 ? acc0 * inv0 : acc1 * inv1, t & 31);
-    if (lane == t) x0 = xt;
-    if (i1 == t) x1 = xt;
-    if (lane < t) acc0 -= S[t * ld + lane] * xt;
-    if (has1 && i1 < t) acc1 -= S[t * ld + i1] * xt;
-  }
-  D[(size_t)sys * k + lane] = x0;
-  if (has1) D[(size_t)sys * k + i1] = x1;
-}
-
 
 // ---- LU route, k <= 32: one system per warp --------------------------------
 
@@ -1099,15 +1007,6 @@ __global__ void __launch_bounds__(kBlockThreads, 2)
   }
 }
 
-// The opt-in shared memory of one CTA on `device`, in bytes.
-inline int smem_optin(int device) {
-  static int optin[16] = {};
-  if (optin[device] == 0)
-    cudaDeviceGetAttribute(&optin[device],
-                           cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-  return optin[device];
-}
-
 namespace {
 // cudaFuncSetAttribute done, per device and instantiation (internal
 // linkage: this library's own flags)
@@ -1136,27 +1035,16 @@ int launch_blocked(const float* H, const float* Hs, const float* G, int p,
 }  // namespace pycmf
 
 // H (p, k, k), G (p, k) and D (p, k): f32, row-major, contiguous,
-// 1 <= k <= 64 (k > 32 takes the wide route); H_shared (k, k) f32
-// contiguous, or null. Makes `device` current for the launch. Returns the
-// CUDA error of the launch (0 on success).
+// 1 <= k <= 32 (wider k: csrc/batched_solve_wide.cu and the block route);
+// H_shared (k, k) f32 contiguous, or null. Makes `device` current for the
+// launch. Returns the CUDA error of the launch (0 on success).
 extern "C" int pycmf_batched_spd_solve(const float* H, const float* H_shared,
                                        const float* G, int p, int k, float* D,
                                        int device, void* stream) {
   using namespace pycmf;
   DeviceGuard guard(device);
-  if (p < 1 || k < 1 || k > kWideMaxK) return (int)cudaErrorInvalidValue;
+  if (p < 1 || k < 1 || k > kMaxK) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (k > kMaxK) {
-    const int grid = ceil_div(p, kWideWarps);
-    const size_t smem = sizeof(float) * kWideWarps * k * wide_ld(k);
-    if (H_shared)
-      chol_solve_wide_kernel<true><<<grid, kWideWarps * 32, smem, st>>>(
-          H, H_shared, G, p, k, D);
-    else
-      chol_solve_wide_kernel<false><<<grid, kWideWarps * 32, smem, st>>>(
-          H, H_shared, G, p, k, D);
-    return (int)cudaGetLastError();
-  }
   const int vec = k % 2 == 0 && (reinterpret_cast<uintptr_t>(H) & 15) == 0;
   with_kp(k, [&](auto kp) {
     constexpr int KP = decltype(kp)::value;

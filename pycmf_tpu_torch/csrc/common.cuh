@@ -149,6 +149,15 @@ inline int sm_count() {
   return count;
 }
 
+// The opt-in shared memory of one CTA on `device`, in bytes.
+inline int smem_optin(int device) {
+  static int optin[16] = {};
+  if (optin[device] == 0)
+    cudaDeviceGetAttribute(&optin[device],
+                           cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  return optin[device];
+}
+
 // Makes `device` current for the launches of one call and restores the
 // caller's device after (the Python wrapper then needs no device switch).
 struct DeviceGuard {

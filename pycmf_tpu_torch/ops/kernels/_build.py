@@ -22,7 +22,8 @@ _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NAMES = ("mu_fused", "newton_fused", "sigmoid_newton", "batched_solve",
-         "csr_spmm", "bell_spmm", "mu_update", "fit_loop")
+         "batched_solve_wide", "csr_spmm", "bell_spmm", "mu_update",
+         "fit_loop")
 DEFAULT_NVCC = Path("/usr/local/cuda/bin/nvcc")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

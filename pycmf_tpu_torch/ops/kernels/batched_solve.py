@@ -13,14 +13,19 @@ Cholesky; :func:`batched_lu_solve` (the full form, maybe indefinite) LU
 with getrf's partial pivoting. A system that is not SPD, or is singular,
 gives NaN in its own row, with no host sync.
 
-The kernels are ``csrc/batched_solve.cu``. SPD: a row of a system per lane
-up to k = 32 (``batched_spd_solve``), a warp per system in shared memory up
-to MAX_K = 64 (``batched_spd_solve_wide``), and above that the blocked
-route (``batched_spd_solve_block``). LU (``batched_lu_solve``): a warp per
-system up to k = 32, the blocked route above. Bound: bytes at the main
-path's shapes (11314 systems of 100×100 read 462 MB: 0.138 ms), operations
-from k ~ 200. A column-at-a-time factorization is bound instead by its ~3k
-barriers and k³/3 shared-memory round trips per system; the blocked route
+The kernels are ``csrc/batched_solve.cu`` and, for the wide route, its own
+library ``csrc/batched_solve_wide.cu``. SPD: a row of a system per lane up
+to k = 32 (``batched_spd_solve``), a warp per system up to MAX_K = 64
+(``batched_spd_solve_wide``: lane l holds row l and, for l < KP - 32, row
+KP - 1 - l in registers, KP = k rounded up to 4, :func:`wide_rows`), and
+above that the blocked route (``batched_spd_solve_block``, which
+:func:`batched_spd_solve_block` also takes at any k). LU
+(``batched_lu_solve``): a warp per system up to k = 32, the blocked route
+above. Bound: bytes at the main path's shapes (11314 SPD systems of
+100×100 read 262 MB of their lower triangles: 0.078 ms at an H100's
+3.35 TB/s), operations from k = 128.
+A column-at-a-time factorization is bound instead by its ~3k barriers and
+k³/3 shared-memory round trips per system; the blocked route
 works by panels of NB = 16 columns: one warp factors Cholesky's diagonal
 block, the CTA LU's panel (a row per thread in registers, two barriers a
 column), and the trailing matrix takes a 4×4 register tile per thread per
@@ -52,7 +57,7 @@ WIDE_LAUNCHES = launch_count("batched_spd_solve_wide")
 BLOCK_LAUNCHES = launch_count("batched_spd_solve_block")
 LU_LAUNCHES = launch_count("batched_lu_solve")
 NARROW_K = 32  # a row of H per lane of one warp, in registers
-MAX_K = 64     # above NARROW_K: two rows per lane, the system in shared memory
+MAX_K = 64     # above NARROW_K: up to two rows per lane (wide_rows)
 NB = 16        # panel width of the blocked routes (csrc: kNB)
 BLOCK_THREADS = 256
 # global scratch slots an SM above block_max_k: the CTAs of BLOCK_THREADS
@@ -102,13 +107,15 @@ def _check_card_operands(ops, p: int, k: int) -> None:
 def batched_spd_solve(H, G, H_shared=None):
     """Solve (H[i] + H_shared) d[i] = G[i] for all i. H: (p, k, k), G: (p, k)
     → (p, k); H_shared: (k, k), or None for H[i] d[i] = G[i]. Each sum must
-    be SPD; one that is not gives NaN in its own row.
+    be SPD; one that is not gives NaN in its own row (on the card's wide
+    route so does a pivot below the least normal float32, which its
+    flush-to-zero reciprocal square root cannot take).
 
     The card's kernel adds H_shared to each system as it reads it, so the
     (p, k, k) sum is never written. CUDA tensors (float32) launch
     ``csrc/batched_solve.cu``: one row per lane up to NARROW_K, the wide
-    route up to MAX_K, the block route above; CPU tensors take
-    :func:`batched_spd_solve_ref`."""
+    route (``csrc/batched_solve_wide.cu``) up to MAX_K, the block route
+    above; CPU tensors take :func:`batched_spd_solve_ref`."""
     p, k, _ = H.shape
     if p == 0:
         return G.new_empty((0, k))
@@ -117,22 +124,39 @@ def batched_spd_solve(H, G, H_shared=None):
         return batched_spd_solve_ref(H, G, H_shared)
     _check_card_operands(ops, p, k)
     if k > MAX_K:
-        out = _block_solve(H, G, H_shared, lu=False)
-        BLOCK_LAUNCHES.n += 1
-        return out
+        return batched_spd_solve_block(H, G, H_shared)
     H, G = H.contiguous(), G.contiguous()
     hs = None if H_shared is None else H_shared.contiguous()
     out = torch.empty_like(G)
-    fn = _build.function("batched_solve", "pycmf_batched_spd_solve",
-                         _ARGTYPES)
+    lib, entry, counter = (
+        ("batched_solve", "pycmf_batched_spd_solve", LAUNCHES)
+        if k <= NARROW_K else
+        ("batched_solve_wide", "pycmf_batched_wide_solve", WIDE_LAUNCHES))
+    fn = _build.function(lib, entry, _ARGTYPES)
     dev = H.get_device()
     # the C side makes `dev` current for its launch
     rc = fn(H.data_ptr(), None if hs is None else hs.data_ptr(),
             G.data_ptr(), p, k, out.data_ptr(), dev,
             torch._C._cuda_getCurrentRawStream(dev))
     if rc:
-        _build.check(_build.load("batched_solve"), rc, "batched_spd_solve")
-    (LAUNCHES if k <= NARROW_K else WIDE_LAUNCHES).n += 1
+        _build.check(_build.load(lib), rc, "batched_spd_solve")
+    counter.n += 1
+    return out
+
+
+def batched_spd_solve_block(H, G, H_shared=None):
+    """:func:`batched_spd_solve` by the blocked route at any k (the route
+    of k > MAX_K; at smaller k the yardstick of the narrow and wide
+    routes). CPU tensors take :func:`batched_spd_solve_ref`."""
+    p, k, _ = H.shape
+    if p == 0:
+        return G.new_empty((0, k))
+    ops = (H, G) if H_shared is None else (H, G, H_shared)
+    if not on_card(*ops):
+        return batched_spd_solve_ref(H, G, H_shared)
+    _check_card_operands(ops, p, k)
+    out = _block_solve(H, G, H_shared, lu=False)
+    BLOCK_LAUNCHES.n += 1
     return out
 
 
@@ -156,6 +180,17 @@ def batched_lu_solve(H, G, H_shared=None):
 
 def _round4(k: int) -> int:
     return (k + 3) & ~3
+
+
+def wide_rows(k: int):
+    """The rows of a k x k system (32 < k <= 64) each lane of the wide
+    route's warp holds (csrc/batched_solve_wide.cu: chol_solve_wide_kernel):
+    row l and, for l < KP - 32, row KP - 1 - l, KP = k rounded up to 4
+    (rows k..KP-1 an identity block). Its entries of the lower triangle,
+    and of g, are those rows'."""
+    kp = _round4(k)
+    return [(lane,) + ((kp - 1 - lane,) if lane < kp - 32 else ())
+            for lane in range(32)]
 
 
 def block_ld(k: int) -> int:
@@ -248,6 +283,13 @@ def solve_plan(p: int, k: int, lu: bool, optin: int, sms: int) -> SolvePlan:
         return SolvePlan("narrow")
     if not lu and k <= MAX_K:
         return SolvePlan("wide")
+    return blocked_plan(p, k, lu, optin, sms)
+
+
+def blocked_plan(p: int, k: int, lu: bool, optin: int,
+                 sms: int) -> SolvePlan:
+    """:func:`solve_plan`'s blocked part, at any k: LU's warp per system
+    at k <= NARROW_K, else one CTA per system or the scratch slots."""
     if lu and k <= NARROW_K:
         return SolvePlan("lu_warp")
     threads = block_threads(k, lu)
@@ -287,7 +329,7 @@ def _block_solve(H, G, H_shared, lu: bool):
     hs = None if H_shared is None else H_shared.contiguous()
     out = torch.empty(G.shape, dtype=G.dtype, device=G.device)
     dev = H.get_device()
-    plan = solve_plan(p, k, lu, smem_optin(dev), _sm_count(dev))
+    plan = blocked_plan(p, k, lu, smem_optin(dev), _sm_count(dev))
     scratch = None
     if plan.slots:
         scratch = torch.empty(plan.slots * plan.slot_floats,

@@ -621,6 +621,7 @@ def fake_solve_lib(monkeypatch):
 
     monkeypatch.setattr(_build, "load", lambda name: types.SimpleNamespace(
         pycmf_batched_spd_solve=entry("spd"),
+        pycmf_batched_wide_solve=entry("spd"),
         pycmf_batched_block_solve=entry("block"),
         pycmf_block_solve_optin=lambda dev: 232448,
         pycmf_error_string=lambda rc: b"fake"))

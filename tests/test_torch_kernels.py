@@ -181,7 +181,9 @@ def test_sources_name_the_kernels_they_replace():
                       ("sigmoid_newton", "sigmoid_newton.py:sigmoid_gh_pass"),
                       ("sigmoid_newton",
                        "sigmoid_newton.py:sigmoid_phi_pass"),
-                      ("batched_solve", "batched_solve.py:batched_spd_solve")):
+                      ("batched_solve", "batched_solve.py:batched_spd_solve"),
+                      ("batched_solve_wide",
+                       "batched_solve.py:batched_spd_solve")):
         head = (_build.CSRC / f"{name}.cu").read_text()[:2000]
         assert f"pycmf_tpu/ops/pallas/{ref}" in head
         assert "Bound:" in head and "Design:" in head
@@ -404,7 +406,7 @@ def test_batched_solve_with_shared_equals_solve_of_sum(rng, dtype, p, k):
         assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("k", [33, 40, 64])
+@pytest.mark.parametrize("k", [33, 40, 48, 63, 64])
 def test_batched_solve_ref_wide_k_matches_reference(rng, k):
     """32 < k <= 64, the card's wide route: the plain version (Cholesky)
     against the reference, which takes jnp.linalg.solve (LU) above 32;
@@ -416,6 +418,22 @@ def test_batched_solve_ref_wide_k_matches_reference(rng, k):
     np.testing.assert_allclose(_np(got), _np(want), rtol=1e-9, atol=1e-12)
     assert torch.equal(batched_solve.batched_spd_solve(_t(H), _t(G), _t(Hs)),
                        got)
+
+
+@pytest.mark.parametrize("k", range(33, 65))
+def test_wide_rows_hold_each_row_once(k):
+    """The wide route's row map (batched_solve.wide_rows, the mirror of
+    csrc's chol_solve_wide_kernel): with KP = k rounded up to 4, every row
+    of the lower triangle and of g (rows k..KP-1 the identity block's) is
+    held by exactly one lane, and no lane holds more than KP + 1 entries
+    of the triangle."""
+    kp = -(-k // 4) * 4
+    rows = batched_solve.wide_rows(k)
+    assert len(rows) == 32
+    held = sorted(i for lane in rows for i in lane)
+    assert held == list(range(kp))
+    assert all(len(lane) <= 2 and lane[0] == n for n, lane in enumerate(rows))
+    assert max(sum(i + 1 for i in lane) for lane in rows) <= kp + 1
 
 
 @pytest.mark.parametrize("p,k", [(1, 3), (40, 8), (300, 20), (5, 40)])
@@ -464,7 +482,7 @@ def lean_entry(monkeypatch):
         rec.loads.append(name)
         return types.SimpleNamespace(
             pycmf_batched_spd_solve=entry, pycmf_mu_update=entry,
-            pycmf_batched_block_solve=entry,
+            pycmf_batched_wide_solve=entry, pycmf_batched_block_solve=entry,
             pycmf_block_solve_optin=lambda dev: H100_SMEM_OPTIN,
             pycmf_error_string=lambda rc: b"fake failure")
 
@@ -532,26 +550,62 @@ def test_lean_launch_refuses_float64_naming_c1(lean_entry, kernel):
 
 @pytest.mark.parametrize("k,route", [(32, "batched_spd_solve"),
                                      (33, "batched_spd_solve_wide"),
+                                     (40, "batched_spd_solve_wide"),
+                                     (48, "batched_spd_solve_wide"),
                                      (64, "batched_spd_solve_wide"),
                                      (65, "batched_spd_solve_block")])
 def test_batched_solve_dispatch_boundary(lean_entry, k, route):
     """On the card every k launches the kernel: its wide route above 32
-    and its block route above 64 (each counted apart), where the
-    reference takes jnp.linalg.solve."""
+    (a library of its own, the narrow route's arguments) and its block
+    route above 64 (each counted apart), where the reference takes
+    jnp.linalg.solve."""
     H = torch.eye(k).expand(3, k, k).contiguous()
     G, Hs = torch.rand(3, k), torch.eye(k)
     policy.reset_launch_counts()
     batched_solve.batched_spd_solve(H, G, Hs)
     counts = {n: c for n, c in policy.launch_counts().items() if c}
     assert len(lean_entry.calls) == 1 and counts == {route: 1}
-    assert lean_entry.calls[0][4] == k  # (H, Hs, G, p, k, ...)
+    args = lean_entry.calls[0]
+    assert args[4] == k  # (H, Hs, G, p, k, ...)
+    if route != "batched_spd_solve_block":  # (..., D, device, stream)
+        assert len(args) == 8
+        assert lean_entry.loads == [
+            "batched_solve_wide" if k > 32 else "batched_solve"]
+
+
+@pytest.mark.parametrize("k", [20, 40, 64, 100])
+def test_batched_spd_solve_block_takes_any_k(lean_entry, k):
+    """batched_spd_solve_block launches the blocked route at any k (below
+    65 the yardstick of the narrow and wide routes): the blocked plan's
+    threads and shared bytes, one CTA per system, counted as a block
+    launch; on CPU tensors it is the plain version."""
+    H = torch.eye(k).expand(3, k, k).contiguous()
+    G, Hs = torch.rand(3, k), torch.eye(k)
+    policy.reset_launch_counts()
+    batched_solve.batched_spd_solve_block(H, G, Hs)
+    (args,) = lean_entry.calls
+    plan = batched_solve.blocked_plan(3, k, False, H100_SMEM_OPTIN, 132)
+    assert plan.route == "block" and args[3:6] == (3, k, 0)
+    assert args[8:11] == (0, plan.threads, plan.smem)
+    counts = {n: c for n, c in policy.launch_counts().items() if c}
+    assert counts == {"batched_spd_solve_block": 1}
+
+
+def test_batched_spd_solve_block_on_cpu_is_the_plain_version(rng):
+    H, G = _spd(rng, 5, 40)
+    Hs = _spd(rng, 1, 40)[0][0]
+    policy.reset_launch_counts()
+    got = batched_solve.batched_spd_solve_block(_t(H), _t(G), _t(Hs))
+    assert torch.equal(got, batched_solve.batched_spd_solve_ref(
+        _t(H), _t(G), _t(Hs)))
+    assert not any(policy.launch_counts().values())
 
 
 # k at each crossover of the plan on an H100 and one past it: one CTA's
 # reach (SPD 320, LU 220) and the scratch slot's work area (in shared
 # memory to SPD 3203, LU 1652)
-PLAN_KS = [1, 20, 32, 33, 64, 65, 100, 220, 221, 239, 240, 320, 321, 1652,
-           1653, 2000, 3203, 3204, 5000]
+PLAN_KS = [1, 20, 32, 33, 40, 48, 64, 65, 100, 220, 221, 239, 240, 320, 321,
+           1652, 1653, 2000, 3203, 3204, 5000]
 
 
 @pytest.mark.parametrize("lu", [False, True], ids=["spd", "lu"])
