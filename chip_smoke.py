@@ -2503,9 +2503,10 @@ def fp8_u_pass_phase(check, torch, mu_fused, newton_fused):
     k = 20 and k = 40 (the wide route), each against its plain version
     (u_pass_phase's bars: K1's U_new rtol 1e-4, numV and gramU 1e-4 relative
     Frobenius; K2's rows agreeing 0.999, numV 1e-3) and against its own
-    bf16 form on X widened to bf16, bit for bit (the fp8 form keeps the
-    bf16 form's stages in elements: u_pass_common.cuh); outputs NaN-filled,
-    two calls bitwise equal; times of the fp8 form, its bf16 form and the
+    bf16 form on X widened to bf16, bit for bit (the fp8 form's stages
+    hold the bf16 form's chains in its order: u_pass_common.cuh); outputs
+    NaN-filled, two calls bitwise equal; times of the fp8 form, its bf16
+    form and the
     plain version, and the bound at 1 byte per element of X. Then the edges
     (fp8_u_pass_edges)."""
     import numpy as np
@@ -2591,7 +2592,8 @@ def fp8_u_pass_phase(check, torch, mu_fused, newton_fused):
 def fp8_u_pass_edges(check, torch, mu_fused, newton_fused):
     """The fp8 forms of K1 and K2 at the edges of their tiles and of X's
     byte alignment: n in {1, 17}, m in {1, 15, 17, 4097, 11314} (rows of
-    odd m start on any byte), k in {1, 7, 20, 33, 40, 100}, and X at byte
+    odd m start on any byte), k in {1, 7, 12, 20, 33, 40, 100} (one to four
+    n8 tiles, and the wide route), and X at byte
     offsets 1 and 3 of its allocation (n = 17, m = 4097 and 11314). Each:
     outputs and workspace NaN-filled, two calls bitwise equal, equal bit for
     bit to the bf16 form on X widened to bf16, and against the plain
@@ -2678,13 +2680,84 @@ def fp8_u_pass_edges(check, torch, mu_fused, newton_fused):
 
     for n in (1, 17):
         for m in (1, 15, 17, 4097, M):
-            for k in (1, 7, 20, 33, 40, 100):
+            for k in (1, 7, 12, 20, 33, 40, 100):
                 n_cases += one(n, m, k)
     for m in (4097, M):
         for off in (1, 3):
             n_cases += one(17, m, 20, off)
     torch.cuda.empty_cache()
     log(f"  K1/K2 fp8 edges: {n_cases} cases")
+    fp8_every_pattern(check, torch, mu_fused, newton_fused)
+
+
+def nan_equal(torch, got, want) -> bool:
+    """Whether two tuples of outputs hold NaN at the same places and equal
+    bits everywhere else."""
+    return all(bool(torch.equal(a.isnan(), b.isnan())) and bool(torch.equal(
+        torch.where(a.isnan(), 0.0, a), torch.where(b.isnan(), 0.0, b)))
+        for a, b in zip(got, want))
+
+
+def fp8_every_pattern(check, torch, mu_fused, newton_fused):
+    """K1's and K2's fp8 forms on an X whose entries run through all 254
+    finite e4m3 bit patterns (±0, the subnormals, the normals to ±448) in
+    every row, at k = 20 and 40: in 4-byte-aligned rows (m = 1016, 11312)
+    and rows of odd m (1017, 11313, starting on every byte), 300 rows (row
+    segments of one, or three, 64-row blocks); each output equal bit for bit
+    to its bf16 form on X widened to bf16, and two calls bitwise equal. Then
+    the NaN bytes 0x7F and 0xFF in two rows of the odd-m X: NaN exactly
+    where the bf16 form gives NaN, the other outputs equal bit for bit."""
+    import numpy as np
+
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(SEED + 7)
+    l1, l2, eps, pert = 1e-3, 2e-3, 1e-10, 0.2
+    n = 300
+    pats = torch.tensor([b for b in range(256) if b & 0x7F != 0x7F],
+                        dtype=torch.uint8, device=dev)
+
+    def calls(X, k, U, V, Vn):
+        VtV, BtB, Hinv = upass_mats(torch, V, Vn, l2, pert)
+        row_sq = (X.float() ** 2).sum(dim=1)
+        return {"K1": lambda A: mu_fused.fused_mu_u_pass(A, U, V, VtV, l1,
+                                                         l2, eps),
+                "K2": lambda A: newton_fused.fused_newton_linear_u_pass(
+                    A, U, Vn, BtB, Hinv, row_sq, l1, l2, trials=TRIALS,
+                    non_negative=False)}
+
+    n_cases = 0
+    for m in (1016, 1017, 11312, 11313):
+        X = pats[torch.arange(n * m, device=dev) % pats.numel()].view(
+            n, m).view(torch.float8_e4m3fn)
+        Xb = X.to(torch.bfloat16)
+        for k in (20, 40):
+            _, U, V, Vn, _ = upass_inputs(torch, rng, n, m, k, dev,
+                                          signed=True)
+            for name, fn in calls(X, k, U, V, Vn).items():
+                got, again, bf = nan_filled(lambda: fn(X)), fn(X), fn(Xb)
+                same = fp8_pair_equal(torch, got, again)
+                eq = fp8_pair_equal(torch, got, bf)
+                check(same and eq, f"{name}[every finite e4m3 pattern, "
+                      f"n={n} m={m} k={k}] two calls bitwise equal {same}, "
+                      f"equal to the bf16 form on X widened {eq}")
+                n_cases += 1
+    m = 1017
+    X = pats[torch.arange(n * m, device=dev) % pats.numel()].view(n, m)
+    X[7, 5], X[100, 1000] = 0x7F, 0xFF
+    X = X.view(torch.float8_e4m3fn)
+    Xb = X.to(torch.bfloat16)
+    for k in (20, 40):
+        _, U, V, Vn, _ = upass_inputs(torch, rng, n, m, k, dev, signed=True)
+        for name, fn in calls(X, k, U, V, Vn).items():
+            got, bf = fn(X), fn(Xb)
+            shows = bool(bf[1].isnan().any())
+            eq = nan_equal(torch, got, bf)
+            check(shows and eq, f"{name}[NaN bytes 0x7F, 0xFF in rows 7 and "
+                  f"100, n={n} m={m} k={k}] the bf16 form shows NaN in numV "
+                  f"{shows}; NaN at the same places and the rest equal bit "
+                  f"for bit {eq}")
+            n_cases += 1
+    log(f"  K1/K2 fp8 every bit pattern: {n_cases} cases")
 
 
 def fp8_sigmoid_phase(check, torch, sigmoid_newton, batched_solve):

@@ -19,11 +19,15 @@ tree's build also prints the machine instructions of those kernels, from
   bell_spmm and fused_mu_update on the 20NG, RCV1 and block-structured
   shapes, and the BlockEll/CSR crossover fill;
 - ``upass``: K1 ``fused_mu_u_pass`` and K2 ``fused_newton_linear_u_pass``
-  at the main shape (X 30000 x 11314, k = 20, bf16 and f32), each held
-  against its plain version and timed with the host's wrapper (``ms``), on
-  the device alone (``device_ms``) and per kernel of the call
-  (``kernels_us``, torch.profiler), beside one read of X by ``torch.sum``
-  (``x_read``: the rate a plain stream reaches);
+  at the main shape (X 30000 x 11314, k = 20, bf16 and f32; then X rounded
+  to e4m3 at k = 20 and 40, each beside its bf16 form on X widened to
+  bf16, which it must equal bit for bit), each held against its plain
+  version and timed with the host's wrapper (``ms``), on the device alone
+  (``device_ms``) and per kernel of the call (``kernels_us``,
+  torch.profiler), its outputs digested (``bitwise``: the trees' bits must
+  agree), beside one read of X by ``torch.sum`` (``x_read``: the rate a
+  plain stream reaches; for e4m3 a sum over X's uint8 view, which
+  PyTorch's integer reduction does not run at a streaming rate);
 - ``paths``: chip_smoke phase 8's kernel-vs-plain fits of MU, Newton linear
   and path A (20 iterations), with the loss at every iteration of both;
 - ``k5k6``: K6 ``fused_mu_update`` at 20 x 20, 11314 x 20, 804414 x 20
@@ -141,38 +145,65 @@ PHASES = {
 }
 UPASS = """
 def upass_ab(check, torch, cs):
+    # K1 and K2 at the main shape: bf16 and f32 X at k = 20, then e4m3 X
+    # (the same values rounded to e4m3, as chip_smoke phase 3 rounds them)
+    # at k = 20 and 40, each e4m3 call beside its bf16 form on X widened to
+    # bf16, which it must equal bit for bit; every output is digested, so
+    # chip_ab's main compares the trees' bits
+    import hashlib
     import numpy as np
     from pycmf_tpu_torch.ops.kernels import mu_fused, newton_fused
     rng = np.random.RandomState(cs.SEED)
     dev = torch.device("cuda")
     N, M, K = cs.N, cs.M, cs.K
+    E4M3 = "float8_e4m3fn"
 
     def f32(a):
         return torch.from_numpy(a.astype(np.float32)).to(dev)
+
+    def digest(out):
+        h = hashlib.sha256()
+        for t in out:
+            h.update(t.cpu().numpy().tobytes())
+        return h.hexdigest()[:16]
 
     X32, U, V = f32(rng.rand(N, M)), f32(abs(rng.randn(N, K))), \\
         f32(abs(rng.randn(M, K)))
     Vn = f32(rng.randn(M, K))
     Xn32 = f32(abs(rng.randn(N, K))) @ Vn.T + (X32 - 0.5)
-    eye = torch.eye(K, device=dev)
-    VtV, BtB = V.T @ V, Vn.T @ Vn
-    Hinv = torch.cholesky_solve(eye, torch.linalg.cholesky(BtB + 0.202 * eye))
+    # the k = 40 operands of the e4m3 form, drawn after the k = 20 ones
+    U40, V40, Vn40 = f32(abs(rng.randn(N, 40))), f32(abs(rng.randn(M, 40))), \\
+        f32(rng.randn(M, 40))
+    Xn40_32 = f32(abs(rng.randn(N, 40))) @ Vn40.T + (X32 - 0.5)
+
+    def calls(X, Xn, U, V, Vn):
+        k = V.shape[1]
+        eye = torch.eye(k, device=dev)
+        VtV, BtB = V.T @ V, Vn.T @ Vn
+        Hinv = torch.cholesky_solve(eye, torch.linalg.cholesky(
+            BtB + 0.202 * eye))
+        rs = (Xn.float() ** 2).sum(dim=1)
+        return (("fused_mu_u_pass", mu_fused.fused_mu_u_pass,
+                 mu_fused.fused_mu_u_pass_ref,
+                 (X, U, V, VtV, 1e-3, 2e-3, 1e-10), {}),
+                ("fused_newton_linear_u_pass",
+                 newton_fused.fused_newton_linear_u_pass,
+                 newton_fused.fused_newton_linear_u_pass_ref,
+                 (Xn, U, Vn, BtB, Hinv, rs, 1e-3, 2e-3),
+                 dict(trials=cs.TRIALS, non_negative=True)))
+
+    def timed(run, got):
+        return dict(ms=cs.time_ms(run), device_ms=cs.device_ms(run),
+                    kernels_us=per_kernel(torch, run), bitwise=digest(got))
+
     rec = {}
     for xname in ("bfloat16", "float32"):
         dt = getattr(torch, xname)
         X, Xn = X32.to(dt), Xn32.to(dt)
-        rs = (Xn.float() ** 2).sum(dim=1)
         # yardstick: one read of X by PyTorch's own reduction
         rec[f"x_read[{xname}]"] = dict(device_ms=cs.device_ms(
             lambda: X.sum(dtype=torch.float32)))
-        k1 = (mu_fused.fused_mu_u_pass, mu_fused.fused_mu_u_pass_ref,
-              (X, U, V, VtV, 1e-3, 2e-3, 1e-10), {})
-        k2 = (newton_fused.fused_newton_linear_u_pass,
-              newton_fused.fused_newton_linear_u_pass_ref,
-              (Xn, U, Vn, BtB, Hinv, rs, 1e-3, 2e-3),
-              dict(trials=cs.TRIALS, non_negative=True))
-        for name, (fn, ref, args, kw) in (("fused_mu_u_pass", k1),
-                                          ("fused_newton_linear_u_pass", k2)):
+        for name, fn, ref, args, kw in calls(X, Xn, U, V, Vn):
             got, want = fn(*args, **kw), ref(*args, **kw)
             dev_row = (got[0] - want[0]).abs().amax(dim=1)
             scale = want[0].abs().amax(dim=1).clamp_min(1e-30)
@@ -180,12 +211,36 @@ def upass_ab(check, torch, cs):
             e = cs.rel_fro(got[1], want[1])
             check(agree >= 0.999 and e <= 1e-3, f"{name}[{xname}] rows "
                   f"agreeing {agree:.6f}, numV rel Frobenius {e:.3g}")
-            run = lambda: fn(*args, **kw)  # noqa: E731
-            rec[f"{name}[{xname}]"] = dict(ms=cs.time_ms(run),
-                                           device_ms=cs.device_ms(run),
-                                           kernels_us=per_kernel(torch, run))
+            rec[f"{name}[{xname}]"] = timed(lambda: fn(*args, **kw), got)
+        del X, Xn
+    X8 = X32.to(torch.float8_e4m3fn)
+    rec[f"x_read[{E4M3}]"] = dict(device_ms=cs.device_ms(
+        lambda: X8.view(torch.uint8).sum(dtype=torch.int64)))
+    for k, Xn_k, Uk, Vk, Vnk in ((K, Xn32, U, V, Vn),
+                                 (40, Xn40_32, U40, V40, Vn40)):
+        Xn8 = Xn_k.to(torch.float8_e4m3fn)
+        Xb, Xnb = X8.to(torch.bfloat16), Xn8.to(torch.bfloat16)
+        wide = calls(Xb, Xnb, Uk, Vk, Vnk)
+        for (name, fn, ref, args, kw), (_, _, _, args_b, _) in zip(
+                calls(X8, Xn8, Uk, Vk, Vnk), wide):
+            got, again = fn(*args, **kw), fn(*args, **kw)
+            bf, want = fn(*args_b, **kw), ref(*args, **kw)
+            dev_row = (got[0] - want[0]).abs().amax(dim=1)
+            scale = want[0].abs().amax(dim=1).clamp_min(1e-30)
+            agree = float((dev_row <= 1e-4 * scale).float().mean())
+            e = cs.rel_fro(got[1], want[1])
+            same = all(bool(torch.equal(a, b)) for a, b in zip(got, again))
+            eq = all(bool(torch.equal(a, b)) for a, b in zip(got, bf))
+            check(agree >= 0.999 and e <= 1e-3 and same and eq,
+                  f"{name}[{E4M3}, k={k}] rows agreeing {agree:.6f}, numV "
+                  f"rel Frobenius {e:.3g}, two calls bitwise equal {same}, "
+                  f"equal to the bf16 form on X widened {eq}")
+            rec[f"{name}[{E4M3}, k={k}]"] = timed(lambda: fn(*args, **kw),
+                                                  got)
+            rec[f"{name}[bf16 form of {E4M3}, k={k}]"] = timed(
+                lambda: fn(*args_b, **kw), bf)
+        del Xn8, Xb, Xnb
     return rec
-
 
 def paths_ab(check, torch, cs):
     # chip_smoke phase 8's kernel-vs-plain fits (MU, Newton linear, path A;

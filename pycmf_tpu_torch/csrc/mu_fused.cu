@@ -11,8 +11,10 @@
 // at 3.35 TB/s, against 0.03 ms of bf16 tensor-core work (4 n m k flops).
 // e4m3 X (fp8 storage) is 339 MB, 0.10 ms per pass, and converts each X
 // value to bf16 in registers (u_pass_common.cuh: e4m3x2_to_bf16x2) before
-// the same bf16 tensor-core products: an e4m3 call equals the bf16 call on
-// X widened to bf16 bit for bit.
+// the same bf16 tensor-core products, in stages that hold the bf16 form's
+// chains in its order (the row sweep's of the bf16 form's bytes, 128 rows
+// a CTA): an e4m3 call equals the bf16 call on X widened to bf16 bit for
+// bit.
 //
 // Design: the TPU kernel walks a sequential grid and carries the (k, m)
 // X^T U_new accumulator in VMEM across it. Hopper blocks run in parallel and

@@ -544,3 +544,42 @@ def test_fp8_launch_passes_its_code_and_counts_apart(rng, fake_launch,
         assert [a - base16 for a in bf16] == [a - base8 for a in fp8]
         assert mu_fused.u_pass_plan(n, m, k, 2, 132) == mu_fused.u_pass_plan(
             n, m, k, operand_dtype(F8).itemsize, 132)
+
+
+@pytest.mark.parametrize("kernel", ["fused_mu_u_pass",
+                                    "fused_newton_linear_u_pass"])
+@pytest.mark.parametrize("n", [1, 17, 200])
+@pytest.mark.parametrize("m", [1, 15, 4097])
+@pytest.mark.parametrize("k", [1, 20, 33, 64])
+def test_fp8_launch_edges_take_the_bf16_plan(rng, fake_launch, kernel, n, m,
+                                             k):
+    """At the edges of the U pass's tiles (one row, a ragged row block,
+    several; one column, odd m, a ragged column slice; k from one n8 tile
+    to the wide route's two 32-component slices), e4m3 X launches with
+    code 2 and the bf16 call's plan: the same leading dimensions, row
+    segments and workspace layout, which the C side's e4m3 stages split
+    into the bf16 form's chains. It counts under <kernel>_fp8 alone."""
+    X = _t(_in_range(rng, n, m))
+    U, V = _t(rng.rand(n, k)), _t(rng.rand(m, k))
+    S = _t(np.eye(k))
+    if kernel == "fused_mu_u_pass":
+        def call(A):
+            return mu_fused.fused_mu_u_pass(A, U, V, S, 0.0, 0.0, 1e-9)
+    else:
+        def call(A):
+            return newton_fused.fused_newton_linear_u_pass(
+                A, U, V, S, S, _t(np.ones(n)), 0.0, 0.0, trials=2,
+                non_negative=True)
+    policy.reset_launch_counts()
+    call(X.to(torch.bfloat16))
+    call(X.to(F8))
+    (bf16, fp8) = fake_launch.calls
+    assert (bf16[0], fp8[0]) == (1, 2)
+    # ld_vt, ld_ux, seg_rows, n_seg; then the workspace parts' offsets
+    assert bf16[-6:-2] == fp8[-6:-2]
+    plan = mu_fused.u_pass_plan(n, m, k, 2, 132)
+    assert fp8[-6:-2] == (plan.ld_vt, plan.ld_ux, plan.seg_rows, plan.n_seg)
+    assert ([a - bf16[-10] for a in bf16[-10:-6]]
+            == [a - fp8[-10] for a in fp8[-10:-6]])
+    counts = policy.launch_counts()
+    assert counts[kernel] == 1 and counts[kernel + "_fp8"] == 1
