@@ -3855,6 +3855,283 @@ def a6_phase(check, torch, est, X, make_fit, Y):
                 trace_kernels=names)
 
 
+API_RMSE_BAR = 1e-5       # reconstruction_rmse against float64: CSR, sigmoid
+API_RMSE_BF16_BAR = 1e-4  # dense bf16 X, whose product rounds V to bf16
+# float32 products at each precision: the unit roundoff of the operands'
+# rounding (TF32 11 bits, bf16 8 bits) and a floor on the relative
+# Frobenius error that shows the rounding took place
+PRECISION_U = {"highest": 0.0, "high": 2.0 ** -11, "default": 2.0 ** -8}
+PRECISION_FLOOR = {"highest": 0.0, "high": 1e-5, "default": 1e-3}
+PRECISION_N = 4096  # the square product held against float64
+
+
+def same_bits(torch, a, b) -> bool:
+    """a and b (tensors, None, or tuples of them) hold the same bits."""
+    if isinstance(a, (tuple, list)):
+        return len(a) == len(b) and all(same_bits(torch, x, y)
+                                        for x, y in zip(a, b))
+    if a is None or b is None:
+        return a is b
+    return (a.shape == b.shape and a.dtype == b.dtype and bool(torch.equal(
+        a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8))))
+
+
+def host_rmse(X, U, V) -> float:
+    """RMSE of X (sparse, its values rounded to bf16 as the card stores
+    them) − U Vᵀ in float64 on the host, U and V as float32 rounds them:
+    ‖X‖², the inner product at the nonzeros and the cross term of the
+    k × k Grams, each in float64."""
+    import numpy as np
+    import scipy.sparse as sp
+    import torch
+
+    A = sp.csr_matrix(X)
+    A.sum_duplicates()
+    a = torch.from_numpy(A.data.astype(np.float32)).to(
+        torch.bfloat16).double().numpy()
+    U = np.asarray(U, np.float32).astype(np.float64)
+    V = np.asarray(V, np.float32).astype(np.float64)
+    rows = np.repeat(np.arange(A.shape[0]), np.diff(A.indptr))
+    inner = np.dot(a, np.einsum("ij,ij->i", U[rows], V[A.indices]))
+    sq = np.dot(a, a) - 2.0 * inner + np.sum((U.T @ U) * (V.T @ V))
+    return math.sqrt(sq / (A.shape[0] * A.shape[1]))
+
+
+def host_sigmoid_rmse(Y, V, Z) -> float:
+    """RMSE of Y (rounded to bf16) − σ(V Zᵀ) in float64, directly."""
+    import numpy as np
+    import torch
+
+    Yq = torch.from_numpy(np.asarray(Y, np.float32)).to(
+        torch.bfloat16).double().numpy()
+    V = np.asarray(V, np.float32).astype(np.float64)
+    Z = np.asarray(Z, np.float32).astype(np.float64)
+    R = Yq - 1.0 / (1.0 + np.exp(-(V @ Z.T)))
+    return math.sqrt(float(np.sum(R * R)) / R.size)
+
+
+def precision_spies(check, torch, fit, targets, label):
+    """fit() under set_default_precision('default') with each (module,
+    name) of ``targets`` wrapped: every call runs again under 'highest' on
+    the same inputs, and its outputs must hold the same bits. Returns
+    fit()'s result and {name: calls}."""
+    from pycmf_tpu_torch.ops.matmul import set_default_precision
+
+    calls = {}
+
+    def wrap(mod, attr):
+        real = getattr(mod, attr)
+
+        def spy(*a, **kw):
+            out = real(*a, **kw)
+            set_default_precision("highest")
+            try:
+                again = real(*a, **kw)
+            finally:
+                set_default_precision("default")
+            calls.setdefault(attr, []).append(same_bits(torch, out, again))
+            return out
+        return spy
+
+    with ExitStack() as stack:
+        for mod, attr in targets:
+            stack.enter_context(mock.patch.object(mod, attr,
+                                                  wrap(mod, attr)))
+        set_default_precision("default")
+        try:
+            out = fit()
+        finally:
+            set_default_precision("highest")
+    names = [attr for _, attr in targets]
+    check(all(calls.get(n) and all(calls[n]) for n in names),
+          f"{label}: under 'default' each call of {names} equals its "
+          f"'highest' self bit for bit ("
+          + ", ".join(f"{n} {len(calls.get(n, []))} calls" for n in names)
+          + ")")
+    return out, {n: len(calls.get(n, [])) for n in names}
+
+
+def api_phase(check, torch, X, Y, mu_est, c_est, b_est, make_a):
+    """The reference's remaining public surface on the card: the CSR
+    constructors' default device; ``ops.spmm`` on the 20NG CSR X (bf16)
+    launching csr_spmm once, against csr_spmm_ref on the same tensors and
+    in float64; ``reconstruction_rmse`` on path C's factors launching
+    csr_rowdots once, against the plain route and a float64 host value,
+    and on the MU cell's dense bf16 X and the sigmoid Y of paths A and B
+    (path B's signed factors: path A's Z is all zero, σ(0) = ½) against
+    float64; ``matmul`` at each precision on a 4096² float32 product
+    against float64 ('highest' bit for bit today's product), no torch flag
+    touched; and one step of path A under 'default' with K2-K5 (and, on
+    the plain path, the sigmoid H product the reference pins to HIGHEST)
+    each equal to its 'highest' self. make_a(**kw): path A's estimator."""
+    import dataclasses
+
+    import numpy as np
+
+    from pycmf_tpu_torch import ops
+    from pycmf_tpu_torch.ops import losses, sparse
+    from pycmf_tpu_torch.ops.kernels import (batched_solve, newton_fused,
+                                             policy, sigmoid_newton)
+    from pycmf_tpu_torch.ops.kernels import spmm as kspmm
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    rec = {}
+
+    def on_card(C):
+        return all(t.device == dev for t in (C.data, C.indices, C.indptr,
+                                             C.row_ids, C.sq_norm))
+
+    Xc = ops.csr_from_scipy(X, torch.bfloat16)
+    Xs = X[:2000]
+    D, S = ops.csr_from_dense(Xs.toarray()), ops.csr_from_scipy(Xs)
+    check(on_card(Xc) and on_card(D) and all(
+        torch.equal(getattr(D, f), getattr(S, f))
+        for f in ("data", "indices", "indptr", "row_ids", "sq_norm")),
+        f"API: csr_from_scipy and csr_from_dense with the default device "
+        f"land on {dev}; csr_from_dense of X[:2000] equals csr_from_scipy")
+
+    def f32(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+
+    Uc, Vc = f32(c_est.U_), f32(c_est.V_)
+    before = policy.launch_counts()
+    got = ops.spmm(Xc, Vc)
+    torch.cuda.synchronize()
+    launched = policy.launches_since(before)
+    e = rel_fro(got, kspmm.csr_spmm_ref(Xc, Vc))
+    e64 = rel_fro(got, sparse.spmm(dataclasses.replace(
+        Xc, data=Xc.data.double()), Vc.double()))
+    ms = time_ms(lambda: ops.spmm(Xc, Vc), reps=5)
+    check(launched == {"csr_spmm": 1} and got.dtype == torch.float32
+          and tuple(got.shape) == (X.shape[0], K) and e <= 1e-5
+          and e64 <= 1e-5,
+          f"API: ops.spmm(X, V) on the 20NG CSR X (bf16) launched "
+          f"{launched}; rel Frobenius {e:.3g} against csr_spmm_ref on the "
+          f"same tensors, {e64:.3g} against float64 (<= 1e-5); {ms:.4f} ms")
+    rec["spmm"] = dict(launches=launched, rel_fro=e, rel_fro_f64=e64, ms=ms)
+
+    before = policy.launch_counts()
+    r = float(losses.reconstruction_rmse(Xc, Uc, Vc, "linear"))
+    launched = policy.launches_since(before)
+    r_plain = float(losses.reconstruction_rmse(Xc, Uc, Vc, "linear",
+                                               use_pallas=False))
+    r64 = host_rmse(X, c_est.U_, c_est.V_)
+    ms = time_ms(lambda: losses.reconstruction_rmse(Xc, Uc, Vc, "linear"),
+                 reps=5)
+    pms = time_ms(lambda: losses.reconstruction_rmse(
+        Xc, Uc, Vc, "linear", use_pallas=False), reps=5)
+    gap, gap64 = abs(r - r_plain) / r_plain, abs(r - r64) / r64
+    check(launched == {"csr_rowdots": 1} and gap <= API_RMSE_BAR
+          and gap64 <= API_RMSE_BAR,
+          f"API: reconstruction_rmse on path C's factors {r!r} launched "
+          f"{launched}; plain route {r_plain!r} (rel {gap:.3g}), float64 "
+          f"host {r64!r} (rel {gap64:.3g}), bar {API_RMSE_BAR}; {ms:.4f} ms, "
+          f"plain {pms:.4f} ms")
+    rec["rmse_csr"] = dict(launches=launched, rmse=r, plain=r_plain,
+                           float64=r64, ms=ms, plain_ms=pms)
+
+    Xd = sparse.to_dense(Xc)
+    Um, Vm = f32(mu_est.U_), f32(mu_est.V_)
+    before = policy.launch_counts()
+    r = float(losses.reconstruction_rmse(Xd, Um, Vm, "linear"))
+    launched = policy.launches_since(before)
+    r64 = host_rmse(X, mu_est.U_, mu_est.V_)
+    gap64 = abs(r - r64) / r64
+    check(not launched and gap64 <= API_RMSE_BF16_BAR,
+          f"API: reconstruction_rmse on the MU cell's dense bf16 X {r!r}, "
+          f"float64 host {r64!r}: rel {gap64:.3g} <= {API_RMSE_BF16_BAR} "
+          f"(V rounded to bf16 in the product, as in the reference); no "
+          f"kernel ({launched})")
+    rec["rmse_dense_bf16"] = dict(rmse=r, float64=r64)
+    del Xd
+
+    Yd = Y.toarray() if hasattr(Y, "toarray") else np.asarray(Y)
+    Yt = torch.from_numpy(np.asarray(Yd, np.float32)).to(torch.bfloat16).to(
+        dev)
+    r = float(losses.reconstruction_rmse(Yt, f32(b_est.V_), f32(b_est.Z_),
+                                         "sigmoid"))
+    r64 = host_sigmoid_rmse(Yd, b_est.V_, b_est.Z_)
+    gap64 = abs(r - r64) / r64
+    check(gap64 <= API_RMSE_BAR and bool(np.any(b_est.Z_)),
+          f"API: reconstruction_rmse on the sigmoid Y with path B's factors "
+          f"{r!r}, float64 host {r64!r}: rel {gap64:.3g} <= {API_RMSE_BAR}")
+    rec["rmse_sigmoid_y"] = dict(rmse=r, float64=r64)
+
+    # matmul at each precision, against float64
+    from pycmf_tpu_torch.ops.matmul import (get_default_precision,
+                                            set_default_precision)
+
+    n = PRECISION_N
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    a = torch.randn(n, n, device=dev, generator=gen)
+    b = torch.randn(n, n, device=dev, generator=gen)
+    want = a.double() @ b.double()
+    scale = a.double().abs() @ b.double().abs()
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.get_float32_matmul_precision())
+    today = torch.matmul(a, b)
+    rec["precision"] = {}
+    for name, u in PRECISION_U.items():
+        set_default_precision(name)
+        try:
+            out = ops.matmul(a, b)
+            gram_ok = same_bits(torch, ops.gram(a[:, :256]),
+                                ops.matmul(a[:, :256].mT, a[:, :256]))
+        finally:
+            set_default_precision("highest")
+        err = float(((out.double() - want).abs() / scale).max())
+        fro = rel_fro(out, want)
+        bar = 2.0 * u + n * 2.0 ** -24  # the operands' rounding, the sums
+        ms = time_ms(lambda: ops.matmul(a, b, precision=name), reps=5)
+        ok = (err <= bar and fro >= PRECISION_FLOOR[name] and gram_ok
+              and (name != "highest" or same_bits(torch, out, today)))
+        check(ok, f"API: matmul {n}² float32 at '{name}': max |error| / "
+                  f"(|a||b|) {err:.3g} <= {bar:.3g}, rel Frobenius "
+                  f"{fro:.3g} >= {PRECISION_FLOOR[name]:g}"
+                  + (", bit for bit today's product" if name == "highest"
+                     else "") + f", gram at the setting; {ms:.4f} ms")
+        rec["precision"][name] = dict(max_scaled_err=err, rel_fro=fro,
+                                      ms=ms)
+    raised = False
+    try:
+        ops.matmul(a, b[:100], precision="high")
+    except RuntimeError:
+        raised = True
+    check(raised and get_default_precision() == "highest"
+          and (torch.backends.cuda.matmul.allow_tf32,
+               torch.get_float32_matmul_precision()) == flags
+          and flags[0] is False,
+          f"API: no torch flag read or set (allow_tf32, float32 matmul "
+          f"precision {flags}), a raising product included")
+    del a, b, want, scale, today, out
+
+    # one step of path A under 'default': K2-K5 each equal their 'highest'
+    # selves; the factors differ where the reference's default reaches too
+    # (gram(V), matmul(M, BᵀB) in the Newton terms)
+    step = dict(max_iter=1, eval_every=1, tol=0.0, loop="host")
+    got, rec["k_calls"] = precision_spies(
+        check, torch, lambda: make_a(**step).fit_transform(X, Y),
+        ((newton_fused, "fused_newton_linear_u_pass"),
+         (sigmoid_newton, "sigmoid_gh_pass"),
+         (sigmoid_newton, "sigmoid_phi_pass"),
+         (batched_solve, "batched_spd_solve")), "API: path A step")
+    ref = make_a(**step).fit_transform(X, Y)
+    gap = factor_gap(got, ref)
+    check(all(bool(np.all(np.isfinite(f))) for f in got),
+          f"API: path A step under 'default' finite; factor gap to "
+          f"'highest' {gap:.3g} (gram(V) and matmul(M, BᵀB) follow the "
+          f"default, as in the reference)")
+    _, rec["plain_calls"] = precision_spies(
+        check, torch,
+        lambda: make_a(use_pallas=False, **step).fit_transform(X, Y),
+        ((sigmoid_newton, "sigmoid_gh_rows"),), "API: plain path A step")
+    rec["step_gap"] = gap
+    rec["seconds"] = time.perf_counter() - t_phase
+    log(f"  API phase: {rec['seconds']:.1f} s")
+    return rec
+
+
 def _gloo_probe(torch, dist, dev) -> dict:
     """Which gloo collectives take tensors on ``dev`` (both ranks make the
     same calls, so an unsupported one fails on both)."""
@@ -4206,7 +4483,7 @@ def main() -> int:
                 max_iter=10, tol=0.0, eval_every=5,
                 U_non_negative=False, V_non_negative=False,
                 Z_non_negative=False)
-    _, pb = fit_phase(
+    b_est, pb = fit_phase(
         check, lambda: CMF(**b_kw, **common), Xb, Y,
         per_iter(sigmoid_gh_pass=3, sigmoid_phi_pass=3, batched_spd_solve=3),
         "path B fit", card_sigmoid_loss(torch, Xb, Y))
@@ -4901,6 +5178,9 @@ def main() -> int:
     log("phase 9: the estimator's utilities (A6) on the card")
     a6 = a6_phase(check, torch, mu_est, X, lambda: CMF(
         **dict(mu_kw, max_iter=10, tol=0.0), **common, loop="host"), Y)
+    log("phase 10: the reference's remaining public surface (A13)")
+    api = api_phase(check, torch, X, Y, mu_est, c_est, b_est,
+                    lambda **kw: CMF(**dict(a_kw, **kw), **common))
 
     total_s = time.perf_counter() - t_start
     log(f"chip_smoke: {total_s:.1f} s from the device query to the record "
@@ -4910,6 +5190,9 @@ def main() -> int:
             + "; ".join(check.failed))
         return 1
     src = "pycmf_tpu_torch/csrc/"
+    api_launches = {
+        "csr_spmm": api["spmm"]["launches"].get("csr_spmm", 0),
+        "csr_rowdots": api["rmse_csr"]["launches"].get("csr_rowdots", 0)}
     kernels = []
     for kname, file, replaces, main, fit, extra in (
             ("fused_mu_u_pass", "mu_fused.cu", ("mu_fused.py:143",),
@@ -4998,6 +5281,8 @@ def main() -> int:
                               else "operations"),
                  "bound_detail": r["bound_by"],
                  "library_ms": r.get("library_ms")}
+        if kname in api_launches:  # phase 10's calls: ops.spmm, the RMSE
+            entry["api_launches"] = api_launches[kname]
         for f in ("device_ms", "library_device_ms", "shared_ms",
                   "shared_device_ms", "bf16_form_ms", "bf16_form_device_ms",
                   "equal_to_bf16_form"):
@@ -5037,7 +5322,7 @@ def main() -> int:
                           "slot_all_k_lu")},
                       "device_vs_host_loop": loops,
                       "phase8_gap_after_20": gaps20,
-                      "sharded": sharded, "utilities": a6,
+                      "sharded": sharded, "utilities": a6, "api": api,
                       "seconds": total_s,
                       "phase8_step_gap_max": stepped,
                       "bell_crossover": {k: v for k, v in krec.items()

@@ -25,13 +25,16 @@ group, one process per shard or cell (``parallel/sharded.py``,
 loop included (over NCCL on the card, each block's collectives captured
 into the fit's CUDA graphs). Beside fit
 and transform, the reference's sklearn surface: ``components_``,
-``inverse_transform``, ``get_feature_names_out`` and
-``print_topic_terms``; sklearn itself is imported only when sklearn asks
-for the estimator's tags (the card's machine has none).
+``inverse_transform``, ``get_feature_names_out``, ``print_topic_terms``,
+``set_output``, metadata routing and sklearn's changed-only repr; sklearn
+itself is imported only inside the methods that need it (the tags, the
+routing, the HTML repr: the card's machine has none).
 """
 from __future__ import annotations
 
+import importlib
 import inspect
+import sys
 import warnings
 
 import numpy as np
@@ -57,6 +60,34 @@ _DTYPES = {
     "bfloat16": torch.bfloat16,
 }
 _FP8_NAMES = ("fp8", "float8_e4m3fn")
+_REPR_WIDTH = 80  # sklearn's pretty printer's line width
+# set_output's containers (sklearn's ADAPTERS_MANAGER.supported_outputs)
+_OUTPUTS = ("default", "pandas", "polars")
+
+
+def _is_nan(v) -> bool:
+    return isinstance(v, (float, np.floating)) and bool(np.isnan(v))
+
+
+def _sklearn_html():
+    """(sklearn.get_config, sklearn's estimator_html_repr); AttributeError
+    when sklearn cannot be imported (the repr hooks are then absent)."""
+    try:
+        from sklearn import get_config
+        from sklearn.utils import estimator_html_repr
+    except ImportError:
+        raise AttributeError("the HTML repr needs scikit-learn") from None
+    return get_config, estimator_html_repr
+
+
+def _container_library(name: str):
+    """The library of set_output's container ``name``, imported here only;
+    a missing one raises sklearn's ImportError."""
+    try:
+        return importlib.import_module(name)
+    except ImportError as exc:
+        raise ImportError(f"Setting output container to '{name}' requires "
+                          f"{name} to be installed") from exc
 
 
 def _seed(random_state) -> int:
@@ -200,8 +231,42 @@ class CMF:
         return self
 
     def __repr__(self):
-        args = ", ".join(f"{k}={v!r}" for k, v in self.get_params().items())
-        return f"CMF({args})"
+        """sklearn's repr (``print_changed_only``): the parameters whose
+        repr differs from their default's (NaN equal to NaN), sorted by
+        name, filled into lines of 80 columns as sklearn's pretty printer
+        fills them."""
+        defaults = {name: p.default for name, p in
+                    inspect.signature(type(self).__init__).parameters.items()}
+
+        def changed(name, value):
+            d = defaults[name]
+            return repr(value) != repr(d) and not (_is_nan(value)
+                                                   and _is_nan(d))
+
+        head = type(self).__name__ + "("
+        items = [f"{k}={v!r}" for k, v in sorted(self.get_params().items())
+                 if changed(k, v)]
+        one_line = head + ", ".join(items) + ")"
+        if len(one_line) <= _REPR_WIDTH:
+            return one_line
+        # sklearn's compact fill: each item takes its length + 2 of a line
+        # of width - indent + 1 columns, the last also its closing ")"
+        indent = len(head)
+        out, delim = [head], ""
+        width = max_width = _REPR_WIDTH - indent + 1
+        for i, rep in enumerate(items):
+            if i == len(items) - 1:
+                width -= 1
+                max_width -= 1
+            w = len(rep) + 2
+            if width < w:
+                width = max_width
+                if delim:
+                    delim = ",\n" + " " * indent
+            width -= w
+            out += [delim, rep]
+            delim = ", "
+        return "".join(out) + ")"
 
     # -- internals ---------------------------------------------------------
 
@@ -490,7 +555,12 @@ class CMF:
     def fit_transform(self, X, Y=None, U=None, V=None, Z=None):
         """Fit the model to (X, Y) and return the factors (U, V, Z).
 
-        U/V/Z, when given, are the initial factors (warm start / resume)."""
+        U/V/Z, when given, are the initial factors (warm start / resume).
+        U is in the container :meth:`set_output` chose."""
+        U_, V_, Z_ = self._fit(X, Y, U, V, Z)
+        return self._wrap_output(U_, X), V_, Z_
+
+    def _fit(self, X, Y=None, U=None, V=None, Z=None):
         X, Y = self._validate(X, Y)
         if self.n_components is None:
             raise ValueError("n_components must be set")
@@ -543,10 +613,14 @@ class CMF:
         return self
 
     def transform(self, X, U=None):
-        """Fold-in: solve for U on new rows of X holding the fitted V fixed.
+        """Fold-in: solve for U on new rows of X holding the fitted V fixed,
+        returned in the container :meth:`set_output` chose.
 
         The initial U is the reference's draw: a fresh
         ``RandomState(random_state)`` (or the given RandomState)."""
+        return self._wrap_output(self._transform(X, U), X)
+
+    def _transform(self, X, U=None):
         if not hasattr(self, "V_"):
             raise RuntimeError("transform called before fit")
         mu = self.solver == "mu"
@@ -599,6 +673,108 @@ class CMF:
                 "get_feature_names_out is only available after fit")
         return np.asarray([f"cmf{i}" for i in range(self.n_components_)],
                           dtype=object)
+
+    # -- sklearn's mixin surface, without sklearn on the import path -----
+
+    def set_output(self, *, transform=None):
+        """The container of transform's and fit_transform's U: 'default'
+        (NumPy, or sklearn's global ``transform_output`` when sklearn is
+        imported and no setting was made here), 'pandas' or 'polars' (that
+        library imported at the call that needs it), as sklearn's
+        ``set_output``; None leaves the setting as it is."""
+        if transform is None:
+            return self
+        if not hasattr(self, "_sklearn_output_config"):
+            self._sklearn_output_config = {}
+        self._sklearn_output_config["transform"] = transform
+        return self
+
+    def _wrap_output(self, data, X):
+        """``data`` (transform's output for input X) in the chosen
+        container, as sklearn's ``_wrap_data_with_container`` makes it:
+        columns ``get_feature_names_out()``, X's index if X has one."""
+        config = getattr(self, "_sklearn_output_config", {})
+        sklearn = sys.modules.get("sklearn")
+        if "transform" in config:
+            dense = config["transform"]
+        elif sklearn is not None:
+            dense = sklearn.get_config()["transform_output"]
+        else:
+            dense = "default"
+        if dense not in _OUTPUTS:
+            raise ValueError(f"output config must be in {sorted(_OUTPUTS)}, "
+                             f"got {dense}")
+        if dense == "default":
+            return data
+        columns = self.get_feature_names_out()
+        if dense == "polars":
+            pl = _container_library("polars")
+            return pl.DataFrame(data, schema=columns.tolist(), orient="row")
+        pd = _container_library("pandas")
+        index = X.index if isinstance(X, (pd.DataFrame, pd.Series)) else None
+        out = pd.DataFrame(data, index=index, copy=False)
+        out.columns = columns
+        return out
+
+    @classmethod
+    def _get_class_level_metadata_request_values(cls, method_name,
+                                                 method=None,
+                                                 ignore_params=None):
+        from sklearn.utils._metadata_requests import _MetadataRequester
+
+        return _MetadataRequester._get_class_level_metadata_request_values \
+            .__func__(cls, method_name, method, ignore_params)
+
+    def _get_metadata_request(self):
+        from sklearn.utils._metadata_requests import _MetadataRequester
+
+        return _MetadataRequester._get_metadata_request(self)
+
+    def get_metadata_routing(self):
+        """sklearn's MetadataRequest of this estimator: ``U`` routed to
+        transform and inverse_transform (sklearn imported here only)."""
+        return self._get_metadata_request()
+
+    def _set_request(self, method: str, **kwargs):
+        from sklearn.utils._metadata_requests import RequestMethod
+
+        keys = sorted(self._get_class_level_metadata_request_values(method))
+        return RequestMethod(method, keys).__get__(self, type(self))(**kwargs)
+
+    def set_transform_request(self, **kwargs):
+        """sklearn's ``set_transform_request`` (``U=True`` etc.; needs
+        ``sklearn.set_config(enable_metadata_routing=True)``)."""
+        return self._set_request("transform", **kwargs)
+
+    def set_inverse_transform_request(self, **kwargs):
+        """sklearn's ``set_inverse_transform_request``."""
+        return self._set_request("inverse_transform", **kwargs)
+
+    @property
+    def _repr_html_(self):
+        """sklearn's HTML repr when sklearn is importable and its
+        ``display`` is 'diagram'; otherwise absent (AttributeError, so
+        ``hasattr`` is False)."""
+        get_config, html = _sklearn_html()
+        if get_config()["display"] != "diagram":
+            raise AttributeError("_repr_html_ is only defined when the "
+                                 "'display' configuration option is set to "
+                                 "'diagram'")
+        return lambda: html(self)
+
+    @property
+    def _repr_mimebundle_(self):
+        """sklearn's mime bundle (text/plain, and text/html under the
+        'diagram' display) when sklearn is importable; otherwise absent."""
+        get_config, html = _sklearn_html()
+
+        def bundle(**kwargs):
+            out = {"text/plain": repr(self)}
+            if get_config()["display"] == "diagram":
+                out["text/html"] = html(self)
+            return out
+
+        return bundle
 
     @property
     def components_(self):

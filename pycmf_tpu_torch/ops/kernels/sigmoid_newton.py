@@ -31,6 +31,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from .. import losses
+from ..matmul import matmul
 from . import _build
 from .mu_fused import (X_CODES, _sm_count, check_card_operands,
                        check_data_dtype, launches)
@@ -164,7 +165,8 @@ def sigmoid_gh_rows(D, M, B, hessian_form: str = "gauss", mask=None):
             W = W + R * (fp * (1.0 - 2.0 * P))
         if mask is not None:
             Rfp, W = Rfp * mask, W * mask
-        return Rfp @ Bf, W @ BB
+        # H pinned to true float32, as the reference pins its einsum
+        return Rfp @ Bf, matmul(W, BB, precision="highest")
 
     bs = losses.rows_per_block(q)
     if bs >= p:

@@ -143,10 +143,12 @@ def _launch(symbol: str, A: CsrMatrix, factors, out: torch.Tensor,
 
 
 def csr_spmm(A: CsrMatrix, B: torch.Tensor) -> torch.Tensor:
-    """A @ B for CSR A (p, q) and dense B (q, k) → (p, k) float32.
+    """A @ B for CSR A (p, q) and dense B (q, k) → (p, k), at the
+    promotion of B's and the values' dtypes (``ops.spmm``).
 
-    CUDA tensors launch ``csrc/csr_spmm.cu``; CPU tensors take
-    :func:`csr_spmm_ref`."""
+    CUDA tensors launch ``csrc/csr_spmm.cu`` (float32 or bf16 values,
+    float32 B, so float32 out; float64 raises naming ROADMAP C1); CPU
+    tensors take :func:`csr_spmm_ref`."""
     if not on_card(A.data, B):
         return csr_spmm_ref(A, B)
     p, q = A.shape

@@ -224,3 +224,26 @@ def total_loss(X, Y, U, V, Z, x_link: str, y_link: str, alpha, l1_ratio,
                                           use_pallas)
         loss = loss + penalty(Z, alpha, l1_ratio)
     return loss
+
+
+def reconstruction_rmse(A, M: torch.Tensor, B: torch.Tensor, link: str,
+                        use_pallas=None) -> torch.Tensor:
+    """RMSE of A − f(M Bᵀ) over all p·q entries, √(2·reconstruction_term
+    / (p·q)): the reference's benchmark parity metric
+    (``pycmf_tpu/ops/losses.py:reconstruction_rmse``), for dense, CSR,
+    chunked or (linear link) BlockEll A at any storage dtype.
+
+    ``use_pallas`` None resolves by device, as the estimator does: CUDA
+    factors take the kernels (a linear-link CSR A ``csr_rowdots``), CPU
+    factors the plain route. A BlockEll A, a layout of the kernel route
+    only, takes ``bell_inner`` (``bell_spmm``) on either device."""
+    p, q = A.shape
+    if use_pallas is None:
+        use_pallas = M.is_cuda
+    if isinstance(A, kbell.BlockEll) and link == LINEAR:
+        # A is the transposed layout of the term Aᵀ ≈ B Mᵀ:
+        # ⟨A, M Bᵀ⟩ = Σ((A B) ⊙ M) = bell_inner(A, B, M)
+        term = _linear_term(A, B, M, bell_t=A, use_pallas=True)
+    else:
+        term = reconstruction_term(A, M, B, link, use_pallas=use_pallas)
+    return torch.sqrt(2.0 * term / (p * q))

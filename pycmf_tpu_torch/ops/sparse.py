@@ -55,6 +55,17 @@ class CsrMatrix:
     def device(self) -> torch.device:
         return self.data.device
 
+    def astype(self, dtype: torch.dtype) -> "CsrMatrix":
+        """The same matrix with its values cast to ``dtype``; the index
+        arrays are kept as they are. ``sq_norm`` is cast, never summed
+        again (a half-precision sum would bias the factored loss): float32
+        for a dtype of fewer than 4 bytes, else ``dtype`` (the reference's
+        rule, ``pycmf_tpu/ops/sparse.py:CsrMatrix.astype``, which differs
+        from :func:`csr_from_scipy`'s bf16-only rule)."""
+        sq_dt = torch.float32 if dtype.itemsize < 4 else dtype
+        return dataclasses.replace(self, data=self.data.to(dtype),
+                                   sq_norm=self.sq_norm.to(sq_dt))
+
 
 def is_sparse(A) -> bool:
     """Whether A is a sparse layout (CSR or BlockEll), not a dense tensor."""
@@ -65,10 +76,23 @@ def _sq_dtype(dtype: torch.dtype) -> torch.dtype:
     return torch.float32 if dtype == torch.bfloat16 else dtype
 
 
-def csr_from_scipy(A, dtype=torch.float32, device="cpu") -> CsrMatrix:
-    """A scipy.sparse matrix as a CsrMatrix on ``device`` (host, at fit
-    time). Duplicates are summed first. ``sq_norm`` sums the squares of the
-    values as stored (rounded to ``dtype``) in float64, then casts."""
+def _check_device(device) -> torch.device:
+    """``device`` as a torch.device; 'cuda' without a card raises."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise ValueError(
+            "device='cuda' (the default) but torch.cuda.is_available() is "
+            "False; pass device='cpu' to build the matrix on the CPU")
+    return dev
+
+
+def csr_from_scipy(A, dtype=torch.float32, device="cuda") -> CsrMatrix:
+    """A scipy.sparse matrix as a CsrMatrix on ``device`` (built on the
+    host, at fit time; the card by default, as the reference's lands on
+    its default device). Duplicates are summed first. ``sq_norm`` sums the
+    squares of the values as stored (rounded to ``dtype``) in float64,
+    then casts."""
+    device = _check_device(device)
     A = sp.csr_matrix(A)
     A.sum_duplicates()
     data = torch.from_numpy(np.ascontiguousarray(A.data)).to(dtype)
@@ -85,9 +109,15 @@ def csr_from_scipy(A, dtype=torch.float32, device="cpu") -> CsrMatrix:
                      tuple(int(s) for s in A.shape))
 
 
+def csr_from_dense(A, dtype=torch.float32, device="cuda") -> CsrMatrix:
+    """A dense host array as a CsrMatrix, through :func:`csr_from_scipy`."""
+    return csr_from_scipy(sp.csr_matrix(np.asarray(A)), dtype, device)
+
+
 def csr_transpose_host(A, dtype=torch.float32,
-                       device="cpu") -> Tuple[CsrMatrix, CsrMatrix]:
-    """(csr(A), csr(Aᵀ)) at the same dtype, both built on the host."""
+                       device="cuda") -> Tuple[CsrMatrix, CsrMatrix]:
+    """(csr(A), csr(Aᵀ)) at the same dtype, both built on the host and
+    placed on ``device`` (the card by default)."""
     A = sp.csr_matrix(A)
     return (csr_from_scipy(A, dtype, device),
             csr_from_scipy(A.T.tocsr(), dtype, device))

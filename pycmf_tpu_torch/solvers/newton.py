@@ -227,7 +227,7 @@ def _accumulate_term(M, term: Term, link: str, use_pallas: bool = False,
             row_sq = masked_row_sq_norms(D, mv, use_pallas)
         else:
             Df = D.to(M.dtype)
-            row_sq = (Df * Df) @ mv
+            row_sq = matmul(Df * Df, mv, precision="highest")
         G = matmul(M, BtB) - DB
         return G, BtB, None, _LinearCtx(DB, BtB, row_sq)
     BtB = gram(B) if btb is None else btb

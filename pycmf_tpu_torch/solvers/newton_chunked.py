@@ -37,6 +37,7 @@ from ..ops.chunked import (ChunkedCoo, _chunk_rows, _pad_rows,
                            densify_chunk, valid_rows)
 from ..ops.kernels.sigmoid_newton import sigmoid_gh_rows
 from ..ops.linesearch import backtracking_select
+from ..ops.matmul import matmul
 
 
 def _sigmoid_parts(Xc, Mc, B, hessian_form: str):
@@ -192,7 +193,7 @@ def chunked_sigmoid_colwise_terms(X: ChunkedCoo, M, B, hessian_form: str,
             w = vc[i:j, None]
             BB = (bc[i:j, :, None] * bc[i:j, None, :]).reshape(j - i, k * k)
             G = G + (Rfp * w).mT @ bc[i:j]
-            H = H + (W * w).mT @ BB
+            H = H + matmul((W * w).mT, BB, precision="highest")
     return G, H.reshape(m, k, k)
 
 

@@ -112,7 +112,8 @@ def test_masked_row_sq_norms_matches_reference(rng, dtype):
                                        jnp.asarray(mask))
     for use_pallas in (False, True):
         got = tsparse.masked_row_sq_norms(
-            tsparse.csr_from_scipy(A, dtype), _t(mask), use_pallas)
+            tsparse.csr_from_scipy(A, dtype, device="cpu"), _t(mask),
+            use_pallas)
         np.testing.assert_allclose(_np(got), _np(want), rtol=1e-12)
 
 
@@ -126,7 +127,7 @@ def test_masked_row_sq_norms_of_block_ell(rng):
     mask = _t((rng.rand(200) < 0.5).astype(np.float64))
     bell = tbell.bell_from_scipy(A, torch.float64)
     want = tsparse.masked_row_sq_norms(
-        tsparse.csr_from_scipy(A, torch.float64), mask)
+        tsparse.csr_from_scipy(A, torch.float64, device="cpu"), mask)
     got = tsparse.masked_row_sq_norms(bell, mask)
     np.testing.assert_allclose(_np(got), _np(want), rtol=1e-12, atol=0)
 
@@ -140,7 +141,8 @@ def _update_case(rng, case):
     B = np.abs(rng.randn(q, k))
     if case == "csr":
         D = sp.random(p, q, density=0.4, random_state=rng, format="csr")
-        return (M, [tnewton.Term(tsparse.csr_from_scipy(D, torch.float64),
+        return (M, [tnewton.Term(tsparse.csr_from_scipy(D, torch.float64,
+                                                         device="cpu"),
                                   _t(B))],
                 [jnewton.Term(jsparse.csr_from_scipy(D, jnp.float64),
                               jnp.asarray(B))], ("linear",), "gauss")

@@ -77,7 +77,7 @@ def _pair_csr(A, dtype="float64"):
     tdt = {"float64": torch.float64, "float32": torch.float32,
            "bfloat16": torch.bfloat16}[dtype]
     return (jsparse.csr_from_scipy(A, dtype=getattr(jnp, dtype)),
-            tsparse.csr_from_scipy(A, tdt))
+            tsparse.csr_from_scipy(A, tdt, device="cpu"))
 
 
 # -- ops/sparse.py -----------------------------------------------------------
@@ -115,7 +115,7 @@ def test_csr_from_scipy_matches_reference(rng, dtype):
 
 def test_csr_transpose_host(rng):
     A = _scattered(rng)
-    C, Ct = tsparse.csr_transpose_host(A, torch.float64)
+    C, Ct = tsparse.csr_transpose_host(A, torch.float64, device="cpu")
     np.testing.assert_array_equal(_np(tsparse.to_dense(Ct)),
                                   A.toarray().T)
     assert Ct.shape == (40, 60)
@@ -132,7 +132,8 @@ def test_csr_spmm_ref_matches_spmm_tiled(rng, dtype):
     bdt = torch.float64 if dtype == "float64" else torch.float32
     want = spmm_tiled(tile_csr_from_matrix(jsparse.csr_from_scipy(
         A, getattr(jnp, dtype))), jnp.asarray(B, _jdt(bdt)))
-    got = tspmm.csr_spmm(tsparse.csr_from_scipy(A, getattr(torch, dtype)),
+    got = tspmm.csr_spmm(tsparse.csr_from_scipy(A, getattr(torch, dtype),
+                                                device="cpu"),
                          torch.from_numpy(B).to(bdt))
     assert got.dtype == bdt
     np.testing.assert_allclose(_np(got), _np(want),
@@ -149,7 +150,7 @@ def test_csr_spmm_ref_matches_onehot_f32(rng, transposed):
     comparison is at float32 storage."""
     A = _scattered(rng)
     L = jonehot.onehot_from_scipy(A, jnp.float32)
-    C, Ct = tsparse.csr_transpose_host(A, torch.float32)
+    C, Ct = tsparse.csr_transpose_host(A, torch.float32, device="cpu")
     B = np.abs(rng.randn(60 if transposed else 40, 6)).astype(np.float32)
     if transposed:
         want = jonehot.onehot_spmm(jonehot.OneHotStripsT(L), jnp.asarray(B))
@@ -165,7 +166,8 @@ def test_csr_rowdots_ref_matches_sddmm_tiled_f64(rng):
     M, B = rng.randn(60, 5), rng.randn(40, 5)
     want = sddmm_rowdots_tiled(tile_csr_from_matrix(jsparse.csr_from_scipy(
         A, jnp.float64)), jnp.asarray(M), jnp.asarray(B))
-    got = tspmm.csr_rowdots(tsparse.csr_from_scipy(A, torch.float64),
+    got = tspmm.csr_rowdots(tsparse.csr_from_scipy(A, torch.float64,
+                                                   device="cpu"),
                             torch.from_numpy(M), torch.from_numpy(B))
     np.testing.assert_allclose(_np(got), _np(want), rtol=1e-12, atol=1e-13)
 
@@ -293,7 +295,7 @@ def test_bell_sq_norm_matches_csr(rng, dtype):
     bit (float32 under bf16 data)."""
     A = block_sparse_matrix(384, 256, 0.5, rng)
     L = tbell.bell_from_scipy(A, getattr(torch, dtype))
-    C = tsparse.csr_from_scipy(A, getattr(torch, dtype))
+    C = tsparse.csr_from_scipy(A, getattr(torch, dtype), device="cpu")
     assert L.sq_norm.dtype == C.sq_norm.dtype
     assert float(L.sq_norm) == float(C.sq_norm)
 
@@ -319,7 +321,8 @@ def test_csr_spmm_ref_matches_spmm_tiled_wide_k(rng, k):
     B = rng.randn(40, k)
     want = spmm_tiled(tile_csr_from_matrix(jsparse.csr_from_scipy(
         A, jnp.float64)), jnp.asarray(B))
-    got = tspmm.csr_spmm(tsparse.csr_from_scipy(A, torch.float64),
+    got = tspmm.csr_spmm(tsparse.csr_from_scipy(A, torch.float64,
+                                                device="cpu"),
                          torch.from_numpy(B))
     np.testing.assert_allclose(_np(got), _np(want), rtol=1e-12, atol=1e-14)
 
@@ -330,7 +333,8 @@ def test_csr_rowdots_ref_matches_sddmm_tiled_wide_k(rng, k):
     M, B = rng.randn(60, k), rng.randn(40, k)
     want = sddmm_rowdots_tiled(tile_csr_from_matrix(jsparse.csr_from_scipy(
         A, jnp.float64)), jnp.asarray(M), jnp.asarray(B))
-    got = tspmm.csr_rowdots(tsparse.csr_from_scipy(A, torch.float64),
+    got = tspmm.csr_rowdots(tsparse.csr_from_scipy(A, torch.float64,
+                                                   device="cpu"),
                             torch.from_numpy(M), torch.from_numpy(B))
     np.testing.assert_allclose(_np(got), _np(want), rtol=1e-12, atol=1e-13)
 
@@ -392,7 +396,7 @@ def test_sparse_card_operand_checks_take_any_k(rng, k):
     ROADMAP C1."""
     A = _scattered(rng)
     for dt in (torch.float32, torch.bfloat16):
-        C = tsparse.csr_from_scipy(A, dt)
+        C = tsparse.csr_from_scipy(A, dt, device="cpu")
         assert tspmm._check_card_operands(
             C, ((torch.zeros(60, k), 60), (torch.zeros(40, k), 40))) == k
         L = tbell.bell_from_scipy(A, dt)
@@ -400,7 +404,8 @@ def test_sparse_card_operand_checks_take_any_k(rng, k):
     tmu_update.check_card_operands(torch.zeros(5, k), torch.zeros(k, k),
                                    torch.zeros(5, k))
     with pytest.raises(NotImplementedError, match="ROADMAP C1"):
-        tspmm._check_card_operands(tsparse.csr_from_scipy(A, torch.float64),
+        tspmm._check_card_operands(tsparse.csr_from_scipy(A, torch.float64,
+                                                          device="cpu"),
                                    ((torch.zeros(40, k), 40),))
     with pytest.raises(NotImplementedError, match="ROADMAP C1"):
         tbell.check_card_operands(tbell.bell_from_scipy(A, torch.float64),
@@ -433,7 +438,8 @@ def test_sigmoid_term_on_sparse_layout_raises(rng, layout):
     makes one for a sigmoid-linked matrix); over CSR it is the reference's
     ΣS² + Σ_nnz(a² − 2a·S), f64 rtol 1e-12."""
     A = block_sparse_matrix(384, 256, 0.5, rng)
-    L = (tsparse.csr_from_scipy(A, torch.float64) if layout == "csr"
+    L = (tsparse.csr_from_scipy(A, torch.float64, device="cpu")
+         if layout == "csr"
          else tbell.bell_from_scipy(A, torch.float64))
     assert tsparse.is_sparse(L)
     M, B = 0.3 * rng.randn(384, 3), 0.3 * rng.randn(256, 3)

@@ -268,7 +268,8 @@ def test_exports_match_the_reference():
 
 def test_import_pulls_in_neither_sklearn_nor_jax():
     root = Path(__file__).resolve().parents[1]
-    code = ("import sys, pycmf_tpu_torch, pycmf_tpu_torch.utils; "
+    code = ("import sys, pycmf_tpu_torch, pycmf_tpu_torch.utils, "
+            "pycmf_tpu_torch.ops, pycmf_tpu_torch.solvers, pycmf_torch; "
             "print('sklearn' in sys.modules, 'jax' in sys.modules)")
     out = subprocess.run([sys.executable, "-c", code], cwd=root,
                          capture_output=True, text=True, timeout=120)
