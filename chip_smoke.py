@@ -45,7 +45,12 @@ Phases (any failure exits non-zero and prints no ok line):
     20}, m or q in {1, 15, 17, 4097, 11314}, X at odd byte offsets);
     fit_loop's stop_rule_kernel against stop_rule_ref on crafted loss
     sequences (NaN, +-inf, L0 <= 0, equal losses, ties at tol), bit for
-    bit, and timed eagerly and per block inside a fit graph;
+    bit, and timed eagerly and per block inside a fit graph; threefry's
+    kernel against threefry2x32_ref bit for bit (the Random123 vectors, n
+    in {1, 2, 4097, 30000, 804414} in each form), the card's
+    choice_without_replacement against digests computed with JAX, a graph
+    of two sampled steps' draws (no node a conditional body refuses, its
+    replays drawing from the device counter), each timed;
  4. MU fit of the 20NG-shaped surrogate, bf16 X, through the estimator:
     kernel launches, and the exact (float64) loss non-increasing along the
     fit, replayed as warm-started segments;
@@ -89,17 +94,16 @@ Phases (any failure exits non-zero and prints no ok line):
  7c. the device loop (loop='device': a key's first fit replays a graph
     of one eval block per block; its second builds the cache's one entry;
     every later fit of the key is one launch of a CUDA graph, the eval
-    block in a conditional while node; a sampled fit replays the cached
-    eval block per block; what loop='auto' runs on the card, so phases 4-7
-    run it too) against the host loop on MU,
+    block in a conditional while node, a sampled fit's too, its draws
+    keyed on a device counter; what loop='auto' runs on the card, so
+    phases 4-7 run it too) against the host loop on MU,
     Newton linear and paths A, C, D, F, S, S4 and SD and the MU cell and
     path A at k = 40, and paths H, A at k = 100, K, KA, KB, KS and the
     fp8 MU cell, path A and path B, each after an untimed host fit, from
     an emptied fit cache: the key's first device fit (no entry left), the
     fit that builds the entry (its copies, captures and graph build timed
     apart), then two fits per loop, each device fit a cache hit (no
-    capture, no eager block; one graph launch, or a replay per block when
-    sampled): the same n_iter_ and eval points, bit for bit (losses within
+    capture, no eager block; one graph launch): the same n_iter_ and eval points, bit for bit (losses within
     1e-6 relative and factors within 1e-5 also printed), equal launch
     counts but fit_loop's (one per eval block, and a fit graph's gates),
     the first hit's factors unchanged by the second and none of them a
@@ -108,8 +112,8 @@ Phases (any failure exits non-zero and prints no ok line):
     hit), the first and the building fit's ms/iter, each device fit's
     peak memory above its start, the cache entry's bytes, pool bytes and
     graph nodes, device ms/iter, idle share, host launch calls and graph
-    launches per fit; two fits of path S with one random_state equal,
-    with another not;
+    launches per fit; two fits of paths S, S4, SD and KS each with one
+    random_state equal, with another not;
  R. the sharded fits (n_shards, parallel/sharded.py, parallel/grid.py)
     at the main path's full width: R1, run_sharded on a one-rank NCCL
     group in this process, MU and path A against the single-device
@@ -156,17 +160,19 @@ Phases (any failure exits non-zero and prints no ok line):
     K1 (K) and K2 (KA) launched per chunk as on the single device, K5 on
     S; R1c K and R1g K, path K in the cols layout and on the (1, 1) grid
     to its n_iter (tol 0), exact-loss gap 1e-5; R2 S, path S in the R2
-    spawn, its ranks drawing from their own and the shared streams, within
-    R2S_BAR of path S's exact loss and below the initial factors'; R2g K,
+    spawn, its ranks drawing the reference's per-rank columns, within the
+    range of path S's single-device exact losses over R2S_SEEDS keys from
+    the same initial factors, widened by R2S_BAR, and below the initial
+    factors'; R2g K,
     path K on the (2, 2) grid in the R2g spawn; every R2-family rank's
     factors equal bit for bit (by digest); R1d, the device loop under
     shards (loop='device': each block's all-reduces captured into the
     fit's CUDA graphs) on a one-rank NCCL group: rows MU, rows path A,
     cols path A, grid (1, 1) path A, rows path S and rows path K, each
     from an emptied fit cache as the key's first fit, its second (builds
-    the cache entry) and two hits (one launch of the fit graph; a replay
-    per block when sampled or when the captured block holds a node type a
-    conditional body refuses, named), every one bit for bit with the
+    the cache entry) and two hits (one launch of the fit graph, path S's
+    too; a replay per block only when the captured block holds a node type
+    a conditional body refuses, named), every one bit for bit with the
     host loop of the same sharded call (n_iter, losses, U, V, Z) with
     equal COMM calls and bytes and, for the hits, equal kernel launches
     but fit_loop's; ms/iter of each, the hit's host launch calls and
@@ -1543,6 +1549,162 @@ def fit_loop_phase(check, torch):
     return {"fit_loop": rec}
 
 
+# Random123's known-answer vectors for Threefry-2x32 (JAX's random_test.py
+# takes them): key, counter, output
+THREEFRY_KNOWN = (
+    ((0x00000000, 0x00000000), (0x00000000, 0x00000000),
+     (0x6B200159, 0x99BA4EFE)),
+    ((0xFFFFFFFF, 0xFFFFFFFF), (0xFFFFFFFF, 0xFFFFFFFF),
+     (0x1CB996FC, 0xBB002BE7)),
+    ((0x13198A2E, 0x03707344), (0x243F6A88, 0x85A308D3),
+     (0xC4923A9C, 0x483DF7A0)))
+THREEFRY_N = (1, 2, 4097, 30000, 804414)
+# integer operations of one hash (a thread's): 20 rounds of add, rotate
+# and xor, five injections of three adds, the key schedule's xors
+THREEFRY_OPS = 82
+# jax.random.choice(fold_in(PRNGKey(0), 0), q, (s,), replace=False) with
+# JAX 0.9 (threefry2x32, partitionable) on the CPU: the first 8 indices and
+# the sum of all s
+CHOICE_DIGESTS = {
+    (11314, 2829): ((4974, 8213, 867, 4659, 2012, 6936, 8142, 3486),
+                    16122259),
+    (30000, 7500): ((7709, 25523, 24448, 14183, 3980, 15696, 2601, 26486),
+                    111959153),
+}
+
+
+def threefry_phase(check, torch):
+    """threefry_kernel (csrc/threefry.cu) against its plain version on the
+    card, bit for bit: the three known-answer vectors; n in THREEFRY_N in
+    each form (xor bits, pairs, the derived key read from a device
+    counter, a counter start past 2^32); then choice_without_replacement
+    on the card against CHOICE_DIGESTS (computed with JAX) and against the
+    same draw on the CPU (the plain version); and a graph of two sampled
+    steps' key schedule and draws (step_keys, term_key, draw_columns, the
+    counter's advance): its node types must all be ones a conditional
+    body takes (fit_loop.refused_node), and its replays must draw what
+    eager steps from the same counter draw. Times: CUDA events around one
+    call (the host's wrapper included) and device alone, the plain
+    version's, the bound (the outputs' bytes, THREEFRY_OPS integer
+    operations per output at the card's 67 T operations/s outside the
+    tensor cores), and one whole draw."""
+    import numpy as np
+
+    from pycmf_tpu_torch.ops import random as trandom
+    from pycmf_tpu_torch.ops.kernels import fit_loop as kfit
+    from pycmf_tpu_torch.ops.kernels import threefry as kthree
+    from pycmf_tpu_torch.solvers.common import fit_stream
+    from pycmf_tpu_torch.solvers.newton import draw_columns, term_key
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    i64 = torch.int64
+    for key, ctr, want in THREEFRY_KNOWN:
+        got = kthree.threefry_bits(torch.tensor(key, dtype=i64, device=dev),
+                                   1, start=(ctr[0] << 32) | ctr[1],
+                                   form=kthree.PAIRS)[0].tolist()
+        check(tuple(got) == want,
+              f"threefry known answer: key {key[0]:#x} {key[1]:#x}, counter "
+              f"{ctr[0]:#x} {ctr[1]:#x} -> {got[0]:#x} {got[1]:#x} (want "
+              f"{want[0]:#x} {want[1]:#x})")
+    rs = np.random.RandomState(SEED)
+    key = torch.tensor(rs.randint(0, 2 ** 32, 2).astype(np.int64), device=dev)
+    base = torch.tensor(123456, dtype=i64, device=dev)
+    forms = {"bits": {}, "pairs": dict(form=kthree.PAIRS),
+             "sort_keys": dict(form=kthree.SORT_KEYS),
+             "derived": dict(base=base, offset=7),
+             "derived_pairs_past_2^32": dict(base=base, offset=3,
+                                              form=kthree.PAIRS,
+                                              start=2 ** 32 - 5)}
+    bad = []
+    for n in THREEFRY_N:
+        for name, kw in forms.items():
+            if not torch.equal(kthree.threefry_bits(key, n, **kw),
+                               kthree.threefry_bits_ref(key, n, **kw)):
+                bad.append((n, name))
+    torch.cuda.synchronize()
+    check(not bad, f"threefry: the kernel equals threefry2x32_ref bit for "
+          f"bit at n {THREEFRY_N} in forms {list(forms)} (unequal: {bad})")
+    rec = {}
+    for n in (30000, 804414):
+        def kern():
+            return kthree.threefry_bits(key, n)
+
+        def plain():
+            return kthree.threefry_bits_ref(key, n)
+        b_ms, by = bound(8 * n + 16, THREEFRY_OPS * n, F32_FLOPS)
+        rec[f"threefry[{n}]"] = dict(
+            max_abs_err=0.0 if not bad else math.inf,
+            ms=time_ms(kern, reps=20), device_ms=device_ms(kern, reps=20),
+            plain_ms=time_ms(plain, reps=5), bound_ms=b_ms,
+            bound_by="bytes" if by == "bytes" else "operations",
+            library_ms=None)
+        r = rec[f"threefry[{n}]"]
+        log(f"  threefry n={n}: {r['ms']:.4f} ms per call ({r['device_ms']:.4f}"
+            f" on the device), plain {r['plain_ms']:.4f} ms, bound "
+            f"{r['bound_ms']:.2e} ms ({by})")
+    small = lambda: kthree.threefry_bits(key, 3, base=base,  # noqa: E731
+                                         offset=1, form=kthree.PAIRS)
+    rec["threefry[step_keys]"] = dict(ms=time_ms(small, reps=50),
+                                      device_ms=device_ms(small, reps=50))
+    k0 = trandom.fold_in(trandom.prng_key(0, dev), 0)
+    for (q, s), (first, total) in CHOICE_DIGESTS.items():
+        idx = trandom.choice_without_replacement(k0, q, s)
+        cpu = trandom.choice_without_replacement(k0.cpu(), q, s)
+        ok = (tuple(idx[:8].tolist()) == first and int(idx.sum()) == total
+              and torch.equal(idx.cpu(), cpu))
+        draw = lambda: trandom.choice_without_replacement(  # noqa: E731
+            k0, q, s)
+        r = rec[f"choice[{q},{s}]"] = dict(
+            equal=ok, ms=time_ms(draw, reps=20),
+            device_ms=device_ms(draw, reps=20),
+            rounds=trandom.shuffle_rounds(q))
+        check(ok, f"choice_without_replacement({q}, {s}) on the card: first "
+              f"8 {idx[:8].tolist()} and sum {int(idx.sum())} == JAX's "
+              f"{list(first)}, {total}; equal to the CPU's draw")
+        log(f"  choice({q}, {s}): {r['ms']:.4f} ms per draw "
+            f"({r['device_ms']:.4f} on the device), {r['rounds']} rounds")
+    # two sampled steps' keys and draws in a graph, as a cached eval block
+    # holds them
+    q, s = 11314, 2829
+    stream = trandom.KeyStream.start(trandom.prng_key(SEED, dev))
+    out = torch.zeros(2, s, dtype=i64, device=dev)
+
+    def steps():
+        for i in range(2):
+            kU, _, kV = stream.step_keys(i)
+            out[i].copy_(draw_columns(term_key(kV, 0, 1), q, s))
+        stream.advance(2)
+    with fit_stream(dev):
+        steps()   # eager: iterations 0 and 1
+        g = torch.cuda.CUDAGraph(keep_graph=True)
+        with torch.cuda.graph(g, stream=torch.cuda.current_stream()):
+            steps()
+        nodes, refused = kfit.refused_node(g.raw_cuda_graph(), dev.index)
+        replayed = []
+        for _ in range(2):   # iterations 2-3, then 4-5
+            g.replay()
+            replayed.append(out.clone())
+        torch.cuda.synchronize()
+    eager = trandom.KeyStream.start(trandom.prng_key(SEED, dev))
+    eager.advance(2)
+    same = True
+    for r in replayed:
+        for i in range(2):
+            kU, _, kV = eager.step_keys(i)
+            same = same and torch.equal(
+                r[i], draw_columns(term_key(kV, 0, 1), q, s))
+        eager.advance(2)
+    check(refused is None and same and int(stream.it) == 6,
+          f"threefry: a graph of two sampled steps' draws holds {nodes} "
+          f"nodes, none a conditional body refuses (refused: "
+          f"{kfit.NODE_TYPES.get(refused, refused)}); its replays draw what "
+          f"eager steps from the device counter draw ({same}), the counter "
+          f"at {int(stream.it)} of 6")
+    rec["threefry_graph"] = dict(nodes=nodes, refused=refused, equal=same)
+    g.reset()
+    return rec
+
+
 def csr_bytes(A, kw_in: int, kw_out: int) -> float:
     """Bytes a CSR product must move: the CSR arrays (values, int32 column
     indices and row pointers; the kernel's row ids are its own design, not
@@ -1922,8 +2084,9 @@ def profile_phase(torch, make_est, X, Y, label):
     by their device timestamps), the device launches, the device's idle
     share of the window, and the kernels by device time; per eval block,
     the host's launch calls (LAUNCH_APIS), per fit too, and under the
-    device loop the graph launches (a fit graph's, or a sampled fit's
-    replays of its eval block) and the launch calls made inside each."""
+    device loop the graph launches (a fit graph's, or with a refused node
+    the replays of its eval block) and the launch calls made inside
+    each."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -2083,9 +2246,9 @@ def loop_phase(check, torch, make_est, X, Y, label, bits=False, miss=False):
     The second builds the entry (timed, its copies, captures and fit graph
     build apart, each between syncs). Then two host and two device fits in
     the order H D, D H. Each device fit must find its program in the
-    cache: no capture and no eager block; a full-batch fit one launch of
-    the fit graph, a sampled fit a replay of the cached eval block per full
-    block and no fit graph. Each must agree with the host fit beside it:
+    cache: no capture and no eager block, one launch of the fit graph (a
+    sampled fit's too: its draws keyed on the entry's device counter).
+    Each must agree with the host fit beside it:
     the same n_iter_ and loss_iters_, each loss within 1e-6 relative, the
     factors within phase 3's relative Frobenius bar of 1e-5, the same
     launches of every kernel (fit_loop's apart: one per eval block, and on
@@ -2154,11 +2317,9 @@ def loop_phase(check, torch, make_est, X, Y, label, bits=False, miss=False):
         with build_parts(torch) as parts:
             est, _, build = device_fit()
         build.update(parts)
-        sampled = est.sg_sample_ratio < 1.0
         check(not build["hit"] and build["eager_blocks"] == 0
               and build["captures"] >= 1 and len(fit_cache_entries()) == 1
-              and (build["graph_launches"], build["replays"])
-              == ((0, full) if sampled else (1, 0)),
+              and (build["graph_launches"], build["replays"]) == (1, 0),
               f"{label}: the key's second device fit builds the cache entry "
               f"and runs on it ({build})")
         for order in (("host", "device"), ("device", "host")):
@@ -2199,13 +2360,11 @@ def loop_phase(check, torch, make_est, X, Y, label, bits=False, miss=False):
         rem = de.max_iter % min(de.eval_every, de.max_iter)
         schedule = (info["hit"] and info["captures"] == 0
                     and info["eager_blocks"] == 0
-                    and (info["graph_launches"], info["replays"])
-                    == ((0, full) if sampled else (1, 0)))
-        how = "a replay per full block" if sampled else "one graph launch"
+                    and (info["graph_launches"], info["replays"]) == (1, 0))
         check(schedule and not h["info"],
               f"{label}: the device fit hits the cache: no capture, no eager "
-              f"block, {how} ({info}); the host fit uses no program "
-              f"({h['info']})")
+              f"block, one graph launch ({info}); the host fit uses no "
+              f"program ({h['info']})")
         check(he.n_iter_ == de.n_iter_ and he.loss_iters_ == de.loss_iters_,
               f"{label}: device loop n_iter {de.n_iter_}, eval points "
               f"{de.loss_iters_} == host loop's {he.n_iter_}, "
@@ -2218,7 +2377,7 @@ def loop_phase(check, torch, make_est, X, Y, label, bits=False, miss=False):
         fro.append(factor_gap([de.U_, de.V_, de.Z_], [he.U_, he.V_, he.Z_]))
         dc, hc = ({k: v for k, v in c.items() if k != "fit_loop"}
                   for c in (d["counts"], h["counts"]))
-        rules = blocks + (0 if sampled else 1 + bool(rem))
+        rules = blocks + 1 + bool(rem)
         check(hc == dc and d["counts"].get("fit_loop") == rules
               and not h["counts"].get("fit_loop"),
               f"{label}: launch counts, device loop {d['counts']} == host "
@@ -2300,6 +2459,18 @@ def card_sigmoid_loss(torch, X, Y):
     return loss
 
 
+def repeatable_segment_sum(vals, A):
+    """``ops/sparse._segment_sum`` (per-row sums of per-nonzero values of a
+    CSR A) in a fixed order: ``torch.segment_reduce`` over A's row
+    pointers. On the card ``index_add_`` adds with atomics in no fixed
+    order, so two plain steps of a CSR path part in their last bits and,
+    at a line search's near tie, in a row's step. It syncs with the host,
+    so it serves host-loop fits only (step_agreement)."""
+    import torch
+
+    return torch.segment_reduce(vals, "sum", offsets=A.indptr.long(), axis=0)
+
+
 def step_agreement(check, make_est, X, Y, k, plain, label, exact_loss,
                    steps, factor_bar):
     """Kernel path against plain path on the card, one step at a time from
@@ -2317,9 +2488,12 @@ def step_agreement(check, make_est, X, Y, k, plain, label, exact_loss,
     (bf16 rounding of U_new and line-search decisions amplify f32 summation
     order: PERF.md §6), which measures that chaos, not the kernels; one
     step from shared factors measures the kernels. Returns the largest loss
-    gap."""
+    gap. A CSR path's per-row sums (its ingest's row norms on both sides,
+    the plain products) take repeatable_segment_sum, so that each side
+    repeats itself bit for bit."""
     import numpy as np
 
+    from pycmf_tpu_torch.ops import sparse as tsparse
     from pycmf_tpu_torch.utils.init import initialize_factors
 
     est = make_est()
@@ -2329,9 +2503,11 @@ def step_agreement(check, make_est, X, Y, k, plain, label, exact_loss,
     gaps, dev = [], []
     for _ in range(steps):
         def one():  # the host loop: patched wrappers are called every fit
-            return make_est().set_params(
-                max_iter=1, eval_every=1, tol=0.0, loop="host"
-            ).fit_transform(X, Y, U=U, V=V, Z=Z)
+            with mock.patch.object(tsparse, "_segment_sum",
+                                   repeatable_segment_sum):
+                return make_est().set_params(
+                    max_iter=1, eval_every=1, tol=0.0, loop="host"
+                ).fit_transform(X, Y, U=U, V=V, Z=Z)
         got = one()
         with ExitStack() as patches:
             for fn, mod in plain.items():
@@ -3165,9 +3341,11 @@ def nccl_world1_phase(check, torch, X, Y, common, paths):
 
 R1C_ROUNDS = 2  # phases R1c and R1g: the layout and single device in turn
 # R2 S (path S in two gloo ranks, each drawing other columns than the
-# single device, so only the draws' statistics are shared): the largest
-# relative gap of its exact loss to path S's single-device one
+# single device, so only the draws' statistics are shared): its exact loss
+# must lie within the range of path S's single-device exact losses from the
+# same initial factors over R2S_SEEDS keys, widened by R2S_BAR on each side
 R2S_BAR = 5e-2
+R2S_SEEDS = 6
 # R1 S's eval losses (full losses of bit-equal factors: the sharded one at
 # the factors' precision, the single device's on the bf16 product)
 R1S_LOSS_BAR = 1e-4
@@ -3419,10 +3597,13 @@ def nccl_world1_bits_phase(check, torch, X, Y, common, paths):
     different formulas: a sampled path's eval losses are full losses, and
     the sharded one takes ⟨X, UVᵀ⟩ at the factors' precision where the
     single device takes the bf16 product (the reference's two formulas).
-    The sampled path (S) records the sharded fit's draws by wrapping
-    draw_columns and replays them, in the order they were made, into the
-    single-device fit (one order on both: U's term, Z's, V's X and Y
-    terms); on a chunked path the U pass's kernel launches as often as on
+    The sampled path (S) records the sharded fit's draws by wrapping the
+    solver's draw (solvers/newton.choice_without_replacement, under
+    draw_columns and sample_mask) and replays them, in the order they were
+    made, into the single-device fit (one order on both: U's term, Z's,
+    V's X and Y terms; a one-rank rows fit folds its keys with rank 0, as
+    the reference's does, so it draws other columns than the single
+    device); on a chunked path the U pass's kernel launches as often as on
     the single device (its chunks per iteration). Then one more sharded fit
     with CUDA events around every all-reduce (its share). paths: (label,
     kw, {kernel: launches per iteration}, kernels launched as often as on
@@ -3446,7 +3627,7 @@ def nccl_world1_bits_phase(check, torch, X, Y, common, paths):
     store = os.path.join(tempfile.mkdtemp(prefix="pycmf_r1b_"), "store")
     dist.init_process_group("nccl", store=dist.FileStore(store, 1), rank=0,
                             world_size=1)
-    real_draw = tnewton.draw_columns
+    real_draw = tnewton.choice_without_replacement
     try:
         for label, kw, minimums, same, absent, loss_bar in paths:
             est = CMF(**kw, **common, loop="host")
@@ -3472,11 +3653,12 @@ def nccl_world1_bits_phase(check, torch, X, Y, common, paths):
                 return out
             drawn = []
 
-            def recorded(gen, q, s):
-                drawn.append((q, real_draw(gen, q, s)))
+            def recorded(key, q, s):
+                drawn.append((q, real_draw(key, q, s)))
                 return drawn[-1][1]
             reset_launch_counts()
-            with mock.patch.object(tnewton, "draw_columns", recorded):
+            with mock.patch.object(tnewton, "choice_without_replacement",
+                                   recorded):
                 U, V, Z, n_iter, losses, iters, times = sharded()
             counts = launch_counts()
             calls, nbytes = COMM.calls, COMM.nbytes
@@ -3484,13 +3666,14 @@ def nccl_world1_bits_phase(check, torch, X, Y, common, paths):
                 launches[name] = launches.get(name, 0) + n
             replay, misfits = iter(drawn), []
 
-            def replayed(gen, q, s):
+            def replayed(key, q, s):
                 want_q, idx = next(replay)
                 if (want_q, idx.numel()) != (q, s):
                     misfits.append((q, s, want_q, idx.numel()))
                 return idx
             reset_launch_counts()
-            with mock.patch.object(tnewton, "draw_columns", replayed):
+            with mock.patch.object(tnewton, "choice_without_replacement",
+                                   replayed):
                 one = CMF(**kw, **common, loop="host").fit(X, Y)
             single = launch_counts()
             t_out = sharded(timed=True)
@@ -3621,9 +3804,9 @@ def nccl_world1_device_loop_phase(check, torch, X, Y, common, paths):
     from an emptied fit cache: two host-loop fits of the same sharded
     call, then the key's first device fit (an eager block, a graph of one
     eval block replayed per block), its second (builds the cache entry)
-    and two hits (one launch of the fit graph; a replay per block when
-    sampled, or when the captured block holds a node type a conditional
-    body refuses, which LAST_FIT names). Each device fit is held bit for
+    and two hits (one launch of the fit graph, a sampled path's too; a
+    replay per block only when the captured block holds a node type a
+    conditional body refuses, which LAST_FIT names). Each device fit is held bit for
     bit against the host fit (n_iter, the loss history, U, V, Z) with equal
     COMM calls and bytes; the hit's kernel launches equal the host fit's
     but fit_loop's. Then a hit and a host fit under torch.profiler (host
@@ -3664,8 +3847,6 @@ def nccl_world1_device_loop_phase(check, torch, X, Y, common, paths):
                 U_non_negative=est.U_non_negative,
                 V_non_negative=est.V_non_negative,
                 Z_non_negative=est.Z_non_negative)
-            sampled = est.sg_sample_ratio < 1.0
-
             def fit(loop):
                 COMM.reset()
                 LAST_FIT.clear()
@@ -3714,7 +3895,7 @@ def nccl_world1_device_loop_phase(check, torch, X, Y, common, paths):
             full = host["n_iter"] // min(est.eval_every, est.max_iter)
             blocks = len(host["losses"]) - 1
             refused = hit["info"].get("refused")
-            per_block = sampled or refused is not None
+            per_block = refused is not None
             want = (0, full) if per_block else (1, 0)
             for name, f in (("first", first), ("second", build),
                             ("hit", hit), ("second hit", hit2),
@@ -4241,10 +4422,12 @@ def gloo_two_rank_phase(check, torch, data, common, fits, refs, world=2,
     (label, kw, X key, Y key), kw overriding ``common`` (n_shards and
     shard_layout too); refs: {label: (the single-device fit's record,
     exact float64 loss of factors, {kernel: launches per iteration}[,
-    {"bar": relative gap, "l0": exact loss of the initial factors}])}.
+    {"bar": relative gap, "l0": exact loss of the initial factors,
+    "spread": (low, high) exact losses}])}.
     Each fit runs as many iterations as its single-device fit and is held
     to it by the exact loss of its final factors (within 1e-4, or the
-    given bar; with "l0", also below it), every rank's loss history and
+    given bar; with "spread", within that range widened by the bar; with
+    "l0", also below it), every rank's loss history and
     factors equal bit for bit, and each rank's launch counts. Returns
     (record, launches of every rank)."""
     import pickle
@@ -4300,12 +4483,22 @@ def gloo_two_rank_phase(check, torch, data, common, fits, refs, world=2,
         gap = abs(exact - single["exact_loss"]) / single["exact_loss"]
         same = all(g["losses"] == a["losses"] and g["digest"] == a["digest"]
                    for g in got)
-        check(gap < bar and same,
-              f"{tag} {label}: exact f64 loss {exact:.9g} after "
-              f"{a['n_iter']} iterations vs the single-device fit's "
-              f"{single['exact_loss']:.9g} after {single['n_iter']}: rel gap "
-              f"{gap:.3g} < {bar:g}; every rank's loss history and factors "
-              f"equal bit for bit: {same}")
+        if "spread" in more:
+            lo, hi = more["spread"]
+            check(lo * (1 - bar) <= exact <= hi * (1 + bar) and same,
+                  f"{tag} {label}: exact f64 loss {exact:.9g} after "
+                  f"{a['n_iter']} iterations within [{lo:.9g}, {hi:.9g}], "
+                  f"the single-device fits' over their draws, widened by "
+                  f"{bar:g} (rel gap to the fit with its random_state "
+                  f"{gap:.3g}); every rank's loss history and factors equal "
+                  f"bit for bit: {same}")
+        else:
+            check(gap < bar and same,
+                  f"{tag} {label}: exact f64 loss {exact:.9g} after "
+                  f"{a['n_iter']} iterations vs the single-device fit's "
+                  f"{single['exact_loss']:.9g} after {single['n_iter']}: rel "
+                  f"gap {gap:.3g} < {bar:g}; every rank's loss history and "
+                  f"factors equal bit for bit: {same}")
         if "l0" in more:
             check(exact < more["l0"],
                   f"{tag} {label}: the exact loss falls from L0 "
@@ -4431,6 +4624,7 @@ def main() -> int:
     krec.update(fp8_sigmoid_phase(check, torch, sigmoid_newton,
                                   batched_solve))
     krec.update(fit_loop_phase(check, torch))
+    krec.update(threefry_phase(check, torch))
 
     # 4.-7. the paths, through the estimator
     t0 = time.perf_counter()
@@ -4542,7 +4736,8 @@ def main() -> int:
              "sigmoid_phi_pass")
     _, ps = run_fit_checked(
         check, lambda: CMF(**s_kw, **common), X, Y,
-        per_iter(batched_spd_solve=2), fused, "path S fit", sig, "device")
+        per_iter(batched_spd_solve=2, threefry=1), fused, "path S fit", sig,
+        "device")
     log(f"  path S: final exact loss {ps['exact_loss']:.9g} after "
         f"{ps['n_iter']} iterations; path A's {pa['exact_loss']:.9g} after "
         f"{pa['n_iter']}")
@@ -4554,8 +4749,8 @@ def main() -> int:
                  max_iter=30, eval_every=5)
     common4 = dict(n_components=K, random_state=SEED, device="cuda")
     _, ps4 = run_fit_checked(
-        check, lambda: CMF(**s4_kw, **common4), X4, Y4, per_iter(),
-        fused, "path S4 fit",
+        check, lambda: CMF(**s4_kw, **common4), X4, Y4,
+        per_iter(threefry=1), fused, "path S4 fit",
         lambda U, V, Z: numpy_cmf.loss(X4, Y4, U, V, Z), "device")
     log("phase 7: path SD, path D (CSR X) with sg_sample_ratio=0.25: "
         "csr_spmm on B·mask, masked row norms")
@@ -4564,7 +4759,8 @@ def main() -> int:
         check, lambda: CMF(**sd_kw, **common), X, Y,
         lambda e: {"csr_spmm": 4 * e.n_iter_,
                    "batched_spd_solve": 2 * e.n_iter_,
-                   "csr_rowdots": len(e.loss_history_)},
+                   "csr_rowdots": len(e.loss_history_),
+                   "threefry": e.n_iter_},
         ("sigmoid_gh_pass", "sigmoid_phi_pass"), "path SD fit", sig,
         "device")
     log("phase 7: path H, path A with hessian_form='full' (K5's LU route "
@@ -4642,7 +4838,8 @@ def main() -> int:
     ks_kw = dict(s_kw, sparse_mode="chunked")
     chunked_fit("path_ks_fit", lambda: run_fit_checked(
         check, lambda: CMF(**ks_kw, **common), X, Y,
-        per_iter(batched_spd_solve=2), fused, "path KS fit", sig, "device"))
+        per_iter(batched_spd_solve=2, threefry=1), fused, "path KS fit", sig,
+        "device"))
     log("phase 7: path KR, the RCV1 surrogate as doc x term, MU, chunked "
         "and CSR")
     t0 = time.perf_counter()
@@ -4823,9 +5020,9 @@ def main() -> int:
         f"{pf['profile']['bell_spmm_share']:.3f} of the device time")
 
     log(f"phase 7c: the device loop (a key's first fit, the fit that builds "
-        f"its cache entry, then hits: one launch of the cached fit graph; "
-        f"sampled: the cached eval block replayed per block) against the "
-        f"host loop; {name}, nvidia-smi: {smi}")
+        f"its cache entry, then hits: one launch of the cached fit graph, "
+        f"sampled fits too) against the host loop; {name}, nvidia-smi: "
+        f"{smi}")
     loops = {}
     with cached_ingest():
         for lab, kw, data, cm in (
@@ -4853,14 +5050,21 @@ def main() -> int:
                 check, torch, lambda: CMF(**kw, **cm), *data, lab,
                 bits=True, miss=lab in ("MU", "path A", "path S"))
         # the draws follow the seed: the same random_state gives the same
-        # fit, another random_state another
-        same = [CMF(**s_kw, **common).fit(X, Y) for _ in range(2)]
-        other = CMF(**s_kw, **dict(common, random_state=SEED + 1)).fit(X, Y)
-        check(np.array_equal(same[0].U_, same[1].U_)
-              and same[0].loss_history_ == same[1].loss_history_
-              and not np.array_equal(same[0].U_, other.U_),
-              "path S: two fits with random_state=0 equal bit for bit, one "
-              "with random_state=1 differs")
+        # fit, another random_state another (on the device loop: the
+        # second same-seed fit and the other seed's are cache hits)
+        for lab, kw, data, cm in (("path S", s_kw, (X, Y), common),
+                                  ("path S4", s4_kw, (X4, Y4), common4),
+                                  ("path SD", sd_kw, (X, Y), common),
+                                  ("path KS", ks_kw, (X, Y), common)):
+            clear_fit_cache()
+            same = [CMF(**kw, **cm).fit(*data) for _ in range(2)]
+            other = CMF(**kw, **dict(cm, random_state=SEED + 1)).fit(*data)
+            check(np.array_equal(same[0].U_, same[1].U_)
+                  and same[0].loss_history_ == same[1].loss_history_
+                  and not np.array_equal(same[0].U_, other.U_),
+                  f"{lab}: two fits with random_state={SEED} equal bit for "
+                  f"bit, one with random_state={SEED + 1} differs")
+        clear_fit_cache()
 
     # R. the row-sharded fit (n_shards): R1 on a one-rank NCCL group, R2 in
     # two gloo ranks sharing the card
@@ -4875,7 +5079,8 @@ def main() -> int:
         f"sampled and chunked, bit for bit with the single device; {name}, "
         f"nvidia-smi: {smi}")
     r1b, r1b_launches = nccl_world1_bits_phase(check, torch, X, Y, common, (
-        ("S", s_kw, {"batched_spd_solve": 2}, (), fused, R1S_LOSS_BAR),
+        ("S", s_kw, {"batched_spd_solve": 2, "threefry": 1}, (), fused,
+         R1S_LOSS_BAR),
         ("K", k_kw, {"fused_mu_u_pass": pk["layout"]["chunks"],
                      "fused_mu_update": 2}, ("fused_mu_u_pass",), (), 0),
         ("KA", ka_kw, {"fused_newton_linear_u_pass": pk["layout"]["chunks"],
@@ -4885,9 +5090,21 @@ def main() -> int:
     for kname, n in r1b_launches.items():
         r_launches[kname] = r_launches.get(kname, 0) + n
     log("phase R2: CMF(n_shards=2), two gloo ranks on the one card (R2 S: "
-        "path S sampled, each rank drawing from its streams)")
+        "path S sampled, each rank drawing its own columns)")
     linf = lambda U, V, Z: numpy_cmf.loss(Xf64, Y64, U, V, Z)  # noqa: E731
     s_init = initialize_factors(X, Y, K, random_state=SEED)
+    # the spread of path S's exact loss over its draws: single-device fits
+    # from path S's initial factors to its n_iter, R2S_SEEDS keys apart
+    with cached_ingest():
+        s_spread = [sig(*CMF(**dict(s_kw, max_iter=ps["n_iter"], tol=0.0,
+                                    eval_every=ps["n_iter"]),
+                             **dict(common, random_state=SEED + j)
+                             ).fit_transform(X, Y, U=s_init[0], V=s_init[1],
+                                             Z=s_init[2]))
+                    for j in range(R2S_SEEDS)]
+    log(f"  path S's exact loss after {ps['n_iter']} iterations from its "
+        f"initial factors, random_state {SEED}..{SEED + R2S_SEEDS - 1}: "
+        f"{[float(f'{v:.9g}') for v in s_spread]}")
     r2, r2_launches = gloo_two_rank_phase(
         check, torch, {"X": X, "Y": Y, "Xb": Xb, "Xf": Xf}, common,
         (("MU", mu_kw, "X", "Y"), ("path A", a_kw, "X", "Y"),
@@ -4903,9 +5120,11 @@ def main() -> int:
                     {"sigmoid_gh_pass": 3, "sigmoid_phi_pass": 3,
                      "batched_spd_solve": 3}),
          # other draws than the single device's: held within R2S_BAR of
-         # its exact loss, and below the exact loss of the initial factors
+         # the spread of its exact loss over the draws, and below the exact
+         # loss of the initial factors
          "path S": (ps, sig, {"batched_spd_solve": 2},
-                    {"bar": R2S_BAR, "l0": sig(*s_init)})})
+                    {"bar": R2S_BAR, "l0": sig(*s_init),
+                     "spread": (min(s_spread), max(s_spread))})})
     for kname, n in r2_launches.items():
         r_launches[kname] = r_launches.get(kname, 0) + n
     log(f"phase R1c: run_sharded(layout='cols') on a one-rank NCCL group; "
@@ -5008,7 +5227,8 @@ def main() -> int:
              dict(sigmoid_y, fused_newton_linear_u_pass=1)),
             ("cols path A", a_kw, "cols", sigmoid_y),
             ("grid path A", a_kw, "grid", sigmoid_y),
-            ("rows path S", s_kw, "rows", {"batched_spd_solve": 2}),
+            ("rows path S", s_kw, "rows", {"batched_spd_solve": 2,
+                                           "threefry": 1}),
             ("rows path K", k_kw, "rows",
              {"fused_mu_u_pass": pk["layout"]["chunks"],
               "fused_mu_update": 2})))
@@ -5076,18 +5296,19 @@ def main() -> int:
                         f"path)")
                 else:
                     check(gap <= 1e-3, f"{what} <= 1e-3")
-        # sampled steps: a fresh fit seeds its generator from
+        # sampled steps: a fresh fit draws under the key of its
         # random_state, so both paths of a step make the same draws
         # (recorded and compared)
         from pycmf_tpu_torch.solvers import newton as tnewton
-        draw, drawn = tnewton.draw_columns, []
+        draw, drawn = tnewton.choice_without_replacement, []
 
-        def recorded(gen, q, s):
-            drawn.append(draw(gen, q, s))
+        def recorded(key, q, s):
+            drawn.append(draw(key, q, s))
             return drawn[-1]
         for label, kw in (("path S", s_kw), ("path SD", sd_kw)):
             drawn.clear()
-            with mock.patch.object(tnewton, "draw_columns", recorded):
+            with mock.patch.object(tnewton, "choice_without_replacement",
+                                   recorded):
                 stepped[label] = step_agreement(
                     check, lambda: CMF(**kw, **common), X, Y, K, plain,
                     label, sig, 4, 1e-3)
@@ -5308,6 +5529,30 @@ def main() -> int:
         "bound_by": r["bound_by"], "library_ms": None,
         "device_ms": r["device_ms"],
         "graph_us_per_block": r["graph_us_per_block"]})
+    # not a TPU kernel: the reference's random stream (jax.random's
+    # Threefry-2x32), the draws of every sampled path
+    r = krec["threefry[30000]"]
+    kernels.append({
+        "name": "threefry", "route": "cuda", "source": src + "threefry.cu",
+        "replaces": "pycmf_tpu/solvers/newton.py:115-143 (jax.random.choice "
+                    "under the reference's key schedule, Threefry-2x32; no "
+                    "Pallas kernel)",
+        "launches": ps["launches"].get("threefry", 0),
+        "launches_per_iter": {
+            lab: p["launches"].get("threefry", 0) / p["n_iter"]
+            for lab, p in (("S", ps), ("S4", ps4), ("SD", psd))},
+        "sharded_launches": r_launches.get("threefry", 0),
+        "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"], "library_ms": None,
+        "device_ms": r["device_ms"],
+        **{f"n804414_{f}": krec["threefry[804414]"][f]
+           for f in ("ms", "device_ms", "plain_ms", "bound_ms")},
+        "step_keys_ms": krec["threefry[step_keys]"]["ms"],
+        "step_keys_device_ms": krec["threefry[step_keys]"]["device_ms"],
+        **{f"choice_{q}_{s}_ms": krec[f"choice[{q},{s}]"]["ms"]
+           for q, s in CHOICE_DIGESTS},
+        "graph_nodes": krec["threefry_graph"]["nodes"]})
     record = json.dumps({"mu_fit": mu, "newton_linear_fit": nt,
                       "path_a_fit": pa, "path_b_fit": pb, "path_c_fit": pc,
                       "path_d_fit": pd, "path_f_fit": pf,

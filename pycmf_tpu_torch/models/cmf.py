@@ -15,8 +15,8 @@ on dense or densified data, linear links on CSR data
 the streamed chunked-COO layout (``sparse_mode='chunked'``, or 'auto' past
 the threshold for a sigmoid-linked matrix under Newton). Newton runs full
 batch or sampled (``sg_sample_ratio`` < 1: stochastic minibatch Newton,
-its column draws from a ``torch.Generator`` seeded by the reference's rule
-from ``random_state``), with the Gauss-Newton or the full Hessian
+its column draws the reference's, under ``PRNGKey`` of the reference's
+seed rule from ``random_state``: ``ops/random.py``), with the Gauss-Newton or the full Hessian
 (``hessian_form``). ``data_dtype='fp8'`` stores X dense as float8_e4m3fn
 (Y then at bf16), contracted in bf16 as the reference does. ``n_shards``
 > 1 fits row-, column- or grid-sharded over a torch.distributed process
@@ -42,6 +42,7 @@ import scipy.sparse as sp
 import torch
 
 from ..ops.matmul import FP8_DTYPES
+from ..ops.random import prng_key
 from ..parallel.grid import factor_grid, run_grid
 from ..parallel.mesh import broadcast, captures, group_size, make_mesh
 from ..parallel.sharded import check_shardable, run_sharded
@@ -91,7 +92,7 @@ def _container_library(name: str):
 
 
 def _seed(random_state) -> int:
-    """The seed of the fit's sampling generator from a sklearn-style
+    """The seed of the fit's sampling key from a sklearn-style
     random_state, by the reference's rule (``pycmf_tpu/models/cmf.py:
     _jax_seed``): an int is itself, a RandomState its state's first word
     (read, not consumed), None 0."""
@@ -102,14 +103,11 @@ def _seed(random_state) -> int:
     return 0
 
 
-def _generator(random_state, device: torch.device) -> torch.Generator:
-    """A torch.Generator on ``device`` seeded by :func:`_seed`: stochastic
-    Newton draws its columns from it (the reference draws from
-    ``jax.random.PRNGKey(_jax_seed(random_state))``; torch cannot
-    reproduce those bits, only the rule)."""
-    gen = torch.Generator(device=device)
-    gen.manual_seed(_seed(random_state))
-    return gen
+def _key(random_state, device: torch.device) -> torch.Tensor:
+    """The reference's ``jax.random.PRNGKey(_jax_seed(random_state))`` on
+    ``device`` (``ops/random.prng_key`` of :func:`_seed`): stochastic
+    Newton draws its columns under it, the reference's columns."""
+    return prng_key(_seed(random_state), device)
 
 
 class CMF:
@@ -159,8 +157,8 @@ class CMF:
         ``factor_grid``). transform folds in by rows, over every rank,
         whatever the fit's layout. Under shards both loops run dense,
         densified, CSR or chunked data (fp8 dense), full batch or sampled
-        (each rank's draws by the reference's key schedule:
-        ``parallel/sharded.Draws``); ``loop='device'`` runs the device loop
+        (each rank's draws the reference's, its keys folded per rank as
+        the reference folds them); ``loop='device'`` runs the device loop
         on every rank, its collectives captured into the
         graphs, which on CUDA tensors needs an NCCL group (ValueError over
         gloo) and on the CPU runs eagerly (``parallel/sharded.py``,
@@ -512,15 +510,15 @@ class CMF:
         if self.solver == "mu":
             return run_mu(Xc, Yc, U0, V0, Z0, cfg, hyper, **kw)
         return run_newton(Xc, Yc, U0, V0, Z0, cfg, hyper,
-                          _generator(self.random_state, U0.device), **kw)
+                          _key(self.random_state, U0.device), **kw)
 
     def _run_sharded(self, X, Y, U0, V0, Z0, cfg, layout=None):
         """The sharded fit on this rank (``parallel/sharded.py``, the grid
         layout ``parallel/grid.py``) in ``layout`` (default:
         shard_layout), from the first rank's U0, V0 and Z0: a draw without
         a fixed random_state differs between processes. A sampled Newton
-        fit's draw streams are seeded by the reference's rule
-        (:func:`_seed`), as on one device."""
+        fit draws under the key of the reference's rule (:func:`_seed`),
+        folded per rank as the reference folds it."""
         self._resolve_device()
         mesh = make_mesh(self._resolve_n_shards(), device=self.device)
         dt = self._resolve_dtype()

@@ -28,8 +28,9 @@ cell ``csr_spmm``/``csr_rowdots`` or ``bell_spmm``). A chunked cell
 sigmoid-linked X under Newton) is streamed by every product, its transpose
 through ``ChunkedT``, and a sigmoid-linked sparse Y past the threshold
 takes one chunked carrier per row block j. A sampled Newton step draws
-U's and Z's terms and V's Y term from the stream of mesh column j, V's X
-term from the cell's own (``sharded.Draws``).
+the reference's columns: U's and Z's terms and V's Y term alike on the
+ranks of mesh column j, V's X term per cell (their keys folded with j and
+i as the reference folds them).
 
 The loss sums its parts over the whole mesh in one all-reduce: a term of a
 factor replicated along an axis (U_i's along the mesh row, V_j's and Y_j's
@@ -64,8 +65,8 @@ from ..solvers.newton import (Term, _transposed, _with_transposes,
 from ..utils.validation import as_coupled
 from .mesh import (GridMesh, all_ranks, all_reduce, gather_rows, group_key,
                    make_grid_mesh)
-from .sharded import (Draws, check_shardable, col_block, cols_aux_kind,
-                      factor, make_block, make_draws, row_block,
+from .sharded import (check_shardable, col_block, cols_aux_kind,
+                      factor, key_stream, make_block, rank_keys, row_block,
                       stored_block, x_mode, y_block, y_parts, y_term)
 
 
@@ -234,16 +235,15 @@ def mu_grid_iter(cfg: SolverConfig, ops: GridOperands, U, V, Z,
 
 
 def newton_grid_iter(cfg: SolverConfig, ops: GridOperands, U, V, Z,
-                     hyper: Hyper, gm: GridMesh, with_aux=None,
-                     draws: Optional[Draws] = None):
+                     hyper: Hyper, gm: GridMesh, with_aux=None, keys=None):
     """One Newton iteration, U then Z then V: (U, V, Z, aux), aux this
     cell's (X[i,j]ᵀU_new, U_newᵀU_new) under "factored" (V's update hands
     them over, ``term_cache``), V_j's Σφ summed over ROW under "phi" (the
-    same on every rank of the mesh column), else None. Sampled
-    (``draws``): U's and Z's terms and V's Y term draw from the common
-    stream of mesh column j (the reference folds their keys with the COL
-    index, V's before the call), V's X term from the cell's own (folded
-    again with the ROW index). Reference:
+    same on every rank of the mesh column), else None. Sampled (``keys``:
+    the step's (kU, kZ, kV)): U's and Z's terms, distributed over COL,
+    fold their keys with the COL index j; kV is folded with j before V's
+    update (``pycmf_tpu/parallel/grid.py:479``) and V's X term,
+    distributed over ROW, folds its key with the ROW index i. Reference:
     ``pycmf_tpu/parallel/grid.py:_newton_grid_iter``."""
     common = dict(trials=cfg.line_search_trials,
                   hessian_form=cfg.hessian_form,
@@ -252,7 +252,7 @@ def newton_grid_iter(cfg: SolverConfig, ops: GridOperands, U, V, Z,
     X, Y = ops.X, ops.Y
     nmask, mmask = _masks(ops)
     sig_x = cfg.x_link != LINEAR
-    col_j, cell = draws if draws is not None else (None, None)
+    kU, kZ, kV = rank_keys("grid", keys, gm.j)
     if cfg.update_U:
         if sig_x and fused_sigmoid_allowed(cfg, X.A, U):
             # K3/K4's partials summed over COL; the padding columns pair
@@ -263,7 +263,7 @@ def newton_grid_iter(cfg: SolverConfig, ops: GridOperands, U, V, Z,
                                      row_mask=nmask, group=gm.col, **fused_kw)
         else:
             U = newton_update_factor(
-                col_j, U, (Term(X.A, V, X.row_sq, layout=X.A_bell),),
+                kU, U, (Term(X.A, V, X.row_sq, layout=X.A_bell),),
                 (cfg.x_link,), hyper, non_negative=cfg.U_non_negative,
                 distributed=(True,), masks=(mmask if sig_x else None,),
                 group=gm.col, **common)
@@ -276,7 +276,7 @@ def newton_grid_iter(cfg: SolverConfig, ops: GridOperands, U, V, Z,
                                      group=gm.col, **fused_kw)
         else:
             Z = newton_update_factor(
-                col_j, Z, (Term(_transposed(Y), V),), (cfg.y_link,), hyper,
+                kZ, Z, (Term(_transposed(Y), V),), (cfg.y_link,), hyper,
                 non_negative=cfg.Z_non_negative, distributed=(True,),
                 masks=(mmask if cfg.y_link != LINEAR else None,),
                 group=gm.col, **common)
@@ -307,7 +307,7 @@ def newton_grid_iter(cfg: SolverConfig, ops: GridOperands, U, V, Z,
                 terms, links = terms + (yterm,), links + (cfg.y_link,)
                 dist, masks = dist + (False,), masks + (None,)
             out = newton_update_factor(
-                (cell, col_j)[:len(terms)], V, terms, links, hyper,
+                kV, V, terms, links, hyper,
                 non_negative=cfg.V_non_negative, distributed=dist,
                 masks=masks, group=gm.row, return_phi=phi,
                 term_cache=0 if with_aux == "factored" else None, **common)
@@ -466,9 +466,8 @@ def run_grid(solver: str, X, Y, U0, V0, Z0, cfg: SolverConfig,
     too: ROADMAP C4, ``sharded.x_mode``). data_dtype fp8: each cell dense
     on the host, stored as e4m3, Y at bf16.
 
-    seed: a sampled Newton fit's draw streams (``sharded.Draws``): the one
-    of mesh column j, shared by the ranks of that column, and the cell's
-    own.
+    seed: a sampled Newton fit's key, ``PRNGKey(seed)``, folded per cell
+    as the reference folds it (:func:`newton_grid_iter`).
 
     loop: 'host' or 'device', as in ``sharded.run_sharded`` (the device
     loop's cache key names the world and both axis groups; the ranks agree
@@ -503,10 +502,9 @@ def run_grid(solver: str, X, Y, U0, V0, Z0, cfg: SolverConfig,
         cfg, solver, gm, aux, mu_iter=mu_grid_iter,
         newton_iter=newton_grid_iter, loss=loss_grid,
         aux_loss=_aux_loss_grid)
-    draws = (make_draws(seed, dev, (1, gm.j), (2, gm.i, gm.j))
-             if solver == "newton" and cfg.sg_sample_ratio < 1.0 else None)
     state, n_iter, losses, iters, times = run_solver_loop(
-        block, (ops, None, U, V, Z), hyper, draws, max_iter=max_iter,
+        block, (ops, None, U, V, Z), hyper,
+        key_stream(solver, cfg, seed, dev), max_iter=max_iter,
         tol=tol, eval_every=eval_every,
         verbose=verbose if gm.world.rank == 0 else 0, initial_loss_fn=loss_fn,
         loop=loop, key=("grid", solver, cfg, aux, group_key(gm.world),

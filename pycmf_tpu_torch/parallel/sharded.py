@@ -50,8 +50,11 @@ sigmoid-linked sparse Y past the threshold (or under 'chunked') takes the
 chunked carrier: replicated under 'rows', one row block per rank under
 'cols'.
 
-**Sampled Newton** (``sg_sample_ratio`` < 1) draws from the two streams of
-:class:`Draws` by the reference's key schedule.
+**Sampled Newton** (``sg_sample_ratio`` < 1) draws the reference's
+columns on every rank: each iteration's (kU, kZ, kV) split from the fit's
+key, the rows layout folding kU with the rank and the cols layout kV
+(``pycmf_tpu/parallel/sharded.py:1288, 1498``), a distributed term's key
+folded with the rank (``solvers/newton.term_key``).
 
 **The device loop** (``loop='device'``) runs ``solvers/common.py``'s loop
 on each rank's state, as the reference runs ``device_fit_core`` inside
@@ -81,6 +84,7 @@ from ..ops.kernels import bell as kbell
 from ..ops.kernels import mu_fused, newton_fused
 from ..ops.kernels import spmm as kspmm
 from ..ops.matmul import FP8_DTYPES, gram, matmul
+from ..ops.random import KeyStream, fold_in, prng_key
 from ..ops.sparse import is_sparse, sddmm_dot
 from ..solvers.common import (Coupled, Hyper, SolverConfig, check_loop,
                               coupled_mm, run_solver_loop)
@@ -93,6 +97,30 @@ from ..solvers.newton_chunked import chunked_sigmoid_row_update
 from ..utils.validation import DENSIFY_THRESHOLD, as_coupled, check_fp8_range
 from .mesh import (Mesh, all_ranks, all_reduce, captures, gather_rows,
                    group_key, make_mesh)
+
+
+def key_stream(solver: str, cfg: SolverConfig, seed: int, device):
+    """A sampled Newton fit's KeyStream, ``PRNGKey(seed)`` on ``device``
+    from iteration 0 (the same key on every rank, folded per rank in the
+    iterations), or None when nothing draws."""
+    if solver != "newton" or cfg.sg_sample_ratio >= 1.0:
+        return None
+    return KeyStream.start(prng_key(seed, device))
+
+
+def rank_keys(layout: str, keys, index: int) -> tuple:
+    """(kU, kZ, kV) of this rank's factor updates from the step's keys
+    (None when the step draws nothing): the rows layout folds kU with the
+    rank (``pycmf_tpu/parallel/sharded.py:1288``), the cols layout kV with
+    the rank (``:1498``), the grid kV with its COL index j
+    (``pycmf_tpu/parallel/grid.py:479``); ``index``: the rank, or j. A
+    distributed term folds its own key again (``solvers/newton.term_key``)."""
+    if keys is None:
+        return (None,) * 3
+    kU, kZ, kV = keys
+    if layout == "rows":
+        return fold_in(kU, index), kZ, kV
+    return kU, kZ, fold_in(kV, index)
 
 
 class RowOperands(NamedTuple):
@@ -118,54 +146,6 @@ class RowOperands(NamedTuple):
     a_sq: torch.Tensor
     col_sq: torch.Tensor
     x_size: int
-
-
-class Draws(NamedTuple):
-    """The column-draw streams of a sampled sharded Newton fit, one
-    torch.Generator each on the rank's device (the single device draws
-    from one; ``solvers/newton.draw_columns``), by the reference's key
-    schedule (``pycmf_tpu/solvers/newton.py:363-381``, the layouts'
-    ``fold_in`` of the axis index):
-
-    common : a stream identical on every rank that holds the updated
-             factor's replica, for a term whose reference key is not
-             folded with an axis index. rows: every rank (Z's term, V's Y
-             term); grid: the ranks of mesh column j (U's and Z's terms,
-             V's Y term); cols: unused.
-    own    : a stream keyed by the rank's coordinate, for a term whose key
-             the reference folds with an axis index. rows: rank r (U's
-             term, V's X term); cols: rank r (every term); grid: cell
-             (i, j) (V's X term).
-
-    Each stream is drawn in the step's order (U's terms, Z's, V's), so
-    the ranks sharing one make the same draws and a replicated factor
-    stays bit for bit equal on them; the same seed and world give the
-    same fit on every run."""
-
-    common: torch.Generator
-    own: torch.Generator
-
-
-def stream_seed(seed: int, *key: int) -> int:
-    """The seed of one draw stream: ``seed`` itself for the key (), the
-    single device's; else a 63-bit value mixed from the seed and the
-    key by NumPy's SeedSequence (the key: (0, rank) for a rows or cols
-    rank's own stream, (1, j) for the grid's mesh column j, (2, i, j)
-    for its cell)."""
-    if not key:
-        return int(seed)
-    ss = np.random.SeedSequence(int(seed) % (1 << 64), spawn_key=key)
-    return int(ss.generate_state(1, np.uint64)[0] >> np.uint64(1))
-
-
-def make_draws(seed: int, device, common=(), own=()) -> Draws:
-    """The Draws of a rank: generators on ``device`` seeded by
-    :func:`stream_seed` of the two keys."""
-    def gen(key):
-        g = torch.Generator(device=device)
-        g.manual_seed(stream_seed(seed, *key))
-        return g
-    return Draws(gen(common), gen(own))
 
 
 def row_block(X, n_loc: int, rank: int):
@@ -531,23 +511,23 @@ def mu_rows_iter(cfg: SolverConfig, ops: RowOperands, U, V, Z, hyper: Hyper,
 
 
 def newton_rows_iter(cfg: SolverConfig, ops: RowOperands, U, V, Z,
-                     hyper: Hyper, mesh: Mesh, with_aux=None,
-                     draws: Optional[Draws] = None):
+                     hyper: Hyper, mesh: Mesh, with_aux=None, keys=None):
     """One Newton iteration, U then Z then V: (U, V, Z, aux), aux the
     summed (XᵀU_new, U_newᵀU_new) under with_aux="factored", V's Σφ under
-    "phi", else None. Sampled (``draws``): U's term and V's X term draw
-    from the rank's own stream, Z's term and V's Y term from the common
-    one. A chunked block: U's full-batch update streams its chunks (K2 per
-    chunk on a linear X, handing V the summed pair; K3-K5 per chunk on a
-    sigmoid X), V's X term its transpose (``ChunkedT``), summed over the
-    ranks. Reference: ``pycmf_tpu/parallel/sharded.py:_newton_rows_iter``."""
+    "phi", else None. Sampled (``keys``: the step's (kU, kZ, kV)): kU is
+    folded with the rank (the rank's own rows), V's X term, distributed,
+    folds its key with the rank; Z's term and V's Y term draw alike on
+    every rank. A chunked block: U's full-batch update streams its chunks
+    (K2 per chunk on a linear X, handing V the summed pair; K3-K5 per
+    chunk on a sigmoid X), V's X term its transpose (``ChunkedT``), summed
+    over the ranks. Reference: ``pycmf_tpu/parallel/sharded.py:_newton_rows_iter``."""
     common = dict(trials=cfg.line_search_trials,
                   hessian_form=cfg.hessian_form,
                   sample_ratio=cfg.sg_sample_ratio, use_pallas=cfg.use_pallas)
     fused_kw = dict(trials=cfg.line_search_trials, use_pallas=cfg.use_pallas)
     X, Y = ops.X, ops.Y
     mask = mask_u = ops.mask if _padded(ops) else None
-    shared, own = draws if draws is not None else (None, None)
+    kU, kZ, kV = rank_keys("rows", keys, mesh.rank)
     chunk = is_chunked(X.A) and cfg.sg_sample_ratio >= 1.0
     numv_x = gram_u = None
     if cfg.update_U:
@@ -578,22 +558,23 @@ def newton_rows_iter(cfg: SolverConfig, ops: RowOperands, U, V, Z,
                                      row_mask=mask, **fused_kw)
             mask_u = None   # zeroed inside
         else:
+            # local rows, kU folded with the rank (rank_keys)
             U = newton_update_factor(
-                own, U, (Term(X.A, V, X.row_sq, layout=X.A_bell),),
+                kU, U, (Term(X.A, V, X.row_sq, layout=X.A_bell),),
                 (cfg.x_link,), hyper, non_negative=cfg.U_non_negative,
                 **common)
         if mask_u is not None:
             U = U * mask_u[:, None]
     if cfg.has_Y and cfg.update_Z:
         # Y is replicated: every rank makes the same update (a sampled
-        # one from the common stream)
+        # one under the same key)
         if cfg.y_link != LINEAR and fused_sigmoid_allowed(cfg, Y.A, Z):
             Z = fused_sigmoid_update(Z, _transposed(Y), V, hyper,
                                      non_negative=cfg.Z_non_negative,
                                      **fused_kw)
         else:
             Z = newton_update_factor(
-                shared, Z, (Term(_transposed(Y), V, Y.row_sq_t,
+                kZ, Z, (Term(_transposed(Y), V, Y.row_sq_t,
                                  layout=Y.At_bell),),
                 (cfg.y_link,), hyper, non_negative=cfg.Z_non_negative,
                 **common)
@@ -631,7 +612,7 @@ def newton_rows_iter(cfg: SolverConfig, ops: RowOperands, U, V, Z,
                 terms, links = terms + (yterm,), links + (cfg.y_link,)
                 dist, masks = dist + (False,), masks + (None,)
             out = newton_update_factor(
-                (own, shared)[:len(terms)], V, terms, links, hyper,
+                kV, V, terms, links, hyper,
                 non_negative=cfg.V_non_negative, distributed=dist,
                 masks=masks, group=mesh, return_phi=phi, **common)
             if phi:
@@ -830,14 +811,15 @@ def mu_cols_iter(cfg: SolverConfig, ops: ColOperands, U, V, Z, hyper: Hyper,
 
 
 def newton_cols_iter(cfg: SolverConfig, ops: ColOperands, U, V, Z,
-                     hyper: Hyper, mesh: Mesh, with_aux=None,
-                     draws: Optional[Draws] = None):
+                     hyper: Hyper, mesh: Mesh, with_aux=None, keys=None):
     """One Newton iteration, U then Z then V: (U, V, Z, aux), aux this
     rank's (X_locᵀU_new, U_newᵀU_new) under with_aux="factored", V's
     summed Σφ under "phi", else None. U's and Z's G, H and φ are summed
     over the ranks (their terms' columns are the sharded m); V's update is
-    local. Sampled (``draws``): every term draws from the rank's own
-    stream. A chunked block or Y carrier streams its products (its
+    local. Sampled (``keys``: the step's (kU, kZ, kV)): U's and Z's terms,
+    distributed, fold their keys with the rank, and kV is folded with the
+    rank before V's update (its rows are the rank's own columns). A
+    chunked block or Y carrier streams its products (its
     transpose through ``ChunkedT``). Reference:
     ``pycmf_tpu/parallel/sharded.py:_newton_cols_iter``."""
     common = dict(trials=cfg.line_search_trials,
@@ -846,7 +828,7 @@ def newton_cols_iter(cfg: SolverConfig, ops: ColOperands, U, V, Z,
     fused_kw = dict(trials=cfg.line_search_trials, use_pallas=cfg.use_pallas)
     X, Y = ops.X, ops.Y
     mask = ops.mask if _cols_padded(ops) else None
-    own = None if draws is None else draws.own
+    kU, kZ, kV = rank_keys("cols", keys, mesh.rank)
     if cfg.update_U:
         if cfg.x_link != LINEAR and fused_sigmoid_allowed(cfg, X.A, U):
             # K3/K4's partials summed; the padding columns pair with V's
@@ -856,7 +838,7 @@ def newton_cols_iter(cfg: SolverConfig, ops: ColOperands, U, V, Z,
                                      group=mesh, **fused_kw)
         else:
             U = newton_update_factor(
-                own, U, (Term(X.A, V, X.row_sq, layout=X.A_bell),),
+                kU, U, (Term(X.A, V, X.row_sq, layout=X.A_bell),),
                 (cfg.x_link,), hyper, non_negative=cfg.U_non_negative,
                 distributed=(True,),
                 masks=(mask if cfg.x_link != LINEAR else None,), group=mesh,
@@ -868,7 +850,7 @@ def newton_cols_iter(cfg: SolverConfig, ops: ColOperands, U, V, Z,
                                      group=mesh, **fused_kw)
         else:
             Z = newton_update_factor(
-                own, Z, (Term(_transposed(Y), V),), (cfg.y_link,), hyper,
+                kZ, Z, (Term(_transposed(Y), V),), (cfg.y_link,), hyper,
                 non_negative=cfg.Z_non_negative, distributed=(True,),
                 masks=(mask if cfg.y_link != LINEAR else None,), group=mesh,
                 **common)
@@ -894,8 +876,9 @@ def newton_cols_iter(cfg: SolverConfig, ops: ColOperands, U, V, Z,
             links = (cfg.x_link,)
             if cfg.has_Y:
                 terms, links = terms + (yterm,), links + (cfg.y_link,)
+            # V's rows are this rank's columns: kV folded with the rank
             out = newton_update_factor(
-                own, V, terms, links, hyper,
+                kV, V, terms, links, hyper,
                 non_negative=cfg.V_non_negative, return_phi=phi,
                 term_cache=0 if with_aux == "factored" else None, **common)
             if phi:
@@ -924,8 +907,9 @@ def make_block(cfg: SolverConfig, solver: str, mesh, aux, *, mu_iter,
     layout's operands in X's place, so the host and device loops take it
     as they take a single device's (the reference's ``core(ops, None, U,
     V, Z, …)``): a block runs n_steps iterations (``mu_iter`` or
-    ``newton_iter``, the latter given the loop's rng, a sampled fit's
-    :class:`Draws`), then the eval loss (``aux_loss(cfg, mesh, aux)`` where
+    ``newton_iter``, the latter given each step's (kU, kZ, kV) from the
+    loop's rng, a sampled fit's KeyStream, advanced past the block), then
+    the eval loss (``aux_loss(cfg, mesh, aux)`` where
     ``aux`` names one, else ``loss``). Each layout passes its own functions
     and the mesh they take (a Mesh, or the grid's GridMesh). Reference:
     ``_make_rows_block`` and ``_make_cols_block`` in
@@ -939,12 +923,15 @@ def make_block(cfg: SolverConfig, solver: str, mesh, aux, *, mu_iter,
     def block(state, hyper: Hyper, rng, n_steps: int):
         ops, _, U, V, Z = state
         a = None
-        for _ in range(n_steps):
+        for i in range(n_steps):
             if solver == "mu":
                 U, V, Z, a = mu_iter(cfg, ops, U, V, Z, hyper, mesh)
             else:
-                U, V, Z, a = newton_iter(cfg, ops, U, V, Z, hyper, mesh,
-                                         with_aux=aux, draws=rng)
+                U, V, Z, a = newton_iter(
+                    cfg, ops, U, V, Z, hyper, mesh, with_aux=aux,
+                    keys=None if rng is None else rng.step_keys(i))
+        if rng is not None:
+            rng.advance(n_steps)
         state = (ops, None, U, V, Z)
         if aux is None:
             return state, loss_fn(state, hyper), rng
@@ -1038,11 +1025,9 @@ def run_sharded(solver: str, X, Y, U0, V0, Z0, cfg: SolverConfig,
     on the host, stored as e4m3 (a block that stays sparse raises
     ValueError), Y at bf16; a dense rows block takes K1/K2's e4m3 forms.
 
-    seed: a sampled Newton fit's (``cfg.sg_sample_ratio`` < 1) draw
-    streams (:class:`Draws`): under 'rows' U's term and V's X term draw
-    from the rank's own stream and Z's term and V's Y term from the one
-    every rank shares, under 'cols' every term from the rank's own, as the
-    reference folds its keys.
+    seed: a sampled Newton fit's (``cfg.sg_sample_ratio`` < 1) key,
+    ``PRNGKey(seed)`` (``ops/random.prng_key``), folded per rank as the
+    reference folds it (the module docstring).
 
     loop: 'host' or 'device' (the device loop on every rank: see the module
     docstring; on CUDA tensors over an NCCL group only, ValueError
@@ -1087,10 +1072,9 @@ def run_sharded(solver: str, X, Y, U0, V0, Z0, cfg: SolverConfig,
         fns = dict(mu_iter=mu_cols_iter, newton_iter=newton_cols_iter,
                    loss=loss_cols, aux_loss=_aux_loss_cols)
     block, loss_fn = make_block(cfg, solver, mesh, aux, **fns)
-    draws = (make_draws(seed, dev, own=(0, mesh.rank))
-             if solver == "newton" and cfg.sg_sample_ratio < 1.0 else None)
     state, n_iter, losses, iters, times = run_solver_loop(
-        block, (ops, None, U, V, Z), hyper, draws, max_iter=max_iter,
+        block, (ops, None, U, V, Z), hyper, key_stream(solver, cfg, seed, dev),
+        max_iter=max_iter,
         tol=tol, eval_every=eval_every,
         verbose=verbose if mesh.rank == 0 else 0, initial_loss_fn=loss_fn,
         loop=loop, key=(layout, solver, cfg, aux, group_key(mesh)),

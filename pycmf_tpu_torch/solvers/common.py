@@ -180,22 +180,16 @@ class CudaBlockGraph:
         self.graph = torch.cuda.CUDAGraph(keep_graph=keep)
         self.pool, self.keep = pool, keep
 
-    def capture(self, fn, outputs, generators=()):
-        """Record fn(), which writes its results into ``outputs`` and may
-        draw from ``generators`` (torch.Generators on this device). They
-        are registered with the graph first: each replay then draws at
-        the generator's offset and advances it, as the same calls made
-        eagerly would, and the capture itself advances none. The capture
+    def capture(self, fn, outputs):
+        """Record fn(), which writes its results into ``outputs`` (a
+        sampled block among them its KeyStream's counter, which each
+        replay advances on the device). The capture runs nothing. It
         checks this thread's CUDA calls only ('thread_local'): another
         thread's, such as the NCCL watchdog's event queries, cannot
         invalidate it."""
-        for g in generators:
-            self.graph.register_generator_state(g)
         with torch.cuda.graph(self.graph, pool=self.pool, stream=self.stream,
                               capture_error_mode="thread_local"):
             fn()
-        if generators and self.keep:
-            self.graph.instantiate()
 
     def replay(self):
         self.graph.replay()
@@ -212,21 +206,18 @@ class EagerBlockGraph:
     """CudaBlockGraph's stand-in for CPU tensors, with its contract:
     capture passes through fn once, as a capture does (the kernel wrappers
     and ``mesh.all_reduce`` count what it records), and leaves ``outputs``
-    and ``generators`` as they were (a capture runs nothing and draws
-    nothing; a sharded block's collectives do run, on every rank, since
-    the ranks take the same branch); replay runs fn again with the
-    wrappers' and collectives' counts hidden (a replay passes through no
-    wrapper) and draws anew. Every block thus runs eagerly, and a capture's
-    pass costs one block more."""
+    as they were (a capture runs nothing: a sampled block's key counter
+    stays where it was; a sharded block's collectives do run, on every
+    rank, since the ranks take the same branch); replay runs fn again
+    with the wrappers' and collectives' counts hidden (a replay passes
+    through no wrapper), from the counter where it stands. Every block
+    thus runs eagerly, and a capture's pass costs one block more."""
 
-    def capture(self, fn, outputs, generators=()):
+    def capture(self, fn, outputs):
         saved = [t.clone() for t in outputs]
-        states = [g.get_state() for g in generators]
         fn()
         for t, s in zip(outputs, saved):
             t.copy_(s)
-        for g, s in zip(generators, states):
-            g.set_state(s)
         self._fn = fn
 
     def replay(self):
@@ -247,29 +238,6 @@ def block_graph(U: torch.Tensor, pool=None, keep=False):
     return EagerBlockGraph()
 
 
-def generators(rng) -> tuple:
-    """The torch.Generators a fit's ``rng`` holds: itself, each field of
-    a tuple of them (a sharded fit's ``Draws``), or none."""
-    if isinstance(rng, torch.Generator):
-        return (rng,)
-    if isinstance(rng, tuple):
-        return tuple(g for g in rng if isinstance(g, torch.Generator))
-    return ()
-
-
-def _copy_rng(rng, device):
-    """``rng`` (a torch.Generator or a tuple of them) with each generator
-    replaced by a new one on ``device`` at its state."""
-    def copy(g):
-        c = torch.Generator(device=device)
-        c.set_state(g.get_state())
-        return c
-    if isinstance(rng, torch.Generator):
-        return copy(rng)
-    vals = [copy(g) for g in rng]
-    return type(rng)(*vals) if hasattr(rng, "_fields") else tuple(vals)
-
-
 class Recorded(NamedTuple):
     """What one run of a captured block does that its replay cannot count
     itself, recorded at the capture: each kernel's launches (the wrappers'
@@ -288,10 +256,10 @@ def _capture_block(graph, block_fn, state, hyper, rng, n_steps: int,
                   statics, loss):
     """Capture one block of ``n_steps`` from ``state`` (X, Y and the static
     U, V, Z), writing U, V, Z back into ``statics`` and the loss (float64)
-    into the 0-d ``loss``. ``rng``, the block's torch.Generator, a tuple of
-    them or None, is handed to the block and each generator registered
-    with the graph (each replay draws anew). Returns what one replay does
-    (:class:`Recorded`); the capture itself is counted as nothing."""
+    into the 0-d ``loss``. ``rng``, a sampled block's KeyStream (its
+    counter advanced by each replay) or None, is handed to the block.
+    Returns what one replay does (:class:`Recorded`); the capture itself
+    is counted as nothing."""
 
     def body():
         out, block_loss, _ = block_fn(state, hyper, rng, n_steps)
@@ -300,7 +268,8 @@ def _capture_block(graph, block_fn, state, hyper, rng, n_steps: int,
         loss.copy_(block_loss)
 
     before, comm = policy.launch_counts(), COMM.counts()
-    graph.capture(body, list(statics) + [loss], generators(rng))
+    graph.capture(body, list(statics) + [loss]
+                  + ([] if rng is None else list(rng)))
     rec = Recorded(policy.launches_since(before), COMM.since(comm))
     policy.set_launch_counts(before)  # a capture launches nothing
     COMM.set_counts(comm)
@@ -461,14 +430,13 @@ def fit_cache_limit(device: torch.device) -> Optional[int]:
 class FitEntry:
     """One cached fit program, the counterpart of a jitted fit: the device
     buffers its graphs read and write (a copy of the data layouts, the
-    static factors U, V, Z, the loop's control and loss buffers), the
-    captured blocks and, for a full-batch fit, the fit graph (on the card
-    ``ops/kernels/fit_loop.FitGraph``, on the CPU its stand-in). A sampled
-    fit keeps the eval block alone and its own generators, registered with
-    the graph, into which each fit loads its generators' states. So does a
-    fit whose captured block holds a node type a conditional body refuses
-    (``fit_loop.refused_node``; ``refused`` names it): the rule is read off
-    the captured graph, the same on every rank of a sharded fit.
+    static factors U, V, Z, the loop's control and loss buffers, a sampled
+    fit's KeyStream: its key and iteration counter), the captured blocks
+    and the fit graph (on the card ``ops/kernels/fit_loop.FitGraph``, on
+    the CPU its stand-in). A fit whose captured block holds a node type a
+    conditional body refuses (``fit_loop.refused_node``; ``refused`` names
+    it) keeps the blocks alone and replays them per block: the rule is
+    read off the captured graph, the same on every rank of a sharded fit.
 
     Built from a fit's initial ``state`` (X, Y, U, V, Z): the captures read
     the copies. ``nbytes``: the buffers' bytes (the graph pool's apart)."""
@@ -493,27 +461,27 @@ class FitEntry:
         self.loss = torch.zeros((), dtype=torch.float64, device=dev)
         self.rem_loss = torch.zeros((), dtype=torch.float64, device=dev)
         self.hist = None
-        self.rng = _copy_rng(rng, dev) if generators(rng) else None
+        self.rng = None if rng is None else rng.copy()
         self.block, self.block_rec = self._capture(
             block_fn, hyper, eval_every, self.loss, None)
         self.rem, self.rem_rec = None, None
-        sampled = self.rng is not None
-        if rem and not sampled:
+        if rem:
             self.rem, self.rem_rec = self._capture(
                 block_fn, hyper, rem, self.rem_loss, self.block)
         self.refused = None
-        for g in (self.block, self.rem) if self.card and not sampled else ():
+        for g in (self.block, self.rem) if self.card else ():
             bad = kfit.refused_node(g.raw(), dev.index)[1] if g else None
             if bad is not None and self.refused is None:
                 self.refused = kfit.NODE_TYPES.get(bad, str(bad))
         self.fit = None
-        if not sampled and self.refused is None:
+        if self.refused is None:
             self.fit = (kfit.FitGraph(
                 self.block.raw(), self.rem.raw() if self.rem else 0,
                 self.ctl, self.fctl, self.loss, self.rem_loss)
                 if self.card else EagerFitGraph(self))
         self.nbytes = _nbytes(list(copies.values()) + self.statics + [
-            self.ctl, self.fctl, self.loss, self.rem_loss])
+            self.ctl, self.fctl, self.loss, self.rem_loss]
+            + ([] if self.rng is None else list(self.rng)))
 
     def _capture(self, block_fn, hyper, n_steps, loss_buf, share):
         graph = block_graph(self.statics[0],
@@ -528,10 +496,12 @@ class FitEntry:
     def nodes(self) -> int:
         return self.fit.nodes if self.fit is not None else 0
 
-    def load(self, state) -> None:
-        """Copy a fit's data and initial factors into the entry's buffers
-        (exact: device copies)."""
+    def load(self, state, rng) -> None:
+        """Copy a fit's data, initial factors and key stream into the
+        entry's buffers (exact: device copies)."""
         X, Y, U, V, Z = state
+        if rng is not None:
+            self.rng.load(rng)
         for (dst, scratch), (src, _) in zip(self.data, _leaves((X, Y))):
             if not scratch:
                 dst.copy_(src)
@@ -544,42 +514,31 @@ class FitEntry:
         kfit.write_control(self.ctl, self.fctl, hist, L0, start=0,
                            n_full=n_full, tol=tol)
 
-    def run(self, block_fn, hyper, rng, *, n_full: int, rem: int, info):
+    def run(self, *, n_full: int, rem: int, info):
         """Run a fit from block 0 on the entry's buffers; returns U, V, Z.
-        A full-batch fit is one launch of the fit graph. Otherwise (a
-        sampled fit, or a refused node) the eval block is replayed per
-        block (_run_blocks) from the fit's generator states, and the
-        remainder replayed (full batch) or run eagerly (sampled), leaving
-        ``rng`` where the host loop leaves it."""
+        The fit is one launch of the fit graph; with a refused node the
+        eval block is replayed per block (_run_blocks) and the remainder
+        after them. A sampled fit's blocks draw from the entry's key
+        stream (loaded from the fit's by :meth:`load`)."""
         if self.fit is not None:
             self.fit.launch()
             info["graph_launches"] = 1
-            return self.statics
+        else:
+            def replay(j):
+                self.block.replay()
+                self.block_rec.add()
+                info["replays"] += 1
+                return self.loss
 
-        def replay(j):
-            self.block.replay()
-            self.block_rec.add()
-            info["replays"] += 1
-            return self.loss
-
-        ours, theirs = generators(self.rng), generators(rng)
-        for g, src in zip(ours, theirs):
-            g.set_state(src.get_state())
-        stopped = _run_blocks(replay, self.ctl, self.fctl, self.hist, n_full)
-        for g, dst in zip(ours, theirs):
-            dst.set_state(g.get_state())
-        state = (self.X, self.Y, *self.statics)
-        if rem and not stopped and self.rem is not None:
-            self.rem.replay()
-            self.rem_rec.add()
-            info["replays"] += 1
-            kfit.stop_rule(self.ctl, self.fctl, self.hist, self.rem_loss,
-                           kfit.REMAINDER)
-        elif rem and not stopped:
-            state, loss_t, _ = block_fn(state, hyper, rng, rem)
-            kfit.stop_rule(self.ctl, self.fctl, self.hist,
-                           _as_loss(loss_t, self.ctl.device), kfit.REMAINDER)
-        return state[2:]
+            stopped = _run_blocks(replay, self.ctl, self.fctl, self.hist,
+                                  n_full)
+            if rem and not stopped:
+                self.rem.replay()
+                self.rem_rec.add()
+                info["replays"] += 1
+                kfit.stop_rule(self.ctl, self.fctl, self.hist, self.rem_loss,
+                               kfit.REMAINDER)
+        return self.statics
 
     def count_launches(self, blocks: int, rem_ran: bool) -> None:
         """Add what the fit graph ran to the launch and collective counts:
@@ -668,9 +627,9 @@ def _first_fit(block_fn, state, hyper, rng, ctl, fctl, hist, *,
     shared-memory attributes and makes the library handles of the capture
     stream); if a second full block runs, one eval block captured into a
     graph of this fit (reading static copies of U, V, Z and the fit's X and
-    Y; ``rng`` registered) and replayed per later full block; the
-    remainder eager; the stop rule after each block (_run_blocks). Returns
-    the final U, V, Z."""
+    Y; a sampled fit's ``rng``, its KeyStream, advanced by each block) and
+    replayed per later full block; the remainder eager; the stop rule after
+    each block (_run_blocks). Returns the final U, V, Z."""
     cur = {"state": state, "rng": rng}
     graph = block_graph(state[2])
     loss = torch.zeros((), dtype=torch.float64, device=ctl.device)
@@ -686,9 +645,8 @@ def _first_fit(block_fn, state, hyper, rng, ctl, fctl, hist, *,
         if rec is None:
             s = cur["state"]
             statics = [t.clone() for t in s[2:]]
-            rng_b = cur["rng"] if generators(cur["rng"]) else None
             rec = _capture_block(graph, block_fn, (*s[:2], *statics),
-                                 hyper, rng_b, eval_every, statics, loss)
+                                 hyper, cur["rng"], eval_every, statics, loss)
             cur["state"] = (*s[:2], *statics)
             info["captures"] += 1
             if "collectives" in info:
@@ -720,9 +678,9 @@ def run_device_fit(block_fn, state, hyper, rng, *, max_iter: int, tol: float,
     fit_cache_limit bytes, builds the cache's one entry (FitEntry: evicting
     the entry it held, copying the fit's data and factors, capturing the
     blocks from them) and runs on it; later fits of the key copy theirs in
-    and run on it too, from block 0: a full-batch fit as one launch of the
-    fit graph, a sampled fit as a replay of the cached eval block per
-    block. Every fit ends in one readback of the iteration count and the
+    and run on it too, from block 0, as one launch of the fit graph (a
+    sampled fit's draws keyed on the entry's device counter). Every fit
+    ends in one readback of the iteration count and the
     loss history; the results are never the entry's buffers; a non-finite
     loss raises FloatingPointError after the readback, and ``step_times``
     are the wall time amortized over the blocks (amortize_step_times).
@@ -741,8 +699,7 @@ def run_device_fit(block_fn, state, hyper, rng, *, max_iter: int, tol: float,
     eval_every = max(1, min(eval_every, max_iter))
     n_full, rem = divmod(max_iter, eval_every)
     X, Y, U = state[0], state[1], state[2]
-    full_key = fit_key(key, state, hyper, eval_every, rem,
-                       bool(generators(rng)))
+    full_key = fit_key(key, state, hyper, eval_every, rem, rng is not None)
     entry = _CACHE["entry"]
     limit = fit_cache_limit(U.device)
     flags = [entry is not None and entry.key == full_key,
@@ -770,14 +727,13 @@ def run_device_fit(block_fn, state, hyper, rng, *, max_iter: int, tol: float,
                 _CACHE.update(entry=entry, seen=full_key)
                 info["captures"] = 1 + (entry.rem is not None)
             else:
-                entry.load(state)
+                entry.load(state, rng)
             if agree is not None:
                 info["collectives"] = entry.block_rec.comm[0]
             if entry.refused is not None:
                 info["refused"] = entry.refused
             entry.start(hist, L0, n_full=n_full, tol=tol)
-            out = entry.run(block_fn, hyper, rng, n_full=n_full, rem=rem,
-                            info=info)
+            out = entry.run(n_full=n_full, rem=rem, info=info)
             factors = [t.clone() if any(t is s for s in entry.statics) else t
                        for t in out]
             ctl = entry.ctl

@@ -15,10 +15,13 @@ objective sum over a uniform draw of s = ⌈ratio·q⌉ of its q columns, made
 anew per term and step, without rescaling (the reference's rule). Dense
 data gathers the drawn columns; CSR and BlockEll data keep them all and
 take the draw as a 0/1 column mask folded into B, which gives the same
-sums. The draws come from the fit's ``torch.Generator`` on the factors'
-device, in the order U's term, Z's term, V's terms, through
-:func:`draw_columns`: no host sync and a static size, so a CUDA graph of
-the step replays fresh draws.
+sums. The draws are the reference's (``ops/random.py``): step i of a fit
+splits its iteration's key into (kU, kZ, kV), term t of a factor draws
+``choice(fold_in(k, t), q, s, replace=False)`` (a distributed term's key
+folded again with its rank on the mesh axis), through
+:func:`draw_columns`: Threefry-2x32 on the factors' device, no host sync
+and a static size, so a CUDA graph of a block replays each block's own
+draws.
 
 A linear term's Hessian BᵀB is shared by every row (one k×k Cholesky); a
 sigmoid term gives each row its own k×k system. U sees one term (X, V); Z
@@ -62,6 +65,7 @@ from ..ops.links import LINEAR
 from ..ops.losses import (penalty, reconstruction_term, sigmoid_sq_rows,
                           total_loss)
 from ..ops.matmul import contiguous_t, gram, matmul, select_columns
+from ..ops.random import KeyStream, choice_without_replacement, fold_in
 from ..ops.sparse import is_sparse, masked_row_sq_norms, row_sq_norms
 from ..parallel.mesh import all_reduce
 from .common import (Coupled, Hyper, SolverConfig, check_loop, layout_spmm,
@@ -120,22 +124,18 @@ def sample_size(q: int, ratio: float) -> int:
     return max(1, int(-(-ratio * q // 1)))
 
 
-def draw_columns(gen: torch.Generator, q: int, s: int) -> torch.Tensor:
-    """s distinct indices of range(q), uniform without replacement, in
-    ascending order, drawn from ``gen`` on its own device: random keys
-    and an argsort, so no host sync and a static shape (a CUDA graph
-    replays a fresh draw). The reference draws with
-    ``jax.random.choice``, which torch cannot reproduce; its tests hand
-    the port the reference's draws through this function."""
-    if not isinstance(gen, torch.Generator):
-        raise ValueError("sg_sample_ratio < 1 draws from a torch.Generator "
-                         f"on the factors' device, got {gen!r}")
-    keys = torch.rand(q, generator=gen, device=gen.device,
-                      dtype=torch.float64)
-    return torch.sort(torch.argsort(keys)[:s]).values
+def draw_columns(key: torch.Tensor, q: int, s: int) -> torch.Tensor:
+    """The s indices of range(q) the reference draws under ``key`` (a (2,)
+    int64 key on the factors' device), ``jax.random.choice(key, q, (s,),
+    replace=False)``, in ascending order: only the set enters the sums,
+    and ascending columns gather with better locality. The reference
+    gathers in the draw's order, so a gathered sum adds the same terms in
+    another order (equal at float64 to rounding). No host sync, a static
+    shape."""
+    return torch.sort(choice_without_replacement(key, q, s)).values
 
 
-def _sample_columns(gen, D, B, ratio: float, mask=None):
+def _sample_columns(key, D, B, ratio: float, mask=None):
     """(D, B, mask) restricted to a draw of their q columns (dense D:
     ``index_select``, on the byte view of fp8 data; the optional (q,)
     column mask, a shard's padding, gathered with them); unchanged when
@@ -145,12 +145,12 @@ def _sample_columns(gen, D, B, ratio: float, mask=None):
     s = sample_size(q, ratio)
     if s >= q:
         return D, B, mask
-    idx = draw_columns(gen, q, s)
+    idx = draw_columns(key, q, s)
     return (select_columns(D, idx), B.index_select(0, idx),
             None if mask is None else mask.index_select(0, idx))
 
 
-def sample_mask(gen, q: int, ratio: float, dtype):
+def sample_mask(key, q: int, ratio: float, dtype):
     """The same draw as :func:`_sample_columns` as a (q,) 0/1 mask, or
     None when it would take every column. Sums over the drawn columns
     equal the mask-weighted sums over all of them, which is how CSR and
@@ -159,12 +159,13 @@ def sample_mask(gen, q: int, ratio: float, dtype):
     s = sample_size(q, ratio)
     if s >= q:
         return None
-    idx = draw_columns(gen, q, s)
+    # a mask needs the set only: the draw's own order, no ascending sort
+    idx = choice_without_replacement(key, q, s)
     return torch.zeros(q, dtype=dtype, device=idx.device).index_fill_(
         0, idx, 1)
 
 
-def _sample_term(gen, term: Term, ratio: float, dtype, mask=None):
+def _sample_term(key, term: Term, ratio: float, dtype, mask=None):
     """(term, mask) of one sampled term (the reference's per-term draw,
     ``pycmf_tpu/solvers/newton.py:360-381``). Dense D takes the gathered
     columns, and the term's own column mask (a shard's padding) the same
@@ -174,13 +175,22 @@ def _sample_term(gen, term: Term, ratio: float, dtype, mask=None):
     as in the reference)."""
     D, B = term.D, term.B
     if is_sparse(D) or is_chunked(D) or isinstance(D, ChunkedT):
-        drawn = sample_mask(gen, B.shape[0], ratio, dtype)
+        drawn = sample_mask(key, B.shape[0], ratio, dtype)
         if drawn is None:
             return term, mask
         return (Term(D, B, layout=term.layout),
                 drawn if mask is None else mask * drawn)
-    D, B, mask = _sample_columns(gen, D, B, ratio, mask)
+    D, B, mask = _sample_columns(key, D, B, ratio, mask)
     return Term(D, B), mask
+
+
+def term_key(key: torch.Tensor, t: int, axis_rank=None) -> torch.Tensor:
+    """The key term t of a factor update draws under: fold_in(key, t), and
+    for a distributed term fold_in of that with the rank's index on the
+    mesh axis its columns are sharded over (``pycmf_tpu/solvers/
+    newton.py:363-369``)."""
+    key = fold_in(key, t)
+    return key if axis_rank is None else fold_in(key, axis_rank)
 
 
 def _accumulate_term(M, term: Term, link: str, use_pallas: bool = False,
@@ -293,7 +303,7 @@ def _project(non_negative: bool):
     return lambda Mc: Mc
 
 
-def newton_update_factor(rng, M, terms, links, hyper: Hyper, *,
+def newton_update_factor(key, M, terms, links, hyper: Hyper, *,
                          non_negative: bool, trials: int,
                          hessian_form: str = "gauss",
                          sample_ratio: float = 1.0, use_pallas: bool = False,
@@ -302,18 +312,14 @@ def newton_update_factor(rng, M, terms, links, hyper: Hyper, *,
     """One batched Newton update of factor M against its coupled terms
     (reference: ``pycmf_tpu/solvers/newton.py:newton_update_factor``).
 
-    rng: the fit's torch.Generator on M's device, or a tuple of them, one
-    per term; when sample_ratio < 1 each term draws its columns from its
-    generator in turn (unused otherwise). The rule of a sharded step
-    (``parallel/sharded.py:Draws``): a term whose draw the reference
-    shares across ranks (its key not folded with an axis index) draws from
-    a stream identical on every rank that holds the updated factor, so a
-    replicated factor stays bit for bit equal on them; a term whose key
-    the reference folds with an axis index (a distributed term, whose
-    columns are the rank's own padded block, or every term of a factor
-    whose key is folded before the call) draws from a stream keyed by the
-    rank's coordinate on that axis. A distributed term's draw covers the
-    rank's padded local columns, and its padding columns stay masked.
+    key: the step's key of this factor, a (2,) int64 tensor on M's device
+    (unused unless sample_ratio < 1): term t draws under
+    :func:`term_key`, a distributed term's key folded with ``group``'s
+    rank, as the reference folds its axis index; a layout that folds the
+    factor's key before the call (rows: U's; cols: V's; the grid: V's) does
+    so itself. Ranks that hold one replica of a factor thus draw alike and
+    keep it bit for bit equal. A distributed term's draw covers the rank's
+    padded local columns, and its padding columns stay masked.
     distributed: one bool per term; True marks a term whose columns are
     sharded over ``group`` (a ``parallel.mesh.Mesh``): its G, H and φ
     contributions are summed over the ranks, in one all-reduce for G and
@@ -333,13 +339,14 @@ def newton_update_factor(rng, M, terms, links, hyper: Hyper, *,
     distributed = distributed or (False,) * len(terms)
     masks = masks or (None,) * len(terms)
     any_dist = group is not None and any(distributed)
-    gens = rng if isinstance(rng, (tuple, list)) else (rng,) * len(terms)
     parts, ctxs = [], []
-    for term, link, dist, mask, gen in zip(terms, links, distributed, masks,
-                                           gens):
+    for t, (term, link, dist, mask) in enumerate(zip(terms, links,
+                                                     distributed, masks)):
         term = term if isinstance(term, Term) else Term(*term)
         if sample_ratio < 1.0:
-            term, mask = _sample_term(gen, term, sample_ratio, M.dtype,
+            tkey = term_key(key, t, group.rank if dist and group is not None
+                            else None)
+            term, mask = _sample_term(tkey, term, sample_ratio, M.dtype,
                                       mask)
         G_t, H_sh, H_rw, ctx = _accumulate_term(M, term, link, use_pallas,
                                                 hessian_form, mask)
@@ -548,14 +555,17 @@ def make_newton_step(cfg: SolverConfig, with_aux=None):
 
     sampled = cfg.sg_sample_ratio < 1.0
 
-    def step(X: Coupled, Y, U, V, Z, hyper: Hyper, rng=None):
+    def step(X: Coupled, Y, U, V, Z, hyper: Hyper, keys=None):
+        """keys: the step's (kU, kZ, kV), (3, 2) (KeyStream.step_keys), or
+        None for a full-batch step."""
+        kU, kZ, kV = (None,) * 3 if keys is None else keys
         numv_x = gram_u = phi_sum = None
         x_chunked = is_chunked(X.A)
         if cfg.update_U:
             if x_chunked and cfg.x_link != LINEAR:
                 # row-local streamed sigmoid update; a sampled step takes
-                # the U term's draw as its column mask
-                col_mask = (sample_mask(rng, X.A.shape[1],
+                # the U term's draw (term 0's key) as its column mask
+                col_mask = (sample_mask(term_key(kU, 0), X.A.shape[1],
                                         cfg.sg_sample_ratio, U.dtype)
                             if sampled else None)
                 U = chunked_sigmoid_row_update(
@@ -585,7 +595,7 @@ def make_newton_step(cfg: SolverConfig, with_aux=None):
                                          **fused)
             else:
                 U = newton_update_factor(
-                    rng, U, (Term(X.A, V, X.row_sq, layout=X.A_bell),),
+                    kU, U, (Term(X.A, V, X.row_sq, layout=X.A_bell),),
                     (cfg.x_link,), hyper, non_negative=cfg.U_non_negative,
                     **common)
         if cfg.has_Y and cfg.update_Z:
@@ -597,7 +607,7 @@ def make_newton_step(cfg: SolverConfig, with_aux=None):
                 zterm = Term(_transposed(Y), V, Y.row_sq_t,
                              layout=Y.At_bell)
                 Z = newton_update_factor(
-                    rng, Z, (zterm,), (cfg.y_link,),
+                    kZ, Z, (zterm,), (cfg.y_link,),
                     hyper, non_negative=cfg.Z_non_negative, **common)
         if cfg.update_V:
             yterm = (Term(Y.A, Z, Y.row_sq, layout=Y.A_bell) if cfg.has_Y
@@ -617,7 +627,7 @@ def make_newton_step(cfg: SolverConfig, with_aux=None):
                     terms = terms + (yterm,)
                     links = links + (cfg.y_link,)
                 out = newton_update_factor(
-                    rng, V, terms, links, hyper,
+                    kV, V, terms, links, hyper,
                     non_negative=cfg.V_non_negative, return_phi=phi_aux,
                     **common)
             if phi_aux:
@@ -761,14 +771,19 @@ def _make_block(cfg: SolverConfig, aux):
         aux_loss = (_aux_loss_phi if aux == "phi" else _aux_loss)(cfg)
 
     def block(state, hyper: Hyper, rng, n_steps: int):
+        """``rng``: the fit's KeyStream (sampled), advanced past the block
+        on the device, or None."""
         X, Y, U, V, Z = state
         a = None
-        for _ in range(n_steps):
-            out = step(X, Y, U, V, Z, hyper, rng)
+        for i in range(n_steps):
+            keys = None if rng is None else rng.step_keys(i)
+            out = step(X, Y, U, V, Z, hyper, keys)
             if aux is None:
                 U, V, Z = out
             else:
                 U, V, Z, a = out
+        if rng is not None:
+            rng.advance(n_steps)
         state = (X, Y, U, V, Z)
         if aux is None:
             return state, loss_fn(state, hyper), rng
@@ -778,14 +793,15 @@ def _make_block(cfg: SolverConfig, aux):
 
 
 def run_newton(X: Coupled, Y, U0, V0, Z0, cfg: SolverConfig, hyper: Hyper,
-               rng: Optional[torch.Generator] = None, *, max_iter: int = 200,
+               rng: Optional[torch.Tensor] = None, *, max_iter: int = 200,
                tol: float = 1e-4, eval_every: int = 10, verbose: int = 0,
                loop: str = "host"):
     """Run the Newton solver (loop semantics as in run_mu). ``rng``: the
-    fit's torch.Generator on the factors' device, from which a sampled
-    step (sg_sample_ratio < 1) draws its columns; the device loop loads
-    its state into the generator registered with its cached graph, so
-    each replay draws anew, and leaves it where the host loop does."""
+    reference's key, a (2,) int64 tensor of uint32 words
+    (``ops/random.prng_key``) on the factors' device, under which a
+    sampled step (sg_sample_ratio < 1) draws its columns: iteration j
+    (from 0) under fold_in(rng, j), on both loops (the device loop reads j
+    from a device counter), so the two draw the same bits."""
     check_loop(loop)
     check_device_loop(cfg, U0.is_cuda, loop)
     aux = _aux_kind(cfg, X, U0)
@@ -793,7 +809,12 @@ def run_newton(X: Coupled, Y, U0, V0, Z0, cfg: SolverConfig, hyper: Hyper,
     X, Y = _with_transposes(cfg, X, Y, V0, Z0)
     state = (X, Y, U0, V0, Z0)
     if cfg.sg_sample_ratio >= 1.0:
-        rng = None  # nothing draws: no generator for the graph to carry
+        rng = None  # nothing draws: no key stream for the graphs to carry
+    elif rng is None:
+        raise ValueError("a sampled Newton fit (sg_sample_ratio < 1) draws "
+                         "under a key: pass rng (ops/random.prng_key)")
+    else:
+        rng = KeyStream.start(rng.to(U0.device))
     state, n_iter, losses, iters, times = run_solver_loop(
         block, state, hyper, rng, max_iter=max_iter, tol=tol,
         eval_every=eval_every, verbose=verbose,

@@ -98,90 +98,23 @@ def _fitted(est):
             "iters": list(est.loss_iters_)}
 
 
-class StreamDraws:
-    """``solvers/newton.draw_columns``' stand-in in a rank: the reference's
-    draws, computed in the test's process from its key schedule. ``draws``
-    maps a stream's seed (``sharded.stream_seed``) to one list of
-    (q, indices) per generator made with that seed, in the order the
-    generators are made (a fit's, then a transform's); each call of a
-    generator takes its list's next entry and checks its q. The fake holds
-    every generator it saw, so no id is reused.
-
-    ``by_state``: the n-th draw is read off the generator's state instead
-    (each draw advances it by one value), from the seed's first list, as
-    ``tests/test_torch_sampling.py:RefDraws`` does: the device loop's
-    capture pass restores its generators, and a cached fit draws from
-    copies of them, so only the state says which draw is due."""
-
-    def __init__(self, draws, by_state=False):
-        self.draws = draws
-        self.by_state = by_state
-        self.seen = {}
-        self.made = {}
-        self.pos = {}
-
-    def __call__(self, gen, q, s):
-        import torch
-
-        if self.by_state:
-            state = bytes(gen.get_state().numpy())
-            n = self.pos.setdefault(state, 0)
-            want_q, idx = self.draws[gen.initial_seed()][0][n]
-            torch.rand(1, generator=gen)
-            self.pos[bytes(gen.get_state().numpy())] = n + 1
-            assert (q, s) == (want_q, len(idx)), (q, s, want_q, len(idx))
-            return torch.from_numpy(np.asarray(idx, dtype=np.int64))
-        if id(gen) not in self.seen:
-            seed = gen.initial_seed()
-            n = self.made.get(seed, 0)
-            self.made[seed] = n + 1
-            self.seen[id(gen)] = (gen, iter(self.draws[seed][n]))
-        want_q, idx = next(self.seen[id(gen)][1])
-        assert (q, s) == (want_q, len(idx)), (q, s, want_q, len(idx))
-        return torch.from_numpy(np.asarray(idx, dtype=np.int64))
-
-
-class Recorded:
-    """Wraps draw_columns: each call's (generator seed, indices)."""
-
-    def __init__(self, fn):
-        self.fn, self.calls = fn, []
-
-    def __call__(self, gen, q, s):
-        idx = self.fn(gen, q, s)
-        self.calls.append((gen.initial_seed(), idx.numpy().copy()))
-        return idx
-
-
 def _case_patches(case, rank):
-    """The patches a case asks for: 'draws' (StreamDraws keyed by the
-    stream keys of the case's seed; by state with 'draws_by_state'),
-    'record' (Recorded), 'threshold' (the sharded layouts' densify
+    """The patches a case asks for: 'threshold' (the sharded layouts' densify
     threshold, bytes), 'chunk_rows' (the chunked layout's rows per chunk;
     the shapes of the chunked layouts built are then listed in
     case['_built']) and 'no_cache_rank' (on that rank alone the fit cache
-    may copy nothing: ``fit_cache_limit`` 0). Returns (ExitStack, Recorded
-    or None)."""
+    may copy nothing: ``fit_cache_limit`` 0). Returns an ExitStack."""
     from contextlib import ExitStack
     from unittest import mock
 
     from pycmf_tpu_torch.ops import chunked
     from pycmf_tpu_torch.parallel import sharded
-    from pycmf_tpu_torch.solvers import common, newton
+    from pycmf_tpu_torch.solvers import common
 
-    stack, rec = ExitStack(), None
-    if "draws" in case:
-        seed = case["seed"]
-        fake = StreamDraws({sharded.stream_seed(seed, *key): uses
-                            for key, uses in case["draws"].items()},
-                           by_state=case.get("draws_by_state", False))
-        stack.enter_context(mock.patch.object(newton, "draw_columns", fake))
+    stack = ExitStack()
     if case.get("no_cache_rank") == rank:
         stack.enter_context(mock.patch.object(common, "fit_cache_limit",
                                               lambda device: 0))
-    if case.get("record"):
-        rec = Recorded(newton.draw_columns)
-        stack.enter_context(mock.patch.object(newton, "draw_columns", rec))
     if "threshold" in case:
         stack.enter_context(mock.patch.object(
             sharded, "DENSIFY_THRESHOLD", case["threshold"]))
@@ -200,7 +133,7 @@ def _case_patches(case, rank):
         stack.enter_context(mock.patch.object(validation,
                                               "chunked_from_scipy", spy))
         case["_built"] = built
-    return stack, rec
+    return stack
 
 
 def _run_layout(case, group=None):
@@ -274,10 +207,7 @@ def run_cases(rank, cases):
     """Each case on this rank, in order; {name: result}. A case is a dict:
 
     kind 'fit': CMF(device='cpu', **kw).fit(X, Y, U=, V=, Z=), and when
-        'Xn' is given, transform(Xn) after it (its U0 'Un'); with
-        'draws' (and 'seed') the reference's column draws are injected,
-        'rank_draws' giving each rank its own ({rank: draws}); with
-        'record' the result has each draw ('draws': (seed, indices));
+        'Xn' is given, transform(Xn) after it (its U0 'Un');
         'threshold', 'chunk_rows' and 'no_cache_rank' patch the densify
         threshold, the chunk rows and one rank's fit cache limit (see
         _case_patches); the result holds the fit's COMM counts ('comm')
@@ -307,10 +237,8 @@ def run_cases(rank, cases):
     for name, case in cases.items():
         kind = case["kind"]
         case = dict(case)
-        if "rank_draws" in case:
-            case["draws"] = case["rank_draws"][rank]
         if kind in ("fit", "run"):
-            stack, rec = _case_patches(case, rank)
+            stack = _case_patches(case, rank)
             with stack:
                 if "repeat" in case:
                     clear_fit_cache()
@@ -322,8 +250,6 @@ def run_cases(rank, cases):
                     clear_fit_cache()
                 else:
                     res = _fit_once(kind, case)
-            if rec is not None:
-                res["draws"] = rec.calls
             if "_built" in case:
                 res["chunked"] = case["_built"]
             out[name] = res

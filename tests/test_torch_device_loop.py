@@ -108,9 +108,9 @@ def test_divergent_device_loop_raises(rng):
 class RecordingGraph(tcommon.EagerBlockGraph):
     events = []
 
-    def capture(self, fn, outputs, generators=()):
+    def capture(self, fn, outputs):
         self.events.append("capture")
-        super().capture(fn, outputs, generators)
+        super().capture(fn, outputs)
 
     def replay(self):
         self.events.append("replay")

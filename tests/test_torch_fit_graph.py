@@ -26,6 +26,7 @@ from pycmf_tpu_torch import CMF
 from pycmf_tpu_torch.ops.kernels import _build
 from pycmf_tpu_torch.ops.kernels import fit_loop as kfit
 from pycmf_tpu_torch.ops.kernels import policy
+from pycmf_tpu_torch.ops.random import prng_key
 from pycmf_tpu_torch.solvers import common as tcommon
 from pycmf_tpu_torch.solvers.common import Coupled, SolverConfig, make_hyper
 from pycmf_tpu_torch.solvers.mu import run_mu
@@ -403,33 +404,40 @@ def test_entry_reads_only_its_own_copies(rng):
 def _sampled(X, Y, U0, V0, Z0, seed, loop):
     cfg = SolverConfig(use_pallas=True, y_link="sigmoid",
                        sg_sample_ratio=0.5)
-    gen = torch.Generator().manual_seed(seed)
     Yc = Coupled(Y, a_sq=(Y * Y).sum())
-    out = run_newton(Coupled(X, a_sq=(X * X).sum()), Yc, U0, V0, Z0, cfg,
-                     make_hyper(dtype=U0.dtype), gen, max_iter=7,
-                     eval_every=3, tol=0.0, loop=loop)
-    return out, gen.get_state()
+    return run_newton(Coupled(X, a_sq=(X * X).sum()), Yc, U0, V0, Z0, cfg,
+                      make_hyper(dtype=U0.dtype), prng_key(seed), max_iter=7,
+                      eval_every=3, tol=0.0, loop=loop)
 
 
 def test_sampled_fit_on_a_hit_draws_as_a_fresh_fit(rng):
-    """A sampled fit's draws follow its own generator's state, on a key's
-    first fit (its graph registered with that generator), on the fit that
-    builds the entry and on a hit (the cached eval block replayed per
-    block, the entry's generator loaded from the fit's): each equals the
-    host loop's fit with the same seed bit for bit and leaves its
-    generator where the host loop leaves it."""
+    """A sampled fit's draws follow its own key, on a key's first fit (an
+    eager block, a graph of one eval block replayed), on the fit that
+    builds the entry and on a hit: the last two are one launch of the fit
+    graph (the entry's key stream loaded from the fit's, its counter read
+    on the device by every block, the remainder's from n_full·eval_every),
+    no replay. Each equals the host loop's fit with the same seed bit for
+    bit, and another seed gives another fit."""
     X, Y = make_problem(rng, n=30, m=20, r=6, binary_y=True)
     X, Y = torch.from_numpy(X), torch.from_numpy(Y)
     U0, V0, Z0 = (torch.from_numpy(a) for a in _factors(rng, 30, 20, 6, 3))
-    for seed, hit, replays in ((1, False, 1), (2, False, 2), (3, True, 2)):
-        dev, dev_gen = _sampled(X, Y, U0, V0, Z0, seed, "device")
+    tcommon.clear_fit_cache()
+    fits = []
+    for seed, hit, launches, replays in ((1, False, 0, 1), (2, False, 1, 0),
+                                         (3, True, 1, 0)):
+        dev = _sampled(X, Y, U0, V0, Z0, seed, "device")
         assert tcommon.LAST_FIT["hit"] is hit
+        assert tcommon.LAST_FIT["graph_launches"] == launches
         assert tcommon.LAST_FIT["replays"] == replays
-        host, host_gen = _sampled(X, Y, U0, V0, Z0, seed, "host")
-        assert torch.equal(dev_gen, host_gen)
+        host = _sampled(X, Y, U0, V0, Z0, seed, "host")
         for a, b in zip(dev[:3], host[:3]):
             assert torch.equal(a, b)
         assert dev[3:5] == host[3:5]
+        fits.append(dev)
+    assert not torch.equal(fits[1][0], fits[2][0])
+    assert isinstance(tcommon.fit_cache_entries()[0].fit,
+                      tcommon.EagerFitGraph)
+    tcommon.clear_fit_cache()
 
 
 # -- the card's entry points, reached with a fake library ------------------

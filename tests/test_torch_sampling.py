@@ -2,21 +2,18 @@
 Hessian form (``hessian_form='full'``) of the port against the reference,
 on the CPU.
 
-The reference draws its columns with ``jax.random.choice``, which torch
-cannot reproduce. The port draws through one seam,
-``solvers/newton.draw_columns(gen, q, s)``; these tests replace it with the
-reference's own draws, computed with ``jax.random`` on the reference's key
-schedule (``fold_in(key, it)`` → ``split(·, 3)`` → ``fold_in(k, t)`` →
-``choice``: U's term, Z's term, V's terms t = 0, 1). The fake keys its
-position on the generator's state and advances the generator by one draw,
-so a capture that leaves the generator where it was (the device loop's CPU
-stand-in) replays the same position, as on the card.
+The port draws its columns as the reference does (``ops/random.py``:
+Threefry-2x32 under ``PRNGKey(seed)``, the reference's key schedule
+``fold_in(key, it)`` → ``split(·, 3)`` → ``fold_in(k, t)`` → ``choice``),
+so nothing is injected: the two packages' sampled fits with one
+``random_state`` are compared directly.
 
-Tolerances: float64, the reference with use_pallas=False against the
-port's plain path, rtol 1e-9 on loss histories and per-step factors (the
-reference's own bar for its sharded parity), 1e-7 on factors after a
-whole fit (they carry every iteration's summation-order differences).
-The device loop's CPU stand-in and the host loop agree bit for bit.
+Tolerances: float64, the reference with use_pallas=False against both
+of the port's paths, rtol 1e-9 (atol 1e-12) on loss histories, factors
+and transforms (the reference's own bar for its sharded parity; a
+gathered sum adds the drawn columns in ascending order where the
+reference adds them in the draw's). The device loop's CPU stand-in and
+the host loop agree bit for bit.
 """
 import jax
 import jax.numpy as jnp
@@ -31,6 +28,7 @@ from pycmf_tpu.solvers import common as jcommon
 from pycmf_tpu.solvers import newton as jnewton
 from pycmf_tpu_torch import CMF
 from pycmf_tpu_torch.models import cmf as tcmf
+from pycmf_tpu_torch.ops import random as trandom
 from pycmf_tpu_torch.ops import sparse as tsparse
 from pycmf_tpu_torch.ops.kernels import bell as tbell
 from pycmf_tpu_torch.solvers import common as tcommon
@@ -48,54 +46,8 @@ def _np(x):
     return np.asarray(x, dtype=np.float64)
 
 
-def _choice(key, q, s):
-    return np.array(jax.random.choice(key, q, shape=(s,), replace=False))
-
-
-class RefDraws:
-    """draw_columns' stand-in: the port's n-th draw from a generator (n
-    read off the generator's state, which each draw advances) is the n-th
-    draw of the reference's schedule, a list of (key, q)."""
-
-    def __init__(self, schedule):
-        self.schedule = schedule
-        self.pos = {}
-
-    def __call__(self, gen, q, s):
-        state = bytes(gen.get_state().numpy())
-        n = self.pos.setdefault(state, 0)
-        key, want_q = self.schedule[n]
-        assert q == want_q, (n, q, want_q)
-        torch.rand(1, generator=gen)
-        self.pos[bytes(gen.get_state().numpy())] = n + 1
-        return torch.from_numpy(_choice(key, q, s)).long()
-
-
-def _fit_schedule(seed, n_iter, qs, ratio):
-    """The reference's draws of a fit (pycmf_tpu/solvers/newton.py:
-    make_newton_step, newton_update_factor): per iteration `it`, key_it =
-    fold_in(PRNGKey(seed), it), (kU, kZ, kV) = split(key_it, 3), and term
-    t of a factor draws with fold_in(k, t). qs: per factor index (0 = U,
-    1 = Z, 2 = V) the column counts of its terms, in order. A term whose
-    draw would take every column draws nothing."""
-    out = []
-    for it in range(n_iter):
-        keys = jax.random.split(
-            jax.random.fold_in(jax.random.PRNGKey(seed), it), 3)
-        for f in sorted(qs):
-            for t, q in enumerate(qs[f]):
-                if tnewton.sample_size(q, ratio) < q:
-                    out.append((jax.random.fold_in(keys[f], t), q))
-    return out
-
-
-@pytest.fixture
-def ref_draws(monkeypatch):
-    def install(schedule):
-        fake = RefDraws(schedule)
-        monkeypatch.setattr(tnewton, "draw_columns", fake)
-        return fake
-    return install
+def _key(seed):
+    return trandom.prng_key(seed)
 
 
 # -- masked row norms -------------------------------------------------------
@@ -168,22 +120,20 @@ def _update_case(rng, case):
 @pytest.mark.parametrize("case", ["linear", "sigmoid", "sigmoid_full",
                                   "csr", "two_terms"])
 @pytest.mark.parametrize("use_pallas", [False, True])
-def test_newton_update_factor_sampled_matches_reference(rng, ref_draws,
-                                                        case, use_pallas):
-    """One sampled Newton update (ratio 0.4) with the reference's draws:
-    dense terms gather, the CSR term is masked; the full form's systems
-    take LU in both."""
+def test_newton_update_factor_sampled_matches_reference(rng, case,
+                                                        use_pallas):
+    """One sampled Newton update (ratio 0.4) under the same key in both
+    packages, each term drawing under fold_in(key, t): dense terms gather,
+    the CSR term is masked; the full form's systems take LU in both."""
     M, tterms, jterms, links, form = _update_case(rng, case)
     key = jax.random.PRNGKey(7)
-    ref_draws([(jax.random.fold_in(key, t), tt.B.shape[0])
-               for t, tt in enumerate(tterms)])
     kw = dict(non_negative=case == "linear" or case == "csr", trials=6,
               hessian_form=form, sample_ratio=0.4)
     jh = jcommon.make_hyper(0.1, 0.3, dtype=jnp.float64)
     th = tcommon.make_hyper(0.1, 0.3, dtype=torch.float64)
     want = jnewton.newton_update_factor(key, jnp.asarray(M), tuple(jterms),
                                         links, jh, use_pallas=False, **kw)
-    got = tnewton.newton_update_factor(torch.Generator(), _t(M),
+    got = tnewton.newton_update_factor(_key(7), _t(M),
                                        tuple(tterms), links, th,
                                        use_pallas=use_pallas, **kw)
     np.testing.assert_allclose(_np(got), _np(want), rtol=1e-9, atol=1e-12)
@@ -217,14 +167,19 @@ def test_accumulate_term_with_mask_matches_reference(rng, link, form):
 
 
 def test_sample_mask_equals_gather(rng):
-    """The same draw as a mask gives the gathered term's G, H and φ."""
+    """The same draw as a mask gives the gathered term's G, H and φ; both
+    take the reference's indices under the key."""
     p, q, k = 8, 21, 3
     M, B, D = rng.randn(p, k), rng.randn(q, k), np.abs(rng.randn(p, q))
-    g1, g2 = torch.Generator(), torch.Generator()
-    mask = tnewton.sample_mask(g1, q, 0.3, torch.float64)
-    Ds, Bs, _ = tnewton._sample_columns(g2, _t(D), _t(B), 0.3)
+    key = trandom.fold_in(_key(4), 2)
+    mask = tnewton.sample_mask(key, q, 0.3, torch.float64)
+    Ds, Bs, _ = tnewton._sample_columns(key, _t(D), _t(B), 0.3)
     assert int(mask.sum()) == tnewton.sample_size(q, 0.3) == Bs.shape[0]
-    assert torch.equal(g1.get_state(), g2.get_state())
+    want = np.sort(np.asarray(jax.random.choice(
+        jax.random.fold_in(jax.random.PRNGKey(4), 2), q,
+        (tnewton.sample_size(q, 0.3),), replace=False)))
+    np.testing.assert_array_equal(np.flatnonzero(mask.numpy()), want)
+    np.testing.assert_array_equal(Bs.numpy(), B[want])
     a = tnewton._accumulate_term(_t(M), tnewton.Term(_t(D), _t(B)),
                                  "linear", mask=mask)
     b = tnewton._accumulate_term(_t(M), tnewton.Term(Ds, Bs), "linear")
@@ -233,21 +188,26 @@ def test_sample_mask_equals_gather(rng):
 
 
 def test_draw_is_uniform_without_replacement_and_static():
-    """s = ceil(ratio q) distinct indices, ascending; every column is
-    drawn about equally often; the generator advances per draw."""
-    g = torch.Generator().manual_seed(3)
+    """s = ceil(ratio q) distinct indices, ascending, the reference's set;
+    every column is drawn about equally often over 400 keys; one key
+    draws the same columns every time, another key others."""
+    base = _key(3)
     seen = np.zeros(50)
-    first = tnewton.draw_columns(g, 50, 13)
-    for _ in range(400):
-        idx = tnewton.draw_columns(g, 50, 13)
+    first = tnewton.draw_columns(base, 50, 13)
+    for i in range(400):
+        idx = tnewton.draw_columns(trandom.fold_in(base, i), 50, 13)
         assert idx.shape == (13,) and idx.dtype == torch.long
         assert torch.equal(idx, torch.unique(idx))  # distinct, ascending
         seen[idx.numpy()] += 1
-    assert not torch.equal(first, tnewton.draw_columns(g, 50, 13))
+    assert torch.equal(first, tnewton.draw_columns(base, 50, 13))
+    assert not torch.equal(first, tnewton.draw_columns(
+        trandom.fold_in(base, 0), 50, 13))
+    np.testing.assert_array_equal(first.numpy(), np.sort(np.asarray(
+        jax.random.choice(jax.random.PRNGKey(3), 50, (13,), replace=False))))
     assert seen.min() > 0.7 * seen.mean() and seen.max() < 1.3 * seen.mean()
     assert tnewton.sample_size(20, 0.25) == 5
     assert tnewton.sample_size(3, 0.01) == 1
-    with pytest.raises(ValueError, match="torch.Generator"):
+    with pytest.raises(ValueError, match="int64 key"):
         tnewton.draw_columns(None, 5, 2)
 
 
@@ -275,30 +235,26 @@ def _fit_data(rng, name):
 
 @pytest.mark.parametrize("name", sorted(_FITS))
 @pytest.mark.parametrize("use_pallas", [False, True])
-def test_sampled_fit_matches_reference_f64(rng, ref_draws, name,
-                                           use_pallas):
-    """CMF(solver='newton', sg_sample_ratio=0.4), f64, both packages: the
-    port with the reference's draws injected, the reference with
-    use_pallas=False; n_iter, eval points, loss history, factors."""
+def test_sampled_fit_matches_reference_f64(rng, name, use_pallas):
+    """CMF(solver='newton', sg_sample_ratio=0.4, random_state=5), f64,
+    both packages, each drawing its own columns (the reference with
+    use_pallas=False): n_iter, eval points, loss history, factors."""
     X, Y, kw = _fit_data(rng, name)
-    n, m = X.shape
     params = dict(n_components=3, solver="newton", sg_sample_ratio=0.4,
                   random_state=5, max_iter=12, eval_every=3, tol=1e-9,
                   dtype="float64", alpha=0.05, l1_ratio=0.3, **kw)
     j = JCMF(use_pallas=False, **params).fit(X, Y)
-    ref_draws(_fit_schedule(5, 12, {0: (m,), 1: (m,), 2: (n, Y.shape[1])},
-                            0.4))
     t = CMF(use_pallas=use_pallas, device="cpu", **params).fit(X, Y)
     assert t.n_iter_ == j.n_iter_ and t.loss_iters_ == j.loss_iters_
     np.testing.assert_allclose(t.loss_history_, j.loss_history_, rtol=1e-9)
     for f in ("U_", "V_", "Z_"):
-        np.testing.assert_allclose(getattr(t, f), getattr(j, f), rtol=1e-7,
-                                   atol=1e-10)
+        np.testing.assert_allclose(getattr(t, f), getattr(j, f), rtol=1e-9,
+                                   atol=1e-12)
 
 
-def test_sampled_transform_matches_reference(rng, ref_draws):
-    """The fold-in draws from a generator seeded as the fit's (U's term
-    only), as the reference's transform does."""
+def test_sampled_transform_matches_reference(rng):
+    """The fold-in draws under the fit's key (U's term only), as the
+    reference's transform does."""
     X, Y = make_problem(rng, n=37, m=26, r=9)
     params = dict(n_components=3, solver="newton", sg_sample_ratio=0.5,
                   random_state=2, max_iter=4, eval_every=2, tol=0.0,
@@ -306,7 +262,6 @@ def test_sampled_transform_matches_reference(rng, ref_draws):
     j = JCMF(use_pallas=False, **params).fit(X, Y)
     t = CMF(device="cpu", **params)
     t.V_, t.n_components_ = j.V_, 3
-    ref_draws(_fit_schedule(2, 4, {0: (26,)}, 0.5))
     np.testing.assert_allclose(t.transform(X[:8]), j.transform(X[:8]),
                                rtol=1e-9, atol=1e-12)
 
@@ -314,39 +269,48 @@ def test_sampled_transform_matches_reference(rng, ref_draws):
 @pytest.mark.parametrize("name", ["dense_linear", "dense_sigmoid_y",
                                   "csr_linear", "full_hessian"])
 def test_sampled_fit_device_loop_stand_in_equals_host_loop(rng, name):
-    """The device loop's CPU stand-in (a capture pass that leaves the
-    generator where it was, replays that draw anew) ends where the host
-    loop does, bit for bit, with the generator's real draws: a frozen draw
-    or one off by a block would still converge, to other bits."""
+    """The device loop's CPU stand-in (a capture pass that leaves the key
+    counter where it was, replays that advance it) ends where the host
+    loop does, bit for bit: a frozen draw or one off by a block would
+    still converge, to other bits. Each of the three fits (the key's
+    first, the one that builds the cache entry, a hit) equals it."""
     X, Y, kw = _fit_data(rng, name)
     params = dict(n_components=3, solver="newton", sg_sample_ratio=0.4,
                   random_state=1, max_iter=14, eval_every=3, tol=0.0,
                   device="cpu", **kw)
     h = CMF(loop="host", **params).fit(X, Y)
-    d = CMF(loop="device", **params).fit(X, Y)
-    assert h.loss_history_ == d.loss_history_ and h.n_iter_ == d.n_iter_
-    for f in ("U_", "V_", "Z_"):
-        assert np.array_equal(getattr(h, f), getattr(d, f))
+    tcommon.clear_fit_cache()
+    for hit in (False, False, True):
+        d = CMF(loop="device", **params).fit(X, Y)
+        assert tcommon.LAST_FIT["hit"] is hit
+        assert h.loss_history_ == d.loss_history_ and h.n_iter_ == d.n_iter_
+        for f in ("U_", "V_", "Z_"):
+            assert np.array_equal(getattr(h, f), getattr(d, f))
+    assert tcommon.LAST_FIT["graph_launches"] == 1
+    assert tcommon.LAST_FIT["replays"] == 0
+    tcommon.clear_fit_cache()
 
 
 def test_device_loop_stand_in_capture_leaves_generator():
-    """A capture draws nothing: after it the generator is where it was,
-    and the replays draw what eager calls from there draw, in turn."""
-    g = torch.Generator().manual_seed(4)
-    out = torch.zeros(3)
+    """A capture draws nothing: after it the key stream's counter is where
+    it was, and the replays draw what eager blocks from there draw, in
+    turn, each advancing the counter."""
+    ks = trandom.KeyStream.start(_key(4))
+    out = torch.zeros(3, 2, dtype=torch.int64)
 
     def fn():
-        out.copy_(torch.rand(3, generator=g))
+        out.copy_(ks.step_keys(0))
+        ks.advance(5)
 
     graph = tcommon.EagerBlockGraph()
-    before = g.get_state()
-    graph.capture(fn, [out], (g,))
-    assert torch.equal(g.get_state(), before) and not out.any()
-    eager = torch.Generator().manual_seed(4)
+    graph.capture(fn, [out, *ks])
+    assert int(ks.it) == 0 and not out.any()
+    eager = trandom.KeyStream.start(_key(4))
     for _ in range(2):
         graph.replay()
-        assert torch.equal(out, torch.rand(3, generator=eager))
-    assert torch.equal(g.get_state(), eager.get_state())
+        assert torch.equal(out, eager.step_keys(0))
+        eager.advance(5)
+    assert int(ks.it) == int(eager.it) == 10
 
 
 def test_same_seed_same_fit_other_seed_other_fit(rng):
@@ -371,8 +335,11 @@ def test_seed_rule_is_the_reference_rule():
     state = rs.get_state()[1].copy()
     tcmf._seed(rs)
     assert np.array_equal(rs.get_state()[1], state)
-    g = tcmf._generator(17, torch.device("cpu"))
-    assert g.initial_seed() == 17 and g.device.type == "cpu"
+    for r in (None, 17, rs):
+        key = tcmf._key(r, torch.device("cpu"))
+        assert key.dtype == torch.int64 and key.device.type == "cpu"
+        np.testing.assert_array_equal(
+            key.numpy(), np.asarray(jax.random.PRNGKey(_jax_seed(r))))
 
 
 _SYNC = ("item", "cpu", "tolist", "numpy", "__float__", "__int__",
@@ -399,7 +366,7 @@ def test_sampled_step_makes_no_host_sync(rng, monkeypatch, name):
                                           Y.shape[1]))
     hyper = tcommon.make_hyper(0.05, 0.3)
     step = tnewton.make_newton_step(cfg)
-    gen = torch.Generator().manual_seed(0)
+    keys = trandom.KeyStream.start(_key(0)).step_keys(0)
     calls = []
 
     def refuse(name):
@@ -410,7 +377,7 @@ def test_sampled_step_makes_no_host_sync(rng, monkeypatch, name):
 
     for attr in _SYNC:
         monkeypatch.setattr(torch.Tensor, attr, refuse(attr))
-    U2, V2, Z2 = step(Xc, Yc, U, V, Z, hyper, gen)
+    U2, V2, Z2 = step(Xc, Yc, U, V, Z, hyper, keys)
     monkeypatch.undo()
     assert calls == []
     assert all(bool(torch.isfinite(t).all()) for t in (U2, V2, Z2))

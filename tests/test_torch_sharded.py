@@ -47,7 +47,6 @@ from pycmf_tpu_torch.solvers.common import SolverConfig
 from pycmf_tpu_torch.solvers.common import make_hyper as t_make_hyper
 from pycmf_tpu_torch.solvers.newton import \
     fused_sigmoid_update as t_fused_sigmoid_update
-from tests._shard_draws import rank_draws
 from tests._torch_dist import run_cases, spawn
 from tests.conftest import make_problem
 
@@ -148,8 +147,8 @@ FORMS = {"sigmoid_group": _sigmoid_form_case(),
          "newton_factor_linear": _newton_factor_case("linear")}
 
 # requests earlier slices refused and this one fits (the grid layout in
-# both spellings, fp8 data, sampled Newton with the reference's draws
-# injected, the chunked layout on a sparse X), in the two-rank spawn: held
+# both spellings, fp8 data, sampled Newton drawing the reference's
+# columns, the chunked layout on a sparse X), in the two-rank spawn: held
 # to the reference's fit of the same request
 REQUEST = dict(n_components=2, max_iter=2, random_state=0)
 NOW_FIT = {
@@ -166,7 +165,7 @@ REQUEST_X = {"chunked": "Xs"}   # else X
 # the device loop under shards in the two-rank spawn: name: (estimator
 # kwargs, X, Y); each fits from DATA["init"] three times from an emptied
 # fit cache (first fit, build, hit), beside its host-loop twin; the sampled
-# case with the reference's draws injected by generator state
+# case drawing the reference's columns itself
 DEVICE = {
     "device_mu": (dict(BASE, solver="mu", max_iter=13, eval_every=3),
                   "X", "Y"),
@@ -184,13 +183,8 @@ RUN_DEVICE = dict(solver="mu", cfg=dict(use_pallas=True),
 
 def _device_case(name, loop="device"):
     kw, x, y = DEVICE[name]
-    case = dict(kind="fit", kw=dict(kw, n_shards=2, loop=loop), X=DATA[x],
+    return dict(kind="fit", kw=dict(kw, n_shards=2, loop=loop), X=DATA[x],
                 Y=DATA[y], init=DATA["init"], repeat=3)
-    if kw["solver"] == "newton":
-        case.update(seed=0, draws_by_state=True, rank_draws=rank_draws(
-            "rows", (2,), seed=0, n_iter=kw["max_iter"], n=61, m=40,
-            ry=DATA[y].shape[1], ratio=0.5))
-    return case
 
 
 def _device_cases():
@@ -211,13 +205,8 @@ def _device_cases():
 
 def _request_case(name):
     X = DATA[REQUEST_X.get(name, "X")]
-    case = dict(kind="fit", kw=dict(REQUEST, **NOW_FIT[name]), X=X,
+    return dict(kind="fit", kw=dict(REQUEST, **NOW_FIT[name]), X=X,
                 Y=DATA["Y"])
-    if name == "sampled":
-        case.update(seed=0, rank_draws=rank_draws(
-            "rows", (2,), seed=0, n_iter=REQUEST["max_iter"], n=X.shape[0],
-            m=X.shape[1], ry=DATA["Y"].shape[1], ratio=0.5))
-    return case
 
 
 def _port_cases(d):
@@ -475,7 +464,8 @@ def test_group_of_the_wrong_size_raises(tmp_path):
 def test_unported_shard_requests_raise_naming_their_item(sharded, kw, want):
     """What is still refused raises (a tuple under the rows layout: the
     reference's ValueError); the grid layout (an int n_shards or a
-    tuple), sampled Newton (the reference's draws injected), the chunked
+    tuple), sampled Newton (each rank drawing the reference's columns), the
+    chunked
     layout (a sparse X), fp8 data and the device loop (loop='device',
     which earlier slices refused naming ROADMAP A10c) now fit in the two
     ranks, as the reference's fits of the same request do (f64 rtol 1e-9;
@@ -554,9 +544,9 @@ def test_device_loop_under_shards_matches_reference_and_host_loop(sharded,
     loop='device' sharded fit (f64 rtol 1e-9, equal n_iter_) and, bit for
     bit, the port's host-loop fit, with the same COMM calls and bytes; the
     ranks take the same branch in every fit and end with the same
-    factors. The sampled case draws the reference's columns, read off
-    each generator's state, so every replay draws what the host loop
-    draws."""
+    factors. The sampled case draws the reference's columns itself, and
+    its build and hit are one launch of the fit graph too, each block's
+    keys read off the entry's device counter."""
     d, ref, ports = sharded
     for port in ports:
         host = port[case + "_host"]
@@ -571,9 +561,8 @@ def test_device_loop_under_shards_matches_reference_and_host_loop(sharded,
         assert first["captures"] == 1 and not build["hit"]
         assert hit["hit"] and hit["captures"] == 0 and \
             hit["eager_blocks"] == 0
-        sampled = "sampled" in case
-        assert (hit["graph_launches"], hit["replays"] > 0) == (
-            (0, True) if sampled else (1, False))
+        assert (hit["graph_launches"], hit["replays"]) == (1, 0)
+        assert (build["graph_launches"], build["replays"]) == (1, 0)
     for other in ports[1:]:
         assert [f["info"] for f in other[case]["fits"]] == [
             f["info"] for f in ports[0][case]["fits"]]

@@ -11,8 +11,8 @@ cases cut both densify thresholds to 8 bytes (the reference's
 ``utils.validation.DENSIFY_THRESHOLD``, the port's ``parallel.sharded``
 one). A sigmoid-linked X under 'auto' is densified by both estimators
 under shards, so its case calls run_sharded / run_grid directly. The
-sampled case injects every rank's reference draws
-(``tests/_shard_draws.py``). The port's ranks run in two spawned gloo
+sampled case draws the reference's columns on every rank, nothing
+injected. The port's ranks run in two spawned gloo
 groups (``tests/_torch_dist.py``): 2 ranks for rows and cols, 4 for the
 grid (2, 2); n = 31, m = 41 pad both axes.
 
@@ -42,7 +42,6 @@ from pycmf_tpu_torch.ops import losses as tlosses
 from pycmf_tpu_torch.parallel.sharded import x_mode
 from pycmf_tpu_torch.solvers import common as tcommon
 from pycmf_tpu_torch.solvers import newton_chunked as tnc
-from tests._shard_draws import rank_draws
 from tests._torch_dist import run_cases, spawn
 from tests.conftest import make_problem
 
@@ -124,10 +123,6 @@ def _port_case(mesh, case):
     if patched:
         c["threshold"] = THRESHOLD
     kw = _kw(mesh, case)
-    if "sg_sample_ratio" in kw:
-        c.update(seed=kw["random_state"], rank_draws=rank_draws(
-            layout, shape, seed=kw["random_state"], n_iter=kw["max_iter"],
-            n=N, m=M, ry=Y.shape[1], ratio=kw["sg_sample_ratio"]))
     if not direct:
         if case == "mu":   # and the fold-in of 11 sparse rows after it
             c.update(Xn=DATA["Xn"], Un=DATA["Un"])

@@ -25,7 +25,6 @@ import scipy.sparse as sp
 from pycmf_tpu import CMF as JCMF
 from pycmf_tpu_torch import CMF
 from pycmf_tpu_torch.parallel.sharded import col_block
-from tests._shard_draws import rank_draws
 from tests._torch_dist import run_cases, spawn
 from tests.conftest import make_problem
 
@@ -89,8 +88,8 @@ def _fit_args(name):
 
 
 # requests the cols port refused and now fits in the two ranks, each held to
-# the reference's fit of the same request: fp8 data, sampled Newton (the
-# reference's draws injected) and the chunked layout (a sparse X)
+# the reference's fit of the same request: fp8 data, sampled Newton (each
+# rank drawing the reference's columns) and the chunked layout (a sparse X)
 REQUEST = dict(n_components=2, max_iter=2, random_state=0,
                shard_layout="cols")
 FP8_REQUEST = dict(REQUEST, data_dtype="fp8", dtype="float32")
@@ -110,12 +109,7 @@ NOW_FIT = {
 
 def _request_case(name):
     kw, x = NOW_FIT[name]
-    case = dict(kind="fit", kw=dict(kw, n_shards=2), X=DATA[x], Y=DATA["Y"])
-    if name == "sampled":
-        case.update(seed=0, rank_draws=rank_draws(
-            "cols", (2,), seed=0, n_iter=kw["max_iter"], n=N, m=M,
-            ry=DATA["Y"].shape[1], ratio=0.5))
-    return case
+    return dict(kind="fit", kw=dict(kw, n_shards=2), X=DATA[x], Y=DATA["Y"])
 
 
 def _port_cases(d):
@@ -242,8 +236,8 @@ def _est(**kw):
 ], ids=["device_loop", "sampled", "chunked", "fp8"])
 def test_cols_unported_requests_raise_naming_a10c(sharded, kw):
     """Requests earlier slices refused naming A10c fit in the two ranks:
-    the device loop (Newton, its factored eval loss), sampled Newton (the
-    reference's draws injected) and the chunked layout (a sparse X) as the
+    the device loop (Newton, its factored eval loss), sampled Newton (each
+    rank drawing the reference's columns) and the chunked layout (a sparse X) as the
     reference's cols fits of the same request do (f64 rtol 1e-9), and fp8
     data with its objective within 1e-4 of the reference's cols fp8 fit
     (test_torch_fp8.py's bar)."""

@@ -183,8 +183,8 @@ class _CardGraphStandIn:
         self.eager = EagerBlockGraph()
         self.graph = type("Pool", (), {"pool": staticmethod(lambda: None)})
 
-    def capture(self, fn, outputs, generators=()):
-        self.eager.capture(fn, outputs, generators)
+    def capture(self, fn, outputs):
+        self.eager.capture(fn, outputs)
 
     def replay(self):
         self.eager.replay()
@@ -230,7 +230,7 @@ def test_a_refused_node_makes_a_cached_fit_replay_per_block(monkeypatch):
     entry.start(hist, torch.tensor(2.0, dtype=torch.float64), n_full=3,
                 tol=1e-12)
     info = dict(replays=0, graph_launches=0)
-    U, V, _ = entry.run(block, None, None, n_full=3, rem=1, info=info)
+    U, V, _ = entry.run(n_full=3, rem=1, info=info)
     assert info == dict(replays=4, graph_launches=0)
     host = tcommon.run_solver_loop(
         block, state(), None, None, max_iter=10, tol=1e-12, eval_every=3,

@@ -31,7 +31,6 @@ from pycmf_tpu.parallel.grid import _prepare_grid as j_prepare_grid
 from pycmf_tpu_torch import CMF
 from pycmf_tpu_torch.parallel.grid import factor_grid, grid_cell
 from pycmf_tpu_torch.utils.validation import as_coupled
-from tests._shard_draws import rank_draws
 from tests._torch_dist import run_cases, spawn
 from tests.conftest import make_problem
 
@@ -324,8 +323,8 @@ def _est(**kw):
 
 
 # requests earlier slices refused and this one fits on the mesh (2, 1), each
-# held to the reference's fit of the same request: sampled Newton (the
-# reference's draws injected), the chunked layout (a sparse X) and the
+# held to the reference's fit of the same request: sampled Newton (each
+# rank drawing the reference's columns), the chunked layout (a sparse X) and the
 # device loop (MU on the chunked layout, its first fit, the fit that builds
 # the cache entry and a hit, beside its host-loop twin)
 REQUEST = dict(n_components=2, max_iter=2, random_state=0, n_shards=(2, 1),
@@ -348,9 +347,6 @@ def _now_fit(tmp_path_factory):
     cases = {}
     for name, (kw, x) in NOW_FIT.items():
         cases[name] = dict(kind="fit", kw=kw, X=DATA[x], Y=DATA["Y"])
-    cases["sampled"].update(seed=0, rank_draws=rank_draws(
-        "grid", (2, 1), seed=0, n_iter=REQUEST["max_iter"], n=N, m=M,
-        ry=DATA["Y"].shape[1], ratio=0.5))
     cases["device_loop"]["repeat"] = 3
     cases["device_host"] = dict(cases["device_loop"],
                                 kw=dict(DEVICE_KW, loop="host"))

@@ -1,13 +1,11 @@
 """Sampled Newton (``sg_sample_ratio`` < 1) under shards: the port's rows,
 cols and grid fits against the reference's ``n_shards`` fits, on the CPU.
 
-The reference draws its columns with ``jax.random.choice`` on a key
-schedule torch cannot reproduce; the port draws through one seam,
-``solvers/newton.draw_columns``, from the streams of
-``parallel/sharded.Draws``. The reference's draws of every rank are
-computed here from its key schedule (``tests/_shard_draws.py``) and handed
-to the ranks as NumPy arrays, one list per stream (``_torch_dist.
-StreamDraws``). The port's ranks run in spawned gloo groups
+Both packages draw the reference's columns (``jax.random``'s Threefry key
+schedule; the port's ``ops/random.py``), each rank's keys folded with its
+mesh coordinates as the reference folds them (``parallel/sharded.
+rank_keys``, ``solvers/newton.term_key``), so the fits are compared with
+nothing injected. The port's ranks run in spawned gloo groups
 (``tests/_torch_dist.py``, no JAX), one spawn of 2 ranks (rows and cols at
 d = 2, the grid (2, 1)) and one of 4 (rows and cols at d = 4, the grid
 (2, 2)), started before the reference's fits and joined after them. n = 31
@@ -15,19 +13,22 @@ and m = 41 pad both axes.
 
 Tolerances: float64 rtol 1e-9 on factors (atol 1e-12), loss histories and
 transforms, equal n_iter_ and loss_iters_, every rank's result equal bit
-for bit. Without injected draws: the same seed gives the same fit bit for
-bit, another seed another fit; two ranks' own-stream draws differ and
-their shared-stream draws are equal.
+for bit; the same seed gives the same fit bit for bit, another seed
+another fit. The per-rank key folds are held to the reference's key
+schedule here in the test process: every term's key of every rank equal.
 """
 import warnings
 
+import jax
 import numpy as np
 import pytest
 import torch
 
 from pycmf_tpu import CMF as JCMF
-from pycmf_tpu_torch.parallel.sharded import make_draws, stream_seed
-from tests._shard_draws import rank_draws
+from pycmf_tpu_torch.ops import random as trandom
+from pycmf_tpu_torch.parallel.sharded import key_stream, rank_keys
+from pycmf_tpu_torch.solvers.common import SolverConfig
+from pycmf_tpu_torch.solvers.newton import term_key
 from tests._torch_dist import run_cases, spawn
 from tests.conftest import make_problem
 
@@ -83,16 +84,6 @@ def _args(case):
     return DATA[x], DATA[y]
 
 
-def _draws(mesh, case, transform=False):
-    layout, shape = MESHES[mesh]
-    kw = _kw(mesh, case)
-    X, Y = _args(case)
-    return rank_draws(layout, shape, seed=kw["random_state"],
-                      n_iter=kw["max_iter"], n=N, m=M, ry=Y.shape[1],
-                      ratio=RATIO,
-                      transform_iters=kw["max_iter"] if transform else 0)
-
-
 def _port_cases(world):
     cases = {}
     for mesh in MESHES:
@@ -102,21 +93,19 @@ def _port_cases(world):
             X, Y = _args(case)
             transform = world == 2 and case == "dense"
             c = dict(kind="fit", kw=_kw(mesh, case), X=X, Y=Y,
-                     init=DATA["init"], seed=BASE["random_state"],
-                     rank_draws=_draws(mesh, case, transform))
+                     init=DATA["init"])
             if transform:
                 c.update(Xn=DATA["Xn"], Un=DATA["Un"])
             cases[f"{mesh}/{case}"] = c
     if world == 2:
-        # the port's own draws, recorded: rows and the grid (2, 1), and the
-        # same fit again and under another seed
+        # rows and the grid (2, 1): the same fit again and under another
+        # seed
         for mesh in ("rows_d2", "grid_2x1"):
             for tag, seed in (("seed0", 0), ("seed0_again", 0),
                               ("seed1", 1)):
                 cases[f"{mesh}/record/{tag}"] = dict(
                     kind="fit", kw=_kw(mesh, "sigmoid_y", random_state=seed),
-                    X=DATA["X"], Y=DATA["Yb"], init=DATA["init"],
-                    record=True)
+                    X=DATA["X"], Y=DATA["Yb"], init=DATA["init"])
     return cases
 
 
@@ -172,7 +161,7 @@ _FITS = [(_world(mesh), mesh, case) for mesh in MESHES for case in CASES]
                          ids=[f"{m}-{c}" for _, m, c in _FITS])
 def test_sampled_fit_matches_reference_f64(sampled, mesh, case):
     """Each layout and mesh on dense, CSR (masked draws) and sigmoid-Y data,
-    with every rank's reference draws injected."""
+    every rank drawing its own columns: the reference's."""
     _, ref, ports = sampled
     _assert_fit(ports[0][f"{mesh}/{case}"], ref[f"{mesh}/{case}"])
 
@@ -181,8 +170,8 @@ def test_sampled_fit_matches_reference_f64(sampled, mesh, case):
 @pytest.mark.parametrize("mesh", ["rows_d2", "cols_d2", "grid_2x1"])
 def test_sampled_transform_matches_reference_f64(sampled, mesh):
     """transform after a sampled fit folds in by rows over every rank, its
-    U terms drawn from each rank's own stream as the reference folds kU
-    with the shard index: 9 new rows."""
+    U term's key folded with the rank as the reference folds kU with the
+    shard index: 9 new rows."""
     _, ref, ports = sampled
     np.testing.assert_allclose(ports[0][f"{mesh}/dense"]["transform"],
                                ref[f"{mesh}/transform"], rtol=1e-9,
@@ -191,7 +180,7 @@ def test_sampled_transform_matches_reference_f64(sampled, mesh):
 
 def test_every_rank_returns_the_same_result(sampled):
     """Replicated factors stay bit for bit equal on every rank: the ranks
-    sharing a replica draw alike from their common stream."""
+    sharing a replica draw alike under one key."""
     world, _, ports = sampled
     assert len(ports) == world
     for name, a in ports[0].items():
@@ -206,9 +195,8 @@ def test_every_rank_returns_the_same_result(sampled):
 @pytest.mark.parametrize("sampled", [2], indirect=True, ids=["ranks2"])
 @pytest.mark.parametrize("mesh", ["rows_d2", "grid_2x1"])
 def test_same_seed_same_fit_other_seed_another(sampled, mesh):
-    """The port's own draws (no injection): random_state 0 twice gives the
-    same fit bit for bit, random_state 1 (the same initial factors)
-    another."""
+    """random_state 0 twice gives the same fit bit for bit, random_state 1
+    (the same initial factors) another."""
     _, _, ports = sampled
     a, b, c = (ports[0][f"{mesh}/record/{t}"]
                for t in ("seed0", "seed0_again", "seed1"))
@@ -218,40 +206,96 @@ def test_same_seed_same_fit_other_seed_another(sampled, mesh):
     assert a["losses"] != c["losses"] and not np.array_equal(a["U"], c["U"])
 
 
+# the terms each layout's step draws, in order: (factor, term t, the mesh
+# coordinate a distributed term folds its key with, or None); the
+# reference's folds (pycmf_tpu/parallel/sharded.py:1288, 1498,
+# pycmf_tpu/parallel/grid.py:479, pycmf_tpu/solvers/newton.py:363-369)
+TERMS = {
+    "rows": (("U", 0, None), ("Z", 0, None), ("V", 0, "rank"),
+             ("V", 1, None)),
+    "cols": (("U", 0, "rank"), ("Z", 0, "rank"), ("V", 0, None),
+             ("V", 1, None)),
+    "grid": (("U", 0, "j"), ("Z", 0, "j"), ("V", 0, "i"), ("V", 1, None)),
+}
+# the folds of the reference's key of factor f before its update
+PRE = {"rows": {"U": "rank"}, "cols": {"V": "rank"}, "grid": {"V": "j"}}
+
+
+def _coords(mesh, rank):
+    layout, shape = MESHES[mesh]
+    i, j = divmod(rank, shape[1]) if layout == "grid" else (None, None)
+    return dict(rank=rank, i=i, j=j)
+
+
+def _ref_key(layout, it, coords, f, t, axis, seed=0):
+    """The reference's key of one term (jax.random on its key schedule)."""
+    keys = jax.random.split(jax.random.fold_in(jax.random.PRNGKey(seed), it),
+                            3)
+    k = keys["UZV".index(f)]
+    if f in PRE[layout]:
+        k = jax.random.fold_in(k, coords[PRE[layout][f]])
+    k = jax.random.fold_in(k, t)
+    if axis is not None:
+        k = jax.random.fold_in(k, coords[axis])
+    return np.asarray(k)
+
+
+def _port_key(layout, stream, it, coords, f, t, axis):
+    keys = rank_keys(layout, stream.step_keys(it),
+                     coords["j"] if layout == "grid" else coords["rank"])
+    return term_key(keys["UZV".index(f)], t,
+                    None if axis is None else coords[axis]).numpy()
+
+
 @pytest.mark.parametrize("sampled", [2], indirect=True, ids=["ranks2"])
 @pytest.mark.parametrize("mesh", ["rows_d2", "grid_2x1"])
 def test_own_draws_differ_shared_draws_equal(sampled, mesh):
-    """Two ranks draw the same columns from the stream they share (rows:
-    Z's term and V's Y term; the grid (2, 1), one mesh column: U's and
-    Z's terms and V's Y term) and different ones from their own (U's and
-    V's X terms; V's X term)."""
+    """Every term's key on each rank of the mesh, over the fit's
+    iterations, is the reference's; two ranks draw under one key where
+    they hold one replica (rows: Z's term and V's Y term; the grid (2, 1),
+    one mesh column: U's and Z's terms and V's Y term) and under different
+    keys where the term is their own (U's and V's X terms; V's X term).
+    And the spawned fits of both ranks end equal."""
+    layout, _ = MESHES[mesh]
+    stream = key_stream("newton", SolverConfig(sg_sample_ratio=RATIO), 0,
+                        "cpu")
+    for it in range(_kw(mesh, "sigmoid_y")["max_iter"]):
+        for f, t, axis in TERMS[layout]:
+            got = [_port_key(layout, stream, it, _coords(mesh, r), f, t,
+                             axis) for r in (0, 1)]
+            for r in (0, 1):
+                np.testing.assert_array_equal(got[r], _ref_key(
+                    layout, it, _coords(mesh, r), f, t, axis))
+            own = (axis is not None and axis != "j") or (
+                PRE[layout].get(f) == "rank")
+            assert np.array_equal(got[0], got[1]) is not own, (f, t, axis)
     _, _, ports = sampled
-    calls = [p[f"{mesh}/record/seed0"]["draws"] for p in ports]
-    shared = stream_seed(0) if mesh == "rows_d2" else stream_seed(0, 1, 0)
-    own = ([stream_seed(0, 0, r) for r in (0, 1)] if mesh == "rows_d2"
-           else [stream_seed(0, 2, i, 0) for i in (0, 1)])
-    per = [{s: [idx for seed, idx in c if seed == s] for s in (shared, o)}
-           for c, o in zip(calls, own)]
-    assert len(per[0][shared]) == len(per[1][shared]) > 0
-    for a, b in zip(per[0][shared], per[1][shared]):
-        np.testing.assert_array_equal(a, b)
-    a, b = per[0][own[0]], per[1][own[1]]
-    assert len(a) == len(b) > 0
-    assert any(not np.array_equal(x, y) for x, y in zip(a, b))
+    for key in ("U", "V", "Z"):
+        np.testing.assert_array_equal(ports[0][f"{mesh}/record/seed0"][key],
+                                      ports[1][f"{mesh}/record/seed0"][key])
 
 
-def test_stream_seeds_and_generators():
-    """The shared stream is the single device's seed; keyed streams get
-    distinct 63-bit seeds, the same on every call; make_draws seeds its
-    two generators with them."""
-    assert stream_seed(7) == 7
-    keys = [(0, 0), (0, 1), (1, 0), (2, 0, 0), (2, 1, 0), (2, 0, 1)]
-    seeds = [stream_seed(7, *k) for k in keys]
-    assert len(set(seeds)) == len(keys) and all(0 <= s < 2 ** 63
-                                                for s in seeds)
-    assert seeds == [stream_seed(7, *k) for k in keys]
-    assert stream_seed(8, 0, 0) != seeds[0]
-    d = make_draws(7, "cpu", (1, 0), (2, 1, 0))
-    assert d.common.initial_seed() == stream_seed(7, 1, 0)
-    assert d.own.initial_seed() == stream_seed(7, 2, 1, 0)
-    assert d.own.device == torch.device("cpu")
+@pytest.mark.parametrize("mesh", sorted(MESHES))
+def test_stream_seeds_and_generators(mesh):
+    """The per-rank key folds of every layout and mesh (d = 2 and 4, the
+    grids (2, 1) and (2, 2)) over three iterations, from a seed past 2³²:
+    every term's key on every rank is the reference's; the stream is
+    PRNGKey(seed) from iteration 0, none for a full-batch or MU fit."""
+    layout, shape = MESHES[mesh]
+    seed = 2 ** 33 + 7
+    cfg = SolverConfig(sg_sample_ratio=RATIO)
+    stream = key_stream("newton", cfg, seed, "cpu")
+    np.testing.assert_array_equal(stream.key.numpy(),
+                                  np.asarray(jax.random.PRNGKey(seed)))
+    assert int(stream.it) == 0
+    assert key_stream("newton", SolverConfig(), seed, "cpu") is None
+    assert key_stream("mu", cfg, seed, "cpu") is None
+    for it in range(3):
+        for rank in range(_world(mesh)):
+            c = _coords(mesh, rank)
+            for f, t, axis in TERMS[layout]:
+                np.testing.assert_array_equal(
+                    _port_key(layout, stream, it, c, f, t, axis),
+                    _ref_key(layout, it, c, f, t, axis, seed=seed))
+    assert rank_keys(layout, None, 0) == (None, None, None)
+    assert trandom.prng_key(seed).device == torch.device("cpu")
