@@ -14,9 +14,11 @@ Phases (any failure exits non-zero and prints no ok line):
     started at once;
  3. each kernel against its plain PyTorch version on the same inputs, with
     CUDA-event times and the card's lower bound for the same work:
-    K1, K2 at X 30000 x 11314 (bf16 and f32), k = 20, and at the edges
-    (n in {1, 17, 30000}, m in {1, 15, 4097, 11314}, k in {1, 7, 20, 32,
-    33, 64, 100}, n_valid < n, trials 0 and 8, non_negative both ways); K3,
+    K1, K2 at X 30000 x 11314 (bf16 and f32: the f32 form's cluster route,
+    its clusters against the card's resident count), k = 20, and at the
+    edges (n in {1, 17, 30000}, m in {1, 15, 4097, 11314}, k in {1, 7, 20,
+    32, 33, 64, 100}, n_valid < n, trials 0 and 8, non_negative both ways;
+    f32 X at the m on both sides of the cluster route's crossover); K3,
     K4 at the main path's Z shape (Y^T 20 x 11314, bf16) and at the dense
     sigmoid-X shapes (30000 x 11314, bf16 and f32, and its transpose), and
     at the edges (n in {1, 17, 20, 30000}, q in {1, 15, 4097, 11314}, k in
@@ -86,8 +88,12 @@ Phases (any failure exits non-zero and prints no ok line):
     refused with the reference's ValueError, and the MU cell, path A and
     path B as fit_phase runs them (K1, K2, K3/K4's fp8 forms counted
     apart, the bf16 forms of K1 and K2 launched no time, the exact loss on
-    the quantized X, peak device memory); then MU, Newton
-    linear, paths A to D, F, S and SD and path A at k = 40 under
+    the quantized X, peak device memory); the MU cell and path A with the
+    estimator's default dtype (dtype and data_dtype unset: X float32, K1
+    and K2 on their f32 form's cluster route, once per iteration, the
+    exact float64 loss of the final factors); then MU, Newton
+    linear, paths A to D, F, S and SD, path A at k = 40 and the
+    default-dtype MU cell and path A under
     torch.profiler
     (device time by kernel, idle share, launches per iteration, and on
     path F bell_spmm's share);
@@ -98,8 +104,9 @@ Phases (any failure exits non-zero and prints no ok line):
     keyed on a device counter; what loop='auto' runs on the card, so
     phases 4-7 run it too) against the host loop on MU,
     Newton linear and paths A, C, D, F, S, S4 and SD and the MU cell and
-    path A at k = 40, and paths H, A at k = 100, K, KA, KB, KS and the
-    fp8 MU cell, path A and path B, each after an untimed host fit, from
+    path A at k = 40, and paths H, A at k = 100, K, KA, KB, KS, the
+    fp8 MU cell, path A and path B, and the default-dtype (f32) MU cell and
+    path A, each after an untimed host fit, from
     an emptied fit cache: the key's first device fit (no entry left), the
     fit that builds the entry (its copies, captures and graph build timed
     apart), then two fits per loop, each device fit a cache hit (no
@@ -193,8 +200,9 @@ Phases (any failure exits non-zero and prints no ok line):
     and each fp8 path (MU 20, A 20, B 10 iterations) against the bf16 fit
     of the quantized X from the same factors, bit for bit, with the
     fold-in of 1000 rows; and the final
-    losses of MU, path A, path C and path D against the NumPy baselines
-    (2% guard);
+    losses of MU, path A, path C and path D, and the exact losses of the
+    default-dtype MU cell and path A, against the NumPy baselines (2%
+    guard);
  9. transform of 1000 new rows, dense (MU), CSR (path C) and fp8 (MU);
     the estimator's utilities on the card: print_topic_terms of the MU
     fit, a save_model/load_model(device='cuda') round trip whose transform
@@ -456,7 +464,9 @@ def own_products(torch, mu_fused, X, got):
 def u_pass_edges(check, torch, mu_fused, newton_fused):
     """K1, K2 at the edges: n in {1, 17, 30000}, m in {1, 15, 4097, 11314},
     k in {1, 7, 20, 32, 33, 64, 100} (k > 32: the wide route), bf16 and f32
-    X, MU with n_valid < n, Newton with
+    X, and f32 X on both sides of the cluster route's crossover in m
+    (12288 at k = 1 and 7, 11520 at 20, 9984 at 32; n of 30000 at k = 20
+    and 32), MU with n_valid < n, Newton with
     trials 0 and TRIALS, non_negative both ways; every output and the
     workspace NaN-filled before the call, a second call bitwise equal, the
     tolerances of the main shape. U_new is held against the plain
@@ -478,75 +488,81 @@ def u_pass_edges(check, torch, mu_fused, newton_fused):
     rng = np.random.RandomState(SEED + 4)
     l1, l2, eps, pert = 1e-3, 2e-3, 1e-10, 0.2
     n_cases = 0
-    for n in (1, 17, N):
-        for m in (1, 15, 4097, M):
-            if (n, m) == (N, M):
-                continue  # the main shape, held by u_pass_phase
-            for k in (1, 7, 20, 32, 33, 64, 100):
-                X32, U, V, Vn, Xn32 = upass_inputs(torch, rng, n, m, k, dev)
-                Us = U * torch.where(torch.rand_like(U) < 0.5, -1.0, 1.0)
-                VtV, BtB, Hinv = upass_mats(torch, V, Vn, l2, pert)
-                nv = n - 5 if n > 5 else n  # rows past n_valid zeroed
-                for xname in ("bfloat16", "float32"):
-                    dt = getattr(torch, xname)
-                    X, Xn = X32.to(dt), Xn32.to(dt)
-                    row_sq = (Xn.float() ** 2).sum(dim=1)
-                    tag = f"n={n} m={m} k={k} {xname}"
+    # the grid above, the main shape apart (u_pass_phase holds it); then f32
+    # X at the m on both sides of the cluster route's crossover at each k
+    # (mu_fused.cluster_max_m: the widest m whose CTA fits), rows of one,
+    # 17 and, at k = 20 and 32, 30000
+    cases = [(n, m, k, ("bfloat16", "float32")) for n in (1, 17, N)
+             for m in (1, 15, 4097, M) for k in (1, 7, 20, 32, 33, 64, 100)
+             if (n, m) != (N, M)]
+    cases += [(n, mu_fused.cluster_max_m(k) + d, k, ("float32",))
+              for k in (1, 7, 20, 32) for d in (0, 1)
+              for n in ((1, 17, N) if k in (20, 32) else (1, 17))]
+    for n, m, k, xnames in cases:
+        X32, U, V, Vn, Xn32 = upass_inputs(torch, rng, n, m, k, dev)
+        Us = U * torch.where(torch.rand_like(U) < 0.5, -1.0, 1.0)
+        VtV, BtB, Hinv = upass_mats(torch, V, Vn, l2, pert)
+        nv = n - 5 if n > 5 else n  # rows past n_valid zeroed
+        for xname in xnames:
+            dt = getattr(torch, xname)
+            X, Xn = X32.to(dt), Xn32.to(dt)
+            row_sq = (Xn.float() ** 2).sum(dim=1)
+            tag = f"n={n} m={m} k={k} {xname}"
 
-                    def mu():
-                        return mu_fused.fused_mu_u_pass(X, U, V, VtV, l1, l2,
-                                                        eps, n_valid=nv)
-                    got, again = nan_filled(mu), mu()
+            def mu():
+                return mu_fused.fused_mu_u_pass(X, U, V, VtV, l1, l2,
+                                                eps, n_valid=nv)
+            got, again = nan_filled(mu), mu()
+            torch.cuda.synchronize()
+            want = mu_fused.fused_mu_u_pass_ref(X, U, V, VtV, l1, l2,
+                                                eps, n_valid=nv)
+            same = all(bool(torch.equal(a, b))
+                       for a, b in zip(got, again))
+            ok = bool(torch.allclose(got[0], want[0], rtol=1e-4,
+                                     atol=1e-30))
+            e1, e2 = own_products(torch, mu_fused, X, got)
+            check(ok and e1 <= 1e-4 and e2 <= 1e-4 and same,
+                  f"K1[{tag}, n_valid={nv}] U_new rtol 1e-4 {ok}, "
+                  f"numV {e1:.3g}, gramU {e2:.3g} <= 1e-4, two "
+                  f"calls bitwise equal {same}")
+            for trials in (0, TRIALS):
+                for nonneg in (True, False):
+                    Uk = U if nonneg else Us
+                    args = (Xn, Uk, Vn, BtB, Hinv, row_sq, l1, l2)
+                    kw = dict(trials=trials, non_negative=nonneg)
+
+                    def nt():
+                        return newton_fused.fused_newton_linear_u_pass(
+                            *args, **kw)
+                    got, again = nan_filled(nt), nt()
                     torch.cuda.synchronize()
-                    want = mu_fused.fused_mu_u_pass_ref(X, U, V, VtV, l1, l2,
-                                                        eps, n_valid=nv)
+                    want = newton_fused.fused_newton_linear_u_pass_ref(
+                        *args, **kw)
                     same = all(bool(torch.equal(a, b))
                                for a, b in zip(got, again))
-                    ok = bool(torch.allclose(got[0], want[0], rtol=1e-4,
-                                             atol=1e-30))
-                    e1, e2 = own_products(torch, mu_fused, X, got)
-                    check(ok and e1 <= 1e-4 and e2 <= 1e-4 and same,
-                          f"K1[{tag}, n_valid={nv}] U_new rtol 1e-4 {ok}, "
-                          f"numV {e1:.3g}, gramU {e2:.3g} <= 1e-4, two "
+                    agree = newton_rows_agree(got[0], want[0])
+                    extra, rows_ok = "", agree >= 0.999
+                    if not rows_ok:
+                        # float64, keeping the contract's
+                        # rounding point: V at X's dtype
+                        w64 = newton_fused.fused_newton_linear_u_pass_ref(
+                            Xn.double(), Uk.double(),
+                            Vn.to(Xn.dtype).double(),
+                            *(a.double() for a in args[3:6]), l1, l2,
+                            **kw)[0]
+                        a_k = newton_rows_agree(got[0], w64)
+                        a_p = newton_rows_agree(want[0], w64)
+                        extra = (f"; vs float64: kernel {a_k:.6f} "
+                                 f">= plain f32 {a_p:.6f}")
+                        rows_ok = a_k >= a_p
+                    e1 = own_products(torch, mu_fused, Xn, got)[0]
+                    check(rows_ok and e1 <= 1e-3 and same,
+                          f"K2[{tag}, trials={trials}, non_negative="
+                          f"{nonneg}] rows agreeing {agree:.6f} >= "
+                          f"0.999{extra}, numV {e1:.3g} <= 1e-3, two "
                           f"calls bitwise equal {same}")
-                    for trials in (0, TRIALS):
-                        for nonneg in (True, False):
-                            Uk = U if nonneg else Us
-                            args = (Xn, Uk, Vn, BtB, Hinv, row_sq, l1, l2)
-                            kw = dict(trials=trials, non_negative=nonneg)
-
-                            def nt():
-                                return newton_fused.fused_newton_linear_u_pass(
-                                    *args, **kw)
-                            got, again = nan_filled(nt), nt()
-                            torch.cuda.synchronize()
-                            want = newton_fused.fused_newton_linear_u_pass_ref(
-                                *args, **kw)
-                            same = all(bool(torch.equal(a, b))
-                                       for a, b in zip(got, again))
-                            agree = newton_rows_agree(got[0], want[0])
-                            extra, rows_ok = "", agree >= 0.999
-                            if not rows_ok:
-                                # float64, keeping the contract's
-                                # rounding point: V at X's dtype
-                                w64 = newton_fused.fused_newton_linear_u_pass_ref(
-                                    Xn.double(), Uk.double(),
-                                    Vn.to(Xn.dtype).double(),
-                                    *(a.double() for a in args[3:6]), l1, l2,
-                                    **kw)[0]
-                                a_k = newton_rows_agree(got[0], w64)
-                                a_p = newton_rows_agree(want[0], w64)
-                                extra = (f"; vs float64: kernel {a_k:.6f} "
-                                         f">= plain f32 {a_p:.6f}")
-                                rows_ok = a_k >= a_p
-                            e1 = own_products(torch, mu_fused, Xn, got)[0]
-                            check(rows_ok and e1 <= 1e-3 and same,
-                                  f"K2[{tag}, trials={trials}, non_negative="
-                                  f"{nonneg}] rows agreeing {agree:.6f} >= "
-                                  f"0.999{extra}, numV {e1:.3g} <= 1e-3, two "
-                                  f"calls bitwise equal {same}")
-                    n_cases += 5
-                del X32, U, V, Vn, Xn32
+            n_cases += 5
+        del X32, U, V, Vn, Xn32
     torch.cuda.empty_cache()
     log(f"  K1/K2 edges: {n_cases} cases")
 
@@ -596,6 +612,19 @@ def u_pass_phase(check, torch, mu_fused, newton_fused):
         rec[("fused_mu_u_pass", xname)] = dict(
             max_abs_err=err, ms=ms, device_ms=dms, plain_ms=pms,
             bound_ms=bms, bound_by=bby)
+        if xname == "float32":
+            # the cluster route: the plan's clusters, the card's resident
+            # ones (cudaOccupancyMaxActiveClusters), one read of X
+            plan = mu_fused.plan_for(X, K)
+            limit = mu_fused.cluster_limit(X.device.index, K,
+                                           plan.slice_cols)
+            check(0 < plan.clusters <= limit,
+                  f"K1/K2[float32] take the cluster route: {plan.clusters} "
+                  f"clusters of 16 CTAs, {plan.slice_cols} columns a CTA; "
+                  f"the card holds {limit} at once")
+            rec[("fused_mu_u_pass", xname)].update(
+                clusters=plan.clusters, resident_clusters=limit,
+                slice_cols=plan.slice_cols)
         # K2
         kw = dict(trials=TRIALS, non_negative=True)
         args = (Xn, U, Vn, BtB, Hinv, row_sq, l1, l2)
@@ -2431,6 +2460,59 @@ def loop_phase(check, torch, make_est, X, Y, label, bits=False, miss=False):
         f"{d['profile']['launch_calls_per_fit']}, graph launches per fit "
         f"{d['profile']['replays']}")
     return rec
+
+
+def default_dtype_fits(check, torch, CMF, X, Y, mu_kw, a_kw, common32):
+    """The MU cell and path A with the estimator's defaults (dtype
+    'float32', data_dtype unset: the dense X is float32, so K1 and K2 take
+    their f32 form, the cluster route), from an emptied fit cache, through
+    run_fit_checked (the device loop under 'auto', the exact float64 loss
+    of the final factors): X reached the kernel as float32 on the cluster
+    route on every call, and K1 (MU) or K2 (path A) launched once per
+    iteration. Returns the two fits' records."""
+    import numpy as np
+
+    from baselines import numpy_cmf
+    from pycmf_tpu_torch.ops.kernels import mu_fused, newton_fused
+    from pycmf_tpu_torch.solvers.common import clear_fit_cache
+
+    X64, Y64 = X.astype(np.float64), Y.astype(np.float64)
+    f32 = {}
+    for key, kw, mod, kernel, mins, loss in (
+            ("mu", mu_kw, mu_fused, "fused_mu_u_pass",
+             per_iter(fused_mu_u_pass=1, fused_mu_update=2),
+             lambda U, V, Z: numpy_cmf.loss(X64, Y64, U, V, Z)),
+            ("path_a", a_kw, newton_fused, "fused_newton_linear_u_pass",
+             per_iter(fused_newton_linear_u_pass=1, sigmoid_gh_pass=1,
+                      sigmoid_phi_pass=1, batched_spd_solve=2),
+             lambda U, V, Z: numpy_cmf.loss(X64, Y64, U, V, Z,
+                                            y_link="sigmoid"))):
+        real, seen = getattr(mod, kernel), set()
+
+        def spy(A, U, *args, _real=real, _seen=seen, **kw_):
+            _seen.add((str(A.dtype).replace("torch.", ""),
+                       mu_fused.plan_for(A, U.shape[1]).clusters > 0))
+            return _real(A, U, *args, **kw_)
+        clear_fit_cache()
+        torch.cuda.reset_peak_memory_stats()
+        with mock.patch.object(mod, kernel, spy):
+            est, r = run_fit_checked(
+                check, lambda: CMF(**kw, **common32), X, Y, mins,
+                (kernel + "_fp8",), f"{key} fit, the default dtype", loss,
+                "device")
+        r["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        got = r["launches"].get(kernel, 0)
+        params = est.get_params()
+        check((params["dtype"], params["data_dtype"]) == ("float32", None)
+              and seen == {("float32", True)} and got == est.n_iter_,
+              f"{key} fit, the default dtype ({params['dtype']}, "
+              f"data_dtype {params['data_dtype']}): {kernel} took X as "
+              f"{sorted(seen)} (dtype, cluster route), {got} launches in "
+              f"{est.n_iter_} iterations (one each); peak device memory "
+              f"{r['peak_mem_gb']:.3f} GB")
+        f32[key] = r
+    clear_fit_cache()
+    return f32
 
 
 def card_sigmoid_loss(torch, X, Y):
@@ -4982,7 +5064,17 @@ def main() -> int:
             f"iterations, {fp8[key]['ms_per_iter']:.4f} ms/iter; the bf16 "
             f"fit's {ref['exact_loss']:.9g} after {ref['n_iter']}, "
             f"{ref['ms_per_iter']:.4f} ms/iter")
+    log("phase 7: the estimator's default dtype (X float32): the MU cell "
+        "and path A")
+    common32 = dict(n_components=K, random_state=SEED, device="cuda")
+    f32 = default_dtype_fits(check, torch, CMF, X, Y, mu_kw, a_kw, common32)
     log("phase 7b: where the time goes (torch.profiler)")
+    f32["mu"]["profile"] = profile_phase(
+        torch, lambda: CMF(**dict(mu_kw, max_iter=10, tol=0.0), **common32),
+        X, Y, "MU f32")
+    f32["path_a"]["profile"] = profile_phase(
+        torch, lambda: CMF(**dict(a_kw, max_iter=10, tol=0.0), **common32),
+        X, Y, "path A f32")
     mu["profile"] = profile_phase(
         torch, lambda: CMF(**dict(mu_kw, max_iter=10, tol=0.0), **common),
         X, Y, "MU")
@@ -5045,6 +5137,8 @@ def main() -> int:
                 ("path KS", ks_kw, (X, Y), common),
                 ("MU fp8", mu_kw, (X, Y), common8),
                 ("path A fp8", a_kw, (X, Y), common8),
+                ("MU f32", mu_kw, (X, Y), common32),
+                ("path A f32", a_kw, (X, Y), common32),
                 ("path B fp8", b_kw, (Xb_sp, Y), common8)):
             loops[lab] = loop_phase(
                 check, torch, lambda: CMF(**kw, **cm), *data, lab,
@@ -5378,13 +5472,16 @@ def main() -> int:
         t0 = time.perf_counter()
         baseline = {kind: f.result() for kind, f in base.items()}
         log(f"host baselines awaited {time.perf_counter() - t0:.1f} s")
-        for label, kind, fit in (("MU", "mu", mu), ("path A", "newton", pa),
-                                 ("path C", "mu", pc),
-                                 ("path D", "newton", pd)):
+        for label, kind, fit, lkey in (
+                ("MU", "mu", mu, "loss"), ("path A", "newton", pa, "loss"),
+                ("path C", "mu", pc, "loss"), ("path D", "newton", pd, "loss"),
+                ("MU f32 (exact loss)", "mu", f32["mu"], "exact_loss"),
+                ("path A f32 (exact loss)", "newton", f32["path_a"],
+                 "exact_loss")):
             ref_loss, ref_iter, secs = baseline[kind]
-            gap = abs(fit["loss"] - ref_loss) / ref_loss
+            gap = abs(fit[lkey] - ref_loss) / ref_loss
             check(gap <= QUALITY_BAR,
-                  f"{label} final loss {fit['loss']:.9g} vs NumPy {kind} "
+                  f"{label} final loss {fit[lkey]:.9g} vs NumPy {kind} "
                   f"baseline "
                   f"{ref_loss:.9g} ({ref_iter} iters, {secs:.1f} s on the "
                   f"host): gap {gap:.4%} <= 2%")
@@ -5504,6 +5601,10 @@ def main() -> int:
                  "library_ms": r.get("library_ms")}
         if kname in api_launches:  # phase 10's calls: ops.spmm, the RMSE
             entry["api_launches"] = api_launches[kname]
+        if kname in ("fused_mu_u_pass", "fused_newton_linear_u_pass"):
+            # the default dtype's fits (MU f32, A f32): the f32 form
+            entry["f32_launches"] = sum(
+                r32["launches"].get(kname, 0) for r32 in f32.values())
         for f in ("device_ms", "library_device_ms", "shared_ms",
                   "shared_device_ms", "bf16_form_ms", "bf16_form_device_ms",
                   "equal_to_bf16_form"):
@@ -5560,7 +5661,7 @@ def main() -> int:
                       "path_s_fit": ps, "path_s4_fit": ps4,
                       "path_sd_fit": psd, "path_h_fit": ph,
                       "path_a_fit_k100": pa_100, "chunked": chunked,
-                      "fp8": fp8,
+                      "fp8": fp8, "f32": f32,
                       "block_max_k": krec["block_max_k"],
                       "k5_crossovers": {key: krec[key] for key in (
                           "block_max_k", "block_max_k_lu", "slot_all_k",

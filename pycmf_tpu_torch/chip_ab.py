@@ -25,8 +25,9 @@ tree's build also prints the machine instructions of those kernels, from
   version and timed with the host's wrapper (``ms``), on the device alone
   (``device_ms``) and per kernel of the call (``kernels_us``,
   torch.profiler), its outputs digested (``bitwise``: the trees' bits must
-  agree), beside one read of X by ``torch.sum`` (``x_read``: the rate a
-  plain stream reaches; for e4m3 a sum over X's uint8 view, which
+  agree; f32 X's ``digest`` is not compared, its summation order being
+  free to change), beside one read of X by ``torch.sum`` (``x_read``: the
+  rate a plain stream reaches; for e4m3 a sum over X's uint8 view, which
   PyTorch's integer reduction does not run at a streaming rate);
 - ``paths``: chip_smoke phase 8's kernel-vs-plain fits of MU, Newton linear
   and path A (20 iterations), with the loss at every iteration of both;
@@ -109,7 +110,8 @@ PHASES = {
     # the CUDA-core kernels are instantiated at KP = 20, the tensor-core
     # ones at NT = 3 tiles of 8 columns
     "upass": (("mu_fused", "newton_fused"),
-              ("Li20E", "Li3E", "u_pass_reduce", "reduce_parts"),
+              ("Li20E", "Li3E", "u_pass_reduce", "reduce_parts",
+               "u_pass_cluster"),
               "upass_ab(check, torch, cs)"),
     "paths": (("mu_fused", "newton_fused", "sigmoid_newton", "batched_solve",
                "mu_update"), ("Li20E", "Li3E"),
@@ -192,9 +194,12 @@ def upass_ab(check, torch, cs):
                  (Xn, U, Vn, BtB, Hinv, rs, 1e-3, 2e-3),
                  dict(trials=cs.TRIALS, non_negative=True)))
 
-    def timed(run, got):
+    def timed(run, got, same_bits=True):
+        # f32 X's bits may differ between trees (a tree with the cluster
+        # route sums in another order): digested, not compared
         return dict(ms=cs.time_ms(run), device_ms=cs.device_ms(run),
-                    kernels_us=per_kernel(torch, run), bitwise=digest(got))
+                    kernels_us=per_kernel(torch, run),
+                    **{"bitwise" if same_bits else "digest": digest(got)})
 
     rec = {}
     for xname in ("bfloat16", "float32"):
@@ -211,7 +216,8 @@ def upass_ab(check, torch, cs):
             e = cs.rel_fro(got[1], want[1])
             check(agree >= 0.999 and e <= 1e-3, f"{name}[{xname}] rows "
                   f"agreeing {agree:.6f}, numV rel Frobenius {e:.3g}")
-            rec[f"{name}[{xname}]"] = timed(lambda: fn(*args, **kw), got)
+            rec[f"{name}[{xname}]"] = timed(lambda: fn(*args, **kw), got,
+                                            xname != "float32")
         del X, Xn
     X8 = X32.to(torch.float8_e4m3fn)
     rec[f"x_read[{E4M3}]"] = dict(device_ms=cs.device_ms(

@@ -55,6 +55,11 @@ __device__ __forceinline__ void from_float(float x, __nv_fp8_e4m3& y) {
   y.__x = __nv_cvt_float_to_fp8(x, __NV_SATFINITE, __NV_E4M3);
 }
 
+// Brings the 128-byte line holding p into L2.
+__device__ __forceinline__ void prefetch_l2(const void* p) {
+  asm volatile("prefetch.global.L2 [%0];\n" ::"l"(p));
+}
+
 // 16-byte asynchronous copy global -> shared. With bytes = 0 nothing is
 // read and the 16 bytes of shared memory are zero-filled.
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
@@ -70,6 +75,14 @@ __device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
                "l"(gmem)
+               : "memory");
+}
+// The same with bytes = 0: nothing read, the 4 bytes zero-filled.
+__device__ __forceinline__ void cp_async4z(void* smem, const void* gmem,
+                                           int bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(bytes)
                : "memory");
 }
 __device__ __forceinline__ void cp_async_commit() {

@@ -25,10 +25,13 @@
 // order. Both sweeps stream X through cp.async rings, so X is read twice per
 // call (1.36 GB at the main-path shape); the two-pass bound is 0.41 ms.
 // k > 32 takes the skeleton's wide route (32-component slices, the ratio in
-// a kernel of its own).
+// a kernel of its own). f32 X (the estimator's default dtype: 1.358 GB at
+// the main-path shape, 0.41 ms per pass) at k <= 32 and m up to the plan's
+// crossover takes the cluster route instead (u_pass_cluster.cuh): X read
+// once, the ratio run by the CTA that owns each row.
 // Rows >= n_valid are zeroed, so a 0 * 0 / 0 = NaN padding row cannot reach
 // the factors or the partial sums.
-#include "u_pass_common.cuh"
+#include "u_pass_cluster.cuh"
 
 namespace pycmf {
 
@@ -54,6 +57,13 @@ struct MuEpi {
     return row < n_valid ? un : 0.f;
   }
 
+  // Brings row's operands into L2 ahead of row() (u_pass_cluster.cuh).
+  __device__ void prefetch(int row) const {
+    const float* u = U + (size_t)row * k;
+    prefetch_l2(u);
+    prefetch_l2(u + k - 1);
+  }
+
   // k > 32 (u_pass_common.cuh: wide_rows_kernel): the same ratio, lanes
   // striding the components, VtV read through L1.
   __device__ void wide(int row, const float* xv, float* out, float*) const {
@@ -72,23 +82,33 @@ struct MuEpi {
 
 // x_dtype: X's dtype code (common.cuh: XDtype; 0 f32, 1 bf16, 2 e4m3).
 // U, V, VtV and every output are f32,
-// row-major and contiguous. vt, uxt, gram_part, numv_part and the four ints
-// after them are the wrapper's plan (ops/kernels/mu_fused.py: u_pass_plan);
-// the launches go to `stream` on `device`.
+// row-major and contiguous. clusters and slice_cols (the cluster route of
+// f32 X; 0 for the two-sweep routes), vt, uxt, gram_part, numv_part and the
+// four ints after them are the wrapper's plan (ops/kernels/mu_fused.py:
+// u_pass_plan); the launches go to `stream` on `device`.
 // Returns the CUDA error of the launches (0 on success).
 extern "C" int pycmf_mu_fused_u_pass(
     int x_dtype, const void* X, const float* U, const float* V,
     const float* VtV, int n, int m, int k, int n_valid, float l1, float l2,
-    float eps, float* Unew, float* numV, float* gramU, void* vt, void* uxt,
-    float* gram_part, float* numv_part, int ld_vt, int ld_ux, int seg_rows,
-    int n_seg, int device, void* stream) {
+    float eps, int clusters, int slice_cols, float* Unew, float* numV,
+    float* gramU, void* vt, void* uxt, float* gram_part, float* numv_part,
+    int ld_vt, int ld_ux, int seg_rows, int n_seg, int device, void* stream) {
   using namespace pycmf;
-  const UPassWork w{vt, uxt, gram_part, numv_part, ld_vt, ld_ux, seg_rows,
-                    n_seg};
-  if (!plan_ok(n, m, k, w)) return (int)cudaErrorInvalidValue;
+  const UPassWork w{vt,    uxt,      gram_part, numv_part, ld_vt,
+                    ld_ux, seg_rows, n_seg,     clusters,  slice_cols};
   DeviceGuard guard(device);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const MuEpi epi{U, VtV, k, n_valid, l1, l2, eps};
-  return launch_u_pass_dtype(x_dtype, X, V, n, m, k, epi, Unew, numV, gramU,
+  return launch_u_pass_route(x_dtype, X, V, n, m, k, epi, Unew, numV, gramU,
                              w, st);
+}
+
+// Clusters of the f32 cluster route at k, with slices of slice_cols
+// columns, that `device` holds at once (written to *out); returns the CUDA
+// error of the query.
+extern "C" int pycmf_u_pass_cluster_occupancy(int k, int slice_cols,
+                                              int device, int* out) {
+  using namespace pycmf;
+  DeviceGuard guard(device);
+  return cluster_occupancy<MuEpi>(k, slice_cols, out);
 }

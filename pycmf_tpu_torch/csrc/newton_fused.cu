@@ -28,8 +28,10 @@
 // line search's small late decreases. Steps 2^-j are exact (ldexpf).
 // k > 32 takes the skeleton's wide route: the same step and line search in
 // a kernel of its own, one warp per row, lanes striding the components,
-// its k-term products summed in f64 (NewtonEpi::wide).
-#include "u_pass_common.cuh"
+// its k-term products summed in f64 (NewtonEpi::wide). f32 X at k <= 32
+// takes the cluster route of mu_fused.cu (u_pass_cluster.cuh), this
+// file's row() run by the CTA that owns each row.
+#include "u_pass_cluster.cuh"
 
 namespace pycmf {
 
@@ -81,6 +83,14 @@ struct NewtonEpi {
       if (phi_row<NP>(mc, db, rs, Bs, k, l1, l2) < phi0) return mc;  // uniform
     }
     return u;
+  }
+
+  // Brings row's operands into L2 ahead of row() (u_pass_cluster.cuh).
+  __device__ void prefetch(int row) const {
+    const float* u = U + (size_t)row * k;
+    prefetch_l2(u);
+    prefetch_l2(u + k - 1);
+    prefetch_l2(row_sq + row);
   }
 
   // phi of candidate j (j < 0: U's row itself, unprojected) for the wide
@@ -159,24 +169,23 @@ struct NewtonEpi {
 
 // x_dtype: X's dtype code (common.cuh: XDtype; 0 f32, 1 bf16, 2 e4m3).
 // U, V, BtB, Hinv, row_sq and every
-// output are f32, row-major and contiguous. vt, uxt, gram_part, numv_part and
-// the four ints after them are the wrapper's plan (ops/kernels/mu_fused.py:
-// u_pass_plan); the launches go to `stream` on `device`. Returns the CUDA
-// error of the launches (0 on success).
+// output are f32, row-major and contiguous. clusters, slice_cols, vt, uxt,
+// gram_part, numv_part and the four ints after them are the wrapper's plan
+// (ops/kernels/mu_fused.py: u_pass_plan); the launches go to `stream` on
+// `device`. Returns the CUDA error of the launches (0 on success).
 extern "C" int pycmf_newton_fused_u_pass(
     int x_dtype, const void* X, const float* U, const float* V,
     const float* BtB, const float* Hinv, const float* row_sq, int n, int m,
-    int k, float l1, float l2, int trials, int non_negative, float* Unew,
-    float* numV, float* gramU, void* vt, void* uxt, float* gram_part,
-    float* numv_part, int ld_vt, int ld_ux, int seg_rows, int n_seg,
-    int device, void* stream) {
+    int k, float l1, float l2, int trials, int non_negative, int clusters,
+    int slice_cols, float* Unew, float* numV, float* gramU, void* vt,
+    void* uxt, float* gram_part, float* numv_part, int ld_vt, int ld_ux,
+    int seg_rows, int n_seg, int device, void* stream) {
   using namespace pycmf;
-  const UPassWork w{vt, uxt, gram_part, numv_part, ld_vt, ld_ux, seg_rows,
-                    n_seg};
-  if (!plan_ok(n, m, k, w)) return (int)cudaErrorInvalidValue;
+  const UPassWork w{vt,    uxt,      gram_part, numv_part, ld_vt,
+                    ld_ux, seg_rows, n_seg,     clusters,  slice_cols};
   DeviceGuard guard(device);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const NewtonEpi epi{U, BtB, Hinv, row_sq, k, l1, l2, trials, non_negative};
-  return launch_u_pass_dtype(x_dtype, X, V, n, m, k, epi, Unew, numV, gramU,
+  return launch_u_pass_route(x_dtype, X, V, n, m, k, epi, Unew, numV, gramU,
                              w, st);
 }

@@ -57,7 +57,9 @@
 // sum in ordinary rounded adds (promote): a chain over all of m or n lost
 // ~1e-4 of a positive sum to the tensor cores' truncated alignment.
 //
-// X is read twice per call (kernels 2 and 3). There are no float atomics:
+// f32 X at k <= 32 takes the cluster route of u_pass_cluster.cuh where the
+// plan gives it (m up to 9984-12288 by k): one read of X per call.
+// Elsewhere X is read twice per call (kernels 2 and 3). No float atomics:
 // every sum has a fixed order that does not depend on timing, so results
 // repeat bit for bit. Products of two bf16 values are exact in f32, so bf16
 // X is the reference's arithmetic (V and U_new rounded to bf16, f32
@@ -1053,6 +1055,9 @@ struct UPassWork {
                      // at least 2 n k floats: before the column sweep
                      // writes it, the X V scratch, then Epi::wide's
   int ld_vt, ld_ux, seg_rows, n_seg;
+  // f32 X at k <= 32 and m <= 16 * kCMaxCols: the cluster route's clusters
+  // and columns per CTA (u_pass_cluster.cuh); 0 on the two-sweep routes
+  int clusters, slice_cols;
 };
 
 inline bool plan_ok(int n, int m, int k, const UPassWork& w) {

@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 from .kernels import mu_fused, newton_fused
+from .kernels.policy import check_device
 from .linesearch import backtracking_select
 from .matmul import FP8_DTYPES, matmul
 
@@ -132,12 +133,14 @@ def pick_chunk_rows(n: int, m: int, itemsize: int = 4) -> int:
     return int(min(r, n_up))
 
 
-def chunked_from_scipy(A, dtype=torch.float32, device="cpu", *,
+def chunked_from_scipy(A, dtype=torch.float32, device="cuda", *,
                        chunk_rows: int | None = None) -> ChunkedCoo:
-    """A ChunkedCoo of a scipy.sparse matrix on ``device`` (host, once per
-    fit). Duplicates are summed; the nonzeros are sorted stably by row and
-    each chunk padded to the largest chunk's count L. Warns when the
-    padding makes C·L more than 4× the true count (heavily skewed rows)."""
+    """A ChunkedCoo of a scipy.sparse matrix on ``device`` (built on the
+    host, once per fit; the card by default, as the reference's lands on
+    its default device; 'cuda' without a card raises). Duplicates are
+    summed; the nonzeros are sorted stably by row and each chunk padded to
+    the largest chunk's count L. Warns when the padding makes C·L more
+    than 4× the true count (heavily skewed rows)."""
     import scipy.sparse as sp
 
     if dtype in FP8_DTYPES:
@@ -145,6 +148,7 @@ def chunked_from_scipy(A, dtype=torch.float32, device="cpu", *,
             "fp8 data storage requires dense device form; the chunked "
             "streaming layout stores COO + a transient dense chunk — "
             "use data_dtype='bfloat16' for beyond-threshold X")
+    device = check_device(device)
     A = sp.coo_matrix(A)
     A.sum_duplicates()
     n, m = A.shape

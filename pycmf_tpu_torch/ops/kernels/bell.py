@@ -29,7 +29,7 @@ import scipy.sparse as sp
 import torch
 
 from . import _build
-from .policy import launch_count, on_card
+from .policy import check_device, launch_count, on_card
 
 LAUNCHES = launch_count("bell_spmm")
 BLOCK = 128
@@ -100,12 +100,15 @@ def bell_segments(bptr: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
             rb_segs.astype(np.int32))
 
 
-def bell_from_scipy(A, dtype=torch.float32, device="cpu", *,
+def bell_from_scipy(A, dtype=torch.float32, device="cuda", *,
                     max_bytes: Optional[int] = None,
                     min_fill: float = 0.0) -> Optional[BlockEll]:
-    """A scipy.sparse matrix as a BlockEll on ``device`` (host, once per
-    fit), or None when the blocks would take more than ``max_bytes`` at
-    ``dtype`` or their fill is below ``min_fill``."""
+    """A scipy.sparse matrix as a BlockEll on ``device`` (built on the host,
+    once per fit; the card by default, as the reference's lands on its
+    default device; 'cuda' without a card raises), or None when the blocks
+    would take more than ``max_bytes`` at ``dtype`` or their fill is below
+    ``min_fill``."""
+    device = check_device(device)
     A = sp.csr_matrix(A)
     A.sum_duplicates()
     p, q = A.shape

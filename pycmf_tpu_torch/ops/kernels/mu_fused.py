@@ -11,9 +11,11 @@ X V, U_new is cast to it before Xᵀ U_new, and all accumulation is in the
 factor dtype (float32 on the card). The operand dtype is X's own, or bf16
 for fp8 X (float8_e4m3fn, widened to bf16 exactly:
 ``matmul.operand_dtype``). The kernel is ``csrc/mu_fused.cu`` on the
-skeleton ``csrc/u_pass_common.cuh``, shared with ``newton_fused``; this module
-holds the Python side of both: :func:`u_pass_plan` (tiles, row segments and
-workspace layout, computed here only) and :func:`launch_u_pass`.
+skeleton ``csrc/u_pass_common.cuh`` (two sweeps over X), or for f32 X at
+k <= 32 ``csrc/u_pass_cluster.cuh`` (clusters of 16 CTAs, one read of X),
+shared with ``newton_fused``; this module holds the Python side of both:
+:func:`u_pass_plan` (the route, tiles, row segments and workspace layout,
+computed here only) and :func:`launch_u_pass`.
 """
 from __future__ import annotations
 
@@ -39,6 +41,16 @@ VT_ALIGN = 128       # Vᵀ's leading dimension: whole 256-byte bf16 stages
 B_CTAS_PER_SM = 2    # column-sweep CTAs resident per SM (its launch bounds)
 WORK_ALIGN = 64      # workspace parts start on 256-byte boundaries (floats)
 K_SLICE = 32         # k > K_SLICE: the wide route, in K_SLICE-component slices
+# The cluster route of f32 X at k <= K_SLICE (csrc/u_pass_cluster.cuh): one
+# read of X per call
+C_CTAS = 16          # CTAs per cluster, each a slice of m's columns
+C_ROWS = 16          # rows per band (one row of each band per CTA)
+C_WARPS = 12         # warps per CTA
+C_SLOTS = 6          # slots of the warps' X V partials
+C_BUFS = 3           # bands of X held in shared memory
+C_MTILES = 4         # numV's 16-column tiles per warp, held in registers
+C_MAX_COLS = 16 * C_WARPS * C_MTILES   # 768 columns per CTA at most
+SMEM_OPTIN = 232448  # shared bytes a CTA may use on an H100 (227 KB)
 
 
 class UPassPlan(NamedTuple):
@@ -57,14 +69,42 @@ class UPassPlan(NamedTuple):
     #                      (the last also the wide route's X V and scratch,
     #                      2 n k floats, which the column sweep overwrites)
     floats: int          # workspace size
+    clusters: int = 0    # the cluster route's clusters of C_CTAS CTAs (f32
+    #                      X, k <= 32, m <= cluster_max_m(k)); 0: two sweeps
+    slice_cols: int = 0  # its columns per CTA: a multiple of 16
 
 
 def _ceil(a: int, b: int) -> int:
     return -(-a // b)
 
 
+def cluster_smem(w: int, np_: int, mats: int = 2) -> int:
+    """Shared bytes of one cluster-route CTA at slices of w columns
+    (csrc/u_pass_cluster.cuh: CSmem): Vᵀ (np_ rows) and C_BUFS bands of
+    X, rows of w + 4 floats; the epilogue's ``mats`` np_ x np_ matrices (2
+    for K2); the warps' X V partials in C_SLOTS slots; the X V rows and
+    U_new rows pushed by the cluster's CTAs, for two bands each; four
+    barriers (8 bytes each)."""
+    return 4 * ((np_ + C_BUFS * C_ROWS) * (w + 4) + mats * np_ * np_
+                + (C_SLOTS + 4) * C_ROWS * np_ + 8)
+
+
+@functools.lru_cache(maxsize=None)
+def cluster_max_m(k: int) -> int:
+    """The widest m the cluster route takes at k <= K_SLICE: C_CTAS slices
+    of the most columns (a multiple of 16, at most C_MAX_COLS) whose CTA
+    fits SMEM_OPTIN; wider X takes the two sweeps. 12288 to k = 16,
+    11520 to 24, 9984 to 32."""
+    np_ = 8 * _ceil(k, 8)
+    w = C_MAX_COLS
+    while w > 16 and cluster_smem(w, np_) > SMEM_OPTIN:
+        w -= 16
+    return C_CTAS * w
+
+
 @functools.lru_cache(maxsize=64)
-def u_pass_plan(n: int, m: int, k: int, op_bytes: int, n_sm: int) -> UPassPlan:
+def u_pass_plan(n: int, m: int, k: int, op_bytes: int, n_sm: int,
+                max_clusters: int | None = None) -> UPassPlan:
     """Plan of one U-pass call on a card with ``n_sm`` SMs; ``op_bytes``:
     the size of X's operand dtype (2 for bf16 and fp8 X, 4 for f32), in
     which Vᵀ and U_newᵀ are stored. The plan does not depend on X's own
@@ -73,7 +113,16 @@ def u_pass_plan(n: int, m: int, k: int, op_bytes: int, n_sm: int) -> UPassPlan:
     (B_CTAS_PER_SM per SM), at least one; segments are whole row-sweep
     blocks, so each starts on a row where X's 16-byte alignment repeats.
     For k > K_SLICE the factor dimension goes in K_SLICE-component slices
-    (csrc/u_pass_common.cuh: the wide route)."""
+    (csrc/u_pass_common.cuh: the wide route).
+
+    f32 X at k <= K_SLICE and m <= cluster_max_m(k) takes the cluster route
+    (csrc/u_pass_cluster.cuh: one read of X): n_sm // C_CTAS clusters, or
+    ``max_clusters`` (the card's count of clusters resident at once) if
+    fewer, at least one, walk bands of C_ROWS rows, band b on cluster
+    b % clusters, and CTA s of a cluster holds columns s·slice_cols ... of
+    every band; the Gram partials are one per CTA, the numV partials one
+    per cluster. Its plan keeps the two-sweep fields, and the workspace
+    holds either route's parts."""
     k_slices = 1 if k <= K_SLICE else _ceil(k, K_SLICE)
     np_ = 8 * _ceil(k, 8) if k_slices == 1 else K_SLICE * k_slices
     row_blocks = _ceil(n, A_ROWS)
@@ -83,23 +132,66 @@ def u_pass_plan(n: int, m: int, k: int, op_bytes: int, n_sm: int) -> UPassPlan:
     n_seg = min(max(1, B_CTAS_PER_SM * n_sm // col_slices), row_blocks)
     seg_rows = _ceil(row_blocks, n_seg) * A_ROWS
     n_seg = _ceil(n, seg_rows)
+    clusters = slice_cols = 0
+    if op_bytes == 4 and k_slices == 1 and m <= cluster_max_m(k):
+        clusters = n_sm // C_CTAS
+        if max_clusters is not None:
+            clusters = min(clusters, max_clusters)
+        clusters = max(1, clusters)
+        slice_cols = 16 * _ceil(m, 16 * C_CTAS)
     sizes = (_ceil(np_ * ld_vt * op_bytes, 4),
              _ceil(np_ * ld_ux * op_bytes, 4),
-             row_blocks * k * k,
+             max(row_blocks, C_CTAS * clusters) * k * k,
              max(n_seg * m * k if n_seg > 1 else 0,
-                 2 * n * k if k_slices > 1 else 0))
+                 2 * n * k if k_slices > 1 else 0,
+                 clusters * m * k if clusters > 1 else 0))
     offsets, at = [], 0
     for size in sizes:
         offsets.append(at)
         at += _ceil(size, WORK_ALIGN) * WORK_ALIGN
     return UPassPlan(np_ // 8, k_slices, ld_vt, ld_ux, row_blocks,
                      col_slices, seg_rows, n_seg, tuple(offsets),
-                     max(at, WORK_ALIGN))
+                     max(at, WORK_ALIGN), clusters, slice_cols)
 
 
 @functools.lru_cache(maxsize=None)
 def _sm_count(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def cluster_limit(device_index: int, k: int, slice_cols: int) -> int:
+    """Clusters of the f32 cluster route at k, slices of ``slice_cols``
+    columns, that the card holds at once (cudaOccupancyMaxActiveClusters:
+    7 on an H100 SXM, whose 132 SMs hold no eighth group of 16)."""
+    fn = _build.function("mu_fused", "pycmf_u_pass_cluster_occupancy",
+                         (ctypes.c_int,) * 3 + (ctypes.c_void_p,))
+    out = ctypes.c_int(0)
+    rc = fn(k, slice_cols, device_index, ctypes.byref(out))
+    if rc:
+        _build.check(_build.load("mu_fused"), rc, "cluster occupancy")
+    return out.value
+
+
+_PLANS: dict = {}
+
+
+def plan_for(X: torch.Tensor, k: int) -> UPassPlan:
+    """The plan of a U-pass call on the card's X (n, m) at k (one lookup
+    per call after the first of its shape: the host's time is part of a
+    call's)."""
+    key = (X.shape, X.dtype, X.device.index, k)
+    plan = _PLANS.get(key)
+    if plan is None:
+        n, m = X.shape
+        dev = X.device.index
+        op = operand_dtype(X.dtype).itemsize
+        plan = u_pass_plan(n, m, k, op, _sm_count(dev))
+        if plan.clusters:
+            plan = u_pass_plan(n, m, k, op, _sm_count(dev),
+                               cluster_limit(dev, k, plan.slice_cols))
+        _PLANS[key] = plan
+    return plan
 
 
 # X's dtype as the C entry points take it (csrc/common.cuh: XDtype)
@@ -113,10 +205,11 @@ def launches(X: torch.Tensor, plain, fp8):
 
 
 # leading C arguments of both entry points: X's code, X, U, V; trailing:
-# Unew, numV, gramU, the four workspace parts, ld_vt, ld_ux, seg_rows,
-# n_seg, device, stream
+# clusters, slice_cols, Unew, numV, gramU, the four workspace parts, ld_vt,
+# ld_ux, seg_rows, n_seg, device, stream
 _HEAD = (ctypes.c_int,) + (ctypes.c_void_p,) * 3
-_TAIL = (ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 5 + (ctypes.c_void_p,)
+_TAIL = ((ctypes.c_int,) * 2 + (ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 5
+         + (ctypes.c_void_p,))
 
 
 def entry(library: str, symbol: str, middle) -> object:
@@ -132,27 +225,26 @@ def launch_u_pass(library: str, symbol: str, middle_types, X, U, V, middle):
     n, m = X.shape
     k = U.shape[1]
     dev = X.device.index
-    plan = u_pass_plan(n, m, k, operand_dtype(X.dtype).itemsize,
-                       _sm_count(dev))
+    plan = plan_for(X, k)
     work = torch.empty(plan.floats, dtype=torch.float32, device=X.device)
-    # the three outputs in one allocation
+    # the three outputs in one allocation, viewed after the launch (the
+    # host's time before it is part of the call's)
     out = torch.empty(n * k + m * k + k * k, dtype=torch.float32,
                       device=X.device)
-    unew = out[:n * k].view(n, k)
-    numv = out[n * k:(n + m) * k].view(m, k)
-    gramu = out[(n + m) * k:].view(k, k)
-    base = work.data_ptr()
+    base, obase = work.data_ptr(), out.data_ptr()
     # the C side makes `dev` current for its launches
     rc = fn(X_CODES[X.dtype], X.data_ptr(), U.data_ptr(),
             V.data_ptr(),
             *(a.data_ptr() if isinstance(a, torch.Tensor) else a
-              for a in middle), unew.data_ptr(), numv.data_ptr(),
-            gramu.data_ptr(), *(base + 4 * o for o in plan.offsets),
+              for a in middle), plan.clusters, plan.slice_cols,
+            obase, obase + 4 * n * k, obase + 4 * (n + m) * k,
+            *(base + 4 * o for o in plan.offsets),
             plan.ld_vt, plan.ld_ux, plan.seg_rows, plan.n_seg, dev,
             torch._C._cuda_getCurrentRawStream(dev))
     if rc:
         _build.check(_build.load(library), rc, symbol)
-    return unew, numv, gramu
+    return (out[:n * k].view(n, k), out[n * k:(n + m) * k].view(m, k),
+            out[(n + m) * k:].view(k, k))
 
 
 def check_data_dtype(X: torch.Tensor) -> None:

@@ -22,6 +22,18 @@ from typing import Dict
 import torch
 
 
+def check_device(device) -> torch.device:
+    """``device`` as a torch.device; 'cuda' without a card raises. The
+    layout constructors (CSR, BlockEll, chunked COO) place on the card by
+    default, as the reference's land on its default device."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise ValueError(
+            "device='cuda' (the default) but torch.cuda.is_available() is "
+            "False; pass device='cpu' to build the matrix on the CPU")
+    return dev
+
+
 class LaunchCount:
     """Number of times one kernel was launched in this process."""
 

@@ -21,6 +21,7 @@ import scipy.sparse as sp
 import torch
 
 from .kernels.bell import BlockEll
+from .kernels.policy import check_device
 from .matmul import matmul
 
 
@@ -76,23 +77,13 @@ def _sq_dtype(dtype: torch.dtype) -> torch.dtype:
     return torch.float32 if dtype == torch.bfloat16 else dtype
 
 
-def _check_device(device) -> torch.device:
-    """``device`` as a torch.device; 'cuda' without a card raises."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise ValueError(
-            "device='cuda' (the default) but torch.cuda.is_available() is "
-            "False; pass device='cpu' to build the matrix on the CPU")
-    return dev
-
-
 def csr_from_scipy(A, dtype=torch.float32, device="cuda") -> CsrMatrix:
     """A scipy.sparse matrix as a CsrMatrix on ``device`` (built on the
     host, at fit time; the card by default, as the reference's lands on
     its default device). Duplicates are summed first. ``sq_norm`` sums the
     squares of the values as stored (rounded to ``dtype``) in float64,
     then casts."""
-    device = _check_device(device)
+    device = check_device(device)
     A = sp.csr_matrix(A)
     A.sum_duplicates()
     data = torch.from_numpy(np.ascontiguousarray(A.data)).to(dtype)

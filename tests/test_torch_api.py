@@ -36,6 +36,7 @@ from pycmf_tpu import solvers as jsolvers
 from pycmf_tpu.ops import chunked as jchunked
 from pycmf_tpu.ops import losses as jlosses
 from pycmf_tpu.ops import sparse as jsparse
+from pycmf_tpu.ops.pallas import bell as jbell
 from pycmf_tpu_torch import CMF
 from pycmf_tpu_torch import ops as tops
 from pycmf_tpu_torch import solvers as tsolvers
@@ -153,6 +154,41 @@ def test_csr_constructors_default_to_the_card(rng, monkeypatch, build):
         assert C.device.type == "cpu"
 
 
+@pytest.mark.parametrize("build", ["chunked_from_scipy", "bell_from_scipy"])
+def test_layout_constructors_default_to_the_card(rng, monkeypatch, build):
+    """chunked_from_scipy and bell_from_scipy place on the card by default,
+    as the reference's land on its default device: without a card the
+    default raises, naming device='cpu', and device='cpu' builds the
+    reference's layout on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    if build == "chunked_from_scipy":
+        A = _scattered(rng)
+        with pytest.raises(ValueError, match="device='cpu'"):
+            tchunked.chunked_from_scipy(A, torch.float64, chunk_rows=16)
+        T = tchunked.chunked_from_scipy(A, torch.float64, chunk_rows=16,
+                                        device="cpu")
+        J = jchunked.chunked_from_scipy(A, jnp.float64, chunk_rows=16)
+        assert (T.n_chunks, T.chunk_rows, T.nnz, T.shape) == (
+            J.n_chunks, J.chunk_rows, J.nnz, J.shape)
+        for c in range(T.n_chunks):
+            np.testing.assert_array_equal(
+                _np(tchunked.densify_chunk(T, c)),
+                np.asarray(jchunked._densify_chunk(J, J.data[c], J.cols[c],
+                                                   J.rows[c])))
+        tensors = (T.data, T.cols, T.rows, T.sq_norm, T.buffer)
+    else:
+        A = block_sparse_matrix(96, 64, 0.4, rng)
+        with pytest.raises(ValueError, match="device='cpu'"):
+            tbell.bell_from_scipy(A, torch.float64)
+        T = tbell.bell_from_scipy(A, torch.float64, device="cpu")
+        J = jbell.bell_from_scipy(A, jnp.float64)
+        for f in ("brows", "bcols", "blocks"):
+            np.testing.assert_array_equal(_np(getattr(T, f)),
+                                          _np(getattr(J, f)))
+        tensors = (T.blocks, T.brows, T.bcols)
+    assert all(t.device.type == "cpu" for t in tensors)
+
+
 # -- ops.spmm and reconstruction_rmse ----------------------------------------
 
 def _spmm_operands(rng, data_dtype=torch.float64, b_dtype=torch.float64):
@@ -207,7 +243,7 @@ def _rmse_inputs(rng, layout, link, dtype):
         TA = tsparse.csr_from_scipy(A, tdt, device="cpu")
     else:
         JA = jchunked.chunked_from_scipy(A, jdt, chunk_rows=16)
-        TA = tchunked.chunked_from_scipy(A, tdt, chunk_rows=16)
+        TA = tchunked.chunked_from_scipy(A, tdt, chunk_rows=16, device="cpu")
     return JA, TA, M, B
 
 
@@ -238,7 +274,7 @@ def test_reconstruction_rmse_of_block_ell(rng):
     want = float(jlosses.reconstruction_rmse(
         jsparse.csr_from_scipy(A, dtype=jnp.float64), jnp.asarray(M),
         jnp.asarray(B), "linear"))
-    L = tbell.bell_from_scipy(A, torch.float64)
+    L = tbell.bell_from_scipy(A, torch.float64, device="cpu")
     got = tlosses.reconstruction_rmse(L, torch.from_numpy(M),
                                       torch.from_numpy(B), "linear")
     np.testing.assert_allclose(float(got), want, rtol=1e-9)

@@ -65,7 +65,8 @@ def _sparse(rng, n=61, m=40, density=0.2, binary=False):
 
 def _pair(A, R):
     return (jchunked.chunked_from_scipy(A, jnp.float64, chunk_rows=R),
-            tchunked.chunked_from_scipy(A, torch.float64, chunk_rows=R))
+            tchunked.chunked_from_scipy(A, torch.float64, chunk_rows=R,
+                                        device="cpu"))
 
 
 @pytest.fixture
@@ -107,7 +108,8 @@ def test_densify_chunk_matches_reference(rng, R):
 def test_bf16_layout_and_sq_norm_of_unrounded_values(rng):
     A = _sparse(rng)
     J = jchunked.chunked_from_scipy(A, jnp.bfloat16, chunk_rows=16)
-    T = tchunked.chunked_from_scipy(A, torch.bfloat16, chunk_rows=16)
+    T = tchunked.chunked_from_scipy(A, torch.bfloat16, chunk_rows=16,
+                                    device="cpu")
     assert T.sq_norm.dtype == torch.float32 and T.data.dtype == torch.bfloat16
     assert float(T.sq_norm) == float(J.sq_norm)
     dense = sum(_np(tchunked.densify_chunk(T, c)).sum()
@@ -119,7 +121,8 @@ def test_duplicate_coo_entries_summed():
     A = sp.coo_matrix((np.array([1.0, 2.0, 3.0]), (np.array([0, 0, 5]),
                                                    np.array([1, 1, 2]))),
                       shape=(20, 4))
-    T = tchunked.chunked_from_scipy(A, torch.float64, chunk_rows=8)
+    T = tchunked.chunked_from_scipy(A, torch.float64, chunk_rows=8,
+                                    device="cpu")
     assert T.nnz == 2
     np.testing.assert_array_equal(_np(tchunked.densify_chunk(T, 0)),
                                   A.toarray()[:8])
@@ -145,12 +148,14 @@ def test_skew_warning_as_reference():
     for build in (lambda: jchunked.chunked_from_scipy(A, jnp.float64,
                                                       chunk_rows=8),
                   lambda: tchunked.chunked_from_scipy(A, torch.float64,
-                                                      chunk_rows=8)):
+                                                      chunk_rows=8,
+                                                      device="cpu")):
         with pytest.warns(UserWarning, match="padding is"):
             build()
     with warnings.catch_warnings():
         warnings.simplefilter("error")
-        tchunked.chunked_from_scipy(sp.eye(64), torch.float64, chunk_rows=8)
+        tchunked.chunked_from_scipy(sp.eye(64), torch.float64, chunk_rows=8,
+                                    device="cpu")
 
 
 # -- streamed products ------------------------------------------------------

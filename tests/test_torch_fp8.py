@@ -489,10 +489,15 @@ def fake_launch(monkeypatch):
         rec.calls.append(args)
         return 0
 
+    def occupancy(k, slice_cols, device, out):
+        out._obj.value = 7  # an H100's resident clusters of 16
+        return 0
+
     def fake_load(name):
         return types.SimpleNamespace(
             pycmf_mu_fused_u_pass=entry, pycmf_newton_fused_u_pass=entry,
             pycmf_sigmoid_gh_pass=entry, pycmf_sigmoid_phi_pass=entry,
+            pycmf_u_pass_cluster_occupancy=occupancy,
             pycmf_error_string=lambda rc: b"fake failure")
 
     monkeypatch.setattr(_build, "load", fake_load)
@@ -544,6 +549,32 @@ def test_fp8_launch_passes_its_code_and_counts_apart(rng, fake_launch,
         assert [a - base16 for a in bf16] == [a - base8 for a in fp8]
         assert mu_fused.u_pass_plan(n, m, k, 2, 132) == mu_fused.u_pass_plan(
             n, m, k, operand_dtype(F8).itemsize, 132)
+
+
+@pytest.mark.parametrize("kernel", ["fused_mu_u_pass",
+                                    "fused_newton_linear_u_pass"])
+def test_f32_launch_takes_the_cluster_plan(rng, fake_launch, kernel):
+    """f32 X at k <= 32 passes the cluster route's clusters (the card's
+    resident count, 7 from the fake library's occupancy) and columns per
+    CTA to the C entry; bf16 and e4m3 X pass none (the two sweeps)."""
+    n, m, k = 70, 50, 6
+    X, M, B = _t(_in_range(rng, n, m)), _t(rng.rand(n, k)), _t(rng.rand(m, k))
+    S = _t(np.eye(k))
+    mu_fused.cluster_limit.cache_clear()
+    mu_fused._PLANS.clear()
+    for dt in (torch.float32, torch.bfloat16, F8):
+        A = X.to(dt)
+        if kernel == "fused_mu_u_pass":
+            mu_fused.fused_mu_u_pass(A, M, B, S, 0.0, 0.0, 1e-9)
+        else:
+            newton_fused.fused_newton_linear_u_pass(
+                A, M, B, S, S, _t(np.ones(n)), 0.0, 0.0, trials=2,
+                non_negative=True)
+    # clusters and slice_cols come before Unew and the 14 trailing arguments
+    got = [c[-15:-13] for c in fake_launch.calls]
+    assert got == [(7, 16), (0, 0), (0, 0)]
+    mu_fused.cluster_limit.cache_clear()
+    mu_fused._PLANS.clear()
 
 
 @pytest.mark.parametrize("kernel", ["fused_mu_u_pass",

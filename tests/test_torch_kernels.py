@@ -237,6 +237,100 @@ def test_u_pass_plan_at_the_main_shape():
     assert p.floats * 4 < 5 * 2 ** 20  # under 5 MB of scratch per call
 
 
+# The two sweeps' plan (with the wide route's slices) as it stands without
+# the cluster route: bf16 and e4m3 X keep it field for field.
+def _two_sweep_plan(n, m, k, op_bytes, n_sm):
+    ceil = lambda a, b: -(-a // b)
+    k_slices = 1 if k <= 32 else ceil(k, 32)
+    np_ = 8 * ceil(k, 8) if k_slices == 1 else 32 * k_slices
+    row_blocks = ceil(n, 64)
+    ld_ux, ld_vt = row_blocks * 64, ceil(m, 128) * 128
+    col_slices = ceil(m, 128)
+    n_seg = min(max(1, 2 * n_sm // col_slices), row_blocks)
+    seg_rows = ceil(row_blocks, n_seg) * 64
+    n_seg = ceil(n, seg_rows)
+    sizes = (ceil(np_ * ld_vt * op_bytes, 4), ceil(np_ * ld_ux * op_bytes, 4),
+             row_blocks * k * k,
+             max(n_seg * m * k if n_seg > 1 else 0,
+                 2 * n * k if k_slices > 1 else 0))
+    offsets, at = [], 0
+    for size in sizes:
+        offsets.append(at)
+        at += ceil(size, 64) * 64
+    return mu_fused.UPassPlan(np_ // 8, k_slices, ld_vt, ld_ux, row_blocks,
+                              col_slices, seg_rows, n_seg, tuple(offsets),
+                              max(at, 64))
+
+
+@pytest.mark.parametrize("n,m,k", _PLAN_SHAPES + [(30000, 11314, 40),
+                                                  (17, 47236, 100)])
+@pytest.mark.parametrize("n_sm", [1, 132])
+def test_u_pass_plan_of_bf16_x_is_unchanged(n, m, k, n_sm):
+    """bf16 X (and e4m3 X, which takes the bf16 call's plan) keeps the two
+    sweeps' plan as it was, with no clusters: its kernels and bits are
+    the parent's."""
+    p = mu_fused.u_pass_plan(n, m, k, 2, n_sm)
+    assert p == _two_sweep_plan(n, m, k, 2, n_sm)
+    assert (p.clusters, p.slice_cols) == (0, 0)
+
+
+@pytest.mark.parametrize("n", [1, 17, 30000])
+@pytest.mark.parametrize("m", [1, 15, 4097, 11314, 47236])
+@pytest.mark.parametrize("k", [1, 7, 20, 32])
+def test_u_pass_cluster_plan_covers_each_row_and_column_once(n, m, k):
+    """f32 X at k <= 32 (csrc/u_pass_cluster.cuh): the 16 CTAs of a
+    cluster hold slices of m (multiples of 16 columns) that cover it once,
+    the clusters' bands of 16 rows (band b on cluster b % clusters, its
+    row r on rank r) cover n once, a CTA's shared memory stays within 227
+    KB, its warps hold numV's tiles of the slice in registers, a thread of
+    warps 1-11 copies each 16-byte chunk of a tile row, and the workspace
+    holds a Gram partial per CTA and a numV partial per
+    cluster. Past cluster_max_m(k) (47236 here) the two sweeps' plan."""
+    p = mu_fused.u_pass_plan(n, m, k, 4, 132, 7)
+    if m > mu_fused.cluster_max_m(k):
+        assert p == _two_sweep_plan(n, m, k, 4, 132)
+        return
+    w, cl = p.slice_cols, p.clusters
+    assert cl == 7 and w % 16 == 0 and 16 <= w <= mu_fused.C_MAX_COLS
+    cols = [c for s in range(mu_fused.C_CTAS)
+            for c in range(s * w, min(m, (s + 1) * w))]
+    assert cols == list(range(m))
+    bands = -(-n // mu_fused.C_ROWS)
+    owned = sorted(16 * b + r for c in range(cl) for b in range(c, bands, cl)
+                   for r in range(mu_fused.C_CTAS) if 16 * b + r < n)
+    assert owned == list(range(n))
+    np_ = 8 * p.nt
+    assert mu_fused.cluster_smem(w, np_) <= mu_fused.SMEM_OPTIN == 232448
+    assert w <= 16 * mu_fused.C_WARPS * mu_fused.C_MTILES
+    assert w // 4 + 1 <= 32 * (mu_fused.C_WARPS - 1)
+    ends = list(p.offsets[1:]) + [p.floats]
+    sizes = (np_ * p.ld_vt, 0, 16 * cl * k * k, cl * m * k if cl > 1 else 0)
+    for off, size, end in zip(p.offsets, sizes, ends):
+        assert off % mu_fused.WORK_ALIGN == 0 and off + size <= end
+
+
+@pytest.mark.parametrize("k,widest", [(1, 12288), (8, 12288), (9, 12288),
+                                      (16, 12288), (17, 11520), (20, 11520),
+                                      (24, 11520), (25, 9984), (32, 9984)])
+def test_u_pass_cluster_route_crossover(k, widest):
+    """The cluster route takes f32 X up to the widest m whose CTA fits 227
+    KB at its slice (at most 768 columns, numV's registers), two sweeps
+    above; bf16 X and k > 32 never take it; clusters: n_sm // 16, at most
+    the card's resident count, at least one."""
+    assert mu_fused.cluster_max_m(k) == widest
+    at = mu_fused.u_pass_plan(30000, widest, k, 4, 132)
+    w, np_ = at.slice_cols, 8 * at.nt
+    assert (at.clusters, 16 * w) == (8, widest)
+    assert w == mu_fused.C_MAX_COLS or mu_fused.cluster_smem(
+        w + 16, np_) > mu_fused.SMEM_OPTIN
+    assert mu_fused.u_pass_plan(30000, widest + 1, k, 4, 132).clusters == 0
+    assert mu_fused.u_pass_plan(30000, widest, k, 2, 132).clusters == 0
+    assert mu_fused.u_pass_plan(30000, 100, 33, 4, 132).clusters == 0
+    assert mu_fused.u_pass_plan(30000, widest, k, 4, 132, 7).clusters == 7
+    assert mu_fused.u_pass_plan(30000, widest, k, 4, 1, 7).clusters == 1
+    assert mu_fused.u_pass_plan(30000, widest, k, 4, 132, 0).clusters == 1
+
+
 @pytest.mark.parametrize("library,symbol,middle", [
     ("mu_fused", "pycmf_mu_fused_u_pass", 8),
     ("newton_fused", "pycmf_newton_fused_u_pass", 10)])
@@ -258,7 +352,9 @@ def test_u_pass_entry_is_resolved_once(monkeypatch, library, symbol, middle):
     a = mu_fused.entry(library, symbol, types_)
     b = mu_fused.entry(library, symbol, types_)
     assert a is b and loads == [library]
-    assert len(a.argtypes) == 4 + middle + 13
+    # the tail: the cluster route's clusters and slice_cols, Unew, numV,
+    # gramU, four workspace parts, four plan ints, device, stream
+    assert len(a.argtypes) == 4 + middle + 15
     assert a.argtypes[1] is ctypes.c_void_p and a.restype is ctypes.c_int
 
 

@@ -77,7 +77,7 @@ def test_masked_row_sq_norms_of_block_ell(rng):
     A[:128] = 0.0  # a row block with no stored entries
     A.eliminate_zeros()
     mask = _t((rng.rand(200) < 0.5).astype(np.float64))
-    bell = tbell.bell_from_scipy(A, torch.float64)
+    bell = tbell.bell_from_scipy(A, torch.float64, device="cpu")
     want = tsparse.masked_row_sq_norms(
         tsparse.csr_from_scipy(A, torch.float64, device="cpu"), mask)
     got = tsparse.masked_row_sq_norms(bell, mask)

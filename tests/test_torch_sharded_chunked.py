@@ -316,7 +316,8 @@ def _t(a):
 
 def _pair(A, R=ROWS):
     return (jchunked.chunked_from_scipy(A, jnp.float64, chunk_rows=R),
-            tchunked.chunked_from_scipy(A, torch.float64, chunk_rows=R))
+            tchunked.chunked_from_scipy(A, torch.float64, chunk_rows=R,
+                                        device="cpu"))
 
 
 def _shard_block(rng, n_valid=13, n_loc=16, m=20, binary=False):

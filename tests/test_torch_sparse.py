@@ -65,7 +65,7 @@ def _sparse_problem(rng, n=60, **kw):
     X, Y = make_problem(rng, n=n, sparse=True, **kw)
     X = sp.csr_matrix(X.multiply(rng.rand(*X.shape) < 0.5))
     X.eliminate_zeros()
-    assert tbell.bell_from_scipy(X).fill < tbell.BELL_MIN_FILL
+    assert tbell.bell_from_scipy(X, device="cpu").fill < tbell.BELL_MIN_FILL
     return X, Y
 
 
@@ -179,7 +179,7 @@ def test_bell_spmm_ref_matches_pallas(rng, dtype):
     A = block_sparse_matrix(384, 256, 0.5, rng)
     B = rng.rand(256, 6)
     Lj = jbell.bell_from_scipy(A, getattr(jnp, dtype))
-    Lt = tbell.bell_from_scipy(A, getattr(torch, dtype))
+    Lt = tbell.bell_from_scipy(A, getattr(torch, dtype), device="cpu")
     for f in ("brows", "bcols"):
         np.testing.assert_array_equal(_np(getattr(Lt, f)),
                                       _np(getattr(Lj, f)))
@@ -193,7 +193,7 @@ def test_bell_spmm_ref_matches_pallas(rng, dtype):
     rtol = 1e-12 if dtype == "float64" else 1e-5
     np.testing.assert_allclose(_np(got), _np(want), rtol=rtol)
     M = rng.rand(384, 6)
-    Ltt = tbell.bell_from_scipy(A.T, getattr(torch, dtype))
+    Ltt = tbell.bell_from_scipy(A.T, getattr(torch, dtype), device="cpu")
     Ljt = jbell.bell_from_scipy(A.T.tocsr(), getattr(jnp, dtype))
     np.testing.assert_allclose(
         float(tbell.bell_inner(Ltt, torch.from_numpy(M).to(Bt.dtype), Bt)),
@@ -203,14 +203,16 @@ def test_bell_spmm_ref_matches_pallas(rng, dtype):
 
 def test_bell_from_scipy_refusals(rng):
     A = block_sparse_matrix(384, 256, 0.5, rng)
-    L = tbell.bell_from_scipy(A)
+    L = tbell.bell_from_scipy(A, device="cpu")
     assert L.bptr.tolist()[-1] == L.blocks.shape[0]
     assert torch.all(L.brows[L.bptr[:-1].long()] == torch.arange(3))
-    assert tbell.bell_from_scipy(A, max_bytes=L.nbytes - 1) is None
-    assert tbell.bell_from_scipy(A, min_fill=L.fill + 1e-9) is None
+    assert tbell.bell_from_scipy(A, max_bytes=L.nbytes - 1,
+                                 device="cpu") is None
+    assert tbell.bell_from_scipy(A, min_fill=L.fill + 1e-9,
+                                 device="cpu") is None
     # a row block with no nonzeros gets a zero block at column 0
     E = sp.csr_matrix(A.toarray() * (np.arange(384) >= 128)[:, None])
-    Le = tbell.bell_from_scipy(E)
+    Le = tbell.bell_from_scipy(E, device="cpu")
     assert Le.brows.tolist()[0] == 0 and Le.bcols.tolist()[0] == 0
     assert float(Le.blocks[0].abs().sum()) == 0.0
 
@@ -243,7 +245,7 @@ def test_bell_from_scipy_carries_its_segments(rng):
     segment and a row block holding only the zero filler block."""
     A = block_sparse_matrix(384, 1280, 0.6, rng).tolil()
     A[128:256, :] = 0
-    L = tbell.bell_from_scipy(sp.csr_matrix(A))
+    L = tbell.bell_from_scipy(sp.csr_matrix(A), device="cpu")
     segs, rb_segs = tbell.bell_segments(L.bptr.numpy())
     np.testing.assert_array_equal(L.segs.numpy(), segs)
     np.testing.assert_array_equal(L.rb_segs.numpy(), rb_segs)
@@ -294,7 +296,7 @@ def test_bell_sq_norm_matches_csr(rng, dtype):
     """A BlockEll carries the CSR's Σ data² of the stored values, bit for
     bit (float32 under bf16 data)."""
     A = block_sparse_matrix(384, 256, 0.5, rng)
-    L = tbell.bell_from_scipy(A, getattr(torch, dtype))
+    L = tbell.bell_from_scipy(A, getattr(torch, dtype), device="cpu")
     C = tsparse.csr_from_scipy(A, getattr(torch, dtype), device="cpu")
     assert L.sq_norm.dtype == C.sq_norm.dtype
     assert float(L.sq_norm) == float(C.sq_norm)
@@ -345,8 +347,9 @@ def test_bell_spmm_ref_matches_pallas_wide_k(rng, k):
     B = rng.rand(256, k)
     want = jbell.bell_spmm(jbell.bell_from_scipy(A, jnp.float64),
                            jnp.asarray(B))
-    got = tbell.bell_spmm(tbell.bell_from_scipy(A, torch.float64),
-                          torch.from_numpy(B))
+    got = tbell.bell_spmm(
+        tbell.bell_from_scipy(A, torch.float64, device="cpu"),
+        torch.from_numpy(B))
     np.testing.assert_allclose(_np(got), _np(want), rtol=1e-12)
 
 
@@ -399,7 +402,7 @@ def test_sparse_card_operand_checks_take_any_k(rng, k):
         C = tsparse.csr_from_scipy(A, dt, device="cpu")
         assert tspmm._check_card_operands(
             C, ((torch.zeros(60, k), 60), (torch.zeros(40, k), 40))) == k
-        L = tbell.bell_from_scipy(A, dt)
+        L = tbell.bell_from_scipy(A, dt, device="cpu")
         tbell.check_card_operands(L, torch.zeros(40, k))
     tmu_update.check_card_operands(torch.zeros(5, k), torch.zeros(k, k),
                                    torch.zeros(5, k))
@@ -408,8 +411,9 @@ def test_sparse_card_operand_checks_take_any_k(rng, k):
                                                           device="cpu"),
                                    ((torch.zeros(40, k), 40),))
     with pytest.raises(NotImplementedError, match="ROADMAP C1"):
-        tbell.check_card_operands(tbell.bell_from_scipy(A, torch.float64),
-                                  torch.zeros(40, k))
+        tbell.check_card_operands(
+            tbell.bell_from_scipy(A, torch.float64, device="cpu"),
+            torch.zeros(40, k))
     with pytest.raises(NotImplementedError, match="ROADMAP C1"):
         tmu_update.check_card_operands(torch.zeros(5, k, dtype=torch.float64),
                                        torch.zeros(k, k), torch.zeros(5, k))
@@ -440,7 +444,7 @@ def test_sigmoid_term_on_sparse_layout_raises(rng, layout):
     A = block_sparse_matrix(384, 256, 0.5, rng)
     L = (tsparse.csr_from_scipy(A, torch.float64, device="cpu")
          if layout == "csr"
-         else tbell.bell_from_scipy(A, torch.float64))
+         else tbell.bell_from_scipy(A, torch.float64, device="cpu"))
     assert tsparse.is_sparse(L)
     M, B = 0.3 * rng.randn(384, 3), 0.3 * rng.randn(256, 3)
     if layout == "csr":
@@ -464,7 +468,8 @@ def test_linear_term_over_bell_layout_f64(rng):
                                        "linear")
     got = tlosses.reconstruction_term(
         At, torch.from_numpy(M), torch.from_numpy(B), "linear",
-        bell_t=tbell.bell_from_scipy(A.T, torch.float64), use_pallas=True)
+        bell_t=tbell.bell_from_scipy(A.T, torch.float64, device="cpu"),
+        use_pallas=True)
     np.testing.assert_allclose(float(got), float(want), rtol=1e-12)
 
 
