@@ -7,17 +7,20 @@ Run from the repository root, with no arguments:
 
 Phases (any failure exits non-zero and prints no ok line):
  1. device: the card's name and power limit (nvidia-smi);
- 2. build: the nine CUDA kernel libraries (the eleven kernels of the
-    TPU's: K5 has a wide route for 32 < k <= 64, a block route for k > 64
-    and an LU route for the full Hessian form; and fit_loop, the device
-    loop's stop rule and fit graph), from pycmf_tpu_torch/csrc, each nvcc
-    started at once;
+ 2. build: the eleven CUDA kernel libraries (the eleven kernels of the
+    TPU's: K1 and K2 have a wide route for k > 32, u_pass_wide; K5 has a
+    wide route for 32 < k <= 64, a block route for k > 64 and an LU route
+    for the full Hessian form; and fit_loop, the device loop's stop rule
+    and fit graph, and threefry, the sampled fits' draws), from
+    pycmf_tpu_torch/csrc, each nvcc started at once;
  3. each kernel against its plain PyTorch version on the same inputs, with
     CUDA-event times and the card's lower bound for the same work:
     K1, K2 at X 30000 x 11314 (bf16 and f32: the f32 form's cluster route,
-    its clusters against the card's resident count), k = 20, and at the
-    edges (n in {1, 17, 30000}, m in {1, 15, 4097, 11314}, k in {1, 7, 20,
-    32, 33, 64, 100}, n_valid < n, trials 0 and 8, non_negative both ways;
+    its clusters against the card's resident count), k = 20, and on the
+    wide route at k = 40 and 100 (bf16 and f32, X read once per sweep),
+    and at the edges (n in {1, 17, 30000}, m in {1, 15, 4097, 11314}, k in
+    {1, 7, 20, 32, 33, 64, 100, 128, 129, 200}, n_valid < n, trials 0 and 8,
+    non_negative both ways;
     f32 X at the m on both sides of the cluster route's crossover); K3,
     K4 at the main path's Z shape (Y^T 20 x 11314, bf16) and at the dense
     sigmoid-X shapes (30000 x 11314, bf16 and f32, and its transpose), and
@@ -463,7 +466,10 @@ def own_products(torch, mu_fused, X, got):
 
 def u_pass_edges(check, torch, mu_fused, newton_fused):
     """K1, K2 at the edges: n in {1, 17, 30000}, m in {1, 15, 4097, 11314},
-    k in {1, 7, 20, 32, 33, 64, 100} (k > 32: the wide route), bf16 and f32
+    k in {1, 7, 20, 32, 33, 64, 100, 128, 129, 200} (k > 32: the wide
+    route; 128 its widest single slice, 129 and 200 two slices of 128; at
+    200 K2's epilogue reads its k x k matrices from device memory, its
+    instantiation with generic pointers), bf16 and f32
     X, and f32 X on both sides of the cluster route's crossover in m
     (12288 at k = 1 and 7, 11520 at 20, 9984 at 32; n of 30000 at k = 20
     and 32), MU with n_valid < n, Newton with
@@ -493,7 +499,8 @@ def u_pass_edges(check, torch, mu_fused, newton_fused):
     # (mu_fused.cluster_max_m: the widest m whose CTA fits), rows of one,
     # 17 and, at k = 20 and 32, 30000
     cases = [(n, m, k, ("bfloat16", "float32")) for n in (1, 17, N)
-             for m in (1, 15, 4097, M) for k in (1, 7, 20, 32, 33, 64, 100)
+             for m in (1, 15, 4097, M)
+             for k in (1, 7, 20, 32, 33, 64, 100, 128, 129, 200)
              if (n, m) != (N, M)]
     cases += [(n, mu_fused.cluster_max_m(k) + d, k, ("float32",))
               for k in (1, 7, 20, 32) for d in (0, 1)
@@ -570,53 +577,97 @@ def u_pass_edges(check, torch, mu_fused, newton_fused):
 def u_pass_phase(check, torch, mu_fused, newton_fused):
     """Phase 3, K1 and K2: each against its plain version at the main
     shape, bf16 and f32 X (outputs NaN-filled, two calls bitwise equal),
+    at k = 20 and on the wide route at k in WIDE_UPASS_K (u_pass_wide),
     then at the edges (u_pass_edges)."""
+    rec = u_pass_main(check, torch, mu_fused, newton_fused, K, SEED)
+    for k in WIDE_UPASS_K:
+        rec.update(u_pass_main(check, torch, mu_fused, newton_fused, k,
+                               SEED + 24))
+    u_pass_edges(check, torch, mu_fused, newton_fused)
+    return rec
+
+
+WIDE_UPASS_K = (40, 100)  # K1/K2's wide route at the main shape
+
+
+def u_pass_main(check, torch, mu_fused, newton_fused, k, seed):
+    """K1 and K2 at the main shape and k components, bf16 and f32 X, each
+    against its plain version (K1's U_new rtol 1e-4, numV and gramU 1e-4
+    relative Frobenius; K2's rows agreeing 0.999, numV 1e-3), outputs
+    NaN-filled, two calls bitwise equal, timed beside the plain version.
+    Keyed (<kernel>, dtype) at k <= 32 and (<kernel>_wide, dtype, k) on the
+    wide route (k > 32: u_pass_wide.cu). The bound counts X once and the
+    factors (bytes) against 4 n m k flops at the type's rate; on the wide
+    route f32 X's operations are its split products instead, six TF32
+    products for X V and three for X^T U_new, 2 n m k flops each, at the
+    TF32 rate."""
     import numpy as np
 
-    rng = np.random.RandomState(SEED)
+    rng = np.random.RandomState(seed)
     dev = torch.device("cuda")
-    X32, U, V, Vn, Xn32 = upass_inputs(torch, rng, N, M, K, dev)
+    wide = k > mu_fused.K_NARROW
+    X32, U, V, Vn, Xn32 = upass_inputs(torch, rng, N, M, k, dev)
     l1, l2, eps, pert = 1e-3, 2e-3, 1e-10, 0.2
     VtV, BtB, Hinv = upass_mats(torch, V, Vn, l2, pert)
     rec = {}
-    for xname, cast in (("bfloat16", lambda a: a.to(torch.bfloat16)),
-                        ("float32", lambda a: a)):
-        X, Xn = cast(X32), cast(Xn32)
+    for xname in ("bfloat16", "float32"):
+        X, Xn = X32.to(getattr(torch, xname)), Xn32.to(getattr(torch, xname))
         row_sq = (Xn.float() ** 2).sum(dim=1)
         xb = X.element_size()
-        nbytes = N * M * xb + 4 * (3 * N * K + 2 * M * K + 2 * K * K)
-        flops = 4.0 * N * M * K
-        bms, bby = bound(nbytes, flops, BF16_FLOPS if xb == 2 else F32_FLOPS)
-        log(f"phase 3: X {xname}")
-        # K1
-        def k1():
-            return mu_fused.fused_mu_u_pass(X, U, V, VtV, l1, l2, eps)
-        out, again = nan_filled(k1), k1()
-        torch.cuda.synchronize()
-        ref = mu_fused.fused_mu_u_pass_ref(X, U, V, VtV, l1, l2, eps)
-        torch.cuda.synchronize()
-        err = float((out[0] - ref[0]).abs().max())
-        check(bool(torch.allclose(out[0], ref[0], rtol=1e-4, atol=0.0)),
-              f"K1[{xname}] U_new rtol 1e-4 (max abs err {err:.3g})")
-        for i, nm in ((1, "numV"), (2, "gramU")):
-            e = rel_fro(out[i], ref[i])
-            check(e <= 1e-4, f"K1[{xname}] {nm} rel Frobenius {e:.3g} <= 1e-4")
-        check(all(bool(torch.equal(a, b)) for a, b in zip(out, again)),
-              f"K1[{xname}] outputs NaN-filled, two calls bitwise equal")
-        ms = time_ms(k1)
-        dms = device_ms(k1)
-        pms = time_ms(lambda: mu_fused.fused_mu_u_pass_ref(X, U, V, VtV, l1,
-                                                           l2, eps))
-        log(f"  K1[{xname}] kernel {ms:.4f} ms (device alone {dms:.4f}), "
-            f"plain {pms:.4f} ms, bound {bms:.4f} ms ({bby})")
-        rec[("fused_mu_u_pass", xname)] = dict(
-            max_abs_err=err, ms=ms, device_ms=dms, plain_ms=pms,
-            bound_ms=bms, bound_by=bby)
-        if xname == "float32":
+        nbytes = N * M * xb + 4 * (3 * N * k + 2 * M * k + 2 * k * k)
+        if xb == 2:
+            bms, bby = bound(nbytes, 4.0 * N * M * k, BF16_FLOPS)
+        elif wide:
+            bms, bby = bound(nbytes, 9 * 2.0 * N * M * k, TF32_FLOPS)
+        else:
+            bms, bby = bound(nbytes, 4.0 * N * M * k, F32_FLOPS)
+        log(f"phase 3: X {xname}, k={k}")
+        kw = dict(trials=TRIALS, non_negative=True)
+        args = (Xn, U, Vn, BtB, Hinv, row_sq, l1, l2)
+        for name, short, fn, ref in (
+                ("fused_mu_u_pass", "K1",
+                 lambda: mu_fused.fused_mu_u_pass(X, U, V, VtV, l1, l2, eps),
+                 lambda: mu_fused.fused_mu_u_pass_ref(X, U, V, VtV, l1, l2,
+                                                      eps)),
+                ("fused_newton_linear_u_pass", "K2",
+                 lambda: newton_fused.fused_newton_linear_u_pass(*args, **kw),
+                 lambda: newton_fused.fused_newton_linear_u_pass_ref(
+                     *args, **kw))):
+            tag = f"{short}[{xname}, k={k}]"
+            out, again = nan_filled(fn), fn()
+            torch.cuda.synchronize()
+            want = ref()
+            torch.cuda.synchronize()
+            err = float((out[0] - want[0]).abs().max())
+            if short == "K1":
+                check(bool(torch.allclose(out[0], want[0], rtol=1e-4,
+                                          atol=0.0)),
+                      f"{tag} U_new rtol 1e-4 (max abs err {err:.3g})")
+                for i, nm in ((1, "numV"), (2, "gramU")):
+                    e = rel_fro(out[i], want[i])
+                    check(e <= 1e-4, f"{tag} {nm} rel Frobenius {e:.3g} "
+                          "<= 1e-4")
+            else:
+                agree = newton_rows_agree(out[0], want[0])
+                check(agree >= 0.999, f"{tag} U_new rows agreeing to rtol "
+                      f"1e-4: {agree:.6f} >= 0.999 (max abs err {err:.3g})")
+                e = rel_fro(out[1], want[1])
+                check(e <= 1e-3, f"{tag} numV rel Frobenius {e:.3g} <= 1e-3")
+            check(all(bool(torch.equal(a, b)) for a, b in zip(out, again)),
+                  f"{tag} outputs NaN-filled, two calls bitwise equal")
+            ms, dms, pms = time_ms(fn), device_ms(fn), time_ms(ref)
+            log(f"  {tag}{' wide route:' if wide else ''} kernel {ms:.4f} ms "
+                f"(device alone {dms:.4f}), plain {pms:.4f} ms, bound "
+                f"{bms:.4f} ms ({bby})")
+            key = (name + "_wide", xname, k) if wide else (name, xname)
+            rec[key] = dict(max_abs_err=err, ms=ms, device_ms=dms,
+                            plain_ms=pms, bound_ms=bms, bound_by=bby)
+            del out, again, want
+        if xname == "float32" and not wide:
             # the cluster route: the plan's clusters, the card's resident
             # ones (cudaOccupancyMaxActiveClusters), one read of X
-            plan = mu_fused.plan_for(X, K)
-            limit = mu_fused.cluster_limit(X.device.index, K,
+            plan = mu_fused.plan_for(X, k)
+            limit = mu_fused.cluster_limit(X.device.index, k,
                                            plan.slice_cols)
             check(0 < plan.clusters <= limit,
                   f"K1/K2[float32] take the cluster route: {plan.clusters} "
@@ -625,37 +676,9 @@ def u_pass_phase(check, torch, mu_fused, newton_fused):
             rec[("fused_mu_u_pass", xname)].update(
                 clusters=plan.clusters, resident_clusters=limit,
                 slice_cols=plan.slice_cols)
-        # K2
-        kw = dict(trials=TRIALS, non_negative=True)
-        args = (Xn, U, Vn, BtB, Hinv, row_sq, l1, l2)
-
-        def k2():
-            return newton_fused.fused_newton_linear_u_pass(*args, **kw)
-        out, again = nan_filled(k2), k2()
-        torch.cuda.synchronize()
-        ref = newton_fused.fused_newton_linear_u_pass_ref(*args, **kw)
-        torch.cuda.synchronize()
-        err = float((out[0] - ref[0]).abs().max())
-        agree = newton_rows_agree(out[0], ref[0])
-        check(agree >= 0.999, f"K2[{xname}] U_new rows agreeing to rtol "
-              f"1e-4: {agree:.6f} >= 0.999 (max abs err {err:.3g})")
-        e = rel_fro(out[1], ref[1])
-        check(e <= 1e-3, f"K2[{xname}] numV rel Frobenius {e:.3g} <= 1e-3")
-        check(all(bool(torch.equal(a, b)) for a, b in zip(out, again)),
-              f"K2[{xname}] outputs NaN-filled, two calls bitwise equal")
-        ms = time_ms(k2)
-        dms = device_ms(k2)
-        pms = time_ms(lambda: newton_fused.fused_newton_linear_u_pass_ref(
-            *args, **kw))
-        log(f"  K2[{xname}] kernel {ms:.4f} ms (device alone {dms:.4f}), "
-            f"plain {pms:.4f} ms, bound {bms:.4f} ms ({bby})")
-        rec[("fused_newton_linear_u_pass", xname)] = dict(
-            max_abs_err=err, ms=ms, device_ms=dms, plain_ms=pms,
-            bound_ms=bms, bound_by=bby)
-        del X, Xn, row_sq, out, again, ref, args
-    del X32, Xn32
+        del X, Xn, row_sq, args
+    del X32, Xn32, U, V, Vn
     torch.cuda.empty_cache()
-    u_pass_edges(check, torch, mu_fused, newton_fused)
     return rec
 
 
@@ -4803,12 +4826,12 @@ def main() -> int:
     common_w = dict(common, n_components=wide_k)
     _, mu_w = run_fit(
         check, lambda: CMF(**mu_kw, **common_w), X, Y,
-        per_iter(fused_mu_u_pass=1, fused_mu_update=2), "MU fit, k=40")
+        per_iter(fused_mu_u_pass_wide=1, fused_mu_update=2), "MU fit, k=40")
     sig = lambda U, V, Z: numpy_cmf.loss(  # noqa: E731
         X64, Y64, U, V, Z, y_link="sigmoid")
     _, pa_w = run_fit_checked(
         check, lambda: CMF(**a_kw, **common_w), X, Y,
-        per_iter(fused_newton_linear_u_pass=1, sigmoid_gh_pass=1,
+        per_iter(fused_newton_linear_u_pass_wide=1, sigmoid_gh_pass=1,
                  sigmoid_phi_pass=1, batched_spd_solve_wide=2), (),
         "path A fit, k=40", sig, "device")
     log("phase 7: path S, stochastic minibatch Newton (path A with "
@@ -4866,7 +4889,7 @@ def main() -> int:
     common_100 = dict(common, n_components=100)
     _, pa_100 = run_fit_checked(
         check, lambda: CMF(**a_kw, **common_100), X, Y,
-        per_iter(fused_newton_linear_u_pass=1, sigmoid_gh_pass=1,
+        per_iter(fused_newton_linear_u_pass_wide=1, sigmoid_gh_pass=1,
                  sigmoid_phi_pass=1, batched_spd_solve_block=2), (),
         "path A fit, k=100", sig, "device")
 
@@ -5520,13 +5543,32 @@ def main() -> int:
              ("newton_fused.py:179",),
              ("fused_newton_linear_u_pass", "bfloat16"), pa,
              {"f32": ("fused_newton_linear_u_pass", "float32")}),
+            # the fp8 forms at k <= 32; e4m3 X at k > 32 runs the wide
+            # route (u_pass_wide.cu) and counts under <kernel>_wide
             ("fused_mu_u_pass_fp8", "mu_fused.cu", ("mu_fused.py:143",),
-             ("fused_mu_u_pass", "fp8", K), fp8["mu"],
-             {"k40": ("fused_mu_u_pass", "fp8", 40)}),
+             ("fused_mu_u_pass", "fp8", K), fp8["mu"], {}),
             ("fused_newton_linear_u_pass_fp8", "newton_fused.cu",
              ("newton_fused.py:179",),
-             ("fused_newton_linear_u_pass", "fp8", K), fp8["path_a"],
-             {"k40": ("fused_newton_linear_u_pass", "fp8", 40)}),
+             ("fused_newton_linear_u_pass", "fp8", K), fp8["path_a"], {}),
+            # the wide route (k > 32, every X dtype): MU and path A at
+            # k = 40, path A at k = 100
+            ("fused_mu_u_pass_wide", "u_pass_wide.cu", ("mu_fused.py:143",),
+             ("fused_mu_u_pass_wide", "bfloat16", 40), mu_w,
+             {"k100": ("fused_mu_u_pass_wide", "bfloat16", 100),
+              "f32_k40": ("fused_mu_u_pass_wide", "float32", 40),
+              "f32_k100": ("fused_mu_u_pass_wide", "float32", 100),
+              "fp8_k40": ("fused_mu_u_pass", "fp8", 40)}),
+            ("fused_newton_linear_u_pass_wide", "u_pass_wide.cu",
+             ("newton_fused.py:179",),
+             ("fused_newton_linear_u_pass_wide", "bfloat16", 40),
+             {"launches": {"fused_newton_linear_u_pass_wide": sum(
+                 f["launches"].get("fused_newton_linear_u_pass_wide", 0)
+                 for f in (pa_w, pa_100))}},
+             {"k100": ("fused_newton_linear_u_pass_wide", "bfloat16", 100),
+              "f32_k40": ("fused_newton_linear_u_pass_wide", "float32", 40),
+              "f32_k100": ("fused_newton_linear_u_pass_wide", "float32",
+                           100),
+              "fp8_k40": ("fused_newton_linear_u_pass", "fp8", 40)}),
             ("sigmoid_gh_pass_fp8", "sigmoid_newton.cu",
              ("sigmoid_newton.py:94",), ("sigmoid_gh_pass", "B[fp8]"),
              fp8["path_b"], {"t": ("sigmoid_gh_pass", "Bt[fp8]")}),
@@ -5599,6 +5641,11 @@ def main() -> int:
                               else "operations"),
                  "bound_detail": r["bound_by"],
                  "library_ms": r.get("library_ms")}
+        if kname.endswith("_wide"):  # launches per path: MU, A at 40, 100
+            entry["launches_by_path"] = {
+                lab: f["launches"].get(kname, 0) for lab, f in (
+                    ("mu_k40", mu_w), ("path_a_k40", pa_w),
+                    ("path_a_k100", pa_100))}
         if kname in api_launches:  # phase 10's calls: ops.spmm, the RMSE
             entry["api_launches"] = api_launches[kname]
         if kname in ("fused_mu_u_pass", "fused_newton_linear_u_pass"):

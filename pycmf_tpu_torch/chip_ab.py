@@ -19,14 +19,16 @@ tree's build also prints the machine instructions of those kernels, from
   bell_spmm and fused_mu_update on the 20NG, RCV1 and block-structured
   shapes, and the BlockEll/CSR crossover fill;
 - ``upass``: K1 ``fused_mu_u_pass`` and K2 ``fused_newton_linear_u_pass``
-  at the main shape (X 30000 x 11314, k = 20, bf16 and f32; then X rounded
-  to e4m3 at k = 20 and 40, each beside its bf16 form on X widened to
-  bf16, which it must equal bit for bit), each held against its plain
-  version and timed with the host's wrapper (``ms``), on the device alone
-  (``device_ms``) and per kernel of the call (``kernels_us``,
-  torch.profiler), its outputs digested (``bitwise``: the trees' bits must
-  agree; f32 X's ``digest`` is not compared, its summation order being
-  free to change), beside one read of X by ``torch.sum`` (``x_read``: the
+  at the main shape (X 30000 x 11314, bf16 and f32, k = 20 and the wide
+  route's k = 40, 64 and 100; then X rounded to e4m3 at k = 20, 40 and
+  100, each beside its bf16 form on X widened to bf16, which it must equal
+  bit for bit), each held against its plain version (and timed beside it,
+  ``plain_ms``), two calls bitwise equal, and timed with the host's
+  wrapper (``ms``), on the device alone (``device_ms``) and per kernel of
+  the call (``kernels_us``, torch.profiler), its outputs digested
+  (``bitwise``: the trees' bits must agree; f32 X's ``digest`` at k = 20
+  is not compared, its summation order being free to change), beside one
+  read of X by ``torch.sum`` (``x_read``: the
   rate a plain stream reaches; for e4m3 a sum over X's uint8 view, which
   PyTorch's integer reduction does not run at a streaming rate);
 - ``paths``: chip_smoke phase 8's kernel-vs-plain fits of MU, Newton linear
@@ -109,9 +111,11 @@ PHASES = {
                "cs.sparse_phase(check, torch)"),
     # the CUDA-core kernels are instantiated at KP = 20, the tensor-core
     # ones at NT = 3 tiles of 8 columns
-    "upass": (("mu_fused", "newton_fused"),
+    # the wide route's kernels (u_pass_wide, k > 32; in the parent the
+    # mu_fused and newton_fused libraries' slices) at every count of tiles
+    "upass": (("mu_fused", "newton_fused", "u_pass_wide"),
               ("Li20E", "Li3E", "u_pass_reduce", "reduce_parts",
-               "u_pass_cluster"),
+               "u_pass_cluster", "wide", "Lb1EE"),
               "upass_ab(check, torch, cs)"),
     "paths": (("mu_fused", "newton_fused", "sigmoid_newton", "batched_solve",
                "mu_update"), ("Li20E", "Li3E"),
@@ -147,11 +151,14 @@ PHASES = {
 }
 UPASS = """
 def upass_ab(check, torch, cs):
-    # K1 and K2 at the main shape: bf16 and f32 X at k = 20, then e4m3 X
-    # (the same values rounded to e4m3, as chip_smoke phase 3 rounds them)
-    # at k = 20 and 40, each e4m3 call beside its bf16 form on X widened to
-    # bf16, which it must equal bit for bit; every output is digested, so
-    # chip_ab's main compares the trees' bits
+    # K1 and K2 at the main shape (X 30000 x 11314): bf16 and f32 X at k =
+    # 20 (the narrow route) and at k = 40, 64 and 100 (the wide route), then
+    # e4m3 X (the same values rounded to e4m3, as chip_smoke phase 3 rounds
+    # them) at k = 20, 40 and 100, each e4m3 call beside its bf16 form on X
+    # widened to bf16, which it must equal bit for bit; each call held
+    # against its plain version and timed beside it; every output is
+    # digested, so chip_ab's main compares the trees' bits (f32 X at k =
+    # 20 digested, not compared: its summation order is free to change)
     import hashlib
     import numpy as np
     from pycmf_tpu_torch.ops.kernels import mu_fused, newton_fused
@@ -159,6 +166,7 @@ def upass_ab(check, torch, cs):
     dev = torch.device("cuda")
     N, M, K = cs.N, cs.M, cs.K
     E4M3 = "float8_e4m3fn"
+    WIDE = (40, 64, 100)
 
     def f32(a):
         return torch.from_numpy(a.astype(np.float32)).to(dev)
@@ -169,14 +177,12 @@ def upass_ab(check, torch, cs):
             h.update(t.cpu().numpy().tobytes())
         return h.hexdigest()[:16]
 
-    X32, U, V = f32(rng.rand(N, M)), f32(abs(rng.randn(N, K))), \\
-        f32(abs(rng.randn(M, K)))
-    Vn = f32(rng.randn(M, K))
-    Xn32 = f32(abs(rng.randn(N, K))) @ Vn.T + (X32 - 0.5)
-    # the k = 40 operands of the e4m3 form, drawn after the k = 20 ones
-    U40, V40, Vn40 = f32(abs(rng.randn(N, 40))), f32(abs(rng.randn(M, 40))), \\
-        f32(rng.randn(M, 40))
-    Xn40_32 = f32(abs(rng.randn(N, 40))) @ Vn40.T + (X32 - 0.5)
+    X32 = f32(rng.rand(N, M))
+    ops = {}  # k: (U, V, Vn, Xn as f32), the k = 20 ones drawn first
+    for k in (K,) + WIDE:
+        U, V, Vn = (f32(abs(rng.randn(N, k))), f32(abs(rng.randn(M, k))),
+                    f32(rng.randn(M, k)))
+        ops[k] = (U, V, Vn, f32(abs(rng.randn(N, k))) @ Vn.T + (X32 - 0.5))
 
     def calls(X, Xn, U, V, Vn):
         k = V.shape[1]
@@ -194,55 +200,65 @@ def upass_ab(check, torch, cs):
                  (Xn, U, Vn, BtB, Hinv, rs, 1e-3, 2e-3),
                  dict(trials=cs.TRIALS, non_negative=True)))
 
-    def timed(run, got, same_bits=True):
-        # f32 X's bits may differ between trees (a tree with the cluster
-        # route sums in another order): digested, not compared
-        return dict(ms=cs.time_ms(run), device_ms=cs.device_ms(run),
-                    kernels_us=per_kernel(torch, run),
-                    **{"bitwise" if same_bits else "digest": digest(got)})
+    def held(tag, got, want):
+        dev_row = (got[0] - want[0]).abs().amax(dim=1)
+        scale = want[0].abs().amax(dim=1).clamp_min(1e-30)
+        agree = float((dev_row <= 1e-4 * scale).float().mean())
+        e = cs.rel_fro(got[1], want[1])
+        check(agree >= 0.999 and e <= 1e-3, f"{tag} rows agreeing "
+              f"{agree:.6f}, numV rel Frobenius {e:.3g}")
+
+    def timed(run, got, plain=None, same_bits=True):
+        rec = dict(ms=cs.time_ms(run), device_ms=cs.device_ms(run),
+                   kernels_us=per_kernel(torch, run),
+                   **{"bitwise" if same_bits else "digest": digest(got)})
+        if plain is not None:
+            rec["plain_ms"] = cs.time_ms(plain)
+        return rec
 
     rec = {}
     for xname in ("bfloat16", "float32"):
         dt = getattr(torch, xname)
-        X, Xn = X32.to(dt), Xn32.to(dt)
+        X = X32.to(dt)
         # yardstick: one read of X by PyTorch's own reduction
         rec[f"x_read[{xname}]"] = dict(device_ms=cs.device_ms(
             lambda: X.sum(dtype=torch.float32)))
-        for name, fn, ref, args, kw in calls(X, Xn, U, V, Vn):
-            got, want = fn(*args, **kw), ref(*args, **kw)
-            dev_row = (got[0] - want[0]).abs().amax(dim=1)
-            scale = want[0].abs().amax(dim=1).clamp_min(1e-30)
-            agree = float((dev_row <= 1e-4 * scale).float().mean())
-            e = cs.rel_fro(got[1], want[1])
-            check(agree >= 0.999 and e <= 1e-3, f"{name}[{xname}] rows "
-                  f"agreeing {agree:.6f}, numV rel Frobenius {e:.3g}")
-            rec[f"{name}[{xname}]"] = timed(lambda: fn(*args, **kw), got,
-                                            xname != "float32")
-        del X, Xn
+        for k in (K,) + WIDE:
+            U, V, Vn, Xn32 = ops[k]
+            Xn = Xn32.to(dt)
+            at = "" if k == K else f", k={k}"
+            for name, fn, ref, args, kw in calls(X, Xn, U, V, Vn):
+                got, again = fn(*args, **kw), fn(*args, **kw)
+                held(f"{name}[{xname}{at}]", got, ref(*args, **kw))
+                same = all(bool(torch.equal(a, b))
+                           for a, b in zip(got, again))
+                check(same, f"{name}[{xname}{at}] two calls bitwise equal")
+                rec[f"{name}[{xname}{at}]"] = timed(
+                    lambda: fn(*args, **kw), got,
+                    lambda: ref(*args, **kw),
+                    xname != "float32" or k != K)
+            del Xn
+        del X
     X8 = X32.to(torch.float8_e4m3fn)
     rec[f"x_read[{E4M3}]"] = dict(device_ms=cs.device_ms(
         lambda: X8.view(torch.uint8).sum(dtype=torch.int64)))
-    for k, Xn_k, Uk, Vk, Vnk in ((K, Xn32, U, V, Vn),
-                                 (40, Xn40_32, U40, V40, Vn40)):
+    for k in (K, 40, 100):
+        Uk, Vk, Vnk, Xn_k = ops[k]
         Xn8 = Xn_k.to(torch.float8_e4m3fn)
         Xb, Xnb = X8.to(torch.bfloat16), Xn8.to(torch.bfloat16)
         wide = calls(Xb, Xnb, Uk, Vk, Vnk)
         for (name, fn, ref, args, kw), (_, _, _, args_b, _) in zip(
                 calls(X8, Xn8, Uk, Vk, Vnk), wide):
             got, again = fn(*args, **kw), fn(*args, **kw)
-            bf, want = fn(*args_b, **kw), ref(*args, **kw)
-            dev_row = (got[0] - want[0]).abs().amax(dim=1)
-            scale = want[0].abs().amax(dim=1).clamp_min(1e-30)
-            agree = float((dev_row <= 1e-4 * scale).float().mean())
-            e = cs.rel_fro(got[1], want[1])
+            bf = fn(*args_b, **kw)
+            tag = f"{name}[{E4M3}, k={k}]"
+            held(tag, got, ref(*args, **kw))
             same = all(bool(torch.equal(a, b)) for a, b in zip(got, again))
             eq = all(bool(torch.equal(a, b)) for a, b in zip(got, bf))
-            check(agree >= 0.999 and e <= 1e-3 and same and eq,
-                  f"{name}[{E4M3}, k={k}] rows agreeing {agree:.6f}, numV "
-                  f"rel Frobenius {e:.3g}, two calls bitwise equal {same}, "
+            check(same and eq, f"{tag} two calls bitwise equal {same}, "
                   f"equal to the bf16 form on X widened {eq}")
-            rec[f"{name}[{E4M3}, k={k}]"] = timed(lambda: fn(*args, **kw),
-                                                  got)
+            rec[tag] = timed(lambda: fn(*args, **kw), got,
+                             lambda: ref(*args, **kw))
             rec[f"{name}[bf16 form of {E4M3}, k={k}]"] = timed(
                 lambda: fn(*args_b, **kw), bf)
         del Xn8, Xb, Xnb

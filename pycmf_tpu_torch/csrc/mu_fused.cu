@@ -24,8 +24,8 @@
 // X^T U_new on tensor cores in row segments, partial sums reduced in a fixed
 // order. Both sweeps stream X through cp.async rings, so X is read twice per
 // call (1.36 GB at the main-path shape); the two-pass bound is 0.41 ms.
-// k > 32 takes the skeleton's wide route (32-component slices, the ratio in
-// a kernel of its own). f32 X (the estimator's default dtype: 1.358 GB at
+// k > 32 is the wide route's (u_pass_wide.cu: X read once per sweep at any
+// k <= 128, the ratio in a kernel of its own). f32 X (the estimator's default dtype: 1.358 GB at
 // the main-path shape, 0.41 ms per pass) at k <= 32 and m up to the plan's
 // crossover takes the cluster route instead (u_pass_cluster.cuh): X read
 // once, the ratio run by the CTA that owns each row.
@@ -64,18 +64,6 @@ struct MuEpi {
     prefetch_l2(u + k - 1);
   }
 
-  // k > 32 (u_pass_common.cuh: wide_rows_kernel): the same ratio, lanes
-  // striding the components, VtV read through L1.
-  __device__ void wide(int row, const float* xv, float* out, float*) const {
-    const int lane = threadIdx.x & 31;
-    const float* u = U + (size_t)row * k;
-    for (int c = lane; c < k; c += 32) {
-      float den = 0.f;
-      for (int l = 0; l < k; ++l) den += u[l] * VtV[(size_t)l * k + c];
-      const float un = u[c] * xv[c] / (den + l1 + l2 * u[c] + eps);
-      out[c] = row < n_valid ? un : 0.f;
-    }
-  }
 };
 
 }  // namespace pycmf

@@ -26,9 +26,9 @@
 // every lane, so the accept test is warp-uniform. All per-row arithmetic is
 // f32 FMA on the CUDA cores: no TF32, whose ~1e-3 relative error swamps the
 // line search's small late decreases. Steps 2^-j are exact (ldexpf).
-// k > 32 takes the skeleton's wide route: the same step and line search in
-// a kernel of its own, one warp per row, lanes striding the components,
-// its k-term products summed in f64 (NewtonEpi::wide). f32 X at k <= 32
+// k > 32 is the wide route's (u_pass_wide.cu): the same step and line
+// search on tiles of rows in a kernel of its own, its k-term products
+// summed in f64. f32 X at k <= 32
 // takes the cluster route of mu_fused.cu (u_pass_cluster.cuh), this
 // file's row() run by the CTA that owns each row.
 #include "u_pass_cluster.cuh"
@@ -91,77 +91,6 @@ struct NewtonEpi {
     prefetch_l2(u);
     prefetch_l2(u + k - 1);
     prefetch_l2(row_sq + row);
-  }
-
-  // phi of candidate j (j < 0: U's row itself, unprojected) for the wide
-  // route: lanes stride the components, sums in f64, then butterfly sums.
-  __device__ double wide_phi(int j, const float* u, const float* d,
-                             const float* db, float rs) const {
-    const int lane = threadIdx.x & 31;
-    auto cand = [&](int c) {
-      if (j < 0) return u[c];
-      const float mc = u[c] - ldexpf(1.f, -j) * d[c];
-      return non_negative ? fmaxf(mc, 0.f) : mc;
-    };
-    double quad = 0.0, lin = 0.0, a1 = 0.0, a2 = 0.0;
-    for (int c = lane; c < k; c += 32) {
-      double bm = 0.0;
-      for (int l = 0; l < k; ++l)
-        bm += (double)cand(l) * BtB[(size_t)l * k + c];
-      const double mc = cand(c);
-      quad += bm * mc;
-      lin += (double)db[c] * mc;
-      a1 += fabs(mc);
-      a2 += mc * mc;
-    }
-    const double pen = l1 * warp_sum_d(a1) + 0.5 * l2 * warp_sum_d(a2);
-    return pen + 0.5 * (rs - 2.0 * warp_sum_d(lin) + warp_sum_d(quad));
-  }
-
-  // k > 32 (u_pass_common.cuh: wide_rows_kernel): g goes to out, d to
-  // scratch, both rows of global memory read through L1 by the warp; the
-  // line search as row() runs it. BtB and Hinv are read through L1. The
-  // k-term products are summed in f64: with k > m, g = U BtB - DB cancels
-  // and Hinv amplifies it, and 100-term f32 chains moved rows that the
-  // plain version's blocked f32 products did not.
-  __device__ void wide(int row, const float* db, float* out,
-                       float* d) const {
-    const int lane = threadIdx.x & 31;
-    const float* u = U + (size_t)row * k;
-    const float rs = row_sq[row];
-    for (int c = lane; c < k; c += 32) {
-      double ub = 0.0;
-      for (int l = 0; l < k; ++l) ub += (double)u[l] * BtB[(size_t)l * k + c];
-      const float uc = u[c];
-      const float sgn = uc > 0.f ? 1.f : (uc < 0.f ? -1.f : 0.f);
-      out[c] = (float)(ub - db[c] + (double)(l1 * sgn) + (double)(l2 * uc));
-    }
-    __syncwarp();
-    for (int c = lane; c < k; c += 32) {
-      double dc = 0.0;
-      for (int l = 0; l < k; ++l)
-        dc += (double)out[l] * Hinv[(size_t)l * k + c];
-      d[c] = (float)dc;
-    }
-    __syncwarp();  // every read of g is done, d is written
-    if (trials <= 0) {
-      for (int c = lane; c < k; c += 32) {
-        const float best = u[c] - d[c];
-        out[c] = non_negative ? fmaxf(best, 0.f) : best;
-      }
-      return;
-    }
-    const double phi0 = wide_phi(-1, u, d, db, rs);
-    for (int j = 0; j < trials; ++j) {
-      if (wide_phi(j, u, d, db, rs) < phi0) {  // warp-uniform
-        for (int c = lane; c < k; c += 32) {
-          const float mc = u[c] - ldexpf(1.f, -j) * d[c];
-          out[c] = non_negative ? fmaxf(mc, 0.f) : mc;
-        }
-        return;
-      }
-    }
-    for (int c = lane; c < k; c += 32) out[c] = u[c];
   }
 };
 

@@ -35,23 +35,9 @@
 //   4. u_pass_reduce_kernel sums the row segments' partials (numV) and the
 //                       row sweep's Gram partials (gramU), each in order.
 //
-// For k > 32 (the wide route) the factor dimension goes in 32-column
-// slices, and the epilogue leaves the row sweep:
-//
-//   1. vt_kernel        as above, NP = 32 * ceil(k / 32) rows.
-//   2. xv_rows_kernel   grid (row blocks, slices): X V for the slice's 32
-//                       components into an (n, k) f32 scratch (kWide);
-//                       f32 X in six TF32 products (xv_stage_mma_6x).
-//   3. wide_rows_kernel one 256-thread CTA per 64 rows: the caller's row
-//                       epilogue (Epi::wide), one warp per row and
-//                       ceil(k / 32) components per lane, its k x k
-//                       matrices read through L1; then UxT and the CTA's
-//                       Gram partial, as the row sweep writes them.
-//   3'. xtu_cols_kernel grid (column slices, row segments, k slices).
-//   4. u_pass_reduce_kernel as above, over the full k x k Gram.
-//
-// X is read once more per slice by the row sweep. The k <= 32 route is
-// unchanged by this one.
+// For k > 32 the wide route of u_pass_wide.cuh (its own library,
+// u_pass_wide.cu) runs these sweeps' stages with every n8 tile of the factor
+// dimension in one CTA and the epilogue in a kernel of its own.
 //
 // Each stage's mma chain starts from zero and is added to the running f32
 // sum in ordinary rounded adds (promote): a chain over all of m or n lost
@@ -428,16 +414,13 @@ __device__ __forceinline__ void xv_stage_mma_6x(const float* alo,
 // 2. The row sweep and the caller's epilogue (see the header comment).
 // Epi provides kMats, stage<NP>(mats) and row<NP>(row, xv, mats): one warp,
 // lane = component, returning U_new's component (masked by the caller).
-// kWide (k > 32, NT = 4): slice blockIdx.y of V's components only, its
-// X V written to Unew (then the (n, k) X V scratch), no epilogue.
-template <typename XT, int NT, bool kPairs, typename Epi, bool kWide = false>
+template <typename XT, int NT, bool kPairs, typename Epi>
 __global__ void __launch_bounds__(ARows<XT>::kThreads,
                                   ARows<XT>::kMinBlocks)
     xv_rows_kernel(const XT* __restrict__ X, int n, int m, int k,
                    const op_t<XT>* __restrict__ Vt, int ld_vt, Epi epi,
                    float* __restrict__ Unew, op_t<XT>* __restrict__ UxT,
                    int ld_ux, float* __restrict__ gram_part) {
-  if constexpr (kWide) Vt += (size_t)blockIdx.y * NT * 8 * ld_vt;
   using OT = op_t<XT>;
   using Sm = ASmem<XT, NT>;
   using Ti = UTile<XT>;
@@ -550,29 +533,12 @@ __global__ void __launch_bounds__(ARows<XT>::kThreads,
       }
     } else {
       float part[NT][4] = {};
-      if constexpr (kWide && sizeof(XT) == 4)
-        xv_stage_mma_6x<kPairs, NT>(Xs + rlo * L + olo, Xs + rhi * L + ohi,
-                                    stage_v(Xs), part, g, t);
-      else
-        xv_stage_mma<kPairs, NT>(Xs + rlo * L + olo, Xs + rhi * L + ohi,
-                                 stage_v(Xs), part, g, t);
+      xv_stage_mma<kPairs, NT>(Xs + rlo * L + olo, Xs + rhi * L + ohi,
+                               stage_v(Xs), part, g, t);
       promote(acc, part);
     }
   }
   cp_async_wait<0>();
-  if constexpr (kWide) {
-    const int c0 = blockIdx.y * NT * 8;
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int row = row0 + rlo + 8 * h, c = c0 + j * 8 + 2 * t + e;
-          if (row < n && c < k) Unew[(size_t)row * k + c] = acc[j][2 * h + e];
-        }
-    return;
-  }
   __syncthreads();  // the ring is free: reuse it for the epilogue
 
   float* XVs = reinterpret_cast<float*>(smem_raw);  // RA x NP
@@ -628,43 +594,6 @@ __global__ void __launch_bounds__(ARows<XT>::kThreads,
       for (int r = 0; r < kARows; ++r) s += u[r * NP + a] * u[r * NP + b];
       gram_part[(size_t)block * kk2 + ee] = s;
     }
-  }
-}
-
-// 3 (k > 32). The row epilogue on the X V scratch: Epi::wide(row, xv, out,
-// scratch) runs one warp per row, lanes striding the components, and
-// writes U_new's row to out (which it may use as scratch before), with
-// scratch a k-float row of its own. Then UxT for NP components and the
-// CTA's Gram partial, over rows in order, as the row sweep writes them.
-constexpr int kEThreads = 256;
-
-template <typename OT, typename Epi>
-__global__ void __launch_bounds__(kEThreads)
-    wide_rows_kernel(int n, int k, int np, Epi epi, const float* XV,
-                     float* scratch, float* Unew, OT* __restrict__ UxT,
-                     int ld_ux, float* __restrict__ gram_part) {
-  const int tid = threadIdx.x, warp = tid >> 5;
-  const int row0 = blockIdx.x * kARows;
-  for (int r = warp; r < kARows; r += kEThreads / 32) {
-    const int row = row0 + r;
-    if (row < n)  // warp-uniform
-      epi.wide(row, XV + (size_t)row * k, Unew + (size_t)row * k,
-               scratch + (size_t)row * k);
-  }
-  __syncthreads();  // every row of the block is written
-  for (int e = tid; e < np * kARows; e += kEThreads) {
-    const int c = e / kARows, row = row0 + e % kARows;
-    OT ux;
-    from_float(row < n && c < k ? Unew[(size_t)row * k + c] : 0.f, ux);
-    UxT[(size_t)c * ld_ux + row] = ux;
-  }
-  const int rows = min(kARows, n - row0);
-  for (int e = tid; e < k * k; e += kEThreads) {
-    const int a = e / k, b = e % k;
-    float s = 0.f;
-    for (int r = 0; r < rows; ++r)
-      s += Unew[(size_t)(row0 + r) * k + a] * Unew[(size_t)(row0 + r) * k + b];
-    gram_part[(size_t)blockIdx.x * k * k + e] = s;
   }
 }
 
@@ -743,7 +672,7 @@ __device__ __forceinline__ int xtu_row(int s, int i, int t) {
 }
 
 // 3. numV partial of row segment blockIdx.y for columns blockIdx.x * 128 ...
-// and components slice blockIdx.z (of NT * 8; one slice when k <= 32).
+// and components slice blockIdx.z (of NT * 8: one slice, blockIdx.z = 0).
 template <typename XT, int NT>
 __global__ void __launch_bounds__(kBThreads, 2)
     xtu_cols_kernel(const XT* __restrict__ X, int n, int m, int k,
@@ -1053,7 +982,7 @@ struct UPassWork {
   float* gram_part;  // ceil(n / kARows) x k x k
   float* numv_part;  // n_seg x m x k (unused when n_seg == 1); for k > 32
                      // at least 2 n k floats: before the column sweep
-                     // writes it, the X V scratch, then Epi::wide's
+                     // writes it, the X V scratch, then the epilogue's
   int ld_vt, ld_ux, seg_rows, n_seg;
   // f32 X at k <= 32 and m <= 16 * kCMaxCols: the cluster route's clusters
   // and columns per CTA (u_pass_cluster.cuh); 0 on the two-sweep routes
@@ -1081,22 +1010,19 @@ int allow_smem(Kernel kernel, int bytes, bool& done) {
   return 0;
 }
 
-template <typename XT, int NT, bool kPairs, typename Epi, bool kWide = false>
+template <typename XT, int NT, bool kPairs, typename Epi>
 int launch_rows(const XT* X, int n, int m, int k, const Epi& epi,
-                float* Unew, const UPassWork& w, int n_slices,
-                cudaStream_t st) {
+                float* Unew, const UPassWork& w, cudaStream_t st) {
   constexpr int smem = ASmem<XT, NT>::kBytes;
-  static_assert(kWide || 2 * ARows<XT>::kRows * NT * 8 * 4 +
-                                 Epi::kMats * NT * NT * 64 * 4 <=
-                             smem,
+  static_assert(2 * ARows<XT>::kRows * NT * 8 * 4 +
+                        Epi::kMats * NT * NT * 64 * 4 <=
+                    smem,
                 "epilogue buffers exceed the ring");
   static bool ready = false;
-  if (int e = allow_smem(xv_rows_kernel<XT, NT, kPairs, Epi, kWide>, smem,
-                         ready))
+  if (int e = allow_smem(xv_rows_kernel<XT, NT, kPairs, Epi>, smem, ready))
     return e;
-  xv_rows_kernel<XT, NT, kPairs, Epi, kWide>
-      <<<dim3(ceil_div(n, ARows<XT>::kRows), n_slices), ARows<XT>::kThreads,
-         smem, st>>>(
+  xv_rows_kernel<XT, NT, kPairs, Epi>
+      <<<ceil_div(n, ARows<XT>::kRows), ARows<XT>::kThreads, smem, st>>>(
           X, n, m, k, static_cast<const op_t<XT>*>(w.vt), w.ld_vt, epi, Unew,
           static_cast<op_t<XT>*>(w.uxt), w.ld_ux, w.gram_part);
   return 0;
@@ -1104,32 +1030,27 @@ int launch_rows(const XT* X, int n, int m, int k, const Epi& epi,
 
 // Kernel 2 for X's alignment: bf16 (e4m3) pairs are 4-byte (2-byte)
 // aligned when X is and rows hold an even count.
-template <typename XT, int NT, typename Epi, bool kWide = false>
+template <typename XT, int NT, typename Epi>
 int launch_rows_aligned(const XT* X, int n, int m, int k, const Epi& epi,
-                        float* Unew, const UPassWork& w, int n_slices,
-                        cudaStream_t st) {
+                        float* Unew, const UPassWork& w, cudaStream_t st) {
   if constexpr (sizeof(XT) < 4) {
     if (reinterpret_cast<uintptr_t>(X) % (2 * sizeof(XT)) == 0 && m % 2 == 0)
-      return launch_rows<XT, NT, true, Epi, kWide>(X, n, m, k, epi, Unew, w,
-                                                   n_slices, st);
-    return launch_rows<XT, NT, false, Epi, kWide>(X, n, m, k, epi, Unew, w,
-                                                  n_slices, st);
+      return launch_rows<XT, NT, true, Epi>(X, n, m, k, epi, Unew, w, st);
+    return launch_rows<XT, NT, false, Epi>(X, n, m, k, epi, Unew, w, st);
   } else {
-    return launch_rows<XT, NT, true, Epi, kWide>(X, n, m, k, epi, Unew, w,
-                                                 n_slices, st);
+    return launch_rows<XT, NT, true, Epi>(X, n, m, k, epi, Unew, w, st);
   }
 }
 
-// Kernels 3 and 4 (3' with n_slices > 1). Templated on Epi although it
+// Kernels 3 and 4. Templated on Epi although it
 // does not use it: a static local of a template function is one object
 // across every loaded library that instantiates it (a GNU unique symbol),
 // and each library must set the shared-memory limit of its own kernel.
 template <typename XT, int NT, typename Epi>
 int launch_cols_reduce(const XT* X, int n, int m, int k, float* numV,
-                       float* gramU, const UPassWork& w, int n_slices,
-                       cudaStream_t st) {
+                       float* gramU, const UPassWork& w, cudaStream_t st) {
   constexpr int smem_b = BSmem<XT, NT>::kBytes;
-  const dim3 grid(ceil_div(m, kBCols), w.n_seg, n_slices);
+  const dim3 grid(ceil_div(m, kBCols), w.n_seg);
   float* out = w.n_seg == 1 ? numV : w.numv_part;
   if constexpr (UTile<XT>::kWiden > 1) {
     // e4m3: byte pairs of a row are 2-byte aligned when X is and rows hold
@@ -1172,35 +1093,13 @@ int launch_u_pass_nt(const XT* X, const float* V, int n, int m, int k,
   const long long n_vt = (long long)NP * w.ld_vt;
   vt_kernel<op_t<XT>><<<(int)((n_vt + 255) / 256), 256, 0, st>>>(
       V, m, k, NP, w.ld_vt, static_cast<op_t<XT>*>(w.vt));
-  if (int e = launch_rows_aligned<XT, NT>(X, n, m, k, epi, Unew, w, 1, st))
+  if (int e = launch_rows_aligned<XT, NT>(X, n, m, k, epi, Unew, w, st))
     return e;
-  return launch_cols_reduce<XT, NT, Epi>(X, n, m, k, numV, gramU, w, 1, st);
+  return launch_cols_reduce<XT, NT, Epi>(X, n, m, k, numV, gramU, w, st);
 }
 
-// k > 32: the wide route of the header comment, in 32-component slices.
-template <typename XT, typename Epi>
-int launch_u_pass_wide(const XT* X, const float* V, int n, int m, int k,
-                       const Epi& epi, float* Unew, float* numV, float* gramU,
-                       const UPassWork& w, cudaStream_t st) {
-  const int n_slices = ceil_div(k, 32);
-  const int np = 32 * n_slices;
-  float* xv = w.numv_part;
-  float* scratch = w.numv_part + (size_t)n * k;
-  const long long n_vt = (long long)np * w.ld_vt;
-  vt_kernel<op_t<XT>><<<(int)((n_vt + 255) / 256), 256, 0, st>>>(
-      V, m, k, np, w.ld_vt, static_cast<op_t<XT>*>(w.vt));
-  if (int e = launch_rows_aligned<XT, 4, Epi, true>(X, n, m, k, epi, xv, w,
-                                                    n_slices, st))
-    return e;
-  wide_rows_kernel<op_t<XT>, Epi><<<ceil_div(n, kARows), kEThreads, 0, st>>>(
-      n, k, np, epi, xv, scratch, Unew, static_cast<op_t<XT>*>(w.uxt), w.ld_ux,
-      w.gram_part);
-  return launch_cols_reduce<XT, 4, Epi>(X, n, m, k, numV, gramU, w, n_slices,
-                                        st);
-}
-
-// The whole call for X's dtype XT, with NT = ceil(k / 8) n8 tiles (k <= 32)
-// or the wide route.
+// The whole call for X's dtype XT, with NT = ceil(k / 8) n8 tiles; k > 32
+// is the wide route's (u_pass_wide.cu), refused here.
 template <typename XT, typename Epi>
 int launch_u_pass(const void* X, const float* V, int n, int m, int k,
                   const Epi& epi, float* Unew, float* numV, float* gramU,
@@ -1220,8 +1119,7 @@ int launch_u_pass(const void* X, const float* V, int n, int m, int k,
       return launch_u_pass_nt<XT, 4>(x, V, n, m, k, epi, Unew, numV, gramU, w,
                                      st);
     default:
-      return launch_u_pass_wide<XT>(x, V, n, m, k, epi, Unew, numV, gramU, w,
-                                    st);
+      return (int)cudaErrorInvalidValue;
   }
 }
 

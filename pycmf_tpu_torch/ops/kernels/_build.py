@@ -21,9 +21,9 @@ from typing import Any, Dict, Tuple
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-NAMES = ("mu_fused", "newton_fused", "sigmoid_newton", "batched_solve",
-         "batched_solve_wide", "csr_spmm", "bell_spmm", "mu_update",
-         "fit_loop", "threefry")
+NAMES = ("mu_fused", "newton_fused", "u_pass_wide", "sigmoid_newton",
+         "batched_solve", "batched_solve_wide", "csr_spmm", "bell_spmm",
+         "mu_update", "fit_loop", "threefry")
 DEFAULT_NVCC = Path("/usr/local/cuda/bin/nvcc")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -13,9 +13,10 @@ for fp8 X (float8_e4m3fn, widened to bf16 exactly:
 ``matmul.operand_dtype``). The kernel is ``csrc/mu_fused.cu`` on the
 skeleton ``csrc/u_pass_common.cuh`` (two sweeps over X), or for f32 X at
 k <= 32 ``csrc/u_pass_cluster.cuh`` (clusters of 16 CTAs, one read of X),
-shared with ``newton_fused``; this module holds the Python side of both:
-:func:`u_pass_plan` (the route, tiles, row segments and workspace layout,
-computed here only) and :func:`launch_u_pass`.
+and at k > 32 ``csrc/u_pass_wide.cu`` (two sweeps, each reading X once at
+any k <= 128), shared with ``newton_fused``; this module holds the Python
+side of all three: :func:`u_pass_plan` (the route, tiles, row segments and
+workspace layout, computed here only) and :func:`launch_u_pass`.
 """
 from __future__ import annotations
 
@@ -29,9 +30,11 @@ from ..matmul import FP8_DTYPES, operand_dtype
 from . import _build
 from .policy import launch_count, on_card
 
-# the fp8 form (e4m3 X) is counted apart from the f32 and bf16 forms
+# the fp8 form (e4m3 X) is counted apart from the f32 and bf16 forms, and
+# the wide route (k > K_NARROW, any X dtype) apart from both
 LAUNCHES = launch_count("fused_mu_u_pass")
 LAUNCHES_FP8 = launch_count("fused_mu_u_pass_fp8")
+LAUNCHES_WIDE = launch_count("fused_mu_u_pass_wide")
 
 # Geometry of the CUDA U-pass (csrc/u_pass_common.cuh; the C side checks
 # the plan it is given against the same rules).
@@ -40,8 +43,9 @@ B_COLS = 128         # columns per CTA of the column sweep (X^T U_new)
 VT_ALIGN = 128       # Vᵀ's leading dimension: whole 256-byte bf16 stages
 B_CTAS_PER_SM = 2    # column-sweep CTAs resident per SM (its launch bounds)
 WORK_ALIGN = 64      # workspace parts start on 256-byte boundaries (floats)
-K_SLICE = 32         # k > K_SLICE: the wide route, in K_SLICE-component slices
-# The cluster route of f32 X at k <= K_SLICE (csrc/u_pass_cluster.cuh): one
+K_NARROW = 32        # k > K_NARROW: the wide route (csrc/u_pass_wide.cu)
+WIDE_SLICE = 128     # the wide route's components per slice above this k
+# The cluster route of f32 X at k <= K_NARROW (csrc/u_pass_cluster.cuh): one
 # read of X per call
 C_CTAS = 16          # CTAs per cluster, each a slice of m's columns
 C_ROWS = 16          # rows per band (one row of each band per CTA)
@@ -57,8 +61,9 @@ class UPassPlan(NamedTuple):
     """One call's launch plan and workspace layout (all counts in elements;
     ``offsets`` and ``floats`` in float32 words of one workspace)."""
     nt: int              # n8 tiles of the factor dimension: ceil(k / 8),
-    #                      or 4 per slice on the wide route
-    k_slices: int        # component slices: 1, or ceil(k / 32) for k > 32
+    #                      or on the wide route wide_nt(k) a slice, times
+    #                      k_slices
+    k_slices: int        # component slices: 1, or wide_slices(k) for k > 32
     ld_vt: int           # row stride of Vᵀ in the operand dtype (NP rows)
     ld_ux: int           # row stride of U_newᵀ in the operand dtype
     row_blocks: int      # row-sweep CTAs, each A_ROWS rows
@@ -66,8 +71,9 @@ class UPassPlan(NamedTuple):
     seg_rows: int        # rows per row segment of the column sweep
     n_seg: int           # row segments (numV partials when > 1)
     offsets: Tuple[int, int, int, int]  # vt, uxt, Gram and numV partials
-    #                      (the last also the wide route's X V and scratch,
-    #                      2 n k floats, which the column sweep overwrites)
+    #                      (the last also the wide route's X V and its
+    #                      epilogue's scratch, 2 n k floats, which the column
+    #                      sweep overwrites)
     floats: int          # workspace size
     clusters: int = 0    # the cluster route's clusters of C_CTAS CTAs (f32
     #                      X, k <= 32, m <= cluster_max_m(k)); 0: two sweeps
@@ -76,6 +82,23 @@ class UPassPlan(NamedTuple):
 
 def _ceil(a: int, b: int) -> int:
     return -(-a // b)
+
+
+def wide_nt(k: int) -> int:
+    """n8 tiles per slice of the wide route at k > K_NARROW: ceil(k / 8) up
+    to 8, then the next even count, up to 16 (one slice of 128 components);
+    16 above. The C entry takes it from the plan and instantiates these
+    counts alone (csrc/u_pass_wide.cuh: with_wide_nt)."""
+    if k > WIDE_SLICE:
+        return WIDE_SLICE // 8
+    t = _ceil(k, 8)
+    return t if t <= 8 else _ceil(t, 2) * 2
+
+
+def wide_slices(k: int) -> int:
+    """Component slices of the wide route: one at k <= WIDE_SLICE, so each
+    sweep reads X once; above, slices of WIDE_SLICE components."""
+    return 1 if k <= WIDE_SLICE else _ceil(k, WIDE_SLICE)
 
 
 def cluster_smem(w: int, np_: int, mats: int = 2) -> int:
@@ -91,7 +114,7 @@ def cluster_smem(w: int, np_: int, mats: int = 2) -> int:
 
 @functools.lru_cache(maxsize=None)
 def cluster_max_m(k: int) -> int:
-    """The widest m the cluster route takes at k <= K_SLICE: C_CTAS slices
+    """The widest m the cluster route takes at k <= K_NARROW: C_CTAS slices
     of the most columns (a multiple of 16, at most C_MAX_COLS) whose CTA
     fits SMEM_OPTIN; wider X takes the two sweeps. 12288 to k = 16,
     11520 to 24, 9984 to 32."""
@@ -112,10 +135,14 @@ def u_pass_plan(n: int, m: int, k: int, op_bytes: int, n_sm: int,
     takes as many row segments as keep its CTAs within one resident wave
     (B_CTAS_PER_SM per SM), at least one; segments are whole row-sweep
     blocks, so each starts on a row where X's 16-byte alignment repeats.
-    For k > K_SLICE the factor dimension goes in K_SLICE-component slices
-    (csrc/u_pass_common.cuh: the wide route).
+    For k > K_NARROW the wide route (csrc/u_pass_wide.cu) keeps these row
+    segments and takes one slice of wide_nt(k) n8 tiles at k <= WIDE_SLICE,
+    else wide_slices(k) slices of 16; its X V and the epilogue's scratch
+    (2 n k floats) share the last workspace part, and for f32 X it keeps
+    Vᵀ as three planes (its TF32 parts hi, mid, lo) and U_newᵀ as two
+    (hi, lo), each of the same rows.
 
-    f32 X at k <= K_SLICE and m <= cluster_max_m(k) takes the cluster route
+    f32 X at k <= K_NARROW and m <= cluster_max_m(k) takes the cluster route
     (csrc/u_pass_cluster.cuh: one read of X): n_sm // C_CTAS clusters, or
     ``max_clusters`` (the card's count of clusters resident at once) if
     fewer, at least one, walk bands of C_ROWS rows, band b on cluster
@@ -123,8 +150,9 @@ def u_pass_plan(n: int, m: int, k: int, op_bytes: int, n_sm: int,
     every band; the Gram partials are one per CTA, the numV partials one
     per cluster. Its plan keeps the two-sweep fields, and the workspace
     holds either route's parts."""
-    k_slices = 1 if k <= K_SLICE else _ceil(k, K_SLICE)
-    np_ = 8 * _ceil(k, 8) if k_slices == 1 else K_SLICE * k_slices
+    wide = k > K_NARROW
+    k_slices = wide_slices(k) if wide else 1
+    np_ = 8 * (wide_nt(k) * k_slices if wide else _ceil(k, 8))
     row_blocks = _ceil(n, A_ROWS)
     ld_ux = row_blocks * A_ROWS
     ld_vt = _ceil(m, VT_ALIGN) * VT_ALIGN
@@ -133,17 +161,18 @@ def u_pass_plan(n: int, m: int, k: int, op_bytes: int, n_sm: int,
     seg_rows = _ceil(row_blocks, n_seg) * A_ROWS
     n_seg = _ceil(n, seg_rows)
     clusters = slice_cols = 0
-    if op_bytes == 4 and k_slices == 1 and m <= cluster_max_m(k):
+    if op_bytes == 4 and not wide and m <= cluster_max_m(k):
         clusters = n_sm // C_CTAS
         if max_clusters is not None:
             clusters = min(clusters, max_clusters)
         clusters = max(1, clusters)
         slice_cols = 16 * _ceil(m, 16 * C_CTAS)
-    sizes = (_ceil(np_ * ld_vt * op_bytes, 4),
-             _ceil(np_ * ld_ux * op_bytes, 4),
+    planes = 1 + (op_bytes == 4 and wide)   # U_newᵀ's; Vᵀ's one more
+    sizes = ((planes + (planes > 1)) * _ceil(np_ * ld_vt * op_bytes, 4),
+             planes * _ceil(np_ * ld_ux * op_bytes, 4),
              max(row_blocks, C_CTAS * clusters) * k * k,
              max(n_seg * m * k if n_seg > 1 else 0,
-                 2 * n * k if k_slices > 1 else 0,
+                 2 * n * k if wide else 0,
                  clusters * m * k if clusters > 1 else 0))
     offsets, at = [], 0
     for size in sizes:
@@ -198,15 +227,19 @@ def plan_for(X: torch.Tensor, k: int) -> UPassPlan:
 X_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float8_e4m3fn: 2}
 
 
-def launches(X: torch.Tensor, plain, fp8):
-    """The launch counter of a data-pass kernel's form for X: its fp8 form
-    (e4m3 X) is counted apart."""
+def launches(X: torch.Tensor, plain, fp8, wide=None, k: int = 0):
+    """The launch counter of a data-pass kernel's form for X: the U passes'
+    wide route (k > K_NARROW, ``wide``) apart, then the fp8 form (e4m3 X)
+    apart."""
+    if wide is not None and k > K_NARROW:
+        return wide
     return fp8 if X.dtype in FP8_DTYPES else plain
 
 
 # leading C arguments of both entry points: X's code, X, U, V; trailing:
-# clusters, slice_cols, Unew, numV, gramU, the four workspace parts, ld_vt,
-# ld_ux, seg_rows, n_seg, device, stream
+# clusters and slice_cols (the wide route's entries: nt and k_slices), Unew,
+# numV, gramU, the four workspace parts, ld_vt, ld_ux, seg_rows, n_seg,
+# device, stream
 _HEAD = (ctypes.c_int,) + (ctypes.c_void_p,) * 3
 _TAIL = ((ctypes.c_int,) * 2 + (ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 5
          + (ctypes.c_void_p,))
@@ -220,12 +253,19 @@ def entry(library: str, symbol: str, middle) -> object:
 def launch_u_pass(library: str, symbol: str, middle_types, X, U, V, middle):
     """Run a U-pass entry point on X (n, m), U (n, k), V (m, k) with the
     library's own arguments ``middle`` (tensors passed by pointer, held
-    until the launch is enqueued); returns (U_new, numV, gramU)."""
-    fn = entry(library, symbol, middle_types)
+    until the launch is enqueued); returns (U_new, numV, gramU). At k >
+    K_NARROW the call goes to the wide route's entry, ``<symbol>_wide`` in
+    ``u_pass_wide``, which takes the plan's n8 tiles a slice and k_slices
+    where the narrow entries take clusters and slice_cols."""
     n, m = X.shape
     k = U.shape[1]
-    dev = X.device.index
     plan = plan_for(X, k)
+    route = (plan.clusters, plan.slice_cols)
+    if k > K_NARROW:
+        library, symbol = "u_pass_wide", symbol + "_wide"
+        route = (plan.nt // plan.k_slices, plan.k_slices)
+    fn = entry(library, symbol, middle_types)
+    dev = X.device.index
     work = torch.empty(plan.floats, dtype=torch.float32, device=X.device)
     # the three outputs in one allocation, viewed after the launch (the
     # host's time before it is part of the call's)
@@ -236,7 +276,7 @@ def launch_u_pass(library: str, symbol: str, middle_types, X, U, V, middle):
     rc = fn(X_CODES[X.dtype], X.data_ptr(), U.data_ptr(),
             V.data_ptr(),
             *(a.data_ptr() if isinstance(a, torch.Tensor) else a
-              for a in middle), plan.clusters, plan.slice_cols,
+              for a in middle), *route,
             obase, obase + 4 * n * k, obase + 4 * (n + m) * k,
             *(base + 4 * o for o in plan.offsets),
             plan.ld_vt, plan.ld_ux, plan.seg_rows, plan.n_seg, dev,
@@ -310,7 +350,8 @@ def fused_mu_u_pass(X, U, V, VtV, l1, l2, eps, n_valid=None):
     X: (n, m) dense, float32, bfloat16 or float8_e4m3fn on the card; U:
     (n, k), V: (m, k), VtV: (k, k) float32. Returns (U_new (n, k), numV
     (m, k), gramU (k, k)). CUDA tensors launch ``csrc/mu_fused.cu`` (its
-    fp8 form for e4m3 X); CPU tensors take :func:`fused_mu_u_pass_ref`.
+    fp8 form for e4m3 X; ``csrc/u_pass_wide.cu`` at k > 32); CPU tensors
+    take :func:`fused_mu_u_pass_ref`.
     """
     check_data_dtype(X)
     if not on_card(X, U, V, VtV):
@@ -323,5 +364,5 @@ def fused_mu_u_pass(X, U, V, VtV, l1, l2, eps, n_valid=None):
         (VtV.contiguous(), X.shape[0], X.shape[1], U.shape[1],
          X.shape[0] if n_valid is None else int(n_valid), float(l1),
          float(l2), float(eps)))
-    launches(X, LAUNCHES, LAUNCHES_FP8).n += 1
+    launches(X, LAUNCHES, LAUNCHES_FP8, LAUNCHES_WIDE, U.shape[1]).n += 1
     return out

@@ -13,7 +13,7 @@ DB = X V:
 
 plus numV = Xᵀ U_new and gramU = U_newᵀ U_new as in ``mu_fused``, with the
 same rounding points (fp8 X contracts in bf16). The kernel is
-``csrc/newton_fused.cu``.
+``csrc/newton_fused.cu``, or ``csrc/u_pass_wide.cu`` at k > 32.
 """
 from __future__ import annotations
 
@@ -30,6 +30,7 @@ from .policy import launch_count, on_card
 
 LAUNCHES = launch_count("fused_newton_linear_u_pass")
 LAUNCHES_FP8 = launch_count("fused_newton_linear_u_pass_fp8")
+LAUNCHES_WIDE = launch_count("fused_newton_linear_u_pass_wide")
 
 
 def fused_newton_linear_u_pass_ref(X, U, V, BtB, Hinv, row_sq, l1, l2, *,
@@ -66,8 +67,9 @@ def fused_newton_linear_u_pass(X, U, V, BtB, Hinv, row_sq, l1, l2, *,
     (n, k), V: (m, k);
     BtB = VᵀV and Hinv = (BtB + (l2 + pert)·I)⁻¹: (k, k); row_sq: (n,)
     per-row ‖xᵢ‖², all float32. Returns (U_new, numV = XᵀU_new,
-    gramU = U_newᵀU_new). CUDA tensors launch ``csrc/newton_fused.cu``; CPU
-    tensors take :func:`fused_newton_linear_u_pass_ref`.
+    gramU = U_newᵀU_new). CUDA tensors launch ``csrc/newton_fused.cu``
+    (``csrc/u_pass_wide.cu`` at k > 32); CPU tensors take
+    :func:`fused_newton_linear_u_pass_ref`.
     """
     check_data_dtype(X)
     if not on_card(X, U, V, BtB, Hinv, row_sq):
@@ -87,5 +89,5 @@ def fused_newton_linear_u_pass(X, U, V, BtB, Hinv, row_sq, l1, l2, *,
         (BtB.contiguous(), Hinv.contiguous(),
          row_sq.to(torch.float32).contiguous(), n, m, U.shape[1], float(l1),
          float(l2), int(trials), int(bool(non_negative))))
-    launches(X, LAUNCHES, LAUNCHES_FP8).n += 1
+    launches(X, LAUNCHES, LAUNCHES_FP8, LAUNCHES_WIDE, U.shape[1]).n += 1
     return out

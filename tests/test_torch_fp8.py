@@ -496,6 +496,8 @@ def fake_launch(monkeypatch):
     def fake_load(name):
         return types.SimpleNamespace(
             pycmf_mu_fused_u_pass=entry, pycmf_newton_fused_u_pass=entry,
+            pycmf_mu_fused_u_pass_wide=entry,
+            pycmf_newton_fused_u_pass_wide=entry,
             pycmf_sigmoid_gh_pass=entry, pycmf_sigmoid_phi_pass=entry,
             pycmf_u_pass_cluster_occupancy=occupancy,
             pycmf_error_string=lambda rc: b"fake failure")
@@ -586,10 +588,12 @@ def test_fp8_launch_edges_take_the_bf16_plan(rng, fake_launch, kernel, n, m,
                                              k):
     """At the edges of the U pass's tiles (one row, a ragged row block,
     several; one column, odd m, a ragged column slice; k from one n8 tile
-    to the wide route's two 32-component slices), e4m3 X launches with
-    code 2 and the bf16 call's plan: the same leading dimensions, row
-    segments and workspace layout, which the C side's e4m3 stages split
-    into the bf16 form's chains. It counts under <kernel>_fp8 alone."""
+    to the wide route's one slice of eight), e4m3 X launches with code 2
+    and the bf16 call's plan: the same leading dimensions, row segments
+    and workspace layout, which the C side's e4m3 stages split into the
+    bf16 form's chains. It counts under <kernel>_fp8 alone, or at k > 32
+    under <kernel>_wide with the bf16 call (<kernel>_fp8 counts k <= 32
+    alone)."""
     X = _t(_in_range(rng, n, m))
     U, V = _t(rng.rand(n, k)), _t(rng.rand(m, k))
     S = _t(np.eye(k))
@@ -613,4 +617,12 @@ def test_fp8_launch_edges_take_the_bf16_plan(rng, fake_launch, kernel, n, m,
     assert ([a - bf16[-10] for a in bf16[-10:-6]]
             == [a - fp8[-10] for a in fp8[-10:-6]])
     counts = policy.launch_counts()
-    assert counts[kernel] == 1 and counts[kernel + "_fp8"] == 1
+    if k > 32:
+        # the wide entry takes the plan's n8 tiles a slice and its slices
+        # where the narrow one takes clusters and slice_cols
+        assert bf16[-15:-13] == fp8[-15:-13] == (plan.nt // plan.k_slices,
+                                                  plan.k_slices)
+        assert (counts[kernel], counts[kernel + "_fp8"],
+                counts[kernel + "_wide"]) == (0, 0, 2)
+    else:
+        assert counts[kernel] == 1 and counts[kernel + "_fp8"] == 1

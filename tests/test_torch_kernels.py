@@ -237,22 +237,26 @@ def test_u_pass_plan_at_the_main_shape():
     assert p.floats * 4 < 5 * 2 ** 20  # under 5 MB of scratch per call
 
 
-# The two sweeps' plan (with the wide route's slices) as it stands without
-# the cluster route: bf16 and e4m3 X keep it field for field.
+# The two sweeps' plan (with the wide route's slices: one of ceil(k / 8) n8
+# tiles, 9-16 rounded up to even, at k <= 128; 128-component slices above)
+# as it stands without the cluster route: bf16 and e4m3 X keep it field for
+# field.
 def _two_sweep_plan(n, m, k, op_bytes, n_sm):
     ceil = lambda a, b: -(-a // b)
-    k_slices = 1 if k <= 32 else ceil(k, 32)
-    np_ = 8 * ceil(k, 8) if k_slices == 1 else 32 * k_slices
+    k_slices = 1 if k <= 128 else ceil(k, 128)
+    nt = ceil(k, 8) if k <= 64 else 16 if k > 128 else 2 * ceil(k, 16)
+    np_ = 8 * nt * k_slices
     row_blocks = ceil(n, 64)
     ld_ux, ld_vt = row_blocks * 64, ceil(m, 128) * 128
     col_slices = ceil(m, 128)
     n_seg = min(max(1, 2 * n_sm // col_slices), row_blocks)
     seg_rows = ceil(row_blocks, n_seg) * 64
     n_seg = ceil(n, seg_rows)
-    sizes = (ceil(np_ * ld_vt * op_bytes, 4), ceil(np_ * ld_ux * op_bytes, 4),
-             row_blocks * k * k,
+    planes = 2 if op_bytes == 4 and k > 32 else 1  # f32: TF32 parts
+    sizes = ((planes + planes // 2) * ceil(np_ * ld_vt * op_bytes, 4),
+             planes * ceil(np_ * ld_ux * op_bytes, 4), row_blocks * k * k,
              max(n_seg * m * k if n_seg > 1 else 0,
-                 2 * n * k if k_slices > 1 else 0))
+                 2 * n * k if k > 32 else 0))
     offsets, at = [], 0
     for size in sizes:
         offsets.append(at)
@@ -872,7 +876,7 @@ def test_sigmoid_wrappers_refuse_fp8_and_transposed_views(rng):
 # plans and operand checks (the CUDA kernels take any k, wider than 32 in
 # 32-component slices or tiles of the product table) ------------------------
 
-_WIDE_K = [33, 40, 64]
+_WIDE_K = [33, 40, 64, 100]
 
 
 @pytest.mark.parametrize("k", _WIDE_K)
@@ -889,9 +893,10 @@ def test_mu_pass_wide_k_f64_matches_pallas(rng, k):
 
 @pytest.mark.parametrize("k", _WIDE_K)
 def test_newton_pass_wide_k_f64_matches_pallas(rng, k):
-    """m = 96 > k: with m < k, BᵀB has rank m and the damped Hinv's
-    condition number (~1e4) amplifies f64 rounding past rtol 1e-10."""
-    X, U, V, BtB, Hinv = _operands(rng, 61, 96, k)
+    """m > k (96, or k + 32 past that): with m < k, BᵀB has rank m and
+    the damped Hinv's condition number (~1e4) amplifies f64 rounding past
+    rtol 1e-10."""
+    X, U, V, BtB, Hinv = _operands(rng, 61, max(96, k + 32), k)
     row_sq = (X ** 2).sum(axis=1)
     kw = dict(trials=8, non_negative=True)
     want = j_newton(jnp.asarray(X), jnp.asarray(U), jnp.asarray(V),
@@ -930,23 +935,75 @@ def test_sigmoid_phi_wide_k_f64_matches_pallas(rng, k):
 @pytest.mark.parametrize("x_bytes", [2, 4])
 def test_u_pass_plan_wide_k_slices_cover_each_component_once(n, m, k,
                                                              x_bytes):
-    """k > 32 (csrc/u_pass_common.cuh's wide route): 32-component slices
-    cover 0 .. k-1 exactly once, Vᵀ and U_newᵀ hold every slice's rows,
-    and the last workspace part holds the X V and scratch rows (2 n k
-    floats) as well as the column sweep's partials."""
+    """k > 32 (csrc/u_pass_wide.cu's wide route): at k <= 128 one slice
+    of ceil(k / 8) n8 tiles (from 9, the next even count: the instantiated
+    ones) covers 0 .. k-1, so each sweep reads X once; Vᵀ and U_newᵀ hold
+    its rows, and the last workspace part holds the X V and scratch rows
+    (2 n k floats) as well as the column sweep's partials."""
     p = mu_fused.u_pass_plan(n, m, k, x_bytes, 132)
-    assert p.k_slices == -(-k // 32) and p.nt == 4 * p.k_slices
+    assert p.k_slices == 1 and p.nt == mu_fused.wide_nt(k)
+    # the n8 tile counts the C side instantiates (u_pass_wide.cuh)
+    assert p.nt in (5, 6, 7, 8, 10, 12, 14, 16)
+    assert 8 * p.nt - 16 < k <= 8 * p.nt
     comps = [c for s in range(p.k_slices)
-             for c in range(32 * s, min(k, 32 * (s + 1)))]
+             for c in range(8 * p.nt * s, min(k, 8 * p.nt * (s + 1)))]
     assert comps == list(range(k))
-    assert 8 * p.nt >= k
     ends = list(p.offsets[1:]) + [p.floats]
-    sizes = (8 * p.nt * p.ld_vt * x_bytes / 4, 8 * p.nt * p.ld_ux * x_bytes / 4,
+    planes = 2 if x_bytes == 4 else 1  # f32: Vᵀ's 3 TF32 parts, U_newᵀ's 2
+    sizes = ((planes + planes // 2) * 8 * p.nt * p.ld_vt * x_bytes / 4,
+             planes * 8 * p.nt * p.ld_ux * x_bytes / 4,
              p.row_blocks * k * k,
              max(2 * n * k, p.n_seg * m * k if p.n_seg > 1 else 0))
     for off, size, end in zip(p.offsets, sizes, ends):
         assert off % mu_fused.WORK_ALIGN == 0 and off + size <= end
     assert mu_fused.u_pass_plan(n, m, 32, x_bytes, 132).k_slices == 1
+
+
+@pytest.mark.parametrize("n,m", [(1, 1), (65, 129), (30000, 11314)])
+@pytest.mark.parametrize("k", [100, 128, 129, 200])
+@pytest.mark.parametrize("x_bytes", [2, 4])
+def test_u_pass_plan_wide_route_covers_rows_columns_components_once(
+        n, m, k, x_bytes):
+    """The wide route's grids (csrc/u_pass_wide.cuh): the row sweep's
+    blocks (128 rows times the slices, the slice fastest), the epilogue's
+    64-row blocks and the column sweep's blocks (slice, 128-column block,
+    row segment, the slice fastest) each cover every row, column and
+    component once, counted on numpy grids; one slice up to k = 128,
+    slices of 128 components above; the workspace parts hold Vᵀ and U_newᵀ
+    (every slice's rows; f32 X: three and two planes of TF32 parts), the
+    Gram partials and the X V and scratch rows within the plan's floats."""
+    p = mu_fused.u_pass_plan(n, m, k, x_bytes, 132)
+    ceil = lambda a, b: -(-a // b)  # noqa: E731
+    assert p.k_slices == mu_fused.wide_slices(k) == (1 if k <= 128 else
+                                                      ceil(k, 128))
+    per = 8 * p.nt // p.k_slices  # components a slice
+    assert per == (8 * mu_fused.wide_nt(k) if k <= 128 else 128)
+    for rows_cta, blocks in ((128, ceil(n, 128)), (64, p.row_blocks)):
+        # the row sweep's blocks, then the epilogue's (every slice at once)
+        slices, width = (p.k_slices, per) if rows_cta == 128 else (1, k)
+        seen = np.zeros((n, k), np.int32)
+        for b in range(blocks * slices):
+            s, r0 = b % slices, b // slices * rows_cta
+            seen[r0:r0 + rows_cta, s * width:(s + 1) * width] += 1
+        assert (seen == 1).all()
+    seen = np.zeros((p.n_seg, m, k), np.int32)
+    for b in range(p.k_slices * p.col_slices * p.n_seg):
+        s = b % p.k_slices
+        c0 = b // p.k_slices % p.col_slices * mu_fused.B_COLS
+        seg = b // p.k_slices // p.col_slices
+        seen[seg, c0:c0 + mu_fused.B_COLS, s * per:(s + 1) * per] += 1
+    assert (seen == 1).all()
+    rows = np.zeros(n, np.int32)
+    for s in range(p.n_seg):
+        rows[s * p.seg_rows:(s + 1) * p.seg_rows] += 1
+    assert (rows == 1).all()
+    planes = 2 if x_bytes == 4 else 1
+    sizes = ((planes + planes // 2) * 8 * p.nt * p.ld_vt * x_bytes / 4,
+             planes * 8 * p.nt * p.ld_ux * x_bytes / 4, p.row_blocks * k * k,
+             max(2 * n * k, p.n_seg * m * k if p.n_seg > 1 else 0))
+    ends = list(p.offsets[1:]) + [p.floats]
+    for off, size, end in zip(p.offsets, sizes, ends):
+        assert off % mu_fused.WORK_ALIGN == 0 and off + size <= end
 
 
 _SPLAN_SHAPES = [(1, 1, 1), (17, 15, 7), (20, 11314, 20), (30000, 11314, 20),
